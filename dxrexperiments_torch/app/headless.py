@@ -1,12 +1,15 @@
 """Headless CLI renderer of the port (``dxrexperiments_tpu.app.headless``,
-progressive pipeline).
+progressive and realtime pipelines).
 
-Builds a Cornell scene, accumulates --spp progressive samples (one per
-frame), writes a PNG and prints spp/s and primary rays/s.
+Builds a Cornell scene and writes a PNG. Progressive: accumulates --spp
+samples (one per frame) and prints spp/s and primary rays/s. Realtime:
+renders one 1-spp frame, optionally through the DenoiseCompositor.
 
 Usage:
     python -m dxrexperiments_torch.app.headless --scene cornell-glossy \
         --size 512x512 --spp 32 --device cuda -o out.png
+    python -m dxrexperiments_torch.app.headless --pipeline realtime --denoise \
+        --scene cornell-glossy --size 1920x1080 --device cuda -o out.png
 
 --device defaults to cuda and fails without a card; pass --device cpu for
 the plain PyTorch path.
@@ -22,8 +25,9 @@ import numpy as np
 import torch
 
 from ..core.camera import Camera
-from ..models.denoise import linear_to_srgb, reinhard_tonemap
+from ..models.denoise import DenoiseCompositor, linear_to_srgb, reinhard_tonemap
 from ..models.progressive import ProgressiveRaytracingPipeline
+from ..models.realtime import RealtimeRaytracingPipeline
 from ..scene import Scene, cornell_box, envmap
 from ..scene.lights import directional_light, point_light
 from ..utils.image import write_png
@@ -85,9 +89,14 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", default="cornell", choices=SCENES)
     ap.add_argument("--size", default="512x512")
     ap.add_argument("--spp", type=int, default=16, help="progressive samples (one per frame)")
-    ap.add_argument("--pipeline", choices=["progressive"], default="progressive",
-                    help="the realtime pipeline waits for ROADMAP Queue A item 8")
-    ap.add_argument("--aov", default=None, choices=sorted(AOV_OPTIONS), help="debug AOV view")
+    ap.add_argument("--pipeline", choices=["progressive", "realtime"], default="progressive")
+    ap.add_argument("--denoise", action="store_true", help="realtime: run DenoiseCompositor")
+    ap.add_argument("--temporal", type=float, default=None, metavar="ALPHA",
+                    help="realtime: temporal accumulation blend factor (e.g. 0.2); the "
+                         "single frame this CLI renders has no history, so the image is "
+                         "the spatial-only one until --frames-in-flight exists")
+    ap.add_argument("--aov", default=None, choices=sorted(AOV_OPTIONS),
+                    help="debug AOV view (progressive pipeline)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--env", default=None,
                     help="environment override: gradient | constant:R,G,B [xStrength]")
@@ -101,6 +110,9 @@ def main(argv=None) -> int:
     ap.add_argument("-o", "--output", default="out.png")
     args = ap.parse_args(argv)
 
+    if (args.save_state or args.resume) and args.pipeline != "progressive":
+        ap.error("--save-state/--resume checkpoint the progressive accumulation state; "
+                 "use --pipeline progressive")
     args.spp = max(args.spp, 1)
     width, height = (int(x) for x in args.size.lower().split("x"))
     if width < 1 or height < 1:
@@ -109,8 +121,38 @@ def main(argv=None) -> int:
     if args.env:
         scene.environment = parse_env(args.env)
     camera.set_aspect(width, height)
-    stats = FrameStats(width, height)
+    if args.pipeline == "realtime":
+        img = _render_realtime(args, scene, camera, width, height)
+    else:
+        img = _render_progressive(args, scene, camera, width, height)
+    img = np.clip(img, 0.0, 1.0)
+    write_png(args.output, img)
+    print(f"wrote {args.output} (mean {img.mean():.4f}, max {img.max():.4f})")
+    return 0
 
+
+def _render_realtime(args, scene, camera, width, height) -> np.ndarray:
+    """One realtime frame, denoised with --denoise; returns the image."""
+    pipe = RealtimeRaytracingPipeline(width, height, seed=args.seed, device=args.device)
+    pipe.set_camera(camera)
+    pipe.set_scene(scene)
+    denoiser = (DenoiseCompositor(temporal_alpha=args.temporal, device=args.device)
+                if args.denoise else None)
+    t0 = time.perf_counter()
+    pipe.update(elapsed_time=0.0, elapsed_frames=0)
+    direct, indirect = pipe.render()
+    final = denoiser.dispatch(direct, indirect) if denoiser else direct + indirect
+    if pipe.device.type == "cuda":
+        torch.cuda.synchronize(pipe.device)
+    dt = time.perf_counter() - t0
+    suffix = "+denoise" if args.denoise else ""
+    print(f"realtime{suffix} ({pipe.device.type}): {width}x{height} in {dt:.2f}s")
+    return final.detach().cpu().numpy()
+
+
+def _render_progressive(args, scene, camera, width, height) -> np.ndarray:
+    """--spp accumulated progressive samples; returns the image."""
+    stats = FrameStats(width, height)
     pipe = ProgressiveRaytracingPipeline(width, height, seed=args.seed, device=args.device)
     pipe.max_iterations = args.spp
     if args.aov:
@@ -138,16 +180,12 @@ def main(argv=None) -> int:
         pipe.save_checkpoint(args.save_state, frames_done=args.spp)
     if args.tonemap:
         out = linear_to_srgb(reinhard_tonemap(out), 2.2)
-    img = out.detach().cpu().numpy()
     frames = max(args.spp - start_frame, 1)
     print(
         f"progressive ({pipe.device.type}): {frames} spp at {width}x{height} in {dt:.2f}s "
         f"({frames / dt:.2f} spp/s, ~{width * height * frames / dt / 1e6:.1f} Mprimary-rays/s)"
     )
-    img = np.clip(img, 0.0, 1.0)
-    write_png(args.output, img)
-    print(f"wrote {args.output} (mean {img.mean():.4f}, max {img.max():.4f})")
-    return 0
+    return out.detach().cpu().numpy()
 
 
 if __name__ == "__main__":

@@ -1,13 +1,18 @@
-// Progressive-sample megakernel for Hopper (sm_90a).
+// Brute-force sample megakernels for Hopper (sm_90a).
 //
-// Replaces the TPU kernel _fused_kernel
-// (dxrexperiments_tpu/ops/fused_sample_pallas.py:640), progressive mode:
-// one launch renders S jittered samples of the whole brute-force ray tree
-// per pixel and writes their sum:
-//   raygen, 5 LCG draws from the TEA pixel seed, the primary closest-hit
-//   sweep (backfaces culled), 2 shadow sweeps, and a diffuse and a Phong
-//   bounce, each with its closest sweep and 2 shadow sweeps (9 sweeps over
-//   the C triangles in all), then the shading epilogue and the sum over S.
+// Replace the TPU kernel _fused_kernel
+// (dxrexperiments_tpu/ops/fused_sample_pallas.py:640) in its two modes:
+// - progressive: one launch renders S jittered samples of the whole
+//   brute-force ray tree per pixel and writes their sum:
+//     raygen, 5 LCG draws from the TEA pixel seed, the primary closest-hit
+//     sweep (backfaces culled), 2 shadow sweeps, and a diffuse and a Phong
+//     bounce, each with its closest sweep and 2 shadow sweeps (9 sweeps over
+//     the C triangles in all), then the shading epilogue and the sum over S;
+// - realtime (fused_sample_pallas.py:861-911): one launch renders S frames,
+//   one sample each, on a (pixel blocks, S) grid; the tree has no diffuse
+//   bounce (6 sweeps), the Phong bounce's shade drops the emissive term, and
+//   each frame writes its own AOVs (direct, indirect specular, albedo,
+//   roughness), so nothing is summed across frames.
 //
 // What bounds it: compute and latency. A pixel-sample does about 9*C
 // Möller–Trumbore pair tests (C = 40 padded triangles for the Cornell box),
@@ -223,10 +228,11 @@ __device__ V3 direct_lighting(const Tris& T, const float* cst, V3 pos, V3 normal
   return v3(d_c.x + p_c.x, d_c.y + p_c.y, d_c.z + p_c.z);
 }
 
-// Depth-1 radiance of an active bounce ray: emissive + albedo * direct / pi
-// on a hit, the environment on a miss.
+// Depth-1 radiance of an active bounce ray: albedo * direct / pi on a hit,
+// plus emissive in progressive mode only (the realtime shader adds none);
+// the environment on a miss.
 __device__ V3 secondary_radiance(const Tris& T, const float* cst, V3 o, V3 d, float pick,
-                                 int env_kind) {
+                                 int env_kind, bool emissive) {
   Hit h = closest_hit(T, o, d, kRayEps, false);
   if (!h.hit) return env_color(d, cst, env_kind);
   V3 direct = direct_lighting(T, cst, h.pos, h.normal, pick);
@@ -235,7 +241,7 @@ __device__ V3 secondary_radiance(const Tris& T, const float* cst, V3 o, V3 d, fl
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     float shade = T.a(A_ALBEDO + k, h.row) * comp(direct, k) / kPi;
-    out[k] = T.a(A_EMISSIVE + k, h.row) * estr + shade;
+    out[k] = emissive ? T.a(A_EMISSIVE + k, h.row) * estr + shade : shade;
   }
   return v3(out[0], out[1], out[2]);
 }
@@ -264,19 +270,70 @@ __device__ V3 hemisphere_dir(V3 n, float r0, float r1, bool cosine) {
 
 __device__ __forceinline__ float sanitize(float x) { return isnan(x) ? 0.0f : fmaxf(x, 0.0f); }
 
-// One progressive sample of pixel (px, py); adds its colour to acc.
-__device__ void sample_pixel(const Tris& T, const float* cm, uint32_t frame, const float* cst,
-                             int px, int py, int width, int height, int env_kind, float acc[3]) {
-  // ---- raygen (primary_ray_grid) ------------------------------------------
+// Raygen (primary_ray_grid): origin (jitter folded in) and unit direction
+// of pixel (px, py) from camera pack row cm.
+__device__ __forceinline__ void primary_ray(const float* cm, int px, int py, int width,
+                                            int height, V3* o, V3* d) {
   float ndcx = ((float)px + 0.5f) / (float)width * 2.0f - 1.0f;
   float pyf = (float)py + cm[12];
   float ndcy = (pyf + 0.5f) / (float)height * 2.0f - 1.0f;
   V3 dun = v3(ndcx * cm[3] + (-ndcy) * cm[6] + cm[9], ndcx * cm[4] + (-ndcy) * cm[7] + cm[10],
               ndcx * cm[5] + (-ndcy) * cm[8] + cm[11]);
   float norm = sqrtf(dot3(dun, dun));
-  V3 d = v3(dun.x / norm, dun.y / norm, dun.z / norm);
-  V3 o = load3(cm);
+  *d = v3(dun.x / norm, dun.y / norm, dun.z / norm);
+  *o = load3(cm);
+}
 
+// 5 LCG draws u1..u5 from the TEA pixel seed.
+__device__ __forceinline__ void draws(int px, int py, int width, uint32_t frame, float u[5]) {
+  uint32_t seed = tea_init((uint32_t)(py * width + px), frame);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    seed = seed * 1664525u + 1013904223u;
+    u[k] = (float)(seed & 0x00FFFFFFu) / 16777216.0f;
+  }
+}
+
+// Phong lobe around the mirror direction of d about normal (samplePhongLobe):
+// the bounce direction and brdf / pdf, guarded against the 0/0 underflow.
+struct Phong {
+  V3 dir;
+  float ratio;
+};
+
+__device__ __forceinline__ Phong phong_lobe(V3 d, V3 normal, float r0, float r1, float exponent) {
+  float don = dot3(d, normal);
+  V3 mirror = normalize3(v3(d.x - 2.0f * don * normal.x, d.y - 2.0f * don * normal.y,
+                            d.z - 2.0f * don * normal.z));
+  V3 tan, bit;
+  onb(mirror, &tan, &bit);
+  float cos_t = powf(r0, 1.0f / (exponent + 1.0f));
+  float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  float phi = kTwoPi * r1;
+  float powered_cos = powf(cos_t, exponent);
+  float pdf = (exponent + 1.0f) / kTwoPi * powered_cos;
+  float brdf = (exponent + 2.0f) / kTwoPi * powered_cos;
+  float xs = sin_t * cosf(phi), zs = sin_t * sinf(phi);
+  Phong p;
+  p.dir = v3(xs * tan.x + cos_t * mirror.x + zs * bit.x,
+             xs * tan.y + cos_t * mirror.y + zs * bit.y,
+             xs * tan.z + cos_t * mirror.z + zs * bit.z);
+  p.ratio = pdf > 1e-30f ? brdf / fmaxf(pdf, 1e-30f) : (exponent + 2.0f) / (exponent + 1.0f);
+  return p;
+}
+
+// Material type 1 or 2 with reflectivity above 0.001 traces the Phong bounce.
+__device__ __forceinline__ bool specular_active(const Tris& T, int r) {
+  float mtype = T.a(A_TYPE, r);
+  return ((fabsf(mtype - 1.0f) < 0.5f) || (fabsf(mtype - 2.0f) < 0.5f)) &&
+         (T.a(A_REFL, r) > 0.001f);
+}
+
+// One progressive sample of pixel (px, py); adds its colour to acc.
+__device__ void sample_pixel(const Tris& T, const float* cm, uint32_t frame, const float* cst,
+                             int px, int py, int width, int height, int env_kind, float acc[3]) {
+  V3 o, d;
+  primary_ray(cm, px, py, width, height, &o, &d);
   Hit h = closest_hit(T, o, d, 0.0f, true);
   if (!h.hit) {
     V3 e = env_color(d, cst, env_kind);
@@ -286,14 +343,8 @@ __device__ void sample_pixel(const Tris& T, const float* cm, uint32_t frame, con
     return;
   }
 
-  // ---- 5 LCG draws from the TEA pixel seed ----------------------------------
-  uint32_t seed = tea_init((uint32_t)(py * width + px), frame);
   float u[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k) {
-    seed = seed * 1664525u + 1013904223u;
-    u[k] = (float)(seed & 0x00FFFFFFu) / 16777216.0f;
-  }
+  draws(px, py, width, frame, u);
   const bool is_mc = cst[F_IS_MC] > 0.5f;
   const bool no_ind = cst[F_NO_IND] > 0.5f;
   const bool cosine = cst[F_COSINE] > 0.5f;
@@ -309,34 +360,20 @@ __device__ void sample_pixel(const Tris& T, const float* cm, uint32_t frame, con
   // ---- Phong lobe: the next two draws after the ones consumed above -------
   float r0_ph = no_ind ? (is_mc ? u[1] : u[0]) : (is_mc ? u[3] : u[2]);
   float r1_ph = no_ind ? (is_mc ? u[2] : u[1]) : (is_mc ? u[4] : u[3]);
-  float mtype = T.a(A_TYPE, r);
   float refl = T.a(A_REFL, r);
-  bool spec_active = ((fabsf(mtype - 1.0f) < 0.5f) || (fabsf(mtype - 2.0f) < 0.5f)) && (refl > 0.001f);
+  bool spec_active = specular_active(T, r);
   float exponent = expf((1.0f - T.a(A_ROUGH, r)) * 12.0f);
-  float don = dot3(d, normal);
-  V3 mirror = normalize3(v3(d.x - 2.0f * don * normal.x, d.y - 2.0f * don * normal.y,
-                            d.z - 2.0f * don * normal.z));
-  V3 tan, bit;
-  onb(mirror, &tan, &bit);
-  float cos_t = powf(r0_ph, 1.0f / (exponent + 1.0f));
-  float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-  float phi = kTwoPi * r1_ph;
-  float powered_cos = powf(cos_t, exponent);
-  float pdf = (exponent + 1.0f) / kTwoPi * powered_cos;
-  float brdf = (exponent + 2.0f) / kTwoPi * powered_cos;
-  float xs = sin_t * cosf(phi), zs = sin_t * sinf(phi);
-  V3 phong_dir = v3(xs * tan.x + cos_t * mirror.x + zs * bit.x,
-                    xs * tan.y + cos_t * mirror.y + zs * bit.y,
-                    xs * tan.z + cos_t * mirror.z + zs * bit.z);
+  Phong ph = phong_lobe(d, normal, r0_ph, r1_ph, exponent);
 
   // ---- bounces: depth-1 shading re-seeds, so both pick the light with u1 --
-  V3 sec = no_ind ? v3(0.0f, 0.0f, 0.0f) : secondary_radiance(T, cst, pos, diff_dir, u[0], env_kind);
-  V3 spec_rad = spec_active ? secondary_radiance(T, cst, pos, phong_dir, u[0], env_kind)
+  V3 sec = no_ind ? v3(0.0f, 0.0f, 0.0f)
+                  : secondary_radiance(T, cst, pos, diff_dir, u[0], env_kind, true);
+  V3 spec_rad = spec_active ? secondary_radiance(T, cst, pos, ph.dir, u[0], env_kind, true)
                             : v3(0.0f, 0.0f, 0.0f);
 
   // ---- epilogue (trace_rays) -------------------------------------------------
   float nol = saturate(dot3(normal, diff_dir));
-  float ratio = pdf > 1e-30f ? brdf / fmaxf(pdf, 1e-30f) : (exponent + 2.0f) / (exponent + 1.0f);
+  float ratio = ph.ratio;
   float cosi = saturate(-dot3(d, normal));
   float pw5 = powf(1.0f - cosi, 5.0f);
   float estr = T.a(A_ESTR, r);
@@ -360,14 +397,58 @@ __device__ void sample_pixel(const Tris& T, const float* cm, uint32_t frame, con
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
-                         const float* __restrict__ cst, const float* __restrict__ mt,
-                         const float* __restrict__ attr, float* __restrict__ out, int s_count,
-                         int c, int width, int height, int env_kind) {
-  extern __shared__ float smem[];
-  float* s_mt = smem;                  // [kMtSlots][c]
-  float* s_at = smem + kMtSlots * c;   // [kAttrRows][c]
+// One realtime frame of pixel (px, py): aov = direct (0:3), indirect
+// specular (3:6), albedo (6:9), roughness (9). Phong draws take the
+// no-diffuse slots: (u2, u3) under debug==2, else (u1, u2).
+__device__ void realtime_pixel(const Tris& T, const float* cm, uint32_t frame, const float* cst,
+                               int px, int py, int width, int height, int env_kind,
+                               float aov[10]) {
+  V3 o, d;
+  primary_ray(cm, px, py, width, height, &o, &d);
+  Hit h = closest_hit(T, o, d, 0.0f, true);
+#pragma unroll
+  for (int k = 0; k < 10; ++k) aov[k] = 0.0f;
+  if (!h.hit) {  // a miss routes the environment into the direct AOV
+    V3 e = env_color(d, cst, env_kind);
+    aov[0] = sanitize(e.x);
+    aov[1] = sanitize(e.y);
+    aov[2] = sanitize(e.z);
+    return;
+  }
+
+  float u[5];
+  draws(px, py, width, frame, u);
+  const bool is_mc = cst[F_IS_MC] > 0.5f;
+  const int r = h.row;
+  V3 direct = direct_lighting(T, cst, h.pos, h.normal, u[0]);
+  float refl = T.a(A_REFL, r);
+  bool spec_active = specular_active(T, r);
+  float exponent = expf((1.0f - T.a(A_ROUGH, r)) * 12.0f);
+  Phong ph = phong_lobe(d, h.normal, is_mc ? u[1] : u[0], is_mc ? u[2] : u[1], exponent);
+  V3 spec_rad = spec_active ? secondary_radiance(T, cst, h.pos, ph.dir, u[0], env_kind, false)
+                            : v3(0.0f, 0.0f, 0.0f);
+  float cosi = saturate(-dot3(d, h.normal));
+  float pw5 = powf(1.0f - cosi, 5.0f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float specular = spec_active ? comp(spec_rad, k) * ph.ratio : 0.0f;
+    float f0 = T.a(A_SPECULAR + k, r);
+    float fresnel = spec_active ? f0 + (1.0f - f0) * pw5 : 0.0f;
+    float albedo = T.a(A_ALBEDO + k, r);
+    aov[k] = sanitize(albedo * comp(direct, k) / kPi);
+    aov[3 + k] = sanitize(refl * specular * fresnel);
+    aov[6 + k] = albedo;
+  }
+  aov[9] = T.a(A_ROUGH, r);
+}
+
+// Every block stages the used Möller–Trumbore coefficients and attribute
+// rows of all c triangles into shared memory: [kMtSlots][c] then
+// [kAttrRows][c].
+__device__ __forceinline__ Tris stage_tris(float* smem, const float* __restrict__ mt,
+                                           const float* __restrict__ attr, int c) {
+  float* s_mt = smem;
+  float* s_at = smem + kMtSlots * c;
   // mt_pack is [4, c, 16]: slot j reads group g, column col.
   for (int k = threadIdx.x; k < kMtSlots * c; k += blockDim.x) {
     int j = k / c, i = k - j * c;
@@ -378,10 +459,18 @@ fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restri
   // attr_pack is [32, c]; rows 0..23 are contiguous.
   for (int k = threadIdx.x; k < kAttrRows * c; k += blockDim.x) s_at[k] = attr[k];
   __syncthreads();
+  return Tris{s_mt, s_at, c};
+}
 
+__global__ void __launch_bounds__(kThreads)
+fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
+                         const float* __restrict__ cst, const float* __restrict__ mt,
+                         const float* __restrict__ attr, float* __restrict__ out, int s_count,
+                         int c, int width, int height, int env_kind) {
+  extern __shared__ float smem[];
+  Tris T = stage_tris(smem, mt, attr, c);
   int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= width * height) return;
-  Tris T{s_mt, s_at, c};
   int px = pix % width, py = pix / width;
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < s_count; ++s) {
@@ -390,6 +479,32 @@ fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restri
   out[pix * 3 + 0] = acc[0];
   out[pix * 3 + 1] = acc[1];
   out[pix * 3 + 2] = acc[2];
+}
+
+// Grid (pixel blocks, S frames): block (x, s) renders frame s of its pixels.
+__global__ void __launch_bounds__(kThreads)
+fused_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
+                      const float* __restrict__ cst, const float* __restrict__ mt,
+                      const float* __restrict__ attr, float* __restrict__ direct,
+                      float* __restrict__ ispec, float* __restrict__ albedo,
+                      float* __restrict__ rough, int c, int width, int height, int env_kind) {
+  extern __shared__ float smem[];
+  Tris T = stage_tris(smem, mt, attr, c);
+  int n = width * height;
+  int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= n) return;
+  int s = blockIdx.y;
+  float aov[10];
+  realtime_pixel(T, cam + s * 16, frames[s], cst, pix % width, pix / width, width, height,
+                 env_kind, aov);
+  size_t o = (size_t)s * n + pix;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    direct[o * 3 + k] = aov[k];
+    ispec[o * 3 + k] = aov[3 + k];
+    albedo[o * 3 + k] = aov[6 + k];
+  }
+  rough[o] = aov[9];
 }
 
 }  // namespace
@@ -411,5 +526,26 @@ extern "C" int dxr_fused_progressive_sum(const float* cam, const uint32_t* frame
   size_t smem = (size_t)(kMtSlots + kAttrRows) * c * sizeof(float);  // <= 44 KB
   fused_progressive_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       cam, frames, cst, mt, attr, out, s_count, c, width, height, env_kind);
+  return (int)cudaGetLastError();
+}
+
+// S realtime frames: direct, ispec, albedo [S, height, width, 3] and rough
+// [S, height, width] float32; the other arguments as for
+// dxr_fused_progressive_sum, with the realtime jitter scale in cam.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int dxr_fused_realtime_outputs(const float* cam, const uint32_t* frames,
+                                          const float* cst, const float* mt, const float* attr,
+                                          float* direct, float* ispec, float* albedo,
+                                          float* rough, int s_count, int c, int width,
+                                          int height, int env_kind, void* stream) {
+  if (c < 1 || c > kMaxTris || s_count < 1 || s_count > 65535 || width < 1 || height < 1 ||
+      (env_kind != 0 && env_kind != 1)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int n = width * height;
+  dim3 grid((n + kThreads - 1) / kThreads, s_count);
+  size_t smem = (size_t)(kMtSlots + kAttrRows) * c * sizeof(float);  // <= 44 KB
+  fused_realtime_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      cam, frames, cst, mt, attr, direct, ispec, albedo, rough, c, width, height, env_kind);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,7 @@ checkpointable.
 
 from __future__ import annotations
 
+import functools
 import json
 
 import numpy as np
@@ -28,6 +29,7 @@ def make_progressive_step(
     width: int,
     height: int,
     samples_per_step: int = 1,
+    light_mc: bool = False,
 ):
     """Return ``step(accum, options, cameras, lights, env, max_iterations)``,
     a closure over the scene tensors. ``cameras`` is CameraParams stacked on
@@ -36,20 +38,21 @@ def make_progressive_step(
     On a CUDA device, each step is one ``fused_sample.fused_progressive_sum``
     launch; scenes outside the kernel's scope have no CUDA route yet and
     raise (ROADMAP Queue A item 10). On the CPU each step is the kernel's
-    plain version, the wavefront integrator summed over the S samples."""
+    plain version, the wavefront integrator summed over the S samples.
+
+    light_mc: passed on to ``fused_sample.fused_progressive_sum`` (see
+    there); scenes outside the kernel's scope ignore it, as in JAX."""
     s_count = int(samples_per_step)
     env_kind = int(scene["env"]["kind"])
-    use_kernel = resolve_impl("auto", scene["mt_pack"].device) == "cuda"
-    if use_kernel and not fused_sample.supports_fused(scene, "progressive", False):
+    if fused_sample.supports_fused(scene, "progressive", False):
+        sample_sum = functools.partial(fused_sample.fused_progressive_sum, light_mc=light_mc)
+    elif resolve_impl("auto", scene["mt_pack"].device) == "cuda":
         raise NotImplementedError(
             "this scene needs the wavefront route, which has no CUDA kernel yet "
             "(kernel B3, ROADMAP Queue A item 10)"
         )
-    sample_sum = (
-        fused_sample.fused_progressive_sum
-        if use_kernel
-        else fused_sample.fused_progressive_sum_reference
-    )
+    else:
+        sample_sum = fused_sample.fused_progressive_sum_reference
 
     def step(accum, options, cameras, lights, env, max_iterations):
         base_count = float(cameras["accum_count"][0])

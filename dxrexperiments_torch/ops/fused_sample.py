@@ -1,17 +1,19 @@
-"""The progressive-sample megakernel: wrapper, plain version and launch count.
+"""The brute-force megakernel (B1): wrappers, plain versions, launch counts.
 
-Port of ``dxrexperiments_tpu.ops.fused_sample_pallas`` (progressive mode).
-On a CUDA tensor, ``fused_progressive_sum`` launches the hand-written kernel
-in ``csrc/fused_sample.cu`` (one launch renders S samples and returns their
-sum) or raises; on a CPU tensor it takes the plain version,
-``fused_progressive_sum_reference``, a loop over the wavefront integrator.
-There is no fallback from the kernel to the plain version.
+Port of ``dxrexperiments_tpu.ops.fused_sample_pallas``, progressive and
+realtime modes. On CUDA scene tensors, ``fused_progressive_sum``,
+``realtime_aovs`` and ``fused_realtime_outputs(_batch)`` launch the
+hand-written kernels in
+``csrc/fused_sample.cu`` or raise; on CPU scene tensors they take the plain
+versions, ``fused_progressive_sum_reference`` and
+``fused_realtime_outputs_reference``, loops over the wavefront integrator.
+There is no fallback from a kernel to its plain version.
 
-Packs: ``pack_cameras`` gives [S, 16] (origin with the progressive jitter
-folded in at scale 30, then U, V, W, and lane 12 the row offset, 0 here);
-``pack_consts`` gives [2, 16] (lights, env colours and strength in row 0;
-the runtime option flags and env colour 1 in row 1), the same layout as the
-TPU kernel's.
+Packs: ``pack_cameras`` gives [S, 16] (origin with the jitter folded in at
+the mode's scale, 30 progressive or 10 realtime, then U, V, W, and lane 12
+the row offset, 0 here); ``pack_consts`` gives [2, 16] (lights, env colours
+and strength in row 0; the runtime option flags and env colour 1 in row 1),
+the same layout as the TPU kernel's.
 """
 
 from __future__ import annotations
@@ -25,10 +27,13 @@ from ..trace.integrator import render_sample
 
 MAX_TRIS = 256  # the kernel stages at most 256 triangles in shared memory
 JITTER_SCALE = 30.0  # progressive pipeline jitter scale
+REALTIME_JITTER_SCALE = 10.0  # realtime pipeline jitter scale
 
-# Kernel launches so far (one per dispatch of S samples). Callers reset it
-# to 0 and read it back to show that a run went through the kernel.
+# Kernel launches so far: LAUNCHES counts progressive dispatches (S samples
+# each), REALTIME_LAUNCHES realtime dispatches (S frames each). Callers reset
+# them to 0 and read them back to show that a run went through the kernels.
 LAUNCHES = 0
+REALTIME_LAUNCHES = 0
 
 _FLAG_OPTIONS = (
     "cosine_hemisphere_sampling",
@@ -43,10 +48,11 @@ _FLAG_OPTIONS = (
 
 
 def supports_fused(scene: dict, mode: str, ao_only: bool) -> bool:
-    """Whether the megakernel takes this scene and mode: progressive, no AO,
-    a brute-force scene of at most MAX_TRIS triangles without textures, the
-    1 directional + 1 point rig and an analytic env (kinds 0 and 1)."""
-    if mode != "progressive" or ao_only:
+    """Whether the megakernel takes this scene and mode: progressive or
+    realtime, no AO, a brute-force scene of at most MAX_TRIS triangles
+    without textures, the 1 directional + 1 point rig and an analytic env
+    (kinds 0 and 1)."""
+    if mode not in ("progressive", "realtime") or ao_only:
         return False
     if any(k in scene for k in ("bvh", "tlas", "textures")):
         return False
@@ -57,20 +63,12 @@ def supports_fused(scene: dict, mode: str, ao_only: bool) -> bool:
     return int(scene["env"]["kind"]) in (0, 1)
 
 
-def _check_supported(scene: dict, env_kind: int, realtime: bool, light_mc: bool) -> None:
-    if realtime:
-        raise NotImplementedError(
-            "realtime mode of the megakernel is not ported yet (ROADMAP Queue A item 8)"
-        )
-    if light_mc:
-        raise NotImplementedError(
-            "the static light_mc variant is not ported yet (ROADMAP Queue A item 8)"
-        )
+def _check_supported(scene: dict, env_kind: int, mode: str) -> None:
     if int(env_kind) not in (0, 1):
         raise NotImplementedError(
             f"env kind {env_kind} (texture env) is not ported yet (ROADMAP Queue A item 9)"
         )
-    if not supports_fused(scene, "progressive", False):
+    if not supports_fused(scene, mode, False):
         raise NotImplementedError(
             "scene outside the megakernel's scope (more than 256 triangles, "
             "textures, a BVH, or a rig other than 1 directional + 1 point "
@@ -78,13 +76,15 @@ def _check_supported(scene: dict, env_kind: int, realtime: bool, light_mc: bool)
         )
 
 
-def pack_cameras(cameras: dict) -> torch.Tensor:
-    """Camera pack [S, 16]: origin (0:3) with the jitter folded in, U (3:6),
-    V (6:9), W (9:12), row offset (12, always 0 here), zeros."""
+def pack_cameras(cameras: dict, realtime: bool = False) -> torch.Tensor:
+    """Camera pack [S, 16]: origin (0:3) with the jitter folded in at the
+    mode's scale, U (3:6), V (6:9), W (9:12), row offset (12, always 0
+    here), zeros."""
     eye = cameras["eye"]
     s_count = int(eye.shape[0])
+    scale = REALTIME_JITTER_SCALE if realtime else JITTER_SCALE
     zeros = torch.zeros((s_count, 1), dtype=torch.float32, device=eye.device)
-    origin = eye + torch.cat([cameras["jitter"] * JITTER_SCALE, zeros], dim=1)
+    origin = eye + torch.cat([cameras["jitter"] * scale, zeros], dim=1)
     tail = torch.zeros((s_count, 4), dtype=torch.float32, device=eye.device)
     return torch.cat([origin, cameras["u"], cameras["v"], cameras["w"], tail], dim=1)
 
@@ -144,6 +144,26 @@ def fused_progressive_sum_reference(
     return total
 
 
+AOV_KEYS = ("direct", "indirect_specular", "albedo", "roughness")
+
+
+def fused_realtime_outputs_reference(
+    scene: dict, options: dict, cameras: dict, width: int, height: int, env_kind: int
+) -> dict:
+    """Plain version: S realtime frames of the wavefront integrator, one per
+    camera. Returns the AOV dict with a leading [S] axis: ``direct``,
+    ``indirect_specular``, ``albedo``, ``color`` [S, H, W, 3] and
+    ``roughness`` [S, H, W], float32."""
+    frames = []
+    for s in range(int(cameras["eye"].shape[0])):
+        cam = {k: v[s] for k, v in cameras.items()}
+        frames.append(render_sample(
+            scene, options, cam, width, height, mode="realtime",
+            jitter_scale=REALTIME_JITTER_SCALE, impl="torch", env_kind=env_kind,
+        ))
+    return {k: torch.stack([f[k] for f in frames]) for k in (*AOV_KEYS, "color")}
+
+
 _LIB = None
 
 
@@ -155,6 +175,9 @@ def _library():
         lib = load_library("fused_sample", ["fused_sample.cu"])
         fn = lib.dxr_fused_progressive_sum
         fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn = lib.dxr_fused_realtime_outputs
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -193,8 +216,10 @@ def _upload(cam: torch.Tensor, cst: torch.Tensor, frames: torch.Tensor, device) 
     return host.to(device, non_blocking=True)
 
 
-def _launch(scene, options, cameras, width, height, env_kind) -> torch.Tensor:
-    global LAUNCHES
+def _launch(scene, options, cameras, width, height, env_kind, realtime: bool):
+    """Pack, upload and launch one dispatch of S samples (progressive) or S
+    frames (realtime); returns the output tensors."""
+    global LAUNCHES, REALTIME_LAUNCHES
     mt = scene["mt_pack"]
     device = mt.device
     c = int(mt.shape[1])
@@ -202,7 +227,8 @@ def _launch(scene, options, cameras, width, height, env_kind) -> torch.Tensor:
     mt = _checked("mt_pack", mt, (4, c, 16), device)
     attr = _checked("attr_pack", scene["attr_pack"], (32, c), device)
     cpu = torch.device("cpu")
-    cam = _checked("cameras", pack_cameras(cameras).cpu().contiguous(), (s_count, 16), cpu)
+    cam = _checked("cameras", pack_cameras(cameras, realtime).cpu().contiguous(),
+                   (s_count, 16), cpu)
     cst = _checked("consts", pack_consts(scene, options, env_kind).cpu().contiguous(), (2, 16), cpu)
     frames = _frames_u32(cameras["frame_count"])
     if frames.shape[0] != s_count:
@@ -211,18 +237,37 @@ def _launch(scene, options, cameras, width, height, env_kind) -> torch.Tensor:
     cam_ptr = params.data_ptr()
     cst_ptr = cam_ptr + 4 * cam.numel()
     frames_ptr = cst_ptr + 4 * cst.numel()
-    out = torch.empty((height, width, 3), dtype=torch.float32, device=device)
-    fn = _library().dxr_fused_progressive_sum
+    head = (cam_ptr, frames_ptr, cst_ptr, mt.data_ptr(), attr.data_ptr())
+    tail = (s_count, c, width, height, int(env_kind))
+    lib = _library()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    if realtime:  # direct, indirect specular, albedo, roughness
+        outs = (empty(s_count, height, width, 3), empty(s_count, height, width, 3),
+                empty(s_count, height, width, 3), empty(s_count, height, width))
+        fn = lib.dxr_fused_realtime_outputs
+    else:
+        outs = (empty(height, width, 3),)
+        fn = lib.dxr_fused_progressive_sum
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(
-            cam_ptr, frames_ptr, cst_ptr, mt.data_ptr(), attr.data_ptr(), out.data_ptr(),
-            s_count, c, width, height, int(env_kind), stream,
-        )
+        rc = fn(*head, *(o.data_ptr() for o in outs), *tail, stream)
     if rc != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return out
+    if realtime:
+        REALTIME_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    return outs
+
+
+def _device_of(scene: dict) -> torch.device:
+    device = scene["mt_pack"].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device
 
 
 def fused_progressive_sum(
@@ -232,18 +277,79 @@ def fused_progressive_sum(
     width: int,
     height: int,
     env_kind: int,
-    realtime: bool = False,
     light_mc: bool = False,
 ) -> torch.Tensor:
     """Sum of S progressive samples, [H, W, 3] float32 (divide by S for the
     mean). ``cameras`` is CameraParams stacked on a leading [S] axis.
 
+    ``light_mc`` exists for the JAX signature and changes nothing: JAX
+    compiles a static debug==2 variant, while this kernel already skips the
+    unpicked light's shadow sweep per thread. It only checks that
+    ``options["debug"] == 2`` and raises otherwise.
+
     CUDA scene tensors -> one kernel launch; CPU scene tensors -> the plain
-    version. Modes and scenes outside the kernel's scope raise."""
-    _check_supported(scene, env_kind, realtime, light_mc)
-    device = scene["mt_pack"].device
-    if device.type == "cpu":
+    version. Scenes outside the kernel's scope raise."""
+    _check_supported(scene, env_kind, "progressive")
+    if light_mc and int(options["debug"]) != 2:
+        raise ValueError(
+            f"light_mc=True is the debug==2 light pick; options['debug'] is "
+            f"{int(options['debug'])}"
+        )
+    if _device_of(scene).type == "cpu":
         return fused_progressive_sum_reference(scene, options, cameras, width, height, env_kind)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    return _launch(scene, options, cameras, width, height, env_kind)
+    return _launch(scene, options, cameras, width, height, env_kind, realtime=False)[0]
+
+
+def realtime_aovs(
+    scene: dict,
+    options: dict,
+    cameras: dict,
+    width: int,
+    height: int,
+    env_kind: int,
+) -> dict:
+    """The AOVs of S realtime frames, one per camera of ``cameras``
+    (CameraParams stacked on a leading [S] axis): ``direct``,
+    ``indirect_specular``, ``albedo`` [S, H, W, 3] and ``roughness``
+    [S, H, W]. CUDA scene tensors -> one kernel launch and no ``color``, so
+    a caller that needs only the AOVs queues no sum; CPU scene tensors ->
+    the plain version, whose dict holds ``color`` too. Scenes outside the
+    kernel's scope raise."""
+    _check_supported(scene, env_kind, "realtime")
+    if _device_of(scene).type == "cpu":
+        return fused_realtime_outputs_reference(scene, options, cameras, width, height, env_kind)
+    return dict(zip(AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind,
+                                      realtime=True)))
+
+
+def fused_realtime_outputs_batch(
+    scene: dict,
+    options: dict,
+    cameras: dict,
+    width: int,
+    height: int,
+    env_kind: int,
+) -> dict:
+    """S realtime frames (primary + 2 shadow sweeps + the Phong bounce with
+    its 3 sweeps; no indirect diffuse): ``realtime_aovs`` plus ``color``
+    [S, H, W, 3], ``direct + indirect_specular`` summed outside the kernel
+    as the JAX package does."""
+    out = realtime_aovs(scene, options, cameras, width, height, env_kind)
+    if _device_of(scene).type == "cuda":
+        out["color"] = out["direct"] + out["indirect_specular"]
+    return out
+
+
+def fused_realtime_outputs(
+    scene: dict,
+    options: dict,
+    camera: dict,
+    width: int,
+    height: int,
+    env_kind: int,
+) -> dict:
+    """One realtime frame: ``fused_realtime_outputs_batch`` for a single
+    CameraParams, without the leading [S] axis."""
+    cameras = {k: v[None] for k, v in camera.items()}
+    out = fused_realtime_outputs_batch(scene, options, cameras, width, height, env_kind)
+    return {k: v[0] for k, v in out.items()}

@@ -1,9 +1,10 @@
 """Carry the JAX package's lowered data across to the port.
 
-The JAX ``Scene.build()`` pytree, its options dict and its CameraParams, each
-with every leaf turned into a numpy array (``np.asarray``), become the port's
-scene dict, options dict and CameraParams. The tests feed both packages the
-same scene through these functions.
+The JAX ``Scene.build()`` pytree, its options dict, its CameraParams and its
+denoise parameters, each with every leaf turned into a numpy array
+(``np.asarray``), become the port's scene dict, options dict, CameraParams
+and denoise parameters. The tests feed both packages the same inputs through
+these functions.
 """
 
 from __future__ import annotations
@@ -64,12 +65,22 @@ def scene_from_numpy(d: dict, device="cpu") -> dict:
 
 def options_from_numpy(opts: dict) -> dict:
     """JAX options dict (numpy leaves) -> the port's options of Python
-    scalars (bools and ints)."""
+    scalars: bools, ints and floats (a float32 leaf keeps its float32 value
+    exactly)."""
     out = {}
     for k, v in opts.items():
         a = np.asarray(v)
-        out[k] = bool(a) if a.dtype == np.bool_ else int(a)
+        if a.dtype == np.bool_:
+            out[k] = bool(a)
+        elif np.issubdtype(a.dtype, np.integer):
+            out[k] = int(a)
+        else:
+            out[k] = float(a)
     return out
+
+
+# A JAX ``default_denoise_params(...)`` dict converts the same way.
+denoise_params_from_numpy = options_from_numpy
 
 
 def camera_from_numpy(cam: dict) -> dict:

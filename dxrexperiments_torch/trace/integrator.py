@@ -1,12 +1,13 @@
 """Wavefront integrator, the plain PyTorch twin of
-``dxrexperiments_tpu.trace.integrator`` (brute-force progressive route).
+``dxrexperiments_tpu.trace.integrator`` (brute-force route, progressive and
+realtime modes).
 
-The reference's ray recursion is bounded, so each progressive sample is a
-fixed tree, traced over dense [N]-ray batches:
+The reference's ray recursion is bounded, so each sample is a fixed tree,
+traced over dense [N]-ray batches:
 
     primary closest-hit (backfaces culled)
       +- directional and point shadow rays      (any-hit)
-      +- indirect-diffuse bounce ray            (closest)
+      +- indirect-diffuse bounce ray            (closest; progressive only)
       |    +- 2 shadow rays at depth 1
       +- Phong-lobe specular bounce ray         (closest)
            +- 2 shadow rays at depth 1
@@ -16,8 +17,8 @@ draws alias depth-0 draws, and seeds advance only where the reference
 consumes draws inside branches (debug==2 light pick, noIndirectDiffuse).
 
 This module is the plain version of the CUDA megakernel
-(``ops/fused_sample.py``). Realtime mode, ambient occlusion, refraction and
-the BVH routes wait for later ROADMAP Queue A items and raise.
+(``ops/fused_sample.py``). Ambient occlusion, refraction and the BVH routes
+wait for later ROADMAP Queue A items and raise.
 """
 
 from __future__ import annotations
@@ -180,10 +181,12 @@ def _direct_lighting(scene, options, position, normal, seed, active, impl):
     return seed_out, mc
 
 
-def _secondary_radiance(scene, options, origins, directions, seeds, active, impl, env_kind):
-    """Depth-1 radiance: closest hit, direct lighting and emissive (the
-    specular and indirect terms are cut by the recursion depth). Inactive
-    lanes get an empty ray interval and contribute 0."""
+def _secondary_radiance(scene, options, origins, directions, seeds, active, impl, env_kind,
+                        realtime: bool = False):
+    """Depth-1 radiance: closest hit, direct lighting and, in progressive
+    mode, emissive (the specular and indirect terms are cut by the recursion
+    depth; the realtime shader adds no emissive term). Inactive lanes get an
+    empty ray interval and contribute 0."""
     t_max_eff = torch.where(
         active,
         torch.full_like(active, RAY_MAX_T, dtype=torch.float32),
@@ -196,10 +199,9 @@ def _secondary_radiance(scene, options, origins, directions, seeds, active, impl
     env_col = sample_environment(scene["env"], directions, env_kind)
     env_term = torch.where(active[..., None], env_col, torch.zeros_like(env_col))
     _, direct = _direct_lighting(scene, options, position, normal, seeds, hit, impl)
-    shade_col = (
-        mat["emissive"] * mat["emissive_strength"][..., None]
-        + mat["albedo"] * direct / M_PI
-    )
+    shade_col = mat["albedo"] * direct / M_PI
+    if not realtime:
+        shade_col = mat["emissive"] * mat["emissive_strength"][..., None] + shade_col
     return torch.where(hit[..., None], shade_col, env_term)
 
 
@@ -215,14 +217,15 @@ def trace_rays(
     env_kind: int | None = None,
     refraction: bool = False,
 ) -> dict:
-    """Trace one progressive sample for a dense batch of primary rays.
+    """Trace one sample for a dense batch of primary rays.
 
-    origins/directions: [N, 3]; seeds: [N] int64 pixel hashes. Returns
-    {"color": [N, 3]}."""
-    if mode != "progressive":
-        raise NotImplementedError(
-            f"mode={mode!r} is not ported yet (realtime: ROADMAP Queue A item 8)"
-        )
+    origins/directions: [N, 3]; seeds: [N] int64 pixel hashes. mode:
+    'progressive' returns {"color": [N, 3]}; 'realtime' (1 spp, no indirect
+    diffuse, no debug views) returns "color", "direct", "indirect_specular",
+    "albedo" [N, 3] and "roughness" [N]."""
+    if mode not in ("progressive", "realtime"):
+        raise NotImplementedError(f"mode={mode!r} is unknown (progressive or realtime)")
+    realtime = mode == "realtime"
     if ao_only or refraction:
         raise NotImplementedError(
             "ao_only and refraction are not ported yet (ROADMAP Queue A item 10)"
@@ -241,54 +244,43 @@ def trace_rays(
     seed = seeds  # initRand restart per shade invocation
     seed, direct = _direct_lighting(scene, options, position, normal, seed, hit, impl)
 
-    # ---- indirect diffuse direction (depth 0 only) ----------------------
-    seed_drawn, r0, r1 = rng.next_rand2(seed)
-    cosine = bool(options["cosine_hemisphere_sampling"])
-    tangent, bitangent = vm.orthonormal_basis(normal)
-    phi = 2.0 * M_PI * r1
-    if cosine:
-        rr = torch.sqrt(r0)
-        sample_dir = (
-            (rr * torch.cos(phi))[..., None] * tangent
-            + torch.sqrt(torch.clamp(1.0 - r0, min=0.0))[..., None] * normal
-            + (rr * torch.sin(phi))[..., None] * bitangent
-        )
-    else:
-        sin_t = torch.sqrt(torch.clamp(1.0 - r0 * r0, min=0.0))
-        sample_dir = (
-            (sin_t * torch.cos(phi))[..., None] * tangent
-            + r0[..., None] * normal
-            + (sin_t * torch.sin(phi))[..., None] * bitangent
-        )
-    no_ind = bool(options["no_indirect_diffuse"])
-    # The reference consumes the 2 draws only when indirect diffuse runs.
-    seed = seed if no_ind else seed_drawn
+    if not realtime:
+        seed, sample_dir = _diffuse_direction(seed, normal, options)
 
     # ---- indirect specular direction (Phong lobe) -----------------------
+    # Realtime mode draws no diffuse direction, so its Phong draws take the
+    # no-diffuse slots whatever no_indirect_diffuse says.
     mtype = mat["type"]
     spec_active = hit & ((mtype == 1) | (mtype == 2)) & (mat["reflectivity"] > 0.001)
     exponent = torch.exp((1.0 - mat["roughness"]) * 12.0)
     mirror = vm.normalize(vm.reflect(directions, normal))
     seed, phong_dir, pdf, brdf = sampling.phong_lobe_sample(seed, mirror, exponent)
 
-    # ---- one batched secondary trace for both bounce rays ---------------
-    n = position.shape[0]
-    sec_both = _secondary_radiance(
-        scene,
-        options,
-        torch.cat([position, position]),
-        torch.cat([sample_dir, phong_dir]),
-        torch.cat([seeds, seeds]),
-        torch.cat([hit, spec_active]),
-        impl,
-        env_kind,
-    )
-    sec = sec_both[:n]
-    spec_rad = sec_both[n:]
-    nol = vm.saturate(vm.dot(normal, sample_dir))
-    # cosine: the pdf cancels -> L * pi; uniform: L * NoL * 2pi
-    contrib = sec * M_PI if cosine else sec * (nol * 2.0 * M_PI)[..., None]
-    indirect = torch.zeros_like(contrib) if no_ind else contrib
+    if realtime:
+        spec_rad = _secondary_radiance(
+            scene, options, position, phong_dir, seeds, spec_active, impl, env_kind,
+            realtime=True,
+        )
+    else:
+        # ---- one batched secondary trace for both bounce rays -----------
+        n = position.shape[0]
+        sec_both = _secondary_radiance(
+            scene,
+            options,
+            torch.cat([position, position]),
+            torch.cat([sample_dir, phong_dir]),
+            torch.cat([seeds, seeds]),
+            torch.cat([hit, spec_active]),
+            impl,
+            env_kind,
+        )
+        sec = sec_both[:n]
+        spec_rad = sec_both[n:]
+        nol = vm.saturate(vm.dot(normal, sample_dir))
+        # cosine: the pdf cancels -> L * pi; uniform: L * NoL * 2pi
+        cosine = bool(options["cosine_hemisphere_sampling"])
+        contrib = sec * M_PI if cosine else sec * (nol * 2.0 * M_PI)[..., None]
+        indirect = torch.zeros_like(contrib) if options["no_indirect_diffuse"] else contrib
 
     # brdf/pdf = (e+2)/(e+1) analytically; guard the 0/0 underflow.
     ratio = torch.where(
@@ -298,9 +290,22 @@ def trace_rays(
     specular = torch.where(spec_active[..., None], spec_rad * ratio[..., None], zero3)
     fresnel = sampling.fresnel_schlick(directions, normal, mat["specular"])
     fresnel = torch.where(spec_active[..., None], fresnel, zero3)
+    refl = mat["reflectivity"][..., None]
+
+    if realtime:
+        # The two AOVs of the realtime shader; a miss routes env into direct.
+        direct_aov = mat["albedo"] * direct / M_PI
+        spec_aov = refl * specular * fresnel
+        hit3 = hit[..., None]
+        return {
+            "color": _sanitize(torch.where(hit3, direct_aov + spec_aov, env_col)),
+            "direct": _sanitize(torch.where(hit3, direct_aov, env_col)),
+            "indirect_specular": _sanitize(torch.where(hit3, spec_aov, zero3)),
+            "albedo": torch.where(hit3, mat["albedo"], zero3),
+            "roughness": torch.where(hit, mat["roughness"], torch.zeros_like(mat["roughness"])),
+        }
 
     diffuse_comp = (direct + indirect) / M_PI
-    refl = mat["reflectivity"][..., None]
     emissive = mat["emissive"] * mat["emissive_strength"][..., None]
     color = emissive + mat["albedo"] * diffuse_comp + refl * specular * fresnel
 
@@ -317,6 +322,30 @@ def trace_rays(
         color = mat["albedo"] * indirect / M_PI
     color = torch.where(hit[..., None], color, env_col)
     return {"color": _sanitize(color)}
+
+
+def _diffuse_direction(seed, normal, options):
+    """Indirect-diffuse bounce direction (progressive, depth 0 only):
+    cosine or uniform hemisphere from two draws. The reference consumes the
+    two draws only when indirect diffuse runs. Returns (seed, direction)."""
+    seed_drawn, r0, r1 = rng.next_rand2(seed)
+    tangent, bitangent = vm.orthonormal_basis(normal)
+    phi = 2.0 * M_PI * r1
+    if options["cosine_hemisphere_sampling"]:
+        rr = torch.sqrt(r0)
+        sample_dir = (
+            (rr * torch.cos(phi))[..., None] * tangent
+            + torch.sqrt(torch.clamp(1.0 - r0, min=0.0))[..., None] * normal
+            + (rr * torch.sin(phi))[..., None] * bitangent
+        )
+    else:
+        sin_t = torch.sqrt(torch.clamp(1.0 - r0 * r0, min=0.0))
+        sample_dir = (
+            (sin_t * torch.cos(phi))[..., None] * tangent
+            + r0[..., None] * normal
+            + (sin_t * torch.sin(phi))[..., None] * bitangent
+        )
+    return (seed if options["no_indirect_diffuse"] else seed_drawn), sample_dir
 
 
 def _sanitize(color: torch.Tensor) -> torch.Tensor:
@@ -337,7 +366,8 @@ def render_sample(
     env_kind: int | None = None,
 ) -> dict:
     """Render one sample for the full [H, W] grid on the scene's device.
-    Returns {"color": [H, W, 3]}."""
+    Returns {"color": [H, W, 3]} (progressive) or the realtime AOVs, each
+    [H, W, 3] except "roughness" [H, W]."""
     camera = to_device(camera, scene["mt_pack"].device)
     origins, directions = primary_ray_grid(camera, width, height, jitter_scale)
     o = origins.reshape(-1, 3)
@@ -346,4 +376,4 @@ def render_sample(
     out = trace_rays(
         scene, options, o, d, seeds, mode=mode, ao_only=ao_only, impl=impl, env_kind=env_kind
     )
-    return {k: v.reshape(height, width, v.shape[-1]) for k, v in out.items()}
+    return {k: v.reshape(height, width, *v.shape[1:]) for k, v in out.items()}

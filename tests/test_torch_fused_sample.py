@@ -7,6 +7,9 @@ samples per launch. Gate (tests/test_fused_sample.py): at most 0.5% of
 pixels differ by more than 1e-3, median |difference| < 1e-5; knife-edge
 pairs may resolve differently once the float32 sums are reassociated.
 
+The static ``light_mc`` variant (debug == 2 only) is held against the JAX
+kernel's ``light_mc=True`` build the same way.
+
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py, which imports no JAX so that it runs where the
 card is.
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from dxrexperiments_torch.models.progressive import make_progressive_step
 from dxrexperiments_torch.ops import fused_sample as tfs
 from dxrexperiments_torch.scene.convert import (
     camera_from_numpy,
@@ -128,13 +132,33 @@ def test_cpu_wrapper_is_the_plain_version():
 
 def test_unported_modes_raise():
     _, (tscene, topts, tcams) = both_sides({}, "const")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 9"):
         tfs.fused_progressive_sum(tscene, topts, tcams, W, H, 2)
-    with pytest.raises(NotImplementedError):
-        tfs.fused_progressive_sum(tscene, topts, tcams, W, H, 0, realtime=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tfs.fused_realtime_outputs_batch(tscene, topts, tcams, W, H, 2)
+    with pytest.raises(ValueError, match="debug"):
         tfs.fused_progressive_sum(tscene, topts, tcams, W, H, 0, light_mc=True)
     one_light = dict(tscene, lights={"dir": tscene["lights"]["dir"]})
     assert not tfs.supports_fused(one_light, "progressive", False)
     with pytest.raises(NotImplementedError):
         tfs.fused_progressive_sum(one_light, topts, tcams, W, H, 0)
+
+
+def test_light_mc_matches_pallas_interpret():
+    (jscene, jopts, jcams), (tscene, topts, tcams) = both_sides({"debug": 2}, "const")
+    want = jfs.fused_progressive_sum(jscene, jopts, jcams, W, H, 0, interpret=True,
+                                     light_mc=True)
+    got = tfs.fused_progressive_sum(tscene, topts, tcams, W, H, 0, light_mc=True)
+    assert_images_match(got.numpy(), want, frac=0.005)
+
+
+def test_light_mc_step():
+    _, (tscene, topts, tcams) = both_sides({"debug": 2}, "const")
+    accum = torch.zeros((H, W, 3))
+    args = (tcams, tscene["lights"], tscene["env"], 64)
+    step = make_progressive_step(tscene, W, H, samples_per_step=S, light_mc=True)
+    plain = make_progressive_step(tscene, W, H, samples_per_step=S)
+    torch.testing.assert_close(step(accum, topts, *args), plain(accum, topts, *args),
+                               rtol=0, atol=0)
+    with pytest.raises(ValueError, match="debug"):
+        step(accum, dict(topts, debug=0), *args)
