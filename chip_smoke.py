@@ -30,10 +30,53 @@ Phases, each of which raises on failure:
      dispatch, per 1080p realtime frame and per bilateral pass, each beside
      its plain version; and the realtime + denoise frame on the host clock,
      with the host's enqueue time of update, render and dispatch and of the
-     two per-frame packs.
+     two per-frame packs;
+  7. BVH kernels vs plain on 'instanced:4' (15,362 triangles) at 128^2: the
+     fat-node walk (B4a, csrc/traverse_fat.cu) closest hits on primary rays
+     and occlusion on shadow rays against the brute-force sweep; the
+     fused-traversal kernel (B5, csrc/fused_traverse.cu) progressive, S = 4,
+     for the 7 option sets of phase 3, and realtime on every AOV (the 4
+     cases of phase 3, and an S = 2 batch against two single launches);
+  8. the BVH main path at full width, 'instanced:32' (BASELINE config 5
+     flattened, 983,042 triangles) at 512^2: the build (its seconds and the
+     builder, SAH or Morton), ProgressiveRaytracingPipeline for 4 dispatches
+     of S = 4 (must count 4 B5 and 0 B1 launches), one render_sample frame
+     through the wavefront route (must count 2 closest and 2 any B4a
+     launches; their inputs are kept), B5's 1-sample image against that
+     frame on the image gate, B5's and that frame's pixels against the plain
+     version (the integrator with brute-force traces) on 4,096 sampled
+     pixels, B4a closest against the brute-force sweep on 4,096 sampled rays
+     of each of the frame's closest launches (primary, bounce) and any on
+     shadow rays toward SHADOW_LIGHT, and the headless CLI on the same scene
+     at 512^2, 8 spp;
+  9. realtime + denoise on 'instanced:32' at 1920x1080, 4 frames (must count
+     4 B5 realtime and 8 bilateral launches), frame 0's AOVs against the
+     wavefront route's, and B5's every AOV against the plain version on
+     4,096 sampled pixels, and the headless CLI with --pipeline realtime
+     --denoise on the same scene at 1080p;
+ 10. BVH times: B5 ms per sample (progressive) and per 1080p frame, B4a ms
+     for each of the wavefront frame's four launches on its own inputs, each
+     with its plain version and the kernel again at the plain version's
+     shape ('instanced:4', 128^2); the host ms per frame of both pipelines,
+     the realtime one with the kernels' error flags read later (as the
+     wrappers do) and read right after each B5 launch.
+
+Every kernel's bound (bound_ms) is the larger of its operations over the
+H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
+operations; NVIDIA's H100 SXM data sheet) and its bytes over 3.35 TB/s.
+The brute-force kernel's pair tests are counted on its plain run; the BVH
+kernels' slab and pair tests by a host model of their per-ray walk
+(ops/traverse.fat_walk_numpy) over 4,096 sampled pixels of the main path
+(B5) or 4,096 sampled rays of each launch (B4a), scaled to the frame or
+the launch. No single PyTorch call computes any of these
+functions, so library_ms is null.
 
 Each main path is driven with every launch count set to 0 just before it
-and read just after. The image gate is that of benchmarks/kernel_parity.py:
+and read just after. The hit gate of the BVH walk is that of
+benchmarks/kernel_parity.py: on rays that hit the same triangle, the
+relative t has median <= 1e-6, p99.9 <= 1e-4 and max <= 0.05; rays whose hit
+differs <= 1%; occlusion disagrees on <= 1% of rays. The image gate is that
+of benchmarks/kernel_parity.py:
 at most 1% of pixels differ by more than 1e-3 and the median |difference| is
 at most 1e-5, taken on the per-sample mean (the launch's sum divided by S),
 and on each realtime AOV (roughness as a one-channel image). The bilateral
@@ -65,6 +108,16 @@ RT_W, RT_H = 1920, 1080
 RT_FRAMES = 8
 BAD_TOL, BAD_FRAC, MEDIAN_MAX = 1e-3, 0.01, 1e-5
 BILATERAL_TOL = 2e-5
+HIT_MEDIAN, HIT_P999, HIT_MAX, TIE_FRAC = 1e-6, 1e-4, 0.05, 0.01
+BVH_PARITY_SCENE, BVH_PARITY_SIZE = "instanced:4", 128
+BVH_MAIN_SCENE, BVH_S, BVH_DISPATCHES, BVH_RT_FRAMES = "instanced:32", 4, 4, 4
+SHADOW_LIGHT = (2.0, 6.0, 1.5)  # the B4a occlusion checks' point light
+COUNT_PIXELS = 4096  # sampled pixels whose walks the host model counts
+FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s without tensor cores (FMA = 2)
+HBM_RATE = 3.35e12  # H100 SXM bytes/s
+OPS_PAIR = 50  # float32 operations of one Möller–Trumbore pair test (csrc/common.cuh)
+OPS_SLAB = 25  # of one child-box slab test
+OPS_TAP = 24  # of one bilateral tap (guide distance, weight, 3-channel sum)
 BILATERAL_RADII = (1, 7, 12, 25)
 AOVS = ("direct", "indirect_specular", "albedo", "color", "roughness")
 OPTION_CASES = [
@@ -127,6 +180,167 @@ def bilateral_gate(name, got, want):
     return err
 
 
+def hit_gate(name, got, want, torch):
+    """The closest-hit gate on rays [R]; returns the numbers, raises on failure."""
+    same = (got["hit"] == want["hit"]) & (~got["hit"] | (got["tri"] == want["tri"]))
+    both = same & got["hit"]
+    rel = ((got["t"] - want["t"]).abs() / want["t"].abs().clamp(min=1.0))[both].double()
+    g = {"median_rel_t": float(rel.median()), "p999_rel_t": float(torch.quantile(rel, 0.999)),
+         "max_rel_t": float(rel.max()), "tie_break_frac": float((~same).float().mean()),
+         "max_abs_t": float((got["t"] - want["t"])[both].abs().max()),
+         "hit_frac": float(got["hit"].float().mean())}
+    ok = (g["median_rel_t"] <= HIT_MEDIAN and g["p999_rel_t"] <= HIT_P999
+          and g["max_rel_t"] <= HIT_MAX and g["tie_break_frac"] <= TIE_FRAC and both.sum() > 0)
+    print(f"parity {name}: hit frac {g['hit_frac']:.4f}, relative t median {g['median_rel_t']:.2e}"
+          f" p99.9 {g['p999_rel_t']:.2e} max {g['max_rel_t']:.2e}, tie-break frac "
+          f"{g['tie_break_frac']:.5f} -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"B4a vs plain hit gate failed for {name}")
+    return g
+
+
+def occlusion_gate(name, got, want):
+    frac = float((got != want).float().mean())
+    ok = frac <= TIE_FRAC and 0.0 < float(want.float().mean()) < 1.0
+    print(f"parity {name}: occluded {float(want.float().mean()):.4f}, disagreement {frac:.5f} "
+          f"(<= {TIE_FRAC}) -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"B4a vs plain occlusion gate failed for {name}")
+    return frac
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of operations over the float32 peak
+    and bytes over the memory rate."""
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+class PairCount:
+    """Counts the pair tests of the brute-force megakernel on its plain run:
+    rays with a non-empty window (and, for occlusion, a direction) times the
+    padded triangle count, as the kernel's sweeps test them."""
+
+    def __init__(self, intersect, torch):
+        self.mod, self.torch, self.pairs = intersect, torch, 0
+
+    def _live(self, scene, directions, t_min, t_max, occlusion):
+        t = self.torch
+        tmax = t.as_tensor(t_max, device=directions.device).expand(directions.shape[0])
+        live = tmax > t_min
+        if occlusion:
+            live = live & (directions.abs().sum(dim=1) > 0)
+        self.pairs += int(live.sum()) * int(scene["v0"].shape[0])
+
+    def __enter__(self):
+        self.closest, self.any = self.mod.intersect_closest, self.mod.intersect_any
+
+        def closest(scene, o, d, t_min=1e-4, t_max=1e38, **kw):
+            self._live(scene, d, t_min, t_max, False)
+            return self.closest(scene, o, d, t_min, t_max, **kw)
+
+        def any_(scene, o, d, t_min=1e-4, t_max=1e38, **kw):
+            self._live(scene, d, t_min, t_max, True)
+            return self.any(scene, o, d, t_min, t_max, **kw)
+
+        self.mod.intersect_closest, self.mod.intersect_any = closest, any_
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.intersect_closest, self.mod.intersect_any = self.closest, self.any
+
+
+class TraceHook:
+    """Calls on_trace(o, d, t_min, t_max, cull=..., occlusion=...) before
+    every B4a trace made while it is active; the traces still run."""
+
+    def __init__(self, tv, on_trace):
+        self.tv, self.on_trace = tv, on_trace
+
+    def __enter__(self):
+        tv, on_trace = self.tv, self.on_trace
+        self.closest, self.any = tv.traverse_fat_closest, tv.traverse_fat_any
+
+        def closest(scene, o, d, t_min=1e-4, t_max=3.0e37, cull_backface=False):
+            on_trace(o, d, t_min, t_max, cull=cull_backface, occlusion=False)
+            return self.closest(scene, o, d, t_min, t_max, cull_backface)
+
+        def any_(scene, o, d, t_min=1e-4, t_max=3.0e37):
+            on_trace(o, d, t_min, t_max, cull=False, occlusion=True)
+            return self.any(scene, o, d, t_min, t_max)
+
+        tv.traverse_fat_closest, tv.traverse_fat_any = closest, any_
+        return self
+
+    def __exit__(self, *exc):
+        self.tv.traverse_fat_closest, self.tv.traverse_fat_any = self.closest, self.any
+
+
+class WalkCount:
+    """Counts the slab and pair tests of the walks it is given, with the
+    host model of the kernels' walk (ops/traverse.fat_walk_numpy)."""
+
+    def __init__(self, tv, bvh_np):
+        self.tv, self.bvh = tv, bvh_np
+        self.c = {"rays": 0, "visits": 0, "slab_tests": 0, "pair_tests": 0}
+        self.nodes, self.slots = [], []
+
+    def add(self, o, d, t_min, t_max, cull=False, occlusion=False):
+        import numpy as np
+
+        def host(x):
+            return x.detach().cpu().numpy() if hasattr(x, "detach") else np.float32(x)
+
+        _, c = self.tv.fat_walk_numpy(self.bvh, host(o), host(d), host(t_min), host(t_max),
+                                      cull=cull, occlusion=occlusion)
+        self.c["rays"] += len(o)
+        for k in ("visits", "slab_tests", "pair_tests"):
+            self.c[k] += c[k]
+        self.nodes.append(c["node_ids"])
+        self.slots.append(c["slot_ids"])
+
+    def distinct(self):
+        import numpy as np
+
+        return (len(np.unique(np.concatenate(self.nodes))),
+                len(np.unique(np.concatenate(self.slots))))
+
+
+def walk_work(wc, scale, bvh, io_bytes_per_ray, attr_lanes=0):
+    """(operations, bytes) of walks counted on a sample, scaled by `scale`
+    (batch rays / sampled rays): slab and pair operations; the distinct
+    nodes (64 bytes) and slots (19 coefficients + attr_lanes) touched,
+    scaled but at most the whole arrays, plus each ray's own input and
+    output."""
+    nodes, slots = wc.distinct()
+    n_nodes = min(nodes * scale, int(bvh["bvhf_rows"].shape[0]))
+    n_slots = min(slots * scale, int((bvh["slot_tri"] >= 0).sum()))
+    ops = (wc.c["slab_tests"] * OPS_SLAB + wc.c["pair_tests"] * OPS_PAIR) * scale
+    nbytes = (n_nodes * 64 + n_slots * (19 + attr_lanes) * 4
+              + wc.c["rays"] * scale * io_bytes_per_ray)
+    return ops, nbytes
+
+
+def rows_of(x, idx):
+    """x[idx] for a per-ray tensor, x itself for a scalar window."""
+    return x[idx] if hasattr(x, "dim") and x.dim() else x
+
+
+def kernel_ms(prepared, reps: int, torch) -> float:
+    """CUDA-event ms of a kernel alone: the launch of a wrapper's
+    prepare_launch, without its packing, allocation and error-flag read
+    (the flag is read once after the runs)."""
+    from dxrexperiments_torch.ops.traverse import raise_on_error
+
+    launch, _, err = prepared
+    rc = launch()
+    if rc != 0:
+        raise RuntimeError(f"kernel launch failed: cudaError {rc}")
+    ms = time_ms(launch, reps, torch)
+    raise_on_error(err, "timed kernel")
+    return ms
+
+
 def time_ms(fn, reps: int, torch) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -151,19 +365,30 @@ def main() -> int:
     import numpy as np
 
     from dxrexperiments_torch.app.headless import build_scene
-    from dxrexperiments_torch.core.camera import camera_params, stack_cameras
+    from dxrexperiments_torch.core import rng as trng
+    from dxrexperiments_torch.core.camera import camera_params, primary_ray_grid, stack_cameras
     from dxrexperiments_torch.core.device import setup_device
     from dxrexperiments_torch.models.denoise import DenoiseCompositor, denoise_composite
     from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
     from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
     from dxrexperiments_torch.ops import bilateral as bl
     from dxrexperiments_torch.ops import fused_sample as fs
+    from dxrexperiments_torch.ops import fused_traverse as ft
+    from dxrexperiments_torch.ops import intersect
+    from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.scene import envmap
-    from dxrexperiments_torch.trace.integrator import default_options
-    from dxrexperiments_torch.utils import cuda_build
+    from dxrexperiments_torch.trace.integrator import (
+        RAY_EPSILON,
+        RAY_MAX_T,
+        default_options,
+        render_sample,
+        trace_rays,
+    )
+    from dxrexperiments_torch.utils import cuda_build, native
 
     def reset_counts():
         fs.LAUNCHES = fs.REALTIME_LAUNCHES = bl.LAUNCHES = 0
+        tv.CLOSEST_LAUNCHES = tv.ANY_LAUNCHES = ft.LAUNCHES = ft.REALTIME_LAUNCHES = 0
 
     # ---- 1. the card --------------------------------------------------------
     dev = setup_device("cuda")
@@ -172,15 +397,18 @@ def main() -> int:
     print(f"card (nvidia-smi name, power.limit): {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device: {kind}", flush=True)
 
-    # ---- 2. build: one nvcc per source, started together ------------------------
+    # ---- 2. build: one nvcc per source and g++ for the SAH builder, together -----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(fs._library), pool.submit(bl._library)]:
-            fut.result()
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        futs = [pool.submit(f) for f in (fs._library, bl._library, tv._library, ft._library,
+                                         native.get_lib)]
+        sah_lib = [f.result() for f in futs][-1]
     load_s = time.perf_counter() - t0
-    for name in ("fused_sample", "bilateral"):
+    print(f"build csrc/sah_bvh.cpp with g++: "
+          f"{'built' if sah_lib is not None else 'no g++: the Morton build serves'}", flush=True)
+    for name in ("fused_sample", "bilateral", "traverse_fat", "fused_traverse"):
         info = cuda_build.BUILD_INFO[name]
-        print(f"build {name}.cu: nvcc {info['seconds']:.2f}s (both builds together "
+        print(f"build {name}.cu: nvcc {info['seconds']:.2f}s (all builds together "
               f"{load_s:.2f}s) -> {os.path.relpath(info['path'], ROOT)}", flush=True)
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -297,9 +525,14 @@ def main() -> int:
     scene = pipe.scene_data
     options = pipe.options
     got = fs.fused_progressive_sum(scene, options, first_cams, MAIN_SIZE, MAIN_SIZE, 0)
-    want = fs.fused_progressive_sum_reference(scene, options, first_cams, MAIN_SIZE, MAIN_SIZE, 0)
+    with PairCount(intersect, torch) as b1_count:
+        want = fs.fused_progressive_sum_reference(scene, options, first_cams, MAIN_SIZE,
+                                                  MAIN_SIZE, 0)
     torch.cuda.synchronize()
     main_gate = image_gate(f"main-path frame 0 {MAIN_SIZE}^2 S={MAIN_S}", got, want, MAIN_S)
+    c_tris = int(scene["mt_pack"].shape[1])
+    b1_bound = bound(b1_count.pairs * OPS_PAIR,
+                     c_tris * (19 + 24) * 4 + MAIN_SIZE * MAIN_SIZE * 12)
 
     def headless(args, label):
         with tempfile.TemporaryDirectory() as tmp:
@@ -351,7 +584,9 @@ def main() -> int:
     rt_scene, rt_options = rt.scene_data, rt.options
     cam0, direct0, spec0, display0 = frame0
     cams0 = {k: v[None] for k, v in cam0.items()}
-    want = fs.fused_realtime_outputs_reference(rt_scene, rt_options, cams0, RT_W, RT_H, 0)
+    with PairCount(intersect, torch) as b1_rt_count:
+        want = fs.fused_realtime_outputs_reference(rt_scene, rt_options, cams0, RT_W, RT_H, 0)
+    b1_rt_bound = bound(b1_rt_count.pairs * OPS_PAIR, c_tris * (19 + 24) * 4 + RT_W * RT_H * 40)
     got = {"direct": direct0, "indirect_specular": spec0}
     got.update({k: v[0] for k, v in fs.fused_realtime_outputs_batch(
         rt_scene, rt_options, cams0, RT_W, RT_H, 0).items() if k not in got})
@@ -395,6 +630,7 @@ def main() -> int:
               f"{bl_plain_ms[axis]:.3f} ms per {RT_W}x{RT_H} pass, radius {radius:g} [{card}]",
               flush=True)
 
+    b2_bound = bound(RT_W * RT_H * (2 * radius + 1) * OPS_TAP, RT_W * RT_H * 12 * 3)
     host_s = {"update": 0.0, "render": 0.0, "dispatch": 0.0}
 
     def frame():
@@ -441,6 +677,397 @@ def main() -> int:
     print(f"time host packs per realtime frame (host clock, {n_packs} calls each): "
           f"pack_cameras {cam_us:.1f} us, pack_consts {cst_us:.1f} us [{card}]", flush=True)
 
+    # ---- 7. BVH kernels vs plain at instanced:4 ------------------------------------
+    P = BVH_PARITY_SIZE
+    bvh_scenes = {}
+
+    def bvh_parity_scene(env):
+        if env not in bvh_scenes:
+            sc, cam = build_scene(BVH_PARITY_SCENE)  # its default env: the gradient
+            if env == "const":
+                sc.environment = envmap.constant_env((0.05, 0.1, 0.2), strength=1.5)
+            if env == "emissive":
+                sc.materials = [dataclasses.replace(m, emissive=(0.2, 0.3, 0.4, 2.0))
+                                for m in sc.materials]
+            cam.set_aspect(P, P)
+            bvh_scenes[env] = (sc.build(dev), cam)
+        return bvh_scenes[env]
+
+    def shadow_rays(o, d, hits):
+        """Shadow rays from the hit points toward a point light at SHADOW_LIGHT
+        (zero directions on misses, as the integrator sends them). The scenes'
+        own point light sits in the floor's plane, where every floor point's
+        shadow ray grazes the floor: its visibility is a knife edge there (and
+        its cosine 0, so no image shows it)."""
+        pos = o + hits["t"].clamp(min=0.0)[:, None] * d
+        path = torch.tensor(SHADOW_LIGHT, device=dev) - pos
+        sd = torch.where(hits["hit"][:, None], torch.nn.functional.normalize(path, dim=1), 0.0)
+        return pos, sd, (path.norm(dim=1) - RAY_EPSILON).clamp(min=RAY_EPSILON)
+
+    scene4, cam4 = bvh_parity_scene("gradient")
+    cams4 = cameras(cam4, P, P, PARITY_S, 21)
+    o4, d4 = (x.reshape(-1, 3).to(dev) for x in
+              primary_ray_grid({k: v[0] for k, v in cams4.items()}, P, P, fs.JITTER_SCALE))
+    got = tv.traverse_fat_closest(scene4, o4, d4, 0.0, RAY_MAX_T, cull_backface=True)
+    want = tv.traverse_fat_closest_reference(scene4, o4, d4, 0.0, RAY_MAX_T, cull_backface=True)
+    torch.cuda.synchronize()
+    hit_gate(f"B4a closest {BVH_PARITY_SCENE} {P}^2 primary rays", got, want, torch)
+    pos4, sd4, tmax4 = shadow_rays(o4, d4, want)
+    occ_got = tv.traverse_fat_any(scene4, pos4, sd4, RAY_EPSILON, tmax4)
+    occ_want = tv.traverse_fat_any_reference(scene4, pos4, sd4, RAY_EPSILON, tmax4)
+    torch.cuda.synchronize()
+    occlusion_gate(f"B4a any {BVH_PARITY_SCENE} {P}^2 shadow rays", occ_got, occ_want)
+
+    for name, opts, env in OPTION_CASES:
+        scene, cam = bvh_parity_scene(env)
+        options = default_options(**opts)
+        cams = cameras(cam, P, P, PARITY_S, 11)
+        ek = scene["env"]["kind"]
+        got = ft.fused_traverse_progressive_sum(scene, options, cams, P, P, ek)
+        want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, P, P, ek)
+        torch.cuda.synchronize()
+        image_gate(f"B5 {name} {BVH_PARITY_SCENE} {P}^2 S={PARITY_S}", got, want, PARITY_S)
+    b5_rt_err = 0.0
+    for name, opts, env in REALTIME_CASES:
+        scene, cam = bvh_parity_scene(env)
+        options = default_options(**opts)
+        cams = cameras(cam, P, P, 1, 2**31 + 5)
+        ek = scene["env"]["kind"]
+        got = ft.fused_traverse_realtime_outputs(scene, options, {k: v[0] for k, v in cams.items()},
+                                                 P, P, ek)
+        want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, P, P, ek)
+        torch.cuda.synchronize()
+        b5_rt_err = max(b5_rt_err, aov_gate(f"B5 realtime {name} {BVH_PARITY_SCENE} {P}^2", got,
+                                            {k: v[0] for k, v in want.items()}))
+    scene, cam = bvh_parity_scene("gradient")
+    options = default_options(debug=2)
+    cams = cameras(cam, P, P, 2, 40)
+    batch = ft.realtime_aovs(scene, options, cams, P, P, 1)
+    batch_err = 0.0
+    for f in range(2):
+        single = ft.realtime_aovs(scene, options, {k: v[f:f + 1] for k, v in cams.items()}, P, P, 1)
+        for k in fs.AOV_KEYS:
+            batch_err = max(batch_err, float((batch[k][f] - single[k][0]).abs().max()))
+    torch.cuda.synchronize()
+    print(f"parity B5 realtime S=2 batch vs 2 single launches: max |d| {batch_err:.3e} (<= 1e-6)",
+          flush=True)
+    if not batch_err <= 1e-6:
+        raise RuntimeError("B5 realtime S=2 batch differs from single-frame launches")
+
+    # ---- 8. the BVH main path at full width: instanced:32, 512^2 ----------------
+    M = MAIN_SIZE
+    sc32, cam32 = build_scene(BVH_MAIN_SCENE)
+    cam32.set_aspect(M, M)
+    pipe = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
+    pipe.max_iterations = BVH_S * BVH_DISPATCHES
+    pipe.set_camera(cam32)
+    t0 = time.perf_counter()
+    pipe.set_scene(sc32)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    scene32 = pipe.scene_data
+    bvh32 = scene32["bvh"]
+    print(f"build {BVH_MAIN_SCENE}: {scene32['num_tris']} triangles, {build_s:.2f}s host clock "
+          f"(flatten, {bvh32['builder'].upper()} BVH build, packs, upload), builder "
+          f"{bvh32['builder']}; mt_rows {tuple(bvh32['mt_rows'].shape)} "
+          f"({bvh32['mt_rows'].numel() * 4 / 2**20:.0f} MiB), bvhf_nodes "
+          f"{tuple(bvh32['bvhf_nodes'].shape)}, bvh_nodes {tuple(bvh32['bvh_nodes'].shape)}",
+          flush=True)
+    first32 = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BVH_DISPATCHES):
+        pipe.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first32 is None:
+            first32 = pipe._camera_params
+        pipe.render()
+    torch.cuda.synchronize()
+    bvh_prog_s = time.perf_counter() - t0
+    b5_launches, b1_in_bvh = ft.LAUNCHES, fs.LAUNCHES
+    img = pipe.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    print(f"BVH main path: {BVH_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
+          f"{BVH_MAIN_SCENE} ({pipe.accum_count} spp) in {bvh_prog_s:.3f}s host clock, B5 launches "
+          f"{b5_launches}, B1 launches {b1_in_bvh}, image finite {finite}, mean {mean:.5f}",
+          flush=True)
+    if b5_launches != BVH_DISPATCHES or b1_in_bvh != 0:
+        raise RuntimeError(f"expected {BVH_DISPATCHES} B5 and 0 B1 launches, got {b5_launches} "
+                           f"and {b1_in_bvh}")
+    if not finite or not mean > 0.0:
+        raise RuntimeError("BVH main path image is not finite with a positive mean")
+
+    opts32, ek32 = pipe.options, scene32["env"]["kind"]
+    cam1 = {k: v[0] for k, v in first32.items()}
+    traces = []  # the inputs of the wavefront frame's B4a launches, in order
+
+    def record(o, d, t_min, t_max, cull, occlusion):
+        traces.append((o, d, t_min, t_max, cull, occlusion))
+
+    reset_counts()
+    with TraceHook(tv, record):
+        wave = render_sample(scene32, opts32, cam1, M, M, impl="cuda")["color"]
+    torch.cuda.synchronize()
+    wf_closest, wf_any = tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES
+    tv.check_errors()
+    print(f"wavefront route on {BVH_MAIN_SCENE} at {M}^2, 1 sample: B4a closest launches "
+          f"{wf_closest}, any launches {wf_any}", flush=True)
+    if (wf_closest, wf_any) != (2, 2) or [t[5] for t in traces] != [False, True, False, True]:
+        raise RuntimeError(f"expected 2 closest and 2 any B4a launches, got {wf_closest} and "
+                           f"{wf_any}")
+    batches = ("primary closest", "depth-0 shadow any", "bounce closest", "depth-1 shadow any")
+    b5_one = ft.fused_traverse_progressive_sum(scene32, opts32,
+                                               {k: v[None] for k, v in cam1.items()}, M, M, ek32)
+    torch.cuda.synchronize()
+    b5_gate = image_gate(f"B5 vs the B4a wavefront route {BVH_MAIN_SCENE} {M}^2 1 sample",
+                         b5_one, wave, 1)
+
+    # both kernels against the plain version on the same sampled pixels
+    o32, d32 = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam1, M, M, fs.JITTER_SCALE))
+    pick = torch.as_tensor(rng.choice(M * M, COUNT_PIXELS, replace=False), device=dev)
+    seeds = trng.pixel_seeds(M, M, cam1["frame_count"], device=dev).reshape(-1)
+    plain_pick = trace_rays(scene32, opts32, o32[pick], d32[pick], seeds[pick],
+                            impl="torch")["color"][None]
+    torch.cuda.synchronize()
+    b5_plain_gate = image_gate(f"B5 vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels of "
+                               f"{M}^2, 1 sample", b5_one.reshape(-1, 3)[pick][None], plain_pick, 1)
+    image_gate(f"the B4a wavefront route vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels "
+               f"of {M}^2, 1 sample", wave.reshape(-1, 3)[pick][None], plain_pick, 1)
+
+    # B4a against the brute-force sweep on sampled rays of each closest launch
+    # of the frame, and on shadow rays toward SHADOW_LIGHT
+    b4a_max_t = 0.0
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces):
+        if occlusion:
+            continue
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        args = (scene32, o[sub], d[sub], t_min, rows_of(t_max, sub))
+        got = tv.traverse_fat_closest(*args, cull_backface=cull)
+        want = tv.traverse_fat_closest_reference(*args, cull_backface=cull)
+        torch.cuda.synchronize()
+        b4a_max_t = max(b4a_max_t, hit_gate(
+            f"B4a {batch} {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled rays of {len(o)}", got, want,
+            torch)["max_abs_t"])
+    pos32, sd32, tmax32 = shadow_rays(o32[pick], d32[pick], tv.traverse_fat_closest(
+        scene32, o32[pick], d32[pick], 0.0, RAY_MAX_T, cull_backface=True))
+    occ_got = tv.traverse_fat_any(scene32, pos32, sd32, RAY_EPSILON, tmax32)
+    occ_want = tv.traverse_fat_any_reference(scene32, pos32, sd32, RAY_EPSILON, tmax32)
+    torch.cuda.synchronize()
+    b4a_any_err = occlusion_gate(f"B4a any {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled shadow rays",
+                                 occ_got, occ_want)
+    tv.check_errors()
+
+    headless(["--scene", BVH_MAIN_SCENE, "--size", f"{M}x{M}", "--spp", "8"],
+             f"{BVH_MAIN_SCENE} {M}^2 8 spp")
+
+    # ---- 10a. BVH times at 512^2 (before the realtime pipeline takes the card) ----
+    # B4a: each launch of the wavefront frame on its own inputs, with its
+    # bound from the host model's counts on COUNT_PIXELS sampled rays
+    bvh_np = {k: bvh32[k].cpu().numpy() for k in ("bvhf_rows", "mt_rows")}
+    b4a = {False: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []},
+           True: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []}}
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces):
+        ms = kernel_ms(tv.prepare_launch(scene32, o, d, t_min, t_max, cull, occlusion), 10, torch)
+        if occlusion:
+            wrap = time_ms(lambda: tv.traverse_fat_any(scene32, o, d, t_min, t_max), 10, torch)
+        else:
+            wrap = time_ms(lambda: tv.traverse_fat_closest(scene32, o, d, t_min, t_max,
+                                                           cull_backface=cull), 10, torch)
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        wc = WalkCount(tv, bvh_np)
+        wc.add(o[sub], d[sub], t_min, rows_of(t_max, sub), cull=cull, occlusion=occlusion)
+        ops, nbytes = walk_work(wc, len(o) / COUNT_PIXELS, bvh32, 32 + (1 if occlusion else 16))
+        bnd = bound(ops, nbytes)
+        acc = b4a[occlusion]
+        acc["ms"] += ms
+        acc["wrapper_ms"] += wrap
+        acc["ops"] += ops
+        acc["bytes"] += nbytes
+        acc["per_launch"].append({"batch": batch, "rays": len(o), "ms": ms, "wrapper_ms": wrap,
+                                  "bound_ms": bnd[0], "bound_by": bnd[1]})
+        print(f"time B4a {batch} on {BVH_MAIN_SCENE} {M}^2 wavefront sample: {len(o)} rays, "
+              f"kernel {ms:.4f} ms, wrapper {wrap:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"walk per ray {wc.c['visits'] / COUNT_PIXELS:.2f} visits, "
+              f"{wc.c['pair_tests'] / COUNT_PIXELS:.2f} pair tests [{card}]", flush=True)
+    b4a_c_bound = bound(b4a[False]["ops"], b4a[False]["bytes"])
+    b4a_a_bound = bound(b4a[True]["ops"], b4a[True]["bytes"])
+
+    wc_b5 = WalkCount(tv, bvh_np)
+    with TraceHook(tv, wc_b5.add):
+        trace_rays(scene32, opts32, o32[pick], d32[pick], seeds[pick], impl="cuda")
+    b5_bound = bound(*walk_work(wc_b5, M * M / COUNT_PIXELS, bvh32,
+                                12 / max(wc_b5.c["rays"] / COUNT_PIXELS, 1), 10))
+    print(f"walk counts per sampled pixel ({COUNT_PIXELS} pixels): B5 sample "
+          f"{wc_b5.c['visits'] / COUNT_PIXELS:.1f} visits, "
+          f"{wc_b5.c['pair_tests'] / COUNT_PIXELS:.1f} pair tests over {wc_b5.c['rays']} rays",
+          flush=True)
+
+    b5_ms = kernel_ms(ft.prepare_launch(scene32, opts32, first32, M, M, ek32, False), 5,
+                      torch) / BVH_S
+    b5_wrap_ms = time_ms(lambda: ft.fused_traverse_progressive_sum(
+        scene32, opts32, first32, M, M, ek32), 5, torch) / BVH_S
+    tv.check_errors()
+    host_prog_ms = bvh_prog_s / BVH_DISPATCHES * 1e3
+    print(f"time B5 progressive: kernel {b5_ms:.3f} ms per sample at {M}^2 on {BVH_MAIN_SCENE} "
+          f"({M * M / b5_ms / 1e3:.2f} primary Mrays/s), wrapper {b5_wrap_ms:.3f} ms; pipeline "
+          f"{host_prog_ms:.3f} ms per {BVH_S}-sample dispatch on the host clock, synchronised, "
+          f"first dispatches included [{card}]", flush=True)
+    del pipe, scene32, traces, pos32, sd32, tmax32, o32, d32, wave, b5_one, bvh_np
+    torch.cuda.empty_cache()
+
+    # ---- 9. realtime + denoise on instanced:32 at 1080p --------------------------
+    cam32.set_aspect(RT_W, RT_H)
+    rt = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
+    rt.set_camera(cam32)
+    rt.set_scene(sc32)
+    denoiser = DenoiseCompositor(device=dev)
+    frame0 = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BVH_RT_FRAMES):
+        rt.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        direct, spec = rt.render()
+        display = denoiser.dispatch(direct, spec)
+        if frame0 is None:
+            frame0 = (rt._camera_params, direct, spec)
+    torch.cuda.synchronize()
+    bvh_rt_s = time.perf_counter() - t0
+    b5_rt_launches, bvh_bl_launches = ft.REALTIME_LAUNCHES, bl.LAUNCHES
+    finite, mean = bool(display.isfinite().all()), float(display.mean())
+    print(f"BVH realtime main path: {BVH_RT_FRAMES} frames at {RT_W}x{RT_H} on {BVH_MAIN_SCENE} "
+          f"(render + denoise) in {bvh_rt_s:.3f}s host clock, B5 realtime launches "
+          f"{b5_rt_launches}, B1 realtime launches {fs.REALTIME_LAUNCHES}, bilateral launches "
+          f"{bvh_bl_launches}, display finite {finite}, mean {mean:.5f}", flush=True)
+    if (b5_rt_launches, fs.REALTIME_LAUNCHES, bvh_bl_launches) != (BVH_RT_FRAMES, 0,
+                                                                     2 * BVH_RT_FRAMES):
+        raise RuntimeError(f"expected {BVH_RT_FRAMES} B5 realtime, 0 B1 and {2 * BVH_RT_FRAMES} "
+                           f"bilateral launches")
+    if not finite or not mean > 0.0:
+        raise RuntimeError("BVH realtime display is not finite with a positive mean")
+    rt32, rt_opts32 = rt.scene_data, rt.options
+    cam0_32, direct0, spec0 = frame0
+    want = render_sample(rt32, rt_opts32, cam0_32, RT_W, RT_H, mode="realtime",
+                         jitter_scale=fs.REALTIME_JITTER_SCALE, impl="cuda")
+    torch.cuda.synchronize()
+    b5_rt_wave_err = max(
+        image_gate(f"B5 realtime vs the B4a wavefront route {BVH_MAIN_SCENE} {RT_W}x{RT_H} {k}",
+                   g, want[k], 1)["max_abs_diff"]
+        for k, g in (("direct", direct0), ("indirect_specular", spec0)))
+
+    tv.check_errors()
+
+    # B5 realtime against the plain version on the same sampled pixels, every AOV
+    o_rt, d_rt = (x.reshape(-1, 3).to(dev) for x in
+                  primary_ray_grid(cam0_32, RT_W, RT_H, fs.REALTIME_JITTER_SCALE))
+    pick_rt = torch.as_tensor(rng.choice(RT_W * RT_H, COUNT_PIXELS, replace=False), device=dev)
+    seeds_rt = trng.pixel_seeds(RT_W, RT_H, cam0_32["frame_count"], device=dev).reshape(-1)
+    cams0_32 = {k: v[None] for k, v in cam0_32.items()}
+    aovs0 = ft.realtime_aovs(rt32, rt_opts32, cams0_32, RT_W, RT_H, ek32)
+    got = {k: v[0].reshape(RT_W * RT_H, -1)[pick_rt][None] for k, v in aovs0.items()}
+    got["color"] = got["direct"] + got["indirect_specular"]
+    plain_rt = trace_rays(rt32, rt_opts32, o_rt[pick_rt], d_rt[pick_rt], seeds_rt[pick_rt],
+                          mode="realtime", impl="torch")
+    torch.cuda.synchronize()
+    tv.check_errors()
+    b5_rt_plain_err = aov_gate(
+        f"B5 realtime vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels of {RT_W}x{RT_H}",
+        got, {k: v.reshape(COUNT_PIXELS, -1)[None] for k, v in plain_rt.items()})
+    del aovs0, got, plain_rt
+
+    headless(["--pipeline", "realtime", "--denoise", "--scene", BVH_MAIN_SCENE, "--size",
+              f"{RT_W}x{RT_H}"], f"realtime+denoise {BVH_MAIN_SCENE} {RT_W}x{RT_H}")
+
+    bvh_np = {k: rt32["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "mt_rows")}
+    wc_rt = WalkCount(tv, bvh_np)
+    with TraceHook(tv, wc_rt.add):
+        trace_rays(rt32, rt_opts32, o_rt[pick_rt], d_rt[pick_rt], seeds_rt[pick_rt],
+                   mode="realtime", impl="cuda")
+    b5_rt_bound = bound(*walk_work(wc_rt, RT_W * RT_H / COUNT_PIXELS, rt32["bvh"],
+                                   40 / max(wc_rt.c["rays"] / COUNT_PIXELS, 1), 10))
+    del bvh_np
+
+    # ---- 10b. BVH times: realtime, host, and at the plain version's shape --------
+    b5_rt_ms = kernel_ms(ft.prepare_launch(rt32, rt_opts32, cams0_32, RT_W, RT_H, ek32, True), 10,
+                         torch)
+    b5_rt_wrap_ms = time_ms(lambda: ft.realtime_aovs(rt32, rt_opts32, cams0_32, RT_W, RT_H, ek32),
+                            10, torch)
+
+    frame_cams = []  # each timed frame's camera
+
+    def bvh_frame(read_flag: bool, denoise: bool = True):
+        """One realtime frame, denoised unless denoise is False. read_flag:
+        wait for B5 and read its error flag before the denoiser is queued,
+        as a read per launch does."""
+        rt.update(elapsed_time=0.0, elapsed_frames=bvh_frame.count)
+        frame_cams.append({k: v[None] for k, v in rt._camera_params.items()})
+        bvh_frame.count += 1
+        aovs = rt.render()
+        if read_flag:
+            tv.check_errors()
+        return denoiser.dispatch(*aovs) if denoise else aovs
+
+    def frames_ms(read_flag: bool, denoise: bool = True, n: int = 10) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            bvh_frame(read_flag, denoise)
+        torch.cuda.synchronize()
+        tv.check_errors()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    bvh_frame.count = BVH_RT_FRAMES
+    bvh_frame(False)  # warm-up
+    # deferred flag reads, a read after each launch, the read again, deferred
+    # again; then update + render alone, without the denoiser
+    runs = [frames_ms(flag) for flag in (False, True, True, False)]
+    bvh_frame_ms = (runs[0] + runs[3]) / 2
+    bvh_frame_read_ms = (runs[1] + runs[2]) / 2
+    render_only_ms = frames_ms(False, denoise=False)
+    # B5 alone on the last ten frames' cameras, one launch each in turn
+    # (kernel_ms repeats one camera's launch)
+    prepared = [ft.prepare_launch(rt32, rt_opts32, c, RT_W, RT_H, ek32, True)
+                for c in frame_cams[-10:]]
+    b5_rt_cams_ms = time_ms(lambda: [p[0]() for p in prepared], 3, torch) / len(prepared)
+    for _, _, err in prepared:
+        tv.raise_on_error(err, "timed kernel")
+    del prepared
+    print(f"time B5 realtime: kernel {b5_rt_ms:.3f} ms per {RT_W}x{RT_H} frame on "
+          f"{BVH_MAIN_SCENE}, wrapper {b5_rt_wrap_ms:.3f} ms; realtime+denoise end to end "
+          f"(host clock, synchronised, 10 frames per run): {bvh_frame_ms:.3f} ms per frame with "
+          f"the error flag read later, {bvh_frame_read_ms:.3f} ms with it read right after the "
+          f"B5 launch (runs in order deferred, read, read, deferred: "
+          f"{', '.join(f'{r:.3f}' for r in runs)} ms); update + render without the denoiser "
+          f"{render_only_ms:.3f} ms per frame; B5 alone on those frames' ten cameras in turn "
+          f"{b5_rt_cams_ms:.3f} ms per launch [{card}]", flush=True)
+    del rt, rt32, o_rt, d_rt
+    torch.cuda.empty_cache()
+
+    scene4, cam4 = bvh_parity_scene("gradient")
+    opts4 = default_options()
+    cams4 = cameras(cam4, P, P, BVH_S, 60)
+    pos4, sd4, tmax4 = shadow_rays(o4, d4, tv.traverse_fat_closest(
+        scene4, o4, d4, 0.0, RAY_MAX_T, cull_backface=True))
+    small = {
+        "b5": (ft.prepare_launch(scene4, opts4, cams4, P, P, 1, False),
+               lambda: ft.fused_traverse_progressive_sum_reference(scene4, opts4, cams4, P, P, 1),
+               BVH_S),
+        "b5_rt": (ft.prepare_launch(scene4, opts4, cams4, P, P, 1, True),
+                  lambda: ft.fused_traverse_realtime_outputs_reference(scene4, opts4, cams4, P, P,
+                                                                       1),
+                  BVH_S),
+        "b4a_c": (tv.prepare_launch(scene4, o4, d4, 0.0, RAY_MAX_T, True, False),
+                  lambda: tv.traverse_fat_closest_reference(scene4, o4, d4, 0.0, RAY_MAX_T, True),
+                  1),
+        "b4a_a": (tv.prepare_launch(scene4, pos4, sd4, RAY_EPSILON, tmax4, False, True),
+                  lambda: tv.traverse_fat_any_reference(scene4, pos4, sd4, RAY_EPSILON, tmax4), 1),
+    }
+    small_ms = {}
+    for key, (prepared, plain, per) in small.items():
+        small_ms[key] = (kernel_ms(prepared, 10, torch) / per, time_ms(plain, 2, torch) / per)
+        print(f"time {key} at {BVH_PARITY_SCENE} {P}^2: kernel {small_ms[key][0]:.4f} ms, plain "
+              f"{small_ms[key][1]:.3f} ms (per sample, frame or trace) [{card}]", flush=True)
+
     kernels = [
         {
             "name": "fused_progressive_sum",
@@ -451,6 +1078,9 @@ def main() -> int:
             "max_abs_err": main_gate["max_abs_diff"],
             "ms": kern_ms,
             "plain_ms": plain_ms,
+            "bound_ms": b1_bound[0],
+            "bound_by": b1_bound[1],
+            "library_ms": None,
         },
         {
             "name": "fused_realtime_outputs",
@@ -461,6 +1091,9 @@ def main() -> int:
             "max_abs_err": rt_err,
             "ms": rt_kern_ms,
             "plain_ms": rt_plain_ms,
+            "bound_ms": b1_rt_bound[0],
+            "bound_by": b1_rt_bound[1],
+            "library_ms": None,
         },
         {
             "name": "bilateral_pass",
@@ -471,8 +1104,52 @@ def main() -> int:
             "max_abs_err": bl_err,
             "ms": (bl_ms[0] + bl_ms[1]) / 2,
             "plain_ms": (bl_plain_ms[0] + bl_plain_ms[1]) / 2,
+            "bound_ms": b2_bound[0],
+            "bound_by": b2_bound[1],
+            "library_ms": None,
         },
     ]
+    plain_shape = f"{BVH_PARITY_SCENE} {P}^2"
+    wave_shape = f"{BVH_MAIN_SCENE} {M}^2, one wavefront sample"
+    for name, source, replaces, n, err, ms, wrap, key, bnd, shape, extra in (
+        ("traverse_fat_closest", "traverse_fat.cu", "ops/traverse_pallas.py:445", wf_closest,
+         b4a_max_t, b4a[False]["ms"], b4a[False]["wrapper_ms"], "b4a_c", b4a_c_bound,
+         f"{wave_shape}: its primary and bounce launches together",
+         {"per_launch": b4a[False]["per_launch"]}),
+        ("traverse_fat_any", "traverse_fat.cu", "ops/traverse_pallas.py:445", wf_any,
+         b4a_any_err, b4a[True]["ms"], b4a[True]["wrapper_ms"], "b4a_a", b4a_a_bound,
+         f"{wave_shape}: its two merged shadow launches together",
+         {"per_launch": b4a[True]["per_launch"]}),
+        ("fused_traverse_progressive_sum", "fused_traverse.cu",
+         "ops/fused_traverse_pallas.py:131", b5_launches, b5_plain_gate["max_abs_diff"], b5_ms,
+         b5_wrap_ms, "b5", b5_bound, f"{BVH_MAIN_SCENE} {M}^2, per sample",
+         {"max_abs_diff_vs_wavefront": b5_gate["max_abs_diff"]}),
+        ("fused_traverse_realtime", "fused_traverse.cu", "ops/fused_traverse_pallas.py:131",
+         b5_rt_launches, max(b5_rt_err, b5_rt_plain_err), b5_rt_cams_ms, b5_rt_wrap_ms, "b5_rt",
+         b5_rt_bound, f"{BVH_MAIN_SCENE} {RT_W}x{RT_H}, per frame, ten frames' cameras in turn",
+         {"max_abs_diff_vs_wavefront": b5_rt_wave_err, "ms_one_camera_repeated": b5_rt_ms,
+          "frame_ms": bvh_frame_ms, "frame_ms_flag_read_per_launch": bvh_frame_read_ms,
+          "frame_ms_without_denoiser": render_only_ms}),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dxrexperiments_torch/csrc/{source}",
+            "replaces": f"dxrexperiments_tpu/{replaces}",
+            "launches": n,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": small_ms[key][1],
+            "bound_ms": bnd[0],
+            "bound_by": bnd[1],
+            "library_ms": None,
+            "shape": shape,
+            "wrapper_ms": wrap,
+            "plain_shape": plain_shape,
+            "ms_at_plain_shape": small_ms[key][0],
+            **extra,
+        })
+    tv.check_errors()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,0 +1,205 @@
+"""Host BVH builds (``dxrexperiments_tpu.accel.bvh``, numpy parts).
+
+Two builders emit one explicit node-array format that
+``ops.traverse.pack_for_traversal`` turns into the kernels' arrays:
+
+  * ``build_bvh`` + ``to_node_arrays``: Morton sort of the triangle
+    centroids and the implicit complete binary tree over that order
+    (node k's children are 2k+1/2k+2, leaves are K consecutive sorted
+    triangles);
+  * ``build_bvh_sah``: the binned-SAH builder in ``csrc/sah_bvh.cpp``,
+    compiled with g++ at first use (``utils/native.py``).
+
+``build_nodes`` picks the SAH build and falls back to the Morton build when
+no C++ compiler is there, as the JAX package's ``Scene.build`` does. The
+numpy code is copied line for line, so both builds equal the JAX package's.
+The device-side Morton build (``build_bvh_device``) and the 8-wide
+collapse (``collapse_wide``) are not ported (ROADMAP Queue A item 11).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+def _expand_bits(v: np.ndarray) -> np.ndarray:
+    """Spread 10 bits to every 3rd bit (for 30-bit 3D Morton codes)."""
+    v = v.astype(np.uint32)
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    v = (v * 0x00000005) & 0x49249249
+    return v
+
+
+def morton_codes(centroids: np.ndarray, lo: np.ndarray, hi: np.ndarray) -> np.ndarray:
+    """30-bit Morton code of each centroid within [lo, hi]."""
+    extent = np.maximum(hi - lo, 1e-12)
+    q = np.clip((centroids - lo) / extent, 0.0, 1.0)
+    q = np.minimum((q * 1024.0).astype(np.uint32), 1023)
+    return (
+        (_expand_bits(q[:, 0]) << 2)
+        | (_expand_bits(q[:, 1]) << 1)
+        | _expand_bits(q[:, 2])
+    )
+
+
+@dataclasses.dataclass
+class BVHLayout:
+    """Static description of an implicit BVH (shapes only)."""
+
+    levels: int  # leaf level depth; 2**levels leaves
+    leaf_size: int  # triangles per leaf
+
+    @property
+    def num_leaves(self) -> int:
+        return 1 << self.levels
+
+    @property
+    def num_nodes(self) -> int:
+        return (1 << (self.levels + 1)) - 1
+
+    @property
+    def padded_tris(self) -> int:
+        return self.num_leaves * self.leaf_size
+
+
+def choose_layout(num_tris: int, leaf_size: int = 8, max_levels: int = 16) -> BVHLayout:
+    levels = 0
+    while (1 << levels) * leaf_size < num_tris and levels < max_levels:
+        levels += 1
+    return BVHLayout(levels=levels, leaf_size=leaf_size)
+
+
+def build_bvh(
+    v0: np.ndarray,
+    e1: np.ndarray,
+    e2: np.ndarray,
+    num_tris: int,
+    leaf_size: int = 8,
+) -> dict:
+    """Build the implicit Morton BVH on the host. Inputs may include padding
+    (degenerate) triangles beyond num_tris; they are ignored.
+
+    Returns {"order" [P] int32 (sorted triangle permutation, padded entries
+    -1), "nodes_lo"/"nodes_hi" [M, 3] f32 (heap order), "levels",
+    "leaf_size"}.
+    """
+    v0 = np.asarray(v0, np.float32)[:num_tris]
+    e1 = np.asarray(e1, np.float32)[:num_tris]
+    e2 = np.asarray(e2, np.float32)[:num_tris]
+    p0, p1, p2 = v0, v0 + e1, v0 + e2
+    tri_lo = np.minimum(np.minimum(p0, p1), p2)
+    tri_hi = np.maximum(np.maximum(p0, p1), p2)
+    centroid = (tri_lo + tri_hi) * 0.5
+
+    layout = choose_layout(max(num_tris, 1), leaf_size)
+    P = layout.padded_tris
+
+    if num_tris > 0:
+        codes = morton_codes(centroid, tri_lo.min(0), tri_hi.max(0))
+        order = np.argsort(codes, kind="stable").astype(np.int32)
+    else:
+        order = np.zeros((0,), np.int32)
+
+    order_p = np.full((P,), -1, np.int32)
+    order_p[:num_tris] = order
+
+    # Leaf AABBs: per leaf, min/max over its K sorted triangles.
+    INF = np.float32(np.inf)
+    slot_lo = np.full((P, 3), INF, np.float32)
+    slot_hi = np.full((P, 3), -INF, np.float32)
+    slot_lo[:num_tris] = tri_lo[order]
+    slot_hi[:num_tris] = tri_hi[order]
+    leaf_lo = slot_lo.reshape(layout.num_leaves, leaf_size, 3).min(1)
+    leaf_hi = slot_hi.reshape(layout.num_leaves, leaf_size, 3).max(1)
+
+    # Bottom-up heap fit.
+    nodes_lo = np.full((layout.num_nodes, 3), INF, np.float32)
+    nodes_hi = np.full((layout.num_nodes, 3), -INF, np.float32)
+    first_leaf = layout.num_leaves - 1
+    nodes_lo[first_leaf:] = leaf_lo
+    nodes_hi[first_leaf:] = leaf_hi
+    for level in range(layout.levels - 1, -1, -1):
+        start = (1 << level) - 1
+        end = (1 << (level + 1)) - 1
+        child = 2 * np.arange(start, end) + 1
+        nodes_lo[start:end] = np.minimum(nodes_lo[child], nodes_lo[child + 1])
+        nodes_hi[start:end] = np.maximum(nodes_hi[child], nodes_hi[child + 1])
+
+    return {
+        "order": order_p,
+        "nodes_lo": nodes_lo,
+        "nodes_hi": nodes_hi,
+        "levels": layout.levels,
+        "leaf_size": leaf_size,
+    }
+
+
+# Explicit node-array format, emitted by both builders:
+#   nodes_lo/hi [M, 3] f32; child [M, 2] i32
+#     internal: child[m] = {left, right}
+#     leaf:     child[m] = {-(start+1), count}   (range into `order`)
+#   order [T] i32 (contiguous leaf runs)
+def to_node_arrays(bvh: dict) -> dict:
+    """Convert the implicit heap BVH to explicit node arrays (leaves become
+    ranges of `leaf_size` slots; empty padding slots are dropped per leaf)."""
+    levels, leaf_size = bvh["levels"], bvh["leaf_size"]
+    num_leaves = 1 << levels
+    num_nodes = 2 * num_leaves - 1
+    first_leaf = num_leaves - 1
+    order = bvh["order"]
+    child = np.zeros((num_nodes, 2), np.int32)
+    internal = np.arange(first_leaf)
+    child[internal, 0] = 2 * internal + 1
+    child[internal, 1] = 2 * internal + 2
+    leaf_ids = np.arange(num_leaves)
+    starts = leaf_ids * leaf_size
+    counts = np.minimum(
+        np.maximum((order >= 0).sum() - starts, 0), leaf_size
+    ).astype(np.int32)
+    child[first_leaf:, 0] = -(starts + 1)
+    child[first_leaf:, 1] = counts
+    return {
+        "nodes_lo": np.asarray(bvh["nodes_lo"], np.float32),
+        "nodes_hi": np.asarray(bvh["nodes_hi"], np.float32),
+        "child": child,
+        "order": np.asarray(order, np.int32),
+    }
+
+
+def build_bvh_sah(
+    v0: np.ndarray,
+    e1: np.ndarray,
+    e2: np.ndarray,
+    num_tris: int,
+    leaf_size: int = 8,
+) -> dict | None:
+    """Binned-SAH build via the native builder (``csrc/sah_bvh.cpp``),
+    object splits only (the JAX package's default: its SBVH spatial splits
+    are opt-in and not ported). Returns explicit node arrays, or None when
+    g++ is missing."""
+    from ..utils import native
+
+    res = native.build_sah_native(
+        np.asarray(v0, np.float32)[:num_tris],
+        np.asarray(e1, np.float32)[:num_tris],
+        np.asarray(e2, np.float32)[:num_tris],
+        leaf_size,
+    )
+    if res is None:
+        return None
+    nodes_lo, nodes_hi, child, order = res
+    return {"nodes_lo": nodes_lo, "nodes_hi": nodes_hi, "child": child, "order": order}
+
+
+def build_nodes(v0, e1, e2, num_tris: int, leaf_size: int) -> tuple[dict, str]:
+    """Explicit node arrays from the SAH build, or from the Morton build when
+    there is no C++ compiler. Returns (nodes, builder name: "sah" or
+    "morton")."""
+    nodes = build_bvh_sah(v0, e1, e2, num_tris, leaf_size)
+    if nodes is not None:
+        return nodes, "sah"
+    return to_node_arrays(build_bvh(v0, e1, e2, num_tris, leaf_size)), "morton"

@@ -1,15 +1,19 @@
 """Headless CLI renderer of the port (``dxrexperiments_tpu.app.headless``,
 progressive and realtime pipelines).
 
-Builds a Cornell scene and writes a PNG. Progressive: accumulates --spp
-samples (one per frame) and prints spp/s and primary rays/s. Realtime:
-renders one 1-spp frame, optionally through the DenoiseCompositor.
+Builds a scene (the Cornell box, a random triangle soup ``soup:N`` or a
+K x K grid of sphere instances ``instanced:K``, the last two through a BVH)
+and writes a PNG. Progressive: accumulates --spp samples (one per frame) and
+prints spp/s and primary rays/s. Realtime: renders one 1-spp frame,
+optionally through the DenoiseCompositor.
 
 Usage:
     python -m dxrexperiments_torch.app.headless --scene cornell-glossy \
         --size 512x512 --spp 32 --device cuda -o out.png
     python -m dxrexperiments_torch.app.headless --pipeline realtime --denoise \
         --scene cornell-glossy --size 1920x1080 --device cuda -o out.png
+    python -m dxrexperiments_torch.app.headless --scene instanced:32 \
+        --size 512x512 --spp 16 --device cuda -o out.png
 
 --device defaults to cuda and fails without a card; pass --device cpu for
 the plain PyTorch path.
@@ -28,12 +32,15 @@ from ..core.camera import Camera
 from ..models.denoise import DenoiseCompositor, linear_to_srgb, reinhard_tonemap
 from ..models.progressive import ProgressiveRaytracingPipeline
 from ..models.realtime import RealtimeRaytracingPipeline
-from ..scene import Scene, cornell_box, envmap
-from ..scene.lights import directional_light, point_light
+from ..ops.traverse import check_errors
+from ..scene import Material, Scene, cornell_box, envmap
+from ..scene.lights import default_lights, directional_light, point_light
+from ..scene.mesh import Mesh
+from ..scene.procedural import random_triangle_soup, sphere_mesh
 from ..utils.image import write_png
 from ..utils.stats import FrameStats
 
-SCENES = ("cornell", "cornell-glossy")
+SCENES = ("cornell", "cornell-glossy", "soup:N", "instanced:K")
 AOV_OPTIONS = {
     "albedo": "show_gbuffer_albedo_only",
     "direct": "show_direct_lighting_only",
@@ -44,13 +51,26 @@ AOV_OPTIONS = {
 
 
 def build_scene(name: str) -> tuple[Scene, Camera]:
-    """The Cornell box (glossy tall box for 'cornell-glossy') with the
-    1 directional + 1 point rig, a black constant env and the default
-    framing. Other scenes of the JAX CLI wait for later ROADMAP items."""
+    """The JAX CLI's procedural scenes: the Cornell box (glossy tall box for
+    'cornell-glossy') with the 1 directional + 1 point rig, a black constant
+    env and the default framing; 'soup:N', N random triangles; 'instanced:K',
+    a K x K grid of 960-triangle spheres on a floor with alternating glossy
+    and white materials (BASELINE config 5 at K = 32, 983,042 triangles,
+    flattened). Soups and instances take the default rig and the gradient
+    env. Mesh files wait for ROADMAP Queue A item 15."""
+    if name.startswith("soup:"):
+        sc, cam = Scene(), Camera()
+        sc.add_model(random_triangle_soup(int(name.split(":", 1)[1]), seed=0, extent=10.0))
+        sc.lights = default_lights()
+        sc.environment = envmap.gradient_env()
+        cam.set_eye_at_up((25.0, 18.0, 25.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+        return sc, cam
+    if name.startswith("instanced:"):
+        return _instanced_scene(int(name.split(":", 1)[1]))
     if name not in SCENES:
         raise NotImplementedError(
             f"scene {name!r} is not ported yet (supported: {', '.join(SCENES)}; "
-            "mesh files: ROADMAP Queue A item 15, soups and instancing: items 11 and 13)"
+            "mesh files: ROADMAP Queue A item 15)"
         )
     sc = Scene()
     mesh, materials = cornell_box(glossy_tall_box=(name == "cornell-glossy"))
@@ -64,6 +84,31 @@ def build_scene(name: str) -> tuple[Scene, Camera]:
     sc.environment = envmap.constant_env((0.0, 0.0, 0.0))
     cam = Camera()
     cam.set_eye_at_up((0.0, 1.0, 3.4), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0))
+    return sc, cam
+
+
+def _instanced_scene(k: int) -> tuple[Scene, Camera]:
+    sc, cam = Scene(), Camera()
+    base = sphere_mesh((0.0, 0.0, 0.0), 1.0, lat=16, lon=32)
+    glossy = sc.add_material(Material.reference_default())
+    white = sc.add_material(Material(albedo=(0.73, 0.73, 0.73, 1.0)))
+    for i in range(k):
+        for j in range(k):
+            t = np.eye(4, dtype=np.float32)
+            t[0, 3] = (i - k / 2) * 2.5
+            t[2, 3] = (j - k / 2) * 2.5
+            t[1, 3] = 1.0
+            sc.add_model(base, transform=t, material=glossy if (i + j) % 2 else white)
+    ext = k * 2.5
+    floor = Mesh(
+        np.array([[-ext, 0, -ext], [-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext]], np.float32),
+        None,
+        np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+    )
+    sc.add_model(floor, material=white)
+    sc.lights = default_lights()
+    sc.environment = envmap.gradient_env()
+    cam.set_eye_at_up((ext * 0.9, ext * 0.5, ext * 0.9), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0))
     return sc, cam
 
 
@@ -86,7 +131,10 @@ def parse_env(spec: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--scene", default="cornell", choices=SCENES)
+    ap.add_argument("--scene", default="cornell", help=" | ".join(SCENES))
+    ap.add_argument("--accel", default="auto", choices=["auto", "two-level"],
+                    help="auto: flattened world-space build, with a BVH above 4096 "
+                         "triangles; two-level is not ported yet (ROADMAP Queue A item 13)")
     ap.add_argument("--size", default="512x512")
     ap.add_argument("--spp", type=int, default=16, help="progressive samples (one per frame)")
     ap.add_argument("--pipeline", choices=["progressive", "realtime"], default="progressive")
@@ -113,6 +161,10 @@ def main(argv=None) -> int:
     if (args.save_state or args.resume) and args.pipeline != "progressive":
         ap.error("--save-state/--resume checkpoint the progressive accumulation state; "
                  "use --pipeline progressive")
+    if args.accel == "two-level":
+        raise NotImplementedError(
+            "--accel two-level (TLAS/BLAS scenes) is not ported yet (ROADMAP Queue A item 13)"
+        )
     args.spp = max(args.spp, 1)
     width, height = (int(x) for x in args.size.lower().split("x"))
     if width < 1 or height < 1:
@@ -144,6 +196,7 @@ def _render_realtime(args, scene, camera, width, height) -> np.ndarray:
     final = denoiser.dispatch(direct, indirect) if denoiser else direct + indirect
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
+        check_errors()
     dt = time.perf_counter() - t0
     suffix = "+denoise" if args.denoise else ""
     print(f"realtime{suffix} ({pipe.device.type}): {width}x{height} in {dt:.2f}s")
@@ -175,6 +228,7 @@ def _render_progressive(args, scene, camera, width, height) -> np.ndarray:
         stats.frame()
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
+        check_errors()
     dt = time.perf_counter() - t0
     if args.save_state:
         pipe.save_checkpoint(args.save_state, frames_done=args.spp)

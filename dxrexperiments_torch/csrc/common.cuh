@@ -1,0 +1,563 @@
+// Device code shared by the sample megakernels (B1 csrc/fused_sample.cu, B5
+// csrc/fused_traverse.cu) and the fat-node walk kernel (B4a
+// csrc/traverse_fat.cu).
+//
+// 1. The per-pixel ray tree of the reference shaders: raygen, the TEA/LCG
+//    draws, direct lighting with its shadow rays, the depth-1 radiance of a
+//    bounce, the Phong lobe, and the whole progressive sample
+//    (sample_pixel) or realtime frame (realtime_pixel). It is templated on a
+//    trace backend Tr, which provides
+//      Hit closest(V3 o, V3 d, float tmin, bool cull) const;
+//      bool occluded(V3 o, V3 d, float tmin, bool has_tmax, float tmax) const;
+//      float a(int field, int row) const;  // material field A_* of Hit::row
+//      int rig;  // lights present: 1 directional, 2 point (B1: always 3)
+//    B1's backend sweeps every triangle staged in shared memory; B5's walks
+//    the fat-node BVH below.
+// 2. The fat-node BVH walk of traverse_pallas._make_traverse_fat_kernel,
+//    one ray per thread: each visit tests both children's boxes against
+//    the ray's window clipped by the running best t, tests a hit leaf's
+//    triangles at once, and pushes the hit internal children far first so
+//    the near one pops next. The stack holds kMaxStack entries; an overflow
+//    sets the error flag (the wrapper raises), it never drops a subtree.
+//
+// Arithmetic follows the TPU kernels: the same term sums, the same
+// sign-multiplied validity windows, t = ts / max(|det|, 1e-12), ties to the
+// lowest row, strict '<' across leaves, and the same draw routing. Build
+// without --use_fast_math (IEEE sqrtf, division, sinf, cosf, expf, powf).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace dxr {
+
+constexpr float kBig = 3.0e38f;
+constexpr float kRayFar = 3.0e37f;  // finite "infinity" of the BVH walks' windows
+constexpr float kRayEps = 1.0e-4f;
+constexpr float kDetEps = 1.0e-12f;
+constexpr float kPi = 3.14159265358979323846f;
+constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr int kMaxStack = 96;  // traverse_pallas.MAX_STACK
+constexpr int kRowLanes = 128;  // mt_rows row width
+
+// const pack [2, 16]: row 0 lights + env colour 0, row 1 flags + env colour 1
+enum { C_DLDIR = 0, C_DLCI = 3, C_PLPOS = 6, C_PLCI = 9, C_ENV0 = 12, C_STRENGTH = 15 };
+enum {
+  F_COSINE = 16, F_NO_IND, F_IS_MC, F_SHOW_DIRECT, F_SHOW_ALBEDO,
+  F_SHOW_FRESNEL, F_SHOW_IND_SPEC, F_SHOW_IND_DIFF, F_ENV1
+};
+// attr_pack rows; the material fields A_ALBEDO..A_TYPE name what a backend's
+// a(field, row) returns
+enum {
+  A_N0 = 0, A_N1 = 3, A_N2 = 6, A_ALBEDO = 10, A_SPECULAR = 13,
+  A_EMISSIVE = 16, A_ESTR = 19, A_REFL = 20, A_ROUGH = 21, A_IOR = 22, A_TYPE = 23
+};
+// Möller–Trumbore coefficient slots: det = D.s[0:3]; u*det = D.s[3:6] +
+// M.s[6:9]; v*det = D.s[9:12] + M.s[12:15]; t*det = O.s[15:18] + s[18]
+enum { S_DET = 0, S_U = 3, S_V = 9, S_T = 15 };
+constexpr int kMtSlots = 19;
+// Error flag values (ops/traverse.py _ERRORS)
+enum { E_STACK = 1, E_INDEX = 2 };
+
+struct V3 {
+  float x, y, z;
+};
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
+__device__ __forceinline__ float dot3(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross3(V3 a, V3 b) {
+  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
+__device__ __forceinline__ float saturate(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+__device__ __forceinline__ float comp(V3 a, int k) { return k == 0 ? a.x : (k == 1 ? a.y : a.z); }
+__device__ __forceinline__ V3 load3(const float* p) { return v3(p[0], p[1], p[2]); }
+
+// vecmath.normalize: zero vectors map to zero
+__device__ __forceinline__ V3 normalize3(V3 v) {
+  float n2 = dot3(v, v);
+  float inv = n2 > 1e-8f ? 1.0f / sqrtf(fmaxf(n2, 1e-8f)) : 0.0f;
+  return v3(v.x * inv, v.y * inv, v.z * inv);
+}
+
+// Branchless smallest-axis perpendicular and the (tangent, bitangent) frame.
+__device__ __forceinline__ void onb(V3 n, V3* tan, V3* bit) {
+  float ax = fabsf(n.x), ay = fabsf(n.y), az = fabsf(n.z);
+  bool xm = ((ax - ay) < 0.0f) && ((ax - az) < 0.0f);
+  bool ym = ((ay - az) < 0.0f) && !xm;
+  bool zm = !(xm || ym);
+  *bit = cross3(n, v3(xm ? 1.0f : 0.0f, ym ? 1.0f : 0.0f, zm ? 1.0f : 0.0f));
+  *tan = cross3(*bit, n);
+}
+
+__device__ __forceinline__ uint32_t tea_init(uint32_t v0, uint32_t v1) {
+  uint32_t s0 = 0;
+#pragma unroll
+  for (int n = 0; n < 16; ++n) {
+    s0 += 0x9E3779B9u;
+    v0 += ((v1 << 4) + 0xA341316Cu) ^ (v1 + s0) ^ ((v1 >> 5) + 0xC8013EA4u);
+    v1 += ((v0 << 4) + 0xAD90777Du) ^ (v0 + s0) ^ ((v0 >> 5) + 0x7E95761Eu);
+  }
+  return v0;
+}
+
+// Möller–Trumbore terms of one (triangle, ray) pair and its validity.
+struct Pair {
+  bool valid;
+  float ts, us, vs, det_abs;
+};
+
+// c(j) returns the triangle's coefficient slot j (S_DET..S_T+3).
+template <class Coef>
+__device__ __forceinline__ Pair pair_test(const Coef& c, V3 o, V3 d, V3 mo, float tmin,
+                                          bool has_tmax, float tmax, bool cull) {
+  float det = d.x * c(S_DET) + d.y * c(S_DET + 1) + d.z * c(S_DET + 2);
+  float u_d = d.x * c(S_U) + d.y * c(S_U + 1) + d.z * c(S_U + 2) +
+              mo.x * c(S_U + 3) + mo.y * c(S_U + 4) + mo.z * c(S_U + 5);
+  float v_d = d.x * c(S_V) + d.y * c(S_V + 1) + d.z * c(S_V + 2) +
+              mo.x * c(S_V + 3) + mo.y * c(S_V + 4) + mo.z * c(S_V + 5);
+  float t_d = o.x * c(S_T) + o.y * c(S_T + 1) + o.z * c(S_T + 2) + c(S_T + 3);
+  float s = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
+  Pair p;
+  p.det_abs = det * s;
+  p.us = u_d * s;
+  p.vs = v_d * s;
+  p.ts = t_d * s;
+  bool alive = cull ? (det > kDetEps) : (p.det_abs > kDetEps);
+  float m_soft = fminf(fminf(p.us, p.vs), p.det_abs - (p.us + p.vs));
+  float m_strict = p.ts - tmin * p.det_abs;
+  if (has_tmax) m_strict = fminf(m_strict, tmax * p.det_abs - p.ts);
+  p.valid = alive && (m_soft >= 0.0f) && (m_strict > 0.0f);
+  return p;
+}
+
+struct Hit {
+  bool hit;
+  int row;  // the backend's material handle (B1: triangle, B5: material id)
+  float t;
+  V3 pos, normal;
+};
+
+// Barycentric normal of vertex normals n0/n1/n2 (9 values at stride `step`
+// from p), normalised as the TPU kernels do.
+__device__ __forceinline__ V3 interp_normal(const float* p, int step, float u, float v) {
+  float w = 1.0f - u - v;
+  V3 n = v3(w * p[(A_N0 + 0) * step] + u * p[(A_N1 + 0) * step] + v * p[(A_N2 + 0) * step],
+            w * p[(A_N0 + 1) * step] + u * p[(A_N1 + 1) * step] + v * p[(A_N2 + 1) * step],
+            w * p[(A_N0 + 2) * step] + u * p[(A_N1 + 2) * step] + v * p[(A_N2 + 2) * step]);
+  float inv = 1.0f / sqrtf(fmaxf(dot3(n, n), 1e-24f));
+  return v3(n.x * inv, n.y * inv, n.z * inv);
+}
+
+// ---------------------------------------------------------------------------
+// The fat-node BVH walk (B4a, and B5's traces)
+// ---------------------------------------------------------------------------
+
+// mt_rows lane of coefficient slot j (pack_for_traversal: group g, column
+// col at lane 16 g + col).
+__host__ __device__ constexpr int coef_lane(int j) {
+  return j < S_U ? j : (j < S_V ? 16 + (j - S_U) : (j < S_T ? 32 + (j - S_V) : 54 + (j - S_T)));
+}
+
+struct RowCoef {
+  const float* row;  // one mt_rows row
+  __device__ __forceinline__ float operator()(int j) const { return __ldg(row + coef_lane(j)); }
+};
+
+struct FatBvh {
+  const float4* nodes;  // bvhf_rows [F, 16] as [F][4] float4
+  const float* rows;    // mt_rows [S, 128]
+  int n_nodes, n_slots;
+  int* err;  // device error flag (E_STACK, E_INDEX)
+};
+
+// 1 / d per axis with |d| <= 1e-12 replaced by +1e-12 (the TPU kernels' rule).
+__device__ __forceinline__ V3 safe_inv(V3 d) {
+  return v3(1.0f / (fabsf(d.x) > 1e-12f ? d.x : 1e-12f),
+            1.0f / (fabsf(d.y) > 1e-12f ? d.y : 1e-12f),
+            1.0f / (fabsf(d.z) > 1e-12f ? d.z : 1e-12f));
+}
+
+// Slab test of box [lo, hi] against the window (tmin, tf]; *tn = entry t.
+__device__ __forceinline__ bool slab(V3 lo, V3 hi, V3 o, V3 inv, float tmin, float tf,
+                                     float* tn) {
+  float t0x = (lo.x - o.x) * inv.x, t1x = (hi.x - o.x) * inv.x;
+  float t0y = (lo.y - o.y) * inv.y, t1y = (hi.y - o.y) * inv.y;
+  float t0z = (lo.z - o.z) * inv.z, t1z = (hi.z - o.z) * inv.z;
+  float n = fmaxf(fmaxf(fmaxf(tmin, fminf(t0x, t1x)), fminf(t0y, t1y)), fminf(t0z, t1z));
+  float f = fminf(fminf(fminf(tf, fmaxf(t0x, t1x)), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+  *tn = n;
+  return n <= f;
+}
+
+// Near-first walk from the root. Leaf provides far() (the window's far end:
+// the running best t, or t_max) and visit(start, count), which tests one
+// leaf and returns true to end the walk. `stack` holds kMaxStack entries.
+template <class Leaf>
+__device__ __forceinline__ void fat_walk(const FatBvh& B, V3 o, V3 inv, float tmin, Leaf& leaf,
+                                         int* stack) {
+  int sp = 1;
+  stack[0] = 0;
+  while (sp > 0) {
+    const int node = stack[--sp];
+    if (node < 0 || node >= B.n_nodes) {
+      *B.err = E_INDEX;
+      return;
+    }
+    const float4* q = B.nodes + 4 * node;
+    const float4 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2), m = __ldg(q + 3);
+    const float tf = leaf.far();
+    float tn0, tn1;
+    const bool h0 = slab(v3(a.x, a.y, a.z), v3(a.w, b.x, b.y), o, inv, tmin, tf, &tn0);
+    const bool h1 = slab(v3(b.z, b.w, c.x), v3(c.y, c.z, c.w), o, inv, tmin, tf, &tn1);
+    const int ptr0 = (int)m.x, ptr1 = (int)m.z;
+    if (h0 && m.y > 0.5f && leaf.visit(ptr0, (int)m.y)) return;
+    if (h1 && m.w > 0.5f && leaf.visit(ptr1, (int)m.w)) return;
+    const bool int0 = h0 && m.y < -0.5f, int1 = h1 && m.w < -0.5f;
+    const int pushes = (int)int0 + (int)int1;
+    if (sp + pushes > kMaxStack) {
+      *B.err = E_STACK;
+      return;
+    }
+    if (int0 && int1) {
+      const bool near0 = tn0 <= tn1;  // far pushed first, near pops next
+      stack[sp++] = near0 ? ptr1 : ptr0;
+      stack[sp++] = near0 ? ptr0 : ptr1;
+    } else if (pushes) {
+      stack[sp++] = int0 ? ptr0 : ptr1;
+    }
+  }
+}
+
+// Closest-hit leaf test: rows ascending with a strict '<', so the lowest row
+// wins within a leaf and an equal t never replaces an earlier leaf's hit.
+struct ClosestLeaf {
+  const FatBvh& B;
+  V3 o, d, mo;
+  float tmin, tmax;
+  bool cull;
+  float best_t, b_us, b_vs, b_det;
+  int best_slot;
+
+  __device__ __forceinline__ ClosestLeaf(const FatBvh& b, V3 o_, V3 d_, float tmin_, float tmax_,
+                                         bool cull_)
+      : B(b), o(o_), d(d_), mo(cross3(o_, d_)), tmin(tmin_), tmax(tmax_), cull(cull_),
+        best_t(kBig), b_us(0.0f), b_vs(0.0f), b_det(0.0f), best_slot(-1) {}
+  __device__ __forceinline__ float far() const { return fminf(tmax, best_t); }
+  __device__ __forceinline__ bool visit(int start, int count) {
+    if (start < 0 || start + count > B.n_slots) {
+      *B.err = E_INDEX;
+      return true;
+    }
+    for (int r = 0; r < count; ++r) {
+      Pair p = pair_test(RowCoef{B.rows + (size_t)(start + r) * kRowLanes}, o, d, mo, tmin, true,
+                         tmax, cull);
+      if (p.valid) {
+        float t = p.ts / fmaxf(p.det_abs, kDetEps);
+        if (t < best_t) {
+          best_t = t;
+          best_slot = start + r;
+          b_us = p.us;
+          b_vs = p.vs;
+          b_det = p.det_abs;
+        }
+      }
+    }
+    return false;
+  }
+  __device__ __forceinline__ bool hit() const { return best_t < kBig; }
+  __device__ __forceinline__ float u() const { return b_us * (1.0f / fmaxf(b_det, kDetEps)); }
+  __device__ __forceinline__ float v() const { return b_vs * (1.0f / fmaxf(b_det, kDetEps)); }
+};
+
+// Occlusion leaf test: the walk ends at the first valid pair.
+struct AnyLeaf {
+  const FatBvh& B;
+  V3 o, d, mo;
+  float tmin, tmax;
+  bool occluded;
+
+  __device__ __forceinline__ AnyLeaf(const FatBvh& b, V3 o_, V3 d_, float tmin_, float tmax_)
+      : B(b), o(o_), d(d_), mo(cross3(o_, d_)), tmin(tmin_), tmax(tmax_), occluded(false) {}
+  __device__ __forceinline__ float far() const { return tmax; }
+  __device__ __forceinline__ bool visit(int start, int count) {
+    if (start < 0 || start + count > B.n_slots) {
+      *B.err = E_INDEX;
+      return true;
+    }
+    for (int r = 0; r < count; ++r) {
+      if (pair_test(RowCoef{B.rows + (size_t)(start + r) * kRowLanes}, o, d, mo, tmin, true, tmax,
+                    false).valid) {
+        occluded = true;
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
+// ---------------------------------------------------------------------------
+// The per-pixel ray tree
+// ---------------------------------------------------------------------------
+
+// Constant (kind 0) or gradient (kind 1) environment, times the strength.
+__device__ V3 env_color(V3 d, const float* cst, int env_kind) {
+  float strength = cst[C_STRENGTH];
+  if (env_kind == 0) {
+    return v3(cst[C_ENV0] * strength, cst[C_ENV0 + 1] * strength, cst[C_ENV0 + 2] * strength);
+  }
+  float t = saturate(d.y * 0.5f + 0.5f);
+  return v3((cst[C_ENV0] * (1.0f - t) + cst[F_ENV1] * t) * strength,
+            (cst[C_ENV0 + 1] * (1.0f - t) + cst[F_ENV1 + 1] * t) * strength,
+            (cst[C_ENV0 + 2] * (1.0f - t) + cst[F_ENV1 + 2] * t) * strength);
+}
+
+// Directional + point light with shadow rays, or, with both lights present,
+// the debug==2 one-of-two MC estimator (pick < 0.5 -> directional, weight
+// 2); a rig of one light ignores the pick, as the one-of-one estimator
+// equals the full sum. Only for hit lanes.
+template <class Tr>
+__device__ V3 direct_lighting(const Tr& T, const float* cst, V3 pos, V3 normal, float pick) {
+  const bool has_d = (T.rig & 1) != 0, has_p = (T.rig & 2) != 0;
+  V3 dl = load3(cst + C_DLDIR);
+  V3 path = v3(cst[C_PLPOS] - pos.x, cst[C_PLPOS + 1] - pos.y, cst[C_PLPOS + 2] - pos.z);
+  float dist = sqrtf(fmaxf(dot3(path, path), 0.0f));
+  V3 lp = normalize3(path);
+  float tmax_p = fmaxf(dist - kRayEps, kRayEps);
+  bool is_mc = cst[F_IS_MC] > 0.5f && has_d && has_p;
+  bool need_d = has_d && (!is_mc || pick < 0.5f);
+  bool need_p = has_p && (!is_mc || !(pick < 0.5f));
+  float d_vis = (need_d && !T.occluded(pos, dl, kRayEps, false, 0.0f)) ? 1.0f : 0.0f;
+  float p_vis = (need_p && !T.occluded(pos, lp, kRayEps, true, tmax_p)) ? 1.0f : 0.0f;
+  float nol_d = saturate(dot3(normal, dl));
+  float nol_p = saturate(dot3(normal, lp));
+  float falloff = 1.0f / (kTwoPi * fmaxf(dist * dist, 1e-12f));
+  float dterm = nol_d * d_vis;
+  float pterm = nol_p * p_vis * falloff;
+  V3 d_c = v3(cst[C_DLCI] * dterm, cst[C_DLCI + 1] * dterm, cst[C_DLCI + 2] * dterm);
+  V3 p_c = v3(cst[C_PLCI] * pterm, cst[C_PLCI + 1] * pterm, cst[C_PLCI + 2] * pterm);
+  if (is_mc) {
+    return pick < 0.5f ? v3(d_c.x * 2.0f, d_c.y * 2.0f, d_c.z * 2.0f)
+                       : v3(p_c.x * 2.0f, p_c.y * 2.0f, p_c.z * 2.0f);
+  }
+  return v3(d_c.x + p_c.x, d_c.y + p_c.y, d_c.z + p_c.z);
+}
+
+// Depth-1 radiance of an active bounce ray: albedo * direct / pi on a hit,
+// plus emissive in progressive mode only (the realtime shader adds none);
+// the environment on a miss.
+template <class Tr>
+__device__ V3 secondary_radiance(const Tr& T, const float* cst, V3 o, V3 d, float pick,
+                                 int env_kind, bool emissive) {
+  Hit h = T.closest(o, d, kRayEps, false);
+  if (!h.hit) return env_color(d, cst, env_kind);
+  V3 direct = direct_lighting(T, cst, h.pos, h.normal, pick);
+  float estr = T.a(A_ESTR, h.row);
+  float out[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float shade = T.a(A_ALBEDO + k, h.row) * comp(direct, k) / kPi;
+    out[k] = emissive ? T.a(A_EMISSIVE + k, h.row) * estr + shade : shade;
+  }
+  return v3(out[0], out[1], out[2]);
+}
+
+// Cosine (flag > 0.5) or uniform hemisphere direction from draws r0, r1.
+__device__ V3 hemisphere_dir(V3 n, float r0, float r1, bool cosine) {
+  V3 tan, bit;
+  onb(n, &tan, &bit);
+  float phi = kTwoPi * r1;
+  float cphi = cosf(phi), sphi = sinf(phi);
+  float a, b, c;
+  if (cosine) {
+    float rr = sqrtf(r0);
+    a = rr * cphi;
+    b = sqrtf(fmaxf(1.0f - r0, 0.0f));
+    c = rr * sphi;
+  } else {
+    float sin_t = sqrtf(fmaxf(1.0f - r0 * r0, 0.0f));
+    a = sin_t * cphi;
+    b = r0;
+    c = sin_t * sphi;
+  }
+  return v3(a * tan.x + b * n.x + c * bit.x, a * tan.y + b * n.y + c * bit.y,
+            a * tan.z + b * n.z + c * bit.z);
+}
+
+__device__ __forceinline__ float sanitize(float x) { return isnan(x) ? 0.0f : fmaxf(x, 0.0f); }
+
+// Raygen (primary_ray_grid): origin (jitter folded in) and unit direction
+// of pixel (px, py) from camera pack row cm.
+__device__ __forceinline__ void primary_ray(const float* cm, int px, int py, int width,
+                                            int height, V3* o, V3* d) {
+  float ndcx = ((float)px + 0.5f) / (float)width * 2.0f - 1.0f;
+  float pyf = (float)py + cm[12];
+  float ndcy = (pyf + 0.5f) / (float)height * 2.0f - 1.0f;
+  V3 dun = v3(ndcx * cm[3] + (-ndcy) * cm[6] + cm[9], ndcx * cm[4] + (-ndcy) * cm[7] + cm[10],
+              ndcx * cm[5] + (-ndcy) * cm[8] + cm[11]);
+  float norm = sqrtf(dot3(dun, dun));
+  *d = v3(dun.x / norm, dun.y / norm, dun.z / norm);
+  *o = load3(cm);
+}
+
+// 5 LCG draws u1..u5 from the TEA seed of the raster pixel index.
+__device__ __forceinline__ void draws(int px, int py, int width, uint32_t frame, float u[5]) {
+  uint32_t seed = tea_init((uint32_t)(py * width + px), frame);
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    seed = seed * 1664525u + 1013904223u;
+    u[k] = (float)(seed & 0x00FFFFFFu) / 16777216.0f;
+  }
+}
+
+// Phong lobe around the mirror direction of d about normal (samplePhongLobe):
+// the bounce direction and brdf / pdf, guarded against the 0/0 underflow.
+struct Phong {
+  V3 dir;
+  float ratio;
+};
+
+__device__ __forceinline__ Phong phong_lobe(V3 d, V3 normal, float r0, float r1, float exponent) {
+  float don = dot3(d, normal);
+  V3 mirror = normalize3(v3(d.x - 2.0f * don * normal.x, d.y - 2.0f * don * normal.y,
+                            d.z - 2.0f * don * normal.z));
+  V3 tan, bit;
+  onb(mirror, &tan, &bit);
+  float cos_t = powf(r0, 1.0f / (exponent + 1.0f));
+  float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+  float phi = kTwoPi * r1;
+  float powered_cos = powf(cos_t, exponent);
+  float pdf = (exponent + 1.0f) / kTwoPi * powered_cos;
+  float brdf = (exponent + 2.0f) / kTwoPi * powered_cos;
+  float xs = sin_t * cosf(phi), zs = sin_t * sinf(phi);
+  Phong p;
+  p.dir = v3(xs * tan.x + cos_t * mirror.x + zs * bit.x,
+             xs * tan.y + cos_t * mirror.y + zs * bit.y,
+             xs * tan.z + cos_t * mirror.z + zs * bit.z);
+  p.ratio = pdf > 1e-30f ? brdf / fmaxf(pdf, 1e-30f) : (exponent + 2.0f) / (exponent + 1.0f);
+  return p;
+}
+
+// Material type 1 or 2 with reflectivity above 0.001 traces the Phong bounce.
+template <class Tr>
+__device__ __forceinline__ bool specular_active(const Tr& T, int r) {
+  float mtype = T.a(A_TYPE, r);
+  return ((fabsf(mtype - 1.0f) < 0.5f) || (fabsf(mtype - 2.0f) < 0.5f)) &&
+         (T.a(A_REFL, r) > 0.001f);
+}
+
+// One progressive sample of pixel (px, py); adds its colour to acc.
+template <class Tr>
+__device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const float* cst,
+                             int px, int py, int width, int height, int env_kind, float acc[3]) {
+  V3 o, d;
+  primary_ray(cm, px, py, width, height, &o, &d);
+  Hit h = T.closest(o, d, 0.0f, true);
+  if (!h.hit) {
+    V3 e = env_color(d, cst, env_kind);
+    acc[0] += sanitize(e.x);
+    acc[1] += sanitize(e.y);
+    acc[2] += sanitize(e.z);
+    return;
+  }
+
+  float u[5];
+  draws(px, py, width, frame, u);
+  const bool is_mc = cst[F_IS_MC] > 0.5f;
+  const bool no_ind = cst[F_NO_IND] > 0.5f;
+  const bool cosine = cst[F_COSINE] > 0.5f;
+  const int r = h.row;
+  V3 pos = h.pos, normal = h.normal;
+
+  // ---- direct lighting (draw u1 picks the light under debug==2) ------------
+  V3 direct = direct_lighting(T, cst, pos, normal, u[0]);
+
+  // ---- indirect diffuse direction: draws (u1, u2), or (u2, u3) after the pick
+  V3 diff_dir = hemisphere_dir(normal, is_mc ? u[1] : u[0], is_mc ? u[2] : u[1], cosine);
+
+  // ---- Phong lobe: the next two draws after the ones consumed above -------
+  float r0_ph = no_ind ? (is_mc ? u[1] : u[0]) : (is_mc ? u[3] : u[2]);
+  float r1_ph = no_ind ? (is_mc ? u[2] : u[1]) : (is_mc ? u[4] : u[3]);
+  float refl = T.a(A_REFL, r);
+  bool spec_active = specular_active(T, r);
+  float exponent = expf((1.0f - T.a(A_ROUGH, r)) * 12.0f);
+  Phong ph = phong_lobe(d, normal, r0_ph, r1_ph, exponent);
+
+  // ---- bounces: depth-1 shading re-seeds, so both pick the light with u1 --
+  V3 sec = no_ind ? v3(0.0f, 0.0f, 0.0f)
+                  : secondary_radiance(T, cst, pos, diff_dir, u[0], env_kind, true);
+  V3 spec_rad = spec_active ? secondary_radiance(T, cst, pos, ph.dir, u[0], env_kind, true)
+                            : v3(0.0f, 0.0f, 0.0f);
+
+  // ---- epilogue (trace_rays) -------------------------------------------------
+  float nol = saturate(dot3(normal, diff_dir));
+  float ratio = ph.ratio;
+  float cosi = saturate(-dot3(d, normal));
+  float pw5 = powf(1.0f - cosi, 5.0f);
+  float estr = T.a(A_ESTR, r);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float indirect = no_ind ? 0.0f : (cosine ? comp(sec, k) * kPi : comp(sec, k) * (nol * kTwoPi));
+    float specular = spec_active ? comp(spec_rad, k) * ratio : 0.0f;
+    float f0 = T.a(A_SPECULAR + k, r);
+    float fresnel = spec_active ? f0 + (1.0f - f0) * pw5 : 0.0f;
+    float albedo = T.a(A_ALBEDO + k, r);
+    float dk = comp(direct, k);
+    float diffuse_comp = (dk + indirect) / kPi;
+    float emissive = T.a(A_EMISSIVE + k, r) * estr;
+    float c = emissive + albedo * diffuse_comp + refl * specular * fresnel;
+    if (cst[F_SHOW_DIRECT] > 0.5f) c = albedo * dk / kPi;
+    if (cst[F_SHOW_ALBEDO] > 0.5f) c = albedo;
+    if (cst[F_SHOW_FRESNEL] > 0.5f) c = fresnel;
+    if (cst[F_SHOW_IND_SPEC] > 0.5f) c = refl * specular * fresnel;
+    if (cst[F_SHOW_IND_DIFF] > 0.5f) c = albedo * indirect / kPi;
+    acc[k] += sanitize(c);
+  }
+}
+
+// One realtime frame of pixel (px, py): aov = direct (0:3), indirect
+// specular (3:6), albedo (6:9), roughness (9). Phong draws take the
+// no-diffuse slots: (u2, u3) under debug==2, else (u1, u2).
+template <class Tr>
+__device__ void realtime_pixel(const Tr& T, const float* cm, uint32_t frame, const float* cst,
+                               int px, int py, int width, int height, int env_kind,
+                               float aov[10]) {
+  V3 o, d;
+  primary_ray(cm, px, py, width, height, &o, &d);
+  Hit h = T.closest(o, d, 0.0f, true);
+#pragma unroll
+  for (int k = 0; k < 10; ++k) aov[k] = 0.0f;
+  if (!h.hit) {  // a miss routes the environment into the direct AOV
+    V3 e = env_color(d, cst, env_kind);
+    aov[0] = sanitize(e.x);
+    aov[1] = sanitize(e.y);
+    aov[2] = sanitize(e.z);
+    return;
+  }
+
+  float u[5];
+  draws(px, py, width, frame, u);
+  const bool is_mc = cst[F_IS_MC] > 0.5f;
+  const int r = h.row;
+  V3 direct = direct_lighting(T, cst, h.pos, h.normal, u[0]);
+  float refl = T.a(A_REFL, r);
+  bool spec_active = specular_active(T, r);
+  float exponent = expf((1.0f - T.a(A_ROUGH, r)) * 12.0f);
+  Phong ph = phong_lobe(d, h.normal, is_mc ? u[1] : u[0], is_mc ? u[2] : u[1], exponent);
+  V3 spec_rad = spec_active ? secondary_radiance(T, cst, h.pos, ph.dir, u[0], env_kind, false)
+                            : v3(0.0f, 0.0f, 0.0f);
+  float cosi = saturate(-dot3(d, h.normal));
+  float pw5 = powf(1.0f - cosi, 5.0f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float specular = spec_active ? comp(spec_rad, k) * ph.ratio : 0.0f;
+    float f0 = T.a(A_SPECULAR + k, r);
+    float fresnel = spec_active ? f0 + (1.0f - f0) * pw5 : 0.0f;
+    float albedo = T.a(A_ALBEDO + k, r);
+    aov[k] = sanitize(albedo * comp(direct, k) / kPi);
+    aov[3 + k] = sanitize(refl * specular * fresnel);
+    aov[6 + k] = albedo;
+  }
+  aov[9] = T.a(A_ROUGH, r);
+}
+
+}  // namespace dxr

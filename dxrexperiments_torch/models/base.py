@@ -10,7 +10,22 @@ import torch
 
 from ..core.camera import Camera, camera_params
 from ..core.device import setup_device
+from ..ops.fused_sample import supports_fused
+from ..ops.fused_traverse import supports_fused_traverse
 from ..scene.scene import Scene
+
+
+def select_route(scene: dict, mode: str, ao_only: bool = False) -> str:
+    """The kernel route of a scene, as the JAX pipelines choose it:
+    'fused' (the brute-force megakernel B1) when ``supports_fused``, else
+    'fused_traverse' (the fused-traversal megakernel B5) when
+    ``supports_fused_traverse``, else 'wavefront' (the integrator, whose BVH
+    traces run kernel B4a on a CUDA device)."""
+    if supports_fused(scene, mode, ao_only):
+        return "fused"
+    if supports_fused_traverse(scene, mode, ao_only):
+        return "fused_traverse"
+    return "wavefront"
 
 
 class RaytracingPipeline(abc.ABC):

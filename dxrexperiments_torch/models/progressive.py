@@ -18,10 +18,10 @@ import numpy as np
 import torch
 
 from ..core.camera import stack_cameras
-from ..ops import fused_sample
+from ..ops import fused_sample, fused_traverse, traverse
 from ..scene.lights import default_lights
-from ..trace.integrator import default_options, resolve_impl
-from .base import RaytracingPipeline, has_camera_moved, wall_seed
+from ..trace.integrator import default_options, progressive_sample_sum, resolve_impl
+from .base import RaytracingPipeline, has_camera_moved, select_route, wall_seed
 
 
 def make_progressive_step(
@@ -35,24 +35,33 @@ def make_progressive_step(
     a closure over the scene tensors. ``cameras`` is CameraParams stacked on
     a leading [S] axis (S = samples_per_step).
 
-    On a CUDA device, each step is one ``fused_sample.fused_progressive_sum``
-    launch; scenes outside the kernel's scope have no CUDA route yet and
-    raise (ROADMAP Queue A item 10). On the CPU each step is the kernel's
-    plain version, the wavefront integrator summed over the S samples.
+    The route is ``select_route``'s. On a CUDA device each step is one
+    launch of ``fused_sample.fused_progressive_sum`` (B1) or of
+    ``fused_traverse.fused_traverse_progressive_sum`` (B5), or, on the
+    wavefront route of a BVH scene, S samples of the integrator with two
+    closest and two any-hit launches of kernel B4a each; a brute-force scene
+    outside B1's scope has no CUDA route yet and raises (kernel B3, ROADMAP
+    Queue A item 10). On the CPU each step is the plain version, the
+    wavefront integrator summed over the S samples.
 
     light_mc: passed on to ``fused_sample.fused_progressive_sum`` (see
-    there); scenes outside the kernel's scope ignore it, as in JAX."""
+    there); the other routes ignore it, as in JAX."""
     s_count = int(samples_per_step)
     env_kind = int(scene["env"]["kind"])
-    if fused_sample.supports_fused(scene, "progressive", False):
+    route = select_route(scene, "progressive")
+    if route == "fused":
         sample_sum = functools.partial(fused_sample.fused_progressive_sum, light_mc=light_mc)
-    elif resolve_impl("auto", scene["mt_pack"].device) == "cuda":
-        raise NotImplementedError(
-            "this scene needs the wavefront route, which has no CUDA kernel yet "
-            "(kernel B3, ROADMAP Queue A item 10)"
-        )
+    elif route == "fused_traverse":
+        sample_sum = fused_traverse.fused_traverse_progressive_sum
     else:
-        sample_sum = fused_sample.fused_progressive_sum_reference
+        impl = resolve_impl("auto", scene["mt_pack"].device)
+        if impl == "cuda" and "bvh" not in scene:
+            raise NotImplementedError(
+                "this scene needs the wavefront route, which has no CUDA kernel for "
+                "brute-force scenes yet (kernel B3, ROADMAP Queue A item 10)"
+            )
+        sample_sum = functools.partial(progressive_sample_sum,
+                                       jitter_scale=fused_sample.JITTER_SCALE, impl=impl)
 
     def step(accum, options, cameras, lights, env, max_iterations):
         base_count = float(cameras["accum_count"][0])
@@ -151,6 +160,7 @@ class ProgressiveRaytracingPipeline(RaytracingPipeline):
         return self.accum
 
     def get_output(self, index: int = 0) -> torch.Tensor:
+        traverse.check_errors()  # raises for a BVH walk that overflowed its stack
         return self.accum
 
     # -- checkpoint/resume ---------------------------------------------------

@@ -5,9 +5,11 @@ Same topology as the progressive pipeline but two outputs, direct lighting
 and indirect specular; no accumulation (accumCount pinned to 0), a 10x
 jitter scale and no indirect diffuse. Feeds models/denoise.py.
 
-On a CUDA device, each render is one launch of the realtime megakernel
-(``ops.fused_sample.realtime_aovs``); on the CPU it is the plain
-wavefront integrator in realtime mode.
+On a CUDA device each render is one launch of a realtime megakernel, B1's
+``ops.fused_sample.realtime_aovs`` or B5's ``ops.fused_traverse.realtime_aovs``,
+or the wavefront integrator whose BVH traces run kernel B4a, as
+``select_route`` picks; on the CPU it is the plain wavefront integrator in
+realtime mode.
 """
 
 from __future__ import annotations
@@ -15,27 +17,30 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import fused_sample
+from ..ops import fused_sample, fused_traverse, traverse
 from ..scene.lights import default_lights
 from ..trace.integrator import default_options, render_sample, resolve_impl
-from .base import RaytracingPipeline, wall_seed
+from .base import RaytracingPipeline, select_route, wall_seed
 
 
 def realtime_step(scene: dict, options: dict, camera: dict, width: int, height: int):
     """One realtime frame; returns (direct, indirect_specular), [H, W, 3]
-    each. CUDA scenes launch the kernel (scenes outside its scope raise:
-    the wavefront route has no CUDA kernel yet, ROADMAP Queue A item 10);
-    CPU scenes take the wavefront integrator."""
-    if resolve_impl("auto", scene["mt_pack"].device) == "cuda":
+    each. CUDA scenes launch the route's kernel (a brute-force scene outside
+    B1's scope raises: its wavefront route has no CUDA kernel yet, ROADMAP
+    Queue A item 10); CPU scenes take the wavefront integrator."""
+    impl = resolve_impl("auto", scene["mt_pack"].device)
+    route = select_route(scene, "realtime")
+    if impl == "cuda" and route != "wavefront":
         # the AOVs without the color sum, which nothing downstream reads
-        out = fused_sample.realtime_aovs(
+        kernel = fused_sample if route == "fused" else fused_traverse
+        out = kernel.realtime_aovs(
             scene, options, {k: v[None] for k, v in camera.items()}, width, height,
             int(scene["env"]["kind"]),
         )
         return out["direct"][0], out["indirect_specular"][0]
     out = render_sample(
         scene, options, camera, width, height, mode="realtime",
-        jitter_scale=fused_sample.REALTIME_JITTER_SCALE,
+        jitter_scale=fused_sample.REALTIME_JITTER_SCALE, impl=impl,
     )
     return out["direct"], out["indirect_specular"]
 
@@ -81,4 +86,5 @@ class RealtimeRaytracingPipeline(RaytracingPipeline):
         return self.direct, self.indirect_specular
 
     def get_output(self, index: int = 0) -> torch.Tensor:
+        traverse.check_errors()  # raises for a BVH walk that overflowed its stack
         return self.direct if index == 0 else self.indirect_specular

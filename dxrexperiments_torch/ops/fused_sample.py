@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from ..scene.lights import light_counts, normalize_lights
-from ..trace.integrator import render_sample
+from ..trace.integrator import progressive_sample_sum, render_sample
 
 MAX_TRIS = 256  # the kernel stages at most 256 triangles in shared memory
 JITTER_SCALE = 30.0  # progressive pipeline jitter scale
@@ -133,15 +133,8 @@ def fused_progressive_sum_reference(
 ) -> torch.Tensor:
     """Plain version: sum of S samples of the wavefront integrator, summed in
     sample order as the kernel does. Returns [H, W, 3] float32."""
-    total = None
-    for s in range(int(cameras["eye"].shape[0])):
-        cam = {k: v[s] for k, v in cameras.items()}
-        color = render_sample(
-            scene, options, cam, width, height, mode="progressive",
-            jitter_scale=JITTER_SCALE, impl="torch", env_kind=env_kind,
-        )["color"]
-        total = color if total is None else total + color
-    return total
+    return progressive_sample_sum(scene, options, cameras, width, height, env_kind,
+                                  JITTER_SCALE, impl="torch")
 
 
 AOV_KEYS = ("direct", "indirect_specular", "albedo", "roughness")

@@ -1,0 +1,229 @@
+"""The fused-traversal megakernel (B5): wrappers, plain versions, launch counts.
+
+Port of ``dxrexperiments_tpu.ops.fused_traverse_pallas`` (``_make_ft_kernel``
+in its base mode): the whole progressive sample, or a realtime frame, with
+every trace a fat-node BVH walk inside the kernel. On CUDA scene tensors
+``fused_traverse_progressive_sum`` and ``realtime_aovs`` launch the
+hand-written kernels in ``csrc/fused_traverse.cu`` or raise; on CPU scene
+tensors they take the plain versions, loops over the wavefront integrator
+(whose BVH traces are then the brute-force sweep). There is no fallback from
+a kernel to its plain version.
+
+Scope (``supports_fused_traverse``, the JAX gate): progressive or realtime,
+no AO, a single-level BVH scene with the fat nodes and attribute lanes, at
+most one light per group and at most 128 materials. Of what the gate
+accepts, env kinds 2/3 (the env-deferred mode, ROADMAP Queue A item 9),
+albedo textures (tex-deferred) and area lights (item 12) raise.
+
+The packs are B1's (``fused_sample.pack_cameras``/``pack_consts`` and the
+pinned single upload); the material table is the scene's ``material_pack``,
+built once by ``Scene.build``. Seeds come from the raster pixel index and
+the output is raster order, so nothing is permuted back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..scene.lights import light_counts, normalize_lights
+from ..scene.materials import MP_MAX_MATERIALS
+from . import fused_sample as fs
+from .traverse import check_bvh, queue_error_check
+
+# Kernel launches so far: LAUNCHES counts progressive dispatches (S samples
+# each), REALTIME_LAUNCHES realtime dispatches (S frames each).
+LAUNCHES = 0
+REALTIME_LAUNCHES = 0
+
+
+def supports_fused_traverse(scene: dict, mode: str, ao_only: bool) -> bool:
+    """Whether the fused-traversal kernel's gate takes this scene and mode
+    (``fused_traverse_pallas.supports_fused_traverse``)."""
+    if mode not in ("progressive", "realtime") or ao_only:
+        return False
+    if "tlas" in scene or "bvh" not in scene:
+        return False
+    b = scene["bvh"]
+    if "bvhf_nodes" not in b or "mt_attr_lanes" not in b:
+        return False
+    d_n, p_n, a_n = light_counts(scene["lights"])
+    if d_n > 1 or p_n > 1 or a_n > 1 or d_n + p_n + a_n == 0:
+        return False
+    if int(scene["materials"]["albedo"].shape[0]) > MP_MAX_MATERIALS:
+        return False
+    if "textures" in scene:
+        return mode == "progressive"
+    return int(scene["env"]["kind"]) in (0, 1, 2, 3)
+
+
+def _check_supported(scene: dict, env_kind: int, mode: str) -> None:
+    if int(env_kind) in (2, 3):
+        raise NotImplementedError(
+            f"env kind {env_kind} (texture env, the env-deferred mode) is not ported yet "
+            "(ROADMAP Queue A item 9)"
+        )
+    if "textures" in scene:
+        raise NotImplementedError(
+            "albedo textures (the tex-deferred mode) are not ported yet (ROADMAP Queue A item 12)"
+        )
+    if not supports_fused_traverse(scene, mode, False):
+        raise NotImplementedError(
+            "scene outside the fused-traversal kernel's scope (no fat-node BVH, more than one "
+            "light per group, or more than 128 materials): take the wavefront route"
+        )
+
+
+def _rig_consts(scene: dict, options: dict, env_kind: int) -> tuple[torch.Tensor, int]:
+    """B1's const pack [2, 16] for a rig of at most one directional and one
+    point light, and the rig's bits (1 directional, 2 point). A missing
+    light's lanes hold a dark stand-in that the kernel skips."""
+    lights = normalize_lights(scene["lights"])
+    dl, pt = lights["dir"], lights["point"]
+    rig = (1 if dl["forward"].shape[0] else 0) | (2 if pt["position"].shape[0] else 0)
+    dark = {"color": torch.zeros(1, 3), "intensity": torch.zeros(1)}
+    full = {
+        "dir": dl if rig & 1 else dict(dark, forward=torch.tensor([[0.0, -1.0, 0.0]])),
+        "point": pt if rig & 2 else dict(dark, position=torch.zeros(1, 3)),
+    }
+    return fs.pack_consts(dict(scene, lights=full), options, env_kind), rig
+
+
+# The plain versions are B1's: loops over the wavefront integrator, whose
+# BVH traces are the brute-force sweep on any device.
+fused_traverse_progressive_sum_reference = fs.fused_progressive_sum_reference
+fused_traverse_realtime_outputs_reference = fs.fused_realtime_outputs_reference
+
+_LIB = None
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        from ..utils.cuda_build import load_library
+
+        lib = load_library("fused_traverse", ["fused_traverse.cu"])
+        fn = lib.dxr_fused_traverse_progressive_sum
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        fn = lib.dxr_fused_traverse_realtime_outputs
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: bool):
+    """Pack and upload the parameters and allocate the outputs of one
+    dispatch of S samples (progressive) or S frames (realtime). Returns
+    (launch, outs, err): ``launch()`` enqueues the kernel and returns the
+    CUDA error code. Timing ``launch`` alone measures the kernel without the
+    wrapper's packing and checks."""
+    bvh = scene["bvh"]
+    device = bvh["mt_rows"].device
+    nodes, rows = check_bvh(bvh, device)
+    mats = scene["material_pack"]
+    if mats.device != device or mats.shape != (16, MP_MAX_MATERIALS) or not mats.is_contiguous():
+        raise ValueError(f"material_pack: expected a contiguous [16, {MP_MAX_MATERIALS}] tensor "
+                         f"on {device}")
+    s_count = int(cameras["eye"].shape[0])
+    cpu = torch.device("cpu")
+    cam = fs._checked("cameras", fs.pack_cameras(cameras, realtime).cpu().contiguous(),
+                      (s_count, 16), cpu)
+    cst, rig = _rig_consts(scene, options, env_kind)
+    cst = fs._checked("consts", cst.cpu().contiguous(), (2, 16), cpu)
+    frames = fs._frames_u32(cameras["frame_count"])
+    if frames.shape[0] != s_count:
+        raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
+    params = fs._upload(cam, cst, frames, device)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    tail = (s_count, nodes.shape[0], rows.shape[0], width, height, int(env_kind), rig)
+    lib = _library()
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=device)
+
+    if realtime:  # direct, indirect specular, albedo, roughness
+        outs = (empty(s_count, height, width, 3), empty(s_count, height, width, 3),
+                empty(s_count, height, width, 3), empty(s_count, height, width))
+        fn = lib.dxr_fused_traverse_realtime_outputs
+    else:
+        outs = (empty(height, width, 3),)
+        fn = lib.dxr_fused_traverse_progressive_sum
+
+    def launch() -> int:
+        cam_ptr = params.data_ptr()
+        cst_ptr = cam_ptr + 4 * cam.numel()
+        frames_ptr = cst_ptr + 4 * cst.numel()
+        head = (cam_ptr, frames_ptr, cst_ptr, nodes.data_ptr(), rows.data_ptr(), mats.data_ptr())
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            return fn(*head, *(o.data_ptr() for o in outs), *tail, err.data_ptr(), stream)
+
+    return launch, outs, err
+
+
+def _launch(scene, options, cameras, width, height, env_kind, realtime: bool):
+    """Launch one dispatch; returns the output tensors."""
+    global LAUNCHES, REALTIME_LAUNCHES
+    launch, outs, err = prepare_launch(scene, options, cameras, width, height, env_kind, realtime)
+    rc = launch()
+    if rc != 0:
+        raise RuntimeError(f"fused_traverse kernel launch failed: cudaError {rc}")
+    if realtime:
+        REALTIME_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
+    with torch.cuda.device(err.device):
+        queue_error_check(err, "fused_traverse kernel")
+    return outs
+
+
+def _on_cuda(scene: dict) -> bool:
+    device = scene["bvh"]["mt_rows"].device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cuda"
+
+
+def fused_traverse_progressive_sum(
+    scene: dict, options: dict, cameras: dict, width: int, height: int, env_kind: int
+) -> torch.Tensor:
+    """Sum of S progressive samples, [H, W, 3] float32 (divide by S for the
+    mean); ``cameras`` is CameraParams stacked on a leading [S] axis. CUDA
+    scene tensors -> one kernel launch; CPU scene tensors -> the plain
+    version. Scenes outside the kernel's scope raise."""
+    _check_supported(scene, env_kind, "progressive")
+    if not _on_cuda(scene):
+        return fused_traverse_progressive_sum_reference(scene, options, cameras, width,
+                                                        height, env_kind)
+    return _launch(scene, options, cameras, width, height, env_kind, realtime=False)[0]
+
+
+def realtime_aovs(scene: dict, options: dict, cameras: dict, width: int, height: int,
+                  env_kind: int) -> dict:
+    """The AOVs of S realtime frames, one per camera of ``cameras``:
+    ``direct``, ``indirect_specular``, ``albedo`` [S, H, W, 3] and
+    ``roughness`` [S, H, W]. CUDA scene tensors -> one kernel launch and no
+    ``color``; CPU scene tensors -> the plain version, whose dict holds
+    ``color`` too. Scenes outside the kernel's scope raise."""
+    _check_supported(scene, env_kind, "realtime")
+    if not _on_cuda(scene):
+        return fused_traverse_realtime_outputs_reference(scene, options, cameras, width,
+                                                         height, env_kind)
+    return dict(zip(fs.AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind,
+                                         realtime=True)))
+
+
+def fused_traverse_realtime_outputs(scene: dict, options: dict, camera: dict, width: int,
+                                    height: int, env_kind: int) -> dict:
+    """One realtime frame (the JAX function's contract): the AOVs of
+    ``realtime_aovs`` for a single CameraParams, without the leading [S]
+    axis, plus ``color`` = direct + indirect_specular."""
+    out = realtime_aovs(scene, options, {k: v[None] for k, v in camera.items()}, width, height,
+                        env_kind)
+    out = {k: v[0] for k, v in out.items()}
+    if "color" not in out:
+        out["color"] = out["direct"] + out["indirect_specular"]
+    return out

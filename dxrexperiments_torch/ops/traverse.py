@@ -1,0 +1,502 @@
+"""Fat-node BVH traversal (B4a): the packs, the wrappers, the plain versions.
+
+Port of ``dxrexperiments_tpu.ops.traverse_pallas``'s host part and of its
+fat-node kernel ``_make_traverse_fat_kernel`` (``traverse_fat_closest``,
+``traverse_fat_any``). ``pack_for_traversal`` and ``fat_nodes`` are copied
+line for line, so ``bvh_nodes``, ``bvhf_nodes``, ``mt_rows``, ``slot_tri``
+and ``mt_attr_lanes`` equal the JAX build's bit for bit; the 8-wide
+``bvh8_nodes`` (kernel B4d's layout) is left out, as nothing on the port's
+path reads it (ROADMAP Queue B item 8).
+
+On CUDA tensors ``traverse_fat_closest``/``traverse_fat_any`` launch the
+hand-written kernel in ``csrc/traverse_fat.cu`` (one thread per ray, a
+near-first walk on its own stack) or raise; on CPU tensors they take the
+plain versions, the brute-force ``ops/intersect.py`` over the same
+triangles, which is what the JAX package's jnp route computes for BVH
+scenes. There is no fallback from the kernel to its plain version.
+
+A stack overflow sets the launch's error flag. The wrapper does not wait to
+read it: ``check_errors`` raises for it at a later launch, once the kernel
+has finished, or when the pipeline's ``get_output`` waits for the card.
+
+``fat_walk_numpy`` is a host model of the kernel's walk: it returns the
+same hits and counts the slab and pair tests a walk performs, from which
+``chip_smoke.py`` computes the kernels' bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import intersect
+
+BIG = 3.0e38
+MAX_STACK = 96  # per-ray stack entries; an overflow raises, it never truncates
+# mt_rows lanes of the 19 coefficients a pair test reads: det = D . [0:3];
+# u*det = D . [16:19] + M . [19:22]; v*det = D . [32:35] + M . [35:38];
+# t*det = O . [54:57] + [57]
+COEF_LANES = (0, 1, 2, 16, 17, 18, 19, 20, 21, 32, 33, 34, 35, 36, 37, 54, 55, 56, 57)
+
+# Kernel launches so far, one per traced batch. Callers reset them to 0 and
+# read them back to show that a run went through the kernel.
+CLOSEST_LAUNCHES = 0
+ANY_LAUNCHES = 0
+
+_ERRORS = {1: f"a ray's stack overflowed its {MAX_STACK} entries",
+           2: "a node or slot index lies outside the packed arrays"}
+
+
+def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
+    """Regularize a node-array BVH (accel/bvh.py format) + the scene's
+    ``mt_pack``/``attr_pack`` (numpy) into the kernels' arrays:
+
+      bvh_nodes [8, M_pad] f32: rows lo_xyz, hi_xyz, left, right
+        internal: left/right = child node ids (as exact floats)
+        leaf:     left = -(slot_start+1), right = count
+      bvhf_nodes [16, F_pad] f32: the fat nodes (see fat_nodes)
+      bvhf_rows [F_pad, 16] f32: the same, one contiguous row per node (the
+        CUDA kernels' layout: four float4 loads per visit)
+      mt_rows [S_pad, 128] f32: the 64 Möller–Trumbore coefficients of each
+        fixed-K leaf slot (4 groups x 16 lanes), lanes 64..73 its vertex
+        normals n0/n1/n2 and material id; padded slots are zero (det 0,
+        they never hit)
+      slot_tri [S_pad] i32: slot -> original triangle index (-1 padding)
+    """
+    child = np.asarray(nodes["child"], np.int64)
+    order = np.asarray(nodes["order"], np.int64)
+    m = len(child)
+    leaf_mask = child[:, 0] < 0
+    leaf_ids = np.nonzero(leaf_mask)[0]
+    n_leaves = len(leaf_ids)
+
+    starts = -child[leaf_ids, 0] - 1
+    counts = np.clip(child[leaf_ids, 1], 0, leaf_size)
+    lane = np.arange(leaf_size)[None, :]
+    src = np.clip(starts[:, None] + lane, 0, max(len(order) - 1, 0))
+    vals = order[src] if len(order) else np.full_like(src, -1)
+    in_count = lane < counts[:, None]
+    slots2d = np.where(in_count & (vals >= 0), vals, -1)
+    # compact valid tris to the front of each leaf (order[start:] may carry
+    # -1 padding slots from the Morton builder)
+    key = np.where(slots2d >= 0, 0, 1)
+    sort_idx = np.argsort(key, axis=1, kind="stable")
+    slots2d = np.take_along_axis(slots2d, sort_idx, axis=1)
+    slot_tri = slots2d.reshape(-1) if n_leaves else np.full((leaf_size,), -1, np.int64)
+
+    new_child = child.copy()
+    new_child[leaf_ids, 0] = -(np.arange(n_leaves) * leaf_size + 1)
+    new_child[leaf_ids, 1] = (slots2d >= 0).sum(axis=1)
+
+    s = len(slot_tri)
+    s_pad = max(-(-s // 128) * 128, 128)
+    mt = np.asarray(scene["mt_pack"])  # [4, T, 16]
+    mt_sorted = np.zeros((4, s_pad, 16), np.float32)
+    valid = slot_tri >= 0
+    src = np.where(valid, slot_tri, 0)
+    mt_sorted[:, :s][:, valid] = mt[:, src][:, valid]
+    mt_rows = np.zeros((s_pad, 128), np.float32)
+    mt_rows[:, :64] = np.transpose(mt_sorted, (1, 0, 2)).reshape(s_pad, 64)
+    attr_all = np.asarray(scene["attr_pack"])  # [32, T]
+    mt_rows[:s, 64:74] = np.where(valid[:, None], attr_all[0:10, src].T, 0.0)
+
+    m_pad = max(-(-m // 128) * 128, 128)
+    bvh_nodes = np.zeros((8, m_pad), np.float32)
+    bvh_nodes[0:3, :m] = np.asarray(nodes["nodes_lo"], np.float32).T
+    bvh_nodes[3:6, :m] = np.asarray(nodes["nodes_hi"], np.float32).T
+    bvh_nodes[6, :m] = new_child[:, 0].astype(np.float32)
+    bvh_nodes[7, :m] = new_child[:, 1].astype(np.float32)
+
+    slot_tri_pad = np.full((s_pad,), -1, np.int32)
+    slot_tri_pad[:s] = slot_tri.astype(np.int32)
+
+    bvhf = fat_nodes(
+        np.asarray(nodes["nodes_lo"], np.float32),
+        np.asarray(nodes["nodes_hi"], np.float32),
+        new_child,
+    )
+    return {
+        "bvh_nodes": bvh_nodes,
+        "bvhf_nodes": bvhf,
+        "bvhf_rows": np.ascontiguousarray(bvhf.T),
+        "mt_rows": mt_rows,
+        "slot_tri": slot_tri_pad,
+        # mt_rows lanes 64..73 carry per-slot attributes (the JAX marker; 2
+        # would add corner UVs, which wait for textures)
+        "mt_attr_lanes": 1,
+        "leaf_size": leaf_size,
+    }
+
+
+def fat_nodes(nodes_lo, nodes_hi, child) -> np.ndarray:
+    """Collapse a regularized binary node array (leaf child[:,0] =
+    -(slot_start+1), child[:,1] = count) into FAT nodes: each row stores its
+    two children's AABBs, so a visit tests both subtrees and can descend
+    near-child-first.
+
+    Layout [16, F_pad] f32 per fat node (internal nodes only, remapped ids):
+      rows 0-5  c0 lo/hi      rows 6-11 c1 lo/hi
+      row 12/14 c0/c1 ptr: leaf -> slot_start, internal -> fat node id
+      row 13/15 c0/c1 meta: leaf -> count (>0), internal -> -1, empty -> 0
+    Empty children get a point box at +BIG (genuinely misses).
+    """
+    child = np.asarray(child, np.int64)
+    m = len(child)
+    is_leaf = child[:, 0] < 0
+    internal = np.nonzero(~is_leaf)[0]
+    f = len(internal)
+    f_used = max(f, 1)
+    f_pad = max(-(-f_used // 128) * 128, 128)
+    fat = np.zeros((16, f_pad), np.float32)
+    fat[0:3] = BIG
+    fat[3:6] = BIG
+    fat[6:9] = BIG
+    fat[9:12] = BIG
+    if f == 0:
+        # root is a single leaf: one fat node, c0 = that leaf, c1 empty
+        fat[0:3, 0] = nodes_lo[0]
+        fat[3:6, 0] = nodes_hi[0]
+        fat[12, 0] = float(-child[0, 0] - 1)
+        fat[13, 0] = float(child[0, 1])
+        return fat
+    remap = np.zeros((m,), np.int64)
+    remap[internal] = np.arange(f)
+    for side in range(2):
+        ids = child[internal, side]
+        side_leaf = is_leaf[ids]
+        ptr = np.where(side_leaf, -child[ids, 0] - 1, remap[ids])
+        meta = np.where(side_leaf, child[ids, 1], -1)
+        meta = np.where(side_leaf & (child[ids, 1] <= 0), 0, meta)
+        base = 6 * side
+        fat[base : base + 3, :f] = nodes_lo[ids].T
+        fat[base + 3 : base + 6, :f] = nodes_hi[ids].T
+        fat[12 + 2 * side, :f] = ptr.astype(np.float32)
+        fat[13 + 2 * side, :f] = meta.astype(np.float32)
+        # empty leaves: point box at +BIG
+        empty = meta == 0
+        fat[base : base + 6, :f][:, empty] = BIG
+    return fat
+
+
+def pack_rays(origins: torch.Tensor, directions: torch.Tensor, t_min, t_max) -> torch.Tensor:
+    """The ray pack [R, 8] f32 (origin, direction, t_min, t_max per row):
+    ``traverse_pallas._pack_rays`` transposed to one 32-byte row per ray, so
+    a thread reads its ray with two float4 loads. Scalar windows broadcast;
+    no tile padding (the kernel masks its ragged last block)."""
+    r = origins.shape[0]
+
+    def window(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=origins.device).expand(r)[:, None]
+
+    return torch.cat([origins.float(), directions.float(), window(t_min), window(t_max)],
+                     dim=1).contiguous()
+
+
+def _slot_of_tri(bvh: dict, num_tris: int) -> torch.Tensor:
+    """[T] int64 triangle -> its leaf slot (the inverse of slot_tri)."""
+    st = bvh["slot_tri"].to(torch.int64)
+    valid = st >= 0
+    inv = torch.full((num_tris,), -1, dtype=torch.int64, device=st.device)
+    inv[st[valid]] = torch.nonzero(valid)[:, 0]
+    return inv
+
+
+def traverse_fat_closest_reference(scene, origins, directions, t_min=1e-4, t_max=3.0e37,
+                                   cull_backface: bool = False) -> dict:
+    """Plain version: brute-force closest hit over every triangle
+    (``ops/intersect.py``), with the winner's leaf slot. Same keys as
+    ``traverse_fat_closest``."""
+    hits = intersect.intersect_closest(scene, origins, directions, t_min, t_max,
+                                       cull_backface=cull_backface)
+    slot_of = _slot_of_tri(scene["bvh"], scene["v0"].shape[0])
+    slot = torch.where(hits["hit"], slot_of[hits["tri"].clamp(min=0)], -1)
+    return dict(hits, slot=slot)
+
+
+def traverse_fat_any_reference(scene, origins, directions, t_min=1e-4, t_max=3.0e37):
+    """Plain version: brute-force occlusion (``ops/intersect.py``)."""
+    return intersect.intersect_any(scene, origins, directions, t_min, t_max)
+
+
+_LIB = None
+
+
+def _library():
+    global _LIB
+    if _LIB is None:
+        from ..utils.cuda_build import load_library
+
+        lib = load_library("traverse_fat", ["traverse_fat.cu"])
+        lib.dxr_traverse_fat.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7)
+        lib.dxr_traverse_fat.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def check_bvh(bvh: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' BVH inputs, checked: (bvhf_rows [F, 16], mt_rows
+    [S, 128]), float32, contiguous, on ``device``."""
+    nodes, rows = bvh["bvhf_rows"], bvh["mt_rows"]
+    for name, t, width in (("bvhf_rows", nodes, 16), ("mt_rows", rows, 128)):
+        if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != width:
+            raise ValueError(f"{name}: expected float32 [N, {width}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: expected a contiguous, 16-byte aligned tensor on {device}")
+    return nodes, rows
+
+
+def raise_on_error(err: torch.Tensor, what: str) -> None:
+    """Read a kernel's error flag (an int32 [1]); raise if it is set. On a
+    device tensor the read waits for the kernel."""
+    code = int(err.item())
+    if code:
+        raise RuntimeError(f"{what}: {_ERRORS.get(code, f'error {code}')}")
+
+
+# Error flags of B4a and B5 launches not read yet, oldest first: (event
+# after the launch, pinned host copy of its flag, what launched).
+_PENDING: list[tuple[torch.cuda.Event, torch.Tensor, str]] = []
+
+
+def queue_error_check(err: torch.Tensor, what: str) -> None:
+    """Queue the read of a launch's error flag (a device int32 [1]) on the
+    current stream without waiting for the kernel: a non-blocking copy into
+    pinned memory and an event. Then read the flags of the launches that
+    have finished (``check_errors(wait=False)``)."""
+    host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+    host.copy_(err, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    _PENDING.append((done, host, what))
+    check_errors(wait=False)
+
+
+def check_errors(wait: bool = True) -> None:
+    """Raise if a queued B4a or B5 launch set its error flag (a stack
+    overflow). wait=True waits for every queued launch, wait=False reads
+    only those that have finished. The pipelines call it in get_output; a
+    launch whose error is raised has already returned its outputs."""
+    while _PENDING:
+        done, host, what = _PENDING[0]
+        if not wait and not done.query():
+            return
+        done.synchronize()
+        _PENDING.pop(0)
+        if int(host[0]):
+            _PENDING.clear()
+            raise_on_error(host, what)
+
+
+def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool):
+    """Pack the rays and allocate the outputs of one B4a launch. Returns
+    (launch, outs, err): ``launch()`` enqueues the kernel and returns the
+    CUDA error code; outs is (occ,) or (t, slot, u, v). Timing ``launch``
+    alone measures the kernel without the wrapper's packing and checks."""
+    device = origins.device
+    nodes, rows = check_bvh(scene["bvh"], device)
+    rays = pack_rays(origins, directions, t_min, t_max)
+    r = rays.shape[0]
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    if occlusion:
+        outs = (torch.empty(r, dtype=torch.bool, device=device),)
+        ptrs = (None, None, None, None, outs[0].data_ptr())
+    else:
+        outs = (torch.empty(r, dtype=torch.float32, device=device),
+                torch.empty(r, dtype=torch.int32, device=device),
+                torch.empty(r, dtype=torch.float32, device=device),
+                torch.empty(r, dtype=torch.float32, device=device))
+        ptrs = (*(o.data_ptr() for o in outs), None)
+    lib = _library()
+
+    def launch() -> int:
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            return lib.dxr_traverse_fat(rays.data_ptr(), nodes.data_ptr(), rows.data_ptr(), r,
+                                        nodes.shape[0], rows.shape[0], int(occlusion), int(cull),
+                                        *ptrs, err.data_ptr(), stream)
+
+    return launch, outs, err
+
+
+def _launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool):
+    global CLOSEST_LAUNCHES, ANY_LAUNCHES
+    launch, outs, err = prepare_launch(scene, origins, directions, t_min, t_max, cull, occlusion)
+    rc = launch()
+    if rc != 0:
+        raise RuntimeError(f"traverse_fat kernel launch failed: cudaError {rc}")
+    if occlusion:
+        ANY_LAUNCHES += 1
+    else:
+        CLOSEST_LAUNCHES += 1
+    with torch.cuda.device(origins.device):
+        queue_error_check(err, "traverse_fat kernel")
+    if occlusion:
+        return outs[0]
+    t, slot, u, v = outs
+    hit = slot >= 0
+    tri = torch.where(hit, scene["bvh"]["slot_tri"][slot.clamp(min=0).long()], -1).long()
+    return {"hit": hit, "t": t, "tri": tri, "slot": slot.long(), "u": u, "v": v}
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type == "cuda"
+
+
+def traverse_fat_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
+                         t_min=1e-4, t_max=3.0e37, cull_backface: bool = False) -> dict:
+    """Closest hit through the scene's fat-node BVH: {"hit" [R] bool, "t"
+    [R] (-1 on a miss), "tri" [R] int64 (original triangle, -1), "slot" [R]
+    int64 (leaf slot, -1), "u", "v" [R] (0 on a miss)}. t_min/t_max: scalars
+    or [R]. CUDA rays -> one kernel launch; CPU rays -> the plain version."""
+    if _on_cuda(origins):
+        return _launch(scene, origins, directions, t_min, t_max, cull_backface, False)
+    return traverse_fat_closest_reference(scene, origins, directions, t_min, t_max,
+                                          cull_backface)
+
+
+def traverse_fat_any(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
+                     t_min=1e-4, t_max=3.0e37) -> torch.Tensor:
+    """Occlusion through the fat-node BVH: [R] bool, True where any triangle
+    blocks (t_min, t_max). Rays with a zero direction are not occluded (the
+    wavefront integrator zeroes the shadow rays of inactive lanes). CUDA
+    rays -> one kernel launch; CPU rays -> the plain version."""
+    if _on_cuda(origins):
+        return _launch(scene, origins, directions, t_min, t_max, False, True)
+    return traverse_fat_any_reference(scene, origins, directions, t_min, t_max)
+
+
+def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
+                   occlusion: bool = False) -> tuple[dict, dict]:
+    """Host model of the kernels' per-ray walk over ``bvhf_rows``/``mt_rows``
+    (numpy arrays): near child first (the far one pushed first), both
+    children's slab tests pruned by the running best t, a leaf tested at
+    visit time (lowest row wins within a leaf, strict '<' across leaves),
+    occlusion ending at the first hit, zero-direction occlusion rays dead.
+
+    Returns (result, counts): result {"hit", "t", "slot", "u", "v"} or
+    {"occluded"}; counts {"visits", "slab_tests", "pair_tests", "node_ids",
+    "slot_ids"} (the last two: the distinct fat nodes and leaf slots
+    touched)."""
+    nodes = np.asarray(bvh["bvhf_rows"], np.float32)
+    coef = np.asarray(bvh["mt_rows"], np.float32)[:, list(COEF_LANES)]
+    o = np.asarray(origins, np.float32)
+    d = np.asarray(directions, np.float32)
+    r = len(o)
+    tmin = np.broadcast_to(np.asarray(t_min, np.float32), (r,)).copy()
+    tmax = np.broadcast_to(np.asarray(t_max, np.float32), (r,)).copy()
+    inv = (1.0 / np.where(np.abs(d) > 1e-12, d, np.float32(1e-12))).astype(np.float32)
+    mom = np.cross(o, d).astype(np.float32)
+    best = np.full(r, BIG, np.float32)
+    slot = np.full(r, -1, np.int64)
+    bu = np.zeros(r, np.float32)
+    bv = np.zeros(r, np.float32)
+    occ = np.zeros(r, bool)
+    stack = np.zeros((r, MAX_STACK), np.int64)
+    sp = np.ones(r, np.int64)
+    if occlusion:
+        sp[np.abs(d).sum(axis=1) < 1e-30] = 0
+    visits = pairs = 0
+    seen_nodes: list[np.ndarray] = []
+    seen_slots: list[np.ndarray] = []
+
+    def leaf(idx, start, count):
+        nonlocal pairs
+        rows_k = np.arange(int(count.max()))
+        s_idx = start[:, None] + rows_k[None, :]
+        live = rows_k[None, :] < count[:, None]
+        s_idx = np.where(live, s_idx, 0)
+        c = coef[s_idx]  # [n, 32, 19]
+        dd, mm, oo = d[idx][:, None, :], mom[idx][:, None, :], o[idx][:, None, :]
+        det = (dd * c[..., 0:3]).sum(-1)
+        u_d = (dd * c[..., 3:6]).sum(-1) + (mm * c[..., 6:9]).sum(-1)
+        v_d = (dd * c[..., 9:12]).sum(-1) + (mm * c[..., 12:15]).sum(-1)
+        t_d = (oo * c[..., 15:18]).sum(-1) + c[..., 18]
+        sgn = np.sign(det)
+        da, us, vs, ts = det * sgn, u_d * sgn, v_d * sgn, t_d * sgn
+        alive = det > 1e-12 if cull else da > 1e-12
+        valid = (live & alive & (us >= 0) & (vs >= 0) & (us + vs <= da)
+                 & (ts > tmin[idx, None] * da) & (ts < tmax[idx, None] * da))
+        seen_slots.append(s_idx[live])
+        if occlusion:
+            first = np.where(valid.any(1), valid.argmax(1) + 1, count)
+            pairs += int(first.sum())
+            occ[idx] |= valid.any(1)
+            return
+        pairs += int(count.sum())
+        tp = np.where(valid, ts / np.maximum(da, np.float32(1e-12)), np.float32(BIG))
+        row = tp.argmin(1)
+        ct = tp[np.arange(len(idx)), row]
+        better = ct < best[idx]
+        w = idx[better]
+        rb = row[better]
+        inv_det = 1.0 / np.maximum(da[better, rb], np.float32(1e-12))
+        best[w] = ct[better]
+        slot[w] = start[better] + rb
+        bu[w] = us[better, rb] * inv_det
+        bv[w] = vs[better, rb] * inv_det
+
+    with np.errstate(all="ignore"):  # slab tests overflow to +-inf on purpose
+        while True:
+            idx = np.nonzero(sp > 0)[0]
+            if occlusion:
+                idx = idx[~occ[idx]]
+            if len(idx) == 0:
+                break
+            node = stack[idx, sp[idx] - 1]
+            sp[idx] -= 1
+            visits += len(idx)
+            seen_nodes.append(node)
+            f = nodes[node]
+            tf_base = tmax[idx] if occlusion else np.minimum(tmax[idx], best[idx])
+            hits, enters = [], []
+            for c in range(2):
+                t0 = (f[:, 6 * c : 6 * c + 3] - o[idx]) * inv[idx]
+                t1 = (f[:, 6 * c + 3 : 6 * c + 6] - o[idx]) * inv[idx]
+                tn = np.maximum(tmin[idx], np.minimum(t0, t1).max(1))
+                tf = np.minimum(tf_base, np.maximum(t0, t1).min(1))
+                hits.append(tn <= tf)
+                enters.append(tn)
+            ptr = [f[:, 12].astype(np.int64), f[:, 14].astype(np.int64)]
+            meta = [f[:, 13], f[:, 15]]
+            for c in range(2):
+                lf = hits[c] & (meta[c] > 0.5)
+                if occlusion:
+                    lf &= ~occ[idx]
+                if lf.any():
+                    leaf(idx[lf], ptr[c][lf], meta[c][lf].astype(np.int64))
+            int0 = hits[0] & (meta[0] < -0.5)
+            int1 = hits[1] & (meta[1] < -0.5)
+            if occlusion:
+                keep = ~occ[idx]
+                int0 &= keep
+                int1 &= keep
+            both = int0 & int1
+            if (sp[idx] + both + (int0 | int1) > MAX_STACK).any():
+                raise RuntimeError(f"a ray's stack overflowed its {MAX_STACK} entries")
+            near0 = enters[0] <= enters[1]
+            first = np.where(both, np.where(near0, ptr[1], ptr[0]), np.where(int0, ptr[0], ptr[1]))
+            push1 = int0 | int1
+            stack[idx[push1], sp[idx[push1]]] = first[push1]
+            sp[idx[push1]] += 1
+            w = idx[both]
+            stack[w, sp[w]] = np.where(near0, ptr[0], ptr[1])[both]
+            sp[w] += 1
+
+    counts = {
+        "visits": visits,
+        "slab_tests": 2 * visits,
+        "pair_tests": pairs,
+        "node_ids": np.unique(np.concatenate(seen_nodes)) if seen_nodes else np.zeros(0, int),
+        "slot_ids": np.unique(np.concatenate(seen_slots)) if seen_slots else np.zeros(0, int),
+    }
+    if occlusion:
+        return {"occluded": occ}, counts
+    hit = best < BIG
+    return {"hit": hit, "t": np.where(hit, best, -1.0).astype(np.float32), "slot": slot,
+            "u": np.where(hit, bu, 0), "v": np.where(hit, bv, 0)}, counts

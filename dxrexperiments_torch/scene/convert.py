@@ -12,12 +12,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .scene import bvh_to_device
+
 _SCENE_ARRAYS = (
     "mt_pack", "attr_pack", "v0", "e1", "e2", "n0", "n1", "n2",
     "pn", "c1", "c2", "d0",
 )
+_BVH_ARRAYS = ("bvh_nodes", "bvhf_nodes", "mt_rows")
 _UNPORTED = {
-    "bvh": "BVH traversal (ROADMAP Queue A item 11)",
     "tlas": "two-level scenes (ROADMAP Queue A item 13)",
     "textures": "albedo textures (ROADMAP Queue A item 12)",
 }
@@ -54,6 +56,13 @@ def scene_from_numpy(d: dict, device="cpu") -> dict:
         k: _t(v, device, torch.int64 if k == "type" else torch.float32)
         for k, v in mats.items()
     }
+    if "bvh" in d:
+        b = d["bvh"]
+        bvh = {k: np.array(b[k], np.float32) for k in _BVH_ARRAYS}
+        bvh["bvhf_rows"] = np.ascontiguousarray(bvh["bvhf_nodes"].T)
+        bvh["slot_tri"] = np.array(b["slot_tri"], np.int32)
+        bvh["mt_attr_lanes"] = int(np.asarray(b["mt_attr_lanes"]))
+        out.update(bvh_to_device(bvh, out["materials"], device))
     # lights and env are per-frame parameters and stay on the host (Scene.build)
     out["lights"] = _lights_from_numpy(d["lights"])
     env = d["env"]

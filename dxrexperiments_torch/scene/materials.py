@@ -2,7 +2,8 @@
 
 Fields: albedo, specular, emissive (rgb + strength in .a), reflectivity,
 roughness, index of refraction and an integer type (0 diffuse, 1 glossy,
-2 glass). Textured albedo waits for ROADMAP Queue A item 12.
+2 glass). ``material_pack`` is the fused-traversal kernel's [16, 128]
+material table. Textured albedo waits for ROADMAP Queue A item 12.
 """
 
 from __future__ import annotations
@@ -29,6 +30,17 @@ class Material:
     ior: float = 1.5
     type: int = MATERIAL_DIFFUSE
 
+    @staticmethod
+    def reference_default() -> "Material":
+        """The single material the reference app creates: a red glossy."""
+        return Material(
+            albedo=(0.95, 0.05, 0.0, 1.0),
+            specular=(0.58, 0.58, 0.58, 1.0),
+            roughness=0.5,
+            reflectivity=0.7,
+            type=MATERIAL_GLOSSY,
+        )
+
 
 def stack_materials_np(materials: list[Material]) -> dict:
     """Stack host materials into numpy SoA arrays [M, ...]."""
@@ -52,3 +64,28 @@ def stack_materials(materials: list[Material], device="cpu") -> dict:
         k: torch.as_tensor(v).to(device)
         for k, v in stack_materials_np(materials).items()
     }
+
+
+# Row indices of the fused-traversal material table (material_pack).
+MP_ALBEDO, MP_SPECULAR, MP_EMISSIVE = 0, 3, 6
+MP_ESTR, MP_REFL, MP_ROUGH, MP_TYPE, MP_IOR = 9, 10, 11, 12, 13
+MP_MAX_MATERIALS = 128
+
+
+def material_pack(mats: dict) -> torch.Tensor:
+    """Pack a stacked material dict (stack_materials) into the [16, 128]
+    float32 table the fused-traversal kernel stages in shared memory, on the
+    materials' device. Supports up to MP_MAX_MATERIALS materials."""
+    m = int(mats["albedo"].shape[0])
+    if m > MP_MAX_MATERIALS:
+        raise ValueError(f"material_pack supports <= {MP_MAX_MATERIALS} materials, got {m}")
+    pack = torch.zeros((16, MP_MAX_MATERIALS), dtype=torch.float32, device=mats["albedo"].device)
+    pack[MP_ALBEDO : MP_ALBEDO + 3, :m] = mats["albedo"].T
+    pack[MP_SPECULAR : MP_SPECULAR + 3, :m] = mats["specular"].T
+    pack[MP_EMISSIVE : MP_EMISSIVE + 3, :m] = mats["emissive"].T
+    pack[MP_ESTR, :m] = mats["emissive_strength"]
+    pack[MP_REFL, :m] = mats["reflectivity"]
+    pack[MP_ROUGH, :m] = mats["roughness"]
+    pack[MP_TYPE, :m] = mats["type"].to(torch.float32)
+    pack[MP_IOR, :m] = mats["ior"]
+    return pack

@@ -1,5 +1,6 @@
 """Procedural test geometry (``dxrexperiments_tpu.scene.procedural``):
-quads, boxes, the Cornell box and random triangle soups, copied in numpy."""
+quads, boxes, UV spheres, the Cornell box and random triangle soups, copied
+in numpy."""
 
 from __future__ import annotations
 
@@ -50,6 +51,38 @@ def box_mesh(center, size, material_id: int = 0, yaw: float = 0.0) -> Mesh:
     nrm = np.repeat(fn, 3, axis=0).astype(np.float32)
     return Mesh(
         pos, nrm, idx, material_ids=np.full(len(idx), material_id, np.int32), name="box"
+    )
+
+
+def sphere_mesh(center, radius, material_id: int = 0, lat: int = 16, lon: int = 32) -> Mesh:
+    """UV sphere with smooth normals."""
+    cs = np.asarray(center, np.float32)
+    thetas = np.linspace(0, np.pi, lat + 1)
+    phis = np.linspace(0, 2 * np.pi, lon, endpoint=False)
+    t, p = np.meshgrid(thetas, phis, indexing="ij")
+    pos = np.stack(
+        [np.sin(t) * np.cos(p), np.cos(t), np.sin(t) * np.sin(p)], axis=-1
+    ).reshape(-1, 3)
+    idx = []
+    for i in range(lat):
+        for j in range(lon):
+            a = i * lon + j
+            b = i * lon + (j + 1) % lon
+            c = (i + 1) * lon + j
+            d = (i + 1) * lon + (j + 1) % lon
+            if i > 0:
+                idx.append([a, c, b])
+            if i < lat - 1:
+                idx.append([b, c, d])
+    idx = np.asarray(idx, np.int32)
+    normals = pos.copy()
+    pos = pos * radius + cs
+    return Mesh(
+        pos.astype(np.float32),
+        normals.astype(np.float32),
+        idx,
+        material_ids=np.full(len(idx), material_id, np.int32),
+        name="sphere",
     )
 
 

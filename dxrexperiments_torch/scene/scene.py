@@ -1,27 +1,40 @@
 """Scene assembly: instances -> flattened world-space SoA + intersection
-precomputes (``dxrexperiments_tpu.scene.scene``, brute-force fields only).
+precomputes + the BVH (``dxrexperiments_tpu.scene.scene``).
 
-The numpy lowering is copied line for line, so ``mt_pack`` and ``attr_pack``
-are bit-identical to the JAX build. Scenes that need a BVH (more than
-BVH_THRESHOLD triangles), textures or a PRIME table raise: they wait for
-ROADMAP Queue A items 11-13.
+The numpy lowering is copied line for line, so ``mt_pack``, ``attr_pack``
+and the ``bvh`` sub-dict are bit-identical to the JAX build. ``accel``:
+'auto' attaches a BVH above BVH_THRESHOLD triangles, 'bvh' always, 'none'
+never. Not ported, and raising: the texture-env auto-route (ROADMAP Queue A
+item 9), the PRIME t_max table (``DXR_PRIME=1``, Queue A item 11) and
+two-level scenes (item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any
 
 import numpy as np
 import torch
 
+from ..accel import bvh as bvh_mod
+from ..ops.traverse import pack_for_traversal
 from . import envmap as envmap_mod
 from .lights import default_lights
-from .materials import Material, stack_materials, stack_materials_np
+from .materials import (
+    MP_MAX_MATERIALS,
+    Material,
+    material_pack,
+    stack_materials,
+    stack_materials_np,
+)
 from .mesh import Mesh
 
 TRI_ALIGN = 8  # pad the triangle count to a multiple of 8 (the JAX packing)
-BVH_THRESHOLD = 4096  # above this the JAX build attaches a BVH
+BVH_THRESHOLD = 4096  # above this triangle count, 'auto' attaches a BVH
+BVH_LEAF_SIZE = 32  # fixed leaf size (slots per leaf) of the traversal kernels
+ACCELS = ("auto", "bvh", "none")
 
 
 def to_device(tree, device):
@@ -34,6 +47,25 @@ def to_device(tree, device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_device(v, device) for v in tree)
     return tree
+
+
+def bvh_to_device(bvh: dict, materials: dict, device) -> dict:
+    """The scene entries of a BVH (``pack_for_traversal``'s arrays, numpy or
+    tensors) and its stacked materials: {"bvh": ...} with the kernels'
+    arrays ``bvhf_rows``, ``mt_rows`` and ``slot_tri`` on ``device`` and the
+    JAX package's node layouts ``bvh_nodes`` and ``bvhf_nodes`` left on the
+    host (no kernel reads them); and, for at most MP_MAX_MATERIALS
+    materials, ``material_pack``, the fused-traversal kernel's material
+    table, built once here."""
+    on_device = ("bvhf_rows", "mt_rows", "slot_tri")
+    out = {"bvh": {
+        k: v if isinstance(v, (int, str))
+        else torch.as_tensor(v).to(device if k in on_device else "cpu")
+        for k, v in bvh.items()
+    }}
+    if int(materials["albedo"].shape[0]) <= MP_MAX_MATERIALS:
+        out["material_pack"] = material_pack(materials)
+    return out
 
 
 @dataclasses.dataclass
@@ -70,9 +102,12 @@ class Scene:
         self.instances.append(Instance(mesh, t, override))
         return len(self.instances) - 1
 
-    def build_numpy(self) -> dict[str, Any]:
+    def build_numpy(self, accel: str = "auto") -> dict[str, Any]:
         """The numpy half of ``build``: world-space triangles, the
-        Möller–Trumbore precomputes and the kernel packs."""
+        Möller–Trumbore precomputes, the kernel packs and, per ``accel``,
+        the ``bvh`` sub-dict (with ``builder``: "sah" or "morton")."""
+        if accel not in ACCELS:
+            raise ValueError(f"unknown accel {accel!r} ({', '.join(ACCELS)})")
         v0s, e1s, e2s, n0s, n1s, n2s, mat_ids = [], [], [], [], [], [], []
         mat_offset_for_mesh: dict[int, int] = {}
         materials = list(self.materials)
@@ -122,11 +157,6 @@ class Scene:
             mid = np.zeros((0,), np.int32)
 
         num_tris = len(v0)
-        if num_tris > BVH_THRESHOLD:
-            raise NotImplementedError(
-                f"{num_tris} triangles need a BVH, which is not ported yet "
-                "(ROADMAP Queue A item 11)"
-            )
         if num_tris <= 512:
             padded = max(TRI_ALIGN, -(-num_tris // TRI_ALIGN) * TRI_ALIGN)
         else:
@@ -178,7 +208,7 @@ class Scene:
         attr[22] = mat_np["ior"][mid]
         attr[23] = mat_np["type"][mid].astype(np.float32)
 
-        return {
+        out = {
             "mt_pack": mt_pack,
             "attr_pack": attr,
             "v0": v0, "e1": e1, "e2": e2,
@@ -191,27 +221,48 @@ class Scene:
             "num_tris": num_tris,
             "materials": materials,
         }
+        want_bvh = accel == "bvh" or (accel == "auto" and num_tris > BVH_THRESHOLD)
+        if want_bvh and num_tris > 0:
+            if os.environ.get("DXR_PRIME", "0") == "1":
+                raise NotImplementedError(
+                    "PRIME t_max seeding (DXR_PRIME=1) is not ported yet (ROADMAP Queue A item 11)"
+                )
+            nodes, builder = bvh_mod.build_nodes(v0, e1, e2, num_tris, BVH_LEAF_SIZE)
+            packed = pack_for_traversal(nodes, out, BVH_LEAF_SIZE)
+            packed.pop("leaf_size")  # always BVH_LEAF_SIZE
+            packed["builder"] = builder
+            out["bvh"] = packed
+        return out
 
-    def build(self, device: str | torch.device = "cpu") -> dict[str, Any]:
-        """Lower to the scene dict: geometry, packs and materials on
-        ``device``; ``lights`` and ``env`` stay host (CPU) tensors, since they
-        are per-frame parameters (the kernel wrapper packs them into its one
-        upload per dispatch, the plain path moves them to its device)."""
-        d = self.build_numpy()
-        lights = self.lights if self.lights is not None else default_lights()
+    def build(self, device: str | torch.device = "cpu", accel: str = "auto") -> dict[str, Any]:
+        """Lower to the scene dict: geometry, packs, the BVH (per ``accel``,
+        see ``build_numpy`` and ``bvh_to_device``) and materials on
+        ``device``, each moved once per build; ``lights`` and ``env`` stay
+        host (CPU) tensors, since they are per-frame parameters (the kernel
+        wrapper packs them into its one upload per dispatch, the plain path
+        moves them to its device)."""
         env = (
             self.environment
             if self.environment is not None
             else envmap_mod.constant_env((0.0, 0.0, 0.0))
         )
+        if accel == "auto" and int(env["kind"]) in (envmap_mod.ENV_LATLONG, envmap_mod.ENV_CUBEMAP):
+            raise NotImplementedError(
+                "texture envs (and their route through a BVH) are not ported yet "
+                "(ROADMAP Queue A item 9)"
+            )
+        d = self.build_numpy(accel)
+        lights = self.lights if self.lights is not None else default_lights()
         out = {
             k: torch.as_tensor(v).to(device)
             for k, v in d.items()
-            if k not in ("materials", "num_tris")
+            if k not in ("materials", "num_tris", "bvh")
         }
         out["mat_id"] = out["mat_id"].to(torch.int64)
         out["num_tris"] = d["num_tris"]
         out["materials"] = stack_materials(d["materials"], device)
+        if "bvh" in d:
+            out.update(bvh_to_device(d["bvh"], out["materials"], device))
         out["lights"] = to_device(lights, "cpu")
         out["env"] = to_device(env, "cpu")
         return out

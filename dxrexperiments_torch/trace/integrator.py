@@ -16,9 +16,13 @@ RNG parity: each shade invocation re-seeds from the pixel hash, so depth-1
 draws alias depth-0 draws, and seeds advance only where the reference
 consumes draws inside branches (debug==2 light pick, noIndirectDiffuse).
 
-This module is the plain version of the CUDA megakernel
-(``ops/fused_sample.py``). Ambient occlusion, refraction and the BVH routes
-wait for later ROADMAP Queue A items and raise.
+This module is the plain version of the CUDA megakernels
+(``ops/fused_sample.py``, ``ops/fused_traverse.py``). On a BVH scene each
+trace goes through ``ops/traverse.py``: with impl='cuda' the fat-node walk
+kernel (B4a), one launch per trace stage, with impl='torch' its plain
+version, the brute-force sweep over the same triangles. Brute-force scenes
+have no CUDA trace kernel yet (B3). Ambient occlusion, refraction and
+two-level scenes wait for later ROADMAP Queue A items and raise.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 from ..core import rng
 from ..core import vecmath as vm
 from ..core.camera import primary_ray_grid
-from ..ops import intersect
+from ..ops import intersect, traverse
 from ..scene.envmap import sample_environment
 from ..scene.lights import normalize_lights
 from ..scene.scene import to_device
@@ -70,29 +74,43 @@ def resolve_impl(impl: str, device) -> str:
     return impl
 
 
-def _check_brute(scene: dict, impl: str) -> None:
-    if "bvh" in scene or "tlas" in scene:
-        raise NotImplementedError("BVH scenes are not ported yet (ROADMAP Queue A item 11)")
-    if impl == "cuda":
+def _check_scene(scene: dict, impl: str) -> None:
+    if "tlas" in scene:
+        raise NotImplementedError("two-level scenes are not ported yet (ROADMAP Queue A item 13)")
+    if "bvh" in scene:
+        if "bvhf_nodes" not in scene["bvh"]:
+            raise NotImplementedError(
+                "a BVH without fat nodes needs the binary-node walk (kernel B4b, "
+                "ROADMAP Queue B item 4)"
+            )
+    elif impl == "cuda":
         raise NotImplementedError(
-            "the wavefront route has no CUDA kernel yet (kernel B3, ROADMAP "
-            "Queue A item 10); use impl='torch' or a scene the fused kernel takes"
+            "the wavefront route has no CUDA kernel for brute-force scenes yet (kernel B3, "
+            "ROADMAP Queue A item 10); use impl='torch' or a scene the fused kernel takes"
         )
 
 
 def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
     """Closest hit + hit attributes. Returns (hit, position, normal, mat)."""
-    _check_brute(scene, impl)
-    hits = intersect.intersect_closest(
-        scene, origins, directions, t_min, t_max, cull_backface=cull
-    )
+    _check_scene(scene, impl)
+    if "bvh" in scene:
+        fn = (traverse.traverse_fat_closest if impl == "cuda"
+              else traverse.traverse_fat_closest_reference)
+        hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
+    else:
+        hits = intersect.intersect_closest(
+            scene, origins, directions, t_min, t_max, cull_backface=cull
+        )
     position, normal, mat = _interpolate_hit(scene, hits, origins, directions)
     return hits["hit"], position, normal, mat
 
 
 def _trace_any(scene, origins, directions, t_min, t_max, impl: str):
-    _check_brute(scene, impl)
-    return intersect.intersect_any(scene, origins, directions, t_min, t_max)
+    _check_scene(scene, impl)
+    if "bvh" not in scene:
+        return intersect.intersect_any(scene, origins, directions, t_min, t_max)
+    fn = traverse.traverse_fat_any if impl == "cuda" else traverse.traverse_fat_any_reference
+    return fn(scene, origins, directions, t_min, t_max)
 
 
 def _interpolate_hit(scene: dict, hits: dict, origins, directions):
@@ -351,6 +369,30 @@ def _diffuse_direction(seed, normal, options):
 def _sanitize(color: torch.Tensor) -> torch.Tensor:
     """max(c, 0) with HLSL NaN semantics (NaN -> 0)."""
     return torch.where(torch.isnan(color), torch.zeros_like(color), torch.clamp(color, min=0.0))
+
+
+def progressive_sample_sum(
+    scene: dict,
+    options: dict,
+    cameras: dict,
+    width: int,
+    height: int,
+    env_kind: int,
+    jitter_scale: float = 30.0,
+    impl: str = "torch",
+) -> torch.Tensor:
+    """Sum of S progressive samples, one per camera of CameraParams stacked
+    on a leading [S] axis, summed in sample order as the megakernels do.
+    Returns [H, W, 3] float32."""
+    total = None
+    for s in range(int(cameras["eye"].shape[0])):
+        cam = {k: v[s] for k, v in cameras.items()}
+        color = render_sample(
+            scene, options, cam, width, height, mode="progressive",
+            jitter_scale=jitter_scale, impl=impl, env_kind=env_kind,
+        )["color"]
+        total = color if total is None else total + color
+    return total
 
 
 def render_sample(

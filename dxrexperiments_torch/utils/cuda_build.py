@@ -2,8 +2,8 @@
 
 Each library is compiled at first use from the sources in ``csrc/`` into
 ``dxrexperiments_torch/build/`` (listed in .gitignore), keyed by a hash of
-the sources and the flags, so an edited source rebuilds and an unchanged one
-loads the cached library. The sources expose a plain C interface: no PyTorch
+the sources, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header rebuilds and an unchanged one loads the cached library. The sources expose a plain C interface: no PyTorch
 headers, which keeps a build to seconds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math``: parity with
@@ -51,8 +51,9 @@ def load_library(name: str, sources: list[str]) -> ctypes.CDLL:
     if name in _LOADED:
         return _LOADED[name]
     paths = [os.path.join(CSRC_DIR, s) for s in sources]
+    headers = sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())
     so_path = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")

@@ -8,10 +8,13 @@ card and not JAX:
 
 Gates: the image gate of benchmarks/kernel_parity.py on the per-sample mean
 (at most 1% of pixels differ by more than 1e-3, median |difference| <= 1e-5)
-for the megakernel in both modes, each realtime AOV on its own: knife-edge
-pairs may flip under FMA contraction. The bilateral kernel: max |difference|
-<= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums differing
-only by rounding.
+for both megakernels (B1, B5) in both modes, each realtime AOV on its own:
+knife-edge pairs may flip under FMA contraction. The fat-node walk (B4a):
+the hit gates of benchmarks/kernel_parity.py (relative t on lanes that hit
+the same triangle: median <= 1e-6, p99.9 <= 1e-4, max <= 0.05; lanes whose
+hit differs <= 1%; occlusion disagreement <= 1%). The bilateral kernel: max
+|difference| <= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums
+differing only by rounding.
 """
 
 import dataclasses
@@ -25,10 +28,14 @@ from dxrexperiments_torch.core.camera import camera_params, stack_cameras
 from dxrexperiments_torch.models.denoise import DenoiseCompositor, denoise_composite
 from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
 from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
-from dxrexperiments_torch.ops import bilateral
+from dxrexperiments_torch.core.camera import primary_ray_grid
+from dxrexperiments_torch.ops import bilateral, intersect, traverse
 from dxrexperiments_torch.ops import fused_sample as fs
-from dxrexperiments_torch.scene import envmap
-from dxrexperiments_torch.trace.integrator import default_options
+from dxrexperiments_torch.ops import fused_traverse as ft
+from dxrexperiments_torch.scene import Scene, envmap
+from dxrexperiments_torch.scene.procedural import quad
+from dxrexperiments_torch.scene.mesh import Mesh
+from dxrexperiments_torch.trace.integrator import default_options, render_sample
 
 SIZE = 64
 S = 2
@@ -201,3 +208,200 @@ def test_realtime_denoise_pipeline(cuda_device):
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
     want = denoise_composite(direct, spec, denoiser.params, impl="torch")
     assert float((img - want).abs().max()) <= 2e-5
+
+
+# ---- BVH scenes: kernels B4a (fat-node walk) and B5 (fused traversal) ------
+
+BVH_SCENE = "instanced:2"  # 3,842 triangles, through a BVH with accel="bvh"
+
+
+def _bvh_setup(device, env="gradient", s_count=S):
+    sc, cam = build_scene(BVH_SCENE)
+    if env == "const":
+        sc.environment = envmap.constant_env((0.05, 0.1, 0.2), strength=1.5)
+    cam.set_aspect(SIZE, SIZE)
+    rng = np.random.default_rng(9)
+    cams = stack_cameras([
+        camera_params(cam, jitter=((rng.random() - 0.5) / SIZE, (rng.random() - 0.5) / SIZE),
+                      frame_count=2**31 + 11 + k)
+        for k in range(s_count)
+    ])
+    return sc.build(device, accel="bvh"), cams
+
+
+def hit_gate(got, want):
+    """benchmarks/kernel_parity.py's closest-hit gate; returns its numbers."""
+    same = (got["hit"] == want["hit"]) & (~got["hit"] | (got["tri"] == want["tri"]))
+    both = same & got["hit"]
+    rel = ((got["t"] - want["t"]).abs() / want["t"].abs().clamp(min=1.0))[both].double()
+    out = {
+        "median": float(rel.median()) if both.any() else 0.0,
+        "p999": float(torch.quantile(rel, 0.999)) if both.any() else 0.0,
+        "max": float(rel.max()) if both.any() else 0.0,
+        "tie_frac": float((~same).float().mean()),
+    }
+    assert out["median"] <= 1e-6 and out["p999"] <= 1e-4, out
+    assert out["max"] <= 0.05 and out["tie_frac"] <= 0.01, out
+    return out
+
+
+def _primary_and_shadow_rays(scene, cams):
+    o, d = primary_ray_grid({k: v[0] for k, v in cams.items()}, SIZE, SIZE, 30.0)
+    o = o.reshape(-1, 3).to(scene["v0"].device)
+    d = d.reshape(-1, 3).to(scene["v0"].device)
+    hits = intersect.intersect_closest(scene, o, d, 0.0, 1e38, cull_backface=True)
+    pos = o + hits["t"].clamp(min=0.0)[:, None] * d
+    to_light = torch.tensor([3.0, 6.0, 2.0], device=o.device) - pos
+    sd = torch.where(hits["hit"][:, None], torch.nn.functional.normalize(to_light, dim=1), 0.0)
+    return o, d, pos, sd, to_light.norm(dim=1) - 1e-4
+
+
+@pytest.mark.cuda
+def test_traverse_fat_matches_plain(cuda_device):
+    scene, cams = _bvh_setup(cuda_device)
+    o, d, pos, sd, dist = _primary_and_shadow_rays(scene, cams)
+    c0, a0 = traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES
+    got = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True)
+    occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist)
+    assert (traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES) == (c0 + 1, a0 + 1)
+    want = traverse.traverse_fat_closest_reference(scene, o, d, 0.0, 1e38, cull_backface=True)
+    occ_want = traverse.traverse_fat_any_reference(scene, pos, sd, 1e-4, dist)
+    torch.cuda.synchronize()
+    assert float(got["hit"].float().mean()) > 0.2
+    hit_gate(got, want)
+    assert 0.0 < float(occ.float().mean()) < 1.0
+    assert float((occ != occ_want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,opts,env", OPTION_CASES, ids=[c[0] for c in OPTION_CASES])
+def test_fused_traverse_matches_plain(cuda_device, name, opts, env):
+    scene, cams = _bvh_setup(cuda_device, env)
+    options = default_options(**opts)
+    ek = scene["env"]["kind"]
+    before = ft.LAUNCHES
+    got = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
+    assert ft.LAUNCHES == before + 1
+    want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
+    torch.cuda.synchronize()
+    _gate(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,opts,env", REALTIME_CASES[:3],
+                         ids=[c[0] for c in REALTIME_CASES[:3]])
+def test_fused_traverse_realtime_matches_plain(cuda_device, name, opts, env):
+    scene, cams = _bvh_setup(cuda_device, env, s_count=2)
+    options = default_options(**opts)
+    ek = scene["env"]["kind"]
+    before = ft.REALTIME_LAUNCHES
+    got = ft.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
+    assert ft.REALTIME_LAUNCHES == before + 1
+    want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
+    torch.cuda.synchronize()
+    for k in fs.AOV_KEYS:
+        for f in range(2):
+            _gate(got[k][f], want[k][f], s_count=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", ["dir", "point"])
+def test_fused_traverse_one_light_rig(cuda_device, group):
+    scene, cams = _bvh_setup(cuda_device)
+    scene = dict(scene, lights={group: scene["lights"][group]})
+    options = default_options(debug=2)  # one light: the pick changes nothing
+    got = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, 1)
+    want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, SIZE, SIZE, 1)
+    torch.cuda.synchronize()
+    _gate(got, want)
+
+
+@pytest.mark.cuda
+def test_bvh_routes_launch_counts(cuda_device):
+    sc, cam = build_scene(BVH_SCENE)
+    cam.set_aspect(SIZE, SIZE)
+    pipe = ProgressiveRaytracingPipeline(SIZE, SIZE, seed=1, samples_per_frame=2,
+                                         device=cuda_device)
+    pipe.set_camera(cam)
+    pipe.set_scene(sc)  # 3,842 triangles: 'auto' keeps them brute force
+    assert "bvh" not in pipe.scene_data
+    pipe.scene_data = sc.build(cuda_device, accel="bvh")
+    b1, b5 = fs.LAUNCHES, ft.LAUNCHES
+    for f in range(2):
+        pipe.update(elapsed_time=0.0, elapsed_frames=f)
+        pipe.render()
+    torch.cuda.synchronize()
+    assert (fs.LAUNCHES, ft.LAUNCHES) == (b1, b5 + 2)
+    assert bool(pipe.get_output().isfinite().all()) and float(pipe.get_output().mean()) > 0.0
+    c0, a0 = traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES
+    cam0 = {k: v[0] for k, v in pipe._camera_params.items()}
+    out = render_sample(pipe.scene_data, pipe.options, cam0, SIZE, SIZE, impl="cuda")
+    assert (traverse.CLOSEST_LAUNCHES - c0, traverse.ANY_LAUNCHES - a0) == (2, 2)
+    assert bool(out["color"].isfinite().all())
+
+
+def chain_scene(levels: int = 120):
+    """A one-triangle scene under a degenerate BVH whose near-first walk
+    needs a stack as deep as `levels`: every chain node's near child is the
+    next chain node and its far child a two-leaf subtree, all boxes the
+    same, so each visit pushes two nodes and pops one."""
+    sc = Scene()
+    pos, idx = quad([-1, -1, 5], [1, -1, 5], [1, 1, 5], [-1, 1, 5])
+    sc.add_model(Mesh(pos, None, idx[:1]))
+    base = sc.build_numpy(accel="none")
+    child = [[0, 0]]
+    cur = 0
+    for _ in range(levels):
+        nxt, far, l0, l1 = range(len(child), len(child) + 4)
+        child += [[0, 0], [l0, l1], [-1, 1], [-1, 1]]
+        child[cur] = [nxt, far]
+        cur = nxt
+    child[cur] = [-1, 1]
+    m = len(child)
+    nodes = {"nodes_lo": np.full((m, 3), -10.0, np.float32),
+             "nodes_hi": np.full((m, 3), 10.0, np.float32),
+             "child": np.asarray(child, np.int32), "order": np.zeros(1, np.int32)}
+    packed = traverse.pack_for_traversal(nodes, base, 32)
+    return base, packed
+
+
+@pytest.mark.cuda
+def test_traverse_stack_overflow_raises(cuda_device):
+    base, packed = chain_scene()
+    scene = {k: torch.as_tensor(base[k]).to(cuda_device) for k in ("v0", "e1", "e2")}
+    scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in packed.items()
+                    if k in ("bvhf_rows", "mt_rows", "slot_tri")}
+    o = torch.zeros((4, 3), device=cuda_device)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda_device)
+    for trace in (traverse.traverse_fat_closest, traverse.traverse_fat_any):
+        # the flag is read once the kernel has finished: by the wrapper's own
+        # poll if it already has, else by check_errors, which waits
+        with pytest.raises(RuntimeError, match="stack overflowed"):
+            trace(scene, o, d, 0.0, 1e38)
+            traverse.check_errors()
+    shallow_base, shallow = chain_scene(levels=40)
+    scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in shallow.items()
+                    if k in ("bvhf_rows", "mt_rows", "slot_tri")}
+    hits = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38)
+    traverse.check_errors()
+    assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_plain_versions(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain version")
+
+    for mod, name in ((traverse, "traverse_fat_closest_reference"),
+                      (traverse, "traverse_fat_any_reference"),
+                      (ft, "fused_traverse_progressive_sum_reference"),
+                      (ft, "fused_traverse_realtime_outputs_reference"),
+                      (intersect, "intersect_closest"), (intersect, "intersect_any")):
+        monkeypatch.setattr(mod, name, refuse)
+    scene, cams = _bvh_setup(cuda_device)
+    options = default_options()
+    ek = scene["env"]["kind"]
+    ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
+    ft.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
+    render_sample(scene, options, {k: v[0] for k, v in cams.items()}, SIZE, SIZE, impl="cuda")
+    torch.cuda.synchronize()
