@@ -5,9 +5,9 @@
 
 Phases, each of which raises on failure:
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. the build of csrc/fused_sample.cu and csrc/bilateral.cu with nvcc
-     (utils/cuda_build.py, both started together), with seconds and ptxas'
-     registers and spills;
+  2. the build of every csrc/*.cu with nvcc (utils/cuda_build.py) and of
+     csrc/sah_bvh.cpp with g++, all started together, with seconds and
+     ptxas' registers, stack frames and spills per kernel;
   3. kernel vs plain PyTorch parity on the card: the progressive megakernel
      on Cornell-glossy at 128^2, S = 4 samples per launch, for each option
      set of the CPU tests; the realtime megakernel at 128^2 (defaults,
@@ -59,7 +59,38 @@ Phases, each of which raises on failure:
      with its plain version and the kernel again at the plain version's
      shape ('instanced:4', 128^2); the host ms per frame of both pipelines,
      the realtime one with the kernels' error flags read later (as the
-     wrappers do) and read right after each B5 launch.
+     wrappers do) and read right after each B5 launch;
+ 11. the two-level walk (B6a, csrc/traverse2_fat.cu) vs its plain version
+     (every instance's triangles in object space) on 128^2 probe rays:
+     closest hits (hit gate, and the instance slot on rays that hit the
+     same triangle) and occlusion on shadow rays toward SHADOW_LIGHT, on
+     tests/test_tlas.py's 5-instance scene (a third of its shadow rays with
+     zero directions, never occluded), 'instanced:4' two-level and a
+     single-instance TLAS;
+ 12. the two-level main path at full width: 'instanced:32' through
+     Scene.build_two_level (BASELINE config 5 as written: 1,025 instances
+     of 2 meshes, 983,042 triangles), its build seconds and bytes on the
+     card, ProgressiveRaytracingPipeline for 4 dispatches of S = 4 (must
+     count 32 closest and 32 any B6a launches and no B1, B4a or B5 launch);
+     the first dispatch's first sample through the wavefront route against
+     phase 8's B5 image of the flattened scene on the image gate (same
+     camera, same seeds); B6a against the plain versions on 4,096 sampled
+     rays of each of that frame's four launches; 4 animated frames
+     (set_instance_transforms with the CLI's yaw, 0.05 rad per frame; must
+     count 16 + 16 B6a launches), then B6a's closest hits on 4,096 sampled
+     primary rays against a brute-force sweep of the flattened scene built
+     at the last frame's transforms (hit/miss disagreement <= 1%, relative
+     t within the hit gate's bounds; triangle ids differ between the
+     builds); and the headless CLI with --accel two-level
+     --animate-instances at 512^2, 8 spp;
+ 13. realtime + denoise at 1920x1080 on the two-level scene, 2 frames (must
+     count 4 closest and 4 any B6a and 4 bilateral launches; AOVs and the
+     display finite);
+ 14. two-level times: B6a ms for each of the wavefront frame's four launches
+     on its own inputs with the host model's walk counts (ops/traverse2.
+     fat_walk2_numpy) and its bound, the host ms per refit and per
+     progressive dispatch, and B6a beside its plain versions at
+     'instanced:4' two-level, 128^2.
 
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
@@ -68,8 +99,10 @@ The brute-force kernel's pair tests are counted on its plain run; the BVH
 kernels' slab and pair tests by a host model of their per-ray walk
 (ops/traverse.fat_walk_numpy) over 4,096 sampled pixels of the main path
 (B5) or 4,096 sampled rays of each launch (B4a), scaled to the frame or
-the launch. No single PyTorch call computes any of these
-functions, so library_ms is null.
+the launch; B6a's slab and pair tests and instance transforms by the host
+model of the two-level walk (ops/traverse2.fat_walk2_numpy) the same way.
+No single PyTorch call computes any of these functions, so library_ms is
+null.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. The hit gate of the BVH walk is that of
@@ -118,6 +151,10 @@ HBM_RATE = 3.35e12  # H100 SXM bytes/s
 OPS_PAIR = 50  # float32 operations of one Möller–Trumbore pair test (csrc/common.cuh)
 OPS_SLAB = 25  # of one child-box slab test
 OPS_TAP = 24  # of one bilateral tap (guide distance, weight, 3-channel sum)
+OPS_INST = 45  # of one instance entry of B6a: o' = A o + b, d' = A d, o' x d', 1 / d'
+TWO_LEVEL_PARITY = ("five", "instanced:4")  # B6a's parity scenes (tests/test_torch_cuda.py)
+TWO_LEVEL_FRAMES = 4  # animated frames of the two-level main path
+TWO_LEVEL_RT_FRAMES = 2  # realtime + denoise frames on the two-level scene
 BILATERAL_RADII = (1, 7, 12, 25)
 AOVS = ("direct", "indirect_specular", "albedo", "color", "roughness")
 OPTION_CASES = [
@@ -195,7 +232,34 @@ def hit_gate(name, got, want, torch):
           f" p99.9 {g['p999_rel_t']:.2e} max {g['max_rel_t']:.2e}, tie-break frac "
           f"{g['tie_break_frac']:.5f} -> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise RuntimeError(f"B4a vs plain hit gate failed for {name}")
+        raise RuntimeError(f"kernel vs plain hit gate failed for {name}")
+    return g
+
+
+def inst_gate(name, got, want):
+    """B6a's instance slot equals the plain version's on rays that hit the
+    same triangle."""
+    same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
+    if not bool((got["inst"][same] == want["inst"][same]).all()):
+        raise RuntimeError(f"B6a instance slots differ from the plain version's for {name}")
+
+
+def flat_gate(name, got, want, torch):
+    """B6a's closest hits against a sweep of another build of the same
+    surfaces, whose triangle ids differ: hit/miss disagreement <= 1%, and on
+    rays both hit the relative t of the hit gate."""
+    both = got["hit"] & want["hit"]
+    rel = ((got["t"] - want["t"]).abs() / want["t"].abs().clamp(min=1.0))[both].double()
+    g = {"hit_miss_frac": float((got["hit"] != want["hit"]).float().mean()),
+         "median_rel_t": float(rel.median()), "p999_rel_t": float(torch.quantile(rel, 0.999)),
+         "max_rel_t": float(rel.max()), "hit_frac": float(want["hit"].float().mean())}
+    ok = (g["hit_miss_frac"] <= TIE_FRAC and g["median_rel_t"] <= HIT_MEDIAN
+          and g["p999_rel_t"] <= HIT_P999 and g["max_rel_t"] <= HIT_MAX and both.sum() > 0)
+    print(f"parity {name}: hit frac {g['hit_frac']:.4f}, hit/miss disagreement "
+          f"{g['hit_miss_frac']:.5f}, relative t median {g['median_rel_t']:.2e} p99.9 "
+          f"{g['p999_rel_t']:.2e} max {g['max_rel_t']:.2e} -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"gate failed for {name}")
     return g
 
 
@@ -205,8 +269,55 @@ def occlusion_gate(name, got, want):
     print(f"parity {name}: occluded {float(want.float().mean()):.4f}, disagreement {frac:.5f} "
           f"(<= {TIE_FRAC}) -> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise RuntimeError(f"B4a vs plain occlusion gate failed for {name}")
+        raise RuntimeError(f"kernel vs plain occlusion gate failed for {name}")
     return frac
+
+
+def transform(translate=(0.0, 0.0, 0.0), yaw=0.0, scale=1.0):
+    """4x4 float32: a turn of `yaw` about y, a uniform scale, a translation."""
+    import numpy as np
+
+    c, s = np.cos(yaw), np.sin(yaw)
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    m[:3, :3] *= scale
+    m[:3, 3] = translate
+    return m
+
+
+# tests/test_tlas.py's 5 instances: (translate, yaw, scale)
+FIVE_TRANSFORMS = [((0, 0, 0), 0.0, 1.0), ((2.5, 0.2, 0), 0.7, 1.0), ((-2.5, 0, 0.5), -0.4, 1.4),
+                   ((0, 0, 2.5), 0.0, 0.8), ((0, 1.5, -2.5), 2.0, 1.0)]
+
+
+def probe_rays(n, seed, radius, spread, device):
+    """n rays from a sphere of `radius`, aimed at points scattered by
+    `spread` around the origin (tests/test_torch_cuda.py's probe)."""
+    import numpy as np
+    import torch
+
+    rs = np.random.default_rng(seed)
+    o = rs.normal(size=(n, 3)).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * radius
+    d = rs.normal(scale=spread, size=(n, 3)).astype(np.float32) - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return torch.as_tensor(o, device=device), torch.as_tensor(d.astype(np.float32), device=device)
+
+
+def tensors_of(tree):
+    """Every tensor in a nested dict/list, and in a refit context's cache."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors_of(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensors_of(v)
+    elif hasattr(tree, "_on_device"):
+        yield from tensors_of(tree._on_device)
 
 
 def bound(ops: float, nbytes: float) -> tuple[float, str]:
@@ -252,14 +363,18 @@ class PairCount:
 
 class TraceHook:
     """Calls on_trace(o, d, t_min, t_max, cull=..., occlusion=...) before
-    every B4a trace made while it is active; the traces still run."""
+    every B4a trace (module ops.traverse) or B6a trace (names=TWO_LEVEL,
+    module ops.traverse2) made while it is active; the traces still run."""
 
-    def __init__(self, tv, on_trace):
-        self.tv, self.on_trace = tv, on_trace
+    B4A = ("traverse_fat_closest", "traverse_fat_any")
+    TWO_LEVEL = ("traverse2_fat_closest", "traverse2_fat_any")
+
+    def __init__(self, tv, on_trace, names=B4A):
+        self.tv, self.on_trace, self.names = tv, on_trace, names
 
     def __enter__(self):
         tv, on_trace = self.tv, self.on_trace
-        self.closest, self.any = tv.traverse_fat_closest, tv.traverse_fat_any
+        self.closest, self.any = (getattr(tv, n) for n in self.names)
 
         def closest(scene, o, d, t_min=1e-4, t_max=3.0e37, cull_backface=False):
             on_trace(o, d, t_min, t_max, cull=cull_backface, occlusion=False)
@@ -269,11 +384,13 @@ class TraceHook:
             on_trace(o, d, t_min, t_max, cull=False, occlusion=True)
             return self.any(scene, o, d, t_min, t_max)
 
-        tv.traverse_fat_closest, tv.traverse_fat_any = closest, any_
+        setattr(tv, self.names[0], closest)
+        setattr(tv, self.names[1], any_)
         return self
 
     def __exit__(self, *exc):
-        self.tv.traverse_fat_closest, self.tv.traverse_fat_any = self.closest, self.any
+        setattr(self.tv, self.names[0], self.closest)
+        setattr(self.tv, self.names[1], self.any)
 
 
 class WalkCount:
@@ -321,6 +438,31 @@ def walk_work(wc, scale, bvh, io_bytes_per_ray, attr_lanes=0):
     return ops, nbytes
 
 
+def walk2_work(tv2, tl_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_per_ray):
+    """(operations, bytes, counts) of B6a's walks of rays o, d (a sample of
+    a launch), counted by the host model (ops/traverse2.fat_walk2_numpy) and
+    scaled by `scale` (launch rays / sampled rays): slab, pair and
+    instance-transform operations; the distinct TLAS nodes, instance rows,
+    BLAS nodes (64 bytes each) and slots (19 coefficients) touched, scaled
+    but at most the whole arrays, plus each ray's own input and output."""
+    import numpy as np
+
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.float32(x)
+
+    _, c = tv2.fat_walk2_numpy(tl_np, host(o), host(d), host(t_min), host(t_max), cull=cull,
+                               occlusion=occlusion)
+    ops = (c["slab_tests"] * OPS_SLAB + c["pair_tests"] * OPS_PAIR
+           + c["instance_entries"] * OPS_INST) * scale
+    caps = {"tlas_node_ids": len(tl_np["tlasf_rows"]), "inst_ids": len(tl_np["inst_rows_t"]),
+            "blas_node_ids": len(tl_np["blasf_rows"]),
+            "slot_ids": int((tl_np["slot_tri"] >= 0).sum())}
+    touched = {k: min(len(c[k]) * scale, cap) for k, cap in caps.items()}
+    nbytes = ((touched["tlas_node_ids"] + touched["inst_ids"] + touched["blas_node_ids"]) * 64
+              + touched["slot_ids"] * 19 * 4 + len(o) * scale * io_bytes_per_ray)
+    return ops, nbytes, c
+
+
 def rows_of(x, idx):
     """x[idx] for a per-ray tensor, x itself for a scalar window."""
     return x[idx] if hasattr(x, "dim") and x.dim() else x
@@ -364,7 +506,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from dxrexperiments_torch.app.headless import build_scene
+    from dxrexperiments_torch.app.headless import build_scene, yaw_matrix
     from dxrexperiments_torch.core import rng as trng
     from dxrexperiments_torch.core.camera import camera_params, primary_ray_grid, stack_cameras
     from dxrexperiments_torch.core.device import setup_device
@@ -376,7 +518,9 @@ def main() -> int:
     from dxrexperiments_torch.ops import fused_traverse as ft
     from dxrexperiments_torch.ops import intersect
     from dxrexperiments_torch.ops import traverse as tv
+    from dxrexperiments_torch.ops import traverse2 as tv2
     from dxrexperiments_torch.scene import envmap
+    from dxrexperiments_torch.scene.dynamic import refit_scene_instances
     from dxrexperiments_torch.trace.integrator import (
         RAY_EPSILON,
         RAY_MAX_T,
@@ -389,6 +533,7 @@ def main() -> int:
     def reset_counts():
         fs.LAUNCHES = fs.REALTIME_LAUNCHES = bl.LAUNCHES = 0
         tv.CLOSEST_LAUNCHES = tv.ANY_LAUNCHES = ft.LAUNCHES = ft.REALTIME_LAUNCHES = 0
+        tv2.CLOSEST_LAUNCHES = tv2.ANY_LAUNCHES = 0
 
     # ---- 1. the card --------------------------------------------------------
     dev = setup_device("cuda")
@@ -399,19 +544,19 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source and g++ for the SAH builder, together -----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=6) as pool:
         futs = [pool.submit(f) for f in (fs._library, bl._library, tv._library, ft._library,
-                                         native.get_lib)]
+                                         tv2._library, native.get_lib)]
         sah_lib = [f.result() for f in futs][-1]
     load_s = time.perf_counter() - t0
     print(f"build csrc/sah_bvh.cpp with g++: "
           f"{'built' if sah_lib is not None else 'no g++: the Morton build serves'}", flush=True)
-    for name in ("fused_sample", "bilateral", "traverse_fat", "fused_traverse"):
+    for name in ("fused_sample", "bilateral", "traverse_fat", "fused_traverse", "traverse2_fat"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build {name}.cu: nvcc {info['seconds']:.2f}s (all builds together "
               f"{load_s:.2f}s) -> {os.path.relpath(info['path'], ROOT)}", flush=True)
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(s in line for s in ("entry function", "registers", "spill", "smem")):
                 print(f"  ptxas: {line.strip()}", flush=True)
 
     rng = np.random.default_rng(0)
@@ -912,7 +1057,7 @@ def main() -> int:
           f"({M * M / b5_ms / 1e3:.2f} primary Mrays/s), wrapper {b5_wrap_ms:.3f} ms; pipeline "
           f"{host_prog_ms:.3f} ms per {BVH_S}-sample dispatch on the host clock, synchronised, "
           f"first dispatches included [{card}]", flush=True)
-    del pipe, scene32, traces, pos32, sd32, tmax32, o32, d32, wave, b5_one, bvh_np
+    del pipe, scene32, traces, pos32, sd32, tmax32, o32, d32, wave, bvh_np
     torch.cuda.empty_cache()
 
     # ---- 9. realtime + denoise on instanced:32 at 1080p --------------------------
@@ -1068,6 +1213,297 @@ def main() -> int:
         print(f"time {key} at {BVH_PARITY_SCENE} {P}^2: kernel {small_ms[key][0]:.4f} ms, plain "
               f"{small_ms[key][1]:.3f} ms (per sample, frame or trace) [{card}]", flush=True)
 
+    # ---- 11. B6a vs plain at 128^2: the card tests' two-level cases -------------
+    def five_scene():
+        from dxrexperiments_torch.scene import Material, Scene
+        from dxrexperiments_torch.scene.procedural import box_mesh, sphere_mesh
+
+        sc = Scene()
+        white = sc.add_material(Material(albedo=(0.73, 0.73, 0.73, 1.0)))
+        red = sc.add_material(Material(albedo=(0.9, 0.1, 0.1, 1.0)))
+        box, sph = box_mesh((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)), sphere_mesh((0.0, 0.0, 0.0), 0.6,
+                                                                          lat=6, lon=8)
+        for mesh, t, mat in zip((box, box, sph, sph, box), FIVE_TRANSFORMS,
+                                (white, red, white, red, white)):
+            sc.add_model(mesh, transform=transform(*t), material=mat)
+        return sc
+
+    def two_level_case(case):
+        """(two-level scene on the card, P^2 probe rays' origins and directions)."""
+        if case == "five":
+            return five_scene().build_two_level(dev), *probe_rays(P * P, 0, 8.0, 1.8, dev)
+        if case == "single":
+            from dxrexperiments_torch.scene import Scene
+            from dxrexperiments_torch.scene.procedural import sphere_mesh
+
+            sc = Scene()
+            sc.add_model(sphere_mesh((0.0, 0.0, 0.0), 1.0), transform=transform((0.3, 0, 0), 0.4,
+                                                                                1.2))
+            return sc.build_two_level(dev), *probe_rays(P * P, 2, 8.0, 0.8, dev)
+        return build_scene(case)[0].build_two_level(dev), *probe_rays(P * P, 1, 12.0, 3.0, dev)
+
+    b6a_parity = {False: 0.0, True: 0.0}
+    for case in (*TWO_LEVEL_PARITY, "single"):
+        scene_t, o_t, d_t = two_level_case(case)
+        got = tv2.traverse2_fat_closest(scene_t, o_t, d_t, 1e-4, 3.0e37)
+        want = tv2.two_level_closest_reference(scene_t, o_t, d_t, 1e-4, 3.0e37)
+        torch.cuda.synchronize()
+        g = hit_gate(f"B6a closest {case} two-level {P * P} probe rays", got, want, torch)
+        inst_gate(f"B6a closest {case}", got, want)
+        b6a_parity[False] = max(b6a_parity[False], g["max_abs_t"])
+        pos_t, sd_t, tmax_t = shadow_rays(o_t, d_t, want)
+        if case == "five":
+            sd_t[::3] = 0.0  # zero directions: never occluded
+        occ_got = tv2.traverse2_fat_any(scene_t, pos_t, sd_t, RAY_EPSILON, tmax_t)
+        occ_want = tv2.two_level_any_reference(scene_t, pos_t, sd_t, RAY_EPSILON, tmax_t)
+        torch.cuda.synchronize()
+        b6a_parity[True] = max(b6a_parity[True], occlusion_gate(
+            f"B6a any {case} two-level {P * P} shadow rays", occ_got, occ_want))
+        if case == "five" and bool(occ_got[::3].any()):
+            raise RuntimeError("B6a occluded a zero-direction shadow ray")
+    tv.check_errors()
+    del scene_t
+
+    # ---- 12. the two-level main path: instanced:32 two-level at 512^2 ------------
+    cam32.set_aspect(M, M)
+    pipe = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
+    pipe.max_iterations = BVH_S * BVH_DISPATCHES
+    pipe.set_camera(cam32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scene2 = sc32.build_two_level(dev)
+    torch.cuda.synchronize()
+    build2_s = time.perf_counter() - t0
+    tl2 = scene2["tlas"]
+    card_bytes = sum(t.numel() * t.element_size()
+                     for t in {id(t): t for t in tensors_of(scene2)}.values() if t.is_cuda)
+    tlas_bytes = sum(tl2[k].numel() * 4 for k in ("mt_rows", "tlasf_rows", "inst_rows_t",
+                                                   "blasf_rows"))
+    print(f"build {BVH_MAIN_SCENE} two-level: {scene2['num_tris']} triangles over "
+          f"{scene2['tlas_meta']['num_instances']} instances of "
+          f"{len(scene2['tlas_meta']['mesh_tri_ranges'])} meshes, {build2_s:.3f}s host clock "
+          f"(BLAS builds, packs, refit, upload); {card_bytes / 2**20:.3f} MiB on the card, of "
+          f"which B6a reads {tlas_bytes / 2**20:.3f} MiB (mt_rows {tuple(tl2['mt_rows'].shape)}, "
+          f"tlasf_rows {tuple(tl2['tlasf_rows'].shape)}, inst_rows_t "
+          f"{tuple(tl2['inst_rows_t'].shape)}, blasf_rows {tuple(tl2['blasf_rows'].shape)}) "
+          f"[{card}]", flush=True)
+    pipe.set_scene_data(scene2)
+    first2 = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BVH_DISPATCHES):
+        pipe.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first2 is None:
+            first2 = pipe._camera_params
+        pipe.render()
+    torch.cuda.synchronize()
+    two_prog_s = time.perf_counter() - t0
+    two_counts = {False: tv2.CLOSEST_LAUNCHES, True: tv2.ANY_LAUNCHES}
+    others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, ft.LAUNCHES)
+    img = pipe.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    want_n = BVH_DISPATCHES * BVH_S * 2
+    print(f"two-level main path: {BVH_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
+          f"{BVH_MAIN_SCENE} two-level ({pipe.accum_count} spp) in {two_prog_s:.3f}s host clock, "
+          f"B6a closest launches {two_counts[False]}, any launches {two_counts[True]}, B1 / B4a "
+          f"closest / B4a any / B5 launches {others}, image finite {finite}, mean {mean:.5f}",
+          flush=True)
+    if (two_counts[False], two_counts[True]) != (want_n, want_n) or others != (0, 0, 0, 0):
+        raise RuntimeError(f"expected {want_n} closest and {want_n} any B6a launches and no "
+                           f"other kernel's, got {two_counts} and {others}")
+    if not finite or not mean > 0.0:
+        raise RuntimeError("two-level main path image is not finite with a positive mean")
+    if any(not torch.equal(first2[k], first32[k]) for k in ("eye", "jitter", "frame_count")):
+        raise RuntimeError("the two-level pipeline's first cameras differ from phase 8's")
+
+    # the first dispatch's first sample through the wavefront route, against
+    # B5's image of the flattened scene (phase 8) on the same camera and seeds
+    opts2 = pipe.options
+    traces2 = []
+
+    def record2(o, d, t_min, t_max, cull, occlusion):
+        traces2.append((o, d, t_min, t_max, cull, occlusion))
+
+    with TraceHook(tv2, record2, TraceHook.TWO_LEVEL):
+        wave2 = render_sample(scene2, opts2, cam1, M, M, impl="cuda")["color"]
+    torch.cuda.synchronize()
+    if [t[5] for t in traces2] != [False, True, False, True]:
+        raise RuntimeError(f"expected a closest, an any, a closest and an any B6a trace, got "
+                           f"{[t[5] for t in traces2]}")
+    two_b5_gate = image_gate(f"two-level (B6a) vs flattened B5 {BVH_MAIN_SCENE} {M}^2 1 sample",
+                             wave2, b5_one, 1)
+
+    # B6a against the plain versions on sampled rays of each of the frame's launches
+    b6a_err = dict(b6a_parity)
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces2):
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        args = (scene2, o[sub], d[sub], t_min, rows_of(t_max, sub))
+        label = f"B6a {batch} {BVH_MAIN_SCENE} two-level {COUNT_PIXELS} sampled rays of {len(o)}"
+        if occlusion:
+            got, want = tv2.traverse2_fat_any(*args), tv2.two_level_any_reference(*args)
+            torch.cuda.synchronize()
+            b6a_err[True] = max(b6a_err[True], occlusion_gate(label, got, want))
+        else:
+            got = tv2.traverse2_fat_closest(*args, cull_backface=cull)
+            want = tv2.two_level_closest_reference(*args, cull_backface=cull)
+            torch.cuda.synchronize()
+            b6a_err[False] = max(b6a_err[False], hit_gate(label, got, want, torch)["max_abs_t"])
+            inst_gate(label, got, want)
+    tv.check_errors()
+
+    # animated frames (the CLI's yaw), then B6a against a brute-force sweep of
+    # the flattened scene built at the last frame's transforms
+    base_tf = np.stack([inst.transform for inst in sc32.instances])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(TWO_LEVEL_FRAMES):
+        moved = np.einsum("ij,njk->nik", yaw_matrix(0.05 * f), base_tf)
+        pipe.set_instance_transforms(moved)
+        pipe.update(elapsed_time=f / 60.0, elapsed_frames=BVH_DISPATCHES + f)
+        pipe.render()
+    torch.cuda.synchronize()
+    anim_s = time.perf_counter() - t0
+    anim_counts = (tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES)
+    img = pipe.get_output()
+    print(f"two-level animated: {TWO_LEVEL_FRAMES} frames (refit + {BVH_S} samples each) in "
+          f"{anim_s:.3f}s host clock, B6a launches {anim_counts}, accumulated {pipe.accum_count}, "
+          f"image finite {bool(img.isfinite().all())}", flush=True)
+    want_n = TWO_LEVEL_FRAMES * BVH_S * 2
+    if anim_counts != (want_n, want_n) or pipe.accum_count != BVH_S:
+        raise RuntimeError("the animated frames did not refit, restart and render as expected")
+    if not bool(img.isfinite().all()):
+        raise RuntimeError("the animated two-level image is not finite")
+    cam_a = {k: v[0] for k, v in pipe._camera_params.items()}
+    o_a, d_a = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam_a, M, M, fs.JITTER_SCALE))
+    pick_a = torch.as_tensor(rng.choice(M * M, COUNT_PIXELS, replace=False), device=dev)
+    got = tv2.traverse2_fat_closest(pipe.scene_data, o_a[pick_a], d_a[pick_a], 0.0, RAY_MAX_T,
+                                    cull_backface=True)
+    saved = [inst.transform for inst in sc32.instances]
+    for inst, t in zip(sc32.instances, moved):
+        inst.transform = t
+    flat = sc32.build(dev, accel="none")
+    for inst, t in zip(sc32.instances, saved):
+        inst.transform = t
+    want = intersect.intersect_closest(flat, o_a[pick_a], d_a[pick_a], 0.0, RAY_MAX_T,
+                                       cull_backface=True)
+    torch.cuda.synchronize()
+    tv.check_errors()
+    anim_gate = flat_gate(f"B6a after {TWO_LEVEL_FRAMES} animated frames vs the brute-force "
+                          f"sweep of the flattened scene at the same transforms, {COUNT_PIXELS} "
+                          f"sampled primary rays", got, want, torch)
+    del flat
+
+    headless(["--scene", BVH_MAIN_SCENE, "--accel", "two-level", "--animate-instances", "--size",
+              f"{M}x{M}", "--spp", "8"], f"{BVH_MAIN_SCENE} two-level animated {M}^2 8 spp")
+
+    # ---- 13. realtime + denoise at 1080p on the two-level scene -------------------
+    cam32.set_aspect(RT_W, RT_H)
+    rt = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
+    rt.set_camera(cam32)
+    rt.set_scene_data(scene2)
+    denoiser = DenoiseCompositor(device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(TWO_LEVEL_RT_FRAMES):
+        rt.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        direct, spec = rt.render()
+        display = denoiser.dispatch(direct, spec)
+    torch.cuda.synchronize()
+    two_rt_s = time.perf_counter() - t0
+    rt_counts = (tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES, bl.LAUNCHES, fs.REALTIME_LAUNCHES,
+                 ft.REALTIME_LAUNCHES)
+    finite = all(bool(x.isfinite().all()) for x in (direct, spec, display))
+    mean = float(display.mean())
+    print(f"two-level realtime + denoise: {TWO_LEVEL_RT_FRAMES} frames at {RT_W}x{RT_H} in "
+          f"{two_rt_s:.3f}s host clock, B6a closest / any / bilateral / B1 realtime / B5 "
+          f"realtime launches {rt_counts}, AOVs and display finite {finite}, display mean "
+          f"{mean:.5f} [{card}]", flush=True)
+    n = TWO_LEVEL_RT_FRAMES * 2
+    if rt_counts != (n, n, n, 0, 0) or not finite or not mean > 0.0:
+        raise RuntimeError("the two-level realtime + denoise frames failed")
+    rt.get_output()
+    del rt, direct, spec, display
+    cam32.set_aspect(M, M)
+
+    # ---- 14. two-level times ----------------------------------------------------
+    # B6a: each launch of the wavefront frame on its own inputs, with its bound
+    # from the host model's counts on COUNT_PIXELS sampled rays
+    tl_np = {k: tl2[k].cpu().numpy() for k in ("tlasf_rows", "inst_rows_t", "blasf_rows",
+                                                "mt_rows", "slot_tri")}
+    b6a = {False: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []},
+           True: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []}}
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces2):
+        ms = kernel_ms(tv2.prepare_launch(tl2, o, d, t_min, t_max, cull, occlusion), 10, torch)
+        if occlusion:
+            wrap = time_ms(lambda: tv2.traverse2_fat_any(scene2, o, d, t_min, t_max), 10, torch)
+        else:
+            wrap = time_ms(lambda: tv2.traverse2_fat_closest(scene2, o, d, t_min, t_max,
+                                                             cull_backface=cull), 10, torch)
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        ops, nbytes, c = walk2_work(tv2, tl_np, o[sub], d[sub], t_min, rows_of(t_max, sub), cull,
+                                    occlusion, len(o) / COUNT_PIXELS,
+                                    32 + (1 if occlusion else 20))
+        bnd = bound(ops, nbytes)
+        acc = b6a[occlusion]
+        acc["ms"] += ms
+        acc["wrapper_ms"] += wrap
+        acc["ops"] += ops
+        acc["bytes"] += nbytes
+        per_ray = {k: c[k] / COUNT_PIXELS for k in ("tlas_visits", "instance_entries",
+                                                     "blas_visits", "pair_tests")}
+        acc["per_launch"].append({"batch": batch, "rays": len(o), "ms": ms, "wrapper_ms": wrap,
+                                  "bound_ms": bnd[0], "bound_by": bnd[1], "per_ray": per_ray})
+        print(f"time B6a {batch} on {BVH_MAIN_SCENE} two-level {M}^2 wavefront sample: {len(o)} "
+              f"rays, kernel {ms:.4f} ms, wrapper {wrap:.4f} ms, bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}); walk per ray {per_ray['tlas_visits']:.2f} TLAS visits, "
+              f"{per_ray['instance_entries']:.2f} instance entries, {per_ray['blas_visits']:.2f} "
+              f"BLAS visits, {per_ray['pair_tests']:.2f} pair tests [{card}]", flush=True)
+    b6a_bound = {k: bound(b6a[k]["ops"], b6a[k]["bytes"]) for k in (False, True)}
+
+    # the host's share: a refit's enqueue and the whole refit, and a dispatch
+    n_refit = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(n_refit):
+        refit_scene_instances(scene2, np.einsum("ij,njk->nik", yaw_matrix(0.01 * f), base_tf))
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    refit_s = time.perf_counter() - t0
+    pipe.max_iterations = 2**30  # every timed dispatch renders
+    t0 = time.perf_counter()
+    for f in range(n_refit):
+        pipe.update(elapsed_time=0.0, elapsed_frames=100 + f)
+        pipe.render()
+    dispatch_enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    dispatch_s = time.perf_counter() - t0
+    pipe.get_output()
+    print(f"time two-level host (host clock, {n_refit} calls each): refit "
+          f"{enqueue_s / n_refit * 1e3:.3f} ms enqueue, {refit_s / n_refit * 1e3:.3f} ms "
+          f"synchronised at the end; progressive dispatch ({BVH_S} samples, wavefront route) "
+          f"{dispatch_enqueue_s / n_refit * 1e3:.3f} ms enqueue, "
+          f"{dispatch_s / n_refit * 1e3:.3f} ms synchronised at the end; the main path's "
+          f"{two_prog_s / BVH_DISPATCHES * 1e3:.3f} ms per dispatch with the first, the "
+          f"animated {anim_s / TWO_LEVEL_FRAMES * 1e3:.3f} ms per frame with its refit "
+          f"[{card}]", flush=True)
+
+    # B6a beside its plain versions at the parity shape (instanced:4, 128^2)
+    scene4_2 = build_scene(BVH_PARITY_SCENE)[0].build_two_level(dev)
+    small2 = {}
+    for occl, prepared, plain in (
+            (False, tv2.prepare_launch(scene4_2["tlas"], o4, d4, 0.0, RAY_MAX_T, True, False),
+             lambda: tv2.two_level_closest_reference(scene4_2, o4, d4, 0.0, RAY_MAX_T, True)),
+            (True, tv2.prepare_launch(scene4_2["tlas"], pos4, sd4, RAY_EPSILON, tmax4, False,
+                                      True),
+             lambda: tv2.two_level_any_reference(scene4_2, pos4, sd4, RAY_EPSILON, tmax4))):
+        small2[occl] = (kernel_ms(prepared, 10, torch), time_ms(plain, 2, torch))
+        print(f"time B6a {'any' if occl else 'closest'} at {BVH_PARITY_SCENE} two-level {P}^2: "
+              f"kernel {small2[occl][0]:.4f} ms, plain {small2[occl][1]:.3f} ms per trace "
+              f"[{card}]", flush=True)
+
     kernels = [
         {
             "name": "fused_progressive_sum",
@@ -1149,9 +1585,33 @@ def main() -> int:
             "ms_at_plain_shape": small_ms[key][0],
             **extra,
         })
+    for occl, name in ((False, "traverse2_fat_closest"), (True, "traverse2_fat_any")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dxrexperiments_torch/csrc/traverse2_fat.cu",
+            "replaces": "dxrexperiments_tpu/ops/traverse2_pallas.py:285",
+            "launches": two_counts[occl],
+            "max_abs_err": b6a_err[occl],
+            "ms": b6a[occl]["ms"],
+            "plain_ms": small2[occl][1],
+            "bound_ms": b6a_bound[occl][0],
+            "bound_by": b6a_bound[occl][1],
+            "library_ms": None,
+            "shape": f"{BVH_MAIN_SCENE} two-level {M}^2, one wavefront sample: its two "
+                     f"{'shadow' if occl else 'closest'} launches together",
+            "wrapper_ms": b6a[occl]["wrapper_ms"],
+            "plain_shape": f"{BVH_PARITY_SCENE} two-level {P}^2, one "
+                           f"{'shadow' if occl else 'primary'} trace",
+            "ms_at_plain_shape": small2[occl][0],
+            "per_launch": b6a[occl]["per_launch"],
+            **({} if occl else {"max_abs_diff_vs_flattened_b5": two_b5_gate["max_abs_diff"],
+                                "vs_flattened_after_animation": anim_gate}),
+        })
     tv.check_errors()
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

@@ -14,9 +14,13 @@ Usage:
         --scene cornell-glossy --size 1920x1080 --device cuda -o out.png
     python -m dxrexperiments_torch.app.headless --scene instanced:32 \
         --size 512x512 --spp 16 --device cuda -o out.png
+    python -m dxrexperiments_torch.app.headless --scene instanced:32 \
+        --accel two-level --animate-instances --size 512x512 --spp 16 -o out.png
 
---device defaults to cuda and fails without a card; pass --device cpu for
-the plain PyTorch path.
+--accel two-level renders the scene as one BLAS per unique mesh under a
+TLAS over its instances; --animate-instances turns the instances each frame
+by a TLAS refit (progressive pipeline). --device defaults to cuda and fails
+without a card; pass --device cpu for the plain PyTorch path.
 """
 
 from __future__ import annotations
@@ -112,6 +116,15 @@ def _instanced_scene(k: int) -> tuple[Scene, Camera]:
     return sc, cam
 
 
+def yaw_matrix(yaw: float) -> np.ndarray:
+    """4x4 float32 rotation by `yaw` radians about the y axis through the
+    origin (--animate-instances turns every instance by 0.05 * frame)."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    rot = np.eye(4, dtype=np.float32)
+    rot[0, 0], rot[0, 2], rot[2, 0], rot[2, 2] = c, s, -s, c
+    return rot
+
+
 def parse_env(spec: str) -> dict:
     """--env: gradient | constant:R,G,B, with an optional ' xStrength' suffix."""
     strength = 1.0
@@ -134,7 +147,12 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", default="cornell", help=" | ".join(SCENES))
     ap.add_argument("--accel", default="auto", choices=["auto", "two-level"],
                     help="auto: flattened world-space build, with a BVH above 4096 "
-                         "triangles; two-level is not ported yet (ROADMAP Queue A item 13)")
+                         "triangles; two-level: one BLAS per unique mesh and a refittable "
+                         "TLAS over the instances (progressive pipeline; needed by "
+                         "--animate-instances)")
+    ap.add_argument("--animate-instances", action="store_true",
+                    help="progressive, two-level: turn the instances about the origin by "
+                         "0.05 rad per frame through a TLAS refit (no re-bake)")
     ap.add_argument("--size", default="512x512")
     ap.add_argument("--spp", type=int, default=16, help="progressive samples (one per frame)")
     ap.add_argument("--pipeline", choices=["progressive", "realtime"], default="progressive")
@@ -161,10 +179,10 @@ def main(argv=None) -> int:
     if (args.save_state or args.resume) and args.pipeline != "progressive":
         ap.error("--save-state/--resume checkpoint the progressive accumulation state; "
                  "use --pipeline progressive")
-    if args.accel == "two-level":
-        raise NotImplementedError(
-            "--accel two-level (TLAS/BLAS scenes) is not ported yet (ROADMAP Queue A item 13)"
-        )
+    if args.animate_instances:
+        args.accel = "two-level"
+    if args.accel == "two-level" and args.pipeline != "progressive":
+        ap.error("--accel two-level and --animate-instances drive the progressive pipeline")
     args.spp = max(args.spp, 1)
     width, height = (int(x) for x in args.size.lower().split("x"))
     if width < 1 or height < 1:
@@ -211,7 +229,11 @@ def _render_progressive(args, scene, camera, width, height) -> np.ndarray:
     if args.aov:
         pipe.options[AOV_OPTIONS[args.aov]] = True
     pipe.set_camera(camera)
-    pipe.set_scene(scene)
+    if args.accel == "two-level":
+        pipe.set_scene_data(scene.build_two_level(pipe.device))
+    else:
+        pipe.set_scene(scene)
+    base_tf = np.stack([inst.transform for inst in scene.instances])
 
     start_frame = 0
     if args.resume:
@@ -223,6 +245,8 @@ def _render_progressive(args, scene, camera, width, height) -> np.ndarray:
     out = pipe.accum
     t0 = time.perf_counter()
     for frame in range(start_frame, args.spp):
+        if args.animate_instances:
+            pipe.set_instance_transforms(np.einsum("ij,njk->nik", yaw_matrix(0.05 * frame), base_tf))
         pipe.update(elapsed_time=frame / 60.0, elapsed_frames=frame)
         out = pipe.render()
         stats.frame()

@@ -1,6 +1,6 @@
 // Device code shared by the sample megakernels (B1 csrc/fused_sample.cu, B5
-// csrc/fused_traverse.cu) and the fat-node walk kernel (B4a
-// csrc/traverse_fat.cu).
+// csrc/fused_traverse.cu) and the fat-node walk kernels (B4a
+// csrc/traverse_fat.cu, B6a csrc/traverse2_fat.cu).
 //
 // 1. The per-pixel ray tree of the reference shaders: raygen, the TEA/LCG
 //    draws, direct lighting with its shadow rays, the depth-1 radiance of a
@@ -19,6 +19,8 @@
 //    triangles at once, and pushes the hit internal children far first so
 //    the near one pops next. The stack holds kMaxStack entries; an overflow
 //    sets the error flag (the wrapper raises), it never drops a subtree.
+//    B6a runs the same walk on the TLAS, whose leaf visit walks a BLAS with
+//    the leaf test's ray moved into object space (set_ray).
 //
 // Arithmetic follows the TPU kernels: the same term sums, the same
 // sign-multiplied validity windows, t = ts / max(|det|, 1e-12), ties to the
@@ -189,14 +191,16 @@ __device__ __forceinline__ bool slab(V3 lo, V3 hi, V3 o, V3 inv, float tmin, flo
   return n <= f;
 }
 
-// Near-first walk from the root. Leaf provides far() (the window's far end:
-// the running best t, or t_max) and visit(start, count), which tests one
-// leaf and returns true to end the walk. `stack` holds kMaxStack entries.
-template <class Leaf>
+// Near-first walk from node `root` (0 for a whole BVH; a BLAS's first node
+// among concatenated BLASes, whose ptrs are already rebased). Leaf provides
+// far() (the window's far end: the running best t, or t_max) and
+// visit(ptr, meta), which tests one leaf and returns true to end the walk.
+// `stack` holds kCap entries.
+template <class Leaf, int kCap = kMaxStack>
 __device__ __forceinline__ void fat_walk(const FatBvh& B, V3 o, V3 inv, float tmin, Leaf& leaf,
-                                         int* stack) {
+                                         int* stack, int root = 0) {
   int sp = 1;
-  stack[0] = 0;
+  stack[0] = root;
   while (sp > 0) {
     const int node = stack[--sp];
     if (node < 0 || node >= B.n_nodes) {
@@ -214,7 +218,7 @@ __device__ __forceinline__ void fat_walk(const FatBvh& B, V3 o, V3 inv, float tm
     if (h1 && m.w > 0.5f && leaf.visit(ptr1, (int)m.w)) return;
     const bool int0 = h0 && m.y < -0.5f, int1 = h1 && m.w < -0.5f;
     const int pushes = (int)int0 + (int)int1;
-    if (sp + pushes > kMaxStack) {
+    if (sp + pushes > kCap) {
       *B.err = E_STACK;
       return;
     }
@@ -242,6 +246,12 @@ struct ClosestLeaf {
                                          bool cull_)
       : B(b), o(o_), d(d_), mo(cross3(o_, d_)), tmin(tmin_), tmax(tmax_), cull(cull_),
         best_t(kBig), b_us(0.0f), b_vs(0.0f), b_det(0.0f), best_slot(-1) {}
+  // Move the ray (a two-level walk's object-space copy); the best hit stays.
+  __device__ __forceinline__ void set_ray(V3 o_, V3 d_) {
+    o = o_;
+    d = d_;
+    mo = cross3(o_, d_);
+  }
   __device__ __forceinline__ float far() const { return fminf(tmax, best_t); }
   __device__ __forceinline__ bool visit(int start, int count) {
     if (start < 0 || start + count > B.n_slots) {
@@ -278,6 +288,11 @@ struct AnyLeaf {
 
   __device__ __forceinline__ AnyLeaf(const FatBvh& b, V3 o_, V3 d_, float tmin_, float tmax_)
       : B(b), o(o_), d(d_), mo(cross3(o_, d_)), tmin(tmin_), tmax(tmax_), occluded(false) {}
+  __device__ __forceinline__ void set_ray(V3 o_, V3 d_) {
+    o = o_;
+    d = d_;
+    mo = cross3(o_, d_);
+  }
   __device__ __forceinline__ float far() const { return tmax; }
   __device__ __forceinline__ bool visit(int start, int count) {
     if (start < 0 || start + count > B.n_slots) {

@@ -12,15 +12,17 @@ from ..core.camera import Camera, camera_params
 from ..core.device import setup_device
 from ..ops.fused_sample import supports_fused
 from ..ops.fused_traverse import supports_fused_traverse
-from ..scene.scene import Scene
+from ..scene.scene import Scene, scene_device
 
 
 def select_route(scene: dict, mode: str, ao_only: bool = False) -> str:
     """The kernel route of a scene, as the JAX pipelines choose it:
     'fused' (the brute-force megakernel B1) when ``supports_fused``, else
     'fused_traverse' (the fused-traversal megakernel B5) when
-    ``supports_fused_traverse``, else 'wavefront' (the integrator, whose BVH
-    traces run kernel B4a on a CUDA device)."""
+    ``supports_fused_traverse``, else 'wavefront' (the integrator, whose
+    traces run kernel B4a for a BVH or B6a for a two-level scene on a CUDA
+    device). Both gates reject a two-level scene (``tlas``), so it always
+    takes the wavefront route."""
     if supports_fused(scene, mode, ao_only):
         return "fused"
     if supports_fused_traverse(scene, mode, ao_only):
@@ -47,6 +49,15 @@ class RaytracingPipeline(abc.ABC):
         # (and animates) the default rig.
         self.owns_lights = scene.lights is None
         self.scene_data = scene.build(self.device)
+
+    def set_scene_data(self, scene_data: dict) -> None:
+        """Attach an already-lowered scene dict (e.g. from
+        ``Scene.build_two_level(device)``) instead of lowering a Scene; its
+        rig is its own. Its geometry must lie on the pipeline's device."""
+        if scene_device(scene_data).type != self.device.type:
+            raise ValueError(f"scene data on {scene_device(scene_data)}, pipeline on {self.device}")
+        self.owns_lights = False
+        self.scene_data = scene_data
 
     def set_camera(self, camera: Camera) -> None:
         self.camera = camera

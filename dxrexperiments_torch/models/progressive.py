@@ -19,7 +19,9 @@ import torch
 
 from ..core.camera import stack_cameras
 from ..ops import fused_sample, fused_traverse, traverse
+from ..scene.dynamic import refit_scene_instances
 from ..scene.lights import default_lights
+from ..scene.scene import scene_device
 from ..trace.integrator import default_options, progressive_sample_sum, resolve_impl
 from .base import RaytracingPipeline, has_camera_moved, select_route, wall_seed
 
@@ -31,18 +33,21 @@ def make_progressive_step(
     samples_per_step: int = 1,
     light_mc: bool = False,
 ):
-    """Return ``step(accum, options, cameras, lights, env, max_iterations)``,
-    a closure over the scene tensors. ``cameras`` is CameraParams stacked on
-    a leading [S] axis (S = samples_per_step).
+    """Return ``step(accum, options, cameras, lights, env, max_iterations,
+    geometry=None)``. ``cameras`` is CameraParams stacked on a leading [S]
+    axis (S = samples_per_step). ``geometry`` is the scene dict to render,
+    by default ``scene``; it must take the route ``scene`` took (the same
+    kind of structure and rig): a refit two-level scene passes its current
+    arrays here, so the step never renders stale transforms.
 
     The route is ``select_route``'s. On a CUDA device each step is one
     launch of ``fused_sample.fused_progressive_sum`` (B1) or of
     ``fused_traverse.fused_traverse_progressive_sum`` (B5), or, on the
-    wavefront route of a BVH scene, S samples of the integrator with two
-    closest and two any-hit launches of kernel B4a each; a brute-force scene
-    outside B1's scope has no CUDA route yet and raises (kernel B3, ROADMAP
-    Queue A item 10). On the CPU each step is the plain version, the
-    wavefront integrator summed over the S samples.
+    wavefront route of a BVH or two-level scene, S samples of the integrator
+    with two closest and two any-hit launches each of kernel B4a or B6a; a
+    brute-force scene outside B1's scope has no CUDA route yet and raises
+    (kernel B3, ROADMAP Queue A item 10). On the CPU each step is the plain
+    version, the wavefront integrator summed over the S samples.
 
     light_mc: passed on to ``fused_sample.fused_progressive_sum`` (see
     there); the other routes ignore it, as in JAX."""
@@ -54,8 +59,8 @@ def make_progressive_step(
     elif route == "fused_traverse":
         sample_sum = fused_traverse.fused_traverse_progressive_sum
     else:
-        impl = resolve_impl("auto", scene["mt_pack"].device)
-        if impl == "cuda" and "bvh" not in scene:
+        impl = resolve_impl("auto", scene_device(scene))
+        if impl == "cuda" and "bvh" not in scene and "tlas" not in scene:
             raise NotImplementedError(
                 "this scene needs the wavefront route, which has no CUDA kernel for "
                 "brute-force scenes yet (kernel B3, ROADMAP Queue A item 10)"
@@ -63,11 +68,11 @@ def make_progressive_step(
         sample_sum = functools.partial(progressive_sample_sum,
                                        jitter_scale=fused_sample.JITTER_SCALE, impl=impl)
 
-    def step(accum, options, cameras, lights, env, max_iterations):
+    def step(accum, options, cameras, lights, env, max_iterations, geometry=None):
         base_count = float(cameras["accum_count"][0])
         if base_count >= float(max_iterations):
             return accum
-        full = dict(scene, lights=lights, env=env)
+        full = dict(scene if geometry is None else geometry, lights=lights, env=env)
         mean = sample_sum(full, options, cameras, width, height, env_kind) / s_count
         return (base_count * accum + s_count * mean) / (base_count + s_count)
 
@@ -137,13 +142,27 @@ class ProgressiveRaytracingPipeline(RaytracingPipeline):
         if self.scene_data is not None and self.owns_lights:
             self.scene_data = dict(self.scene_data, lights=default_lights(elapsed_time))
 
+    def set_instance_transforms(self, transforms) -> None:
+        """Animate the instances of a two-level scene by a TLAS refit
+        (``scene/dynamic.refit_scene_instances``): O(instances) work on the
+        card, no re-bake and no new step. Restarts accumulation (the scene
+        changed). transforms: [I, 4, 4], a numpy array or a tensor."""
+        if "tlas" not in self.scene_data:
+            raise ValueError("set_instance_transforms needs a two-level scene "
+                             "(Scene.build_two_level)")
+        self.scene_data = refit_scene_instances(self.scene_data, transforms)
+        self.mark_dirty()
+
     def _step_fn(self):
-        # Rebuild the step only when the geometry or the static config changes;
-        # lights and env stay arguments, so animating them rebuilds nothing.
-        key = (self.width, self.height, self.samples_per_frame, id(self.scene_data["mt_pack"]))
+        # The step takes the current geometry as an argument, so it is rebuilt
+        # only when the static config or what the route depends on changes;
+        # lights, env and a refit's new arrays rebuild nothing.
+        scene = self.scene_data
+        key = (self.width, self.height, self.samples_per_frame, select_route(scene, "progressive"),
+               int(scene["env"]["kind"]), scene_device(scene), tuple(sorted(scene)))
         if self._step_key != key:
             self._step = make_progressive_step(
-                self.scene_data, self.width, self.height, samples_per_step=self.samples_per_frame
+                scene, self.width, self.height, samples_per_step=self.samples_per_frame
             )
             self._step_key = key
         return self._step
@@ -156,6 +175,7 @@ class ProgressiveRaytracingPipeline(RaytracingPipeline):
             self.scene_data["lights"],
             self.scene_data["env"],
             self.max_iterations,
+            self.scene_data,
         )
         return self.accum
 

@@ -45,8 +45,8 @@ COEF_LANES = (0, 1, 2, 16, 17, 18, 19, 20, 21, 32, 33, 34, 35, 36, 37, 54, 55, 5
 CLOSEST_LAUNCHES = 0
 ANY_LAUNCHES = 0
 
-_ERRORS = {1: f"a ray's stack overflowed its {MAX_STACK} entries",
-           2: "a node or slot index lies outside the packed arrays"}
+_ERRORS = {1: f"a ray's stack overflowed its {MAX_STACK} entries (64 in a TLAS walk)",
+           2: "a node, instance or slot index lies outside the packed arrays"}
 
 
 def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
@@ -236,17 +236,23 @@ def _library():
     return _LIB
 
 
-def check_bvh(bvh: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' BVH inputs, checked: (bvhf_rows [F, 16], mt_rows
-    [S, 128]), float32, contiguous, on ``device``."""
-    nodes, rows = bvh["bvhf_rows"], bvh["mt_rows"]
-    for name, t, width in (("bvhf_rows", nodes, 16), ("mt_rows", rows, 128)):
+def check_rows(tree: dict, widths: dict, device) -> tuple[torch.Tensor, ...]:
+    """tree[name] for each name of ``widths``, checked: float32 [N, width],
+    contiguous, 16-byte aligned (the kernels read float4s), on ``device``."""
+    for name, width in widths.items():
+        t = tree[name]
         if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != width:
             raise ValueError(f"{name}: expected float32 [N, {width}], got {t.dtype} "
                              f"{tuple(t.shape)}")
         if t.device != device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: expected a contiguous, 16-byte aligned tensor on {device}")
-    return nodes, rows
+    return tuple(tree[name] for name in widths)
+
+
+def check_bvh(bvh: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' BVH inputs, checked: (bvhf_rows [F, 16], mt_rows
+    [S, 128])."""
+    return check_rows(bvh, {"bvhf_rows": 16, "mt_rows": 128}, device)
 
 
 def raise_on_error(err: torch.Tensor, what: str) -> None:
@@ -257,7 +263,7 @@ def raise_on_error(err: torch.Tensor, what: str) -> None:
         raise RuntimeError(f"{what}: {_ERRORS.get(code, f'error {code}')}")
 
 
-# Error flags of B4a and B5 launches not read yet, oldest first: (event
+# Error flags of B4a, B5 and B6a launches not read yet, oldest first: (event
 # after the launch, pinned host copy of its flag, what launched).
 _PENDING: list[tuple[torch.cuda.Event, torch.Tensor, str]] = []
 
@@ -276,7 +282,7 @@ def queue_error_check(err: torch.Tensor, what: str) -> None:
 
 
 def check_errors(wait: bool = True) -> None:
-    """Raise if a queued B4a or B5 launch set its error flag (a stack
+    """Raise if a queued B4a, B5 or B6a launch set its error flag (a stack
     overflow). wait=True waits for every queued launch, wait=False reads
     only those that have finished. The pipelines call it in get_output; a
     launch whose error is raised has already returned its outputs."""
@@ -371,6 +377,138 @@ def traverse_fat_any(scene: dict, origins: torch.Tensor, directions: torch.Tenso
     return traverse_fat_any_reference(scene, origins, directions, t_min, t_max)
 
 
+def leaf_terms(coef, start, count, o, d, mom, tmin, tmax, cull: bool):
+    """The kernels' pair tests of n rays against one leaf each, on the host:
+    coef [S, 19] (the COEF_LANES of mt_rows), start/count [n], the rays'
+    o, d, mom = o x d [n, 3] and windows tmin, tmax [n]. Returns (valid, ts,
+    det_abs, us, vs) [n, K] with the sign-folded terms, the slots s_idx
+    [n, K] and the mask of slots inside the leaf [n, K]."""
+    rows_k = np.arange(int(count.max()))
+    s_idx = start[:, None] + rows_k[None, :]
+    live = rows_k[None, :] < count[:, None]
+    s_idx = np.where(live, s_idx, 0)
+    c = coef[s_idx]  # [n, K, 19]
+    dd, mm, oo = d[:, None, :], mom[:, None, :], o[:, None, :]
+    det = (dd * c[..., 0:3]).sum(-1)
+    u_d = (dd * c[..., 3:6]).sum(-1) + (mm * c[..., 6:9]).sum(-1)
+    v_d = (dd * c[..., 9:12]).sum(-1) + (mm * c[..., 12:15]).sum(-1)
+    t_d = (oo * c[..., 15:18]).sum(-1) + c[..., 18]
+    sgn = np.sign(det)
+    da, us, vs, ts = det * sgn, u_d * sgn, v_d * sgn, t_d * sgn
+    alive = det > 1e-12 if cull else da > 1e-12
+    valid = (live & alive & (us >= 0) & (vs >= 0) & (us + vs <= da)
+             & (ts > tmin[:, None] * da) & (ts < tmax[:, None] * da))
+    return valid, ts, da, us, vs, s_idx, live
+
+
+class WalkState:
+    """The host models' per-ray results and counts: the running best hit
+    (closest) or the occlusion flags, the pair tests made and the slots
+    touched. coef: the COEF_LANES of mt_rows [S, 19]; tmin, tmax [R]."""
+
+    def __init__(self, coef, tmin, tmax, cull: bool, occlusion: bool):
+        r = len(tmin)
+        self.coef, self.tmin, self.tmax = coef, tmin, tmax
+        self.cull, self.occlusion = cull, occlusion
+        self.best = np.full(r, BIG, np.float32)
+        self.slot = np.full(r, -1, np.int64)
+        self.u = np.zeros(r, np.float32)
+        self.v = np.zeros(r, np.float32)
+        self.occ = np.zeros(r, bool)
+        self.pairs = 0
+        self.slots_seen: list[np.ndarray] = []
+
+    def far(self, idx):
+        """The far end of rays idx's windows: t_max, or the best hit so far."""
+        return self.tmax[idx] if self.occlusion else np.minimum(self.tmax[idx], self.best[idx])
+
+    def leaf(self, idx, start, count, o, d, mom) -> np.ndarray:
+        """Test rays idx (their o, d, mom = o x d [n, 3]) against one leaf
+        each (start, count [n]): the lowest row wins within a leaf, a strict
+        '<' across leaves; an occluded ray tests no more. Returns the rays
+        whose best hit this leaf improved."""
+        if self.occlusion:
+            keep = ~self.occ[idx]
+            idx, start, count, o, d, mom = (x[keep] for x in (idx, start, count, o, d, mom))
+            if len(idx) == 0:
+                return idx
+        valid, ts, da, us, vs, s_idx, live = leaf_terms(
+            self.coef, start, count, o, d, mom, self.tmin[idx], self.tmax[idx], self.cull)
+        self.slots_seen.append(s_idx[live])
+        if self.occlusion:
+            first = np.where(valid.any(1), valid.argmax(1) + 1, count)
+            self.pairs += int(first.sum())
+            self.occ[idx] |= valid.any(1)
+            return idx[:0]
+        self.pairs += int(count.sum())
+        tp = np.where(valid, ts / np.maximum(da, np.float32(1e-12)), np.float32(BIG))
+        row = tp.argmin(1)
+        ct = tp[np.arange(len(idx)), row]
+        better = ct < self.best[idx]
+        w = idx[better]
+        rb = row[better]
+        inv_det = 1.0 / np.maximum(da[better, rb], np.float32(1e-12))
+        self.best[w] = ct[better]
+        self.slot[w] = start[better] + rb
+        self.u[w] = us[better, rb] * inv_det
+        self.v[w] = vs[better, rb] * inv_det
+        return w
+
+    def result(self) -> dict:
+        if self.occlusion:
+            return {"occluded": self.occ}
+        hit = self.best < BIG
+        return {"hit": hit, "t": np.where(hit, self.best, -1.0).astype(np.float32),
+                "slot": self.slot, "u": np.where(hit, self.u, 0), "v": np.where(hit, self.v, 0)}
+
+
+def fat_visit(idx, nodes, o, inv, state: WalkState, stack, sp, cap: int, leaf_fn) -> np.ndarray:
+    """One fat-node visit of rays idx (o, inv [R, 3]; stack [R, cap], sp
+    [R]), as the kernels make it: pop, test both children's boxes against
+    (t_min, state.far], call leaf_fn(idx, ptr, meta, side) for each hit
+    leaf, child 0 first, then push the hit internal children far first (an
+    occluded ray pushes nothing). Returns the visited node ids."""
+    node = stack[idx, sp[idx] - 1]
+    sp[idx] -= 1
+    f = nodes[node]
+    tf_base = state.far(idx)
+    hits, enters = [], []
+    for c in range(2):
+        t0 = (f[:, 6 * c : 6 * c + 3] - o[idx]) * inv[idx]
+        t1 = (f[:, 6 * c + 3 : 6 * c + 6] - o[idx]) * inv[idx]
+        tn = np.maximum(state.tmin[idx], np.minimum(t0, t1).max(1))
+        hits.append(tn <= np.minimum(tf_base, np.maximum(t0, t1).min(1)))
+        enters.append(tn)
+    ptr = [f[:, 12].astype(np.int64), f[:, 14].astype(np.int64)]
+    meta = [f[:, 13], f[:, 15]]
+    for c in range(2):
+        lf = hits[c] & (meta[c] > 0.5)
+        if lf.any():
+            leaf_fn(idx[lf], ptr[c][lf], meta[c][lf].astype(np.int64), c)
+    int0 = hits[0] & (meta[0] < -0.5)
+    int1 = hits[1] & (meta[1] < -0.5)
+    if state.occlusion:
+        keep = ~state.occ[idx]
+        int0 &= keep
+        int1 &= keep
+    both = int0 & int1
+    if (sp[idx] + both + (int0 | int1) > cap).any():
+        raise RuntimeError(f"a ray's stack overflowed its {cap} entries")
+    near0 = enters[0] <= enters[1]
+    first = np.where(both, np.where(near0, ptr[1], ptr[0]), np.where(int0, ptr[0], ptr[1]))
+    push1 = int0 | int1
+    stack[idx[push1], sp[idx[push1]]] = first[push1]
+    sp[idx[push1]] += 1
+    w = idx[both]
+    stack[w, sp[w]] = np.where(near0, ptr[0], ptr[1])[both]
+    sp[w] += 1
+    return node
+
+
+def distinct(ids: list[np.ndarray]) -> np.ndarray:
+    return np.unique(np.concatenate(ids)) if ids else np.zeros(0, int)
+
+
 def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
                    occlusion: bool = False) -> tuple[dict, dict]:
     """Host model of the kernels' per-ray walk over ``bvhf_rows``/``mt_rows``
@@ -384,119 +522,33 @@ def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = Fa
     "slot_ids"} (the last two: the distinct fat nodes and leaf slots
     touched)."""
     nodes = np.asarray(bvh["bvhf_rows"], np.float32)
-    coef = np.asarray(bvh["mt_rows"], np.float32)[:, list(COEF_LANES)]
     o = np.asarray(origins, np.float32)
     d = np.asarray(directions, np.float32)
     r = len(o)
-    tmin = np.broadcast_to(np.asarray(t_min, np.float32), (r,)).copy()
-    tmax = np.broadcast_to(np.asarray(t_max, np.float32), (r,)).copy()
+    state = WalkState(np.asarray(bvh["mt_rows"], np.float32)[:, list(COEF_LANES)],
+                      np.broadcast_to(np.asarray(t_min, np.float32), (r,)).copy(),
+                      np.broadcast_to(np.asarray(t_max, np.float32), (r,)).copy(),
+                      cull, occlusion)
     inv = (1.0 / np.where(np.abs(d) > 1e-12, d, np.float32(1e-12))).astype(np.float32)
     mom = np.cross(o, d).astype(np.float32)
-    best = np.full(r, BIG, np.float32)
-    slot = np.full(r, -1, np.int64)
-    bu = np.zeros(r, np.float32)
-    bv = np.zeros(r, np.float32)
-    occ = np.zeros(r, bool)
     stack = np.zeros((r, MAX_STACK), np.int64)
     sp = np.ones(r, np.int64)
     if occlusion:
         sp[np.abs(d).sum(axis=1) < 1e-30] = 0
-    visits = pairs = 0
+    visits = 0
     seen_nodes: list[np.ndarray] = []
-    seen_slots: list[np.ndarray] = []
 
-    def leaf(idx, start, count):
-        nonlocal pairs
-        rows_k = np.arange(int(count.max()))
-        s_idx = start[:, None] + rows_k[None, :]
-        live = rows_k[None, :] < count[:, None]
-        s_idx = np.where(live, s_idx, 0)
-        c = coef[s_idx]  # [n, 32, 19]
-        dd, mm, oo = d[idx][:, None, :], mom[idx][:, None, :], o[idx][:, None, :]
-        det = (dd * c[..., 0:3]).sum(-1)
-        u_d = (dd * c[..., 3:6]).sum(-1) + (mm * c[..., 6:9]).sum(-1)
-        v_d = (dd * c[..., 9:12]).sum(-1) + (mm * c[..., 12:15]).sum(-1)
-        t_d = (oo * c[..., 15:18]).sum(-1) + c[..., 18]
-        sgn = np.sign(det)
-        da, us, vs, ts = det * sgn, u_d * sgn, v_d * sgn, t_d * sgn
-        alive = det > 1e-12 if cull else da > 1e-12
-        valid = (live & alive & (us >= 0) & (vs >= 0) & (us + vs <= da)
-                 & (ts > tmin[idx, None] * da) & (ts < tmax[idx, None] * da))
-        seen_slots.append(s_idx[live])
-        if occlusion:
-            first = np.where(valid.any(1), valid.argmax(1) + 1, count)
-            pairs += int(first.sum())
-            occ[idx] |= valid.any(1)
-            return
-        pairs += int(count.sum())
-        tp = np.where(valid, ts / np.maximum(da, np.float32(1e-12)), np.float32(BIG))
-        row = tp.argmin(1)
-        ct = tp[np.arange(len(idx)), row]
-        better = ct < best[idx]
-        w = idx[better]
-        rb = row[better]
-        inv_det = 1.0 / np.maximum(da[better, rb], np.float32(1e-12))
-        best[w] = ct[better]
-        slot[w] = start[better] + rb
-        bu[w] = us[better, rb] * inv_det
-        bv[w] = vs[better, rb] * inv_det
+    def leaf(idx, start, count, _side):
+        state.leaf(idx, start, count, o[idx], d[idx], mom[idx])
 
     with np.errstate(all="ignore"):  # slab tests overflow to +-inf on purpose
         while True:
-            idx = np.nonzero(sp > 0)[0]
-            if occlusion:
-                idx = idx[~occ[idx]]
+            idx = np.nonzero((sp > 0) & ~state.occ)[0]
             if len(idx) == 0:
                 break
-            node = stack[idx, sp[idx] - 1]
-            sp[idx] -= 1
             visits += len(idx)
-            seen_nodes.append(node)
-            f = nodes[node]
-            tf_base = tmax[idx] if occlusion else np.minimum(tmax[idx], best[idx])
-            hits, enters = [], []
-            for c in range(2):
-                t0 = (f[:, 6 * c : 6 * c + 3] - o[idx]) * inv[idx]
-                t1 = (f[:, 6 * c + 3 : 6 * c + 6] - o[idx]) * inv[idx]
-                tn = np.maximum(tmin[idx], np.minimum(t0, t1).max(1))
-                tf = np.minimum(tf_base, np.maximum(t0, t1).min(1))
-                hits.append(tn <= tf)
-                enters.append(tn)
-            ptr = [f[:, 12].astype(np.int64), f[:, 14].astype(np.int64)]
-            meta = [f[:, 13], f[:, 15]]
-            for c in range(2):
-                lf = hits[c] & (meta[c] > 0.5)
-                if occlusion:
-                    lf &= ~occ[idx]
-                if lf.any():
-                    leaf(idx[lf], ptr[c][lf], meta[c][lf].astype(np.int64))
-            int0 = hits[0] & (meta[0] < -0.5)
-            int1 = hits[1] & (meta[1] < -0.5)
-            if occlusion:
-                keep = ~occ[idx]
-                int0 &= keep
-                int1 &= keep
-            both = int0 & int1
-            if (sp[idx] + both + (int0 | int1) > MAX_STACK).any():
-                raise RuntimeError(f"a ray's stack overflowed its {MAX_STACK} entries")
-            near0 = enters[0] <= enters[1]
-            first = np.where(both, np.where(near0, ptr[1], ptr[0]), np.where(int0, ptr[0], ptr[1]))
-            push1 = int0 | int1
-            stack[idx[push1], sp[idx[push1]]] = first[push1]
-            sp[idx[push1]] += 1
-            w = idx[both]
-            stack[w, sp[w]] = np.where(near0, ptr[0], ptr[1])[both]
-            sp[w] += 1
+            seen_nodes.append(fat_visit(idx, nodes, o, inv, state, stack, sp, MAX_STACK, leaf))
 
-    counts = {
-        "visits": visits,
-        "slab_tests": 2 * visits,
-        "pair_tests": pairs,
-        "node_ids": np.unique(np.concatenate(seen_nodes)) if seen_nodes else np.zeros(0, int),
-        "slot_ids": np.unique(np.concatenate(seen_slots)) if seen_slots else np.zeros(0, int),
-    }
-    if occlusion:
-        return {"occluded": occ}, counts
-    hit = best < BIG
-    return {"hit": hit, "t": np.where(hit, best, -1.0).astype(np.float32), "slot": slot,
-            "u": np.where(hit, bu, 0), "v": np.where(hit, bv, 0)}, counts
+    counts = {"visits": visits, "slab_tests": 2 * visits, "pair_tests": state.pairs,
+              "node_ids": distinct(seen_nodes), "slot_ids": distinct(state.slots_seen)}
+    return state.result(), counts

@@ -1,17 +1,22 @@
 """Carry the JAX package's lowered data across to the port.
 
-The JAX ``Scene.build()`` pytree, its options dict, its CameraParams and its
-denoise parameters, each with every leaf turned into a numpy array
-(``np.asarray``), become the port's scene dict, options dict, CameraParams
-and denoise parameters. The tests feed both packages the same inputs through
-these functions.
+The JAX ``Scene.build()`` and ``Scene.build_two_level()`` pytrees, its
+options dict, its CameraParams and its denoise parameters, each with every
+leaf turned into a numpy array (``np.asarray``), become the port's scene
+dict, options dict, CameraParams and denoise parameters. The tests feed both
+packages the same inputs through these functions. A two-level pytree's
+static ``tlas_meta`` is read by duck typing (its ``.value``), so nothing of
+the JAX package is imported here.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ..accel.tlas import TlasRefitContext
 from .scene import bvh_to_device
 
 _SCENE_ARRAYS = (
@@ -19,8 +24,8 @@ _SCENE_ARRAYS = (
     "pn", "c1", "c2", "d0",
 )
 _BVH_ARRAYS = ("bvh_nodes", "bvhf_nodes", "mt_rows")
+_OBJ_ARRAYS = ("v0", "e1", "e2", "pn", "c1", "c2", "d0", "n0", "n1", "n2")
 _UNPORTED = {
-    "tlas": "two-level scenes (ROADMAP Queue A item 13)",
     "textures": "albedo textures (ROADMAP Queue A item 12)",
 }
 
@@ -42,14 +47,47 @@ def _lights_from_numpy(lights: dict) -> dict:
     return out
 
 
+def _two_level_from_numpy(d: dict, device) -> dict:
+    """The two-level entries of a JAX ``Scene.build_two_level()`` pytree:
+    ``tlas`` with the kernel's row-major copies, ``tlas_meta`` (the JAX
+    HostStatic's value, its refit context copied into the port's) and the
+    object-space arrays. The PRIME table (``prime_*``) is dropped."""
+    tl = d["tlas"]
+    host = ("blas_nodes", "blasf_nodes")
+    out_tl = {k: _t(tl[k], "cpu" if k in host else device) for k in tl}
+    out_tl["tlasf_rows"] = _t(np.ascontiguousarray(np.asarray(tl["tlasf_nodes"]).T), device)
+    out_tl["inst_rows_t"] = _t(np.ascontiguousarray(np.asarray(tl["inst_rows"])[:16].T), device)
+    out_tl["blasf_rows"] = _t(np.ascontiguousarray(np.asarray(tl["blasf_nodes"]).T), device)
+    meta = d["tlas_meta"].value
+    ctx = meta["refit_ctx"]
+    fields = [f.name for f in dataclasses.fields(TlasRefitContext) if not f.name.startswith("_")]
+    out = {
+        "tlas": out_tl,
+        "tlas_meta": {
+            "num_instances": int(meta["num_instances"]),
+            "slot_mesh": np.asarray(meta["slot_mesh"]),
+            "mesh_tri_ranges": [tuple(int(x) for x in r) for r in meta["mesh_tri_ranges"]],
+            "refit_ctx": TlasRefitContext(**{f: getattr(ctx, f) for f in fields}),
+        },
+    }
+    for k in _OBJ_ARRAYS:
+        out[f"{k}_obj"] = _t(d[f"{k}_obj"], device, torch.float32)
+    out["mat_id_obj"] = _t(d["mat_id_obj"], device, torch.int64)
+    return out
+
+
 def scene_from_numpy(d: dict, device="cpu") -> dict:
-    """JAX scene pytree (numpy leaves) -> the port's scene dict, geometry on
+    """JAX scene pytree (numpy leaves; a flattened ``Scene.build()`` or a
+    ``Scene.build_two_level()``) -> the port's scene dict, geometry on
     ``device``."""
     for key, what in _UNPORTED.items():
         if key in d:
             raise NotImplementedError(f"scene carries {key!r}: {what} is not ported yet")
-    out = {k: _t(d[k], device, torch.float32) for k in _SCENE_ARRAYS}
-    out["mat_id"] = _t(d["mat_id"], device, torch.int64)
+    if "tlas" in d:
+        out = _two_level_from_numpy(d, device)
+    else:
+        out = {k: _t(d[k], device, torch.float32) for k in _SCENE_ARRAYS}
+        out["mat_id"] = _t(d["mat_id"], device, torch.int64)
     out["num_tris"] = int(np.asarray(d["num_tris"]))
     mats = d["materials"]
     out["materials"] = {

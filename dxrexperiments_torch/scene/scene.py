@@ -1,12 +1,13 @@
-"""Scene assembly: instances -> flattened world-space SoA + intersection
-precomputes + the BVH (``dxrexperiments_tpu.scene.scene``).
+"""Scene assembly (``dxrexperiments_tpu.scene.scene``): instances ->
+flattened world-space SoA + intersection precomputes + the BVH (``build``),
+or the two-level TLAS/BLAS scene (``build_two_level``).
 
-The numpy lowering is copied line for line, so ``mt_pack``, ``attr_pack``
-and the ``bvh`` sub-dict are bit-identical to the JAX build. ``accel``:
-'auto' attaches a BVH above BVH_THRESHOLD triangles, 'bvh' always, 'none'
-never. Not ported, and raising: the texture-env auto-route (ROADMAP Queue A
-item 9), the PRIME t_max table (``DXR_PRIME=1``, Queue A item 11) and
-two-level scenes (item 13).
+The numpy lowering is copied line for line, so ``mt_pack``, ``attr_pack``,
+the ``bvh`` sub-dict and the two-level BLAS arrays are bit-identical to the
+JAX build. ``accel``: 'auto' attaches a BVH above BVH_THRESHOLD triangles,
+'bvh' always, 'none' never. Not ported, and raising: the texture-env
+auto-route (ROADMAP Queue A item 9) and the PRIME t_max table
+(``DXR_PRIME=1``, Queue A item 11, for both builds).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import numpy as np
 import torch
 
 from ..accel import bvh as bvh_mod
+from ..accel import tlas as tlas_mod
 from ..ops.traverse import pack_for_traversal
 from . import envmap as envmap_mod
 from .lights import default_lights
@@ -266,3 +268,113 @@ class Scene:
         out["lights"] = to_device(lights, "cpu")
         out["env"] = to_device(env, "cpu")
         return out
+
+    def build_two_level(self, device: str | torch.device = "cpu") -> dict[str, Any]:
+        """Lower to the two-level TLAS/BLAS scene (``accel/tlas.py``): one
+        object-space BLAS per unique mesh (keyed by ``id(mesh)``), shared by
+        all its instances, a refittable TLAS over the instances' AABBs and
+        per-instance inverse transforms. Geometry is not flattened, so memory
+        is O(unique geometry) and animating transforms is a TLAS refit
+        (``scene/dynamic.refit_scene_instances``).
+
+        Returns ``tlas`` (tensors, see accel/tlas.py), ``tlas_meta`` (a plain
+        dict: num_instances, slot_mesh, mesh_tri_ranges, refit_ctx), the
+        concatenated object-space arrays ``v0_obj`` ... ``d0_obj``,
+        ``n0_obj`` ... ``n2_obj`` and ``mat_id_obj`` and the stacked
+        materials on ``device``, ``lights`` and ``env`` on the host and
+        ``num_tris`` (the instanced total)."""
+        if os.environ.get("DXR_PRIME", "0") == "1":
+            raise NotImplementedError(
+                "PRIME t_max seeding (DXR_PRIME=1) is not ported yet (ROADMAP Queue A item 11)"
+            )
+        device = torch.device(device)
+        materials = list(self.materials)
+        mat_offset_for_mesh: dict[int, int] = {}
+        mesh_index: dict[int, int] = {}
+        meshes_geo = []  # (v0, e1, e2) per unique mesh
+        mesh_attr = []  # (n0, n1, n2, mat_id) per unique mesh
+        inst_mesh = np.zeros((len(self.instances),), np.int64)
+        transforms = np.zeros((len(self.instances), 4, 4), np.float32)
+        overrides = np.full((len(self.instances),), -1, np.int64)
+
+        for inst_idx, inst in enumerate(self.instances):
+            mesh = inst.mesh
+            key = id(mesh)
+            if key not in mesh_index:
+                mesh_index[key] = len(meshes_geo)
+                tri = mesh.indices
+                p0 = mesh.positions[tri[:, 0]]
+                p1 = mesh.positions[tri[:, 1]]
+                p2 = mesh.positions[tri[:, 2]]
+                if mesh.materials:
+                    if key not in mat_offset_for_mesh:
+                        mat_offset_for_mesh[key] = len(materials)
+                        materials.extend(mesh.materials)
+                    mid = mesh.material_ids + mat_offset_for_mesh[key]
+                else:
+                    mid = np.clip(mesh.material_ids, 0, max(len(materials) - 1, 0))
+                meshes_geo.append((p0.astype(np.float32), (p1 - p0).astype(np.float32),
+                                   (p2 - p0).astype(np.float32)))
+                mesh_attr.append((mesh.normals[tri[:, 0]].astype(np.float32),
+                                  mesh.normals[tri[:, 1]].astype(np.float32),
+                                  mesh.normals[tri[:, 2]].astype(np.float32),
+                                  mid.astype(np.int32)))
+            inst_mesh[inst_idx] = mesh_index[key]
+            transforms[inst_idx] = inst.transform
+            if inst.material_override is not None:
+                overrides[inst_idx] = inst.material_override
+
+        if not materials:
+            materials = [Material()]
+        if not meshes_geo:
+            raise ValueError("two-level build requires at least one instance")
+
+        tl, ctx = tlas_mod.build_two_level(meshes_geo, inst_mesh, transforms, overrides,
+                                           leaf_size=BVH_LEAF_SIZE, device=device)
+
+        # concatenated object-space attribute and plain-version arrays
+        v0 = np.concatenate([g[0] for g in meshes_geo])
+        e1 = np.concatenate([g[1] for g in meshes_geo])
+        e2 = np.concatenate([g[2] for g in meshes_geo])
+        pn = np.cross(e1, e2)
+        c1 = np.cross(v0, e2)
+        c2 = np.cross(v0, e1)
+        d0 = np.sum(v0 * pn, axis=-1)
+        obj = {"v0": v0, "e1": e1, "e2": e2, "pn": pn, "c1": c1, "c2": c2, "d0": d0}
+        for k in range(3):
+            obj[f"n{k}"] = np.concatenate([a[k] for a in mesh_attr])
+        ranges = []
+        base = 0
+        for g in meshes_geo:
+            ranges.append((base, base + len(g[0])))
+            base += len(g[0])
+
+        lights = self.lights if self.lights is not None else default_lights()
+        env = (
+            self.environment
+            if self.environment is not None
+            else envmap_mod.constant_env((0.0, 0.0, 0.0))
+        )
+        out = {
+            "tlas": tl,
+            "tlas_meta": {
+                "num_instances": ctx.num_instances,
+                "slot_mesh": inst_mesh[ctx.inst_order].astype(np.int32),
+                "mesh_tri_ranges": ranges,
+                "refit_ctx": ctx,
+            },
+            **{f"{k}_obj": torch.as_tensor(v.astype(np.float32)).to(device)
+               for k, v in obj.items()},
+            "mat_id_obj": torch.as_tensor(
+                np.concatenate([a[3] for a in mesh_attr]).astype(np.int64)).to(device),
+            "materials": stack_materials(materials, device),
+            "lights": to_device(lights, "cpu"),
+            "env": to_device(env, "cpu"),
+            "num_tris": int(sum(len(meshes_geo[int(m)][0]) for m in inst_mesh)),
+        }
+        return out
+
+
+def scene_device(scene: dict) -> torch.device:
+    """The device a scene dict's geometry lives on (flattened or two-level)."""
+    return scene["materials"]["albedo"].device

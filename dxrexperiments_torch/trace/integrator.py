@@ -20,9 +20,13 @@ This module is the plain version of the CUDA megakernels
 (``ops/fused_sample.py``, ``ops/fused_traverse.py``). On a BVH scene each
 trace goes through ``ops/traverse.py``: with impl='cuda' the fat-node walk
 kernel (B4a), one launch per trace stage, with impl='torch' its plain
-version, the brute-force sweep over the same triangles. Brute-force scenes
-have no CUDA trace kernel yet (B3). Ambient occlusion, refraction and
-two-level scenes wait for later ROADMAP Queue A items and raise.
+version, the brute-force sweep over the same triangles. On a two-level
+(TLAS/BLAS) scene each trace goes through ``ops/traverse2.py`` the same way:
+kernel B6a, or its plain version, which tests every instance's triangles in
+object space; the hit attributes come from the object-space normals, the
+instance's normal matrix and its material override. Brute-force scenes
+have no CUDA trace kernel yet (B3). Ambient occlusion and refraction wait
+for ROADMAP Queue A item 10 and raise.
 """
 
 from __future__ import annotations
@@ -31,13 +35,14 @@ import math
 
 import torch
 
+from ..accel import tlas as tlas_mod
 from ..core import rng
 from ..core import vecmath as vm
 from ..core.camera import primary_ray_grid
-from ..ops import intersect, traverse
+from ..ops import intersect, traverse, traverse2
 from ..scene.envmap import sample_environment
 from ..scene.lights import normalize_lights
-from ..scene.scene import to_device
+from ..scene.scene import scene_device, to_device
 from . import sampling
 
 RAY_EPSILON = intersect.RAY_EPSILON
@@ -76,7 +81,7 @@ def resolve_impl(impl: str, device) -> str:
 
 def _check_scene(scene: dict, impl: str) -> None:
     if "tlas" in scene:
-        raise NotImplementedError("two-level scenes are not ported yet (ROADMAP Queue A item 13)")
+        return
     if "bvh" in scene:
         if "bvhf_nodes" not in scene["bvh"]:
             raise NotImplementedError(
@@ -93,6 +98,12 @@ def _check_scene(scene: dict, impl: str) -> None:
 def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
     """Closest hit + hit attributes. Returns (hit, position, normal, mat)."""
     _check_scene(scene, impl)
+    if "tlas" in scene:
+        fn = (traverse2.traverse2_fat_closest if impl == "cuda"
+              else tlas_mod.two_level_closest_reference)
+        hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
+        position, normal, mat = _interpolate_hit_two_level(scene, hits, origins, directions)
+        return hits["hit"], position, normal, mat
     if "bvh" in scene:
         fn = (traverse.traverse_fat_closest if impl == "cuda"
               else traverse.traverse_fat_closest_reference)
@@ -107,6 +118,9 @@ def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
 
 def _trace_any(scene, origins, directions, t_min, t_max, impl: str):
     _check_scene(scene, impl)
+    if "tlas" in scene:
+        fn = traverse2.traverse2_fat_any if impl == "cuda" else tlas_mod.two_level_any_reference
+        return fn(scene, origins, directions, t_min, t_max)
     if "bvh" not in scene:
         return intersect.intersect_any(scene, origins, directions, t_min, t_max)
     fn = traverse.traverse_fat_any if impl == "cuda" else traverse.traverse_fat_any_reference
@@ -127,6 +141,29 @@ def _interpolate_hit(scene: dict, hits: dict, origins, directions):
     normal = vm.normalize(n)
     position = origins + hits["t"][..., None] * directions
     mid = scene["mat_id"][tri]
+    mat = {k: val[mid] for k, val in scene["materials"].items()}
+    return position, normal, mat
+
+
+def _interpolate_hit_two_level(scene: dict, hits: dict, origins, directions):
+    """Two-level hits: the barycentric normal of the object-space vertex
+    normals, taken to world space by the instance's normal matrix
+    (inv(R)^T) and normalised; the material id of the mesh unless the
+    instance overrides it."""
+    tri = torch.clamp(hits["tri"], min=0)
+    inst = torch.clamp(hits["inst"], min=0)
+    u, v = hits["u"], hits["v"]
+    w = 1.0 - u - v
+    n_obj = (
+        w[..., None] * scene["n0_obj"][tri]
+        + u[..., None] * scene["n1_obj"][tri]
+        + v[..., None] * scene["n2_obj"][tri]
+    )
+    nm = scene["tlas"]["inst_nm"][inst]  # [N, 3, 3]
+    normal = vm.normalize((nm * n_obj[:, None, :]).sum(-1))
+    position = origins + hits["t"][..., None] * directions
+    override = scene["tlas"]["inst_mat_override"][inst].to(torch.int64)
+    mid = torch.where(override >= 0, override, scene["mat_id_obj"][tri])
     mat = {k: val[mid] for k, val in scene["materials"].items()}
     return position, normal, mat
 
@@ -410,7 +447,7 @@ def render_sample(
     """Render one sample for the full [H, W] grid on the scene's device.
     Returns {"color": [H, W, 3]} (progressive) or the realtime AOVs, each
     [H, W, 3] except "roughness" [H, W]."""
-    camera = to_device(camera, scene["mt_pack"].device)
+    camera = to_device(camera, scene_device(scene))
     origins, directions = primary_ray_grid(camera, width, height, jitter_scale)
     o = origins.reshape(-1, 3)
     d = directions.reshape(-1, 3)

@@ -9,10 +9,11 @@ card and not JAX:
 Gates: the image gate of benchmarks/kernel_parity.py on the per-sample mean
 (at most 1% of pixels differ by more than 1e-3, median |difference| <= 1e-5)
 for both megakernels (B1, B5) in both modes, each realtime AOV on its own:
-knife-edge pairs may flip under FMA contraction. The fat-node walk (B4a):
-the hit gates of benchmarks/kernel_parity.py (relative t on lanes that hit
-the same triangle: median <= 1e-6, p99.9 <= 1e-4, max <= 0.05; lanes whose
-hit differs <= 1%; occlusion disagreement <= 1%). The bilateral kernel: max
+knife-edge pairs may flip under FMA contraction. The fat-node walks (B4a,
+and B6a on two-level scenes): the hit gates of benchmarks/kernel_parity.py
+(relative t on lanes that hit the same triangle: median <= 1e-6, p99.9 <=
+1e-4, max <= 0.05; lanes whose hit differs <= 1%; occlusion disagreement <=
+1%); B6a's instance equal on the lanes that hit the same triangle. The bilateral kernel: max
 |difference| <= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums
 differing only by rounding.
 """
@@ -28,8 +29,9 @@ from dxrexperiments_torch.core.camera import camera_params, stack_cameras
 from dxrexperiments_torch.models.denoise import DenoiseCompositor, denoise_composite
 from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
 from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
+from dxrexperiments_torch.accel import tlas
 from dxrexperiments_torch.core.camera import primary_ray_grid
-from dxrexperiments_torch.ops import bilateral, intersect, traverse
+from dxrexperiments_torch.ops import bilateral, intersect, traverse, traverse2
 from dxrexperiments_torch.ops import fused_sample as fs
 from dxrexperiments_torch.ops import fused_traverse as ft
 from dxrexperiments_torch.scene import Scene, envmap
@@ -387,6 +389,176 @@ def test_traverse_stack_overflow_raises(cuda_device):
     assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
 
 
+# ---- two-level scenes: kernel B6a (fat two-level walk) -----------------------
+
+
+def tf(translate=(0.0, 0.0, 0.0), yaw=0.0, scale=1.0):
+    """4x4 float32: a turn of `yaw` about y, a uniform scale, a translation."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    m[:3, :3] *= scale
+    m[:3, 3] = translate
+    return m
+
+
+FIVE_TRANSFORMS = [tf((0, 0, 0)), tf((2.5, 0.2, 0), yaw=0.7), tf((-2.5, 0, 0.5), yaw=-0.4, scale=1.4),
+                   tf((0, 0, 2.5), scale=0.8), tf((0, 1.5, -2.5), yaw=2.0)]
+
+
+def five_instance_scene(scene_cls, material_cls, box_mesh, sphere_mesh, transforms=None):
+    """tests/test_tlas.py's scene: 2 unique meshes (a box, a sphere), 5
+    instances turned, moved and scaled, each with a material override.
+    Takes either package's classes."""
+    sc = scene_cls()
+    white = sc.add_material(material_cls(albedo=(0.73, 0.73, 0.73, 1.0)))
+    red = sc.add_material(material_cls(albedo=(0.9, 0.1, 0.1, 1.0)))
+    box = box_mesh((0.0, 0.0, 0.0), (1.0, 1.0, 1.0))
+    sph = sphere_mesh((0.0, 0.0, 0.0), 0.6, lat=6, lon=8)
+    tfs = FIVE_TRANSFORMS if transforms is None else transforms
+    for mesh, t, mat in zip((box, box, sph, sph, box), tfs, (white, red, white, red, white)):
+        sc.add_model(mesh, transform=t, material=mat)
+    return sc
+
+
+def port_five():
+    from dxrexperiments_torch.scene import Material
+    from dxrexperiments_torch.scene.procedural import box_mesh, sphere_mesh
+
+    return five_instance_scene(Scene, Material, box_mesh, sphere_mesh)
+
+
+def probe_rays(n, seed, radius=8.0, spread=1.8):
+    """n rays from a sphere of `radius`, aimed at points scattered by
+    `spread` around the origin (tests/test_tlas.py's probe)."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(size=(n, 3)).astype(np.float32)
+    o = o / np.linalg.norm(o, axis=-1, keepdims=True) * radius
+    d = rng.normal(scale=spread, size=(n, 3)).astype(np.float32) - o
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+def chain_two_level(levels: int = 120, device="cpu"):
+    """A one-instance two-level scene whose BLAS is chain_scene's degenerate
+    tree: its near-first walk needs a BLAS stack as deep as `levels`."""
+    _, packed = chain_scene(levels)
+    sc = Scene()
+    pos, idx = quad([-1, -1, 5], [1, -1, 5], [1, 1, 5], [-1, 1, 5])
+    sc.add_model(Mesh(pos, None, idx[:1]))
+    scene = sc.build_two_level(device)
+    tl = dict(scene["tlas"], **{k: torch.as_tensor(packed[src]).to(device) for k, src in (
+        ("blasf_rows", "bvhf_rows"), ("mt_rows", "mt_rows"), ("slot_tri", "slot_tri"))})
+    return dict(scene, tlas=tl)
+
+
+def _two_level_setup(device, kind):
+    if kind == "five":
+        scene = port_five().build_two_level(device)
+        o, d = probe_rays(SIZE * SIZE, 0)
+    else:
+        scene = build_scene(kind)[0].build_two_level(device)
+        o, d = probe_rays(SIZE * SIZE, 1, radius=12.0, spread=3.0)
+    return scene, torch.as_tensor(o, device=device), torch.as_tensor(d, device=device)
+
+
+def _shadow_rays(o, d, hits, light):
+    pos = o + hits["t"].clamp(min=0.0)[:, None] * d
+    path = torch.tensor(light, device=o.device) - pos
+    sd = torch.where(hits["hit"][:, None], torch.nn.functional.normalize(path, dim=1), 0.0)
+    return pos, sd, (path.norm(dim=1) - 1e-4).clamp(min=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["five", "instanced:4"])
+def test_traverse2_fat_matches_plain(cuda_device, kind):
+    scene, o, d = _two_level_setup(cuda_device, kind)
+    c0, a0 = traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES
+    got = traverse2.traverse2_fat_closest(scene, o, d, 1e-4, 3.0e37)
+    want = traverse2.two_level_closest_reference(scene, o, d, 1e-4, 3.0e37)
+    pos, sd, dist = _shadow_rays(o, d, want, (2.0, 6.0, 1.5))
+    occ = traverse2.traverse2_fat_any(scene, pos, sd, 1e-4, dist)
+    occ_want = traverse2.two_level_any_reference(scene, pos, sd, 1e-4, dist)
+    torch.cuda.synchronize()
+    traverse.check_errors()
+    assert (traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES) == (c0 + 1, a0 + 1)
+    assert float(got["hit"].float().mean()) > 0.1
+    hit_gate(got, want)
+    same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
+    assert torch.equal(got["inst"][same], want["inst"][same])
+    assert 0.0 < float(occ_want.float().mean()) < 1.0
+    assert float((occ != occ_want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_traverse2_single_instance(cuda_device):
+    from dxrexperiments_torch.scene.procedural import sphere_mesh
+
+    sc = Scene()
+    sc.add_model(sphere_mesh((0.0, 0.0, 0.0), 1.0), transform=tf((0.3, 0, 0), yaw=0.4, scale=1.2))
+    scene = sc.build_two_level(cuda_device)
+    assert scene["tlas"]["tlasf_rows"][0, 12:].tolist() == [0.0, 1.0, 0.0, 0.0]
+    o, d = (torch.as_tensor(x, device=cuda_device) for x in probe_rays(SIZE * SIZE, 2, spread=0.8))
+    got = traverse2.traverse2_fat_closest(scene, o, d)
+    want = traverse2.two_level_closest_reference(scene, o, d)
+    occ = traverse2.traverse2_fat_any(scene, o, d, 1e-4, 7.5)
+    occ_want = traverse2.two_level_any_reference(scene, o, d, 1e-4, 7.5)
+    torch.cuda.synchronize()
+    traverse.check_errors()
+    hit_gate(got, want)
+    assert bool((got["inst"][got["hit"]] == 0).all())
+    assert float((occ != occ_want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_traverse2_stack_overflow_raises(cuda_device):
+    o = torch.zeros((4, 3), device=cuda_device)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda_device)
+    scene = chain_two_level(120, cuda_device)
+    for trace in (traverse2.traverse2_fat_closest, traverse2.traverse2_fat_any):
+        with pytest.raises(RuntimeError, match="stack overflowed"):
+            trace(scene, o, d, 0.0, 1e38)
+            traverse.check_errors()
+    hits = traverse2.traverse2_fat_closest(chain_two_level(40, cuda_device), o, d, 0.0, 1e38)
+    traverse.check_errors()
+    assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
+
+
+@pytest.mark.cuda
+def test_traverse2_zero_direction_shadow_rays(cuda_device):
+    scene, o, d = _two_level_setup(cuda_device, "five")
+    d = d.clone()
+    d[::3] = 0.0
+    occ = traverse2.traverse2_fat_any(scene, o, d, 1e-4, 3.0e37)
+    want = traverse2.two_level_any_reference(scene, o, d, 1e-4, 3.0e37)
+    torch.cuda.synchronize()
+    assert not bool(occ[::3].any()) and not bool(want[::3].any())
+    assert float((occ != want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_two_level_pipeline_launch_counts(cuda_device):
+    sc, cam = build_scene("instanced:2")
+    cam.set_aspect(SIZE, SIZE)
+    pipe = ProgressiveRaytracingPipeline(SIZE, SIZE, seed=1, samples_per_frame=2,
+                                         device=cuda_device)
+    pipe.set_camera(cam)
+    pipe.set_scene_data(sc.build_two_level(cuda_device))
+    counts0 = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES,
+               traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES)
+    base_tf = np.stack([inst.transform for inst in sc.instances])
+    for f in range(2):
+        pipe.set_instance_transforms(np.einsum("ij,njk->nik", tf(yaw=0.05 * f), base_tf))
+        pipe.update(elapsed_time=0.0, elapsed_frames=f)
+        pipe.render()
+    torch.cuda.synchronize()
+    counts = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES,
+              traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES)
+    assert tuple(b - a for a, b in zip(counts0, counts)) == (0, 0, 0, 0, 8, 8)
+    img = pipe.get_output()
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_reach_plain_versions(cuda_device, monkeypatch):
     def refuse(*args, **kwargs):
@@ -396,6 +568,9 @@ def test_cuda_tensors_never_reach_plain_versions(cuda_device, monkeypatch):
                       (traverse, "traverse_fat_any_reference"),
                       (ft, "fused_traverse_progressive_sum_reference"),
                       (ft, "fused_traverse_realtime_outputs_reference"),
+                      (traverse2, "two_level_closest_reference"),
+                      (traverse2, "two_level_any_reference"),
+                      (tlas, "two_level_closest_reference"), (tlas, "two_level_any_reference"),
                       (intersect, "intersect_closest"), (intersect, "intersect_any")):
         monkeypatch.setattr(mod, name, refuse)
     scene, cams = _bvh_setup(cuda_device)
@@ -404,4 +579,8 @@ def test_cuda_tensors_never_reach_plain_versions(cuda_device, monkeypatch):
     ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
     ft.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
     render_sample(scene, options, {k: v[0] for k, v in cams.items()}, SIZE, SIZE, impl="cuda")
+    two = build_scene(BVH_SCENE)[0].build_two_level(cuda_device)
+    for mode in ("progressive", "realtime"):
+        render_sample(two, options, {k: v[0] for k, v in cams.items()}, SIZE, SIZE, mode=mode,
+                      impl="cuda")
     torch.cuda.synchronize()

@@ -86,8 +86,8 @@ def test_scene_from_numpy_round_trip():
 
 
 def test_unported_scene_keys_raise():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        scene_from_numpy(dict(jax_scene(), tlas={}))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        scene_from_numpy(dict(jax_scene(), textures={}))
 
 
 def test_primary_ray_grid_matches():
