@@ -90,12 +90,41 @@ Phases, each of which raises on failure:
      on its own inputs with the host model's walk counts (ops/traverse2.
      fat_walk2_numpy) and its bound, the host ms per refit and per
      progressive dispatch, and B6a beside its plain versions at
-     'instanced:4' two-level, 128^2.
+     'instanced:4' two-level, 128^2;
+ 15. the brute-force trace kernels (B3, csrc/intersect_brute.cu) vs their
+     plain versions at 128^2 on Cornell-glossy (40 padded triangles),
+     'instanced:1' (962 -> 1,024) and 'instanced:2' (3,842 -> 4,096):
+     closest on primary rays (culled) and on bounce rays (not culled, the
+     inactive lanes' window empty), on the hit gate with the fused
+     attributes (normal within 1e-5 on 99.9% of rays, the position within
+     the hit gate's bounds, material rows equal); any on shadow rays toward
+     a point light, a third at zero direction, with per-ray t_max;
+ 16. the brute-force wavefront main path at full width, 'instanced:2' (the
+     largest procedural scene below the BVH threshold, nothing cut) at
+     512^2: ProgressiveRaytracingPipeline for 4 dispatches of S = 4 (must
+     count 32 closest and 32 any B3 launches and no B1, B4a, B5 or B6a
+     launch); the first sample through the wavefront route, against the
+     plain version on 4,096 sampled pixels, and B3 against the plain
+     versions on 4,096 sampled rays of each of its four launches; realtime
+     + denoise at 1920x1080, 2 frames (4 + 4 B3 and 4 B2 launches); Cornell
+     with --ao-only (1 closest and 4 any per sample) and cornell-glass with
+     --refraction (a 3N-ray bounce launch) at 512^2, and Cornell with a
+     2 directional + 2 point + 1 area rig at 128^2, each a 4-sample
+     dispatch against the plain version on 4,096 sampled pixels; the
+     headless CLI for 'instanced:2', --ao-only and cornell-glass
+     --refraction;
+ 17. B3 times: each of the four launches of one 'instanced:2' wavefront
+     sample on its own inputs (kernel alone and through the wrapper), the
+     plain versions at 128^2, the pair tests for the bound (every pair of a
+     live ray for closest; up to the first blocker for any, counted on
+     4,096 sampled rays), and the host ms per progressive dispatch,
+     enqueued and synchronised.
 
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
 operations; NVIDIA's H100 SXM data sheet) and its bytes over 3.35 TB/s.
-The brute-force kernel's pair tests are counted on its plain run; the BVH
+The brute-force megakernel's pair tests are counted on its plain run, B3's
+from its launches' rays as phase 17 says; the BVH
 kernels' slab and pair tests by a host model of their per-ray walk
 (ops/traverse.fat_walk_numpy) over 4,096 sampled pixels of the main path
 (B5) or 4,096 sampled rays of each launch (B4a), scaled to the frame or
@@ -155,6 +184,10 @@ OPS_INST = 45  # of one instance entry of B6a: o' = A o + b, d' = A d, o' x d', 
 TWO_LEVEL_PARITY = ("five", "instanced:4")  # B6a's parity scenes (tests/test_torch_cuda.py)
 TWO_LEVEL_FRAMES = 4  # animated frames of the two-level main path
 TWO_LEVEL_RT_FRAMES = 2  # realtime + denoise frames on the two-level scene
+BRUTE_PARITY = ("cornell-glossy", "instanced:1", "instanced:2")  # B3's parity scenes
+BRUTE_MAIN_SCENE = "instanced:2"  # 3,842 triangles: the largest below the BVH threshold
+BRUTE_RT_FRAMES = 2  # realtime + denoise frames on the brute-force scene
+RIG_SIZE = 128  # the 2 directional + 2 point + 1 area rig's image
 BILATERAL_RADII = (1, 7, 12, 25)
 AOVS = ("direct", "indirect_specular", "albedo", "color", "roughness")
 OPTION_CASES = [
@@ -233,6 +266,33 @@ def hit_gate(name, got, want, torch):
           f"{g['tie_break_frac']:.5f} -> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise RuntimeError(f"kernel vs plain hit gate failed for {name}")
+    return g
+
+
+def attr_gate(name, got, want, torch):
+    """B3's fused attributes against the plain version's on rays that hit
+    the same triangle: the normal within 1e-5 on 99.9% of rays, the position
+    over max(1, t) within the hit gate's bounds (it is o + t d), the
+    material rows and ids equal. Returns the largest differences."""
+    from dxrexperiments_torch.ops.intersect_kernel import MATERIAL_KEYS
+
+    same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
+    scale = want["t"][same].abs().clamp(min=1.0)[:, None]
+    nrm = (got["normal"] - want["normal"])[same].abs().amax(dim=1).double()
+    pos = ((got["position"] - want["position"])[same].abs() / scale).amax(dim=1).double()
+    mats = all(torch.equal(got[k][same], want[k][same]) for k in (*MATERIAL_KEYS, "mat_id"))
+    g = {"normal_p999": float(torch.quantile(nrm, 0.999)), "normal_max": float(nrm.max()),
+         "position_median": float(pos.median()), "position_p999": float(torch.quantile(pos, 0.999)),
+         "position_max": float(pos.max())}
+    ok = (g["normal_p999"] <= 1e-5 and g["position_median"] <= HIT_MEDIAN
+          and g["position_p999"] <= HIT_P999 and max(g["normal_max"], g["position_max"]) <= HIT_MAX
+          and mats)
+    print(f"parity {name} attributes: normal |d| p99.9 {g['normal_p999']:.2e} max "
+          f"{g['normal_max']:.2e}, position |d| / max(1, t) median {g['position_median']:.2e} "
+          f"p99.9 {g['position_p999']:.2e} max {g['position_max']:.2e}, material rows equal "
+          f"{mats} -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"B3 attribute gate failed for {name}")
     return g
 
 
@@ -368,6 +428,7 @@ class TraceHook:
 
     B4A = ("traverse_fat_closest", "traverse_fat_any")
     TWO_LEVEL = ("traverse2_fat_closest", "traverse2_fat_any")
+    BRUTE = ("trace_closest", "trace_any")  # B3, module ops.intersect_kernel
 
     def __init__(self, tv, on_trace, names=B4A):
         self.tv, self.on_trace, self.names = tv, on_trace, names
@@ -471,15 +532,16 @@ def rows_of(x, idx):
 def kernel_ms(prepared, reps: int, torch) -> float:
     """CUDA-event ms of a kernel alone: the launch of a wrapper's
     prepare_launch, without its packing, allocation and error-flag read
-    (the flag is read once after the runs)."""
+    (the flag, where the kernel has one, is read once after the runs)."""
     from dxrexperiments_torch.ops.traverse import raise_on_error
 
-    launch, _, err = prepared
+    launch, _, *err = prepared
     rc = launch()
     if rc != 0:
         raise RuntimeError(f"kernel launch failed: cudaError {rc}")
     ms = time_ms(launch, reps, torch)
-    raise_on_error(err, "timed kernel")
+    if err:
+        raise_on_error(err[0], "timed kernel")
     return ms
 
 
@@ -517,6 +579,7 @@ def main() -> int:
     from dxrexperiments_torch.ops import fused_sample as fs
     from dxrexperiments_torch.ops import fused_traverse as ft
     from dxrexperiments_torch.ops import intersect
+    from dxrexperiments_torch.ops import intersect_kernel as ik
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
     from dxrexperiments_torch.scene import envmap
@@ -533,7 +596,7 @@ def main() -> int:
     def reset_counts():
         fs.LAUNCHES = fs.REALTIME_LAUNCHES = bl.LAUNCHES = 0
         tv.CLOSEST_LAUNCHES = tv.ANY_LAUNCHES = ft.LAUNCHES = ft.REALTIME_LAUNCHES = 0
-        tv2.CLOSEST_LAUNCHES = tv2.ANY_LAUNCHES = 0
+        tv2.CLOSEST_LAUNCHES = tv2.ANY_LAUNCHES = ik.CLOSEST_LAUNCHES = ik.ANY_LAUNCHES = 0
 
     # ---- 1. the card --------------------------------------------------------
     dev = setup_device("cuda")
@@ -544,14 +607,15 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source and g++ for the SAH builder, together -----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=6) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         futs = [pool.submit(f) for f in (fs._library, bl._library, tv._library, ft._library,
-                                         tv2._library, native.get_lib)]
+                                         tv2._library, ik._library, native.get_lib)]
         sah_lib = [f.result() for f in futs][-1]
     load_s = time.perf_counter() - t0
     print(f"build csrc/sah_bvh.cpp with g++: "
           f"{'built' if sah_lib is not None else 'no g++: the Morton build serves'}", flush=True)
-    for name in ("fused_sample", "bilateral", "traverse_fat", "fused_traverse", "traverse2_fat"):
+    for name in ("fused_sample", "bilateral", "traverse_fat", "fused_traverse", "traverse2_fat",
+                 "intersect_brute"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build {name}.cu: nvcc {info['seconds']:.2f}s (all builds together "
               f"{load_s:.2f}s) -> {os.path.relpath(info['path'], ROOT)}", flush=True)
@@ -838,14 +902,14 @@ def main() -> int:
             bvh_scenes[env] = (sc.build(dev), cam)
         return bvh_scenes[env]
 
-    def shadow_rays(o, d, hits):
-        """Shadow rays from the hit points toward a point light at SHADOW_LIGHT
+    def shadow_rays(o, d, hits, light=SHADOW_LIGHT):
+        """Shadow rays from the hit points toward a point light at `light`
         (zero directions on misses, as the integrator sends them). The scenes'
         own point light sits in the floor's plane, where every floor point's
         shadow ray grazes the floor: its visibility is a knife edge there (and
         its cosine 0, so no image shows it)."""
         pos = o + hits["t"].clamp(min=0.0)[:, None] * d
-        path = torch.tensor(SHADOW_LIGHT, device=dev) - pos
+        path = torch.tensor(light, device=dev) - pos
         sd = torch.where(hits["hit"][:, None], torch.nn.functional.normalize(path, dim=1), 0.0)
         return pos, sd, (path.norm(dim=1) - RAY_EPSILON).clamp(min=RAY_EPSILON)
 
@@ -1504,6 +1568,312 @@ def main() -> int:
               f"kernel {small2[occl][0]:.4f} ms, plain {small2[occl][1]:.3f} ms per trace "
               f"[{card}]", flush=True)
 
+    # ---- 15. B3 vs plain at 128^2 on the brute-force parity scenes ---------------
+    from dxrexperiments_torch.scene.lights import area_light, directional_light, point_light
+
+    b3_err = {False: 0.0, True: 0.0}
+    b3_attr = {"normal_max": 0.0, "position_max": 0.0}
+    for name in BRUTE_PARITY:
+        sc_b, cam_b = build_scene(name)
+        cam_b.set_aspect(P, P)
+        scene_b = sc_b.build(dev)
+        if "bvh" in scene_b:
+            raise RuntimeError(f"{name} built a BVH: B3 takes brute-force scenes")
+        label = f"B3 {name} ({int(scene_b['mt_pack'].shape[1])} padded triangles) {P}^2"
+        cam_p = {k: v[0] for k, v in cameras(cam_b, P, P, 1, 31).items()}
+        o_p, d_p = (x.reshape(-1, 3).to(dev) for x in
+                    primary_ray_grid(cam_p, P, P, fs.JITTER_SCALE))
+        got = ik.trace_closest(scene_b, o_p, d_p, 0.0, RAY_MAX_T, cull_backface=True)
+        want = ik.trace_closest_reference(scene_b, o_p, d_p, 0.0, RAY_MAX_T, cull_backface=True)
+        torch.cuda.synchronize()
+        b3_err[False] = max(b3_err[False], hit_gate(f"{label} primary closest (culled)", got,
+                                                    want, torch)["max_abs_t"])
+        a = attr_gate(f"{label} primary closest", got, want, torch)
+        # bounce rays about the normal; a miss's window is empty, as the
+        # integrator sends its inactive lanes
+        wobble = torch.nn.functional.normalize(
+            torch.as_tensor(rng.normal(size=(P * P, 3)).astype(np.float32), device=dev), dim=1)
+        bd = torch.nn.functional.normalize(want["normal"] + wobble, dim=1)
+        tmax_b = torch.where(want["hit"], RAY_MAX_T, 0.0)
+        got_b = ik.trace_closest(scene_b, want["position"], bd, RAY_EPSILON, tmax_b)
+        want_b = ik.trace_closest_reference(scene_b, want["position"], bd, RAY_EPSILON, tmax_b)
+        torch.cuda.synchronize()
+        if bool(got_b["hit"][~want["hit"]].any()):
+            raise RuntimeError("B3 hit on a ray with an empty window")
+        b3_err[False] = max(b3_err[False], hit_gate(f"{label} bounce closest", got_b, want_b,
+                                                    torch)["max_abs_t"])
+        a_b = attr_gate(f"{label} bounce closest", got_b, want_b, torch)
+        for k in b3_attr:
+            b3_attr[k] = max(b3_attr[k], a[k], a_b[k])
+        light = (0.0, 1.8, 0.0) if name.startswith("cornell") else SHADOW_LIGHT
+        pos_s, sd_s, tmax_s = shadow_rays(o_p, d_p, want, light)
+        sd_s[::3] = 0.0  # zero directions: never occluded
+        occ_got = ik.trace_any(scene_b, pos_s, sd_s, RAY_EPSILON, tmax_s)
+        occ_want = ik.trace_any_reference(scene_b, pos_s, sd_s, RAY_EPSILON, tmax_s)
+        torch.cuda.synchronize()
+        b3_err[True] = max(b3_err[True], occlusion_gate(
+            f"{label} any, shadow rays toward {light}", occ_got, occ_want))
+        if bool(occ_got[::3].any()):
+            raise RuntimeError("B3 occluded a zero-direction shadow ray")
+    # the plain versions' shape for phase 17: instanced:2 at 128^2 (the last scene)
+    b3_small_args = {False: (scene_b, o_p, d_p, 0.0, RAY_MAX_T, True),
+                     True: (scene_b, pos_s, sd_s, RAY_EPSILON, tmax_s, False)}
+
+    # ---- 16. the brute-force wavefront main path: instanced:2 at 512^2 ------------
+    sc_br, cam_br = build_scene(BRUTE_MAIN_SCENE)
+    cam_br.set_aspect(M, M)
+    pipe_b = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
+    pipe_b.max_iterations = BVH_S * BVH_DISPATCHES
+    pipe_b.set_camera(cam_br)
+    pipe_b.set_scene(sc_br)
+    scene_br = pipe_b.scene_data
+    t_count = int(scene_br["num_tris"])
+    if "bvh" in scene_br or t_count > 4096:
+        raise RuntimeError(f"{BRUTE_MAIN_SCENE} did not build brute force")
+    first_br = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BVH_DISPATCHES):
+        pipe_b.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first_br is None:
+            first_br = pipe_b._camera_params
+        pipe_b.render()
+    torch.cuda.synchronize()
+    brute_prog_s = time.perf_counter() - t0
+    b3_counts = {False: ik.CLOSEST_LAUNCHES, True: ik.ANY_LAUNCHES}
+    others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, ft.LAUNCHES,
+              tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES)
+    img = pipe_b.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    want_n = BVH_DISPATCHES * BVH_S * 2
+    print(f"brute-force main path: {BVH_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
+          f"{BRUTE_MAIN_SCENE} ({t_count} triangles, {int(scene_br['mt_pack'].shape[1])} padded; "
+          f"{pipe_b.accum_count} spp) in {brute_prog_s:.3f}s host clock, B3 closest launches "
+          f"{b3_counts[False]}, any launches {b3_counts[True]}, B1 / B4a closest / B4a any / B5 / "
+          f"B6a closest / B6a any launches {others}, image finite {finite}, mean {mean:.5f} "
+          f"[{card}]", flush=True)
+    if (b3_counts[False], b3_counts[True]) != (want_n, want_n) or any(others):
+        raise RuntimeError(f"expected {want_n} closest and {want_n} any B3 launches and no other "
+                           f"kernel's, got {b3_counts} and {others}")
+    if not finite or not mean > 0.0:
+        raise RuntimeError("brute-force main path image is not finite with a positive mean")
+
+    # the first dispatch's first sample through the wavefront route, its
+    # launches' inputs kept
+    opts_br = pipe_b.options
+    cam1b = {k: v[0] for k, v in first_br.items()}
+    traces_b = []
+
+    def record_b(o, d, t_min, t_max, cull, occlusion):
+        traces_b.append((o, d, t_min, t_max, cull, occlusion))
+
+    with TraceHook(ik, record_b, TraceHook.BRUTE):
+        wave_b = render_sample(scene_br, opts_br, cam1b, M, M, impl="cuda")["color"]
+    torch.cuda.synchronize()
+    if [t[5] for t in traces_b] != [False, True, False, True]:
+        raise RuntimeError(f"expected a closest, an any, a closest and an any B3 trace, got "
+                           f"{[t[5] for t in traces_b]}")
+    o_b, d_b = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam1b, M, M, fs.JITTER_SCALE))
+    pick_b = torch.as_tensor(rng.choice(M * M, COUNT_PIXELS, replace=False), device=dev)
+    seeds_b = trng.pixel_seeds(M, M, cam1b["frame_count"], device=dev).reshape(-1)
+    plain_b = trace_rays(scene_br, opts_br, o_b[pick_b], d_b[pick_b], seeds_b[pick_b],
+                         impl="torch")["color"][None]
+    torch.cuda.synchronize()
+    b3_image = image_gate(f"the B3 wavefront route vs plain {BRUTE_MAIN_SCENE} {COUNT_PIXELS} "
+                          f"sampled pixels of {M}^2, 1 sample", wave_b.reshape(-1, 3)[pick_b][None],
+                          plain_b, 1)
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces_b):
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        args = (scene_br, o[sub], d[sub], t_min, rows_of(t_max, sub))
+        label = f"B3 {batch} {BRUTE_MAIN_SCENE} {COUNT_PIXELS} sampled rays of {len(o)}"
+        if occlusion:
+            got, want = ik.trace_any(*args), ik.trace_any_reference(*args)
+            torch.cuda.synchronize()
+            b3_err[True] = max(b3_err[True], occlusion_gate(label, got, want))
+        else:
+            got = ik.trace_closest(*args, cull_backface=cull)
+            want = ik.trace_closest_reference(*args, cull_backface=cull)
+            torch.cuda.synchronize()
+            b3_err[False] = max(b3_err[False], hit_gate(label, got, want, torch)["max_abs_t"])
+            a = attr_gate(label, got, want, torch)
+            for k in b3_attr:
+                b3_attr[k] = max(b3_attr[k], a[k])
+
+    # realtime + denoise at 1080p on the brute-force scene
+    cam_br.set_aspect(RT_W, RT_H)
+    rt = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
+    rt.set_camera(cam_br)
+    rt.set_scene(sc_br)
+    denoiser = DenoiseCompositor(device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BRUTE_RT_FRAMES):
+        rt.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        direct, spec = rt.render()
+        display = denoiser.dispatch(direct, spec)
+    torch.cuda.synchronize()
+    brute_rt_s = time.perf_counter() - t0
+    rt_counts = (ik.CLOSEST_LAUNCHES, ik.ANY_LAUNCHES, bl.LAUNCHES, fs.REALTIME_LAUNCHES,
+                 ft.REALTIME_LAUNCHES)
+    finite = all(bool(x.isfinite().all()) for x in (direct, spec, display))
+    mean = float(display.mean())
+    print(f"brute-force realtime + denoise: {BRUTE_RT_FRAMES} frames at {RT_W}x{RT_H} on "
+          f"{BRUTE_MAIN_SCENE} in {brute_rt_s:.3f}s host clock, B3 closest / any / bilateral / "
+          f"B1 realtime / B5 realtime launches {rt_counts}, AOVs and display finite {finite}, "
+          f"display mean {mean:.5f} [{card}]", flush=True)
+    n = BRUTE_RT_FRAMES * 2
+    if rt_counts != (n, n, n, 0, 0) or not finite or not mean > 0.0:
+        raise RuntimeError("the brute-force realtime + denoise frames failed")
+    del rt, direct, spec, display
+    cam_br.set_aspect(M, M)
+
+    # the AO view, the refraction bounce and a rig with an area light: one
+    # 4-sample dispatch each, its first sample against the plain version
+    rig = {"dir": [directional_light((0.0, -0.6, -0.8), (0.9, 0.9, 0.9, 0.6)),
+                   directional_light((0.5, -0.7, 0.2), (0.3, 0.5, 0.9, 0.4))],
+           "point": [point_light((0.0, 1.8, 0.0), (1.0, 0.9, 0.7, 6.0)),
+                     point_light((-0.6, 1.2, 0.5), (0.4, 0.9, 0.5, 3.0))],
+           "area": [area_light((-0.3, 1.95, -0.3), (0.6, 0.0, 0.0), (0.0, 0.0, 0.6),
+                               (1.0, 0.9, 0.8, 8.0))]}  # tests/test_torch_cuda.area_rig
+    side = {}
+    for label, name, size, kw, lights, want_counts in (
+            ("ao_only", "cornell", M, {"ao_only": True}, None, (BVH_S, 4 * BVH_S)),
+            ("refraction", "cornell-glass", M, {"refraction": True}, None, (2 * BVH_S, 2 * BVH_S)),
+            ("2dir_2point_1area", "cornell", RIG_SIZE, {}, rig, (2 * BVH_S, 2 * BVH_S))):
+        sc_c, cam_c = build_scene(name)
+        if lights is not None:
+            sc_c.lights = lights
+        cam_c.set_aspect(size, size)
+        pipe_c = ProgressiveRaytracingPipeline(size, size, seed=0, samples_per_frame=BVH_S,
+                                               device=dev)
+        pipe_c.ao_only = kw.get("ao_only", False)
+        pipe_c.refraction = kw.get("refraction", False)
+        pipe_c.set_camera(cam_c)
+        pipe_c.set_scene(sc_c)
+        traces_c = []
+
+        def record_c(o, d, t_min, t_max, cull, occlusion):
+            traces_c.append((len(o), occlusion))
+
+        torch.cuda.synchronize()
+        reset_counts()
+        with TraceHook(ik, record_c, TraceHook.BRUTE):
+            pipe_c.update(elapsed_time=0.0, elapsed_frames=0)
+            pipe_c.render()
+        torch.cuda.synchronize()
+        counts = (ik.CLOSEST_LAUNCHES, ik.ANY_LAUNCHES)
+        others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, ft.LAUNCHES)
+        img = pipe_c.get_output()
+        finite, mean = bool(img.isfinite().all()), float(img.mean())
+        cam_c1 = {k: v[0] for k, v in pipe_c._camera_params.items()}
+        o_c, d_c = (x.reshape(-1, 3).to(dev) for x in
+                    primary_ray_grid(cam_c1, size, size, fs.JITTER_SCALE))
+        pick_c = torch.as_tensor(rng.choice(size * size, COUNT_PIXELS, replace=False), device=dev)
+        seeds_c = trng.pixel_seeds(size, size, cam_c1["frame_count"], device=dev).reshape(-1)
+        got = render_sample(pipe_c.scene_data, pipe_c.options, cam_c1, size, size, impl="cuda",
+                            **kw)["color"].reshape(-1, 3)[pick_c][None]
+        plain = trace_rays(pipe_c.scene_data, pipe_c.options, o_c[pick_c], d_c[pick_c],
+                           seeds_c[pick_c], impl="torch", **kw)["color"][None]
+        torch.cuda.synchronize()
+        print(f"brute-force {label} ({name}, {size}^2, {BVH_S} samples): B3 closest / any launches "
+              f"{counts}, B1 / B4a / B5 launches {others}, traced batches {traces_c}, image finite "
+              f"{finite}, mean {mean:.5f}", flush=True)
+        if counts != want_counts or any(others) or not finite or not mean > 0.0:
+            raise RuntimeError(f"the brute-force {label} dispatch failed: launches {counts}, "
+                               f"expected {want_counts}")
+        if label == "refraction" and traces_c[2] != (3 * size * size, False):
+            raise RuntimeError(f"expected a {3 * size * size}-ray bounce launch, got {traces_c[2]}")
+        side[label] = image_gate(f"B3 {label} {name} vs plain, {COUNT_PIXELS} sampled pixels of "
+                                 f"{size}^2, 1 sample", got, plain, 1)
+        del pipe_c
+
+    headless(["--scene", BRUTE_MAIN_SCENE, "--size", f"{M}x{M}", "--spp", "4"],
+             f"{BRUTE_MAIN_SCENE} {M}^2 4 spp")
+    headless(["--ao-only", "--size", f"{M}x{M}", "--spp", "4"], f"cornell --ao-only {M}^2 4 spp")
+    headless(["--scene", "cornell-glass", "--refraction", "--size", f"{M}x{M}", "--spp", "4"],
+             f"cornell-glass --refraction {M}^2 4 spp")
+
+    # ---- 17. B3 times --------------------------------------------------------------
+    def first_blocker_pairs(o, d, t_min, t_max):
+        """Pair tests of occlusion rays that stop at their first blocker in
+        triangle order (all t_count for a ray that none blocks; none for a
+        ray that cannot hit), from the plain version's terms."""
+        tris = {k: scene_br[k][:t_count] for k in ("pn", "c1", "c2", "e1", "e2", "d0")}
+        mom = torch.linalg.cross(o, d, dim=1)
+        tmin = intersect._ray_window(t_min, len(o), o)
+        tmax = intersect._ray_window(t_max, len(o), o)
+        valid = intersect._valid_mask(*intersect._pair_terms(o, d, mom, tris), tmin, tmax, False)
+        first = torch.where(valid.any(1), valid.to(torch.uint8).argmax(1) + 1, t_count)
+        live = (tmax > tmin) & (d.abs().sum(1) > 0)
+        return int(torch.where(live, first, 0).sum())
+
+    b3 = {False: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []},
+          True: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []}}
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces_b):
+        ms = kernel_ms(ik.prepare_launch(scene_br, o, d, t_min, t_max, cull, occlusion), 10, torch)
+        if occlusion:
+            wrap = time_ms(lambda: ik.trace_any(scene_br, o, d, t_min, t_max), 10, torch)
+            sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+            pairs = (first_blocker_pairs(o[sub], d[sub], t_min, rows_of(t_max, sub))
+                     * len(o) / COUNT_PIXELS)
+        else:
+            wrap = time_ms(lambda: ik.trace_closest(scene_br, o, d, t_min, t_max,
+                                                    cull_backface=cull), 10, torch)
+            tmax_all = torch.as_tensor(t_max, device=dev).expand(len(o))
+            pairs = int(((tmax_all > t_min) & (d.abs().sum(1) > 0)).sum()) * t_count
+        per_ray_window = 4 if hasattr(t_max, "dim") and t_max.dim() else 0
+        nbytes = (len(o) * (24 + per_ray_window + (1 if occlusion else 22 * 4 + 3 * 8))
+                  + t_count * (19 + (0 if occlusion else 24)) * 4)
+        bnd = bound(pairs * OPS_PAIR, nbytes)
+        acc = b3[occlusion]
+        acc["ms"] += ms
+        acc["wrapper_ms"] += wrap
+        acc["ops"] += pairs * OPS_PAIR
+        acc["bytes"] += nbytes
+        acc["per_launch"].append({"batch": batch, "rays": len(o), "ms": ms, "wrapper_ms": wrap,
+                                  "pair_tests": pairs, "bound_ms": bnd[0], "bound_by": bnd[1]})
+        print(f"time B3 {batch} on {BRUTE_MAIN_SCENE} {M}^2 wavefront sample: {len(o)} rays, "
+              f"kernel {ms:.4f} ms, wrapper {wrap:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"{pairs / len(o):.1f} pair tests per ray, {pairs / ms / 1e6:.2f} G pair tests/s "
+              f"[{card}]", flush=True)
+    b3_bound = {k: bound(b3[k]["ops"], b3[k]["bytes"]) for k in (False, True)}
+    b3_small = {}
+    for occl, (sc_s, o_s, d_s, tmin_s, tmax_s2, cull_s) in b3_small_args.items():
+        if occl:
+            plain = lambda: ik.trace_any_reference(sc_s, o_s, d_s, tmin_s, tmax_s2)  # noqa: E731
+        else:
+            plain = lambda: ik.trace_closest_reference(sc_s, o_s, d_s, tmin_s, tmax_s2,  # noqa: E731
+                                                       cull_s)
+        b3_small[occl] = (kernel_ms(ik.prepare_launch(sc_s, o_s, d_s, tmin_s, tmax_s2, cull_s,
+                                                      occl), 10, torch),
+                          time_ms(plain, 2, torch))
+        print(f"time B3 {'any' if occl else 'closest'} at {BRUTE_MAIN_SCENE} {P}^2: kernel "
+              f"{b3_small[occl][0]:.4f} ms, plain {b3_small[occl][1]:.3f} ms per trace [{card}]",
+              flush=True)
+
+    # the host's share: a progressive dispatch enqueued, and synchronised
+    n_disp = 10
+    pipe_b.max_iterations = 2**30  # every timed dispatch renders
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(n_disp):
+        pipe_b.update(elapsed_time=0.0, elapsed_frames=100 + f)
+        pipe_b.render()
+    b3_enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    b3_dispatch_s = time.perf_counter() - t0
+    pipe_b.get_output()
+    print(f"time brute-force host (host clock, {n_disp} dispatches of {BVH_S} samples, wavefront "
+          f"route): {b3_enqueue_s / n_disp * 1e3:.3f} ms enqueue, "
+          f"{b3_dispatch_s / n_disp * 1e3:.3f} ms synchronised at the end; B3 alone "
+          f"{(b3[False]['ms'] + b3[True]['ms']) * BVH_S:.3f} ms per dispatch; the main path's "
+          f"{brute_prog_s / BVH_DISPATCHES * 1e3:.3f} ms per dispatch with the first [{card}]",
+          flush=True)
+    del pipe_b, traces_b
+    torch.cuda.empty_cache()
+
     kernels = [
         {
             "name": "fused_progressive_sum",
@@ -1607,6 +1977,31 @@ def main() -> int:
             "per_launch": b6a[occl]["per_launch"],
             **({} if occl else {"max_abs_diff_vs_flattened_b5": two_b5_gate["max_abs_diff"],
                                 "vs_flattened_after_animation": anim_gate}),
+        })
+    for occl, name, line in ((False, "trace_closest", 130), (True, "trace_any", 207)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dxrexperiments_torch/csrc/intersect_brute.cu",
+            "replaces": f"dxrexperiments_tpu/ops/intersect_pallas.py:{line}",
+            "launches": b3_counts[occl],
+            "max_abs_err": b3_err[occl],
+            "ms": b3[occl]["ms"],
+            "plain_ms": b3_small[occl][1],
+            "bound_ms": b3_bound[occl][0],
+            "bound_by": b3_bound[occl][1],
+            "library_ms": None,
+            "shape": f"{BRUTE_MAIN_SCENE} {M}^2, one wavefront sample: its two "
+                     f"{'shadow' if occl else 'closest'} launches together",
+            "wrapper_ms": b3[occl]["wrapper_ms"],
+            "plain_shape": f"{BRUTE_MAIN_SCENE} {P}^2, one {'shadow' if occl else 'primary'} trace",
+            "ms_at_plain_shape": b3_small[occl][0],
+            "per_launch": b3[occl]["per_launch"],
+            **({"max_abs_err_is": "occlusion disagreement fraction"} if occl else
+               {"max_abs_err_is": "max |t - plain t| on rays that hit the same triangle",
+                "attributes": b3_attr, "image_vs_plain": b3_image, "side_paths": side,
+                "dispatch_ms_enqueued": b3_enqueue_s / n_disp * 1e3,
+                "dispatch_ms_synchronised": b3_dispatch_s / n_disp * 1e3}),
         })
     tv.check_errors()
     print(json.dumps({"kernels": kernels}))

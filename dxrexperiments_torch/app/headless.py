@@ -1,10 +1,12 @@
 """Headless CLI renderer of the port (``dxrexperiments_tpu.app.headless``,
 progressive and realtime pipelines).
 
-Builds a scene (the Cornell box, a random triangle soup ``soup:N`` or a
-K x K grid of sphere instances ``instanced:K``, the last two through a BVH)
-and writes a PNG. Progressive: accumulates --spp samples (one per frame) and
-prints spp/s and primary rays/s. Realtime: renders one 1-spp frame,
+Builds a scene (the Cornell box, with a glass pane as ``cornell-glass``, a
+random triangle soup ``soup:N`` or a K x K grid of sphere instances
+``instanced:K``; above 4,096 triangles through a BVH) and writes a PNG.
+Progressive: accumulates --spp samples (one per frame) and prints spp/s and
+primary rays/s; --ao-only renders the AO view, --refraction adds the
+transmission bounce through glass. Realtime: renders one 1-spp frame,
 optionally through the DenoiseCompositor.
 
 Usage:
@@ -16,6 +18,8 @@ Usage:
         --size 512x512 --spp 16 --device cuda -o out.png
     python -m dxrexperiments_torch.app.headless --scene instanced:32 \
         --accel two-level --animate-instances --size 512x512 --spp 16 -o out.png
+    python -m dxrexperiments_torch.app.headless --scene cornell-glass --refraction \
+        --size 512x512 --spp 16 -o out.png
 
 --accel two-level renders the scene as one BLAS per unique mesh under a
 TLAS over its instances; --animate-instances turns the instances each frame
@@ -39,12 +43,13 @@ from ..models.realtime import RealtimeRaytracingPipeline
 from ..ops.traverse import check_errors
 from ..scene import Material, Scene, cornell_box, envmap
 from ..scene.lights import default_lights, directional_light, point_light
+from ..scene.materials import MATERIAL_GLASS
 from ..scene.mesh import Mesh
 from ..scene.procedural import random_triangle_soup, sphere_mesh
 from ..utils.image import write_png
 from ..utils.stats import FrameStats
 
-SCENES = ("cornell", "cornell-glossy", "soup:N", "instanced:K")
+SCENES = ("cornell", "cornell-glossy", "cornell-glass", "soup:N", "instanced:K")
 AOV_OPTIONS = {
     "albedo": "show_gbuffer_albedo_only",
     "direct": "show_direct_lighting_only",
@@ -56,8 +61,10 @@ AOV_OPTIONS = {
 
 def build_scene(name: str) -> tuple[Scene, Camera]:
     """The JAX CLI's procedural scenes: the Cornell box (glossy tall box for
-    'cornell-glossy') with the 1 directional + 1 point rig, a black constant
-    env and the default framing; 'soup:N', N random triangles; 'instanced:K',
+    'cornell-glossy'; 'cornell-glass' adds a glass pane in front of the
+    boxes, for --refraction) with the 1 directional + 1 point rig, a black
+    constant env and the default framing; 'soup:N', N random triangles;
+    'instanced:K',
     a K x K grid of 960-triangle spheres on a floor with alternating glossy
     and white materials (BASELINE config 5 at K = 32, 983,042 triangles,
     flattened). Soups and instances take the default rig and the gradient
@@ -77,9 +84,19 @@ def build_scene(name: str) -> tuple[Scene, Camera]:
             "mesh files: ROADMAP Queue A item 15)"
         )
     sc = Scene()
-    mesh, materials = cornell_box(glossy_tall_box=(name == "cornell-glossy"))
+    mesh, materials = cornell_box(glossy_tall_box=(name in ("cornell-glossy", "cornell-glass")))
     for m in materials:
         sc.add_material(m)
+    if name == "cornell-glass":
+        # a thin glass pane: one interface per ray, which the depth-1 bounce
+        # of --refraction renders (a solid volume would need an exit bounce)
+        glass = sc.add_material(Material(albedo=(0.02, 0.02, 0.02, 1.0),
+                                         specular=(0.04, 0.04, 0.04, 1.0), reflectivity=1.0,
+                                         roughness=0.0, ior=1.5, type=MATERIAL_GLASS))
+        pane = np.array([[-0.85, 0.15, 0.55], [-0.85, 1.55, 0.55], [0.15, 1.55, 0.55],
+                         [0.15, 0.15, 0.55]], np.float32)
+        sc.add_model(Mesh(pane, None, np.array([[0, 2, 1], [0, 3, 2]], np.int32)),
+                     material=glass)
     sc.add_model(mesh)
     sc.lights = {
         "dir": directional_light((0.0, -0.6, -0.8), (0.9, 0.9, 0.9, 0.6)),
@@ -161,6 +178,11 @@ def main(argv=None) -> int:
                     help="realtime: temporal accumulation blend factor (e.g. 0.2); the "
                          "single frame this CLI renders has no history, so the image is "
                          "the spatial-only one until --frames-in-flight exists")
+    ap.add_argument("--ao-only", action="store_true",
+                    help="progressive: the ambient-occlusion view (4 AO rays per sample)")
+    ap.add_argument("--refraction", action="store_true",
+                    help="progressive: trace a transmission bounce through glass materials "
+                         "(pair with --scene cornell-glass)")
     ap.add_argument("--aov", default=None, choices=sorted(AOV_OPTIONS),
                     help="debug AOV view (progressive pipeline)")
     ap.add_argument("--seed", type=int, default=0)
@@ -179,6 +201,8 @@ def main(argv=None) -> int:
     if (args.save_state or args.resume) and args.pipeline != "progressive":
         ap.error("--save-state/--resume checkpoint the progressive accumulation state; "
                  "use --pipeline progressive")
+    if (args.ao_only or args.refraction) and args.pipeline != "progressive":
+        ap.error("--ao-only and --refraction drive the progressive pipeline")
     if args.animate_instances:
         args.accel = "two-level"
     if args.accel == "two-level" and args.pipeline != "progressive":
@@ -226,6 +250,8 @@ def _render_progressive(args, scene, camera, width, height) -> np.ndarray:
     stats = FrameStats(width, height)
     pipe = ProgressiveRaytracingPipeline(width, height, seed=args.seed, device=args.device)
     pipe.max_iterations = args.spp
+    pipe.ao_only = args.ao_only
+    pipe.refraction = args.refraction
     if args.aov:
         pipe.options[AOV_OPTIONS[args.aov]] = True
     pipe.set_camera(camera)

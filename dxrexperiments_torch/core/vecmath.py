@@ -44,6 +44,22 @@ def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
     return i - 2.0 * dot(i, n)[..., None] * n
 
 
+def refract(i: torch.Tensor, n: torch.Tensor, ior: torch.Tensor):
+    """Refraction of i through the surface with normal n and index of
+    refraction ior, entering or leaving by the sign of dot(i, n). Returns
+    (r, ok); total internal reflection gives ok False and r 0."""
+    neg_ndotv = dot(i, n)
+    entering = neg_ndotv <= 0.0
+    eta = torch.where(entering, 1.0 / ior, ior)
+    nn = torch.where(entering[..., None], n, -n)
+    ndotv = torch.where(entering, neg_ndotv, -neg_ndotv)
+    k = 1.0 - eta * eta * (1.0 - ndotv * ndotv)
+    ok = k >= 0.0
+    k_safe = torch.clamp(k, min=0.0)
+    r = normalize(i * eta[..., None] - (eta * ndotv + torch.sqrt(k_safe))[..., None] * nn)
+    return torch.where(ok[..., None], r, torch.zeros_like(r)), ok
+
+
 def get_perpendicular(u: torch.Tensor) -> torch.Tensor:
     """Branchless perpendicular: cross with the smallest-magnitude axis."""
     a = torch.abs(u)

@@ -15,14 +15,18 @@ from ..ops.fused_traverse import supports_fused_traverse
 from ..scene.scene import Scene, scene_device
 
 
-def select_route(scene: dict, mode: str, ao_only: bool = False) -> str:
+def select_route(scene: dict, mode: str, ao_only: bool = False,
+                 refraction: bool = False) -> str:
     """The kernel route of a scene, as the JAX pipelines choose it:
     'fused' (the brute-force megakernel B1) when ``supports_fused``, else
     'fused_traverse' (the fused-traversal megakernel B5) when
     ``supports_fused_traverse``, else 'wavefront' (the integrator, whose
-    traces run kernel B4a for a BVH or B6a for a two-level scene on a CUDA
-    device). Both gates reject a two-level scene (``tlas``), so it always
-    takes the wavefront route."""
+    traces run kernel B3 for a brute-force scene, B4a for a BVH or B6a for a
+    two-level scene on a CUDA device). The AO view and the refraction bounce
+    exist only in the integrator, and both gates reject a two-level scene
+    (``tlas``), so these always take the wavefront route."""
+    if refraction:
+        return "wavefront"
     if supports_fused(scene, mode, ao_only):
         return "fused"
     if supports_fused_traverse(scene, mode, ao_only):

@@ -32,6 +32,8 @@ def make_progressive_step(
     height: int,
     samples_per_step: int = 1,
     light_mc: bool = False,
+    ao_only: bool = False,
+    refraction: bool = False,
 ):
     """Return ``step(accum, options, cameras, lights, env, max_iterations,
     geometry=None)``. ``cameras`` is CameraParams stacked on a leading [S]
@@ -43,30 +45,28 @@ def make_progressive_step(
     The route is ``select_route``'s. On a CUDA device each step is one
     launch of ``fused_sample.fused_progressive_sum`` (B1) or of
     ``fused_traverse.fused_traverse_progressive_sum`` (B5), or, on the
-    wavefront route of a BVH or two-level scene, S samples of the integrator
-    with two closest and two any-hit launches each of kernel B4a or B6a; a
-    brute-force scene outside B1's scope has no CUDA route yet and raises
-    (kernel B3, ROADMAP Queue A item 10). On the CPU each step is the plain
-    version, the wavefront integrator summed over the S samples.
+    wavefront route, S samples of the integrator with two closest and two
+    any-hit launches each (AO: one closest and four any) of kernel B3
+    (brute-force scenes), B4a (BVH) or B6a (two-level). On the CPU each step
+    is the plain version, the wavefront integrator summed over the S
+    samples.
 
     light_mc: passed on to ``fused_sample.fused_progressive_sum`` (see
-    there); the other routes ignore it, as in JAX."""
+    there); the other routes ignore it, as in JAX. ao_only: the AO view.
+    refraction: the transmission bounce through glass (the wavefront route
+    only, as in JAX)."""
     s_count = int(samples_per_step)
     env_kind = int(scene["env"]["kind"])
-    route = select_route(scene, "progressive")
+    route = select_route(scene, "progressive", ao_only, refraction)
     if route == "fused":
         sample_sum = functools.partial(fused_sample.fused_progressive_sum, light_mc=light_mc)
     elif route == "fused_traverse":
         sample_sum = fused_traverse.fused_traverse_progressive_sum
     else:
-        impl = resolve_impl("auto", scene_device(scene))
-        if impl == "cuda" and "bvh" not in scene and "tlas" not in scene:
-            raise NotImplementedError(
-                "this scene needs the wavefront route, which has no CUDA kernel for "
-                "brute-force scenes yet (kernel B3, ROADMAP Queue A item 10)"
-            )
-        sample_sum = functools.partial(progressive_sample_sum,
-                                       jitter_scale=fused_sample.JITTER_SCALE, impl=impl)
+        sample_sum = functools.partial(
+            progressive_sample_sum, jitter_scale=fused_sample.JITTER_SCALE,
+            impl=resolve_impl("auto", scene_device(scene)), ao_only=ao_only,
+            refraction=refraction)
 
     def step(accum, options, cameras, lights, env, max_iterations, geometry=None):
         base_count = float(cameras["accum_count"][0])
@@ -96,6 +96,8 @@ class ProgressiveRaytracingPipeline(RaytracingPipeline):
         self.max_iterations = 1024
         self.frame_accumulation_enabled = True
         self.animation_paused = True  # reference default
+        self.ao_only = False  # the AO view
+        self.refraction = False  # the opt-in transmission bounce through glass
         self.rng = np.random.default_rng(wall_seed() if seed is None else seed)
         self.accum_count = 0
         self.last_vp: np.ndarray | None = None
@@ -158,11 +160,13 @@ class ProgressiveRaytracingPipeline(RaytracingPipeline):
         # only when the static config or what the route depends on changes;
         # lights, env and a refit's new arrays rebuild nothing.
         scene = self.scene_data
-        key = (self.width, self.height, self.samples_per_frame, select_route(scene, "progressive"),
+        key = (self.width, self.height, self.samples_per_frame, self.ao_only, self.refraction,
+               select_route(scene, "progressive", self.ao_only, self.refraction),
                int(scene["env"]["kind"]), scene_device(scene), tuple(sorted(scene)))
         if self._step_key != key:
             self._step = make_progressive_step(
-                scene, self.width, self.height, samples_per_step=self.samples_per_frame
+                scene, self.width, self.height, samples_per_step=self.samples_per_frame,
+                ao_only=self.ao_only, refraction=self.refraction,
             )
             self._step_key = key
         return self._step

@@ -72,7 +72,7 @@ def _check_supported(scene: dict, env_kind: int, mode: str) -> None:
         raise NotImplementedError(
             "scene outside the megakernel's scope (more than 256 triangles, "
             "textures, a BVH, or a rig other than 1 directional + 1 point "
-            "light): the wavefront route waits for ROADMAP Queue A item 10"
+            "light): such scenes take the wavefront route (trace.integrator, kernel B3)"
         )
 
 

@@ -40,7 +40,8 @@ REALTIME_LAUNCHES = 0
 
 def supports_fused_traverse(scene: dict, mode: str, ao_only: bool) -> bool:
     """Whether the fused-traversal kernel's gate takes this scene and mode
-    (``fused_traverse_pallas.supports_fused_traverse``)."""
+    (``fused_traverse_pallas.supports_fused_traverse``). A rig with one area
+    light that the gate takes raises: B5's area mode waits for item 12."""
     if mode not in ("progressive", "realtime") or ao_only:
         return False
     if "tlas" in scene or "bvh" not in scene:
@@ -54,8 +55,16 @@ def supports_fused_traverse(scene: dict, mode: str, ao_only: bool) -> bool:
     if int(scene["materials"]["albedo"].shape[0]) > MP_MAX_MATERIALS:
         return False
     if "textures" in scene:
-        return mode == "progressive"
-    return int(scene["env"]["kind"]) in (0, 1, 2, 3)
+        takes = mode == "progressive"
+    else:
+        takes = int(scene["env"]["kind"]) in (0, 1, 2, 3)
+    if takes and a_n:
+        # the JAX package sends this scene to B5's area mode; rerouting it
+        # to the wavefront would render another estimator
+        raise NotImplementedError(
+            "B5's area-light mode is not ported yet (ROADMAP Queue A item 12)"
+        )
+    return takes
 
 
 def _check_supported(scene: dict, env_kind: int, mode: str) -> None:

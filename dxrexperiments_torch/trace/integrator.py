@@ -1,6 +1,6 @@
-"""Wavefront integrator, the plain PyTorch twin of
-``dxrexperiments_tpu.trace.integrator`` (brute-force route, progressive and
-realtime modes).
+"""Wavefront integrator, the PyTorch twin of
+``dxrexperiments_tpu.trace.integrator`` (progressive and realtime modes, the
+AO view and the opt-in refraction bounce).
 
 The reference's ray recursion is bounded, so each sample is a fixed tree,
 traced over dense [N]-ray batches:
@@ -17,16 +17,20 @@ draws alias depth-0 draws, and seeds advance only where the reference
 consumes draws inside branches (debug==2 light pick, noIndirectDiffuse).
 
 This module is the plain version of the CUDA megakernels
-(``ops/fused_sample.py``, ``ops/fused_traverse.py``). On a BVH scene each
-trace goes through ``ops/traverse.py``: with impl='cuda' the fat-node walk
-kernel (B4a), one launch per trace stage, with impl='torch' its plain
-version, the brute-force sweep over the same triangles. On a two-level
-(TLAS/BLAS) scene each trace goes through ``ops/traverse2.py`` the same way:
-kernel B6a, or its plain version, which tests every instance's triangles in
-object space; the hit attributes come from the object-space normals, the
-instance's normal matrix and its material override. Brute-force scenes
-have no CUDA trace kernel yet (B3). Ambient occlusion and refraction wait
-for ROADMAP Queue A item 10 and raise.
+(``ops/fused_sample.py``, ``ops/fused_traverse.py``), and the route of every
+scene and option they do not take. Each trace stage is one launch of a
+trace kernel with impl='cuda', or its plain version with impl='torch': on a
+brute-force scene ``ops/intersect_kernel.py`` (kernel B3, the hit
+attributes fused in the kernel); on a BVH scene ``ops/traverse.py`` (kernel
+B4a; its plain version is the brute-force sweep over the same triangles);
+on a two-level (TLAS/BLAS) scene ``ops/traverse2.py`` (kernel B6a; its plain
+version tests every instance's triangles in object space, and the hit
+attributes come from the object-space normals, the instance's normal matrix
+and its material override).
+
+Lights: any number of directional, point and area lights; every shadow ray
+of a shading point, the area lights' AREA_LIGHT_SAMPLES each, goes through
+one any-hit launch.
 """
 
 from __future__ import annotations
@@ -39,9 +43,9 @@ from ..accel import tlas as tlas_mod
 from ..core import rng
 from ..core import vecmath as vm
 from ..core.camera import primary_ray_grid
-from ..ops import intersect, traverse, traverse2
+from ..ops import intersect, intersect_kernel, traverse, traverse2
 from ..scene.envmap import sample_environment
-from ..scene.lights import normalize_lights
+from ..scene.lights import AREA_LIGHT_SAMPLES, area_light_draws, normalize_lights
 from ..scene.scene import scene_device, to_device
 from . import sampling
 
@@ -79,51 +83,44 @@ def resolve_impl(impl: str, device) -> str:
     return impl
 
 
-def _check_scene(scene: dict, impl: str) -> None:
-    if "tlas" in scene:
-        return
-    if "bvh" in scene:
-        if "bvhf_nodes" not in scene["bvh"]:
-            raise NotImplementedError(
-                "a BVH without fat nodes needs the binary-node walk (kernel B4b, "
-                "ROADMAP Queue B item 4)"
-            )
-    elif impl == "cuda":
+def _check_scene(scene: dict) -> None:
+    if "tlas" not in scene and "bvh" in scene and "bvhf_nodes" not in scene["bvh"]:
         raise NotImplementedError(
-            "the wavefront route has no CUDA kernel for brute-force scenes yet (kernel B3, "
-            "ROADMAP Queue A item 10); use impl='torch' or a scene the fused kernel takes"
+            "a BVH without fat nodes needs the binary-node walk (kernel B4b, "
+            "ROADMAP Queue B item 4)"
         )
 
 
 def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
     """Closest hit + hit attributes. Returns (hit, position, normal, mat)."""
-    _check_scene(scene, impl)
+    _check_scene(scene)
     if "tlas" in scene:
         fn = (traverse2.traverse2_fat_closest if impl == "cuda"
               else tlas_mod.two_level_closest_reference)
         hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
         position, normal, mat = _interpolate_hit_two_level(scene, hits, origins, directions)
         return hits["hit"], position, normal, mat
-    if "bvh" in scene:
-        fn = (traverse.traverse_fat_closest if impl == "cuda"
-              else traverse.traverse_fat_closest_reference)
-        hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
-    else:
-        hits = intersect.intersect_closest(
-            scene, origins, directions, t_min, t_max, cull_backface=cull
-        )
+    if "bvh" not in scene:  # brute force: the attributes come with the hit
+        fn = (intersect_kernel.trace_closest if impl == "cuda"
+              else intersect_kernel.trace_closest_reference)
+        h = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
+        mat = {k: h[k] for k in intersect_kernel.MATERIAL_KEYS}
+        return h["hit"], h["position"], h["normal"], mat
+    fn = (traverse.traverse_fat_closest if impl == "cuda"
+          else traverse.traverse_fat_closest_reference)
+    hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
     position, normal, mat = _interpolate_hit(scene, hits, origins, directions)
     return hits["hit"], position, normal, mat
 
 
 def _trace_any(scene, origins, directions, t_min, t_max, impl: str):
-    _check_scene(scene, impl)
+    _check_scene(scene)
     if "tlas" in scene:
         fn = traverse2.traverse2_fat_any if impl == "cuda" else tlas_mod.two_level_any_reference
-        return fn(scene, origins, directions, t_min, t_max)
-    if "bvh" not in scene:
-        return intersect.intersect_any(scene, origins, directions, t_min, t_max)
-    fn = traverse.traverse_fat_any if impl == "cuda" else traverse.traverse_fat_any_reference
+    elif "bvh" in scene:
+        fn = traverse.traverse_fat_any if impl == "cuda" else traverse.traverse_fat_any_reference
+    else:
+        fn = intersect_kernel.trace_any if impl == "cuda" else intersect_kernel.trace_any_reference
     return fn(scene, origins, directions, t_min, t_max)
 
 
@@ -169,14 +166,17 @@ def _interpolate_hit_two_level(scene: dict, hits: dict, origins, directions):
 
 
 def _direct_lighting(scene, options, position, normal, seed, active, impl):
-    """Direct term over D directional + P point lights (stacked rig), with
-    the debug==2 one-of-L MC estimator. All shadow rays go through one
-    any-hit call. Returns (seed, direct [N,3])."""
+    """Direct term over D directional + P point + A area lights (stacked
+    rig), with the debug==2 one-of-L MC estimator. Each area light draws
+    AREA_LIGHT_SAMPLES points from a seed chain of its own and estimates
+    L * area * mean_j(NoL * |cos at the light| / dist_j^2 * vis_j). All
+    shadow rays go through one any-hit call. Returns (seed, direct [N,3])."""
     lights = normalize_lights(scene["lights"])
-    dl, pl_ = lights["dir"], lights["point"]
+    dl, pl_, al = lights["dir"], lights["point"], lights["area"]
     d_count = int(dl["forward"].shape[0])
     p_count = int(pl_["position"].shape[0])
-    l_count = d_count + p_count
+    a_count = int(al["corner"].shape[0])
+    l_count = d_count + p_count + a_count
     n = position.shape[0]
     if l_count == 0:
         return seed, torch.zeros_like(position)
@@ -186,7 +186,7 @@ def _direct_lighting(scene, options, position, normal, seed, active, impl):
     # The reference consumes the picking draw only when debug==2.
     seed_out = seed_mc if is_mc else seed
 
-    dirs, t_maxs = [], []
+    dirs, t_maxs, a_dist2 = [], [], []
     dev = position.device
     if d_count:
         l_dir = vm.normalize(-dl["forward"])[:, None, :].expand(d_count, n, 3)
@@ -197,8 +197,17 @@ def _direct_lighting(scene, options, position, normal, seed, active, impl):
         dist = vm.length(path)
         dirs.append(vm.normalize(path))
         t_maxs.append(torch.clamp(dist - RAY_EPSILON, min=RAY_EPSILON))
+    if a_count:
+        for r0, r1 in area_light_draws(seed):
+            p_l = (al["corner"][:, None, :] + r0[None, :, None] * al["eu"][:, None, :]
+                   + r1[None, :, None] * al["ev"][:, None, :])  # [A, N, 3]
+            apath = p_l - position[None]
+            adist = vm.length(apath)
+            dirs.append(vm.normalize(apath))
+            t_maxs.append(torch.clamp(adist - RAY_EPSILON, min=RAY_EPSILON))
+            a_dist2.append(torch.clamp(adist * adist, min=1e-12))
 
-    r_count = d_count + p_count
+    r_count = d_count + p_count + a_count * AREA_LIGHT_SAMPLES
     all_dirs = torch.cat(dirs).reshape(r_count * n, 3)
     all_tmax = torch.cat(t_maxs).reshape(r_count * n)
     act = active[None].expand(r_count, n).reshape(-1, 1)
@@ -226,14 +235,47 @@ def _direct_lighting(scene, options, position, normal, seed, active, impl):
         falloff = 1.0 / (2.0 * M_PI * torch.clamp(dist * dist, min=1e-12))
         contribs.append(
             (pl_["color"] * pl_["intensity"][:, None])[:, None, :]
-            * (nol * vis[d_count:] * falloff)[..., None]
+            * (nol * vis[d_count:d_count + p_count] * falloff)[..., None]
         )
+    if a_count:
+        cross = vm.cross(al["eu"], al["ev"])  # [A, 3]
+        quad_area = vm.length(cross)
+        n_l = cross / torch.clamp(quad_area, min=1e-12)[:, None]
+        base = d_count + p_count
+        first = (1 if d_count else 0) + (1 if p_count else 0)
+        geo = torch.zeros((a_count, n), dtype=torch.float32, device=dev)
+        for j in range(AREA_LIGHT_SAMPLES):
+            wi = dirs[first + j]
+            nol = vm.saturate(vm.dot(normal[None], wi))
+            cos_l = torch.abs(vm.dot(n_l[:, None, :], wi))  # both faces emit
+            geo = geo + (nol * cos_l / a_dist2[j]
+                         * vis[base + j * a_count:base + (j + 1) * a_count])
+        geo = geo * (quad_area / AREA_LIGHT_SAMPLES)[:, None]
+        contribs.append((al["color"] * al["intensity"][:, None])[:, None, :] * geo[..., None])
     per_light = torch.cat(contribs)  # [L, N, 3]
     if not is_mc:
         return seed_out, per_light.sum(dim=0)
     idx = torch.clamp((pick * l_count).to(torch.int64), max=l_count - 1)
     mc = per_light.gather(0, idx[None, :, None].expand(1, n, 3))[0] * float(l_count)
     return seed_out, mc
+
+
+def _ambient_occlusion(scene, options, position, normal, seed, active, impl):
+    """4-ray ambient occlusion (the reference's evaluateAO): cosine or
+    uniform hemisphere rays of length 10, each visible ray weighted by
+    NoL / pdf. Returns [N]."""
+    visibility = torch.zeros(position.shape[:-1], dtype=torch.float32, device=position.device)
+    cosine = bool(options["cosine_hemisphere_sampling"])
+    opts = dict(options, no_indirect_diffuse=False)  # AO always consumes its two draws
+    for _ in range(4):
+        seed, sample_dir = _diffuse_direction(seed, normal, opts)
+        nol = vm.saturate(vm.dot(normal, sample_dir))
+        pdf = nol / M_PI if cosine else torch.full_like(nol, 1.0 / (2.0 * M_PI))
+        traced_dir = torch.where(active[..., None], sample_dir, torch.zeros_like(sample_dir))
+        occluded = _trace_any(scene, position, traced_dir, RAY_EPSILON, 10.0, impl)
+        vis = (active & ~occluded).to(torch.float32)
+        visibility = visibility + vis * nol / torch.clamp(pdf, min=1e-8)
+    return visibility / 4.0
 
 
 def _secondary_radiance(scene, options, origins, directions, seeds, active, impl, env_kind,
@@ -277,14 +319,14 @@ def trace_rays(
     origins/directions: [N, 3]; seeds: [N] int64 pixel hashes. mode:
     'progressive' returns {"color": [N, 3]}; 'realtime' (1 spp, no indirect
     diffuse, no debug views) returns "color", "direct", "indirect_specular",
-    "albedo" [N, 3] and "roughness" [N]."""
+    "albedo" [N, 3] and "roughness" [N]. ao_only: the AO view, {"color"}
+    only, in either mode. refraction (progressive): glass (type 2) also
+    traces a transmission bounce through vecmath.refract, weighted
+    reflectivity * (1 - fresnel); lanes of total internal reflection add
+    nothing."""
     if mode not in ("progressive", "realtime"):
         raise NotImplementedError(f"mode={mode!r} is unknown (progressive or realtime)")
     realtime = mode == "realtime"
-    if ao_only or refraction:
-        raise NotImplementedError(
-            "ao_only and refraction are not ported yet (ROADMAP Queue A item 10)"
-        )
     if env_kind is None:
         env_kind = scene["env"]["kind"]
     # lights and env arrive as host tensors (per-frame parameters)
@@ -295,6 +337,10 @@ def trace_rays(
         scene, origins, directions, 0.0, RAY_MAX_T, cull=True, impl=impl
     )
     env_col = sample_environment(scene["env"], directions, env_kind)
+
+    if ao_only:
+        ao = _ambient_occlusion(scene, options, position, normal, seeds, hit, impl)
+        return {"color": _sanitize(torch.where(hit[..., None], ao[..., None], env_col))}
 
     seed = seeds  # initRand restart per shade invocation
     seed, direct = _direct_lighting(scene, options, position, normal, seed, hit, impl)
@@ -317,20 +363,27 @@ def trace_rays(
             realtime=True,
         )
     else:
-        # ---- one batched secondary trace for both bounce rays -----------
+        # ---- one batched secondary trace for the bounce rays ------------
         n = position.shape[0]
+        dirs_list, act_list = [sample_dir, phong_dir], [hit, spec_active]
+        if refraction:
+            trans_dir, trans_ok = vm.refract(directions, normal, mat["ior"])
+            trans_active = hit & (mtype == 2) & (mat["reflectivity"] > 0.001) & trans_ok
+            dirs_list.append(trans_dir)
+            act_list.append(trans_active)
+        reps = len(dirs_list)
         sec_both = _secondary_radiance(
             scene,
             options,
-            torch.cat([position, position]),
-            torch.cat([sample_dir, phong_dir]),
-            torch.cat([seeds, seeds]),
-            torch.cat([hit, spec_active]),
+            torch.cat([position] * reps),
+            torch.cat(dirs_list),
+            torch.cat([seeds] * reps),
+            torch.cat(act_list),
             impl,
             env_kind,
         )
         sec = sec_both[:n]
-        spec_rad = sec_both[n:]
+        spec_rad = sec_both[n:2 * n]
         nol = vm.saturate(vm.dot(normal, sample_dir))
         # cosine: the pdf cancels -> L * pi; uniform: L * NoL * 2pi
         cosine = bool(options["cosine_hemisphere_sampling"])
@@ -363,6 +416,11 @@ def trace_rays(
     diffuse_comp = (direct + indirect) / M_PI
     emissive = mat["emissive"] * mat["emissive_strength"][..., None]
     color = emissive + mat["albedo"] * diffuse_comp + refl * specular * fresnel
+    if refraction:
+        # the transmission ray: pdf = brdf = 1, split against the reflection
+        # by the same Schlick term
+        transmitted = torch.where(trans_active[..., None], sec_both[2 * n:], zero3)
+        color = color + refl * (1.0 - fresnel) * transmitted
 
     # ---- debug AOV selection at depth 0 ---------------------------------
     if options["show_direct_lighting_only"]:
@@ -417,6 +475,8 @@ def progressive_sample_sum(
     env_kind: int,
     jitter_scale: float = 30.0,
     impl: str = "torch",
+    ao_only: bool = False,
+    refraction: bool = False,
 ) -> torch.Tensor:
     """Sum of S progressive samples, one per camera of CameraParams stacked
     on a leading [S] axis, summed in sample order as the megakernels do.
@@ -425,8 +485,8 @@ def progressive_sample_sum(
     for s in range(int(cameras["eye"].shape[0])):
         cam = {k: v[s] for k, v in cameras.items()}
         color = render_sample(
-            scene, options, cam, width, height, mode="progressive",
-            jitter_scale=jitter_scale, impl=impl, env_kind=env_kind,
+            scene, options, cam, width, height, mode="progressive", ao_only=ao_only,
+            jitter_scale=jitter_scale, impl=impl, env_kind=env_kind, refraction=refraction,
         )["color"]
         total = color if total is None else total + color
     return total
@@ -443,6 +503,7 @@ def render_sample(
     jitter_scale: float = 30.0,
     impl: str = "torch",
     env_kind: int | None = None,
+    refraction: bool = False,
 ) -> dict:
     """Render one sample for the full [H, W] grid on the scene's device.
     Returns {"color": [H, W, 3]} (progressive) or the realtime AOVs, each
@@ -453,6 +514,7 @@ def render_sample(
     d = directions.reshape(-1, 3)
     seeds = rng.pixel_seeds(width, height, camera["frame_count"], device=o.device).reshape(-1)
     out = trace_rays(
-        scene, options, o, d, seeds, mode=mode, ao_only=ao_only, impl=impl, env_kind=env_kind
+        scene, options, o, d, seeds, mode=mode, ao_only=ao_only, impl=impl, env_kind=env_kind,
+        refraction=refraction,
     )
     return {k: v.reshape(height, width, *v.shape[1:]) for k, v in out.items()}

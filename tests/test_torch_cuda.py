@@ -13,7 +13,13 @@ knife-edge pairs may flip under FMA contraction. The fat-node walks (B4a,
 and B6a on two-level scenes): the hit gates of benchmarks/kernel_parity.py
 (relative t on lanes that hit the same triangle: median <= 1e-6, p99.9 <=
 1e-4, max <= 0.05; lanes whose hit differs <= 1%; occlusion disagreement <=
-1%); B6a's instance equal on the lanes that hit the same triangle. The bilateral kernel: max
+1%); B6a's instance equal on the lanes that hit the same triangle. The
+brute-force trace kernels (B3): the same hit and occlusion gates, and on
+lanes that hit the same triangle the normal within 1e-5 on 99.9% of lanes,
+the position over max(1, t) within the hit gate's bounds on t (it is
+o + t d), material rows and ids equal; whole brute-force samples on the
+image gate.
+The bilateral kernel: max
 |difference| <= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums
 differing only by rounding.
 """
@@ -31,7 +37,7 @@ from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipelin
 from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
 from dxrexperiments_torch.accel import tlas
 from dxrexperiments_torch.core.camera import primary_ray_grid
-from dxrexperiments_torch.ops import bilateral, intersect, traverse, traverse2
+from dxrexperiments_torch.ops import bilateral, intersect, intersect_kernel, traverse, traverse2
 from dxrexperiments_torch.ops import fused_sample as fs
 from dxrexperiments_torch.ops import fused_traverse as ft
 from dxrexperiments_torch.scene import Scene, envmap
@@ -559,6 +565,204 @@ def test_two_level_pipeline_launch_counts(cuda_device):
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
 
 
+# ---- brute-force scenes: kernel B3 (closest + any) ---------------------------
+
+
+def _brute_scene(kind, device):
+    """'cornell' (36 triangles, 40 padded) or a soup of `kind` triangles:
+    256 and 512 end on a tile and a padding edge, 513 crosses both."""
+    if kind == "cornell":
+        return build_scene("cornell-glossy")[0].build(device)
+    from dxrexperiments_torch.scene.procedural import random_triangle_soup
+
+    sc = Scene()
+    sc.add_model(random_triangle_soup(kind, seed=2, extent=2.0))
+    return sc.build(device, accel="none")
+
+
+def _brute_rays(kind, device, n=SIZE * SIZE, scene=None):
+    """Probe rays, every fifth with a zero direction, every third with t_max
+    4: inside the Cornell box in random directions, or from a sphere of
+    radius 6 at the soup's triangles (three in four at a centroid)."""
+    rng = np.random.default_rng(7)
+    if kind == "cornell":
+        o = rng.uniform(-0.9, 0.9, size=(n, 3)).astype(np.float32)
+        o[:, 1] = rng.uniform(0.1, 1.9, size=n)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+    else:
+        o = rng.normal(size=(n, 3))
+        o = (6.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)).astype(np.float32)
+        v0, e1, e2 = (scene[k][:kind].cpu().numpy() for k in ("v0", "e1", "e2"))
+        target = (v0 + (e1 + e2) / 3.0)[rng.integers(0, kind, n)]
+        target[::4] = rng.uniform(-2.0, 2.0, size=(len(target[::4]), 3))
+        d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    d[::5] = 0.0
+    tmax = np.where(np.arange(n) % 3 == 0, 4.0, 1e38).astype(np.float32)
+    return (torch.as_tensor(o, device=device), torch.as_tensor(d, device=device),
+            torch.as_tensor(tmax, device=device))
+
+
+def attr_gate(got, want):
+    """B3's fused attributes against the plain version's on lanes that hit
+    the same triangle: the normal within 1e-5 on 99.9% of lanes, the
+    position (over max(1, t)) within the hit gate's bounds on t, material
+    rows and ids equal. Returns the largest differences."""
+    same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
+    scale = want["t"][same].abs().clamp(min=1.0)[:, None]
+    errs = {"normal": (got["normal"] - want["normal"])[same].abs().amax(dim=1).double(),
+            "position": ((got["position"] - want["position"])[same].abs() / scale)
+            .amax(dim=1).double()}
+    assert float(torch.quantile(errs["normal"], 0.999)) <= 1e-5, errs["normal"].max()
+    assert float(errs["position"].median()) <= 1e-6
+    assert float(torch.quantile(errs["position"], 0.999)) <= 1e-4
+    for e in errs.values():
+        assert float(e.max()) <= 0.05
+    for k in (*intersect_kernel.MATERIAL_KEYS, "mat_id"):
+        assert torch.equal(got[k][same], want[k][same]), k
+    return {k: float(e.max()) for k, e in errs.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cull", [False, True])
+@pytest.mark.parametrize("kind", ["cornell", 256, 512, 513])
+def test_intersect_brute_matches_plain(cuda_device, kind, cull):
+    scene = _brute_scene(kind, cuda_device)
+    o, d, tmax = _brute_rays(kind, cuda_device, scene=scene)
+    c0, a0 = intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES
+    got = intersect_kernel.trace_closest(scene, o, d, 1e-4, tmax, cull_backface=cull)
+    occ = intersect_kernel.trace_any(scene, o, d, 1e-4, tmax)
+    assert (intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES) == (c0 + 1, a0 + 1)
+    want = intersect_kernel.trace_closest_reference(scene, o, d, 1e-4, tmax, cull_backface=cull)
+    occ_want = intersect_kernel.trace_any_reference(scene, o, d, 1e-4, tmax)
+    torch.cuda.synchronize()
+    assert all(v.is_contiguous() for v in got.values())  # row-major fields, as the plain's
+    assert float(got["hit"].float().mean()) > 0.1
+    assert not bool(got["hit"][::5].any()) and not bool(occ[::5].any())
+    hit_gate(got, want)
+    attr_gate(got, want)
+    miss = ~got["hit"]
+    assert bool((got["t"][miss] == -1).all()) and bool((got["tri"][miss] == -1).all())
+    assert 0.0 < float(occ_want.float().mean()) < 1.0
+    assert float((occ != occ_want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_intersect_brute_windows_and_empty_batches(cuda_device):
+    scene = _brute_scene(513, cuda_device)
+    o, d, _ = _brute_rays(513, cuda_device, n=700, scene=scene)
+    scalar = intersect_kernel.trace_closest(scene, o, d, 1e-4, 4.0)
+    per_ray = intersect_kernel.trace_closest(scene, o, d, torch.full((700,), 1e-4, device=o.device),
+                                             torch.full((700,), 4.0, device=o.device))
+    for k in scalar:
+        assert torch.equal(scalar[k], per_ray[k]), k
+    # an empty window (the integrator's inactive lanes) never hits
+    dead = intersect_kernel.trace_closest(scene, o, d, 1e-4, 0.0)
+    assert not bool(dead["hit"].any())
+    c0, a0 = intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES
+    empty = torch.zeros((0, 3), device=o.device)
+    assert intersect_kernel.trace_closest(scene, empty, empty)["t"].shape == (0,)
+    assert intersect_kernel.trace_any(scene, empty, empty).shape == (0,)
+    assert (intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES) == (c0, a0)
+    bad = dict(scene, mt_pack=scene["mt_pack"].double())
+    with pytest.raises(TypeError):
+        intersect_kernel.trace_any(bad, o, d)
+
+
+BRUTE_CASES = [("instanced:1", "progressive", {}), ("instanced:1", "realtime", {}),
+               ("cornell", "progressive", {"ao_only": True}),
+               ("cornell-glass", "progressive", {"refraction": True}),
+               ("cornell+area", "progressive", {})]
+
+
+def area_rig():
+    """2 directional + 2 point + 1 area light (the port's light dicts)."""
+    from dxrexperiments_torch.scene.lights import area_light, directional_light, point_light
+
+    return {"dir": [directional_light((0.0, -0.6, -0.8), (0.9, 0.9, 0.9, 0.6)),
+                    directional_light((0.5, -0.7, 0.2), (0.3, 0.5, 0.9, 0.4))],
+            "point": [point_light((0.0, 1.8, 0.0), (1.0, 0.9, 0.7, 6.0)),
+                      point_light((-0.6, 1.2, 0.5), (0.4, 0.9, 0.5, 3.0))],
+            "area": [area_light((-0.3, 1.95, -0.3), (0.6, 0.0, 0.0), (0.0, 0.0, 0.6),
+                                (1.0, 0.9, 0.8, 8.0))]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,mode,kw", BRUTE_CASES, ids=["progressive", "realtime", "ao_only",
+                                                           "refraction", "area_rig"])
+def test_brute_wavefront_matches_plain(cuda_device, name, mode, kw):
+    sc, cam = build_scene(name.split("+")[0])
+    if name.endswith("+area"):
+        sc.lights = area_rig()
+    cam.set_aspect(SIZE, SIZE)
+    scene = sc.build(cuda_device)
+    assert "bvh" not in scene
+    cp = camera_params(cam, jitter=(0.2 / SIZE, -0.1 / SIZE), frame_count=2**31 + 9)
+    js = 10.0 if mode == "realtime" else 30.0
+    c0, a0 = intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES
+    got = render_sample(scene, default_options(), cp, SIZE, SIZE, mode=mode, jitter_scale=js,
+                        impl="cuda", **kw)
+    launches = (intersect_kernel.CLOSEST_LAUNCHES - c0, intersect_kernel.ANY_LAUNCHES - a0)
+    assert launches == ((1, 4) if kw.get("ao_only") else (2, 2))
+    want = render_sample(scene, default_options(), cp, SIZE, SIZE, mode=mode, jitter_scale=js,
+                         impl="torch", **kw)
+    torch.cuda.synchronize()
+    for k in got:
+        _gate(got[k], want[k], s_count=1)
+    assert float(got["color"].mean()) > 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bvh", "two_level"])
+@pytest.mark.parametrize("option", ["ao_only", "area_refraction"])
+def test_other_routes_take_the_new_options(cuda_device, kind, option):
+    """AO, area lights and refraction through B4a and B6a, against the
+    plain versions."""
+    sc, cam = build_scene("instanced:2")
+    if option == "area_refraction":
+        rig = area_rig()
+        sc.lights = {"area": rig["area"] * 2}  # two area lights: B5's gate declines
+    scene = sc.build(cuda_device, accel="bvh") if kind == "bvh" else sc.build_two_level(cuda_device)
+    cam.set_aspect(SIZE, SIZE)
+    cp = camera_params(cam, jitter=(0.2 / SIZE, -0.1 / SIZE), frame_count=5)
+    kw = {"ao_only": True} if option == "ao_only" else {"refraction": True}
+    got = render_sample(scene, default_options(), cp, SIZE, SIZE, impl="cuda", **kw)["color"]
+    want = render_sample(scene, default_options(), cp, SIZE, SIZE, impl="torch", **kw)["color"]
+    torch.cuda.synchronize()
+    traverse.check_errors()
+    _gate(got, want, s_count=1)
+    assert float(got.mean()) > 0.0
+
+
+@pytest.mark.cuda
+def test_brute_pipelines_launch_counts(cuda_device):
+    sc, cam = build_scene("instanced:1")
+    cam.set_aspect(SIZE, SIZE)
+    pipe = ProgressiveRaytracingPipeline(SIZE, SIZE, seed=1, samples_per_frame=2,
+                                         device=cuda_device)
+    pipe.set_camera(cam)
+    pipe.set_scene(sc)
+    counts0 = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES,
+               intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES)
+    for f in range(2):
+        pipe.update(elapsed_time=0.0, elapsed_frames=f)
+        pipe.render()
+    rt = RealtimeRaytracingPipeline(SIZE, SIZE, seed=1, device=cuda_device)
+    rt.set_camera(cam)
+    rt.set_scene(sc)
+    rt.update(elapsed_time=0.0, elapsed_frames=0)
+    direct, spec = rt.render()
+    display = DenoiseCompositor(device=cuda_device).dispatch(direct, spec)
+    torch.cuda.synchronize()
+    counts = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES,
+              intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES)
+    assert tuple(b - a for a, b in zip(counts0, counts)) == (0, 0, 0, 0, 10, 10)
+    img = pipe.get_output()
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
+    assert bool((direct + spec).isfinite().all()) and float(direct.mean()) > 0.0
+    assert bool(display.isfinite().all())
+
+
 @pytest.mark.cuda
 def test_cuda_tensors_never_reach_plain_versions(cuda_device, monkeypatch):
     def refuse(*args, **kwargs):
@@ -571,6 +775,8 @@ def test_cuda_tensors_never_reach_plain_versions(cuda_device, monkeypatch):
                       (traverse2, "two_level_closest_reference"),
                       (traverse2, "two_level_any_reference"),
                       (tlas, "two_level_closest_reference"), (tlas, "two_level_any_reference"),
+                      (intersect_kernel, "trace_closest_reference"),
+                      (intersect_kernel, "trace_any_reference"),
                       (intersect, "intersect_closest"), (intersect, "intersect_any")):
         monkeypatch.setattr(mod, name, refuse)
     scene, cams = _bvh_setup(cuda_device)
@@ -583,4 +789,9 @@ def test_cuda_tensors_never_reach_plain_versions(cuda_device, monkeypatch):
     for mode in ("progressive", "realtime"):
         render_sample(two, options, {k: v[0] for k, v in cams.items()}, SIZE, SIZE, mode=mode,
                       impl="cuda")
+    brute = build_scene("instanced:1")[0].build(cuda_device)
+    for kw in ({"mode": "progressive"}, {"mode": "realtime"}, {"ao_only": True},
+               {"refraction": True}):
+        render_sample(brute, options, {k: v[0] for k, v in cams.items()}, SIZE, SIZE,
+                      impl="cuda", **kw)
     torch.cuda.synchronize()
