@@ -120,10 +120,51 @@ Phases, each of which raises on failure:
      4,096 sampled rays), and the host ms per progressive dispatch,
      enqueued and synchronised.
 
+ 18. texture envs: an 8192x4096 lat-long radiance (the size of the 8K
+     lat-long the JAX package's config-3 run loads; a sky gradient, a small
+     sun of radiance 50, seeded noise) written as an RLE .hdr and a
+     6x512x512 R16G16B16A16_FLOAT DX10 cubemap .dds, both from a seed into
+     a temporary directory, read back through the CLI's parse_env;
+ 19. B1 with each texture env vs plain on Cornell-glossy at 128^2 (a camera
+     that sees the env past the box; the scene routes to B1 through its
+     tex_autoroute BVH): progressive, S = 4, the 7 option sets of phase 3;
+     realtime, every AOV, the 4 cases of phase 3 and an S = 2 batch against
+     two single launches;
+ 20. B5 with each texture env vs plain on 'instanced:4' at 128^2, the same
+     cases;
+ 21. BASELINE config 3: Cornell-glossy with phase 18's lat-long env,
+     ProgressiveRaytracingPipeline on cuda at
+     1920x1080 for 128 dispatches of S = 8 (1,024 spp), which must count
+     128 B1 launches and no B3, B4a, B5 or B6a launch and give a finite
+     image with mean > 0; the first dispatch's sum against the plain version
+     at full size; the headless CLI with --env latlong:PATH at 1080p;
+ 22. realtime + denoise with the lat-long env at 1920x1080, 4 frames (must
+     count 4 B1 realtime and 8 bilateral launches), frame 0's AOVs against
+     the plain version, the CLI with --pipeline realtime --denoise;
+ 23. B5 with the cubemap at full width: phase 8's 'instanced:32' build with
+     the cubemap swapped in, 512^2, 2 dispatches of S = 4 (exactly 2 B5
+     launches), a sample against the plain version on 4,096 sampled pixels,
+     the same pixels and camera with the gradient env against its plain
+     version, each pixel off with the cubemap beside the wavefront route
+     (B4a's walk with the plain lookup) on the same rays and where that
+     route's path and the plain one part (a triangle, a bounce's hit, a
+     shadow ray, a miss direction, a cube-face tie), failing if B5 parts
+     from that route where the paths agree; and B5's time with the cubemap
+     and with the gradient env on the same cameras, in turns;
+ 24. the wavefront routes with the lat-long env at 128^2 against the plain
+     version: Cornell with the 2 directional + 2 point + 1 area rig (B3) and
+     'instanced:4' two-level (B6a);
+ 25. config 3 times: B1 ms per 8-sample 1080p dispatch with the lat-long env
+     and with the black constant env on the same scene and cameras, in
+     turns; the plain version's; the host ms per dispatch, enqueued and
+     synchronised; the seconds to 1,024 spp of phase 21.
+
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
 operations; NVIDIA's H100 SXM data sheet) and its bytes over 3.35 TB/s.
-The brute-force megakernel's pair tests are counted on its plain run, B3's
+The brute-force megakernel's pair tests and env lookups (the closest-hit
+rays that miss, each 4 texels of 12 bytes, together at most the texture's
+bytes) are counted on its plain run, B3's
 from its launches' rays as phase 17 says; the BVH
 kernels' slab and pair tests by a host model of their per-ray walk
 (ops/traverse.fat_walk_numpy) over 4,096 sampled pixels of the main path
@@ -189,6 +230,15 @@ BRUTE_MAIN_SCENE = "instanced:2"  # 3,842 triangles: the largest below the BVH t
 BRUTE_RT_FRAMES = 2  # realtime + denoise frames on the brute-force scene
 RIG_SIZE = 128  # the 2 directional + 2 point + 1 area rig's image
 BILATERAL_RADII = (1, 7, 12, 25)
+HDR_W, HDR_H = 8192, 4096  # config 3's lat-long radiance (the reference's 8K size), an RLE .hdr
+CUBE_S = 512  # the cubemap's face size (R16G16B16A16_FLOAT .dds, the reference probe's format)
+C3_W, C3_H, C3_S, C3_DISPATCHES = 1920, 1080, 8, 128  # BASELINE config 3: 1024 spp at 1080p
+C3_RT_FRAMES = 4  # realtime + denoise frames with the HDR env
+C3_B5_DISPATCHES = 2  # B5 dispatches of S = 4 on instanced:32 with the cubemap
+TEX_PARITY_EYE = ((1.2, 1.5, 3.6), (0.1, 1.3, 0.0))  # sees the box and, past it, the env
+ENV_LOOKUP_BYTES = 4 * 12  # one bilinear env lookup: four float32 RGB texels
+TIE_REL = 1e-4  # a cube lookup "near a face tie": its two largest |components| within this
+DIR_PART = 1e-5  # two traces' miss directions "part" past this (float noise is ~1e-7)
 AOVS = ("direct", "indirect_specular", "albedo", "color", "roughness")
 OPTION_CASES = [
     ("defaults", {}, "const"),
@@ -205,6 +255,37 @@ REALTIME_CASES = [
     ("gradient_env", {}, "gradient"),
     ("emissive", {}, "emissive"),  # every wall glows: the realtime bounce drops emissive
 ]
+
+
+def sky_image(width: int, height: int, seed: int):
+    """A lat-long sky [height, width, 3] float32: a horizon-to-zenith
+    gradient over a dark ground, a small sun of radiance 50 and seeded
+    noise (the repository holds no HDR asset)."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    v = ((np.arange(height, dtype=np.float32) + 0.5) / height)[:, None, None]  # 0: zenith
+    up = np.clip(1.0 - 2.0 * v, 0.0, 1.0)
+    sky = (1.0 - up) * np.array([0.9, 0.85, 0.8], np.float32) + up * np.array(
+        [0.25, 0.45, 0.9], np.float32)
+    img = np.where(v > 0.5, np.array([0.15, 0.12, 0.1], np.float32), sky)
+    img = img * np.ones((1, width, 1), np.float32)
+    img = img * (1.0 + rs.normal(0.0, 0.05, img.shape)).astype(np.float32)
+    r, cy, cx = max(width // 256, 2), height // 4, width // 3
+    img[cy - r:cy + r, cx - r:cx + r] = 50.0
+    return np.clip(img, 0.0, None).astype(np.float32)
+
+
+def cube_faces(size: int, seed: int):
+    """A cubemap probe [6, size, size, 3] float32: a tint per face, a ramp
+    down each face and seeded noise."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    ramp = np.linspace(1.5, 0.2, size, dtype=np.float32)[None, :, None, None]
+    tint = rs.uniform(0.3, 1.5, (6, 1, 1, 3)).astype(np.float32)
+    faces = tint * ramp * np.ones((6, size, size, 3), np.float32)
+    return (faces * (1.0 + rs.normal(0.0, 0.05, faces.shape))).astype(np.float32)
 
 
 def card_line() -> str:
@@ -387,13 +468,105 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def env_bytes(lookups: float, texture) -> float:
+    """The bytes a call's env lookups must read: four float32 RGB texels
+    each, but at most the texture's own bytes (each texel read once)."""
+    return min(lookups * ENV_LOOKUP_BYTES, texture.numel() * texture.element_size())
+
+
+def face_tie(directions, rel: float):
+    """[N] bool: the cube lookup of each direction lies near a face tie (its
+    two largest |components| within `rel` of each other), where rounding
+    may pick another face."""
+    a = directions.abs().sort(dim=-1, descending=True).values
+    return (a[:, 0] - a[:, 1]) <= rel * a[:, 0]
+
+
+class TraceLog:
+    """Records every trace made while active through ops.traverse's
+    closest and any functions `names` (B4a's wrappers, or their plain
+    versions with PLAIN): ("closest", directions, hit, tri, live) and
+    ("any", occluded), in call order; the traces still run."""
+
+    B4A = ("traverse_fat_closest", "traverse_fat_any")
+    PLAIN = ("traverse_fat_closest_reference", "traverse_fat_any_reference")
+
+    def __init__(self, tv, names=B4A):
+        self.tv, self.names, self.calls = tv, names, []
+
+    def __enter__(self):
+        import torch
+
+        self.fns = [getattr(self.tv, n) for n in self.names]
+        closest_fn, any_fn = self.fns
+
+        def closest(scene, o, d, t_min=1e-4, t_max=3.0e37, cull_backface=False):
+            hits = closest_fn(scene, o, d, t_min, t_max, cull_backface)
+            live = torch.as_tensor(t_max, device=d.device).expand(d.shape[0]) > t_min
+            self.calls.append(("closest", d, hits["hit"], hits["tri"], live))
+            return hits
+
+        def any_(scene, o, d, t_min=1e-4, t_max=3.0e37):
+            occ = any_fn(scene, o, d, t_min, t_max)
+            self.calls.append(("any", occ))
+            return occ
+
+        setattr(self.tv, self.names[0], closest)
+        setattr(self.tv, self.names[1], any_)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in zip(self.names, self.fns):
+            setattr(self.tv, n, fn)
+
+
+def path_census(log_a, log_b, pixels: int, rel_tie: float):
+    """Per pixel of a batch of `pixels` primary rays traced twice (logs
+    log_a, log_b of the same integrator run on two trace backends), where
+    the two paths part: the primary hit's triangle, a bounce's hit or
+    triangle, a shadow ray's occlusion, and the largest |difference| of
+    the two traces' unit directions on a live lane that misses in both
+    (where the env is looked up; about the angle in radians); and whether
+    such a lane of log_b lies near a cube-face tie. Lane j of a call
+    belongs to pixel j % pixels."""
+    import torch
+
+    def per_pixel(lanes):
+        return lanes.reshape(-1, pixels)
+
+    out = {}
+    closest = [(a, b) for a, b in zip(log_a.calls, log_b.calls) if a[0] == "closest"]
+    shadow = [(a, b) for a, b in zip(log_a.calls, log_b.calls) if a[0] == "any"]
+    (_, _, ha, ta, _), (_, _, hb, tb, _) = closest[0]
+    out["primary_tri"] = (ha != hb) | (ha & (ta != tb))
+    bounce_hit = torch.zeros_like(out["primary_tri"])
+    bounce_tri = torch.zeros_like(bounce_hit)
+    dir_diff = torch.zeros(pixels, device=ha.device)
+    tie = torch.zeros_like(bounce_hit)
+    for (_, da, ha, ta, la), (_, db, hb, tb, lb) in closest:
+        bounce_hit |= per_pixel((ha != hb) & la).any(dim=0)
+        bounce_tri |= per_pixel(ha & hb & (ta != tb)).any(dim=0)
+        miss = la & lb & ~ha & ~hb
+        gap = torch.where(miss, (da - db).norm(dim=-1), torch.zeros_like(da[:, 0]))
+        dir_diff = torch.maximum(dir_diff, per_pixel(gap).max(dim=0).values)
+        tie |= per_pixel(face_tie(db, rel_tie) & miss).any(dim=0)
+    out["bounce_hit"], out["bounce_tri"] = bounce_hit, bounce_tri
+    out["shadow"] = torch.zeros_like(bounce_hit)
+    for (_, oa), (_, ob) in shadow:
+        out["shadow"] |= per_pixel(oa != ob).any(dim=0)
+    out["miss_dir_diff"], out["near_face_tie"] = dir_diff, tie
+    return out
+
+
 class PairCount:
     """Counts the pair tests of the brute-force megakernel on its plain run:
     rays with a non-empty window (and, for occlusion, a direction) times the
-    padded triangle count, as the kernel's sweeps test them."""
+    padded triangle count, as the kernel's sweeps test them; and the env
+    lookups, the closest-hit rays with a non-empty window that miss (the
+    primary and bounce misses, where the kernel samples the environment)."""
 
     def __init__(self, intersect, torch):
-        self.mod, self.torch, self.pairs = intersect, torch, 0
+        self.mod, self.torch, self.pairs, self.env_lookups = intersect, torch, 0, 0
 
     def _live(self, scene, directions, t_min, t_max, occlusion):
         t = self.torch
@@ -402,13 +575,16 @@ class PairCount:
         if occlusion:
             live = live & (directions.abs().sum(dim=1) > 0)
         self.pairs += int(live.sum()) * int(scene["v0"].shape[0])
+        return live
 
     def __enter__(self):
         self.closest, self.any = self.mod.intersect_closest, self.mod.intersect_any
 
         def closest(scene, o, d, t_min=1e-4, t_max=1e38, **kw):
-            self._live(scene, d, t_min, t_max, False)
-            return self.closest(scene, o, d, t_min, t_max, **kw)
+            live = self._live(scene, d, t_min, t_max, False)
+            hits = self.closest(scene, o, d, t_min, t_max, **kw)
+            self.env_lookups += int((live & ~hits["hit"]).sum())
+            return hits
 
         def any_(scene, o, d, t_min=1e-4, t_max=1e38, **kw):
             self._live(scene, d, t_min, t_max, True)
@@ -568,10 +744,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from dxrexperiments_torch.app.headless import build_scene, yaw_matrix
+    from dxrexperiments_torch.app.headless import build_scene, parse_env, yaw_matrix
     from dxrexperiments_torch.core import rng as trng
     from dxrexperiments_torch.core.camera import camera_params, primary_ray_grid, stack_cameras
     from dxrexperiments_torch.core.device import setup_device
+    from dxrexperiments_torch.models.base import select_route
     from dxrexperiments_torch.models.denoise import DenoiseCompositor, denoise_composite
     from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
     from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
@@ -592,6 +769,8 @@ def main() -> int:
         trace_rays,
     )
     from dxrexperiments_torch.utils import cuda_build, native
+    from dxrexperiments_torch.utils.dds import write_dds
+    from dxrexperiments_torch.utils.image import write_hdr
 
     def reset_counts():
         fs.LAUNCHES = fs.REALTIME_LAUNCHES = bl.LAUNCHES = 0
@@ -1121,7 +1300,7 @@ def main() -> int:
           f"({M * M / b5_ms / 1e3:.2f} primary Mrays/s), wrapper {b5_wrap_ms:.3f} ms; pipeline "
           f"{host_prog_ms:.3f} ms per {BVH_S}-sample dispatch on the host clock, synchronised, "
           f"first dispatches included [{card}]", flush=True)
-    del pipe, scene32, traces, pos32, sd32, tmax32, o32, d32, wave, bvh_np
+    del pipe, traces, pos32, sd32, tmax32, o32, d32, wave, bvh_np  # phase 23 reuses scene32
     torch.cuda.empty_cache()
 
     # ---- 9. realtime + denoise on instanced:32 at 1080p --------------------------
@@ -1874,6 +2053,404 @@ def main() -> int:
     del pipe_b, traces_b
     torch.cuda.empty_cache()
 
+    # ---- 18. texture envs: the inputs, written here from a seed ---------------------
+    # The repository holds no HDR or DDS asset: a lat-long radiance of the
+    # size config 3's reference run loads (an 8K JPG, read there through
+    # PIL) and a cubemap of the reference probe's format are made here.
+    tex_dir = tempfile.TemporaryDirectory()
+    hdr_path = os.path.join(tex_dir.name, "sky.hdr")
+    dds_path = os.path.join(tex_dir.name, "probe.dds")
+    t0 = time.perf_counter()
+    write_hdr(hdr_path, sky_image(HDR_W, HDR_H, 18))
+    write_dds(dds_path, cube_faces(CUBE_S, 19), "rgba16f")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hdr_env, cube_env = parse_env(f"latlong:{hdr_path}"), parse_env(f"cubemap:{dds_path}")
+    read_s = time.perf_counter() - t0
+    print(f"texture envs: {HDR_W}x{HDR_H} RLE .hdr ({os.path.getsize(hdr_path) / 2**20:.2f} MiB) "
+          f"and 6x{CUBE_S}x{CUBE_S} R16G16B16A16_FLOAT .dds ({os.path.getsize(dds_path) / 2**20:.2f} "
+          f"MiB) written in {write_s:.2f}s, read through parse_env in {read_s:.2f}s (host clock); "
+          f"lat-long max {float(hdr_env['latlong'].max()):.2f}, mean "
+          f"{float(hdr_env['latlong'].mean()):.4f}; cube mean {float(cube_env['cube'].mean()):.4f}",
+          flush=True)
+    tex_envs = {"latlong": hdr_env, "cubemap": cube_env}
+
+    # ---- 19. B1 with texture envs vs plain at 128^2 ----------------------------------
+    def tex_cases(scene_of, fn, plain, rt_fn, rt_plain, label):
+        """The progressive option sets of phase 3 and the realtime cases
+        (every AOV; an S = 2 batch against two single launches) on each
+        texture env; returns the largest max |d| of the progressive sums and
+        of the AOVs."""
+        errs = [0.0, 0.0]
+        for env_name in tex_envs:
+            scene, cam = scene_of(env_name, False)
+            ek = scene["env"]["kind"]
+            for name, opts, _ in OPTION_CASES:
+                options = default_options(**opts)
+                cams = cameras(cam, P, P, PARITY_S, 11)
+                got = fn(scene, options, cams, P, P, ek)
+                want = plain(scene, options, cams, P, P, ek)
+                torch.cuda.synchronize()
+                errs[0] = max(errs[0], image_gate(f"{label} {env_name} {name} {P}^2 S={PARITY_S}",
+                                                  got, want, PARITY_S)["max_abs_diff"])
+            for name, opts, env in REALTIME_CASES:
+                scene_r, cam_r = scene_of(env_name, env == "emissive")
+                options = default_options(**opts)
+                cams = cameras(cam_r, P, P, 1, 2**31 + 5)
+                got = rt_fn(scene_r, options, cams, P, P, ek)
+                want = rt_plain(scene_r, options, cams, P, P, ek)
+                torch.cuda.synchronize()
+                got = {k: v[0] for k, v in got.items()}
+                got.setdefault("color", got["direct"] + got["indirect_specular"])
+                errs[1] = max(errs[1], aov_gate(f"{label} realtime {env_name} {name} {P}^2", got,
+                                                {k: v[0] for k, v in want.items()}))
+            cams = cameras(cam, P, P, 2, 40)
+            options = default_options(debug=2)
+            batch = rt_fn(scene, options, cams, P, P, ek)
+            batch_err = max(float((batch[k][f] - rt_fn(scene, options, {c: v[f:f + 1] for c, v in
+                                                                       cams.items()}, P, P, ek)[k][0]
+                                   ).abs().max()) for k in fs.AOV_KEYS for f in range(2))
+            torch.cuda.synchronize()
+            print(f"parity {label} realtime {env_name} S=2 batch vs 2 single launches: max |d| "
+                  f"{batch_err:.3e} (<= 1e-6)", flush=True)
+            if not batch_err <= 1e-6:
+                raise RuntimeError(f"{label} realtime S=2 batch differs from single launches")
+        return errs
+
+    tex_scenes = {}
+
+    def tex_cornell(env_name, emissive):
+        """Cornell-glossy with a texture env, seen past the box's open side."""
+        if (env_name, emissive) not in tex_scenes:
+            sc, cam = build_scene("cornell-glossy")
+            sc.environment = tex_envs[env_name]
+            if emissive:
+                sc.materials = [dataclasses.replace(m, emissive=(0.2, 0.3, 0.4, 2.0))
+                                for m in sc.materials]
+            cam.set_eye_at_up(*TEX_PARITY_EYE, (0.0, 1.0, 0.0))
+            cam.set_aspect(P, P)
+            scene = sc.build(dev)
+            if "tex_autoroute" not in scene["bvh"] or select_route(scene, "progressive") != "fused":
+                raise RuntimeError("a Cornell scene with a texture env did not route to B1")
+            tex_scenes[env_name, emissive] = (scene, cam)
+        return tex_scenes[env_name, emissive]
+
+    b1_tex_err = tex_cases(tex_cornell, fs.fused_progressive_sum,
+                           fs.fused_progressive_sum_reference, fs.realtime_aovs,
+                           fs.fused_realtime_outputs_reference, "B1 texture env cornell-glossy")
+
+    # ---- 20. B5 with texture envs vs plain on instanced:4 at 128^2 -----------------
+    def tex_instanced4(env_name, emissive):
+        if (env_name, emissive, 4) not in tex_scenes:
+            sc, cam = build_scene(BVH_PARITY_SCENE)
+            sc.environment = tex_envs[env_name]
+            if emissive:
+                sc.materials = [dataclasses.replace(m, emissive=(0.2, 0.3, 0.4, 2.0))
+                                for m in sc.materials]
+            cam.set_aspect(P, P)
+            scene = sc.build(dev)
+            if select_route(scene, "progressive") != "fused_traverse":
+                raise RuntimeError(f"{BVH_PARITY_SCENE} with a texture env did not route to B5")
+            tex_scenes[env_name, emissive, 4] = (scene, cam)
+        return tex_scenes[env_name, emissive, 4]
+
+    b5_tex_err = tex_cases(tex_instanced4, ft.fused_traverse_progressive_sum,
+                           ft.fused_traverse_progressive_sum_reference, ft.realtime_aovs,
+                           ft.fused_traverse_realtime_outputs_reference,
+                           f"B5 texture env {BVH_PARITY_SCENE}")
+    tv.check_errors()
+    # the plain version's time at this shape, for the kernel line
+    scene_c4, cam_c4 = tex_instanced4("cubemap", False)
+    cams_c4 = cameras(cam_c4, P, P, BVH_S, 60)
+    b5_tex_small = (kernel_ms(ft.prepare_launch(scene_c4, default_options(), cams_c4, P, P, 3,
+                                                False), 10, torch) / BVH_S,
+                    time_ms(lambda: ft.fused_traverse_progressive_sum_reference(
+                        scene_c4, default_options(), cams_c4, P, P, 3), 2, torch) / BVH_S)
+    del tex_scenes, scene_c4
+
+    # ---- 21. BASELINE config 3: Cornell + the 8K HDR lat-long env, 1080p -----------
+    sc3, cam3 = build_scene("cornell-glossy")
+    sc3.environment = hdr_env  # phase 18's, read through parse_env
+    cam3.set_aspect(C3_W, C3_H)
+    pipe3 = ProgressiveRaytracingPipeline(C3_W, C3_H, seed=0, samples_per_frame=C3_S, device=dev)
+    pipe3.max_iterations = C3_S * C3_DISPATCHES
+    pipe3.set_camera(cam3)
+    pipe3.set_scene(sc3)
+    scene3, opts3 = pipe3.scene_data, pipe3.options
+    if "tex_autoroute" not in scene3["bvh"] or select_route(scene3, "progressive") != "fused":
+        raise RuntimeError("config 3's scene did not route to B1 through its routing BVH")
+    first3 = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(C3_DISPATCHES):
+        pipe3.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first3 is None:
+            first3 = pipe3._camera_params
+        pipe3.render()
+    torch.cuda.synchronize()
+    c3_s = time.perf_counter() - t0
+    c3_launches = fs.LAUNCHES
+    others = (ik.CLOSEST_LAUNCHES, ik.ANY_LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES,
+              ft.LAUNCHES, tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES)
+    img = pipe3.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    print(f"config 3 main path: {C3_DISPATCHES} dispatches x {C3_S} samples at {C3_W}x{C3_H} "
+          f"({pipe3.accum_count} spp) with the {HDR_W}x{HDR_H} lat-long env in {c3_s:.3f}s host "
+          f"clock, B1 launches {c3_launches}, B3 closest / B3 any / B4a closest / B4a any / B5 / "
+          f"B6a closest / B6a any launches {others}, image finite {finite}, mean {mean:.5f} "
+          f"[{card}]", flush=True)
+    if c3_launches != C3_DISPATCHES or any(others):
+        raise RuntimeError(f"expected {C3_DISPATCHES} B1 launches and no other kernel's, got "
+                           f"{c3_launches} and {others}")
+    if not finite or not mean > 0.0 or pipe3.accum_count != C3_S * C3_DISPATCHES:
+        raise RuntimeError("config 3's image is not finite with a positive mean at 1024 spp")
+    got = fs.fused_progressive_sum(scene3, opts3, first3, C3_W, C3_H, 2)
+    with PairCount(intersect, torch) as c3_count:
+        want = fs.fused_progressive_sum_reference(scene3, opts3, first3, C3_W, C3_H, 2)
+    torch.cuda.synchronize()
+    c3_gate = image_gate(f"config 3 first dispatch {C3_W}x{C3_H} S={C3_S} vs plain", got, want,
+                         C3_S)
+    c3_tris = int(scene3["mt_pack"].shape[1])
+    c3_tex = envmap.texture(scene3["env"], 2)
+    c3_bound = bound(c3_count.pairs * OPS_PAIR, c3_tris * (19 + 24) * 4 + C3_W * C3_H * 12
+                     + env_bytes(c3_count.env_lookups, c3_tex))
+    print(f"config 3 work per dispatch (plain run): {c3_count.pairs / (C3_W * C3_H * C3_S):.1f} "
+          f"pair tests and {c3_count.env_lookups / (C3_W * C3_H * C3_S):.3f} env lookups per "
+          f"pixel-sample", flush=True)
+    del got, want
+    headless(["--scene", "cornell-glossy", "--env", f"latlong:{hdr_path}", "--size",
+              f"{C3_W}x{C3_H}", "--spp", "16"], f"cornell-glossy --env latlong {C3_W}x{C3_H} 16 spp")
+
+    # ---- 22. realtime + denoise with the HDR env at 1080p ------------------------------
+    rt = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
+    cam3.set_aspect(RT_W, RT_H)
+    rt.set_camera(cam3)
+    rt.set_scene(sc3)
+    denoiser = DenoiseCompositor(device=dev)
+    frame0 = None
+    torch.cuda.synchronize()
+    reset_counts()
+    for f in range(C3_RT_FRAMES):
+        rt.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        direct, spec = rt.render()
+        display = denoiser.dispatch(direct, spec)
+        if frame0 is None:
+            frame0 = (rt._camera_params, direct, spec)
+    torch.cuda.synchronize()
+    c3_rt_counts = (fs.REALTIME_LAUNCHES, bl.LAUNCHES, ft.REALTIME_LAUNCHES, ik.CLOSEST_LAUNCHES)
+    finite, mean = bool(display.isfinite().all()), float(display.mean())
+    print(f"config 3 realtime + denoise: {C3_RT_FRAMES} frames at {RT_W}x{RT_H} with the lat-long "
+          f"env, B1 realtime / bilateral / B5 realtime / B3 closest launches {c3_rt_counts}, "
+          f"display finite {finite}, mean {mean:.5f}", flush=True)
+    if c3_rt_counts != (C3_RT_FRAMES, 2 * C3_RT_FRAMES, 0, 0) or not finite or not mean > 0.0:
+        raise RuntimeError("the texture-env realtime + denoise frames failed")
+    rt_scene3 = rt.scene_data
+    cam0_3, direct0, spec0 = frame0
+    cams0_3 = {k: v[None] for k, v in cam0_3.items()}
+    with PairCount(intersect, torch) as c3_rt_count:
+        want = fs.fused_realtime_outputs_reference(rt_scene3, rt.options, cams0_3, RT_W, RT_H, 2)
+    got = {"direct": direct0, "indirect_specular": spec0}
+    got.update({k: v[0] for k, v in fs.fused_realtime_outputs_batch(
+        rt_scene3, rt.options, cams0_3, RT_W, RT_H, 2).items() if k not in got})
+    torch.cuda.synchronize()
+    c3_rt_err = aov_gate(f"config 3 realtime frame 0 {RT_W}x{RT_H}", got,
+                         {k: v[0] for k, v in want.items()})
+    c3_rt_bound = bound(c3_rt_count.pairs * OPS_PAIR, c3_tris * (19 + 24) * 4 + RT_W * RT_H * 40
+                        + env_bytes(c3_rt_count.env_lookups, c3_tex))
+    c3_rt_ms = time_ms(lambda: fs.fused_realtime_outputs(rt_scene3, rt.options, cam0_3, RT_W, RT_H,
+                                                         2), 20, torch)
+    c3_rt_plain_ms = time_ms(lambda: fs.fused_realtime_outputs_reference(
+        rt_scene3, rt.options, cams0_3, RT_W, RT_H, 2), 3, torch)
+    print(f"time B1 realtime texture env: kernel {c3_rt_ms:.3f} ms, plain {c3_rt_plain_ms:.3f} ms "
+          f"per {RT_W}x{RT_H} frame, bound {c3_rt_bound[0]:.4f} ms ({c3_rt_bound[1]}) [{card}]",
+          flush=True)
+    del rt, got, want, direct, spec, display, frame0, direct0, spec0
+    headless(["--pipeline", "realtime", "--denoise", "--scene", "cornell-glossy", "--env",
+              f"latlong:{hdr_path}", "--size", f"{RT_W}x{RT_H}"],
+             f"realtime+denoise cornell-glossy --env latlong {RT_W}x{RT_H}")
+
+    # ---- 23. B5 with the cubemap at full width: phase 8's instanced:32, 512^2 ------
+    tex32 = dict(scene32, env=envmap.place(cube_env, dev))
+    pipe_t = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
+    pipe_t.max_iterations = BVH_S * C3_B5_DISPATCHES
+    pipe_t.set_camera(cam32)
+    pipe_t.set_scene_data(tex32)
+    first_t = None
+    torch.cuda.synchronize()
+    reset_counts()
+    for f in range(C3_B5_DISPATCHES):
+        pipe_t.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first_t is None:
+            first_t = pipe_t._camera_params
+        pipe_t.render()
+    torch.cuda.synchronize()
+    b5_tex_launches = ft.LAUNCHES
+    others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, tv2.CLOSEST_LAUNCHES,
+              ik.CLOSEST_LAUNCHES)
+    img = pipe_t.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    print(f"B5 cubemap main path: {C3_B5_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
+          f"{BVH_MAIN_SCENE} with the 6x{CUBE_S}^2 cubemap, B5 launches {b5_tex_launches}, "
+          f"B1 / B4a closest / B4a any / B6a / B3 launches {others}, image finite {finite}, mean "
+          f"{mean:.5f}", flush=True)
+    if b5_tex_launches != C3_B5_DISPATCHES or any(others) or not finite or not mean > 0.0:
+        raise RuntimeError("the cubemap env on instanced:32 did not run through B5 as expected")
+    cam_t = {k: v[0] for k, v in first_t.items()}
+    b5_tex_one = ft.fused_traverse_progressive_sum(tex32, pipe_t.options,
+                                                   {k: v[None] for k, v in cam_t.items()}, M, M, 3)
+    o_t, d_t = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam_t, M, M, fs.JITTER_SCALE))
+    pick_t = torch.as_tensor(rng.choice(M * M, COUNT_PIXELS, replace=False), device=dev)
+    seeds_t = trng.pixel_seeds(M, M, cam_t["frame_count"], device=dev).reshape(-1)
+    with PairCount(intersect, torch) as b5_tex_count, TraceLog(tv, TraceLog.PLAIN) as plain_log:
+        plain_t = trace_rays(tex32, pipe_t.options, o_t[pick_t], d_t[pick_t], seeds_t[pick_t],
+                             impl="torch")["color"][None]
+    torch.cuda.synchronize()
+    tv.check_errors()
+    b5_tex_gate = image_gate(f"B5 cubemap vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels "
+                             f"of {M}^2, 1 sample", b5_tex_one.reshape(-1, 3)[pick_t][None],
+                             plain_t, 1)
+    bvh_np = {k: scene32["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "mt_rows")}
+    wc_t = WalkCount(tv, bvh_np)
+    with TraceHook(tv, wc_t.add), TraceLog(tv) as wave_log:
+        wave_t = trace_rays(tex32, pipe_t.options, o_t[pick_t], d_t[pick_t], seeds_t[pick_t],
+                            impl="cuda")["color"]
+    t_ops, t_bytes = walk_work(wc_t, M * M / COUNT_PIXELS, scene32["bvh"],
+                               12 / max(wc_t.c["rays"] / COUNT_PIXELS, 1), 10)
+    # Where B5 and the plain version part with the cubemap: the same pixels
+    # and camera with the gradient env (smooth, so it moves only where the
+    # path itself moves, and only with d.y); the wavefront route on the
+    # same rays (B4a's walk, the same as B5's, with the plain lookup); and
+    # where the wavefront route's path and the plain one (a brute-force
+    # sweep) part, from their traces. The lookup is continuous except
+    # across cube faces (near a face tie).
+    b5_grad_one = ft.fused_traverse_progressive_sum(scene32, pipe_t.options,
+                                                    {k: v[None] for k, v in cam_t.items()}, M, M, 1)
+    plain_g = trace_rays(scene32, pipe_t.options, o_t[pick_t], d_t[pick_t], seeds_t[pick_t],
+                         impl="torch")["color"]
+    torch.cuda.synchronize()
+    tv.check_errors()
+    b5_grad_one = b5_grad_one.reshape(-1, 3)[pick_t]
+    b5_grad_gate = image_gate(f"B5 gradient env vs plain, the same {COUNT_PIXELS} pixels and "
+                              f"camera", b5_grad_one[None], plain_g[None], 1)
+    b5_c = b5_tex_one.reshape(-1, 3)[pick_t]
+    paths = path_census(wave_log, plain_log, COUNT_PIXELS, TIE_REL)
+
+    def diff(a, b):
+        return (a - b).abs().max(dim=-1).values
+
+    bad_idx = torch.nonzero(diff(b5_c, plain_t[0]) > BAD_TOL).flatten().tolist()
+    rows = [{"pixel": int(pick_t[i]), "b5_vs_plain": float(diff(b5_c, plain_t[0])[i]),
+             "b5_vs_wavefront": float(diff(b5_c, wave_t)[i]),
+             "wavefront_vs_plain": float(diff(wave_t, plain_t[0])[i]),
+             "gradient_env_b5_vs_plain": float(diff(b5_grad_one, plain_g)[i]),
+             **{k: (float(v[i]) if k == "miss_dir_diff" else bool(v[i]))
+                for k, v in paths.items()}}
+            for i in bad_idx]
+    walk_parts = [r for r in rows if r["primary_tri"] or r["bounce_hit"] or r["bounce_tri"]
+                  or r["shadow"] or r["miss_dir_diff"] > DIR_PART]
+    census = {"bad_pixels": len(rows),
+              "wavefront_route_matches_b5": sum(r["b5_vs_wavefront"] <= BAD_TOL for r in rows),
+              "walk_and_sweep_part": len(walk_parts),
+              "by_primary_tri": sum(r["primary_tri"] for r in rows),
+              "by_bounce_hit_or_tri": sum(r["bounce_hit"] or r["bounce_tri"] for r in rows),
+              "by_shadow": sum(r["shadow"] for r in rows),
+              "near_face_tie": sum(r["near_face_tie"] for r in rows)}
+    # a pixel where B5 parts from the wavefront route on the same path would
+    # be a fault of the kernel's lookup
+    unexplained = [r["pixel"] for r in rows
+                   if r["b5_vs_wavefront"] > BAD_TOL and r not in walk_parts]
+    census.update(unexplained=len(unexplained), pixels=rows)
+    for r in rows:
+        print(f"B5 cubemap bad pixel: {json.dumps(r)}", flush=True)
+    print(f"B5 cubemap bad pixels, by cause: "
+          f"{json.dumps({k: v for k, v in census.items() if k != 'pixels'})} "
+          f"(wavefront_route_matches_b5: B4a's walk with the plain lookup agrees with B5 to "
+          f"{BAD_TOL}; walk_and_sweep_part: that route's path and the plain version's differ in a "
+          f"hit, a triangle, a shadow ray or a miss's direction by > {DIR_PART})", flush=True)
+    if unexplained:
+        raise RuntimeError(f"B5 with the cubemap parts from the wavefront route where the paths "
+                           f"agree, pixels {unexplained}: a fault in the kernel's lookup")
+    b5_tex_bound = bound(t_ops, t_bytes + env_bytes(b5_tex_count.env_lookups * M * M
+                                                    / COUNT_PIXELS, tex32["env"]["cube"]))
+    # B5 alone on the same cameras: the cubemap, the gradient env, in turns
+    tex_prep = ft.prepare_launch(tex32, pipe_t.options, first_t, M, M, 3, False)
+    grad_prep = ft.prepare_launch(scene32, pipe_t.options, first_t, M, M, 1, False)
+    turns = [kernel_ms(p, 5, torch) / BVH_S for p in (tex_prep, grad_prep, grad_prep, tex_prep)]
+    b5_tex_ms, b5_grad_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    tv.check_errors()
+    print(f"time B5 texture env: kernel {b5_tex_ms:.3f} ms per {M}^2 sample with the cubemap, "
+          f"{b5_grad_ms:.3f} ms with the gradient env on the same cameras (turns "
+          f"{', '.join(f'{t:.3f}' for t in turns)}); bound {b5_tex_bound[0]:.4f} ms "
+          f"({b5_tex_bound[1]}); {b5_tex_count.env_lookups / COUNT_PIXELS:.3f} env lookups per "
+          f"pixel-sample [{card}]", flush=True)
+    del pipe_t, tex32, tex_prep, grad_prep, scene32, bvh_np, b5_tex_one, o_t, d_t
+    del plain_log, wave_log, paths
+    torch.cuda.empty_cache()
+
+    # ---- 24. the wavefront routes with a texture env at 128^2 ----------------------
+    wave_tex = {}
+    for label, scene_w, cam_w, names, want_counts in (
+            ("B3 cornell 2dir_2point_1area", "cornell", "brute", TraceHook.BRUTE, (2, 2)),
+            (f"B6a {BVH_PARITY_SCENE} two-level", BVH_PARITY_SCENE, "two_level",
+             TraceHook.TWO_LEVEL, (2, 2))):
+        sc_w, c_w = build_scene(scene_w)
+        sc_w.environment = hdr_env
+        if cam_w == "brute":
+            sc_w.lights = rig
+            c_w.set_eye_at_up(*TEX_PARITY_EYE, (0.0, 1.0, 0.0))
+            built = sc_w.build(dev)
+            mod = ik
+        else:
+            built = sc_w.build_two_level(dev)
+            mod = tv2
+        c_w.set_aspect(P, P)
+        if select_route(built, "progressive") != "wavefront" or "bvh" in built:
+            raise RuntimeError(f"{label} with the lat-long env did not take the wavefront route")
+        cam_1 = {k: v[0] for k, v in cameras(c_w, P, P, 1, 77).items()}
+        opts_w = default_options()
+        reset_counts()
+        got = render_sample(built, opts_w, cam_1, P, P, impl="cuda")["color"]
+        torch.cuda.synchronize()
+        counts = (mod.CLOSEST_LAUNCHES, mod.ANY_LAUNCHES)
+        want = render_sample(built, opts_w, cam_1, P, P, impl="torch")["color"]
+        torch.cuda.synchronize()
+        if counts != want_counts:
+            raise RuntimeError(f"{label}: expected {want_counts} launches, got {counts}")
+        wave_tex[label] = image_gate(f"{label} with the lat-long env {P}^2, 1 sample, vs plain",
+                                     got, want, 1)
+    tv.check_errors()
+
+    # ---- 25. config 3 times ---------------------------------------------------------
+    black3 = dict(scene3, env=envmap.place(envmap.constant_env(), dev))
+    c3_turns = [time_ms(lambda: fs.fused_progressive_sum(s3, opts3, first3, C3_W, C3_H, k3), 10,
+                        torch) for s3, k3 in ((scene3, 2), (black3, 0), (black3, 0), (scene3, 2))]
+    c3_ms, c3_black_ms = (c3_turns[0] + c3_turns[3]) / 2, (c3_turns[1] + c3_turns[2]) / 2
+    c3_plain_ms = time_ms(lambda: fs.fused_progressive_sum_reference(
+        scene3, opts3, first3, C3_W, C3_H, 2), 1, torch)
+    n_disp = 20
+    pipe3.max_iterations = 2**30  # every timed dispatch renders
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(n_disp):
+        pipe3.update(elapsed_time=0.0, elapsed_frames=C3_DISPATCHES + f)
+        pipe3.render()
+    c3_enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    c3_dispatch_s = time.perf_counter() - t0
+    pipe3.get_output()
+    print(f"time config 3: B1 {c3_ms:.3f} ms per {C3_S}-sample {C3_W}x{C3_H} dispatch with the "
+          f"lat-long env, {c3_black_ms:.3f} ms with the black constant env on the same scene and "
+          f"cameras (turns {', '.join(f'{t:.3f}' for t in c3_turns)}), "
+          f"{C3_W * C3_H * C3_S / c3_ms / 1e3:.2f} primary Mrays/s; plain {c3_plain_ms:.1f} ms; "
+          f"bound {c3_bound[0]:.4f} ms ({c3_bound[1]}); host per dispatch "
+          f"{c3_enqueue_s / n_disp * 1e3:.3f} ms enqueued, {c3_dispatch_s / n_disp * 1e3:.3f} ms "
+          f"synchronised ({n_disp} dispatches); {c3_s:.3f} s to {C3_S * C3_DISPATCHES} spp "
+          f"[{card}]", flush=True)
+    del pipe3, scene3, black3
+    tex_dir.cleanup()
+    torch.cuda.empty_cache()
+
     kernels = [
         {
             "name": "fused_progressive_sum",
@@ -2002,6 +2579,43 @@ def main() -> int:
                 "attributes": b3_attr, "image_vs_plain": b3_image, "side_paths": side,
                 "dispatch_ms_enqueued": b3_enqueue_s / n_disp * 1e3,
                 "dispatch_ms_synchronised": b3_dispatch_s / n_disp * 1e3}),
+        })
+    tex_shape = f"cornell-glossy with the {HDR_W}x{HDR_H} lat-long env"
+    for name, source, replaces, n, err, ms, plain, bnd, extra in (
+        ("fused_progressive_sum, texture env", "fused_sample.cu",
+         "ops/fused_sample_pallas.py:640", c3_launches, c3_gate["max_abs_diff"], c3_ms,
+         c3_plain_ms, c3_bound,
+         {"shape": f"{tex_shape}, {C3_W}x{C3_H}, per {C3_S}-sample dispatch (BASELINE config 3)",
+          "ms_black_constant_env": c3_black_ms,
+          "host_ms_per_dispatch_enqueued": c3_enqueue_s / n_disp * 1e3,
+          "host_ms_per_dispatch_synchronised": c3_dispatch_s / n_disp * 1e3,
+          "seconds_to_1024_spp": c3_s, "parity_128_max_abs_diff": b1_tex_err[0]}),
+        ("fused_realtime_outputs, texture env", "fused_sample.cu",
+         "ops/fused_sample_pallas.py:640", c3_rt_counts[0], max(c3_rt_err, b1_tex_err[1]),
+         c3_rt_ms, c3_rt_plain_ms, c3_rt_bound,
+         {"shape": f"{tex_shape}, {RT_W}x{RT_H}, per frame"}),
+        ("fused_traverse_progressive_sum, texture env", "fused_traverse.cu",
+         "ops/fused_traverse_pallas.py:131", b5_tex_launches, b5_tex_gate["max_abs_diff"],
+         b5_tex_ms, b5_tex_small[1], b5_tex_bound,
+         {"shape": f"{BVH_MAIN_SCENE} with the 6x{CUBE_S}^2 cubemap, {M}^2, per sample",
+          "ms_gradient_env": b5_grad_ms, "plain_shape": f"{BVH_PARITY_SCENE} {P}^2 cubemap",
+          "ms_at_plain_shape": b5_tex_small[0], "parity_128_max_abs_diff": max(b5_tex_err),
+          "bad_pixel_causes": census, "gradient_env_same_pixels": b5_grad_gate,
+          "wavefront_routes_vs_plain": wave_tex}),
+    ):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dxrexperiments_torch/csrc/{source}",
+            "replaces": f"dxrexperiments_tpu/{replaces}",
+            "launches": n,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain,
+            "bound_ms": bnd[0],
+            "bound_by": bnd[1],
+            "library_ms": None,
+            **extra,
         })
     tv.check_errors()
     print(json.dumps({"kernels": kernels}))

@@ -20,7 +20,14 @@ Usage:
         --accel two-level --animate-instances --size 512x512 --spp 16 -o out.png
     python -m dxrexperiments_torch.app.headless --scene cornell-glass --refraction \
         --size 512x512 --spp 16 -o out.png
+    python -m dxrexperiments_torch.app.headless --scene cornell-glossy \
+        --env latlong:sky.hdr --size 1920x1080 --spp 1024 -o out.png
 
+--env sets the environment: gradient, constant:R,G,B, latlong:PATH (a
+Radiance .hdr, or an LDR image through PIL) or cubemap:PATH (an
+uncompressed .dds cubemap), each with an optional ' xStrength' suffix; a
+texture env on a small scene routes it through a BVH (``Scene.build``'s
+tex_autoroute), and the megakernels look the texture up at every miss.
 --accel two-level renders the scene as one BLAS per unique mesh under a
 TLAS over its instances; --animate-instances turns the instances each frame
 by a TLAS refit (progressive pipeline). --device defaults to cuda and fails
@@ -46,7 +53,8 @@ from ..scene.lights import default_lights, directional_light, point_light
 from ..scene.materials import MATERIAL_GLASS
 from ..scene.mesh import Mesh
 from ..scene.procedural import random_triangle_soup, sphere_mesh
-from ..utils.image import write_png
+from ..utils.dds import load_cubemap
+from ..utils.image import read_image, write_png
 from ..utils.stats import FrameStats
 
 SCENES = ("cornell", "cornell-glossy", "cornell-glass", "soup:N", "instanced:K")
@@ -143,7 +151,8 @@ def yaw_matrix(yaw: float) -> np.ndarray:
 
 
 def parse_env(spec: str) -> dict:
-    """--env: gradient | constant:R,G,B, with an optional ' xStrength' suffix."""
+    """--env: gradient | constant:R,G,B | latlong:PATH | cubemap:PATH, with an
+    optional ' xStrength' suffix."""
     strength = 1.0
     if " x" in spec:
         spec, s = spec.rsplit(" x", 1)
@@ -154,8 +163,10 @@ def parse_env(spec: str) -> dict:
     if kind == "constant":
         rgb = tuple(float(v) for v in arg.split(",")) if arg else (0.0, 0.0, 0.0)
         return envmap.constant_env(rgb, strength=strength)
-    if kind in ("latlong", "cubemap"):
-        raise NotImplementedError(f"--env {kind} is not ported yet (ROADMAP Queue A item 9)")
+    if kind == "latlong":
+        return envmap.latlong_env(read_image(arg), strength=strength)
+    if kind == "cubemap":
+        return envmap.cubemap_env(load_cubemap(arg), strength=strength)
     raise ValueError(f"unknown env spec {spec!r}")
 
 
@@ -187,7 +198,8 @@ def main(argv=None) -> int:
                     help="debug AOV view (progressive pipeline)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--env", default=None,
-                    help="environment override: gradient | constant:R,G,B [xStrength]")
+                    help="environment override: gradient | constant:R,G,B | latlong:PATH "
+                         "(.hdr or LDR) | cubemap:PATH (.dds), each [xStrength]")
     ap.add_argument("--tonemap", action="store_true", help="Reinhard + gamma the output")
     ap.add_argument("--save-state", default=None, metavar="PATH",
                     help="write the accumulation checkpoint to PATH.npz at the end")

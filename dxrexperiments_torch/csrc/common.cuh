@@ -22,10 +22,24 @@
 //    B6a runs the same walk on the TLAS, whose leaf visit walks a BLAS with
 //    the leaf test's ray moved into object space (set_ray).
 //
+// 3. The miss shader's environment (env_color): constant and gradient from
+//    the const pack, and the lat-long and cubemap textures of
+//    scene/envmap.py, looked up at every miss of the ray tree. The TPU kernel
+//    wrote the bounce directions and env weights out for a gather pass
+//    outside it (its env-deferred mode), since gathers do not lower in
+//    Mosaic; here a texel is an ordinary load, so the lookup stays inside
+//    the kernel and nothing is written out for it. Four float32 taps with
+//    float32 weights (__ldg; no hardware-filtered texture fetch, whose 9-bit
+//    weights would not hold the image gate on HDR radiance), from the plain
+//    [h][w][3] or [6][s][s][3] texture (an 8192 x 4096 lat-long, the size
+//    BASELINE config 3 loads, is 403 MB, past the 50 MB L2; the quad-packed
+//    table of the TPU layout would be 4x that).
+//
 // Arithmetic follows the TPU kernels: the same term sums, the same
 // sign-multiplied validity windows, t = ts / max(|det|, 1e-12), ties to the
 // lowest row, strict '<' across leaves, and the same draw routing. Build
-// without --use_fast_math (IEEE sqrtf, division, sinf, cosf, expf, powf).
+// without --use_fast_math (IEEE sqrtf, division, sinf, cosf, expf, powf,
+// atan2f, acosf).
 
 #pragma once
 
@@ -40,6 +54,7 @@ constexpr float kRayEps = 1.0e-4f;
 constexpr float kDetEps = 1.0e-12f;
 constexpr float kPi = 3.14159265358979323846f;
 constexpr float kTwoPi = 6.28318530717958647692f;
+constexpr float kInvPi = 0.318309886183790671538f;  // float32(1 / pi), envmap._INV_PI
 constexpr int kMaxStack = 96;  // traverse_pallas.MAX_STACK
 constexpr int kRowLanes = 128;  // mt_rows row width
 
@@ -314,10 +329,87 @@ struct AnyLeaf {
 // The per-pixel ray tree
 // ---------------------------------------------------------------------------
 
-// Constant (kind 0) or gradient (kind 1) environment, times the strength.
-__device__ V3 env_color(V3 d, const float* cst, int env_kind) {
+// The environment: kind 0 constant and 1 gradient (colours in the const
+// pack), 2 lat-long texture tex [h][w][3], 3 cubemap tex [6][w][w][3]
+// (w == h), float32 in device memory.
+struct Env {
+  const float* tex;
+  int kind, w, h;
+};
+
+// The launch arguments of an env: kinds 0-3, a texture kind with its
+// texture and non-empty dimensions (a cubemap's faces square).
+inline bool env_args_ok(int kind, const void* tex, int w, int h) {
+  if (kind == 0 || kind == 1) return true;
+  if (kind != 2 && kind != 3) return false;
+  return tex != nullptr && w >= 1 && h >= 1 && (kind == 2 || w == h);
+}
+
+__device__ __forceinline__ V3 texel(const float* tex, int i) {
+  const float* p = tex + 3 * (size_t)i;
+  return v3(__ldg(p), __ldg(p + 1), __ldg(p + 2));
+}
+
+// envmap._bilinear_mix: c00 (1-fx)(1-fy) + c10 fx (1-fy) + c01 (1-fx) fy + c11 fx fy
+__device__ __forceinline__ float mix4(float c00, float c10, float c01, float c11, float fx,
+                                      float fy) {
+  return c00 * (1.0f - fx) * (1.0f - fy) + c10 * fx * (1.0f - fy) + c01 * (1.0f - fx) * fy +
+         c11 * fx * fy;
+}
+
+__device__ __forceinline__ V3 bilinear(const float* tex, int i00, int i10, int i01, int i11,
+                                       float fx, float fy) {
+  V3 a = texel(tex, i00), b = texel(tex, i10), c = texel(tex, i01), d = texel(tex, i11);
+  return v3(mix4(a.x, b.x, c.x, d.x, fx, fy), mix4(a.y, b.y, c.y, d.y, fx, fy),
+            mix4(a.z, b.z, c.z, d.z, fx, fy));
+}
+
+// envmap.dir_to_latlong_uv + _bilinear_wrap_u: u wraps (a floor mod: at
+// u * w < 0.5 the left tap is texel w - 1), v clamps. At the seam atan2f
+// gives +pi or -pi, u = 1 or 0, and both give taps (w - 1, 0) at fx = 0.5.
+__device__ V3 env_latlong(const Env& e, V3 d) {
+  float u = (1.0f + atan2f(d.x, -d.z) * kInvPi) * 0.5f;
+  float v = acosf(fminf(fmaxf(d.y, -1.0f), 1.0f)) * kInvPi;
+  float x = u * (float)e.w - 0.5f, y = v * (float)e.h - 0.5f;
+  float x0 = floorf(x), y0 = floorf(y);
+  int xi = (int)x0 % e.w;
+  xi = xi < 0 ? xi + e.w : xi;
+  int yi = min(max((int)y0, 0), e.h - 1);
+  int x1 = xi + 1 == e.w ? 0 : xi + 1, y1 = min(yi + 1, e.h - 1);
+  return bilinear(e.tex, yi * e.w + xi, yi * e.w + x1, y1 * e.w + xi, y1 * e.w + x1, x - x0,
+                  y - y0);
+}
+
+// envmap.dir_to_cube_face_uv + _bilinear_cube: D3D face selection (ties to
+// x with >=, then y with > x and >= z, then z), taps clamped inside the face
+// and weights from the unclamped position.
+__device__ V3 env_cube(const Env& e, V3 d) {
+  float ax = fabsf(d.x), ay = fabsf(d.y), az = fabsf(d.z);
+  bool is_x = (ax >= ay) && (ax >= az);
+  bool is_y = (ay > ax) && (ay >= az);
+  int face = is_x ? (d.x >= 0.0f ? 0 : 1) : (is_y ? (d.y >= 0.0f ? 2 : 3) : (d.z >= 0.0f ? 4 : 5));
+  float ma = fmaxf(is_x ? ax : (is_y ? ay : az), 1e-12f);
+  float sc = is_x ? (d.x >= 0.0f ? -d.z : d.z) : (is_y ? d.x : (d.z >= 0.0f ? d.x : -d.x));
+  float tc = is_x ? -d.y : (is_y ? (d.y >= 0.0f ? d.z : -d.z) : -d.y);
+  float u = (sc / ma + 1.0f) * 0.5f, v = (tc / ma + 1.0f) * 0.5f;
+  const int s = e.w;
+  float x = u * (float)s - 0.5f, y = v * (float)s - 0.5f;
+  float x0 = floorf(x), y0 = floorf(y);
+  int xi = min(max((int)x0, 0), s - 1), yi = min(max((int)y0, 0), s - 1);
+  int x1 = min(xi + 1, s - 1), y1 = min(yi + 1, s - 1);
+  int base = face * s * s;
+  return bilinear(e.tex, base + yi * s + xi, base + yi * s + x1, base + y1 * s + xi,
+                  base + y1 * s + x1, x - x0, y - y0);
+}
+
+// Radiance of direction d, times the strength.
+__device__ V3 env_color(V3 d, const float* cst, const Env& env) {
   float strength = cst[C_STRENGTH];
-  if (env_kind == 0) {
+  if (env.kind >= 2) {
+    V3 c = env.kind == 2 ? env_latlong(env, d) : env_cube(env, d);
+    return v3(c.x * strength, c.y * strength, c.z * strength);
+  }
+  if (env.kind == 0) {
     return v3(cst[C_ENV0] * strength, cst[C_ENV0 + 1] * strength, cst[C_ENV0 + 2] * strength);
   }
   float t = saturate(d.y * 0.5f + 0.5f);
@@ -362,9 +454,9 @@ __device__ V3 direct_lighting(const Tr& T, const float* cst, V3 pos, V3 normal, 
 // the environment on a miss.
 template <class Tr>
 __device__ V3 secondary_radiance(const Tr& T, const float* cst, V3 o, V3 d, float pick,
-                                 int env_kind, bool emissive) {
+                                 const Env& env, bool emissive) {
   Hit h = T.closest(o, d, kRayEps, false);
-  if (!h.hit) return env_color(d, cst, env_kind);
+  if (!h.hit) return env_color(d, cst, env);
   V3 direct = direct_lighting(T, cst, h.pos, h.normal, pick);
   float estr = T.a(A_ESTR, h.row);
   float out[3];
@@ -463,12 +555,13 @@ __device__ __forceinline__ bool specular_active(const Tr& T, int r) {
 // One progressive sample of pixel (px, py); adds its colour to acc.
 template <class Tr>
 __device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const float* cst,
-                             int px, int py, int width, int height, int env_kind, float acc[3]) {
+                             int px, int py, int width, int height, const Env& env,
+                             float acc[3]) {
   V3 o, d;
   primary_ray(cm, px, py, width, height, &o, &d);
   Hit h = T.closest(o, d, 0.0f, true);
   if (!h.hit) {
-    V3 e = env_color(d, cst, env_kind);
+    V3 e = env_color(d, cst, env);
     acc[0] += sanitize(e.x);
     acc[1] += sanitize(e.y);
     acc[2] += sanitize(e.z);
@@ -499,8 +592,8 @@ __device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const
 
   // ---- bounces: depth-1 shading re-seeds, so both pick the light with u1 --
   V3 sec = no_ind ? v3(0.0f, 0.0f, 0.0f)
-                  : secondary_radiance(T, cst, pos, diff_dir, u[0], env_kind, true);
-  V3 spec_rad = spec_active ? secondary_radiance(T, cst, pos, ph.dir, u[0], env_kind, true)
+                  : secondary_radiance(T, cst, pos, diff_dir, u[0], env, true);
+  V3 spec_rad = spec_active ? secondary_radiance(T, cst, pos, ph.dir, u[0], env, true)
                             : v3(0.0f, 0.0f, 0.0f);
 
   // ---- epilogue (trace_rays) -------------------------------------------------
@@ -534,7 +627,7 @@ __device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const
 // no-diffuse slots: (u2, u3) under debug==2, else (u1, u2).
 template <class Tr>
 __device__ void realtime_pixel(const Tr& T, const float* cm, uint32_t frame, const float* cst,
-                               int px, int py, int width, int height, int env_kind,
+                               int px, int py, int width, int height, const Env& env,
                                float aov[10]) {
   V3 o, d;
   primary_ray(cm, px, py, width, height, &o, &d);
@@ -542,7 +635,7 @@ __device__ void realtime_pixel(const Tr& T, const float* cm, uint32_t frame, con
 #pragma unroll
   for (int k = 0; k < 10; ++k) aov[k] = 0.0f;
   if (!h.hit) {  // a miss routes the environment into the direct AOV
-    V3 e = env_color(d, cst, env_kind);
+    V3 e = env_color(d, cst, env);
     aov[0] = sanitize(e.x);
     aov[1] = sanitize(e.y);
     aov[2] = sanitize(e.z);
@@ -558,7 +651,7 @@ __device__ void realtime_pixel(const Tr& T, const float* cm, uint32_t frame, con
   bool spec_active = specular_active(T, r);
   float exponent = expf((1.0f - T.a(A_ROUGH, r)) * 12.0f);
   Phong ph = phong_lobe(d, h.normal, is_mc ? u[1] : u[0], is_mc ? u[2] : u[1], exponent);
-  V3 spec_rad = spec_active ? secondary_radiance(T, cst, h.pos, ph.dir, u[0], env_kind, false)
+  V3 spec_rad = spec_active ? secondary_radiance(T, cst, h.pos, ph.dir, u[0], env, false)
                             : v3(0.0f, 0.0f, 0.0f);
   float cosi = saturate(-dot3(d, h.normal));
   float pw5 = powf(1.0f - cosi, 5.0f);

@@ -14,6 +14,11 @@
 //   each frame writes its own AOVs (direct, indirect specular, albedo,
 //   roughness), so nothing is summed across frames.
 //
+// A miss, primary or bounce, takes the environment: constant, gradient, or
+// a lat-long or cubemap texture looked up inside the kernel (common.cuh
+// env_color; the TPU kernel's env-deferred mode wrote bounce directions and
+// env weights out for a gather pass instead).
+//
 // What bounds it: compute and latency. A pixel-sample does about 9*C
 // Möller–Trumbore pair tests (C = 40 padded triangles for the Cornell box),
 // each ~20 FMAs, while the output is 12 bytes per pixel per dispatch (3 MB
@@ -124,7 +129,7 @@ __global__ void __launch_bounds__(kThreads)
 fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
                          const float* __restrict__ cst, const float* __restrict__ mt,
                          const float* __restrict__ attr, float* __restrict__ out, int s_count,
-                         int c, int width, int height, int env_kind) {
+                         int c, int width, int height, Env env) {
   extern __shared__ float smem[];
   Tris T = stage_tris(smem, mt, attr, c);
   int pix = blockIdx.x * blockDim.x + threadIdx.x;
@@ -132,7 +137,7 @@ fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restri
   int px = pix % width, py = pix / width;
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < s_count; ++s) {
-    sample_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env_kind, acc);
+    sample_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env, acc);
   }
   out[pix * 3 + 0] = acc[0];
   out[pix * 3 + 1] = acc[1];
@@ -145,7 +150,7 @@ fused_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict_
                       const float* __restrict__ cst, const float* __restrict__ mt,
                       const float* __restrict__ attr, float* __restrict__ direct,
                       float* __restrict__ ispec, float* __restrict__ albedo,
-                      float* __restrict__ rough, int c, int width, int height, int env_kind) {
+                      float* __restrict__ rough, int c, int width, int height, Env env) {
   extern __shared__ float smem[];
   Tris T = stage_tris(smem, mt, attr, c);
   int n = width * height;
@@ -153,8 +158,8 @@ fused_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict_
   if (pix >= n) return;
   int s = blockIdx.y;
   float aov[10];
-  realtime_pixel(T, cam + s * 16, frames[s], cst, pix % width, pix / width, width, height,
-                 env_kind, aov);
+  realtime_pixel(T, cam + s * 16, frames[s], cst, pix % width, pix / width, width, height, env,
+                 aov);
   size_t o = (size_t)s * n + pix;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -169,21 +174,27 @@ fused_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict_
 
 // Sum of S progressive samples into out [height, width, 3] float32.
 //   cam [S, 16] f32 (pack_cameras), frames [S] u32, cst [2, 16] f32
-//   (pack_consts), mt [4, c, 16] f32, attr [32, c] f32; env_kind 0 or 1.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+//   (pack_consts), mt [4, c, 16] f32, attr [32, c] f32; env_kind 0-3, and
+//   for kind 2 env_tex the lat-long [env_h, env_w, 3] f32, for kind 3 the
+//   cubemap [6, env_w, env_w, 3] f32 (env_h == env_w); ignored for 0 and 1.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for bad arguments (a texture kind without its
+// texture or with empty dimensions among them).
 extern "C" int dxr_fused_progressive_sum(const float* cam, const uint32_t* frames,
                                          const float* cst, const float* mt, const float* attr,
                                          float* out, int s_count, int c, int width, int height,
-                                         int env_kind, void* stream) {
+                                         int env_kind, const float* env_tex, int env_w,
+                                         int env_h, void* stream) {
   if (c < 1 || c > kMaxTris || s_count < 1 || width < 1 || height < 1 ||
-      (env_kind != 0 && env_kind != 1)) {
+      !env_args_ok(env_kind, env_tex, env_w, env_h)) {
     return (int)cudaErrorInvalidValue;
   }
   int n = width * height;
   int blocks = (n + kThreads - 1) / kThreads;
   size_t smem = (size_t)(kMtSlots + kAttrRows) * c * sizeof(float);  // <= 44 KB
   fused_progressive_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      cam, frames, cst, mt, attr, out, s_count, c, width, height, env_kind);
+      cam, frames, cst, mt, attr, out, s_count, c, width, height,
+      Env{env_tex, env_kind, env_w, env_h});
   return (int)cudaGetLastError();
 }
 
@@ -195,15 +206,17 @@ extern "C" int dxr_fused_realtime_outputs(const float* cam, const uint32_t* fram
                                           const float* cst, const float* mt, const float* attr,
                                           float* direct, float* ispec, float* albedo,
                                           float* rough, int s_count, int c, int width,
-                                          int height, int env_kind, void* stream) {
+                                          int height, int env_kind, const float* env_tex,
+                                          int env_w, int env_h, void* stream) {
   if (c < 1 || c > kMaxTris || s_count < 1 || s_count > 65535 || width < 1 || height < 1 ||
-      (env_kind != 0 && env_kind != 1)) {
+      !env_args_ok(env_kind, env_tex, env_w, env_h)) {
     return (int)cudaErrorInvalidValue;
   }
   int n = width * height;
   dim3 grid((n + kThreads - 1) / kThreads, s_count);
   size_t smem = (size_t)(kMtSlots + kAttrRows) * c * sizeof(float);  // <= 44 KB
   fused_realtime_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      cam, frames, cst, mt, attr, direct, ispec, albedo, rough, c, width, height, env_kind);
+      cam, frames, cst, mt, attr, direct, ispec, albedo, rough, c, width, height,
+      Env{env_tex, env_kind, env_w, env_h});
   return (int)cudaGetLastError();
 }

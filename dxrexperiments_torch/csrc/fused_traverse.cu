@@ -2,8 +2,10 @@
 //
 // Replace the TPU kernel _make_ft_kernel
 // (dxrexperiments_tpu/ops/fused_traverse_pallas.py:131, launched by
-// _ft_dispatch) in its base mode, env kinds 0/1 and rigs of at most one
-// directional and one point light:
+// _ft_dispatch) in its base and env-deferred modes (env kinds 0-3, the
+// lat-long and cubemap textures looked up inside the kernel at every miss,
+// common.cuh env_color) and rigs of at most one directional and one point
+// light:
 // - progressive: one launch renders S jittered samples of the whole ray
 //   tree per pixel (primary closest hit with backfaces culled, 2 shadow
 //   rays, the diffuse and Phong bounces with 2 shadow rays each) and writes
@@ -94,7 +96,7 @@ __device__ __forceinline__ void stage_materials(float* s_mat, const float* __res
 __global__ void __launch_bounds__(kTileW * kTileH)
 ft_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
                       const float* __restrict__ cst, FatBvh B, const float* __restrict__ mat,
-                      float* __restrict__ out, int s_count, int width, int height, int env_kind,
+                      float* __restrict__ out, int s_count, int width, int height, Env env,
                       int rig) {
   __shared__ float s_mat[kMatFields * kMaxMaterials];
   stage_materials(s_mat, mat);
@@ -104,7 +106,7 @@ ft_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict_
   BvhScene T{B, s_mat, stack, rig};
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < s_count; ++s) {
-    sample_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env_kind, acc);
+    sample_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env, acc);
   }
   const size_t pix = (size_t)py * width + px;
   out[pix * 3 + 0] = acc[0];
@@ -118,7 +120,7 @@ ft_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ f
                    const float* __restrict__ cst, FatBvh B, const float* __restrict__ mat,
                    float* __restrict__ direct, float* __restrict__ ispec,
                    float* __restrict__ albedo, float* __restrict__ rough, int width, int height,
-                   int env_kind, int rig) {
+                   Env env, int rig) {
   __shared__ float s_mat[kMatFields * kMaxMaterials];
   stage_materials(s_mat, mat);
   const int px = blockIdx.x * kTileW + threadIdx.x, py = blockIdx.y * kTileH + threadIdx.y;
@@ -127,7 +129,7 @@ ft_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ f
   int stack[kMaxStack];
   BvhScene T{B, s_mat, stack, rig};
   float aov[10];
-  realtime_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env_kind, aov);
+  realtime_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env, aov);
   const size_t o = (size_t)s * width * height + (size_t)py * width + px;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
@@ -139,9 +141,9 @@ ft_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ f
 }
 
 bool bad_args(int s_count, int n_nodes, int n_slots, int width, int height, int env_kind,
-              int rig) {
+              int rig, const float* env_tex, int env_w, int env_h) {
   return s_count < 1 || n_nodes < 1 || n_slots < 1 || width < 1 || height < 1 ||
-         (env_kind != 0 && env_kind != 1) || rig < 1 || rig > 3;
+         !env_args_ok(env_kind, env_tex, env_w, env_h) || rig < 1 || rig > 3;
 }
 
 }  // namespace
@@ -149,22 +151,27 @@ bool bad_args(int s_count, int n_nodes, int n_slots, int width, int height, int 
 // Sum of S progressive samples into out [height, width, 3] float32.
 //   cam [S, 16] f32 (pack_cameras), frames [S] u32, cst [2, 16] f32
 //   (pack_consts), nodes = bvhf_rows [n_nodes, 16] f32, rows = mt_rows
-//   [n_slots, 128] f32, mat = material_pack [16, 128] f32; env_kind 0 or 1;
-//   rig: 1 directional, 2 point, 3 both. err [1] i32 must be 0 on entry and
-//   is set to 1 (stack overflow) or 2 (index out of range).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+//   [n_slots, 128] f32, mat = material_pack [16, 128] f32; env_kind 0-3,
+//   with env_tex, env_w and env_h as for dxr_fused_progressive_sum
+//   (csrc/fused_sample.cu); rig: 1 directional, 2 point, 3 both. err [1]
+//   i32 must be 0 on entry and is set to 1 (stack overflow) or 2 (index out
+//   of range).
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for bad arguments.
 extern "C" int dxr_fused_traverse_progressive_sum(
     const float* cam, const uint32_t* frames, const float* cst, const float* nodes,
     const float* rows, const float* mat, float* out, int s_count, int n_nodes, int n_slots,
-    int width, int height, int env_kind, int rig, int* err, void* stream) {
-  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig)) {
+    int width, int height, int env_kind, int rig, const float* env_tex, int env_w, int env_h,
+    int* err, void* stream) {
+  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig, env_tex, env_w, env_h)) {
     return (int)cudaErrorInvalidValue;
   }
   FatBvh B{reinterpret_cast<const float4*>(nodes), rows, n_nodes, n_slots, err};
   dim3 block(kTileW, kTileH);
   dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
   ft_progressive_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      cam, frames, cst, B, mat, out, s_count, width, height, env_kind, rig);
+      cam, frames, cst, B, mat, out, s_count, width, height, Env{env_tex, env_kind, env_w, env_h},
+      rig);
   return (int)cudaGetLastError();
 }
 
@@ -176,14 +183,16 @@ extern "C" int dxr_fused_traverse_realtime_outputs(
     const float* cam, const uint32_t* frames, const float* cst, const float* nodes,
     const float* rows, const float* mat, float* direct, float* ispec, float* albedo,
     float* rough, int s_count, int n_nodes, int n_slots, int width, int height, int env_kind,
-    int rig, int* err, void* stream) {
-  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig) || s_count > 65535) {
+    int rig, const float* env_tex, int env_w, int env_h, int* err, void* stream) {
+  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig, env_tex, env_w, env_h) ||
+      s_count > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   FatBvh B{reinterpret_cast<const float4*>(nodes), rows, n_nodes, n_slots, err};
   dim3 block(kTileW, kTileH);
   dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH, s_count);
   ft_realtime_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      cam, frames, cst, B, mat, direct, ispec, albedo, rough, width, height, env_kind, rig);
+      cam, frames, cst, B, mat, direct, ispec, albedo, rough, width, height,
+      Env{env_tex, env_kind, env_w, env_h}, rig);
   return (int)cudaGetLastError();
 }

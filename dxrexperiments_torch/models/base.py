@@ -24,7 +24,10 @@ def select_route(scene: dict, mode: str, ao_only: bool = False,
     traces run kernel B3 for a brute-force scene, B4a for a BVH or B6a for a
     two-level scene on a CUDA device). The AO view and the refraction bounce
     exist only in the integrator, and both gates reject a two-level scene
-    (``tlas``), so these always take the wavefront route."""
+    (``tlas``), so these always take the wavefront route. A small scene with
+    a texture env carries a BVH tagged ``tex_autoroute`` (``Scene.build``):
+    B1 still takes it where it can (the Cornell box), else B5 walks that BVH
+    (``instanced:2``)."""
     if refraction:
         return "wavefront"
     if supports_fused(scene, mode, ao_only):

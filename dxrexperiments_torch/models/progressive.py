@@ -49,7 +49,9 @@ def make_progressive_step(
     any-hit launches each (AO: one closest and four any) of kernel B3
     (brute-force scenes), B4a (BVH) or B6a (two-level). On the CPU each step
     is the plain version, the wavefront integrator summed over the S
-    samples.
+    samples. The env kind is fixed with the route; the env itself, a texture
+    env's texture on the scene's device included, comes with every call, so
+    a new texture of the same kind needs no new step.
 
     light_mc: passed on to ``fused_sample.fused_progressive_sum`` (see
     there); the other routes ignore it, as in JAX. ao_only: the AO view.

@@ -9,6 +9,11 @@ versions, ``fused_progressive_sum_reference`` and
 ``fused_realtime_outputs_reference``, loops over the wavefront integrator.
 There is no fallback from a kernel to its plain version.
 
+Env kinds 0-3: a texture env (lat-long or cubemap, the JAX kernel's
+env-deferred mode) is looked up inside the kernel at every miss, from the
+texture the scene holds on its device (``env_args``); nothing is written
+out for a resolve pass.
+
 Packs: ``pack_cameras`` gives [S, 16] (origin with the jitter folded in at
 the mode's scale, 30 progressive or 10 realtime, then U, V, W, and lane 12
 the row offset, 0 here); ``pack_consts`` gives [2, 16] (lights, env colours
@@ -22,6 +27,7 @@ import ctypes
 
 import torch
 
+from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..trace.integrator import progressive_sample_sum, render_sample
 
@@ -48,30 +54,28 @@ _FLAG_OPTIONS = (
 
 
 def supports_fused(scene: dict, mode: str, ao_only: bool) -> bool:
-    """Whether the megakernel takes this scene and mode: progressive or
-    realtime, no AO, a brute-force scene of at most MAX_TRIS triangles
-    without textures, the 1 directional + 1 point rig and an analytic env
-    (kinds 0 and 1)."""
+    """Whether the megakernel takes this scene and mode
+    (``fused_sample_pallas.supports_fused``): progressive or realtime, no
+    AO, a brute-force scene of at most MAX_TRIS triangles (a BVH tagged
+    ``tex_autoroute`` exists only for routing and does not count) without
+    albedo textures, the 1 directional + 1 point rig and any env kind."""
     if mode not in ("progressive", "realtime") or ao_only:
         return False
-    if any(k in scene for k in ("bvh", "tlas", "textures")):
+    if "tlas" in scene or ("bvh" in scene and "tex_autoroute" not in scene["bvh"]):
         return False
     if int(scene["mt_pack"].shape[1]) > MAX_TRIS:
         return False
-    if light_counts(scene["lights"]) != (1, 1, 0):
+    if "textures" in scene or light_counts(scene["lights"]) != (1, 1, 0):
         return False
-    return int(scene["env"]["kind"]) in (0, 1)
+    return int(scene["env"]["kind"]) in (0, 1, 2, 3)
 
 
 def _check_supported(scene: dict, env_kind: int, mode: str) -> None:
-    if int(env_kind) not in (0, 1):
-        raise NotImplementedError(
-            f"env kind {env_kind} (texture env) is not ported yet (ROADMAP Queue A item 9)"
-        )
+    envmap.check_env_kind(env_kind)
     if not supports_fused(scene, mode, False):
         raise NotImplementedError(
             "scene outside the megakernel's scope (more than 256 triangles, "
-            "textures, a BVH, or a rig other than 1 directional + 1 point "
+            "albedo textures, a BVH, or a rig other than 1 directional + 1 point "
             "light): such scenes take the wavefront route (trace.integrator, kernel B3)"
         )
 
@@ -102,8 +106,10 @@ def pack_consts(scene: dict, options: dict, env_kind: int) -> torch.Tensor:
     env = scene["env"]
     if env_kind == 0:
         env0, env1 = env["const_color"], torch.zeros_like(env["const_color"])
-    else:
+    elif env_kind == 1:
         env0, env1 = env["grad_horizon"], env["grad_zenith"]
+    else:  # a texture env: the kernel reads its texture (env_args)
+        env0 = env1 = torch.zeros_like(env["const_color"])
     row0 = torch.cat(
         [
             -fwd * inv,
@@ -166,11 +172,12 @@ def _library():
         from ..utils.cuda_build import load_library
 
         lib = load_library("fused_sample", ["fused_sample.cu"])
+        env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
         fn = lib.dxr_fused_progressive_sum
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + env + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         fn = lib.dxr_fused_realtime_outputs
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + env + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -193,6 +200,26 @@ def _checked(name: str, t: torch.Tensor, shape: tuple, device) -> torch.Tensor:
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     return t
+
+
+def env_args(scene: dict, env_kind: int, device) -> tuple[int | None, int, int]:
+    """The kernels' env texture arguments (pointer, width, height): the
+    lat-long [H, W, 3] (W, H) or the cubemap [6, S, S, 3] (S, S), float32,
+    contiguous and on ``device``, where the scene put it at build; (None,
+    0, 0) for kinds 0 and 1. A texture elsewhere raises: nothing is copied
+    per dispatch."""
+    if env_kind not in (envmap.ENV_LATLONG, envmap.ENV_CUBEMAP):
+        return None, 0, 0
+    tex = envmap.texture(scene["env"], env_kind)
+    shape = tuple(tex.shape)
+    if env_kind == envmap.ENV_LATLONG and len(shape) == 3 and shape[2] == 3:
+        w, h = shape[1], shape[0]
+    elif env_kind == envmap.ENV_CUBEMAP and len(shape) == 4 and shape[0] == 6 \
+            and shape[1] == shape[2] and shape[3] == 3:
+        w = h = shape[1]
+    else:
+        raise ValueError(f"env texture: bad shape {shape} for env kind {env_kind}")
+    return _checked("env texture", tex, shape, device).data_ptr(), w, h
 
 
 def _upload(cam: torch.Tensor, cst: torch.Tensor, frames: torch.Tensor, device) -> torch.Tensor:
@@ -231,7 +258,7 @@ def _launch(scene, options, cameras, width, height, env_kind, realtime: bool):
     cst_ptr = cam_ptr + 4 * cam.numel()
     frames_ptr = cst_ptr + 4 * cst.numel()
     head = (cam_ptr, frames_ptr, cst_ptr, mt.data_ptr(), attr.data_ptr())
-    tail = (s_count, c, width, height, int(env_kind))
+    tail = (s_count, c, width, height, int(env_kind), *env_args(scene, int(env_kind), device))
     lib = _library()
 
     def empty(*shape):

@@ -11,9 +11,11 @@ a kernel to its plain version.
 
 Scope (``supports_fused_traverse``, the JAX gate): progressive or realtime,
 no AO, a single-level BVH scene with the fat nodes and attribute lanes, at
-most one light per group and at most 128 materials. Of what the gate
-accepts, env kinds 2/3 (the env-deferred mode, ROADMAP Queue A item 9),
-albedo textures (tex-deferred) and area lights (item 12) raise.
+most one light per group and at most 128 materials. Env kinds 0-3: a
+texture env (the JAX kernel's env-deferred mode) is looked up inside the
+kernel (``fused_sample.env_args``). Of what the gate accepts, albedo
+textures (the tex-deferred mode) and area lights (ROADMAP Queue A item 12)
+raise.
 
 The packs are B1's (``fused_sample.pack_cameras``/``pack_consts`` and the
 pinned single upload); the material table is the scene's ``material_pack``,
@@ -27,6 +29,7 @@ import ctypes
 
 import torch
 
+from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..scene.materials import MP_MAX_MATERIALS
 from . import fused_sample as fs
@@ -68,11 +71,7 @@ def supports_fused_traverse(scene: dict, mode: str, ao_only: bool) -> bool:
 
 
 def _check_supported(scene: dict, env_kind: int, mode: str) -> None:
-    if int(env_kind) in (2, 3):
-        raise NotImplementedError(
-            f"env kind {env_kind} (texture env, the env-deferred mode) is not ported yet "
-            "(ROADMAP Queue A item 9)"
-        )
+    envmap.check_env_kind(env_kind)
     if "textures" in scene:
         raise NotImplementedError(
             "albedo textures (the tex-deferred mode) are not ported yet (ROADMAP Queue A item 12)"
@@ -113,11 +112,12 @@ def _library():
         from ..utils.cuda_build import load_library
 
         lib = load_library("fused_traverse", ["fused_traverse.cu"])
+        env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
         fn = lib.dxr_fused_traverse_progressive_sum
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + env + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         fn = lib.dxr_fused_traverse_realtime_outputs
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + env + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -147,7 +147,8 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
         raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
     params = fs._upload(cam, cst, frames, device)
     err = torch.zeros(1, dtype=torch.int32, device=device)
-    tail = (s_count, nodes.shape[0], rows.shape[0], width, height, int(env_kind), rig)
+    tail = (s_count, nodes.shape[0], rows.shape[0], width, height, int(env_kind), rig,
+            *fs.env_args(scene, int(env_kind), device))
     lib = _library()
 
     def empty(*shape):

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..accel.tlas import TlasRefitContext
+from .envmap import TEXTURE_KEY
 from .scene import bvh_to_device
 
 _SCENE_ARRAYS = (
@@ -78,8 +79,10 @@ def _two_level_from_numpy(d: dict, device) -> dict:
 
 def scene_from_numpy(d: dict, device="cpu") -> dict:
     """JAX scene pytree (numpy leaves; a flattened ``Scene.build()`` or a
-    ``Scene.build_two_level()``) -> the port's scene dict, geometry on
-    ``device``."""
+    ``Scene.build_two_level()``) -> the port's scene dict, geometry and a
+    texture env's texture on ``device``, the lights and the env's scalars on
+    the host. The JAX env's quad-packed copies and its dummy textures of
+    other kinds are dropped (scene/envmap.py)."""
     for key, what in _UNPORTED.items():
         if key in d:
             raise NotImplementedError(f"scene carries {key!r}: {what} is not ported yet")
@@ -100,6 +103,8 @@ def scene_from_numpy(d: dict, device="cpu") -> dict:
         bvh["bvhf_rows"] = np.ascontiguousarray(bvh["bvhf_nodes"].T)
         bvh["slot_tri"] = np.array(b["slot_tri"], np.int32)
         bvh["mt_attr_lanes"] = int(np.asarray(b["mt_attr_lanes"]))
+        if "tex_autoroute" in b:
+            bvh["tex_autoroute"] = 1
         out.update(bvh_to_device(bvh, out["materials"], device))
     # lights and env are per-frame parameters and stay on the host (Scene.build)
     out["lights"] = _lights_from_numpy(d["lights"])
@@ -107,6 +112,9 @@ def scene_from_numpy(d: dict, device="cpu") -> dict:
     out["env"] = {"kind": int(np.asarray(env["kind"]))}
     for k in ("strength", "const_color", "grad_horizon", "grad_zenith"):
         out["env"][k] = _t(env[k], "cpu", torch.float32)
+    tex = TEXTURE_KEY.get(out["env"]["kind"])
+    if tex is not None:
+        out["env"][tex] = _t(env[tex], device, torch.float32)
     return out
 
 

@@ -5,9 +5,11 @@ or the two-level TLAS/BLAS scene (``build_two_level``).
 The numpy lowering is copied line for line, so ``mt_pack``, ``attr_pack``,
 the ``bvh`` sub-dict and the two-level BLAS arrays are bit-identical to the
 JAX build. ``accel``: 'auto' attaches a BVH above BVH_THRESHOLD triangles,
-'bvh' always, 'none' never. Not ported, and raising: the texture-env
-auto-route (ROADMAP Queue A item 9) and the PRIME t_max table
-(``DXR_PRIME=1``, Queue A item 11, for both builds).
+and below it to a scene with a texture env that the fused-traversal
+kernel's gate would take (tagged ``tex_autoroute``: the BVH exists for the
+route, and the brute-force megakernel still takes such a scene where it
+can); 'bvh' always, 'none' never. Not ported, and raising: the PRIME t_max
+table (``DXR_PRIME=1``, ROADMAP Queue A item 11, for both builds).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..accel import bvh as bvh_mod
 from ..accel import tlas as tlas_mod
 from ..ops.traverse import pack_for_traversal
 from . import envmap as envmap_mod
-from .lights import default_lights
+from .lights import default_lights, light_counts
 from .materials import (
     MP_MAX_MATERIALS,
     Material,
@@ -104,10 +106,28 @@ class Scene:
         self.instances.append(Instance(mesh, t, override))
         return len(self.instances) - 1
 
+    def _env(self) -> dict:
+        return (self.environment if self.environment is not None
+                else envmap_mod.constant_env((0.0, 0.0, 0.0)))
+
+    def _texture_route(self, num_materials: int) -> bool:
+        """JAX ``scene.py:316-346``: a texture env routes a small scene
+        through a BVH when the fused-traversal kernel's rig and material
+        gates would take it (at most one light per group, at least one
+        light, at most MP_MAX_MATERIALS materials)."""
+        lights = self.lights if self.lights is not None else default_lights()
+        d_n, p_n, a_n = light_counts(lights)
+        rig_ok = d_n <= 1 and p_n <= 1 and a_n <= 1 and d_n + p_n + a_n >= 1
+        texture_env = int(self._env()["kind"]) in (envmap_mod.ENV_LATLONG,
+                                                    envmap_mod.ENV_CUBEMAP)
+        return rig_ok and texture_env and num_materials <= MP_MAX_MATERIALS
+
     def build_numpy(self, accel: str = "auto") -> dict[str, Any]:
         """The numpy half of ``build``: world-space triangles, the
         Möller–Trumbore precomputes, the kernel packs and, per ``accel``,
-        the ``bvh`` sub-dict (with ``builder``: "sah" or "morton")."""
+        the ``bvh`` sub-dict (with ``builder``: "sah" or "morton", and
+        ``tex_autoroute``: 1 when the BVH exists only for a texture env's
+        route)."""
         if accel not in ACCELS:
             raise ValueError(f"unknown accel {accel!r} ({', '.join(ACCELS)})")
         v0s, e1s, e2s, n0s, n1s, n2s, mat_ids = [], [], [], [], [], [], []
@@ -224,7 +244,9 @@ class Scene:
             "materials": materials,
         }
         want_bvh = accel == "bvh" or (accel == "auto" and num_tris > BVH_THRESHOLD)
-        if want_bvh and num_tris > 0:
+        tex_autoroute = (accel == "auto" and not want_bvh and num_tris > 0
+                         and self._texture_route(len(materials)))
+        if (want_bvh or tex_autoroute) and num_tris > 0:
             if os.environ.get("DXR_PRIME", "0") == "1":
                 raise NotImplementedError(
                     "PRIME t_max seeding (DXR_PRIME=1) is not ported yet (ROADMAP Queue A item 11)"
@@ -233,26 +255,19 @@ class Scene:
             packed = pack_for_traversal(nodes, out, BVH_LEAF_SIZE)
             packed.pop("leaf_size")  # always BVH_LEAF_SIZE
             packed["builder"] = builder
+            if tex_autoroute:
+                packed["tex_autoroute"] = 1
             out["bvh"] = packed
         return out
 
     def build(self, device: str | torch.device = "cpu", accel: str = "auto") -> dict[str, Any]:
         """Lower to the scene dict: geometry, packs, the BVH (per ``accel``,
         see ``build_numpy`` and ``bvh_to_device``) and materials on
-        ``device``, each moved once per build; ``lights`` and ``env`` stay
-        host (CPU) tensors, since they are per-frame parameters (the kernel
-        wrapper packs them into its one upload per dispatch, the plain path
-        moves them to its device)."""
-        env = (
-            self.environment
-            if self.environment is not None
-            else envmap_mod.constant_env((0.0, 0.0, 0.0))
-        )
-        if accel == "auto" and int(env["kind"]) in (envmap_mod.ENV_LATLONG, envmap_mod.ENV_CUBEMAP):
-            raise NotImplementedError(
-                "texture envs (and their route through a BVH) are not ported yet "
-                "(ROADMAP Queue A item 9)"
-            )
+        ``device``, each moved once per build; ``lights`` and the env's
+        scalars stay host (CPU) tensors, since they are per-frame parameters
+        (the kernel wrapper packs them into its one upload per dispatch, the
+        plain path moves them to its device); a texture env's texture leaves
+        go to ``device`` here, once (``envmap.place``)."""
         d = self.build_numpy(accel)
         lights = self.lights if self.lights is not None else default_lights()
         out = {
@@ -266,7 +281,7 @@ class Scene:
         if "bvh" in d:
             out.update(bvh_to_device(d["bvh"], out["materials"], device))
         out["lights"] = to_device(lights, "cpu")
-        out["env"] = to_device(env, "cpu")
+        out["env"] = envmap_mod.place(self._env(), device)
         return out
 
     def build_two_level(self, device: str | torch.device = "cpu") -> dict[str, Any]:
@@ -281,8 +296,9 @@ class Scene:
         dict: num_instances, slot_mesh, mesh_tri_ranges, refit_ctx), the
         concatenated object-space arrays ``v0_obj`` ... ``d0_obj``,
         ``n0_obj`` ... ``n2_obj`` and ``mat_id_obj`` and the stacked
-        materials on ``device``, ``lights`` and ``env`` on the host and
-        ``num_tris`` (the instanced total)."""
+        materials on ``device``, ``lights`` and the env's scalars on the
+        host (its texture leaves on ``device``) and ``num_tris`` (the
+        instanced total)."""
         if os.environ.get("DXR_PRIME", "0") == "1":
             raise NotImplementedError(
                 "PRIME t_max seeding (DXR_PRIME=1) is not ported yet (ROADMAP Queue A item 11)"
@@ -350,11 +366,6 @@ class Scene:
             base += len(g[0])
 
         lights = self.lights if self.lights is not None else default_lights()
-        env = (
-            self.environment
-            if self.environment is not None
-            else envmap_mod.constant_env((0.0, 0.0, 0.0))
-        )
         out = {
             "tlas": tl,
             "tlas_meta": {
@@ -369,7 +380,7 @@ class Scene:
                 np.concatenate([a[3] for a in mesh_attr]).astype(np.int64)).to(device),
             "materials": stack_materials(materials, device),
             "lights": to_device(lights, "cpu"),
-            "env": to_device(env, "cpu"),
+            "env": envmap_mod.place(self._env(), device),
             "num_tris": int(sum(len(meshes_geo[int(m)][0]) for m in inst_mesh)),
         }
         return out

@@ -44,7 +44,7 @@ from ..core import rng
 from ..core import vecmath as vm
 from ..core.camera import primary_ray_grid
 from ..ops import intersect, intersect_kernel, traverse, traverse2
-from ..scene.envmap import sample_environment
+from ..scene.envmap import on_device, sample_environment
 from ..scene.lights import AREA_LIGHT_SAMPLES, area_light_draws, normalize_lights
 from ..scene.scene import scene_device, to_device
 from . import sampling
@@ -329,9 +329,10 @@ def trace_rays(
     realtime = mode == "realtime"
     if env_kind is None:
         env_kind = scene["env"]["kind"]
-    # lights and env arrive as host tensors (per-frame parameters)
+    # lights and the env's scalars arrive as host tensors (per-frame
+    # parameters); a texture env's textures already lie on the scene's device
     dev = origins.device
-    scene = dict(scene, lights=to_device(scene["lights"], dev), env=to_device(scene["env"], dev))
+    scene = dict(scene, lights=to_device(scene["lights"], dev), env=on_device(scene["env"], dev))
 
     hit, position, normal, mat = _trace_closest(
         scene, origins, directions, 0.0, RAY_MAX_T, cull=True, impl=impl

@@ -234,11 +234,14 @@ def test_refraction_matches_jnp():
     assert float(np.abs(got["color"] - plain["color"]).max()) > 1e-3  # the pane transmits
 
 
+@pytest.mark.parametrize("mode", ["progressive", "realtime"])
 @pytest.mark.parametrize("debug", [0, 2])
 @pytest.mark.parametrize("rig", sorted(RIGS))
-def test_light_rigs_match_jnp(rig, debug):
-    got, want = render_both(cornell(RIGS[rig]), camera(*CORNELL_EYE), {"debug": debug})
-    image_gate(got["color"], want["color"])
+def test_light_rigs_match_jnp(rig, debug, mode):
+    kw = {"mode": mode, "jitter_scale": 10.0 if mode == "realtime" else 30.0}
+    got, want = render_both(cornell(RIGS[rig]), camera(*CORNELL_EYE), {"debug": debug}, **kw)
+    for k in (AOVS if mode == "realtime" else ("color",)):
+        image_gate(got[k], want[k])
     assert float(got["color"].mean()) > 0.0
 
 
@@ -308,23 +311,43 @@ def jax_route(scene, mode, ao_only, refraction):
     return "wavefront"
 
 
+TEX_ROUTES = {"cornell_latlong": "fused", "cornell_cube_bvh": "fused_traverse",
+              "instanced:2_latlong": "fused_traverse", "instanced:2_latlong_two_level": "wavefront",
+              "cornell_rig_latlong": "wavefront"}
+
+
 @pytest.mark.parametrize("case", ["instanced:1", "cornell", "cornell_ao", "cornell-glass",
-                                  "cornell_rig", "soup_2area"])
+                                  "cornell_rig", "soup_2area", *TEX_ROUTES])
 def test_select_route_matches_jax(case):
     ao, refraction = case == "cornell_ao", case == "cornell-glass"
+    rs = np.random.default_rng(2)
+    latlong = envmap.latlong_env(rs.uniform(0, 2, (4, 8, 3)).astype(np.float32))
     if case in ("instanced:1", "cornell-glass"):
         jscene = j_build_scene(case)[0].build()
     elif case == "soup_2area":
         jscene = j_build_scene("soup:300")[0]
         jscene.lights = RIGS["2area"]
         jscene = jscene.build(accel="bvh")
+    elif case.startswith("instanced:2"):  # 3,842 triangles, a tex_autoroute BVH
+        sc = j_build_scene("instanced:2")[0]
+        sc.environment = latlong
+        jscene = sc.build_two_level() if case.endswith("two_level") else sc.build()
+    elif case in TEX_ROUTES:
+        sc = j_build_scene("cornell-glossy")[0]
+        if case == "cornell_rig_latlong":  # two of a kind: neither gate, no routing BVH
+            sc.lights = RIGS["2dir_2point"]
+        sc.environment = (envmap.cubemap_env(rs.uniform(0, 2, (6, 2, 2, 3)).astype(np.float32))
+                          if "cube" in case else latlong)
+        jscene = sc.build(accel="bvh" if case.endswith("bvh") else "auto")
     else:
         jscene = cornell(RIGS["2dir_2point"] if case == "cornell_rig" else None)
     tscene = scene_from_numpy(npy(jscene))
+    if case in ("cornell_latlong", "instanced:2_latlong"):
+        assert "tex_autoroute" in jscene["bvh"] and "tex_autoroute" in tscene["bvh"]
     for mode in ("progressive", "realtime"):
         refr = refraction and mode == "progressive"
         assert select_route(tscene, mode, ao, refr) == jax_route(jscene, mode, ao, refr)
-    want = {"cornell": "fused"}.get(case, "wavefront")
+    want = {"cornell": "fused", **TEX_ROUTES}.get(case, "wavefront")
     assert select_route(tscene, "progressive", ao, refraction) == want
 
 

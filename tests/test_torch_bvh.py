@@ -19,6 +19,7 @@ from dxrexperiments_torch.app import headless as thead
 from dxrexperiments_torch.ops import traverse as ttv
 from dxrexperiments_torch.scene import Scene as TScene
 from dxrexperiments_torch.scene import cornell_box as t_cornell
+from dxrexperiments_torch.scene import envmap as tenvmap
 from dxrexperiments_torch.scene import procedural as tproc
 from dxrexperiments_torch.scene import scene as tscene_mod
 from dxrexperiments_torch.scene.convert import scene_from_numpy
@@ -161,9 +162,17 @@ def test_unported_build_paths_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 11"):
         sc.build("cpu")
     monkeypatch.delenv("DXR_PRIME")
-    sc.environment = dict(sc.environment, kind=2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        sc.build("cpu")
+    # texture envs build (ROADMAP item 9): above the threshold the BVH is the
+    # size's, below it a texture env's route (tagged tex_autoroute)
+    img = np.random.default_rng(0).uniform(0, 2, (4, 8, 3)).astype(np.float32)
+    sc.environment = tenvmap.latlong_env(img)
+    built = sc.build("cpu")
+    assert built["env"]["kind"] == 2 and "tex_autoroute" not in built["bvh"]
+    np.testing.assert_array_equal(built["env"]["latlong"].numpy(), img)
+    small, _ = thead.build_scene("soup:300")
+    small.environment = tenvmap.cubemap_env(np.zeros((6, 2, 2, 3), np.float32))
+    assert small.build_numpy()["bvh"]["tex_autoroute"] == 1
+    assert "bvh" not in small.build_numpy(accel="none")
 
 
 def test_sphere_mesh_and_instanced_scene_equal_jax():

@@ -18,7 +18,9 @@ brute-force trace kernels (B3): the same hit and occlusion gates, and on
 lanes that hit the same triangle the normal within 1e-5 on 99.9% of lanes,
 the position over max(1, t) within the hit gate's bounds on t (it is
 o + t d), material rows and ids equal; whole brute-force samples on the
-image gate.
+image gate. Texture envs (lat-long, cubemap): B1 and B5 with the lookup
+inside the kernel, on the image gate against the plain versions, which
+sample the env in torch.
 The bilateral kernel: max
 |difference| <= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums
 differing only by rounding.
@@ -795,3 +797,140 @@ def test_cuda_tensors_never_reach_plain_versions(cuda_device, monkeypatch):
         render_sample(brute, options, {k: v[0] for k, v in cams.items()}, SIZE, SIZE,
                       impl="cuda", **kw)
     torch.cuda.synchronize()
+
+
+# ---- texture envs: the lat-long and cubemap lookups inside B1 and B5 ---------
+
+TEX_SCENES = {"cornell": "fused", "cornell_bvh": "fused_traverse", "instanced:2": "fused_traverse"}
+
+
+def _tex_env(kind):
+    rs = np.random.default_rng(3)
+    if kind == "latlong":
+        img = rs.uniform(0, 2, (32, 64, 3)).astype(np.float32)
+        img[10:13, 20:24] = 50.0  # a small bright sun
+        return envmap.latlong_env(img, strength=1.3)
+    return envmap.cubemap_env(rs.uniform(0, 2, (6, 16, 16, 3)).astype(np.float32), strength=1.3)
+
+
+def _tex_setup(device, kind, case, s_count=S):
+    """A scene with a texture env and cameras that see it: Cornell-glossy
+    (B1, through its routing BVH), the same with a BVH of its own (B5), and
+    'instanced:2' (B5, through its routing BVH)."""
+    sc, cam = build_scene("instanced:2" if case == "instanced:2" else "cornell-glossy")
+    sc.environment = _tex_env(kind)
+    if case != "instanced:2":  # past the box's open side, into the env
+        cam.set_eye_at_up((1.2, 1.5, 3.6), (0.1, 1.3, 0.0), (0.0, 1.0, 0.0))
+    cam.set_aspect(SIZE, SIZE)
+    rng = np.random.default_rng(13)
+    cams = stack_cameras([
+        camera_params(cam, jitter=((rng.random() - 0.5) / SIZE, (rng.random() - 0.5) / SIZE),
+                      frame_count=2**31 + 7 + k)
+        for k in range(s_count)
+    ])
+    scene = sc.build(device, accel="bvh" if case == "cornell_bvh" else "auto")
+    from dxrexperiments_torch.models.base import select_route
+
+    assert select_route(scene, "progressive") == TEX_SCENES[case]
+    return scene, cams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["progressive", "realtime"])
+@pytest.mark.parametrize("case", sorted(TEX_SCENES))
+@pytest.mark.parametrize("kind", ["latlong", "cubemap"])
+def test_texture_env_kernels_match_plain(cuda_device, kind, case, mode):
+    scene, cams = _tex_setup(cuda_device, kind, case)
+    assert scene["env"][("latlong" if kind == "latlong" else "cube")].device.type == "cuda"
+    options = default_options()
+    ek = scene["env"]["kind"]
+    mod = fs if TEX_SCENES[case] == "fused" else ft
+    if mode == "progressive":
+        before = mod.LAUNCHES
+        got = (fs.fused_progressive_sum if mod is fs else ft.fused_traverse_progressive_sum)(
+            scene, options, cams, SIZE, SIZE, ek)
+        assert mod.LAUNCHES == before + 1
+        want = fs.fused_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
+        torch.cuda.synchronize()
+        _gate(got, want)
+        return
+    before = mod.REALTIME_LAUNCHES
+    got = mod.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
+    assert mod.REALTIME_LAUNCHES == before + 1
+    want = fs.fused_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
+    torch.cuda.synchronize()
+    for k in fs.AOV_KEYS:
+        for f in range(S):
+            _gate(got[k][f], want[k][f], s_count=1)
+    if case != "instanced:2":
+        assert bool((got["albedo"].abs().sum(-1) == 0).any())  # primary misses: the env
+
+
+@pytest.mark.cuda
+def test_texture_env_launch_arguments(cuda_device):
+    """A texture kind without its texture, or with empty dimensions, is
+    refused by the entry points (cudaErrorInvalidValue); a texture that is
+    not on the scene's device raises in the wrappers, which never copy it
+    and never take the plain version."""
+    scene, cams = _tex_setup(cuda_device, "latlong", "cornell")
+    out = torch.empty((SIZE, SIZE, 3), device=cuda_device)
+    params = torch.zeros(64, device=cuda_device)
+    lib = fs._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    tex = scene["env"]["latlong"]
+    head = (params.data_ptr(), params.data_ptr(), params.data_ptr(), scene["mt_pack"].data_ptr(),
+            scene["attr_pack"].data_ptr(), out.data_ptr(), 1, int(scene["mt_pack"].shape[1]),
+            SIZE, SIZE)
+    for kind, ptr, w, h in ((2, None, 64, 32), (3, None, 16, 16), (2, tex.data_ptr(), 0, 32),
+                            (3, tex.data_ptr(), 16, 8), (4, tex.data_ptr(), 16, 16)):
+        assert lib.dxr_fused_progressive_sum(*head, kind, ptr, w, h, stream) == 1  # InvalidValue
+    ft_lib = ft._library()
+    err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    bvh = build_scene("instanced:2")[0].build(cuda_device, accel="bvh")
+    nodes, rows = bvh["bvh"]["bvhf_rows"], bvh["bvh"]["mt_rows"]
+    assert ft_lib.dxr_fused_traverse_progressive_sum(
+        params.data_ptr(), params.data_ptr(), params.data_ptr(), nodes.data_ptr(), rows.data_ptr(),
+        bvh["material_pack"].data_ptr(), out.data_ptr(), 1, nodes.shape[0], rows.shape[0], SIZE,
+        SIZE, 2, 3, None, 64, 32, err.data_ptr(), stream) == 1
+    options = default_options()
+    for kernel in (fs.fused_progressive_sum, ft.fused_traverse_progressive_sum):
+        target = scene if kernel is fs.fused_progressive_sum else dict(
+            bvh, env=scene["env"], lights=scene["lights"])
+        off_device = dict(target, env=dict(scene["env"], latlong=tex.cpu()))
+        with pytest.raises(ValueError, match="device"):
+            kernel(off_device, options, cams, SIZE, SIZE, 2)
+        with pytest.raises(ValueError, match="texture leaf"):
+            kernel(dict(target, env=envmap.constant_env()), options, cams, SIZE, SIZE, 2)
+
+
+@pytest.mark.cuda
+def test_texture_env_pipelines_launch_counts(cuda_device, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the main path reached a plain version")
+
+    monkeypatch.setattr(fs, "fused_progressive_sum_reference", refuse)
+    monkeypatch.setattr(fs, "fused_realtime_outputs_reference", refuse)
+    sc, cam = build_scene("cornell-glossy")
+    sc.environment = _tex_env("latlong")
+    cam.set_aspect(SIZE, SIZE)
+    pipe = ProgressiveRaytracingPipeline(SIZE, SIZE, seed=1, samples_per_frame=4,
+                                         device=cuda_device)
+    pipe.set_camera(cam)
+    pipe.set_scene(sc)
+    counts = (fs.LAUNCHES, ft.LAUNCHES, intersect_kernel.CLOSEST_LAUNCHES)
+    for f in range(3):
+        pipe.update(elapsed_time=0.0, elapsed_frames=f)
+        pipe.render()
+    torch.cuda.synchronize()
+    assert (fs.LAUNCHES, ft.LAUNCHES, intersect_kernel.CLOSEST_LAUNCHES) == (
+        counts[0] + 3, counts[1], counts[2])
+    img = pipe.get_output()
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
+    rt = RealtimeRaytracingPipeline(SIZE, SIZE, seed=2, device=cuda_device)
+    rt.set_camera(cam)
+    rt.set_scene(sc)
+    before = fs.REALTIME_LAUNCHES
+    rt.update(elapsed_time=0.0, elapsed_frames=0)
+    direct, spec = rt.render()
+    torch.cuda.synchronize()
+    assert fs.REALTIME_LAUNCHES == before + 1 and bool((direct + spec).isfinite().all())

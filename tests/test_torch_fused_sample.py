@@ -23,6 +23,7 @@ import torch
 
 from dxrexperiments_torch.models.progressive import make_progressive_step
 from dxrexperiments_torch.ops import fused_sample as tfs
+from dxrexperiments_torch.scene import envmap as tenvmap
 from dxrexperiments_torch.scene.convert import (
     camera_from_numpy,
     options_from_numpy,
@@ -132,10 +133,21 @@ def test_cpu_wrapper_is_the_plain_version():
 
 def test_unported_modes_raise():
     _, (tscene, topts, tcams) = both_sides({}, "const")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # texture envs run (ROADMAP item 9): kinds 2 and 3, on the plain path here
+    img = np.random.default_rng(0).uniform(0, 2, (4, 8, 3)).astype(np.float32)
+    lat = dict(tscene, env=tenvmap.latlong_env(img, strength=1.3))
+    got = tfs.fused_progressive_sum(lat, topts, tcams, W, H, 2)
+    assert tuple(got.shape) == (H, W, 3) and bool(got.isfinite().all())
+    assert not torch.equal(got, tfs.fused_progressive_sum(tscene, topts, tcams, W, H, 0))
+    cube = dict(tscene, env=tenvmap.cubemap_env(np.ones((6, 2, 2, 3), np.float32)))
+    rt = tfs.fused_realtime_outputs_batch(cube, topts, tcams, W, H, 3)
+    assert tuple(rt["direct"].shape) == (S, H, W, 3)
+    with pytest.raises(ValueError, match="texture leaf"):  # kind 2 without its texture
         tfs.fused_progressive_sum(tscene, topts, tcams, W, H, 2)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfs.fused_realtime_outputs_batch(tscene, topts, tcams, W, H, 2)
+    # albedo textures (ROADMAP item 12) stay outside the megakernel
+    assert not tfs.supports_fused(dict(lat, textures={}), "progressive", False)
+    with pytest.raises(NotImplementedError, match="albedo textures"):
+        tfs.fused_progressive_sum(dict(lat, textures={}), topts, tcams, W, H, 2)
     with pytest.raises(ValueError, match="debug"):
         tfs.fused_progressive_sum(tscene, topts, tcams, W, H, 0, light_mc=True)
     one_light = dict(tscene, lights={"dir": tscene["lights"]["dir"]})

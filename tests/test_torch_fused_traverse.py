@@ -24,6 +24,7 @@ import torch
 from dxrexperiments_torch.models.base import select_route
 from dxrexperiments_torch.models.progressive import make_progressive_step
 from dxrexperiments_torch.ops import fused_traverse as tft
+from dxrexperiments_torch.scene import envmap as tenvmap
 from dxrexperiments_torch.scene.convert import (
     camera_from_numpy,
     options_from_numpy,
@@ -169,8 +170,16 @@ def test_two_samples_sum_single_samples():
 
 def test_unported_modes_raise():
     _, (tscene, topts, tcams) = both_sides("soup", {})
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # texture envs run (ROADMAP item 9), on the plain path here
+    faces = np.random.default_rng(0).uniform(0, 2, (6, 4, 4, 3)).astype(np.float32)
+    cube = dict(tscene, env=tenvmap.cubemap_env(faces, strength=1.3))
+    got = tft.fused_traverse_progressive_sum(cube, topts, tcams, 16, 16, 3)
+    assert tuple(got.shape) == (16, 16, 3) and bool(got.isfinite().all())
+    rt = tft.realtime_aovs(cube, topts, tcams, 16, 16, 3)
+    assert tuple(rt["direct"].shape) == (1, 16, 16, 3)
+    with pytest.raises(ValueError, match="texture leaf"):
         tft.fused_traverse_progressive_sum(tscene, topts, tcams, 16, 16, 2)
+    # albedo textures and area lights (ROADMAP item 12) still raise
     with pytest.raises(NotImplementedError, match="item 12"):
         tft.realtime_aovs(dict(tscene, textures={}), topts, tcams, 16, 16, 1)
     area = dict(tscene["lights"], area=[{"corner": torch.zeros(3)}])

@@ -27,6 +27,7 @@ from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline as T
 from dxrexperiments_torch.ops import fused_sample as tfs
 from dxrexperiments_torch.scene import Scene as TScene
 from dxrexperiments_torch.scene import cornell_box as t_cornell_box
+from dxrexperiments_torch.scene import envmap as t_envmap
 from dxrexperiments_torch.scene.convert import (
     camera_from_numpy,
     options_from_numpy,
@@ -171,8 +172,15 @@ def test_realtime_scope():
     _, (tscene, topts, tcams) = both_sides({}, "const")
     assert tfs.supports_fused(tscene, "realtime", False)
     assert not tfs.supports_fused(tscene, "realtime", True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tfs.fused_realtime_outputs_batch(tscene, topts, tcams, W, H, 2)
+    # a lat-long env runs in the realtime megakernel's scope (ROADMAP item 9);
+    # its misses route the env into the direct AOV
+    img = np.full((4, 8, 3), 0.25, np.float32)
+    lat = dict(tscene, env=t_envmap.latlong_env(img, strength=2.0))
+    assert tfs.supports_fused(lat, "realtime", False)
+    out = tfs.fused_realtime_outputs_batch(lat, topts, tcams, W, H, 2)
+    miss = out["albedo"].abs().sum(-1) == 0
+    assert bool(miss.any())
+    torch.testing.assert_close(out["direct"][miss], torch.full_like(out["direct"][miss], 0.5))
     with pytest.raises(NotImplementedError, match="unknown"):
         t_render_sample(tscene, topts, {k: v[0] for k, v in tcams.items()}, W, H, mode="ao")
 
