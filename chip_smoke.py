@@ -148,8 +148,9 @@ Phases, each of which raises on failure:
      version, each pixel off with the cubemap beside the wavefront route
      (B4a's walk with the plain lookup) on the same rays and where that
      route's path and the plain one part (a triangle, a bounce's hit, a
-     shadow ray, a miss direction, a cube-face tie), failing if B5 parts
-     from that route where the paths agree; and B5's time with the cubemap
+     shadow ray, a miss direction, a cube-face tie) or a trace lies on a
+     knife edge (phase 28's census), failing if B5 parts from that route
+     where neither holds; and B5's time with the cubemap
      and with the gradient env on the same cameras, in turns;
  24. the wavefront routes with the lat-long env at 128^2 against the plain
      version: Cornell with the 2 directional + 2 point + 1 area rig (B3) and
@@ -159,12 +160,64 @@ Phases, each of which raises on failure:
      turns; the plain version's; the host ms per dispatch, enqueued and
      synchronised; the seconds to 1,024 spp of phase 21.
 
+ 26. B5's area-light mode vs plain at 128^2: tests/test_fused_traverse.py's
+     area Cornell (its own BVH, 1 directional + 1 area light), progressive
+     S = 4 on the 7 option sets of phase 3, realtime on every AOV (the 4
+     cases of phase 3) and an S = 2 batch against two single launches;
+     'instanced:4' with its rig set to 1 directional + 1 area light (3
+     option sets, 2 realtime cases, the batch); the kernel's and the plain
+     version's times there;
+ 27. B5's albedo-texture mode vs plain at 128^2: cornell-tex built as the
+     CLI builds it (its tex_autoroute BVH) and the area Cornell with a
+     textured floor under phase 18's cubemap, progressive S = 4 with the
+     options {}, debug 2, no_indirect_diffuse and show_gbuffer_albedo_only;
+ 28. the config-2 stand-in at full size, the slice's main path (BASELINE
+     config 2's shape without its files: a 960-triangle sphere for
+     susanne, a 20 x 20 quad ground grid with the checker texture for
+     ground.fbx, phase 18's cubemap for CathedralRadiance.dds, 1
+     directional + 1 area light; 1,760 triangles):
+     ProgressiveRaytracingPipeline at 512^2 for 8 dispatches of S = 8,
+     which must count exactly 8 B5 launches and no B1, B3, B4a, B6a or B5
+     realtime launch; the first dispatch against the plain version on
+     4,096 sampled pixels, each of its samples also launched alone (the 8
+     launches must add up to the dispatch) and held, pixel by pixel,
+     against the plain version and the wavefront route on the same rays:
+     each pixel-sample off by more than 1e-3 gets its cause (where the
+     wavefront route's path and the plain one part: a triangle, a bounce's
+     hit, an area light's or another shadow ray, a miss direction, a
+     cube-face tie; else a knife edge, a trace of it that a perturbation of
+     1e-4 of its direction and 1e-6 x max(1, |o|) of its origin flips), failing if B5 parts from that route where the path
+     agrees and no trace lies on a knife edge; B5 ms per dispatch (the
+     launch alone and through the wrapper), spp/s, the plain version's ms
+     per sample, the host ms per dispatch enqueued and synchronised, the
+     bound; then 2 realtime + denoise frames at 1080p (the wavefront route,
+     B4a + the albedo glue + B2: exactly 4 + 4 B4a and 4 bilateral
+     launches), frame 0's AOVs against the plain version on 4,096 sampled
+     pixels (the route on those pixels' rays, and the pipeline's own
+     direct and specular AOVs);
+ 29. B5's area mode at config 5's size: phase 8's 'instanced:32' with its
+     rig set to 1 directional + 1 area light, 2 dispatches of S = 4 at
+     512^2 (exactly 2 B5 launches), a sample against the plain version on
+     4,096 sampled pixels with phase 28's census of the pixels off, B5's
+     time with the area rig, with phase 8's
+     1 directional + 1 point rig (the base mode) and with that rig plus the
+     area light on the same cameras, in turns; 2 realtime frames at 1080p
+     (2 B5 realtime launches), frame 0's
+     AOVs against the plain version on 4,096 sampled pixels, its time;
+ 30. the wavefront routes with albedo textures at 128^2 against the plain
+     version: cornell-tex brute force (B3), two-level (B6a) and realtime
+     (B4a, its routing BVH);
+ 31. the CLI in process: --scene cornell-tex --size 512x512 --spp 16
+     --device cuda, whose B5 launch count must rise.
+
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
 operations; NVIDIA's H100 SXM data sheet) and its bytes over 3.35 TB/s.
 The brute-force megakernel's pair tests and env lookups (the closest-hit
 rays that miss, each 4 texels of 12 bytes, together at most the texture's
-bytes) are counted on its plain run, B3's
+bytes) are counted on its plain run (B5's the same way, and its closest
+hits on textured materials, 4 texels of 12 bytes each, at most the texel
+table's bytes), B3's
 from its launches' rays as phase 17 says; the BVH
 kernels' slab and pair tests by a host model of their per-ray walk
 (ops/traverse.fat_walk_numpy) over 4,096 sampled pixels of the main path
@@ -192,6 +245,7 @@ the script exits non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -239,6 +293,13 @@ TEX_PARITY_EYE = ((1.2, 1.5, 3.6), (0.1, 1.3, 0.0))  # sees the box and, past it
 ENV_LOOKUP_BYTES = 4 * 12  # one bilinear env lookup: four float32 RGB texels
 TIE_REL = 1e-4  # a cube lookup "near a face tie": its two largest |components| within this
 DIR_PART = 1e-5  # two traces' miss directions "part" past this (float noise is ~1e-7)
+# a knife edge: a trace whose outcome PROBE_TRIALS random perturbations of
+# its unit direction by PROBE_EPS and of its origin by PROBE_ORIGIN * max(1,
+# |o|) (about 8 float32 ulps, far inside the 1e-4 ray offset) can flip
+PROBE_EPS, PROBE_ORIGIN, PROBE_TRIALS = 1e-4, 1e-6, 8
+C2_S, C2_DISPATCHES = 8, 8  # the config-2 stand-in: 8 dispatches of S = 8 at 512^2
+C2_RT_FRAMES = 2  # realtime + denoise frames on the config-2 stand-in
+C5_AREA_DISPATCHES, C5_AREA_RT_FRAMES = 2, 2  # instanced:32 with the area rig
 AOVS = ("direct", "indirect_specular", "albedo", "color", "roughness")
 OPTION_CASES = [
     ("defaults", {}, "const"),
@@ -486,13 +547,15 @@ class TraceLog:
     """Records every trace made while active through ops.traverse's
     closest and any functions `names` (B4a's wrappers, or their plain
     versions with PLAIN): ("closest", directions, hit, tri, live) and
-    ("any", occluded), in call order; the traces still run."""
+    ("any", occluded) in `calls`, and each call's rays (origins,
+    directions, t_min, t_max, cull or None for any) in `rays`, in call
+    order; the traces still run."""
 
     B4A = ("traverse_fat_closest", "traverse_fat_any")
     PLAIN = ("traverse_fat_closest_reference", "traverse_fat_any_reference")
 
     def __init__(self, tv, names=B4A):
-        self.tv, self.names, self.calls = tv, names, []
+        self.tv, self.names, self.calls, self.rays = tv, names, [], []
 
     def __enter__(self):
         import torch
@@ -504,11 +567,13 @@ class TraceLog:
             hits = closest_fn(scene, o, d, t_min, t_max, cull_backface)
             live = torch.as_tensor(t_max, device=d.device).expand(d.shape[0]) > t_min
             self.calls.append(("closest", d, hits["hit"], hits["tri"], live))
+            self.rays.append((o, d, t_min, t_max, cull_backface))
             return hits
 
         def any_(scene, o, d, t_min=1e-4, t_max=3.0e37):
             occ = any_fn(scene, o, d, t_min, t_max)
             self.calls.append(("any", occ))
+            self.rays.append((o, d, t_min, t_max, None))
             return occ
 
         setattr(self.tv, self.names[0], closest)
@@ -556,6 +621,225 @@ def path_census(log_a, log_b, pixels: int, rel_tie: float):
         out["shadow"] |= per_pixel(oa != ob).any(dim=0)
     out["miss_dir_diff"], out["near_face_tie"] = dir_diff, tie
     return out
+
+
+def light_counts(scene) -> tuple[int, int, int]:
+    """A scene's rig: its (directional, point, area) light counts."""
+    from dxrexperiments_torch.scene.lights import normalize_lights
+
+    rig = normalize_lights(scene["lights"])
+    return (int(rig["dir"]["forward"].shape[0]), int(rig["point"]["position"].shape[0]),
+            int(rig["area"]["corner"].shape[0]))
+
+
+def area_rows(reps: int, lights) -> list[bool]:
+    """Which rows of a shadow call's lanes ([reps, pixels]) are an area
+    light's: trace.integrator._direct_lighting stacks the rays light by
+    light (directional, point, then AREA_LIGHT_SAMPLES per area light),
+    each over the call's reps // rays-per-point stacked batches."""
+    d, p, a = lights
+    per_point = d + p + 4 * a
+    return [r // max(reps // per_point, 1) >= d + p for r in range(reps)]
+
+
+def knife_edges(tv, scene, log, pixel_ids, pixels: int, lights):
+    """For each pixel j of pixel_ids (lanes j + k * pixels of log's calls):
+    whether one of its traces lies on a knife edge, that is one of
+    PROBE_TRIALS random perturbations of its origin (by PROBE_ORIGIN *
+    max(1, |o|)) and unit direction (by PROBE_EPS) flips its outcome (hit,
+    triangle or occlusion) on the plain version; and whether such a trace
+    is an area light's shadow ray. Lanes with a zero direction or an empty
+    window are not traced and stay as they are."""
+    import torch
+
+    dev = log.rays[0][0].device
+    ids = torch.as_tensor(pixel_ids, device=dev)
+    n = len(pixel_ids)
+    edge = torch.zeros(n, dtype=torch.bool, device=dev)
+    area_edge = torch.zeros_like(edge)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def unit(shape):
+        g = torch.randn(shape, generator=gen, device=dev)
+        return g / g.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+    for o, d, t_min, t_max, cull in log.rays:
+        reps = d.shape[0] // pixels
+        lanes = (ids[None, :] + pixels * torch.arange(reps, device=dev)[:, None]).reshape(-1)
+        o_l, d_l = o[lanes].repeat(PROBE_TRIALS, 1), d[lanes].repeat(PROBE_TRIALS, 1)
+        t0 = rows_of(t_min, lanes)
+        t1 = rows_of(t_max, lanes)
+        t0 = t0.repeat(PROBE_TRIALS) if hasattr(t0, "dim") and t0.dim() else t0
+        t1 = t1.repeat(PROBE_TRIALS) if hasattr(t1, "dim") and t1.dim() else t1
+        traced = d_l.abs().sum(dim=-1, keepdim=True) > 0
+        o_p = o_l + PROBE_ORIGIN * o_l.norm(dim=-1, keepdim=True).clamp(min=1.0) * unit(o_l.shape)
+        d_p = d_l + PROBE_EPS * unit(d_l.shape)
+        d_p = torch.where(traced, d_p / d_p.norm(dim=-1, keepdim=True), d_l)
+        if cull is None:
+            flip = (tv.traverse_fat_any_reference(scene, o_l, d_l, t0, t1)
+                    != tv.traverse_fat_any_reference(scene, o_p, d_p, t0, t1))
+        else:
+            a = tv.traverse_fat_closest_reference(scene, o_l, d_l, t0, t1, cull)
+            b = tv.traverse_fat_closest_reference(scene, o_p, d_p, t0, t1, cull)
+            flip = (a["hit"] != b["hit"]) | (a["hit"] & (a["tri"] != b["tri"]))
+        flip = flip.reshape(PROBE_TRIALS, reps, n).any(dim=0)  # [reps, n]
+        edge |= flip.any(dim=0)
+        if cull is None:
+            rows = torch.as_tensor(area_rows(reps, lights), device=dev)
+            area_edge |= (flip & rows[:, None]).any(dim=0)
+    return edge, area_edge
+
+
+def bad_pixel_census(tv, scene, lights, kernel, wave, plain, wave_log, plain_log, pixel_ids,
+                     sample: int = 0, extra=None):
+    """One row per pixel of a batch where the kernel's sample (kernel [N, 3])
+    and the plain version's (plain) differ by more than BAD_TOL, with what
+    tells them apart: where the wavefront route's path (B4a's walks with the
+    plain shading, `wave`, logged in wave_log) and the plain version's
+    (plain_log) part (path_census; `area_shadow`: an area light's shadow
+    ray), whether a trace of the pixel lies on a knife edge (knife_edges),
+    and its `cause`, the first of these that holds. A row whose path agrees
+    (cause "none") and whose kernel value parts from the wavefront route's
+    is a fault (census_verdict). `lights` is the rig's (directional, point,
+    area) counts; `extra` maps more column names to per-pixel values [N]."""
+    import torch
+
+    pixels = kernel.shape[0]
+
+    def diff(a, b):
+        return (a - b).abs().max(dim=-1).values
+
+    bad = torch.nonzero(diff(kernel, plain) > BAD_TOL).flatten()
+    if bad.numel() == 0:
+        return []
+    paths = path_census(wave_log, plain_log, pixels, TIE_REL)
+    area_shadow = torch.zeros(pixels, dtype=torch.bool, device=kernel.device)
+    for (ka, *a), (_, *b) in zip(wave_log.calls, plain_log.calls):
+        if ka == "any":
+            flips = (a[0] != b[0]).reshape(-1, pixels)
+            rows = torch.as_tensor(area_rows(flips.shape[0], lights), device=kernel.device)
+            area_shadow |= (flips & rows[:, None]).any(dim=0)
+    edge, area_edge = knife_edges(tv, scene, wave_log, bad, pixels, lights)
+    rows = []
+    for j, i in enumerate(bad.tolist()):
+        r = {"pixel": int(pixel_ids[i]), "sample": sample,
+             "kernel_vs_plain": float(diff(kernel, plain)[i]),
+             "kernel_vs_wavefront": float(diff(kernel, wave)[i]),
+             "wavefront_vs_plain": float(diff(wave, plain)[i]),
+             **{k: (float(v[i]) if k == "miss_dir_diff" else bool(v[i])) for k, v in paths.items()},
+             "area_shadow": bool(area_shadow[i]), "knife_edge": bool(edge[j]),
+             "knife_edge_area_shadow": bool(area_edge[j]),
+             **{k: float(v[i]) for k, v in (extra or {}).items()}}
+        causes = (("primary triangle", r["primary_tri"]),
+                  ("bounce hit or triangle", r["bounce_hit"] or r["bounce_tri"]),
+                  ("area-light shadow ray", r["area_shadow"]),
+                  ("other shadow ray", r["shadow"]),
+                  ("miss direction", r["miss_dir_diff"] > DIR_PART),
+                  ("cube face tie", r["near_face_tie"]),
+                  ("knife edge, area-light shadow ray", r["knife_edge_area_shadow"]),
+                  ("knife edge", r["knife_edge"]))
+        r["cause"] = next((c for c, hit in causes if hit), "none")
+        rows.append(r)
+    return rows
+
+
+def census_verdict(label: str, rows: list) -> dict:
+    """Print the census rows and their counts by cause; raise where a
+    pixel's path agrees (cause "none") but the kernel parts from the
+    wavefront route on the same rays by more than BAD_TOL (the kernel's
+    fault; where it agrees with that route, what is left is the route's
+    float arithmetic against the plain version's on the same path)."""
+    by_cause = {}
+    for r in rows:
+        print(f"{label} bad pixel: {json.dumps(r)}", flush=True)
+        by_cause[r["cause"]] = by_cause.get(r["cause"], 0) + 1
+    unexplained = [(r["pixel"], r["sample"]) for r in rows
+                   if r["cause"] == "none" and r["kernel_vs_wavefront"] > BAD_TOL]
+    census = {"bad_pixel_samples": len(rows), "by_cause": by_cause,
+              "kernel_matches_wavefront": sum(r["kernel_vs_wavefront"] <= BAD_TOL for r in rows),
+              "unexplained": len(unexplained)}
+    print(f"{label} bad pixels, by cause: {json.dumps(census)} (a pixel-sample whose kernel value "
+          f"and plain value differ by > {BAD_TOL}; causes in order: where the wavefront route's "
+          f"path and the plain version's part, then a knife edge: a trace that a perturbation of "
+          f"{PROBE_EPS} of its direction and {PROBE_ORIGIN} x max(1, |o|) of its origin flips)",
+          flush=True)
+    if unexplained:
+        raise RuntimeError(f"{label}: the kernel parts from the wavefront route where the paths "
+                           f"agree and no trace lies on a knife edge, (pixel, sample) {unexplained}")
+    return census
+
+
+class TexHits:
+    """Counts the closest hits on textured materials of the BVH route's
+    traces made while it is active (trace.integrator._interpolate_hit), each
+    a four-texel lookup in the fused-traversal kernel."""
+
+    def __init__(self, integrator):
+        self.mod, self.hits = integrator, 0
+
+    def __enter__(self):
+        self.fn = self.mod._interpolate_hit
+
+        def wrapped(scene, hits, origins, directions):
+            if "textures" in scene:
+                tri = hits["tri"].clamp(min=0)
+                width = scene["textures"]["meta"][scene["mat_id"][tri], 1]
+                self.hits += int((hits["hit"] & (width > 0)).sum())
+            return self.fn(scene, hits, origins, directions)
+
+        self.mod._interpolate_hit = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._interpolate_hit = self.fn
+
+
+def config2_stand_in(env):
+    """BASELINE config 2's shape without its files (susanne.obj, ground.fbx
+    and CathedralRadiance.dds are not in the repository): a 960-triangle UV
+    sphere in susanne's place (968 triangles), scaled x4 and lifted to
+    y = 4.2 as the JAX config2 scene places susanne, with
+    Material.reference_default(); a ground grid of 20 x 20 quads (800
+    triangles) at y = 0 spanning +-40 with planar UVs (scale 40) and the
+    checker-textured floor material; 1 directional + 1 area light; `env` in
+    the cubemap's place; the camera (8, 7, 16) -> (0, 4, 0). 1,760
+    triangles, against the JAX run's 1,768."""
+    import numpy as np
+
+    from dxrexperiments_torch.core.camera import Camera
+    from dxrexperiments_torch.scene import Material, Mesh, Scene
+    from dxrexperiments_torch.scene.lights import area_light, directional_light
+    from dxrexperiments_torch.scene.procedural import sphere_mesh
+    from dxrexperiments_torch.scene.textures import checker_texture, planar_uvs
+
+    n = 20
+    xs = np.linspace(-40.0, 40.0, n + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    pos = np.stack([gx, np.zeros_like(gx), gz], axis=-1).reshape(-1, 3)
+    a = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]).reshape(-1)
+    b, c = a + 1, a + n + 1
+    idx = np.stack([np.stack([a, b, c + 1], -1), np.stack([a, c + 1, c], -1)], 1).reshape(-1, 3)
+    ground = Mesh(pos, None, idx.astype(np.int32), name="ground")  # faces +y
+    planar_uvs(ground, scale=40.0)
+    sc = Scene()
+    glossy = sc.add_material(Material.reference_default())
+    floor = sc.add_material(Material(
+        albedo=(0.85, 0.85, 0.85, 1.0), roughness=0.9,
+        albedo_texture=checker_texture(16, (1.0, 1.0, 1.0), (0.45, 0.42, 0.38), size=128)))
+    t = np.eye(4, dtype=np.float32)
+    t[:3, :3] *= 4.0
+    t[1, 3] = 4.2
+    sc.add_model(sphere_mesh((0.0, 0.0, 0.0), 1.0, lat=16, lon=32), transform=t, material=glossy)
+    sc.add_model(ground, material=floor)
+    sc.lights = {
+        "dir": [directional_light((0.3, -0.75, -0.6), (1.0, 0.96, 0.9, 1.2))],
+        "point": [],
+        "area": [area_light((-6.0, 14.0, 6.0), (4.0, 0, 0), (0, 0, -4.0), (1.0, 0.95, 0.85, 3.0))],
+    }
+    sc.environment = env
+    cam = Camera()
+    cam.set_eye_at_up((8.0, 7.0, 16.0), (0.0, 4.0, 0.0), (0.0, 1.0, 0.0))
+    return sc, cam
 
 
 class PairCount:
@@ -745,6 +1029,7 @@ def main() -> int:
     import numpy as np
 
     from dxrexperiments_torch.app.headless import build_scene, parse_env, yaw_matrix
+    from dxrexperiments_torch.app.headless import main as headless_main
     from dxrexperiments_torch.core import rng as trng
     from dxrexperiments_torch.core.camera import camera_params, primary_ray_grid, stack_cameras
     from dxrexperiments_torch.core.device import setup_device
@@ -759,8 +1044,10 @@ def main() -> int:
     from dxrexperiments_torch.ops import intersect_kernel as ik
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
-    from dxrexperiments_torch.scene import envmap
+    from dxrexperiments_torch.scene import Scene, cornell_box, envmap
     from dxrexperiments_torch.scene.dynamic import refit_scene_instances
+    from dxrexperiments_torch.scene.lights import area_light, default_lights, directional_light
+    from dxrexperiments_torch.trace import integrator as tint
     from dxrexperiments_torch.trace.integrator import (
         RAY_EPSILON,
         RAY_MAX_T,
@@ -776,6 +1063,15 @@ def main() -> int:
         fs.LAUNCHES = fs.REALTIME_LAUNCHES = bl.LAUNCHES = 0
         tv.CLOSEST_LAUNCHES = tv.ANY_LAUNCHES = ft.LAUNCHES = ft.REALTIME_LAUNCHES = 0
         tv2.CLOSEST_LAUNCHES = tv2.ANY_LAUNCHES = ik.CLOSEST_LAUNCHES = ik.ANY_LAUNCHES = 0
+
+    # tests/test_fused_traverse.py's area rig for the Cornell box, and an area
+    # light over the middle of the instanced grids
+    cornell_area_rig = {
+        "dir": [directional_light((0.0, -0.6, -0.8), (0.9, 0.9, 0.9, 0.3))],
+        "point": [],
+        "area": [area_light((-0.4, 1.96, -0.4), (0.8, 0, 0), (0, 0, 0.8), (1.0, 0.9, 0.7, 4.0))],
+    }
+    instanced_area = area_light((-2.0, 8.0, -2.0), (4.0, 0, 0), (0, 0, 4.0), (1.0, 0.95, 0.85, 10.0))
 
     # ---- 1. the card --------------------------------------------------------
     dev = setup_device("cuda")
@@ -2334,43 +2630,10 @@ def main() -> int:
     b5_grad_gate = image_gate(f"B5 gradient env vs plain, the same {COUNT_PIXELS} pixels and "
                               f"camera", b5_grad_one[None], plain_g[None], 1)
     b5_c = b5_tex_one.reshape(-1, 3)[pick_t]
-    paths = path_census(wave_log, plain_log, COUNT_PIXELS, TIE_REL)
-
-    def diff(a, b):
-        return (a - b).abs().max(dim=-1).values
-
-    bad_idx = torch.nonzero(diff(b5_c, plain_t[0]) > BAD_TOL).flatten().tolist()
-    rows = [{"pixel": int(pick_t[i]), "b5_vs_plain": float(diff(b5_c, plain_t[0])[i]),
-             "b5_vs_wavefront": float(diff(b5_c, wave_t)[i]),
-             "wavefront_vs_plain": float(diff(wave_t, plain_t[0])[i]),
-             "gradient_env_b5_vs_plain": float(diff(b5_grad_one, plain_g)[i]),
-             **{k: (float(v[i]) if k == "miss_dir_diff" else bool(v[i]))
-                for k, v in paths.items()}}
-            for i in bad_idx]
-    walk_parts = [r for r in rows if r["primary_tri"] or r["bounce_hit"] or r["bounce_tri"]
-                  or r["shadow"] or r["miss_dir_diff"] > DIR_PART]
-    census = {"bad_pixels": len(rows),
-              "wavefront_route_matches_b5": sum(r["b5_vs_wavefront"] <= BAD_TOL for r in rows),
-              "walk_and_sweep_part": len(walk_parts),
-              "by_primary_tri": sum(r["primary_tri"] for r in rows),
-              "by_bounce_hit_or_tri": sum(r["bounce_hit"] or r["bounce_tri"] for r in rows),
-              "by_shadow": sum(r["shadow"] for r in rows),
-              "near_face_tie": sum(r["near_face_tie"] for r in rows)}
-    # a pixel where B5 parts from the wavefront route on the same path would
-    # be a fault of the kernel's lookup
-    unexplained = [r["pixel"] for r in rows
-                   if r["b5_vs_wavefront"] > BAD_TOL and r not in walk_parts]
-    census.update(unexplained=len(unexplained), pixels=rows)
-    for r in rows:
-        print(f"B5 cubemap bad pixel: {json.dumps(r)}", flush=True)
-    print(f"B5 cubemap bad pixels, by cause: "
-          f"{json.dumps({k: v for k, v in census.items() if k != 'pixels'})} "
-          f"(wavefront_route_matches_b5: B4a's walk with the plain lookup agrees with B5 to "
-          f"{BAD_TOL}; walk_and_sweep_part: that route's path and the plain version's differ in a "
-          f"hit, a triangle, a shadow ray or a miss's direction by > {DIR_PART})", flush=True)
-    if unexplained:
-        raise RuntimeError(f"B5 with the cubemap parts from the wavefront route where the paths "
-                           f"agree, pixels {unexplained}: a fault in the kernel's lookup")
+    grad_diff = (b5_grad_one - plain_g).abs().max(dim=-1).values
+    census = census_verdict("B5 cubemap", bad_pixel_census(
+        tv, tex32, light_counts(tex32), b5_c, wave_t, plain_t[0], wave_log, plain_log,
+        pick_t.tolist(), extra={"gradient_env_b5_vs_plain": grad_diff}))
     b5_tex_bound = bound(t_ops, t_bytes + env_bytes(b5_tex_count.env_lookups * M * M
                                                     / COUNT_PIXELS, tex32["env"]["cube"]))
     # B5 alone on the same cameras: the cubemap, the gradient env, in turns
@@ -2384,8 +2647,8 @@ def main() -> int:
           f"{', '.join(f'{t:.3f}' for t in turns)}); bound {b5_tex_bound[0]:.4f} ms "
           f"({b5_tex_bound[1]}); {b5_tex_count.env_lookups / COUNT_PIXELS:.3f} env lookups per "
           f"pixel-sample [{card}]", flush=True)
-    del pipe_t, tex32, tex_prep, grad_prep, scene32, bvh_np, b5_tex_one, o_t, d_t
-    del plain_log, wave_log, paths
+    del pipe_t, tex32, tex_prep, grad_prep, bvh_np, b5_tex_one, o_t, d_t  # phase 29 reuses scene32
+    del plain_log, wave_log
     torch.cuda.empty_cache()
 
     # ---- 24. the wavefront routes with a texture env at 128^2 ----------------------
@@ -2449,6 +2712,513 @@ def main() -> int:
           f"[{card}]", flush=True)
     del pipe3, scene3, black3
     tex_dir.cleanup()
+    torch.cuda.empty_cache()
+
+    # ---- 26. B5's area mode vs plain at 128^2 -----------------------------------------
+    def with_area(sc, area):
+        """sc's rig become 1 directional (its own, or the default sun) + 1 area light."""
+        d = sc.lights["dir"] if sc.lights is not None else default_lights()["dir"]
+        sc.lights = {"dir": d if isinstance(d, list) else [d], "point": [], "area": [area]}
+        return sc
+
+    area_scenes = {}
+
+    def area_cornell(env, textured=False):
+        """tests/test_fused_traverse.py's area Cornell: the glossy tall box,
+        1 directional + 1 area light, with a BVH of its own; the env of
+        phase 3's case (or phase 18's seeded cubemap); the floor textured or not."""
+        key = (env, textured)
+        if key not in area_scenes:
+            mesh, mats = cornell_box(glossy_tall_box=True, textured_floor=textured)
+            sc = Scene()
+            for m in mats:
+                sc.add_material(m)
+            sc.add_model(mesh)
+            sc.lights = cornell_area_rig
+            sc.environment = {"gradient": envmap.gradient_env(), "cubemap": cube_env}.get(
+                env, envmap.constant_env((0.05, 0.1, 0.2), strength=1.5))
+            if env == "emissive":
+                sc.materials = [dataclasses.replace(m, emissive=(0.2, 0.3, 0.4, 2.0))
+                                for m in sc.materials]
+            cam = build_scene("cornell")[1]
+            cam.set_aspect(P, P)
+            area_scenes[key] = (sc.build(dev, accel="bvh"), cam)
+        return area_scenes[key]
+
+    def area_instanced4(env):
+        """instanced:4 (its gradient env whatever the case's) with its rig set
+        to 1 directional + 1 area light."""
+        if "i4" not in area_scenes:
+            sc, cam = build_scene(BVH_PARITY_SCENE)
+            with_area(sc, instanced_area)
+            cam.set_aspect(P, P)
+            area_scenes["i4"] = (sc.build(dev), cam)
+        return area_scenes["i4"]
+
+    def b5_cases(scene_of, label, prog_cases, rt_cases, realtime=True):
+        """B5 against the plain version: progressive (S = 4) on each option
+        set, realtime on every AOV and an S = 2 batch against two single
+        launches; returns the largest max |d| of each."""
+        errs = [0.0, 0.0]
+        for name, opts, env in prog_cases:
+            scene, cam = scene_of(env)
+            if select_route(scene, "progressive") != "fused_traverse":
+                raise RuntimeError(f"{label} {name} did not route to B5")
+            options = default_options(**opts)
+            cams = cameras(cam, P, P, PARITY_S, 11)
+            got = ft.fused_traverse_progressive_sum(scene, options, cams, P, P, scene["env"]["kind"])
+            want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, P, P,
+                                                               scene["env"]["kind"])
+            torch.cuda.synchronize()
+            errs[0] = max(errs[0], image_gate(f"{label} {name} {P}^2 S={PARITY_S}", got, want,
+                                              PARITY_S)["max_abs_diff"])
+        for name, opts, env in (rt_cases if realtime else ()):
+            scene, cam = scene_of(env)
+            options = default_options(**opts)
+            cams = cameras(cam, P, P, 1, 2**31 + 5)
+            ek = scene["env"]["kind"]
+            got = ft.fused_traverse_realtime_outputs(scene, options, {k: v[0] for k, v in
+                                                                      cams.items()}, P, P, ek)
+            want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, P, P, ek)
+            torch.cuda.synchronize()
+            errs[1] = max(errs[1], aov_gate(f"{label} realtime {name} {P}^2", got,
+                                            {k: v[0] for k, v in want.items()}))
+        if realtime:
+            scene, cam = scene_of("gradient")
+            options = default_options(debug=2)
+            cams = cameras(cam, P, P, 2, 40)
+            batch = ft.realtime_aovs(scene, options, cams, P, P, 1)
+            batch_err = max(float((batch[k][f] - ft.realtime_aovs(
+                scene, options, {c: v[f:f + 1] for c, v in cams.items()}, P, P, 1)[k][0]
+            ).abs().max()) for k in fs.AOV_KEYS for f in range(2))
+            torch.cuda.synchronize()
+            print(f"parity {label} realtime S=2 batch vs 2 single launches: max |d| "
+                  f"{batch_err:.3e} (<= 1e-6)", flush=True)
+            if not batch_err <= 1e-6:
+                raise RuntimeError(f"{label} realtime S=2 batch differs from single launches")
+        tv.check_errors()
+        return errs
+
+    area_err = b5_cases(area_cornell, "B5 area cornell", OPTION_CASES, REALTIME_CASES)
+    area4_err = b5_cases(area_instanced4, f"B5 area {BVH_PARITY_SCENE}",
+                            [c for c in OPTION_CASES if c[0] in ("defaults", "debug2",
+                                                                 "albedo_only")],
+                            REALTIME_CASES[:2])
+    # the plain versions' times at this shape, for the kernel lines
+    scene_a4, cam_a4 = area_instanced4("gradient")
+    cams_a4 = cameras(cam_a4, P, P, BVH_S, 60)
+    area_small = {
+        realtime: (kernel_ms(ft.prepare_launch(scene_a4, default_options(), cams_a4, P, P, 1,
+                                               realtime), 10, torch) / BVH_S,
+                   time_ms(lambda: (ft.fused_traverse_realtime_outputs_reference if realtime else
+                                    ft.fused_traverse_progressive_sum_reference)(
+                       scene_a4, default_options(), cams_a4, P, P, 1), 2, torch) / BVH_S)
+        for realtime in (False, True)}
+    tv.check_errors()
+    print(f"time B5 area mode at {BVH_PARITY_SCENE} {P}^2: progressive kernel "
+          f"{area_small[False][0]:.4f} ms, plain {area_small[False][1]:.3f} ms per sample; realtime "
+          f"kernel {area_small[True][0]:.4f} ms, plain {area_small[True][1]:.3f} ms per frame "
+          f"[{card}]", flush=True)
+
+    # ---- 27. B5's albedo-texture mode vs plain at 128^2 --------------------------------
+    def cornell_tex(env):
+        """The CLI's cornell-tex, built as the CLI builds it (its routing BVH)."""
+        if ("tex", env) not in area_scenes:
+            sc, cam = build_scene("cornell-tex")
+            cam.set_aspect(P, P)
+            scene = sc.build(dev)
+            if "tex_autoroute" not in scene["bvh"] or scene["bvh"]["mt_attr_lanes"] != 2:
+                raise RuntimeError("cornell-tex did not get its routing BVH with the UV lanes")
+            area_scenes["tex", env] = (scene, cam)
+        return area_scenes["tex", env]
+
+    tex_cases = [c for c in OPTION_CASES if c[0] in ("defaults", "debug2", "no_indirect_diffuse",
+                                                     "albedo_only")]
+    tex_err = b5_cases(cornell_tex, "B5 texture cornell-tex", tex_cases, (), realtime=False)
+    tex_cube_err = b5_cases(lambda env: area_cornell("cubemap", textured=True),
+                               f"B5 texture + area cornell, 6x{CUBE_S}^2 cubemap", tex_cases, (),
+                               realtime=False)
+    scene_tc, cam_tc = area_cornell("cubemap", textured=True)
+    cams_tc = cameras(cam_tc, P, P, BVH_S, 60)
+    tex_small = (kernel_ms(ft.prepare_launch(scene_tc, default_options(), cams_tc, P, P, 3, False),
+                           10, torch) / BVH_S,
+                 time_ms(lambda: ft.fused_traverse_progressive_sum_reference(
+                     scene_tc, default_options(), cams_tc, P, P, 3), 2, torch) / BVH_S)
+    tv.check_errors()
+    print(f"time B5 texture + area mode at cornell {P}^2 with the cubemap: kernel "
+          f"{tex_small[0]:.4f} ms, plain {tex_small[1]:.3f} ms per sample [{card}]", flush=True)
+    del area_scenes, scene_a4, scene_tc
+
+    # ---- 28. the config-2 stand-in at full size: the slice's main path ---------------
+    sc2, cam2 = config2_stand_in(cube_env)
+    cam2.set_aspect(M, M)
+    pipe2 = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=C2_S, device=dev)
+    pipe2.max_iterations = C2_S * C2_DISPATCHES
+    pipe2.set_camera(cam2)
+    t0 = time.perf_counter()
+    pipe2.set_scene(sc2)
+    torch.cuda.synchronize()
+    c2_build_s = time.perf_counter() - t0
+    scene2c, opts2c = pipe2.scene_data, pipe2.options
+    c2_route = select_route(scene2c, "progressive")
+    print(f"config-2 stand-in: {scene2c['num_tris']} triangles (a 960-triangle sphere x4 at "
+          f"y = 4.2 for susanne, a 20 x 20 quad ground grid for ground.fbx), textures "
+          f"{tuple(scene2c['textures']['texels'].shape)} texels, BVH tagged tex_autoroute "
+          f"{'tex_autoroute' in scene2c['bvh']}, mt_attr_lanes {scene2c['bvh']['mt_attr_lanes']}, "
+          f"route {c2_route}, built in {c2_build_s:.3f}s host clock", flush=True)
+    if c2_route != "fused_traverse" or "tex_autoroute" not in scene2c["bvh"]:
+        raise RuntimeError("the config-2 stand-in did not route to B5 through its routing BVH")
+    first2 = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(C2_DISPATCHES):
+        pipe2.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first2 is None:
+            first2 = pipe2._camera_params
+        pipe2.render()
+    torch.cuda.synchronize()
+    c2_s = time.perf_counter() - t0
+    c2_launches = ft.LAUNCHES
+    others = (fs.LAUNCHES, ik.CLOSEST_LAUNCHES, ik.ANY_LAUNCHES, tv.CLOSEST_LAUNCHES,
+              tv.ANY_LAUNCHES, tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES, ft.REALTIME_LAUNCHES)
+    img = pipe2.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    print(f"config-2 stand-in main path: {C2_DISPATCHES} dispatches x {C2_S} samples at {M}^2 "
+          f"({pipe2.accum_count} spp) in {c2_s:.3f}s host clock, B5 launches {c2_launches}, "
+          f"B1 / B3 closest / B3 any / B4a closest / B4a any / B6a closest / B6a any / B5 realtime "
+          f"launches {others}, image finite {finite}, mean {mean:.5f} [{card}]", flush=True)
+    if c2_launches != C2_DISPATCHES or any(others):
+        raise RuntimeError(f"expected {C2_DISPATCHES} B5 launches and no other kernel's, got "
+                           f"{c2_launches} and {others}")
+    if not finite or not mean > 0.0 or pipe2.accum_count != C2_S * C2_DISPATCHES:
+        raise RuntimeError("the config-2 stand-in's image is not finite with a positive mean")
+    # the first dispatch against the plain version on sampled pixels, every
+    # sample; each sample of B5 also on its own (one launch per camera, which
+    # must add up to the dispatch) for the census of the bad pixels, beside
+    # the wavefront route (B4a's walks with the plain shading) on its rays
+    got2 = ft.fused_traverse_progressive_sum(scene2c, opts2c, first2, M, M, 3)
+    pick2 = torch.as_tensor(rng.choice(M * M, COUNT_PIXELS, replace=False), device=dev)
+    bvh_np2 = {k: scene2c["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "mt_rows")}
+    wc2, tex_hits = WalkCount(tv, bvh_np2), TexHits(tint)
+    lights2 = light_counts(scene2c)
+    want2, b5_sum2, c2_rows = None, None, []
+    for s_i in range(C2_S):
+        cam_s = {k: v[s_i] for k, v in first2.items()}
+        o_s, d_s = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam_s, M, M,
+                                                                        fs.JITTER_SCALE))
+        seeds_s = trng.pixel_seeds(M, M, cam_s["frame_count"], device=dev).reshape(-1)
+        rays_s = (o_s[pick2], d_s[pick2], seeds_s[pick2])
+        b5_s = ft.fused_traverse_progressive_sum(scene2c, opts2c,
+                                                 {k: v[s_i:s_i + 1] for k, v in first2.items()},
+                                                 M, M, 3).reshape(-1, 3)[pick2]
+        with PairCount(intersect, torch) as c2_count, TraceLog(tv, TraceLog.PLAIN) as plain_log:
+            plain_s = trace_rays(scene2c, opts2c, *rays_s, impl="torch")["color"]
+        with contextlib.ExitStack() as hooks:
+            if s_i == 0:  # the walks and textured hits of one sample, for the bound
+                hooks.enter_context(TraceHook(tv, wc2.add))
+                hooks.enter_context(tex_hits)
+            with TraceLog(tv) as wave_log:
+                wave_s = trace_rays(scene2c, opts2c, *rays_s, impl="cuda")["color"]
+        c2_rows += bad_pixel_census(tv, scene2c, lights2, b5_s, wave_s, plain_s, wave_log,
+                                    plain_log, pick2.tolist(), s_i)
+        want2 = plain_s if want2 is None else want2 + plain_s
+        b5_sum2 = b5_s if b5_sum2 is None else b5_sum2 + b5_s
+    torch.cuda.synchronize()
+    tv.check_errors()
+    got2_pick = got2.reshape(-1, 3)[pick2]
+    c2_split_err = float((b5_sum2 - got2_pick).abs().max())
+    print(f"config-2 stand-in: B5's {C2_S} single-sample launches against its {C2_S}-sample "
+          f"dispatch on the {COUNT_PIXELS} sampled pixels: max |d| {c2_split_err:.3e} (<= 1e-5 x "
+          f"max(1, |sum|))", flush=True)
+    if not c2_split_err <= 1e-5 * max(1.0, float(got2_pick.abs().max())):
+        raise RuntimeError("the config-2 stand-in's single-sample B5 launches do not add up to "
+                           "the dispatch")
+    c2_gate = image_gate(f"config-2 stand-in first dispatch vs plain, {COUNT_PIXELS} sampled "
+                         f"pixels of {M}^2, S={C2_S}", got2_pick[None], want2[None], C2_S)
+    c2_census = census_verdict("config-2 stand-in", c2_rows)
+    gate_bad = ((got2_pick - want2).abs() / C2_S > BAD_TOL).any(dim=-1)
+    c2_census["gate_bad_pixels"] = int(gate_bad.sum())
+    c2_census["gate_bad_pixels_by_cause"] = {}
+    for i in torch.nonzero(gate_bad).flatten().tolist():
+        causes = sorted({r["cause"] for r in c2_rows if r["pixel"] == int(pick2[i])})
+        key = " + ".join(causes) or "none"
+        c2_census["gate_bad_pixels_by_cause"][key] = (
+            c2_census["gate_bad_pixels_by_cause"].get(key, 0) + 1)
+    print(f"config-2 stand-in: the image gate's {c2_census['gate_bad_pixels']} bad pixels by the "
+          f"causes of their bad samples: {json.dumps(c2_census['gate_bad_pixels_by_cause'])}",
+          flush=True)
+    c2_env_lookups = c2_count.env_lookups * M * M / COUNT_PIXELS  # one sample's
+    c2_ops, c2_bytes = walk_work(wc2, M * M / COUNT_PIXELS, scene2c["bvh"],
+                                 12 / max(wc2.c["rays"] / COUNT_PIXELS, 1), 16)
+    texel_table = scene2c["textures"]["texels"]
+    tex_bytes = min(tex_hits.hits * M * M / COUNT_PIXELS * ENV_LOOKUP_BYTES,
+                    texel_table.numel() * texel_table.element_size())
+    c2_bound = bound(c2_ops, c2_bytes + tex_bytes
+                     + env_bytes(c2_env_lookups, scene2c["env"]["cube"]))  # per sample
+    print(f"config-2 stand-in work per sample (host model of the walk on {COUNT_PIXELS} sampled "
+          f"pixels): {wc2.c['visits'] / COUNT_PIXELS:.1f} visits and "
+          f"{wc2.c['pair_tests'] / COUNT_PIXELS:.1f} pair tests over "
+          f"{wc2.c['rays'] / COUNT_PIXELS:.2f} rays per pixel, "
+          f"{tex_hits.hits / COUNT_PIXELS:.3f} textured hits and "
+          f"{c2_count.env_lookups / COUNT_PIXELS:.3f} env lookups per pixel", flush=True)
+    # times: the kernel alone, through the wrapper, the plain version (one
+    # sample at full size), the host per dispatch enqueued and synchronised
+    c2_prep = ft.prepare_launch(scene2c, opts2c, first2, M, M, 3, False)
+    c2_ms = kernel_ms(c2_prep, 10, torch)
+    c2_wrap_ms = time_ms(lambda: ft.fused_traverse_progressive_sum(scene2c, opts2c, first2, M, M,
+                                                                   3), 10, torch)
+    first2_one = {k: v[:1] for k, v in first2.items()}
+    c2_plain_ms = time_ms(lambda: ft.fused_traverse_progressive_sum_reference(
+        scene2c, opts2c, first2_one, M, M, 3), 1, torch)
+    pipe2.max_iterations = 2**30  # every timed dispatch renders
+    n_disp2 = 20
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(n_disp2):
+        pipe2.update(elapsed_time=0.0, elapsed_frames=C2_DISPATCHES + f)
+        pipe2.render()
+    c2_enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    c2_dispatch_s = time.perf_counter() - t0
+    pipe2.get_output()
+    print(f"time config-2 stand-in: B5 {c2_ms:.3f} ms per {C2_S}-sample {M}^2 dispatch (kernel "
+          f"alone; {c2_ms / C2_S:.4f} ms per sample), {c2_wrap_ms:.3f} ms through the wrapper, "
+          f"{C2_S * 1e3 / c2_ms:.1f} spp/s ({M * M * C2_S / c2_ms / 1e3:.2f} primary Mrays/s); "
+          f"plain {c2_plain_ms:.1f} ms per sample; host per dispatch "
+          f"{c2_enqueue_s / n_disp2 * 1e3:.3f} ms enqueued, {c2_dispatch_s / n_disp2 * 1e3:.3f} ms "
+          f"synchronised ({n_disp2} dispatches); bound {c2_bound[0] * C2_S:.4f} ms per dispatch "
+          f"({c2_bound[1]}) [{card}]", flush=True)
+    del pipe2, c2_prep, got2, want2, bvh_np2
+    # realtime + denoise at 1080p on the same scene: a textured scene's frame
+    # takes the wavefront route (B4a + the albedo glue), as in JAX
+    cam2.set_aspect(RT_W, RT_H)
+    rt2 = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
+    rt2.set_camera(cam2)
+    rt2.set_scene(sc2)
+    denoiser = DenoiseCompositor(device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    frame0 = None
+    for f in range(C2_RT_FRAMES):
+        rt2.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        direct, spec = rt2.render()
+        if frame0 is None:
+            frame0 = (rt2._camera_params, direct, spec)
+        display = denoiser.dispatch(direct, spec)
+    torch.cuda.synchronize()
+    c2_rt_s = time.perf_counter() - t0
+    tv.check_errors()
+    c2_rt_counts = (tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, bl.LAUNCHES, ft.REALTIME_LAUNCHES,
+                    fs.REALTIME_LAUNCHES)
+    finite = bool((direct + spec).isfinite().all()) and bool(display.isfinite().all())
+    mean = float(display.mean())
+    print(f"config-2 stand-in realtime + denoise: {C2_RT_FRAMES} frames at {RT_W}x{RT_H} in "
+          f"{c2_rt_s:.3f}s host clock, B4a closest / B4a any / bilateral / B5 realtime / B1 "
+          f"realtime launches {c2_rt_counts}, display finite {finite}, mean {mean:.5f} [{card}]",
+          flush=True)
+    n = 2 * C2_RT_FRAMES
+    if c2_rt_counts != (n, n, n, 0, 0) or not finite or not mean > 0.0:
+        raise RuntimeError("the config-2 stand-in's realtime + denoise frames failed")
+    # frame 0 against the plain version on sampled pixels: every AOV of the
+    # wavefront route (B4a + the albedo glue) on those pixels' rays, and the
+    # pipeline's own direct and specular AOVs there
+    cam_r, direct0, spec0 = frame0
+    scene2r = rt2.scene_data
+    o_r, d_r = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam_r, RT_W, RT_H,
+                                                                    fs.REALTIME_JITTER_SCALE))
+    pick_r = torch.as_tensor(rng.choice(RT_W * RT_H, COUNT_PIXELS, replace=False), device=dev)
+    seeds_r = trng.pixel_seeds(RT_W, RT_H, cam_r["frame_count"], device=dev).reshape(-1)
+    rays_r = (o_r[pick_r], d_r[pick_r], seeds_r[pick_r])
+    before = (tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES)
+    wave_r = trace_rays(scene2r, rt2.options, *rays_r, mode="realtime", impl="cuda")
+    plain_r = trace_rays(scene2r, rt2.options, *rays_r, mode="realtime", impl="torch")
+    torch.cuda.synchronize()
+    tv.check_errors()
+    if (tv.CLOSEST_LAUNCHES - before[0], tv.ANY_LAUNCHES - before[1]) != (2, 2):
+        raise RuntimeError("the config-2 stand-in's realtime check did not run through B4a")
+
+    def picked(x):
+        return x.reshape(COUNT_PIXELS, -1)[None]
+
+    c2_rt_err = aov_gate(f"config-2 stand-in realtime (B4a + the albedo glue) vs plain, "
+                         f"{COUNT_PIXELS} sampled pixels of {RT_W}x{RT_H}",
+                         {k: picked(v) for k, v in wave_r.items()},
+                         {k: picked(v) for k, v in plain_r.items()})
+    c2_rt_pipe = {k: image_gate(f"config-2 stand-in realtime pipeline frame 0 {k} vs plain, the "
+                                f"same pixels", got.reshape(-1, 3)[pick_r][None],
+                                picked(plain_r[k]), 1)["max_abs_diff"]
+                  for k, got in (("direct", direct0), ("indirect_specular", spec0))}
+    del rt2, direct, spec, display, frame0, direct0, spec0, wave_r, plain_r
+
+    # ---- 29. B5's area mode at config 5's size: instanced:32, 512^2 -----------------
+    area32 = dict(scene32, lights=with_area(build_scene(BVH_MAIN_SCENE)[0], instanced_area).lights)
+    pipe_a = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
+    pipe_a.max_iterations = BVH_S * C5_AREA_DISPATCHES
+    pipe_a.set_camera(cam32)
+    pipe_a.set_scene_data(area32)
+    first_a = None
+    torch.cuda.synchronize()
+    reset_counts()
+    for f in range(C5_AREA_DISPATCHES):
+        pipe_a.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first_a is None:
+            first_a = pipe_a._camera_params
+        pipe_a.render()
+    torch.cuda.synchronize()
+    c5a_launches = ft.LAUNCHES
+    others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, ik.CLOSEST_LAUNCHES)
+    img = pipe_a.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    print(f"B5 area main path: {C5_AREA_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
+          f"{BVH_MAIN_SCENE} with 1 directional + 1 area light, B5 launches {c5a_launches}, B1 / "
+          f"B4a closest / B4a any / B3 launches {others}, image finite {finite}, mean {mean:.5f}",
+          flush=True)
+    if c5a_launches != C5_AREA_DISPATCHES or any(others) or not finite or not mean > 0.0:
+        raise RuntimeError("the area rig on instanced:32 did not run through B5 as expected")
+    cam_a = {k: v[0] for k, v in first_a.items()}
+    b5_area_one = ft.fused_traverse_progressive_sum(area32, pipe_a.options,
+                                                    {k: v[None] for k, v in cam_a.items()}, M, M,
+                                                    1)
+    o_a, d_a = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam_a, M, M, fs.JITTER_SCALE))
+    pick_a = torch.as_tensor(rng.choice(M * M, COUNT_PIXELS, replace=False), device=dev)
+    seeds_a = trng.pixel_seeds(M, M, cam_a["frame_count"], device=dev).reshape(-1)
+    rays_a = (o_a[pick_a], d_a[pick_a], seeds_a[pick_a])
+    with TraceLog(tv, TraceLog.PLAIN) as plain_log:
+        plain_a = trace_rays(area32, pipe_a.options, *rays_a, impl="torch")["color"][None]
+    torch.cuda.synchronize()
+    tv.check_errors()
+    b5_area_pick = b5_area_one.reshape(-1, 3)[pick_a]
+    c5a_gate = image_gate(f"B5 area vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels of "
+                          f"{M}^2, 1 sample", b5_area_pick[None], plain_a, 1)
+    bvh_np = {k: scene32["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "mt_rows")}
+    wc_a = WalkCount(tv, bvh_np)
+    with TraceHook(tv, wc_a.add), TraceLog(tv) as wave_log:
+        wave_a = trace_rays(area32, pipe_a.options, *rays_a, impl="cuda")["color"]
+    c5a_census = census_verdict(f"B5 area {BVH_MAIN_SCENE}", bad_pixel_census(
+        tv, area32, light_counts(area32), b5_area_pick, wave_a, plain_a[0], wave_log, plain_log,
+        pick_a.tolist()))
+    del plain_log, wave_log, wave_a
+    c5a_bound = bound(*walk_work(wc_a, M * M / COUNT_PIXELS, scene32["bvh"],
+                                 12 / max(wc_a.c["rays"] / COUNT_PIXELS, 1), 10))
+    # B5 alone on phase 8's cameras, in turns: the area rig; phase 8's 1
+    # directional + 1 point rig (the base mode); and that rig with the area
+    # light added, whose gap to the base is what the area light's 4 shadow
+    # walks per shading point cost (the point light's own shadow rays, from
+    # a light in the floor's plane, graze the floor)
+    full32 = dict(scene32, lights=dict(scene32["lights"], area=[instanced_area]))
+    preps = [ft.prepare_launch(sc_, pipe_a.options, first32, M, M, 1, False)
+             for sc_ in (area32, scene32, full32)]
+    order = (0, 1, 2, 2, 1, 0)
+    turns_a = [kernel_ms(preps[i], 5, torch) / BVH_S for i in order]
+    c5a_ms, c5_base_ms, c5_full_ms = ((turns_a[i] + turns_a[5 - i]) / 2 for i in range(3))
+    tv.check_errors()
+    print(f"time B5 area mode on {BVH_MAIN_SCENE}: kernel {c5a_ms:.3f} ms per {M}^2 sample with "
+          f"1 directional + 1 area light, {c5_base_ms:.3f} ms with phase 8's 1 directional + 1 "
+          f"point rig (the base mode), {c5_full_ms:.3f} ms with 1 "
+          f"directional + 1 point + 1 area light, on the same cameras (turns "
+          f"{', '.join(f'{t:.3f}' for t in turns_a)}); the area light's shadow walks cost "
+          f"{c5_full_ms - c5_base_ms:.3f} ms ({(c5_full_ms / c5_base_ms - 1) * 100:.1f}%) over the "
+          f"base rig; area rig walk per pixel {wc_a.c['visits'] / COUNT_PIXELS:.1f} visits, "
+          f"{wc_a.c['pair_tests'] / COUNT_PIXELS:.1f} pair tests over "
+          f"{wc_a.c['rays'] / COUNT_PIXELS:.2f} rays; bound {c5a_bound[0]:.4f} ms "
+          f"({c5a_bound[1]}) [{card}]", flush=True)
+    del pipe_a, preps, full32, b5_area_one, plain_a, o_a, d_a
+    # realtime with the area rig at 1080p: two frames through the pipeline,
+    # every AOV of frame 0 against the plain version on sampled pixels
+    cam32.set_aspect(RT_W, RT_H)
+    rt_a = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
+    rt_a.set_camera(cam32)
+    rt_a.set_scene_data(area32)
+    torch.cuda.synchronize()
+    reset_counts()
+    frame0 = None
+    for f in range(C5_AREA_RT_FRAMES):
+        rt_a.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        direct, spec = rt_a.render()
+        if frame0 is None:
+            frame0 = rt_a._camera_params
+    torch.cuda.synchronize()
+    tv.check_errors()
+    c5a_rt_launches = ft.REALTIME_LAUNCHES
+    if c5a_rt_launches != C5_AREA_RT_FRAMES or tv.CLOSEST_LAUNCHES or tv.ANY_LAUNCHES:
+        raise RuntimeError("the area rig's realtime frames did not run through B5")
+    cams0_a = {k: v[None] for k, v in frame0.items()}
+    o_r, d_r = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(frame0, RT_W, RT_H,
+                                                                    fs.REALTIME_JITTER_SCALE))
+    pick_r = torch.as_tensor(rng.choice(RT_W * RT_H, COUNT_PIXELS, replace=False), device=dev)
+    seeds_r = trng.pixel_seeds(RT_W, RT_H, frame0["frame_count"], device=dev).reshape(-1)
+    aovs_a = ft.realtime_aovs(area32, rt_a.options, cams0_a, RT_W, RT_H, 1)
+    got = {k: v[0].reshape(RT_W * RT_H, -1)[pick_r][None] for k, v in aovs_a.items()}
+    got["color"] = got["direct"] + got["indirect_specular"]
+    plain_r = trace_rays(area32, rt_a.options, o_r[pick_r], d_r[pick_r], seeds_r[pick_r],
+                         mode="realtime", impl="torch")
+    torch.cuda.synchronize()
+    tv.check_errors()
+    c5a_rt_err = aov_gate(f"B5 area realtime vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled "
+                          f"pixels of {RT_W}x{RT_H}", got,
+                          {k: v.reshape(COUNT_PIXELS, -1)[None] for k, v in plain_r.items()})
+    wc_ra = WalkCount(tv, bvh_np)
+    with TraceHook(tv, wc_ra.add):
+        trace_rays(area32, rt_a.options, o_r[pick_r], d_r[pick_r], seeds_r[pick_r],
+                   mode="realtime", impl="cuda")
+    c5a_rt_bound = bound(*walk_work(wc_ra, RT_W * RT_H / COUNT_PIXELS, scene32["bvh"],
+                                    40 / max(wc_ra.c["rays"] / COUNT_PIXELS, 1), 10))
+    c5a_rt_ms = kernel_ms(ft.prepare_launch(area32, rt_a.options, cams0_a, RT_W, RT_H, 1, True),
+                          5, torch)
+    tv.check_errors()
+    print(f"time B5 area mode realtime: kernel {c5a_rt_ms:.3f} ms per {RT_W}x{RT_H} frame on "
+          f"{BVH_MAIN_SCENE}, bound {c5a_rt_bound[0]:.4f} ms ({c5a_rt_bound[1]}) [{card}]",
+          flush=True)
+    del rt_a, aovs_a, got, plain_r, area32, scene32, bvh_np, direct, spec
+    torch.cuda.empty_cache()
+
+    # ---- 30. the wavefront routes with albedo textures at 128^2 ----------------------
+    wave_tex2 = {}
+    for label, mode, build, mod, want_counts in (
+            ("B3 cornell-tex accel none", "progressive", lambda s: s.build(dev, accel="none"), ik,
+             (2, 2)),
+            ("B6a cornell-tex two-level", "progressive", lambda s: s.build_two_level(dev), tv2,
+             (2, 2)),
+            ("B4a cornell-tex realtime", "realtime", lambda s: s.build(dev), tv, (2, 2))):
+        sc_w, c_w = build_scene("cornell-tex")
+        built = build(sc_w)
+        c_w.set_aspect(P, P)
+        if select_route(built, mode) != "wavefront" or "textures" not in built:
+            raise RuntimeError(f"{label} did not take the wavefront route with its textures")
+        cam_1 = {k: v[0] for k, v in cameras(c_w, P, P, 1, 91).items()}
+        opts_w = default_options()
+        scale = fs.REALTIME_JITTER_SCALE if mode == "realtime" else fs.JITTER_SCALE
+        reset_counts()
+        got = render_sample(built, opts_w, cam_1, P, P, mode=mode, jitter_scale=scale,
+                            impl="cuda")
+        torch.cuda.synchronize()
+        counts = (mod.CLOSEST_LAUNCHES, mod.ANY_LAUNCHES)
+        want = render_sample(built, opts_w, cam_1, P, P, mode=mode, jitter_scale=scale,
+                             impl="torch")
+        torch.cuda.synchronize()
+        tv.check_errors()
+        if counts != want_counts:
+            raise RuntimeError(f"{label}: expected {want_counts} launches, got {counts}")
+        if mode == "realtime":
+            wave_tex2[label] = {"max_abs_diff": aov_gate(f"{label} {P}^2 vs plain", got, want)}
+        else:
+            wave_tex2[label] = image_gate(f"{label} {P}^2, 1 sample, vs plain", got["color"],
+                                          want["color"], 1)
+
+    # ---- 31. the CLI on cornell-tex ----------------------------------------------------
+    before = ft.LAUNCHES
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "cornell-tex.png")
+        rc = headless_main(["--scene", "cornell-tex", "--size", f"{M}x{M}", "--spp", "16",
+                            "--device", "cuda", "-o", png])
+        cli_launches = ft.LAUNCHES - before
+        if rc != 0 or not os.path.exists(png) or cli_launches < 1:
+            raise RuntimeError(f"the CLI on cornell-tex failed (exit {rc}, B5 launches "
+                               f"{cli_launches})")
+    print(f"headless cornell-tex {M}^2 16 spp --device cuda (in process): exit 0, B5 launches "
+          f"{cli_launches}", flush=True)
     torch.cuda.empty_cache()
 
     kernels = [
@@ -2602,6 +3372,34 @@ def main() -> int:
           "ms_at_plain_shape": b5_tex_small[0], "parity_128_max_abs_diff": max(b5_tex_err),
           "bad_pixel_causes": census, "gradient_env_same_pixels": b5_grad_gate,
           "wavefront_routes_vs_plain": wave_tex}),
+        ("fused_traverse_progressive_sum, area + albedo textures", "fused_traverse.cu",
+         "ops/fused_traverse_pallas.py:131", c2_launches, c2_gate["max_abs_diff"], c2_ms / C2_S,
+         c2_plain_ms, c2_bound,
+         {"shape": f"the config-2 stand-in ({scene2c['num_tris']} triangles, 1 directional + 1 "
+                   f"area light, the checker texture, the 6x{CUBE_S}^2 cubemap), {M}^2, per "
+                   f"sample of {C2_DISPATCHES} dispatches of S = {C2_S}",
+          "ms_per_dispatch": c2_ms, "wrapper_ms_per_dispatch": c2_wrap_ms,
+          "spp_per_s": C2_S * 1e3 / c2_ms,
+          "host_ms_per_dispatch_enqueued": c2_enqueue_s / n_disp2 * 1e3,
+          "host_ms_per_dispatch_synchronised": c2_dispatch_s / n_disp2 * 1e3,
+          "area_mode_instanced32_ms": c5a_ms, "base_mode_instanced32_ms": c5_base_ms,
+          "base_plus_area_instanced32_ms": c5_full_ms,
+          "area_mode_instanced32_bound_ms": c5a_bound[0],
+          "area_mode_instanced32_vs_plain": c5a_gate,
+          "area_mode_instanced32_bad_pixel_causes": c5a_census,
+          "bad_pixel_causes": c2_census, "single_sample_launches_vs_dispatch": c2_split_err,
+          "realtime_wavefront_vs_plain": c2_rt_err,
+          "realtime_pipeline_frame_vs_plain": c2_rt_pipe,
+          "parity_128_max_abs_diff": max(area_err[0], area4_err[0], tex_err[0], tex_cube_err[0]),
+          "texture_and_area_at_plain_shape": {"shape": f"cornell, textured, cubemap, {P}^2",
+                                              "ms": tex_small[0], "plain_ms": tex_small[1]},
+          "wavefront_routes_with_textures_vs_plain": wave_tex2, "cli_launches": cli_launches}),
+        ("fused_traverse_realtime, area light", "fused_traverse.cu",
+         "ops/fused_traverse_pallas.py:131", c5a_rt_launches,
+         max(c5a_rt_err, area_err[1], area4_err[1]), c5a_rt_ms, area_small[True][1], c5a_rt_bound,
+         {"shape": f"{BVH_MAIN_SCENE} with 1 directional + 1 area light, {RT_W}x{RT_H}, per frame",
+          "plain_shape": f"{BVH_PARITY_SCENE} with the area rig {P}^2, per frame",
+          "ms_at_plain_shape": area_small[True][0]}),
     ):
         kernels.append({
             "name": name,

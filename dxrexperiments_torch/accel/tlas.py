@@ -51,6 +51,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.device import setup_device
 from ..ops import intersect
 from ..ops.traverse import _slot_of_tri, fat_nodes
 from . import bvh as bvh_mod
@@ -209,12 +210,14 @@ def build_two_level(
     transforms: np.ndarray,  # [I, 4, 4]
     mat_override: np.ndarray | None = None,  # [I] int (-1 = keep mesh ids)
     leaf_size: int = 16,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> tuple[dict, TlasRefitContext]:
     """Build the two-level structure: (tl, refit context). The BLAS arrays
     the kernel reads (``blasf_rows``, ``mt_rows``, ``slot_tri``) and the
-    refit's outputs live on ``device``; the JAX layouts ``blas_nodes`` and
-    ``blasf_nodes``, which no kernel reads, stay host tensors."""
+    refit's outputs live on ``device`` (default the card; without one it
+    raises); the JAX layouts ``blas_nodes`` and ``blasf_nodes``, which no
+    kernel reads, stay host tensors."""
+    device = setup_device(device)
     inst_mesh = np.asarray(inst_mesh, np.int64)
     transforms = np.asarray(transforms, np.float32)
     num_inst = len(inst_mesh)
@@ -325,7 +328,6 @@ def build_two_level(
         levels=levels,
         num_instances=num_inst,
     )
-    device = torch.device(device)
     dyn = refit_instances_arrays(ctx, transforms, device)
     tl = {
         "blas_nodes": torch.as_tensor(blas_nodes),

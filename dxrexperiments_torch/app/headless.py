@@ -1,7 +1,8 @@
 """Headless CLI renderer of the port (``dxrexperiments_tpu.app.headless``,
 progressive and realtime pipelines).
 
-Builds a scene (the Cornell box, with a glass pane as ``cornell-glass``, a
+Builds a scene (the Cornell box, with a glass pane as ``cornell-glass`` or
+with a checker-textured floor and an area light as ``cornell-tex``, a
 random triangle soup ``soup:N`` or a K x K grid of sphere instances
 ``instanced:K``; above 4,096 triangles through a BVH) and writes a PNG.
 Progressive: accumulates --spp samples (one per frame) and prints spp/s and
@@ -19,6 +20,8 @@ Usage:
     python -m dxrexperiments_torch.app.headless --scene instanced:32 \
         --accel two-level --animate-instances --size 512x512 --spp 16 -o out.png
     python -m dxrexperiments_torch.app.headless --scene cornell-glass --refraction \
+        --size 512x512 --spp 16 -o out.png
+    python -m dxrexperiments_torch.app.headless --scene cornell-tex \
         --size 512x512 --spp 16 -o out.png
     python -m dxrexperiments_torch.app.headless --scene cornell-glossy \
         --env latlong:sky.hdr --size 1920x1080 --spp 1024 -o out.png
@@ -49,7 +52,7 @@ from ..models.progressive import ProgressiveRaytracingPipeline
 from ..models.realtime import RealtimeRaytracingPipeline
 from ..ops.traverse import check_errors
 from ..scene import Material, Scene, cornell_box, envmap
-from ..scene.lights import default_lights, directional_light, point_light
+from ..scene.lights import area_light, default_lights, directional_light, point_light
 from ..scene.materials import MATERIAL_GLASS
 from ..scene.mesh import Mesh
 from ..scene.procedural import random_triangle_soup, sphere_mesh
@@ -57,7 +60,7 @@ from ..utils.dds import load_cubemap
 from ..utils.image import read_image, write_png
 from ..utils.stats import FrameStats
 
-SCENES = ("cornell", "cornell-glossy", "cornell-glass", "soup:N", "instanced:K")
+SCENES = ("cornell", "cornell-glossy", "cornell-glass", "cornell-tex", "soup:N", "instanced:K")
 AOV_OPTIONS = {
     "albedo": "show_gbuffer_albedo_only",
     "direct": "show_direct_lighting_only",
@@ -71,7 +74,10 @@ def build_scene(name: str) -> tuple[Scene, Camera]:
     """The JAX CLI's procedural scenes: the Cornell box (glossy tall box for
     'cornell-glossy'; 'cornell-glass' adds a glass pane in front of the
     boxes, for --refraction) with the 1 directional + 1 point rig, a black
-    constant env and the default framing; 'soup:N', N random triangles;
+    constant env and the default framing; 'cornell-tex', BASELINE config
+    2's features on the Cornell box: a checker-textured floor and a rig of
+    1 directional + 1 area light (soft shadows), which Scene.build routes
+    through a BVH tagged tex_autoroute; 'soup:N', N random triangles;
     'instanced:K',
     a K x K grid of 960-triangle spheres on a floor with alternating glossy
     and white materials (BASELINE config 5 at K = 32, 983,042 triangles,
@@ -92,7 +98,8 @@ def build_scene(name: str) -> tuple[Scene, Camera]:
             "mesh files: ROADMAP Queue A item 15)"
         )
     sc = Scene()
-    mesh, materials = cornell_box(glossy_tall_box=(name in ("cornell-glossy", "cornell-glass")))
+    mesh, materials = cornell_box(glossy_tall_box=(name in ("cornell-glossy", "cornell-glass")),
+                                  textured_floor=(name == "cornell-tex"))
     for m in materials:
         sc.add_material(m)
     if name == "cornell-glass":
@@ -106,10 +113,18 @@ def build_scene(name: str) -> tuple[Scene, Camera]:
         sc.add_model(Mesh(pane, None, np.array([[0, 2, 1], [0, 3, 2]], np.int32)),
                      material=glass)
     sc.add_model(mesh)
-    sc.lights = {
-        "dir": directional_light((0.0, -0.6, -0.8), (0.9, 0.9, 0.9, 0.6)),
-        "point": point_light((0.0, 1.8, 0.0), (1.0, 0.9, 0.7, 6.0)),
-    }
+    if name == "cornell-tex":
+        sc.lights = {
+            "dir": [directional_light((0.0, -0.6, -0.8), (0.9, 0.9, 0.9, 0.3))],
+            "point": [],
+            "area": [area_light((-0.4, 1.96, -0.4), (0.8, 0, 0), (0, 0, 0.8),
+                                (1.0, 0.9, 0.7, 4.0))],
+        }
+    else:
+        sc.lights = {
+            "dir": directional_light((0.0, -0.6, -0.8), (0.9, 0.9, 0.9, 0.6)),
+            "point": point_light((0.0, 1.8, 0.0), (1.0, 0.9, 0.7, 6.0)),
+        }
     sc.environment = envmap.constant_env((0.0, 0.0, 0.0))
     cam = Camera()
     cam.set_eye_at_up((0.0, 1.0, 3.4), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0))

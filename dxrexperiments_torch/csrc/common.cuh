@@ -10,9 +10,14 @@
 //      Hit closest(V3 o, V3 d, float tmin, bool cull) const;
 //      bool occluded(V3 o, V3 d, float tmin, bool has_tmax, float tmax) const;
 //      float a(int field, int row) const;  // material field A_* of Hit::row
+//      float albedo(const Hit& h, int k) const;  // channel k of h's albedo
 //      int rig;  // lights present: 1 directional, 2 point (B1: always 3)
+//      static constexpr bool kArea;  // one area light (B5's area mode)
+//      const float* area;  // with kArea: the area pack (AC_* lanes)
 //    B1's backend sweeps every triangle staged in shared memory; B5's walks
-//    the fat-node BVH below.
+//    the fat-node BVH below. B5's albedo-texture mode multiplies each
+//    closest hit's albedo by the texture at its UV (sample_albedo) before
+//    any use of it.
 // 2. The fat-node BVH walk of traverse_pallas._make_traverse_fat_kernel,
 //    one ray per thread: each visit tests both children's boxes against
 //    the ray's window clipped by the running best t, tests a hit leaf's
@@ -22,7 +27,14 @@
 //    B6a runs the same walk on the TLAS, whose leaf visit walks a BLAS with
 //    the leaf test's ray moved into object space (set_ray).
 //
-// 3. The miss shader's environment (env_color): constant and gradient from
+// 3. The area light (area_light_term, B5's area mode): kAreaSamples
+//    stratified points on the quad, drawn from the pixel's TEA seed by a
+//    chain of their own (scene/lights.area_light_draws), one shadow walk
+//    each; and the albedo textures (sample_albedo): four float32 taps with
+//    WRAP on both axes from the flat [R][3] texel table, as
+//    scene/textures.sample_albedo reads them.
+//
+// 4. The miss shader's environment (env_color): constant and gradient from
 //    the const pack, and the lat-long and cubemap textures of
 //    scene/envmap.py, looked up at every miss of the ray tree. The TPU kernel
 //    wrote the bounce directions and env weights out for a gather pass
@@ -76,6 +88,10 @@ enum { S_DET = 0, S_U = 3, S_V = 9, S_T = 15 };
 constexpr int kMtSlots = 19;
 // Error flag values (ops/traverse.py _ERRORS)
 enum { E_STACK = 1, E_INDEX = 2 };
+// area pack [16] (ops/fused_traverse.pack_area_consts): corner, edge u,
+// edge v, colour * intensity, unit normal, quad area
+enum { AC_CORNER = 0, AC_EU = 3, AC_EV = 6, AC_CI = 9, AC_NL = 12, AC_AREA = 15 };
+constexpr int kAreaSamples = 4;  // scene/lights.AREA_LIGHT_SAMPLES, a 2 x 2 stratum grid
 
 struct V3 {
   float x, y, z;
@@ -152,6 +168,7 @@ struct Hit {
   int row;  // the backend's material handle (B1: triangle, B5: material id)
   float t;
   V3 pos, normal;
+  V3 tex;  // B5's albedo-texture mode: the texture at the hit's UV (else unset)
 };
 
 // Barycentric normal of vertex normals n0/n1/n2 (9 values at stride `step`
@@ -402,6 +419,40 @@ __device__ V3 env_cube(const Env& e, V3 d) {
                   base + y1 * s + x1, x - x0, y - y0);
 }
 
+// Albedo textures: the flat texel table [n_texels][3] and the per-material
+// (base, width, height) meta [n_meta][3] (scene/textures.py).
+struct AlbedoTex {
+  const float* texels;
+  const int* meta;
+  int n_texels, n_meta;
+};
+
+// scene/textures.sample_albedo: the bilinear texture of material `mid` at
+// uv, WRAP on both axes (a floor mod: C's % truncates, so a negative
+// remainder takes + w); (1, 1, 1) for an untextured material. A meta row
+// outside the table sets the error flag.
+__device__ V3 sample_albedo(const AlbedoTex& t, int mid, float u, float v, int* err) {
+  if (mid < 0 || mid >= t.n_meta) {
+    *err = E_INDEX;
+    return v3(1.0f, 1.0f, 1.0f);
+  }
+  const int base = __ldg(t.meta + 3 * mid), w = __ldg(t.meta + 3 * mid + 1),
+            h = __ldg(t.meta + 3 * mid + 2);
+  if (w <= 0) return v3(1.0f, 1.0f, 1.0f);
+  if (h <= 0 || base < 0 || (long long)base + (long long)w * h > (long long)t.n_texels) {
+    *err = E_INDEX;
+    return v3(1.0f, 1.0f, 1.0f);
+  }
+  float x = u * (float)w - 0.5f, y = v * (float)h - 0.5f;
+  float x0 = floorf(x), y0 = floorf(y);
+  int xi = (int)x0 % w, yi = (int)y0 % h;
+  xi = xi < 0 ? xi + w : xi;
+  yi = yi < 0 ? yi + h : yi;
+  int x1 = xi + 1 == w ? 0 : xi + 1, y1 = yi + 1 == h ? 0 : yi + 1;
+  return bilinear(t.texels, base + yi * w + xi, base + yi * w + x1, base + y1 * w + xi,
+                  base + y1 * w + x1, x - x0, y - y0);
+}
+
 // Radiance of direction d, times the strength.
 __device__ V3 env_color(V3 d, const float* cst, const Env& env) {
   float strength = cst[C_STRENGTH];
@@ -418,51 +469,124 @@ __device__ V3 env_color(V3 d, const float* cst, const Env& env) {
             (cst[C_ENV0 + 2] * (1.0f - t) + cst[F_ENV1 + 2] * t) * strength);
 }
 
-// Directional + point light with shadow rays, or, with both lights present,
-// the debug==2 one-of-two MC estimator (pick < 0.5 -> directional, weight
-// 2); a rig of one light ignores the pick, as the one-of-one estimator
-// equals the full sum. Only for hit lanes.
+__device__ __forceinline__ uint32_t lcg_next(uint32_t s) { return s * 1664525u + 1013904223u; }
+__device__ __forceinline__ float lcg_unit(uint32_t s) {
+  return (float)(s & 0x00FFFFFFu) / 16777216.0f;
+}
+
+// The area light's soft-shadowed irradiance at (pos, normal):
+// L * area * mean_j(NoL * |cos at the light| / d_j^2 * vis_j) over
+// kAreaSamples points drawn from the pixel's TEA seed (aseed =
+// initRand(seed, 0x9E3779B9), then LCG pairs stratified on the 2 x 2 grid:
+// scene/lights.area_light_draws). Both faces emit. A sample whose
+// NoL * |cos| is 0 adds 0 whatever its visibility, so its shadow walk is
+// skipped.
 template <class Tr>
-__device__ V3 direct_lighting(const Tr& T, const float* cst, V3 pos, V3 normal, float pick) {
+__device__ V3 area_light_term(const Tr& T, V3 pos, V3 normal, uint32_t seed) {
+  const float* A = T.area;
+  uint32_t aseed = tea_init(seed, 0x9E3779B9u);
+  float geo = 0.0f;
+#pragma unroll 1
+  for (int j = 0; j < kAreaSamples; ++j) {
+    aseed = lcg_next(aseed);
+    float r0 = lcg_unit(aseed);
+    aseed = lcg_next(aseed);
+    float r1 = lcg_unit(aseed);
+    r0 = ((float)(j % 2) + r0) / 2.0f;
+    r1 = ((float)(j / 2 % 2) + r1) / 2.0f;
+    V3 apath = v3(A[AC_CORNER] + r0 * A[AC_EU] + r1 * A[AC_EV] - pos.x,
+                  A[AC_CORNER + 1] + r0 * A[AC_EU + 1] + r1 * A[AC_EV + 1] - pos.y,
+                  A[AC_CORNER + 2] + r0 * A[AC_EU + 2] + r1 * A[AC_EV + 2] - pos.z);
+    float adist = sqrtf(fmaxf(dot3(apath, apath), 0.0f));
+    V3 wi = normalize3(apath);
+    float ad2 = fmaxf(adist * adist, 1e-12f);
+    float w = saturate(dot3(normal, wi)) * fabsf(dot3(load3(A + AC_NL), wi));
+    if (w != 0.0f && !T.occluded(pos, wi, kRayEps, true, fmaxf(adist - kRayEps, kRayEps))) {
+      geo += w / ad2;
+    }
+  }
+  geo = geo * (A[AC_AREA] / (float)kAreaSamples);
+  return v3(A[AC_CI] * geo, A[AC_CI + 1] * geo, A[AC_CI + 2] * geo);
+}
+
+// Directional, point and (B5's area mode) area light with shadow rays, or,
+// with two lights or more present, the debug==2 one-of-L MC estimator
+// (pidx = min(int(pick * L), L - 1) over the lights present in the order
+// directional, point, area; weight L); a rig of one light ignores the
+// pick, as the one-of-one estimator equals the full sum. Without an area
+// light the body is the one-of-two form (pick < 0.5 -> directional,
+// weight 2; the same at L = 2), written out on its own: folded into the
+// one-of-L form it took the base instantiation from 72 to 80 registers.
+// `seed` is the pixel's TEA seed (the area draws'). Only for hit lanes.
+template <class Tr>
+__device__ V3 direct_lighting(const Tr& T, const float* cst, V3 pos, V3 normal, float pick,
+                              uint32_t seed) {
   const bool has_d = (T.rig & 1) != 0, has_p = (T.rig & 2) != 0;
   V3 dl = load3(cst + C_DLDIR);
   V3 path = v3(cst[C_PLPOS] - pos.x, cst[C_PLPOS + 1] - pos.y, cst[C_PLPOS + 2] - pos.z);
   float dist = sqrtf(fmaxf(dot3(path, path), 0.0f));
   V3 lp = normalize3(path);
   float tmax_p = fmaxf(dist - kRayEps, kRayEps);
-  bool is_mc = cst[F_IS_MC] > 0.5f && has_d && has_p;
-  bool need_d = has_d && (!is_mc || pick < 0.5f);
-  bool need_p = has_p && (!is_mc || !(pick < 0.5f));
-  float d_vis = (need_d && !T.occluded(pos, dl, kRayEps, false, 0.0f)) ? 1.0f : 0.0f;
-  float p_vis = (need_p && !T.occluded(pos, lp, kRayEps, true, tmax_p)) ? 1.0f : 0.0f;
-  float nol_d = saturate(dot3(normal, dl));
-  float nol_p = saturate(dot3(normal, lp));
-  float falloff = 1.0f / (kTwoPi * fmaxf(dist * dist, 1e-12f));
-  float dterm = nol_d * d_vis;
-  float pterm = nol_p * p_vis * falloff;
-  V3 d_c = v3(cst[C_DLCI] * dterm, cst[C_DLCI + 1] * dterm, cst[C_DLCI + 2] * dterm);
-  V3 p_c = v3(cst[C_PLCI] * pterm, cst[C_PLCI + 1] * pterm, cst[C_PLCI + 2] * pterm);
-  if (is_mc) {
-    return pick < 0.5f ? v3(d_c.x * 2.0f, d_c.y * 2.0f, d_c.z * 2.0f)
-                       : v3(p_c.x * 2.0f, p_c.y * 2.0f, p_c.z * 2.0f);
+  if constexpr (!Tr::kArea) {
+    bool is_mc = cst[F_IS_MC] > 0.5f && has_d && has_p;
+    bool need_d = has_d && (!is_mc || pick < 0.5f);
+    bool need_p = has_p && (!is_mc || !(pick < 0.5f));
+    float d_vis = (need_d && !T.occluded(pos, dl, kRayEps, false, 0.0f)) ? 1.0f : 0.0f;
+    float p_vis = (need_p && !T.occluded(pos, lp, kRayEps, true, tmax_p)) ? 1.0f : 0.0f;
+    float nol_d = saturate(dot3(normal, dl));
+    float nol_p = saturate(dot3(normal, lp));
+    float falloff = 1.0f / (kTwoPi * fmaxf(dist * dist, 1e-12f));
+    float dterm = nol_d * d_vis;
+    float pterm = nol_p * p_vis * falloff;
+    V3 d_c = v3(cst[C_DLCI] * dterm, cst[C_DLCI + 1] * dterm, cst[C_DLCI + 2] * dterm);
+    V3 p_c = v3(cst[C_PLCI] * pterm, cst[C_PLCI + 1] * pterm, cst[C_PLCI + 2] * pterm);
+    if (is_mc) {
+      return pick < 0.5f ? v3(d_c.x * 2.0f, d_c.y * 2.0f, d_c.z * 2.0f)
+                         : v3(p_c.x * 2.0f, p_c.y * 2.0f, p_c.z * 2.0f);
+    }
+    return v3(d_c.x + p_c.x, d_c.y + p_c.y, d_c.z + p_c.z);
+  } else {
+    const int n_lights = (int)has_d + (int)has_p + 1;
+    const int pidx = min((int)(pick * (float)n_lights), n_lights - 1);
+    bool is_mc = cst[F_IS_MC] > 0.5f && n_lights > 1;
+    bool pick_d = has_d && pidx == 0, pick_p = has_p && pidx == (int)has_d;
+    bool need_d = has_d && (!is_mc || pick_d);
+    bool need_p = has_p && (!is_mc || pick_p);
+    float d_vis = (need_d && !T.occluded(pos, dl, kRayEps, false, 0.0f)) ? 1.0f : 0.0f;
+    float p_vis = (need_p && !T.occluded(pos, lp, kRayEps, true, tmax_p)) ? 1.0f : 0.0f;
+    float nol_d = saturate(dot3(normal, dl));
+    float nol_p = saturate(dot3(normal, lp));
+    float falloff = 1.0f / (kTwoPi * fmaxf(dist * dist, 1e-12f));
+    float dterm = nol_d * d_vis;
+    float pterm = nol_p * p_vis * falloff;
+    V3 d_c = v3(cst[C_DLCI] * dterm, cst[C_DLCI + 1] * dterm, cst[C_DLCI + 2] * dterm);
+    V3 p_c = v3(cst[C_PLCI] * pterm, cst[C_PLCI + 1] * pterm, cst[C_PLCI + 2] * pterm);
+    V3 a_c = v3(0.0f, 0.0f, 0.0f);
+    if (!is_mc || !(pick_d || pick_p)) a_c = area_light_term(T, pos, normal, seed);
+    if (is_mc) {
+      const float l = (float)n_lights;
+      V3 c = pick_d ? d_c : (pick_p ? p_c : a_c);
+      return v3(c.x * l, c.y * l, c.z * l);
+    }
+    return v3(d_c.x + p_c.x + a_c.x, d_c.y + p_c.y + a_c.y, d_c.z + p_c.z + a_c.z);
   }
-  return v3(d_c.x + p_c.x, d_c.y + p_c.y, d_c.z + p_c.z);
 }
 
 // Depth-1 radiance of an active bounce ray: albedo * direct / pi on a hit,
 // plus emissive in progressive mode only (the realtime shader adds none);
-// the environment on a miss.
+// the environment on a miss. Depth-1 shading re-seeds: `seed` is the
+// pixel's TEA seed, as at depth 0.
 template <class Tr>
 __device__ V3 secondary_radiance(const Tr& T, const float* cst, V3 o, V3 d, float pick,
-                                 const Env& env, bool emissive) {
+                                 uint32_t seed, const Env& env, bool emissive) {
   Hit h = T.closest(o, d, kRayEps, false);
   if (!h.hit) return env_color(d, cst, env);
-  V3 direct = direct_lighting(T, cst, h.pos, h.normal, pick);
+  V3 direct = direct_lighting(T, cst, h.pos, h.normal, pick, seed);
   float estr = T.a(A_ESTR, h.row);
   float out[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    float shade = T.a(A_ALBEDO + k, h.row) * comp(direct, k) / kPi;
+    float shade = T.albedo(h, k) * comp(direct, k) / kPi;
     out[k] = emissive ? T.a(A_EMISSIVE + k, h.row) * estr + shade : shade;
   }
   return v3(out[0], out[1], out[2]);
@@ -506,13 +630,17 @@ __device__ __forceinline__ void primary_ray(const float* cm, int px, int py, int
   *o = load3(cm);
 }
 
-// 5 LCG draws u1..u5 from the TEA seed of the raster pixel index.
-__device__ __forceinline__ void draws(int px, int py, int width, uint32_t frame, float u[5]) {
-  uint32_t seed = tea_init((uint32_t)(py * width + px), frame);
+// The TEA seed of the raster pixel index (rng.pixel_seeds).
+__device__ __forceinline__ uint32_t pixel_seed(int px, int py, int width, uint32_t frame) {
+  return tea_init((uint32_t)(py * width + px), frame);
+}
+
+// 5 LCG draws u1..u5 from a pixel's TEA seed.
+__device__ __forceinline__ void draws(uint32_t seed, float u[5]) {
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
-    seed = seed * 1664525u + 1013904223u;
-    u[k] = (float)(seed & 0x00FFFFFFu) / 16777216.0f;
+    seed = lcg_next(seed);
+    u[k] = lcg_unit(seed);
   }
 }
 
@@ -569,7 +697,8 @@ __device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const
   }
 
   float u[5];
-  draws(px, py, width, frame, u);
+  const uint32_t seed = pixel_seed(px, py, width, frame);
+  draws(seed, u);
   const bool is_mc = cst[F_IS_MC] > 0.5f;
   const bool no_ind = cst[F_NO_IND] > 0.5f;
   const bool cosine = cst[F_COSINE] > 0.5f;
@@ -577,7 +706,7 @@ __device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const
   V3 pos = h.pos, normal = h.normal;
 
   // ---- direct lighting (draw u1 picks the light under debug==2) ------------
-  V3 direct = direct_lighting(T, cst, pos, normal, u[0]);
+  V3 direct = direct_lighting(T, cst, pos, normal, u[0], seed);
 
   // ---- indirect diffuse direction: draws (u1, u2), or (u2, u3) after the pick
   V3 diff_dir = hemisphere_dir(normal, is_mc ? u[1] : u[0], is_mc ? u[2] : u[1], cosine);
@@ -592,8 +721,8 @@ __device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const
 
   // ---- bounces: depth-1 shading re-seeds, so both pick the light with u1 --
   V3 sec = no_ind ? v3(0.0f, 0.0f, 0.0f)
-                  : secondary_radiance(T, cst, pos, diff_dir, u[0], env, true);
-  V3 spec_rad = spec_active ? secondary_radiance(T, cst, pos, ph.dir, u[0], env, true)
+                  : secondary_radiance(T, cst, pos, diff_dir, u[0], seed, env, true);
+  V3 spec_rad = spec_active ? secondary_radiance(T, cst, pos, ph.dir, u[0], seed, env, true)
                             : v3(0.0f, 0.0f, 0.0f);
 
   // ---- epilogue (trace_rays) -------------------------------------------------
@@ -608,7 +737,7 @@ __device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const
     float specular = spec_active ? comp(spec_rad, k) * ratio : 0.0f;
     float f0 = T.a(A_SPECULAR + k, r);
     float fresnel = spec_active ? f0 + (1.0f - f0) * pw5 : 0.0f;
-    float albedo = T.a(A_ALBEDO + k, r);
+    float albedo = T.albedo(h, k);
     float dk = comp(direct, k);
     float diffuse_comp = (dk + indirect) / kPi;
     float emissive = T.a(A_EMISSIVE + k, r) * estr;
@@ -643,15 +772,16 @@ __device__ void realtime_pixel(const Tr& T, const float* cm, uint32_t frame, con
   }
 
   float u[5];
-  draws(px, py, width, frame, u);
+  const uint32_t seed = pixel_seed(px, py, width, frame);
+  draws(seed, u);
   const bool is_mc = cst[F_IS_MC] > 0.5f;
   const int r = h.row;
-  V3 direct = direct_lighting(T, cst, h.pos, h.normal, u[0]);
+  V3 direct = direct_lighting(T, cst, h.pos, h.normal, u[0], seed);
   float refl = T.a(A_REFL, r);
   bool spec_active = specular_active(T, r);
   float exponent = expf((1.0f - T.a(A_ROUGH, r)) * 12.0f);
   Phong ph = phong_lobe(d, h.normal, is_mc ? u[1] : u[0], is_mc ? u[2] : u[1], exponent);
-  V3 spec_rad = spec_active ? secondary_radiance(T, cst, h.pos, ph.dir, u[0], env, false)
+  V3 spec_rad = spec_active ? secondary_radiance(T, cst, h.pos, ph.dir, u[0], seed, env, false)
                             : v3(0.0f, 0.0f, 0.0f);
   float cosi = saturate(-dot3(d, h.normal));
   float pw5 = powf(1.0f - cosi, 5.0f);
@@ -660,7 +790,7 @@ __device__ void realtime_pixel(const Tr& T, const float* cm, uint32_t frame, con
     float specular = spec_active ? comp(spec_rad, k) * ph.ratio : 0.0f;
     float f0 = T.a(A_SPECULAR + k, r);
     float fresnel = spec_active ? f0 + (1.0f - f0) * pw5 : 0.0f;
-    float albedo = T.a(A_ALBEDO + k, r);
+    float albedo = T.albedo(h, k);
     aov[k] = sanitize(albedo * comp(direct, k) / kPi);
     aov[3 + k] = sanitize(refl * specular * fresnel);
     aov[6 + k] = albedo;

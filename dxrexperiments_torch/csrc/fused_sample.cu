@@ -56,9 +56,13 @@ struct Tris {
   const float* at;  // [kAttrRows][c]
   int c;
   static constexpr int rig = 3;  // B1 takes the 1 directional + 1 point rig only
+  static constexpr bool kArea = false;  // and no area light, no albedo texture
 
   __device__ __forceinline__ float m(int slot, int i) const { return mt[slot * c + i]; }
   __device__ __forceinline__ float a(int row, int i) const { return at[row * c + i]; }
+  __device__ __forceinline__ float albedo(const Hit& h, int k) const {
+    return a(A_ALBEDO + k, h.row);
+  }
 
   struct Coef {
     const Tris& T;

@@ -2,10 +2,22 @@
 //
 // Replace the TPU kernel _make_ft_kernel
 // (dxrexperiments_tpu/ops/fused_traverse_pallas.py:131, launched by
-// _ft_dispatch) in its base and env-deferred modes (env kinds 0-3, the
-// lat-long and cubemap textures looked up inside the kernel at every miss,
-// common.cuh env_color) and rigs of at most one directional and one point
-// light:
+// _ft_dispatch) in all its modes: env kinds 0-3 (the lat-long and cubemap
+// textures looked up inside the kernel at every miss, common.cuh
+// env_color, where the TPU kernel's env-deferred mode wrote bounce
+// directions and weights out); rigs of at most one directional, one point
+// and one area light (the area mode, both pipelines: kAreaSamples
+// stratified soft-shadow rays, common.cuh area_light_term); and albedo
+// textures (progressive only, as in JAX): at every closest hit on a
+// textured material the hit's UV is interpolated from mt_rows lanes
+// 74..79 and the texture read with four taps (common.cuh sample_albedo),
+// multiplying the albedo before any use of it. The TPU kernel's
+// tex-deferred mode instead wrote A + B tex_p + C tex_p tex_d + D tex_s
+// and each hit's UV and material id (a TEX_ROWS block per sample) for a
+// host resolve, because gathers do not lower in Mosaic; here a texel is an
+// ordinary load, so there is no resolve and no TEX_ROWS block. Each mode
+// is a compile-time instantiation (area yes/no, textured yes/no), so the
+// base and texture-env modes keep their code and registers:
 // - progressive: one launch renders S jittered samples of the whole ray
 //   tree per pixel (primary closest hit with backfaces culled, 2 shadow
 //   rays, the diffuse and Phong bounces with 2 shadow rays each) and writes
@@ -15,10 +27,16 @@
 //   frame writing its own AOVs (direct, indirect specular, albedo,
 //   roughness).
 // The tree is common.cuh's, shared with the brute-force megakernel (B1);
-// every trace here is the fat-node walk shared with kernel B4a.
+// every trace here is the fat-node walk shared with kernel B4a. The area
+// light's shadow rays take one walk each (the TPU kernel shared one
+// multi-direction walk among a packet's shadow rays, a packet design not
+// carried over); their draws come from the pixel's TEA seed inside the
+// kernel, nothing precomputed on the host.
 //
 // What bounds it: memory latency and divergence. A pixel-sample walks the
-// BVH up to nine times (three closest hits, six shadow rays), each walk a
+// BVH up to nine times (three closest hits, six shadow rays; an area light
+// adds up to kAreaSamples shadow walks at each of its three shading
+// points), each walk a
 // chain of dependent node and leaf loads, on a triangle pack (mt_rows, 680
 // MB at 983k triangles) far larger than the 50 MB L2; the bounce rays of
 // neighbouring pixels diverge. Design answer: one thread per pixel with
@@ -28,9 +46,11 @@
 // leave nearby points; one 96-entry stack per thread, reused by every walk;
 // a closest hit fetches the winner's vertex normals and material id
 // (mt_rows lanes 64..73) once, after its walk; material fields come from
-// the [16, 128] material table staged in shared memory. Work the reference
-// masks out is skipped per thread (misses, inactive bounces, the unpicked
-// light of the debug==2 estimator), which changes no result. Seeds come
+// the [16, 128] material table staged in shared memory; a textured hit
+// reads 4 texels (48 bytes) of a table the L2 usually holds. Work the
+// reference masks out is skipped per thread (misses, inactive bounces, the
+// unpicked light of the debug==2 estimator, area samples of zero weight),
+// which changes no result. Seeds come
 // from the raster pixel index and the output is raster order.
 
 #include "common.cuh"
@@ -44,15 +64,25 @@ constexpr int kMatFields = A_TYPE - A_ALBEDO + 1;  // A_ALBEDO..A_TYPE
 constexpr int kMaxMaterials = 128;
 
 // The BVH trace backend of the ray tree: walks with a shared per-thread
-// stack, material fields from the staged table [kMatFields][128].
+// stack, material fields from the staged table [kMatFields][128]. A: one
+// area light (`area` is its pack); X: albedo textures (`tex`).
+template <bool A, bool X>
 struct BvhScene {
+  static constexpr bool kArea = A, kTex = X;
   FatBvh B;
   const float* mat;
   int* stack;
   int rig;
+  const float* area;
+  AlbedoTex tex;
 
   __device__ __forceinline__ float a(int field, int row) const {
     return mat[(field - A_ALBEDO) * kMaxMaterials + row];
+  }
+
+  __device__ __forceinline__ float albedo(const Hit& h, int k) const {
+    if constexpr (kTex) return a(A_ALBEDO + k, h.row) * comp(h.tex, k);
+    return a(A_ALBEDO + k, h.row);
   }
 
   __device__ __forceinline__ bool occluded(V3 o, V3 d, float tmin, bool has_tmax,
@@ -73,8 +103,14 @@ struct BvhScene {
     h.normal = v3(0.0f, 0.0f, 0.0f);
     if (h.hit) {
       const float* attr = B.rows + (size_t)leaf.best_slot * kRowLanes + 64;
-      h.normal = interp_normal(attr, 1, leaf.u(), leaf.v());
+      const float u = leaf.u(), v = leaf.v();
+      h.normal = interp_normal(attr, 1, u, v);
       h.row = min(max((int)attr[9], 0), kMaxMaterials - 1);
+      if constexpr (kTex) {  // the hit's UV from the corner UVs (lanes 74..79)
+        const float w = 1.0f - u - v;
+        h.tex = sample_albedo(tex, h.row, w * attr[10] + u * attr[12] + v * attr[14],
+                              w * attr[11] + u * attr[13] + v * attr[15], B.err);
+      }
     }
     return h;
   }
@@ -93,17 +129,18 @@ __device__ __forceinline__ void stage_materials(float* s_mat, const float* __res
   __syncthreads();
 }
 
+template <bool A, bool X>
 __global__ void __launch_bounds__(kTileW * kTileH)
 ft_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
-                      const float* __restrict__ cst, FatBvh B, const float* __restrict__ mat,
-                      float* __restrict__ out, int s_count, int width, int height, Env env,
-                      int rig) {
+                      const float* __restrict__ cst, const float* __restrict__ area, FatBvh B,
+                      const float* __restrict__ mat, float* __restrict__ out, int s_count,
+                      int width, int height, Env env, int rig, AlbedoTex tex) {
   __shared__ float s_mat[kMatFields * kMaxMaterials];
   stage_materials(s_mat, mat);
   const int px = blockIdx.x * kTileW + threadIdx.x, py = blockIdx.y * kTileH + threadIdx.y;
   if (px >= width || py >= height) return;
   int stack[kMaxStack];
-  BvhScene T{B, s_mat, stack, rig};
+  BvhScene<A, X> T{B, s_mat, stack, rig, area, tex};
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < s_count; ++s) {
     sample_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env, acc);
@@ -114,20 +151,23 @@ ft_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict_
   out[pix * 3 + 2] = acc[2];
 }
 
-// Grid (tiles x, tiles y, S frames): block (x, y, s) renders frame s of its tile.
+// Grid (tiles x, tiles y, S frames): block (x, y, s) renders frame s of its
+// tile. No albedo textures: a textured scene's realtime frame takes the
+// wavefront route, as in JAX.
+template <bool A>
 __global__ void __launch_bounds__(kTileW * kTileH)
 ft_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
-                   const float* __restrict__ cst, FatBvh B, const float* __restrict__ mat,
-                   float* __restrict__ direct, float* __restrict__ ispec,
-                   float* __restrict__ albedo, float* __restrict__ rough, int width, int height,
-                   Env env, int rig) {
+                   const float* __restrict__ cst, const float* __restrict__ area, FatBvh B,
+                   const float* __restrict__ mat, float* __restrict__ direct,
+                   float* __restrict__ ispec, float* __restrict__ albedo,
+                   float* __restrict__ rough, int width, int height, Env env, int rig) {
   __shared__ float s_mat[kMatFields * kMaxMaterials];
   stage_materials(s_mat, mat);
   const int px = blockIdx.x * kTileW + threadIdx.x, py = blockIdx.y * kTileH + threadIdx.y;
   if (px >= width || py >= height) return;
   const int s = blockIdx.z;
   int stack[kMaxStack];
-  BvhScene T{B, s_mat, stack, rig};
+  BvhScene<A, false> T{B, s_mat, stack, rig, area, AlbedoTex{nullptr, nullptr, 0, 0}};
   float aov[10];
   realtime_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env, aov);
   const size_t o = (size_t)s * width * height + (size_t)py * width + px;
@@ -140,59 +180,99 @@ ft_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ f
   rough[o] = aov[9];
 }
 
+// rig: bits 1 directional, 2 point, 4 area (with its pack `area`).
 bool bad_args(int s_count, int n_nodes, int n_slots, int width, int height, int env_kind,
-              int rig, const float* env_tex, int env_w, int env_h) {
+              int rig, const float* area, const float* env_tex, int env_w, int env_h) {
   return s_count < 1 || n_nodes < 1 || n_slots < 1 || width < 1 || height < 1 ||
-         !env_args_ok(env_kind, env_tex, env_w, env_h) || rig < 1 || rig > 3;
+         !env_args_ok(env_kind, env_tex, env_w, env_h) || rig < 1 || rig > 7 ||
+         ((rig & 4) && area == nullptr);
+}
+
+template <bool A, bool X>
+void launch_progressive(dim3 grid, dim3 block, cudaStream_t stream, const float* cam,
+                        const uint32_t* frames, const float* cst, const float* area, FatBvh B,
+                        const float* mat, float* out, int s_count, int width, int height, Env env,
+                        int rig, AlbedoTex tex) {
+  ft_progressive_kernel<A, X><<<grid, block, 0, stream>>>(cam, frames, cst, area, B, mat, out,
+                                                          s_count, width, height, env, rig, tex);
 }
 
 }  // namespace
 
 // Sum of S progressive samples into out [height, width, 3] float32.
 //   cam [S, 16] f32 (pack_cameras), frames [S] u32, cst [2, 16] f32
-//   (pack_consts), nodes = bvhf_rows [n_nodes, 16] f32, rows = mt_rows
-//   [n_slots, 128] f32, mat = material_pack [16, 128] f32; env_kind 0-3,
-//   with env_tex, env_w and env_h as for dxr_fused_progressive_sum
-//   (csrc/fused_sample.cu); rig: 1 directional, 2 point, 3 both. err [1]
-//   i32 must be 0 on entry and is set to 1 (stack overflow) or 2 (index out
-//   of range).
+//   (pack_consts), area [16] f32 (pack_area_consts; read when rig & 4),
+//   nodes = bvhf_rows [n_nodes, 16] f32, rows = mt_rows [n_slots, 128] f32
+//   (lanes 74..79 the corner UVs of a textured scene), mat = material_pack
+//   [16, 128] f32; env_kind 0-3, with env_tex, env_w and env_h as for
+//   dxr_fused_progressive_sum (csrc/fused_sample.cu); rig: bits 1
+//   directional, 2 point, 4 area; texels [n_texels, 3] f32 and meta
+//   [n_meta, 3] i32 (scene/textures.py), or texels null for an untextured
+//   scene. err [1] i32 must be 0 on entry and is set to 1 (stack overflow)
+//   or 2 (index out of range).
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for bad arguments.
 extern "C" int dxr_fused_traverse_progressive_sum(
-    const float* cam, const uint32_t* frames, const float* cst, const float* nodes,
-    const float* rows, const float* mat, float* out, int s_count, int n_nodes, int n_slots,
-    int width, int height, int env_kind, int rig, const float* env_tex, int env_w, int env_h,
+    const float* cam, const uint32_t* frames, const float* cst, const float* area,
+    const float* nodes, const float* rows, const float* mat, float* out, int s_count,
+    int n_nodes, int n_slots, int width, int height, int env_kind, int rig, const float* env_tex,
+    int env_w, int env_h, const float* texels, const int* meta, int n_texels, int n_meta,
     int* err, void* stream) {
-  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig, env_tex, env_w, env_h)) {
+  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig, area, env_tex, env_w,
+               env_h) ||
+      (texels != nullptr && (meta == nullptr || n_texels < 1 || n_meta < 1))) {
     return (int)cudaErrorInvalidValue;
   }
   FatBvh B{reinterpret_cast<const float4*>(nodes), rows, n_nodes, n_slots, err};
   dim3 block(kTileW, kTileH);
   dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
-  ft_progressive_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      cam, frames, cst, B, mat, out, s_count, width, height, Env{env_tex, env_kind, env_w, env_h},
-      rig);
+  Env env{env_tex, env_kind, env_w, env_h};
+  AlbedoTex tex{texels, meta, n_texels, n_meta};
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool a = (rig & 4) != 0, x = texels != nullptr;
+  if (a && x) {
+    launch_progressive<true, true>(grid, block, st, cam, frames, cst, area, B, mat, out, s_count,
+                                   width, height, env, rig, tex);
+  } else if (a) {
+    launch_progressive<true, false>(grid, block, st, cam, frames, cst, area, B, mat, out, s_count,
+                                    width, height, env, rig, tex);
+  } else if (x) {
+    launch_progressive<false, true>(grid, block, st, cam, frames, cst, area, B, mat, out, s_count,
+                                    width, height, env, rig, tex);
+  } else {
+    launch_progressive<false, false>(grid, block, st, cam, frames, cst, area, B, mat, out,
+                                     s_count, width, height, env, rig, tex);
+  }
   return (int)cudaGetLastError();
 }
 
 // S realtime frames: direct, ispec, albedo [S, height, width, 3] and rough
 // [S, height, width] float32; the other arguments as for
-// dxr_fused_traverse_progressive_sum, with the realtime jitter scale in cam.
+// dxr_fused_traverse_progressive_sum (no albedo textures), with the
+// realtime jitter scale in cam.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int dxr_fused_traverse_realtime_outputs(
-    const float* cam, const uint32_t* frames, const float* cst, const float* nodes,
-    const float* rows, const float* mat, float* direct, float* ispec, float* albedo,
-    float* rough, int s_count, int n_nodes, int n_slots, int width, int height, int env_kind,
-    int rig, const float* env_tex, int env_w, int env_h, int* err, void* stream) {
-  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig, env_tex, env_w, env_h) ||
+    const float* cam, const uint32_t* frames, const float* cst, const float* area,
+    const float* nodes, const float* rows, const float* mat, float* direct, float* ispec,
+    float* albedo, float* rough, int s_count, int n_nodes, int n_slots, int width, int height,
+    int env_kind, int rig, const float* env_tex, int env_w, int env_h, int* err, void* stream) {
+  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig, area, env_tex, env_w,
+               env_h) ||
       s_count > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   FatBvh B{reinterpret_cast<const float4*>(nodes), rows, n_nodes, n_slots, err};
   dim3 block(kTileW, kTileH);
   dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH, s_count);
-  ft_realtime_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      cam, frames, cst, B, mat, direct, ispec, albedo, rough, width, height,
-      Env{env_tex, env_kind, env_w, env_h}, rig);
+  Env env{env_tex, env_kind, env_w, env_h};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (rig & 4) {
+    ft_realtime_kernel<true><<<grid, block, 0, st>>>(cam, frames, cst, area, B, mat, direct, ispec,
+                                                     albedo, rough, width, height, env, rig);
+  } else {
+    ft_realtime_kernel<false><<<grid, block, 0, st>>>(cam, frames, cst, area, B, mat, direct,
+                                                      ispec, albedo, rough, width, height, env,
+                                                      rig);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,7 @@
 """The fused-traversal megakernel (B5): wrappers, plain versions, launch counts.
 
 Port of ``dxrexperiments_tpu.ops.fused_traverse_pallas`` (``_make_ft_kernel``
-in its base mode): the whole progressive sample, or a realtime frame, with
+in all its modes): the whole progressive sample, or a realtime frame, with
 every trace a fat-node BVH walk inside the kernel. On CUDA scene tensors
 ``fused_traverse_progressive_sum`` and ``realtime_aovs`` launch the
 hand-written kernels in ``csrc/fused_traverse.cu`` or raise; on CPU scene
@@ -11,16 +11,20 @@ a kernel to its plain version.
 
 Scope (``supports_fused_traverse``, the JAX gate): progressive or realtime,
 no AO, a single-level BVH scene with the fat nodes and attribute lanes, at
-most one light per group and at most 128 materials. Env kinds 0-3: a
-texture env (the JAX kernel's env-deferred mode) is looked up inside the
-kernel (``fused_sample.env_args``). Of what the gate accepts, albedo
-textures (the tex-deferred mode) and area lights (ROADMAP Queue A item 12)
-raise.
+most one light per group (one area light included: the JAX kernel's area
+mode) and at most 128 materials. Env kinds 0-3: a texture env (the JAX
+kernel's env-deferred mode) is looked up inside the kernel
+(``fused_sample.env_args``). Albedo textures (the JAX kernel's
+tex-deferred mode): progressive only, with the corner-UV lanes of mt_rows
+(``mt_attr_lanes`` 2); the kernel reads the scene's texel table at each
+hit, so nothing is resolved outside it. A scene outside the gate raises;
+it is never rerouted here.
 
-The packs are B1's (``fused_sample.pack_cameras``/``pack_consts`` and the
-pinned single upload); the material table is the scene's ``material_pack``,
-built once by ``Scene.build``. Seeds come from the raster pixel index and
-the output is raster order, so nothing is permuted back.
+The packs are B1's (``fused_sample.pack_cameras``/``pack_consts``) and the
+area pack (``pack_area_consts``), all in one pinned upload per dispatch;
+the material table is the scene's ``material_pack``, built once by
+``Scene.build``. Seeds come from the raster pixel index and the output is
+raster order, so nothing is permuted back.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import ctypes
 
 import torch
 
+from ..core import vecmath as vm
 from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..scene.materials import MP_MAX_MATERIALS
@@ -43,8 +48,9 @@ REALTIME_LAUNCHES = 0
 
 def supports_fused_traverse(scene: dict, mode: str, ao_only: bool) -> bool:
     """Whether the fused-traversal kernel's gate takes this scene and mode
-    (``fused_traverse_pallas.supports_fused_traverse``). A rig with one area
-    light that the gate takes raises: B5's area mode waits for item 12."""
+    (``fused_traverse_pallas.supports_fused_traverse``): a textured scene
+    needs the corner-UV lanes (``mt_attr_lanes`` >= 2) and runs progressive
+    only; an untextured one takes any env kind."""
     if mode not in ("progressive", "realtime") or ao_only:
         return False
     if "tlas" in scene or "bvh" not in scene:
@@ -58,44 +64,54 @@ def supports_fused_traverse(scene: dict, mode: str, ao_only: bool) -> bool:
     if int(scene["materials"]["albedo"].shape[0]) > MP_MAX_MATERIALS:
         return False
     if "textures" in scene:
-        takes = mode == "progressive"
-    else:
-        takes = int(scene["env"]["kind"]) in (0, 1, 2, 3)
-    if takes and a_n:
-        # the JAX package sends this scene to B5's area mode; rerouting it
-        # to the wavefront would render another estimator
-        raise NotImplementedError(
-            "B5's area-light mode is not ported yet (ROADMAP Queue A item 12)"
-        )
-    return takes
+        return int(b["mt_attr_lanes"]) >= 2 and mode == "progressive"
+    return int(scene["env"]["kind"]) in (0, 1, 2, 3)
 
 
 def _check_supported(scene: dict, env_kind: int, mode: str) -> None:
     envmap.check_env_kind(env_kind)
-    if "textures" in scene:
-        raise NotImplementedError(
-            "albedo textures (the tex-deferred mode) are not ported yet (ROADMAP Queue A item 12)"
-        )
     if not supports_fused_traverse(scene, mode, False):
         raise NotImplementedError(
             "scene outside the fused-traversal kernel's scope (no fat-node BVH, more than one "
-            "light per group, or more than 128 materials): take the wavefront route"
+            "light per group, more than 128 materials, or albedo textures in realtime or "
+            "without the corner-UV lanes): take the wavefront route"
         )
 
 
+def pack_area_consts(scene: dict) -> torch.Tensor:
+    """The area pack [1, 16] of a rig's one area light
+    (``fused_sample_pallas.pack_area_consts``): corner (0:3), edge u (3:6),
+    edge v (6:9), colour * intensity (9:12), unit normal (12:15), quad area
+    (15); the geometry terms of the integrator's area estimate."""
+    al = normalize_lights(scene["lights"])["area"]
+    corner = al["corner"].reshape(-1)[:3]
+    eu = al["eu"].reshape(-1)[:3]
+    ev = al["ev"].reshape(-1)[:3]
+    ci = (al["color"] * al["intensity"][:, None]).reshape(-1)[:3]
+    cross = vm.cross(eu, ev)
+    area = torch.sqrt(torch.clamp((cross * cross).sum(), min=1e-24))
+    n_l = cross / torch.clamp(area, min=1e-12)
+    return torch.cat([corner, eu, ev, ci, n_l, area[None]])[None].to(torch.float32)
+
+
 def _rig_consts(scene: dict, options: dict, env_kind: int) -> tuple[torch.Tensor, int]:
-    """B1's const pack [2, 16] for a rig of at most one directional and one
-    point light, and the rig's bits (1 directional, 2 point). A missing
-    light's lanes hold a dark stand-in that the kernel skips."""
+    """The const pack [3, 16]: B1's two rows for a rig of at most one
+    directional and one point light, then the area pack (zeros without an
+    area light); and the rig's bits (1 directional, 2 point, 4 area). A
+    missing directional or point light's lanes hold a dark stand-in that
+    the kernel skips."""
     lights = normalize_lights(scene["lights"])
     dl, pt = lights["dir"], lights["point"]
-    rig = (1 if dl["forward"].shape[0] else 0) | (2 if pt["position"].shape[0] else 0)
+    has_area = bool(lights["area"]["corner"].shape[0])
+    rig = ((1 if dl["forward"].shape[0] else 0) | (2 if pt["position"].shape[0] else 0)
+           | (4 if has_area else 0))
     dark = {"color": torch.zeros(1, 3), "intensity": torch.zeros(1)}
     full = {
         "dir": dl if rig & 1 else dict(dark, forward=torch.tensor([[0.0, -1.0, 0.0]])),
         "point": pt if rig & 2 else dict(dark, position=torch.zeros(1, 3)),
     }
-    return fs.pack_consts(dict(scene, lights=full), options, env_kind), rig
+    area = pack_area_consts(scene) if has_area else torch.zeros(1, 16)
+    return torch.cat([fs.pack_consts(dict(scene, lights=full), options, env_kind), area]), rig
 
 
 # The plain versions are B1's: loops over the wavefront integrator, whose
@@ -113,11 +129,13 @@ def _library():
 
         lib = load_library("fused_traverse", ["fused_traverse.cu"])
         env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
+        tex = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2  # texels, meta, their rows
         fn = lib.dxr_fused_traverse_progressive_sum
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + env + [ctypes.c_void_p] * 2
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + env + tex
+                       + [ctypes.c_void_p] * 2)
         fn.restype = ctypes.c_int
         fn = lib.dxr_fused_traverse_realtime_outputs
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + env + [ctypes.c_void_p] * 2
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + env + [ctypes.c_void_p] * 2
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -141,7 +159,7 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
     cam = fs._checked("cameras", fs.pack_cameras(cameras, realtime).cpu().contiguous(),
                       (s_count, 16), cpu)
     cst, rig = _rig_consts(scene, options, env_kind)
-    cst = fs._checked("consts", cst.cpu().contiguous(), (2, 16), cpu)
+    cst = fs._checked("consts", cst.cpu().contiguous(), (3, 16), cpu)
     frames = fs._frames_u32(cameras["frame_count"])
     if frames.shape[0] != s_count:
         raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
@@ -149,6 +167,8 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
     err = torch.zeros(1, dtype=torch.int32, device=device)
     tail = (s_count, nodes.shape[0], rows.shape[0], width, height, int(env_kind), rig,
             *fs.env_args(scene, int(env_kind), device))
+    if not realtime:
+        tail += texture_args(scene, device)
     lib = _library()
 
     def empty(*shape):
@@ -165,13 +185,35 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
     def launch() -> int:
         cam_ptr = params.data_ptr()
         cst_ptr = cam_ptr + 4 * cam.numel()
+        area_ptr = cst_ptr + 4 * 32  # the const pack's third row
         frames_ptr = cst_ptr + 4 * cst.numel()
-        head = (cam_ptr, frames_ptr, cst_ptr, nodes.data_ptr(), rows.data_ptr(), mats.data_ptr())
+        head = (cam_ptr, frames_ptr, cst_ptr, area_ptr, nodes.data_ptr(), rows.data_ptr(),
+                mats.data_ptr())
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             return fn(*head, *(o.data_ptr() for o in outs), *tail, err.data_ptr(), stream)
 
     return launch, outs, err
+
+
+def texture_args(scene: dict, device) -> tuple:
+    """The kernel's albedo-texture arguments (texels, meta, their row
+    counts): the scene's texel table [R, 3] float32 and meta [M, 3] int32,
+    contiguous and on ``device``, where ``Scene.build`` put them; (None,
+    None, 0, 0) for an untextured scene. A table elsewhere raises: nothing
+    is copied per dispatch."""
+    if "textures" not in scene:
+        return None, None, 0, 0
+    texels, meta = scene["textures"]["texels"], scene["textures"]["meta"]
+    for name, t, dtype in (("texels", texels, torch.float32), ("meta", meta, torch.int32)):
+        if (t.dtype != dtype or t.dim() != 2 or t.shape[1] != 3 or t.shape[0] < 1
+                or not t.is_contiguous()):
+            raise ValueError(f"albedo textures: {name} must be a contiguous [N, 3] {dtype} "
+                             f"tensor, got {tuple(t.shape)} {t.dtype}")
+        if t.device != device:
+            raise ValueError(f"albedo textures: {name} lies on {t.device}, the scene on {device}: "
+                             "build the scene on its device (Scene.build moves it once)")
+    return texels.data_ptr(), meta.data_ptr(), int(texels.shape[0]), int(meta.shape[0])
 
 
 def _launch(scene, options, cameras, width, height, env_kind, realtime: bool):

@@ -61,8 +61,8 @@ def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
         CUDA kernels' layout: four float4 loads per visit)
       mt_rows [S_pad, 128] f32: the 64 Möller–Trumbore coefficients of each
         fixed-K leaf slot (4 groups x 16 lanes), lanes 64..73 its vertex
-        normals n0/n1/n2 and material id; padded slots are zero (det 0,
-        they never hit)
+        normals n0/n1/n2 and material id, lanes 74..79 its corner UVs when
+        the scene has ``uv0``; padded slots are zero (det 0, they never hit)
       slot_tri [S_pad] i32: slot -> original triangle index (-1 padding)
     """
     child = np.asarray(nodes["child"], np.int64)
@@ -101,6 +101,14 @@ def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
     mt_rows[:, :64] = np.transpose(mt_sorted, (1, 0, 2)).reshape(s_pad, 64)
     attr_all = np.asarray(scene["attr_pack"])  # [32, T]
     mt_rows[:s, 64:74] = np.where(valid[:, None], attr_all[0:10, src].T, 0.0)
+    # textured scenes: lanes 74..79 carry the corner UVs (uv0, uv1, uv2 x
+    # (u, v)), from which the fused-traversal kernel interpolates hit UVs
+    attr_lanes = 1
+    if "uv0" in scene:
+        uvs = np.concatenate([np.asarray(scene[k], np.float32) for k in ("uv0", "uv1", "uv2")],
+                             axis=1)  # [T, 6]
+        mt_rows[:s, 74:80] = np.where(valid[:, None], uvs[src], 0.0)
+        attr_lanes = 2
 
     m_pad = max(-(-m // 128) * 128, 128)
     bvh_nodes = np.zeros((8, m_pad), np.float32)
@@ -123,9 +131,9 @@ def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
         "bvhf_rows": np.ascontiguousarray(bvhf.T),
         "mt_rows": mt_rows,
         "slot_tri": slot_tri_pad,
-        # mt_rows lanes 64..73 carry per-slot attributes (the JAX marker; 2
-        # would add corner UVs, which wait for textures)
-        "mt_attr_lanes": 1,
+        # the JAX marker: 1 = mt_rows lanes 64..73 carry per-slot attributes,
+        # 2 = lanes 74..79 carry the corner UVs too (textured scenes)
+        "mt_attr_lanes": attr_lanes,
         "leaf_size": leaf_size,
     }
 

@@ -1,4 +1,4 @@
-from . import convert, envmap, lights, materials, mesh, procedural, scene  # noqa: F401
+from . import convert, envmap, lights, materials, mesh, procedural, scene, textures  # noqa: F401
 from .materials import Material  # noqa: F401
 from .mesh import Mesh  # noqa: F401
 from .procedural import cornell_box  # noqa: F401

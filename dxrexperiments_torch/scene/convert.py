@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..accel.tlas import TlasRefitContext
+from ..core.device import setup_device
 from .envmap import TEXTURE_KEY
 from .scene import bvh_to_device
 
@@ -26,9 +27,6 @@ _SCENE_ARRAYS = (
 )
 _BVH_ARRAYS = ("bvh_nodes", "bvhf_nodes", "mt_rows")
 _OBJ_ARRAYS = ("v0", "e1", "e2", "pn", "c1", "c2", "d0", "n0", "n1", "n2")
-_UNPORTED = {
-    "textures": "albedo textures (ROADMAP Queue A item 12)",
-}
 
 
 def _t(x, device, dtype=None) -> torch.Tensor:
@@ -77,20 +75,38 @@ def _two_level_from_numpy(d: dict, device) -> dict:
     return out
 
 
-def scene_from_numpy(d: dict, device="cpu") -> dict:
+def _textures_from_numpy(d: dict, device) -> dict:
+    """A textured JAX scene's albedo textures and corner UVs: the port's
+    texel table is column block 0:3 of the JAX quad-packed rows (c00, each
+    row's own texel; scene/textures.py), the meta as it is; ``uv0``..``uv2``
+    (flattened) or ``uv0_obj``..``uv2_obj`` (two-level)."""
+    rows = np.asarray(d["textures"]["rows"], np.float32)
+    out = {"textures": {
+        "texels": _t(np.ascontiguousarray(rows[:, 0:3]), device, torch.float32),
+        "meta": _t(d["textures"]["meta"], device, torch.int32),
+    }}
+    suffix = "_obj" if "tlas" in d else ""
+    for k in range(3):
+        out[f"uv{k}{suffix}"] = _t(d[f"uv{k}{suffix}"], device, torch.float32)
+    return out
+
+
+def scene_from_numpy(d: dict, device="cuda") -> dict:
     """JAX scene pytree (numpy leaves; a flattened ``Scene.build()`` or a
-    ``Scene.build_two_level()``) -> the port's scene dict, geometry and a
-    texture env's texture on ``device``, the lights and the env's scalars on
-    the host. The JAX env's quad-packed copies and its dummy textures of
-    other kinds are dropped (scene/envmap.py)."""
-    for key, what in _UNPORTED.items():
-        if key in d:
-            raise NotImplementedError(f"scene carries {key!r}: {what} is not ported yet")
+    ``Scene.build_two_level()``) -> the port's scene dict, geometry, albedo
+    textures and a texture env's texture on ``device`` (default the card;
+    without one it raises), the lights and the env's scalars on the host.
+    The JAX quad-packed copies of env and albedo textures and its dummy env
+    textures of other kinds are dropped (scene/envmap.py,
+    scene/textures.py)."""
+    device = setup_device(device)
     if "tlas" in d:
         out = _two_level_from_numpy(d, device)
     else:
         out = {k: _t(d[k], device, torch.float32) for k in _SCENE_ARRAYS}
         out["mat_id"] = _t(d["mat_id"], device, torch.int64)
+    if "textures" in d:
+        out.update(_textures_from_numpy(d, device))
     out["num_tris"] = int(np.asarray(d["num_tris"]))
     mats = d["materials"]
     out["materials"] = {

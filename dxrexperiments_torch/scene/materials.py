@@ -2,8 +2,10 @@
 
 Fields: albedo, specular, emissive (rgb + strength in .a), reflectivity,
 roughness, index of refraction and an integer type (0 diffuse, 1 glossy,
-2 glass). ``material_pack`` is the fused-traversal kernel's [16, 128]
-material table. Textured albedo waits for ROADMAP Queue A item 12.
+2 glass), and an optional albedo texture (``scene/textures.py``) that
+multiplies the constant albedo at hit UVs. ``material_pack`` is the
+fused-traversal kernel's [16, 128] material table; the texture is not part
+of it (``Scene.build`` packs the textures into their own table).
 """
 
 from __future__ import annotations
@@ -12,6 +14,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from ..core.device import setup_device
 
 MATERIAL_DIFFUSE = 0
 MATERIAL_GLOSSY = 1
@@ -29,6 +33,9 @@ class Material:
     roughness: float = 1.0
     ior: float = 1.5
     type: int = MATERIAL_DIFFUSE
+    # optional [H, W, 3] (or [H, W]) float albedo image, multiplied into
+    # `albedo` at hit UVs (scene/textures.py)
+    albedo_texture: "np.ndarray | None" = None
 
     @staticmethod
     def reference_default() -> "Material":
@@ -58,8 +65,10 @@ def stack_materials_np(materials: list[Material]) -> dict:
     }
 
 
-def stack_materials(materials: list[Material], device="cpu") -> dict:
-    """Stack host materials into the device SoA dict of tensors [M, ...]."""
+def stack_materials(materials: list[Material], device="cuda") -> dict:
+    """Stack host materials into the device SoA dict of tensors [M, ...] on
+    ``device`` (default the card; without one it raises)."""
+    device = setup_device(device)
     return {
         k: torch.as_tensor(v).to(device)
         for k, v in stack_materials_np(materials).items()

@@ -19,7 +19,9 @@ class Mesh:
 
     positions: [V, 3] float32, normals: [V, 3] float32 (unit),
     indices: [F, 3] int32, material_ids: [F] int32 (index into materials),
-    materials: list of Material declared by the source (may be empty).
+    materials: list of Material declared by the source (may be empty),
+    uv_corners: [F, 3, 2] float32 texture UVs per face corner, or None
+    (stored per corner, so independent UV indexing needs no vertex split).
     """
 
     positions: np.ndarray
@@ -28,6 +30,7 @@ class Mesh:
     material_ids: np.ndarray | None = None
     materials: list[Material] = dataclasses.field(default_factory=list)
     name: str = ""
+    uv_corners: np.ndarray | None = None
 
     def __post_init__(self):
         self.positions = np.asarray(self.positions, np.float32).reshape(-1, 3)
@@ -38,6 +41,8 @@ class Mesh:
         if self.material_ids is None:
             self.material_ids = np.zeros(len(self.indices), np.int32)
         self.material_ids = np.asarray(self.material_ids, np.int32)
+        if self.uv_corners is not None:
+            self.uv_corners = np.asarray(self.uv_corners, np.float32).reshape(-1, 3, 2)
 
 
 def compute_smooth_normals(positions: np.ndarray, indices: np.ndarray) -> np.ndarray:

@@ -8,6 +8,7 @@ import numpy as np
 
 from .materials import MATERIAL_DIFFUSE, MATERIAL_GLOSSY, Material
 from .mesh import Mesh, compute_smooth_normals
+from .textures import checker_texture
 
 
 def quad(p0, p1, p2, p3) -> tuple[np.ndarray, np.ndarray]:
@@ -92,16 +93,26 @@ def merge_meshes(meshes: list[Mesh], name: str = "merged") -> Mesh:
     offs = np.cumsum([0] + [len(m.positions) for m in meshes[:-1]])
     idx = np.concatenate([m.indices + o for m, o in zip(meshes, offs)])
     mids = np.concatenate([m.material_ids for m in meshes])
-    return Mesh(pos, nrm, idx, material_ids=mids, name=name)
+    uvs = None
+    if any(m.uv_corners is not None for m in meshes):  # zeros for a mesh without UVs
+        uvs = np.concatenate([
+            m.uv_corners if m.uv_corners is not None
+            else np.zeros((len(m.indices), 3, 2), np.float32)
+            for m in meshes
+        ])
+    return Mesh(pos, nrm, idx, material_ids=mids, name=name, uv_corners=uvs)
 
 
-def cornell_box(glossy_tall_box: bool = False) -> tuple[Mesh, list[Material]]:
+def cornell_box(glossy_tall_box: bool = False,
+                textured_floor: bool = False) -> tuple[Mesh, list[Material]]:
     """Classic Cornell box scaled to x in [-1,1], y in [0,2], z in [-1,1],
     open toward +z: white floor/ceiling/back, red left, green right wall,
     an emissive ceiling panel and two boxes (36 triangles).
 
     Material ids: 0 white, 1 red, 2 green, 3 ceiling light (emissive),
-    4 tall box (glossy if requested else white)."""
+    4 tall box (glossy if requested else white); with ``textured_floor``,
+    5 the floor: white under an 8 x 8 checker texture, with planar UVs over
+    the floor's [-1, 1]^2."""
     meshes = []
 
     def add_quad(p0, p1, p2, p3, mid):
@@ -111,7 +122,12 @@ def cornell_box(glossy_tall_box: bool = False) -> tuple[Mesh, list[Material]]:
             Mesh(pos, nrm, idx, material_ids=np.full(2, mid, np.int32), name="wall")
         )
 
-    add_quad([-1, 0, -1], [-1, 0, 1], [1, 0, 1], [1, 0, -1], 0)  # floor
+    add_quad([-1, 0, -1], [-1, 0, 1], [1, 0, 1], [1, 0, -1], 5 if textured_floor else 0)  # floor
+    if textured_floor:
+        # corners (-1,-1) (-1,1) (1,1) (1,-1) -> uv (0,0) (0,1) (1,1) (1,0)
+        meshes[-1].uv_corners = np.array(
+            [[[0, 0], [0, 1], [1, 1]], [[0, 0], [1, 1], [1, 0]]], np.float32
+        )
     add_quad([-1, 2, -1], [1, 2, -1], [1, 2, 1], [-1, 2, 1], 0)  # ceiling
     add_quad([-1, 0, -1], [1, 0, -1], [1, 2, -1], [-1, 2, -1], 0)  # back
     add_quad([-1, 0, -1], [-1, 2, -1], [-1, 2, 1], [-1, 0, 1], 1)  # left, red
@@ -138,6 +154,10 @@ def cornell_box(glossy_tall_box: bool = False) -> tuple[Mesh, list[Material]]:
         if glossy_tall_box
         else Material(albedo=(0.73, 0.73, 0.73, 1.0), type=MATERIAL_DIFFUSE),
     ]
+    if textured_floor:
+        materials.append(Material(albedo=(0.73, 0.73, 0.73, 1.0),
+                                  albedo_texture=checker_texture(8, (1.0, 1.0, 1.0),
+                                                                 (0.35, 0.3, 0.25))))
     return merge_meshes(meshes, name="cornell_box"), materials
 
 

@@ -5,10 +5,14 @@ or the two-level TLAS/BLAS scene (``build_two_level``).
 The numpy lowering is copied line for line, so ``mt_pack``, ``attr_pack``,
 the ``bvh`` sub-dict and the two-level BLAS arrays are bit-identical to the
 JAX build. ``accel``: 'auto' attaches a BVH above BVH_THRESHOLD triangles,
-and below it to a scene with a texture env that the fused-traversal
-kernel's gate would take (tagged ``tex_autoroute``: the BVH exists for the
-route, and the brute-force megakernel still takes such a scene where it
-can); 'bvh' always, 'none' never. Not ported, and raising: the PRIME t_max
+and below it to a scene with a texture env or an albedo texture that the
+fused-traversal kernel's gate would take (tagged ``tex_autoroute``: the BVH
+exists for the route, and the brute-force megakernel still takes such a
+scene where it can); 'bvh' always, 'none' never. A scene with a textured
+material carries ``textures`` (``scene/textures.py``: the texel table and
+the per-material meta) and the corner UVs ``uv0``, ``uv1``, ``uv2`` [T, 2]
+(two-level: ``uv0_obj`` ...). Both builds place the scene on the card by
+default and raise without one. Not ported, and raising: the PRIME t_max
 table (``DXR_PRIME=1``, ROADMAP Queue A item 11, for both builds).
 """
 
@@ -23,6 +27,7 @@ import torch
 
 from ..accel import bvh as bvh_mod
 from ..accel import tlas as tlas_mod
+from ..core.device import setup_device
 from ..ops.traverse import pack_for_traversal
 from . import envmap as envmap_mod
 from .lights import default_lights, light_counts
@@ -34,6 +39,7 @@ from .materials import (
     stack_materials_np,
 )
 from .mesh import Mesh
+from .textures import pack_texture_table
 
 TRI_ALIGN = 8  # pad the triangle count to a multiple of 8 (the JAX packing)
 BVH_THRESHOLD = 4096  # above this triangle count, 'auto' attaches a BVH
@@ -110,27 +116,29 @@ class Scene:
         return (self.environment if self.environment is not None
                 else envmap_mod.constant_env((0.0, 0.0, 0.0)))
 
-    def _texture_route(self, num_materials: int) -> bool:
-        """JAX ``scene.py:316-346``: a texture env routes a small scene
-        through a BVH when the fused-traversal kernel's rig and material
-        gates would take it (at most one light per group, at least one
-        light, at most MP_MAX_MATERIALS materials)."""
+    def _texture_route(self, num_materials: int, textured: bool) -> bool:
+        """JAX ``scene.py:316-346``: a texture env or an albedo texture
+        routes a small scene through a BVH when the fused-traversal kernel's
+        rig and material gates would take it (at most one light per group,
+        at least one light, at most MP_MAX_MATERIALS materials)."""
         lights = self.lights if self.lights is not None else default_lights()
         d_n, p_n, a_n = light_counts(lights)
         rig_ok = d_n <= 1 and p_n <= 1 and a_n <= 1 and d_n + p_n + a_n >= 1
         texture_env = int(self._env()["kind"]) in (envmap_mod.ENV_LATLONG,
                                                     envmap_mod.ENV_CUBEMAP)
-        return rig_ok and texture_env and num_materials <= MP_MAX_MATERIALS
+        return rig_ok and (texture_env or textured) and num_materials <= MP_MAX_MATERIALS
 
     def build_numpy(self, accel: str = "auto") -> dict[str, Any]:
         """The numpy half of ``build``: world-space triangles, the
         Möller–Trumbore precomputes, the kernel packs and, per ``accel``,
         the ``bvh`` sub-dict (with ``builder``: "sah" or "morton", and
-        ``tex_autoroute``: 1 when the BVH exists only for a texture env's
-        route)."""
+        ``tex_autoroute``: 1 when the BVH exists only for the route of a
+        texture env or an albedo texture), and ``textures``, ``uv0``,
+        ``uv1``, ``uv2`` when some
+        material is textured."""
         if accel not in ACCELS:
             raise ValueError(f"unknown accel {accel!r} ({', '.join(ACCELS)})")
-        v0s, e1s, e2s, n0s, n1s, n2s, mat_ids = [], [], [], [], [], [], []
+        v0s, e1s, e2s, n0s, n1s, n2s, mat_ids, uvcs = [], [], [], [], [], [], [], []
         mat_offset_for_mesh: dict[int, int] = {}
         materials = list(self.materials)
 
@@ -152,6 +160,8 @@ class Scene:
             n0s.append(nrm[tri[:, 0]])
             n1s.append(nrm[tri[:, 1]])
             n2s.append(nrm[tri[:, 2]])
+            uvcs.append(mesh.uv_corners if mesh.uv_corners is not None
+                        else np.zeros((len(tri), 3, 2), np.float32))
             if inst.material_override is not None:
                 ids = np.full(len(tri), inst.material_override, np.int32)
             elif mesh.materials:
@@ -243,9 +253,20 @@ class Scene:
             "num_tris": num_tris,
             "materials": materials,
         }
+        # albedo textures: the table and the corner UVs only when some
+        # material is textured (the kernels' gates key off "textures")
+        textures = pack_texture_table(materials)
+        if textures is not None:
+            uv_pad = np.zeros((padded, 3, 2), np.float32)
+            if uvcs:
+                uvc = np.concatenate(uvcs).astype(np.float32)
+                uv_pad[: len(uvc)] = uvc
+            out["textures"] = textures
+            for k in range(3):
+                out[f"uv{k}"] = np.ascontiguousarray(uv_pad[:, k])
         want_bvh = accel == "bvh" or (accel == "auto" and num_tris > BVH_THRESHOLD)
         tex_autoroute = (accel == "auto" and not want_bvh and num_tris > 0
-                         and self._texture_route(len(materials)))
+                         and self._texture_route(len(materials), textures is not None))
         if (want_bvh or tex_autoroute) and num_tris > 0:
             if os.environ.get("DXR_PRIME", "0") == "1":
                 raise NotImplementedError(
@@ -260,21 +281,25 @@ class Scene:
             out["bvh"] = packed
         return out
 
-    def build(self, device: str | torch.device = "cpu", accel: str = "auto") -> dict[str, Any]:
+    def build(self, device: str | torch.device = "cuda", accel: str = "auto") -> dict[str, Any]:
         """Lower to the scene dict: geometry, packs, the BVH (per ``accel``,
-        see ``build_numpy`` and ``bvh_to_device``) and materials on
-        ``device``, each moved once per build; ``lights`` and the env's
+        see ``build_numpy`` and ``bvh_to_device``), materials and albedo
+        textures on ``device`` (default the card; without one it raises),
+        each moved once per build; ``lights`` and the env's
         scalars stay host (CPU) tensors, since they are per-frame parameters
         (the kernel wrapper packs them into its one upload per dispatch, the
         plain path moves them to its device); a texture env's texture leaves
         go to ``device`` here, once (``envmap.place``)."""
+        device = setup_device(device)
         d = self.build_numpy(accel)
         lights = self.lights if self.lights is not None else default_lights()
         out = {
             k: torch.as_tensor(v).to(device)
             for k, v in d.items()
-            if k not in ("materials", "num_tris", "bvh")
+            if k not in ("materials", "num_tris", "bvh", "textures")
         }
+        if "textures" in d:
+            out["textures"] = {k: torch.as_tensor(v).to(device) for k, v in d["textures"].items()}
         out["mat_id"] = out["mat_id"].to(torch.int64)
         out["num_tris"] = d["num_tris"]
         out["materials"] = stack_materials(d["materials"], device)
@@ -284,7 +309,7 @@ class Scene:
         out["env"] = envmap_mod.place(self._env(), device)
         return out
 
-    def build_two_level(self, device: str | torch.device = "cpu") -> dict[str, Any]:
+    def build_two_level(self, device: str | torch.device = "cuda") -> dict[str, Any]:
         """Lower to the two-level TLAS/BLAS scene (``accel/tlas.py``): one
         object-space BLAS per unique mesh (keyed by ``id(mesh)``), shared by
         all its instances, a refittable TLAS over the instances' AABBs and
@@ -296,19 +321,21 @@ class Scene:
         dict: num_instances, slot_mesh, mesh_tri_ranges, refit_ctx), the
         concatenated object-space arrays ``v0_obj`` ... ``d0_obj``,
         ``n0_obj`` ... ``n2_obj`` and ``mat_id_obj`` and the stacked
-        materials on ``device``, ``lights`` and the env's scalars on the
-        host (its texture leaves on ``device``) and ``num_tris`` (the
-        instanced total)."""
+        materials on ``device`` (default the card; without one it raises),
+        ``lights`` and the env's scalars on the host (its texture leaves on
+        ``device``), ``num_tris`` (the instanced total) and, when some
+        material is textured, ``textures`` and the object-space corner UVs
+        ``uv0_obj``, ``uv1_obj``, ``uv2_obj`` on ``device``."""
         if os.environ.get("DXR_PRIME", "0") == "1":
             raise NotImplementedError(
                 "PRIME t_max seeding (DXR_PRIME=1) is not ported yet (ROADMAP Queue A item 11)"
             )
-        device = torch.device(device)
+        device = setup_device(device)
         materials = list(self.materials)
         mat_offset_for_mesh: dict[int, int] = {}
         mesh_index: dict[int, int] = {}
         meshes_geo = []  # (v0, e1, e2) per unique mesh
-        mesh_attr = []  # (n0, n1, n2, mat_id) per unique mesh
+        mesh_attr = []  # (n0, n1, n2, mat_id, uv_corners) per unique mesh
         inst_mesh = np.zeros((len(self.instances),), np.int64)
         transforms = np.zeros((len(self.instances), 4, 4), np.float32)
         overrides = np.full((len(self.instances),), -1, np.int64)
@@ -334,7 +361,9 @@ class Scene:
                 mesh_attr.append((mesh.normals[tri[:, 0]].astype(np.float32),
                                   mesh.normals[tri[:, 1]].astype(np.float32),
                                   mesh.normals[tri[:, 2]].astype(np.float32),
-                                  mid.astype(np.int32)))
+                                  mid.astype(np.int32),
+                                  mesh.uv_corners if mesh.uv_corners is not None
+                                  else np.zeros((len(tri), 3, 2), np.float32)))
             inst_mesh[inst_idx] = mesh_index[key]
             transforms[inst_idx] = inst.transform
             if inst.material_override is not None:
@@ -383,6 +412,12 @@ class Scene:
             "env": envmap_mod.place(self._env(), device),
             "num_tris": int(sum(len(meshes_geo[int(m)][0]) for m in inst_mesh)),
         }
+        textures = pack_texture_table(materials)
+        if textures is not None:
+            uvc = np.concatenate([a[4] for a in mesh_attr]).astype(np.float32)
+            out["textures"] = {k: torch.as_tensor(v).to(device) for k, v in textures.items()}
+            for k in range(3):
+                out[f"uv{k}_obj"] = torch.as_tensor(np.ascontiguousarray(uvc[:, k])).to(device)
         return out
 
 

@@ -31,6 +31,11 @@ and its material override).
 Lights: any number of directional, point and area lights; every shadow ray
 of a shading point, the area lights' AREA_LIGHT_SAMPLES each, goes through
 one any-hit launch.
+
+Albedo textures (a scene with ``textures``): each closest hit's albedo is
+multiplied by ``scene.textures.sample_albedo`` at the hit's UV, the
+barycentric mix of its triangle's corner UVs, on all three routes. As in
+the JAX package, this is glue after the trace kernels, not a kernel.
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from ..core.camera import primary_ray_grid
 from ..ops import intersect, intersect_kernel, traverse, traverse2
 from ..scene.envmap import on_device, sample_environment
 from ..scene.lights import AREA_LIGHT_SAMPLES, area_light_draws, normalize_lights
+from ..scene.textures import sample_albedo
 from ..scene.scene import scene_device, to_device
 from . import sampling
 
@@ -105,6 +111,9 @@ def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
               else intersect_kernel.trace_closest_reference)
         h = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
         mat = {k: h[k] for k in intersect_kernel.MATERIAL_KEYS}
+        if "textures" in scene:
+            tri = torch.clamp(h["tri"], min=0)
+            _modulate_albedo(scene, mat, scene["mat_id"][tri], tri, h["u"], h["v"], "")
         return h["hit"], h["position"], h["normal"], mat
     fn = (traverse.traverse_fat_closest if impl == "cuda"
           else traverse.traverse_fat_closest_reference)
@@ -124,6 +133,15 @@ def _trace_any(scene, origins, directions, t_min, t_max, impl: str):
     return fn(scene, origins, directions, t_min, t_max)
 
 
+def _modulate_albedo(scene: dict, mat: dict, mid, tri, u, v, suffix: str) -> None:
+    """mat["albedo"] times the albedo texture at the hit's UV: the
+    barycentric mix of triangle ``tri``'s corner UVs (``uv0{suffix}`` ...)."""
+    w = 1.0 - u - v
+    uv = (w[..., None] * scene[f"uv0{suffix}"][tri] + u[..., None] * scene[f"uv1{suffix}"][tri]
+          + v[..., None] * scene[f"uv2{suffix}"][tri])
+    mat["albedo"] = mat["albedo"] * sample_albedo(scene["textures"], mid, uv)
+
+
 def _interpolate_hit(scene: dict, hits: dict, origins, directions):
     """Barycentric normal, hit position and the material rows, gathered by
     triangle and material index."""
@@ -139,6 +157,8 @@ def _interpolate_hit(scene: dict, hits: dict, origins, directions):
     position = origins + hits["t"][..., None] * directions
     mid = scene["mat_id"][tri]
     mat = {k: val[mid] for k, val in scene["materials"].items()}
+    if "textures" in scene:
+        _modulate_albedo(scene, mat, mid, tri, u, v, "")
     return position, normal, mat
 
 
@@ -162,6 +182,8 @@ def _interpolate_hit_two_level(scene: dict, hits: dict, origins, directions):
     override = scene["tlas"]["inst_mat_override"][inst].to(torch.int64)
     mid = torch.where(override >= 0, override, scene["mat_id_obj"][tri])
     mat = {k: val[mid] for k, val in scene["materials"].items()}
+    if "textures" in scene:
+        _modulate_albedo(scene, mat, mid, tri, u, v, "_obj")
     return position, normal, mat
 
 

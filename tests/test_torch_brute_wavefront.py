@@ -30,6 +30,7 @@ from dxrexperiments_torch.app import headless as thead
 from dxrexperiments_torch.core import vecmath as tvm
 from dxrexperiments_torch.models.base import select_route
 from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
+from dxrexperiments_torch.ops import fused_traverse as tft
 from dxrexperiments_torch.ops import intersect_kernel as tik
 from dxrexperiments_torch.scene import lights as tlights
 from dxrexperiments_torch.scene.convert import camera_from_numpy, options_from_numpy, scene_from_numpy
@@ -115,7 +116,7 @@ def rays(kind, seed):
 
 def scene_pair(kind):
     jscene = cornell() if kind == "cornell" else sphere()
-    return jscene, scene_from_numpy(npy(jscene))
+    return jscene, scene_from_numpy(npy(jscene), "cpu")
 
 
 @pytest.mark.parametrize("kind", ["sphere", "cornell"])
@@ -191,7 +192,7 @@ def render_both(jscene, jcam, opts=None, impl="jnp", **kw):
     jopts = default_options(**(opts or {}))
     ek = int(jscene["env"]["kind"])
     want = npy(render_sample(jscene, jopts, jcam, SIZE, SIZE, impl=impl, env_kind=ek, **kw))
-    got = tint.render_sample(scene_from_numpy(npy(jscene)), options_from_numpy(npy(jopts)),
+    got = tint.render_sample(scene_from_numpy(npy(jscene), "cpu"), options_from_numpy(npy(jopts)),
                              camera_from_numpy(npy(jcam)), SIZE, SIZE, impl="torch",
                              env_kind=ek, **kw)
     return {k: v.numpy() for k, v in got.items()}, want
@@ -260,7 +261,7 @@ def test_other_routes_take_the_new_options(kind, option):
     got, want = render_both(jscene, jcam, **kw)
     image_gate(got["color"], want["color"])
     assert float(got["color"].mean()) > 0.0
-    tscene = scene_from_numpy(npy(jscene))
+    tscene = scene_from_numpy(npy(jscene), "cpu")
     assert select_route(tscene, "progressive", kw.get("ao_only", False),
                         kw.get("refraction", False)) == "wavefront"
 
@@ -275,7 +276,7 @@ def test_area_light_draws_and_rigs_bit_equal():
         np.testing.assert_array_equal(g1.numpy(), np.asarray(w1))
     for name, rig in RIGS.items():
         want = npy(jlights.normalize_lights(rig))
-        port_rig = scene_from_numpy(npy(cornell(rig)))["lights"]
+        port_rig = scene_from_numpy(npy(cornell(rig)), "cpu")["lights"]
         got = tlights.normalize_lights(port_rig)
         assert tlights.light_counts(port_rig) == jlights.light_counts(rig), name
         for group in ("dir", "point", "area"):
@@ -341,7 +342,7 @@ def test_select_route_matches_jax(case):
         jscene = sc.build(accel="bvh" if case.endswith("bvh") else "auto")
     else:
         jscene = cornell(RIGS["2dir_2point"] if case == "cornell_rig" else None)
-    tscene = scene_from_numpy(npy(jscene))
+    tscene = scene_from_numpy(npy(jscene), "cpu")
     if case in ("cornell_latlong", "instanced:2_latlong"):
         assert "tex_autoroute" in jscene["bvh"] and "tex_autoroute" in tscene["bvh"]
     for mode in ("progressive", "realtime"):
@@ -352,14 +353,27 @@ def test_select_route_matches_jax(case):
 
 
 def test_bvh_scene_with_one_area_light_raises():
+    """A BVH scene whose rig holds one area light takes B5's area mode in
+    both packages (it raised before that mode was ported); its plain
+    version matches the JAX jnp route on the image gate."""
     sc = j_build_scene("soup:300")[0]
     sc.lights = RIGS["1dir_1area"]
     jscene = sc.build(accel="bvh")
-    assert jft.supports_fused_traverse(jscene, "progressive", False)  # JAX: B5's area mode
-    tscene = scene_from_numpy(npy(jscene))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        select_route(tscene, "progressive")
+    tscene = scene_from_numpy(npy(jscene), "cpu")
+    for mode in ("progressive", "realtime"):
+        assert jft.supports_fused_traverse(jscene, mode, False)  # JAX: B5's area mode
+        assert select_route(tscene, mode) == jax_route(jscene, mode, False, False)
+        assert select_route(tscene, mode) == "fused_traverse"
     assert select_route(tscene, "progressive", ao_only=True) == "wavefront"
+    cam = j_build_scene("soup:300")[1]
+    cam.set_aspect(16, 16)
+    jcam = camera_params(cam, jitter=(0.01, -0.02), frame_count=6)
+    jopts = default_options(debug=2)
+    want = render_sample(jscene, jopts, jcam, 16, 16, impl="jnp", env_kind=1)["color"]
+    got = tft.fused_traverse_progressive_sum(
+        tscene, options_from_numpy(npy(jopts)),
+        {k: v[None] for k, v in camera_from_numpy(npy(jcam)).items()}, 16, 16, 1)
+    image_gate(got.numpy(), want)
 
 
 def test_pipeline_ao_and_refraction_steps():

@@ -196,6 +196,6 @@ def test_scene_material_pack_equals_jax(kind):
     got = tsc.build("cpu", accel="bvh")["material_pack"]
     assert got.is_contiguous()
     np.testing.assert_array_equal(got.numpy(), want)
-    ported = scene_from_numpy(jax.tree.map(np.asarray, jd))
+    ported = scene_from_numpy(jax.tree.map(np.asarray, jd), "cpu")
     np.testing.assert_array_equal(ported["material_pack"].numpy(), want)
     assert "material_pack" not in tsc.build("cpu", accel="none")

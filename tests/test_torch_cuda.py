@@ -20,7 +20,10 @@ the position over max(1, t) within the hit gate's bounds on t (it is
 o + t d), material rows and ids equal; whole brute-force samples on the
 image gate. Texture envs (lat-long, cubemap): B1 and B5 with the lookup
 inside the kernel, on the image gate against the plain versions, which
-sample the env in torch.
+sample the env in torch. B5's area-light mode (both pipelines) and
+albedo-texture mode (progressive) on the image gate against the plain
+versions, which trace every area sample and sample the albedo textures in
+torch.
 The bilateral kernel: max
 |difference| <= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums
 differing only by rounding.
@@ -889,9 +892,10 @@ def test_texture_env_launch_arguments(cuda_device):
     bvh = build_scene("instanced:2")[0].build(cuda_device, accel="bvh")
     nodes, rows = bvh["bvh"]["bvhf_rows"], bvh["bvh"]["mt_rows"]
     assert ft_lib.dxr_fused_traverse_progressive_sum(
-        params.data_ptr(), params.data_ptr(), params.data_ptr(), nodes.data_ptr(), rows.data_ptr(),
-        bvh["material_pack"].data_ptr(), out.data_ptr(), 1, nodes.shape[0], rows.shape[0], SIZE,
-        SIZE, 2, 3, None, 64, 32, err.data_ptr(), stream) == 1
+        params.data_ptr(), params.data_ptr(), params.data_ptr(), params.data_ptr(),
+        nodes.data_ptr(), rows.data_ptr(), bvh["material_pack"].data_ptr(), out.data_ptr(), 1,
+        nodes.shape[0], rows.shape[0], SIZE, SIZE, 2, 3, None, 64, 32, None, None, 0, 0,
+        err.data_ptr(), stream) == 1
     options = default_options()
     for kernel in (fs.fused_progressive_sum, ft.fused_traverse_progressive_sum):
         target = scene if kernel is fs.fused_progressive_sum else dict(
@@ -934,3 +938,137 @@ def test_texture_env_pipelines_launch_counts(cuda_device, monkeypatch):
     direct, spec = rt.render()
     torch.cuda.synchronize()
     assert fs.REALTIME_LAUNCHES == before + 1 and bool((direct + spec).isfinite().all())
+
+
+# ---- B5's area-light and albedo-texture modes -------------------------------
+
+def _area_setup(device, case, s_count=S):
+    """The area Cornell (tests/test_fused_traverse.py's: the glossy tall box,
+    1 directional + 1 area light) with its own BVH, untextured under the
+    gradient env or textured under a seeded cubemap; or the CLI's
+    cornell-tex, built as the CLI builds it (its routing BVH)."""
+    from dxrexperiments_torch.scene import cornell_box
+    from dxrexperiments_torch.scene.lights import area_light, directional_light
+
+    if case == "cornell-tex":
+        sc, cam = build_scene("cornell-tex")
+        scene = sc.build(device)
+    else:
+        mesh, mats = cornell_box(glossy_tall_box=True, textured_floor=case == "textured_cube")
+        sc, cam = Scene(), build_scene("cornell")[1]
+        for m in mats:
+            sc.add_material(m)
+        sc.add_model(mesh)
+        sc.lights = {"dir": [directional_light((0.0, -0.6, -0.8), (0.9, 0.9, 0.9, 0.3))],
+                     "area": [area_light((-0.4, 1.96, -0.4), (0.8, 0, 0), (0, 0, 0.8),
+                                         (1.0, 0.9, 0.7, 4.0))]}
+        sc.environment = (_tex_env("cubemap") if case == "textured_cube"
+                          else envmap.gradient_env())
+        scene = sc.build(device, accel="bvh")
+    cam.set_aspect(SIZE, SIZE)
+    rng = np.random.default_rng(17)
+    cams = stack_cameras([
+        camera_params(cam, jitter=((rng.random() - 0.5) / SIZE, (rng.random() - 0.5) / SIZE),
+                      frame_count=2**31 + 21 + k)
+        for k in range(s_count)
+    ])
+    return scene, cams
+
+
+AREA_OPTIONS = [("defaults", {}), ("debug2", {"debug": 2}),
+                ("no_indirect_diffuse", {"no_indirect_diffuse": True}),
+                ("albedo_only", {"show_gbuffer_albedo_only": True})]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,opts", AREA_OPTIONS, ids=[c[0] for c in AREA_OPTIONS])
+@pytest.mark.parametrize("case", ["area", "cornell-tex", "textured_cube"])
+def test_fused_traverse_area_and_texture_modes_match_plain(cuda_device, case, name, opts):
+    scene, cams = _area_setup(cuda_device, case)
+    options = default_options(**opts)
+    ek = scene["env"]["kind"]
+    before = ft.LAUNCHES
+    got = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
+    assert ft.LAUNCHES == before + 1
+    want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
+    torch.cuda.synchronize()
+    traverse.check_errors()
+    _gate(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,opts", AREA_OPTIONS[:2], ids=[c[0] for c in AREA_OPTIONS[:2]])
+def test_fused_traverse_area_realtime_matches_plain(cuda_device, name, opts):
+    scene, cams = _area_setup(cuda_device, "area")
+    options = default_options(**opts)
+    before = ft.REALTIME_LAUNCHES
+    got = ft.realtime_aovs(scene, options, cams, SIZE, SIZE, 1)
+    assert ft.REALTIME_LAUNCHES == before + 1
+    want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, 1)
+    torch.cuda.synchronize()
+    for k in fs.AOV_KEYS:
+        for f in range(S):
+            _gate(got[k][f], want[k][f], s_count=1)
+
+
+@pytest.mark.cuda
+def test_fused_traverse_new_mode_arguments(cuda_device):
+    """The entry point refuses an area rig without its pack and a texel
+    table without its meta; the wrapper raises for a texel table off the
+    scene's device and for a textured realtime frame (outside the gate)."""
+    scene, cams = _area_setup(cuda_device, "cornell-tex")
+    options = default_options()
+    lib = ft._library()
+    params = torch.zeros(64, device=cuda_device)
+    out = torch.empty((SIZE, SIZE, 3), device=cuda_device)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    nodes, rows = scene["bvh"]["bvhf_rows"], scene["bvh"]["mt_rows"]
+    texels = scene["textures"]["texels"]
+    stream = torch.cuda.current_stream().cuda_stream
+    for area, rig, tex in ((None, 5, (None, None, 0, 0)),
+                           (params.data_ptr(), 5, (texels.data_ptr(), None, 4, 6))):
+        assert lib.dxr_fused_traverse_progressive_sum(
+            params.data_ptr(), params.data_ptr(), params.data_ptr(), area, nodes.data_ptr(),
+            rows.data_ptr(), scene["material_pack"].data_ptr(), out.data_ptr(), 1,
+            nodes.shape[0], rows.shape[0], SIZE, SIZE, 0, rig, None, 0, 0, *tex,
+            err.data_ptr(), stream) == 1
+    off = dict(scene, textures=dict(scene["textures"], texels=texels.cpu()))
+    with pytest.raises(ValueError, match="device"):
+        ft.fused_traverse_progressive_sum(off, options, cams, SIZE, SIZE, 0)
+    with pytest.raises(NotImplementedError, match="scope"):
+        ft.realtime_aovs(scene, options, cams, SIZE, SIZE, 0)
+
+
+@pytest.mark.cuda
+def test_cornell_tex_pipelines_launch_counts(cuda_device, monkeypatch):
+    """cornell-tex: the progressive pipeline launches B5 once per dispatch
+    (its routing BVH); a realtime frame takes the wavefront route (B4a)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the main path reached a plain version")
+
+    monkeypatch.setattr(ft, "fused_traverse_progressive_sum_reference", refuse)
+    sc, cam = build_scene("cornell-tex")
+    cam.set_aspect(SIZE, SIZE)
+    pipe = ProgressiveRaytracingPipeline(SIZE, SIZE, seed=1, samples_per_frame=2,
+                                         device=cuda_device)
+    pipe.set_camera(cam)
+    pipe.set_scene(sc)
+    counts = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES)
+    for f in range(3):
+        pipe.update(elapsed_time=0.0, elapsed_frames=f)
+        pipe.render()
+    torch.cuda.synchronize()
+    assert (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES) == (
+        counts[0], counts[1] + 3, counts[2])
+    img = pipe.get_output()
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
+    rt = RealtimeRaytracingPipeline(SIZE, SIZE, seed=2, device=cuda_device)
+    rt.set_camera(cam)
+    rt.set_scene(sc)
+    before = (ft.REALTIME_LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES)
+    rt.update(elapsed_time=0.0, elapsed_frames=0)
+    direct, spec = rt.render()
+    torch.cuda.synchronize()
+    assert (ft.REALTIME_LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES) == (
+        before[0], before[1] + 2, before[2] + 2)
+    assert bool((direct + spec).isfinite().all())

@@ -144,7 +144,7 @@ def test_unported_modes_raise():
     assert tuple(rt["direct"].shape) == (S, H, W, 3)
     with pytest.raises(ValueError, match="texture leaf"):  # kind 2 without its texture
         tfs.fused_progressive_sum(tscene, topts, tcams, W, H, 2)
-    # albedo textures (ROADMAP item 12) stay outside the megakernel
+    # albedo textures stay outside the megakernel, as in JAX (supports_fused)
     assert not tfs.supports_fused(dict(lat, textures={}), "progressive", False)
     with pytest.raises(NotImplementedError, match="albedo textures"):
         tfs.fused_progressive_sum(dict(lat, textures={}), topts, tcams, W, H, 2)

@@ -33,7 +33,7 @@ from dxrexperiments_torch.scene.convert import (
 from dxrexperiments_tpu.core.camera import Camera, camera_params
 from dxrexperiments_tpu.ops import fused_traverse_pallas as jft
 from dxrexperiments_tpu.scene import Scene, cornell_box, envmap
-from dxrexperiments_tpu.scene.lights import directional_light, point_light
+from dxrexperiments_tpu.scene.lights import area_light, directional_light, point_light
 from dxrexperiments_tpu.scene.materials import Material
 from dxrexperiments_tpu.scene.procedural import random_triangle_soup
 from dxrexperiments_tpu.trace import default_options, render_sample
@@ -75,7 +75,7 @@ def both_sides(kind, opts, frames=(7,), lights=None):
     jopts = default_options(**opts)
     jcams = jax_cameras(SIZES[kind], frames)
     npy = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    port = (scene_from_numpy(npy(jscene)), options_from_numpy(npy(jopts)),
+    port = (scene_from_numpy(npy(jscene), "cpu"), options_from_numpy(npy(jopts)),
             camera_from_numpy(npy(jcams)))
     return (jscene, jopts, jcams), port
 
@@ -151,7 +151,8 @@ def test_one_light_rig_matches_pallas_interpret():
     got = tft.fused_traverse_progressive_sum(tscene, topts, tcams, 32, 32, 0)
     assert_images_match(got.numpy(), want)
     cst, rig = tft._rig_consts(tscene, topts, 0)
-    assert rig == 1 and tuple(cst.shape) == (2, 16)
+    assert rig == 1 and tuple(cst.shape) == (3, 16)  # B1's two rows and the (empty) area pack
+    assert not bool(cst[2].any())
 
 
 def test_two_samples_sum_single_samples():
@@ -179,12 +180,26 @@ def test_unported_modes_raise():
     assert tuple(rt["direct"].shape) == (1, 16, 16, 3)
     with pytest.raises(ValueError, match="texture leaf"):
         tft.fused_traverse_progressive_sum(tscene, topts, tcams, 16, 16, 2)
-    # albedo textures and area lights (ROADMAP item 12) still raise
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tft.realtime_aovs(dict(tscene, textures={}), topts, tcams, 16, 16, 1)
-    area = dict(tscene["lights"], area=[{"corner": torch.zeros(3)}])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tft.supports_fused_traverse(dict(tscene, lights=area), "progressive", False)
+    # albedo textures run progressive only (a realtime frame is outside the
+    # gate and raises; the pipelines send it to the wavefront route), with
+    # the corner-UV lanes of mt_rows
+    textured = dict(tscene, textures={})
+    with pytest.raises(NotImplementedError, match="scope"):
+        tft.realtime_aovs(textured, topts, tcams, 16, 16, 1)
+    assert not tft.supports_fused_traverse(textured, "progressive", False)  # mt_attr_lanes 1
+    assert tft.supports_fused_traverse(dict(textured, bvh=dict(tscene["bvh"], mt_attr_lanes=2)),
+                                       "progressive", False)
+    # an area light runs in both pipelines and matches JAX's area mode
+    area_rig = {"dir": RIG["dir"], "area": [area_light((-0.5, 2.5, -0.5), (1.0, 0.0, 0.0),
+                                                       (0.0, 0.0, 1.0), (1.0, 0.9, 0.8, 6.0))]}
+    (jscene, jopts, jcams), (ascene, aopts, acams) = both_sides("soup", {}, lights=area_rig)
+    for mode in ("progressive", "realtime"):
+        assert tft.supports_fused_traverse(ascene, mode, False)
+        assert jft.supports_fused_traverse(jscene, mode, False)
+    want = jft.fused_traverse_progressive_sum(jscene, jopts, jcams, 16, 16, 1, interpret=True)
+    got = tft.fused_traverse_progressive_sum(ascene, aopts, acams, 16, 16, 1)
+    assert_images_match(got.numpy(), want)
+    assert tft._rig_consts(ascene, aopts, 1)[1] == 1 | 4
     assert not tft.supports_fused_traverse(tscene, "progressive", True)  # ao_only
     brute = {k: v for k, v in tscene.items() if k != "bvh"}
     assert not tft.supports_fused_traverse(brute, "realtime", False)

@@ -42,7 +42,7 @@ def _scenes(kind):
         ts.add_material(m)
     js.add_model(jm)
     ts.add_model(tm)
-    return js.build(), ts.build()
+    return js.build(), ts.build("cpu")
 
 
 def _rays(kind, port_scene):

@@ -90,7 +90,7 @@ def both_sides(opts, env, frames=((7, (0.3 / W, -0.2 / H)),)):
     cams = [jax_camera(f, j) for f, j in frames]
     cams = jax.tree.map(lambda *x: jnp.stack(x), *cams)
     port = (
-        scene_from_numpy(npy(scene)),
+        scene_from_numpy(npy(scene), "cpu"),
         options_from_numpy(npy(options)),
         camera_from_numpy(npy(cams)),
     )

@@ -43,7 +43,7 @@ def _build(scene_cls, cornell, dl, pl, env, glossy):
         "point": pl((0.0, 1.8, 0.0), (1.0, 0.9, 0.7, 6.0)),
     }
     sc.environment = env.gradient_env()
-    return sc.build()
+    return sc.build("cpu") if scene_cls is TScene else sc.build()
 
 
 def jax_scene(glossy=True):
@@ -69,7 +69,7 @@ def test_packs_bit_equal(glossy):
 
 def test_scene_from_numpy_round_trip():
     want = jax_scene()
-    got = scene_from_numpy(want)
+    got = scene_from_numpy(want, "cpu")
     ref = port_scene()
     for k in PACKS:
         assert got[k].dtype == torch.float32
@@ -86,8 +86,45 @@ def test_scene_from_numpy_round_trip():
 
 
 def test_unported_scene_keys_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        scene_from_numpy(dict(jax_scene(), textures={}))
+    """Every key of a JAX scene carries across now, albedo textures too: the
+    texel table is the first three columns of JAX's quad-packed rows, the
+    meta and the corner UVs as they are; a scene without textures has no
+    "textures" key."""
+    assert "textures" not in scene_from_numpy(jax_scene(), "cpu")
+    mesh, mats = j_cornell(glossy_tall_box=True, textured_floor=True)
+    sc = JScene()
+    for m in mats:
+        sc.add_material(m)
+    sc.add_model(mesh)
+    jd = jax.tree.map(np.asarray, sc.build(accel="none"))
+    got = scene_from_numpy(jd, "cpu")
+    np.testing.assert_array_equal(got["textures"]["texels"].numpy(), jd["textures"]["rows"][:, 0:3])
+    np.testing.assert_array_equal(got["textures"]["meta"].numpy(), jd["textures"]["meta"])
+    assert got["textures"]["meta"].dtype == torch.int32
+    for k in ("uv0", "uv1", "uv2"):
+        np.testing.assert_array_equal(got[k].numpy(), jd[k])
+
+
+def test_entry_points_default_to_the_card():
+    """Scene.build, build_two_level, scene_from_numpy, stack_materials and
+    accel/tlas.build_two_level place their tensors on the card unless the
+    caller asks for the CPU; without a card they raise (no fallback)."""
+    from dxrexperiments_torch.accel import tlas as ttlas
+    from dxrexperiments_torch.scene.materials import Material, stack_materials
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults build there")
+    sc = TScene()
+    sc.add_model(t_cornell()[0])
+    geo = [(np.zeros((1, 3), np.float32), np.eye(3, dtype=np.float32)[:1],
+            np.eye(3, dtype=np.float32)[1:2])]
+    calls = (sc.build, sc.build_two_level, lambda: scene_from_numpy(jax_scene()),
+             lambda: stack_materials([Material()]),
+             lambda: ttlas.build_two_level(geo, np.zeros(1), np.eye(4, dtype=np.float32)[None]))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert sc.build("cpu")["v0"].device.type == "cpu"
 
 
 def test_primary_ray_grid_matches():

@@ -93,7 +93,7 @@ def jax_cameras(frames=(5, 6)):
 def both_sides(jscene, opts=None, frames=(5, 6)):
     jopts = default_options(**(opts or {}))
     jcams = jax_cameras(frames)
-    port = (scene_from_numpy(npy(jscene)), options_from_numpy(npy(jopts)),
+    port = (scene_from_numpy(npy(jscene), "cpu"), options_from_numpy(npy(jopts)),
             camera_from_numpy(npy(jcams)))
     return (jscene, jopts, jcams), port
 
@@ -184,7 +184,7 @@ def test_wavefront_routes_match_jnp(route, mode):
     kw = {"mode": mode, "jitter_scale": 10.0 if mode == "realtime" else 30.0, "env_kind": 2}
     jopts = default_options()
     want = npy(render_sample(jscene, jopts, jcam, W, H, impl="jnp", **kw))
-    tscene = scene_from_numpy(npy(jscene))
+    tscene = scene_from_numpy(npy(jscene), "cpu")
     got = tint.render_sample(tscene, options_from_numpy(npy(jopts)), camera_from_numpy(npy(jcam)),
                              W, H, impl="torch", **kw)
     for k in (AOVS if mode == "realtime" else ("color",)):
@@ -206,7 +206,7 @@ def test_build_tex_autoroute_matches_jax(case):
     jsc.environment, tsc.environment = tex_env(envmap, kind), tex_env(tenvmap, kind)
     if case == "cornell_rig":
         jsc.lights = TWO_OF_A_KIND
-        tsc.lights = scene_from_numpy(npy(jax_cornell("latlong", lights=TWO_OF_A_KIND)))["lights"]
+        tsc.lights = scene_from_numpy(npy(jax_cornell("latlong", lights=TWO_OF_A_KIND)), "cpu")["lights"]
     if case == "two_level":
         jd, td = jsc.build_two_level(), tsc.build_two_level("cpu")
     else:
@@ -221,7 +221,7 @@ def test_build_tex_autoroute_matches_jax(case):
     assert ("bvh" in td and "tex_autoroute" in td["bvh"]) == want_tag
     k = tenvmap.TEXTURE_KEY[td["env"]["kind"]]
     np.testing.assert_array_equal(td["env"][k].numpy(), np.asarray(jd["env"][k]), err_msg=k)
-    ported = scene_from_numpy(npy(jd))
+    ported = scene_from_numpy(npy(jd), "cpu")
     assert ported["env"]["kind"] == td["env"]["kind"]
     assert set(ported["env"]) == set(td["env"])
     for mode in ("progressive", "realtime"):

@@ -151,7 +151,7 @@ def test_single_instance_tlas_equals_jax():
 def both(kind):
     """(JAX two-level pytree, the port's conversion of it)."""
     jd = scenes(kind)[0].build_two_level()
-    return jd, scene_from_numpy(jax.tree.map(np.asarray, jd))
+    return jd, scene_from_numpy(jax.tree.map(np.asarray, jd), "cpu")
 
 
 def rays_for(kind, seed):

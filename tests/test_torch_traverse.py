@@ -62,7 +62,7 @@ def jax_scene(kind):
 
 
 def port(jscene):
-    return scene_from_numpy(jax.tree.map(np.asarray, jscene))
+    return scene_from_numpy(jax.tree.map(np.asarray, jscene), "cpu")
 
 
 def rays(tscene, seed=3):

@@ -55,7 +55,7 @@ def both_sides(kind, opts, realtime=False):
     jcam = camera_params(cam, jitter=(0.3 / SIZE, -0.2 / SIZE), frame_count=3)
     jopts = default_options(**opts)
     npy = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
-    port = (scene_from_numpy(npy(jd)), options_from_numpy(npy(jopts)), camera_from_numpy(npy(jcam)))
+    port = (scene_from_numpy(npy(jd), "cpu"), options_from_numpy(npy(jopts)), camera_from_numpy(npy(jcam)))
     return (jd, jopts, jcam), port
 
 
@@ -86,7 +86,7 @@ def test_realtime_frame_matches_jnp(kind):
 
 def test_route_and_converted_scene():
     jd, td = scenes("instanced:2")[0].build_two_level(), None
-    td = scene_from_numpy(jax.tree.map(np.asarray, jd))
+    td = scene_from_numpy(jax.tree.map(np.asarray, jd), "cpu")
     built = scenes("instanced:2")[1].build_two_level("cpu")
     assert set(td) == set(built) and set(td["tlas"]) == set(built["tlas"])
     for k in ("blasf_rows", "mt_rows", "slot_tri", "tlasf_rows", "inst_rows_t", "inst_orig"):
