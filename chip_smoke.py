@@ -210,6 +210,44 @@ Phases, each of which raises on failure:
  31. the CLI in process: --scene cornell-tex --size 512x512 --spp 16
      --device cuda, whose B5 launch count must rise.
 
+ 32. the flattened route without fat nodes at full width (run after phase
+     10a, on its state): phase 8's 'instanced:32' scene with bvhf_nodes and
+     bvhf_rows dropped from a shallow copy of its bvh, which both gates
+     send to the wavefront route; ProgressiveRaytracingPipeline for 4
+     dispatches of S = 4 (exactly 32 closest and 32 any launches of the
+     binary walk B4b, csrc/traverse_binary.cu, and no other kernel's); its
+     first sample against phase 8's B4a frame (same cameras and seeds) on
+     the image gate and against the plain version on phase 8's 4,096
+     sampled pixels; B4b and the 8-wide walk B4d (csrc/traverse8.cu,
+     direct calls: exactly 2 + 2 launches) on each of phase 8's four launch
+     inputs, against B4a on all rays and against the plain version on
+     4,096 sampled rays; each launch alone, B4a, B4b and B4d in turns, with
+     the host models' walk counts (ops/traverse.binary_walk_numpy,
+     wide_walk_numpy), the bound and the deepest stack; the host ms per
+     dispatch, enqueued and synchronised; realtime + denoise at 1080p, 2
+     frames (4 + 4 B4b and 4 bilateral launches), frame 0's direct and
+     specular AOVs against the plain version on 4,096 sampled pixels;
+ 33. B4b, B4d and the binary two-level walk B6b (csrc/traverse2_binary.cu)
+     vs their plain versions at 128^2 (run after phase 11): 'instanced:4'
+     without fat nodes on phase 7's primary rays, culled and not, and
+     shadow rays toward SHADOW_LIGHT (a third at zero direction, never
+     occluded, per-ray t_max); the two-level cases of phase 11 without fat
+     TLAS nodes, closest (culled and not; the instance slot where the
+     triangle is equal) and shadow rays the same way; B4b's and B4d's
+     times at phase 10b's shape;
+ 34. the two-level route without fat nodes at full width (run after phase
+     14): phase 12's scene with tlasf_nodes and tlasf_rows dropped, 4
+     dispatches of S = 4 (exactly 32 + 32 B6b launches and no other
+     kernel's), its first sample against phase 12's B6a frame on the image
+     gate, B6b on each of that frame's four launch inputs against B6a on
+     all rays and the plain versions on 4,096 sampled rays, 4 animated
+     frames (the refit keeps the TLAS without fat nodes: exactly 16 + 16
+     B6b launches) and B6b against B6a on 4,096 primary rays at the last
+     refit, each launch alone beside B6a in turns with the host model's
+     counts (ops/traverse2.binary_walk2_numpy) and the bound, the host ms
+     per dispatch, B6b at phase 14's shape, and realtime + denoise at
+     1080p, 2 frames (4 + 4 B6b and 4 bilateral launches).
+
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
 operations; NVIDIA's H100 SXM data sheet) and its bytes over 3.35 TB/s.
@@ -223,7 +261,10 @@ kernels' slab and pair tests by a host model of their per-ray walk
 (ops/traverse.fat_walk_numpy) over 4,096 sampled pixels of the main path
 (B5) or 4,096 sampled rays of each launch (B4a), scaled to the frame or
 the launch; B6a's slab and pair tests and instance transforms by the host
-model of the two-level walk (ops/traverse2.fat_walk2_numpy) the same way.
+model of the two-level walk (ops/traverse2.fat_walk2_numpy) the same way;
+B4b's, B4d's and B6b's by their host models on 4,096 sampled rays of each
+launch, the nodes touched counted at 32 bytes (binary) or 256 bytes (one
+8-wide node, eight 32-byte child rows).
 No single PyTorch call computes any of these functions, so library_ms is
 null.
 
@@ -300,6 +341,9 @@ PROBE_EPS, PROBE_ORIGIN, PROBE_TRIALS = 1e-4, 1e-6, 8
 C2_S, C2_DISPATCHES = 8, 8  # the config-2 stand-in: 8 dispatches of S = 8 at 512^2
 C2_RT_FRAMES = 2  # realtime + denoise frames on the config-2 stand-in
 C5_AREA_DISPATCHES, C5_AREA_RT_FRAMES = 2, 2  # instanced:32 with the area rig
+FAT_BVH = ("bvhf_nodes", "bvhf_rows")  # dropped: the route takes the binary walk (B4b)
+FAT_TLAS = ("tlasf_nodes", "tlasf_rows")  # dropped: the two-level route takes B6b
+BIN_RT_FRAMES = 2  # realtime + denoise frames on the routes without fat nodes
 AOVS = ("direct", "indirect_specular", "albedo", "color", "roughness")
 OPTION_CASES = [
     ("defaults", {}, "const"),
@@ -924,13 +968,8 @@ class WalkCount:
         self.nodes, self.slots = [], []
 
     def add(self, o, d, t_min, t_max, cull=False, occlusion=False):
-        import numpy as np
-
-        def host(x):
-            return x.detach().cpu().numpy() if hasattr(x, "detach") else np.float32(x)
-
-        _, c = self.tv.fat_walk_numpy(self.bvh, host(o), host(d), host(t_min), host(t_max),
-                                      cull=cull, occlusion=occlusion)
+        _, c = self.tv.fat_walk_numpy(self.bvh, host_array(o), host_array(d), host_array(t_min),
+                                      host_array(t_max), cull=cull, occlusion=occlusion)
         self.c["rays"] += len(o)
         for k in ("visits", "slab_tests", "pair_tests"):
             self.c[k] += c[k]
@@ -959,28 +998,58 @@ def walk_work(wc, scale, bvh, io_bytes_per_ray, attr_lanes=0):
     return ops, nbytes
 
 
-def walk2_work(tv2, tl_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_per_ray):
-    """(operations, bytes, counts) of B6a's walks of rays o, d (a sample of
-    a launch), counted by the host model (ops/traverse2.fat_walk2_numpy) and
-    scaled by `scale` (launch rays / sampled rays): slab, pair and
-    instance-transform operations; the distinct TLAS nodes, instance rows,
-    BLAS nodes (64 bytes each) and slots (19 coefficients) touched, scaled
-    but at most the whole arrays, plus each ray's own input and output."""
+def host_array(x):
+    """A tensor as a host numpy array, a scalar window as a float32."""
     import numpy as np
 
-    def host(x):
-        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.float32(x)
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.float32(x)
 
-    _, c = tv2.fat_walk2_numpy(tl_np, host(o), host(d), host(t_min), host(t_max), cull=cull,
-                               occlusion=occlusion)
+
+NODE_BYTES = {"fat": 64, "binary": 32, "wide": 256}  # one node of each walk's tree
+
+
+def walk1_work(tv, kind, bvh_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_per_ray):
+    """(operations, bytes, counts) of the walks of rays o, d (a sample of a
+    launch) by B4a, B4b or B4d (kind "fat", "binary", "wide"), counted by
+    their host model (ops/traverse.fat_walk_numpy, binary_walk_numpy,
+    wide_walk_numpy) and scaled by `scale` (launch rays / sampled rays):
+    slab and pair operations; the distinct nodes (NODE_BYTES each) and slots
+    (19 coefficients) touched, scaled but at most the whole arrays, plus
+    each ray's own input and output."""
+    model = {"fat": tv.fat_walk_numpy, "binary": tv.binary_walk_numpy,
+             "wide": tv.wide_walk_numpy}[kind]
+    _, c = model(bvh_np, host_array(o), host_array(d), host_array(t_min), host_array(t_max),
+                 cull=cull, occlusion=occlusion)
+    rows = bvh_np[tv.WALKS[kind][2]]
+    n_nodes = min(len(c["node_ids"]) * scale, len(rows) // 8 if kind == "wide" else len(rows))
+    n_slots = min(len(c["slot_ids"]) * scale, int((bvh_np["slot_tri"] >= 0).sum()))
+    ops = (c["slab_tests"] * OPS_SLAB + c["pair_tests"] * OPS_PAIR) * scale
+    nbytes = n_nodes * NODE_BYTES[kind] + n_slots * 19 * 4 + len(o) * scale * io_bytes_per_ray
+    return ops, nbytes, c
+
+
+def walk2_work(tv2, tl_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_per_ray,
+               kind="fat"):
+    """(operations, bytes, counts) of B6a's (kind "fat") or B6b's ("binary")
+    walks of rays o, d (a sample of a launch), counted by the host model
+    (ops/traverse2.fat_walk2_numpy, binary_walk2_numpy) and scaled by
+    `scale` (launch rays / sampled rays): slab, pair and instance-transform
+    operations; the distinct TLAS nodes and BLAS nodes (NODE_BYTES each),
+    instance rows (64 bytes) and slots (19 coefficients) touched, scaled but
+    at most the whole arrays, plus each ray's own input and output."""
+    model = tv2.fat_walk2_numpy if kind == "fat" else tv2.binary_walk2_numpy
+    tname, _, bname = list(tv2.WALKS[kind][2])[:3]
+    _, c = model(tl_np, host_array(o), host_array(d), host_array(t_min), host_array(t_max),
+                 cull=cull, occlusion=occlusion)
     ops = (c["slab_tests"] * OPS_SLAB + c["pair_tests"] * OPS_PAIR
            + c["instance_entries"] * OPS_INST) * scale
-    caps = {"tlas_node_ids": len(tl_np["tlasf_rows"]), "inst_ids": len(tl_np["inst_rows_t"]),
-            "blas_node_ids": len(tl_np["blasf_rows"]),
+    caps = {"tlas_node_ids": len(tl_np[tname]), "inst_ids": len(tl_np["inst_rows_t"]),
+            "blas_node_ids": len(tl_np[bname]),
             "slot_ids": int((tl_np["slot_tri"] >= 0).sum())}
     touched = {k: min(len(c[k]) * scale, cap) for k, cap in caps.items()}
-    nbytes = ((touched["tlas_node_ids"] + touched["inst_ids"] + touched["blas_node_ids"]) * 64
-              + touched["slot_ids"] * 19 * 4 + len(o) * scale * io_bytes_per_ray)
+    nbytes = ((touched["tlas_node_ids"] + touched["blas_node_ids"]) * NODE_BYTES[kind]
+              + touched["inst_ids"] * 64 + touched["slot_ids"] * 19 * 4
+              + len(o) * scale * io_bytes_per_ray)
     return ops, nbytes, c
 
 
@@ -1063,6 +1132,27 @@ def main() -> int:
         fs.LAUNCHES = fs.REALTIME_LAUNCHES = bl.LAUNCHES = 0
         tv.CLOSEST_LAUNCHES = tv.ANY_LAUNCHES = ft.LAUNCHES = ft.REALTIME_LAUNCHES = 0
         tv2.CLOSEST_LAUNCHES = tv2.ANY_LAUNCHES = ik.CLOSEST_LAUNCHES = ik.ANY_LAUNCHES = 0
+        tv.BINARY_CLOSEST_LAUNCHES = tv.BINARY_ANY_LAUNCHES = 0
+        tv.WIDE_CLOSEST_LAUNCHES = tv.WIDE_ANY_LAUNCHES = 0
+        tv2.BINARY_CLOSEST_LAUNCHES = tv2.BINARY_ANY_LAUNCHES = 0
+
+    def expect_counts(label, want):
+        """Every kernel's launches since the last reset_counts: `want` (name
+        -> count) for the kernels it names, 0 for every other. Raises."""
+        got = {"B1": fs.LAUNCHES, "B1 realtime": fs.REALTIME_LAUNCHES, "B2": bl.LAUNCHES,
+               "B3 closest": ik.CLOSEST_LAUNCHES, "B3 any": ik.ANY_LAUNCHES,
+               "B4a closest": tv.CLOSEST_LAUNCHES, "B4a any": tv.ANY_LAUNCHES,
+               "B4b closest": tv.BINARY_CLOSEST_LAUNCHES, "B4b any": tv.BINARY_ANY_LAUNCHES,
+               "B4d closest": tv.WIDE_CLOSEST_LAUNCHES, "B4d any": tv.WIDE_ANY_LAUNCHES,
+               "B5": ft.LAUNCHES, "B5 realtime": ft.REALTIME_LAUNCHES,
+               "B6a closest": tv2.CLOSEST_LAUNCHES, "B6a any": tv2.ANY_LAUNCHES,
+               "B6b closest": tv2.BINARY_CLOSEST_LAUNCHES, "B6b any": tv2.BINARY_ANY_LAUNCHES}
+        off = {k: v for k, v in got.items() if v != want.get(k, 0)}
+        print(f"launches {label}: {', '.join(f'{k} {v}' for k, v in got.items() if v)}; "
+              f"expected {want}, every other 0 -> {'FAIL' if off else 'ok'}", flush=True)
+        if off:
+            raise RuntimeError(f"unexpected launch counts for {label}: {off}")
+        return got
 
     # tests/test_fused_traverse.py's area rig for the Cornell box, and an area
     # light over the middle of the instanced grids
@@ -1082,15 +1172,17 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source and g++ for the SAH builder, together -----
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=7) as pool:
-        futs = [pool.submit(f) for f in (fs._library, bl._library, tv._library, ft._library,
-                                         tv2._library, ik._library, native.get_lib)]
+    builds = (fs._library, bl._library, tv._library, lambda: tv._library("binary"),
+              lambda: tv._library("wide"), ft._library, tv2._library,
+              lambda: tv2._library("binary"), ik._library, native.get_lib)
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        futs = [pool.submit(f) for f in builds]
         sah_lib = [f.result() for f in futs][-1]
     load_s = time.perf_counter() - t0
     print(f"build csrc/sah_bvh.cpp with g++: "
           f"{'built' if sah_lib is not None else 'no g++: the Morton build serves'}", flush=True)
-    for name in ("fused_sample", "bilateral", "traverse_fat", "fused_traverse", "traverse2_fat",
-                 "intersect_brute"):
+    for name in ("fused_sample", "bilateral", "traverse_fat", "traverse_binary", "traverse8",
+                 "fused_traverse", "traverse2_fat", "traverse2_binary", "intersect_brute"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build {name}.cu: nvcc {info['seconds']:.2f}s (all builds together "
               f"{load_s:.2f}s) -> {os.path.relpath(info['path'], ROOT)}", flush=True)
@@ -1445,18 +1537,32 @@ def main() -> int:
     pipe = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
     pipe.max_iterations = BVH_S * BVH_DISPATCHES
     pipe.set_camera(cam32)
-    t0 = time.perf_counter()
-    pipe.set_scene(sc32)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+    collapse_s = []  # pack_for_traversal's 8-wide collapse, a Python loop, timed alone
+    real_collapse = tv.collapse_wide
+
+    def timed_collapse(*args, **kwargs):
+        t1 = time.perf_counter()
+        out = real_collapse(*args, **kwargs)
+        collapse_s.append(time.perf_counter() - t1)
+        return out
+
+    tv.collapse_wide = timed_collapse
+    try:
+        t0 = time.perf_counter()
+        pipe.set_scene(sc32)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    finally:
+        tv.collapse_wide = real_collapse
     scene32 = pipe.scene_data
     bvh32 = scene32["bvh"]
     print(f"build {BVH_MAIN_SCENE}: {scene32['num_tris']} triangles, {build_s:.2f}s host clock "
           f"(flatten, {bvh32['builder'].upper()} BVH build, packs, upload), builder "
           f"{bvh32['builder']}; mt_rows {tuple(bvh32['mt_rows'].shape)} "
           f"({bvh32['mt_rows'].numel() * 4 / 2**20:.0f} MiB), bvhf_nodes "
-          f"{tuple(bvh32['bvhf_nodes'].shape)}, bvh_nodes {tuple(bvh32['bvh_nodes'].shape)}",
-          flush=True)
+          f"{tuple(bvh32['bvhf_nodes'].shape)}, bvh_nodes {tuple(bvh32['bvh_nodes'].shape)}, "
+          f"bvh8_nodes {tuple(bvh32['bvh8_nodes'].shape)}; collapse_wide (the 8-wide collapse, "
+          f"a Python loop) {sum(collapse_s):.3f}s of the build", flush=True)
     first32 = None
     torch.cuda.synchronize()
     reset_counts()
@@ -1596,7 +1702,213 @@ def main() -> int:
           f"({M * M / b5_ms / 1e3:.2f} primary Mrays/s), wrapper {b5_wrap_ms:.3f} ms; pipeline "
           f"{host_prog_ms:.3f} ms per {BVH_S}-sample dispatch on the host clock, synchronised, "
           f"first dispatches included [{card}]", flush=True)
-    del pipe, traces, pos32, sd32, tmax32, o32, d32, wave, bvh_np  # phase 23 reuses scene32
+    # ---- 32. the flattened route without fat nodes: instanced:32, 512^2 ----------
+    # phase 8's scene with bvhf_nodes and bvhf_rows dropped from a shallow copy
+    # of its bvh: both gates send it to the wavefront route, whose traces take
+    # the binary walk (B4b); B4b and B4d on phase 8's four launch inputs
+    bin32 = dict(scene32, bvh={k: v for k, v in bvh32.items() if k not in FAT_BVH})
+    for mode in ("progressive", "realtime"):
+        if select_route(bin32, mode) != "wavefront":
+            raise RuntimeError(f"a BVH without fat nodes must take the wavefront route ({mode})")
+    pipe_b = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
+    pipe_b.max_iterations = BVH_S * BVH_DISPATCHES
+    pipe_b.set_camera(cam32)
+    pipe_b.set_scene_data(bin32)
+    first_b = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BVH_DISPATCHES):
+        pipe_b.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first_b is None:
+            first_b = pipe_b._camera_params
+        pipe_b.render()
+    torch.cuda.synchronize()
+    bin_prog_s = time.perf_counter() - t0
+    want_n = BVH_DISPATCHES * BVH_S * 2
+    b4b_counts = expect_counts(f"B4b main path ({BVH_DISPATCHES} dispatches x {BVH_S} samples, "
+                               f"{BVH_MAIN_SCENE} without fat nodes)",
+                               {"B4b closest": want_n, "B4b any": want_n})
+    b4b_counts = {False: b4b_counts["B4b closest"], True: b4b_counts["B4b any"]}
+    img = pipe_b.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    print(f"B4b main path: {BVH_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
+          f"{BVH_MAIN_SCENE} without fat nodes ({pipe_b.accum_count} spp) in {bin_prog_s:.3f}s "
+          f"host clock, image finite {finite}, mean {mean:.5f}", flush=True)
+    if not finite or not mean > 0.0:
+        raise RuntimeError("B4b main path image is not finite with a positive mean")
+    if any(not torch.equal(first_b[k], first32[k]) for k in ("eye", "jitter", "frame_count")):
+        raise RuntimeError("the B4b pipeline's first cameras differ from phase 8's")
+
+    # its first sample against phase 8's B4a wavefront frame (same camera and
+    # seeds) and against the plain version on phase 8's sampled pixels
+    wave_b = render_sample(bin32, pipe_b.options, cam1, M, M, impl="cuda")["color"]
+    torch.cuda.synchronize()
+    tv.check_errors()
+    b4b_wave_gate = image_gate(f"the B4b route vs phase 8's B4a route {BVH_MAIN_SCENE} {M}^2 1 "
+                               f"sample", wave_b, wave, 1)
+    b4b_plain_gate = image_gate(f"the B4b route vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled "
+                                f"pixels of {M}^2, 1 sample", wave_b.reshape(-1, 3)[pick][None],
+                                plain_pick, 1)
+
+    # B4b and B4d on each of phase 8's four launch inputs: against B4a on all
+    # rays, against the plain version on COUNT_PIXELS sampled rays
+    walks = {"binary": ("B4b", tv.traverse_closest, tv.traverse_any),
+             "wide": ("B4d", tv.traverse8_closest, tv.traverse8_any)}
+    walk_err = {(w, occl): 0.0 for w in walks for occl in (False, True)}
+    reset_counts()
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces):
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        args, sub_args = (o, d, t_min, t_max), (o[sub], d[sub], t_min, rows_of(t_max, sub))
+        if occlusion:
+            fat = tv.traverse_fat_any(scene32, *args)
+            plain = tv.traverse_fat_any_reference(scene32, *sub_args)
+        else:
+            fat = tv.traverse_fat_closest(scene32, *args, cull_backface=cull)
+            plain = tv.traverse_fat_closest_reference(scene32, *sub_args, cull_backface=cull)
+        for walk, (label, closest_fn, any_fn) in walks.items():
+            name = f"{label} {batch} {BVH_MAIN_SCENE}"
+            if occlusion:
+                got = any_fn(bin32, *args)
+                torch.cuda.synchronize()
+                occlusion_gate(f"{name} vs B4a, all {len(o)} rays", got, fat)
+                err = occlusion_gate(f"{name} vs plain, {COUNT_PIXELS} sampled rays", got[sub],
+                                     plain)
+            else:
+                got = closest_fn(bin32, *args, cull_backface=cull)
+                torch.cuda.synchronize()
+                hit_gate(f"{name} vs B4a, all {len(o)} rays", got, fat, torch)
+                err = hit_gate(f"{name} vs plain, {COUNT_PIXELS} sampled rays",
+                               {k: v[sub] for k, v in got.items()}, plain, torch)["max_abs_t"]
+            walk_err[walk, occlusion] = max(walk_err[walk, occlusion], err)
+    tv.check_errors()
+    b4d_counts = expect_counts(f"B4b and B4d on phase 8's {len(traces)} launch inputs (B4a beside "
+                               f"them)", {"B4a closest": 2, "B4a any": 2, "B4b closest": 2,
+                                          "B4b any": 2, "B4d closest": 2, "B4d any": 2})
+    b4d_counts = {False: b4d_counts["B4d closest"], True: b4d_counts["B4d any"]}
+
+    # times: each launch alone on its own inputs, B4a, B4b and B4d in turns,
+    # with each walk's bound from its host model's counts on sampled rays
+    bin_np = {k: bvh32[k].cpu().numpy() for k in ("bvhf_rows", "bvh_rows", "bvh8_rows",
+                                                  "mt_rows", "slot_tri")}
+    wtime = {(w, occl): {"ms": 0.0, "fat_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []}
+             for w in walks for occl in (False, True)}
+    deepest = {"fat": 0, "binary": 0, "wide": 0}
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces):
+        ms = {}
+        for walk in ("fat", "binary", "wide", "wide", "binary", "fat"):
+            scene_w = scene32 if walk == "fat" else bin32
+            ms.setdefault(walk, []).append(kernel_ms(
+                tv.prepare_launch(scene_w, o, d, t_min, t_max, cull, occlusion, walk), 10, torch))
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        # COUNT_PIXELS / 32 sampled warps (32 consecutive rays each, as the
+        # kernel's threads take them): how far each warp's slowest lane sets
+        # its steps (SIMT lanes wait for it)
+        warps = rng.choice(len(o) // 32, COUNT_PIXELS // 32, replace=False)
+        blk = torch.as_tensor((warps[:, None] * 32 + np.arange(32)).reshape(-1), device=dev)
+        line = []
+        for walk in ("fat", "binary", "wide"):
+            ops, nbytes, c = walk1_work(tv, walk, bin_np, o[sub], d[sub], t_min,
+                                        rows_of(t_max, sub), cull, occlusion,
+                                        len(o) / COUNT_PIXELS, 32 + (1 if occlusion else 16))
+            cw = walk1_work(tv, walk, bin_np, o[blk], d[blk], t_min, rows_of(t_max, blk), cull,
+                            occlusion, 1.0, 0)[2]
+            warp = {k: (float(cw[k].mean()), float(cw[k].reshape(-1, 32).max(1).mean()))
+                    for k in ("ray_visits", "ray_leaves")}
+            deepest[walk] = max(deepest[walk], c["max_stack"])
+            k_ms = sum(ms[walk]) / 2
+            bnd = bound(ops, nbytes)
+            line.append(f"{walk} {k_ms:.4f} ms ({', '.join(f'{x:.4f}' for x in ms[walk])}; bound "
+                        f"{bnd[0]:.4f} {bnd[1]}; {c['visits'] / COUNT_PIXELS:.2f} visits, "
+                        f"{c['pair_tests'] / COUNT_PIXELS:.2f} pair tests per ray; sampled "
+                        f"warps: visits per ray {warp['ray_visits'][0]:.2f}, per warp's slowest "
+                        f"lane {warp['ray_visits'][1]:.2f}; leaf tests {warp['ray_leaves'][0]:.2f},"
+                        f" {warp['ray_leaves'][1]:.2f})")
+            if walk == "fat":
+                continue
+            acc = wtime[walk, occlusion]
+            acc["ms"] += k_ms
+            acc["fat_ms"] += sum(ms["fat"]) / 2
+            acc["ops"] += ops
+            acc["bytes"] += nbytes
+            acc["per_launch"].append({"batch": batch, "rays": len(o), "ms": k_ms,
+                                      "fat_ms": sum(ms["fat"]) / 2, "bound_ms": bnd[0],
+                                      "bound_by": bnd[1],
+                                      "visits_per_ray": c["visits"] / COUNT_PIXELS,
+                                      "pair_tests_per_ray": c["pair_tests"] / COUNT_PIXELS,
+                                      "warp_max_visits": warp["ray_visits"][1],
+                                      "warp_max_leaf_tests": warp["ray_leaves"][1]})
+        print(f"time {batch} on {BVH_MAIN_SCENE} {M}^2 ({len(o)} rays), each kernel alone, in "
+              f"turns fat, binary, wide, wide, binary, fat: {'; '.join(line)} [{card}]",
+              flush=True)
+    wbound = {key: bound(acc["ops"], acc["bytes"]) for key, acc in wtime.items()}
+    print(f"deepest stack on {COUNT_PIXELS} sampled rays of each launch (host models): fat "
+          f"{deepest['fat']}, binary {deepest['binary']}, 8-wide {deepest['wide']} of "
+          f"{tv.MAX_STACK}", flush=True)
+
+    # the host's share of the B4b route: dispatches enqueued and synchronised
+    n_disp_b = 5
+    pipe_b.max_iterations = 2**30  # every timed dispatch renders
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(n_disp_b):
+        pipe_b.update(elapsed_time=0.0, elapsed_frames=100 + f)
+        pipe_b.render()
+    bin_enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    bin_dispatch_s = time.perf_counter() - t0
+    pipe_b.get_output()
+    print(f"time B4b route host ({n_disp_b} dispatches of {BVH_S} samples, host clock): "
+          f"{bin_enqueue_s / n_disp_b * 1e3:.3f} ms enqueued, {bin_dispatch_s / n_disp_b * 1e3:.3f}"
+          f" ms synchronised at the end, per dispatch; the main path's "
+          f"{bin_prog_s / BVH_DISPATCHES * 1e3:.3f} ms with the first [{card}]", flush=True)
+    del pipe_b
+
+    # realtime + denoise at 1080p on the same scene: the wavefront route, B4b
+    cam32.set_aspect(RT_W, RT_H)
+    rt_b = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
+    rt_b.set_camera(cam32)
+    rt_b.set_scene_data(bin32)
+    denoiser_b = DenoiseCompositor(device=dev)
+    frame0 = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BIN_RT_FRAMES):
+        rt_b.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        direct, spec = rt_b.render()
+        display = denoiser_b.dispatch(direct, spec)
+        if frame0 is None:
+            frame0 = (rt_b._camera_params, direct, spec)
+    torch.cuda.synchronize()
+    bin_rt_s = time.perf_counter() - t0
+    n = 2 * BIN_RT_FRAMES
+    expect_counts(f"B4b realtime + denoise ({BIN_RT_FRAMES} frames at {RT_W}x{RT_H})",
+                  {"B4b closest": n, "B4b any": n, "B2": n})
+    finite = all(bool(x.isfinite().all()) for x in (direct, spec, display))
+    print(f"B4b realtime + denoise: {BIN_RT_FRAMES} frames at {RT_W}x{RT_H} in {bin_rt_s:.3f}s "
+          f"host clock, AOVs and display finite {finite}, display mean {float(display.mean()):.5f} "
+          f"[{card}]", flush=True)
+    if not finite or not float(display.mean()) > 0.0:
+        raise RuntimeError("the B4b realtime + denoise frames failed")
+    cam_r, direct0, spec0 = frame0
+    o_r, d_r = (x.reshape(-1, 3).to(dev) for x in
+                primary_ray_grid(cam_r, RT_W, RT_H, fs.REALTIME_JITTER_SCALE))
+    pick_r = torch.as_tensor(rng.choice(RT_W * RT_H, COUNT_PIXELS, replace=False), device=dev)
+    seeds_r = trng.pixel_seeds(RT_W, RT_H, cam_r["frame_count"], device=dev).reshape(-1)
+    plain_r = trace_rays(bin32, rt_b.options, o_r[pick_r], d_r[pick_r], seeds_r[pick_r],
+                         mode="realtime", impl="torch")
+    torch.cuda.synchronize()
+    b4b_rt_err = max(
+        image_gate(f"B4b realtime frame 0 vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels "
+                   f"of {RT_W}x{RT_H} {k}", g.reshape(-1, 3)[pick_r][None],
+                   plain_r[k].reshape(COUNT_PIXELS, -1)[None], 1)["max_abs_diff"]
+        for k, g in (("direct", direct0), ("indirect_specular", spec0)))
+    rt_b.get_output()
+    del rt_b, denoiser_b, direct, spec, display, frame0, direct0, spec0, plain_r, o_r, d_r, bin_np
+    cam32.set_aspect(M, M)
+
+    del pipe, traces, pos32, sd32, tmax32, o32, d32, wave, bvh_np, bin32, wave_b  # phase 23 reuses scene32
     torch.cuda.empty_cache()
 
     # ---- 9. realtime + denoise on instanced:32 at 1080p --------------------------
@@ -1802,6 +2114,68 @@ def main() -> int:
             raise RuntimeError("B6a occluded a zero-direction shadow ray")
     tv.check_errors()
     del scene_t
+
+    # ---- 33. B4b, B4d and B6b vs plain at 128^2 -----------------------------------
+    # instanced:4 flattened (phase 7's primary rays, culled and not) and the
+    # two-level cases of phase 11, every pack without its fat nodes; shadow
+    # rays toward SHADOW_LIGHT, a third at zero direction, per-ray t_max
+    flat4 = dict(scene4, bvh={k: v for k, v in scene4["bvh"].items() if k not in FAT_BVH})
+    bin_parity = {(w, occl): 0.0 for w in ("binary", "wide", "two_level") for occl in (False, True)}
+    for cull in (True, False):
+        want = tv.traverse_fat_closest_reference(scene4, o4, d4, 0.0, RAY_MAX_T, cull_backface=cull)
+        pos_p, sd_p, tmax_p = shadow_rays(o4, d4, want)
+        sd_p[::3] = 0.0  # zero directions: never occluded
+        occ_want = tv.traverse_fat_any_reference(scene4, pos_p, sd_p, RAY_EPSILON, tmax_p)
+        for walk, label, closest_fn, any_fn in (
+                ("binary", "B4b", tv.traverse_closest, tv.traverse_any),
+                ("wide", "B4d", tv.traverse8_closest, tv.traverse8_any)):
+            got = closest_fn(flat4, o4, d4, 0.0, RAY_MAX_T, cull_backface=cull)
+            occ = any_fn(flat4, pos_p, sd_p, RAY_EPSILON, tmax_p)
+            torch.cuda.synchronize()
+            name = f"{label} {BVH_PARITY_SCENE} {P}^2 {'culled ' if cull else ''}primary rays"
+            g = hit_gate(f"{name} closest", got, want, torch)
+            bin_parity[walk, False] = max(bin_parity[walk, False], g["max_abs_t"])
+            bin_parity[walk, True] = max(bin_parity[walk, True], occlusion_gate(
+                f"{label} any {BVH_PARITY_SCENE} {P}^2 shadow rays", occ, occ_want))
+            if bool(occ[::3].any()):
+                raise RuntimeError(f"{label} occluded a zero-direction shadow ray")
+    for case in (*TWO_LEVEL_PARITY, "single"):
+        scene_t, o_t, d_t = two_level_case(case)
+        scene_t = dict(scene_t, tlas={k: v for k, v in scene_t["tlas"].items()
+                                      if k not in FAT_TLAS})
+        for cull in (False, True):
+            got = tv2.traverse2_closest(scene_t, o_t, d_t, 1e-4, 3.0e37, cull_backface=cull)
+            want = tv2.two_level_closest_reference(scene_t, o_t, d_t, 1e-4, 3.0e37,
+                                                   cull_backface=cull)
+            torch.cuda.synchronize()
+            name = f"B6b closest {case} two-level {P * P} probe rays{' culled' if cull else ''}"
+            g = hit_gate(name, got, want, torch)
+            inst_gate(name, got, want)
+            bin_parity["two_level", False] = max(bin_parity["two_level", False], g["max_abs_t"])
+        pos_t, sd_t, tmax_t = shadow_rays(o_t, d_t, want)
+        sd_t[::3] = 0.0  # zero directions: never occluded
+        occ = tv2.traverse2_any(scene_t, pos_t, sd_t, RAY_EPSILON, tmax_t)
+        occ_want = tv2.two_level_any_reference(scene_t, pos_t, sd_t, RAY_EPSILON, tmax_t)
+        torch.cuda.synchronize()
+        bin_parity["two_level", True] = max(bin_parity["two_level", True], occlusion_gate(
+            f"B6b any {case} two-level {P * P} shadow rays", occ, occ_want))
+        if bool(occ[::3].any()):
+            raise RuntimeError("B6b occluded a zero-direction shadow ray")
+    tv.check_errors()
+
+    # the kernels at the plain version's shape (phase 10b's instanced:4 rays);
+    # the plain versions are B4a's there (phase 10b), the same function
+    small_bin = {}
+    for walk, label in (("binary", "B4b"), ("wide", "B4d")):
+        for occl, args in ((False, (o4, d4, 0.0, RAY_MAX_T, True)),
+                           (True, (pos4, sd4, RAY_EPSILON, tmax4, False))):
+            small_bin[walk, occl] = kernel_ms(tv.prepare_launch(flat4, *args, occl, walk), 10,
+                                              torch)
+            print(f"time {label} {'any' if occl else 'closest'} at {BVH_PARITY_SCENE} {P}^2: kernel "
+                  f"{small_bin[walk, occl]:.4f} ms, B4a {small_ms['b4a_a' if occl else 'b4a_c'][0]:.4f}"
+                  f" ms, plain {small_ms['b4a_a' if occl else 'b4a_c'][1]:.3f} ms per trace "
+                  f"[{card}]", flush=True)
+    del scene_t, flat4
 
     # ---- 12. the two-level main path: instanced:32 two-level at 512^2 ------------
     cam32.set_aspect(M, M)
@@ -2042,6 +2416,201 @@ def main() -> int:
         print(f"time B6a {'any' if occl else 'closest'} at {BVH_PARITY_SCENE} two-level {P}^2: "
               f"kernel {small2[occl][0]:.4f} ms, plain {small2[occl][1]:.3f} ms per trace "
               f"[{card}]", flush=True)
+
+    # ---- 34. the two-level route without fat nodes: instanced:32, 512^2 ----------
+    # phase 12's two-level scene with tlasf_nodes and tlasf_rows dropped: the
+    # wavefront route's traces take the binary two-level walk (B6b)
+    bin2 = dict(scene2, tlas={k: v for k, v in tl2.items() if k not in FAT_TLAS})
+    cam32.set_aspect(M, M)
+    pipe_c = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
+    pipe_c.max_iterations = BVH_S * BVH_DISPATCHES
+    pipe_c.set_camera(cam32)
+    pipe_c.set_scene_data(bin2)
+    first_c = None
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BVH_DISPATCHES):
+        pipe_c.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        if first_c is None:
+            first_c = pipe_c._camera_params
+        pipe_c.render()
+    torch.cuda.synchronize()
+    bin2_prog_s = time.perf_counter() - t0
+    want_n = BVH_DISPATCHES * BVH_S * 2
+    b6b_counts = expect_counts(f"B6b main path ({BVH_DISPATCHES} dispatches x {BVH_S} samples, "
+                               f"{BVH_MAIN_SCENE} two-level without fat nodes)",
+                               {"B6b closest": want_n, "B6b any": want_n})
+    b6b_counts = {False: b6b_counts["B6b closest"], True: b6b_counts["B6b any"]}
+    img = pipe_c.get_output()
+    finite, mean = bool(img.isfinite().all()), float(img.mean())
+    print(f"B6b main path: {BVH_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
+          f"{BVH_MAIN_SCENE} two-level without fat nodes ({pipe_c.accum_count} spp) in "
+          f"{bin2_prog_s:.3f}s host clock, image finite {finite}, mean {mean:.5f}", flush=True)
+    if not finite or not mean > 0.0:
+        raise RuntimeError("B6b main path image is not finite with a positive mean")
+    if any(not torch.equal(first_c[k], first32[k]) for k in ("eye", "jitter", "frame_count")):
+        raise RuntimeError("the B6b pipeline's first cameras differ from phase 8's")
+
+    # its first sample against phase 12's B6a frame (same camera and seeds)
+    wave_c = render_sample(bin2, pipe_c.options, cam1, M, M, impl="cuda")["color"]
+    torch.cuda.synchronize()
+    tv.check_errors()
+    b6b_wave_gate = image_gate(f"the B6b route vs phase 12's B6a route {BVH_MAIN_SCENE} "
+                               f"two-level {M}^2 1 sample", wave_c, wave2, 1)
+
+    # B6b on each of phase 12's four launch inputs: against B6a on all rays,
+    # against the plain versions on COUNT_PIXELS sampled rays
+    b6b_err = {False: 0.0, True: 0.0}
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces2):
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        args, sub_args = (o, d, t_min, t_max), (o[sub], d[sub], t_min, rows_of(t_max, sub))
+        name = f"B6b {batch} {BVH_MAIN_SCENE} two-level"
+        if occlusion:
+            got, fat = tv2.traverse2_any(bin2, *args), tv2.traverse2_fat_any(scene2, *args)
+            plain = tv2.two_level_any_reference(scene2, *sub_args)
+            torch.cuda.synchronize()
+            occlusion_gate(f"{name} vs B6a, all {len(o)} rays", got, fat)
+            b6b_err[True] = max(b6b_err[True], occlusion_gate(
+                f"{name} vs plain, {COUNT_PIXELS} sampled rays", got[sub], plain))
+        else:
+            got = tv2.traverse2_closest(bin2, *args, cull_backface=cull)
+            fat = tv2.traverse2_fat_closest(scene2, *args, cull_backface=cull)
+            plain = tv2.two_level_closest_reference(scene2, *sub_args, cull_backface=cull)
+            torch.cuda.synchronize()
+            hit_gate(f"{name} vs B6a, all {len(o)} rays", got, fat, torch)
+            inst_gate(f"{name} vs B6a", got, fat)
+            got_sub = {k: v[sub] for k, v in got.items()}
+            b6b_err[False] = max(b6b_err[False], hit_gate(
+                f"{name} vs plain, {COUNT_PIXELS} sampled rays", got_sub, plain,
+                torch)["max_abs_t"])
+            inst_gate(f"{name} vs plain", got_sub, plain)
+    tv.check_errors()
+
+    # animated frames (the CLI's yaw): the refit keeps the TLAS without fat
+    # nodes; then B6b against B6a on sampled primary rays at the last refit
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(TWO_LEVEL_FRAMES):
+        moved = np.einsum("ij,njk->nik", yaw_matrix(0.05 * f), base_tf)
+        pipe_c.set_instance_transforms(moved)
+        pipe_c.update(elapsed_time=f / 60.0, elapsed_frames=BVH_DISPATCHES + f)
+        pipe_c.render()
+    torch.cuda.synchronize()
+    anim_c_s = time.perf_counter() - t0
+    n = TWO_LEVEL_FRAMES * BVH_S * 2
+    expect_counts(f"B6b animated ({TWO_LEVEL_FRAMES} refits + {BVH_S} samples each)",
+                  {"B6b closest": n, "B6b any": n})
+    img = pipe_c.get_output()
+    if (FAT_TLAS[0] in pipe_c.scene_data["tlas"] or pipe_c.accum_count != BVH_S
+            or not bool(img.isfinite().all())):
+        raise RuntimeError("the animated B6b frames did not refit, restart and render as expected")
+    cam_c = {k: v[0] for k, v in pipe_c._camera_params.items()}
+    o_c, d_c = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam_c, M, M, fs.JITTER_SCALE))
+    pick_c = torch.as_tensor(rng.choice(M * M, COUNT_PIXELS, replace=False), device=dev)
+    fat_moved = refit_scene_instances(scene2, moved)
+    got = tv2.traverse2_closest(pipe_c.scene_data, o_c[pick_c], d_c[pick_c], 0.0, RAY_MAX_T,
+                                cull_backface=True)
+    want = tv2.traverse2_fat_closest(fat_moved, o_c[pick_c], d_c[pick_c], 0.0, RAY_MAX_T,
+                                     cull_backface=True)
+    torch.cuda.synchronize()
+    tv.check_errors()
+    b6b_anim_gate = hit_gate(f"B6b after {TWO_LEVEL_FRAMES} animated frames vs B6a at the same "
+                             f"refit, {COUNT_PIXELS} sampled primary rays", got, want, torch)
+    inst_gate("B6b after the animated frames vs B6a", got, want)
+    print(f"B6b animated: {TWO_LEVEL_FRAMES} frames (refit + {BVH_S} samples each) in "
+          f"{anim_c_s:.3f}s host clock", flush=True)
+
+    # times: each launch of phase 12's frame alone, B6a and B6b in turns, with
+    # B6b's bound from its host model's counts on sampled rays
+    tlb_np = {k: tl2[k].cpu().numpy() for k in ("tlas_rows", "inst_rows_t", "blas_rows",
+                                                 "mt_rows", "slot_tri")}
+    b6b = {False: {"ms": 0.0, "fat_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []},
+           True: {"ms": 0.0, "fat_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []}}
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces2):
+        ms = {}
+        for walk in ("fat", "binary", "binary", "fat"):
+            ms.setdefault(walk, []).append(kernel_ms(tv2.prepare_launch(
+                tl2, o, d, t_min, t_max, cull, occlusion, walk), 10, torch))
+        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        ops, nbytes, c = walk2_work(tv2, tlb_np, o[sub], d[sub], t_min, rows_of(t_max, sub),
+                                    cull, occlusion, len(o) / COUNT_PIXELS,
+                                    32 + (1 if occlusion else 20), kind="binary")
+        bnd = bound(ops, nbytes)
+        k_ms, f_ms = sum(ms["binary"]) / 2, sum(ms["fat"]) / 2
+        acc = b6b[occlusion]
+        acc["ms"] += k_ms
+        acc["fat_ms"] += f_ms
+        acc["ops"] += ops
+        acc["bytes"] += nbytes
+        per_ray = {k: c[k] / COUNT_PIXELS for k in ("tlas_visits", "instance_entries",
+                                                     "blas_visits", "pair_tests")}
+        acc["per_launch"].append({"batch": batch, "rays": len(o), "ms": k_ms, "fat_ms": f_ms,
+                                  "bound_ms": bnd[0], "bound_by": bnd[1], "per_ray": per_ray})
+        print(f"time B6b {batch} on {BVH_MAIN_SCENE} two-level {M}^2 wavefront sample: {len(o)} "
+              f"rays, kernel {k_ms:.4f} ms ({', '.join(f'{x:.4f}' for x in ms['binary'])}), B6a "
+              f"{f_ms:.4f} ms ({', '.join(f'{x:.4f}' for x in ms['fat'])}), in turns B6a, B6b, "
+              f"B6b, B6a; bound {bnd[0]:.4f} ms ({bnd[1]}); walk per ray "
+              f"{per_ray['tlas_visits']:.2f} TLAS visits, {per_ray['instance_entries']:.2f} "
+              f"instance entries, {per_ray['blas_visits']:.2f} BLAS visits, "
+              f"{per_ray['pair_tests']:.2f} pair tests [{card}]", flush=True)
+    b6b_bound = {k: bound(b6b[k]["ops"], b6b[k]["bytes"]) for k in (False, True)}
+    small2_bin = {}
+    for occl, args in ((False, (o4, d4, 0.0, RAY_MAX_T, True)),
+                       (True, (pos4, sd4, RAY_EPSILON, tmax4, False))):
+        small2_bin[occl] = kernel_ms(tv2.prepare_launch(scene4_2["tlas"], *args, occl, "binary"),
+                                     10, torch)
+        print(f"time B6b {'any' if occl else 'closest'} at {BVH_PARITY_SCENE} two-level {P}^2: "
+              f"kernel {small2_bin[occl]:.4f} ms, B6a {small2[occl][0]:.4f} ms, plain "
+              f"{small2[occl][1]:.3f} ms per trace [{card}]", flush=True)
+
+    # the host's share of the B6b route: dispatches enqueued and synchronised
+    n_disp_c = 5
+    pipe_c.max_iterations = 2**30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(n_disp_c):
+        pipe_c.update(elapsed_time=0.0, elapsed_frames=100 + f)
+        pipe_c.render()
+    bin2_enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    bin2_dispatch_s = time.perf_counter() - t0
+    pipe_c.get_output()
+    print(f"time B6b route host ({n_disp_c} dispatches of {BVH_S} samples, host clock): "
+          f"{bin2_enqueue_s / n_disp_c * 1e3:.3f} ms enqueued, "
+          f"{bin2_dispatch_s / n_disp_c * 1e3:.3f} ms synchronised at the end, per dispatch; the "
+          f"main path's {bin2_prog_s / BVH_DISPATCHES * 1e3:.3f} ms with the first [{card}]",
+          flush=True)
+    del pipe_c, fat_moved, o_c, d_c, tlb_np
+
+    # realtime + denoise at 1080p on the two-level scene without fat nodes
+    cam32.set_aspect(RT_W, RT_H)
+    rt_c = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
+    rt_c.set_camera(cam32)
+    rt_c.set_scene_data(bin2)
+    denoiser_c = DenoiseCompositor(device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for f in range(BIN_RT_FRAMES):
+        rt_c.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        direct, spec = rt_c.render()
+        display = denoiser_c.dispatch(direct, spec)
+    torch.cuda.synchronize()
+    bin2_rt_s = time.perf_counter() - t0
+    n = 2 * BIN_RT_FRAMES
+    expect_counts(f"B6b realtime + denoise ({BIN_RT_FRAMES} frames at {RT_W}x{RT_H})",
+                  {"B6b closest": n, "B6b any": n, "B2": n})
+    finite = all(bool(x.isfinite().all()) for x in (direct, spec, display))
+    print(f"B6b realtime + denoise: {BIN_RT_FRAMES} frames at {RT_W}x{RT_H} in {bin2_rt_s:.3f}s "
+          f"host clock, AOVs and display finite {finite}, display mean {float(display.mean()):.5f} "
+          f"[{card}]", flush=True)
+    if not finite or not float(display.mean()) > 0.0:
+        raise RuntimeError("the B6b realtime + denoise frames failed")
+    rt_c.get_output()
+    del rt_c, denoiser_c, direct, spec, display, bin2, wave_c
+    cam32.set_aspect(M, M)
 
     # ---- 15. B3 vs plain at 128^2 on the brute-force parity scenes ---------------
     from dxrexperiments_torch.scene.lights import area_light, directional_light, point_light
@@ -3324,6 +3893,70 @@ def main() -> int:
             "per_launch": b6a[occl]["per_launch"],
             **({} if occl else {"max_abs_diff_vs_flattened_b5": two_b5_gate["max_abs_diff"],
                                 "vs_flattened_after_animation": anim_gate}),
+        })
+    for walk, occl, name, source, line in (
+            ("binary", False, "traverse_closest", "traverse_binary.cu", 282),
+            ("binary", True, "traverse_any", "traverse_binary.cu", 282),
+            ("wide", False, "traverse8_closest", "traverse8.cu", 709),
+            ("wide", True, "traverse8_any", "traverse8.cu", 709)):
+        acc = wtime[walk, occl]
+        extra = {}
+        if walk == "binary" and not occl:
+            extra = {"route_vs_b4a_route_image": b4b_wave_gate, "route_vs_plain_image":
+                     b4b_plain_gate, "realtime_frame0_vs_plain_max_abs_diff": b4b_rt_err,
+                     "dispatch_ms_enqueued": bin_enqueue_s / n_disp_b * 1e3,
+                     "dispatch_ms_synchronised": bin_dispatch_s / n_disp_b * 1e3}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"dxrexperiments_torch/csrc/{source}",
+            "replaces": f"dxrexperiments_tpu/ops/traverse_pallas.py:{line}",
+            "launches": (b4b_counts if walk == "binary" else b4d_counts)[occl],
+            "max_abs_err": walk_err[walk, occl],
+            "ms": acc["ms"],
+            "plain_ms": small_ms["b4a_a" if occl else "b4a_c"][1],
+            "bound_ms": wbound[walk, occl][0],
+            "bound_by": wbound[walk, occl][1],
+            "library_ms": None,
+            "shape": f"{wave_shape} without fat nodes: its two "
+                     f"{'shadow' if occl else 'closest'} launches together",
+            "b4a_ms_same_rays": acc["fat_ms"],
+            "launches_are": ("the B4b route's main path" if walk == "binary" else
+                             "direct calls on the B4b route's four launch inputs"),
+            "plain_shape": plain_shape,
+            "ms_at_plain_shape": small_bin[walk, occl],
+            "parity_128_max_abs_err": bin_parity[walk, occl],
+            "deepest_stack": deepest[walk],
+            "per_launch": acc["per_launch"],
+            "max_abs_err_is": ("occlusion disagreement fraction" if occl else
+                               "max |t - plain t| on rays that hit the same triangle"),
+            **extra,
+        })
+    for occl, name in ((False, "traverse2_closest"), (True, "traverse2_any")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dxrexperiments_torch/csrc/traverse2_binary.cu",
+            "replaces": "dxrexperiments_tpu/ops/traverse2_pallas.py:53",
+            "launches": b6b_counts[occl],
+            "max_abs_err": b6b_err[occl],
+            "ms": b6b[occl]["ms"],
+            "plain_ms": small2[occl][1],
+            "bound_ms": b6b_bound[occl][0],
+            "bound_by": b6b_bound[occl][1],
+            "library_ms": None,
+            "shape": f"{BVH_MAIN_SCENE} two-level without fat nodes {M}^2, one wavefront sample: "
+                     f"its two {'shadow' if occl else 'closest'} launches together",
+            "b6a_ms_same_rays": b6b[occl]["fat_ms"],
+            "plain_shape": f"{BVH_PARITY_SCENE} two-level {P}^2, one "
+                           f"{'shadow' if occl else 'primary'} trace",
+            "ms_at_plain_shape": small2_bin[occl],
+            "parity_128_max_abs_err": bin_parity["two_level", occl],
+            "per_launch": b6b[occl]["per_launch"],
+            **({} if occl else {"route_vs_b6a_route_image": b6b_wave_gate,
+                                "vs_b6a_after_animation": b6b_anim_gate,
+                                "dispatch_ms_enqueued": bin2_enqueue_s / n_disp_c * 1e3,
+                                "dispatch_ms_synchronised": bin2_dispatch_s / n_disp_c * 1e3}),
         })
     for occl, name, line in ((False, "trace_closest", 130), (True, "trace_any", 207)):
         kernels.append({

@@ -11,10 +11,11 @@ Two builders emit one explicit node-array format that
     compiled with g++ at first use (``utils/native.py``).
 
 ``build_nodes`` picks the SAH build and falls back to the Morton build when
-no C++ compiler is there, as the JAX package's ``Scene.build`` does. The
-numpy code is copied line for line, so both builds equal the JAX package's.
-The device-side Morton build (``build_bvh_device``) and the 8-wide
-collapse (``collapse_wide``) are not ported (ROADMAP Queue A item 11).
+no C++ compiler is there, as the JAX package's ``Scene.build`` does.
+``collapse_wide`` turns the binary tree into the 8-wide tree of kernel B4d.
+The numpy code is copied line for line, so every build equals the JAX
+package's. The device-side Morton build (``build_bvh_device``) is not
+ported (ROADMAP Queue A item 11).
 """
 
 from __future__ import annotations
@@ -203,3 +204,87 @@ def build_nodes(v0, e1, e2, num_tris: int, leaf_size: int) -> tuple[dict, str]:
     if nodes is not None:
         return nodes, "sah"
     return to_node_arrays(build_bvh(v0, e1, e2, num_tris, leaf_size)), "morton"
+
+
+def collapse_wide(
+    nodes_lo: np.ndarray,
+    nodes_hi: np.ndarray,
+    child: np.ndarray,
+    width: int = 8,
+) -> dict:
+    """Collapse explicit binary node arrays into WIDTH-wide nodes.
+
+    Starting at each wide root, the largest-surface-area internal slot is
+    expanded until `width` slots are filled, so one node visit tests 8
+    subtrees' boxes (kernel B4d, ``csrc/traverse8.cu``). Binary leaves are
+    kept verbatim (same slot ranges), so the wide tree shares its triangle
+    layout with the binary one. Copied line for line from the JAX package,
+    so the wide tree is bit-equal to its build.
+
+    Returns {"w_lo"/"w_hi" [W, width, 3] f32, "w_child" [W, width] f32,
+    "w_count" [W, width] f32} with the encoding:
+      internal slot: w_child = wide child id,  w_count = -1
+      leaf slot:     w_child = -(start+1),     w_count = tri count
+      empty slot:    w_child = 0,              w_count = 0, box at +BIG
+    """
+    big = np.float32(3.0e38)
+    m = len(child)
+    if m == 0:
+        return {
+            "w_lo": np.full((1, width, 3), big, np.float32),
+            "w_hi": np.full((1, width, 3), big, np.float32),
+            "w_child": np.zeros((1, width), np.float32),
+            "w_count": np.zeros((1, width), np.float32),
+        }
+    ext = np.maximum(nodes_hi - nodes_lo, 0.0)
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    is_leaf = child[:, 0] < 0
+
+    w_lo, w_hi, w_child, w_count = [], [], [], []
+    # (wide_id, slot, binary_node) patches for internal slots filled after
+    # their subtree's wide id is known.
+    wide_of_binary: dict[int, int] = {}
+    todo = [0]
+    while todo:
+        b_root = todo.pop()
+        slots = [int(b_root)]
+        while len(slots) < width:
+            cand = [s for s in slots if not is_leaf[s]]
+            if not cand:
+                break
+            s = max(cand, key=lambda n: area[n])
+            slots.remove(s)
+            slots.extend((int(child[s, 0]), int(child[s, 1])))
+        wid = len(w_lo)
+        wide_of_binary[int(b_root)] = wid
+        lo = np.full((width, 3), big, np.float32)
+        hi = np.full((width, 3), big, np.float32)
+        cv = np.zeros((width,), np.float32)
+        cn = np.zeros((width,), np.float32)
+        for k, s in enumerate(slots):
+            lo[k] = nodes_lo[s]
+            hi[k] = nodes_hi[s]
+            if is_leaf[s]:
+                cv[k] = float(child[s, 0])  # already -(start+1)
+                cn[k] = float(child[s, 1])
+            else:
+                cv[k] = float(s)  # patched to wide id below
+                cn[k] = -1.0
+                todo.append(int(s))
+        w_lo.append(lo)
+        w_hi.append(hi)
+        w_child.append(cv)
+        w_count.append(cn)
+
+    w_child = np.stack(w_child)
+    w_count = np.stack(w_count)
+    internal = w_count < -0.5
+    w_child[internal] = np.vectorize(
+        lambda b: float(wide_of_binary[int(b)])
+    )(w_child[internal]) if internal.any() else w_child[internal]
+    return {
+        "w_lo": np.stack(w_lo),
+        "w_hi": np.stack(w_hi),
+        "w_child": w_child,
+        "w_count": w_count,
+    }

@@ -7,7 +7,9 @@ their Morton order at build time, and every instance stores its inverse
 transform. A walk (kernel B6a, ``ops/traverse2.py``) transforms the ray at an
 instance leaf and walks that instance's BLAS in object space; the map is
 affine, so the object-space t equals the world-space one and hits of
-different instances compare directly.
+different instances compare directly. A TLAS without fat nodes (no
+``tlasf_nodes``) takes the binary walk (kernel B6b) over ``tlas_rows`` and
+``blas_rows``.
 
 The host half (``_mt_pack_rows``, ``_regularize_leaves``, the per-mesh BLAS
 build through ``accel/bvh.build_nodes``, ``build_two_level``) is copied line
@@ -28,7 +30,8 @@ Arrays (``tl`` below, the scene's ``tlas`` sub-dict):
     leaf has left = -(slot+1), right = 1, where slot indexes inst_rows
   tlasf_nodes [16, Ft_pad] f32: the fat TLAS (ops/traverse.fat_nodes
     layout); a child with meta 1 is instance slot ptr, meta 0 is padding
-  tlasf_rows [Ft_pad, 16] f32: the same, one row per node (kernel layout)
+  tlasf_rows [Ft_pad, 16] f32: the same, one row per node (B6a's layout)
+  tlas_rows [Mt_pad, 8] f32: tlas_nodes, one row per node (B6b's layout)
   inst_rows [32, Ipad] f32: per slot, rows 0-8 the inverse rotation A (row
     major, x_obj = A x_world + b), 9-11 b, 12 the binary BLAS root, 13 the
     material override (-1 none), 14 the original instance index, 15 the
@@ -38,7 +41,8 @@ Arrays (``tl`` below, the scene's ``tlas`` sub-dict):
   inst_mat_override, inst_orig [Ipad] int32
   blas_nodes [8, Mb_pad], blasf_nodes [16, Fb_pad] f32 (host): every unique
     mesh's BLAS concatenated, ids rebased
-  blasf_rows [Fb_pad, 16] f32: the fat BLAS nodes, one row per node
+  blasf_rows [Fb_pad, 16] f32: the fat BLAS nodes, one row per node (B6a)
+  blas_rows [Mb_pad, 8] f32: the binary BLAS nodes, one row per node (B6b)
   mt_rows [S, 128] f32: object-space Möller–Trumbore rows in BLAS leaf-slot
     order (the ops/traverse.pack_for_traversal layout, lanes 0..63)
   slot_tri [S] int32: leaf slot -> concatenated object-space triangle
@@ -213,10 +217,10 @@ def build_two_level(
     device: str | torch.device = "cuda",
 ) -> tuple[dict, TlasRefitContext]:
     """Build the two-level structure: (tl, refit context). The BLAS arrays
-    the kernel reads (``blasf_rows``, ``mt_rows``, ``slot_tri``) and the
-    refit's outputs live on ``device`` (default the card; without one it
-    raises); the JAX layouts ``blas_nodes`` and ``blasf_nodes``, which no
-    kernel reads, stay host tensors."""
+    the kernels read (``blasf_rows``, ``blas_rows``, ``mt_rows``,
+    ``slot_tri``) and the refit's outputs live on ``device`` (default the
+    card; without one it raises); the JAX layouts ``blas_nodes`` and
+    ``blasf_nodes``, which no kernel reads, stay host tensors."""
     device = setup_device(device)
     inst_mesh = np.asarray(inst_mesh, np.int64)
     transforms = np.asarray(transforms, np.float32)
@@ -333,6 +337,7 @@ def build_two_level(
         "blas_nodes": torch.as_tensor(blas_nodes),
         "blasf_nodes": torch.as_tensor(blasf_nodes),
         "blasf_rows": torch.as_tensor(np.ascontiguousarray(blasf_nodes.T)).to(device),
+        "blas_rows": torch.as_tensor(np.ascontiguousarray(blas_nodes.T)).to(device),
         "mt_rows": torch.as_tensor(mt_rows).to(device),
         "slot_tri": torch.as_tensor(slot_tri_all).to(device),
         **dyn,
@@ -426,6 +431,7 @@ def refit_instances_arrays(ctx: TlasRefitContext, transforms, device=None) -> di
     inst_nm = torch.nn.functional.pad(a.transpose(1, 2), (0, 0, 0, 0, 0, i_pad - i))
     return {
         "tlas_nodes": tlas,
+        "tlas_rows": tlas.T.contiguous(),
         "tlasf_nodes": tlasf,
         "tlasf_rows": tlasf.T.contiguous(),
         "inst_rows": inst_rows,

@@ -21,10 +21,12 @@ def select_route(scene: dict, mode: str, ao_only: bool = False,
     'fused' (the brute-force megakernel B1) when ``supports_fused``, else
     'fused_traverse' (the fused-traversal megakernel B5) when
     ``supports_fused_traverse``, else 'wavefront' (the integrator, whose
-    traces run kernel B3 for a brute-force scene, B4a for a BVH or B6a for a
-    two-level scene on a CUDA device). The AO view and the refraction bounce
-    exist only in the integrator, and both gates reject a two-level scene
-    (``tlas``), so these always take the wavefront route. A small scene with
+    traces run kernel B3 for a brute-force scene, B4a for a BVH (B4b without
+    fat nodes) or B6a for a two-level scene (B6b without fat nodes) on a
+    CUDA device). The AO view and the refraction bounce exist only in the
+    integrator, and both gates reject a two-level scene (``tlas``), so these
+    always take the wavefront route; B5's gate also rejects a BVH without
+    fat nodes (no ``bvhf_nodes``), as JAX's does. A small scene with
     a texture env carries a BVH tagged ``tex_autoroute`` (``Scene.build``):
     B1 still takes it where it can (the Cornell box), else B5 walks that BVH
     (``instanced:2``)."""

@@ -47,7 +47,7 @@ def make_progressive_step(
     ``fused_traverse.fused_traverse_progressive_sum`` (B5), or, on the
     wavefront route, S samples of the integrator with two closest and two
     any-hit launches each (AO: one closest and four any) of kernel B3
-    (brute-force scenes), B4a (BVH) or B6a (two-level). On the CPU each step
+    (brute-force scenes), B4a or B4b (BVH) or B6a or B6b (two-level). On the CPU each step
     is the plain version, the wavefront integrator summed over the S
     samples. The env kind is fixed with the route; the env itself, a texture
     env's texture on the scene's device included, comes with every call, so

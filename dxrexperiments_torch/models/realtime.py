@@ -8,7 +8,7 @@ jitter scale and no indirect diffuse. Feeds models/denoise.py.
 On a CUDA device each render is one launch of a realtime megakernel, B1's
 ``ops.fused_sample.realtime_aovs`` or B5's ``ops.fused_traverse.realtime_aovs``,
 or the wavefront integrator whose traces run kernel B3 (brute-force scenes
-B1 does not take), B4a (BVH scenes) or B6a (two-level scenes, attached with
+B1 does not take), B4a or B4b (BVH scenes) or B6a or B6b (two-level scenes, attached with
 ``set_scene_data``), as ``select_route`` picks; on the CPU it is the plain
 wavefront integrator in realtime mode.
 """
@@ -28,7 +28,7 @@ from .base import RaytracingPipeline, select_route, wall_seed
 def realtime_step(scene: dict, options: dict, camera: dict, width: int, height: int):
     """One realtime frame; returns (direct, indirect_specular), [H, W, 3]
     each. CUDA scenes launch the route's kernel, or take the wavefront
-    integrator whose traces launch B3 (brute force), B4a (BVH) or B6a
+    integrator whose traces launch B3 (brute force), B4a or B4b (BVH) or B6a or B6b
     (two-level); CPU scenes take the wavefront integrator."""
     impl = resolve_impl("auto", scene_device(scene))
     route = select_route(scene, "realtime")

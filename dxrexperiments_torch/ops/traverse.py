@@ -1,27 +1,31 @@
-"""Fat-node BVH traversal (B4a): the packs, the wrappers, the plain versions.
+"""BVH traversal: the packs, the three walk kernels' wrappers (B4a fat-node,
+B4b binary, B4d 8-wide), their plain versions and host models of the walks.
 
 Port of ``dxrexperiments_tpu.ops.traverse_pallas``'s host part and of its
-fat-node kernel ``_make_traverse_fat_kernel`` (``traverse_fat_closest``,
-``traverse_fat_any``). ``pack_for_traversal`` and ``fat_nodes`` are copied
-line for line, so ``bvh_nodes``, ``bvhf_nodes``, ``mt_rows``, ``slot_tri``
-and ``mt_attr_lanes`` equal the JAX build's bit for bit; the 8-wide
-``bvh8_nodes`` (kernel B4d's layout) is left out, as nothing on the port's
-path reads it (ROADMAP Queue B item 8).
+kernels ``_make_traverse_fat_kernel`` (``traverse_fat_closest``,
+``traverse_fat_any``), ``_make_traverse_kernel`` (``traverse_closest``,
+``traverse_any``) and ``_make_traverse8_kernel`` (``traverse8_closest``,
+``traverse8_any``). ``pack_for_traversal`` and ``fat_nodes`` are copied
+line for line, so ``bvh_nodes``, ``bvhf_nodes``, ``bvh8_nodes``,
+``mt_rows``, ``slot_tri`` and ``mt_attr_lanes`` equal the JAX build's bit
+for bit.
 
-On CUDA tensors ``traverse_fat_closest``/``traverse_fat_any`` launch the
-hand-written kernel in ``csrc/traverse_fat.cu`` (one thread per ray, a
-near-first walk on its own stack) or raise; on CPU tensors they take the
-plain versions, the brute-force ``ops/intersect.py`` over the same
-triangles, which is what the JAX package's jnp route computes for BVH
-scenes. There is no fallback from the kernel to its plain version.
+On CUDA tensors the wrappers launch the hand-written kernels in
+``csrc/traverse_fat.cu``, ``csrc/traverse_binary.cu`` and
+``csrc/traverse8.cu`` (one thread per ray on its own stack) or raise; on
+CPU tensors they take the plain versions, the brute-force
+``ops/intersect.py`` over the same triangles, which is what the JAX
+package's jnp route computes for BVH scenes. There is no fallback from a
+kernel to its plain version.
 
 A stack overflow sets the launch's error flag. The wrapper does not wait to
 read it: ``check_errors`` raises for it at a later launch, once the kernel
 has finished, or when the pipeline's ``get_output`` waits for the card.
 
-``fat_walk_numpy`` is a host model of the kernel's walk: it returns the
-same hits and counts the slab and pair tests a walk performs, from which
-``chip_smoke.py`` computes the kernels' bound.
+``fat_walk_numpy``, ``binary_walk_numpy`` and ``wide_walk_numpy`` are host
+models of the kernels' walks: they return the same hits and count the slab
+and pair tests a walk performs, from which ``chip_smoke.py`` computes the
+kernels' bounds.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..accel.bvh import collapse_wide
 from . import intersect
 
 BIG = 3.0e38
@@ -40,10 +45,26 @@ MAX_STACK = 96  # per-ray stack entries; an overflow raises, it never truncates
 # t*det = O . [54:57] + [57]
 COEF_LANES = (0, 1, 2, 16, 17, 18, 19, 20, 21, 32, 33, 34, 35, 36, 37, 54, 55, 56, 57)
 
-# Kernel launches so far, one per traced batch. Callers reset them to 0 and
-# read them back to show that a run went through the kernel.
+# Kernel launches so far, one per traced batch: B4a (fat), B4b (binary) and
+# B4d (8-wide). Callers reset them to 0 and read them back to show that a
+# run went through the kernel.
 CLOSEST_LAUNCHES = 0
 ANY_LAUNCHES = 0
+BINARY_CLOSEST_LAUNCHES = 0
+BINARY_ANY_LAUNCHES = 0
+WIDE_CLOSEST_LAUNCHES = 0
+WIDE_ANY_LAUNCHES = 0
+
+# kind -> (library and source name, C entry point, the node rows it reads and
+# their width, (closest, any) launch counters)
+WALKS = {
+    "fat": ("traverse_fat", "dxr_traverse_fat", "bvhf_rows", 16,
+            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES")),
+    "binary": ("traverse_binary", "dxr_traverse_binary", "bvh_rows", 8,
+               ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")),
+    "wide": ("traverse8", "dxr_traverse8", "bvh8_rows", 8,
+             ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES")),
+}
 
 _ERRORS = {1: f"a ray's stack overflowed its {MAX_STACK} entries (64 in a TLAS walk)",
            2: "a node, instance or slot index lies outside the packed arrays"}
@@ -59,6 +80,12 @@ def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
       bvhf_nodes [16, F_pad] f32: the fat nodes (see fat_nodes)
       bvhf_rows [F_pad, 16] f32: the same, one contiguous row per node (the
         CUDA kernels' layout: four float4 loads per visit)
+      bvh_rows [M_pad, 8] f32: bvh_nodes, one row per node (B4b's layout)
+      bvh8_nodes [W*8, 8] f32: the 8-wide tree (``accel/bvh.collapse_wide``),
+        per wide node 8 child rows lo3, hi3, child, count: internal child =
+        wide node id, count -1; leaf child = -(slot_start+1), count > 0;
+        empty slot child 0, count 0, box at +BIG. Already row-major:
+        ``bvh8_rows`` is the same array, B4d's device copy
       mt_rows [S_pad, 128] f32: the 64 Möller–Trumbore coefficients of each
         fixed-K leaf slot (4 groups x 16 lanes), lanes 64..73 its vertex
         normals n0/n1/n2 and material id, lanes 74..79 its corner UVs when
@@ -125,10 +152,28 @@ def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
         np.asarray(nodes["nodes_hi"], np.float32),
         new_child,
     )
+
+    # 8-wide collapse of the same tree (same regularized leaf ranges):
+    # [W*8, 8], per wide node its 8 children's rows (lo3, hi3, child, count)
+    wide = collapse_wide(
+        np.asarray(nodes["nodes_lo"], np.float32),
+        np.asarray(nodes["nodes_hi"], np.float32),
+        new_child.astype(np.int64),
+        width=8,
+    )
+    w = wide["w_lo"].shape[0]
+    bvh8 = np.zeros((w * 8, 8), np.float32)
+    bvh8[:, 0:3] = wide["w_lo"].reshape(w * 8, 3)
+    bvh8[:, 3:6] = wide["w_hi"].reshape(w * 8, 3)
+    bvh8[:, 6] = wide["w_child"].reshape(w * 8)
+    bvh8[:, 7] = wide["w_count"].reshape(w * 8)
     return {
         "bvh_nodes": bvh_nodes,
+        "bvh_rows": np.ascontiguousarray(bvh_nodes.T),
         "bvhf_nodes": bvhf,
         "bvhf_rows": np.ascontiguousarray(bvhf.T),
+        "bvh8_nodes": bvh8,
+        "bvh8_rows": bvh8,
         "mt_rows": mt_rows,
         "slot_tri": slot_tri_pad,
         # the JAX marker: 1 = mt_rows lanes 64..73 carry per-slot attributes,
@@ -228,26 +273,29 @@ def traverse_fat_any_reference(scene, origins, directions, t_min=1e-4, t_max=3.0
     return intersect.intersect_any(scene, origins, directions, t_min, t_max)
 
 
-_LIB = None
+_LIBS: dict = {}
 
 
-def _library():
-    global _LIB
-    if _LIB is None:
+def _library(kind: str = "fat"):
+    """The C entry point of walk ``kind`` (WALKS), built at first use."""
+    if kind not in _LIBS:
         from ..utils.cuda_build import load_library
 
-        lib = load_library("traverse_fat", ["traverse_fat.cu"])
-        lib.dxr_traverse_fat.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7)
-        lib.dxr_traverse_fat.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        name, entry = WALKS[kind][:2]
+        fn = getattr(load_library(name, [f"{name}.cu"]), entry)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+        fn.restype = ctypes.c_int
+        _LIBS[kind] = fn
+    return _LIBS[kind]
 
 
 def check_rows(tree: dict, widths: dict, device) -> tuple[torch.Tensor, ...]:
     """tree[name] for each name of ``widths``, checked: float32 [N, width],
     contiguous, 16-byte aligned (the kernels read float4s), on ``device``."""
     for name, width in widths.items():
+        if name not in tree:
+            raise ValueError(f"{name} missing: this walk reads it (a tree without fat nodes "
+                             "takes the binary walk)")
         t = tree[name]
         if t.dtype != torch.float32 or t.dim() != 2 or t.shape[1] != width:
             raise ValueError(f"{name}: expected float32 [N, {width}], got {t.dtype} "
@@ -257,10 +305,12 @@ def check_rows(tree: dict, widths: dict, device) -> tuple[torch.Tensor, ...]:
     return tuple(tree[name] for name in widths)
 
 
-def check_bvh(bvh: dict, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' BVH inputs, checked: (bvhf_rows [F, 16], mt_rows
-    [S, 128])."""
-    return check_rows(bvh, {"bvhf_rows": 16, "mt_rows": 128}, device)
+def check_bvh(bvh: dict, device, kind: str = "fat") -> tuple[torch.Tensor, torch.Tensor]:
+    """Walk ``kind``'s BVH inputs, checked: (node rows, mt_rows [S, 128]),
+    the node rows bvhf_rows [F, 16] (fat), bvh_rows [M, 8] (binary) or
+    bvh8_rows [W*8, 8] (wide)."""
+    rows, width = WALKS[kind][2:4]
+    return check_rows(bvh, {rows: width, "mt_rows": 128}, device)
 
 
 def raise_on_error(err: torch.Tensor, what: str) -> None:
@@ -305,13 +355,15 @@ def check_errors(wait: bool = True) -> None:
             raise_on_error(host, what)
 
 
-def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool):
-    """Pack the rays and allocate the outputs of one B4a launch. Returns
-    (launch, outs, err): ``launch()`` enqueues the kernel and returns the
-    CUDA error code; outs is (occ,) or (t, slot, u, v). Timing ``launch``
-    alone measures the kernel without the wrapper's packing and checks."""
+def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
+                   kind: str = "fat"):
+    """Pack the rays and allocate the outputs of one launch of walk ``kind``
+    (WALKS: "fat" B4a, "binary" B4b, "wide" B4d). Returns (launch, outs,
+    err): ``launch()`` enqueues the kernel and returns the CUDA error code;
+    outs is (occ,) or (t, slot, u, v). Timing ``launch`` alone measures the
+    kernel without the wrapper's packing and checks."""
     device = origins.device
-    nodes, rows = check_bvh(scene["bvh"], device)
+    nodes, rows = check_bvh(scene["bvh"], device, kind)
     rays = pack_rays(origins, directions, t_min, t_max)
     r = rays.shape[0]
     err = torch.zeros(1, dtype=torch.int32, device=device)
@@ -324,30 +376,29 @@ def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusi
                 torch.empty(r, dtype=torch.float32, device=device),
                 torch.empty(r, dtype=torch.float32, device=device))
         ptrs = (*(o.data_ptr() for o in outs), None)
-    lib = _library()
+    fn = _library(kind)
 
     def launch() -> int:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            return lib.dxr_traverse_fat(rays.data_ptr(), nodes.data_ptr(), rows.data_ptr(), r,
-                                        nodes.shape[0], rows.shape[0], int(occlusion), int(cull),
-                                        *ptrs, err.data_ptr(), stream)
+            return fn(rays.data_ptr(), nodes.data_ptr(), rows.data_ptr(), r, nodes.shape[0],
+                      rows.shape[0], int(occlusion), int(cull), *ptrs, err.data_ptr(), stream)
 
     return launch, outs, err
 
 
-def _launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool):
-    global CLOSEST_LAUNCHES, ANY_LAUNCHES
-    launch, outs, err = prepare_launch(scene, origins, directions, t_min, t_max, cull, occlusion)
+def _launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
+            kind: str = "fat"):
+    name = WALKS[kind][0]
+    launch, outs, err = prepare_launch(scene, origins, directions, t_min, t_max, cull, occlusion,
+                                       kind)
     rc = launch()
     if rc != 0:
-        raise RuntimeError(f"traverse_fat kernel launch failed: cudaError {rc}")
-    if occlusion:
-        ANY_LAUNCHES += 1
-    else:
-        CLOSEST_LAUNCHES += 1
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    counter = WALKS[kind][4][int(occlusion)]
+    globals()[counter] += 1
     with torch.cuda.device(origins.device):
-        queue_error_check(err, "traverse_fat kernel")
+        queue_error_check(err, f"{name} kernel")
     if occlusion:
         return outs[0]
     t, slot, u, v = outs
@@ -362,27 +413,64 @@ def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def traverse_fat_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
-                         t_min=1e-4, t_max=3.0e37, cull_backface: bool = False) -> dict:
-    """Closest hit through the scene's fat-node BVH: {"hit" [R] bool, "t"
-    [R] (-1 on a miss), "tri" [R] int64 (original triangle, -1), "slot" [R]
-    int64 (leaf slot, -1), "u", "v" [R] (0 on a miss)}. t_min/t_max: scalars
-    or [R]. CUDA rays -> one kernel launch; CPU rays -> the plain version."""
+def _closest(kind: str, scene, origins, directions, t_min, t_max, cull_backface: bool) -> dict:
     if _on_cuda(origins):
-        return _launch(scene, origins, directions, t_min, t_max, cull_backface, False)
+        return _launch(scene, origins, directions, t_min, t_max, cull_backface, False, kind)
     return traverse_fat_closest_reference(scene, origins, directions, t_min, t_max,
                                           cull_backface)
 
 
+def _any(kind: str, scene, origins, directions, t_min, t_max) -> torch.Tensor:
+    if _on_cuda(origins):
+        return _launch(scene, origins, directions, t_min, t_max, False, True, kind)
+    return traverse_fat_any_reference(scene, origins, directions, t_min, t_max)
+
+
+def traverse_fat_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
+                         t_min=1e-4, t_max=3.0e37, cull_backface: bool = False) -> dict:
+    """Closest hit through the scene's fat-node BVH (kernel B4a): {"hit" [R]
+    bool, "t" [R] (-1 on a miss), "tri" [R] int64 (original triangle, -1),
+    "slot" [R] int64 (leaf slot, -1), "u", "v" [R] (0 on a miss)}.
+    t_min/t_max: scalars or [R]. CUDA rays -> one kernel launch; CPU rays ->
+    the plain version."""
+    return _closest("fat", scene, origins, directions, t_min, t_max, cull_backface)
+
+
 def traverse_fat_any(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
                      t_min=1e-4, t_max=3.0e37) -> torch.Tensor:
-    """Occlusion through the fat-node BVH: [R] bool, True where any triangle
-    blocks (t_min, t_max). Rays with a zero direction are not occluded (the
-    wavefront integrator zeroes the shadow rays of inactive lanes). CUDA
-    rays -> one kernel launch; CPU rays -> the plain version."""
-    if _on_cuda(origins):
-        return _launch(scene, origins, directions, t_min, t_max, False, True)
-    return traverse_fat_any_reference(scene, origins, directions, t_min, t_max)
+    """Occlusion through the fat-node BVH (kernel B4a): [R] bool, True where
+    any triangle blocks (t_min, t_max). Rays with a zero direction are not
+    occluded (the wavefront integrator zeroes the shadow rays of inactive
+    lanes). CUDA rays -> one kernel launch; CPU rays -> the plain version."""
+    return _any("fat", scene, origins, directions, t_min, t_max)
+
+
+def traverse_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
+                     t_min=1e-4, t_max=3.0e37, cull_backface: bool = False) -> dict:
+    """Closest hit through the scene's binary BVH (``bvh_rows``, kernel B4b),
+    the route of a BVH without fat nodes. Same keys as
+    ``traverse_fat_closest``; CPU rays take the same plain version."""
+    return _closest("binary", scene, origins, directions, t_min, t_max, cull_backface)
+
+
+def traverse_any(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
+                 t_min=1e-4, t_max=3.0e37) -> torch.Tensor:
+    """Occlusion through the binary BVH (kernel B4b), as ``traverse_fat_any``."""
+    return _any("binary", scene, origins, directions, t_min, t_max)
+
+
+def traverse8_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
+                      t_min=1e-4, t_max=3.0e37, cull_backface: bool = False) -> dict:
+    """Closest hit through the 8-wide BVH (``bvh8_rows``, kernel B4d), as
+    ``traverse_fat_closest``. No route of the integrator takes it (nor the
+    JAX package's): it is a direct entry point."""
+    return _closest("wide", scene, origins, directions, t_min, t_max, cull_backface)
+
+
+def traverse8_any(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
+                  t_min=1e-4, t_max=3.0e37) -> torch.Tensor:
+    """Occlusion through the 8-wide BVH (kernel B4d), as ``traverse_fat_any``."""
+    return _any("wide", scene, origins, directions, t_min, t_max)
 
 
 def leaf_terms(coef, start, count, o, d, mom, tmin, tmax, cull: bool):
@@ -424,6 +512,7 @@ class WalkState:
         self.v = np.zeros(r, np.float32)
         self.occ = np.zeros(r, bool)
         self.pairs = 0
+        self.ray_leaves = np.zeros(r, np.int64)  # leaf tests entered, per ray
         self.slots_seen: list[np.ndarray] = []
 
     def far(self, idx):
@@ -442,6 +531,7 @@ class WalkState:
                 return idx
         valid, ts, da, us, vs, s_idx, live = leaf_terms(
             self.coef, start, count, o, d, mom, self.tmin[idx], self.tmax[idx], self.cull)
+        self.ray_leaves[idx] += 1
         self.slots_seen.append(s_idx[live])
         if self.occlusion:
             first = np.where(valid.any(1), valid.argmax(1) + 1, count)
@@ -513,37 +603,95 @@ def fat_visit(idx, nodes, o, inv, state: WalkState, stack, sp, cap: int, leaf_fn
     return node
 
 
+def binary_visit(idx, nodes, o, inv, state: WalkState, stack, sp, cap: int,
+                 leaf_fn) -> np.ndarray:
+    """One binary-node visit of rays idx (o, inv [R, 3]; stack [R, cap], sp
+    [R]), as B4b and B6b make it: pop, slab-test the node's own box against
+    (t_min, state.far], call leaf_fn(idx, start, count, 0) for a hit leaf,
+    push a hit internal node's left child, then its right one (so the right
+    subtree is walked first). Returns the visited node ids."""
+    node = stack[idx, sp[idx] - 1]
+    sp[idx] -= 1
+    f = nodes[node]
+    t0 = (f[:, 0:3] - o[idx]) * inv[idx]
+    t1 = (f[:, 3:6] - o[idx]) * inv[idx]
+    tn = np.maximum(state.tmin[idx], np.minimum(t0, t1).max(1))
+    hit = tn <= np.minimum(state.far(idx), np.maximum(t0, t1).min(1))
+    left, right = f[:, 6], f[:, 7]
+    lf = hit & (left < 0.0)
+    if lf.any():
+        leaf_fn(idx[lf], (-left[lf] - 1.0).astype(np.int64), right[lf].astype(np.int64), 0)
+    push = hit & (left >= 0.0)
+    w = idx[push]
+    if (sp[w] + 2 > cap).any():
+        raise RuntimeError(f"a ray's stack overflowed its {cap} entries")
+    stack[w, sp[w]] = left[push].astype(np.int64)
+    stack[w, sp[w] + 1] = right[push].astype(np.int64)
+    sp[w] += 2
+    return node
+
+
+def wide_visit(idx, rows, o, inv, state: WalkState, stack, sp, cap: int, leaf_fn) -> np.ndarray:
+    """One 8-wide visit of rays idx, as B4d makes it: pop, slab-test the 8
+    child boxes (rows [W*8, 8]) against (t_min, state.far], then in child
+    order 0..7 call leaf_fn(idx, start, count, c) for each hit leaf child
+    (count > 0.5) and push each hit internal child (count < -0.5; an
+    occluded ray pushes nothing), so child 7's subtree pops first. Returns
+    the visited wide node ids."""
+    node = stack[idx, sp[idx] - 1]
+    sp[idx] -= 1
+    f = rows[node[:, None] * 8 + np.arange(8)]  # [n, 8 children, 8 fields]
+    oo, ii = o[idx][:, None, :], inv[idx][:, None, :]
+    t0 = (f[..., 0:3] - oo) * ii
+    t1 = (f[..., 3:6] - oo) * ii
+    tn = np.maximum(state.tmin[idx][:, None], np.minimum(t0, t1).max(2))
+    hits = tn <= np.minimum(state.far(idx)[:, None], np.maximum(t0, t1).min(2))
+    child, count = f[..., 6], f[..., 7]
+    for c in range(8):
+        lf = hits[:, c] & (count[:, c] > 0.5)
+        if lf.any():
+            leaf_fn(idx[lf], (-child[lf, c] - 1.0).astype(np.int64),
+                    count[lf, c].astype(np.int64), c)
+        push = hits[:, c] & (count[:, c] < -0.5)
+        if state.occlusion:
+            push &= ~state.occ[idx]
+        w = idx[push]
+        if (sp[w] >= cap).any():
+            raise RuntimeError(f"a ray's stack overflowed its {cap} entries")
+        stack[w, sp[w]] = child[push, c].astype(np.int64)
+        sp[w] += 1
+    return node
+
+
 def distinct(ids: list[np.ndarray]) -> np.ndarray:
     return np.unique(np.concatenate(ids)) if ids else np.zeros(0, int)
 
 
-def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
-                   occlusion: bool = False) -> tuple[dict, dict]:
-    """Host model of the kernels' per-ray walk over ``bvhf_rows``/``mt_rows``
-    (numpy arrays): near child first (the far one pushed first), both
-    children's slab tests pruned by the running best t, a leaf tested at
-    visit time (lowest row wins within a leaf, strict '<' across leaves),
-    occlusion ending at the first hit, zero-direction occlusion rays dead.
+def safe_inv(d: np.ndarray) -> np.ndarray:
+    """1 / d per axis with |d| <= 1e-12 replaced by +1e-12 (the kernels' rule)."""
+    return (1.0 / np.where(np.abs(d) > 1e-12, d, np.float32(1e-12))).astype(np.float32)
 
-    Returns (result, counts): result {"hit", "t", "slot", "u", "v"} or
-    {"occluded"}; counts {"visits", "slab_tests", "pair_tests", "node_ids",
-    "slot_ids"} (the last two: the distinct fat nodes and leaf slots
-    touched)."""
-    nodes = np.asarray(bvh["bvhf_rows"], np.float32)
+
+def _walk_numpy(nodes, visit, slabs_per_visit: int, mt_rows, origins, directions, t_min, t_max,
+                cull: bool, occlusion: bool) -> tuple[dict, dict]:
+    """Run ``visit`` (fat_visit, binary_visit or wide_visit) over ``nodes``
+    from node 0 until every ray's stack is empty (or it is occluded)."""
+    nodes = np.asarray(nodes, np.float32)
     o = np.asarray(origins, np.float32)
     d = np.asarray(directions, np.float32)
     r = len(o)
-    state = WalkState(np.asarray(bvh["mt_rows"], np.float32)[:, list(COEF_LANES)],
+    state = WalkState(np.asarray(mt_rows, np.float32)[:, list(COEF_LANES)],
                       np.broadcast_to(np.asarray(t_min, np.float32), (r,)).copy(),
                       np.broadcast_to(np.asarray(t_max, np.float32), (r,)).copy(),
                       cull, occlusion)
-    inv = (1.0 / np.where(np.abs(d) > 1e-12, d, np.float32(1e-12))).astype(np.float32)
+    inv = safe_inv(d)
     mom = np.cross(o, d).astype(np.float32)
     stack = np.zeros((r, MAX_STACK), np.int64)
     sp = np.ones(r, np.int64)
     if occlusion:
         sp[np.abs(d).sum(axis=1) < 1e-30] = 0
-    visits = 0
+    ray_visits = np.zeros(r, np.int64)
+    deepest = 0
     seen_nodes: list[np.ndarray] = []
 
     def leaf(idx, start, count, _side):
@@ -554,9 +702,52 @@ def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = Fa
             idx = np.nonzero((sp > 0) & ~state.occ)[0]
             if len(idx) == 0:
                 break
-            visits += len(idx)
-            seen_nodes.append(fat_visit(idx, nodes, o, inv, state, stack, sp, MAX_STACK, leaf))
+            ray_visits[idx] += 1
+            seen_nodes.append(visit(idx, nodes, o, inv, state, stack, sp, MAX_STACK, leaf))
+            deepest = max(deepest, int(sp.max()))
 
-    counts = {"visits": visits, "slab_tests": 2 * visits, "pair_tests": state.pairs,
-              "node_ids": distinct(seen_nodes), "slot_ids": distinct(state.slots_seen)}
+    visits = int(ray_visits.sum())
+    counts = {"visits": visits, "slab_tests": slabs_per_visit * visits,
+              "pair_tests": state.pairs, "node_ids": distinct(seen_nodes),
+              "slot_ids": distinct(state.slots_seen), "max_stack": deepest,
+              "ray_visits": ray_visits, "ray_leaves": state.ray_leaves}
     return state.result(), counts
+
+
+def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
+                   occlusion: bool = False) -> tuple[dict, dict]:
+    """Host model of B4a's per-ray walk over ``bvhf_rows``/``mt_rows``
+    (numpy arrays): near child first (the far one pushed first), both
+    children's slab tests pruned by the running best t, a leaf tested at
+    visit time (lowest row wins within a leaf, strict '<' across leaves),
+    occlusion ending at the first hit, zero-direction occlusion rays dead.
+
+    Returns (result, counts): result {"hit", "t", "slot", "u", "v"} or
+    {"occluded"}; counts {"visits", "slab_tests", "pair_tests", "node_ids",
+    "slot_ids", "max_stack", "ray_visits", "ray_leaves"} (node_ids,
+    slot_ids: the distinct fat nodes and leaf slots touched; max_stack: the
+    deepest stack of any ray; ray_visits, ray_leaves [R]: each ray's node
+    visits and leaf tests, whose maxima over a warp's 32 rays bound the
+    warp's steps)."""
+    return _walk_numpy(bvh["bvhf_rows"], fat_visit, 2, bvh["mt_rows"], origins, directions,
+                       t_min, t_max, cull, occlusion)
+
+
+def binary_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
+                      occlusion: bool = False) -> tuple[dict, dict]:
+    """Host model of B4b's per-ray walk over ``bvh_rows``/``mt_rows`` (numpy
+    arrays), in the JAX kernel's order (``binary_visit``): one slab test per
+    visit, pruned by the running best t. Returns what ``fat_walk_numpy``
+    returns, node_ids being binary node ids."""
+    return _walk_numpy(bvh["bvh_rows"], binary_visit, 1, bvh["mt_rows"], origins, directions,
+                       t_min, t_max, cull, occlusion)
+
+
+def wide_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
+                    occlusion: bool = False) -> tuple[dict, dict]:
+    """Host model of B4d's per-ray walk over ``bvh8_rows``/``mt_rows`` (numpy
+    arrays), in the JAX kernel's order (``wide_visit``): eight slab tests per
+    visit. Returns what ``fat_walk_numpy`` returns, node_ids being wide node
+    ids."""
+    return _walk_numpy(bvh["bvh8_rows"], wide_visit, 8, bvh["mt_rows"], origins, directions,
+                       t_min, t_max, cull, occlusion)

@@ -25,7 +25,9 @@ _SCENE_ARRAYS = (
     "mt_pack", "attr_pack", "v0", "e1", "e2", "n0", "n1", "n2",
     "pn", "c1", "c2", "d0",
 )
-_BVH_ARRAYS = ("bvh_nodes", "bvhf_nodes", "mt_rows")
+# the JAX pack's node layouts and their row-major device copies; a pytree
+# may lack the fat or 8-wide layout (its route then takes another walk)
+_BVH_LAYOUTS = {"bvh_nodes": "bvh_rows", "bvhf_nodes": "bvhf_rows", "bvh8_nodes": "bvh8_rows"}
 _OBJ_ARRAYS = ("v0", "e1", "e2", "pn", "c1", "c2", "d0", "n0", "n1", "n2")
 
 
@@ -48,15 +50,20 @@ def _lights_from_numpy(lights: dict) -> dict:
 
 def _two_level_from_numpy(d: dict, device) -> dict:
     """The two-level entries of a JAX ``Scene.build_two_level()`` pytree:
-    ``tlas`` with the kernel's row-major copies, ``tlas_meta`` (the JAX
-    HostStatic's value, its refit context copied into the port's) and the
-    object-space arrays. The PRIME table (``prime_*``) is dropped."""
+    ``tlas`` with the kernels' row-major copies of the layouts it carries (a
+    pytree without ``tlasf_nodes`` takes the binary walk, B6b),
+    ``tlas_meta`` (the JAX HostStatic's value, its refit context copied into
+    the port's) and the object-space arrays. The PRIME table (``prime_*``)
+    is dropped."""
     tl = d["tlas"]
     host = ("blas_nodes", "blasf_nodes")
     out_tl = {k: _t(tl[k], "cpu" if k in host else device) for k in tl}
-    out_tl["tlasf_rows"] = _t(np.ascontiguousarray(np.asarray(tl["tlasf_nodes"]).T), device)
+    rows = {"tlas_nodes": "tlas_rows", "tlasf_nodes": "tlasf_rows", "blas_nodes": "blas_rows",
+            "blasf_nodes": "blasf_rows"}
+    for k, row_key in rows.items():
+        if k in tl:
+            out_tl[row_key] = _t(np.ascontiguousarray(np.asarray(tl[k]).T), device)
     out_tl["inst_rows_t"] = _t(np.ascontiguousarray(np.asarray(tl["inst_rows"])[:16].T), device)
-    out_tl["blasf_rows"] = _t(np.ascontiguousarray(np.asarray(tl["blasf_nodes"]).T), device)
     meta = d["tlas_meta"].value
     ctx = meta["refit_ctx"]
     fields = [f.name for f in dataclasses.fields(TlasRefitContext) if not f.name.startswith("_")]
@@ -115,8 +122,12 @@ def scene_from_numpy(d: dict, device="cuda") -> dict:
     }
     if "bvh" in d:
         b = d["bvh"]
-        bvh = {k: np.array(b[k], np.float32) for k in _BVH_ARRAYS}
-        bvh["bvhf_rows"] = np.ascontiguousarray(bvh["bvhf_nodes"].T)
+        bvh = {"mt_rows": np.array(b["mt_rows"], np.float32)}
+        for k, row_key in _BVH_LAYOUTS.items():
+            if k in b:
+                bvh[k] = np.array(b[k], np.float32)
+                # bvh8_nodes is row-major already: its row copy is itself
+                bvh[row_key] = bvh[k] if k == "bvh8_nodes" else np.ascontiguousarray(bvh[k].T)
         bvh["slot_tri"] = np.array(b["slot_tri"], np.int32)
         bvh["mt_attr_lanes"] = int(np.asarray(b["mt_attr_lanes"]))
         if "tex_autoroute" in b:

@@ -17,7 +17,10 @@ def refit_scene_instances(scene: dict, transforms) -> dict:
     [I, 4, 4] transforms, as O(instances) work on the scene's device, with no
     triangle re-bake and no BVH rebuild; the analogue of a D3D12 TLAS update
     build (PERFORM_UPDATE). Returns a new scene dict; the BLAS arrays are
-    shared with ``scene``."""
+    shared with ``scene``. Only the TLAS layouts the scene carries are
+    replaced: a TLAS without fat nodes stays without them, so its route
+    keeps the binary walk (kernel B6b) from frame to frame."""
     ctx = scene["tlas_meta"]["refit_ctx"]
     dyn = tlas_mod.refit_instances_arrays(ctx, transforms, scene["tlas"]["mt_rows"].device)
-    return dict(scene, tlas=dict(scene["tlas"], **dyn))
+    return dict(scene, tlas=dict(scene["tlas"],
+                                 **{k: v for k, v in dyn.items() if k in scene["tlas"]}))

@@ -62,12 +62,13 @@ def to_device(tree, device):
 def bvh_to_device(bvh: dict, materials: dict, device) -> dict:
     """The scene entries of a BVH (``pack_for_traversal``'s arrays, numpy or
     tensors) and its stacked materials: {"bvh": ...} with the kernels'
-    arrays ``bvhf_rows``, ``mt_rows`` and ``slot_tri`` on ``device`` and the
-    JAX package's node layouts ``bvh_nodes`` and ``bvhf_nodes`` left on the
-    host (no kernel reads them); and, for at most MP_MAX_MATERIALS
+    arrays ``bvhf_rows`` (B4a, B5), ``bvh_rows`` (B4b), ``bvh8_rows``
+    (B4d), ``mt_rows`` and ``slot_tri`` on ``device`` and the JAX
+    package's node layouts ``bvh_nodes``, ``bvhf_nodes`` and ``bvh8_nodes``
+    left on the host (no kernel reads them); and, for at most MP_MAX_MATERIALS
     materials, ``material_pack``, the fused-traversal kernel's material
     table, built once here."""
-    on_device = ("bvhf_rows", "mt_rows", "slot_tri")
+    on_device = ("bvhf_rows", "bvh_rows", "bvh8_rows", "mt_rows", "slot_tri")
     out = {"bvh": {
         k: v if isinstance(v, (int, str))
         else torch.as_tensor(v).to(device if k in on_device else "cpu")

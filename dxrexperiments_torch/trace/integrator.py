@@ -22,11 +22,13 @@ scene and option they do not take. Each trace stage is one launch of a
 trace kernel with impl='cuda', or its plain version with impl='torch': on a
 brute-force scene ``ops/intersect_kernel.py`` (kernel B3, the hit
 attributes fused in the kernel); on a BVH scene ``ops/traverse.py`` (kernel
-B4a; its plain version is the brute-force sweep over the same triangles);
-on a two-level (TLAS/BLAS) scene ``ops/traverse2.py`` (kernel B6a; its plain
-version tests every instance's triangles in object space, and the hit
-attributes come from the object-space normals, the instance's normal matrix
-and its material override).
+B4a, or B4b for a BVH without fat nodes; their plain version is the
+brute-force sweep over the same triangles); on a two-level (TLAS/BLAS)
+scene ``ops/traverse2.py`` (kernel B6a, or B6b for a TLAS without fat
+nodes; their plain version tests every instance's triangles in object
+space, and the hit attributes come from the object-space normals, the
+instance's normal matrix and its material override). ``walk_functions``
+makes the choice, keyed as the JAX integrator keys it.
 
 Lights: any number of directional, point and area lights; every shadow ray
 of a shading point, the area lights' AREA_LIGHT_SAMPLES each, goes through
@@ -89,20 +91,29 @@ def resolve_impl(impl: str, device) -> str:
     return impl
 
 
-def _check_scene(scene: dict) -> None:
-    if "tlas" not in scene and "bvh" in scene and "bvhf_nodes" not in scene["bvh"]:
-        raise NotImplementedError(
-            "a BVH without fat nodes needs the binary-node walk (kernel B4b, "
-            "ROADMAP Queue B item 4)"
-        )
+def walk_functions(scene: dict, impl: str) -> tuple:
+    """(closest, any) trace functions of a two-level or BVH scene's route:
+    with impl='cuda' the fat walks B6a / B4a where the scene's TLAS or BVH
+    carries fat nodes (``"tlasf_nodes" in scene["tlas"]``, ``"bvhf_nodes" in
+    scene["bvh"]``: the entries the JAX integrator keys on), else the binary
+    walks B6b / B4b; with impl='torch' the plain versions."""
+    if "tlas" in scene:
+        if impl != "cuda":
+            return tlas_mod.two_level_closest_reference, tlas_mod.two_level_any_reference
+        if "tlasf_nodes" in scene["tlas"]:
+            return traverse2.traverse2_fat_closest, traverse2.traverse2_fat_any
+        return traverse2.traverse2_closest, traverse2.traverse2_any
+    if impl != "cuda":
+        return traverse.traverse_fat_closest_reference, traverse.traverse_fat_any_reference
+    if "bvhf_nodes" in scene["bvh"]:
+        return traverse.traverse_fat_closest, traverse.traverse_fat_any
+    return traverse.traverse_closest, traverse.traverse_any
 
 
 def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
     """Closest hit + hit attributes. Returns (hit, position, normal, mat)."""
-    _check_scene(scene)
     if "tlas" in scene:
-        fn = (traverse2.traverse2_fat_closest if impl == "cuda"
-              else tlas_mod.two_level_closest_reference)
+        fn = walk_functions(scene, impl)[0]
         hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
         position, normal, mat = _interpolate_hit_two_level(scene, hits, origins, directions)
         return hits["hit"], position, normal, mat
@@ -115,19 +126,15 @@ def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
             tri = torch.clamp(h["tri"], min=0)
             _modulate_albedo(scene, mat, scene["mat_id"][tri], tri, h["u"], h["v"], "")
         return h["hit"], h["position"], h["normal"], mat
-    fn = (traverse.traverse_fat_closest if impl == "cuda"
-          else traverse.traverse_fat_closest_reference)
+    fn = walk_functions(scene, impl)[0]
     hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
     position, normal, mat = _interpolate_hit(scene, hits, origins, directions)
     return hits["hit"], position, normal, mat
 
 
 def _trace_any(scene, origins, directions, t_min, t_max, impl: str):
-    _check_scene(scene)
-    if "tlas" in scene:
-        fn = traverse2.traverse2_fat_any if impl == "cuda" else tlas_mod.two_level_any_reference
-    elif "bvh" in scene:
-        fn = traverse.traverse_fat_any if impl == "cuda" else traverse.traverse_fat_any_reference
+    if "tlas" in scene or "bvh" in scene:
+        fn = walk_functions(scene, impl)[1]
     else:
         fn = intersect_kernel.trace_any if impl == "cuda" else intersect_kernel.trace_any_reference
     return fn(scene, origins, directions, t_min, t_max)

@@ -35,7 +35,7 @@ from dxrexperiments_tpu.scene import procedural as jproc
 from dxrexperiments_tpu.scene.materials import Material as JMaterial
 
 SCENES = ("cornell", "soup600", "instanced:2")
-PACK_KEYS = ("bvh_nodes", "bvhf_nodes", "mt_rows", "slot_tri")
+PACK_KEYS = ("bvh_nodes", "bvhf_nodes", "bvh8_nodes", "mt_rows", "slot_tri")
 
 
 def scene_pair(kind):
@@ -113,6 +113,8 @@ def test_pack_equals_jax(kind, builder):
         np.testing.assert_array_equal(got[k], npy(want[k]), err_msg=k)
     assert got["mt_attr_lanes"] == int(npy(want["mt_attr_lanes"]))
     np.testing.assert_array_equal(got["bvhf_rows"], got["bvhf_nodes"].T)
+    np.testing.assert_array_equal(got["bvh_rows"], got["bvh_nodes"].T)
+    np.testing.assert_array_equal(got["bvh8_rows"], got["bvh8_nodes"])
     child = nodes["child"]
     np.testing.assert_array_equal(
         ttv.fat_nodes(nodes["nodes_lo"], nodes["nodes_hi"], child),
@@ -131,7 +133,8 @@ def test_scene_build_bvh_equals_jax(kind):
         assert g.dtype == npy(want[k]).dtype, k
         np.testing.assert_array_equal(g, npy(want[k]), err_msg=k)
     assert got["mt_attr_lanes"] == int(npy(want["mt_attr_lanes"]))
-    assert got["bvhf_rows"].is_contiguous()
+    for k in ("bvhf_rows", "bvh_rows", "bvh8_rows"):
+        assert got[k].is_contiguous() and got[k].dtype == torch.float32, k
 
 
 def test_morton_fallback_without_gxx(monkeypatch):

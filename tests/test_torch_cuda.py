@@ -9,11 +9,13 @@ card and not JAX:
 Gates: the image gate of benchmarks/kernel_parity.py on the per-sample mean
 (at most 1% of pixels differ by more than 1e-3, median |difference| <= 1e-5)
 for both megakernels (B1, B5) in both modes, each realtime AOV on its own:
-knife-edge pairs may flip under FMA contraction. The fat-node walks (B4a,
-and B6a on two-level scenes): the hit gates of benchmarks/kernel_parity.py
+knife-edge pairs may flip under FMA contraction. The BVH walks (B4a fat,
+B4b binary, B4d 8-wide, and B6a fat, B6b binary on two-level scenes): the
+hit gates of benchmarks/kernel_parity.py
 (relative t on lanes that hit the same triangle: median <= 1e-6, p99.9 <=
 1e-4, max <= 0.05; lanes whose hit differs <= 1%; occlusion disagreement <=
-1%); B6a's instance equal on the lanes that hit the same triangle. The
+1%); B6a's and B6b's instance equal on the lanes that hit the same
+triangle; zero-direction shadow rays never occluded. The
 brute-force trace kernels (B3): the same hit and occlusion gates, and on
 lanes that hit the same triangle the normal within 1e-5 on 99.9% of lanes,
 the position over max(1, t) within the hit gate's bounds on t (it is
@@ -353,11 +355,13 @@ def test_bvh_routes_launch_counts(cuda_device):
     assert bool(out["color"].isfinite().all())
 
 
-def chain_scene(levels: int = 120):
+def chain_scene(levels: int = 120, right_deep: bool = False):
     """A one-triangle scene under a degenerate BVH whose near-first walk
     needs a stack as deep as `levels`: every chain node's near child is the
     next chain node and its far child a two-leaf subtree, all boxes the
-    same, so each visit pushes two nodes and pops one."""
+    same, so each visit pushes two nodes and pops one. right_deep: the
+    chain goes on in each node's right child, which the binary walk (it
+    walks the right child first) follows as deep."""
     sc = Scene()
     pos, idx = quad([-1, -1, 5], [1, -1, 5], [1, 1, 5], [-1, 1, 5])
     sc.add_model(Mesh(pos, None, idx[:1]))
@@ -367,7 +371,7 @@ def chain_scene(levels: int = 120):
     for _ in range(levels):
         nxt, far, l0, l1 = range(len(child), len(child) + 4)
         child += [[0, 0], [l0, l1], [-1, 1], [-1, 1]]
-        child[cur] = [nxt, far]
+        child[cur] = [far, nxt] if right_deep else [nxt, far]
         cur = nxt
     child[cur] = [-1, 1]
     m = len(child)
@@ -450,16 +454,18 @@ def probe_rays(n, seed, radius=8.0, spread=1.8):
     return o, d.astype(np.float32)
 
 
-def chain_two_level(levels: int = 120, device="cpu"):
+def chain_two_level(levels: int = 120, device="cpu", right_deep: bool = False):
     """A one-instance two-level scene whose BLAS is chain_scene's degenerate
-    tree: its near-first walk needs a BLAS stack as deep as `levels`."""
-    _, packed = chain_scene(levels)
+    tree (fat and binary): its walk needs a BLAS stack as deep as
+    `levels`."""
+    _, packed = chain_scene(levels, right_deep)
     sc = Scene()
     pos, idx = quad([-1, -1, 5], [1, -1, 5], [1, 1, 5], [-1, 1, 5])
     sc.add_model(Mesh(pos, None, idx[:1]))
     scene = sc.build_two_level(device)
     tl = dict(scene["tlas"], **{k: torch.as_tensor(packed[src]).to(device) for k, src in (
-        ("blasf_rows", "bvhf_rows"), ("mt_rows", "mt_rows"), ("slot_tri", "slot_tri"))})
+        ("blasf_rows", "bvhf_rows"), ("blas_rows", "bvh_rows"), ("mt_rows", "mt_rows"),
+        ("slot_tri", "slot_tri"))})
     return dict(scene, tlas=tl)
 
 
@@ -568,6 +574,146 @@ def test_two_level_pipeline_launch_counts(cuda_device):
     assert tuple(b - a for a, b in zip(counts0, counts)) == (0, 0, 0, 0, 8, 8)
     img = pipe.get_output()
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
+
+
+# ---- packs without fat nodes: kernels B4b, B4d (binary, 8-wide) and B6b -------
+
+FAT_BVH = ("bvhf_nodes", "bvhf_rows")
+FAT_TLAS = ("tlasf_nodes", "tlasf_rows")
+
+
+def _drop(tree: dict, keys) -> dict:
+    return {k: v for k, v in tree.items() if k not in keys}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["binary", "wide"])
+def test_traverse_binary_and_wide_match_plain(cuda_device, walk):
+    scene, cams = _bvh_setup(cuda_device)
+    o, d, pos, sd, dist = _primary_and_shadow_rays(scene, cams)
+    closest, any_, counters = (
+        (traverse.traverse_closest, traverse.traverse_any,
+         ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")) if walk == "binary" else
+        (traverse.traverse8_closest, traverse.traverse8_any,
+         ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES")))
+    before = [getattr(traverse, c) for c in counters]
+    got = closest(scene, o, d, 0.0, 1e38, cull_backface=True)
+    sd = sd.clone()
+    sd[::3] = 0.0  # zero directions: never occluded
+    occ = any_(scene, pos, sd, 1e-4, dist)
+    want = traverse.traverse_fat_closest_reference(scene, o, d, 0.0, 1e38, cull_backface=True)
+    occ_want = traverse.traverse_fat_any_reference(scene, pos, sd, 1e-4, dist)
+    torch.cuda.synchronize()
+    traverse.check_errors()
+    assert [getattr(traverse, c) for c in counters] == [b + 1 for b in before]
+    assert float(got["hit"].float().mean()) > 0.2
+    hit_gate(got, want)
+    assert not bool(occ[::3].any())
+    assert 0.0 < float(occ_want.float().mean()) < 1.0
+    assert float((occ != occ_want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_binary_walks_stack_overflow_raises(cuda_device):
+    o = torch.zeros((4, 3), device=cuda_device)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda_device)
+    base, packed = chain_scene(120, right_deep=True)
+    scene = {k: torch.as_tensor(base[k]).to(cuda_device) for k in ("v0", "e1", "e2")}
+    scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in packed.items()
+                    if k in ("bvh_rows", "mt_rows", "slot_tri")}
+    deep2 = chain_two_level(120, cuda_device, right_deep=True)
+    for trace, sc in ((traverse.traverse_closest, scene), (traverse.traverse_any, scene),
+                      (traverse2.traverse2_closest, deep2), (traverse2.traverse2_any, deep2)):
+        with pytest.raises(RuntimeError, match="stack overflowed"):
+            trace(sc, o, d, 0.0, 1e38)
+            traverse.check_errors()
+    _, shallow = chain_scene(40, right_deep=True)
+    scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in shallow.items()
+                    if k in ("bvh_rows", "mt_rows", "slot_tri")}
+    for hits in (traverse.traverse_closest(scene, o, d, 0.0, 1e38),
+                 traverse2.traverse2_closest(chain_two_level(40, cuda_device, True), o, d, 0.0,
+                                             1e38)):
+        traverse.check_errors()
+        assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"],
+                                                                                     5.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["five", "instanced:4", "single"])
+def test_traverse2_binary_matches_plain(cuda_device, kind):
+    if kind == "single":
+        from dxrexperiments_torch.scene.procedural import sphere_mesh
+
+        sc = Scene()
+        sc.add_model(sphere_mesh((0.0, 0.0, 0.0), 1.0),
+                     transform=tf((0.3, 0, 0), yaw=0.4, scale=1.2))
+        scene = sc.build_two_level(cuda_device)
+        o, d = (torch.as_tensor(x, device=cuda_device)
+                for x in probe_rays(SIZE * SIZE, 2, spread=0.8))
+    else:
+        scene, o, d = _two_level_setup(cuda_device, kind)
+    scene = dict(scene, tlas=_drop(scene["tlas"], FAT_TLAS))
+    c0, a0 = traverse2.BINARY_CLOSEST_LAUNCHES, traverse2.BINARY_ANY_LAUNCHES
+    f0 = (traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES)
+    got = traverse2.traverse2_closest(scene, o, d, 1e-4, 3.0e37)
+    want = traverse2.two_level_closest_reference(scene, o, d, 1e-4, 3.0e37)
+    pos, sd, dist = _shadow_rays(o, d, want, (2.0, 6.0, 1.5))
+    sd[::3] = 0.0  # zero directions: never occluded
+    occ = traverse2.traverse2_any(scene, pos, sd, 1e-4, dist)
+    occ_want = traverse2.two_level_any_reference(scene, pos, sd, 1e-4, dist)
+    torch.cuda.synchronize()
+    traverse.check_errors()
+    assert (traverse2.BINARY_CLOSEST_LAUNCHES, traverse2.BINARY_ANY_LAUNCHES) == (c0 + 1, a0 + 1)
+    assert (traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES) == f0
+    assert float(got["hit"].float().mean()) > 0.1
+    hit_gate(got, want)
+    same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
+    assert torch.equal(got["inst"][same], want["inst"][same])
+    assert not bool(occ[::3].any())
+    assert float((occ != occ_want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_fatless_routes_launch_counts(cuda_device):
+    """Both pipelines on a BVH without fat nodes launch B4b, on a TLAS
+    without fat nodes B6b (refits included), and nothing else walks."""
+    sc, cam = build_scene("instanced:2")
+    cam.set_aspect(SIZE, SIZE)
+    flat = sc.build(cuda_device, accel="bvh")
+    two = sc.build_two_level(cuda_device)
+    cases = ((dict(flat, bvh=_drop(flat["bvh"], FAT_BVH)), traverse,
+              ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")),
+             (dict(two, tlas=_drop(two["tlas"], FAT_TLAS)), traverse2,
+              ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")))
+    others = lambda: (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES,  # noqa: E731
+                      traverse.ANY_LAUNCHES, traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES)
+    base_tf = np.stack([inst.transform for inst in sc.instances])
+    for scene, mod, counters in cases:
+        pipe = ProgressiveRaytracingPipeline(SIZE, SIZE, seed=1, samples_per_frame=2,
+                                             device=cuda_device)
+        pipe.set_camera(cam)
+        pipe.set_scene_data(scene)
+        before, other0 = [getattr(mod, c) for c in counters], others()
+        for f in range(2):
+            if "tlas" in scene:
+                pipe.set_instance_transforms(np.einsum("ij,njk->nik", tf(yaw=0.05 * f), base_tf))
+            pipe.update(elapsed_time=0.0, elapsed_frames=f)
+            pipe.render()
+        torch.cuda.synchronize()
+        assert [getattr(mod, c) - b for c, b in zip(counters, before)] == [8, 8]
+        assert others() == other0
+        img = pipe.get_output()
+        assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
+        rt = RealtimeRaytracingPipeline(SIZE, SIZE, seed=0, device=cuda_device)
+        rt.set_camera(cam)
+        rt.set_scene_data(scene)
+        before = [getattr(mod, c) for c in counters]
+        rt.update(0.0, 0)
+        direct, spec = rt.render()
+        torch.cuda.synchronize()
+        traverse.check_errors()
+        assert [getattr(mod, c) - b for c, b in zip(counters, before)] == [2, 2]
+        assert bool((direct + spec).isfinite().all())
 
 
 # ---- brute-force scenes: kernel B3 (closest + any) ---------------------------

@@ -33,6 +33,7 @@ from dxrexperiments_torch.scene import Scene as TScene
 from dxrexperiments_torch.scene.convert import scene_from_numpy
 from dxrexperiments_torch.scene.dynamic import refit_scene_instances
 from dxrexperiments_torch.scene.procedural import sphere_mesh as t_sphere
+from dxrexperiments_torch.trace import integrator as tint
 from dxrexperiments_tpu.accel import tlas as jtlas
 from dxrexperiments_tpu.app.headless import build_scene as j_build_scene
 from dxrexperiments_tpu.ops import traverse2_pallas as jt2
@@ -76,6 +77,7 @@ def assert_refit_equal(got: dict, want: dict):
                                    err_msg=k)
     np.testing.assert_allclose(g["inst_nm"], npy(want["inst_nm"]), rtol=1e-6, atol=1e-6)
     np.testing.assert_array_equal(g["tlasf_rows"], g["tlasf_nodes"].T)
+    np.testing.assert_array_equal(g["tlas_rows"], g["tlas_nodes"].T)
     np.testing.assert_array_equal(g["inst_rows_t"], g["inst_rows"][:16].T)
 
 
@@ -257,9 +259,19 @@ def test_walk2_model_stack_overflow_raises():
 
 
 def test_check_tlas_needs_fat_rows():
+    """B6a's check needs the fat rows; a TLAS without them passes the binary
+    walk's check (B6b), and the integrator routes it there, keyed on
+    ``"tlasf_nodes" in tlas`` as the JAX integrator is."""
+    cpu = torch.device("cpu")
     td = port_five().build_two_level("cpu")
-    assert len(tt2.check_tlas(td["tlas"], torch.device("cpu"))) == 4
-    with pytest.raises(NotImplementedError, match="B6b"):
-        tt2.check_tlas({k: v for k, v in td["tlas"].items() if k != "tlasf_rows"}, "cpu")
+    assert len(tt2.check_tlas(td["tlas"], cpu)) == 4
+    fatless = {k: v for k, v in td["tlas"].items() if k not in ("tlasf_nodes", "tlasf_rows")}
+    with pytest.raises(ValueError, match="tlasf_rows"):
+        tt2.check_tlas(fatless, cpu)
+    got = tt2.check_tlas(fatless, cpu, "binary")
+    assert [tuple(t.shape[1:]) for t in got] == [(8,), (16,), (8,), (128,)]
+    assert tint.walk_functions(td, "cuda") == (tt2.traverse2_fat_closest, tt2.traverse2_fat_any)
+    assert tint.walk_functions(dict(td, tlas=fatless), "cuda") == (tt2.traverse2_closest,
+                                                                  tt2.traverse2_any)
     with pytest.raises(ValueError, match="inst_rows_t"):
-        tt2.check_tlas(dict(td["tlas"], inst_rows_t=td["tlas"]["inst_rows"]), torch.device("cpu"))
+        tt2.check_tlas(dict(td["tlas"], inst_rows_t=td["tlas"]["inst_rows"]), cpu)

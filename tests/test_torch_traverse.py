@@ -171,10 +171,25 @@ def test_pack_rays_layout():
 
 
 def test_bvh_route_needs_fat_nodes():
+    """B4a's walk needs the fat nodes; a BVH without them takes the binary
+    walk (B4b), as the JAX integrator keys it (``"bvhf_nodes" in bvh``), and
+    the route runs on the CPU through the same plain versions."""
     tscene = port(soup_scene())
-    tscene["bvh"] = {k: v for k, v in tscene["bvh"].items() if k != "bvhf_nodes"}
-    with pytest.raises(NotImplementedError, match="B4b"):
-        tint._trace_any(tscene, torch.zeros(2, 3), torch.ones(2, 3), 1e-4, 1.0, impl="torch")
+    fatless = dict(tscene, bvh={k: v for k, v in tscene["bvh"].items()
+                                if k not in ("bvhf_nodes", "bvhf_rows")})
+    with pytest.raises(ValueError, match="bvhf_rows"):
+        ttv.check_bvh(fatless["bvh"], torch.device("cpu"))
+    assert len(ttv.check_bvh(fatless["bvh"], torch.device("cpu"), "binary")) == 2
+    assert tint.walk_functions(tscene, "cuda") == (ttv.traverse_fat_closest, ttv.traverse_fat_any)
+    assert tint.walk_functions(fatless, "cuda") == (ttv.traverse_closest, ttv.traverse_any)
+    assert tint.walk_functions(fatless, "torch") == tint.walk_functions(tscene, "torch")
+    o, d = (torch.as_tensor(x) for x in rays(tscene, seed=6))
+    before = (ttv.BINARY_CLOSEST_LAUNCHES, ttv.BINARY_ANY_LAUNCHES)
+    got = tint._trace_any(fatless, o, d, 1e-4, 7.5, impl="torch")
+    assert torch.equal(got, tint._trace_any(tscene, o, d, 1e-4, 7.5, impl="torch"))
+    # the binary wrappers on CPU rays take the plain version and launch nothing
+    assert torch.equal(ttv.traverse_any(fatless, o, d, 1e-4, 7.5), got)
+    assert (ttv.BINARY_CLOSEST_LAUNCHES, ttv.BINARY_ANY_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("case", ["cornell", "soup_rig", "soup_two_points", "ao_only"])
