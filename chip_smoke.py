@@ -105,7 +105,12 @@ Phases, each of which raises on failure:
      count 32 closest and 32 any B3 launches and no B1, B4a, B5 or B6a
      launch); the first sample through the wavefront route, against the
      plain version on 4,096 sampled pixels, and B3 against the plain
-     versions on 4,096 sampled rays of each of its four launches; realtime
+     versions on every ray of each of its four launches (the plain sweep in
+     slices of PLAIN_SLICE rays; the hit, attribute and occlusion gates on
+     the whole launch, so that no draw decides them), with a census of each
+     closest launch's tail (tail_census: the grazing angle and origin
+     distance of the hits whose t or normal errors exceed 1e-5) and, not
+     gated, the attribute numbers on a 4,096-ray draw; realtime
      + denoise at 1920x1080, 2 frames (4 + 4 B3 and 4 B2 launches); Cornell
      with --ao-only (1 closest and 4 any per sample) and cornell-glass with
      --refraction (a 3N-ray bounce launch) at 512^2, and Cornell with a
@@ -248,9 +253,64 @@ Phases, each of which raises on failure:
      per dispatch, B6b at phase 14's shape, and realtime + denoise at
      1080p, 2 frames (4 + 4 B6b and 4 bilateral launches).
 
+ 35. the grouped fat-node packet walk B4c (csrc/traverse_fat_grouped.cu;
+     run inside phase 32, on its state): phase 8's four launch inputs, B4a
+     on each first, then B4c at tile 1024 with groups 2, 4 and 8 and at tile
+     2048 with group 4 (the primary launch with common_origin; exactly one
+     B4c launch per input and layout, no other kernel's); against B4a on all
+     rays (the hit gate, occlusion disagreement <= 1%, the share of rays
+     whose t is bit-equal to B4a's); B4c and B4a against the plain version
+     on GROUPED_PLAIN_RAYS (65,536) random rays drawn once per launch (some
+     14,000 bounce hits, so that p99.9 is a quantile; with B4a's tail
+     census), and on the GROUPED_MODEL_RAYS rays of whole sampled packets
+     (occlusion knife-edge-aware, as on the host model, since a packet of
+     floor pixels holds many knife edges); against the host model
+     (ops/traverse.fat_packet_walk_numpy without the TPU kernel's one-leaf
+     lag, as the card walks; hits and slots, and t with the hits that a
+     float32-sized nudge of the origin moves beyond 1e-4 excused,
+     model_hit_gate) on those packets; each launch alone, B4a and B4c in turns, with the bound (B4a's,
+     phase 10a: the same function of the same rays), the packet model's
+     counts and redundant-work bound beside it, and the deepest stack; B4c
+     against the plain version on 'instanced:4' at 128^2 (phase 7's rays),
+     and its times there. The phase draws from its own generator;
+ 36. B1's opt-ins (run after phase 6): Cornell-glossy's progressive
+     pipeline at 512^2, 2 dispatches of S = 16 each with no knob,
+     FUSED_CLUSTERS=16 and FUSED_BLOCK_W=16 set in the environment (exactly
+     6 B1 launches, 2 of them CLUSTERED and 2 BLOCKED; the three images
+     equal bit for bit); the CLUSTERED (8, 16 and 24 rows per cluster, C =
+     40) and BLOCKED (block_w 8, 16, 32) instantiations against the base
+     one, bit for bit, on phase 3's option sets at 128^2, config 1's first
+     512^2 dispatch and phase 5's 1080p realtime frame 0 (every AOV); config
+     1's first dispatch with 16 rows per cluster against the plain version;
+     ms per 16-sample 512^2 dispatch for each setting, in turns with the
+     base;
+ 37. the roofline probes B7 (csrc/roofline.cu; run after phase 31): the
+     FMA chains, the pair-test mix and the overlap probe (vector and matrix,
+     matrix alone, vector alone, at vector scales 1, 2 and 4) against their
+     plain versions at roofline.py's --interpret size (iters 2, grid 2) on
+     seeded inputs: relative 1e-4 for the chains and the mix, the split-TF32
+     product within 2 K float32 ulps of the sum of |terms| (K = 16) of the
+     float32 product; then roofline.py's size and inputs (exactly 1 + 1 + 7
+     launches), their outputs against the plain versions on the same
+     tensors (the mix overflows to inf there: equal non-finite values pass),
+     and every probe and setting again at full size on seeded inputs (the
+     mix's a near its neutral growth, ops/roofline.mix_inputs), where a trip
+     count, a grid block or the product's schedule off shows, with the same
+     tolerances; each of the main path's launches alone timed: the FFMA TFLOP/s (an FMA counted as
+     two), the mix's ops/s, the product's TFLOP/s alone and the overlap
+     verdict; a rate above 105% of the data sheet (67 TFLOP/s float32, 33.5
+     T instructions/s, 494.7 TFLOP/s dense TF32) fails the phase.
+
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
 operations; NVIDIA's H100 SXM data sheet) and its bytes over 3.35 TB/s.
+Phase 37 measures the peak this card reaches (FFMA TFLOP/s) and prints it
+beside the data sheet's; the bounds keep the data sheet's peak, which is
+the published one, and PERF.md sets the two side by side. The overlap
+probe's bound is the larger of its FMAs over the float32 peak and its three
+TF32 products over 494.7 TFLOP/s (the units may run at once). B4c computes
+B4a's function on the same rays, so its bound is B4a's (phase 10a); its
+packet model's counts, with the work the packets add, are printed beside.
 The brute-force megakernel's pair tests and env lookups (the closest-hit
 rays that miss, each 4 texels of 12 bytes, together at most the texture's
 bytes) are counted on its plain run (B5's the same way, and its closest
@@ -312,6 +372,7 @@ BVH_MAIN_SCENE, BVH_S, BVH_DISPATCHES, BVH_RT_FRAMES = "instanced:32", 4, 4, 4
 SHADOW_LIGHT = (2.0, 6.0, 1.5)  # the B4a occlusion checks' point light
 COUNT_PIXELS = 4096  # sampled pixels whose walks the host model counts
 FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s without tensor cores (FMA = 2)
+TF32_PEAK = 494.7e12  # H100 SXM dense TF32 FLOP/s on the tensor cores
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 OPS_PAIR = 50  # float32 operations of one Möller–Trumbore pair test (csrc/common.cuh)
 OPS_SLAB = 25  # of one child-box slab test
@@ -344,6 +405,13 @@ C5_AREA_DISPATCHES, C5_AREA_RT_FRAMES = 2, 2  # instanced:32 with the area rig
 FAT_BVH = ("bvhf_nodes", "bvhf_rows")  # dropped: the route takes the binary walk (B4b)
 FAT_TLAS = ("tlasf_nodes", "tlasf_rows")  # dropped: the two-level route takes B6b
 BIN_RT_FRAMES = 2  # realtime + denoise frames on the routes without fat nodes
+GROUPINGS = ((1024, 2), (1024, 4), (1024, 8), (2048, 4))  # B4c's (tile, group) layouts
+PLAIN_SLICE = 65536  # rays per call of a plain sweep over a whole launch
+GROUPED_MODEL_RAYS = 4096  # rays (whole packets) of each launch the packet model walks
+# random rays of each launch B4c and B4a are held against the plain version on
+# (one draw for every layout): some 14,000 bounce hits, so that the hit gate's
+# p99.9 is the 14th largest relative t error, not the largest of a few
+GROUPED_PLAIN_RAYS = 16 * 4096
 AOVS = ("direct", "indirect_specular", "albedo", "color", "roughness")
 OPTION_CASES = [
     ("defaults", {}, "const"),
@@ -455,11 +523,45 @@ def hit_gate(name, got, want, torch):
     return g
 
 
-def attr_gate(name, got, want, torch):
+def tail_census(name, got, want, scene, o, d, normal_tail: bool = False):
+    """Prints where the tail of a closest-hit comparison lies (rays that hit
+    the same triangle): the count of rays whose relative t error (or, with
+    normal_tail, whose largest normal component error) is above 1e-5 and
+    above 1e-4, and the median over them and over all such rays of |cos|,
+    the cosine between the ray and the triangle's normal (grazing hits have a
+    small one), and of |o| / max(1, t) (a far origin cancels in the
+    barycentrics and t). Returns those numbers."""
+    import torch
+
+    same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
+    if normal_tail:
+        err = (got["normal"] - want["normal"]).abs().amax(dim=1)[same]
+    else:
+        err = ((got["t"] - want["t"]).abs() / want["t"].abs().clamp(min=1.0))[same]
+    pn = scene["pn"][want["tri"][same]]
+    ds = d[same]
+    cos = ((ds * pn).sum(-1).abs() / (ds.norm(dim=-1) * pn.norm(dim=-1)).clamp(min=1e-30))
+    far = o[same].norm(dim=-1) / want["t"][same].clamp(min=1.0)
+    out = {"hits": int(same.sum()), "above_1e-5": int((err > 1e-5).sum()),
+           "above_1e-4": int((err > 1e-4).sum())}
+    for key, sel in (("all", torch.ones_like(err, dtype=torch.bool)), ("tail", err > 1e-5)):
+        out[f"median_cos_{key}"] = float(cos[sel].median()) if bool(sel.any()) else None
+        out[f"median_far_{key}"] = float(far[sel].median()) if bool(sel.any()) else None
+    what = "normal |d|" if normal_tail else "relative t"
+    print(f"tail {name}: of {out['hits']} same-triangle hits, {what} > 1e-5 on "
+          f"{out['above_1e-5']}, > 1e-4 on {out['above_1e-4']}; median |cos| (ray, normal) "
+          f"{out['median_cos_tail']} on those, {out['median_cos_all']} on all; median |o| / "
+          f"max(1, t) {out['median_far_tail']} on those, {out['median_far_all']} on all",
+          flush=True)
+    return out
+
+
+def attr_gate(name, got, want, torch, gated: bool = True):
     """B3's fused attributes against the plain version's on rays that hit
     the same triangle: the normal within 1e-5 on 99.9% of rays, the position
     over max(1, t) within the hit gate's bounds (it is o + t d), the
-    material rows and ids equal. Returns the largest differences."""
+    material rows and ids equal. Returns the largest differences; raises on
+    failure unless gated is False (a census: the numbers are printed)."""
     from dxrexperiments_torch.ops.intersect_kernel import MATERIAL_KEYS
 
     same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
@@ -476,8 +578,8 @@ def attr_gate(name, got, want, torch):
     print(f"parity {name} attributes: normal |d| p99.9 {g['normal_p999']:.2e} max "
           f"{g['normal_max']:.2e}, position |d| / max(1, t) median {g['position_median']:.2e} "
           f"p99.9 {g['position_p999']:.2e} max {g['position_max']:.2e}, material rows equal "
-          f"{mats} -> {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
+          f"{mats} -> {('ok' if ok else 'FAIL') if gated else 'not gated'}", flush=True)
+    if gated and not ok:
         raise RuntimeError(f"B3 attribute gate failed for {name}")
     return g
 
@@ -732,6 +834,111 @@ def knife_edges(tv, scene, log, pixel_ids, pixels: int, lights):
             rows = torch.as_tensor(area_rows(reps, lights), device=dev)
             area_edge |= (flip & rows[:, None]).any(dim=0)
     return edge, area_edge
+
+
+def ray_knife_edges(tv, scene, o, d, t_min, t_max):
+    """[n] bool: the occlusion of each shadow ray o, d flips on the plain
+    version under one of PROBE_TRIALS random perturbations of its origin
+    (by PROBE_ORIGIN * max(1, |o|)) and unit direction (by PROBE_EPS), as
+    knife_edges probes a pixel's traces. Zero directions are not traced."""
+    import torch
+
+    gen = torch.Generator(device=d.device).manual_seed(11)
+
+    def unit(shape):
+        g = torch.randn(shape, generator=gen, device=d.device)
+        return g / g.norm(dim=-1, keepdim=True).clamp(min=1e-12)
+
+    base = tv.traverse_fat_any_reference(scene, o, d, t_min, t_max)
+    traced = d.abs().sum(dim=-1, keepdim=True) > 0
+    edge = torch.zeros_like(base)
+    for _ in range(PROBE_TRIALS):
+        o_p = o + PROBE_ORIGIN * o.norm(dim=-1, keepdim=True).clamp(min=1.0) * unit(o.shape)
+        d_p = d + PROBE_EPS * unit(d.shape)
+        d_p = torch.where(traced, d_p / d_p.norm(dim=-1, keepdim=True), d)
+        edge |= tv.traverse_fat_any_reference(scene, o_p, d_p, t_min, t_max) != base
+    return edge
+
+
+def model_hit_gate(name, got, model, torch, unstable_of):
+    """Closest hits against a host model on the same rays, whose float32
+    arithmetic differs from the kernel's (no FMA contraction): the hit or
+    the leaf slot differs on at most 1% of rays, and on rays with the same
+    slot the relative t has median <= HIT_MEDIAN and max <= HIT_MAX, and
+    above HIT_P999 lie at most 0.1% of those hits (rounded down) that are
+    not ill-conditioned: unstable_of(idx) gives ray_t_unstable of the rays
+    idx (a grazing hit or a far origin, whose t a float32-sized nudge of the
+    origin moves by more than HIT_P999). On the few hits of some packets'
+    samples a p99.9 is their largest error, so the count is the steady
+    statistic, as knife_occlusion_gate's is for occlusion. A sample of whole
+    packets may hold no hit at all: then only the flags are compared.
+    Returns the slot disagreement fraction."""
+    hit = got["hit"]
+    m_hit = torch.as_tensor(model["hit"], device=hit.device)
+    m_slot = torch.as_tensor(model["slot"], device=hit.device)
+    same = (hit == m_hit) & (~hit | (got["slot"] == m_slot))
+    both = same & hit
+    frac = float((~same).float().mean())
+    rel_all = ((got["t"] - torch.as_tensor(model["t"], device=hit.device)).abs()
+               / got["t"].abs().clamp(min=1.0))
+    rel = rel_all[both].double()
+    g = {"median": 0.0, "p999": 0.0, "max": 0.0}
+    above = (both & (rel_all > HIT_P999)).nonzero()[:, 0]
+    hard = int((~unstable_of(above)).sum()) if len(above) else 0
+    if bool(both.any()):
+        g = {"median": float(rel.median()), "p999": float(torch.quantile(rel, 0.999)),
+             "max": float(rel.max())}
+    ok = (frac <= TIE_FRAC and g["median"] <= HIT_MEDIAN and g["max"] <= HIT_MAX
+          and hard <= int(0.001 * int(both.sum())))
+    print(f"parity {name}: hit frac {float(hit.float().mean()):.4f}, hit or slot differs on "
+          f"{frac:.5f} (<= {TIE_FRAC}), relative t median {g['median']:.2e} p99.9 "
+          f"{g['p999']:.2e} max {g['max']:.2e}; above {HIT_P999:.0e} {len(above)} of "
+          f"{int(both.sum())} hits, of which well-conditioned {hard} (<= 0.1%) -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"kernel vs host model hit gate failed for {name}")
+    return frac
+
+
+def ray_t_unstable(tv, scene, o, d, t_min, t_max, cull):
+    """[n] bool: the closest-hit t of each ray o, d moves by more than
+    HIT_P999 relative (over max(1, t)) on the plain version under one of
+    PROBE_TRIALS random nudges of its origin by PROBE_ORIGIN * max(1, |o|),
+    some 16 float32 ulps of it: its t is ill-conditioned in float32 (a
+    grazing hit, a far origin), as ray_knife_edges finds knife edges. A ray
+    whose hit comes or goes under a nudge counts as unstable too."""
+    import torch
+
+    gen = torch.Generator(device=d.device).manual_seed(13)
+    base = tv.traverse_fat_closest_reference(scene, o, d, t_min, t_max, cull_backface=cull)
+    unstable = torch.zeros_like(base["hit"])
+    for _ in range(PROBE_TRIALS):
+        g = torch.randn(o.shape, generator=gen, device=d.device)
+        o_p = o + PROBE_ORIGIN * o.norm(dim=-1, keepdim=True).clamp(min=1.0) * (
+            g / g.norm(dim=-1, keepdim=True).clamp(min=1e-12))
+        nudged = tv.traverse_fat_closest_reference(scene, o_p, d, t_min, t_max,
+                                                   cull_backface=cull)
+        moved = (nudged["t"] - base["t"]).abs() / base["t"].abs().clamp(min=1.0) > HIT_P999
+        unstable |= (nudged["hit"] != base["hit"]) | (base["hit"] & moved)
+    return unstable
+
+
+def knife_occlusion_gate(name, got, want, knife_of):
+    """Occlusion against a host model whose float32 arithmetic differs from
+    the kernel's (no FMA contraction): the rays where the two disagree and
+    that lie on no knife edge <= 1%; knife_of(idx) gives ray_knife_edges of
+    the rays idx. Returns the disagreement fraction."""
+    off = got != want
+    idx = off.nonzero()[:, 0]
+    hard_n = int((~knife_of(idx)).sum()) if len(idx) else 0
+    frac, hard = float(off.float().mean()), hard_n / len(off)
+    ok = hard <= TIE_FRAC
+    print(f"parity {name}: occluded {float(want.float().mean()):.4f}, disagreement {frac:.5f}, "
+          f"of which on no knife edge {hard:.5f} (<= {TIE_FRAC}) -> {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise RuntimeError(f"kernel vs host model occlusion gate failed for {name}")
+    return frac
 
 
 def bad_pixel_census(tv, scene, lights, kernel, wave, plain, wave_log, plain_log, pixel_ids,
@@ -1005,21 +1212,32 @@ def host_array(x):
     return x.detach().cpu().numpy() if hasattr(x, "detach") else np.float32(x)
 
 
-NODE_BYTES = {"fat": 64, "binary": 32, "wide": 256}  # one node of each walk's tree
+NODE_BYTES = {"fat": 64, "binary": 32, "wide": 256, "grouped": 64}  # one node of each tree
 
 
-def walk1_work(tv, kind, bvh_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_per_ray):
+def walk1_work(tv, kind, bvh_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_per_ray,
+               packet=(), model_out=None):
     """(operations, bytes, counts) of the walks of rays o, d (a sample of a
-    launch) by B4a, B4b or B4d (kind "fat", "binary", "wide"), counted by
-    their host model (ops/traverse.fat_walk_numpy, binary_walk_numpy,
-    wide_walk_numpy) and scaled by `scale` (launch rays / sampled rays):
-    slab and pair operations; the distinct nodes (NODE_BYTES each) and slots
-    (19 coefficients) touched, scaled but at most the whole arrays, plus
-    each ray's own input and output."""
-    model = {"fat": tv.fat_walk_numpy, "binary": tv.binary_walk_numpy,
-             "wide": tv.wide_walk_numpy}[kind]
-    _, c = model(bvh_np, host_array(o), host_array(d), host_array(t_min), host_array(t_max),
-                 cull=cull, occlusion=occlusion)
+    launch) by B4a, B4b, B4d or B4c (kind "fat", "binary", "wide", "grouped"
+    with packet = (tile, group, common_origin); its sample whole packets),
+    counted by their host model (ops/traverse.fat_walk_numpy,
+    binary_walk_numpy, wide_walk_numpy, fat_packet_walk_numpy without the
+    TPU kernel's lag, as the CUDA kernel walks) and scaled by `scale`
+    (launch rays / sampled rays): slab and pair operations; the distinct
+    nodes (NODE_BYTES each) and slots (19 coefficients) touched, scaled but
+    at most the whole arrays, plus each ray's own input and output. The
+    model's result goes into the dict model_out when given."""
+    if kind == "grouped":
+        tile, group, common_origin = packet
+        model = lambda *a, **k: tv.fat_packet_walk_numpy(  # noqa: E731
+            *a, tile=tile, group=group, common_origin=common_origin, **k)
+    else:
+        model = {"fat": tv.fat_walk_numpy, "binary": tv.binary_walk_numpy,
+                 "wide": tv.wide_walk_numpy}[kind]
+    res, c = model(bvh_np, host_array(o), host_array(d), host_array(t_min), host_array(t_max),
+                   cull=cull, occlusion=occlusion)
+    if model_out is not None:
+        model_out.update(res)
     rows = bvh_np[tv.WALKS[kind][2]]
     n_nodes = min(len(c["node_ids"]) * scale, len(rows) // 8 if kind == "wide" else len(rows))
     n_slots = min(len(c["slot_ids"]) * scale, int((bvh_np["slot_tri"] >= 0).sum()))
@@ -1051,6 +1269,18 @@ def walk2_work(tv2, tl_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_
               + touched["inst_ids"] * 64 + touched["slot_ids"] * 19 * 4
               + len(o) * scale * io_bytes_per_ray)
     return ops, nbytes, c
+
+
+def plain_sliced(fn, n: int, device):
+    """fn(idx) on the rays idx of each slice of PLAIN_SLICE of n rays, the
+    results (tensors, or dicts of them) concatenated in ray order."""
+    import torch
+
+    parts = [fn(torch.arange(i, min(i + PLAIN_SLICE, n), device=device))
+             for i in range(0, n, PLAIN_SLICE)]
+    if isinstance(parts[0], dict):
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    return torch.cat(parts)
 
 
 def rows_of(x, idx):
@@ -1090,6 +1320,7 @@ def time_ms(fn, reps: int, torch) -> float:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()  # the phases print their start on this clock
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script needs an NVIDIA GPU",
               file=sys.stderr)
@@ -1111,6 +1342,7 @@ def main() -> int:
     from dxrexperiments_torch.ops import fused_traverse as ft
     from dxrexperiments_torch.ops import intersect
     from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import roofline as rf
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
     from dxrexperiments_torch.scene import Scene, cornell_box, envmap
@@ -1135,6 +1367,9 @@ def main() -> int:
         tv.BINARY_CLOSEST_LAUNCHES = tv.BINARY_ANY_LAUNCHES = 0
         tv.WIDE_CLOSEST_LAUNCHES = tv.WIDE_ANY_LAUNCHES = 0
         tv2.BINARY_CLOSEST_LAUNCHES = tv2.BINARY_ANY_LAUNCHES = 0
+        tv.GROUPED_CLOSEST_LAUNCHES = tv.GROUPED_ANY_LAUNCHES = 0
+        fs.CLUSTERED_LAUNCHES = fs.BLOCKED_LAUNCHES = 0
+        rf.FMA_LAUNCHES = rf.MIX_LAUNCHES = rf.OVERLAP_LAUNCHES = 0
 
     def expect_counts(label, want):
         """Every kernel's launches since the last reset_counts: `want` (name
@@ -1146,7 +1381,11 @@ def main() -> int:
                "B4d closest": tv.WIDE_CLOSEST_LAUNCHES, "B4d any": tv.WIDE_ANY_LAUNCHES,
                "B5": ft.LAUNCHES, "B5 realtime": ft.REALTIME_LAUNCHES,
                "B6a closest": tv2.CLOSEST_LAUNCHES, "B6a any": tv2.ANY_LAUNCHES,
-               "B6b closest": tv2.BINARY_CLOSEST_LAUNCHES, "B6b any": tv2.BINARY_ANY_LAUNCHES}
+               "B6b closest": tv2.BINARY_CLOSEST_LAUNCHES, "B6b any": tv2.BINARY_ANY_LAUNCHES,
+               "B4c closest": tv.GROUPED_CLOSEST_LAUNCHES, "B4c any": tv.GROUPED_ANY_LAUNCHES,
+               "B1 clustered": fs.CLUSTERED_LAUNCHES, "B1 blocked": fs.BLOCKED_LAUNCHES,
+               "B7 fma": rf.FMA_LAUNCHES, "B7 mix": rf.MIX_LAUNCHES,
+               "B7 overlap": rf.OVERLAP_LAUNCHES}
         off = {k: v for k, v in got.items() if v != want.get(k, 0)}
         print(f"launches {label}: {', '.join(f'{k} {v}' for k, v in got.items() if v)}; "
               f"expected {want}, every other 0 -> {'FAIL' if off else 'ok'}", flush=True)
@@ -1163,6 +1402,7 @@ def main() -> int:
     }
     instanced_area = area_light((-2.0, 8.0, -2.0), (4.0, 0, 0), (0, 0, 4.0), (1.0, 0.95, 0.85, 10.0))
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 1", flush=True)
     # ---- 1. the card --------------------------------------------------------
     dev = setup_device("cuda")
     card = card_line()
@@ -1170,11 +1410,13 @@ def main() -> int:
     print(f"card (nvidia-smi name, power.limit): {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device: {kind}", flush=True)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 2", flush=True)
     # ---- 2. build: one nvcc per source and g++ for the SAH builder, together -----
     t0 = time.perf_counter()
     builds = (fs._library, bl._library, tv._library, lambda: tv._library("binary"),
               lambda: tv._library("wide"), ft._library, tv2._library,
-              lambda: tv2._library("binary"), ik._library, native.get_lib)
+              lambda: tv2._library("binary"), ik._library, lambda: tv._library("grouped"),
+              rf._library, native.get_lib)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futs = [pool.submit(f) for f in builds]
         sah_lib = [f.result() for f in futs][-1]
@@ -1182,7 +1424,8 @@ def main() -> int:
     print(f"build csrc/sah_bvh.cpp with g++: "
           f"{'built' if sah_lib is not None else 'no g++: the Morton build serves'}", flush=True)
     for name in ("fused_sample", "bilateral", "traverse_fat", "traverse_binary", "traverse8",
-                 "fused_traverse", "traverse2_fat", "traverse2_binary", "intersect_brute"):
+                 "fused_traverse", "traverse2_fat", "traverse2_binary", "intersect_brute",
+                 "traverse_fat_grouped", "roofline"):
         info = cuda_build.BUILD_INFO[name]
         print(f"build {name}.cu: nvcc {info['seconds']:.2f}s (all builds together "
               f"{load_s:.2f}s) -> {os.path.relpath(info['path'], ROOT)}", flush=True)
@@ -1210,6 +1453,7 @@ def main() -> int:
         cam.set_aspect(PARITY_SIZE, PARITY_SIZE)
         return sc.build(dev), cam
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 3a", flush=True)
     # ---- 3a. progressive kernel vs plain parity ----------------------------------
     for name, opts, env in OPTION_CASES:
         scene, cam = parity_scene(env)
@@ -1221,6 +1465,7 @@ def main() -> int:
         torch.cuda.synchronize()
         image_gate(f"{name} {PARITY_SIZE}^2 S={PARITY_S}", got, want, PARITY_S)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 3b", flush=True)
     # ---- 3b. realtime kernel vs plain parity -------------------------------------
     for name, opts, env in REALTIME_CASES:
         scene, cam = parity_scene(env)
@@ -1265,6 +1510,7 @@ def main() -> int:
                 bl_err = max(bl_err, bilateral_gate(
                     f"bilateral {h}x{w} axis {axis} radius {radius}", got, want))
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 4", flush=True)
     # ---- 4. the progressive main path ----------------------------------------------
     sc, cam = build_scene("cornell-glossy")
     cam.set_aspect(MAIN_SIZE, MAIN_SIZE)
@@ -1326,6 +1572,7 @@ def main() -> int:
     headless(["--scene", "cornell-glossy", "--size", f"{MAIN_SIZE}x{MAIN_SIZE}", "--spp", "32"],
              f"cornell-glossy {MAIN_SIZE}^2 32 spp")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 5", flush=True)
     # ---- 5. the realtime + denoise main path (config 4) ----------------------------
     sc, cam = build_scene("cornell-glossy")
     cam.set_aspect(RT_W, RT_H)
@@ -1378,6 +1625,7 @@ def main() -> int:
     headless(["--pipeline", "realtime", "--denoise", "--scene", "cornell-glossy", "--size",
               f"{RT_W}x{RT_H}"], f"realtime+denoise cornell-glossy {RT_W}x{RT_H}")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 6", flush=True)
     # ---- 6. times -------------------------------------------------------------------
     rays = MAIN_SIZE * MAIN_SIZE * MAIN_S
     kern_ms = time_ms(lambda: fs.fused_progressive_sum(
@@ -1453,6 +1701,107 @@ def main() -> int:
     print(f"time host packs per realtime frame (host clock, {n_packs} calls each): "
           f"pack_cameras {cam_us:.1f} us, pack_consts {cst_us:.1f} us [{card}]", flush=True)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 36", flush=True)
+    # ---- 36. B1's opt-ins: cluster-gated shadow sweeps, the blocked pixel order ---
+    # the main path with each knob set in the environment, as a user sets it:
+    # 2 dispatches of config 1 per setting, the images equal bit for bit; then
+    # the CLUSTERED and BLOCKED instantiations against the base one on phase
+    # 3's option sets at 128^2, config 1's first 512^2 dispatch and the 1080p
+    # realtime frame 0 (every AOV), all bit-equal; then the times, in turns.
+    opt_dispatches = 2
+    sc36, cam36 = build_scene("cornell-glossy")
+    cam36.set_aspect(MAIN_SIZE, MAIN_SIZE)
+    opt_imgs = {}
+    reset_counts()
+    for knob, value in ((None, None), ("FUSED_CLUSTERS", "16"), ("FUSED_BLOCK_W", "16")):
+        if knob:
+            os.environ[knob] = value
+        try:
+            pipe36 = ProgressiveRaytracingPipeline(MAIN_SIZE, MAIN_SIZE, seed=0,
+                                                   samples_per_frame=MAIN_S, device=dev)
+            pipe36.max_iterations = MAIN_S * opt_dispatches
+            pipe36.set_camera(cam36)
+            pipe36.set_scene(sc36)
+            for f in range(opt_dispatches):
+                pipe36.update(elapsed_time=f / 60.0, elapsed_frames=f)
+                pipe36.render()
+            opt_imgs[knob] = pipe36.get_output()
+        finally:
+            if knob:
+                del os.environ[knob]
+    torch.cuda.synchronize()
+    opt_counts = expect_counts(
+        f"B1 opt-ins main path ({opt_dispatches} dispatches x {MAIN_S} samples at "
+        f"{MAIN_SIZE}^2 each: the base, FUSED_CLUSTERS=16, FUSED_BLOCK_W=16)",
+        {"B1": 3 * opt_dispatches, "B1 clustered": opt_dispatches,
+         "B1 blocked": opt_dispatches})
+    for knob in ("FUSED_CLUSTERS", "FUSED_BLOCK_W"):
+        same = torch.equal(opt_imgs[knob], opt_imgs[None])
+        print(f"B1 opt-ins main path {knob}=16 vs the base pipeline: images equal {same}",
+              flush=True)
+        if not same:
+            raise RuntimeError(f"the pipeline's image with {knob}=16 differs from the base's")
+    del pipe36, opt_imgs
+
+    OPT_SETTINGS = ((8, 0), (16, 0), (24, 0), (0, 8), (0, 16), (0, 32))  # (rows, block_w)
+    opt_cases = 0
+    for name, opts, env in OPTION_CASES:
+        scene_p, cam_p = parity_scene(env)
+        options_p = default_options(**opts)
+        cams_p = cameras(cam_p, PARITY_SIZE, PARITY_SIZE, PARITY_S, 11)
+        ek = scene_p["env"]["kind"]
+        base_p = fs.fused_progressive_sum(scene_p, options_p, cams_p, PARITY_SIZE, PARITY_SIZE,
+                                          ek, cluster_rows=0, block_w=0)
+        for rows, bw in OPT_SETTINGS:
+            got = fs.fused_progressive_sum(scene_p, options_p, cams_p, PARITY_SIZE, PARITY_SIZE,
+                                           ek, cluster_rows=rows, block_w=bw)
+            if not torch.equal(got, base_p):
+                raise RuntimeError(f"B1 {name} with cluster_rows {rows}, block_w {bw} differs "
+                                   f"from the base kernel")
+            opt_cases += 1
+    base_1 = fs.fused_progressive_sum(scene, options, first_cams, MAIN_SIZE, MAIN_SIZE, 0,
+                                      cluster_rows=0, block_w=0)
+    base_rt = fs.realtime_aovs(rt_scene, rt_options, cams0, RT_W, RT_H, 0, cluster_rows=0,
+                               block_w=0)
+    opt_first = {}
+    for rows, bw in OPT_SETTINGS:
+        got = fs.fused_progressive_sum(scene, options, first_cams, MAIN_SIZE, MAIN_SIZE, 0,
+                                       cluster_rows=rows, block_w=bw)
+        got_rt = fs.realtime_aovs(rt_scene, rt_options, cams0, RT_W, RT_H, 0, cluster_rows=rows,
+                                  block_w=bw)
+        torch.cuda.synchronize()
+        opt_first[rows, bw] = got
+        if not torch.equal(got, base_1) or not all(torch.equal(got_rt[k], base_rt[k])
+                                                   for k in fs.AOV_KEYS):
+            raise RuntimeError(f"B1 with cluster_rows {rows}, block_w {bw} differs from the "
+                               f"base kernel on config 1's first dispatch or the 1080p frame")
+        opt_cases += 2
+    print(f"parity B1 opt-ins: cluster_rows 8, 16, 24 (C = {c_tris}) and block_w 8, 16, 32 "
+          f"bit-equal (max |d| 0) to the base kernel in all {opt_cases} cases ({len(OPTION_CASES)}"
+          f" option sets at {PARITY_SIZE}^2 S={PARITY_S}, config 1's first {MAIN_SIZE}^2 "
+          f"dispatch, the {RT_W}x{RT_H} realtime frame 0 on every AOV)", flush=True)
+    plain_1 = fs.fused_progressive_sum_reference(scene, options, first_cams, MAIN_SIZE,
+                                                 MAIN_SIZE, 0)
+    torch.cuda.synchronize()
+    opt_gate = image_gate(f"B1 opt-ins config 1 first dispatch {MAIN_SIZE}^2 S={MAIN_S} vs "
+                          f"plain", opt_first[16, 0], plain_1, MAIN_S)
+    del plain_1, base_rt
+
+    order = [(0, 0), *OPT_SETTINGS, *OPT_SETTINGS[::-1], (0, 0)]
+    opt_ms = {}
+    for rows, bw in order:
+        opt_ms.setdefault((rows, bw), []).append(time_ms(
+            lambda: fs.fused_progressive_sum(scene, options, first_cams, MAIN_SIZE, MAIN_SIZE, 0,
+                                             cluster_rows=rows, block_w=bw), 20, torch))
+    opt_ms = {k: sum(v) / len(v) for k, v in opt_ms.items()}
+    labels = {k: "base" if k == (0, 0) else f"clusters {k[0]}" if k[0] else f"block_w {k[1]}"
+              for k in opt_ms}
+    print(f"time B1 opt-ins per {MAIN_S}-sample {MAIN_SIZE}^2 config-1 dispatch, in turns "
+          f"(base, settings, settings reversed, base): "
+          + ", ".join(f"{labels[k]} {v:.3f} ms" for k, v in opt_ms.items()) + f" [{card}]",
+          flush=True)
+
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 7", flush=True)
     # ---- 7. BVH kernels vs plain at instanced:4 ------------------------------------
     P = BVH_PARITY_SIZE
     bvh_scenes = {}
@@ -1530,6 +1879,7 @@ def main() -> int:
     if not batch_err <= 1e-6:
         raise RuntimeError("B5 realtime S=2 batch differs from single-frame launches")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 8", flush=True)
     # ---- 8. the BVH main path at full width: instanced:32, 512^2 ----------------
     M = MAIN_SIZE
     sc32, cam32 = build_scene(BVH_MAIN_SCENE)
@@ -1650,12 +2000,14 @@ def main() -> int:
     headless(["--scene", BVH_MAIN_SCENE, "--size", f"{M}x{M}", "--spp", "8"],
              f"{BVH_MAIN_SCENE} {M}^2 8 spp")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 10a", flush=True)
     # ---- 10a. BVH times at 512^2 (before the realtime pipeline takes the card) ----
     # B4a: each launch of the wavefront frame on its own inputs, with its
     # bound from the host model's counts on COUNT_PIXELS sampled rays
     bvh_np = {k: bvh32[k].cpu().numpy() for k in ("bvhf_rows", "mt_rows")}
     b4a = {False: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []},
            True: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []}}
+    b4a_bound_of = {}
     for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces):
         ms = kernel_ms(tv.prepare_launch(scene32, o, d, t_min, t_max, cull, occlusion), 10, torch)
         if occlusion:
@@ -1675,6 +2027,7 @@ def main() -> int:
         acc["bytes"] += nbytes
         acc["per_launch"].append({"batch": batch, "rays": len(o), "ms": ms, "wrapper_ms": wrap,
                                   "bound_ms": bnd[0], "bound_by": bnd[1]})
+        b4a_bound_of[batch] = bnd  # B4c's too (phase 35): the same function of the same rays
         print(f"time B4a {batch} on {BVH_MAIN_SCENE} {M}^2 wavefront sample: {len(o)} rays, "
               f"kernel {ms:.4f} ms, wrapper {wrap:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
               f"walk per ray {wc.c['visits'] / COUNT_PIXELS:.2f} visits, "
@@ -1702,6 +2055,7 @@ def main() -> int:
           f"({M * M / b5_ms / 1e3:.2f} primary Mrays/s), wrapper {b5_wrap_ms:.3f} ms; pipeline "
           f"{host_prog_ms:.3f} ms per {BVH_S}-sample dispatch on the host clock, synchronised, "
           f"first dispatches included [{card}]", flush=True)
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 32", flush=True)
     # ---- 32. the flattened route without fat nodes: instanced:32, 512^2 ----------
     # phase 8's scene with bvhf_nodes and bvhf_rows dropped from a shallow copy
     # of its bvh: both gates send it to the wavefront route, whose traces take
@@ -1908,9 +2262,182 @@ def main() -> int:
     del rt_b, denoiser_b, direct, spec, display, frame0, direct0, spec0, plain_r, o_r, d_r, bin_np
     cam32.set_aspect(M, M)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 35", flush=True)
+    # ---- 35. the grouped packet walk (B4c) on phase 8's four launch inputs --------
+    # B4a on each input first (the yardstick), then B4c at every packet layout
+    # of GROUPINGS (primary closest with common_origin): exactly one B4c launch
+    # per input and layout, no other kernel's; against B4a on all rays;
+    # against the plain version on GROUPED_PLAIN_RAYS random rays of each
+    # launch (B4a on the same rays beside it), and on whole sampled packets,
+    # B4c and B4a alike (occlusion knife-edge-aware, as a packet of floor
+    # pixels holds many knife edges); against the host model
+    # (fat_packet_walk_numpy, without the TPU kernel's one-leaf lag, as the
+    # card walks) on those packets; each launch alone, B4a and B4c in turns,
+    # with the bound from B4a's counts on the same rays (the function's need)
+    # and the packet model's counts beside it; then B4c against the plain
+    # version on instanced:4 at 128^2 (phase 7's rays). The phase draws from
+    # its own generator, so the phases after it sample what they sampled
+    # before it existed.
+    rng35 = np.random.default_rng(35)
+    fat_ref, plain_ref = [], []
+    for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces):
+        fat_ref.append(tv.traverse_fat_any(scene32, o, d, t_min, t_max) if occlusion else
+                       tv.traverse_fat_closest(scene32, o, d, t_min, t_max, cull_backface=cull))
+        # the plain version on GROUPED_PLAIN_RAYS rays drawn across the launch,
+        # one draw for every layout
+        pick_r = torch.as_tensor(rng35.choice(len(o), GROUPED_PLAIN_RAYS, replace=False),
+                                 device=dev)
+        pick_args = (o[pick_r], d[pick_r], t_min, rows_of(t_max, pick_r))
+        plain = (tv.traverse_fat_any_reference(scene32, *pick_args) if occlusion else
+                 tv.traverse_fat_closest_reference(scene32, *pick_args, cull_backface=cull))
+        plain_ref.append((pick_r, plain))
+        name = f"B4a {batch} {BVH_MAIN_SCENE} (the yardstick) vs plain, {len(pick_r)} random rays"
+        if occlusion:
+            occlusion_gate(name, fat_ref[-1][pick_r], plain)
+        else:
+            fat_pick = {k: v[pick_r] for k, v in fat_ref[-1].items()}
+            hit_gate(name, fat_pick, plain, torch)
+            tail_census(name, fat_pick, plain, scene32, pick_args[0], pick_args[1])
+    shared_origin = bool((traces[0][0] == traces[0][0][0]).all())
+    if not shared_origin:
+        raise RuntimeError("the primary launch's rays do not share one origin")
+    grp_out = {}
+    torch.cuda.synchronize()
+    reset_counts()
+    for tile, group in GROUPINGS:
+        for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces):
+            grp_out[tile, group, batch] = (
+                tv.traverse_fat_any(scene32, o, d, t_min, t_max, tile=tile, group=group)
+                if occlusion else
+                tv.traverse_fat_closest(scene32, o, d, t_min, t_max, cull_backface=cull,
+                                        tile=tile, group=group,
+                                        common_origin=batch == batches[0]))
+    torch.cuda.synchronize()
+    tv.check_errors()
+    b4c_counts = expect_counts(
+        f"B4c on phase 8's {len(traces)} launch inputs at {len(GROUPINGS)} packet layouts",
+        {"B4c closest": 2 * len(GROUPINGS), "B4c any": 2 * len(GROUPINGS)})
+    b4c_counts = {False: b4c_counts["B4c closest"], True: b4c_counts["B4c any"]}
+    grp_np = {k: bvh32[k].cpu().numpy() for k in ("bvhf_rows", "mt_rows", "slot_tri")}
+    b4c_err = {False: 0.0, True: 0.0}
+    b4c = {(tile, group): {occl: {"ms": 0.0, "fat_ms": 0.0, "per_launch": []}
+                           for occl in (False, True)} for tile, group in GROUPINGS}
+    b4c_bound = {False: b4a_c_bound, True: b4a_a_bound}  # the same function's need as B4a's
+    b4c_deepest, model_s = 0, 0.0
+    for tile, group in GROUPINGS:
+        for batch, (o, d, t_min, t_max, cull, occlusion), fat, (pick_r, plain) in zip(
+                batches, traces, fat_ref, plain_ref):
+            got = grp_out[tile, group, batch]
+            name = f"B4c tile {tile} group {group} {batch} {BVH_MAIN_SCENE}"
+            co = batch == batches[0]
+            if occlusion:
+                agree = occlusion_gate(f"{name} vs B4a, all {len(o)} rays", got, fat)
+                t_equal = 1.0 - agree
+            else:
+                hit_gate(f"{name} vs B4a, all {len(o)} rays", got, fat, torch)
+                t_equal = float((got["t"] == fat["t"]).float().mean())
+            # whole sampled packets, as the kernel forms them
+            n_pk = max(1, GROUPED_MODEL_RAYS // tile)
+            packets = rng35.choice(len(o) // tile, n_pk, replace=False)
+            sub = torch.as_tensor((packets[:, None] * tile + np.arange(tile)).reshape(-1),
+                                  device=dev)
+            sub_args = (o[sub], d[sub], t_min, rows_of(t_max, sub))
+            model = {}
+            t1 = time.perf_counter()
+            ops, nbytes, c = walk1_work(tv, "grouped", grp_np, *sub_args, cull, occlusion,
+                                        len(o) / len(sub), 32 + (1 if occlusion else 16),
+                                        packet=(tile, group, co), model_out=model)
+            launch_model_s = time.perf_counter() - t1
+            model_s += launch_model_s
+            b4c_deepest = max(b4c_deepest, c["max_stack"])
+            if occlusion:
+                err = occlusion_gate(f"{name} vs plain, {len(pick_r)} random rays",
+                                     got[pick_r], plain)
+                # whole packets, B4c and B4a alike, knife-edge-aware (one probe
+                # of every ray that any of the three comparisons finds off)
+                want_sub = tv.traverse_fat_any_reference(scene32, *sub_args)
+                model_occ = torch.as_tensor(model["occluded"], device=dev)
+                probe = ((got[sub] != want_sub) | (fat[sub] != want_sub)
+                         | (got[sub] != model_occ)).nonzero()[:, 0]
+                edges = torch.zeros_like(want_sub)
+                if len(probe):
+                    edges[probe] = ray_knife_edges(tv, scene32, sub_args[0][probe],
+                                                   sub_args[1][probe], t_min,
+                                                   rows_of(sub_args[3], probe))
+                knife_of = lambda idx: edges[idx]  # noqa: E731
+                for who, res in (("B4c", got[sub]), ("B4a", fat[sub])):
+                    knife_occlusion_gate(f"{name}: {who} vs plain, {len(sub)} rays of sampled "
+                                         f"packets", res, want_sub, knife_of)
+                knife_occlusion_gate(
+                    f"{name} vs the host model, {len(sub)} rays of sampled packets", got[sub],
+                    model_occ, knife_of)
+            else:
+                err = hit_gate(f"{name} vs plain, {len(pick_r)} random rays",
+                               {k: v[pick_r] for k, v in got.items()}, plain,
+                               torch)["max_abs_t"]
+                model_hit_gate(f"{name} vs the host model, {len(sub)} rays of sampled packets",
+                               {k: v[sub] for k, v in got.items()}, model, torch,
+                               lambda idx: ray_t_unstable(
+                                   tv, scene32, sub_args[0][idx], sub_args[1][idx], t_min,
+                                   rows_of(sub_args[3], idx), cull))
+            b4c_err[occlusion] = max(b4c_err[occlusion], err)
+            ms = {}
+            for walk in ("fat", "grouped", "grouped", "fat"):
+                ms.setdefault(walk, []).append(kernel_ms(tv.prepare_launch(
+                    scene32, o, d, t_min, t_max, cull, occlusion, walk,
+                    (tile, group, co) if walk == "grouped" else ()),
+                    3 if walk == "grouped" else 10, torch))
+            k_ms, f_ms = sum(ms["grouped"]) / 2, sum(ms["fat"]) / 2
+            # the bound is the function's need, B4a's walks of the launch (phase
+            # 10a); the packet model's redundant work beside it
+            bnd, bnd_pk = b4a_bound_of[batch], bound(ops, nbytes)
+            acc = b4c[tile, group][occlusion]
+            acc["ms"] += k_ms
+            acc["fat_ms"] += f_ms
+            acc["per_launch"].append({
+                "batch": batch, "rays": len(o), "ms": k_ms, "fat_ms": f_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "t_bit_equal_to_b4a" if not occlusion else
+                "occlusion_agrees_with_b4a": t_equal,
+                "packet_model_bound_ms": bnd_pk[0],
+                "packet_steps": c["visits"] / n_pk,
+                "pair_tests_per_ray": c["pair_tests"] / len(sub),
+                "deepest_stack": c["max_stack"]})
+            print(f"time {name} ({len(o)} rays), each kernel alone, in turns fat, grouped, grouped,"
+                  f" fat: B4c {k_ms:.4f} ms ({', '.join(f'{x:.4f}' for x in ms['grouped'])}), "
+                  f"B4a {f_ms:.4f} ms; bound {bnd[0]:.4f} {bnd[1]} (B4a's walks, phase 10a); "
+                  f"packet model on "
+                  f"{n_pk} packets: bound {bnd_pk[0]:.4f}, {c['visits'] / n_pk:.1f} steps per "
+                  f"packet, {c['pair_tests'] / len(sub):.1f} pair tests per ray, deepest stack "
+                  f"{c['max_stack']}, {launch_model_s:.1f}s; "
+                  f"{'occlusion agreeing with B4a' if occlusion else 't bit-equal to B4a on'} "
+                  f"{t_equal:.4f} of rays [{card}]", flush=True)
+    print(f"B4c: deepest stack {b4c_deepest} of {tv.MAX_STACK} (host model on sampled packets); "
+          f"host model {model_s:.1f}s for all layouts and launches", flush=True)
+
+    # at 128^2 on instanced:4 (phase 7's rays) against the plain version
+    b4c_small = {}
+    want4 = tv.traverse_fat_closest_reference(scene4, o4, d4, 0.0, RAY_MAX_T, cull_backface=True)
+    occ_want4 = tv.traverse_fat_any_reference(scene4, pos4, sd4, RAY_EPSILON, tmax4)
+    for tile, group in GROUPINGS:
+        got = tv.traverse_fat_closest(scene4, o4, d4, 0.0, RAY_MAX_T, cull_backface=True,
+                                      tile=tile, group=group, common_origin=True)
+        occ = tv.traverse_fat_any(scene4, pos4, sd4, RAY_EPSILON, tmax4, tile=tile, group=group)
+        torch.cuda.synchronize()
+        label = f"B4c tile {tile} group {group} {BVH_PARITY_SCENE} {P}^2"
+        b4c_small[tile, group] = (
+            hit_gate(f"{label} primary closest vs plain", got, want4, torch)["max_abs_t"],
+            occlusion_gate(f"{label} shadow any vs plain", occ, occ_want4),
+            kernel_ms(tv.prepare_launch(scene4, o4, d4, 0.0, RAY_MAX_T, True, False, "grouped",
+                                        (tile, group, True)), 10, torch),
+            kernel_ms(tv.prepare_launch(scene4, pos4, sd4, RAY_EPSILON, tmax4, False, True,
+                                        "grouped", (tile, group, False)), 10, torch))
+    tv.check_errors()
+    del fat_ref, plain_ref, grp_out, grp_np
+
     del pipe, traces, pos32, sd32, tmax32, o32, d32, wave, bvh_np, bin32, wave_b  # phase 23 reuses scene32
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 9", flush=True)
     # ---- 9. realtime + denoise on instanced:32 at 1080p --------------------------
     cam32.set_aspect(RT_W, RT_H)
     rt = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
@@ -1983,6 +2510,7 @@ def main() -> int:
                                    40 / max(wc_rt.c["rays"] / COUNT_PIXELS, 1), 10))
     del bvh_np
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 10b", flush=True)
     # ---- 10b. BVH times: realtime, host, and at the plain version's shape --------
     b5_rt_ms = kernel_ms(ft.prepare_launch(rt32, rt_opts32, cams0_32, RT_W, RT_H, ek32, True), 10,
                          torch)
@@ -2064,6 +2592,7 @@ def main() -> int:
         print(f"time {key} at {BVH_PARITY_SCENE} {P}^2: kernel {small_ms[key][0]:.4f} ms, plain "
               f"{small_ms[key][1]:.3f} ms (per sample, frame or trace) [{card}]", flush=True)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 11", flush=True)
     # ---- 11. B6a vs plain at 128^2: the card tests' two-level cases -------------
     def five_scene():
         from dxrexperiments_torch.scene import Material, Scene
@@ -2115,6 +2644,7 @@ def main() -> int:
     tv.check_errors()
     del scene_t
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 33", flush=True)
     # ---- 33. B4b, B4d and B6b vs plain at 128^2 -----------------------------------
     # instanced:4 flattened (phase 7's primary rays, culled and not) and the
     # two-level cases of phase 11, every pack without its fat nodes; shadow
@@ -2177,6 +2707,7 @@ def main() -> int:
                   f"[{card}]", flush=True)
     del scene_t, flat4
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 12", flush=True)
     # ---- 12. the two-level main path: instanced:32 two-level at 512^2 ------------
     cam32.set_aspect(M, M)
     pipe = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
@@ -2311,6 +2842,7 @@ def main() -> int:
     headless(["--scene", BVH_MAIN_SCENE, "--accel", "two-level", "--animate-instances", "--size",
               f"{M}x{M}", "--spp", "8"], f"{BVH_MAIN_SCENE} two-level animated {M}^2 8 spp")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 13", flush=True)
     # ---- 13. realtime + denoise at 1080p on the two-level scene -------------------
     cam32.set_aspect(RT_W, RT_H)
     rt = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
@@ -2341,6 +2873,7 @@ def main() -> int:
     del rt, direct, spec, display
     cam32.set_aspect(M, M)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 14", flush=True)
     # ---- 14. two-level times ----------------------------------------------------
     # B6a: each launch of the wavefront frame on its own inputs, with its bound
     # from the host model's counts on COUNT_PIXELS sampled rays
@@ -2417,6 +2950,7 @@ def main() -> int:
               f"kernel {small2[occl][0]:.4f} ms, plain {small2[occl][1]:.3f} ms per trace "
               f"[{card}]", flush=True)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 34", flush=True)
     # ---- 34. the two-level route without fat nodes: instanced:32, 512^2 ----------
     # phase 12's two-level scene with tlasf_nodes and tlasf_rows dropped: the
     # wavefront route's traces take the binary two-level walk (B6b)
@@ -2612,6 +3146,7 @@ def main() -> int:
     del rt_c, denoiser_c, direct, spec, display, bin2, wave_c
     cam32.set_aspect(M, M)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 15", flush=True)
     # ---- 15. B3 vs plain at 128^2 on the brute-force parity scenes ---------------
     from dxrexperiments_torch.scene.lights import area_light, directional_light, point_light
 
@@ -2663,6 +3198,7 @@ def main() -> int:
     b3_small_args = {False: (scene_b, o_p, d_p, 0.0, RAY_MAX_T, True),
                      True: (scene_b, pos_s, sd_s, RAY_EPSILON, tmax_s, False)}
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 16", flush=True)
     # ---- 16. the brute-force wavefront main path: instanced:2 at 512^2 ------------
     sc_br, cam_br = build_scene(BRUTE_MAIN_SCENE)
     cam_br.set_aspect(M, M)
@@ -2727,22 +3263,36 @@ def main() -> int:
     b3_image = image_gate(f"the B3 wavefront route vs plain {BRUTE_MAIN_SCENE} {COUNT_PIXELS} "
                           f"sampled pixels of {M}^2, 1 sample", wave_b.reshape(-1, 3)[pick_b][None],
                           plain_b, 1)
+    # B3 against the plain version on every ray of each launch (the plain
+    # sweep in slices of PLAIN_SLICE rays), so that no draw decides a gate:
+    # a draw of 4,096 rays holds some 850 bounce hits, whose p99.9 is their
+    # largest error or next to it. A 4,096-ray draw is printed beside the
+    # gates, not gated, with each tail's census.
     for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces_b):
         sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
-        args = (scene_br, o[sub], d[sub], t_min, rows_of(t_max, sub))
-        label = f"B3 {batch} {BRUTE_MAIN_SCENE} {COUNT_PIXELS} sampled rays of {len(o)}"
+        label = f"B3 {batch} {BRUTE_MAIN_SCENE} all {len(o)} rays"
         if occlusion:
-            got, want = ik.trace_any(*args), ik.trace_any_reference(*args)
+            got = ik.trace_any(scene_br, o, d, t_min, t_max)
+            want = plain_sliced(lambda i: ik.trace_any_reference(
+                scene_br, o[i], d[i], t_min, rows_of(t_max, i)), len(o), dev)
             torch.cuda.synchronize()
             b3_err[True] = max(b3_err[True], occlusion_gate(label, got, want))
         else:
-            got = ik.trace_closest(*args, cull_backface=cull)
-            want = ik.trace_closest_reference(*args, cull_backface=cull)
+            got = ik.trace_closest(scene_br, o, d, t_min, t_max, cull_backface=cull)
+            want = plain_sliced(lambda i: ik.trace_closest_reference(
+                scene_br, o[i], d[i], t_min, rows_of(t_max, i), cull_backface=cull), len(o),
+                dev)
             torch.cuda.synchronize()
             b3_err[False] = max(b3_err[False], hit_gate(label, got, want, torch)["max_abs_t"])
             a = attr_gate(label, got, want, torch)
             for k in b3_attr:
                 b3_attr[k] = max(b3_attr[k], a[k])
+            tail_census(label, got, want, scene_br, o, d)
+            tail_census(label, got, want, scene_br, o, d, normal_tail=True)
+            attr_gate(f"B3 {batch} {BRUTE_MAIN_SCENE} {COUNT_PIXELS} sampled rays of {len(o)} "
+                      f"(census)", {k: v[sub] for k, v in got.items()},
+                      {k: v[sub] for k, v in want.items()}, torch, gated=False)
+        del got, want
 
     # realtime + denoise at 1080p on the brute-force scene
     cam_br.set_aspect(RT_W, RT_H)
@@ -2839,6 +3389,7 @@ def main() -> int:
     headless(["--scene", "cornell-glass", "--refraction", "--size", f"{M}x{M}", "--spp", "4"],
              f"cornell-glass --refraction {M}^2 4 spp")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 17", flush=True)
     # ---- 17. B3 times --------------------------------------------------------------
     def first_blocker_pairs(o, d, t_min, t_max):
         """Pair tests of occlusion rays that stop at their first blocker in
@@ -2918,6 +3469,7 @@ def main() -> int:
     del pipe_b, traces_b
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 18", flush=True)
     # ---- 18. texture envs: the inputs, written here from a seed ---------------------
     # The repository holds no HDR or DDS asset: a lat-long radiance of the
     # size config 3's reference run loads (an 8K JPG, read there through
@@ -2940,6 +3492,7 @@ def main() -> int:
           flush=True)
     tex_envs = {"latlong": hdr_env, "cubemap": cube_env}
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 19", flush=True)
     # ---- 19. B1 with texture envs vs plain at 128^2 ----------------------------------
     def tex_cases(scene_of, fn, plain, rt_fn, rt_plain, label):
         """The progressive option sets of phase 3 and the realtime cases
@@ -3004,6 +3557,7 @@ def main() -> int:
                            fs.fused_progressive_sum_reference, fs.realtime_aovs,
                            fs.fused_realtime_outputs_reference, "B1 texture env cornell-glossy")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 20", flush=True)
     # ---- 20. B5 with texture envs vs plain on instanced:4 at 128^2 -----------------
     def tex_instanced4(env_name, emissive):
         if (env_name, emissive, 4) not in tex_scenes:
@@ -3033,6 +3587,7 @@ def main() -> int:
                         scene_c4, default_options(), cams_c4, P, P, 3), 2, torch) / BVH_S)
     del tex_scenes, scene_c4
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 21", flush=True)
     # ---- 21. BASELINE config 3: Cornell + the 8K HDR lat-long env, 1080p -----------
     sc3, cam3 = build_scene("cornell-glossy")
     sc3.environment = hdr_env  # phase 18's, read through parse_env
@@ -3087,6 +3642,7 @@ def main() -> int:
     headless(["--scene", "cornell-glossy", "--env", f"latlong:{hdr_path}", "--size",
               f"{C3_W}x{C3_H}", "--spp", "16"], f"cornell-glossy --env latlong {C3_W}x{C3_H} 16 spp")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 22", flush=True)
     # ---- 22. realtime + denoise with the HDR env at 1080p ------------------------------
     rt = RealtimeRaytracingPipeline(RT_W, RT_H, seed=0, device=dev)
     cam3.set_aspect(RT_W, RT_H)
@@ -3135,6 +3691,7 @@ def main() -> int:
               f"latlong:{hdr_path}", "--size", f"{RT_W}x{RT_H}"],
              f"realtime+denoise cornell-glossy --env latlong {RT_W}x{RT_H}")
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 23", flush=True)
     # ---- 23. B5 with the cubemap at full width: phase 8's instanced:32, 512^2 ------
     tex32 = dict(scene32, env=envmap.place(cube_env, dev))
     pipe_t = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
@@ -3220,6 +3777,7 @@ def main() -> int:
     del plain_log, wave_log
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 24", flush=True)
     # ---- 24. the wavefront routes with a texture env at 128^2 ----------------------
     wave_tex = {}
     for label, scene_w, cam_w, names, want_counts in (
@@ -3253,6 +3811,7 @@ def main() -> int:
                                      got, want, 1)
     tv.check_errors()
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 25", flush=True)
     # ---- 25. config 3 times ---------------------------------------------------------
     black3 = dict(scene3, env=envmap.place(envmap.constant_env(), dev))
     c3_turns = [time_ms(lambda: fs.fused_progressive_sum(s3, opts3, first3, C3_W, C3_H, k3), 10,
@@ -3283,6 +3842,7 @@ def main() -> int:
     tex_dir.cleanup()
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 26", flush=True)
     # ---- 26. B5's area mode vs plain at 128^2 -----------------------------------------
     def with_area(sc, area):
         """sc's rig become 1 directional (its own, or the default sun) + 1 area light."""
@@ -3389,6 +3949,7 @@ def main() -> int:
           f"kernel {area_small[True][0]:.4f} ms, plain {area_small[True][1]:.3f} ms per frame "
           f"[{card}]", flush=True)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 27", flush=True)
     # ---- 27. B5's albedo-texture mode vs plain at 128^2 --------------------------------
     def cornell_tex(env):
         """The CLI's cornell-tex, built as the CLI builds it (its routing BVH)."""
@@ -3418,6 +3979,7 @@ def main() -> int:
           f"{tex_small[0]:.4f} ms, plain {tex_small[1]:.3f} ms per sample [{card}]", flush=True)
     del area_scenes, scene_a4, scene_tc
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 28", flush=True)
     # ---- 28. the config-2 stand-in at full size: the slice's main path ---------------
     sc2, cam2 = config2_stand_in(cube_env)
     cam2.set_aspect(M, M)
@@ -3621,6 +4183,7 @@ def main() -> int:
                   for k, got in (("direct", direct0), ("indirect_specular", spec0))}
     del rt2, direct, spec, display, frame0, direct0, spec0, wave_r, plain_r
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 29", flush=True)
     # ---- 29. B5's area mode at config 5's size: instanced:32, 512^2 -----------------
     area32 = dict(scene32, lights=with_area(build_scene(BVH_MAIN_SCENE)[0], instanced_area).lights)
     pipe_a = ProgressiveRaytracingPipeline(M, M, seed=0, samples_per_frame=BVH_S, device=dev)
@@ -3743,6 +4306,7 @@ def main() -> int:
     del rt_a, aovs_a, got, plain_r, area32, scene32, bvh_np, direct, spec
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 30", flush=True)
     # ---- 30. the wavefront routes with albedo textures at 128^2 ----------------------
     wave_tex2 = {}
     for label, mode, build, mod, want_counts in (
@@ -3776,6 +4340,7 @@ def main() -> int:
             wave_tex2[label] = image_gate(f"{label} {P}^2, 1 sample, vs plain", got["color"],
                                           want["color"], 1)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 31", flush=True)
     # ---- 31. the CLI on cornell-tex ----------------------------------------------------
     before = ft.LAUNCHES
     with tempfile.TemporaryDirectory() as tmp:
@@ -3789,6 +4354,162 @@ def main() -> int:
     print(f"headless cornell-tex {M}^2 16 spp --device cuda (in process): exit 0, B5 launches "
           f"{cli_launches}", flush=True)
     torch.cuda.empty_cache()
+
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 37", flush=True)
+    # ---- 37. the roofline probes (B7) ---------------------------------------------------
+    # each probe against its plain version at roofline.py's --interpret size on
+    # seeded inputs, then roofline.py's full size on its own inputs: the main
+    # path (one wrapper call per probe and overlap setting), then each launch
+    # alone, timed
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain product in full float32
+    a_s, b_s, mt_s, rays_s = rf.probe_inputs(dev, seed=37)
+    it_s, grid_s, mit_s = rf.SMOKE_ITERS, rf.SMOKE_GRID, rf.SMOKE_M_ITERS
+    b7_err, b7_small = {}, {}
+    for name, fn, ref, prep in (("fma", rf.fma_peak, rf.fma_peak_reference, "fma"),
+                                ("mix", rf.pair_mix, rf.pair_mix_reference, "mix")):
+        got, want = fn(a_s, b_s, it_s, grid_s), ref(a_s, b_s, it_s, grid_s)
+        torch.cuda.synchronize()
+        b7_err[name] = float(((got - want).abs() / want.abs()).max())
+        b7_small[name] = (kernel_ms(rf.prepare_vector(prep, a_s, b_s, it_s, grid_s), 20, torch),
+                          time_ms(lambda: ref(a_s, b_s, it_s, grid_s), 2, torch))
+        print(f"parity B7 {name} iters {it_s} grid {grid_s}: max relative |d| "
+              f"{b7_err[name]:.3e} (<= 1e-4)", flush=True)
+        if not b7_err[name] <= 1e-4:
+            raise RuntimeError(f"the {name} probe differs from its plain version")
+    scale_of = mt_s.abs() @ rays_s.abs()
+    prod_tol = 2 * rf.K * 2.0**-23  # 2 K float32 ulps of sum |terms|
+    b7_err["overlap"] = 0.0
+    for do_v, do_m, vs in ((True, True, 1), (True, True, 2), (True, True, 4), (False, True, 1),
+                           (True, False, 1)):
+        got = rf.overlap(a_s, b_s, mt_s, rays_s, do_v, do_m, vs, mit_s, grid_s,
+                         keep_product=True)
+        want = rf.overlap_reference(a_s, b_s, mt_s, rays_s, do_v, do_m, vs, mit_s, grid_s)
+        torch.cuda.synchronize()
+        o_err = float(((got["o"] - want["o"]).abs() / want["o"].abs()).max())
+        t_err = float(((got["t"] - want["t"]).abs() / want["t"].abs()).max())
+        p_err = (float(((got["product"] - want["product"]).abs() / scale_of).max())
+                 if do_m else 0.0)
+        b7_err["overlap"] = max(b7_err["overlap"], o_err, t_err, p_err / prod_tol * 1e-4)
+        print(f"parity B7 overlap vector {do_v} matrix {do_m} scale {vs} m_iters {mit_s} grid "
+              f"{grid_s}: chains max relative |d| {o_err:.3e} (<= 1e-4), accumulator "
+              f"{t_err:.3e} (<= 1e-6), product max |d| / sum |terms| {p_err:.3e} "
+              f"(<= {prod_tol:.3e}, split TF32 vs float32)", flush=True)
+        if not (o_err <= 1e-4 and t_err <= 1e-6 and p_err <= prod_tol):
+            raise RuntimeError("the overlap probe differs from its plain version")
+    b7_small["overlap"] = (
+        kernel_ms(rf.prepare_overlap(a_s, b_s, mt_s, rays_s, True, True, 1, mit_s, grid_s), 20,
+                  torch),
+        time_ms(lambda: rf.overlap_reference(a_s, b_s, mt_s, rays_s, True, True, 1, mit_s,
+                                             grid_s), 2, torch))
+
+    a_f, b_f, mt_f, rays_f = rf.probe_inputs(dev)  # roofline.py's inputs and size
+    ov_cases = [(False, True, 1)] + [(v, m, vs) for vs in (1, 2, 4)
+                                     for v, m in ((True, False), (True, True))]
+    reset_counts()
+    full = {"fma": rf.fma_peak(a_f, b_f), "mix": rf.pair_mix(a_f, b_f)}
+    for case in ov_cases:
+        full[case] = rf.overlap(a_f, b_f, mt_f, rays_f, *case)
+    torch.cuda.synchronize()
+    b7_counts = expect_counts("B7 at roofline.py's size", {"B7 fma": 1, "B7 mix": 1,
+                                                            "B7 overlap": len(ov_cases)})
+    # the main path's outputs against the plain versions on the same tensors
+    # (roofline.py's constants overflow the mix to inf: equal non-finite
+    # values pass), then every probe and overlap setting again at full size on
+    # the seeded inputs, where the elements differ and the chains stay finite
+    # (the mix's a near its neutral growth, rf.mix_inputs): a trip count, a
+    # grid block or a product schedule off shows there
+    a_m, b_m = rf.mix_inputs(dev, seed=37)
+    for label, (a_x, b_x, mt_x, rays_x), ab_mix in (
+            ("roofline.py's inputs (the main path's launches)", (a_f, b_f, mt_f, rays_f),
+             (a_f, b_f)),
+            ("seeded inputs", (a_s, b_s, mt_s, rays_s), (a_m, b_m))):
+        main_run = a_x is a_f
+        t1 = time.perf_counter()
+        for name, fn, ref, args in (("fma", rf.fma_peak, rf.fma_peak_reference, (a_x, b_x)),
+                                    ("mix", rf.pair_mix, rf.pair_mix_reference, ab_mix)):
+            got = full[name] if main_run else fn(*args)
+            want = ref(*args)
+            torch.cuda.synchronize()
+            err = rf.max_rel_diff(got, want)
+            b7_err[name] = max(b7_err[name], err)
+            print(f"parity B7 {name} at full size (iters {rf.ITERS}, grid {rf.GRID}), {label}: "
+                  f"max relative |d| {err:.3e} (<= 1e-4), finite "
+                  f"{float(want.isfinite().float().mean()):.4f} of elements", flush=True)
+            if not err <= 1e-4:
+                raise RuntimeError(f"the {name} probe differs from its plain version at full size")
+        scale_x = mt_x.abs() @ rays_x.abs()
+        for case in ov_cases:
+            got = (full[case] if main_run else
+                   rf.overlap(a_x, b_x, mt_x, rays_x, *case, keep_product=True))
+            want = rf.overlap_reference(a_x, b_x, mt_x, rays_x, *case)
+            torch.cuda.synchronize()
+            o_err, t_err = rf.max_rel_diff(got["o"], want["o"]), rf.max_rel_diff(got["t"], want["t"])
+            p_err = (float(((got["product"] - want["product"]).abs() / scale_x).max())
+                     if case[1] and not main_run else 0.0)
+            b7_err["overlap"] = max(b7_err["overlap"], o_err, t_err, p_err / prod_tol * 1e-4)
+            print(f"parity B7 overlap at full size (m_iters {rf.M_ITERS}, grid {rf.GRID}) vector "
+                  f"{case[0]} matrix {case[1]} scale {case[2]}, {label}: chains max relative |d| "
+                  f"{o_err:.3e} (<= 1e-4), accumulator {t_err:.3e} (<= 1e-6)"
+                  + (f", product max |d| / sum |terms| {p_err:.3e} (<= {prod_tol:.3e})"
+                     if case[1] and not main_run else ""), flush=True)
+            if not (o_err <= 1e-4 and t_err <= 1e-6 and p_err <= prod_tol):
+                raise RuntimeError("the overlap probe differs from its plain version at full size")
+        print(f"B7 full-size parity on {label}: {time.perf_counter() - t1:.1f}s", flush=True)
+    b7_ms = {"fma": kernel_ms(rf.prepare_vector("fma", a_f, b_f), 5, torch),
+             "mix": kernel_ms(rf.prepare_vector("mix", a_f, b_f), 5, torch)}
+    for case in ov_cases:
+        b7_ms[case] = kernel_ms(rf.prepare_overlap(a_f, b_f, mt_f, rays_f, *case), 5, torch)
+    els = rf.SUB * rf.LANES * rf.GRID
+    fma_flops = 2 * els * rf.ITERS * rf.UNROLL * rf.CHAINS  # an FMA counted as two
+    mix_ops = els * rf.ITERS * rf.MIX_UNROLL * rf.MIX_OPS
+    mix_flops = els * rf.ITERS * rf.MIX_UNROLL * (2 * rf.MIX_FMAS + rf.MIX_OPS - rf.MIX_FMAS)
+    mm_flops = 4 * rf.C_TRIS * rf.K * rf.LANES * 2 * rf.GRID * rf.M_ITERS  # the product
+    rates = {"fma TFLOP/s": fma_flops / b7_ms["fma"] / 1e9,
+             "mix Tops/s": mix_ops / b7_ms["mix"] / 1e9,
+             "mix TFLOP/s": mix_flops / b7_ms["mix"] / 1e9,
+             "product TFLOP/s": mm_flops / b7_ms[False, True, 1] / 1e9,
+             "TF32 TFLOP/s executed": 3 * mm_flops / b7_ms[False, True, 1] / 1e9}
+    limits = {"fma TFLOP/s": FP32_PEAK / 1e12, "mix Tops/s": FP32_PEAK / 2e12,
+              "mix TFLOP/s": FP32_PEAK / 1e12, "product TFLOP/s": TF32_PEAK / 1e12,
+              "TF32 TFLOP/s executed": TF32_PEAK / 1e12}
+    print(f"time B7 fma peak: {b7_ms['fma']:.4f} ms, {rates['fma TFLOP/s']:.2f} TFLOP/s float32 "
+          f"(FMA = 2; data sheet {FP32_PEAK / 1e12:.0f}) [{card}]", flush=True)
+    print(f"time B7 pair mix: {b7_ms['mix']:.4f} ms, {rates['mix Tops/s']:.2f} T ops/s "
+          f"({rf.MIX_OPS} per step, {rf.MIX_FMAS} of them FMAs; issue limit "
+          f"{FP32_PEAK / 2e12:.1f} T instructions/s), {rates['mix TFLOP/s']:.2f} TFLOP/s [{card}]",
+          flush=True)
+    print(f"time B7 matrix alone: {b7_ms[False, True, 1]:.4f} ms, {rates['product TFLOP/s']:.2f}"
+          f" TFLOP/s of the float32 product, {rates['TF32 TFLOP/s executed']:.2f} TFLOP/s of TF32"
+          f" executed (3 products: hi*hi + hi*lo + lo*hi; data sheet {TF32_PEAK / 1e12:.1f} "
+          f"dense) [{card}]", flush=True)
+    b7_overlap = []
+    for vs in (1, 2, 4):
+        t_v, t_b, t_m = b7_ms[True, False, vs], b7_ms[True, True, vs], b7_ms[False, True, 1]
+        lo, hi = max(t_v, t_m), t_v + t_m
+        frac = (hi - t_b) / max(hi - lo, 1e-12)
+        b7_overlap.append({"vector_scale": vs, "vector_ms": t_v, "matrix_ms": t_m,
+                           "both_ms": t_b, "overlap": frac})
+        print(f"time B7 overlap vector x{vs}: vector {t_v:.4f} ms, matrix {t_m:.4f} ms, both "
+              f"{t_b:.4f} ms (max {lo:.4f} / sum {hi:.4f}): overlap {frac * 100:.1f}% "
+              f"[{card}]", flush=True)
+    for key, rate in rates.items():
+        if rate > 1.05 * limits[key]:
+            raise RuntimeError(f"B7 {key} {rate:.2f} exceeds 105% of the data sheet's "
+                               f"{limits[key]:.1f}: a miscount")
+    b7_bounds = {"fma": bound(fma_flops, 2 * 4 * rf.SUB * rf.LANES + 4 * els),
+                 "mix": bound(mix_flops, 2 * 4 * rf.SUB * rf.LANES + 4 * els)}
+    vec_flops = 2 * els * rf.M_ITERS * rf.V_UNROLL * rf.CHAINS
+    ov_bytes = 4 * (2 * rf.SUB * rf.LANES + 4 * rf.C_TRIS * rf.K + rf.K * rf.LANES + 2 * els)
+    t_ov = max(vec_flops / FP32_PEAK, 3 * mm_flops / TF32_PEAK) * 1e3
+    b7_bounds["overlap"] = ((t_ov, "operations") if t_ov >= ov_bytes / HBM_RATE * 1e3
+                            else (ov_bytes / HBM_RATE * 1e3, "bytes"))
+    print(f"B7 verdict: of the vector time, "
+          + " / ".join(f"{r['overlap'] * 100:.1f}%" for r in b7_overlap)
+          + " hides under the matrix work at vector scales 1 / 2 / 4 (100%: the units overlap; "
+          f"0%: they serialise); bounds fma {b7_bounds['fma'][0]:.4f}, mix "
+          f"{b7_bounds['mix'][0]:.4f}, overlap {b7_bounds['overlap'][0]:.4f} ms [{card}]",
+          flush=True)
+    del full, a_f, b_f, mt_f, rays_f
 
     kernels = [
         {
@@ -4047,6 +4768,88 @@ def main() -> int:
             "bound_by": bnd[1],
             "library_ms": None,
             **extra,
+        })
+    main_layout = (2048, 4)  # the JAX kernel's default packet (TILE_R) in 4 sub-packets
+    for occl, name in ((False, "traverse_fat_closest, grouped"),
+                       (True, "traverse_fat_any, grouped")):
+        acc = b4c[main_layout][occl]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dxrexperiments_torch/csrc/traverse_fat_grouped.cu",
+            "replaces": "dxrexperiments_tpu/ops/traverse_pallas.py:873",
+            "launches": b4c_counts[occl],
+            "max_abs_err": b4c_err[occl],
+            "ms": acc["ms"],
+            "plain_ms": small_ms["b4a_a" if occl else "b4a_c"][1],
+            "bound_ms": b4c_bound[occl][0],
+            "bound_by": b4c_bound[occl][1],
+            "bound_is": "B4a's: the same function of the same rays (phase 10a's host model)",
+            "library_ms": None,
+            "shape": f"{wave_shape}: its two {'shadow' if occl else 'closest'} launches together,"
+                     f" tile {main_layout[0]}, group {main_layout[1]}",
+            "b4a_ms_same_rays": acc["fat_ms"],
+            "launches_are": f"direct calls on phase 8's launch inputs, one per layout of "
+                            f"{list(GROUPINGS)}",
+            "plain_shape": plain_shape,
+            "ms_at_plain_shape": b4c_small[main_layout][3 if occl else 2],
+            "parity_128_max_abs_err": max(b4c_small[k][1 if occl else 0] for k in GROUPINGS),
+            "deepest_stack": b4c_deepest,
+            "per_layout": {f"{t}x{g}": {"ms": b4c[t, g][occl]["ms"],
+                                        "b4a_ms": b4c[t, g][occl]["fat_ms"],
+                                        "per_launch": b4c[t, g][occl]["per_launch"]}
+                           for t, g in GROUPINGS},
+            "max_abs_err_is": ("occlusion disagreement fraction" if occl else
+                               "max |t - plain t| on rays that hit the same triangle"),
+        })
+    for key, name, knob in (((16, 0), "fused_progressive_sum, clustered", "B1 clustered"),
+                            ((0, 16), "fused_progressive_sum, blocked", "B1 blocked")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dxrexperiments_torch/csrc/fused_sample.cu",
+            "replaces": ("dxrexperiments_tpu/ops/fused_sample_pallas.py:360" if key[0] else
+                         "dxrexperiments_tpu/ops/fused_sample_pallas.py:678"),
+            "launches": opt_counts[knob],
+            "max_abs_err": opt_gate["max_abs_diff"],
+            "ms": opt_ms[key],
+            "plain_ms": plain_ms,
+            "bound_ms": b1_bound[0],
+            "bound_by": b1_bound[1],
+            "library_ms": None,
+            "shape": f"Cornell-glossy {MAIN_SIZE}^2, per {MAIN_S}-sample dispatch (config 1), "
+                     f"{'cluster_rows' if key[0] else 'block_w'} 16",
+            "base_ms": opt_ms[0, 0],
+            "ms_per_setting": {f"cluster_rows {r}" if r else f"block_w {w}": opt_ms[r, w]
+                               for r, w in OPT_SETTINGS},
+            "bit_equal_to_base_cases": opt_cases,
+            "bound_is": "the flat sweep's pair tests (the gate skips some; the result is the same)",
+        })
+    for probe, name, line in (("fma", "roofline fma_peak", 68), ("mix", "roofline pair_mix", 88),
+                              ("overlap", "roofline overlap", 138)):
+        ms = b7_ms[True, True, 1] if probe == "overlap" else b7_ms[probe]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "dxrexperiments_torch/csrc/roofline.cu",
+            "replaces": f"benchmarks/roofline.py:{line}",
+            "launches": b7_counts[f"B7 {probe}"],
+            "max_abs_err": b7_err[probe],
+            "ms": ms,
+            "plain_ms": b7_small[probe][1],
+            "bound_ms": b7_bounds[probe][0],
+            "bound_by": b7_bounds[probe][1],
+            "library_ms": None,
+            "shape": f"roofline.py's size: [{rf.SUB}, {rf.LANES}] x grid {rf.GRID}, "
+                     + (f"m_iters {rf.M_ITERS}, vector and matrix, scale 1" if probe == "overlap"
+                        else f"iters {rf.ITERS}"),
+            "plain_shape": f"iters {rf.SMOKE_ITERS}, grid {rf.SMOKE_GRID} (seeded inputs)",
+            "ms_at_plain_shape": b7_small[probe][0],
+            "max_abs_err_is": ("max relative |d| of the chains and the accumulator, and the "
+                               "product's max |d| / sum |terms| scaled to 1e-4 at its tolerance"
+                               if probe == "overlap" else "max relative |d|"),
+            **({"rates": rates} if probe != "overlap" else
+               {"overlap": b7_overlap, "matrix_alone_ms": b7_ms[False, True, 1]}),
         })
     tv.check_errors()
     print(json.dumps({"kernels": kernels}))

@@ -32,9 +32,27 @@
 // per thread (miss lanes, inactive bounces, the unpicked light of the
 // debug==2 estimator), which changes no result.
 //
+// Two opt-ins of the TPU kernel are separate compile-time instantiations;
+// the base one's code is unchanged by them:
+// - CLUSTERED (FUSED_CLUSTERS, the TPU kernel's _any_hit_clustered,
+//   fused_sample_pallas.py:360): every shadow sweep of the direct lighting
+//   (both lights' sweeps, and the debug==2 pick's one) gates each
+//   cluster_rows window of the triangles behind a slab test of the
+//   window's box against the ray's [t_min, t_max] window; a thread skips the
+//   window's rows where its ray misses the box, and its sweep ends at the
+//   first blocker anyway. The boxes (ops/fused_sample.cluster_aabbs, with a
+//   1e-4 margin) sit in shared memory beside the triangles. The gate only
+//   skips rows that cannot block, so occlusion is the flat sweep's, bit for
+//   bit. The TPU kernel gates a tile of lanes at once; here each thread
+//   gates its own ray, so a skip needs no agreement across the block.
+// - BLOCKED (FUSED_BLOCK_W, fused_sample_pallas.py:678-688): a block of
+//   kThreads renders a block_w x (kThreads / block_w) pixel block, not
+//   kThreads pixels of a raster row. Each pixel's computation depends only
+//   on its coordinates and seed, so the image is the same.
+//
 // The ray tree itself is common.cuh's, shared with the fused-traversal
-// kernel (B5); this file holds B1's brute-force trace backend (Tris), the
-// shared-memory staging and the launches. Arithmetic follows the TPU kernel:
+// kernel (B5); this file holds B1's brute-force trace backends (Tris,
+// ClusteredTris), the shared-memory staging and the launches. Arithmetic follows the TPU kernel:
 // the same term sums, the same sign-multiplied validity windows,
 // t = ts / max(|det|, 1e-12), ties to the lowest triangle index, and the
 // same draw routing. Build without --use_fast_math.
@@ -109,6 +127,69 @@ struct Tris {
   }
 };
 
+// CLUSTERED: Tris whose occlusion sweeps skip the clusters a ray misses.
+struct ClusteredTris : Tris {
+  const float* box;  // [k][6] lo xyz, hi xyz (shared memory)
+  int k, rows;       // clusters, triangle rows per cluster
+
+  __device__ bool occluded(V3 o, V3 d, float tmin, bool has_tmax, float tmax) const {
+    V3 mo = cross3(o, d);
+    // fused_sample_pallas._safe_inv: |x| < 1e-12 -> 1e-12
+    V3 inv = v3(1.0f / (fabsf(d.x) < 1e-12f ? 1e-12f : d.x),
+                1.0f / (fabsf(d.y) < 1e-12f ? 1e-12f : d.y),
+                1.0f / (fabsf(d.z) < 1e-12f ? 1e-12f : d.z));
+    const float far = has_tmax ? tmax : kBig;
+    for (int q = 0; q < k; ++q) {
+      const float* b = box + 6 * q;
+      float tn;
+      if (!slab(v3(b[0], b[1], b[2]), v3(b[3], b[4], b[5]), o, inv, tmin, far, &tn)) continue;
+      const int end = min(q * rows + rows, c);
+      for (int i = q * rows; i < end; ++i) {
+        if (pair_test(Coef{*this, i}, o, d, mo, tmin, has_tmax, tmax, false).valid) return true;
+      }
+    }
+    return false;
+  }
+};
+
+// The backend of an instantiation: Tris, or ClusteredTris with the boxes
+// staged after the triangles in shared memory.
+template <class T>
+__device__ __forceinline__ T backend(const Tris& t, float* smem, const float* __restrict__ boxes,
+                                     int k, int rows);
+template <>
+__device__ __forceinline__ Tris backend<Tris>(const Tris& t, float*, const float* __restrict__,
+                                              int, int) {
+  return t;
+}
+template <>
+__device__ __forceinline__ ClusteredTris backend<ClusteredTris>(const Tris& t, float* smem,
+                                                                const float* __restrict__ boxes,
+                                                                int k, int rows) {
+  float* s_box = smem + (kMtSlots + kAttrRows) * t.c;
+  for (int i = threadIdx.x; i < 6 * k; i += blockDim.x) s_box[i] = boxes[(i / 6) * 8 + i % 6];
+  __syncthreads();
+  ClusteredTris ct;
+  static_cast<Tris&>(ct) = t;
+  ct.box = s_box;
+  ct.k = k;
+  ct.rows = rows;
+  return ct;
+}
+
+// The pixel of this thread: raster, or BLOCKED (block_w x kThreads /
+// block_w blocks, the launch's blocks in raster order of the blocks).
+template <bool kBlocked>
+__device__ __forceinline__ int pixel_index(int width, int block_w) {
+  if constexpr (kBlocked) {
+    const int wb = width / block_w, bh = kThreads / block_w;
+    const int px = (blockIdx.x % wb) * block_w + threadIdx.x % block_w;
+    const int py = (blockIdx.x / wb) * bh + threadIdx.x / block_w;
+    return py * width + px;
+  }
+  return blockIdx.x * blockDim.x + threadIdx.x;
+}
+
 // Every block stages the used Möller–Trumbore coefficients and attribute
 // rows of all c triangles into shared memory: [kMtSlots][c] then
 // [kAttrRows][c].
@@ -129,14 +210,16 @@ __device__ __forceinline__ Tris stage_tris(float* smem, const float* __restrict_
   return Tris{s_mt, s_at, c};
 }
 
+template <class Tr, bool kBlocked>
 __global__ void __launch_bounds__(kThreads)
 fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
                          const float* __restrict__ cst, const float* __restrict__ mt,
                          const float* __restrict__ attr, float* __restrict__ out, int s_count,
-                         int c, int width, int height, Env env) {
+                         int c, int width, int height, Env env, const float* __restrict__ boxes,
+                         int n_boxes, int cluster_rows, int block_w) {
   extern __shared__ float smem[];
-  Tris T = stage_tris(smem, mt, attr, c);
-  int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  Tr T = backend<Tr>(stage_tris(smem, mt, attr, c), smem, boxes, n_boxes, cluster_rows);
+  int pix = pixel_index<kBlocked>(width, block_w);
   if (pix >= width * height) return;
   int px = pix % width, py = pix / width;
   float acc[3] = {0.0f, 0.0f, 0.0f};
@@ -149,16 +232,19 @@ fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restri
 }
 
 // Grid (pixel blocks, S frames): block (x, s) renders frame s of its pixels.
+template <class Tr, bool kBlocked>
 __global__ void __launch_bounds__(kThreads)
 fused_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
                       const float* __restrict__ cst, const float* __restrict__ mt,
                       const float* __restrict__ attr, float* __restrict__ direct,
                       float* __restrict__ ispec, float* __restrict__ albedo,
-                      float* __restrict__ rough, int c, int width, int height, Env env) {
+                      float* __restrict__ rough, int c, int width, int height, Env env,
+                      const float* __restrict__ boxes, int n_boxes, int cluster_rows,
+                      int block_w) {
   extern __shared__ float smem[];
-  Tris T = stage_tris(smem, mt, attr, c);
+  Tr T = backend<Tr>(stage_tris(smem, mt, attr, c), smem, boxes, n_boxes, cluster_rows);
   int n = width * height;
-  int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  int pix = pixel_index<kBlocked>(width, block_w);
   if (pix >= n) return;
   int s = blockIdx.y;
   float aov[10];
@@ -174,6 +260,57 @@ fused_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict_
   rough[o] = aov[9];
 }
 
+// The instantiation for the opt-ins: base, CLUSTERED, BLOCKED or both.
+template <bool kRealtime, class Tr, bool kBlocked>
+auto kernel_for() {
+  if constexpr (kRealtime) {
+    return fused_realtime_kernel<Tr, kBlocked>;
+  } else {
+    return fused_progressive_kernel<Tr, kBlocked>;
+  }
+}
+
+template <bool kRealtime>
+auto pick_kernel(bool clustered, bool blocked) {
+  if (clustered) {
+    return blocked ? kernel_for<kRealtime, ClusteredTris, true>()
+                   : kernel_for<kRealtime, ClusteredTris, false>();
+  }
+  return blocked ? kernel_for<kRealtime, Tris, true>() : kernel_for<kRealtime, Tris, false>();
+}
+
+// The opt-in arguments are valid: no boxes (base), or n_boxes boxes of
+// cluster_rows rows covering the c triangles; block_w 0 (raster), or a
+// divisor of kThreads and of the width whose block height divides the height.
+bool opt_ins_ok(int c, int width, int height, const float* boxes, int n_boxes, int cluster_rows,
+                int block_w) {
+  if (boxes != nullptr && (n_boxes < 1 || cluster_rows < 1 || n_boxes * cluster_rows < c ||
+                           (n_boxes - 1) * cluster_rows >= c)) {
+    return false;
+  }
+  if (block_w != 0 && (block_w < 0 || kThreads % block_w || width % block_w ||
+                       height % (kThreads / block_w))) {
+    return false;
+  }
+  return true;
+}
+
+// shared memory: the triangles, then the cluster boxes (<= 44 KB + 6 KB)
+size_t smem_bytes(int c, const float* boxes, int n_boxes) {
+  return ((size_t)(kMtSlots + kAttrRows) * c + (boxes != nullptr ? 6 * n_boxes : 0)) *
+         sizeof(float);
+}
+
+// A launch above the default 48 KB of dynamic shared memory (the cluster
+// boxes beside some 200 or more triangles) must raise the kernel's limit
+// first. Returns the CUDA error code (0 on success).
+template <class K>
+int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+}
+
 }  // namespace
 
 // Sum of S progressive samples into out [height, width, 3] float32.
@@ -181,24 +318,31 @@ fused_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict_
 //   (pack_consts), mt [4, c, 16] f32, attr [32, c] f32; env_kind 0-3, and
 //   for kind 2 env_tex the lat-long [env_h, env_w, 3] f32, for kind 3 the
 //   cubemap [6, env_w, env_w, 3] f32 (env_h == env_w); ignored for 0 and 1.
+//   Opt-ins: boxes [n_boxes, 8] f32 (ops/fused_sample.cluster_aabbs) with
+//   cluster_rows rows each, or null for the flat sweeps; block_w > 0 for the
+//   blocked pixel order, 0 for raster.
 // Launches on `stream` and returns cudaGetLastError() (0 on success), or
 // cudaErrorInvalidValue for bad arguments (a texture kind without its
-// texture or with empty dimensions among them).
+// texture or with empty dimensions among them, or opt-ins that do not fit).
 extern "C" int dxr_fused_progressive_sum(const float* cam, const uint32_t* frames,
                                          const float* cst, const float* mt, const float* attr,
                                          float* out, int s_count, int c, int width, int height,
                                          int env_kind, const float* env_tex, int env_w,
-                                         int env_h, void* stream) {
+                                         int env_h, const float* boxes, int n_boxes,
+                                         int cluster_rows, int block_w, void* stream) {
   if (c < 1 || c > kMaxTris || s_count < 1 || width < 1 || height < 1 ||
-      !env_args_ok(env_kind, env_tex, env_w, env_h)) {
+      !env_args_ok(env_kind, env_tex, env_w, env_h) ||
+      !opt_ins_ok(c, width, height, boxes, n_boxes, cluster_rows, block_w)) {
     return (int)cudaErrorInvalidValue;
   }
   int n = width * height;
   int blocks = (n + kThreads - 1) / kThreads;
-  size_t smem = (size_t)(kMtSlots + kAttrRows) * c * sizeof(float);  // <= 44 KB
-  fused_progressive_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
+  auto kernel = pick_kernel<false>(boxes != nullptr, block_w > 0);
+  const size_t smem = smem_bytes(c, boxes, n_boxes);
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
       cam, frames, cst, mt, attr, out, s_count, c, width, height,
-      Env{env_tex, env_kind, env_w, env_h});
+      Env{env_tex, env_kind, env_w, env_h}, boxes, n_boxes, cluster_rows, block_w);
   return (int)cudaGetLastError();
 }
 
@@ -211,16 +355,20 @@ extern "C" int dxr_fused_realtime_outputs(const float* cam, const uint32_t* fram
                                           float* direct, float* ispec, float* albedo,
                                           float* rough, int s_count, int c, int width,
                                           int height, int env_kind, const float* env_tex,
-                                          int env_w, int env_h, void* stream) {
+                                          int env_w, int env_h, const float* boxes, int n_boxes,
+                                          int cluster_rows, int block_w, void* stream) {
   if (c < 1 || c > kMaxTris || s_count < 1 || s_count > 65535 || width < 1 || height < 1 ||
-      !env_args_ok(env_kind, env_tex, env_w, env_h)) {
+      !env_args_ok(env_kind, env_tex, env_w, env_h) ||
+      !opt_ins_ok(c, width, height, boxes, n_boxes, cluster_rows, block_w)) {
     return (int)cudaErrorInvalidValue;
   }
   int n = width * height;
   dim3 grid((n + kThreads - 1) / kThreads, s_count);
-  size_t smem = (size_t)(kMtSlots + kAttrRows) * c * sizeof(float);  // <= 44 KB
-  fused_realtime_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  auto kernel = pick_kernel<true>(boxes != nullptr, block_w > 0);
+  const size_t smem = smem_bytes(c, boxes, n_boxes);
+  if (int rc = allow_smem(kernel, smem)) return rc;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       cam, frames, cst, mt, attr, direct, ispec, albedo, rough, c, width, height,
-      Env{env_tex, env_kind, env_w, env_h});
+      Env{env_tex, env_kind, env_w, env_h}, boxes, n_boxes, cluster_rows, block_w);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,26 @@ env-deferred mode) is looked up inside the kernel at every miss, from the
 texture the scene holds on its device (``env_args``); nothing is written
 out for a resolve pass.
 
+Two opt-ins of the JAX kernel, off by default, read from the environment
+at each call as JAX's ``_env_knobs`` reads them (``knobs``), or passed as
+the keyword arguments ``cluster_rows`` and ``block_w``, which override it:
+
+- ``FUSED_CLUSTERS=N``: every shadow sweep of the direct lighting gates
+  each N-row window of the triangles behind a slab test of the window's
+  box (``cluster_aabbs``) and skips the rows a ray cannot reach, once C > N
+  (the kernel's separate CLUSTERED instantiation; the JAX kernel's
+  ``_any_hit_clustered``). Occlusion is the flat sweep's, bit for bit.
+- ``FUSED_BLOCK_W=W``: a block of the kernel's 128 threads renders a W x
+  (128 / W) pixel block instead of 128 pixels of a raster row (the BLOCKED
+  instantiation), where W divides 128, the width and the height divides by
+  128 / W; otherwise the order stays raster, as JAX's raster rule
+  (``block_order``). JAX's block is a TPU tile of tile_r / W rows; the
+  port's is the CUDA block. The image is the same.
+
+``FUSED_TILE``, the JAX kernel's TPU tile of pixels, is not carried: a CUDA
+block is 128 threads, one pixel each. The plain versions take no knob:
+neither changes the image.
+
 Packs: ``pack_cameras`` gives [S, 16] (origin with the jitter folded in at
 the mode's scale, 30 progressive or 10 realtime, then U, V, W, and lane 12
 the row offset, 0 here); ``pack_consts`` gives [2, 16] (lights, env colours
@@ -24,6 +44,7 @@ the same layout as the TPU kernel's.
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -31,7 +52,9 @@ from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..trace.integrator import progressive_sample_sum, render_sample
 
+BIG = 3.0e38
 MAX_TRIS = 256  # the kernel stages at most 256 triangles in shared memory
+THREADS = 128  # pixels per CUDA block (csrc/fused_sample.cu kThreads)
 JITTER_SCALE = 30.0  # progressive pipeline jitter scale
 REALTIME_JITTER_SCALE = 10.0  # realtime pipeline jitter scale
 
@@ -40,6 +63,10 @@ REALTIME_JITTER_SCALE = 10.0  # realtime pipeline jitter scale
 # them to 0 and read them back to show that a run went through the kernels.
 LAUNCHES = 0
 REALTIME_LAUNCHES = 0
+# Of those, the launches of the CLUSTERED and of the BLOCKED instantiations
+# (both opt-ins: counted in each).
+CLUSTERED_LAUNCHES = 0
+BLOCKED_LAUNCHES = 0
 
 _FLAG_OPTIONS = (
     "cosine_hemisphere_sampling",
@@ -78,6 +105,50 @@ def _check_supported(scene: dict, env_kind: int, mode: str) -> None:
             "albedo textures, a BVH, or a rig other than 1 directional + 1 point "
             "light): such scenes take the wavefront route (trace.integrator, kernel B3)"
         )
+
+
+def knobs(cluster_rows: int | None = None, block_w: int | None = None) -> tuple[int, int]:
+    """(cluster_rows, block_w): the keyword arguments where given, else
+    ``FUSED_CLUSTERS`` and ``FUSED_BLOCK_W`` from the environment, read at
+    each call (``fused_sample_pallas._env_knobs``); 0 = off."""
+    if cluster_rows is None:
+        cluster_rows = int(os.environ.get("FUSED_CLUSTERS", "0"))
+    if block_w is None:
+        block_w = int(os.environ.get("FUSED_BLOCK_W", "0"))
+    return int(cluster_rows), int(block_w)
+
+
+def cluster_aabbs(scene: dict, cluster_rows: int) -> torch.Tensor:
+    """Per-cluster boxes [K, 8] (lo xyz, hi xyz, 2 zeros) of the padded
+    triangle rows in windows of ``cluster_rows``, degenerate rows (the
+    padding) excluded, grown by a 1e-4 margin for grazing rays
+    (``fused_sample_pallas._cluster_aabbs``, line for line)."""
+    v0, e1, e2 = scene["v0"], scene["e1"], scene["e2"]
+    c = v0.shape[0]
+    k_count = -(-c // cluster_rows)
+    pad = k_count * cluster_rows - c
+    deg = (torch.sum(torch.abs(e1), 1) + torch.sum(torch.abs(e2), 1)) == 0.0
+    p1, p2 = v0 + e1, v0 + e2
+    lo = torch.minimum(torch.minimum(v0, p1), p2)
+    hi = torch.maximum(torch.maximum(v0, p1), p2)
+    lo = torch.where(deg[:, None], BIG, lo)  # a scalar: no host-to-card copy per call
+    hi = torch.where(deg[:, None], -BIG, hi)
+    if pad:
+        lo = torch.cat([lo, torch.full((pad, 3), BIG, dtype=torch.float32, device=v0.device)])
+        hi = torch.cat([hi, torch.full((pad, 3), -BIG, dtype=torch.float32, device=v0.device)])
+    lo = lo.reshape(k_count, cluster_rows, 3).amin(dim=1) - 1e-4
+    hi = hi.reshape(k_count, cluster_rows, 3).amax(dim=1) + 1e-4
+    return torch.cat([lo, hi, torch.zeros((k_count, 2), dtype=torch.float32, device=v0.device)],
+                     dim=1)
+
+
+def block_order(width: int, height: int, block_w: int) -> int:
+    """The block width the kernel takes: ``block_w`` where it divides the
+    block's THREADS pixels and the width, and the height divides by
+    THREADS / block_w; else 0, the raster order (JAX's raster rule)."""
+    if block_w <= 0 or THREADS % block_w or width % block_w:
+        return 0
+    return block_w if height % (THREADS // block_w) == 0 else 0
 
 
 def pack_cameras(cameras: dict, realtime: bool = False) -> torch.Tensor:
@@ -173,11 +244,15 @@ def _library():
 
         lib = load_library("fused_sample", ["fused_sample.cu"])
         env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
+        # cluster boxes, their count, rows per cluster, block width
+        opt_ins = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         fn = lib.dxr_fused_progressive_sum
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + env + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + env + opt_ins
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         fn = lib.dxr_fused_realtime_outputs
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + env + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + env + opt_ins
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
@@ -236,10 +311,30 @@ def _upload(cam: torch.Tensor, cst: torch.Tensor, frames: torch.Tensor, device) 
     return host.to(device, non_blocking=True)
 
 
-def _launch(scene, options, cameras, width, height, env_kind, realtime: bool):
+def opt_in_args(scene: dict, width: int, height: int, cluster_rows: int | None,
+                block_w: int | None) -> tuple:
+    """The kernels' opt-in arguments (cluster boxes or None, their count,
+    rows per cluster, block width) for ``knobs(cluster_rows, block_w)``:
+    clusters only where C > cluster_rows (as JAX), the block width of
+    ``block_order``. Returns (args, boxes); the caller keeps the boxes alive
+    until the launch is queued."""
+    cluster_rows, block_w = knobs(cluster_rows, block_w)
+    c = int(scene["mt_pack"].shape[1])
+    boxes = None
+    if cluster_rows > 0 and c > cluster_rows:
+        boxes = cluster_aabbs(scene, cluster_rows).contiguous()
+    else:
+        cluster_rows = 0
+    args = (None if boxes is None else boxes.data_ptr(), 0 if boxes is None else boxes.shape[0],
+            cluster_rows, block_order(width, height, block_w))
+    return args, boxes
+
+
+def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
+            cluster_rows: int | None = None, block_w: int | None = None):
     """Pack, upload and launch one dispatch of S samples (progressive) or S
     frames (realtime); returns the output tensors."""
-    global LAUNCHES, REALTIME_LAUNCHES
+    global LAUNCHES, REALTIME_LAUNCHES, CLUSTERED_LAUNCHES, BLOCKED_LAUNCHES
     mt = scene["mt_pack"]
     device = mt.device
     c = int(mt.shape[1])
@@ -259,6 +354,7 @@ def _launch(scene, options, cameras, width, height, env_kind, realtime: bool):
     frames_ptr = cst_ptr + 4 * cst.numel()
     head = (cam_ptr, frames_ptr, cst_ptr, mt.data_ptr(), attr.data_ptr())
     tail = (s_count, c, width, height, int(env_kind), *env_args(scene, int(env_kind), device))
+    opt_ins, boxes = opt_in_args(scene, width, height, cluster_rows, block_w)
     lib = _library()
 
     def empty(*shape):
@@ -273,13 +369,16 @@ def _launch(scene, options, cameras, width, height, env_kind, realtime: bool):
         fn = lib.dxr_fused_progressive_sum
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*head, *(o.data_ptr() for o in outs), *tail, stream)
+        rc = fn(*head, *(o.data_ptr() for o in outs), *tail, *opt_ins, stream)
+    del boxes  # queued: the caching allocator keeps its memory for this stream
     if rc != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: cudaError {rc}")
     if realtime:
         REALTIME_LAUNCHES += 1
     else:
         LAUNCHES += 1
+    CLUSTERED_LAUNCHES += opt_ins[0] is not None
+    BLOCKED_LAUNCHES += opt_ins[3] > 0
     return outs
 
 
@@ -298,6 +397,8 @@ def fused_progressive_sum(
     height: int,
     env_kind: int,
     light_mc: bool = False,
+    cluster_rows: int | None = None,
+    block_w: int | None = None,
 ) -> torch.Tensor:
     """Sum of S progressive samples, [H, W, 3] float32 (divide by S for the
     mean). ``cameras`` is CameraParams stacked on a leading [S] axis.
@@ -305,7 +406,8 @@ def fused_progressive_sum(
     ``light_mc`` exists for the JAX signature and changes nothing: JAX
     compiles a static debug==2 variant, while this kernel already skips the
     unpicked light's shadow sweep per thread. It only checks that
-    ``options["debug"] == 2`` and raises otherwise.
+    ``options["debug"] == 2`` and raises otherwise. ``cluster_rows`` and
+    ``block_w`` override ``FUSED_CLUSTERS`` and ``FUSED_BLOCK_W`` (``knobs``).
 
     CUDA scene tensors -> one kernel launch; CPU scene tensors -> the plain
     version. Scenes outside the kernel's scope raise."""
@@ -317,7 +419,8 @@ def fused_progressive_sum(
         )
     if _device_of(scene).type == "cpu":
         return fused_progressive_sum_reference(scene, options, cameras, width, height, env_kind)
-    return _launch(scene, options, cameras, width, height, env_kind, realtime=False)[0]
+    return _launch(scene, options, cameras, width, height, env_kind, False, cluster_rows,
+                   block_w)[0]
 
 
 def realtime_aovs(
@@ -327,19 +430,22 @@ def realtime_aovs(
     width: int,
     height: int,
     env_kind: int,
+    cluster_rows: int | None = None,
+    block_w: int | None = None,
 ) -> dict:
     """The AOVs of S realtime frames, one per camera of ``cameras``
     (CameraParams stacked on a leading [S] axis): ``direct``,
     ``indirect_specular``, ``albedo`` [S, H, W, 3] and ``roughness``
     [S, H, W]. CUDA scene tensors -> one kernel launch and no ``color``, so
     a caller that needs only the AOVs queues no sum; CPU scene tensors ->
-    the plain version, whose dict holds ``color`` too. Scenes outside the
-    kernel's scope raise."""
+    the plain version, whose dict holds ``color`` too. ``cluster_rows`` and
+    ``block_w`` as in ``fused_progressive_sum``. Scenes outside the kernel's
+    scope raise."""
     _check_supported(scene, env_kind, "realtime")
     if _device_of(scene).type == "cpu":
         return fused_realtime_outputs_reference(scene, options, cameras, width, height, env_kind)
-    return dict(zip(AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind,
-                                      realtime=True)))
+    return dict(zip(AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind, True,
+                                      cluster_rows, block_w)))
 
 
 def fused_realtime_outputs_batch(
@@ -349,12 +455,14 @@ def fused_realtime_outputs_batch(
     width: int,
     height: int,
     env_kind: int,
+    cluster_rows: int | None = None,
+    block_w: int | None = None,
 ) -> dict:
     """S realtime frames (primary + 2 shadow sweeps + the Phong bounce with
     its 3 sweeps; no indirect diffuse): ``realtime_aovs`` plus ``color``
     [S, H, W, 3], ``direct + indirect_specular`` summed outside the kernel
     as the JAX package does."""
-    out = realtime_aovs(scene, options, cameras, width, height, env_kind)
+    out = realtime_aovs(scene, options, cameras, width, height, env_kind, cluster_rows, block_w)
     if _device_of(scene).type == "cuda":
         out["color"] = out["direct"] + out["indirect_specular"]
     return out
@@ -367,9 +475,12 @@ def fused_realtime_outputs(
     width: int,
     height: int,
     env_kind: int,
+    cluster_rows: int | None = None,
+    block_w: int | None = None,
 ) -> dict:
     """One realtime frame: ``fused_realtime_outputs_batch`` for a single
     CameraParams, without the leading [S] axis."""
     cameras = {k: v[None] for k, v in camera.items()}
-    out = fused_realtime_outputs_batch(scene, options, cameras, width, height, env_kind)
+    out = fused_realtime_outputs_batch(scene, options, cameras, width, height, env_kind,
+                                       cluster_rows, block_w)
     return {k: v[0] for k, v in out.items()}

@@ -1,31 +1,34 @@
-"""BVH traversal: the packs, the three walk kernels' wrappers (B4a fat-node,
-B4b binary, B4d 8-wide), their plain versions and host models of the walks.
+"""BVH traversal: the packs, the four walk kernels' wrappers (B4a fat-node,
+B4c grouped fat-node packets, B4b binary, B4d 8-wide), their plain versions
+and host models of the walks.
 
 Port of ``dxrexperiments_tpu.ops.traverse_pallas``'s host part and of its
 kernels ``_make_traverse_fat_kernel`` (``traverse_fat_closest``,
-``traverse_fat_any``), ``_make_traverse_kernel`` (``traverse_closest``,
-``traverse_any``) and ``_make_traverse8_kernel`` (``traverse8_closest``,
-``traverse8_any``). ``pack_for_traversal`` and ``fat_nodes`` are copied
-line for line, so ``bvh_nodes``, ``bvhf_nodes``, ``bvh8_nodes``,
-``mt_rows``, ``slot_tri`` and ``mt_attr_lanes`` equal the JAX build's bit
-for bit.
+``traverse_fat_any``), ``_make_traverse_fat_grouped_kernel`` (the same
+entry points with ``group > 1``), ``_make_traverse_kernel``
+(``traverse_closest``, ``traverse_any``) and ``_make_traverse8_kernel``
+(``traverse8_closest``, ``traverse8_any``). ``pack_for_traversal`` and
+``fat_nodes`` are copied line for line, so ``bvh_nodes``, ``bvhf_nodes``,
+``bvh8_nodes``, ``mt_rows``, ``slot_tri`` and ``mt_attr_lanes`` equal the
+JAX build's bit for bit.
 
 On CUDA tensors the wrappers launch the hand-written kernels in
 ``csrc/traverse_fat.cu``, ``csrc/traverse_binary.cu`` and
-``csrc/traverse8.cu`` (one thread per ray on its own stack) or raise; on
-CPU tensors they take the plain versions, the brute-force
-``ops/intersect.py`` over the same triangles, which is what the JAX
-package's jnp route computes for BVH scenes. There is no fallback from a
+``csrc/traverse8.cu`` (one thread per ray on its own stack) or
+``csrc/traverse_fat_grouped.cu`` (one packet of ``tile`` rays per block on
+a shared stack) or raise; on CPU tensors they take the plain versions, the
+brute-force ``ops/intersect.py`` over the same triangles, which is what the
+JAX package's jnp route computes for BVH scenes. There is no fallback from a
 kernel to its plain version.
 
 A stack overflow sets the launch's error flag. The wrapper does not wait to
 read it: ``check_errors`` raises for it at a later launch, once the kernel
 has finished, or when the pipeline's ``get_output`` waits for the card.
 
-``fat_walk_numpy``, ``binary_walk_numpy`` and ``wide_walk_numpy`` are host
-models of the kernels' walks: they return the same hits and count the slab
-and pair tests a walk performs, from which ``chip_smoke.py`` computes the
-kernels' bounds.
+``fat_walk_numpy``, ``fat_packet_walk_numpy``, ``binary_walk_numpy`` and
+``wide_walk_numpy`` are host models of the kernels' walks: they return the
+same hits and count the slab and pair tests a walk performs, from which
+``chip_smoke.py`` computes the kernels' bounds.
 """
 
 from __future__ import annotations
@@ -45,15 +48,17 @@ MAX_STACK = 96  # per-ray stack entries; an overflow raises, it never truncates
 # t*det = O . [54:57] + [57]
 COEF_LANES = (0, 1, 2, 16, 17, 18, 19, 20, 21, 32, 33, 34, 35, 36, 37, 54, 55, 56, 57)
 
-# Kernel launches so far, one per traced batch: B4a (fat), B4b (binary) and
-# B4d (8-wide). Callers reset them to 0 and read them back to show that a
-# run went through the kernel.
+# Kernel launches so far, one per traced batch: B4a (fat), B4c (grouped),
+# B4b (binary) and B4d (8-wide). Callers reset them to 0 and read them back
+# to show that a run went through the kernel.
 CLOSEST_LAUNCHES = 0
 ANY_LAUNCHES = 0
 BINARY_CLOSEST_LAUNCHES = 0
 BINARY_ANY_LAUNCHES = 0
 WIDE_CLOSEST_LAUNCHES = 0
 WIDE_ANY_LAUNCHES = 0
+GROUPED_CLOSEST_LAUNCHES = 0
+GROUPED_ANY_LAUNCHES = 0
 
 # kind -> (library and source name, C entry point, the node rows it reads and
 # their width, (closest, any) launch counters)
@@ -64,7 +69,10 @@ WALKS = {
                ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")),
     "wide": ("traverse8", "dxr_traverse8", "bvh8_rows", 8,
              ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES")),
+    "grouped": ("traverse_fat_grouped", "dxr_traverse_fat_grouped", "bvhf_rows", 16,
+                ("GROUPED_CLOSEST_LAUNCHES", "GROUPED_ANY_LAUNCHES")),
 }
+MAX_TILE = 2048  # B4c's largest packet (the JAX kernel's TILE_R): two rays per thread
 
 _ERRORS = {1: f"a ray's stack overflowed its {MAX_STACK} entries (64 in a TLAS walk)",
            2: "a node, instance or slot index lies outside the packed arrays"}
@@ -283,7 +291,8 @@ def _library(kind: str = "fat"):
 
         name, entry = WALKS[kind][:2]
         fn = getattr(load_library(name, [f"{name}.cu"]), entry)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+        n_int = 8 if kind == "grouped" else 5  # B4c: tile, group, common_origin too
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [ctypes.c_void_p] * 7
         fn.restype = ctypes.c_int
         _LIBS[kind] = fn
     return _LIBS[kind]
@@ -356,12 +365,18 @@ def check_errors(wait: bool = True) -> None:
 
 
 def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
-                   kind: str = "fat"):
+                   kind: str = "fat", packet: tuple = ()):
     """Pack the rays and allocate the outputs of one launch of walk ``kind``
-    (WALKS: "fat" B4a, "binary" B4b, "wide" B4d). Returns (launch, outs,
-    err): ``launch()`` enqueues the kernel and returns the CUDA error code;
-    outs is (occ,) or (t, slot, u, v). Timing ``launch`` alone measures the
-    kernel without the wrapper's packing and checks."""
+    (WALKS: "fat" B4a, "grouped" B4c, "binary" B4b, "wide" B4d); B4c takes
+    ``packet`` = (tile, group, common_origin), checked by
+    ``check_grouping``. Returns (launch, outs, err): ``launch()`` enqueues
+    the kernel and returns the CUDA error code; outs is (occ,) or (t, slot,
+    u, v). Timing ``launch`` alone measures the kernel without the wrapper's
+    packing and checks."""
+    if (kind == "grouped") != bool(packet):
+        raise ValueError("packet = (tile, group, common_origin) goes with the grouped walk only")
+    if packet:
+        check_grouping(*packet[:2])
     device = origins.device
     nodes, rows = check_bvh(scene["bvh"], device, kind)
     rays = pack_rays(origins, directions, t_min, t_max)
@@ -382,16 +397,17 @@ def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusi
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             return fn(rays.data_ptr(), nodes.data_ptr(), rows.data_ptr(), r, nodes.shape[0],
-                      rows.shape[0], int(occlusion), int(cull), *ptrs, err.data_ptr(), stream)
+                      rows.shape[0], int(occlusion), int(cull), *(int(x) for x in packet),
+                      *ptrs, err.data_ptr(), stream)
 
     return launch, outs, err
 
 
 def _launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
-            kind: str = "fat"):
+            kind: str = "fat", packet: tuple = ()):
     name = WALKS[kind][0]
     launch, outs, err = prepare_launch(scene, origins, directions, t_min, t_max, cull, occlusion,
-                                       kind)
+                                       kind, packet)
     rc = launch()
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
@@ -426,22 +442,74 @@ def _any(kind: str, scene, origins, directions, t_min, t_max) -> torch.Tensor:
     return traverse_fat_any_reference(scene, origins, directions, t_min, t_max)
 
 
+def check_grouping(tile: int, group: int) -> None:
+    """Raise ValueError unless (tile, group) is a packet layout B4c takes:
+    group > 1 sub-packets of R = tile / group rays, R a multiple of 32 (whole
+    warps), tile <= MAX_TILE, and above MAX_TILE / 2 (two rays per thread) a
+    multiple of 64."""
+    tile, group = int(tile), int(group)
+    if group <= 1:
+        raise ValueError(f"group={group}: the grouped walk needs group > 1 (group <= 1 is B4a)")
+    if tile < 1 or tile % group:
+        raise ValueError(f"tile={tile}, group={group}: tile % group must be 0")
+    if (tile // group) % 32:
+        raise ValueError(f"tile={tile}, group={group}: the sub-packet R = tile / group = "
+                         f"{tile // group} must be a multiple of 32 (whole warps)")
+    if tile > MAX_TILE:
+        raise ValueError(f"tile={tile}: at most {MAX_TILE} rays per packet (two per thread)")
+    if tile > MAX_TILE // 2 and tile % 64:
+        raise ValueError(f"tile={tile}: a packet of more than {MAX_TILE // 2} rays takes two "
+                         f"per thread, so it must be a multiple of 64 (whole warps)")
+
+
 def traverse_fat_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
-                         t_min=1e-4, t_max=3.0e37, cull_backface: bool = False) -> dict:
-    """Closest hit through the scene's fat-node BVH (kernel B4a): {"hit" [R]
-    bool, "t" [R] (-1 on a miss), "tri" [R] int64 (original triangle, -1),
-    "slot" [R] int64 (leaf slot, -1), "u", "v" [R] (0 on a miss)}.
-    t_min/t_max: scalars or [R]. CUDA rays -> one kernel launch; CPU rays ->
+                         t_min=1e-4, t_max=3.0e37, cull_backface: bool = False,
+                         tile: int = MAX_TILE, group: int = 0,
+                         common_origin: bool = False) -> dict:
+    """Closest hit through the scene's fat-node BVH: {"hit" [R] bool, "t" [R]
+    (-1 on a miss), "tri" [R] int64 (original triangle, -1), "slot" [R]
+    int64 (leaf slot, -1), "u", "v" [R] (0 on a miss)}. t_min/t_max:
+    scalars or [R].
+
+    group > 1 walks packets of ``tile`` rays on one shared stack, each
+    leaf's pair test run only in the sub-packets of tile / group rays with
+    a live lane (kernel B4c; ``check_grouping`` says which layouts it
+    takes, anything else raises ValueError); group <= 1 walks each ray on
+    its own stack (kernel B4a), where ``tile``, the TPU packet size, has no
+    meaning and is not used. ``common_origin``: the caller asserts that
+    every ray starts at origins[0], and every route (the kernels and the
+    plain version) uses origins[0] for all rays, as the JAX kernels'
+    shared-origin scalars do. CUDA rays -> one kernel launch; CPU rays ->
     the plain version."""
-    return _closest("fat", scene, origins, directions, t_min, t_max, cull_backface)
+    if common_origin:
+        origins_all = origins[:1].expand_as(origins)
+    else:
+        origins_all = origins
+    if group > 1:
+        check_grouping(tile, group)
+        if _on_cuda(origins):
+            return _launch(scene, origins, directions, t_min, t_max, cull_backface, False,
+                           "grouped", (tile, group, common_origin))
+        return traverse_fat_closest_reference(scene, origins_all, directions, t_min, t_max,
+                                              cull_backface)
+    return _closest("fat", scene, origins_all, directions, t_min, t_max, cull_backface)
 
 
 def traverse_fat_any(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
-                     t_min=1e-4, t_max=3.0e37) -> torch.Tensor:
-    """Occlusion through the fat-node BVH (kernel B4a): [R] bool, True where
-    any triangle blocks (t_min, t_max). Rays with a zero direction are not
-    occluded (the wavefront integrator zeroes the shadow rays of inactive
-    lanes). CUDA rays -> one kernel launch; CPU rays -> the plain version."""
+                     t_min=1e-4, t_max=3.0e37, tile: int = MAX_TILE,
+                     group: int = 0) -> torch.Tensor:
+    """Occlusion through the fat-node BVH: [R] bool, True where any triangle
+    blocks (t_min, t_max). Rays with a zero direction are not occluded (the
+    wavefront integrator zeroes the shadow rays of inactive lanes).
+    group > 1 takes the packet walk B4c, group <= 1 the per-ray walk B4a,
+    as in ``traverse_fat_closest``. CUDA rays -> one kernel launch; CPU
+    rays -> the plain version."""
+    if group > 1:
+        check_grouping(tile, group)
+        if _on_cuda(origins):
+            return _launch(scene, origins, directions, t_min, t_max, False, True, "grouped",
+                           (tile, group, False))
+        return traverse_fat_any_reference(scene, origins, directions, t_min, t_max)
     return _any("fat", scene, origins, directions, t_min, t_max)
 
 
@@ -483,12 +551,19 @@ def leaf_terms(coef, start, count, o, d, mom, tmin, tmax, cull: bool):
     s_idx = start[:, None] + rows_k[None, :]
     live = rows_k[None, :] < count[:, None]
     s_idx = np.where(live, s_idx, 0)
-    c = coef[s_idx]  # [n, K, 19]
-    dd, mm, oo = d[:, None, :], mom[:, None, :], o[:, None, :]
-    det = (dd * c[..., 0:3]).sum(-1)
-    u_d = (dd * c[..., 3:6]).sum(-1) + (mm * c[..., 6:9]).sum(-1)
-    v_d = (dd * c[..., 9:12]).sum(-1) + (mm * c[..., 12:15]).sum(-1)
-    t_d = (oo * c[..., 15:18]).sum(-1) + c[..., 18]
+    if (start == start[0]).all():  # one leaf for every ray (a packet): no gather
+        c = coef[s_idx[0]][None]  # [1, K, 19]
+    else:
+        c = coef[s_idx]  # [n, K, 19]
+
+    def dot3(x, j):  # ((x0 c_j + x1 c_j+1) + x2 c_j+2), the order of a sum over 3 terms
+        return (x[:, None, 0] * c[..., j] + x[:, None, 1] * c[..., j + 1]
+                + x[:, None, 2] * c[..., j + 2])
+
+    det = dot3(d, 0)
+    u_d = dot3(d, 3) + dot3(mom, 6)
+    v_d = dot3(d, 9) + dot3(mom, 12)
+    t_d = dot3(o, 15) + c[..., 18]
     sgn = np.sign(det)
     da, us, vs, ts = det * sgn, u_d * sgn, v_d * sgn, t_d * sgn
     alive = det > 1e-12 if cull else da > 1e-12
@@ -751,3 +826,132 @@ def wide_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = F
     ids."""
     return _walk_numpy(bvh["bvh8_rows"], wide_visit, 8, bvh["mt_rows"], origins, directions,
                        t_min, t_max, cull, occlusion)
+
+
+def _packet_slab(f, c: int, o, inv, tmin, tf):
+    """Child c's slab test of fat node row f for a packet's lanes (o, inv
+    [n, 3]): (lane hits [n], entry t [n])."""
+    t0 = (f[6 * c : 6 * c + 3] - o) * inv
+    t1 = (f[6 * c + 3 : 6 * c + 6] - o) * inv
+    tn = np.maximum(tmin, np.minimum(t0, t1).max(1))
+    return tn <= np.minimum(tf, np.maximum(t0, t1).min(1)), tn
+
+
+def fat_packet_walk_numpy(bvh: dict, origins, directions, t_min, t_max, tile: int, group: int,
+                          cull: bool = False, occlusion: bool = False,
+                          common_origin: bool = False, lag: bool = False) -> tuple[dict, dict]:
+    """Host model of B4c's packet walk over ``bvhf_rows``/``mt_rows`` (numpy
+    arrays), one packet of ``tile`` consecutive rays at a time, as the JAX
+    kernel ``_make_traverse_fat_grouped_kernel`` walks it:
+
+    - one stack per packet; both children of a node are slab-tested for
+      every lane against (t_min, min(t_max, best)] (in occlusion an
+      occluded or zero-direction lane's window is empty), and a child is
+      taken if any lane hits it;
+    - hit leaves are handled child 0 first: the leaf box is re-tested per
+      lane, and the pair test runs in every sub-packet of R = tile / group
+      rays that has a live lane (lowest row wins within a leaf, strict '<'
+      across leaves; an occluded lane tests no more);
+    - two internal children are pushed so that the child with the smaller
+      packet-minimum entry t pops first, ties to child 0;
+    - occlusion ends once every lane is occluded (or dead) and no leaf is
+      pending.
+
+    ``lag=True`` handles each leaf one enqueue late, as the TPU kernel's
+    double-buffered leaf DMA does (a leaf is tested when the next one is
+    enqueued, the last after the walk); the CUDA kernel tests a leaf at
+    once (``lag=False``). The lag changes which nodes a stale best fails to
+    prune, not the winner. ``common_origin`` uses origins[0] for every ray.
+    Rays past the last whole packet form a shorter packet.
+
+    Returns (result, counts) with ``fat_walk_numpy``'s keys: visits are
+    packet steps; slab_tests 2 x lanes per step plus lanes per leaf
+    re-test; pair_tests the rows each lane of a live sub-packet tests (an
+    occlusion lane up to its first blocker); ray_visits [R] the steps of
+    each ray's packet; ray_leaves [R] the leaf tests each ray took part
+    in."""
+    check_grouping(tile, group)
+    nodes = np.asarray(bvh["bvhf_rows"], np.float32)
+    o = np.asarray(origins, np.float32)
+    d = np.asarray(directions, np.float32)
+    r = len(d)
+    if common_origin:
+        o = np.broadcast_to(o[:1], (r, 3))
+    state = WalkState(np.asarray(bvh["mt_rows"], np.float32)[:, list(COEF_LANES)],
+                      np.broadcast_to(np.asarray(t_min, np.float32), (r,)).copy(),
+                      np.broadcast_to(np.asarray(t_max, np.float32), (r,)).copy(),
+                      cull, occlusion)
+    inv = safe_inv(d)
+    mom = np.cross(o, d).astype(np.float32)
+    dead = (np.abs(d).sum(axis=1) < 1e-30) if occlusion else np.zeros(r, bool)
+    sub = tile // group
+    ray_visits = np.zeros(r, np.int64)
+    counts = {"visits": 0, "slab_tests": 0}
+    deepest = 0
+    seen_nodes: list[np.ndarray] = []
+
+    def far(idx):
+        if occlusion:
+            return np.where(state.occ[idx] | dead[idx], np.float32(-BIG), state.tmax[idx])
+        return state.far(idx)
+
+    def process(idx, start, count, box):
+        """The leaf re-test and the pair tests of the live sub-packets."""
+        counts["slab_tests"] += len(idx)
+        live, _ = _packet_slab(box, 0, o[idx], inv[idx], state.tmin[idx], far(idx))
+        g = (idx - idx[0]) // sub
+        run = idx[np.isin(g, np.unique(g[live])) & ~dead[idx]]
+        if len(run):
+            n = len(run)
+            state.leaf(run, np.full(n, start), np.full(n, count), o[run], d[run], mom[run])
+
+    with np.errstate(all="ignore"):  # slab tests overflow to +-inf on purpose
+        for p0 in range(0, r, tile):
+            idx = np.arange(p0, min(p0 + tile, r))
+            stack = [0]
+            pending = None
+            steps = 0
+            while stack:
+                node = stack.pop()
+                steps += 1
+                seen_nodes.append(np.array([node]))
+                f = nodes[node]
+                tf = far(idx)
+                hits, enters, entered = [], [], []
+                for c in range(2):
+                    h, tn = _packet_slab(f, c, o[idx], inv[idx], state.tmin[idx], tf)
+                    hits.append(bool(h.any()))
+                    enters.append(np.where(h, tn, np.float32(BIG)).min())
+                counts["slab_tests"] += 2 * len(idx)
+                for c in range(2):
+                    if hits[c] and f[13 + 2 * c] > 0.5:
+                        leaf = (int(f[12 + 2 * c]), int(f[13 + 2 * c]), f[6 * c : 6 * c + 6])
+                        entered.append(leaf)
+                        if lag:
+                            if pending is not None:
+                                process(idx, *pending)
+                            pending = leaf
+                        else:
+                            process(idx, *leaf)
+                int0 = hits[0] and f[13] < -0.5
+                int1 = hits[1] and f[15] < -0.5
+                if len(stack) + int0 + int1 > MAX_STACK:
+                    raise RuntimeError(f"a packet's stack overflowed its {MAX_STACK} entries")
+                ptr0, ptr1 = int(f[12]), int(f[14])
+                if int0 and int1:
+                    near0 = enters[0] <= enters[1]
+                    stack += [ptr1, ptr0] if near0 else [ptr0, ptr1]
+                elif int0 or int1:
+                    stack.append(ptr0 if int0 else ptr1)
+                deepest = max(deepest, len(stack))
+                if occlusion and (state.occ[idx] | dead[idx]).all() and not (lag and entered):
+                    break
+            if pending is not None:
+                process(idx, *pending)
+            ray_visits[idx] = steps
+            counts["visits"] += steps
+
+    counts.update({"pair_tests": state.pairs, "node_ids": distinct(seen_nodes),
+                   "slot_ids": distinct(state.slots_seen), "max_stack": deepest,
+                   "ray_visits": ray_visits, "ray_leaves": state.ray_leaves})
+    return state.result(), counts

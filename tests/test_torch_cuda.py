@@ -28,7 +28,12 @@ versions, which trace every area sample and sample the albedo textures in
 torch.
 The bilateral kernel: max
 |difference| <= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums
-differing only by rounding.
+differing only by rounding. The grouped packet walk (B4c): the hit gates
+against B4a, and against its host model (``fat_packet_walk_numpy``) the hit
+or slot off on <= 1% of rays, t within rtol 1e-4. B1's opt-in
+instantiations: bit-equal to the base kernel. The roofline probes (B7):
+relative 1e-4 against their plain versions, the split-TF32 product within
+2 K float32 ulps of the sum of |terms|.
 """
 
 import dataclasses
@@ -1032,7 +1037,9 @@ def test_texture_env_launch_arguments(cuda_device):
             SIZE, SIZE)
     for kind, ptr, w, h in ((2, None, 64, 32), (3, None, 16, 16), (2, tex.data_ptr(), 0, 32),
                             (3, tex.data_ptr(), 16, 8), (4, tex.data_ptr(), 16, 16)):
-        assert lib.dxr_fused_progressive_sum(*head, kind, ptr, w, h, stream) == 1  # InvalidValue
+        # no cluster boxes, no block order
+        assert lib.dxr_fused_progressive_sum(*head, kind, ptr, w, h, None, 0, 0, 0,
+                                             stream) == 1  # InvalidValue
     ft_lib = ft._library()
     err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     bvh = build_scene("instanced:2")[0].build(cuda_device, accel="bvh")
@@ -1218,3 +1225,224 @@ def test_cornell_tex_pipelines_launch_counts(cuda_device, monkeypatch):
     assert (ft.REALTIME_LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES) == (
         before[0], before[1] + 2, before[2] + 2)
     assert bool((direct + spec).isfinite().all())
+
+
+# ---- the grouped packet walk (B4c), B1's opt-ins, the roofline probes (B7) ---
+
+GROUPINGS = [(256, 2), (1024, 2), (1024, 8), (2048, 4)]  # (tile, group)
+
+
+def _model_agree(got, model):
+    """A kernel against its host model on the same rays: the hit and the
+    slot differ on at most 1% of rays (knife edges under FMA contraction),
+    t within rtol 1e-4 where both hit the same slot."""
+    hit = got["hit"].cpu().numpy()
+    slot = got["slot"].cpu().numpy()
+    same = (hit == model["hit"]) & (~hit | (slot == model["slot"]))
+    assert float((~same).mean()) <= 0.01
+    both = same & hit
+    np.testing.assert_allclose(got["t"].cpu().numpy()[both], model["t"][both], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile,group", GROUPINGS)
+def test_grouped_walk_matches_fat_and_model(cuda_device, tile, group):
+    scene, cams = _bvh_setup(cuda_device)
+    o, d, pos, sd, dist = _primary_and_shadow_rays(scene, cams)
+    assert bool((o == o[0]).all())  # pinhole primaries: a common origin
+    sd = sd.clone()
+    sd[::3] = 0.0  # zero directions: never occluded
+    before = (traverse.GROUPED_CLOSEST_LAUNCHES, traverse.GROUPED_ANY_LAUNCHES,
+              traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES)
+    got = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True, tile=tile,
+                                        group=group)
+    shared = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True,
+                                           tile=tile, group=group, common_origin=True)
+    occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist, tile=tile, group=group)
+    after = (traverse.GROUPED_CLOSEST_LAUNCHES, traverse.GROUPED_ANY_LAUNCHES,
+             traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES)
+    assert after == (before[0] + 2, before[1] + 1, before[2], before[3])
+    fat = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True)
+    fat_occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist)
+    torch.cuda.synchronize()
+    traverse.check_errors()
+    assert float(got["hit"].float().mean()) > 0.2
+    hit_gate(got, fat)
+    hit_gate(shared, fat)
+    assert not bool(occ[::3].any())
+    assert 0.0 < float(fat_occ.float().mean()) < 1.0
+    assert float((occ != fat_occ).float().mean()) <= 0.01
+    bvh_np = {k: scene["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "mt_rows")}
+    host = [x.cpu().numpy() for x in (o, d, pos, sd, dist)]
+    model, counts = traverse.fat_packet_walk_numpy(bvh_np, host[0], host[1], 0.0, 1e38, tile,
+                                                   group, cull=True)
+    _model_agree(got, model)
+    model_occ, _ = traverse.fat_packet_walk_numpy(bvh_np, host[2], host[3], 1e-4, host[4], tile,
+                                                  group, occlusion=True)
+    assert float((occ.cpu().numpy() != model_occ["occluded"]).mean()) <= 0.01
+    assert 1 <= counts["max_stack"] <= traverse.MAX_STACK
+
+
+@pytest.mark.cuda
+def test_grouped_walk_stack_overflow_and_layouts(cuda_device):
+    o = torch.zeros((64, 3), device=cuda_device)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 64, device=cuda_device)
+
+    def chain(levels):
+        base, packed = chain_scene(levels)
+        scene = {k: torch.as_tensor(base[k]).to(cuda_device) for k in ("v0", "e1", "e2")}
+        scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in packed.items()
+                        if k in ("bvhf_rows", "mt_rows", "slot_tri")}
+        return scene
+
+    deep = chain(120)
+    for trace in (traverse.traverse_fat_closest, traverse.traverse_fat_any):
+        with pytest.raises(RuntimeError, match="stack overflowed"):
+            trace(deep, o, d, 0.0, 1e38, tile=64, group=2)
+            traverse.check_errors()
+    hits = traverse.traverse_fat_closest(chain(40), o, d, 0.0, 1e38, tile=64, group=2)
+    traverse.check_errors()
+    assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
+    # the C entry point refuses a layout the wrapper would refuse
+    fn = traverse._library("grouped")
+    rays = traverse.pack_rays(o, d, 0.0, 1e38)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    out = torch.empty(64, device=cuda_device)
+    slot = torch.empty(64, dtype=torch.int32, device=cuda_device)
+    nodes, rows = deep["bvh"]["bvhf_rows"], deep["bvh"]["mt_rows"]
+    for tile, group in ((64, 4), (96, 2), (4096, 2), (1056, 33)):
+        assert fn(rays.data_ptr(), nodes.data_ptr(), rows.data_ptr(), 64, nodes.shape[0],
+                  rows.shape[0], 0, 0, tile, group, 0, out.data_ptr(), slot.data_ptr(),
+                  out.data_ptr(), out.data_ptr(), None, err.data_ptr(),
+                  torch.cuda.current_stream().cuda_stream) == 1  # InvalidValue
+
+
+OPT_INS = [(8, 0), (16, 0), (24, 0), (0, 8), (0, 16), (0, 32), (16, 16)]  # (rows, block_w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,opts,env", [OPTION_CASES[0], OPTION_CASES[1], OPTION_CASES[2],
+                                           OPTION_CASES[-1]],
+                         ids=["defaults", "debug2", "no_indirect_diffuse", "gradient_env"])
+def test_fused_opt_ins_equal_base(cuda_device, name, opts, env):
+    """The CLUSTERED and BLOCKED instantiations give the base kernel's
+    outputs bit for bit (Cornell pads to 40 rows, so 8, 16 and 24 rows per
+    cluster all gate)."""
+    scene, cams = _setup(cuda_device, env)
+    options = default_options(**opts)
+    ek = scene["env"]["kind"]
+    before = (fs.LAUNCHES, fs.REALTIME_LAUNCHES, fs.CLUSTERED_LAUNCHES, fs.BLOCKED_LAUNCHES)
+    base = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0,
+                                    block_w=0)
+    base_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0, block_w=0)
+    for rows, block_w in OPT_INS:
+        got = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=rows,
+                                       block_w=block_w)
+        got_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek, cluster_rows=rows,
+                                  block_w=block_w)
+        torch.cuda.synchronize()
+        assert torch.equal(got, base), (rows, block_w)
+        for k in fs.AOV_KEYS:
+            assert torch.equal(got_rt[k], base_rt[k]), (rows, block_w, k)
+    n = 1 + len(OPT_INS)
+    clustered = 2 * sum(rows > 0 for rows, _ in OPT_INS)  # progressive and realtime
+    blocked = 2 * sum(block_w > 0 for _, block_w in OPT_INS)
+    assert (fs.LAUNCHES, fs.REALTIME_LAUNCHES, fs.CLUSTERED_LAUNCHES, fs.BLOCKED_LAUNCHES) == (
+        before[0] + n, before[1] + n, before[2] + clustered, before[3] + blocked)
+    want = fs.fused_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
+    _gate(base, want)
+
+
+@pytest.mark.cuda
+def test_fused_clusters_above_48k_shared_memory(cuda_device):
+    """256 rows in clusters of one row: the boxes beside the triangles take
+    (43 + 6) x 256 x 4 = 50,176 bytes of shared memory, above the default
+    48 KB. The launch raises the kernel's limit and gives the base kernel's
+    outputs bit for bit."""
+    from dxrexperiments_torch.scene.procedural import random_triangle_soup
+
+    sc, cam = build_scene("cornell-glossy")
+    sc.add_model(random_triangle_soup(250 - 36, seed=3, extent=0.4))
+    scene = sc.build(cuda_device)
+    assert int(scene["num_tris"]) == 250 and int(scene["mt_pack"].shape[1]) == 256
+    cam.set_aspect(SIZE, SIZE)
+    cams = stack_cameras([camera_params(cam, frame_count=7 + k) for k in range(2)])
+    options = default_options()
+    ek = scene["env"]["kind"]
+    base = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0,
+                                    block_w=0)
+    base_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0, block_w=0)
+    before = fs.CLUSTERED_LAUNCHES
+    got = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=1,
+                                   block_w=0)
+    got_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek, cluster_rows=1, block_w=0)
+    torch.cuda.synchronize()
+    assert fs.CLUSTERED_LAUNCHES == before + 2
+    assert torch.equal(got, base)
+    for k in fs.AOV_KEYS:
+        assert torch.equal(got_rt[k], base_rt[k]), k
+
+
+@pytest.mark.cuda
+def test_fused_opt_in_arguments(cuda_device):
+    """The entry points refuse opt-ins that do not fit (cudaErrorInvalidValue):
+    a block width that does not divide the 128-thread block or the image,
+    boxes that do not cover the triangles."""
+    scene, cams = _setup(cuda_device, "const")
+    out = torch.empty((SIZE, SIZE, 3), device=cuda_device)
+    params = torch.zeros(64, device=cuda_device)
+    lib = fs._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    c = int(scene["mt_pack"].shape[1])
+    boxes = fs.cluster_aabbs(scene, 16)
+    head = (params.data_ptr(), params.data_ptr(), params.data_ptr(), scene["mt_pack"].data_ptr(),
+            scene["attr_pack"].data_ptr(), out.data_ptr(), 1, c, SIZE, SIZE, 0, None, 0, 0)
+    for ptr, k, rows, block_w in ((None, 0, 0, 48), (None, 0, 0, 256), (None, 0, 0, -8),
+                                  (boxes.data_ptr(), 2, 16, 0), (boxes.data_ptr(), 3, 8, 0),
+                                  (boxes.data_ptr(), 3, 0, 0)):
+        assert lib.dxr_fused_progressive_sum(*head, ptr, k, rows, block_w, stream) == 1
+
+
+@pytest.mark.cuda
+def test_roofline_probes_match_plain(cuda_device):
+    from dxrexperiments_torch.ops import roofline as rf
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain product in full float32
+    a, b, mt, rays = rf.probe_inputs(cuda_device, seed=3)
+    it, grid, m_it = rf.SMOKE_ITERS, rf.SMOKE_GRID, rf.SMOKE_M_ITERS
+    before = (rf.FMA_LAUNCHES, rf.MIX_LAUNCHES, rf.OVERLAP_LAUNCHES)
+    for fn, ref in ((rf.fma_peak, rf.fma_peak_reference), (rf.pair_mix, rf.pair_mix_reference)):
+        got, want = fn(a, b, it, grid), ref(a, b, it, grid)
+        torch.cuda.synchronize()
+        assert float(((got - want).abs() / want.abs()).max()) <= 1e-4
+    scale_of = mt.abs() @ rays.abs()
+    for do_vector, do_matrix, scale in ((True, True, 1), (True, True, 4), (False, True, 1),
+                                        (True, False, 2)):
+        got = rf.overlap(a, b, mt, rays, do_vector, do_matrix, scale, m_it, grid,
+                         keep_product=True)
+        want = rf.overlap_reference(a, b, mt, rays, do_vector, do_matrix, scale, m_it, grid)
+        torch.cuda.synchronize()
+        assert float(((got["o"] - want["o"]).abs() / want["o"].abs()).max()) <= 1e-4
+        assert float(((got["t"] - want["t"]).abs() / want["t"].abs()).max()) <= 1e-6
+        if do_matrix:  # split TF32 keeps float32 accuracy: 2 K ulps of sum |terms|
+            err = (got["product"] - want["product"]).abs() / scale_of
+            assert float(err.max()) <= 2 * rf.K * 2.0**-23
+        else:
+            assert not bool(got["product"].any())
+    assert (rf.FMA_LAUNCHES, rf.MIX_LAUNCHES, rf.OVERLAP_LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2] + 4)
+    # roofline.py's full size, on inputs whose elements differ and on which
+    # the chains stay finite (a trip count or a grid block off shows)
+    a_mix, b_mix = rf.mix_inputs(cuda_device, seed=4)
+    for fn, ref, args in ((rf.fma_peak, rf.fma_peak_reference, (a, b)),
+                          (rf.pair_mix, rf.pair_mix_reference, (a_mix, b_mix))):
+        got, want = fn(*args), ref(*args)
+        torch.cuda.synchronize()
+        assert tuple(got.shape) == (rf.SUB, rf.LANES * rf.GRID) and bool(want.isfinite().all())
+        assert rf.max_rel_diff(got, want) <= 1e-4
+    got = rf.overlap(a, b, mt, rays, True, True, 4, keep_product=True)
+    want = rf.overlap_reference(a, b, mt, rays, True, True, 4)
+    torch.cuda.synchronize()
+    assert rf.max_rel_diff(got["o"], want["o"]) <= 1e-4
+    assert rf.max_rel_diff(got["t"], want["t"]) <= 1e-6
+    assert float(((got["product"] - want["product"]).abs() / scale_of).max()) <= 2 * rf.K * 2.0**-23
