@@ -300,6 +300,15 @@ Phases, each of which raises on failure:
      two), the mix's ops/s, the product's TFLOP/s alone and the overlap
      verdict; a rate above 105% of the data sheet (67 TFLOP/s float32, 33.5
      T instructions/s, 494.7 TFLOP/s dense TF32) fails the phase.
+ 38. the redesigned megakernels (run after phase 37): ptxas' registers,
+     spills and stack frames of every kernel of B1 and B5 beside those of
+     B4a, B4c and B6a; B1's triangle records (the scene's tri_records,
+     five float4s a triangle) of configs 1 and 3 against their mt_pack, and
+     B5's leaf arrays ft_test and ft_attr (ops/traverse.leaf_records) of
+     'instanced:32' and the config-2 stand-in against their mt_rows, equal
+     bit for bit on the card, with their bytes; the launch alone (CUDA
+     events) on config 1's and config 3's first dispatch, config 4's frame 0
+     (B1), beside phase 10's and 28's B5 times, each with its bound.
 
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
@@ -1096,7 +1105,8 @@ def config2_stand_in(env):
 class PairCount:
     """Counts the pair tests of the brute-force megakernel on its plain run:
     rays with a non-empty window (and, for occlusion, a direction) times the
-    padded triangle count, as the kernel's sweeps test them; and the env
+    scene's triangle count (num_tris; the padding rows after it never hit,
+    and the kernel's sweeps stop before them); and the env
     lookups, the closest-hit rays with a non-empty window that miss (the
     primary and bounce misses, where the kernel samples the environment)."""
 
@@ -1109,7 +1119,7 @@ class PairCount:
         live = tmax > t_min
         if occlusion:
             live = live & (directions.abs().sum(dim=1) > 0)
-        self.pairs += int(live.sum()) * int(scene["v0"].shape[0])
+        self.pairs += int(live.sum()) * int(scene["num_tris"])
         return live
 
     def __enter__(self):
@@ -1546,6 +1556,7 @@ def main() -> int:
 
     scene = pipe.scene_data
     options = pipe.options
+    scene1, options1 = scene, options  # config 1's, timed again in phase 38
     got = fs.fused_progressive_sum(scene, options, first_cams, MAIN_SIZE, MAIN_SIZE, 0)
     with PairCount(intersect, torch) as b1_count:
         want = fs.fused_progressive_sum_reference(scene, options, first_cams, MAIN_SIZE,
@@ -1553,8 +1564,10 @@ def main() -> int:
     torch.cuda.synchronize()
     main_gate = image_gate(f"main-path frame 0 {MAIN_SIZE}^2 S={MAIN_S}", got, want, MAIN_S)
     c_tris = int(scene["mt_pack"].shape[1])
-    b1_bound = bound(b1_count.pairs * OPS_PAIR,
-                     c_tris * (19 + 24) * 4 + MAIN_SIZE * MAIN_SIZE * 12)
+    # B1's inputs: a record (tv.REC_WORDS words) and 24 attribute words of
+    # each of the num_tris triangles, read once
+    b1_tri_bytes = int(scene["num_tris"]) * (tv.REC_WORDS + 24) * 4
+    b1_bound = bound(b1_count.pairs * OPS_PAIR, b1_tri_bytes + MAIN_SIZE * MAIN_SIZE * 12)
 
     def headless(args, label):
         with tempfile.TemporaryDirectory() as tmp:
@@ -1609,7 +1622,7 @@ def main() -> int:
     cams0 = {k: v[None] for k, v in cam0.items()}
     with PairCount(intersect, torch) as b1_rt_count:
         want = fs.fused_realtime_outputs_reference(rt_scene, rt_options, cams0, RT_W, RT_H, 0)
-    b1_rt_bound = bound(b1_rt_count.pairs * OPS_PAIR, c_tris * (19 + 24) * 4 + RT_W * RT_H * 40)
+    b1_rt_bound = bound(b1_rt_count.pairs * OPS_PAIR, b1_tri_bytes + RT_W * RT_H * 40)
     got = {"direct": direct0, "indirect_specular": spec0}
     got.update({k: v[0] for k, v in fs.fused_realtime_outputs_batch(
         rt_scene, rt_options, cams0, RT_W, RT_H, 0).items() if k not in got})
@@ -3631,9 +3644,9 @@ def main() -> int:
     torch.cuda.synchronize()
     c3_gate = image_gate(f"config 3 first dispatch {C3_W}x{C3_H} S={C3_S} vs plain", got, want,
                          C3_S)
-    c3_tris = int(scene3["mt_pack"].shape[1])
+    c3_tri_bytes = int(scene3["num_tris"]) * (tv.REC_WORDS + 24) * 4  # as b1_tri_bytes
     c3_tex = envmap.texture(scene3["env"], 2)
-    c3_bound = bound(c3_count.pairs * OPS_PAIR, c3_tris * (19 + 24) * 4 + C3_W * C3_H * 12
+    c3_bound = bound(c3_count.pairs * OPS_PAIR, c3_tri_bytes + C3_W * C3_H * 12
                      + env_bytes(c3_count.env_lookups, c3_tex))
     print(f"config 3 work per dispatch (plain run): {c3_count.pairs / (C3_W * C3_H * C3_S):.1f} "
           f"pair tests and {c3_count.env_lookups / (C3_W * C3_H * C3_S):.3f} env lookups per "
@@ -3677,7 +3690,7 @@ def main() -> int:
     torch.cuda.synchronize()
     c3_rt_err = aov_gate(f"config 3 realtime frame 0 {RT_W}x{RT_H}", got,
                          {k: v[0] for k, v in want.items()})
-    c3_rt_bound = bound(c3_rt_count.pairs * OPS_PAIR, c3_tris * (19 + 24) * 4 + RT_W * RT_H * 40
+    c3_rt_bound = bound(c3_rt_count.pairs * OPS_PAIR, c3_tri_bytes + RT_W * RT_H * 40
                         + env_bytes(c3_rt_count.env_lookups, c3_tex))
     c3_rt_ms = time_ms(lambda: fs.fused_realtime_outputs(rt_scene3, rt.options, cam0_3, RT_W, RT_H,
                                                          2), 20, torch)
@@ -3838,6 +3851,10 @@ def main() -> int:
           f"{c3_enqueue_s / n_disp * 1e3:.3f} ms enqueued, {c3_dispatch_s / n_disp * 1e3:.3f} ms "
           f"synchronised ({n_disp} dispatches); {c3_s:.3f} s to {C3_S * C3_DISPATCHES} spp "
           f"[{card}]", flush=True)
+    # phase 38's config-3 launch alone, before the scene goes
+    c3_launch_ms = kernel_ms(fs.prepare_launch(scene3, opts3, first3, C3_W, C3_H, 2, False, 0,
+                                               0)[:2], 10, torch)
+    c3_packs = {k: scene3[k] for k in ("mt_pack", "tri_records", "num_tris")}
     del pipe3, scene3, black3
     tex_dir.cleanup()
     torch.cuda.empty_cache()
@@ -4511,6 +4528,65 @@ def main() -> int:
           flush=True)
     del full, a_f, b_f, mt_f, rays_f
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
+    # ---- 38. the redesigned megakernels B1 and B5: ptxas, records, times ----------
+    # B1 reads each triangle as a record of five float4s (the scene's
+    # tri_records, tv.tri_records); B5 reads its leaves from ft_test /
+    # ft_attr (tv.leaf_records), not from mt_rows. The
+    # records against the packs they come from, on the card; their bytes; the
+    # launch alone on each main path's first dispatch or frame beside its
+    # bound; ptxas' counts of B1 and B5 beside B4a's, B4c's and B6a's, which
+    # this redesign leaves as they were.
+    ptx = {key: cuda_build.ptxas_counts(cuda_build.BUILD_INFO[src]["log"]) for key, src in (
+        ("B1", "fused_sample"), ("B5", "fused_traverse"), ("B4a", "traverse_fat"),
+        ("B4c", "traverse_fat_grouped"), ("B6a", "traverse2_fat"))}
+    for key, rows in ptx.items():
+        for r in rows:
+            print(f"ptxas {key}: {r['kernel']}: {r.get('registers')} registers, spill stores "
+                  f"{r.get('spill_stores')} / loads {r.get('spill_loads')} bytes, stack frame "
+                  f"{r.get('stack')} bytes", flush=True)
+    coef_lanes = list(tv.COEF_LANES)
+    rec_bytes = {}
+    for label, packs in (("config 1", scene1), ("config 3", c3_packs)):
+        mt, rec, live = packs["mt_pack"], packs["tri_records"], int(packs["num_tris"])
+        want = torch.stack([mt[lane // 16, :, lane % 16] for lane in coef_lanes], dim=1)
+        if not (torch.equal(rec[:, :19], want) and not bool(rec[:, 19:].any())):
+            raise RuntimeError(f"B1's records of {label} differ from its mt_pack")
+        rec_bytes[label] = rec.numel() * 4
+        print(f"B1 records {label}: [{rec.shape[0]}, {rec.shape[1]}] float32, "
+              f"{rec_bytes[label]:,} bytes on the card, swept to row {live} "
+              f"(num_tris) of {int(mt.shape[1])}; equal to mt_pack's slots: ok", flush=True)
+    leaf_bytes = {}
+    for label, b in (("instanced:32", bvh32), ("config-2 stand-in", scene2c["bvh"])):
+        test, attr, rows = b["ft_test"], b["ft_attr"], b["mt_rows"]
+        if not (torch.equal(test[:, :19], rows[:, coef_lanes]) and not bool(test[:, 19:].any())
+                and torch.equal(attr, rows[:, 64:80])):
+            raise RuntimeError(f"B5's leaf arrays of {label} differ from its mt_rows")
+        leaf_bytes[label] = {"ft_test": test.numel() * 4, "ft_attr": attr.numel() * 4,
+                             "mt_rows": rows.numel() * 4}
+        print(f"B5 leaf arrays {label}: ft_test {tuple(test.shape)} "
+              f"{leaf_bytes[label]['ft_test']:,} bytes, ft_attr {tuple(attr.shape)} "
+              f"{leaf_bytes[label]['ft_attr']:,} bytes on the card, against mt_rows "
+              f"{leaf_bytes[label]['mt_rows']:,} bytes; equal to mt_rows' lanes: ok", flush=True)
+    redesign = {
+        "B1 config 1": (kernel_ms(fs.prepare_launch(scene1, options1, first_cams, MAIN_SIZE,
+                                                    MAIN_SIZE, 0, False, 0, 0)[:2], 20, torch),
+                        b1_bound, f"per {MAIN_S}-sample {MAIN_SIZE}^2 dispatch"),
+        "B1 config 3": (c3_launch_ms, c3_bound,
+                        f"per {C3_S}-sample {C3_W}x{C3_H} dispatch (phase 25)"),
+        "B1 config 4": (kernel_ms(fs.prepare_launch(rt_scene, rt_options, cams0, RT_W, RT_H, 0,
+                                                    True, 0, 0)[:2], 20, torch),
+                        b1_rt_bound, f"per {RT_W}x{RT_H} realtime frame"),
+        "B5 config 5": (b5_ms, b5_bound, f"per {M}^2 {BVH_MAIN_SCENE} sample (phase 10a)"),
+        "B5 config 5 realtime": (b5_rt_cams_ms, b5_rt_bound,
+                                 f"per {RT_W}x{RT_H} frame (phase 10b, ten cameras)"),
+        "B5 config-2 stand-in": (c2_ms / C2_S, c2_bound,
+                                 f"per {M}^2 sample of {C2_S}-sample dispatches (phase 28)"),
+    }
+    for label, (ms, bnd, shape) in redesign.items():
+        print(f"time {label}: {ms:.4f} ms {shape}, the launch alone; bound {bnd[0]:.4f} ms "
+              f"({bnd[1]}), {ms / bnd[0]:.2f}x it [{card}]", flush=True)
+
     kernels = [
         {
             "name": "fused_progressive_sum",
@@ -4524,6 +4600,9 @@ def main() -> int:
             "bound_ms": b1_bound[0],
             "bound_by": b1_bound[1],
             "library_ms": None,
+            "launch_ms": {k: v[0] for k, v in redesign.items() if k.startswith("B1")},
+            "ptxas": ptx["B1"],
+            "records_bytes": rec_bytes,
         },
         {
             "name": "fused_realtime_outputs",
@@ -4566,7 +4645,10 @@ def main() -> int:
         ("fused_traverse_progressive_sum", "fused_traverse.cu",
          "ops/fused_traverse_pallas.py:131", b5_launches, b5_plain_gate["max_abs_diff"], b5_ms,
          b5_wrap_ms, "b5", b5_bound, f"{BVH_MAIN_SCENE} {M}^2, per sample",
-         {"max_abs_diff_vs_wavefront": b5_gate["max_abs_diff"]}),
+         {"max_abs_diff_vs_wavefront": b5_gate["max_abs_diff"], "ptxas": ptx["B5"],
+          "leaf_array_bytes": leaf_bytes,
+          "launch_ms": {k: v[0] for k, v in redesign.items() if k.startswith("B5")},
+          "unchanged_kernels_ptxas": {k: ptx[k] for k in ("B4a", "B4c", "B6a")}}),
         ("fused_traverse_realtime", "fused_traverse.cu", "ops/fused_traverse_pallas.py:131",
          b5_rt_launches, max(b5_rt_err, b5_rt_plain_err), b5_rt_cams_ms, b5_rt_wrap_ms, "b5_rt",
          b5_rt_bound, f"{BVH_MAIN_SCENE} {RT_W}x{RT_H}, per frame, ten frames' cameras in turn",

@@ -15,9 +15,10 @@
 //      static constexpr bool kArea;  // one area light (B5's area mode)
 //      const float* area;  // with kArea: the area pack (AC_* lanes)
 //    B1's backend sweeps every triangle staged in shared memory; B5's walks
-//    the fat-node BVH below. B5's albedo-texture mode multiplies each
-//    closest hit's albedo by the texture at its UV (sample_albedo) before
-//    any use of it.
+//    the fat-node BVH below. Both read a triangle's coefficients as one
+//    80-byte record of five float4s (RecCoef). B5's albedo-texture mode
+//    multiplies each closest hit's albedo by the texture at its UV
+//    (sample_albedo) before any use of it.
 // 2. The fat-node BVH walk of traverse_pallas._make_traverse_fat_kernel,
 //    one ray per thread: each visit tests both children's boxes against
 //    the ray's window clipped by the running best t, tests a hit leaf's
@@ -161,6 +162,37 @@ __device__ __forceinline__ Pair pair_test(const Coef& c, V3 o, V3 d, V3 mo, floa
   if (has_tmax) m_strict = fminf(m_strict, tmax * p.det_abs - p.ts);
   p.valid = alive && (m_soft >= 0.0f) && (m_strict > 0.0f);
   return p;
+}
+
+// A triangle record: the kMtSlots coefficient slots in slot order and one
+// pad word, kRecQuads float4s (B1's tri_records, B5's ft_test). A pair test
+// reads it with kRecQuads 16-byte loads instead of kMtSlots 4-byte ones.
+constexpr int kRecWords = 20;
+constexpr int kRecQuads = kRecWords / 4;
+
+struct RecCoef {
+  float v[kRecWords];
+  __device__ __forceinline__ void set(int q, float4 x) {
+    v[4 * q] = x.x;
+    v[4 * q + 1] = x.y;
+    v[4 * q + 2] = x.z;
+    v[4 * q + 3] = x.w;
+  }
+  __device__ __forceinline__ float operator()(int j) const { return v[j]; }
+};
+
+// The record at p: shared memory (B1) or read-only device memory (B5).
+__device__ __forceinline__ RecCoef rec_coef(const float4* p) {
+  RecCoef k;
+#pragma unroll
+  for (int q = 0; q < kRecQuads; ++q) k.set(q, p[q]);
+  return k;
+}
+__device__ __forceinline__ RecCoef rec_coef_ldg(const float4* p) {
+  RecCoef k;
+#pragma unroll
+  for (int q = 0; q < kRecQuads; ++q) k.set(q, __ldg(p + q));
+  return k;
 }
 
 struct Hit {

@@ -19,18 +19,22 @@
 // env_color; the TPU kernel's env-deferred mode wrote bounce directions and
 // env weights out for a gather pass instead).
 //
-// What bounds it: compute and latency. A pixel-sample does about 9*C
-// Möller–Trumbore pair tests (C = 40 padded triangles for the Cornell box),
-// each ~20 FMAs, while the output is 12 bytes per pixel per dispatch (3 MB
-// at 512^2). Design answer: every block stages the 19 used Möller–Trumbore
-// coefficients and the 24 used attribute rows of every triangle into shared
-// memory once (43 floats per triangle, 44 KB at C = 256); all threads of a
-// warp read the same triangle at once, so the reads are broadcasts. The
-// per-ray state lives in registers, one thread per pixel in raster order,
-// and the S-sample sum stays in registers and is written once: no atomics,
-// nothing carried across blocks. Work the reference masks out is skipped
-// per thread (miss lanes, inactive bounces, the unpicked light of the
-// debug==2 estimator), which changes no result.
+// What bounds it: instruction issue. A pixel-sample does about 9*N
+// Möller–Trumbore pair tests (N = 36 triangles for the Cornell box), each
+// ~20 FMAs, while the output is 12 bytes per pixel per dispatch (3 MB at
+// 512^2). Design answer: every block stages each triangle's record (the 19
+// used Möller–Trumbore coefficients and a pad, ops/traverse.tri_records,
+// 80 bytes) and its 24 used attribute rows into shared memory once (44
+// floats per triangle, 45 KB at C = 256); all threads of a warp read the
+// same triangle at once, so the reads are broadcasts, and a pair test
+// reads its record as five 16-byte loads instead of 19 scalar ones. The
+// sweeps stop after the scene's n_live = num_tris rows (a pad row never
+// hits). A block is 256 threads. The per-ray state lives in registers, one
+// thread per pixel in raster order, and the S-sample sum stays in
+// registers and is written once: no atomics, nothing carried across
+// blocks. Work the reference masks out is skipped per thread (miss lanes,
+// inactive bounces, the unpicked light of the debug==2 estimator), which
+// changes no result.
 //
 // Two opt-ins of the TPU kernel are separate compile-time instantiations;
 // the base one's code is unchanged by them:
@@ -52,10 +56,10 @@
 //
 // The ray tree itself is common.cuh's, shared with the fused-traversal
 // kernel (B5); this file holds B1's brute-force trace backends (Tris,
-// ClusteredTris), the shared-memory staging and the launches. Arithmetic follows the TPU kernel:
-// the same term sums, the same sign-multiplied validity windows,
-// t = ts / max(|det|, 1e-12), ties to the lowest triangle index, and the
-// same draw routing. Build without --use_fast_math.
+// ClusteredTris), the shared-memory staging and the launches. Arithmetic
+// follows the TPU kernel: the same term sums, the same sign-multiplied
+// validity windows, t = ts / max(|det|, 1e-12), ties to the lowest triangle
+// index, and the same draw routing. Build without --use_fast_math.
 
 #include "common.cuh"
 
@@ -63,36 +67,31 @@ namespace {
 
 using namespace dxr;
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kMaxTris = 256;
 constexpr int kAttrRows = 24;  // used attr_pack rows
 
 // The brute-force trace backend: every triangle staged in shared memory,
-// coefficient slots [kMtSlots][c] and attribute rows [kAttrRows][c].
+// records [c][kRecQuads] float4 and attribute rows [kAttrRows][c]; the
+// sweeps run over the first n rows (the rest are padding).
 struct Tris {
-  const float* mt;  // [kMtSlots][c]
-  const float* at;  // [kAttrRows][c]
-  int c;
+  const float4* rec;  // [c][kRecQuads]
+  const float* at;    // [kAttrRows][c]
+  int c, n;
   static constexpr int rig = 3;  // B1 takes the 1 directional + 1 point rig only
   static constexpr bool kArea = false;  // and no area light, no albedo texture
 
-  __device__ __forceinline__ float m(int slot, int i) const { return mt[slot * c + i]; }
+  __device__ __forceinline__ RecCoef coef(int i) const { return rec_coef(rec + i * kRecQuads); }
   __device__ __forceinline__ float a(int row, int i) const { return at[row * c + i]; }
   __device__ __forceinline__ float albedo(const Hit& h, int k) const {
     return a(A_ALBEDO + k, h.row);
   }
 
-  struct Coef {
-    const Tris& T;
-    int i;
-    __device__ __forceinline__ float operator()(int j) const { return T.m(j, i); }
-  };
-
   // Occlusion: true when any triangle blocks (o + t d, t in (tmin, tmax)).
   __device__ bool occluded(V3 o, V3 d, float tmin, bool has_tmax, float tmax) const {
     V3 mo = cross3(o, d);
-    for (int i = 0; i < c; ++i) {
-      if (pair_test(Coef{*this, i}, o, d, mo, tmin, has_tmax, tmax, false).valid) return true;
+    for (int i = 0; i < n; ++i) {
+      if (pair_test(coef(i), o, d, mo, tmin, has_tmax, tmax, false).valid) return true;
     }
     return false;
   }
@@ -103,8 +102,8 @@ struct Tris {
     V3 mo = cross3(o, d);
     float best_t = kBig, b_us = 0.0f, b_vs = 0.0f, b_det = 0.0f;
     int best = 0;
-    for (int i = 0; i < c; ++i) {
-      Pair p = pair_test(Coef{*this, i}, o, d, mo, tmin, false, 0.0f, cull);
+    for (int i = 0; i < n; ++i) {
+      Pair p = pair_test(coef(i), o, d, mo, tmin, false, 0.0f, cull);
       if (p.valid) {
         float t = p.ts / fmaxf(p.det_abs, kDetEps);
         if (t < best_t) {
@@ -143,9 +142,9 @@ struct ClusteredTris : Tris {
       const float* b = box + 6 * q;
       float tn;
       if (!slab(v3(b[0], b[1], b[2]), v3(b[3], b[4], b[5]), o, inv, tmin, far, &tn)) continue;
-      const int end = min(q * rows + rows, c);
+      const int end = min(q * rows + rows, n);
       for (int i = q * rows; i < end; ++i) {
-        if (pair_test(Coef{*this, i}, o, d, mo, tmin, has_tmax, tmax, false).valid) return true;
+        if (pair_test(coef(i), o, d, mo, tmin, has_tmax, tmax, false).valid) return true;
       }
     }
     return false;
@@ -166,7 +165,7 @@ template <>
 __device__ __forceinline__ ClusteredTris backend<ClusteredTris>(const Tris& t, float* smem,
                                                                 const float* __restrict__ boxes,
                                                                 int k, int rows) {
-  float* s_box = smem + (kMtSlots + kAttrRows) * t.c;
+  float* s_box = smem + (kRecWords + kAttrRows) * t.c;
   for (int i = threadIdx.x; i < 6 * k; i += blockDim.x) s_box[i] = boxes[(i / 6) * 8 + i % 6];
   __syncthreads();
   ClusteredTris ct;
@@ -190,35 +189,31 @@ __device__ __forceinline__ int pixel_index(int width, int block_w) {
   return blockIdx.x * blockDim.x + threadIdx.x;
 }
 
-// Every block stages the used Möller–Trumbore coefficients and attribute
-// rows of all c triangles into shared memory: [kMtSlots][c] then
-// [kAttrRows][c].
-__device__ __forceinline__ Tris stage_tris(float* smem, const float* __restrict__ mt,
-                                           const float* __restrict__ attr, int c) {
-  float* s_mt = smem;
-  float* s_at = smem + kMtSlots * c;
-  // mt_pack is [4, c, 16]: slot j reads group g, column col.
-  for (int k = threadIdx.x; k < kMtSlots * c; k += blockDim.x) {
-    int j = k / c, i = k - j * c;
-    int g = j < S_U ? 0 : (j < S_V ? 1 : (j < S_T ? 2 : 3));
-    int col = j < S_U ? j : (j < S_V ? j - S_U : (j < S_T ? j - S_V : 6 + j - S_T));
-    s_mt[k] = mt[(g * c + i) * 16 + col];
-  }
+// Every block stages the records and the used attribute rows of all c
+// triangles into shared memory: [c][kRecQuads] float4, then [kAttrRows][c].
+__device__ __forceinline__ Tris stage_tris(float* smem, const float4* __restrict__ rec,
+                                           const float* __restrict__ attr, int c, int n) {
+  float4* s_rec = reinterpret_cast<float4*>(smem);
+  float* s_at = smem + kRecWords * c;
+  for (int k = threadIdx.x; k < kRecQuads * c; k += blockDim.x) s_rec[k] = __ldg(rec + k);
   // attr_pack is [32, c]; rows 0..23 are contiguous.
   for (int k = threadIdx.x; k < kAttrRows * c; k += blockDim.x) s_at[k] = attr[k];
   __syncthreads();
-  return Tris{s_mt, s_at, c};
+  return Tris{s_rec, s_at, c, n};
 }
 
 template <class Tr, bool kBlocked>
 __global__ void __launch_bounds__(kThreads)
 fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
-                         const float* __restrict__ cst, const float* __restrict__ mt,
+                         const float* __restrict__ cst, const float4* __restrict__ rec,
                          const float* __restrict__ attr, float* __restrict__ out, int s_count,
-                         int c, int width, int height, Env env, const float* __restrict__ boxes,
-                         int n_boxes, int cluster_rows, int block_w) {
-  extern __shared__ float smem[];
-  Tr T = backend<Tr>(stage_tris(smem, mt, attr, c), smem, boxes, n_boxes, cluster_rows);
+                         int c, int n_live, int width, int height, Env env,
+                         const float* __restrict__ boxes, int n_boxes, int cluster_rows,
+                         int block_w) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  Tr T = backend<Tr>(stage_tris(smem, rec, attr, c, n_live), smem, boxes, n_boxes,
+                     cluster_rows);
   int pix = pixel_index<kBlocked>(width, block_w);
   if (pix >= width * height) return;
   int px = pix % width, py = pix / width;
@@ -235,14 +230,16 @@ fused_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restri
 template <class Tr, bool kBlocked>
 __global__ void __launch_bounds__(kThreads)
 fused_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
-                      const float* __restrict__ cst, const float* __restrict__ mt,
+                      const float* __restrict__ cst, const float4* __restrict__ rec,
                       const float* __restrict__ attr, float* __restrict__ direct,
                       float* __restrict__ ispec, float* __restrict__ albedo,
-                      float* __restrict__ rough, int c, int width, int height, Env env,
-                      const float* __restrict__ boxes, int n_boxes, int cluster_rows,
+                      float* __restrict__ rough, int c, int n_live, int width, int height,
+                      Env env, const float* __restrict__ boxes, int n_boxes, int cluster_rows,
                       int block_w) {
-  extern __shared__ float smem[];
-  Tr T = backend<Tr>(stage_tris(smem, mt, attr, c), smem, boxes, n_boxes, cluster_rows);
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  Tr T = backend<Tr>(stage_tris(smem, rec, attr, c, n_live), smem, boxes, n_boxes,
+                     cluster_rows);
   int n = width * height;
   int pix = pixel_index<kBlocked>(width, block_w);
   if (pix >= n) return;
@@ -295,9 +292,15 @@ bool opt_ins_ok(int c, int width, int height, const float* boxes, int n_boxes, i
   return true;
 }
 
-// shared memory: the triangles, then the cluster boxes (<= 44 KB + 6 KB)
+// The records: 16-byte aligned (float4 loads), n_live of their c rows swept.
+bool live_ok(const float* rec, int c, int n_live) {
+  return rec != nullptr && reinterpret_cast<uintptr_t>(rec) % 16 == 0 && n_live >= 1 &&
+         n_live <= c;
+}
+
+// shared memory: the triangles, then the cluster boxes (<= 45 KB + 6 KB)
 size_t smem_bytes(int c, const float* boxes, int n_boxes) {
-  return ((size_t)(kMtSlots + kAttrRows) * c + (boxes != nullptr ? 6 * n_boxes : 0)) *
+  return ((size_t)(kRecWords + kAttrRows) * c + (boxes != nullptr ? 6 * n_boxes : 0)) *
          sizeof(float);
 }
 
@@ -315,7 +318,9 @@ int allow_smem(K kernel, size_t smem) {
 
 // Sum of S progressive samples into out [height, width, 3] float32.
 //   cam [S, 16] f32 (pack_cameras), frames [S] u32, cst [2, 16] f32
-//   (pack_consts), mt [4, c, 16] f32, attr [32, c] f32; env_kind 0-3, and
+//   (pack_consts), rec [c, 20] f32 (tri_records, 16-byte aligned), attr
+//   [32, c] f32; the sweeps test rows 0..n_live - 1 (1 <= n_live <= c; the
+//   rows after the scene's triangles are padding); env_kind 0-3, and
 //   for kind 2 env_tex the lat-long [env_h, env_w, 3] f32, for kind 3 the
 //   cubemap [6, env_w, env_w, 3] f32 (env_h == env_w); ignored for 0 and 1.
 //   Opt-ins: boxes [n_boxes, 8] f32 (ops/fused_sample.cluster_aabbs) with
@@ -325,12 +330,13 @@ int allow_smem(K kernel, size_t smem) {
 // cudaErrorInvalidValue for bad arguments (a texture kind without its
 // texture or with empty dimensions among them, or opt-ins that do not fit).
 extern "C" int dxr_fused_progressive_sum(const float* cam, const uint32_t* frames,
-                                         const float* cst, const float* mt, const float* attr,
-                                         float* out, int s_count, int c, int width, int height,
-                                         int env_kind, const float* env_tex, int env_w,
-                                         int env_h, const float* boxes, int n_boxes,
+                                         const float* cst, const float* rec, const float* attr,
+                                         float* out, int s_count, int c, int n_live, int width,
+                                         int height, int env_kind, const float* env_tex,
+                                         int env_w, int env_h, const float* boxes, int n_boxes,
                                          int cluster_rows, int block_w, void* stream) {
-  if (c < 1 || c > kMaxTris || s_count < 1 || width < 1 || height < 1 ||
+  if (c < 1 || c > kMaxTris || !live_ok(rec, c, n_live) || s_count < 1 || width < 1 ||
+      height < 1 ||
       !env_args_ok(env_kind, env_tex, env_w, env_h) ||
       !opt_ins_ok(c, width, height, boxes, n_boxes, cluster_rows, block_w)) {
     return (int)cudaErrorInvalidValue;
@@ -341,8 +347,9 @@ extern "C" int dxr_fused_progressive_sum(const float* cam, const uint32_t* frame
   const size_t smem = smem_bytes(c, boxes, n_boxes);
   if (int rc = allow_smem(kernel, smem)) return rc;
   kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      cam, frames, cst, mt, attr, out, s_count, c, width, height,
-      Env{env_tex, env_kind, env_w, env_h}, boxes, n_boxes, cluster_rows, block_w);
+      cam, frames, cst, reinterpret_cast<const float4*>(rec), attr, out, s_count, c, n_live,
+      width, height, Env{env_tex, env_kind, env_w, env_h}, boxes, n_boxes, cluster_rows,
+      block_w);
   return (int)cudaGetLastError();
 }
 
@@ -351,13 +358,15 @@ extern "C" int dxr_fused_progressive_sum(const float* cam, const uint32_t* frame
 // dxr_fused_progressive_sum, with the realtime jitter scale in cam.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int dxr_fused_realtime_outputs(const float* cam, const uint32_t* frames,
-                                          const float* cst, const float* mt, const float* attr,
+                                          const float* cst, const float* rec, const float* attr,
                                           float* direct, float* ispec, float* albedo,
-                                          float* rough, int s_count, int c, int width,
-                                          int height, int env_kind, const float* env_tex,
-                                          int env_w, int env_h, const float* boxes, int n_boxes,
-                                          int cluster_rows, int block_w, void* stream) {
-  if (c < 1 || c > kMaxTris || s_count < 1 || s_count > 65535 || width < 1 || height < 1 ||
+                                          float* rough, int s_count, int c, int n_live,
+                                          int width, int height, int env_kind,
+                                          const float* env_tex, int env_w, int env_h,
+                                          const float* boxes, int n_boxes, int cluster_rows,
+                                          int block_w, void* stream) {
+  if (c < 1 || c > kMaxTris || !live_ok(rec, c, n_live) || s_count < 1 || s_count > 65535 ||
+      width < 1 || height < 1 ||
       !env_args_ok(env_kind, env_tex, env_w, env_h) ||
       !opt_ins_ok(c, width, height, boxes, n_boxes, cluster_rows, block_w)) {
     return (int)cudaErrorInvalidValue;
@@ -368,7 +377,8 @@ extern "C" int dxr_fused_realtime_outputs(const float* cam, const uint32_t* fram
   const size_t smem = smem_bytes(c, boxes, n_boxes);
   if (int rc = allow_smem(kernel, smem)) return rc;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      cam, frames, cst, mt, attr, direct, ispec, albedo, rough, c, width, height,
-      Env{env_tex, env_kind, env_w, env_h}, boxes, n_boxes, cluster_rows, block_w);
+      cam, frames, cst, reinterpret_cast<const float4*>(rec), attr, direct, ispec, albedo,
+      rough, c, n_live, width, height, Env{env_tex, env_kind, env_w, env_h}, boxes, n_boxes,
+      cluster_rows, block_w);
   return (int)cudaGetLastError();
 }

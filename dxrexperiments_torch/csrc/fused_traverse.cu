@@ -9,8 +9,9 @@
 // and one area light (the area mode, both pipelines: kAreaSamples
 // stratified soft-shadow rays, common.cuh area_light_term); and albedo
 // textures (progressive only, as in JAX): at every closest hit on a
-// textured material the hit's UV is interpolated from mt_rows lanes
-// 74..79 and the texture read with four taps (common.cuh sample_albedo),
+// textured material the hit's UV is interpolated from the corner UVs
+// (ft_attr columns 10..15, mt_rows lanes 74..79) and the texture read with
+// four taps (common.cuh sample_albedo),
 // multiplying the albedo before any use of it. The TPU kernel's
 // tex-deferred mode instead wrote A + B tex_p + C tex_p tex_d + D tex_s
 // and each hit's UV and material id (a TEX_ROWS block per sample) for a
@@ -27,7 +28,8 @@
 //   frame writing its own AOVs (direct, indirect specular, albedo,
 //   roughness).
 // The tree is common.cuh's, shared with the brute-force megakernel (B1);
-// every trace here is the fat-node walk shared with kernel B4a. The area
+// every trace here is the fat-node walk of kernel B4a (common.cuh
+// fat_walk), with leaf tests of its own over the dense records below. The area
 // light's shadow rays take one walk each (the TPU kernel shared one
 // multi-direction walk among a packet's shadow rays, a packet design not
 // carried over); their draws come from the pixel's TEA seed inside the
@@ -36,22 +38,28 @@
 // What bounds it: memory latency and divergence. A pixel-sample walks the
 // BVH up to nine times (three closest hits, six shadow rays; an area light
 // adds up to kAreaSamples shadow walks at each of its three shading
-// points), each walk a
-// chain of dependent node and leaf loads, on a triangle pack (mt_rows, 680
-// MB at 983k triangles) far larger than the 50 MB L2; the bounce rays of
-// neighbouring pixels diverge. Design answer: one thread per pixel with
-// the per-ray state and the S-sample sum in registers (written once, no
-// atomics); each block a compact 16 x 8 pixel tile, so the rays of a warp
-// (16 x 2 pixels) share most of their primary walk and their shadow rays
-// leave nearby points; one 96-entry stack per thread, reused by every walk;
-// a closest hit fetches the winner's vertex normals and material id
-// (mt_rows lanes 64..73) once, after its walk; material fields come from
-// the [16, 128] material table staged in shared memory; a textured hit
-// reads 4 texels (48 bytes) of a table the L2 usually holds. Work the
-// reference masks out is skipped per thread (misses, inactive bounces, the
-// unpicked light of the debug==2 estimator, area samples of zero weight),
-// which changes no result. Seeds come
-// from the raster pixel index and the output is raster order.
+// points), each walk a chain of dependent node and leaf loads over the 50
+// MB L2; the bounce rays of neighbouring pixels diverge. Design answer:
+// the leaf slots are read from two dense arrays built once per BVH pack
+// from mt_rows (ops/traverse.leaf_records), not from mt_rows itself, whose
+// 512-byte rows follow the TPU's 128 lanes: ft_test [S, 20], each slot's 19
+// coefficients in pair-test order and a pad (80 bytes, five 16-byte loads;
+// a leaf of n slots is 80 n contiguous bytes, where mt_rows scattered each
+// slot's 19 scalar loads over five 32-byte sectors), and ft_attr [S, 16],
+// the lanes 64..79 (vertex normals, material id, corner UVs), read once per
+// closest hit: 191 MB for instanced:32's 1.33 M slots against mt_rows' 680
+// MB. One thread per pixel with the per-ray state and the S-sample sum in
+// registers (written once, no atomics); each block a compact 16 x 16 pixel
+// tile (16 x 8 took up to 9% longer), so the rays of a warp (16 x 2
+// pixels) share most of their primary walk and their shadow rays leave
+// nearby points; one 96-entry stack per thread, reused by every walk; a
+// closest hit fetches the winner's vertex normals and material id (ft_attr)
+// once, after its walk; material fields come from the [16, 128] material
+// table staged in shared memory; a textured hit reads 4 texels (48 bytes)
+// of a table the L2 usually holds. Work the reference masks out is skipped
+// per thread (misses, inactive bounces, the unpicked light of the debug==2
+// estimator, area samples of zero weight), which changes no result. Seeds
+// come from the raster pixel index and the output is raster order.
 
 #include "common.cuh"
 
@@ -59,17 +67,99 @@ namespace {
 
 using namespace dxr;
 
-constexpr int kTileW = 16, kTileH = 8;  // a block's pixel tile
+constexpr int kTileW = 16, kTileH = 16;  // a block's pixel tile
 constexpr int kMatFields = A_TYPE - A_ALBEDO + 1;  // A_ALBEDO..A_TYPE
 constexpr int kMaxMaterials = 128;
 
+// B5's leaf tests: common.cuh's ClosestLeaf and AnyLeaf (the same pair
+// tests, rows ascending with a strict '<', the same early exit), each slot
+// read from ft_test as one record instead of 19 scalar mt_rows lanes.
+struct DenseClosestLeaf {
+  const FatBvh& B;
+  const float4* test;  // ft_test [S][kRecQuads]
+  V3 o, d, mo;
+  float tmin, tmax;
+  bool cull;
+  float best_t, b_us, b_vs, b_det;
+  int best_slot;
+
+  __device__ __forceinline__ DenseClosestLeaf(const FatBvh& b, const float4* test_, V3 o_, V3 d_,
+                                              float tmin_, float tmax_, bool cull_)
+      : B(b), test(test_), o(o_), d(d_), mo(cross3(o_, d_)), tmin(tmin_), tmax(tmax_),
+        cull(cull_), best_t(kBig), b_us(0.0f), b_vs(0.0f), b_det(0.0f), best_slot(-1) {}
+  __device__ __forceinline__ float far() const { return fminf(tmax, best_t); }
+  __device__ __forceinline__ bool visit(int start, int count) {
+    if (start < 0 || start + count > B.n_slots) {
+      *B.err = E_INDEX;
+      return true;
+    }
+    for (int r = 0; r < count; ++r) {
+      Pair p = pair_test(rec_coef_ldg(test + (size_t)(start + r) * kRecQuads), o, d, mo, tmin,
+                         true, tmax, cull);
+      if (p.valid) {
+        float t = p.ts / fmaxf(p.det_abs, kDetEps);
+        if (t < best_t) {
+          best_t = t;
+          best_slot = start + r;
+          b_us = p.us;
+          b_vs = p.vs;
+          b_det = p.det_abs;
+        }
+      }
+    }
+    return false;
+  }
+  __device__ __forceinline__ bool hit() const { return best_t < kBig; }
+  __device__ __forceinline__ float u() const { return b_us * (1.0f / fmaxf(b_det, kDetEps)); }
+  __device__ __forceinline__ float v() const { return b_vs * (1.0f / fmaxf(b_det, kDetEps)); }
+};
+
+struct DenseAnyLeaf {
+  const FatBvh& B;
+  const float4* test;
+  V3 o, d, mo;
+  float tmin, tmax;
+  bool occluded;
+
+  __device__ __forceinline__ DenseAnyLeaf(const FatBvh& b, const float4* test_, V3 o_, V3 d_,
+                                          float tmin_, float tmax_)
+      : B(b), test(test_), o(o_), d(d_), mo(cross3(o_, d_)), tmin(tmin_), tmax(tmax_),
+        occluded(false) {}
+  __device__ __forceinline__ float far() const { return tmax; }
+  __device__ __forceinline__ bool visit(int start, int count) {
+    if (start < 0 || start + count > B.n_slots) {
+      *B.err = E_INDEX;
+      return true;
+    }
+    for (int r = 0; r < count; ++r) {
+      if (pair_test(rec_coef_ldg(test + (size_t)(start + r) * kRecQuads), o, d, mo, tmin, true,
+                    tmax, false).valid) {
+        occluded = true;
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
+// The dense leaf arrays (ops/traverse.leaf_records): ft_test [S][kRecQuads]
+// float4 and ft_attr [S][kAttrLanes], column k of ft_attr being mt_rows
+// lane 64 + k.
+constexpr int kAttrLanes = 16;
+struct Leaves {
+  const float4* test;
+  const float* attr;
+};
+
 // The BVH trace backend of the ray tree: walks with a shared per-thread
-// stack, material fields from the staged table [kMatFields][128]. A: one
-// area light (`area` is its pack); X: albedo textures (`tex`).
+// stack (B.rows unused: the leaves are read from L), material fields from
+// the staged table [kMatFields][128]. A: one area light (`area` is its
+// pack); X: albedo textures (`tex`).
 template <bool A, bool X>
 struct BvhScene {
   static constexpr bool kArea = A, kTex = X;
   FatBvh B;
+  Leaves L;
   const float* mat;
   int* stack;
   int rig;
@@ -87,13 +177,13 @@ struct BvhScene {
 
   __device__ __forceinline__ bool occluded(V3 o, V3 d, float tmin, bool has_tmax,
                                            float tmax) const {
-    AnyLeaf leaf(B, o, d, tmin, has_tmax ? tmax : kRayFar);
+    DenseAnyLeaf leaf(B, L.test, o, d, tmin, has_tmax ? tmax : kRayFar);
     fat_walk(B, o, safe_inv(d), tmin, leaf, stack);
     return leaf.occluded;
   }
 
   __device__ __forceinline__ Hit closest(V3 o, V3 d, float tmin, bool cull) const {
-    ClosestLeaf leaf(B, o, d, tmin, kRayFar, cull);
+    DenseClosestLeaf leaf(B, L.test, o, d, tmin, kRayFar, cull);
     fat_walk(B, o, safe_inv(d), tmin, leaf, stack);
     Hit h;
     h.hit = leaf.hit();
@@ -102,7 +192,7 @@ struct BvhScene {
     h.row = 0;
     h.normal = v3(0.0f, 0.0f, 0.0f);
     if (h.hit) {
-      const float* attr = B.rows + (size_t)leaf.best_slot * kRowLanes + 64;
+      const float* attr = L.attr + (size_t)leaf.best_slot * kAttrLanes;
       const float u = leaf.u(), v = leaf.v();
       h.normal = interp_normal(attr, 1, u, v);
       h.row = min(max((int)attr[9], 0), kMaxMaterials - 1);
@@ -133,14 +223,14 @@ template <bool A, bool X>
 __global__ void __launch_bounds__(kTileW * kTileH)
 ft_progressive_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
                       const float* __restrict__ cst, const float* __restrict__ area, FatBvh B,
-                      const float* __restrict__ mat, float* __restrict__ out, int s_count,
-                      int width, int height, Env env, int rig, AlbedoTex tex) {
+                      Leaves L, const float* __restrict__ mat, float* __restrict__ out,
+                      int s_count, int width, int height, Env env, int rig, AlbedoTex tex) {
   __shared__ float s_mat[kMatFields * kMaxMaterials];
   stage_materials(s_mat, mat);
   const int px = blockIdx.x * kTileW + threadIdx.x, py = blockIdx.y * kTileH + threadIdx.y;
   if (px >= width || py >= height) return;
   int stack[kMaxStack];
-  BvhScene<A, X> T{B, s_mat, stack, rig, area, tex};
+  BvhScene<A, X> T{B, L, s_mat, stack, rig, area, tex};
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < s_count; ++s) {
     sample_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env, acc);
@@ -158,7 +248,7 @@ template <bool A>
 __global__ void __launch_bounds__(kTileW * kTileH)
 ft_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ frames,
                    const float* __restrict__ cst, const float* __restrict__ area, FatBvh B,
-                   const float* __restrict__ mat, float* __restrict__ direct,
+                   Leaves L, const float* __restrict__ mat, float* __restrict__ direct,
                    float* __restrict__ ispec, float* __restrict__ albedo,
                    float* __restrict__ rough, int width, int height, Env env, int rig) {
   __shared__ float s_mat[kMatFields * kMaxMaterials];
@@ -167,7 +257,7 @@ ft_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ f
   if (px >= width || py >= height) return;
   const int s = blockIdx.z;
   int stack[kMaxStack];
-  BvhScene<A, false> T{B, s_mat, stack, rig, area, AlbedoTex{nullptr, nullptr, 0, 0}};
+  BvhScene<A, false> T{B, L, s_mat, stack, rig, area, AlbedoTex{nullptr, nullptr, 0, 0}};
   float aov[10];
   realtime_pixel(T, cam + s * 16, frames[s], cst, px, py, width, height, env, aov);
   const size_t o = (size_t)s * width * height + (size_t)py * width + px;
@@ -180,10 +270,14 @@ ft_realtime_kernel(const float* __restrict__ cam, const uint32_t* __restrict__ f
   rough[o] = aov[9];
 }
 
-// rig: bits 1 directional, 2 point, 4 area (with its pack `area`).
-bool bad_args(int s_count, int n_nodes, int n_slots, int width, int height, int env_kind,
-              int rig, const float* area, const float* env_tex, int env_w, int env_h) {
-  return s_count < 1 || n_nodes < 1 || n_slots < 1 || width < 1 || height < 1 ||
+// rig: bits 1 directional, 2 point, 4 area (with its pack `area`); the node
+// rows and ft_test are read as float4s (16-byte aligned).
+bool bad_args(int s_count, const float* nodes, int n_nodes, const float* test, const float* attr,
+              int n_slots, int width, int height, int env_kind, int rig, const float* area,
+              const float* env_tex, int env_w, int env_h) {
+  return s_count < 1 || nodes == nullptr || reinterpret_cast<uintptr_t>(nodes) % 16 ||
+         test == nullptr || reinterpret_cast<uintptr_t>(test) % 16 || attr == nullptr ||
+         n_nodes < 1 || n_slots < 1 || width < 1 || height < 1 ||
          !env_args_ok(env_kind, env_tex, env_w, env_h) || rig < 1 || rig > 7 ||
          ((rig & 4) && area == nullptr);
 }
@@ -191,9 +285,9 @@ bool bad_args(int s_count, int n_nodes, int n_slots, int width, int height, int 
 template <bool A, bool X>
 void launch_progressive(dim3 grid, dim3 block, cudaStream_t stream, const float* cam,
                         const uint32_t* frames, const float* cst, const float* area, FatBvh B,
-                        const float* mat, float* out, int s_count, int width, int height, Env env,
-                        int rig, AlbedoTex tex) {
-  ft_progressive_kernel<A, X><<<grid, block, 0, stream>>>(cam, frames, cst, area, B, mat, out,
+                        Leaves L, const float* mat, float* out, int s_count, int width,
+                        int height, Env env, int rig, AlbedoTex tex) {
+  ft_progressive_kernel<A, X><<<grid, block, 0, stream>>>(cam, frames, cst, area, B, L, mat, out,
                                                           s_count, width, height, env, rig, tex);
 }
 
@@ -202,8 +296,9 @@ void launch_progressive(dim3 grid, dim3 block, cudaStream_t stream, const float*
 // Sum of S progressive samples into out [height, width, 3] float32.
 //   cam [S, 16] f32 (pack_cameras), frames [S] u32, cst [2, 16] f32
 //   (pack_consts), area [16] f32 (pack_area_consts; read when rig & 4),
-//   nodes = bvhf_rows [n_nodes, 16] f32, rows = mt_rows [n_slots, 128] f32
-//   (lanes 74..79 the corner UVs of a textured scene), mat = material_pack
+//   nodes = bvhf_rows [n_nodes, 16] f32, test = ft_test [n_slots, 20] f32
+//   and attr = ft_attr [n_slots, 16] f32 (ops/traverse.leaf_records; columns
+//   10..15 the corner UVs of a textured scene), mat = material_pack
 //   [16, 128] f32; env_kind 0-3, with env_tex, env_w and env_h as for
 //   dxr_fused_progressive_sum (csrc/fused_sample.cu); rig: bits 1
 //   directional, 2 point, 4 area; texels [n_texels, 3] f32 and meta
@@ -214,16 +309,17 @@ void launch_progressive(dim3 grid, dim3 block, cudaStream_t stream, const float*
 // cudaErrorInvalidValue for bad arguments.
 extern "C" int dxr_fused_traverse_progressive_sum(
     const float* cam, const uint32_t* frames, const float* cst, const float* area,
-    const float* nodes, const float* rows, const float* mat, float* out, int s_count,
-    int n_nodes, int n_slots, int width, int height, int env_kind, int rig, const float* env_tex,
-    int env_w, int env_h, const float* texels, const int* meta, int n_texels, int n_meta,
-    int* err, void* stream) {
-  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig, area, env_tex, env_w,
-               env_h) ||
+    const float* nodes, const float* test, const float* attr, const float* mat, float* out,
+    int s_count, int n_nodes, int n_slots, int width, int height, int env_kind, int rig,
+    const float* env_tex, int env_w, int env_h, const float* texels, const int* meta,
+    int n_texels, int n_meta, int* err, void* stream) {
+  if (bad_args(s_count, nodes, n_nodes, test, attr, n_slots, width, height, env_kind, rig, area,
+               env_tex, env_w, env_h) ||
       (texels != nullptr && (meta == nullptr || n_texels < 1 || n_meta < 1))) {
     return (int)cudaErrorInvalidValue;
   }
-  FatBvh B{reinterpret_cast<const float4*>(nodes), rows, n_nodes, n_slots, err};
+  FatBvh B{reinterpret_cast<const float4*>(nodes), nullptr, n_nodes, n_slots, err};
+  Leaves L{reinterpret_cast<const float4*>(test), attr};
   dim3 block(kTileW, kTileH);
   dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH);
   Env env{env_tex, env_kind, env_w, env_h};
@@ -231,16 +327,16 @@ extern "C" int dxr_fused_traverse_progressive_sum(
   cudaStream_t st = (cudaStream_t)stream;
   const bool a = (rig & 4) != 0, x = texels != nullptr;
   if (a && x) {
-    launch_progressive<true, true>(grid, block, st, cam, frames, cst, area, B, mat, out, s_count,
+    launch_progressive<true, true>(grid, block, st, cam, frames, cst, area, B, L, mat, out, s_count,
                                    width, height, env, rig, tex);
   } else if (a) {
-    launch_progressive<true, false>(grid, block, st, cam, frames, cst, area, B, mat, out, s_count,
+    launch_progressive<true, false>(grid, block, st, cam, frames, cst, area, B, L, mat, out, s_count,
                                     width, height, env, rig, tex);
   } else if (x) {
-    launch_progressive<false, true>(grid, block, st, cam, frames, cst, area, B, mat, out, s_count,
+    launch_progressive<false, true>(grid, block, st, cam, frames, cst, area, B, L, mat, out, s_count,
                                     width, height, env, rig, tex);
   } else {
-    launch_progressive<false, false>(grid, block, st, cam, frames, cst, area, B, mat, out,
+    launch_progressive<false, false>(grid, block, st, cam, frames, cst, area, B, L, mat, out,
                                      s_count, width, height, env, rig, tex);
   }
   return (int)cudaGetLastError();
@@ -253,24 +349,27 @@ extern "C" int dxr_fused_traverse_progressive_sum(
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int dxr_fused_traverse_realtime_outputs(
     const float* cam, const uint32_t* frames, const float* cst, const float* area,
-    const float* nodes, const float* rows, const float* mat, float* direct, float* ispec,
-    float* albedo, float* rough, int s_count, int n_nodes, int n_slots, int width, int height,
-    int env_kind, int rig, const float* env_tex, int env_w, int env_h, int* err, void* stream) {
-  if (bad_args(s_count, n_nodes, n_slots, width, height, env_kind, rig, area, env_tex, env_w,
-               env_h) ||
+    const float* nodes, const float* test, const float* attr, const float* mat, float* direct,
+    float* ispec, float* albedo, float* rough, int s_count, int n_nodes, int n_slots, int width,
+    int height, int env_kind, int rig, const float* env_tex, int env_w, int env_h, int* err,
+    void* stream) {
+  if (bad_args(s_count, nodes, n_nodes, test, attr, n_slots, width, height, env_kind, rig, area,
+               env_tex, env_w, env_h) ||
       s_count > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  FatBvh B{reinterpret_cast<const float4*>(nodes), rows, n_nodes, n_slots, err};
+  FatBvh B{reinterpret_cast<const float4*>(nodes), nullptr, n_nodes, n_slots, err};
+  Leaves L{reinterpret_cast<const float4*>(test), attr};
   dim3 block(kTileW, kTileH);
   dim3 grid((width + kTileW - 1) / kTileW, (height + kTileH - 1) / kTileH, s_count);
   Env env{env_tex, env_kind, env_w, env_h};
   cudaStream_t st = (cudaStream_t)stream;
   if (rig & 4) {
-    ft_realtime_kernel<true><<<grid, block, 0, st>>>(cam, frames, cst, area, B, mat, direct, ispec,
-                                                     albedo, rough, width, height, env, rig);
+    ft_realtime_kernel<true><<<grid, block, 0, st>>>(cam, frames, cst, area, B, L, mat, direct,
+                                                     ispec, albedo, rough, width, height, env,
+                                                     rig);
   } else {
-    ft_realtime_kernel<false><<<grid, block, 0, st>>>(cam, frames, cst, area, B, mat, direct,
+    ft_realtime_kernel<false><<<grid, block, 0, st>>>(cam, frames, cst, area, B, L, mat, direct,
                                                       ispec, albedo, rough, width, height, env,
                                                       rig);
   }

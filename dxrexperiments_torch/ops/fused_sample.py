@@ -23,16 +23,23 @@ the keyword arguments ``cluster_rows`` and ``block_w``, which override it:
   box (``cluster_aabbs``) and skips the rows a ray cannot reach, once C > N
   (the kernel's separate CLUSTERED instantiation; the JAX kernel's
   ``_any_hit_clustered``). Occlusion is the flat sweep's, bit for bit.
-- ``FUSED_BLOCK_W=W``: a block of the kernel's 128 threads renders a W x
-  (128 / W) pixel block instead of 128 pixels of a raster row (the BLOCKED
-  instantiation), where W divides 128, the width and the height divides by
-  128 / W; otherwise the order stays raster, as JAX's raster rule
+- ``FUSED_BLOCK_W=W``: a block of the kernel's 256 threads renders a W x
+  (256 / W) pixel block instead of 256 pixels of a raster row (the BLOCKED
+  instantiation), where W divides 256, the width and the height divides by
+  256 / W; otherwise the order stays raster, as JAX's raster rule
   (``block_order``). JAX's block is a TPU tile of tile_r / W rows; the
   port's is the CUDA block. The image is the same.
 
 ``FUSED_TILE``, the JAX kernel's TPU tile of pixels, is not carried: a CUDA
-block is 128 threads, one pixel each. The plain versions take no knob:
+block is 256 threads, one pixel each. The plain versions take no knob:
 neither changes the image.
+
+Triangle records: the scene's ``tri_records`` [C, 20] float32
+(``ops/traverse.tri_records``, built with ``mt_pack`` by ``Scene.build``
+and ``scene_from_numpy``) hold each triangle's 19 Möller–Trumbore
+coefficient slots of ``csrc/common.cuh`` in slot order and a zero pad, so
+that the kernel reads a triangle as five 16-byte loads. Its sweeps stop
+after the scene's ``num_tris`` rows: the rest are padding, which never hits.
 
 Packs: ``pack_cameras`` gives [S, 16] (origin with the jitter folded in at
 the mode's scale, 30 progressive or 10 realtime, then U, V, W, and lane 12
@@ -51,10 +58,11 @@ import torch
 from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..trace.integrator import progressive_sample_sum, render_sample
+from .traverse import FUSED_MAX_TRIS, REC_WORDS
 
 BIG = 3.0e38
-MAX_TRIS = 256  # the kernel stages at most 256 triangles in shared memory
-THREADS = 128  # pixels per CUDA block (csrc/fused_sample.cu kThreads)
+MAX_TRIS = FUSED_MAX_TRIS  # the kernel stages at most 256 triangles in shared memory
+THREADS = 256  # pixels per CUDA block (csrc/fused_sample.cu kThreads)
 JITTER_SCALE = 30.0  # progressive pipeline jitter scale
 REALTIME_JITTER_SCALE = 10.0  # realtime pipeline jitter scale
 
@@ -237,24 +245,27 @@ def fused_realtime_outputs_reference(
 _LIB = None
 
 
+def bind(lib):
+    """Set the argument types of the entry points of ``lib``, a build of
+    ``csrc/fused_sample.cu``; returns it."""
+    env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
+    # cluster boxes, their count, rows per cluster, block width
+    opt_ins = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    fn = lib.dxr_fused_progressive_sum
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + env + opt_ins + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.dxr_fused_realtime_outputs
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + env + opt_ins + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _LIB
     if _LIB is None:
         from ..utils.cuda_build import load_library
 
-        lib = load_library("fused_sample", ["fused_sample.cu"])
-        env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
-        # cluster boxes, their count, rows per cluster, block width
-        opt_ins = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        fn = lib.dxr_fused_progressive_sum
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + env + opt_ins
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        fn = lib.dxr_fused_realtime_outputs
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + env + opt_ins
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(load_library("fused_sample", ["fused_sample.cu"]))
     return _LIB
 
 
@@ -330,16 +341,27 @@ def opt_in_args(scene: dict, width: int, height: int, cluster_rows: int | None,
     return args, boxes
 
 
-def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
-            cluster_rows: int | None = None, block_w: int | None = None):
-    """Pack, upload and launch one dispatch of S samples (progressive) or S
-    frames (realtime); returns the output tensors."""
-    global LAUNCHES, REALTIME_LAUNCHES, CLUSTERED_LAUNCHES, BLOCKED_LAUNCHES
+def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: bool,
+                   cluster_rows: int | None = None, block_w: int | None = None, lib=None):
+    """Pack and upload the parameters and allocate the outputs of one
+    dispatch of S samples (progressive) or S frames (realtime). Returns
+    (launch, outs, opt_ins): ``launch()`` enqueues the kernel and returns
+    the CUDA error code. Timing ``launch`` alone measures the kernel
+    without the wrapper's packing and checks. ``lib``: a build of the
+    kernel's source with the same entry points (default the package's)."""
     mt = scene["mt_pack"]
     device = mt.device
     c = int(mt.shape[1])
     s_count = int(cameras["eye"].shape[0])
-    mt = _checked("mt_pack", mt, (4, c, 16), device)
+    if "tri_records" not in scene:
+        raise ValueError("scene has no tri_records: build it with Scene.build or "
+                         "scene_from_numpy")
+    rec = _checked("tri_records", scene["tri_records"], (c, REC_WORDS), device)
+    if rec.data_ptr() % 16:
+        raise ValueError("tri_records: expected a 16-byte aligned tensor")
+    # the rows the sweeps test: num_tris, and at least one (a scene without
+    # triangles sweeps one padding row, which never hits)
+    n_live = max(1, min(int(scene["num_tris"]), c))
     attr = _checked("attr_pack", scene["attr_pack"], (32, c), device)
     cpu = torch.device("cpu")
     cam = _checked("cameras", pack_cameras(cameras, realtime).cpu().contiguous(),
@@ -349,13 +371,10 @@ def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
     if frames.shape[0] != s_count:
         raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
     params = _upload(cam, cst, frames, device)
-    cam_ptr = params.data_ptr()
-    cst_ptr = cam_ptr + 4 * cam.numel()
-    frames_ptr = cst_ptr + 4 * cst.numel()
-    head = (cam_ptr, frames_ptr, cst_ptr, mt.data_ptr(), attr.data_ptr())
-    tail = (s_count, c, width, height, int(env_kind), *env_args(scene, int(env_kind), device))
+    tail = (s_count, c, n_live, width, height, int(env_kind),
+            *env_args(scene, int(env_kind), device))
     opt_ins, boxes = opt_in_args(scene, width, height, cluster_rows, block_w)
-    lib = _library()
+    lib = lib or _library()
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
@@ -367,10 +386,31 @@ def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
     else:
         outs = (empty(height, width, 3),)
         fn = lib.dxr_fused_progressive_sum
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*head, *(o.data_ptr() for o in outs), *tail, *opt_ins, stream)
-    del boxes  # queued: the caching allocator keeps its memory for this stream
+
+    def launch() -> int:
+        # the closure holds params, rec and boxes: a queued launch's inputs
+        # stay allocated for its stream
+        cam_ptr = params.data_ptr()
+        cst_ptr = cam_ptr + 4 * cam.numel()
+        frames_ptr = cst_ptr + 4 * cst.numel()
+        head = (cam_ptr, frames_ptr, cst_ptr, rec.data_ptr(), attr.data_ptr())
+        box_ptr = None if boxes is None else boxes.data_ptr()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            return fn(*head, *(o.data_ptr() for o in outs), *tail, box_ptr, *opt_ins[1:],
+                      stream)
+
+    return launch, outs, opt_ins
+
+
+def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
+            cluster_rows: int | None = None, block_w: int | None = None):
+    """Pack, upload and launch one dispatch of S samples (progressive) or S
+    frames (realtime); returns the output tensors."""
+    global LAUNCHES, REALTIME_LAUNCHES, CLUSTERED_LAUNCHES, BLOCKED_LAUNCHES
+    launch, outs, opt_ins = prepare_launch(scene, options, cameras, width, height, env_kind,
+                                           realtime, cluster_rows, block_w)
+    rc = launch()
     if rc != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: cudaError {rc}")
     if realtime:

@@ -22,8 +22,11 @@ it is never rerouted here.
 
 The packs are B1's (``fused_sample.pack_cameras``/``pack_consts``) and the
 area pack (``pack_area_consts``), all in one pinned upload per dispatch;
-the material table is the scene's ``material_pack``, built once by
-``Scene.build``. Seeds come from the raster pixel index and the output is
+the material table is the scene's ``material_pack`` and the leaf arrays
+are the BVH's ``ft_test`` and ``ft_attr`` (``ops/traverse.leaf_records``:
+each leaf slot's 19 coefficients as one 80-byte record, and its attribute
+lanes), all built once by ``Scene.build``; the kernel does not read
+``mt_rows``. Seeds come from the raster pixel index and the output is
 raster order, so nothing is permuted back.
 """
 
@@ -38,7 +41,7 @@ from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..scene.materials import MP_MAX_MATERIALS
 from . import fused_sample as fs
-from .traverse import check_bvh, queue_error_check
+from .traverse import REC_WORDS, check_rows, queue_error_check
 
 # Kernel launches so far: LAUNCHES counts progressive dispatches (S samples
 # each), REALTIME_LAUNCHES realtime dispatches (S frames each).
@@ -122,34 +125,42 @@ fused_traverse_realtime_outputs_reference = fs.fused_realtime_outputs_reference
 _LIB = None
 
 
+def bind(lib):
+    """Set the argument types of the entry points of ``lib``, a build of
+    ``csrc/fused_traverse.cu``; returns it."""
+    env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
+    tex = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2  # texels, meta, their rows
+    fn = lib.dxr_fused_traverse_progressive_sum
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + env + tex + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    fn = lib.dxr_fused_traverse_realtime_outputs
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + env + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def _library():
     global _LIB
     if _LIB is None:
         from ..utils.cuda_build import load_library
 
-        lib = load_library("fused_traverse", ["fused_traverse.cu"])
-        env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
-        tex = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2  # texels, meta, their rows
-        fn = lib.dxr_fused_traverse_progressive_sum
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + env + tex
-                       + [ctypes.c_void_p] * 2)
-        fn.restype = ctypes.c_int
-        fn = lib.dxr_fused_traverse_realtime_outputs
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + env + [ctypes.c_void_p] * 2
-        fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB = bind(load_library("fused_traverse", ["fused_traverse.cu"]))
     return _LIB
 
 
-def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: bool):
+def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: bool, lib=None):
     """Pack and upload the parameters and allocate the outputs of one
     dispatch of S samples (progressive) or S frames (realtime). Returns
     (launch, outs, err): ``launch()`` enqueues the kernel and returns the
     CUDA error code. Timing ``launch`` alone measures the kernel without the
-    wrapper's packing and checks."""
+    wrapper's packing and checks. ``lib``: a build of the kernel's source
+    with the same entry points (default the package's)."""
     bvh = scene["bvh"]
     device = bvh["mt_rows"].device
-    nodes, rows = check_bvh(bvh, device)
+    nodes, test, attr = check_rows(bvh, {"bvhf_rows": 16, "ft_test": REC_WORDS, "ft_attr": 16},
+                                   device)
+    if test.shape[0] != attr.shape[0]:
+        raise ValueError(f"ft_test and ft_attr: {test.shape[0]} against {attr.shape[0]} slots")
     mats = scene["material_pack"]
     if mats.device != device or mats.shape != (16, MP_MAX_MATERIALS) or not mats.is_contiguous():
         raise ValueError(f"material_pack: expected a contiguous [16, {MP_MAX_MATERIALS}] tensor "
@@ -165,11 +176,11 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
         raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
     params = fs._upload(cam, cst, frames, device)
     err = torch.zeros(1, dtype=torch.int32, device=device)
-    tail = (s_count, nodes.shape[0], rows.shape[0], width, height, int(env_kind), rig,
+    tail = (s_count, nodes.shape[0], test.shape[0], width, height, int(env_kind), rig,
             *fs.env_args(scene, int(env_kind), device))
     if not realtime:
         tail += texture_args(scene, device)
-    lib = _library()
+    lib = lib or _library()
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
@@ -187,8 +198,8 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
         cst_ptr = cam_ptr + 4 * cam.numel()
         area_ptr = cst_ptr + 4 * 32  # the const pack's third row
         frames_ptr = cst_ptr + 4 * cst.numel()
-        head = (cam_ptr, frames_ptr, cst_ptr, area_ptr, nodes.data_ptr(), rows.data_ptr(),
-                mats.data_ptr())
+        head = (cam_ptr, frames_ptr, cst_ptr, area_ptr, nodes.data_ptr(), test.data_ptr(),
+                attr.data_ptr(), mats.data_ptr())
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             return fn(*head, *(o.data_ptr() for o in outs), *tail, err.data_ptr(), stream)

@@ -191,6 +191,44 @@ def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
     }
 
 
+# A triangle record of the megakernels (csrc/common.cuh kRecWords): the
+# coefficients at COEF_LANES, slot j in column j, then a zero pad, so that a
+# pair test reads it as five 16-byte loads
+REC_WORDS = 20
+
+
+def coef_records(rows: torch.Tensor) -> torch.Tensor:
+    """[N, REC_WORDS] float32 records of ``rows`` [N, >= 64] laid out as
+    mt_rows' first 64 lanes (group g, column c at lane 16 g + c), on their
+    device."""
+    rec = torch.zeros((rows.shape[0], REC_WORDS), dtype=torch.float32, device=rows.device)
+    rec[:, : len(COEF_LANES)] = rows[:, list(COEF_LANES)]
+    return rec
+
+
+# B1 (csrc/fused_sample.cu) stages at most this many triangle records in
+# shared memory; a scene built with more rows gets no ``tri_records``
+FUSED_MAX_TRIS = 256
+
+
+def tri_records(mt_pack: torch.Tensor) -> torch.Tensor:
+    """B1's triangle records [C, REC_WORDS] on mt_pack's device: triangle
+    i's row of mt_pack [4, C, 16] (group g at lanes 16 g..16 g + 15, as in
+    mt_rows) taken to a record (``coef_records``). Padding rows stay zero
+    records, whose det is 0, so they never hit."""
+    c = int(mt_pack.shape[1])
+    return coef_records(mt_pack.permute(1, 0, 2).reshape(c, 64))
+
+
+def leaf_records(mt_rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fused-traversal kernel's leaf arrays from ``mt_rows`` [S, 128],
+    on its device: ``ft_test`` [S, REC_WORDS], each slot's record
+    (``coef_records``), and ``ft_attr`` [S, 16], its lanes 64..79 (vertex
+    normals n0/n1/n2, material id, corner UVs). Derived arrays of the port:
+    80 + 64 bytes a slot against mt_rows' 512."""
+    return coef_records(mt_rows), mt_rows[:, 64:80].contiguous()
+
+
 def fat_nodes(nodes_lo, nodes_hi, child) -> np.ndarray:
     """Collapse a regularized binary node array (leaf child[:,0] =
     -(slot_start+1), child[:,1] = count) into FAT nodes: each row stores its

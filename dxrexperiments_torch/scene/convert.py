@@ -19,7 +19,7 @@ import torch
 from ..accel.tlas import TlasRefitContext
 from ..core.device import setup_device
 from .envmap import TEXTURE_KEY
-from .scene import bvh_to_device
+from .scene import add_tri_records, bvh_to_device
 
 _SCENE_ARRAYS = (
     "mt_pack", "attr_pack", "v0", "e1", "e2", "n0", "n1", "n2",
@@ -105,13 +105,15 @@ def scene_from_numpy(d: dict, device="cuda") -> dict:
     without one it raises), the lights and the env's scalars on the host.
     The JAX quad-packed copies of env and albedo textures and its dummy env
     textures of other kinds are dropped (scene/envmap.py,
-    scene/textures.py)."""
+    scene/textures.py). A flat scene gets B1's ``tri_records``, as from
+    ``Scene.build``."""
     device = setup_device(device)
     if "tlas" in d:
         out = _two_level_from_numpy(d, device)
     else:
         out = {k: _t(d[k], device, torch.float32) for k in _SCENE_ARRAYS}
         out["mat_id"] = _t(d["mat_id"], device, torch.int64)
+        add_tri_records(out)
     if "textures" in d:
         out.update(_textures_from_numpy(d, device))
     out["num_tris"] = int(np.asarray(d["num_tris"]))

@@ -28,7 +28,7 @@ import torch
 from ..accel import bvh as bvh_mod
 from ..accel import tlas as tlas_mod
 from ..core.device import setup_device
-from ..ops.traverse import pack_for_traversal
+from ..ops.traverse import FUSED_MAX_TRIS, leaf_records, pack_for_traversal, tri_records
 from . import envmap as envmap_mod
 from .lights import default_lights, light_counts
 from .materials import (
@@ -59,11 +59,21 @@ def to_device(tree, device):
     return tree
 
 
+def add_tri_records(scene: dict) -> None:
+    """Give a flat scene of at most FUSED_MAX_TRIS triangle rows B1's
+    triangle records (``ops/traverse.tri_records``), built from its
+    ``mt_pack`` on that pack's device; a larger scene never reaches B1."""
+    if int(scene["mt_pack"].shape[1]) <= FUSED_MAX_TRIS:
+        scene["tri_records"] = tri_records(scene["mt_pack"])
+
+
 def bvh_to_device(bvh: dict, materials: dict, device) -> dict:
     """The scene entries of a BVH (``pack_for_traversal``'s arrays, numpy or
     tensors) and its stacked materials: {"bvh": ...} with the kernels'
     arrays ``bvhf_rows`` (B4a, B5), ``bvh_rows`` (B4b), ``bvh8_rows``
-    (B4d), ``mt_rows`` and ``slot_tri`` on ``device`` and the JAX
+    (B4d), ``mt_rows`` and ``slot_tri`` on ``device``, the fused-traversal
+    kernel's leaf arrays ``ft_test`` and ``ft_attr`` built from ``mt_rows``
+    there (``ops/traverse.leaf_records``), and the JAX
     package's node layouts ``bvh_nodes``, ``bvhf_nodes`` and ``bvh8_nodes``
     left on the host (no kernel reads them); and, for at most MP_MAX_MATERIALS
     materials, ``material_pack``, the fused-traversal kernel's material
@@ -74,6 +84,7 @@ def bvh_to_device(bvh: dict, materials: dict, device) -> dict:
         else torch.as_tensor(v).to(device if k in on_device else "cpu")
         for k, v in bvh.items()
     }}
+    out["bvh"]["ft_test"], out["bvh"]["ft_attr"] = leaf_records(out["bvh"]["mt_rows"])
     if int(materials["albedo"].shape[0]) <= MP_MAX_MATERIALS:
         out["material_pack"] = material_pack(materials)
     return out
@@ -286,7 +297,8 @@ class Scene:
         """Lower to the scene dict: geometry, packs, the BVH (per ``accel``,
         see ``build_numpy`` and ``bvh_to_device``), materials and albedo
         textures on ``device`` (default the card; without one it raises),
-        each moved once per build; ``lights`` and the env's
+        each moved once per build, and B1's ``tri_records`` built there
+        (``add_tri_records``); ``lights`` and the env's
         scalars stay host (CPU) tensors, since they are per-frame parameters
         (the kernel wrapper packs them into its one upload per dispatch, the
         plain path moves them to its device); a texture env's texture leaves
@@ -303,6 +315,7 @@ class Scene:
             out["textures"] = {k: torch.as_tensor(v).to(device) for k, v in d["textures"].items()}
         out["mat_id"] = out["mat_id"].to(torch.int64)
         out["num_tris"] = d["num_tris"]
+        add_tri_records(out)
         out["materials"] = stack_materials(d["materials"], device)
         if "bvh" in d:
             out.update(bvh_to_device(d["bvh"], out["materials"], device))

@@ -324,6 +324,66 @@ def test_fused_traverse_realtime_matches_plain(cuda_device, name, opts, env):
             _gate(got[k][f], want[k][f], s_count=1)
 
 
+B5_MODES = ("base", "cubemap", "area", "textured")
+
+
+def _instanced4_mode(device, mode):
+    """'instanced:4' (15,362 triangles) in one of B5's modes: the base mode
+    (gradient env, 1 directional + 1 point light), a seeded cubemap env, 1
+    directional + 1 area light, or the floor under a checker albedo texture
+    with planar UVs."""
+    from dxrexperiments_torch.scene.lights import area_light
+    from dxrexperiments_torch.scene.materials import Material
+    from dxrexperiments_torch.scene.textures import checker_texture, planar_uvs
+
+    sc, cam = build_scene("instanced:4")
+    if mode == "cubemap":
+        rs = np.random.default_rng(6)
+        sc.environment = envmap.cubemap_env(rs.uniform(0.1, 1.5, (6, 16, 16, 3)).astype(np.float32))
+    elif mode == "area":
+        sc.lights = {"dir": sc.lights["dir"], "point": [],
+                     "area": [area_light((-2.0, 8.0, -2.0), (4.0, 0, 0), (0, 0, 4.0),
+                                         (1.0, 0.95, 0.85, 10.0))]}
+    elif mode == "textured":
+        floor = sc.instances[-1]
+        planar_uvs(floor.mesh, scale=4.0)
+        floor.material_override = sc.add_material(Material(
+            albedo=(0.85, 0.85, 0.85, 1.0), albedo_texture=checker_texture(8, size=64)))
+    cam.set_aspect(SIZE, SIZE)
+    cams = stack_cameras([camera_params(cam, frame_count=31 + k) for k in range(S)])
+    return sc.build(device), cams
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", B5_MODES)
+def test_fused_traverse_dense_records_every_mode(cuda_device, mode):
+    """B5 reads its leaves from the dense arrays ft_test and ft_attr
+    (ops/traverse.leaf_records, equal to mt_rows' lanes): on 'instanced:4'
+    in each mode, progressive (with and without the debug==2 pick) and,
+    except with albedo textures (outside the gate, as in JAX), realtime
+    against the plain version on the image gate."""
+    scene, cams = _instanced4_mode(cuda_device, mode)
+    bvh = scene["bvh"]
+    assert torch.equal(bvh["ft_test"][:, :19], bvh["mt_rows"][:, list(traverse.COEF_LANES)])
+    assert torch.equal(bvh["ft_attr"], bvh["mt_rows"][:, 64:80])
+    ek = scene["env"]["kind"]
+    for opts in ({}, {"debug": 2}):
+        options = default_options(**opts)
+        got = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
+        want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
+        torch.cuda.synchronize()
+        _gate(got, want)
+    if mode != "textured":
+        options = default_options()
+        got = ft.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
+        want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
+        torch.cuda.synchronize()
+        for k in fs.AOV_KEYS:
+            for f in range(S):
+                _gate(got[k][f], want[k][f], s_count=1)
+    traverse.check_errors()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("group", ["dir", "point"])
 def test_fused_traverse_one_light_rig(cuda_device, group):
@@ -1032,9 +1092,10 @@ def test_texture_env_launch_arguments(cuda_device):
     lib = fs._library()
     stream = torch.cuda.current_stream().cuda_stream
     tex = scene["env"]["latlong"]
-    head = (params.data_ptr(), params.data_ptr(), params.data_ptr(), scene["mt_pack"].data_ptr(),
+    rec, n_live = scene["tri_records"], int(scene["num_tris"])
+    head = (params.data_ptr(), params.data_ptr(), params.data_ptr(), rec.data_ptr(),
             scene["attr_pack"].data_ptr(), out.data_ptr(), 1, int(scene["mt_pack"].shape[1]),
-            SIZE, SIZE)
+            n_live, SIZE, SIZE)
     for kind, ptr, w, h in ((2, None, 64, 32), (3, None, 16, 16), (2, tex.data_ptr(), 0, 32),
                             (3, tex.data_ptr(), 16, 8), (4, tex.data_ptr(), 16, 16)):
         # no cluster boxes, no block order
@@ -1043,12 +1104,12 @@ def test_texture_env_launch_arguments(cuda_device):
     ft_lib = ft._library()
     err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     bvh = build_scene("instanced:2")[0].build(cuda_device, accel="bvh")
-    nodes, rows = bvh["bvh"]["bvhf_rows"], bvh["bvh"]["mt_rows"]
+    nodes, test, attr = (bvh["bvh"][k] for k in ("bvhf_rows", "ft_test", "ft_attr"))
     assert ft_lib.dxr_fused_traverse_progressive_sum(
         params.data_ptr(), params.data_ptr(), params.data_ptr(), params.data_ptr(),
-        nodes.data_ptr(), rows.data_ptr(), bvh["material_pack"].data_ptr(), out.data_ptr(), 1,
-        nodes.shape[0], rows.shape[0], SIZE, SIZE, 2, 3, None, 64, 32, None, None, 0, 0,
-        err.data_ptr(), stream) == 1
+        nodes.data_ptr(), test.data_ptr(), attr.data_ptr(), bvh["material_pack"].data_ptr(),
+        out.data_ptr(), 1, nodes.shape[0], test.shape[0], SIZE, SIZE, 2, 3, None, 64, 32, None,
+        None, 0, 0, err.data_ptr(), stream) == 1
     options = default_options()
     for kernel in (fs.fused_progressive_sum, ft.fused_traverse_progressive_sum):
         target = scene if kernel is fs.fused_progressive_sum else dict(
@@ -1175,16 +1236,16 @@ def test_fused_traverse_new_mode_arguments(cuda_device):
     params = torch.zeros(64, device=cuda_device)
     out = torch.empty((SIZE, SIZE, 3), device=cuda_device)
     err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    nodes, rows = scene["bvh"]["bvhf_rows"], scene["bvh"]["mt_rows"]
+    nodes, test, attr = (scene["bvh"][k] for k in ("bvhf_rows", "ft_test", "ft_attr"))
     texels = scene["textures"]["texels"]
     stream = torch.cuda.current_stream().cuda_stream
     for area, rig, tex in ((None, 5, (None, None, 0, 0)),
                            (params.data_ptr(), 5, (texels.data_ptr(), None, 4, 6))):
         assert lib.dxr_fused_traverse_progressive_sum(
             params.data_ptr(), params.data_ptr(), params.data_ptr(), area, nodes.data_ptr(),
-            rows.data_ptr(), scene["material_pack"].data_ptr(), out.data_ptr(), 1,
-            nodes.shape[0], rows.shape[0], SIZE, SIZE, 0, rig, None, 0, 0, *tex,
-            err.data_ptr(), stream) == 1
+            test.data_ptr(), attr.data_ptr(), scene["material_pack"].data_ptr(),
+            out.data_ptr(), 1, nodes.shape[0], test.shape[0], SIZE, SIZE, 0, rig, None, 0, 0,
+            *tex, err.data_ptr(), stream) == 1
     off = dict(scene, textures=dict(scene["textures"], texels=texels.cpu()))
     with pytest.raises(ValueError, match="device"):
         ft.fused_traverse_progressive_sum(off, options, cams, SIZE, SIZE, 0)
@@ -1356,9 +1417,9 @@ def test_fused_opt_ins_equal_base(cuda_device, name, opts, env):
 @pytest.mark.cuda
 def test_fused_clusters_above_48k_shared_memory(cuda_device):
     """256 rows in clusters of one row: the boxes beside the triangles take
-    (43 + 6) x 256 x 4 = 50,176 bytes of shared memory, above the default
-    48 KB. The launch raises the kernel's limit and gives the base kernel's
-    outputs bit for bit."""
+    (44 + 6) x 256 x 4 = 51,200 bytes of shared memory (records, attribute
+    rows, boxes), above the default 48 KB. The launch raises the kernel's
+    limit and gives the base kernel's outputs bit for bit."""
     from dxrexperiments_torch.scene.procedural import random_triangle_soup
 
     sc, cam = build_scene("cornell-glossy")
@@ -1384,9 +1445,99 @@ def test_fused_clusters_above_48k_shared_memory(cuda_device):
 
 
 @pytest.mark.cuda
+def test_fused_records_c256_clusters_of_one_match_plain(cuda_device):
+    """C = 256, the largest scene B1 stages, in clusters of one row: the
+    largest shared-memory request (records, attribute rows and boxes, 51,200
+    bytes). The base and the CLUSTERED kernel against the plain version on
+    the image gate, progressive and realtime (every AOV)."""
+    from dxrexperiments_torch.scene.procedural import random_triangle_soup
+
+    sc, cam = build_scene("cornell-glossy")
+    sc.add_model(random_triangle_soup(256 - 36, seed=4, extent=0.4))
+    scene = sc.build(cuda_device)
+    assert int(scene["mt_pack"].shape[1]) == 256 and int(scene["num_tris"]) == 256
+    cam.set_aspect(SIZE, SIZE)
+    cams = stack_cameras([camera_params(cam, frame_count=11 + k) for k in range(S)])
+    options = default_options()
+    ek = scene["env"]["kind"]
+    want = fs.fused_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
+    want_rt = fs.fused_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
+    for rows in (0, 1):
+        got = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=rows,
+                                       block_w=0)
+        got_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek, cluster_rows=rows,
+                                  block_w=0)
+        torch.cuda.synchronize()
+        _gate(got, want)
+        for k in fs.AOV_KEYS:
+            for f in range(S):
+                _gate(got_rt[k][f], want_rt[k][f], s_count=1)
+
+
+# one light blocked from inside the Cornell box, the other not: each
+# shadow ray's sweep ends on its own
+PARTED_RIGS = {
+    # the sun straight above (the ceiling blocks it), a point light inside
+    "directional_blocked": ((0.0, -1.0, 0.0), (0.0, 1.6, 0.3)),
+    # the sun through the open front, a point light outside the right wall
+    "point_blocked": ((0.0, -0.3, -1.0), (3.0, 1.0, 0.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rig", list(PARTED_RIGS))
+def test_fused_parted_lights_match_plain(cuda_device, rig):
+    """B1 on a rig where, from most shading points, one light is blocked and
+    the other is not (checked with the plain any-hit trace on the primary
+    hits; the points on the wall or ceiling between a light and the box see
+    it): progressive with and without the debug==2 pick, and realtime,
+    against the plain version on the image gate; the CLUSTERED kernel bit
+    for bit with the base one."""
+    from dxrexperiments_torch.core.camera import primary_ray_grid
+    from dxrexperiments_torch.scene.lights import directional_light, point_light
+
+    forward, position = PARTED_RIGS[rig]
+    sc, cam = build_scene("cornell-glossy")
+    sc.lights = {"dir": directional_light(forward, (1.0, 0.95, 0.9, 2.0)),
+                 "point": point_light(position, (1.0, 0.9, 0.8, 6.0))}
+    scene = sc.build(cuda_device)
+    cam.set_aspect(SIZE, SIZE)
+    cams = stack_cameras([camera_params(cam, frame_count=21 + k) for k in range(S)])
+    o, d = primary_ray_grid({k: v[0] for k, v in cams.items()}, SIZE, SIZE)
+    o, d = o.reshape(-1, 3).to(cuda_device), d.reshape(-1, 3).to(cuda_device)
+    hits = intersect.intersect_closest(scene, o, d, 0.0, 3.0e37, True)
+    pos = (o + hits["t"][:, None] * d)[hits["hit"]]
+    to_sun = -torch.tensor(forward, device=cuda_device) / float(np.linalg.norm(forward))
+    to_pt = torch.tensor(position, device=cuda_device) - pos
+    dist = to_pt.norm(dim=1)
+    sun = intersect.intersect_any(scene, pos, to_sun.expand_as(pos).contiguous(), 1e-4, 3.0e37)
+    pt = intersect.intersect_any(scene, pos, to_pt / dist[:, None], 1e-4, dist - 1e-4)
+    blocked, other = (sun, pt) if rig == "directional_blocked" else (pt, sun)
+    assert float(blocked.float().mean()) > 0.6 and float(other.float().mean()) < 0.4
+    ek = scene["env"]["kind"]
+    for opts in ({}, {"debug": 2}):
+        options = default_options(**opts)
+        got = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0,
+                                       block_w=0)
+        gated = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=8,
+                                         block_w=0)
+        want = fs.fused_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
+        torch.cuda.synchronize()
+        assert torch.equal(gated, got)
+        _gate(got, want)
+    options = default_options()
+    got_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
+    want_rt = fs.fused_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
+    torch.cuda.synchronize()
+    for k in fs.AOV_KEYS:
+        for f in range(S):
+            _gate(got_rt[k][f], want_rt[k][f], s_count=1)
+
+
+@pytest.mark.cuda
 def test_fused_opt_in_arguments(cuda_device):
     """The entry points refuse opt-ins that do not fit (cudaErrorInvalidValue):
-    a block width that does not divide the 128-thread block or the image,
+    a block width that does not divide the 256-thread block or the image,
     boxes that do not cover the triangles."""
     scene, cams = _setup(cuda_device, "const")
     out = torch.empty((SIZE, SIZE, 3), device=cuda_device)
@@ -1395,8 +1546,10 @@ def test_fused_opt_in_arguments(cuda_device):
     stream = torch.cuda.current_stream().cuda_stream
     c = int(scene["mt_pack"].shape[1])
     boxes = fs.cluster_aabbs(scene, 16)
-    head = (params.data_ptr(), params.data_ptr(), params.data_ptr(), scene["mt_pack"].data_ptr(),
-            scene["attr_pack"].data_ptr(), out.data_ptr(), 1, c, SIZE, SIZE, 0, None, 0, 0)
+    rec, n_live = scene["tri_records"], int(scene["num_tris"])
+    head = (params.data_ptr(), params.data_ptr(), params.data_ptr(), rec.data_ptr(),
+            scene["attr_pack"].data_ptr(), out.data_ptr(), 1, c, n_live, SIZE, SIZE, 0, None, 0,
+            0)
     for ptr, k, rows, block_w in ((None, 0, 0, 48), (None, 0, 0, 256), (None, 0, 0, -8),
                                   (boxes.data_ptr(), 2, 16, 0), (boxes.data_ptr(), 3, 8, 0),
                                   (boxes.data_ptr(), 3, 0, 0)):

@@ -9,7 +9,7 @@
 - the blocked pixel order (``block_pixels`` below states the kernel's
   mapping, ``csrc/fused_sample.cu`` ``pixel_index``) renders every pixel
   exactly once, equals JAX's permutation where JAX's tile is the CUDA
-  block's 128 pixels, and falls back to raster by ``block_order``, JAX's
+  block's THREADS pixels, and falls back to raster by ``block_order``, JAX's
   rule;
 - the port's progressive sum on the CPU (the plain version, which takes no
   knob) against JAX's B1 in interpret mode with ``FUSED_CLUSTERS=16``
@@ -103,8 +103,8 @@ def test_opt_in_args(monkeypatch):
 @pytest.mark.parametrize("width,height,block_w,blocked", [
     (32, 32, 8, True), (64, 48, 16, True), (128, 8, 128, True), (512, 512, 32, True),
     (30, 32, 8, False),  # the width
-    (32, 30, 8, False),  # the height: 8-pixel blocks are 16 rows
-    (48, 48, 48, False),  # 48 does not divide the 128-thread block
+    (32, 30, 8, False),  # the height: 8-pixel blocks are THREADS / 8 rows
+    (48, 48, 48, False),  # 48 does not divide the THREADS-thread block
     (32, 32, 0, False),  # off
 ])
 def test_block_order_covers_every_pixel(width, height, block_w, blocked):
@@ -115,13 +115,13 @@ def test_block_order_covers_every_pixel(width, height, block_w, blocked):
     if not blocked:
         assert torch.equal(perm, torch.arange(n))
         return
-    # JAX's permutation (fused_sample_pallas._fused_dispatch) at tile_r = 128
+    # JAX's permutation (fused_sample_pallas._fused_dispatch) at tile_r = THREADS
     block_h = tfs.THREADS // block_w
     pys, pxs = np.meshgrid(np.arange(height), np.arange(width), indexing="ij")
     want = ((pys * width + pxs).reshape(height // block_h, block_h, width // block_w, block_w)
             .transpose(0, 2, 1, 3).reshape(-1))
     np.testing.assert_array_equal(perm.numpy(), want)
-    # a CUDA block's 128 pixels form one block_w x block_h rectangle
+    # a CUDA block's THREADS pixels form one block_w x block_h rectangle
     first = perm[: tfs.THREADS]
     assert len(set((first % width).tolist())) == block_w
     assert len(set((first // width).tolist())) == block_h

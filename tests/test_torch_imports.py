@@ -1,6 +1,6 @@
 """The port imports torch and numpy only: no module under dxrexperiments_torch/,
-nor chip_smoke.py, may load jax or dxrexperiments_tpu. Checked in a fresh interpreter, since
-this test process has both loaded already."""
+nor chip_smoke.py or kernel_ab.py, may load jax or dxrexperiments_tpu. Checked in a
+fresh interpreter, since this test process has both loaded already."""
 
 import os
 import subprocess
@@ -12,7 +12,7 @@ SCRIPT = r"""
 import importlib, pkgutil, sys
 import dxrexperiments_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-for name in names + ["chip_smoke"]:
+for name in names + ["chip_smoke", "kernel_ab"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "dxrexperiments_tpu")))

@@ -1,0 +1,70 @@
+"""The host side of ``kernel_ab.py`` (the megakernels against another
+commit's sources on the card) and of ``utils/cuda_build.ptxas_counts`` on
+the CPU: ptxas' counts, the sweep loops of a SASS listing and their summary
+per pair test, and the count of pixels that differ in any bit.
+"""
+
+import torch
+
+import kernel_ab as ab
+from dxrexperiments_torch.utils import cuda_build
+
+PTXAS_LOG = """ptxas info    : Compiling entry function '_Z6kernelPf' for 'sm_90a'
+ptxas info    : Function properties for _Z6kernelPf
+    56 bytes stack frame, 20 bytes spill stores, 36 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z5otherv' for 'sm_90a'
+ptxas info    : Function properties for _Z5otherv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 12 registers
+"""
+
+# one function with a 2-instruction loop that does no float work (skipped),
+# and a sweep loop: 2 shared loads, 8 FFMAs, one pair test (its FSETP against
+# 1e-12), branching back to its head
+_FFMAS = "".join(f"        /*{0x50 + 16 * k:04x}*/  FFMA R4, R5, R6, R4 ;\n" for k in range(8))
+SASS = """
+        Function : _Z6kernelPf
+        /*0000*/  MOV R1, c[0x0][0x28] ;
+        /*0010*/  IADD3 R2, R2, 0x1, RZ ;
+        /*0020*/  @P0 BRA 0x10 ;
+        /*0030*/  LDS.128 R4, [R3] ;
+        /*0040*/  LDS.128 R8, [R3+0x10] ;
+""" + _FFMAS + """        /*00d0*/  FSETP.GT.AND P1, PT, R4, 9.9999999600419720025e-13, PT ;
+        /*00e0*/  @!P1 BRA 0x30 ;
+        /*00f0*/  EXIT ;
+"""
+
+
+def test_ptxas_counts():
+    got = cuda_build.ptxas_counts(PTXAS_LOG)
+    assert got == [
+        {"kernel": "_Z6kernelPf", "stack": 56, "spill_stores": 20, "spill_loads": 36,
+         "registers": 80},
+        {"kernel": "_Z5otherv", "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 12},
+    ]
+
+
+def test_sweep_loops_and_summary():
+    funcs = ab.sass_functions(SASS)
+    assert list(funcs) == ["_Z6kernelPf"] and len(funcs["_Z6kernelPf"]) == 16
+    loops = ab.loop_counts(funcs["_Z6kernelPf"])
+    assert loops == [{"span": [0x30, 0xE0], "instructions": 12, "pair_tests": 1,
+                      "counts": {"BRA": 1, "FFMA": 8, "FSETP": 1, "LDS.128": 2}}]
+    (line,) = ab.loop_summary({"_Z6kernelPf": loops})
+    assert line.startswith("1 loops of 1 pair test; per pair test 12 instructions: LDS.128 2, 9")
+
+
+def test_differing_pixels_counts_bits():
+    h, w = 4, 5
+    a = (torch.zeros(2, h, w, 3), torch.zeros(2, h, w))  # a realtime pair: 2 frames
+    b = (a[0].clone(), a[1].clone())
+    assert ab.differing_pixels(a, b, h, w) == 0
+    b[0][0, 0, 0, 2] = -0.0  # equal as a float, not as bits
+    b[1][1, 2, 3] = 1.0
+    b[1][0, 2, 3] = 1.0  # the same pixel in the other frame
+    assert ab.differing_pixels(a, b, h, w) == 2
+    img = torch.zeros(h, w, 3)  # a progressive sum
+    other = img.clone()
+    other[3, 4, 0] = 1e-30
+    assert ab.differing_pixels((img,), (other,), h, w) == 1
