@@ -88,7 +88,10 @@ Phases, each of which raises on failure:
      display finite);
  14. two-level times: B6a ms for each of the wavefront frame's four launches
      on its own inputs with the host model's walk counts (ops/traverse2.
-     fat_walk2_numpy) and its bound, the host ms per refit and per
+     fat_walk2_numpy) on 4,096 rays of sampled spans of whole warps, its
+     bound and its ratio to the bound, each launch's live-ray share and the
+     warp figures (walk2_figures: a walk nested per level against one loop
+     over both, the idle lane shares), the host ms per refit and per
      progressive dispatch, and B6a beside its plain versions at
      'instanced:4' two-level, 128^2;
  15. the brute-force trace kernels (B3, csrc/intersect_brute.cu) vs their
@@ -121,9 +124,11 @@ Phases, each of which raises on failure:
  17. B3 times: each of the four launches of one 'instanced:2' wavefront
      sample on its own inputs (kernel alone and through the wrapper), the
      plain versions at 128^2, the pair tests for the bound (every pair of a
-     live ray for closest; up to the first blocker for any, counted on
-     4,096 sampled rays), and the host ms per progressive dispatch,
-     enqueued and synchronised.
+     live ray for closest; up to the first blocker for any; counted on
+     every ray from the plain sweep's verdicts), the ratio to the bound, the
+     live-ray share and the lane figures (ops/intersect_kernel.
+     sweep_figures), and the host ms per progressive dispatch, enqueued and
+     synchronised.
 
  18. texture envs: an 8192x4096 lat-long radiance (the size of the 8K
      lat-long the JAX package's config-3 run loads; a sky gradient, a small
@@ -300,9 +305,9 @@ Phases, each of which raises on failure:
      two), the mix's ops/s, the product's TFLOP/s alone and the overlap
      verdict; a rate above 105% of the data sheet (67 TFLOP/s float32, 33.5
      T instructions/s, 494.7 TFLOP/s dense TF32) fails the phase.
- 38. the redesigned megakernels (run after phase 37): ptxas' registers,
-     spills and stack frames of every kernel of B1 and B5 beside those of
-     B4a, B4c and B6a; B1's triangle records (the scene's tri_records,
+ 38. the redesigned kernels (run after phase 37): ptxas' registers,
+     spills and stack frames of every kernel of B1, B5, B3 and B6a beside
+     those of B4a and B4c; B1's triangle records (the scene's tri_records,
      five float4s a triangle) of configs 1 and 3 against their mt_pack, and
      B5's leaf arrays ft_test and ft_attr (ops/traverse.leaf_records) of
      'instanced:32' and the config-2 stand-in against their mt_rows, equal
@@ -325,12 +330,15 @@ rays that miss, each 4 texels of 12 bytes, together at most the texture's
 bytes) are counted on its plain run (B5's the same way, and its closest
 hits on textured materials, 4 texels of 12 bytes each, at most the texel
 table's bytes), B3's
-from its launches' rays as phase 17 says; the BVH
+from its launches' rays as phase 17 says (its bytes: each ray's own input
+and output and each triangle's 19 coefficients and 24 attribute words);
+the BVH
 kernels' slab and pair tests by a host model of their per-ray walk
 (ops/traverse.fat_walk_numpy) over 4,096 sampled pixels of the main path
 (B5) or 4,096 sampled rays of each launch (B4a), scaled to the frame or
 the launch; B6a's slab and pair tests and instance transforms by the host
-model of the two-level walk (ops/traverse2.fat_walk2_numpy) the same way;
+model of the two-level walk (ops/traverse2.fat_walk2_numpy) on 4,096 rays
+of sampled spans of whole warps of each launch;
 B4b's, B4d's and B6b's by their host models on 4,096 sampled rays of each
 launch, the nodes touched counted at 32 bytes (binary) or 256 bytes (one
 8-wide node, eight 32-byte child rows).
@@ -380,6 +388,8 @@ BVH_PARITY_SCENE, BVH_PARITY_SIZE = "instanced:4", 128
 BVH_MAIN_SCENE, BVH_S, BVH_DISPATCHES, BVH_RT_FRAMES = "instanced:32", 4, 4, 4
 SHADOW_LIGHT = (2.0, 6.0, 1.5)  # the B4a occlusion checks' point light
 COUNT_PIXELS = 4096  # sampled pixels whose walks the host model counts
+WARP = 32  # the host figures' warps: WARP consecutive rays of a launch
+WARP_SPAN = 512  # consecutive rays of each sampled span of warps
 FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s without tensor cores (FMA = 2)
 TF32_PEAK = 494.7e12  # H100 SXM dense TF32 FLOP/s on the tensor cores
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
@@ -1279,6 +1289,49 @@ def walk2_work(tv2, tl_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_
               + touched["inst_ids"] * 64 + touched["slot_ids"] * 19 * 4
               + len(o) * scale * io_bytes_per_ray)
     return ops, nbytes, c
+
+
+def sampled_warps(n: int, rng, device):
+    """COUNT_PIXELS ray indices of a launch of n rays, as whole warps: spans
+    of WARP_SPAN consecutive rays (WARP_SPAN / WARP warps each, so that a
+    queue of the span's live rays packs neighbours as the card's does),
+    drawn without replacement."""
+    import numpy as np
+    import torch
+
+    starts = rng.choice(n // WARP_SPAN, COUNT_PIXELS // WARP_SPAN, replace=False) * WARP_SPAN
+    return torch.as_tensor((starts[:, None] + np.arange(WARP_SPAN)).reshape(-1), device=device)
+
+
+def walk2_figures(tv2, counts, d, t_min, t_max, occlusion: bool) -> dict:
+    """B6a's warp figures on sampled warps (rays d, t_min, t_max of the
+    sample, the host model's counts of their walks; ops/traverse2.
+    warp_costs): the nested walk's and the single loop's costs in node
+    visits, summed over the warps, and their ratio; the single loop over a
+    queue of the live rays ("queued": for occlusion the kernel's rule, a
+    non-zero direction; for closest hits, which take no queue, also a
+    non-empty window); the dead rays' share; the idle lane share of each
+    design (visits not made over WARP x its cost)."""
+    import numpy as np
+
+    d_np = host_array(d)
+    live = np.abs(d_np).sum(1) >= 1e-30
+    if not occlusion:
+        live &= np.broadcast_to(host_array(t_max), len(d_np)) > host_array(t_min)
+    w = tv2.warp_costs(counts["per_ray"], live)
+    nested, single = int(w["nested"].sum()), int(w["single"].sum())
+    queued = int(w["single_queued"].sum())
+    lane = int(w["lane_visits"].sum())
+    return {"warps": len(w["nested"]), "nested": nested, "single": single, "queued": queued,
+            "single_over_nested": single / nested, "queued_over_nested": queued / nested,
+            "dead_share": w["dead_share"], "idle_nested": 1.0 - lane / (WARP * nested),
+            "idle_single": 1.0 - lane / (WARP * single)}
+
+
+def figures_line(fig: dict) -> str:
+    """A figures dict as "key value, ..." with floats to 4 places."""
+    return ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                     for k, v in fig.items())
 
 
 def plain_sliced(fn, n: int, device):
@@ -2734,13 +2787,18 @@ def main() -> int:
     tl2 = scene2["tlas"]
     card_bytes = sum(t.numel() * t.element_size()
                      for t in {id(t): t for t in tensors_of(scene2)}.values() if t.is_cuda)
-    tlas_bytes = sum(tl2[k].numel() * 4 for k in ("mt_rows", "tlasf_rows", "inst_rows_t",
+    tlas_bytes = sum(tl2[k].numel() * 4 for k in ("blas_test", "tlasf_rows", "inst_rows_t",
                                                    "blasf_rows"))
+    coef_lanes = list(tv.COEF_LANES)
+    if not (torch.equal(tl2["blas_test"][:, :19], tl2["mt_rows"][:, coef_lanes])
+            and not bool(tl2["blas_test"][:, 19:].any())):
+        raise RuntimeError("B6a's BLAS records differ from the two-level build's mt_rows")
     print(f"build {BVH_MAIN_SCENE} two-level: {scene2['num_tris']} triangles over "
           f"{scene2['tlas_meta']['num_instances']} instances of "
           f"{len(scene2['tlas_meta']['mesh_tri_ranges'])} meshes, {build2_s:.3f}s host clock "
           f"(BLAS builds, packs, refit, upload); {card_bytes / 2**20:.3f} MiB on the card, of "
-          f"which B6a reads {tlas_bytes / 2**20:.3f} MiB (mt_rows {tuple(tl2['mt_rows'].shape)}, "
+          f"which B6a reads {tlas_bytes / 2**20:.3f} MiB (blas_test "
+          f"{tuple(tl2['blas_test'].shape)}, equal to mt_rows' coefficient lanes, "
           f"tlasf_rows {tuple(tl2['tlasf_rows'].shape)}, inst_rows_t "
           f"{tuple(tl2['inst_rows_t'].shape)}, blasf_rows {tuple(tl2['blasf_rows'].shape)}) "
           f"[{card}]", flush=True)
@@ -2889,7 +2947,8 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 14", flush=True)
     # ---- 14. two-level times ----------------------------------------------------
     # B6a: each launch of the wavefront frame on its own inputs, with its bound
-    # from the host model's counts on COUNT_PIXELS sampled rays
+    # and the warp figures (walk2_figures) from the host model's counts on
+    # COUNT_PIXELS rays of sampled whole warps
     tl_np = {k: tl2[k].cpu().numpy() for k in ("tlasf_rows", "inst_rows_t", "blasf_rows",
                                                 "mt_rows", "slot_tri")}
     b6a = {False: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []},
@@ -2901,11 +2960,12 @@ def main() -> int:
         else:
             wrap = time_ms(lambda: tv2.traverse2_fat_closest(scene2, o, d, t_min, t_max,
                                                              cull_backface=cull), 10, torch)
-        sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
+        sub = sampled_warps(len(o), rng, dev)
         ops, nbytes, c = walk2_work(tv2, tl_np, o[sub], d[sub], t_min, rows_of(t_max, sub), cull,
                                     occlusion, len(o) / COUNT_PIXELS,
                                     32 + (1 if occlusion else 20))
         bnd = bound(ops, nbytes)
+        fig = walk2_figures(tv2, c, d[sub], t_min, rows_of(t_max, sub), occlusion)
         acc = b6a[occlusion]
         acc["ms"] += ms
         acc["wrapper_ms"] += wrap
@@ -2914,12 +2974,15 @@ def main() -> int:
         per_ray = {k: c[k] / COUNT_PIXELS for k in ("tlas_visits", "instance_entries",
                                                      "blas_visits", "pair_tests")}
         acc["per_launch"].append({"batch": batch, "rays": len(o), "ms": ms, "wrapper_ms": wrap,
-                                  "bound_ms": bnd[0], "bound_by": bnd[1], "per_ray": per_ray})
+                                  "bound_ms": bnd[0], "bound_by": bnd[1], "per_ray": per_ray,
+                                  "figures": fig})
         print(f"time B6a {batch} on {BVH_MAIN_SCENE} two-level {M}^2 wavefront sample: {len(o)} "
-              f"rays, kernel {ms:.4f} ms, wrapper {wrap:.4f} ms, bound {bnd[0]:.4f} ms "
-              f"({bnd[1]}); walk per ray {per_ray['tlas_visits']:.2f} TLAS visits, "
+              f"rays, live share {1.0 - fig['dead_share']:.4f}, kernel {ms:.4f} ms, wrapper "
+              f"{wrap:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.1f}x the bound; "
+              f"walk per ray {per_ray['tlas_visits']:.2f} TLAS visits, "
               f"{per_ray['instance_entries']:.2f} instance entries, {per_ray['blas_visits']:.2f} "
               f"BLAS visits, {per_ray['pair_tests']:.2f} pair tests [{card}]", flush=True)
+        print(f"figures B6a {batch}: {figures_line(fig)}", flush=True)
     b6a_bound = {k: bound(b6a[k]["ops"], b6a[k]["bytes"]) for k in (False, True)}
 
     # the host's share: a refit's enqueue and the whole refit, and a dispatch
@@ -3404,33 +3467,23 @@ def main() -> int:
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 17", flush=True)
     # ---- 17. B3 times --------------------------------------------------------------
-    def first_blocker_pairs(o, d, t_min, t_max):
-        """Pair tests of occlusion rays that stop at their first blocker in
-        triangle order (all t_count for a ray that none blocks; none for a
-        ray that cannot hit), from the plain version's terms."""
-        tris = {k: scene_br[k][:t_count] for k in ("pn", "c1", "c2", "e1", "e2", "d0")}
-        mom = torch.linalg.cross(o, d, dim=1)
-        tmin = intersect._ray_window(t_min, len(o), o)
-        tmax = intersect._ray_window(t_max, len(o), o)
-        valid = intersect._valid_mask(*intersect._pair_terms(o, d, mom, tris), tmin, tmax, False)
-        first = torch.where(valid.any(1), valid.to(torch.uint8).argmax(1) + 1, t_count)
-        live = (tmax > tmin) & (d.abs().sum(1) > 0)
-        return int(torch.where(live, first, 0).sum())
-
+    # each launch of the wavefront sample on its own inputs: its time, its
+    # bound from the pair tests its rays need (every triangle for a live
+    # closest ray, up to the first blocker in index order for occlusion),
+    # and the host figures of where its lanes idle (ops/intersect_kernel.
+    # sweep_figures, from the plain sweep's verdicts on every ray)
     b3 = {False: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []},
           True: {"ms": 0.0, "wrapper_ms": 0.0, "ops": 0.0, "bytes": 0.0, "per_launch": []}}
     for batch, (o, d, t_min, t_max, cull, occlusion) in zip(batches, traces_b):
         ms = kernel_ms(ik.prepare_launch(scene_br, o, d, t_min, t_max, cull, occlusion), 10, torch)
         if occlusion:
             wrap = time_ms(lambda: ik.trace_any(scene_br, o, d, t_min, t_max), 10, torch)
-            sub = torch.as_tensor(rng.choice(len(o), COUNT_PIXELS, replace=False), device=dev)
-            pairs = (first_blocker_pairs(o[sub], d[sub], t_min, rows_of(t_max, sub))
-                     * len(o) / COUNT_PIXELS)
         else:
             wrap = time_ms(lambda: ik.trace_closest(scene_br, o, d, t_min, t_max,
                                                     cull_backface=cull), 10, torch)
-            tmax_all = torch.as_tensor(t_max, device=dev).expand(len(o))
-            pairs = int(((tmax_all > t_min) & (d.abs().sum(1) > 0)).sum()) * t_count
+        fig = ik.sweep_figures(ik.sweep_work(scene_br, o, d, t_min, t_max, occlusion, cull,
+                                             PLAIN_SLICE), t_count)
+        pairs = fig["pairs"]
         per_ray_window = 4 if hasattr(t_max, "dim") and t_max.dim() else 0
         nbytes = (len(o) * (24 + per_ray_window + (1 if occlusion else 22 * 4 + 3 * 8))
                   + t_count * (19 + (0 if occlusion else 24)) * 4)
@@ -3441,11 +3494,14 @@ def main() -> int:
         acc["ops"] += pairs * OPS_PAIR
         acc["bytes"] += nbytes
         acc["per_launch"].append({"batch": batch, "rays": len(o), "ms": ms, "wrapper_ms": wrap,
-                                  "pair_tests": pairs, "bound_ms": bnd[0], "bound_by": bnd[1]})
+                                  "pair_tests": pairs, "bound_ms": bnd[0], "bound_by": bnd[1],
+                                  "figures": fig})
         print(f"time B3 {batch} on {BRUTE_MAIN_SCENE} {M}^2 wavefront sample: {len(o)} rays, "
-              f"kernel {ms:.4f} ms, wrapper {wrap:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+              f"live share {fig['live_share']:.4f}, kernel {ms:.4f} ms, wrapper {wrap:.4f} ms, "
+              f"bound {bnd[0]:.4f} ms ({bnd[1]}), {ms / bnd[0]:.2f}x the bound; "
               f"{pairs / len(o):.1f} pair tests per ray, {pairs / ms / 1e6:.2f} G pair tests/s "
               f"[{card}]", flush=True)
+        print(f"figures B3 {batch}: {figures_line(fig)}", flush=True)
     b3_bound = {k: bound(b3[k]["ops"], b3[k]["bytes"]) for k in (False, True)}
     b3_small = {}
     for occl, (sc_s, o_s, d_s, tmin_s, tmax_s2, cull_s) in b3_small_args.items():
@@ -4529,17 +4585,17 @@ def main() -> int:
     del full, a_f, b_f, mt_f, rays_f
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
-    # ---- 38. the redesigned megakernels B1 and B5: ptxas, records, times ----------
+    # ---- 38. the redesigned kernels B1, B5, B3 and B6a: ptxas, records, times ------
     # B1 reads each triangle as a record of five float4s (the scene's
     # tri_records, tv.tri_records); B5 reads its leaves from ft_test /
     # ft_attr (tv.leaf_records), not from mt_rows. The
     # records against the packs they come from, on the card; their bytes; the
     # launch alone on each main path's first dispatch or frame beside its
-    # bound; ptxas' counts of B1 and B5 beside B4a's, B4c's and B6a's, which
-    # this redesign leaves as they were.
+    # bound; ptxas' counts of B1, B5, B3 (its queue and sweep kernels) and
+    # B6a beside B4a's and B4c's.
     ptx = {key: cuda_build.ptxas_counts(cuda_build.BUILD_INFO[src]["log"]) for key, src in (
         ("B1", "fused_sample"), ("B5", "fused_traverse"), ("B4a", "traverse_fat"),
-        ("B4c", "traverse_fat_grouped"), ("B6a", "traverse2_fat"))}
+        ("B4c", "traverse_fat_grouped"), ("B3", "intersect_brute"), ("B6a", "traverse2_fat"))}
     for key, rows in ptx.items():
         for r in rows:
             print(f"ptxas {key}: {r['kernel']}: {r.get('registers')} registers, spill stores "
@@ -4648,7 +4704,7 @@ def main() -> int:
          {"max_abs_diff_vs_wavefront": b5_gate["max_abs_diff"], "ptxas": ptx["B5"],
           "leaf_array_bytes": leaf_bytes,
           "launch_ms": {k: v[0] for k, v in redesign.items() if k.startswith("B5")},
-          "unchanged_kernels_ptxas": {k: ptx[k] for k in ("B4a", "B4c", "B6a")}}),
+          "unchanged_kernels_ptxas": {k: ptx[k] for k in ("B4a", "B4c")}}),
         ("fused_traverse_realtime", "fused_traverse.cu", "ops/fused_traverse_pallas.py:131",
          b5_rt_launches, max(b5_rt_err, b5_rt_plain_err), b5_rt_cams_ms, b5_rt_wrap_ms, "b5_rt",
          b5_rt_bound, f"{BVH_MAIN_SCENE} {RT_W}x{RT_H}, per frame, ten frames' cameras in turn",
@@ -4694,6 +4750,7 @@ def main() -> int:
                            f"{'shadow' if occl else 'primary'} trace",
             "ms_at_plain_shape": small2[occl][0],
             "per_launch": b6a[occl]["per_launch"],
+            "ptxas": ptx["B6a"],
             **({} if occl else {"max_abs_diff_vs_flattened_b5": two_b5_gate["max_abs_diff"],
                                 "vs_flattened_after_animation": anim_gate}),
         })
@@ -4780,6 +4837,7 @@ def main() -> int:
             "plain_shape": f"{BRUTE_MAIN_SCENE} {P}^2, one {'shadow' if occl else 'primary'} trace",
             "ms_at_plain_shape": b3_small[occl][0],
             "per_launch": b3[occl]["per_launch"],
+            "ptxas": ptx["B3"],
             **({"max_abs_err_is": "occlusion disagreement fraction"} if occl else
                {"max_abs_err_is": "max |t - plain t| on rays that hit the same triangle",
                 "attributes": b3_attr, "image_vs_plain": b3_image, "side_paths": side,

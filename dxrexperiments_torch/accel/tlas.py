@@ -45,6 +45,10 @@ Arrays (``tl`` below, the scene's ``tlas`` sub-dict):
   blas_rows [Mb_pad, 8] f32: the binary BLAS nodes, one row per node (B6b)
   mt_rows [S, 128] f32: object-space Möller–Trumbore rows in BLAS leaf-slot
     order (the ops/traverse.pack_for_traversal layout, lanes 0..63)
+  blas_test [S, 20] f32: each slot's 19 coefficients in slot order and a
+    zero (ops/traverse.coef_records of mt_rows), the records B6a's leaf
+    tests read; a derived array of the port, built once here beside the
+    rows it comes from (a refit moves no BLAS array)
   slot_tri [S] int32: leaf slot -> concatenated object-space triangle
 """
 
@@ -57,7 +61,7 @@ import torch
 
 from ..core.device import setup_device
 from ..ops import intersect
-from ..ops.traverse import _slot_of_tri, fat_nodes
+from ..ops.traverse import _slot_of_tri, coef_records, fat_nodes
 from . import bvh as bvh_mod
 
 BIG = 3.0e38
@@ -218,9 +222,10 @@ def build_two_level(
 ) -> tuple[dict, TlasRefitContext]:
     """Build the two-level structure: (tl, refit context). The BLAS arrays
     the kernels read (``blasf_rows``, ``blas_rows``, ``mt_rows``,
-    ``slot_tri``) and the refit's outputs live on ``device`` (default the
-    card; without one it raises); the JAX layouts ``blas_nodes`` and
-    ``blasf_nodes``, which no kernel reads, stay host tensors."""
+    ``blas_test``, ``slot_tri``) and the refit's outputs live on ``device``
+    (default the card; without one it raises); the JAX layouts
+    ``blas_nodes`` and ``blasf_nodes``, which no kernel reads, stay host
+    tensors."""
     device = setup_device(device)
     inst_mesh = np.asarray(inst_mesh, np.int64)
     transforms = np.asarray(transforms, np.float32)
@@ -333,12 +338,14 @@ def build_two_level(
         num_instances=num_inst,
     )
     dyn = refit_instances_arrays(ctx, transforms, device)
+    mt_dev = torch.as_tensor(mt_rows).to(device)
     tl = {
         "blas_nodes": torch.as_tensor(blas_nodes),
         "blasf_nodes": torch.as_tensor(blasf_nodes),
         "blasf_rows": torch.as_tensor(np.ascontiguousarray(blasf_nodes.T)).to(device),
         "blas_rows": torch.as_tensor(np.ascontiguousarray(blas_nodes.T)).to(device),
-        "mt_rows": torch.as_tensor(mt_rows).to(device),
+        "mt_rows": mt_dev,
+        "blas_test": coef_records(mt_dev),
         "slot_tri": torch.as_tensor(slot_tri_all).to(device),
         **dyn,
     }

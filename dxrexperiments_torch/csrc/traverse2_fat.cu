@@ -9,18 +9,22 @@
 // What bounds it: memory latency and divergence, as for B4a. A ray walks
 // the fat TLAS (64-byte nodes), and at each instance it enters it reads the
 // instance's 64-byte row, moves itself into object space and walks that
-// instance's BLAS (64-byte nodes, 32-slot leaves of 19 used coefficients),
-// each step depending on the last. The working set is small: for
-// BASELINE config 5 (1,025 instances of two meshes) the TLAS, the instance
-// table and both BLASes with their triangle rows take about 1.4 MB, which
-// stays in the 50 MB L2, against the 649 MB triangle pack of the flattened
-// scene. Design answer: one thread per ray, in the caller's order; the TLAS
-// walked near-first on a 64-entry stack with common.cuh's fat_walk, whose
-// leaf visit (InstanceLeaf) loads the instance row as four float4 loads,
-// forms o' = A o + b, d' = A d (the leaf test's o' x d' and 1 / d' follow),
-// and runs fat_walk again from the instance's BLAS root on a 96-entry
-// stack with the leaf test of B4a. The affine map keeps t, so one running
-// best t (closest) prunes both levels in world units and hits of different
+// instance's BLAS (64-byte nodes, 32-slot leaves), each step depending on
+// the last. The working set is small: for BASELINE config 5 (1,025
+// instances of two meshes) the TLAS, the instance table and both BLASes
+// with their triangle records take about 1 MB, which stays in the 50 MB L2,
+// against the 649 MB triangle pack of the flattened scene. Design answer:
+// one thread per ray, in the caller's order; the TLAS walked near-first on
+// a 64-entry stack with common.cuh's fat_walk, whose leaf visit
+// (InstanceLeaf) loads the instance row as four float4 loads, forms
+// o' = A o + b, d' = A d (the leaf test's o' x d' and 1 / d' follow), and
+// runs fat_walk again from the instance's BLAS root on a 96-entry stack.
+// The BLAS leaf tests read each slot's 19 coefficients as a record of five
+// float4s (blas_test [S, 20], ops/traverse.coef_records of mt_rows, built
+// once beside blasf_rows by the two-level build): five 16-byte loads a pair
+// test where mt_rows' 512-byte rows took 19 scalar ones, and the leaf loop
+// issues fewer instructions. The affine map keeps t, so one running best t
+// (closest) prunes both levels in world units and hits of different
 // instances compare directly; occlusion ends at the first hit. What the TPU
 // kernel does for Mosaic has no counterpart here: the packet's shared SMEM
 // stacks, the whole-packet transform, the per-lane live mask (a thread
@@ -42,6 +46,59 @@ constexpr int kTlasStack = 64;  // traverse2_pallas.TLAS_STACK
 // Whether a leaf test has ended the walk (occlusion found a hit).
 __device__ __forceinline__ bool ended(const ClosestLeaf&) { return false; }
 __device__ __forceinline__ bool ended(const AnyLeaf& l) { return l.occluded; }
+
+// The leaf tests of ClosestLeaf and AnyLeaf over the BLAS records rec
+// [S, kRecWords] (the 19 slots in slot order and a zero), read with
+// kRecQuads 16-byte loads a pair test: the same arithmetic in the same
+// order, so the same hits to the bit.
+struct ClosestRecLeaf : ClosestLeaf {
+  const float4* rec;
+  __device__ __forceinline__ ClosestRecLeaf(const FatBvh& b, const float4* rec_, V3 o_, V3 d_,
+                                            float tmin_, float tmax_, bool cull_)
+      : ClosestLeaf(b, o_, d_, tmin_, tmax_, cull_), rec(rec_) {}
+  __device__ __forceinline__ bool visit(int start, int count) {
+    if (start < 0 || start + count > B.n_slots) {
+      *B.err = E_INDEX;
+      return true;
+    }
+    for (int r = 0; r < count; ++r) {
+      Pair p = pair_test(rec_coef_ldg(rec + (size_t)(start + r) * kRecQuads), o, d, mo, tmin,
+                         true, tmax, cull);
+      if (p.valid) {
+        float t = p.ts / fmaxf(p.det_abs, kDetEps);
+        if (t < best_t) {
+          best_t = t;
+          best_slot = start + r;
+          b_us = p.us;
+          b_vs = p.vs;
+          b_det = p.det_abs;
+        }
+      }
+    }
+    return false;
+  }
+};
+
+struct AnyRecLeaf : AnyLeaf {
+  const float4* rec;
+  __device__ __forceinline__ AnyRecLeaf(const FatBvh& b, const float4* rec_, V3 o_, V3 d_,
+                                        float tmin_, float tmax_)
+      : AnyLeaf(b, o_, d_, tmin_, tmax_), rec(rec_) {}
+  __device__ __forceinline__ bool visit(int start, int count) {
+    if (start < 0 || start + count > B.n_slots) {
+      *B.err = E_INDEX;
+      return true;
+    }
+    for (int r = 0; r < count; ++r) {
+      if (pair_test(rec_coef_ldg(rec + (size_t)(start + r) * kRecQuads), o, d, mo, tmin, true,
+                    tmax, false).valid) {
+        occluded = true;
+        return true;
+      }
+    }
+    return false;
+  }
+};
 
 // The TLAS leaf test: an instance leaf (meta 1) walks the instance's BLAS
 // with the inner leaf test's ray moved into object space.
@@ -77,11 +134,13 @@ struct InstanceLeaf {
   }
 };
 
-// rays [n, 8]: origin, direction, t_min, t_max (ops/traverse.pack_rays)
+// rays [n, 8]: origin, direction, t_min, t_max (ops/traverse.pack_rays);
+// rec: the BLAS records
 template <bool kOcclusion>
 __global__ void __launch_bounds__(kThreads)
 traverse2_fat_kernel(const float4* __restrict__ rays, FatBvh T, const float4* __restrict__ inst,
-                     int n_inst, FatBvh B, int n_rays, int cull, float* __restrict__ t_out,
+                     int n_inst, FatBvh B, const float4* __restrict__ rec, int n_rays, int cull,
+                     float* __restrict__ t_out,
                      int* __restrict__ slot_out, float* __restrict__ u_out,
                      float* __restrict__ v_out, int* __restrict__ inst_out,
                      unsigned char* __restrict__ occ_out) {
@@ -93,17 +152,17 @@ traverse2_fat_kernel(const float4* __restrict__ rays, FatBvh T, const float4* __
   int tstack[kTlasStack];
   int bstack[kMaxStack];
   if (kOcclusion) {
-    AnyLeaf leaf(B, o, d, tmin, tmax);
+    AnyRecLeaf leaf(B, rec, o, d, tmin, tmax);
     // zero directions mark dead lanes (the integrator's inactive shadow rays)
     if (fabsf(d.x) + fabsf(d.y) + fabsf(d.z) >= 1e-30f) {
-      InstanceLeaf<AnyLeaf> tleaf{B, inst, n_inst, leaf, o, d, tmin, bstack, -1};
-      fat_walk<InstanceLeaf<AnyLeaf>, kTlasStack>(T, o, safe_inv(d), tmin, tleaf, tstack);
+      InstanceLeaf<AnyRecLeaf> tleaf{B, inst, n_inst, leaf, o, d, tmin, bstack, -1};
+      fat_walk<InstanceLeaf<AnyRecLeaf>, kTlasStack>(T, o, safe_inv(d), tmin, tleaf, tstack);
     }
     occ_out[i] = leaf.occluded ? 1 : 0;
   } else {
-    ClosestLeaf leaf(B, o, d, tmin, tmax, cull != 0);
-    InstanceLeaf<ClosestLeaf> tleaf{B, inst, n_inst, leaf, o, d, tmin, bstack, -1};
-    fat_walk<InstanceLeaf<ClosestLeaf>, kTlasStack>(T, o, safe_inv(d), tmin, tleaf, tstack);
+    ClosestRecLeaf leaf(B, rec, o, d, tmin, tmax, cull != 0);
+    InstanceLeaf<ClosestRecLeaf> tleaf{B, inst, n_inst, leaf, o, d, tmin, bstack, -1};
+    fat_walk<InstanceLeaf<ClosestRecLeaf>, kTlasStack>(T, o, safe_inv(d), tmin, tleaf, tstack);
     const bool hit = leaf.hit();
     t_out[i] = hit ? leaf.best_t : -1.0f;
     slot_out[i] = hit ? leaf.best_slot : -1;
@@ -117,33 +176,36 @@ traverse2_fat_kernel(const float4* __restrict__ rays, FatBvh T, const float4* __
 
 // One launch over n_rays rays on `stream`.
 //   rays [n_rays, 8] f32; tlas = tlasf_rows [n_tlas, 16] f32; inst =
-//   inst_rows_t [n_inst, 16] f32; blas = blasf_rows [n_blas, 16] f32; rows =
-//   mt_rows [n_slots, 128] f32. occlusion != 0 writes occ [n_rays] (bool
+//   inst_rows_t [n_inst, 16] f32; blas = blasf_rows [n_blas, 16] f32; rec =
+//   blas_test [n_slots, 20] f32 (16-byte aligned: each leaf slot's record).
+//   occlusion != 0 writes occ [n_rays] (bool
 //   bytes), else t, u, v [n_rays] f32 and slot, inst_out [n_rays] i32 (-1 on
 //   a miss). err [1] i32 must be 0 on entry and is set to 1 (a stack
 //   overflow) or 2 (an index out of range). Returns cudaGetLastError() (0 on
 //   success).
 extern "C" int dxr_traverse2_fat(const float* rays, const float* tlas, const float* inst,
-                                 const float* blas, const float* rows, int n_rays, int n_tlas,
+                                 const float* blas, const float* rec, int n_rays, int n_tlas,
                                  int n_inst, int n_blas, int n_slots, int occlusion, int cull,
                                  float* t, int* slot, float* u, float* v, int* inst_out,
                                  unsigned char* occ, int* err, void* stream) {
-  if (n_rays < 0 || n_tlas < 1 || n_inst < 1 || n_blas < 1 || n_slots < 1) {
+  if (n_rays < 0 || n_tlas < 1 || n_inst < 1 || n_blas < 1 || n_slots < 1 || rec == nullptr ||
+      reinterpret_cast<uintptr_t>(rec) % 16 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_rays == 0) return 0;
   FatBvh T{reinterpret_cast<const float4*>(tlas), nullptr, n_tlas, n_inst, err};
-  FatBvh B{reinterpret_cast<const float4*>(blas), rows, n_blas, n_slots, err};
+  FatBvh B{reinterpret_cast<const float4*>(blas), nullptr, n_blas, n_slots, err};
   const float4* in = reinterpret_cast<const float4*>(inst);
+  const float4* rc = reinterpret_cast<const float4*>(rec);
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   const float4* r = reinterpret_cast<const float4*>(rays);
   cudaStream_t s = (cudaStream_t)stream;
   if (occlusion) {
-    traverse2_fat_kernel<true><<<blocks, kThreads, 0, s>>>(r, T, in, n_inst, B, n_rays, 0, t, slot,
-                                                           u, v, inst_out, occ);
+    traverse2_fat_kernel<true><<<blocks, kThreads, 0, s>>>(r, T, in, n_inst, B, rc, n_rays, 0, t,
+                                                           slot, u, v, inst_out, occ);
   } else {
-    traverse2_fat_kernel<false><<<blocks, kThreads, 0, s>>>(r, T, in, n_inst, B, n_rays, cull, t,
-                                                            slot, u, v, inst_out, occ);
+    traverse2_fat_kernel<false><<<blocks, kThreads, 0, s>>>(r, T, in, n_inst, B, rc, n_rays, cull,
+                                                            t, slot, u, v, inst_out, occ);
   }
   return (int)cudaGetLastError();
 }

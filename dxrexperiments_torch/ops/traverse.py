@@ -625,6 +625,7 @@ class WalkState:
         self.v = np.zeros(r, np.float32)
         self.occ = np.zeros(r, bool)
         self.pairs = 0
+        self.ray_pairs = np.zeros(r, np.int64)  # pair tests, per ray
         self.ray_leaves = np.zeros(r, np.int64)  # leaf tests entered, per ray
         self.slots_seen: list[np.ndarray] = []
 
@@ -649,9 +650,11 @@ class WalkState:
         if self.occlusion:
             first = np.where(valid.any(1), valid.argmax(1) + 1, count)
             self.pairs += int(first.sum())
+            self.ray_pairs[idx] += first
             self.occ[idx] |= valid.any(1)
             return idx[:0]
         self.pairs += int(count.sum())
+        self.ray_pairs[idx] += count
         tp = np.where(valid, ts / np.maximum(da, np.float32(1e-12)), np.float32(BIG))
         row = tp.argmin(1)
         ct = tp[np.arange(len(idx)), row]

@@ -35,6 +35,7 @@ from .traverse import (
     WalkState,
     _on_cuda,
     binary_visit,
+    REC_WORDS,
     check_rows,
     distinct,
     fat_visit,
@@ -58,7 +59,7 @@ BINARY_ANY_LAUNCHES = 0
 # launch counters)
 WALKS = {
     "fat": ("traverse2_fat", "dxr_traverse2_fat",
-            {"tlasf_rows": 16, "inst_rows_t": 16, "blasf_rows": 16, "mt_rows": 128}, 15,
+            {"tlasf_rows": 16, "inst_rows_t": 16, "blasf_rows": 16, "blas_test": REC_WORDS}, 15,
             ("CLOSEST_LAUNCHES", "ANY_LAUNCHES")),
     "binary": ("traverse2_binary", "dxr_traverse2_binary",
                {"tlas_rows": 8, "inst_rows_t": 16, "blas_rows": 8, "mt_rows": 128}, 12,
@@ -68,34 +69,49 @@ WALKS = {
 _LIBS: dict = {}
 
 
+def bind(lib, kind: str = "fat"):
+    """The C entry point of walk ``kind`` (WALKS) in ``lib``, a build of its
+    source, with its argument types set."""
+    fn = getattr(lib, WALKS[kind][1])
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _library(kind: str = "fat"):
     """The C entry point of walk ``kind`` (WALKS), built at first use."""
     if kind not in _LIBS:
         from ..utils.cuda_build import load_library
 
-        name, entry = WALKS[kind][:2]
-        fn = getattr(load_library(name, [f"{name}.cu"]), entry)
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
-        fn.restype = ctypes.c_int
-        _LIBS[kind] = fn
+        name = WALKS[kind][0]
+        _LIBS[kind] = bind(load_library(name, [f"{name}.cu"]), kind)
     return _LIBS[kind]
 
 
 def check_tlas(tl: dict, device, kind: str = "fat") -> tuple[torch.Tensor, ...]:
     """Walk ``kind``'s two-level inputs, checked (``ops/traverse.check_rows``):
-    (tlasf_rows [Ft, 16], inst_rows_t [I, 16], blasf_rows [Fb, 16], mt_rows
-    [S, 128]) for the fat walk, (tlas_rows [Mt, 8], inst_rows_t, blas_rows
-    [Mb, 8], mt_rows) for the binary one."""
-    return check_rows(tl, WALKS[kind][2], device)
+    (tlasf_rows [Ft, 16], inst_rows_t [I, 16], blasf_rows [Fb, 16],
+    blas_test [S, 20]) for the fat walk, (tlas_rows [Mt, 8], inst_rows_t,
+    blas_rows [Mb, 8], mt_rows [S, 128]) for the binary one. blas_test, the
+    BLAS leaf slots' records (``ops/traverse.coef_records`` of mt_rows), is
+    built with the rest by ``accel/tlas.build_two_level`` and
+    ``scene_from_numpy``; a hand-built tlas dict for the fat walk needs it,
+    one row per mt_rows row."""
+    rows = check_rows(tl, WALKS[kind][2], device)
+    if kind == "fat" and "mt_rows" in tl and tl["mt_rows"].shape[0] != rows[3].shape[0]:
+        raise ValueError(f"blas_test: expected one record per mt_rows row "
+                         f"({tl['mt_rows'].shape[0]}), got {rows[3].shape[0]}")
+    return rows
 
 
 def prepare_launch(tl, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
-                   kind: str = "fat"):
+                   kind: str = "fat", fn=None):
     """Pack the rays and allocate the outputs of one launch of walk ``kind``
     (WALKS: "fat" B6a, "binary" B6b). Returns (launch, outs, err):
     ``launch()`` enqueues the kernel and returns the CUDA error code; outs
-    is (occ,) or (t, slot, u, v, inst). Timing ``launch`` alone measures the
-    kernel without the wrapper's packing."""
+    is (occ,) or (t, slot, u, v, inst). Timing ``launch`` alone measures the kernel without
+    the wrapper's packing. ``fn``: the entry point of another build of the
+    source (``bind``)."""
     device = origins.device
     tlas, inst, blas, rows = check_tlas(tl, device, kind)
     rays = pack_rays(origins, directions, t_min, t_max)
@@ -111,7 +127,7 @@ def prepare_launch(tl, origins, directions, t_min, t_max, cull: bool, occlusion:
                 torch.empty(r, dtype=torch.float32, device=device),
                 torch.empty(r, dtype=torch.int32, device=device))
         ptrs = (*(o.data_ptr() for o in outs), None)
-    fn = _library(kind)
+    fn = fn or _library(kind)
 
     def launch() -> int:
         with torch.cuda.device(device):
@@ -222,6 +238,10 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
         tsp[np.abs(d_w).sum(axis=1) < 1e-30] = 0
     c = {"tlas_visits": 0, "instance_entries": 0, "blas_visits": 0}
     seen = {"tlas_node_ids": [], "inst_ids": [], "blas_node_ids": []}
+    # per ray: TLAS visits, instance entries, BLAS visits, and the BLAS
+    # visits after each TLAS visit (column j: after the j-th)
+    t_vis, entries, b_vis = (np.zeros(r, np.int64) for _ in range(3))
+    b_after = np.zeros((r, 8), np.int64)
 
     def blas_leaf(idx, start, count, _side):
         w = state.leaf(idx, start, count, o2[idx], d2[idx], mom2[idx])
@@ -239,6 +259,8 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
             idx = np.nonzero(~state.occ & (bsp > 0))[0]
             if len(idx):
                 c["blas_visits"] += len(idx)
+                b_vis[idx] += 1
+                b_after[idx, t_vis[idx] - 1] += 1
                 seen["blas_node_ids"].append(
                     visit(idx, bnodes, o2, inv2, state, bstack, bsp, MAX_STACK, blas_leaf))
             idx = np.nonzero(~state.occ & (bsp == 0) & (pend >= 0).any(1))[0]
@@ -256,10 +278,14 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
                 bstack[idx, 0] = row[:, root_col].astype(np.int64)
                 bsp[idx] = 1
                 c["instance_entries"] += len(idx)
+                entries[idx] += 1
                 seen["inst_ids"].append(s_id)
             idx = np.nonzero(~state.occ & (bsp == 0) & (pend < 0).all(1) & (tsp > 0))[0]
             if len(idx):
                 c["tlas_visits"] += len(idx)
+                t_vis[idx] += 1
+                if t_vis[idx].max() > b_after.shape[1]:
+                    b_after = np.concatenate([b_after, np.zeros_like(b_after)], 1)
                 seen["tlas_node_ids"].append(
                     visit(idx, tnodes, o_w, inv_w, state, tstack, tsp, TLAS_STACK, tlas_leaf))
             if not (~state.occ & ((bsp > 0) | (pend >= 0).any(1) | (tsp > 0))).any():
@@ -267,7 +293,10 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
 
     counts = dict(c, slab_tests=slabs * (c["tlas_visits"] + c["blas_visits"]),
                   pair_tests=state.pairs, slot_ids=distinct(state.slots_seen),
-                  **{k: distinct(v) for k, v in seen.items()})
+                  **{k: distinct(v) for k, v in seen.items()},
+                  per_ray={"tlas_visits": t_vis, "instance_entries": entries,
+                           "blas_visits": b_vis, "pair_tests": state.ray_pairs,
+                           "blas_after_tlas": b_after[:, :max(int(t_vis.max(initial=0)), 1)]})
     result = state.result()
     if not occlusion:
         result["inst"] = inst
@@ -301,3 +330,40 @@ def binary_walk2_numpy(tl: dict, origins, directions, t_min, t_max, cull: bool =
     walked from the instance's binary root (column 12) with the same rules.
     Returns what ``fat_walk2_numpy`` returns (one slab test per visit)."""
     return _walk2_numpy("binary", tl, origins, directions, t_min, t_max, cull, occlusion)
+
+
+def warp_costs(per_ray: dict, live=None, warp: int = 32) -> dict:
+    """Warp costs of a two-level walk from the host model's per-ray counts
+    (``fat_walk2_numpy``'s ``counts["per_ray"]``), in node visits, over the
+    warps of ``warp`` consecutive rays:
+
+    - "nested" [W]: a TLAS walk whose leaf visit walks a BLAS, where the
+      warp runs its TLAS iterations together and each waits for the lane
+      with the most BLAS visits: the sum over TLAS iterations j of (1 + the
+      warp's most BLAS visits after the j-th TLAS visit);
+    - "single" [W]: one loop over both levels, where each lane visits one
+      node of its own level a turn: the lane with the most visits;
+    - "lane_visits" [W]: the visits the warp's rays make;
+    - with ``live`` [R] bool (the rays that can hit), "single_queued" [W']:
+      the single loop over warps of the live rays alone, packed in order
+      (a queue of live rays), and "dead_share", the dead rays' share.
+
+    The single loop's cost is never above the nested one's."""
+    t = np.asarray(per_ray["tlas_visits"], np.int64)
+    b = np.asarray(per_ray["blas_after_tlas"], np.int64)
+    r = len(t)
+    n_w = -(-r // warp)
+    pad = n_w * warp - r
+    tw = np.concatenate([t, np.zeros(pad, np.int64)]).reshape(n_w, warp)
+    bw = np.concatenate([b, np.zeros((pad, b.shape[1]), np.int64)]).reshape(n_w, warp, -1)
+    total = tw + bw.sum(2)
+    out = {"nested": tw.max(1) + bw.max(1).sum(1), "single": total.max(1),
+           "lane_visits": total.sum(1)}
+    if live is not None:
+        live = np.asarray(live, bool)
+        packed = (t + b.sum(1))[live]
+        n_q = -(-len(packed) // warp)
+        packed = np.concatenate([packed, np.zeros(n_q * warp - len(packed), np.int64)])
+        out["single_queued"] = packed.reshape(n_q, warp).max(1)
+        out["dead_share"] = 1.0 - float(live.mean()) if r else 0.0
+    return out

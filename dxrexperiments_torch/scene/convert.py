@@ -18,6 +18,7 @@ import torch
 
 from ..accel.tlas import TlasRefitContext
 from ..core.device import setup_device
+from ..ops.traverse import coef_records
 from .envmap import TEXTURE_KEY
 from .scene import add_tri_records, bvh_to_device
 
@@ -51,7 +52,8 @@ def _lights_from_numpy(lights: dict) -> dict:
 def _two_level_from_numpy(d: dict, device) -> dict:
     """The two-level entries of a JAX ``Scene.build_two_level()`` pytree:
     ``tlas`` with the kernels' row-major copies of the layouts it carries (a
-    pytree without ``tlasf_nodes`` takes the binary walk, B6b),
+    pytree without ``tlasf_nodes`` takes the binary walk, B6b) and B6a's
+    leaf records ``blas_test`` (``ops/traverse.coef_records`` of mt_rows),
     ``tlas_meta`` (the JAX HostStatic's value, its refit context copied into
     the port's) and the object-space arrays. The PRIME table (``prime_*``)
     is dropped."""
@@ -64,6 +66,7 @@ def _two_level_from_numpy(d: dict, device) -> dict:
         if k in tl:
             out_tl[row_key] = _t(np.ascontiguousarray(np.asarray(tl[k]).T), device)
     out_tl["inst_rows_t"] = _t(np.ascontiguousarray(np.asarray(tl["inst_rows"])[:16].T), device)
+    out_tl["blas_test"] = coef_records(out_tl["mt_rows"])  # B6a's leaf records
     meta = d["tlas_meta"].value
     ctx = meta["refit_ctx"]
     fields = [f.name for f in dataclasses.fields(TlasRefitContext) if not f.name.startswith("_")]
@@ -105,8 +108,8 @@ def scene_from_numpy(d: dict, device="cuda") -> dict:
     without one it raises), the lights and the env's scalars on the host.
     The JAX quad-packed copies of env and albedo textures and its dummy env
     textures of other kinds are dropped (scene/envmap.py,
-    scene/textures.py). A flat scene gets B1's ``tri_records``, as from
-    ``Scene.build``."""
+    scene/textures.py). A flat scene gets the ``tri_records`` of B1 and B3,
+    as from ``Scene.build``."""
     device = setup_device(device)
     if "tlas" in d:
         out = _two_level_from_numpy(d, device)

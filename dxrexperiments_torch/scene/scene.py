@@ -28,7 +28,7 @@ import torch
 from ..accel import bvh as bvh_mod
 from ..accel import tlas as tlas_mod
 from ..core.device import setup_device
-from ..ops.traverse import FUSED_MAX_TRIS, leaf_records, pack_for_traversal, tri_records
+from ..ops.traverse import leaf_records, pack_for_traversal, tri_records
 from . import envmap as envmap_mod
 from .lights import default_lights, light_counts
 from .materials import (
@@ -60,10 +60,12 @@ def to_device(tree, device):
 
 
 def add_tri_records(scene: dict) -> None:
-    """Give a flat scene of at most FUSED_MAX_TRIS triangle rows B1's
-    triangle records (``ops/traverse.tri_records``), built from its
-    ``mt_pack`` on that pack's device; a larger scene never reaches B1."""
-    if int(scene["mt_pack"].shape[1]) <= FUSED_MAX_TRIS:
+    """Give a flat scene of at most BVH_THRESHOLD triangle rows the triangle
+    records (``ops/traverse.tri_records``) that B1 (at most FUSED_MAX_TRIS
+    rows) and B3 stage, built from its ``mt_pack`` on that pack's device. A
+    larger flat scene (``accel="none"`` forced) gets none: B3's wrapper
+    builds them at each trace."""
+    if int(scene["mt_pack"].shape[1]) <= BVH_THRESHOLD:
         scene["tri_records"] = tri_records(scene["mt_pack"])
 
 
@@ -297,7 +299,7 @@ class Scene:
         """Lower to the scene dict: geometry, packs, the BVH (per ``accel``,
         see ``build_numpy`` and ``bvh_to_device``), materials and albedo
         textures on ``device`` (default the card; without one it raises),
-        each moved once per build, and B1's ``tri_records`` built there
+        each moved once per build, and the ``tri_records`` of B1 and B3 built there
         (``add_tri_records``); ``lights`` and the env's
         scalars stay host (CPU) tensors, since they are per-frame parameters
         (the kernel wrapper packs them into its one upload per dispatch, the

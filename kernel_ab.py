@@ -1,36 +1,37 @@
-"""The megakernels B1 (csrc/fused_sample.cu) and B5 (csrc/fused_traverse.cu)
-against another commit's sources on one NVIDIA GPU.
+"""The port's kernels against another commit's sources on one NVIDIA GPU:
+the trace kernels B3 (csrc/intersect_brute.cu) and B6a
+(csrc/traverse2_fat.cu) case by case, every other kernel by its
+instructions.
 
-    python3 kernel_ab.py --base DIR [--json PATH]
+    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B3,B6a]
 
 DIR is a checkout of the commit to compare with (its
-``dxrexperiments_torch/csrc`` is built with this package's nvcc flags; its
-entry points are called with the arguments they took before the triangle
-records: mt_pack for B1, mt_rows for B5; ``base_launch``). For each case,
-on the same inputs:
+``dxrexperiments_torch/csrc`` is built with this package's nvcc flags,
+beside this tree's; one nvcc per source, all at once). Printed:
 
-- the count of pixels whose output differs in any bit from the base
-  build's (every AOV for a realtime frame);
-- ms per launch, CUDA events around the launch alone, base and this tree in
-  turns (base, this, this, base).
+- ptxas' registers, spills and stack of every kernel of both trees;
+- for every kernel but B3 and B6a, whether its instructions (``cuobjdump
+  -sass``) equal the base build's;
+- for the sweep and leaf loops of B1, B3, B5 and B6a (the innermost loops
+  that load and do float work, each pair test counted by its FSETP against
+  1e-12) the instructions, loads and float instructions per pair test;
+- per trace case (``trace_cases``: the four launches of the first sample of
+  the first 512^2 S = 4 dispatch, on ``instanced:2`` brute force for B3 and
+  on config 5 two-level, ``instanced:32``, for B6a), on the same inputs:
+  the rays whose output differs in any bit from the base build's, per
+  output (t, u, v, slot, inst, occlusion and every fused attribute); the
+  host figures of where the launch's lanes idle (``trace_figures``); ms per
+  launch, CUDA events around the launch alone, base and this tree in turns
+  (base, this, this, base; ``--reps`` launches a turn, 0 for none); and the
+  route's host ms per dispatch with either build (``BaseRoute``), in turns;
+- with ``--kernels B1,B5``, the megakernels' cases (``megakernel_cases``:
+  configs 1, 3, 4, config 5 flattened and its 1080p frame, the config-2
+  stand-in): the pixels that differ in any bit, ms in turns.
 
-Cases (the main paths' first dispatch or frame, ``chip_smoke.py``'s
-scenes): config 1 (Cornell-glossy, 512^2, S = 16), config 3 (Cornell-glossy
-with the seeded 8192x4096 lat-long sky of chip_smoke.sky_image, 1080p,
-S = 8), config 4 (Cornell-glossy realtime 1080p frame 0; B1); config 5
-flattened (instanced:32, 512^2, S = 4), its realtime 1080p frame 0, and
-the config-2 stand-in (chip_smoke.config2_stand_in with the seeded
-cubemap, 512^2, S = 8; B5).
-
-Also printed: ptxas' registers and spills of every kernel of B1, B5, B4a
-(traverse_fat.cu), B4c (traverse_fat_grouped.cu) and B6a
-(traverse2_fat.cu) in both trees, and whether B4a's, B4c's and B6a's
-instructions equal the base's; for the sweep loops of B1 and B5 (the
-innermost loops of ``cuobjdump -sass`` that load and do float work, each
-pair test counted by its FSETP against 1e-12) the instructions, loads and
-float instructions per pair test; the bytes of B1's records and B5's leaf
-arrays. The last line is one JSON object with all of it but the loops'
-counts, which --json writes too.
+The base's trace kernels are called with the entry points they had before
+the live-ray queue and the records (``base_trace_launch``); the
+megakernels' entry points are the base's own. The last line is one JSON
+object with all of it but the loops' counts, which --json writes too.
 """
 
 from __future__ import annotations
@@ -43,8 +44,14 @@ import shutil
 import subprocess
 import sys
 
-SOURCES = {"B1": "fused_sample", "B5": "fused_traverse", "B4a": "traverse_fat",
-           "B4c": "traverse_fat_grouped", "B6a": "traverse2_fat"}
+SOURCES = {"B1": "fused_sample", "B2": "bilateral", "B3": "intersect_brute",
+           "B4a": "traverse_fat", "B4b": "traverse_binary", "B4c": "traverse_fat_grouped",
+           "B4d": "traverse8", "B5": "fused_traverse", "B6a": "traverse2_fat",
+           "B6b": "traverse2_binary", "B7": "roofline"}
+# compared case by case; every other kernel's instructions must equal the base's
+REDESIGNED = ("B3", "B6a")
+COMPARED = ("B3", "B6a", "B1", "B5")  # the kernels with cases
+BATCHES = ("primary closest", "depth-0 shadow any", "bounce closest", "depth-1 shadow any")
 
 
 def find_cuobjdump() -> str | None:
@@ -155,65 +162,116 @@ def sass_report(so_path: str) -> dict:
     return {name: loop_counts(code) for name, code in sass_functions(proc.stdout).items()}
 
 
-def base_launch(kernel, lib, scene, options, cameras, width, height, env_kind, realtime):
-    """The base commit's entry points: B1 reads mt_pack [4, C, 16] with no
-    live-row count; B5 reads mt_rows [S, 128]. Returns (launch, outs, err):
-    B5's error flag, or None."""
+def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
+    """The base commit's entry points of the trace kernels, as they were
+    before the live-ray queue and the records: B3 (``dxr_intersect_closest``
+    / ``dxr_intersect_any``) reads mt_pack and attr_pack and takes no
+    queue; B6a (``dxr_traverse2_fat``) reads mt_rows. Returns (launch,
+    outs, err): B6a's error flag, or None."""
     import ctypes
 
     import torch
 
-    from dxrexperiments_torch.ops import fused_sample as fs
-    from dxrexperiments_torch.ops import fused_traverse as ft
+    from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import traverse2 as tv2
+    from dxrexperiments_torch.ops.traverse import pack_rays
 
-    device = scene["mt_pack"].device
-    s_count = int(cameras["eye"].shape[0])
-    cam = fs.pack_cameras(cameras, realtime).cpu().contiguous()
-    env = tuple(fs.env_args(scene, int(env_kind), device))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    if kernel == "B1":
-        cst = fs.pack_consts(scene, options, env_kind).cpu().contiguous()
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    device = o.device
+    r = o.shape[0]
+    if kernel == "B3":
+        oo, dd = ik._rays(o, "origins"), ik._rays(d, "directions")
+        (tmin_t, tmin_s), (tmax_t, tmax_s) = (ik._window(t_min, r, device),
+                                              ik._window(t_max, r, device))
+        mt = scene["mt_pack"]
+        t_pad = int(mt.shape[1])
+        t_count = min(int(scene.get("num_tris", t_pad)), t_pad)
+        window = [vp] * 4 + [cf] * 2
+        if occlusion:
+            outs = (torch.empty(r, dtype=torch.bool, device=device),)
+            fn, packs, tail = lib.dxr_intersect_any, (mt,), (r, t_pad, t_count)
+            fn.argtypes = window + [vp] + [ci] * 3 + [vp] * 2
+        else:
+            outs = (torch.empty((len(ik.SCALARS), r), dtype=torch.float32, device=device),
+                    torch.empty((len(ik.VECTORS), r, 3), dtype=torch.float32, device=device),
+                    torch.empty((len(ik.IDS), r), dtype=torch.int64, device=device))
+            fn, packs = lib.dxr_intersect_closest, (mt, scene["attr_pack"])
+            tail = (r, t_pad, t_count, int(cull))
+            fn.argtypes = window + [vp] * 2 + [ci] * 4 + [vp] * 4
+        fn.restype = ci
+        rays = (oo, dd, tmin_t, tmax_t)
+
+        def launch() -> int:
+            return fn(*(x.data_ptr() if x is not None else None for x in rays), tmin_s, tmax_s,
+                      *(p.data_ptr() for p in packs), *tail, *(x.data_ptr() for x in outs),
+                      torch.cuda.current_stream(device).cuda_stream)
+
+        return launch, outs, None
+    tl = scene["tlas"]
+    tlas, inst, blas = tv2.check_tlas(tl, device)[:3]
+    rows = tl["mt_rows"]  # the base's leaf tests read mt_rows, not the records
+    rays = pack_rays(o, d, t_min, t_max)
+    err = torch.zeros(1, dtype=torch.int32, device=device)
+    if occlusion:
+        outs = (torch.empty(r, dtype=torch.bool, device=device),)
+        ptrs = (None,) * 5 + (outs[0].data_ptr(),)
     else:
-        cst, rig = ft._rig_consts(scene, options, env_kind)
-        cst = cst.cpu().contiguous()
-    params = fs._upload(cam, cst, fs._frames_u32(cameras["frame_count"]), device)
-
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=device)
-
-    outs = ((empty(s_count, height, width, 3), empty(s_count, height, width, 3),
-             empty(s_count, height, width, 3), empty(s_count, height, width)) if realtime
-            else (empty(height, width, 3),))
-    env_t = [vp, ci, ci]
-    err = None
-    if kernel == "B1":
-        tensors = (scene["mt_pack"], scene["attr_pack"])
-        ints = (s_count, int(tensors[0].shape[1]), width, height, int(env_kind))
-        tail = env + (None, 0, 0, 0)
-        fn = lib.dxr_fused_realtime_outputs if realtime else lib.dxr_fused_progressive_sum
-        fn.argtypes = [vp] * (5 + len(outs)) + [ci] * 5 + env_t + [vp, ci, ci, ci, vp]
-    else:
-        bvh = scene["bvh"]
-        err = torch.zeros(1, dtype=torch.int32, device=device)
-        tensors = (bvh["bvhf_rows"], bvh["mt_rows"], scene["material_pack"])
-        ints = (s_count, tensors[0].shape[0], tensors[1].shape[0], width, height, int(env_kind),
-                rig)
-        tail = env + (() if realtime else ft.texture_args(scene, device)) + (err.data_ptr(),)
-        fn = (lib.dxr_fused_traverse_realtime_outputs if realtime
-              else lib.dxr_fused_traverse_progressive_sum)
-        fn.argtypes = ([vp] * (4 + 3 + len(outs)) + [ci] * 7 + env_t
-                       + ([] if realtime else [vp, vp, ci, ci]) + [vp, vp])
+        outs = tuple(torch.empty(r, dtype=dt, device=device) for dt in (
+            torch.float32, torch.int32, torch.float32, torch.float32, torch.int32))
+        ptrs = (*(x.data_ptr() for x in outs), None)
+    fn = lib.dxr_traverse2_fat
+    fn.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 8
     fn.restype = ci
 
     def launch() -> int:
-        cam_ptr = params.data_ptr()
-        cst_ptr = cam_ptr + 4 * cam.numel()
-        frames_ptr = cst_ptr + 4 * cst.numel()
-        head = (cam_ptr, frames_ptr, cst_ptr) + ((cst_ptr + 4 * 32,) if kernel == "B5" else ())
-        return fn(*head, *(t.data_ptr() for t in tensors), *(o.data_ptr() for o in outs), *ints,
-                  *tail, torch.cuda.current_stream(device).cuda_stream)
+        return fn(rays.data_ptr(), tlas.data_ptr(), inst.data_ptr(), blas.data_ptr(),
+                  rows.data_ptr(), r, tlas.shape[0], inst.shape[0], blas.shape[0], rows.shape[0],
+                  int(occlusion), int(cull), *ptrs, err.data_ptr(),
+                  torch.cuda.current_stream(device).cuda_stream)
 
     return launch, outs, err
+
+
+def this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
+    """This tree's wrapper (prepare_launch) of a trace kernel with ``lib``:
+    (launch, outs, err)."""
+    from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import traverse2 as tv2
+
+    if kernel == "B3":
+        launch, outs = ik.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion,
+                                         lib=ik.bind(lib))
+        return launch, outs, None
+    return tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull, occlusion,
+                              fn=tv2.bind(lib))
+
+
+def output_fields(kernel, occlusion, outs) -> dict:
+    """A trace launch's outputs by field: {name: [R] or [R, 3] tensor}."""
+    from dxrexperiments_torch.ops import intersect_kernel as ik
+
+    if occlusion:
+        return {"occluded": outs[0]}
+    if kernel == "B3":
+        return {k: x for names, block in zip((ik.SCALARS, ik.VECTORS, ik.IDS), outs)
+                for k, x in zip(names, block)}
+    return dict(zip(("t", "slot", "u", "v", "inst"), outs))
+
+
+def differing_rays(a: dict, b: dict) -> dict:
+    """Per output field, the rays whose value differs in any bit."""
+    import torch
+
+    out = {}
+    for k, x in a.items():
+        y = b[k]
+        if x.dtype == torch.bool:
+            x, y = x.to(torch.uint8), y.to(torch.uint8)
+        elif x.dtype == torch.float32:
+            x, y = x.contiguous().view(torch.int32), y.contiguous().view(torch.int32)
+        ne = x != y
+        out[k] = int(ne.reshape(ne.shape[0], -1).any(1).sum())
+    return out
 
 
 def this_launch(kernel, lib, scene, options, cameras, width, height, env_kind, realtime):
@@ -258,9 +316,9 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def cases(dev):
+def megakernel_cases(dev):
     """(name, kernel, scene, options, cameras, width, height, env_kind,
-    realtime, reps) of the main paths' first dispatch or frame."""
+    realtime, reps) of B1's and B5's main paths' first dispatch or frame."""
     import chip_smoke as cs
 
     from dxrexperiments_torch.app.headless import build_scene
@@ -311,21 +369,160 @@ def cases(dev):
             for n, k, s, o, c, w, h, r, reps in out]
 
 
-def compare(base_csrc: str, card: str, dev) -> dict:
-    """Build, check and time both trees (main's work)."""
-    from concurrent.futures import ThreadPoolExecutor
+def trace_cases(dev):
+    """(name, kernel, scene, [(batch, o, d, t_min, t_max, cull, occlusion)])
+    of the trace kernels' main paths: the four launches of the first sample
+    of the first 512^2 dispatch (S = 4), as phases 16 (B3, instanced:2) and
+    12 (B6a, instanced:32 two-level) of chip_smoke.py record them."""
+    import chip_smoke as cs
+
+    from dxrexperiments_torch.app.headless import build_scene
+    from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
+    from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import traverse2 as tv2
+    from dxrexperiments_torch.trace.integrator import render_sample
+
+    def first_sample(name, two_level, tv, names):
+        sc, cam = build_scene(name)
+        cam.set_aspect(512, 512)
+        pipe = ProgressiveRaytracingPipeline(512, 512, seed=0, samples_per_frame=4, device=dev)
+        pipe.set_camera(cam)
+        if two_level:
+            pipe.set_scene_data(sc.build_two_level(dev))
+        else:
+            pipe.set_scene(sc)
+        pipe.update(elapsed_time=0.0, elapsed_frames=0)
+        cam1 = {k: v[0] for k, v in pipe._camera_params.items()}
+        traces = []
+
+        def record(o, d, t_min, t_max, cull, occlusion):
+            traces.append((o, d, t_min, t_max, cull, occlusion))
+
+        with cs.TraceHook(tv, record, names):
+            render_sample(pipe.scene_data, pipe.options, cam1, 512, 512, impl="cuda")
+        return pipe.scene_data, [(b, *t) for b, t in zip(BATCHES, traces)], pipe
+
+    return [("instanced:2 brute force 512^2, 1 sample", "B3",
+             *first_sample(cs.BRUTE_MAIN_SCENE, False, ik, cs.TraceHook.BRUTE)),
+            ("config 5 two-level: instanced:32 512^2, 1 sample", "B6a",
+             *first_sample("instanced:32", True, tv2, cs.TraceHook.TWO_LEVEL))]
+
+
+class BaseRoute:
+    """While active, the wrappers of trace kernel ``kernel`` (ops.
+    intersect_kernel for B3, ops.traverse2's fat walk for B6a) launch the
+    base build ``lib`` through ``base_trace_launch``, so that a pipeline's
+    dispatch runs the base kernel with everything else this tree's."""
+
+    def __init__(self, kernel, lib):
+        from dxrexperiments_torch.ops import intersect_kernel as ik
+        from dxrexperiments_torch.ops import traverse2 as tv2
+
+        self.kernel, self.lib = kernel, lib
+        self.mod = ik if kernel == "B3" else tv2
+
+    def launch(self, scene_or_tl, o, d, t_min, t_max, cull, occlusion, kind="fat"):
+        from dxrexperiments_torch.ops import intersect_kernel as ik
+        from dxrexperiments_torch.ops.traverse import queue_error_check
+
+        scene = scene_or_tl if self.kernel == "B3" else {"tlas": scene_or_tl}
+        launch, outs, err = base_trace_launch(self.kernel, self.lib, scene, o, d, t_min, t_max,
+                                              cull, occlusion)
+        if o.shape[0] and launch() != 0:
+            raise RuntimeError(f"base {self.kernel} launch failed")
+        if err is not None:
+            queue_error_check(err, f"base {self.kernel}")
+        if occlusion:
+            return outs[0]
+        if self.kernel == "B3":
+            res = {k: x for names, block in zip((ik.SCALARS, ik.VECTORS, ik.IDS), outs)
+                   for k, x in zip(names, block)}
+            res["hit"] = res["tri"] >= 0
+            return res
+        t, slot, u, v, inst = outs
+        hit = slot >= 0
+        tri = scene_or_tl["slot_tri"][slot.clamp(min=0).long()]
+        return {"hit": hit, "t": t, "tri": tri.where(hit, -1).long(), "slot": slot.long(),
+                "u": u, "v": v, "inst": inst.long()}
+
+    def __enter__(self):
+        self.saved = self.mod._launch
+        self.mod._launch = self.launch
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._launch = self.saved
+
+
+def dispatch_ms(pipe, n: int) -> float:
+    """Host ms per progressive dispatch (update + render), synchronised at
+    the end of n dispatches, after one to warm up."""
+    import time
 
     import torch
 
-    from dxrexperiments_torch.ops.traverse import raise_on_error
+    pipe.max_iterations = 2**30  # every dispatch renders
+    pipe.update(elapsed_time=0.0, elapsed_frames=99)
+    pipe.render()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in range(n):
+        pipe.update(elapsed_time=0.0, elapsed_frames=100 + f)
+        pipe.render()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dict:
+    """The host figures of one trace launch: B3's live share and lane slots
+    from the plain sweep's verdicts on every ray
+    (``intersect_kernel.sweep_figures``); B6a's warp costs on
+    chip_smoke.COUNT_PIXELS rays of sampled whole warps
+    (``chip_smoke.walk2_figures``)."""
+    import chip_smoke as cs
+
+    from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import traverse2 as tv2
+
+    if kernel == "B3":
+        t_count = min(int(scene["num_tris"]), int(scene["mt_pack"].shape[1]))
+        work = ik.sweep_work(scene, o, d, t_min, t_max, occlusion, cull, cs.PLAIN_SLICE)
+        return ik.sweep_figures(work, t_count)
+    tl = scene["tlas"]
+    tl_np = {k: tl[k].cpu().numpy() for k in ("tlasf_rows", "inst_rows_t", "blasf_rows",
+                                               "mt_rows", "slot_tri")}
+    sub = cs.sampled_warps(len(o), rng, o.device)
+    _, counts = tv2.fat_walk2_numpy(tl_np, cs.host_array(o[sub]), cs.host_array(d[sub]),
+                                    cs.host_array(t_min), cs.host_array(cs.rows_of(t_max, sub)),
+                                    cull=cull, occlusion=occlusion)
+    return cs.walk2_figures(tv2, counts, d[sub], t_min, cs.rows_of(t_max, sub), occlusion)
+
+
+def build_trees(base_csrc: str, keys) -> tuple[dict, dict]:
+    """Every source of ``keys`` in both trees, one nvcc each, all at once:
+    (trees {"base", "this"}: csrc dir, libs {(tree, key): CDLL})."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from dxrexperiments_torch.utils import cuda_build
 
     trees = {"base": base_csrc, "this": cuda_build.CSRC_DIR}
-    # every build at once: one nvcc per (tree, source)
-    jobs = [(tree, key) for tree in trees for key in SOURCES]
+    jobs = [(tree, key) for tree in trees for key in keys]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: cuda_build.load_library(
             SOURCES[j[1]], [SOURCES[j[1]] + ".cu"], trees[j[0]]), jobs)))
+    return trees, libs
+
+
+def compare(base_csrc: str, card: str, dev, kernels, reps: int) -> dict:
+    """Build, check and time (``reps`` launches a turn; 0: no times) both
+    trees (main's work) for the cases of ``kernels`` (of COMPARED)."""
+    import numpy as np
+    import torch
+
+    from dxrexperiments_torch.ops.traverse import check_errors, raise_on_error
+    from dxrexperiments_torch.utils import cuda_build
+
+    trees, libs = build_trees(base_csrc, SOURCES)
 
     def info(tree, key):
         d = trees[tree]
@@ -340,13 +537,15 @@ def compare(base_csrc: str, card: str, dev) -> dict:
             for k in counts:
                 print(f"ptxas {key} {tree}: {k}", flush=True)
     report["sass_identical"] = {}
-    for key in ("B4a", "B4c", "B6a"):  # kernels the redesign of B1 and B5 leaves as they were
+    for key in SOURCES:
+        if key in REDESIGNED:
+            continue
         texts = [sass_text(info(tree, key)["path"]) for tree in trees]
         same = None if texts[0] is None else texts[0] == texts[1]
         report["sass_identical"][key] = same
         print(f"sass {key}: this build's instructions equal the base build's: {same}", flush=True)
     for tree in trees:
-        for key in ("B1", "B5"):
+        for key in ("B1", "B3", "B5", "B6a"):
             sass = sass_report(info(tree, key)["path"])
             report["sass_loops"][f"{key} {tree}"] = sass
             if "error" in sass:
@@ -355,29 +554,81 @@ def compare(base_csrc: str, card: str, dev) -> dict:
             for line in loop_summary(sass):
                 print(f"sass {key} {tree}: {line}", flush=True)
 
-    for name, kernel, scene, options, cams, width, height, ek, realtime, reps in cases(dev):
+    if any(k in REDESIGNED for k in kernels):
+        for name, kernel, scene, traces, pipe in trace_cases(dev):
+            if kernel not in kernels:
+                continue
+            if reps:  # the route's dispatch with either kernel, in turns
+                base_route = BaseRoute(kernel, libs["base", kernel])
+                turns = []
+                for use_base in (True, False, False, True):
+                    if use_base:
+                        with base_route:
+                            turns.append(dispatch_ms(pipe, reps))
+                    else:
+                        turns.append(dispatch_ms(pipe, reps))
+                check_errors()
+                row = {"case": f"{name}: ms per 4-sample dispatch", "kernel": kernel,
+                       "base_ms": (turns[0] + turns[3]) / 2, "this_ms": (turns[1] + turns[2]) / 2,
+                       "turns_ms": turns}
+                report["cases"].append(row)
+                print(f"dispatch {kernel} {name}: host ms per 4-sample dispatch (synchronised), "
+                      f"base {row['base_ms']:.3f}, this {row['this_ms']:.3f} (turns "
+                      f"{', '.join(f'{t:.3f}' for t in turns)}) [{card}]", flush=True)
+            for batch, o, d, t_min, t_max, cull, occlusion in traces:
+                label = f"{name}, {batch} ({len(o)} rays)"
+                base = base_trace_launch(kernel, libs["base", kernel], scene, o, d, t_min, t_max,
+                                         cull, occlusion)
+                mine = this_trace_launch(kernel, libs["this", kernel], scene, o, d, t_min, t_max,
+                                         cull, occlusion)
+                for launch, *_ in (base, mine):
+                    if launch() != 0:
+                        raise RuntimeError(f"{label}: launch failed")
+                torch.cuda.synchronize()
+                diff = differing_rays(output_fields(kernel, occlusion, base[1]),
+                                      output_fields(kernel, occlusion, mine[1]))
+                fig = trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion,
+                                    np.random.default_rng(len(report["cases"])))
+                print(f"figures {kernel} {label}: "
+                      + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                                  for k, v in fig.items()), flush=True)
+                row = {"case": label, "kernel": kernel, "batch": batch, "rays": len(o),
+                       "differing_rays": diff, "figures": fig}
+                if reps:
+                    turns = [time_ms(f, reps) for f in (base[0], mine[0], mine[0], base[0])]
+                    row.update(base_ms=(turns[0] + turns[3]) / 2,
+                               this_ms=(turns[1] + turns[2]) / 2, turns_ms=turns)
+                report["cases"].append(row)
+                times = (f"; ms base {row['base_ms']:.4f}, this {row['this_ms']:.4f} (turns "
+                         f"{', '.join(f'{t:.4f}' for t in row['turns_ms'])})" if reps else "")
+                print(f"case {kernel} {label}: rays differing in any bit per output "
+                      f"{diff}{times} [{card}]", flush=True)
+                for err in (base[2], mine[2]):
+                    if err is not None:
+                        raise_on_error(err, label)
+            del scene, traces, pipe
+            torch.cuda.empty_cache()
+
+    if not any(k in ("B1", "B5") for k in kernels):
+        return report
+    for name, kernel, scene, options, cams, width, height, ek, realtime, n in (
+            megakernel_cases(dev)):
+        if kernel not in kernels:
+            continue
+        # the megakernels' entry points are the base's: this tree's wrapper serves both
         mine = this_launch(kernel, libs["this", kernel], scene, options, cams, width, height,
                            ek, realtime)
-        base = base_launch(kernel, libs["base", kernel], scene, options, cams, width, height, ek,
-                           realtime)
+        base = this_launch(kernel, libs["base", kernel], scene, options, cams, width, height,
+                           ek, realtime)
         for launch, *_ in (base, mine):
             if launch() != 0:
                 raise RuntimeError(f"{name}: launch failed")
         torch.cuda.synchronize()
         diff = differing_pixels(base[1], mine[1], height, width)
-        turns = [time_ms(f, reps) for f in (base[0], mine[0], mine[0], base[0])]
+        turns = [time_ms(f, n) for f in (base[0], mine[0], mine[0], base[0])]
         row = {"case": name, "kernel": kernel, "differing_pixels": diff,
                "pixels": width * height, "base_ms": (turns[0] + turns[3]) / 2,
                "this_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns}
-        if kernel == "B1":
-            row.update(records_bytes=scene["tri_records"].numel() * 4,
-                       live_rows=int(scene["num_tris"]),
-                       padded_rows=int(scene["mt_pack"].shape[1]))
-        else:
-            bvh = scene["bvh"]
-            row.update(ft_test_bytes=bvh["ft_test"].numel() * 4,
-                       ft_attr_bytes=bvh["ft_attr"].numel() * 4,
-                       mt_rows_bytes=bvh["mt_rows"].numel() * 4)
         report["cases"].append(row)
         print(f"case {name}: {diff} of {width * height} pixels differ from the base build; "
               f"ms base {row['base_ms']:.4f}, this {row['this_ms']:.4f} (turns "
@@ -393,7 +644,14 @@ def main(argv=None) -> int:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--base", required=True, help="a checkout of the commit to compare with")
     ap.add_argument("--json", default=None, help="also write the result here")
+    ap.add_argument("--reps", type=int, default=10,
+                    help="launches per timed turn of a trace case (0: no times)")
+    ap.add_argument("--kernels", default=",".join(REDESIGNED),
+                    help=f"the kernels whose cases run, of {', '.join(COMPARED)}")
     args = ap.parse_args(argv)
+    kernels = args.kernels.split(",")
+    if not set(kernels) <= set(COMPARED):
+        ap.error(f"--kernels: expected some of {', '.join(COMPARED)}")
 
     import torch
 
@@ -405,7 +663,7 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=False).stdout.strip()
     print(f"card: {card}", flush=True)
     base_csrc = os.path.join(os.path.abspath(args.base), "dxrexperiments_torch", "csrc")
-    report = compare(base_csrc, card, dev)
+    report = compare(base_csrc, card, dev, kernels, args.reps)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

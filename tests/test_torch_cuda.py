@@ -531,6 +531,7 @@ def chain_two_level(levels: int = 120, device="cpu", right_deep: bool = False):
     tl = dict(scene["tlas"], **{k: torch.as_tensor(packed[src]).to(device) for k, src in (
         ("blasf_rows", "bvhf_rows"), ("blas_rows", "bvh_rows"), ("mt_rows", "mt_rows"),
         ("slot_tri", "slot_tri"))})
+    tl["blas_test"] = traverse.coef_records(tl["mt_rows"])  # B6a's records of the new rows
     return dict(scene, tlas=tl)
 
 
@@ -616,6 +617,34 @@ def test_traverse2_zero_direction_shadow_rays(cuda_device):
     torch.cuda.synchronize()
     assert not bool(occ[::3].any()) and not bool(want[::3].any())
     assert float((occ != want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_traverse2_queue_edges_and_index_error(cuda_device):
+    """B6a's single loop and live-ray queue: fewer rays than a warp, a
+    batch of zero-direction shadow rays (an empty queue), and an index
+    outside the arrays (an instance's BLAS root past the BLAS nodes) in
+    both modes."""
+    scene, o, d = _two_level_setup(cuda_device, "five")
+    for n in (5, 31):
+        got = traverse2.traverse2_fat_closest(scene, o[:n], d[:n], 1e-4, 3.0e37)
+        want = traverse2.two_level_closest_reference(scene, o[:n], d[:n], 1e-4, 3.0e37)
+        occ = traverse2.traverse2_fat_any(scene, o[:n], d[:n], 1e-4, 7.5)
+        occ_want = traverse2.two_level_any_reference(scene, o[:n], d[:n], 1e-4, 7.5)
+        torch.cuda.synchronize()
+        traverse.check_errors()
+        assert torch.equal(got["hit"], want["hit"]) and torch.equal(got["tri"], want["tri"])
+        assert torch.equal(got["inst"], want["inst"]) and torch.equal(occ, occ_want)
+    occ = traverse2.traverse2_fat_any(scene, o, torch.zeros_like(d), 1e-4, 3.0e37)
+    traverse.check_errors()
+    assert not bool(occ.any())
+    rows = scene["tlas"]["inst_rows_t"].clone()
+    rows[:, 15] = 1.0e6
+    bad = dict(scene, tlas=dict(scene["tlas"], inst_rows_t=rows))
+    for trace in (traverse2.traverse2_fat_closest, traverse2.traverse2_fat_any):
+        with pytest.raises(RuntimeError, match="outside the packed arrays"):
+            trace(bad, o, d, 1e-4, 3.0e37)
+            traverse.check_errors()
 
 
 @pytest.mark.cuda
@@ -883,6 +912,36 @@ def test_intersect_brute_windows_and_empty_batches(cuda_device):
     bad = dict(scene, mt_pack=scene["mt_pack"].double())
     with pytest.raises(TypeError):
         intersect_kernel.trace_any(bad, o, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [5, 31, 33])
+def test_intersect_brute_queue_edges(cuda_device, n):
+    """B3 through its live-ray queue: fewer rays than a warp or one past a
+    warp, a batch with no live ray (an empty queue: every output written by
+    the queue kernel) and a batch whose every ray is occluded."""
+    scene = _brute_scene(513, cuda_device)
+    o, d, tmax = _brute_rays(513, cuda_device, n=n, scene=scene)
+    got = intersect_kernel.trace_closest(scene, o, d, 1e-4, tmax)
+    want = intersect_kernel.trace_closest_reference(scene, o, d, 1e-4, tmax)
+    occ = intersect_kernel.trace_any(scene, o, d, 1e-4, tmax)
+    torch.cuda.synchronize()
+    assert torch.equal(got["hit"], want["hit"]) and torch.equal(got["tri"], want["tri"])
+    assert torch.allclose(got["t"], want["t"], rtol=1e-4, atol=1e-5)
+    assert torch.equal(occ, intersect_kernel.trace_any_reference(scene, o, d, 1e-4, tmax))
+    dead = intersect_kernel.trace_closest(scene, o, d, 1e-4, 0.0)  # every window empty
+    miss = intersect_kernel.miss_outputs(o, d)
+    for k, v in miss.items():
+        a, b = dead[k], v
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), k
+    assert not bool(intersect_kernel.trace_any(scene, o, torch.zeros_like(d), 1e-4, 1e38).any())
+    v0, e1, e2 = (scene[k][:513] for k in ("v0", "e1", "e2"))
+    pick = torch.arange(n, device=cuda_device) * 7 % 513
+    nrm = torch.nn.functional.normalize(torch.linalg.cross(e1, e2, dim=1)[pick], dim=1)
+    cen = (v0 + (e1 + e2) / 3.0)[pick]
+    assert bool(intersect_kernel.trace_any(scene, cen + nrm, -nrm, 1e-4, 1e38).all())
 
 
 BRUTE_CASES = [("instanced:1", "progressive", {}), ("instanced:1", "realtime", {}),

@@ -68,3 +68,52 @@ def test_differing_pixels_counts_bits():
     other = img.clone()
     other[3, 4, 0] = 1e-30
     assert ab.differing_pixels((img,), (other,), h, w) == 1
+
+
+def test_every_kernel_source_is_compared():
+    """kernel_ab builds every CUDA source of the port in both trees: the
+    trace kernels redesigned case by case, every other one held to the
+    base's instructions."""
+    import os
+
+    sources = {f[:-3] for f in os.listdir(cuda_build.CSRC_DIR) if f.endswith(".cu")}
+    assert set(ab.SOURCES.values()) == sources
+    assert set(ab.REDESIGNED) <= set(ab.COMPARED) <= set(ab.SOURCES)
+    assert ab.SOURCES["B3"] == "intersect_brute" and ab.SOURCES["B6a"] == "traverse2_fat"
+
+
+def test_output_fields_and_differing_rays():
+    from dxrexperiments_torch.ops import intersect_kernel as ik
+
+    r = 6
+    scal, vec, ids = torch.zeros(7, r), torch.zeros(5, r, 3), torch.zeros(3, r, dtype=torch.int64)
+    fields = ab.output_fields("B3", False, (scal, vec, ids))
+    assert list(fields) == [*ik.SCALARS, *ik.VECTORS, *ik.IDS]
+    assert fields["position"].shape == (r, 3) and fields["tri"].dtype == torch.int64
+    occ = torch.zeros(r, dtype=torch.bool)
+    assert list(ab.output_fields("B6a", True, (occ,))) == ["occluded"]
+    walk = ab.output_fields("B6a", False, tuple(torch.zeros(r) for _ in range(5)))
+    assert list(walk) == ["t", "slot", "u", "v", "inst"]
+    other = {k: v.clone() for k, v in fields.items()}
+    assert set(ab.differing_rays(fields, other).values()) == {0}
+    other["t"][1] = -0.0  # equal as a float, not as bits
+    other["normal"][2, 1] = 1.0
+    other["normal"][2, 2] = 1.0  # the same ray twice
+    other["tri"][5] = -1
+    diff = ab.differing_rays(fields, other)
+    assert (diff["t"], diff["normal"], diff["tri"], diff["u"]) == (1, 1, 1, 0)
+    occ2 = occ.clone()
+    occ2[[0, 3]] = True
+    assert ab.differing_rays({"occluded": occ}, {"occluded": occ2}) == {"occluded": 2}
+
+
+def test_base_route_swaps_the_wrappers_launch():
+    from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import traverse2 as tv2
+
+    for kernel, mod in (("B3", ik), ("B6a", tv2)):
+        before = mod._launch
+        route = ab.BaseRoute(kernel, lib=None)
+        with route:
+            assert mod._launch == route.launch
+        assert mod._launch is before

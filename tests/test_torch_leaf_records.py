@@ -8,8 +8,7 @@
   [4, C, 16] at group lane // 16, column lane % 16 of the slot's mt_rows
   lane (the ``coef_lane`` map); column 19 is zero, and so is every row
   after ``num_tris``. On Cornell-glossy (36 triangles in 40 rows) and a
-  seeded 256-triangle soup. A scene of more than 256 rows, which B1 never
-  takes, gets no records; the kernel's wrapper raises on a scene without.
+  seeded 256-triangle soup. B1's wrapper raises on a scene without them.
 - B5 (``ops/traverse.leaf_records``, built by ``Scene.build`` into the BVH
   as ``ft_test`` and ``ft_attr``): ``ft_test`` column j is the JAX build's
   ``mt_rows`` lane ``coef_lane(j)`` and column 19 zero, ``ft_attr`` its
@@ -17,6 +16,12 @@
   ``pack_for_traversal`` stay bit-equal to JAX's. On 'instanced:1' (962
   triangles, accel='bvh'), a seeded 600-triangle soup and the textured
   Cornell box (its corner-UV lanes).
+- B6a (``blas_test``, ``ops/traverse.coef_records`` of the two-level
+  build's ``mt_rows``, built by ``Scene.build_two_level`` and
+  ``scene_from_numpy``): column j is the JAX two-level build's ``mt_rows``
+  lane ``coef_lane(j)`` and column 19 zero; a refit leaves it as it was.
+  B3 stages ``tri_records`` too: a flat scene has them up to the BVH
+  threshold (4,096 rows).
 """
 
 import jax
@@ -29,7 +34,9 @@ from dxrexperiments_torch.ops import fused_sample as tfs
 from dxrexperiments_torch.ops import traverse as ttv
 from dxrexperiments_torch.scene import Scene as TScene
 from dxrexperiments_torch.scene.convert import scene_from_numpy
+from dxrexperiments_torch.scene.dynamic import refit_scene_instances
 from dxrexperiments_torch.scene.materials import Material as TMaterial
+from dxrexperiments_torch.scene.scene import BVH_THRESHOLD
 from dxrexperiments_torch.scene.procedural import random_triangle_soup as t_soup
 from dxrexperiments_tpu.app.headless import build_scene as j_build_scene
 from dxrexperiments_tpu.scene import Scene as JScene
@@ -93,12 +100,17 @@ def test_tri_records_equal_jax_mt_pack(kind):
                                   rec.view(np.int32))
 
 
-@pytest.mark.parametrize("kind,rows", [("soup:250:3", 256), ("soup:300:5", 304)])
+@pytest.mark.parametrize("kind,rows", [("soup:250:3", 256), ("soup:300:5", 304),
+                                       ("soup:4100:5", 4608)])
 def test_tri_records_only_where_b1_stages_them(kind, rows):
+    """B1 stages a flat scene's records up to FUSED_MAX_TRIS rows, and B3
+    (the brute-force traces) up to the BVH threshold: Scene.build gives a
+    flat scene its records up to there."""
     _, tsc = scene_pair(kind)
     scene = tsc.build("cpu", accel="none")
     assert int(scene["mt_pack"].shape[1]) == rows
-    assert ("tri_records" in scene) == (rows <= ttv.FUSED_MAX_TRIS == tfs.MAX_TRIS)
+    assert ttv.FUSED_MAX_TRIS == tfs.MAX_TRIS < BVH_THRESHOLD
+    assert ("tri_records" in scene) == (rows <= BVH_THRESHOLD)
 
 
 def test_scene_from_numpy_carries_tri_records():
@@ -138,3 +150,26 @@ def test_leaf_records_equal_jax_mt_rows(kind):
     # the port's derived arrays only: every other key is JAX's
     assert set(tbvh) - set(jbvh) <= {"ft_test", "ft_attr", "bvhf_rows", "bvh_rows",
                                      "bvh8_rows", "builder"}
+
+
+@pytest.mark.parametrize("kind", ["instanced:2", "five"])
+def test_blas_records_equal_jax_mt_rows(kind):
+    from test_torch_cuda import port_five, tf
+    from test_torch_tlas import MOVED, scenes
+
+    jd = scenes(kind)[0].build_two_level()
+    want = npy(jd["tlas"]["mt_rows"])
+    tsc = port_five() if kind == "five" else t_build_scene(kind)[0]
+    built = tsc.build_two_level("cpu")
+    converted = scene_from_numpy(jax.tree.map(np.asarray, jd), "cpu")
+    for scene in (built, converted):
+        rec = scene["tlas"]["blas_test"].numpy()
+        assert rec.shape == (want.shape[0], 20) and rec.dtype == np.float32
+        np.testing.assert_array_equal(rec[:, :SLOTS].view(np.int32),
+                                      want[:, LANES].view(np.int32))
+        assert not rec[:, SLOTS:].any()
+    n = built["tlas_meta"]["num_instances"]
+    moved = (np.stack(MOVED) if kind == "five"
+             else np.stack([tf((0.1 * i, 0.0, 0.0), yaw=0.2 * i) for i in range(n)]))
+    refit = refit_scene_instances(built, moved)
+    assert refit["tlas"]["blas_test"] is built["tlas"]["blas_test"]  # a refit moves no BLAS array
