@@ -233,7 +233,10 @@ Phases, each of which raises on failure:
      inputs, against B4a on all rays and against the plain version on
      4,096 sampled rays; each launch alone, B4a, B4b and B4d in turns, with
      the host models' walk counts (ops/traverse.binary_walk_numpy,
-     wide_walk_numpy), the bound and the deepest stack; the host ms per
+     wide_walk_numpy), the bound, the deepest stack and the leaf-weighted
+     warp figures on sampled warps (ops/traverse2.turn_costs: loop turns and
+     pair slots; B4b's of its kernel's walk, ops/traverse.parent_walk_numpy
+     with leaf postponement, with and without it); the host ms per
      dispatch, enqueued and synchronised; realtime + denoise at 1080p, 2
      frames (4 + 4 B4b and 4 bilateral launches), frame 0's direct and
      specular AOVs against the plain version on 4,096 sampled pixels;
@@ -306,8 +309,8 @@ Phases, each of which raises on failure:
      verdict; a rate above 105% of the data sheet (67 TFLOP/s float32, 33.5
      T instructions/s, 494.7 TFLOP/s dense TF32) fails the phase.
  38. the redesigned kernels (run after phase 37): ptxas' registers,
-     spills and stack frames of every kernel of B1, B5, B3 and B6a beside
-     those of B4a and B4c; B1's triangle records (the scene's tri_records,
+     spills and stack frames of every kernel of B1, B5, B3, B6a, B4b and
+     B6b beside those of B4a and B4c; B1's triangle records (the scene's tri_records,
      five float4s a triangle) of configs 1 and 3 against their mt_pack, and
      B5's leaf arrays ft_test and ft_attr (ops/traverse.leaf_records) of
      'instanced:32' and the config-2 stand-in against their mt_rows, equal
@@ -341,7 +344,10 @@ model of the two-level walk (ops/traverse2.fat_walk2_numpy) on 4,096 rays
 of sampled spans of whole warps of each launch;
 B4b's, B4d's and B6b's by their host models on 4,096 sampled rays of each
 launch, the nodes touched counted at 32 bytes (binary) or 256 bytes (one
-8-wide node, eight 32-byte child rows).
+8-wide node, eight 32-byte child rows). B4b's is counted in the JAX
+kernel's order (ops/traverse.binary_walk_numpy, B6b's walk): the work the
+function needs, not the redesigned kernel's own walk, which tests both
+children of a node it expands.
 No single PyTorch call computes any of these functions, so library_ms is
 null.
 
@@ -1154,11 +1160,14 @@ class PairCount:
 
 class TraceHook:
     """Calls on_trace(o, d, t_min, t_max, cull=..., occlusion=...) before
-    every B4a trace (module ops.traverse) or B6a trace (names=TWO_LEVEL,
-    module ops.traverse2) made while it is active; the traces still run."""
+    every B4a trace (module ops.traverse; B4b's with names=BINARY) or B6a
+    trace (names=TWO_LEVEL, module ops.traverse2; B6b's with
+    names=TWO_LEVEL_BINARY) made while it is active; the traces still run."""
 
     B4A = ("traverse_fat_closest", "traverse_fat_any")
+    BINARY = ("traverse_closest", "traverse_any")  # B4b, module ops.traverse
     TWO_LEVEL = ("traverse2_fat_closest", "traverse2_fat_any")
+    TWO_LEVEL_BINARY = ("traverse2_closest", "traverse2_any")  # B6b
     BRUTE = ("trace_closest", "trace_any")  # B3, module ops.intersect_kernel
 
     def __init__(self, tv, on_trace, names=B4A):
@@ -2235,6 +2244,15 @@ def main() -> int:
                             occlusion, 1.0, 0)[2]
             warp = {k: (float(cw[k].mean()), float(cw[k].reshape(-1, 32).max(1).mean()))
                     for k in ("ray_visits", "ray_leaves")}
+            # leaf-weighted: a warp's loop turns and the largest pair tests of
+            # each; B4b's of its kernel's walk (children tested at the parent,
+            # leaves postponed), not of the JAX order its bound counts
+            if walk == "binary":
+                cw = tv.parent_walk_numpy(bin_np, host_array(o[blk]), host_array(d[blk]),
+                                          host_array(t_min), host_array(rows_of(t_max, blk)),
+                                          cull=cull, occlusion=occlusion, postpone=True)[1]
+            wt = tv2.turn_costs(cw["turns"], len(blk))
+            warp_turns = {k: int(v.sum()) for k, v in wt.items() if k.endswith(("turns", "slots"))}
             deepest[walk] = max(deepest[walk], c["max_stack"])
             k_ms = sum(ms[walk]) / 2
             bnd = bound(ops, nbytes)
@@ -2243,7 +2261,9 @@ def main() -> int:
                         f"{c['pair_tests'] / COUNT_PIXELS:.2f} pair tests per ray; sampled "
                         f"warps: visits per ray {warp['ray_visits'][0]:.2f}, per warp's slowest "
                         f"lane {warp['ray_visits'][1]:.2f}; leaf tests {warp['ray_leaves'][0]:.2f},"
-                        f" {warp['ray_leaves'][1]:.2f})")
+                        f" {warp['ray_leaves'][1]:.2f}; warp turns and pair slots"
+                        f"{' of the kernel walk' if walk == 'binary' else ''} "
+                        + ", ".join(f"{k} {v}" for k, v in warp_turns.items()) + ")")
             if walk == "fat":
                 continue
             acc = wtime[walk, occlusion]
@@ -2257,7 +2277,8 @@ def main() -> int:
                                       "visits_per_ray": c["visits"] / COUNT_PIXELS,
                                       "pair_tests_per_ray": c["pair_tests"] / COUNT_PIXELS,
                                       "warp_max_visits": warp["ray_visits"][1],
-                                      "warp_max_leaf_tests": warp["ray_leaves"][1]})
+                                      "warp_max_leaf_tests": warp["ray_leaves"][1],
+                                      "warp_turns_and_slots": warp_turns})
         print(f"time {batch} on {BVH_MAIN_SCENE} {M}^2 ({len(o)} rays), each kernel alone, in "
               f"turns fat, binary, wide, wide, binary, fat: {'; '.join(line)} [{card}]",
               flush=True)
@@ -4585,17 +4606,18 @@ def main() -> int:
     del full, a_f, b_f, mt_f, rays_f
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
-    # ---- 38. the redesigned kernels B1, B5, B3 and B6a: ptxas, records, times ------
+    # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b: ptxas, records, times
     # B1 reads each triangle as a record of five float4s (the scene's
     # tri_records, tv.tri_records); B5 reads its leaves from ft_test /
     # ft_attr (tv.leaf_records), not from mt_rows. The
     # records against the packs they come from, on the card; their bytes; the
     # launch alone on each main path's first dispatch or frame beside its
-    # bound; ptxas' counts of B1, B5, B3 (its queue and sweep kernels) and
-    # B6a beside B4a's and B4c's.
+    # bound; ptxas' counts of B1, B5, B3 (its queue and sweep kernels), B6a,
+    # B4b and B6b beside B4a's and B4c's.
     ptx = {key: cuda_build.ptxas_counts(cuda_build.BUILD_INFO[src]["log"]) for key, src in (
         ("B1", "fused_sample"), ("B5", "fused_traverse"), ("B4a", "traverse_fat"),
-        ("B4c", "traverse_fat_grouped"), ("B3", "intersect_brute"), ("B6a", "traverse2_fat"))}
+        ("B4c", "traverse_fat_grouped"), ("B3", "intersect_brute"), ("B6a", "traverse2_fat"),
+        ("B4b", "traverse_binary"), ("B6b", "traverse2_binary"))}
     for key, rows in ptx.items():
         for r in rows:
             print(f"ptxas {key}: {r['kernel']}: {r.get('registers')} registers, spill stores "
@@ -4788,6 +4810,7 @@ def main() -> int:
             "parity_128_max_abs_err": bin_parity[walk, occl],
             "deepest_stack": deepest[walk],
             "per_launch": acc["per_launch"],
+            **({"ptxas": ptx["B4b"]} if walk == "binary" else {}),
             "max_abs_err_is": ("occlusion disagreement fraction" if occl else
                                "max |t - plain t| on rays that hit the same triangle"),
             **extra,
@@ -4813,6 +4836,7 @@ def main() -> int:
             "ms_at_plain_shape": small2_bin[occl],
             "parity_128_max_abs_err": bin_parity["two_level", occl],
             "per_launch": b6b[occl]["per_launch"],
+            "ptxas": ptx["B6b"],
             **({} if occl else {"route_vs_b6a_route_image": b6b_wave_gate,
                                 "vs_b6a_after_animation": b6b_anim_gate,
                                 "dispatch_ms_enqueued": bin2_enqueue_s / n_disp_c * 1e3,

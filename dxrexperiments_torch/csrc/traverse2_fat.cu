@@ -34,7 +34,7 @@
 // A stack overflow (either level) or an index outside the arrays sets the
 // error flag, which the wrapper reads later.
 
-#include "common.cuh"
+#include "rec_leaf.cuh"
 
 namespace {
 
@@ -42,63 +42,6 @@ using namespace dxr;
 
 constexpr int kThreads = 128;
 constexpr int kTlasStack = 64;  // traverse2_pallas.TLAS_STACK
-
-// Whether a leaf test has ended the walk (occlusion found a hit).
-__device__ __forceinline__ bool ended(const ClosestLeaf&) { return false; }
-__device__ __forceinline__ bool ended(const AnyLeaf& l) { return l.occluded; }
-
-// The leaf tests of ClosestLeaf and AnyLeaf over the BLAS records rec
-// [S, kRecWords] (the 19 slots in slot order and a zero), read with
-// kRecQuads 16-byte loads a pair test: the same arithmetic in the same
-// order, so the same hits to the bit.
-struct ClosestRecLeaf : ClosestLeaf {
-  const float4* rec;
-  __device__ __forceinline__ ClosestRecLeaf(const FatBvh& b, const float4* rec_, V3 o_, V3 d_,
-                                            float tmin_, float tmax_, bool cull_)
-      : ClosestLeaf(b, o_, d_, tmin_, tmax_, cull_), rec(rec_) {}
-  __device__ __forceinline__ bool visit(int start, int count) {
-    if (start < 0 || start + count > B.n_slots) {
-      *B.err = E_INDEX;
-      return true;
-    }
-    for (int r = 0; r < count; ++r) {
-      Pair p = pair_test(rec_coef_ldg(rec + (size_t)(start + r) * kRecQuads), o, d, mo, tmin,
-                         true, tmax, cull);
-      if (p.valid) {
-        float t = p.ts / fmaxf(p.det_abs, kDetEps);
-        if (t < best_t) {
-          best_t = t;
-          best_slot = start + r;
-          b_us = p.us;
-          b_vs = p.vs;
-          b_det = p.det_abs;
-        }
-      }
-    }
-    return false;
-  }
-};
-
-struct AnyRecLeaf : AnyLeaf {
-  const float4* rec;
-  __device__ __forceinline__ AnyRecLeaf(const FatBvh& b, const float4* rec_, V3 o_, V3 d_,
-                                        float tmin_, float tmax_)
-      : AnyLeaf(b, o_, d_, tmin_, tmax_), rec(rec_) {}
-  __device__ __forceinline__ bool visit(int start, int count) {
-    if (start < 0 || start + count > B.n_slots) {
-      *B.err = E_INDEX;
-      return true;
-    }
-    for (int r = 0; r < count; ++r) {
-      if (pair_test(rec_coef_ldg(rec + (size_t)(start + r) * kRecQuads), o, d, mo, tmin, true,
-                    tmax, false).valid) {
-        occluded = true;
-        return true;
-      }
-    }
-    return false;
-  }
-};
 
 // The TLAS leaf test: an instance leaf (meta 1) walks the instance's BLAS
 // with the inner leaf test's ray moved into object space.

@@ -6,22 +6,28 @@
 // leaf slot, u, v) and occlusion. The wavefront integrator launches it once
 // per trace stage of a BVH scene whose pack has no fat nodes.
 //
-// What bounds it: memory latency and divergence, as for B4a, with more
-// steps: each visit reads one 32-byte node and tests one box, and the walk
-// goes in the tree's fixed order (right child first), not near-first, so a
-// ray visits more nodes before its best hit prunes the rest. Design answer:
-// one thread per ray in the caller's order, each node read as two float4
-// loads from the row-major copy (bvh_rows) through the read-only cache, a
-// leaf's 19 used coefficients per slot read as B4a reads them (common.cuh's
-// ClosestLeaf / AnyLeaf), occlusion ending at the first hit. The TPU
-// kernel's packet stack in SMEM and its double-buffered leaf DMA have no
-// counterpart here; its visit order is kept, since it decides which
-// triangle wins an equal-t tie.
+// What bounds it: divergence and memory latency. On incoherent rays the
+// lanes of a warp reach their leaves in different turns, and a leaf costs
+// up to 16 pair tests against a visit's one or two slab tests, so a warp
+// that tests leaves in turn pays for each lane's leaves one after another
+// (the leaf-weighted warp model, ops/traverse2.turn_costs, PERF.md).
+// Design answer: one thread per ray in the caller's order on
+// walk_binary.cuh's walk with the children tested at the parent (two
+// independent pairs of float4 loads from the row-major bvh_rows, only the
+// children that hit pushed), leaf tests postponed until every lane of the
+// warp holds a leaf or has ended (postponed_walk), and a leaf slot's 19
+// coefficients read as one record of five float4s from the BVH's ft_test
+// (rec_leaf.cuh, as B5 and B6a read them); occlusion ends at the first hit.
+// The leaves tested and their order are the JAX kernel's, so the hits are
+// too. The TPU kernel's packet stack in SMEM and its double-buffered leaf
+// DMA have no counterpart here.
 //
-// The per-thread stack holds kMaxStack (96) entries in local memory; an
+// The per-thread stack holds kMaxStack (96) entries in local memory (12
+// bytes each for closest: the links and the entry t; 8 for occlusion); an
 // overflow or an index outside the arrays sets the error flag, which the
 // wrapper reads later (ops/traverse.check_errors).
 
+#include "rec_leaf.cuh"
 #include "walk_binary.cuh"
 
 namespace {
@@ -33,26 +39,27 @@ constexpr int kThreads = 128;
 // rays [n, 8]: origin, direction, t_min, t_max (ops/traverse.pack_rays)
 template <bool kOcclusion>
 __global__ void __launch_bounds__(kThreads)
-traverse_binary_kernel(const float4* __restrict__ rays, BinNodes N, FatBvh L, int n_rays,
-                       int cull, float* __restrict__ t_out, int* __restrict__ slot_out,
+traverse_binary_kernel(const float4* __restrict__ rays, BinNodes N, FatBvh L,
+                       const float4* __restrict__ rec, int n_rays, int cull,
+                       float* __restrict__ t_out, int* __restrict__ slot_out,
                        float* __restrict__ u_out, float* __restrict__ v_out,
                        unsigned char* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned warp = __ballot_sync(0xffffffffu, i < n_rays);  // the lanes that walk together
   if (i >= n_rays) return;
   const float4 r0 = __ldg(rays + 2 * i), r1 = __ldg(rays + 2 * i + 1);
   const V3 o = v3(r0.x, r0.y, r0.z), d = v3(r0.w, r1.x, r1.y);
   const float tmin = r1.z, tmax = r1.w;
-  int stack[kMaxStack];
-  if (kOcclusion) {
-    AnyLeaf leaf(L, o, d, tmin, tmax);
+  BinStack<kMaxStack, !kOcclusion> stack;
+  if constexpr (kOcclusion) {
+    AnyRecLeaf leaf(L, rec, o, d, tmin, tmax);
     // zero directions mark dead lanes (the integrator's inactive shadow rays)
-    if (fabsf(d.x) + fabsf(d.y) + fabsf(d.z) >= 1e-30f) {
-      binary_walk(N, o, safe_inv(d), tmin, leaf, stack);
-    }
+    const bool live = fabsf(d.x) + fabsf(d.y) + fabsf(d.z) >= 1e-30f;
+    postponed_walk<true>(warp, N, o, safe_inv(d), tmin, leaf, stack, live);
     occ_out[i] = leaf.occluded ? 1 : 0;
   } else {
-    ClosestLeaf leaf(L, o, d, tmin, tmax, cull != 0);
-    binary_walk(N, o, safe_inv(d), tmin, leaf, stack);
+    ClosestRecLeaf leaf(L, rec, o, d, tmin, tmax, cull != 0);
+    postponed_walk<false>(warp, N, o, safe_inv(d), tmin, leaf, stack, true);
     const bool hit = leaf.hit();
     t_out[i] = hit ? leaf.best_t : -1.0f;
     slot_out[i] = hit ? leaf.best_slot : -1;
@@ -64,28 +71,33 @@ traverse_binary_kernel(const float4* __restrict__ rays, BinNodes N, FatBvh L, in
 }  // namespace
 
 // One launch over n_rays rays on `stream`.
-//   rays [n_rays, 8] f32, nodes = bvh_rows [n_nodes, 8] f32, rows = mt_rows
-//   [n_slots, 128] f32; occlusion != 0 writes occ [n_rays] (bool bytes),
-//   else t, u, v [n_rays] f32 and slot [n_rays] i32 (-1 on a miss); err [1]
+//   rays [n_rays, 8] f32, nodes = bvh_rows [n_nodes, 8] f32, rec = ft_test
+//   [n_slots, 20] f32 (16-byte aligned: each leaf slot's record);
+//   occlusion != 0 writes occ [n_rays] (bool bytes), else t, u, v [n_rays]
+//   f32 and slot [n_rays] i32 (-1 on a miss); err [1]
 //   i32 must be 0 on entry and is set to 1 (stack overflow) or 2 (index out
 //   of range). Returns cudaGetLastError() (0 on success).
-extern "C" int dxr_traverse_binary(const float* rays, const float* nodes, const float* rows,
+extern "C" int dxr_traverse_binary(const float* rays, const float* nodes, const float* rec,
                                    int n_rays, int n_nodes, int n_slots, int occlusion, int cull,
                                    float* t, int* slot, float* u, float* v, unsigned char* occ,
                                    int* err, void* stream) {
-  if (n_rays < 0 || n_nodes < 1 || n_slots < 1) return (int)cudaErrorInvalidValue;
+  if (n_rays < 0 || n_nodes < 1 || n_slots < 1 || rec == nullptr ||
+      reinterpret_cast<uintptr_t>(rec) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (n_rays == 0) return 0;
   BinNodes N{reinterpret_cast<const float4*>(nodes), n_nodes, err};
-  FatBvh L{nullptr, rows, 0, n_slots, err};  // the leaf tests' slots
+  FatBvh L{nullptr, nullptr, 0, n_slots, err};  // the leaf tests' slot count
+  const float4* rc = reinterpret_cast<const float4*>(rec);
   const int blocks = (n_rays + kThreads - 1) / kThreads;
   const float4* r = reinterpret_cast<const float4*>(rays);
   cudaStream_t s = (cudaStream_t)stream;
   if (occlusion) {
-    traverse_binary_kernel<true><<<blocks, kThreads, 0, s>>>(r, N, L, n_rays, 0, t, slot, u, v,
-                                                             occ);
+    traverse_binary_kernel<true><<<blocks, kThreads, 0, s>>>(r, N, L, rc, n_rays, 0, t, slot, u,
+                                                             v, occ);
   } else {
-    traverse_binary_kernel<false><<<blocks, kThreads, 0, s>>>(r, N, L, n_rays, cull, t, slot, u,
-                                                              v, occ);
+    traverse_binary_kernel<false><<<blocks, kThreads, 0, s>>>(r, N, L, rc, n_rays, cull, t, slot,
+                                                              u, v, occ);
   }
   return (int)cudaGetLastError();
 }

@@ -25,10 +25,14 @@ A stack overflow sets the launch's error flag. The wrapper does not wait to
 read it: ``check_errors`` raises for it at a later launch, once the kernel
 has finished, or when the pipeline's ``get_output`` waits for the card.
 
-``fat_walk_numpy``, ``fat_packet_walk_numpy``, ``binary_walk_numpy`` and
-``wide_walk_numpy`` are host models of the kernels' walks: they return the
-same hits and count the slab and pair tests a walk performs, from which
-``chip_smoke.py`` computes the kernels' bounds.
+``fat_walk_numpy``, ``fat_packet_walk_numpy``, ``parent_walk_numpy`` and
+``wide_walk_numpy`` are host models of the kernels' walks (B4b's:
+children tested at the parent, leaves postponed per warp), and
+``binary_walk_numpy`` of the JAX kernel's binary walk: they return the same
+hits and count the slab and pair tests a walk performs, from which
+``chip_smoke.py`` computes the kernels' bounds, and log the work of each
+loop turn of each ray (``TurnLog``), which ``traverse2.turn_costs`` weighs
+per warp.
 """
 
 from __future__ import annotations
@@ -61,16 +65,16 @@ GROUPED_CLOSEST_LAUNCHES = 0
 GROUPED_ANY_LAUNCHES = 0
 
 # kind -> (library and source name, C entry point, the node rows it reads and
-# their width, (closest, any) launch counters)
+# their width, (closest, any) launch counters, the leaf array it reads)
 WALKS = {
     "fat": ("traverse_fat", "dxr_traverse_fat", "bvhf_rows", 16,
-            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES")),
+            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES"), "mt_rows"),
     "binary": ("traverse_binary", "dxr_traverse_binary", "bvh_rows", 8,
-               ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")),
+               ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES"), "ft_test"),
     "wide": ("traverse8", "dxr_traverse8", "bvh8_rows", 8,
-             ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES")),
+             ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES"), "mt_rows"),
     "grouped": ("traverse_fat_grouped", "dxr_traverse_fat_grouped", "bvhf_rows", 16,
-                ("GROUPED_CLOSEST_LAUNCHES", "GROUPED_ANY_LAUNCHES")),
+                ("GROUPED_CLOSEST_LAUNCHES", "GROUPED_ANY_LAUNCHES"), "mt_rows"),
 }
 MAX_TILE = 2048  # B4c's largest packet (the JAX kernel's TILE_R): two rays per thread
 
@@ -322,17 +326,23 @@ def traverse_fat_any_reference(scene, origins, directions, t_min=1e-4, t_max=3.0
 _LIBS: dict = {}
 
 
+def bind(lib, kind: str = "fat"):
+    """The C entry point of walk ``kind`` (WALKS) in ``lib``, a build of its
+    source, with its argument types set."""
+    fn = getattr(lib, WALKS[kind][1])
+    n_int = 8 if kind == "grouped" else 5  # B4c: tile, group, common_origin too
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [ctypes.c_void_p] * 7
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def _library(kind: str = "fat"):
     """The C entry point of walk ``kind`` (WALKS), built at first use."""
     if kind not in _LIBS:
         from ..utils.cuda_build import load_library
 
-        name, entry = WALKS[kind][:2]
-        fn = getattr(load_library(name, [f"{name}.cu"]), entry)
-        n_int = 8 if kind == "grouped" else 5  # B4c: tile, group, common_origin too
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [ctypes.c_void_p] * 7
-        fn.restype = ctypes.c_int
-        _LIBS[kind] = fn
+        name = WALKS[kind][0]
+        _LIBS[kind] = bind(load_library(name, [f"{name}.cu"]), kind)
     return _LIBS[kind]
 
 
@@ -352,12 +362,31 @@ def check_rows(tree: dict, widths: dict, device) -> tuple[torch.Tensor, ...]:
     return tuple(tree[name] for name in widths)
 
 
+def check_records(tree: dict, name: str, device) -> torch.Tensor:
+    """The leaf records tree[name] [S, REC_WORDS] (``coef_records`` of
+    mt_rows: the BVH's ``ft_test``, the two-level ``blas_test``), checked as
+    ``check_rows`` checks, and one record per mt_rows row."""
+    if name not in tree:
+        raise ValueError(f"{name} missing: the leaf records this walk reads "
+                         "(ops/traverse.coef_records of mt_rows)")
+    (rec,) = check_rows(tree, {name: REC_WORDS}, device)
+    if "mt_rows" in tree and tree["mt_rows"].shape[0] != rec.shape[0]:
+        raise ValueError(f"{name}: expected one record per mt_rows row "
+                         f"({tree['mt_rows'].shape[0]}), got {rec.shape[0]}")
+    return rec
+
+
 def check_bvh(bvh: dict, device, kind: str = "fat") -> tuple[torch.Tensor, torch.Tensor]:
-    """Walk ``kind``'s BVH inputs, checked: (node rows, mt_rows [S, 128]),
-    the node rows bvhf_rows [F, 16] (fat), bvh_rows [M, 8] (binary) or
-    bvh8_rows [W*8, 8] (wide)."""
+    """Walk ``kind``'s BVH inputs, checked: (node rows, leaf array), the
+    node rows bvhf_rows [F, 16] (fat), bvh_rows [M, 8] (binary) or bvh8_rows
+    [W*8, 8] (wide), the leaf array mt_rows [S, 128], or for the binary walk
+    the records ft_test [S, REC_WORDS] (``check_records``; built by
+    ``scene.bvh_to_device`` for every BVH)."""
     rows, width = WALKS[kind][2:4]
-    return check_rows(bvh, {rows: width, "mt_rows": 128}, device)
+    leaf = WALKS[kind][5]
+    if leaf == "mt_rows":
+        return check_rows(bvh, {rows: width, "mt_rows": 128}, device)
+    return check_rows(bvh, {rows: width}, device)[0], check_records(bvh, leaf, device)
 
 
 def raise_on_error(err: torch.Tensor, what: str) -> None:
@@ -403,14 +432,15 @@ def check_errors(wait: bool = True) -> None:
 
 
 def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
-                   kind: str = "fat", packet: tuple = ()):
+                   kind: str = "fat", packet: tuple = (), fn=None):
     """Pack the rays and allocate the outputs of one launch of walk ``kind``
     (WALKS: "fat" B4a, "grouped" B4c, "binary" B4b, "wide" B4d); B4c takes
     ``packet`` = (tile, group, common_origin), checked by
     ``check_grouping``. Returns (launch, outs, err): ``launch()`` enqueues
     the kernel and returns the CUDA error code; outs is (occ,) or (t, slot,
     u, v). Timing ``launch`` alone measures the kernel without the wrapper's
-    packing and checks."""
+    packing and checks. ``fn``: the entry point of another build of the
+    source (``bind``)."""
     if (kind == "grouped") != bool(packet):
         raise ValueError("packet = (tile, group, common_origin) goes with the grouped walk only")
     if packet:
@@ -429,7 +459,7 @@ def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusi
                 torch.empty(r, dtype=torch.float32, device=device),
                 torch.empty(r, dtype=torch.float32, device=device))
         ptrs = (*(o.data_ptr() for o in outs), None)
-    fn = _library(kind)
+    fn = fn or _library(kind)
 
     def launch() -> int:
         with torch.cuda.device(device):
@@ -625,9 +655,11 @@ class WalkState:
         self.v = np.zeros(r, np.float32)
         self.occ = np.zeros(r, bool)
         self.pairs = 0
+        self.slabs = 0  # slab tests, added by the visits
         self.ray_pairs = np.zeros(r, np.int64)  # pair tests, per ray
         self.ray_leaves = np.zeros(r, np.int64)  # leaf tests entered, per ray
         self.slots_seen: list[np.ndarray] = []
+        self.leaf_log: list[tuple[np.ndarray, np.ndarray]] = []  # (rays, starts) per call
 
     def far(self, idx):
         """The far end of rays idx's windows: t_max, or the best hit so far."""
@@ -646,6 +678,7 @@ class WalkState:
         valid, ts, da, us, vs, s_idx, live = leaf_terms(
             self.coef, start, count, o, d, mom, self.tmin[idx], self.tmax[idx], self.cull)
         self.ray_leaves[idx] += 1
+        self.leaf_log.append((idx, start))
         self.slots_seen.append(s_idx[live])
         if self.occlusion:
             first = np.where(valid.any(1), valid.argmax(1) + 1, count)
@@ -668,6 +701,17 @@ class WalkState:
         self.v[w] = vs[better, rb] * inv_det
         return w
 
+    def leaf_order(self) -> dict:
+        """The leaves each ray tested, in its order: {"ray", "start"} [L],
+        sorted by ray (stably, so each ray's leaves keep the order in which
+        it tested them)."""
+        if self.leaf_log:
+            cols = [np.concatenate(c) for c in zip(*self.leaf_log)]
+        else:
+            cols = [np.zeros(0, np.int64)] * 2
+        order = np.argsort(cols[0], kind="stable")
+        return {k: c[order].astype(np.int64) for k, c in zip(("ray", "start"), cols)}
+
     def result(self) -> dict:
         if self.occlusion:
             return {"occluded": self.occ}
@@ -676,23 +720,66 @@ class WalkState:
                 "slot": self.slot, "u": np.where(hit, self.u, 0), "v": np.where(hit, self.v, 0)}
 
 
-def fat_visit(idx, nodes, o, inv, state: WalkState, stack, sp, cap: int, leaf_fn) -> np.ndarray:
-    """One fat-node visit of rays idx (o, inv [R, 3]; stack [R, cap], sp
-    [R]), as the kernels make it: pop, test both children's boxes against
-    (t_min, state.far], call leaf_fn(idx, ptr, meta, side) for each hit
-    leaf, child 0 first, then push the hit internal children far first (an
-    occluded ray pushes nothing). Returns the visited node ids."""
-    node = stack[idx, sp[idx] - 1]
-    sp[idx] -= 1
+class RayStacks:
+    """The host models' per-ray stacks: node ids [R, cap], each with the
+    entry t of the slab test that pushed it ([R, cap]; only the
+    children-at-the-parent walk reads it), the depths sp [R] and each
+    ray's deepest stack so far [R]. A push past ``cap`` raises, as the
+    kernels set their error flag."""
+
+    def __init__(self, r: int, cap: int):
+        self.ids = np.zeros((r, cap), np.int64)
+        self.tn = np.zeros((r, cap), np.float32)
+        self.sp = np.zeros(r, np.int64)
+        self.deepest = np.zeros(r, np.int64)
+        self.cap = cap
+
+    def start(self, idx, node, tn=0.0) -> None:
+        """Rays idx begin a walk at node ids ``node`` (an empty stack before)."""
+        self.ids[idx, 0] = node
+        self.tn[idx, 0] = tn
+        self.sp[idx] = 1
+        self.deepest[idx] = np.maximum(self.deepest[idx], 1)
+
+    def pop(self, idx) -> tuple[np.ndarray, np.ndarray]:
+        self.sp[idx] -= 1
+        return self.ids[idx, self.sp[idx]], self.tn[idx, self.sp[idx]]
+
+    def room(self, idx, pushes) -> None:
+        """Raise unless rays idx can push ``pushes`` more entries."""
+        if (self.sp[idx] + pushes > self.cap).any():
+            raise RuntimeError(f"a ray's stack overflowed its {self.cap} entries")
+
+    def push(self, idx, node, tn=0.0) -> None:
+        self.room(idx, 1)
+        self.ids[idx, self.sp[idx]] = node
+        self.tn[idx, self.sp[idx]] = tn
+        self.sp[idx] += 1
+        self.deepest[idx] = np.maximum(self.deepest[idx], self.sp[idx])
+
+
+def slab_test(box, o, inv, tmin, tf):
+    """The kernels' slab test of boxes box [..., 6] (lo3, hi3) against the
+    windows (tmin, tf] of rays o, inv [..., 3]: (hit, entry t) [...]. min
+    and max are exact, so the order of the three axes does not matter."""
+    t0 = (box[..., 0:3] - o) * inv
+    t1 = (box[..., 3:6] - o) * inv
+    tn = np.maximum(tmin, np.minimum(t0, t1).max(-1))
+    return tn <= np.minimum(tf, np.maximum(t0, t1).min(-1)), tn
+
+
+def fat_visit(idx, nodes, o, inv, state: WalkState, st: RayStacks, leaf_fn) -> np.ndarray:
+    """One fat-node visit of rays idx (o, inv [R, 3]), as the kernels make
+    it: pop, test both children's boxes against (t_min, state.far], call
+    leaf_fn(idx, ptr, meta, side) for each hit leaf, child 0 first, then
+    push the hit internal children far first (an occluded ray pushes
+    nothing). Returns the visited node ids."""
+    node = st.pop(idx)[0]
     f = nodes[node]
     tf_base = state.far(idx)
-    hits, enters = [], []
-    for c in range(2):
-        t0 = (f[:, 6 * c : 6 * c + 3] - o[idx]) * inv[idx]
-        t1 = (f[:, 6 * c + 3 : 6 * c + 6] - o[idx]) * inv[idx]
-        tn = np.maximum(state.tmin[idx], np.minimum(t0, t1).max(1))
-        hits.append(tn <= np.minimum(tf_base, np.maximum(t0, t1).min(1)))
-        enters.append(tn)
+    state.slabs += 2 * len(idx)
+    hits, enters = zip(*(slab_test(f[:, 6 * c : 6 * c + 6], o[idx], inv[idx], state.tmin[idx],
+                                   tf_base) for c in range(2)))
     ptr = [f[:, 12].astype(np.int64), f[:, 14].astype(np.int64)]
     meta = [f[:, 13], f[:, 15]]
     for c in range(2):
@@ -706,62 +793,87 @@ def fat_visit(idx, nodes, o, inv, state: WalkState, stack, sp, cap: int, leaf_fn
         int0 &= keep
         int1 &= keep
     both = int0 & int1
-    if (sp[idx] + both + (int0 | int1) > cap).any():
-        raise RuntimeError(f"a ray's stack overflowed its {cap} entries")
+    st.room(idx, both.astype(np.int64) + (int0 | int1))
     near0 = enters[0] <= enters[1]
     first = np.where(both, np.where(near0, ptr[1], ptr[0]), np.where(int0, ptr[0], ptr[1]))
     push1 = int0 | int1
-    stack[idx[push1], sp[idx[push1]]] = first[push1]
-    sp[idx[push1]] += 1
-    w = idx[both]
-    stack[w, sp[w]] = np.where(near0, ptr[0], ptr[1])[both]
-    sp[w] += 1
+    st.push(idx[push1], first[push1])
+    st.push(idx[both], np.where(near0, ptr[0], ptr[1])[both])
     return node
 
 
-def binary_visit(idx, nodes, o, inv, state: WalkState, stack, sp, cap: int,
-                 leaf_fn) -> np.ndarray:
-    """One binary-node visit of rays idx (o, inv [R, 3]; stack [R, cap], sp
-    [R]), as B4b and B6b make it: pop, slab-test the node's own box against
-    (t_min, state.far], call leaf_fn(idx, start, count, 0) for a hit leaf,
-    push a hit internal node's left child, then its right one (so the right
+def binary_visit(idx, nodes, o, inv, state: WalkState, st: RayStacks, leaf_fn) -> np.ndarray:
+    """One binary-node visit of rays idx (o, inv [R, 3]), as the JAX kernel
+    and B6b make it: pop, slab-test the node's own box against (t_min,
+    state.far], call leaf_fn(idx, start, count, 0) for a hit leaf, push a
+    hit internal node's left child, then its right one (so the right
     subtree is walked first). Returns the visited node ids."""
-    node = stack[idx, sp[idx] - 1]
-    sp[idx] -= 1
+    node = st.pop(idx)[0]
     f = nodes[node]
-    t0 = (f[:, 0:3] - o[idx]) * inv[idx]
-    t1 = (f[:, 3:6] - o[idx]) * inv[idx]
-    tn = np.maximum(state.tmin[idx], np.minimum(t0, t1).max(1))
-    hit = tn <= np.minimum(state.far(idx), np.maximum(t0, t1).min(1))
+    hit, _ = slab_test(f[:, 0:6], o[idx], inv[idx], state.tmin[idx], state.far(idx))
+    state.slabs += len(idx)
     left, right = f[:, 6], f[:, 7]
     lf = hit & (left < 0.0)
     if lf.any():
         leaf_fn(idx[lf], (-left[lf] - 1.0).astype(np.int64), right[lf].astype(np.int64), 0)
     push = hit & (left >= 0.0)
     w = idx[push]
-    if (sp[w] + 2 > cap).any():
-        raise RuntimeError(f"a ray's stack overflowed its {cap} entries")
-    stack[w, sp[w]] = left[push].astype(np.int64)
-    stack[w, sp[w] + 1] = right[push].astype(np.int64)
-    sp[w] += 2
+    st.room(w, 2)
+    st.push(w, left[push].astype(np.int64))
+    st.push(w, right[push].astype(np.int64))
     return node
 
 
-def wide_visit(idx, rows, o, inv, state: WalkState, stack, sp, cap: int, leaf_fn) -> np.ndarray:
+def parent_visit(idx, nodes, o, inv, state: WalkState, st: RayStacks, leaf_fn) -> np.ndarray:
+    """One turn of the binary walk with the children tested at the parent
+    (B4b's kernel since its redesign), for rays idx: pop a
+    node with the entry t its parent's slab test gave; go on only if that
+    t is still <= state.far (the window only shrinks, so this is the
+    node's own slab test against the window of now); for a leaf call
+    leaf_fn(idx, start, count, 0); for an internal node slab-test both
+    children's boxes and push those that hit with their entry t, the left
+    first, so the right pops first: the JAX kernel's order, the same nodes
+    visited in the same order. Returns the popped node ids."""
+    node, tn = st.pop(idx)
+    f = nodes[node]
+    live = tn <= state.far(idx)
+    left, right = f[:, 6], f[:, 7]
+    lf = live & (left < 0.0)
+    if lf.any():
+        leaf_fn(idx[lf], (-left[lf] - 1.0).astype(np.int64), right[lf].astype(np.int64), 0)
+    inner = live & (left >= 0.0)
+    w = idx[inner]
+    kids = (left[inner].astype(np.int64), right[inner].astype(np.int64))
+    tf = state.far(w)
+    state.slabs += 2 * len(w)
+    (hl, tl), (hr, tr) = (slab_test(nodes[k, 0:6], o[w], inv[w], state.tmin[w], tf)
+                          for k in kids)
+    st.room(w, hl.astype(np.int64) + hr)
+    st.push(w[hl], kids[0][hl], tl[hl])
+    st.push(w[hr], kids[1][hr], tr[hr])
+    return node
+
+
+def root_test(idx, nodes, root, o, inv, state: WalkState) -> tuple[np.ndarray, np.ndarray]:
+    """The children-at-the-parent walk's first step: rays idx test their
+    root nodes' own boxes (node ids ``root``) as the JAX kernel's first
+    visit does: (hit, entry t)."""
+    state.slabs += len(idx)
+    return slab_test(nodes[root, 0:6], o[idx], inv[idx], state.tmin[idx], state.far(idx))
+
+
+def wide_visit(idx, rows, o, inv, state: WalkState, st: RayStacks, leaf_fn) -> np.ndarray:
     """One 8-wide visit of rays idx, as B4d makes it: pop, slab-test the 8
     child boxes (rows [W*8, 8]) against (t_min, state.far], then in child
     order 0..7 call leaf_fn(idx, start, count, c) for each hit leaf child
     (count > 0.5) and push each hit internal child (count < -0.5; an
     occluded ray pushes nothing), so child 7's subtree pops first. Returns
     the visited wide node ids."""
-    node = stack[idx, sp[idx] - 1]
-    sp[idx] -= 1
+    node = st.pop(idx)[0]
     f = rows[node[:, None] * 8 + np.arange(8)]  # [n, 8 children, 8 fields]
-    oo, ii = o[idx][:, None, :], inv[idx][:, None, :]
-    t0 = (f[..., 0:3] - oo) * ii
-    t1 = (f[..., 3:6] - oo) * ii
-    tn = np.maximum(state.tmin[idx][:, None], np.minimum(t0, t1).max(2))
-    hits = tn <= np.minimum(state.far(idx)[:, None], np.maximum(t0, t1).min(2))
+    state.slabs += 8 * len(idx)
+    hits, _ = slab_test(f[..., 0:6], o[idx][:, None, :], inv[idx][:, None, :],
+                        state.tmin[idx][:, None], state.far(idx)[:, None])
     child, count = f[..., 6], f[..., 7]
     for c in range(8):
         lf = hits[:, c] & (count[:, c] > 0.5)
@@ -771,11 +883,7 @@ def wide_visit(idx, rows, o, inv, state: WalkState, stack, sp, cap: int, leaf_fn
         push = hits[:, c] & (count[:, c] < -0.5)
         if state.occlusion:
             push &= ~state.occ[idx]
-        w = idx[push]
-        if (sp[w] >= cap).any():
-            raise RuntimeError(f"a ray's stack overflowed its {cap} entries")
-        stack[w, sp[w]] = child[push, c].astype(np.int64)
-        sp[w] += 1
+        st.push(idx[push], child[push, c].astype(np.int64))
     return node
 
 
@@ -788,10 +896,108 @@ def safe_inv(d: np.ndarray) -> np.ndarray:
     return (1.0 / np.where(np.abs(d) > 1e-12, d, np.float32(1e-12))).astype(np.float32)
 
 
-def _walk_numpy(nodes, visit, slabs_per_visit: int, mt_rows, origins, directions, t_min, t_max,
-                cull: bool, occlusion: bool) -> tuple[dict, dict]:
-    """Run ``visit`` (fat_visit, binary_visit or wide_visit) over ``nodes``
-    from node 0 until every ray's stack is empty (or it is occluded)."""
+WARP = 32  # the lanes of a warp: WARP consecutive rays of a launch
+
+
+class TurnLog:
+    """The work of each loop turn of each ray of a walk: one node visit
+    (a pop and what follows it) plus the pair tests of any leaf tested in
+    it. ``loop`` names the loop a turn belongs to, so that the lanes of a
+    warp that run it together line up: 0 for a one-level walk; for a
+    nested two-level walk 3 j for the j-th TLAS turn itself and 3 j + 1 +
+    side for the BLAS walk entered at that turn's leaf child ``side``.
+    ``turn`` counts the ray's turns within its loop. A walk with leaf
+    postponement (``held_walk``) also logs its warps' rounds."""
+
+    def __init__(self):
+        self.parts: list[tuple[np.ndarray, ...]] = []
+        self.rounds: list[tuple[np.ndarray, ...]] = []
+
+    def add(self, idx, loop, turn, pairs) -> None:
+        n = len(idx)
+        self.parts.append((idx, np.broadcast_to(loop, (n,)), np.broadcast_to(turn, (n,)), pairs))
+
+    def add_round(self, idx, pairs=None) -> None:
+        """One round of a postponed walk for the warps of rays idx: a
+        traversal turn (pairs None), or a leaf phase in which rays idx test
+        leaves of ``pairs`` pair tests each, costing each warp its largest."""
+        warps, inv = np.unique(idx // WARP, return_inverse=True)
+        top = np.zeros(len(warps), np.int64)
+        if pairs is not None:
+            np.maximum.at(top, inv.reshape(-1), pairs)
+        self.rounds.append((warps, np.full(len(warps), pairs is None), top))
+
+    def arrays(self) -> dict:
+        """{"ray", "loop", "turn", "pairs"} [N] int64, one entry per turn,
+        and for a postponed walk "rounds": {"warp", "traversal", "slots"},
+        one entry per round of each warp (a traversal turn, or a leaf phase
+        with its largest pair tests)."""
+        names = ("ray", "loop", "turn", "pairs")
+        if not self.parts:
+            out = {k: np.zeros(0, np.int64) for k in names}
+        else:
+            out = {k: np.concatenate(c).astype(np.int64) for k, c in zip(names, zip(*self.parts))}
+        if self.rounds:
+            out["rounds"] = {k: np.concatenate(c) for k, c in
+                             zip(("warp", "traversal", "slots"), zip(*self.rounds))}
+        return out
+
+
+def held_walk(nodes, visit, o, inv, state: WalkState, st: RayStacks, leaf_test, log: TurnLog,
+              turn) -> list[np.ndarray]:
+    """Walk every ray with a non-empty stack in ``st`` to its end with leaf
+    postponement, as B4b's warps walk (``postponed_walk`` in
+    csrc/walk_binary.cuh): each round every ray that neither holds a leaf
+    nor has ended makes one turn of ``visit``, a leaf it pops held, not
+    tested; then each warp (WARP consecutive rays) in which no ray is still
+    looking for a leaf tests its held leaves (``leaf_test(idx, start,
+    count)``). A ray's window changes only at its own leaf tests, so a held
+    leaf is checked against it when popped. Each turn goes into ``log``
+    (loop 0) under the ray's turn counter ``turn`` [R] (advanced here), a
+    held leaf's pair tests under the turn that popped it; each round's
+    traversal turn and leaf phase go into ``log`` per warp
+    (``TurnLog.add_round``), which ``traverse2.turn_costs`` sums. Returns
+    the popped node ids of each round."""
+    r = len(st.sp)
+    held = np.zeros(r, bool)
+    start, count, held_turn = (np.zeros(r, np.int64) for _ in range(3))
+    popped = []
+
+    def hold(idx, s, c, _side):
+        held[idx] = True
+        start[idx], count[idx] = s, c
+
+    while True:
+        walking = np.nonzero((st.sp > 0) & ~held & ~state.occ)[0]
+        if len(walking):
+            popped.append(visit(walking, nodes, o, inv, state, st, hold))
+            new = held[walking]
+            log.add(walking[~new], 0, turn[walking[~new]],
+                    np.zeros(int((~new).sum()), np.int64))
+            held_turn[walking[new]] = turn[walking[new]]
+            turn[walking] += 1
+            log.add_round(walking)
+        busy = np.zeros(-(-r // WARP), bool)
+        busy[np.nonzero((st.sp > 0) & ~held & ~state.occ)[0] // WARP] = True
+        test = np.nonzero(held & ~busy[np.arange(r) // WARP])[0]
+        if len(test):
+            held[test] = False
+            before = state.ray_pairs[test]
+            leaf_test(test, start[test], count[test])
+            pairs = state.ray_pairs[test] - before
+            log.add(test, 0, held_turn[test], pairs)
+            log.add_round(test, pairs)
+        if not len(walking) and not len(test):
+            return popped
+
+
+def _walk_numpy(nodes, visit, mt_rows, origins, directions, t_min, t_max,
+                cull: bool, occlusion: bool, parent: bool = False,
+                postpone: bool = False) -> tuple[dict, dict]:
+    """Run ``visit`` (fat_visit, binary_visit, wide_visit or, with
+    ``parent``, parent_visit after the root test) over ``nodes`` from node
+    0 until every ray's stack is empty (or it is occluded); ``postpone``:
+    with leaf postponement (``held_walk``)."""
     nodes = np.asarray(nodes, np.float32)
     o = np.asarray(origins, np.float32)
     d = np.asarray(directions, np.float32)
@@ -802,31 +1008,43 @@ def _walk_numpy(nodes, visit, slabs_per_visit: int, mt_rows, origins, directions
                       cull, occlusion)
     inv = safe_inv(d)
     mom = np.cross(o, d).astype(np.float32)
-    stack = np.zeros((r, MAX_STACK), np.int64)
-    sp = np.ones(r, np.int64)
+    st = RayStacks(r, MAX_STACK)
+    live = np.ones(r, bool)
     if occlusion:
-        sp[np.abs(d).sum(axis=1) < 1e-30] = 0
+        live = np.abs(d).sum(axis=1) >= 1e-30
     ray_visits = np.zeros(r, np.int64)
-    deepest = 0
     seen_nodes: list[np.ndarray] = []
+    log = TurnLog()
 
     def leaf(idx, start, count, _side):
         state.leaf(idx, start, count, o[idx], d[idx], mom[idx])
 
     with np.errstate(all="ignore"):  # slab tests overflow to +-inf on purpose
+        idx = np.nonzero(live)[0]
+        if parent:
+            hit, tn = root_test(idx, nodes, np.zeros(len(idx), np.int64), o, inv, state)
+            idx = idx[hit]
+            st.start(idx, 0, tn[hit])
+        else:
+            st.start(idx, 0)
+        if postpone:
+            seen_nodes += held_walk(nodes, visit, o, inv, state, st,
+                                    lambda i, s, c: leaf(i, s, c, 0), log, ray_visits)
         while True:
-            idx = np.nonzero((sp > 0) & ~state.occ)[0]
+            idx = np.nonzero((st.sp > 0) & ~state.occ)[0]
             if len(idx) == 0:
                 break
+            before = state.ray_pairs[idx]
+            seen_nodes.append(visit(idx, nodes, o, inv, state, st, leaf))
+            log.add(idx, 0, ray_visits[idx], state.ray_pairs[idx] - before)
             ray_visits[idx] += 1
-            seen_nodes.append(visit(idx, nodes, o, inv, state, stack, sp, MAX_STACK, leaf))
-            deepest = max(deepest, int(sp.max()))
 
     visits = int(ray_visits.sum())
-    counts = {"visits": visits, "slab_tests": slabs_per_visit * visits,
+    counts = {"visits": visits, "slab_tests": state.slabs,
               "pair_tests": state.pairs, "node_ids": distinct(seen_nodes),
-              "slot_ids": distinct(state.slots_seen), "max_stack": deepest,
-              "ray_visits": ray_visits, "ray_leaves": state.ray_leaves}
+              "slot_ids": distinct(state.slots_seen), "max_stack": int(st.deepest.max(initial=0)),
+              "ray_visits": ray_visits, "ray_leaves": state.ray_leaves,
+              "ray_depth": st.deepest, "turns": log.arrays(), "leaf_order": state.leaf_order()}
     return state.result(), counts
 
 
@@ -840,23 +1058,39 @@ def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = Fa
 
     Returns (result, counts): result {"hit", "t", "slot", "u", "v"} or
     {"occluded"}; counts {"visits", "slab_tests", "pair_tests", "node_ids",
-    "slot_ids", "max_stack", "ray_visits", "ray_leaves"} (node_ids,
-    slot_ids: the distinct fat nodes and leaf slots touched; max_stack: the
-    deepest stack of any ray; ray_visits, ray_leaves [R]: each ray's node
-    visits and leaf tests, whose maxima over a warp's 32 rays bound the
-    warp's steps)."""
-    return _walk_numpy(bvh["bvhf_rows"], fat_visit, 2, bvh["mt_rows"], origins, directions,
+    "slot_ids", "max_stack", "ray_visits", "ray_leaves", "ray_depth",
+    "turns", "leaf_order"} (node_ids, slot_ids: the distinct fat nodes and
+    leaf slots touched; max_stack: the deepest stack of any ray;
+    ray_visits, ray_leaves, ray_depth [R]: each ray's node visits, leaf
+    tests and deepest stack; turns: the work of each loop turn of each ray
+    (``TurnLog``), which ``traverse2.turn_costs`` weighs per warp;
+    leaf_order: the leaves each ray tested, in order)."""
+    return _walk_numpy(bvh["bvhf_rows"], fat_visit, bvh["mt_rows"], origins, directions,
                        t_min, t_max, cull, occlusion)
 
 
 def binary_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
                       occlusion: bool = False) -> tuple[dict, dict]:
-    """Host model of B4b's per-ray walk over ``bvh_rows``/``mt_rows`` (numpy
-    arrays), in the JAX kernel's order (``binary_visit``): one slab test per
-    visit, pruned by the running best t. Returns what ``fat_walk_numpy``
-    returns, node_ids being binary node ids."""
-    return _walk_numpy(bvh["bvh_rows"], binary_visit, 1, bvh["mt_rows"], origins, directions,
+    """Host model of the JAX kernel's per-ray binary walk over
+    ``bvh_rows``/``mt_rows`` (numpy arrays; ``binary_visit``): one slab
+    test per visit, pruned by the running best t. Returns what
+    ``fat_walk_numpy`` returns, node_ids being binary node ids."""
+    return _walk_numpy(bvh["bvh_rows"], binary_visit, bvh["mt_rows"], origins, directions,
                        t_min, t_max, cull, occlusion)
+
+
+def parent_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
+                      occlusion: bool = False, postpone: bool = False) -> tuple[dict, dict]:
+    """Host model of B4b's per-ray walk over ``bvh_rows``/``mt_rows`` (numpy
+    arrays): the root's own box tested first, then ``parent_visit``, the
+    children tested at the parent and pushed with their entry t. It tests
+    the leaves ``binary_walk_numpy`` tests, in the same order, and returns
+    the same hits; ``postpone`` walks the rays in warps with leaf
+    postponement, as the kernel does (``held_walk``; its rounds go into
+    counts["turns"]["rounds"]), which changes neither. Returns what
+    ``fat_walk_numpy`` returns; visits are pops."""
+    return _walk_numpy(bvh["bvh_rows"], parent_visit, bvh["mt_rows"], origins, directions,
+                       t_min, t_max, cull, occlusion, parent=True, postpone=postpone)
 
 
 def wide_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
@@ -865,7 +1099,7 @@ def wide_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = F
     arrays), in the JAX kernel's order (``wide_visit``): eight slab tests per
     visit. Returns what ``fat_walk_numpy`` returns, node_ids being wide node
     ids."""
-    return _walk_numpy(bvh["bvh8_rows"], wide_visit, 8, bvh["mt_rows"], origins, directions,
+    return _walk_numpy(bvh["bvh8_rows"], wide_visit, bvh["mt_rows"], origins, directions,
                        t_min, t_max, cull, occlusion)
 
 

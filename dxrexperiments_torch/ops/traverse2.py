@@ -16,9 +16,12 @@ A stack overflow or an index outside the arrays sets the launch's error
 flag, which ``ops.traverse.check_errors`` reads later, as for B4a.
 
 ``fat_walk2_numpy`` and ``binary_walk2_numpy`` are host models of the
-kernels' walks: they return the same hits and count the TLAS visits,
-instance entries, BLAS visits and pair tests, from which ``chip_smoke.py``
-computes the kernels' bounds.
+kernels' walks (B6b's is the JAX kernel's binary walk): they return the
+same hits and count the TLAS visits, instance entries, BLAS visits and
+pair tests, from which ``chip_smoke.py`` computes the kernels' bounds.
+``warp_costs`` (node visits) and ``turn_costs`` (each turn weighed by its
+leaf tests; with leaf postponement, the rounds that
+``ops/traverse.held_walk`` logs) are the warp models of the walks.
 """
 
 from __future__ import annotations
@@ -32,10 +35,14 @@ from ..accel.tlas import two_level_any_reference, two_level_closest_reference
 from .traverse import (
     COEF_LANES,
     MAX_STACK,
+    REC_WORDS,
+    WARP,
+    RayStacks,
+    TurnLog,
     WalkState,
     _on_cuda,
     binary_visit,
-    REC_WORDS,
+    check_records,
     check_rows,
     distinct,
     fat_visit,
@@ -62,7 +69,7 @@ WALKS = {
             {"tlasf_rows": 16, "inst_rows_t": 16, "blasf_rows": 16, "blas_test": REC_WORDS}, 15,
             ("CLOSEST_LAUNCHES", "ANY_LAUNCHES")),
     "binary": ("traverse2_binary", "dxr_traverse2_binary",
-               {"tlas_rows": 8, "inst_rows_t": 16, "blas_rows": 8, "mt_rows": 128}, 12,
+               {"tlas_rows": 8, "inst_rows_t": 16, "blas_rows": 8, "blas_test": REC_WORDS}, 12,
                ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")),
 }
 
@@ -92,16 +99,14 @@ def check_tlas(tl: dict, device, kind: str = "fat") -> tuple[torch.Tensor, ...]:
     """Walk ``kind``'s two-level inputs, checked (``ops/traverse.check_rows``):
     (tlasf_rows [Ft, 16], inst_rows_t [I, 16], blasf_rows [Fb, 16],
     blas_test [S, 20]) for the fat walk, (tlas_rows [Mt, 8], inst_rows_t,
-    blas_rows [Mb, 8], mt_rows [S, 128]) for the binary one. blas_test, the
-    BLAS leaf slots' records (``ops/traverse.coef_records`` of mt_rows), is
+    blas_rows [Mb, 8], blas_test) for the binary one. blas_test, the BLAS
+    leaf slots' records (``ops/traverse.coef_records`` of mt_rows), is
     built with the rest by ``accel/tlas.build_two_level`` and
-    ``scene_from_numpy``; a hand-built tlas dict for the fat walk needs it,
-    one row per mt_rows row."""
-    rows = check_rows(tl, WALKS[kind][2], device)
-    if kind == "fat" and "mt_rows" in tl and tl["mt_rows"].shape[0] != rows[3].shape[0]:
-        raise ValueError(f"blas_test: expected one record per mt_rows row "
-                         f"({tl['mt_rows'].shape[0]}), got {rows[3].shape[0]}")
-    return rows
+    ``scene_from_numpy``; a hand-built tlas dict needs it, one row per
+    mt_rows row (``ops/traverse.check_records``)."""
+    names = dict(WALKS[kind][2])
+    del names["blas_test"]
+    return (*check_rows(tl, names, device), check_records(tl, "blas_test", device))
 
 
 def prepare_launch(tl, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
@@ -213,7 +218,7 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
     on tlas_rows and blas_rows, the root in column 12)."""
     tname, _, bname = list(WALKS[kind][2])[:3]
     root_col = WALKS[kind][3]
-    visit, slabs = (fat_visit, 2) if kind == "fat" else (binary_visit, 1)
+    visit = fat_visit if kind == "fat" else binary_visit
     tnodes = np.asarray(tl[tname], np.float32)
     inst_rows = np.asarray(tl["inst_rows_t"], np.float32)
     bnodes = np.asarray(tl[bname], np.float32)
@@ -229,19 +234,20 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
     o2, d2, inv2, mom2 = o_w.copy(), d_w.copy(), inv_w.copy(), np.zeros_like(o_w)
     cur = np.full(r, -1, np.int64)
     inst = np.full(r, -1, np.int64)
-    tstack = np.zeros((r, TLAS_STACK), np.int64)
-    tsp = np.ones(r, np.int64)
-    bstack = np.zeros((r, MAX_STACK), np.int64)
-    bsp = np.zeros(r, np.int64)
+    tst, bst = RayStacks(r, TLAS_STACK), RayStacks(r, MAX_STACK)
     pend = np.full((r, 2), -1, np.int64)  # instance leaves hit by the last TLAS visit
+    entry_side = np.zeros(r, np.int64)  # the leaf child of the current BLAS walk
+    entry_turns = np.zeros(r, np.int64)  # the current BLAS walk's turns so far
+    live = np.ones(r, bool)
     if occlusion:
-        tsp[np.abs(d_w).sum(axis=1) < 1e-30] = 0
+        live = np.abs(d_w).sum(axis=1) >= 1e-30
     c = {"tlas_visits": 0, "instance_entries": 0, "blas_visits": 0}
     seen = {"tlas_node_ids": [], "inst_ids": [], "blas_node_ids": []}
     # per ray: TLAS visits, instance entries, BLAS visits, and the BLAS
     # visits after each TLAS visit (column j: after the j-th)
     t_vis, entries, b_vis = (np.zeros(r, np.int64) for _ in range(3))
     b_after = np.zeros((r, 8), np.int64)
+    log = TurnLog()
 
     def blas_leaf(idx, start, count, _side):
         w = state.leaf(idx, start, count, o2[idx], d2[idx], mom2[idx])
@@ -255,15 +261,20 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
     # whose BLAS walk has ended enters its next pending instance; a ray with
     # neither makes one TLAS visit.
     with np.errstate(all="ignore"):  # slab tests overflow to +-inf on purpose
+        tst.start(np.nonzero(live)[0], 0)
         while True:
-            idx = np.nonzero(~state.occ & (bsp > 0))[0]
+            idx = np.nonzero(~state.occ & (bst.sp > 0))[0]
             if len(idx):
                 c["blas_visits"] += len(idx)
                 b_vis[idx] += 1
                 b_after[idx, t_vis[idx] - 1] += 1
+                before = state.ray_pairs[idx]
                 seen["blas_node_ids"].append(
-                    visit(idx, bnodes, o2, inv2, state, bstack, bsp, MAX_STACK, blas_leaf))
-            idx = np.nonzero(~state.occ & (bsp == 0) & (pend >= 0).any(1))[0]
+                    visit(idx, bnodes, o2, inv2, state, bst, blas_leaf))
+                log.add(idx, 3 * (t_vis[idx] - 1) + 1 + entry_side[idx], entry_turns[idx],
+                        state.ray_pairs[idx] - before)
+                entry_turns[idx] += 1
+            idx = np.nonzero(~state.occ & (bst.sp == 0) & (pend >= 0).any(1))[0]
             if len(idx):
                 side = np.where(pend[idx, 0] >= 0, 0, 1)
                 s_id = pend[idx, side]
@@ -275,25 +286,31 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
                 mom2[idx] = np.cross(o2[idx], d2[idx])
                 inv2[idx] = safe_inv(d2[idx])
                 cur[idx] = s_id
-                bstack[idx, 0] = row[:, root_col].astype(np.int64)
-                bsp[idx] = 1
+                entry_side[idx] = side
+                entry_turns[idx] = 0
+                bst.start(idx, row[:, root_col].astype(np.int64))
                 c["instance_entries"] += len(idx)
                 entries[idx] += 1
                 seen["inst_ids"].append(s_id)
-            idx = np.nonzero(~state.occ & (bsp == 0) & (pend < 0).all(1) & (tsp > 0))[0]
+            idx = np.nonzero(~state.occ & (bst.sp == 0) & (pend < 0).all(1) & (tst.sp > 0))[0]
             if len(idx):
                 c["tlas_visits"] += len(idx)
+                log.add(idx, 3 * t_vis[idx], 0, np.zeros(len(idx), np.int64))
                 t_vis[idx] += 1
                 if t_vis[idx].max() > b_after.shape[1]:
                     b_after = np.concatenate([b_after, np.zeros_like(b_after)], 1)
                 seen["tlas_node_ids"].append(
-                    visit(idx, tnodes, o_w, inv_w, state, tstack, tsp, TLAS_STACK, tlas_leaf))
-            if not (~state.occ & ((bsp > 0) | (pend >= 0).any(1) | (tsp > 0))).any():
+                    visit(idx, tnodes, o_w, inv_w, state, tst, tlas_leaf))
+            if not (~state.occ & ((bst.sp > 0) | (pend >= 0).any(1) | (tst.sp > 0))).any():
                 break
 
-    counts = dict(c, slab_tests=slabs * (c["tlas_visits"] + c["blas_visits"]),
-                  pair_tests=state.pairs, slot_ids=distinct(state.slots_seen),
+    counts = dict(c, slab_tests=state.slabs, pair_tests=state.pairs,
+                  slot_ids=distinct(state.slots_seen),
                   **{k: distinct(v) for k, v in seen.items()},
+                  max_stack={"tlas": int(tst.deepest.max(initial=0)),
+                             "blas": int(bst.deepest.max(initial=0))},
+                  ray_depth={"tlas": tst.deepest, "blas": bst.deepest},
+                  turns=log.arrays(),
                   per_ray={"tlas_visits": t_vis, "instance_entries": entries,
                            "blas_visits": b_vis, "pair_tests": state.ray_pairs,
                            "blas_after_tlas": b_after[:, :max(int(t_vis.max(initial=0)), 1)]})
@@ -317,18 +334,23 @@ def fat_walk2_numpy(tl: dict, origins, directions, t_min, t_max, cull: bool = Fa
     Returns (result, counts): result {"hit", "t", "slot", "u", "v", "inst"}
     or {"occluded"}; counts {"tlas_visits", "instance_entries",
     "blas_visits", "slab_tests", "pair_tests", "tlas_node_ids",
-    "inst_ids", "blas_node_ids", "slot_ids"} (the last four: the distinct
-    TLAS nodes, instances, BLAS nodes and leaf slots touched)."""
+    "inst_ids", "blas_node_ids", "slot_ids", "max_stack", "ray_depth",
+    "turns", "per_ray"} (the distinct TLAS nodes, instances, BLAS nodes and
+    leaf slots touched; the deepest stack of each level, of any ray and per
+    ray; each ray's loop turns (``ops/traverse.TurnLog``: 3 j for its j-th
+    TLAS turn, 3 j + 1 + side for the BLAS walk entered there); the per-ray
+    counts ``warp_costs`` reads)."""
     return _walk2_numpy("fat", tl, origins, directions, t_min, t_max, cull, occlusion)
 
 
 def binary_walk2_numpy(tl: dict, origins, directions, t_min, t_max, cull: bool = False,
                        occlusion: bool = False) -> tuple[dict, dict]:
-    """Host model of B6b's per-ray walk over ``tlas_rows``, ``inst_rows_t``,
-    ``blas_rows`` and ``mt_rows`` (numpy arrays): ``ops/traverse.binary_visit``
-    on the TLAS, where a hit instance leaf is entered at once and its BLAS
-    walked from the instance's binary root (column 12) with the same rules.
-    Returns what ``fat_walk2_numpy`` returns (one slab test per visit)."""
+    """Host model of the JAX kernel's per-ray binary two-level walk over
+    ``tlas_rows``, ``inst_rows_t``, ``blas_rows`` and ``mt_rows`` (numpy
+    arrays): ``ops/traverse.binary_visit`` on the TLAS, where a hit instance
+    leaf is entered at once and its BLAS walked from the instance's binary
+    root (column 12) with the same rules. Returns what ``fat_walk2_numpy``
+    returns (one slab test per visit)."""
     return _walk2_numpy("binary", tl, origins, directions, t_min, t_max, cull, occlusion)
 
 
@@ -366,4 +388,44 @@ def warp_costs(per_ray: dict, live=None, warp: int = 32) -> dict:
         packed = np.concatenate([packed, np.zeros(n_q * warp - len(packed), np.int64)])
         out["single_queued"] = packed.reshape(n_q, warp).max(1)
         out["dead_share"] = 1.0 - float(live.mean()) if r else 0.0
+    return out
+
+
+def turn_costs(turns: dict, n_rays: int, c_slab: float = 1.0, c_pair: float = 1.0) -> dict:
+    """Leaf-weighted warp costs of a walk from its turn log (the host
+    models' ``counts["turns"]``, ``ops/traverse.TurnLog``) over the warps
+    of ``ops/traverse.WARP`` consecutive rays of the ``n_rays`` walked. A warp runs each
+    loop turn once for all its lanes and each lane's turn costs one visit
+    (c_slab) plus its leaf's pair tests (c_pair each), so a turn costs the
+    warp c_slab + c_pair x its largest pair tests: a lane testing a leaf
+    holds up the rest, and lanes testing leaves in different turns are paid
+    for in turn. The lanes of a nested walk line up loop by loop (the
+    ``loop`` key): a TLAS turn, then each BLAS walk entered at it.
+
+    Returns per warp [W]: "turns" (loop turns), "pair_slots" (Σ over turns
+    of the largest pair tests), "pairs" (the pair tests its lanes make),
+    "cost" = c_slab turns + c_pair pair_slots (= Σ over turns of the
+    warp's largest c_slab + c_pair pair tests). For a walk with leaf
+    postponement (``parent_walk_numpy(..., postpone=True)``, whose log holds
+    its warps' rounds), also "postponed_turns" (its traversal rounds), "postponed_slots" (Σ over its
+    leaf phases of the largest held leaf's pair tests) and
+    "postponed_cost"; the leaves and their order are unchanged."""
+    ray, loop, turn, pairs = (np.asarray(turns[k], np.int64)
+                              for k in ("ray", "loop", "turn", "pairs"))
+    n_w = -(-n_rays // WARP)
+    w = ray // WARP
+    keys, inv = np.unique(np.stack([w, loop, turn]), axis=1, return_inverse=True)
+    inv = inv.reshape(-1)
+    top = np.zeros(keys.shape[1], np.int64)
+    np.maximum.at(top, inv, pairs)
+    out = {"turns": np.bincount(keys[0], minlength=n_w),
+           "pair_slots": np.bincount(keys[0], weights=top, minlength=n_w).astype(np.int64),
+           "pairs": np.bincount(w, weights=pairs, minlength=n_w).astype(np.int64)}
+    out["cost"] = c_slab * out["turns"] + c_pair * out["pair_slots"]
+    if "rounds" in turns:
+        rd = turns["rounds"]
+        p_turns = np.bincount(rd["warp"], weights=rd["traversal"], minlength=n_w).astype(np.int64)
+        p_slots = np.bincount(rd["warp"], weights=rd["slots"], minlength=n_w).astype(np.int64)
+        out.update(postponed_turns=p_turns, postponed_slots=p_slots,
+                   postponed_cost=c_slab * p_turns + c_pair * p_slots)
     return out

@@ -1,37 +1,49 @@
 """The port's kernels against another commit's sources on one NVIDIA GPU:
-the trace kernels B3 (csrc/intersect_brute.cu) and B6a
+the trace kernels B4b (csrc/traverse_binary.cu), B6b
+(csrc/traverse2_binary.cu), B3 (csrc/intersect_brute.cu) and B6a
 (csrc/traverse2_fat.cu) case by case, every other kernel by its
 instructions.
 
-    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B3,B6a]
+    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B4b,B6b]
+                         [--same-entries] [--this DIR2]
 
 DIR is a checkout of the commit to compare with (its
 ``dxrexperiments_torch/csrc`` is built with this package's nvcc flags,
 beside this tree's; one nvcc per source, all at once). Printed:
 
 - ptxas' registers, spills and stack of every kernel of both trees;
-- for every kernel but B3 and B6a, whether its instructions (``cuobjdump
-  -sass``) equal the base build's;
-- for the sweep and leaf loops of B1, B3, B5 and B6a (the innermost loops
-  that load and do float work, each pair test counted by its FSETP against
-  1e-12) the instructions, loads and float instructions per pair test;
+- for every kernel but this tree's redesigns (``REDESIGNED``: B4b, B6b),
+  whether its instructions (``cuobjdump -sass``) equal the base build's;
+- for the sweep and leaf loops of B1, B3, B5 and the walks (the innermost
+  loops that load and do float work, each pair test counted by its FSETP
+  against 1e-12) the instructions, loads and float instructions per pair
+  test; for the walks (B4a, B4b, B4d, B6a, B6b) each loop that holds a
+  pair-test loop, with its instructions outside its inner loops (a turn's
+  work without its pair tests);
 - per trace case (``trace_cases``: the four launches of the first sample of
-  the first 512^2 S = 4 dispatch, on ``instanced:2`` brute force for B3 and
-  on config 5 two-level, ``instanced:32``, for B6a), on the same inputs:
+  the first 512^2 S = 4 dispatch, on config 5 flattened without fat nodes
+  for B4b, config 5 two-level without fat nodes for B6b, ``instanced:2``
+  brute force for B3 and config 5 two-level for B6a), on the same inputs:
   the rays whose output differs in any bit from the base build's, per
   output (t, u, v, slot, inst, occlusion and every fused attribute); the
-  host figures of where the launch's lanes idle (``trace_figures``); ms per
-  launch, CUDA events around the launch alone, base and this tree in turns
-  (base, this, this, base; ``--reps`` launches a turn, 0 for none); and the
+  host figures (``trace_figures``: for B4b and B6b the leaf-weighted warp
+  figures of every walk of the launch, ``walk_figures``); ms per launch,
+  CUDA events around the launch alone, base and this tree in turns (base,
+  this, this, base; ``--reps`` launches a turn, 0 for none); and the
   route's host ms per dispatch with either build (``BaseRoute``), in turns;
 - with ``--kernels B1,B5``, the megakernels' cases (``megakernel_cases``:
   configs 1, 3, 4, config 5 flattened and its 1080p frame, the config-2
   stand-in): the pixels that differ in any bit, ms in turns.
 
-The base's trace kernels are called with the entry points they had before
-the live-ray queue and the records (``base_trace_launch``); the
-megakernels' entry points are the base's own. The last line is one JSON
-object with all of it but the loops' counts, which --json writes too.
+The base's B4b and B6b are called with the entry points they had before
+their leaf records (``base_trace_launch``), its B3 and B6a through this
+tree's wrappers; ``--same-entries`` (a base that is a variant of this tree)
+launches all of them through this tree's wrappers. ``--this DIR2`` builds
+DIR2's sources in place of this tree's (a variant with this tree's entry
+points, run through this tree's wrappers), so two variants compare in one
+call. The megakernels' entry
+points are the base's own. The last line is one JSON object with all of it
+but the loops' counts, which --json writes too.
 """
 
 from __future__ import annotations
@@ -48,9 +60,12 @@ SOURCES = {"B1": "fused_sample", "B2": "bilateral", "B3": "intersect_brute",
            "B4a": "traverse_fat", "B4b": "traverse_binary", "B4c": "traverse_fat_grouped",
            "B4d": "traverse8", "B5": "fused_traverse", "B6a": "traverse2_fat",
            "B6b": "traverse2_binary", "B7": "roofline"}
-# compared case by case; every other kernel's instructions must equal the base's
-REDESIGNED = ("B3", "B6a")
-COMPARED = ("B3", "B6a", "B1", "B5")  # the kernels with cases
+# this tree's redesigns, compared case by case; every other kernel's
+# instructions must equal the base's
+REDESIGNED = ("B4b", "B6b")
+TRACED = ("B4b", "B6b", "B3", "B6a")  # the trace kernels with cases
+COMPARED = TRACED + ("B1", "B5")  # the kernels with cases
+WALK_KERNELS = ("B4a", "B4b", "B4d", "B6a", "B6b")  # whose walk loops are counted
 BATCHES = ("primary closest", "depth-0 shadow any", "bounce closest", "depth-1 shadow any")
 
 
@@ -79,16 +94,27 @@ def opcode(ins: str) -> str:
     return re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0]
 
 
-def loop_counts(code: list[tuple[int, str]]) -> list[dict]:
-    """The innermost loops (a backward BRA and its target) that load and do
-    float work: per loop its span and instruction counts."""
+def loop_spans(code: list[tuple[int, str]]) -> list[tuple[int, int]]:
+    """Every loop of a function: (target, address) of each backward BRA."""
     loops = []
     for addr, ins in code:
         if opcode(ins).startswith("BRA"):
             m = re.search(r"0x([0-9a-f]+)", ins)
             if m and int(m.group(1), 16) <= addr:
                 loops.append((int(m.group(1), 16), addr))
-    inner = [a for a in loops if not any(b != a and a[0] <= b[0] and b[1] <= a[1] for b in loops)]
+    return loops
+
+
+def inside(a: tuple[int, int], b: tuple[int, int]) -> bool:
+    """Whether span a lies in span b and is not b."""
+    return a != b and b[0] <= a[0] and a[1] <= b[1]
+
+
+def loop_counts(code: list[tuple[int, str]]) -> list[dict]:
+    """The innermost loops (a backward BRA and its target) that load and do
+    float work: per loop its span and instruction counts."""
+    loops = loop_spans(code)
+    inner = [a for a in loops if not any(inside(b, a) for b in loops)]
     out = []
     for lo, hi in sorted(set(inner)):
         body = [ins for addr, ins in code if lo <= addr <= hi]
@@ -108,6 +134,25 @@ def loop_counts(code: list[tuple[int, str]]) -> list[dict]:
         pairs = sum(1 for op, i in zip(ops, body) if op.startswith("FSETP") and "e-13" in i)
         out.append({"span": [lo, hi], "instructions": len(body), "pair_tests": pairs,
                     "counts": dict(sorted(counts.items()))})
+    return out
+
+
+def walk_loops(code: list[tuple[int, str]]) -> list[dict]:
+    """The loops that hold a pair-test loop (a walk's loop over nodes): per
+    loop its span, its instructions, those outside every loop it holds (a
+    turn's own work, its leaf's pair tests aside) and its pair-test loops."""
+    loops = sorted(set(loop_spans(code)))
+    tests = [tuple(lp["span"]) for lp in loop_counts(code) if lp["pair_tests"]]
+    out = []
+    for span in loops:
+        held = [t for t in tests if inside(t, span)]
+        if not held:
+            continue
+        subs = [b for b in loops if inside(b, span)]
+        body = [addr for addr, _ in code if span[0] <= addr <= span[1]]
+        own = [a for a in body if not any(b[0] <= a <= b[1] for b in subs)]
+        out.append({"span": list(span), "instructions": len(body), "own": len(own),
+                    "pair_loops": len(held)})
     return out
 
 
@@ -162,72 +207,55 @@ def sass_report(so_path: str) -> dict:
     return {name: loop_counts(code) for name, code in sass_functions(proc.stdout).items()}
 
 
-def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
-    """The base commit's entry points of the trace kernels, as they were
-    before the live-ray queue and the records: B3 (``dxr_intersect_closest``
-    / ``dxr_intersect_any``) reads mt_pack and attr_pack and takes no
-    queue; B6a (``dxr_traverse2_fat``) reads mt_rows. Returns (launch,
-    outs, err): B6a's error flag, or None."""
-    import ctypes
+def walk_report(so_path: str) -> dict:
+    """``walk_loops`` of every function of a build."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return {"error": "cuobjdump not found"}
+    proc = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+        return {"error": proc.stderr.strip()[-400:]}
+    return {name: walk_loops(code) for name, code in sass_functions(proc.stdout).items()}
 
+
+def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
+    """The base commit's entry points of the trace kernels: B3 and B6a as
+    this tree's (``this_trace_launch``); B4b (``dxr_traverse_binary``) and
+    B6b (``dxr_traverse2_binary``) as they were before their leaf records,
+    reading mt_rows where they now read ft_test and blas_test. Returns
+    (launch, outs, err)."""
     import torch
 
-    from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
-    from dxrexperiments_torch.ops.traverse import pack_rays
 
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if kernel in ("B3", "B6a"):
+        return this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion)
     device = o.device
     r = o.shape[0]
-    if kernel == "B3":
-        oo, dd = ik._rays(o, "origins"), ik._rays(d, "directions")
-        (tmin_t, tmin_s), (tmax_t, tmax_s) = (ik._window(t_min, r, device),
-                                              ik._window(t_max, r, device))
-        mt = scene["mt_pack"]
-        t_pad = int(mt.shape[1])
-        t_count = min(int(scene.get("num_tris", t_pad)), t_pad)
-        window = [vp] * 4 + [cf] * 2
-        if occlusion:
-            outs = (torch.empty(r, dtype=torch.bool, device=device),)
-            fn, packs, tail = lib.dxr_intersect_any, (mt,), (r, t_pad, t_count)
-            fn.argtypes = window + [vp] + [ci] * 3 + [vp] * 2
-        else:
-            outs = (torch.empty((len(ik.SCALARS), r), dtype=torch.float32, device=device),
-                    torch.empty((len(ik.VECTORS), r, 3), dtype=torch.float32, device=device),
-                    torch.empty((len(ik.IDS), r), dtype=torch.int64, device=device))
-            fn, packs = lib.dxr_intersect_closest, (mt, scene["attr_pack"])
-            tail = (r, t_pad, t_count, int(cull))
-            fn.argtypes = window + [vp] * 2 + [ci] * 4 + [vp] * 4
-        fn.restype = ci
-        rays = (oo, dd, tmin_t, tmax_t)
-
-        def launch() -> int:
-            return fn(*(x.data_ptr() if x is not None else None for x in rays), tmin_s, tmax_s,
-                      *(p.data_ptr() for p in packs), *tail, *(x.data_ptr() for x in outs),
-                      torch.cuda.current_stream(device).cuda_stream)
-
-        return launch, outs, None
-    tl = scene["tlas"]
-    tlas, inst, blas = tv2.check_tlas(tl, device)[:3]
-    rows = tl["mt_rows"]  # the base's leaf tests read mt_rows, not the records
-    rays = pack_rays(o, d, t_min, t_max)
+    rays = tv.pack_rays(o, d, t_min, t_max)
     err = torch.zeros(1, dtype=torch.int32, device=device)
+    kinds = (torch.float32, torch.int32, torch.float32, torch.float32)
+    if kernel == "B4b":
+        bvh = scene["bvh"]
+        arrays = (bvh["bvh_rows"], bvh["mt_rows"])
+        fn = tv.bind(lib, "binary")
+    else:
+        tl = scene["tlas"]
+        arrays = (tl["tlas_rows"], tl["inst_rows_t"], tl["blas_rows"], tl["mt_rows"])
+        fn = tv2.bind(lib, "binary")
+        kinds += (torch.int32,)
     if occlusion:
         outs = (torch.empty(r, dtype=torch.bool, device=device),)
-        ptrs = (None,) * 5 + (outs[0].data_ptr(),)
+        ptrs = (None,) * len(kinds) + (outs[0].data_ptr(),)
     else:
-        outs = tuple(torch.empty(r, dtype=dt, device=device) for dt in (
-            torch.float32, torch.int32, torch.float32, torch.float32, torch.int32))
+        outs = tuple(torch.empty(r, dtype=k, device=device) for k in kinds)
         ptrs = (*(x.data_ptr() for x in outs), None)
-    fn = lib.dxr_traverse2_fat
-    fn.argtypes = [vp] * 5 + [ci] * 7 + [vp] * 8
-    fn.restype = ci
 
     def launch() -> int:
-        return fn(rays.data_ptr(), tlas.data_ptr(), inst.data_ptr(), blas.data_ptr(),
-                  rows.data_ptr(), r, tlas.shape[0], inst.shape[0], blas.shape[0], rows.shape[0],
-                  int(occlusion), int(cull), *ptrs, err.data_ptr(),
-                  torch.cuda.current_stream(device).cuda_stream)
+        return fn(rays.data_ptr(), *(a.data_ptr() for a in arrays), r,
+                  *(a.shape[0] for a in arrays), int(occlusion), int(cull), *ptrs,
+                  err.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
 
     return launch, outs, err
 
@@ -236,14 +264,19 @@ def this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
     """This tree's wrapper (prepare_launch) of a trace kernel with ``lib``:
     (launch, outs, err)."""
     from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
 
     if kernel == "B3":
         launch, outs = ik.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion,
                                          lib=ik.bind(lib))
         return launch, outs, None
-    return tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull, occlusion,
-                              fn=tv2.bind(lib))
+    if kernel == "B4b":
+        return tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, "binary",
+                                 fn=tv.bind(lib, "binary"))
+    kind = "fat" if kernel == "B6a" else "binary"
+    return tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull, occlusion, kind,
+                              fn=tv2.bind(lib, kind))
 
 
 def output_fields(kernel, occlusion, outs) -> dict:
@@ -369,28 +402,29 @@ def megakernel_cases(dev):
             for n, k, s, o, c, w, h, r, reps in out]
 
 
-def trace_cases(dev):
-    """(name, kernel, scene, [(batch, o, d, t_min, t_max, cull, occlusion)])
-    of the trace kernels' main paths: the four launches of the first sample
-    of the first 512^2 dispatch (S = 4), as phases 16 (B3, instanced:2) and
-    12 (B6a, instanced:32 two-level) of chip_smoke.py record them."""
+def trace_cases(dev, kernels):
+    """(name, kernel, scene, [(batch, o, d, t_min, t_max, cull, occlusion)],
+    pipe) of the trace kernels' main paths among ``kernels``: the four
+    launches of the first sample of the first 512^2 dispatch (S = 4), as
+    chip_smoke.py's phases record them: 16 (B3, instanced:2 brute force), 12
+    (B6a, instanced:32 two-level), 32 (B4b, instanced:32 flattened without
+    fat nodes) and 34 (B6b, the two-level scene without them). ``scene`` is
+    the whole scene (the B4b and B6b cases' fat nodes included, which the
+    host models of B4a and B6a read); ``pipe`` dispatches the case's route.
+    Each case's scenes are built when it is reached."""
     import chip_smoke as cs
 
     from dxrexperiments_torch.app.headless import build_scene
     from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
     from dxrexperiments_torch.ops import intersect_kernel as ik
+    from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
     from dxrexperiments_torch.trace.integrator import render_sample
 
-    def first_sample(name, two_level, tv, names):
-        sc, cam = build_scene(name)
-        cam.set_aspect(512, 512)
+    def first_sample(scene, cam, tv, names):
         pipe = ProgressiveRaytracingPipeline(512, 512, seed=0, samples_per_frame=4, device=dev)
         pipe.set_camera(cam)
-        if two_level:
-            pipe.set_scene_data(sc.build_two_level(dev))
-        else:
-            pipe.set_scene(sc)
+        pipe.set_scene_data(scene)
         pipe.update(elapsed_time=0.0, elapsed_frames=0)
         cam1 = {k: v[0] for k, v in pipe._camera_params.items()}
         traces = []
@@ -400,34 +434,63 @@ def trace_cases(dev):
 
         with cs.TraceHook(tv, record, names):
             render_sample(pipe.scene_data, pipe.options, cam1, 512, 512, impl="cuda")
-        return pipe.scene_data, [(b, *t) for b, t in zip(BATCHES, traces)], pipe
+        return [(b, *t) for b, t in zip(BATCHES, traces)], pipe
 
-    return [("instanced:2 brute force 512^2, 1 sample", "B3",
-             *first_sample(cs.BRUTE_MAIN_SCENE, False, ik, cs.TraceHook.BRUTE)),
-            ("config 5 two-level: instanced:32 512^2, 1 sample", "B6a",
-             *first_sample("instanced:32", True, tv2, cs.TraceHook.TWO_LEVEL))]
+    def built(name, form):
+        sc, cam = build_scene(name)
+        cam.set_aspect(512, 512)
+        return (sc.build_two_level(dev) if form == "two-level" else sc.build(dev)), cam
+
+    if "B3" in kernels:
+        scene, cam = built(cs.BRUTE_MAIN_SCENE, "flat")
+        yield ("instanced:2 brute force 512^2, 1 sample", "B3", scene,
+               *first_sample(scene, cam, ik, cs.TraceHook.BRUTE))
+    if "B4b" in kernels:
+        scene, cam = built("instanced:32", "flat")
+        fatless = dict(scene, bvh={k: v for k, v in scene["bvh"].items() if k not in cs.FAT_BVH})
+        yield ("config 5 flattened without fat nodes: instanced:32 512^2, 1 sample", "B4b",
+               scene, *first_sample(fatless, cam, tv, cs.TraceHook.BINARY))
+        del scene, fatless
+    if "B6a" in kernels or "B6b" in kernels:
+        scene, cam = built("instanced:32", "two-level")
+        if "B6a" in kernels:
+            yield ("config 5 two-level: instanced:32 512^2, 1 sample", "B6a", scene,
+                   *first_sample(scene, cam, tv2, cs.TraceHook.TWO_LEVEL))
+        if "B6b" in kernels:
+            fatless = dict(scene, tlas={k: v for k, v in scene["tlas"].items()
+                                        if k not in cs.FAT_TLAS})
+            yield ("config 5 two-level without fat nodes: instanced:32 512^2, 1 sample", "B6b",
+                   scene, *first_sample(fatless, cam, tv2, cs.TraceHook.TWO_LEVEL_BINARY))
 
 
 class BaseRoute:
     """While active, the wrappers of trace kernel ``kernel`` (ops.
-    intersect_kernel for B3, ops.traverse2's fat walk for B6a) launch the
-    base build ``lib`` through ``base_trace_launch``, so that a pipeline's
-    dispatch runs the base kernel with everything else this tree's."""
+    intersect_kernel for B3, ops.traverse's binary walk for B4b,
+    ops.traverse2's fat walk for B6a and binary walk for B6b) launch the
+    build ``lib`` through ``launcher`` (``base_trace_launch``, or
+    ``this_trace_launch`` for a build with this tree's entry points), so
+    that a pipeline's dispatch runs that kernel with everything else this
+    tree's."""
 
-    def __init__(self, kernel, lib):
+    def __init__(self, kernel, lib, launcher=None):
         from dxrexperiments_torch.ops import intersect_kernel as ik
+        from dxrexperiments_torch.ops import traverse as tv
         from dxrexperiments_torch.ops import traverse2 as tv2
 
         self.kernel, self.lib = kernel, lib
-        self.mod = ik if kernel == "B3" else tv2
+        self.launcher = launcher or base_trace_launch
+        self.mod = {"B3": ik, "B4b": tv, "B6a": tv2, "B6b": tv2}[kernel]
+        self.kind = {"B3": None, "B4b": "binary", "B6a": "fat", "B6b": "binary"}[kernel]
 
-    def launch(self, scene_or_tl, o, d, t_min, t_max, cull, occlusion, kind="fat"):
+    def launch(self, scene_or_tl, o, d, t_min, t_max, cull, occlusion, kind="fat", *rest):
         from dxrexperiments_torch.ops import intersect_kernel as ik
         from dxrexperiments_torch.ops.traverse import queue_error_check
 
-        scene = scene_or_tl if self.kernel == "B3" else {"tlas": scene_or_tl}
-        launch, outs, err = base_trace_launch(self.kernel, self.lib, scene, o, d, t_min, t_max,
-                                              cull, occlusion)
+        if self.kind is not None and kind != self.kind:  # another walk of the module
+            return self.saved(scene_or_tl, o, d, t_min, t_max, cull, occlusion, kind, *rest)
+        scene = scene_or_tl if self.kernel in ("B3", "B4b") else {"tlas": scene_or_tl}
+        launch, outs, err = self.launcher(self.kernel, self.lib, scene, o, d, t_min, t_max, cull,
+                                          occlusion)
         if o.shape[0] and launch() != 0:
             raise RuntimeError(f"base {self.kernel} launch failed")
         if err is not None:
@@ -439,11 +502,14 @@ class BaseRoute:
                    for k, x in zip(names, block)}
             res["hit"] = res["tri"] >= 0
             return res
-        t, slot, u, v, inst = outs
+        t, slot, u, v = outs[:4]
         hit = slot >= 0
-        tri = scene_or_tl["slot_tri"][slot.clamp(min=0).long()]
-        return {"hit": hit, "t": t, "tri": tri.where(hit, -1).long(), "slot": slot.long(),
-                "u": u, "v": v, "inst": inst.long()}
+        slot_tri = (scene["bvh"] if self.kernel == "B4b" else scene_or_tl)["slot_tri"]
+        res = {"hit": hit, "t": t, "tri": slot_tri[slot.clamp(min=0).long()].where(hit, -1).long(),
+               "slot": slot.long(), "u": u, "v": v}
+        if len(outs) == 5:
+            res["inst"] = outs[4].long()
+        return res
 
     def __enter__(self):
         self.saved = self.mod._launch
@@ -452,6 +518,31 @@ class BaseRoute:
 
     def __exit__(self, *exc):
         self.mod._launch = self.saved
+
+
+# the walks on the same launch inputs beside B4b and B6b (this package's builds)
+YARDSTICKS = {"B4b": (("B4a", "fat"), ("B4d", "wide")), "B6b": (("B6a", "fat"),)}
+
+
+def yardstick_ms(kernel, scene, o, d, t_min, t_max, cull, occlusion, reps: int) -> dict:
+    """ms per launch, CUDA events around the launch alone, of the other
+    walks of a B4b or B6b case's launch inputs (``YARDSTICKS``): B4a and
+    B4d on the flattened scene's fat and 8-wide nodes, B6a on the two-level
+    scene's fat nodes."""
+    from dxrexperiments_torch.ops import traverse as tv
+    from dxrexperiments_torch.ops import traverse2 as tv2
+    from dxrexperiments_torch.ops.traverse import raise_on_error
+
+    out = {}
+    for name, kind in YARDSTICKS[kernel]:
+        if kernel == "B4b":
+            launch, _, err = tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, kind)
+        else:
+            launch, _, err = tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull,
+                                                occlusion, kind)
+        out[name] = time_ms(launch, reps)
+        raise_on_error(err, f"{name} yardstick")
+    return out
 
 
 def dispatch_ms(pipe, n: int) -> float:
@@ -478,7 +569,8 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> di
     from the plain sweep's verdicts on every ray
     (``intersect_kernel.sweep_figures``); B6a's warp costs on
     chip_smoke.COUNT_PIXELS rays of sampled whole warps
-    (``chip_smoke.walk2_figures``)."""
+    (``chip_smoke.walk2_figures``); B4b's and B6b's leaf-weighted figures
+    (``walk_figures``)."""
     import chip_smoke as cs
 
     from dxrexperiments_torch.ops import intersect_kernel as ik
@@ -488,6 +580,8 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> di
         t_count = min(int(scene["num_tris"]), int(scene["mt_pack"].shape[1]))
         work = ik.sweep_work(scene, o, d, t_min, t_max, occlusion, cull, cs.PLAIN_SLICE)
         return ik.sweep_figures(work, t_count)
+    if kernel in ("B4b", "B6b"):
+        return walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng)
     tl = scene["tlas"]
     tl_np = {k: tl[k].cpu().numpy() for k in ("tlasf_rows", "inst_rows_t", "blasf_rows",
                                                "mt_rows", "slot_tri")}
@@ -498,14 +592,77 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> di
     return cs.walk2_figures(tv2, counts, d[sub], t_min, cs.rows_of(t_max, sub), occlusion)
 
 
-def build_trees(base_csrc: str, keys) -> tuple[dict, dict]:
-    """Every source of ``keys`` in both trees, one nvcc each, all at once:
-    (trees {"base", "this"}: csrc dir, libs {(tree, key): CDLL})."""
+def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dict:
+    """Step-1 figures of a B4b or B6b launch, on chip_smoke.COUNT_PIXELS rays
+    of sampled spans of whole warps (``chip_smoke.sampled_warps``), for each
+    walk's host model: B4b's launch inputs through B4a's fat walk, B4d's
+    8-wide walk, the JAX kernel's binary walk (B4b before its redesign) and
+    this tree's (``parent_walk_numpy`` with leaf postponement); B6b's
+    through B6a's walk and the JAX kernel's binary walk (B6b's). Per walk,
+    summed over the warps (``ops/traverse2.turn_costs``): "turns" (a warp's
+    loop turns), "slots" (Σ over turns of its largest pair tests), "pairs"
+    (its lanes' pair tests), with leaf postponement (this tree's B4b)
+    "p_turns", "p_slots", "visits" and "pairs" per ray, "deepest" (the
+    deepest stack of any ray; two-level: TLAS + BLAS) and "mean_deepest"
+    (each ray's deepest, mean); and for B4b "same_hits": whether this
+    tree's model returns the JAX kernel model's hits, bit for bit."""
+    import functools
+
+    import chip_smoke as cs
+    import numpy as np
+
+    from dxrexperiments_torch.ops import traverse as tv
+    from dxrexperiments_torch.ops import traverse2 as tv2
+
+    sub = cs.sampled_warps(len(o), rng, o.device)
+    args = (cs.host_array(o[sub]), cs.host_array(d[sub]), cs.host_array(t_min),
+            cs.host_array(cs.rows_of(t_max, sub)))
+    if kernel == "B4b":
+        tree = {k: scene["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "bvh_rows", "bvh8_rows",
+                                                          "mt_rows", "slot_tri")}
+        models = {"B4a": tv.fat_walk_numpy, "B4d": tv.wide_walk_numpy,
+                  "B4b JAX order": tv.binary_walk_numpy,
+                  "B4b": functools.partial(tv.parent_walk_numpy, postpone=True)}
+    else:
+        tree = {k: scene["tlas"][k].cpu().numpy() for k in (
+            "tlasf_rows", "tlas_rows", "inst_rows_t", "blasf_rows", "blas_rows", "mt_rows",
+            "slot_tri")}
+        models = {"B6a": tv2.fat_walk2_numpy, "B6b": tv2.binary_walk2_numpy}
+    fig, results = {}, {}
+    for name, model in models.items():
+        res, c = model(tree, *args, cull=cull, occlusion=occlusion)
+        results[name] = res
+        w = tv2.turn_costs(c["turns"], len(sub))
+        depth = c["ray_depth"]
+        if isinstance(depth, dict):
+            deepest = c["max_stack"]["tlas"] + c["max_stack"]["blas"]
+            mean = float((depth["tlas"] + depth["blas"]).mean())
+            visits = c["tlas_visits"] + c["blas_visits"]
+        else:
+            deepest, mean, visits = c["max_stack"], float(depth.mean()), c["visits"]
+        row = {"turns": int(w["turns"].sum()), "slots": int(w["pair_slots"].sum()),
+               "pairs": int(w["pairs"].sum())}
+        if "postponed_turns" in w:
+            row.update(p_turns=int(w["postponed_turns"].sum()),
+                       p_slots=int(w["postponed_slots"].sum()))
+        row.update(visits=visits / len(sub), pairs_per_ray=c["pair_tests"] / len(sub),
+                   deepest=deepest, mean_deepest=mean)
+        fig[name] = row
+    if kernel == "B4b":
+        base = results["B4b JAX order"]
+        fig["same_hits"] = all(np.array_equal(results["B4b"][k], base[k]) for k in base)
+    return fig
+
+
+def build_trees(base_csrc: str, keys, this_csrc: str | None = None) -> tuple[dict, dict]:
+    """Every source of ``keys`` in both trees (this one: this package's
+    sources, or ``this_csrc``), one nvcc each, all at once: (trees {"base",
+    "this"}: csrc dir, libs {(tree, key): CDLL})."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dxrexperiments_torch.utils import cuda_build
 
-    trees = {"base": base_csrc, "this": cuda_build.CSRC_DIR}
+    trees = {"base": base_csrc, "this": this_csrc or cuda_build.CSRC_DIR}
     jobs = [(tree, key) for tree in trees for key in keys]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: cuda_build.load_library(
@@ -513,16 +670,21 @@ def build_trees(base_csrc: str, keys) -> tuple[dict, dict]:
     return trees, libs
 
 
-def compare(base_csrc: str, card: str, dev, kernels, reps: int) -> dict:
+def compare(base_csrc: str, card: str, dev, kernels, reps: int,
+            same_entries: bool = False, this_csrc: str | None = None) -> dict:
     """Build, check and time (``reps`` launches a turn; 0: no times) both
-    trees (main's work) for the cases of ``kernels`` (of COMPARED)."""
+    trees (main's work) for the cases of ``kernels`` (of COMPARED).
+    ``same_entries``: the base's trace kernels have this tree's entry points
+    (a variant of this tree), so they launch through this tree's wrappers.
+    ``this_csrc``: build "this" from these sources (a variant with this
+    tree's entry points) instead of this package's."""
     import numpy as np
     import torch
 
     from dxrexperiments_torch.ops.traverse import check_errors, raise_on_error
     from dxrexperiments_torch.utils import cuda_build
 
-    trees, libs = build_trees(base_csrc, SOURCES)
+    trees, libs = build_trees(base_csrc, SOURCES, this_csrc)
 
     def info(tree, key):
         d = trees[tree]
@@ -544,8 +706,9 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int) -> dict:
         same = None if texts[0] is None else texts[0] == texts[1]
         report["sass_identical"][key] = same
         print(f"sass {key}: this build's instructions equal the base build's: {same}", flush=True)
+    report["walk_loops"] = {}
     for tree in trees:
-        for key in ("B1", "B3", "B5", "B6a"):
+        for key in ("B1", "B3", "B5") + WALK_KERNELS:
             sass = sass_report(info(tree, key)["path"])
             report["sass_loops"][f"{key} {tree}"] = sass
             if "error" in sass:
@@ -553,19 +716,25 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int) -> dict:
                 continue
             for line in loop_summary(sass):
                 print(f"sass {key} {tree}: {line}", flush=True)
-
-    if any(k in REDESIGNED for k in kernels):
-        for name, kernel, scene, traces, pipe in trace_cases(dev):
-            if kernel not in kernels:
+            if key not in WALK_KERNELS:
                 continue
+            walks = walk_report(info(tree, key)["path"])
+            report["walk_loops"][f"{key} {tree}"] = walks
+            for fn, loops in sorted(walks.items()) if "error" not in walks else ():
+                for lp in loops:
+                    print(f"walk loop {key} {tree} {fn}: {lp['instructions']} instructions, "
+                          f"{lp['own']} outside its inner loops, {lp['pair_loops']} pair-test "
+                          f"loops", flush=True)
+
+    launcher = this_trace_launch if same_entries else base_trace_launch
+    if any(k in TRACED for k in kernels):
+        for name, kernel, scene, traces, pipe in trace_cases(dev, kernels):
             if reps:  # the route's dispatch with either kernel, in turns
-                base_route = BaseRoute(kernel, libs["base", kernel])
+                routes = {True: BaseRoute(kernel, libs["base", kernel], launcher),
+                          False: BaseRoute(kernel, libs["this", kernel], this_trace_launch)}
                 turns = []
                 for use_base in (True, False, False, True):
-                    if use_base:
-                        with base_route:
-                            turns.append(dispatch_ms(pipe, reps))
-                    else:
+                    with routes[use_base]:
                         turns.append(dispatch_ms(pipe, reps))
                 check_errors()
                 row = {"case": f"{name}: ms per 4-sample dispatch", "kernel": kernel,
@@ -577,8 +746,8 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int) -> dict:
                       f"{', '.join(f'{t:.3f}' for t in turns)}) [{card}]", flush=True)
             for batch, o, d, t_min, t_max, cull, occlusion in traces:
                 label = f"{name}, {batch} ({len(o)} rays)"
-                base = base_trace_launch(kernel, libs["base", kernel], scene, o, d, t_min, t_max,
-                                         cull, occlusion)
+                base = launcher(kernel, libs["base", kernel], scene, o, d, t_min, t_max, cull,
+                                occlusion)
                 mine = this_trace_launch(kernel, libs["this", kernel], scene, o, d, t_min, t_max,
                                          cull, occlusion)
                 for launch, *_ in (base, mine):
@@ -589,15 +758,22 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int) -> dict:
                                       output_fields(kernel, occlusion, mine[1]))
                 fig = trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion,
                                     np.random.default_rng(len(report["cases"])))
-                print(f"figures {kernel} {label}: "
-                      + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-                                  for k, v in fig.items()), flush=True)
+                for k, v in fig.items():
+                    line = (", ".join(f"{a} {b:.4f}" if isinstance(b, float) else f"{a} {b}"
+                                      for a, b in v.items()) if isinstance(v, dict) else v)
+                    print(f"figures {kernel} {label}: {k}: {line}", flush=True)
                 row = {"case": label, "kernel": kernel, "batch": batch, "rays": len(o),
                        "differing_rays": diff, "figures": fig}
                 if reps:
                     turns = [time_ms(f, reps) for f in (base[0], mine[0], mine[0], base[0])]
                     row.update(base_ms=(turns[0] + turns[3]) / 2,
                                this_ms=(turns[1] + turns[2]) / 2, turns_ms=turns)
+                if reps and kernel in YARDSTICKS:
+                    row["yardstick_ms"] = yardstick_ms(kernel, scene, o, d, t_min, t_max, cull,
+                                                       occlusion, reps)
+                    print(f"yardsticks {kernel} {label}: ms per launch "
+                          + ", ".join(f"{k} {v:.4f}" for k, v in row["yardstick_ms"].items())
+                          + f" [{card}]", flush=True)
                 report["cases"].append(row)
                 times = (f"; ms base {row['base_ms']:.4f}, this {row['this_ms']:.4f} (turns "
                          f"{', '.join(f'{t:.4f}' for t in row['turns_ms'])})" if reps else "")
@@ -648,6 +824,12 @@ def main(argv=None) -> int:
                     help="launches per timed turn of a trace case (0: no times)")
     ap.add_argument("--kernels", default=",".join(REDESIGNED),
                     help=f"the kernels whose cases run, of {', '.join(COMPARED)}")
+    ap.add_argument("--this", default=None,
+                    help="a checkout whose sources stand for this tree's (a variant with its C "
+                         "entry points)")
+    ap.add_argument("--same-entries", action="store_true",
+                    help="the base is a variant of this tree with its C entry points: launch its "
+                         "trace kernels through this tree's wrappers")
     args = ap.parse_args(argv)
     kernels = args.kernels.split(",")
     if not set(kernels) <= set(COMPARED):
@@ -663,12 +845,14 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=False).stdout.strip()
     print(f"card: {card}", flush=True)
     base_csrc = os.path.join(os.path.abspath(args.base), "dxrexperiments_torch", "csrc")
-    report = compare(base_csrc, card, dev, kernels, args.reps)
+    this_csrc = (os.path.join(os.path.abspath(args.this), "dxrexperiments_torch", "csrc")
+                 if args.this else None)
+    report = compare(base_csrc, card, dev, kernels, args.reps, args.same_entries, this_csrc)
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:
             json.dump(report, f, indent=1)
-    print(json.dumps({k: v for k, v in report.items() if k != "sass_loops"}))
+    print(json.dumps({k: v for k, v in report.items() if k not in ("sass_loops", "walk_loops")}))
     return 0
 
 

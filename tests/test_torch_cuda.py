@@ -707,29 +707,94 @@ def test_traverse_binary_and_wide_match_plain(cuda_device, walk):
     assert float((occ != occ_want).float().mean()) <= 0.01
 
 
+def chain_bvh_scene(levels: int, right_deep: bool, device):
+    """chain_scene's triangle and binary BVH as a scene for B4b and its
+    plain version: the triangle arrays, the BVH arrays B4b reads (bvh_rows,
+    the records ft_test of mt_rows) and slot_tri."""
+    base, packed = chain_scene(levels, right_deep)
+    scene = {k: torch.as_tensor(v).to(device) for k, v in base.items()
+             if isinstance(v, np.ndarray)}
+    scene["num_tris"] = base["num_tris"]
+    scene["bvh"] = {k: torch.as_tensor(packed[k]).to(device)
+                    for k in ("bvh_rows", "mt_rows", "slot_tri")}
+    scene["bvh"]["ft_test"] = traverse.coef_records(scene["bvh"]["mt_rows"])
+    return scene
+
+
 @pytest.mark.cuda
 def test_binary_walks_stack_overflow_raises(cuda_device):
     o = torch.zeros((4, 3), device=cuda_device)
     d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda_device)
-    base, packed = chain_scene(120, right_deep=True)
-    scene = {k: torch.as_tensor(base[k]).to(cuda_device) for k in ("v0", "e1", "e2")}
-    scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in packed.items()
-                    if k in ("bvh_rows", "mt_rows", "slot_tri")}
+    scene = chain_bvh_scene(120, True, cuda_device)
     deep2 = chain_two_level(120, cuda_device, right_deep=True)
     for trace, sc in ((traverse.traverse_closest, scene), (traverse.traverse_any, scene),
                       (traverse2.traverse2_closest, deep2), (traverse2.traverse2_any, deep2)):
         with pytest.raises(RuntimeError, match="stack overflowed"):
             trace(sc, o, d, 0.0, 1e38)
             traverse.check_errors()
-    _, shallow = chain_scene(40, right_deep=True)
-    scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in shallow.items()
-                    if k in ("bvh_rows", "mt_rows", "slot_tri")}
+    scene = chain_bvh_scene(40, True, cuda_device)
     for hits in (traverse.traverse_closest(scene, o, d, 0.0, 1e38),
                  traverse2.traverse2_closest(chain_two_level(40, cuda_device, True), o, d, 0.0,
                                              1e38)):
         traverse.check_errors()
         assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"],
                                                                                      5.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("levels,right_deep", [(40, True), (90, True), (120, False)])
+def test_binary_walks_match_plain_on_chains(cuda_device, levels, right_deep):
+    """B4b and B6b on chain_scene's degenerate trees (every box the same,
+    so every child is pushed), against their plain versions: rays through
+    the triangle, beside it, and shadow rays, a third of them dead."""
+    rng = np.random.default_rng(levels)
+    o = torch.as_tensor((rng.uniform(-1.2, 1.2, (256, 3)) * [1, 1, 0]).astype(np.float32),
+                        device=cuda_device)
+    d = torch.nn.functional.normalize(
+        torch.as_tensor((rng.normal(size=(256, 3)) * 0.1 + [0, 0, 1]).astype(np.float32),
+                        device=cuda_device), dim=1)
+    tmax = torch.as_tensor(rng.uniform(3.0, 12.0, 256).astype(np.float32), device=cuda_device)
+    d_any = d.clone()
+    d_any[::3] = 0.0  # dead shadow rays
+    flat = chain_bvh_scene(levels, right_deep, cuda_device)
+    two = chain_two_level(levels, cuda_device, right_deep)
+    for closest, any_, ref_c, ref_a, sc in (
+            (traverse.traverse_closest, traverse.traverse_any,
+             traverse.traverse_fat_closest_reference, traverse.traverse_fat_any_reference, flat),
+            (traverse2.traverse2_closest, traverse2.traverse2_any,
+             traverse2.two_level_closest_reference, traverse2.two_level_any_reference, two)):
+        got = closest(sc, o, d, 1e-4, 3.0e37)
+        want = ref_c(sc, o, d, 1e-4, 3.0e37)
+        occ = any_(sc, o, d_any, 1e-4, tmax)
+        occ_want = ref_a(sc, o, d_any, 1e-4, tmax)
+        torch.cuda.synchronize()
+        traverse.check_errors()
+        assert 0.1 < float(want["hit"].float().mean()) < 0.9
+        hit_gate(got, want)
+        assert not bool(occ[::3].any())
+        assert 0.1 < float(occ_want.float().mean()) < 0.9
+        assert float((occ != occ_want).float().mean()) <= 0.01
+
+
+@pytest.mark.cuda
+def test_binary_walks_check_records(cuda_device):
+    """B4b reads the BVH's ft_test, B6b the two-level blas_test: a missing
+    array, a record array with one row fewer than mt_rows or of another
+    width raises ValueError before any launch."""
+    o = torch.zeros((4, 3), device=cuda_device)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda_device)
+    flat = chain_bvh_scene(8, False, cuda_device)
+    two = chain_two_level(8, cuda_device)
+    before = (traverse.BINARY_CLOSEST_LAUNCHES, traverse2.BINARY_CLOSEST_LAUNCHES)
+    for trace, sc, key, name in ((traverse.traverse_closest, flat, "bvh", "ft_test"),
+                                 (traverse2.traverse2_closest, two, "tlas", "blas_test")):
+        rec = sc[key][name]
+        for bad, match in (({k: v for k, v in sc[key].items() if k != name}, "missing"),
+                           (dict(sc[key], **{name: rec[:-1].contiguous()}), "one record per"),
+                           (dict(sc[key], **{name: rec[:, :16].contiguous()}), "expected float32")):
+            with pytest.raises(ValueError, match=match):
+                trace(dict(sc, **{key: bad}), o, d, 0.0, 1e38)
+    assert (traverse.BINARY_CLOSEST_LAUNCHES, traverse2.BINARY_CLOSEST_LAUNCHES) == before
 
 
 @pytest.mark.cuda

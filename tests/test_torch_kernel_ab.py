@@ -117,3 +117,14 @@ def test_base_route_swaps_the_wrappers_launch():
         with route:
             assert mod._launch == route.launch
         assert mod._launch is before
+
+
+def test_walk_loops_count_a_turn_outside_its_pair_tests():
+    """A walk's loop over nodes (0x00-0xf0) holds the 2-instruction loop
+    and the pair-test loop (0x30-0xe0): 16 instructions, 2 outside both."""
+    code = ab.sass_functions(SASS.replace("/*00f0*/  EXIT ;",
+                                          "/*00f0*/  BRA 0x0 ;\n        /*0100*/  EXIT ;"))
+    code = code["_Z6kernelPf"]
+    assert ab.walk_loops(code) == [{"span": [0x0, 0xF0], "instructions": 16, "own": 2,
+                                    "pair_loops": 1}]
+    assert ab.inside((0x30, 0xE0), (0x0, 0xF0)) and not ab.inside((0x0, 0xF0), (0x0, 0xF0))
