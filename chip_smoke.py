@@ -309,10 +309,10 @@ Phases, each of which raises on failure:
      verdict; a rate above 105% of the data sheet (67 TFLOP/s float32, 33.5
      T instructions/s, 494.7 TFLOP/s dense TF32) fails the phase.
  38. the redesigned kernels (run after phase 37): ptxas' registers,
-     spills and stack frames of every kernel of B1, B5, B3, B6a, B4b and
-     B6b beside those of B4a and B4c; B1's triangle records (the scene's tri_records,
+     spills and stack frames of every kernel of B1, B5, B3, B6a, B4b, B6b,
+     B4a and B2 beside those of B4c; B1's triangle records (the scene's tri_records,
      five float4s a triangle) of configs 1 and 3 against their mt_pack, and
-     B5's leaf arrays ft_test and ft_attr (ops/traverse.leaf_records) of
+     B5's leaf arrays ft_test (B4a's too) and ft_attr (ops/traverse.leaf_records) of
      'instanced:32' and the config-2 stand-in against their mt_rows, equal
      bit for bit on the card, with their bytes; the launch alone (CUDA
      events) on config 1's and config 3's first dispatch, config 4's frame 0
@@ -4606,18 +4606,18 @@ def main() -> int:
     del full, a_f, b_f, mt_f, rays_f
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
-    # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b: ptxas, records, times
+    # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b, B4a, B2: ptxas, records, times
     # B1 reads each triangle as a record of five float4s (the scene's
-    # tri_records, tv.tri_records); B5 reads its leaves from ft_test /
-    # ft_attr (tv.leaf_records), not from mt_rows. The
+    # tri_records, tv.tri_records); B5 and B4a read their leaves from
+    # ft_test (B5 also ft_attr; tv.leaf_records), not from mt_rows. The
     # records against the packs they come from, on the card; their bytes; the
     # launch alone on each main path's first dispatch or frame beside its
     # bound; ptxas' counts of B1, B5, B3 (its queue and sweep kernels), B6a,
-    # B4b and B6b beside B4a's and B4c's.
+    # B4b, B6b, B4a and B2 beside B4c's.
     ptx = {key: cuda_build.ptxas_counts(cuda_build.BUILD_INFO[src]["log"]) for key, src in (
         ("B1", "fused_sample"), ("B5", "fused_traverse"), ("B4a", "traverse_fat"),
         ("B4c", "traverse_fat_grouped"), ("B3", "intersect_brute"), ("B6a", "traverse2_fat"),
-        ("B4b", "traverse_binary"), ("B6b", "traverse2_binary"))}
+        ("B4b", "traverse_binary"), ("B6b", "traverse2_binary"), ("B2", "bilateral"))}
     for key, rows in ptx.items():
         for r in rows:
             print(f"ptxas {key}: {r['kernel']}: {r.get('registers')} registers, spill stores "
@@ -4707,6 +4707,8 @@ def main() -> int:
             "bound_ms": b2_bound[0],
             "bound_by": b2_bound[1],
             "library_ms": None,
+            "ms_per_axis": {"horizontal": bl_ms[1], "vertical": bl_ms[0]},
+            "ptxas": ptx["B2"],
         },
     ]
     plain_shape = f"{BVH_PARITY_SCENE} {P}^2"
@@ -4715,7 +4717,7 @@ def main() -> int:
         ("traverse_fat_closest", "traverse_fat.cu", "ops/traverse_pallas.py:445", wf_closest,
          b4a_max_t, b4a[False]["ms"], b4a[False]["wrapper_ms"], "b4a_c", b4a_c_bound,
          f"{wave_shape}: its primary and bounce launches together",
-         {"per_launch": b4a[False]["per_launch"]}),
+         {"per_launch": b4a[False]["per_launch"], "ptxas": ptx["B4a"]}),
         ("traverse_fat_any", "traverse_fat.cu", "ops/traverse_pallas.py:445", wf_any,
          b4a_any_err, b4a[True]["ms"], b4a[True]["wrapper_ms"], "b4a_a", b4a_a_bound,
          f"{wave_shape}: its two merged shadow launches together",
@@ -4726,7 +4728,7 @@ def main() -> int:
          {"max_abs_diff_vs_wavefront": b5_gate["max_abs_diff"], "ptxas": ptx["B5"],
           "leaf_array_bytes": leaf_bytes,
           "launch_ms": {k: v[0] for k, v in redesign.items() if k.startswith("B5")},
-          "unchanged_kernels_ptxas": {k: ptx[k] for k in ("B4a", "B4c")}}),
+          "unchanged_kernels_ptxas": {k: ptx[k] for k in ("B4c",)}}),
         ("fused_traverse_realtime", "fused_traverse.cu", "ops/fused_traverse_pallas.py:131",
          b5_rt_launches, max(b5_rt_err, b5_rt_plain_err), b5_rt_cams_ms, b5_rt_wrap_ms, "b5_rt",
          b5_rt_bound, f"{BVH_MAIN_SCENE} {RT_W}x{RT_H}, per frame, ten frames' cameras in turn",

@@ -68,7 +68,7 @@ GROUPED_ANY_LAUNCHES = 0
 # their width, (closest, any) launch counters, the leaf array it reads)
 WALKS = {
     "fat": ("traverse_fat", "dxr_traverse_fat", "bvhf_rows", 16,
-            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES"), "mt_rows"),
+            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES"), "ft_test"),
     "binary": ("traverse_binary", "dxr_traverse_binary", "bvh_rows", 8,
                ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES"), "ft_test"),
     "wide": ("traverse8", "dxr_traverse8", "bvh8_rows", 8,
@@ -378,10 +378,11 @@ def check_records(tree: dict, name: str, device) -> torch.Tensor:
 
 def check_bvh(bvh: dict, device, kind: str = "fat") -> tuple[torch.Tensor, torch.Tensor]:
     """Walk ``kind``'s BVH inputs, checked: (node rows, leaf array), the
-    node rows bvhf_rows [F, 16] (fat), bvh_rows [M, 8] (binary) or bvh8_rows
-    [W*8, 8] (wide), the leaf array mt_rows [S, 128], or for the binary walk
-    the records ft_test [S, REC_WORDS] (``check_records``; built by
-    ``scene.bvh_to_device`` for every BVH)."""
+    node rows bvhf_rows [F, 16] (fat, grouped), bvh_rows [M, 8] (binary) or
+    bvh8_rows [W*8, 8] (wide), the leaf array mt_rows [S, 128] (grouped,
+    wide), or for the fat and binary walks the records ft_test [S,
+    REC_WORDS] (``check_records``; built by ``scene.bvh_to_device`` for
+    every BVH)."""
     rows, width = WALKS[kind][2:4]
     leaf = WALKS[kind][5]
     if leaf == "mt_rows":
@@ -946,44 +947,54 @@ class TurnLog:
 def held_walk(nodes, visit, o, inv, state: WalkState, st: RayStacks, leaf_test, log: TurnLog,
               turn) -> list[np.ndarray]:
     """Walk every ray with a non-empty stack in ``st`` to its end with leaf
-    postponement, as B4b's warps walk (``postponed_walk`` in
-    csrc/walk_binary.cuh): each round every ray that neither holds a leaf
-    nor has ended makes one turn of ``visit``, a leaf it pops held, not
-    tested; then each warp (WARP consecutive rays) in which no ray is still
-    looking for a leaf tests its held leaves (``leaf_test(idx, start,
-    count)``). A ray's window changes only at its own leaf tests, so a held
-    leaf is checked against it when popped. Each turn goes into ``log``
-    (loop 0) under the ray's turn counter ``turn`` [R] (advanced here), a
-    held leaf's pair tests under the turn that popped it; each round's
+    postponement, as the warps of B4b (``postponed_walk`` in
+    csrc/walk_binary.cuh) and B4a (``postponed_fat_walk`` in
+    csrc/traverse_fat.cu) walk: each round every ray that neither holds a
+    leaf nor has ended makes one turn of ``visit``, the leaves it hits held,
+    not tested (one a binary visit, up to two a fat one, in the order
+    ``visit`` calls its leaf function); then each warp (WARP consecutive
+    rays) in which no ray is still looking for a leaf tests its held
+    leaves (``leaf_test(idx, start, count)``), each ray its own in order, a
+    second leaf not tested once the first has occluded the ray. A ray's
+    window changes only at its own leaf tests, so a held leaf is tested
+    against the window it was found with. Each turn goes into ``log``
+    (loop 0) under the ray's turn counter ``turn`` [R] (advanced here),
+    held leaves' pair tests under the turn that found them; each round's
     traversal turn and leaf phase go into ``log`` per warp
-    (``TurnLog.add_round``), which ``traverse2.turn_costs`` sums. Returns
-    the popped node ids of each round."""
+    (``TurnLog.add_round``: a leaf phase costs a warp its ray with the most
+    pair tests over all its held leaves), which ``traverse2.turn_costs``
+    sums. Returns the popped node ids of each round."""
     r = len(st.sp)
-    held = np.zeros(r, bool)
-    start, count, held_turn = (np.zeros(r, np.int64) for _ in range(3))
+    n_held = np.zeros(r, np.int64)
+    start, count = np.zeros((r, 2), np.int64), np.zeros((r, 2), np.int64)
+    held_turn = np.zeros(r, np.int64)
     popped = []
 
     def hold(idx, s, c, _side):
-        held[idx] = True
-        start[idx], count[idx] = s, c
+        k = n_held[idx]
+        start[idx, k], count[idx, k] = s, c
+        n_held[idx] += 1
 
     while True:
-        walking = np.nonzero((st.sp > 0) & ~held & ~state.occ)[0]
+        walking = np.nonzero((st.sp > 0) & (n_held == 0) & ~state.occ)[0]
         if len(walking):
             popped.append(visit(walking, nodes, o, inv, state, st, hold))
-            new = held[walking]
+            new = n_held[walking] > 0
             log.add(walking[~new], 0, turn[walking[~new]],
                     np.zeros(int((~new).sum()), np.int64))
             held_turn[walking[new]] = turn[walking[new]]
             turn[walking] += 1
             log.add_round(walking)
         busy = np.zeros(-(-r // WARP), bool)
-        busy[np.nonzero((st.sp > 0) & ~held & ~state.occ)[0] // WARP] = True
-        test = np.nonzero(held & ~busy[np.arange(r) // WARP])[0]
+        busy[np.nonzero((st.sp > 0) & (n_held == 0) & ~state.occ)[0] // WARP] = True
+        test = np.nonzero((n_held > 0) & ~busy[np.arange(r) // WARP])[0]
         if len(test):
-            held[test] = False
             before = state.ray_pairs[test]
-            leaf_test(test, start[test], count[test])
+            for k in range(2):
+                sel = test[n_held[test] > k]
+                if len(sel):
+                    leaf_test(sel, start[sel, k], count[sel, k])
+            n_held[test] = 0
             pairs = state.ray_pairs[test] - before
             log.add(test, 0, held_turn[test], pairs)
             log.add_round(test, pairs)
@@ -1049,12 +1060,16 @@ def _walk_numpy(nodes, visit, mt_rows, origins, directions, t_min, t_max,
 
 
 def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
-                   occlusion: bool = False) -> tuple[dict, dict]:
-    """Host model of B4a's per-ray walk over ``bvhf_rows``/``mt_rows``
-    (numpy arrays): near child first (the far one pushed first), both
-    children's slab tests pruned by the running best t, a leaf tested at
-    visit time (lowest row wins within a leaf, strict '<' across leaves),
-    occlusion ending at the first hit, zero-direction occlusion rays dead.
+                   occlusion: bool = False, postpone: bool = False) -> tuple[dict, dict]:
+    """Host model of the per-ray fat-node walk over ``bvhf_rows``/``mt_rows``
+    (numpy arrays) of B4a and of B5's traces: near child first (the far one
+    pushed first), both children's slab tests pruned by the running best t,
+    a leaf tested at visit time (lowest row wins within a leaf, strict '<'
+    across leaves), occlusion ending at the first hit, zero-direction
+    occlusion rays dead. ``postpone``: B4a's warps, with leaf postponement
+    (``held_walk``: a ray holds the up to two leaves a visit hits; its
+    rounds go into counts["turns"]["rounds"]), which changes neither the
+    hits nor the leaves each ray tests and their order.
 
     Returns (result, counts): result {"hit", "t", "slot", "u", "v"} or
     {"occluded"}; counts {"visits", "slab_tests", "pair_tests", "node_ids",
@@ -1066,7 +1081,7 @@ def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = Fa
     (``TurnLog``), which ``traverse2.turn_costs`` weighs per warp;
     leaf_order: the leaves each ray tested, in order)."""
     return _walk_numpy(bvh["bvhf_rows"], fat_visit, bvh["mt_rows"], origins, directions,
-                       t_min, t_max, cull, occlusion)
+                       t_min, t_max, cull, occlusion, postpone=postpone)
 
 
 def binary_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,

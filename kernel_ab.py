@@ -1,10 +1,11 @@
 """The port's kernels against another commit's sources on one NVIDIA GPU:
-the trace kernels B4b (csrc/traverse_binary.cu), B6b
-(csrc/traverse2_binary.cu), B3 (csrc/intersect_brute.cu) and B6a
-(csrc/traverse2_fat.cu) case by case, every other kernel by its
-instructions.
+the trace kernels B4a (csrc/traverse_fat.cu), B4b
+(csrc/traverse_binary.cu), B6b (csrc/traverse2_binary.cu), B3
+(csrc/intersect_brute.cu) and B6a (csrc/traverse2_fat.cu) and the
+bilateral pass B2 (csrc/bilateral.cu) case by case, every other kernel by
+its instructions.
 
-    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B4b,B6b]
+    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B4a,B2]
                          [--same-entries] [--this DIR2]
 
 DIR is a checkout of the commit to compare with (its
@@ -12,7 +13,7 @@ DIR is a checkout of the commit to compare with (its
 beside this tree's; one nvcc per source, all at once). Printed:
 
 - ptxas' registers, spills and stack of every kernel of both trees;
-- for every kernel but this tree's redesigns (``REDESIGNED``: B4b, B6b),
+- for every kernel but this tree's redesigns (``REDESIGNED``: B4a, B2),
   whether its instructions (``cuobjdump -sass``) equal the base build's;
 - for the sweep and leaf loops of B1, B3, B5 and the walks (the innermost
   loops that load and do float work, each pair test counted by its FSETP
@@ -21,24 +22,28 @@ beside this tree's; one nvcc per source, all at once). Printed:
   pair-test loop, with its instructions outside its inner loops (a turn's
   work without its pair tests);
 - per trace case (``trace_cases``: the four launches of the first sample of
-  the first 512^2 S = 4 dispatch, on config 5 flattened without fat nodes
-  for B4b, config 5 two-level without fat nodes for B6b, ``instanced:2``
-  brute force for B3 and config 5 two-level for B6a), on the same inputs:
-  the rays whose output differs in any bit from the base build's, per
-  output (t, u, v, slot, inst, occlusion and every fused attribute); the
-  host figures (``trace_figures``: for B4b and B6b the leaf-weighted warp
-  figures of every walk of the launch, ``walk_figures``); ms per launch,
+  the first 512^2 S = 4 dispatch, on config 5 flattened for B4a, config 5
+  flattened without fat nodes for B4b, config 5 two-level without fat
+  nodes for B6b, ``instanced:2`` brute force for B3 and config 5 two-level
+  for B6a), on the same inputs: the rays whose output differs in any bit
+  from the base build's, per output (t, u, v, slot, inst, occlusion and
+  every fused attribute); the host figures (``trace_figures``: for B4a,
+  B4b and B6b the leaf-weighted warp figures of every walk of the launch,
+  ``walk_figures``); ms per launch,
   CUDA events around the launch alone, base and this tree in turns (base,
   this, this, base; ``--reps`` launches a turn, 0 for none); and the
   route's host ms per dispatch with either build (``BaseRoute``), in turns;
 - with ``--kernels B1,B5``, the megakernels' cases (``megakernel_cases``:
   configs 1, 3, 4, config 5 flattened and its 1080p frame, the config-2
-  stand-in): the pixels that differ in any bit, ms in turns.
+  stand-in): the pixels that differ in any bit, ms in turns;
+- with B2, the bilateral cases (``bilateral_cases``: config 4's 1080p
+  frame 0 AOVs, both passes at each radius of ``B2_RADII``): the pixels
+  whose channels differ in any bit, per channel, ms in turns.
 
-The base's B4b and B6b are called with the entry points they had before
-their leaf records (``base_trace_launch``), its B3 and B6a through this
-tree's wrappers; ``--same-entries`` (a base that is a variant of this tree)
-launches all of them through this tree's wrappers. ``--this DIR2`` builds
+The base's B4a is called with the entry point it had before its leaf
+records (``base_trace_launch``, reading mt_rows), its other trace kernels
+through this tree's wrappers; ``--same-entries`` (a base that is a variant
+of this tree) launches all of them through this tree's wrappers. ``--this DIR2`` builds
 DIR2's sources in place of this tree's (a variant with this tree's entry
 points, run through this tree's wrappers), so two variants compare in one
 call. The megakernels' entry
@@ -62,9 +67,10 @@ SOURCES = {"B1": "fused_sample", "B2": "bilateral", "B3": "intersect_brute",
            "B6b": "traverse2_binary", "B7": "roofline"}
 # this tree's redesigns, compared case by case; every other kernel's
 # instructions must equal the base's
-REDESIGNED = ("B4b", "B6b")
-TRACED = ("B4b", "B6b", "B3", "B6a")  # the trace kernels with cases
-COMPARED = TRACED + ("B1", "B5")  # the kernels with cases
+REDESIGNED = ("B4a", "B2")
+TRACED = ("B4a", "B4b", "B6b", "B3", "B6a")  # the trace kernels with cases
+COMPARED = TRACED + ("B2", "B1", "B5")  # the kernels with cases
+B2_RADII = (1, 7, 12, 25)  # chip_smoke.BILATERAL_RADII; 12 is the denoiser's default
 WALK_KERNELS = ("B4a", "B4b", "B4d", "B6a", "B6b")  # whose walk loops are counted
 BATCHES = ("primary closest", "depth-0 shadow any", "bounce closest", "depth-1 shadow any")
 
@@ -219,37 +225,29 @@ def walk_report(so_path: str) -> dict:
 
 
 def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
-    """The base commit's entry points of the trace kernels: B3 and B6a as
-    this tree's (``this_trace_launch``); B4b (``dxr_traverse_binary``) and
-    B6b (``dxr_traverse2_binary``) as they were before their leaf records,
-    reading mt_rows where they now read ft_test and blas_test. Returns
-    (launch, outs, err)."""
+    """The base commit's entry points of the trace kernels: B4a
+    (``dxr_traverse_fat``) as it was before its leaf records, reading
+    mt_rows where it now reads ft_test; the others as this tree's
+    (``this_trace_launch``). Returns (launch, outs, err)."""
     import torch
 
     from dxrexperiments_torch.ops import traverse as tv
-    from dxrexperiments_torch.ops import traverse2 as tv2
 
-    if kernel in ("B3", "B6a"):
+    if kernel != "B4a":
         return this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion)
     device = o.device
     r = o.shape[0]
     rays = tv.pack_rays(o, d, t_min, t_max)
     err = torch.zeros(1, dtype=torch.int32, device=device)
-    kinds = (torch.float32, torch.int32, torch.float32, torch.float32)
-    if kernel == "B4b":
-        bvh = scene["bvh"]
-        arrays = (bvh["bvh_rows"], bvh["mt_rows"])
-        fn = tv.bind(lib, "binary")
-    else:
-        tl = scene["tlas"]
-        arrays = (tl["tlas_rows"], tl["inst_rows_t"], tl["blas_rows"], tl["mt_rows"])
-        fn = tv2.bind(lib, "binary")
-        kinds += (torch.int32,)
+    bvh = scene["bvh"]
+    arrays = (bvh["bvhf_rows"], bvh["mt_rows"])
+    fn = tv.bind(lib, "fat")
     if occlusion:
         outs = (torch.empty(r, dtype=torch.bool, device=device),)
-        ptrs = (None,) * len(kinds) + (outs[0].data_ptr(),)
+        ptrs = (None,) * 4 + (outs[0].data_ptr(),)
     else:
-        outs = tuple(torch.empty(r, dtype=k, device=device) for k in kinds)
+        outs = tuple(torch.empty(r, dtype=k, device=device)
+                     for k in (torch.float32, torch.int32, torch.float32, torch.float32))
         ptrs = (*(x.data_ptr() for x in outs), None)
 
     def launch() -> int:
@@ -271,9 +269,10 @@ def this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
         launch, outs = ik.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion,
                                          lib=ik.bind(lib))
         return launch, outs, None
-    if kernel == "B4b":
-        return tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, "binary",
-                                 fn=tv.bind(lib, "binary"))
+    if kernel in ("B4a", "B4b"):
+        kind = "fat" if kernel == "B4a" else "binary"
+        return tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, kind,
+                                 fn=tv.bind(lib, kind))
     kind = "fat" if kernel == "B6a" else "binary"
     return tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull, occlusion, kind,
                               fn=tv2.bind(lib, kind))
@@ -332,6 +331,59 @@ def differing_pixels(a, b, height: int, width: int) -> int:
             ne = ne[..., None]
         off |= ne.reshape(-1, height * width, ne.shape[-1]).any(2).any(0)
     return int(off.sum())
+
+
+def differing_channels(a, b) -> list[int]:
+    """Per channel of two [H, W, C] float32 images, the pixels whose value
+    differs in any bit."""
+    import torch
+
+    ne = a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)
+    return [int(x) for x in ne.reshape(-1, ne.shape[-1]).sum(0)]
+
+
+def bilateral_launch(lib, inp, guide, radius: float, axis: int):
+    """One bilateral pass of a build ``lib`` (this tree's entry point, and the
+    base's: it is unchanged): (launch, out)."""
+    import ctypes
+
+    import torch
+
+    fn = lib.dxr_bilateral_pass
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(inp)
+    h, w, _ = inp.shape
+
+    def launch() -> int:
+        return fn(inp.data_ptr(), guide.data_ptr(), out.data_ptr(), h, w, axis, float(radius),
+                  torch.cuda.current_stream(inp.device).cuda_stream)
+
+    return launch, out
+
+
+def bilateral_cases(dev):
+    """(name, input, guide, radius, axis) of the denoiser's two passes over
+    config 4's frame 0 AOVs (Cornell-glossy realtime at 1920 x 1080, as
+    chip_smoke.py's phase 5 renders it) at each radius of B2_RADII: the
+    horizontal pass over the indirect-specular AOV guided by the direct
+    lighting, the vertical pass over the plain version's horizontal result."""
+    from dxrexperiments_torch.app.headless import build_scene
+    from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
+    from dxrexperiments_torch.ops import bilateral
+
+    sc, cam = build_scene("cornell-glossy")
+    cam.set_aspect(1920, 1080)
+    rt = RealtimeRaytracingPipeline(1920, 1080, seed=0, device=dev)
+    rt.set_camera(cam)
+    rt.set_scene(sc)
+    rt.update(elapsed_time=0.0, elapsed_frames=0)
+    direct, spec = rt.render()
+    for radius in B2_RADII:
+        yield (f"config 4 frame 0 1920x1080, horizontal, radius {radius}", spec, direct,
+               radius, 1)
+        first = bilateral._bilateral_pass(spec, direct, float(radius), 1)
+        yield (f"config 4 frame 0 1920x1080, vertical, radius {radius}", first, direct, radius, 0)
 
 
 def time_ms(fn, reps: int) -> float:
@@ -406,12 +458,15 @@ def trace_cases(dev, kernels):
     """(name, kernel, scene, [(batch, o, d, t_min, t_max, cull, occlusion)],
     pipe) of the trace kernels' main paths among ``kernels``: the four
     launches of the first sample of the first 512^2 dispatch (S = 4), as
-    chip_smoke.py's phases record them: 16 (B3, instanced:2 brute force), 12
-    (B6a, instanced:32 two-level), 32 (B4b, instanced:32 flattened without
-    fat nodes) and 34 (B6b, the two-level scene without them). ``scene`` is
-    the whole scene (the B4b and B6b cases' fat nodes included, which the
-    host models of B4a and B6a read); ``pipe`` dispatches the case's route.
-    Each case's scenes are built when it is reached."""
+    chip_smoke.py's phases record them: 8 (B4a, instanced:32 flattened), 16
+    (B3, instanced:2 brute force), 12 (B6a, instanced:32 two-level), 32
+    (B4b, instanced:32 flattened without fat nodes) and 34 (B6b, the
+    two-level scene without them). ``scene`` is the whole scene (the B4b and
+    B6b cases' fat nodes included, which the host models of B4a and B6a
+    read); ``pipe`` dispatches the case's route (B4a's: the wavefront route
+    of the flattened scene, which the progressive pipeline takes once the
+    BVH lacks ``mt_attr_lanes``, the fused-traversal kernel's gate). Each
+    case's scenes are built when it is reached."""
     import chip_smoke as cs
 
     from dxrexperiments_torch.app.headless import build_scene
@@ -441,6 +496,12 @@ def trace_cases(dev, kernels):
         cam.set_aspect(512, 512)
         return (sc.build_two_level(dev) if form == "two-level" else sc.build(dev)), cam
 
+    if "B4a" in kernels:
+        scene, cam = built("instanced:32", "flat")
+        wave = dict(scene, bvh={k: v for k, v in scene["bvh"].items() if k != "mt_attr_lanes"})
+        yield ("config 5 flattened: instanced:32 512^2, 1 sample", "B4a", scene,
+               *first_sample(wave, cam, tv, cs.TraceHook.B4A))
+        del scene, wave
     if "B3" in kernels:
         scene, cam = built(cs.BRUTE_MAIN_SCENE, "flat")
         yield ("instanced:2 brute force 512^2, 1 sample", "B3", scene,
@@ -465,7 +526,7 @@ def trace_cases(dev, kernels):
 
 class BaseRoute:
     """While active, the wrappers of trace kernel ``kernel`` (ops.
-    intersect_kernel for B3, ops.traverse's binary walk for B4b,
+    intersect_kernel for B3, ops.traverse's fat walk for B4a and binary walk for B4b,
     ops.traverse2's fat walk for B6a and binary walk for B6b) launch the
     build ``lib`` through ``launcher`` (``base_trace_launch``, or
     ``this_trace_launch`` for a build with this tree's entry points), so
@@ -479,8 +540,9 @@ class BaseRoute:
 
         self.kernel, self.lib = kernel, lib
         self.launcher = launcher or base_trace_launch
-        self.mod = {"B3": ik, "B4b": tv, "B6a": tv2, "B6b": tv2}[kernel]
-        self.kind = {"B3": None, "B4b": "binary", "B6a": "fat", "B6b": "binary"}[kernel]
+        self.mod = {"B3": ik, "B4a": tv, "B4b": tv, "B6a": tv2, "B6b": tv2}[kernel]
+        self.kind = {"B3": None, "B4a": "fat", "B4b": "binary", "B6a": "fat",
+                     "B6b": "binary"}[kernel]
 
     def launch(self, scene_or_tl, o, d, t_min, t_max, cull, occlusion, kind="fat", *rest):
         from dxrexperiments_torch.ops import intersect_kernel as ik
@@ -488,7 +550,8 @@ class BaseRoute:
 
         if self.kind is not None and kind != self.kind:  # another walk of the module
             return self.saved(scene_or_tl, o, d, t_min, t_max, cull, occlusion, kind, *rest)
-        scene = scene_or_tl if self.kernel in ("B3", "B4b") else {"tlas": scene_or_tl}
+        one_level = self.kernel in ("B3", "B4a", "B4b")
+        scene = scene_or_tl if one_level else {"tlas": scene_or_tl}
         launch, outs, err = self.launcher(self.kernel, self.lib, scene, o, d, t_min, t_max, cull,
                                           occlusion)
         if o.shape[0] and launch() != 0:
@@ -504,7 +567,7 @@ class BaseRoute:
             return res
         t, slot, u, v = outs[:4]
         hit = slot >= 0
-        slot_tri = (scene["bvh"] if self.kernel == "B4b" else scene_or_tl)["slot_tri"]
+        slot_tri = (scene["bvh"] if one_level else scene_or_tl)["slot_tri"]
         res = {"hit": hit, "t": t, "tri": slot_tri[slot.clamp(min=0).long()].where(hit, -1).long(),
                "slot": slot.long(), "u": u, "v": v}
         if len(outs) == 5:
@@ -520,22 +583,23 @@ class BaseRoute:
         self.mod._launch = self.saved
 
 
-# the walks on the same launch inputs beside B4b and B6b (this package's builds)
-YARDSTICKS = {"B4b": (("B4a", "fat"), ("B4d", "wide")), "B6b": (("B6a", "fat"),)}
+# the walks on the same launch inputs beside B4a, B4b and B6b (this package's builds)
+YARDSTICKS = {"B4a": (("B4b", "binary"), ("B4d", "wide")), "B4b": (("B4a", "fat"), ("B4d", "wide")),
+              "B6b": (("B6a", "fat"),)}
 
 
 def yardstick_ms(kernel, scene, o, d, t_min, t_max, cull, occlusion, reps: int) -> dict:
     """ms per launch, CUDA events around the launch alone, of the other
-    walks of a B4b or B6b case's launch inputs (``YARDSTICKS``): B4a and
-    B4d on the flattened scene's fat and 8-wide nodes, B6a on the two-level
-    scene's fat nodes."""
+    walks of a B4a, B4b or B6b case's launch inputs (``YARDSTICKS``): B4a,
+    B4b and B4d on the flattened scene's fat, binary and 8-wide nodes, B6a
+    on the two-level scene's fat nodes."""
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
     from dxrexperiments_torch.ops.traverse import raise_on_error
 
     out = {}
     for name, kind in YARDSTICKS[kernel]:
-        if kernel == "B4b":
+        if kernel in ("B4a", "B4b"):
             launch, _, err = tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, kind)
         else:
             launch, _, err = tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull,
@@ -569,8 +633,8 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> di
     from the plain sweep's verdicts on every ray
     (``intersect_kernel.sweep_figures``); B6a's warp costs on
     chip_smoke.COUNT_PIXELS rays of sampled whole warps
-    (``chip_smoke.walk2_figures``); B4b's and B6b's leaf-weighted figures
-    (``walk_figures``)."""
+    (``chip_smoke.walk2_figures``); B4a's, B4b's and B6b's leaf-weighted
+    figures (``walk_figures``)."""
     import chip_smoke as cs
 
     from dxrexperiments_torch.ops import intersect_kernel as ik
@@ -580,7 +644,7 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> di
         t_count = min(int(scene["num_tris"]), int(scene["mt_pack"].shape[1]))
         work = ik.sweep_work(scene, o, d, t_min, t_max, occlusion, cull, cs.PLAIN_SLICE)
         return ik.sweep_figures(work, t_count)
-    if kernel in ("B4b", "B6b"):
+    if kernel in ("B4a", "B4b", "B6b"):
         return walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng)
     tl = scene["tlas"]
     tl_np = {k: tl[k].cpu().numpy() for k in ("tlasf_rows", "inst_rows_t", "blasf_rows",
@@ -593,19 +657,22 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> di
 
 
 def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dict:
-    """Step-1 figures of a B4b or B6b launch, on chip_smoke.COUNT_PIXELS rays
-    of sampled spans of whole warps (``chip_smoke.sampled_warps``), for each
-    walk's host model: B4b's launch inputs through B4a's fat walk, B4d's
-    8-wide walk, the JAX kernel's binary walk (B4b before its redesign) and
-    this tree's (``parent_walk_numpy`` with leaf postponement); B6b's
-    through B6a's walk and the JAX kernel's binary walk (B6b's). Per walk,
+    """Step-1 figures of a B4a, B4b or B6b launch, on chip_smoke.COUNT_PIXELS
+    rays of sampled spans of whole warps (``chip_smoke.sampled_warps``), for
+    each walk's host model: B4a's launch inputs through its fat walk with
+    and without leaf postponement (``fat_walk_numpy``) and B4b's walk; B4b's
+    through B4a's fat walk, B4d's 8-wide walk, the JAX kernel's binary walk
+    (B4b before its redesign) and this tree's (``parent_walk_numpy`` with
+    leaf postponement); B6b's through B6a's walk and the JAX kernel's
+    binary walk (B6b's). Per walk,
     summed over the warps (``ops/traverse2.turn_costs``): "turns" (a warp's
     loop turns), "slots" (Σ over turns of its largest pair tests), "pairs"
     (its lanes' pair tests), with leaf postponement (this tree's B4b)
     "p_turns", "p_slots", "visits" and "pairs" per ray, "deepest" (the
     deepest stack of any ray; two-level: TLAS + BLAS) and "mean_deepest"
-    (each ray's deepest, mean); and for B4b "same_hits": whether this
-    tree's model returns the JAX kernel model's hits, bit for bit."""
+    (each ray's deepest, mean); and for B4a and B4b "same_hits": whether
+    the postponed model returns the unpostponed (B4a) or the JAX kernel's
+    (B4b) model's hits, bit for bit."""
     import functools
 
     import chip_smoke as cs
@@ -617,12 +684,16 @@ def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dic
     sub = cs.sampled_warps(len(o), rng, o.device)
     args = (cs.host_array(o[sub]), cs.host_array(d[sub]), cs.host_array(t_min),
             cs.host_array(cs.rows_of(t_max, sub)))
-    if kernel == "B4b":
+    if kernel in ("B4a", "B4b"):
         tree = {k: scene["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "bvh_rows", "bvh8_rows",
                                                           "mt_rows", "slot_tri")}
-        models = {"B4a": tv.fat_walk_numpy, "B4d": tv.wide_walk_numpy,
-                  "B4b JAX order": tv.binary_walk_numpy,
-                  "B4b": functools.partial(tv.parent_walk_numpy, postpone=True)}
+        b4b = functools.partial(tv.parent_walk_numpy, postpone=True)
+        if kernel == "B4a":
+            models = {"B4a unpostponed": tv.fat_walk_numpy,
+                      "B4a": functools.partial(tv.fat_walk_numpy, postpone=True), "B4b": b4b}
+        else:
+            models = {"B4a": tv.fat_walk_numpy, "B4d": tv.wide_walk_numpy,
+                      "B4b JAX order": tv.binary_walk_numpy, "B4b": b4b}
     else:
         tree = {k: scene["tlas"][k].cpu().numpy() for k in (
             "tlasf_rows", "tlas_rows", "inst_rows_t", "blasf_rows", "blas_rows", "mt_rows",
@@ -648,9 +719,9 @@ def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dic
         row.update(visits=visits / len(sub), pairs_per_ray=c["pair_tests"] / len(sub),
                    deepest=deepest, mean_deepest=mean)
         fig[name] = row
-    if kernel == "B4b":
-        base = results["B4b JAX order"]
-        fig["same_hits"] = all(np.array_equal(results["B4b"][k], base[k]) for k in base)
+    if kernel in ("B4a", "B4b"):
+        base = results["B4a unpostponed" if kernel == "B4a" else "B4b JAX order"]
+        fig["same_hits"] = all(np.array_equal(results[kernel][k], base[k]) for k in base)
     return fig
 
 
@@ -784,6 +855,29 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
                         raise_on_error(err, label)
             del scene, traces, pipe
             torch.cuda.empty_cache()
+
+    if "B2" in kernels:
+        for name, inp, guide, radius, axis in bilateral_cases(dev):
+            base = bilateral_launch(libs["base", "B2"], inp, guide, radius, axis)
+            mine = bilateral_launch(libs["this", "B2"], inp, guide, radius, axis)
+            for launch, _ in (base, mine):
+                if launch() != 0:
+                    raise RuntimeError(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            diff = differing_channels(base[1], mine[1])
+            row = {"case": name, "kernel": "B2", "radius": radius, "axis": axis,
+                   "differing_pixels_per_channel": diff, "pixels": inp.shape[0] * inp.shape[1]}
+            times = ""
+            if reps:
+                turns = [time_ms(f, 5 * reps) for f in (base[0], mine[0], mine[0], base[0])]
+                row.update(base_ms=(turns[0] + turns[3]) / 2, this_ms=(turns[1] + turns[2]) / 2,
+                           turns_ms=turns)
+                times = (f"; ms base {row['base_ms']:.4f}, this {row['this_ms']:.4f} (turns "
+                         f"{', '.join(f'{t:.4f}' for t in turns)})")
+            report["cases"].append(row)
+            print(f"case B2 {name}: pixels differing in any bit per channel {diff}{times} "
+                  f"[{card}]", flush=True)
+        torch.cuda.empty_cache()
 
     if not any(k in ("B1", "B5") for k in kernels):
         return report

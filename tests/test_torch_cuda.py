@@ -28,7 +28,8 @@ versions, which trace every area sample and sample the albedo textures in
 torch.
 The bilateral kernel: max
 |difference| <= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums
-differing only by rounding. The grouped packet walk (B4c): the hit gates
+differing only by rounding; an inf or NaN input sample at a tap of table
+weight 0, which the kernel skips, does not reach its output. The grouped packet walk (B4c): the hit gates
 against B4a, and against its host model (``fat_packet_walk_numpy``) the hit
 or slot off on <= 1% of rays, t within rtol 1e-4. B1's opt-in
 instantiations: bit-equal to the base kernel. The roofline probes (B7):
@@ -59,6 +60,7 @@ from dxrexperiments_torch.trace.integrator import default_options, render_sample
 
 SIZE = 64
 S = 2
+BILATERAL_RADII = (1, 7, 12, 25)  # chip_smoke.BILATERAL_RADII; 12 is the denoiser's default
 OPTION_CASES = [
     ("defaults", {}, "const"),
     ("debug2", {"debug": 2}, "const"),
@@ -208,6 +210,59 @@ def test_bilateral_kernel_matches_plain(cuda_device, axis, radius):
     want = bilateral._bilateral_pass(inp, guide, float(radius), axis)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 2e-5
+
+
+# image shapes around B2's tiles (csrc/bilateral.cu): 32 lanes across the
+# axis, 64 outputs along it, staged with a 25-pixel apron on either side
+BILATERAL_SHAPES = [(1, 200), (200, 1), (37, 53), (5, 63), (5, 65), (63, 5), (65, 5), (31, 33),
+                    (33, 31), (3, 113), (3, 115), (113, 3), (115, 3), (70, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", BILATERAL_RADII)
+@pytest.mark.parametrize("shape", BILATERAL_SHAPES, ids=[f"{h}x{w}" for h, w in BILATERAL_SHAPES])
+def test_bilateral_kernel_tile_edges(cuda_device, shape, radius):
+    """Both passes on images whose sides end on, before and after a tile
+    and a tile plus its apron, within 2e-5 of the plain version."""
+    inp, guide = _bilateral_data(cuda_device, *shape, seed=shape[0] * 7 + shape[1] + radius)
+    for axis in (0, 1):
+        got = bilateral.bilateral_pass(inp, guide, float(radius), axis)
+        want = bilateral._bilateral_pass(inp, guide, float(radius), axis)
+        torch.cuda.synchronize()
+        assert bool(got.isfinite().all())
+        assert float((got - want).abs().max()) <= 2e-5, (shape, radius, axis)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_bilateral_kernel_skips_zero_weight_taps(cuda_device, axis):
+    """B2 skips the taps whose table weight is 0 (at radius 12: |i| >= 12).
+    With an inf and a NaN input sample, an output that reaches them only
+    through such taps equals the plain version's on the image with those
+    samples set to 0 (the plain version's own is NaN there, 0 x inf); an
+    output within 11 taps of one is not finite in its channel in either;
+    every other output equals the plain version's within 2e-5."""
+    h, w = 40, 90
+    inp, guide = _bilateral_data(cuda_device, h, w, seed=17)
+    bad_px = ((20, 45, 1, float("inf")), (7, 10, 0, float("nan")))
+    bad, zeroed = inp.clone(), inp.clone()
+    near = torch.zeros(h, w, 3, dtype=torch.bool, device=cuda_device)
+    far = near.clone()
+    for y, x, c, v in bad_px:
+        bad[y, x, c], zeroed[y, x, c] = v, 0.0
+        for i in range(-25, 26):
+            yy, xx = (y + i, x) if axis == 0 else (y, x + i)
+            if 0 <= yy < h and 0 <= xx < w:
+                (near if abs(i) <= 11 else far)[yy, xx, c] = True
+    far &= ~near
+    got = bilateral.bilateral_pass(bad, guide, 12.0, axis)
+    plain = bilateral._bilateral_pass(bad, guide, 12.0, axis)
+    want = bilateral._bilateral_pass(zeroed, guide, 12.0, axis)
+    torch.cuda.synchronize()
+    assert int(far.sum()) > 20 and int(near.sum()) > 20
+    assert not bool(got[near].isfinite().any()) and not bool(plain[near].isfinite().any())
+    assert bool(plain[far].isnan().all())
+    assert float((got[~near] - want[~near]).abs().max()) <= 2e-5
 
 
 @pytest.mark.cuda
@@ -447,12 +502,51 @@ def chain_scene(levels: int = 120, right_deep: bool = False):
     return base, packed
 
 
+def chain_fat_bvh(packed: dict, device) -> dict:
+    """The arrays B4a reads of a chain_scene BVH, on ``device``: bvhf_rows,
+    the records ft_test of mt_rows, mt_rows and slot_tri."""
+    bvh = {k: torch.as_tensor(packed[k]).to(device) for k in ("bvhf_rows", "mt_rows", "slot_tri")}
+    bvh["ft_test"] = traverse.coef_records(bvh["mt_rows"])
+    return bvh
+
+
+@pytest.mark.cuda
+def test_traverse_fat_reads_records(cuda_device):
+    """B4a reads the BVH's ft_test: on a scene whose mt_rows are zeroed
+    after its records were built it still equals the plain version (which
+    reads the triangles), and a BVH without ft_test, or with one record
+    fewer than mt_rows' rows, raises ValueError before any launch."""
+    scene, cams = _bvh_setup(cuda_device)
+    o, d, pos, sd, dist = _primary_and_shadow_rays(scene, cams)
+    bvh = scene["bvh"]
+    blind = dict(scene, bvh=dict(bvh, mt_rows=torch.zeros_like(bvh["mt_rows"])))
+    got = traverse.traverse_fat_closest(blind, o, d, 0.0, 1e38, cull_backface=True)
+    occ = traverse.traverse_fat_any(blind, pos, sd, 1e-4, dist)
+    want = traverse.traverse_fat_closest_reference(scene, o, d, 0.0, 1e38, cull_backface=True)
+    occ_want = traverse.traverse_fat_any_reference(scene, pos, sd, 1e-4, dist)
+    torch.cuda.synchronize()
+    traverse.check_errors()
+    assert float(got["hit"].float().mean()) > 0.2
+    hit_gate(got, want)
+    assert 0.0 < float(occ.float().mean()) < 1.0
+    assert float((occ != occ_want).float().mean()) <= 0.01
+    before = (traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES)
+    for bad, match in (({k: v for k, v in bvh.items() if k != "ft_test"}, "ft_test missing"),
+                       (dict(bvh, ft_test=bvh["ft_test"][:-1].contiguous()), "one record per")):
+        with pytest.raises(ValueError, match=match):
+            traverse.check_bvh(bad, o.device, "fat")
+        with pytest.raises(ValueError, match=match):
+            traverse.traverse_fat_closest(dict(scene, bvh=bad), o, d, 0.0, 1e38)
+        with pytest.raises(ValueError, match=match):
+            traverse.traverse_fat_any(dict(scene, bvh=bad), pos, sd, 1e-4, dist)
+    assert (traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES) == before
+
+
 @pytest.mark.cuda
 def test_traverse_stack_overflow_raises(cuda_device):
     base, packed = chain_scene()
     scene = {k: torch.as_tensor(base[k]).to(cuda_device) for k in ("v0", "e1", "e2")}
-    scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in packed.items()
-                    if k in ("bvhf_rows", "mt_rows", "slot_tri")}
+    scene["bvh"] = chain_fat_bvh(packed, cuda_device)
     o = torch.zeros((4, 3), device=cuda_device)
     d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda_device)
     for trace in (traverse.traverse_fat_closest, traverse.traverse_fat_any):
@@ -462,8 +556,7 @@ def test_traverse_stack_overflow_raises(cuda_device):
             trace(scene, o, d, 0.0, 1e38)
             traverse.check_errors()
     shallow_base, shallow = chain_scene(levels=40)
-    scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in shallow.items()
-                    if k in ("bvhf_rows", "mt_rows", "slot_tri")}
+    scene["bvh"] = chain_fat_bvh(shallow, cuda_device)
     hits = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38)
     traverse.check_errors()
     assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
@@ -1476,8 +1569,7 @@ def test_grouped_walk_stack_overflow_and_layouts(cuda_device):
     def chain(levels):
         base, packed = chain_scene(levels)
         scene = {k: torch.as_tensor(base[k]).to(cuda_device) for k in ("v0", "e1", "e2")}
-        scene["bvh"] = {k: torch.as_tensor(v).to(cuda_device) for k, v in packed.items()
-                        if k in ("bvhf_rows", "mt_rows", "slot_tri")}
+        scene["bvh"] = chain_fat_bvh(packed, cuda_device)
         return scene
 
     deep = chain(120)

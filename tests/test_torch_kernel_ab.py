@@ -128,3 +128,75 @@ def test_walk_loops_count_a_turn_outside_its_pair_tests():
     assert ab.walk_loops(code) == [{"span": [0x0, 0xF0], "instructions": 16, "own": 2,
                                     "pair_loops": 1}]
     assert ab.inside((0x30, 0xE0), (0x0, 0xF0)) and not ab.inside((0x0, 0xF0), (0x0, 0xF0))
+
+
+def test_redesigned_kernels_and_b2_radii():
+    """This tree's redesigns are B4a and B2: B4a has trace cases, B2 its
+    bilateral cases at chip_smoke.py's radii; B4b and B6b are held to the
+    base's instructions."""
+    import chip_smoke
+
+    assert ab.REDESIGNED == ("B4a", "B2")
+    assert "B4a" in ab.TRACED and "B2" in ab.COMPARED and "B2" not in ab.TRACED
+    assert not {"B4b", "B6b"} & set(ab.REDESIGNED)
+    assert ab.B2_RADII == chip_smoke.BILATERAL_RADII and 12 in ab.B2_RADII
+    assert set(ab.YARDSTICKS["B4a"]) == {("B4b", "binary"), ("B4d", "wide")}
+
+
+def test_differing_channels_counts_bits():
+    a = torch.zeros(4, 5, 3)
+    b = a.clone()
+    assert ab.differing_channels(a, b) == [0, 0, 0]
+    b[0, 0, 0] = -0.0  # equal as a float, not as bits
+    b[1, 2, 2] = 1e-30
+    b[3, 4, 2] = float("nan")
+    assert ab.differing_channels(a, b) == [1, 0, 2]
+
+
+def test_base_route_swaps_the_fat_walk(monkeypatch):
+    """B4a's route: ops.traverse's _launch while active, the other walks of
+    the module (kind "binary", "grouped") passed on to the saved one."""
+    from dxrexperiments_torch.ops import traverse as tv
+
+    seen = []
+
+    def wrapper(*a):
+        seen.append(a[7])
+        return "passed on"
+
+    monkeypatch.setattr(tv, "_launch", wrapper)
+    route = ab.BaseRoute("B4a", lib=None)
+    assert (route.mod, route.kind) == (tv, "fat")
+    with route:
+        assert tv._launch == route.launch
+        assert route.launch({}, None, None, 0.0, 1.0, False, False, "binary") == "passed on"
+    assert seen == ["binary"] and tv._launch is wrapper
+
+
+def test_walk_figures_of_the_fat_walk():
+    """kernel_ab's step-1 figures of a B4a launch on the CPU (Cornell, 8,192
+    rays, chip_smoke.COUNT_PIXELS of them in sampled warps): the postponed
+    model returns the unpostponed walk's hits, tests no more pair slots and
+    takes no fewer traversal turns; B4b's walk beside it."""
+    import numpy as np
+
+    from dxrexperiments_torch.app.headless import build_scene
+
+    scene = build_scene("cornell-glossy")[0].build("cpu", accel="bvh")
+    rng = np.random.default_rng(5)
+    n = 8192
+    lo, hi = scene["bvh"]["bvh_rows"][0, 0:3].numpy(), scene["bvh"]["bvh_rows"][0, 3:6].numpy()
+    centre, size = (lo + hi) / 2, float((hi - lo).max())
+    o = (centre + rng.normal(size=(n, 3)) * size).astype(np.float32)
+    d = (centre + rng.uniform(-0.4, 0.4, (n, 3)) * size - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    for occlusion in (False, True):
+        fig = ab.walk_figures("B4a", scene, torch.as_tensor(o), torch.as_tensor(d), 1e-4,
+                              torch.full((n,), 3.0e37 if not occlusion else 2.0), False,
+                              occlusion, np.random.default_rng(1))
+        assert fig["same_hits"] is True
+        assert set(fig) == {"B4a unpostponed", "B4a", "B4b", "same_hits"}
+        post, own = fig["B4a"], fig["B4a unpostponed"]
+        assert post["pairs"] == own["pairs"] and post["turns"] == own["turns"] > 0
+        assert post["p_slots"] <= own["slots"] and post["p_turns"] >= own["turns"]
+        assert "p_slots" not in own
