@@ -235,8 +235,9 @@ Phases, each of which raises on failure:
      the host models' walk counts (ops/traverse.binary_walk_numpy,
      wide_walk_numpy), the bound, the deepest stack and the leaf-weighted
      warp figures on sampled warps (ops/traverse2.turn_costs: loop turns and
-     pair slots; B4b's of its kernel's walk, ops/traverse.parent_walk_numpy
-     with leaf postponement, with and without it); the host ms per
+     pair slots; B4b's and B4d's of their kernels' walks,
+     ops/traverse.parent_walk_numpy and wide_walk_numpy with leaf
+     postponement, with and without it); the host ms per
      dispatch, enqueued and synchronised; realtime + denoise at 1080p, 2
      frames (4 + 4 B4b and 4 bilateral launches), frame 0's direct and
      specular AOVs against the plain version on 4,096 sampled pixels;
@@ -272,13 +273,15 @@ Phases, each of which raises on failure:
      14,000 bounce hits, so that p99.9 is a quantile; with B4a's tail
      census), and on the GROUPED_MODEL_RAYS rays of whole sampled packets
      (occlusion knife-edge-aware, as on the host model, since a packet of
-     floor pixels holds many knife edges); against the host model
-     (ops/traverse.fat_packet_walk_numpy without the TPU kernel's one-leaf
-     lag, as the card walks; hits and slots, and t with the hits that a
+     floor pixels holds many knife edges); against the host model of the
+     card's walk (ops/traverse.fat_packet_walk_numpy with packet=32, one
+     warp a packet; hits and slots, and t with the hits that a
      float32-sized nudge of the origin moves beyond 1e-4 excused,
-     model_hit_gate) on those packets; each launch alone, B4a and B4c in turns, with the bound (B4a's,
-     phase 10a: the same function of the same rays), the packet model's
-     counts and redundant-work bound beside it, and the deepest stack; B4c
+     model_hit_gate) on those packets; each launch alone, B4a and B4c in
+     turns, with the bound (B4a's, phase 10a: the same function of the same
+     rays), the warp packet model's counts, and the JAX kernel's tile
+     packet model's counts and redundant-work bound beside them, and the
+     deepest stack; B4c
      against the plain version on 'instanced:4' at 128^2 (phase 7's rays),
      and its times there. The phase draws from its own generator;
  36. B1's opt-ins (run after phase 6): Cornell-glossy's progressive
@@ -310,9 +313,10 @@ Phases, each of which raises on failure:
      T instructions/s, 494.7 TFLOP/s dense TF32) fails the phase.
  38. the redesigned kernels (run after phase 37): ptxas' registers,
      spills and stack frames of every kernel of B1, B5, B3, B6a, B4b, B6b,
-     B4a and B2 beside those of B4c; B1's triangle records (the scene's tri_records,
+     B4a, B2, B4d and B4c; B1's triangle records (the scene's tri_records,
      five float4s a triangle) of configs 1 and 3 against their mt_pack, and
-     B5's leaf arrays ft_test (B4a's too) and ft_attr (ops/traverse.leaf_records) of
+     B5's leaf arrays ft_test (every one-level walk's too) and ft_attr
+     (ops/traverse.leaf_records) of
      'instanced:32' and the config-2 stand-in against their mt_rows, equal
      bit for bit on the card, with their bytes; the launch alone (CUDA
      events) on config 1's and config 3's first dispatch, config 4's frame 0
@@ -1245,17 +1249,16 @@ NODE_BYTES = {"fat": 64, "binary": 32, "wide": 256, "grouped": 64}  # one node o
 
 
 def walk1_work(tv, kind, bvh_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_per_ray,
-               packet=(), model_out=None):
+               packet=()):
     """(operations, bytes, counts) of the walks of rays o, d (a sample of a
     launch) by B4a, B4b, B4d or B4c (kind "fat", "binary", "wide", "grouped"
     with packet = (tile, group, common_origin); its sample whole packets),
     counted by their host model (ops/traverse.fat_walk_numpy,
-    binary_walk_numpy, wide_walk_numpy, fat_packet_walk_numpy without the
-    TPU kernel's lag, as the CUDA kernel walks) and scaled by `scale`
+    binary_walk_numpy, wide_walk_numpy, fat_packet_walk_numpy with the JAX
+    kernel's packets of `tile` rays, without its lag) and scaled by `scale`
     (launch rays / sampled rays): slab and pair operations; the distinct
     nodes (NODE_BYTES each) and slots (19 coefficients) touched, scaled but
-    at most the whole arrays, plus each ray's own input and output. The
-    model's result goes into the dict model_out when given."""
+    at most the whole arrays, plus each ray's own input and output."""
     if kind == "grouped":
         tile, group, common_origin = packet
         model = lambda *a, **k: tv.fat_packet_walk_numpy(  # noqa: E731
@@ -1263,10 +1266,8 @@ def walk1_work(tv, kind, bvh_np, o, d, t_min, t_max, cull, occlusion, scale, io_
     else:
         model = {"fat": tv.fat_walk_numpy, "binary": tv.binary_walk_numpy,
                  "wide": tv.wide_walk_numpy}[kind]
-    res, c = model(bvh_np, host_array(o), host_array(d), host_array(t_min), host_array(t_max),
-                   cull=cull, occlusion=occlusion)
-    if model_out is not None:
-        model_out.update(res)
+    _, c = model(bvh_np, host_array(o), host_array(d), host_array(t_min), host_array(t_max),
+                 cull=cull, occlusion=occlusion)
     rows = bvh_np[tv.WALKS[kind][2]]
     n_nodes = min(len(c["node_ids"]) * scale, len(rows) // 8 if kind == "wide" else len(rows))
     n_slots = min(len(c["slot_ids"]) * scale, int((bvh_np["slot_tri"] >= 0).sum()))
@@ -2245,12 +2246,14 @@ def main() -> int:
             warp = {k: (float(cw[k].mean()), float(cw[k].reshape(-1, 32).max(1).mean()))
                     for k in ("ray_visits", "ray_leaves")}
             # leaf-weighted: a warp's loop turns and the largest pair tests of
-            # each; B4b's of its kernel's walk (children tested at the parent,
-            # leaves postponed), not of the JAX order its bound counts
-            if walk == "binary":
-                cw = tv.parent_walk_numpy(bin_np, host_array(o[blk]), host_array(d[blk]),
-                                          host_array(t_min), host_array(rows_of(t_max, blk)),
-                                          cull=cull, occlusion=occlusion, postpone=True)[1]
+            # each; B4b's and B4d's of their kernels' walks (leaves postponed;
+            # B4b's children tested at the parent), not of the JAX order their
+            # bounds count
+            if walk != "fat":
+                kernel_walk = {"binary": tv.parent_walk_numpy, "wide": tv.wide_walk_numpy}[walk]
+                cw = kernel_walk(bin_np, host_array(o[blk]), host_array(d[blk]),
+                                 host_array(t_min), host_array(rows_of(t_max, blk)), cull=cull,
+                                 occlusion=occlusion, postpone=True)[1]
             wt = tv2.turn_costs(cw["turns"], len(blk))
             warp_turns = {k: int(v.sum()) for k, v in wt.items() if k.endswith(("turns", "slots"))}
             deepest[walk] = max(deepest[walk], c["max_stack"])
@@ -2262,7 +2265,7 @@ def main() -> int:
                         f"warps: visits per ray {warp['ray_visits'][0]:.2f}, per warp's slowest "
                         f"lane {warp['ray_visits'][1]:.2f}; leaf tests {warp['ray_leaves'][0]:.2f},"
                         f" {warp['ray_leaves'][1]:.2f}; warp turns and pair slots"
-                        f"{' of the kernel walk' if walk == 'binary' else ''} "
+                        f"{' of the kernel walk' if walk != 'fat' else ''} "
                         + ", ".join(f"{k} {v}" for k, v in warp_turns.items()) + ")")
             if walk == "fat":
                 continue
@@ -2358,10 +2361,10 @@ def main() -> int:
     # launch (B4a on the same rays beside it), and on whole sampled packets,
     # B4c and B4a alike (occlusion knife-edge-aware, as a packet of floor
     # pixels holds many knife edges); against the host model
-    # (fat_packet_walk_numpy, without the TPU kernel's one-leaf lag, as the
-    # card walks) on those packets; each launch alone, B4a and B4c in turns,
-    # with the bound from B4a's counts on the same rays (the function's need)
-    # and the packet model's counts beside it; then B4c against the plain
+    # of the card's walk (fat_packet_walk_numpy with packet=32: each warp a
+    # packet) on those packets; each launch alone, B4a and B4c in turns, with
+    # the bound from B4a's counts on the same rays (the function's need) and
+    # the warp and tile packet models' counts beside it; then B4c against the plain
     # version on instanced:4 at 128^2 (phase 7's rays). The phase draws from
     # its own generator, so the phases after it sample what they sampled
     # before it existed.
@@ -2429,11 +2432,15 @@ def main() -> int:
             sub = torch.as_tensor((packets[:, None] * tile + np.arange(tile)).reshape(-1),
                                   device=dev)
             sub_args = (o[sub], d[sub], t_min, rows_of(t_max, sub))
-            model = {}
             t1 = time.perf_counter()
+            # the JAX kernel's tile packets: their counts and redundant-work
+            # bound; the card's warp packets: the model the kernel is held to
             ops, nbytes, c = walk1_work(tv, "grouped", grp_np, *sub_args, cull, occlusion,
                                         len(o) / len(sub), 32 + (1 if occlusion else 16),
-                                        packet=(tile, group, co), model_out=model)
+                                        packet=(tile, group, co))
+            model, cw = tv.fat_packet_walk_numpy(
+                grp_np, *(host_array(x) for x in sub_args), tile, group, cull=cull,
+                occlusion=occlusion, common_origin=co, packet=tv.WARP)
             launch_model_s = time.perf_counter() - t1
             model_s += launch_model_s
             b4c_deepest = max(b4c_deepest, c["max_stack"])
@@ -2472,8 +2479,7 @@ def main() -> int:
             for walk in ("fat", "grouped", "grouped", "fat"):
                 ms.setdefault(walk, []).append(kernel_ms(tv.prepare_launch(
                     scene32, o, d, t_min, t_max, cull, occlusion, walk,
-                    (tile, group, co) if walk == "grouped" else ()),
-                    3 if walk == "grouped" else 10, torch))
+                    (tile, group, co) if walk == "grouped" else ()), 10, torch))
             k_ms, f_ms = sum(ms["grouped"]) / 2, sum(ms["fat"]) / 2
             # the bound is the function's need, B4a's walks of the launch (phase
             # 10a); the packet model's redundant work beside it
@@ -2488,18 +2494,22 @@ def main() -> int:
                 "packet_model_bound_ms": bnd_pk[0],
                 "packet_steps": c["visits"] / n_pk,
                 "pair_tests_per_ray": c["pair_tests"] / len(sub),
+                "warp_model_steps": cw["visits"] / (len(sub) // tv.WARP),
+                "warp_model_pair_tests_per_ray": cw["pair_tests"] / len(sub),
                 "deepest_stack": c["max_stack"]})
             print(f"time {name} ({len(o)} rays), each kernel alone, in turns fat, grouped, grouped,"
                   f" fat: B4c {k_ms:.4f} ms ({', '.join(f'{x:.4f}' for x in ms['grouped'])}), "
                   f"B4a {f_ms:.4f} ms; bound {bnd[0]:.4f} {bnd[1]} (B4a's walks, phase 10a); "
-                  f"packet model on "
+                  f"warp packet model on {len(sub) // tv.WARP} warps: "
+                  f"{cw['visits'] / (len(sub) // tv.WARP):.1f} steps per warp, "
+                  f"{cw['pair_tests'] / len(sub):.1f} pair tests per ray; tile packet model on "
                   f"{n_pk} packets: bound {bnd_pk[0]:.4f}, {c['visits'] / n_pk:.1f} steps per "
                   f"packet, {c['pair_tests'] / len(sub):.1f} pair tests per ray, deepest stack "
-                  f"{c['max_stack']}, {launch_model_s:.1f}s; "
+                  f"{c['max_stack']}; models {launch_model_s:.1f}s; "
                   f"{'occlusion agreeing with B4a' if occlusion else 't bit-equal to B4a on'} "
                   f"{t_equal:.4f} of rays [{card}]", flush=True)
-    print(f"B4c: deepest stack {b4c_deepest} of {tv.MAX_STACK} (host model on sampled packets); "
-          f"host model {model_s:.1f}s for all layouts and launches", flush=True)
+    print(f"B4c: deepest stack {b4c_deepest} of {tv.MAX_STACK} (tile packet model on sampled "
+          f"packets); host models {model_s:.1f}s for all layouts and launches", flush=True)
 
     # at 128^2 on instanced:4 (phase 7's rays) against the plain version
     b4c_small = {}
@@ -4606,18 +4616,19 @@ def main() -> int:
     del full, a_f, b_f, mt_f, rays_f
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
-    # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b, B4a, B2: ptxas, records, times
+    # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b, B4a, B2, B4d, B4c: ptxas, records, times
     # B1 reads each triangle as a record of five float4s (the scene's
     # tri_records, tv.tri_records); B5 and B4a read their leaves from
     # ft_test (B5 also ft_attr; tv.leaf_records), not from mt_rows. The
     # records against the packs they come from, on the card; their bytes; the
     # launch alone on each main path's first dispatch or frame beside its
     # bound; ptxas' counts of B1, B5, B3 (its queue and sweep kernels), B6a,
-    # B4b, B6b, B4a and B2 beside B4c's.
+    # B4b, B6b, B4a, B2, B4d and B4c.
     ptx = {key: cuda_build.ptxas_counts(cuda_build.BUILD_INFO[src]["log"]) for key, src in (
         ("B1", "fused_sample"), ("B5", "fused_traverse"), ("B4a", "traverse_fat"),
         ("B4c", "traverse_fat_grouped"), ("B3", "intersect_brute"), ("B6a", "traverse2_fat"),
-        ("B4b", "traverse_binary"), ("B6b", "traverse2_binary"), ("B2", "bilateral"))}
+        ("B4b", "traverse_binary"), ("B6b", "traverse2_binary"), ("B2", "bilateral"),
+        ("B4d", "traverse8"))}
     for key, rows in ptx.items():
         for r in rows:
             print(f"ptxas {key}: {r['kernel']}: {r.get('registers')} registers, spill stores "
@@ -4812,7 +4823,7 @@ def main() -> int:
             "parity_128_max_abs_err": bin_parity[walk, occl],
             "deepest_stack": deepest[walk],
             "per_launch": acc["per_launch"],
-            **({"ptxas": ptx["B4b"]} if walk == "binary" else {}),
+            "ptxas": ptx["B4b" if walk == "binary" else "B4d"],
             "max_abs_err_is": ("occlusion disagreement fraction" if occl else
                                "max |t - plain t| on rays that hit the same triangle"),
             **extra,
@@ -4961,6 +4972,7 @@ def main() -> int:
             "ms_at_plain_shape": b4c_small[main_layout][3 if occl else 2],
             "parity_128_max_abs_err": max(b4c_small[k][1 if occl else 0] for k in GROUPINGS),
             "deepest_stack": b4c_deepest,
+            "ptxas": ptx["B4c"],
             "per_layout": {f"{t}x{g}": {"ms": b4c[t, g][occl]["ms"],
                                         "b4a_ms": b4c[t, g][occl]["fat_ms"],
                                         "per_launch": b4c[t, g][occl]["per_launch"]}

@@ -1,6 +1,7 @@
 // The leaf tests over triangle records, shared by the walks that read them:
-// B6a (csrc/traverse2_fat.cu), B4b (csrc/traverse_binary.cu) and B6b
-// (csrc/traverse2_binary.cu).
+// B4a (csrc/traverse_fat.cu), B4b (csrc/traverse_binary.cu), B4c
+// (csrc/traverse_fat_grouped.cu), B4d (csrc/traverse8.cu), B6a
+// (csrc/traverse2_fat.cu) and B6b (csrc/traverse2_binary.cu).
 //
 // ClosestRecLeaf and AnyRecLeaf are common.cuh's ClosestLeaf and AnyLeaf
 // with each slot's 19 coefficients read from a record of five float4s

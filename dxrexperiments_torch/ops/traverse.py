@@ -14,9 +14,10 @@ JAX build's bit for bit.
 
 On CUDA tensors the wrappers launch the hand-written kernels in
 ``csrc/traverse_fat.cu``, ``csrc/traverse_binary.cu`` and
-``csrc/traverse8.cu`` (one thread per ray on its own stack) or
-``csrc/traverse_fat_grouped.cu`` (one packet of ``tile`` rays per block on
-a shared stack) or raise; on CPU tensors they take the plain versions, the
+``csrc/traverse8.cu`` (one thread per ray on its own stack, leaf tests
+postponed per warp) or ``csrc/traverse_fat_grouped.cu`` (one packet of 32
+rays per warp on a shared stack) or raise; every one reads its leaves from
+the records ``ft_test``; on CPU tensors they take the plain versions, the
 brute-force ``ops/intersect.py`` over the same triangles, which is what the
 JAX package's jnp route computes for BVH scenes. There is no fallback from a
 kernel to its plain version.
@@ -26,8 +27,9 @@ read it: ``check_errors`` raises for it at a later launch, once the kernel
 has finished, or when the pipeline's ``get_output`` waits for the card.
 
 ``fat_walk_numpy``, ``fat_packet_walk_numpy``, ``parent_walk_numpy`` and
-``wide_walk_numpy`` are host models of the kernels' walks (B4b's:
-children tested at the parent, leaves postponed per warp), and
+``wide_walk_numpy`` are host models of the kernels' walks (with
+``postpone=True`` the warps' leaf postponement of B4a, B4b and B4d; with
+``packet=32`` B4c's warp packets), and
 ``binary_walk_numpy`` of the JAX kernel's binary walk: they return the same
 hits and count the slab and pair tests a walk performs, from which
 ``chip_smoke.py`` computes the kernels' bounds, and log the work of each
@@ -72,11 +74,11 @@ WALKS = {
     "binary": ("traverse_binary", "dxr_traverse_binary", "bvh_rows", 8,
                ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES"), "ft_test"),
     "wide": ("traverse8", "dxr_traverse8", "bvh8_rows", 8,
-             ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES"), "mt_rows"),
+             ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES"), "ft_test"),
     "grouped": ("traverse_fat_grouped", "dxr_traverse_fat_grouped", "bvhf_rows", 16,
-                ("GROUPED_CLOSEST_LAUNCHES", "GROUPED_ANY_LAUNCHES"), "mt_rows"),
+                ("GROUPED_CLOSEST_LAUNCHES", "GROUPED_ANY_LAUNCHES"), "ft_test"),
 }
-MAX_TILE = 2048  # B4c's largest packet (the JAX kernel's TILE_R): two rays per thread
+MAX_TILE = 2048  # the JAX kernel's largest packet (its TILE_R), which B4c's layouts keep
 
 _ERRORS = {1: f"a ray's stack overflowed its {MAX_STACK} entries (64 in a TLAS walk)",
            2: "a node, instance or slot index lies outside the packed arrays"}
@@ -377,17 +379,13 @@ def check_records(tree: dict, name: str, device) -> torch.Tensor:
 
 
 def check_bvh(bvh: dict, device, kind: str = "fat") -> tuple[torch.Tensor, torch.Tensor]:
-    """Walk ``kind``'s BVH inputs, checked: (node rows, leaf array), the
+    """Walk ``kind``'s BVH inputs, checked: (node rows, leaf records), the
     node rows bvhf_rows [F, 16] (fat, grouped), bvh_rows [M, 8] (binary) or
-    bvh8_rows [W*8, 8] (wide), the leaf array mt_rows [S, 128] (grouped,
-    wide), or for the fat and binary walks the records ft_test [S,
+    bvh8_rows [W*8, 8] (wide), and for every walk the records ft_test [S,
     REC_WORDS] (``check_records``; built by ``scene.bvh_to_device`` for
-    every BVH)."""
+    every BVH): a BVH without them raises."""
     rows, width = WALKS[kind][2:4]
-    leaf = WALKS[kind][5]
-    if leaf == "mt_rows":
-        return check_rows(bvh, {rows: width, "mt_rows": 128}, device)
-    return check_rows(bvh, {rows: width}, device)[0], check_records(bvh, leaf, device)
+    return check_rows(bvh, {rows: width}, device)[0], check_records(bvh, WALKS[kind][5], device)
 
 
 def raise_on_error(err: torch.Tensor, what: str) -> None:
@@ -512,10 +510,11 @@ def _any(kind: str, scene, origins, directions, t_min, t_max) -> torch.Tensor:
 
 
 def check_grouping(tile: int, group: int) -> None:
-    """Raise ValueError unless (tile, group) is a packet layout B4c takes:
-    group > 1 sub-packets of R = tile / group rays, R a multiple of 32 (whole
-    warps), tile <= MAX_TILE, and above MAX_TILE / 2 (two rays per thread) a
-    multiple of 64."""
+    """Raise ValueError unless (tile, group) is a packet layout B4c takes,
+    the TPU kernel's limits (the CUDA entry point refuses the same): group >
+    1 sub-packets of R = tile / group rays, R a multiple of 32 (whole warps),
+    tile <= MAX_TILE, and above MAX_TILE / 2 (two rays a lane in the TPU
+    kernel's layout) a multiple of 64."""
     tile, group = int(tile), int(group)
     if group <= 1:
         raise ValueError(f"group={group}: the grouped walk needs group > 1 (group <= 1 is B4a)")
@@ -525,10 +524,11 @@ def check_grouping(tile: int, group: int) -> None:
         raise ValueError(f"tile={tile}, group={group}: the sub-packet R = tile / group = "
                          f"{tile // group} must be a multiple of 32 (whole warps)")
     if tile > MAX_TILE:
-        raise ValueError(f"tile={tile}: at most {MAX_TILE} rays per packet (two per thread)")
+        raise ValueError(f"tile={tile}: at most {MAX_TILE} rays per packet (the TPU "
+                         "kernel's TILE_R)")
     if tile > MAX_TILE // 2 and tile % 64:
-        raise ValueError(f"tile={tile}: a packet of more than {MAX_TILE // 2} rays takes two "
-                         f"per thread, so it must be a multiple of 64 (whole warps)")
+        raise ValueError(f"tile={tile}: the TPU kernel lays a packet of more than "
+                         f"{MAX_TILE // 2} rays out two a lane, so it must be a multiple of 64")
 
 
 def traverse_fat_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
@@ -540,10 +540,12 @@ def traverse_fat_closest(scene: dict, origins: torch.Tensor, directions: torch.T
     int64 (leaf slot, -1), "u", "v" [R] (0 on a miss)}. t_min/t_max:
     scalars or [R].
 
-    group > 1 walks packets of ``tile`` rays on one shared stack, each
-    leaf's pair test run only in the sub-packets of tile / group rays with
-    a live lane (kernel B4c; ``check_grouping`` says which layouts it
-    takes, anything else raises ValueError); group <= 1 walks each ray on
+    group > 1 walks packets of rays on one shared stack, each leaf's pair
+    test run only in the sub-packets with a live lane (kernel B4c; the JAX
+    kernel's packet is ``tile`` rays in sub-packets of tile / group, the
+    card's is a warp of 32 rays, which lies in one sub-packet, so the
+    layout selects no other walk there; ``check_grouping`` says which
+    layouts it takes, anything else raises ValueError); group <= 1 walks each ray on
     its own stack (kernel B4a), where ``tile``, the TPU packet size, has no
     meaning and is not used. ``common_origin``: the caller asserts that
     every ray starts at origins[0], and every route (the kernels and the
@@ -945,32 +947,34 @@ class TurnLog:
 
 
 def held_walk(nodes, visit, o, inv, state: WalkState, st: RayStacks, leaf_test, log: TurnLog,
-              turn) -> list[np.ndarray]:
+              turn, hold: int = 2) -> list[np.ndarray]:
     """Walk every ray with a non-empty stack in ``st`` to its end with leaf
     postponement, as the warps of B4b (``postponed_walk`` in
-    csrc/walk_binary.cuh) and B4a (``postponed_fat_walk`` in
-    csrc/traverse_fat.cu) walk: each round every ray that neither holds a
+    csrc/walk_binary.cuh), B4a (``postponed_fat_walk`` in
+    csrc/traverse_fat.cu) and B4d (``postponed_wide_walk`` in
+    csrc/traverse8.cu) walk: each round every ray that neither holds a
     leaf nor has ended makes one turn of ``visit``, the leaves it hits held,
-    not tested (one a binary visit, up to two a fat one, in the order
-    ``visit`` calls its leaf function); then each warp (WARP consecutive
-    rays) in which no ray is still looking for a leaf tests its held
-    leaves (``leaf_test(idx, start, count)``), each ray its own in order, a
-    second leaf not tested once the first has occluded the ray. A ray's
-    window changes only at its own leaf tests, so a held leaf is tested
-    against the window it was found with. Each turn goes into ``log``
-    (loop 0) under the ray's turn counter ``turn`` [R] (advanced here),
-    held leaves' pair tests under the turn that found them; each round's
-    traversal turn and leaf phase go into ``log`` per warp
+    not tested (up to ``hold``: one a binary visit, two a fat one, eight a
+    wide one, in the order ``visit`` calls its leaf function); then each
+    warp (WARP consecutive rays) in which no ray is still looking for a
+    leaf tests its held leaves (``leaf_test(idx, start, count)``), each ray
+    its own in order, no further leaf once one has occluded the ray. A
+    ray's window changes only at its own leaf tests, so a held leaf is
+    tested against the window it was found with. Each turn goes into
+    ``log`` (loop 0) under the ray's turn counter ``turn`` [R] (advanced
+    here), held leaves' pair tests under the turn that found them; each
+    round's traversal turn and leaf phase go into ``log`` per warp
     (``TurnLog.add_round``: a leaf phase costs a warp its ray with the most
-    pair tests over all its held leaves), which ``traverse2.turn_costs``
-    sums. Returns the popped node ids of each round."""
+    pair tests over all its held leaves, which the kernels test as one run
+    of slots), which ``traverse2.turn_costs`` sums. Returns the popped node
+    ids of each round."""
     r = len(st.sp)
     n_held = np.zeros(r, np.int64)
-    start, count = np.zeros((r, 2), np.int64), np.zeros((r, 2), np.int64)
+    start, count = np.zeros((r, hold), np.int64), np.zeros((r, hold), np.int64)
     held_turn = np.zeros(r, np.int64)
     popped = []
 
-    def hold(idx, s, c, _side):
+    def hold_leaf(idx, s, c, _side):
         k = n_held[idx]
         start[idx, k], count[idx, k] = s, c
         n_held[idx] += 1
@@ -978,7 +982,7 @@ def held_walk(nodes, visit, o, inv, state: WalkState, st: RayStacks, leaf_test, 
     while True:
         walking = np.nonzero((st.sp > 0) & (n_held == 0) & ~state.occ)[0]
         if len(walking):
-            popped.append(visit(walking, nodes, o, inv, state, st, hold))
+            popped.append(visit(walking, nodes, o, inv, state, st, hold_leaf))
             new = n_held[walking] > 0
             log.add(walking[~new], 0, turn[walking[~new]],
                     np.zeros(int((~new).sum()), np.int64))
@@ -990,7 +994,7 @@ def held_walk(nodes, visit, o, inv, state: WalkState, st: RayStacks, leaf_test, 
         test = np.nonzero((n_held > 0) & ~busy[np.arange(r) // WARP])[0]
         if len(test):
             before = state.ray_pairs[test]
-            for k in range(2):
+            for k in range(hold):
                 sel = test[n_held[test] > k]
                 if len(sel):
                     leaf_test(sel, start[sel, k], count[sel, k])
@@ -1004,11 +1008,11 @@ def held_walk(nodes, visit, o, inv, state: WalkState, st: RayStacks, leaf_test, 
 
 def _walk_numpy(nodes, visit, mt_rows, origins, directions, t_min, t_max,
                 cull: bool, occlusion: bool, parent: bool = False,
-                postpone: bool = False) -> tuple[dict, dict]:
+                postpone: bool = False, hold: int = 2) -> tuple[dict, dict]:
     """Run ``visit`` (fat_visit, binary_visit, wide_visit or, with
     ``parent``, parent_visit after the root test) over ``nodes`` from node
     0 until every ray's stack is empty (or it is occluded); ``postpone``:
-    with leaf postponement (``held_walk``)."""
+    with leaf postponement (``held_walk``, up to ``hold`` leaves a ray)."""
     nodes = np.asarray(nodes, np.float32)
     o = np.asarray(origins, np.float32)
     d = np.asarray(directions, np.float32)
@@ -1040,7 +1044,7 @@ def _walk_numpy(nodes, visit, mt_rows, origins, directions, t_min, t_max,
             st.start(idx, 0)
         if postpone:
             seen_nodes += held_walk(nodes, visit, o, inv, state, st,
-                                    lambda i, s, c: leaf(i, s, c, 0), log, ray_visits)
+                                    lambda i, s, c: leaf(i, s, c, 0), log, ray_visits, hold)
         while True:
             idx = np.nonzero((st.sp > 0) & ~state.occ)[0]
             if len(idx) == 0:
@@ -1109,39 +1113,36 @@ def parent_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool =
 
 
 def wide_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
-                    occlusion: bool = False) -> tuple[dict, dict]:
+                    occlusion: bool = False, postpone: bool = False) -> tuple[dict, dict]:
     """Host model of B4d's per-ray walk over ``bvh8_rows``/``mt_rows`` (numpy
     arrays), in the JAX kernel's order (``wide_visit``): eight slab tests per
-    visit. Returns what ``fat_walk_numpy`` returns, node_ids being wide node
+    visit. ``postpone``: B4d's warps, with leaf postponement (``held_walk``
+    with a hold of eight: a ray holds the leaf children a visit hits, in
+    child order; its rounds go into counts["turns"]["rounds"]), which
+    changes neither the hits nor the leaves each ray tests and their order.
+    Returns what ``fat_walk_numpy`` returns, node_ids being wide node
     ids."""
     return _walk_numpy(bvh["bvh8_rows"], wide_visit, bvh["mt_rows"], origins, directions,
-                       t_min, t_max, cull, occlusion)
-
-
-def _packet_slab(f, c: int, o, inv, tmin, tf):
-    """Child c's slab test of fat node row f for a packet's lanes (o, inv
-    [n, 3]): (lane hits [n], entry t [n])."""
-    t0 = (f[6 * c : 6 * c + 3] - o) * inv
-    t1 = (f[6 * c + 3 : 6 * c + 6] - o) * inv
-    tn = np.maximum(tmin, np.minimum(t0, t1).max(1))
-    return tn <= np.minimum(tf, np.maximum(t0, t1).min(1)), tn
+                       t_min, t_max, cull, occlusion, postpone=postpone, hold=8)
 
 
 def fat_packet_walk_numpy(bvh: dict, origins, directions, t_min, t_max, tile: int, group: int,
                           cull: bool = False, occlusion: bool = False,
-                          common_origin: bool = False, lag: bool = False) -> tuple[dict, dict]:
-    """Host model of B4c's packet walk over ``bvhf_rows``/``mt_rows`` (numpy
-    arrays), one packet of ``tile`` consecutive rays at a time, as the JAX
-    kernel ``_make_traverse_fat_grouped_kernel`` walks it:
+                          common_origin: bool = False, lag: bool = False,
+                          packet: int | None = None) -> tuple[dict, dict]:
+    """Host model of the grouped packet walk over ``bvhf_rows``/``mt_rows``
+    (numpy arrays), one stack per packet of ``packet`` consecutive rays
+    (default ``tile``, the JAX kernel ``_make_traverse_fat_grouped_kernel``'s
+    packet; 32, a warp, is B4c's on the card), with the JAX kernel's rules:
 
-    - one stack per packet; both children of a node are slab-tested for
-      every lane against (t_min, min(t_max, best)] (in occlusion an
-      occluded or zero-direction lane's window is empty), and a child is
-      taken if any lane hits it;
+    - both children of a node are slab-tested for every lane against
+      (t_min, min(t_max, best)] (in occlusion an occluded or zero-direction
+      lane's window is empty), and a child is taken if any lane hits it;
     - hit leaves are handled child 0 first: the leaf box is re-tested per
-      lane, and the pair test runs in every sub-packet of R = tile / group
-      rays that has a live lane (lowest row wins within a leaf, strict '<'
-      across leaves; an occluded lane tests no more);
+      lane, and the pair test runs in every active lane of a sub-packet of
+      min(packet, tile / group) rays that has a live lane (lowest row wins
+      within a leaf, strict '<' across leaves; an occluded lane tests no
+      more);
     - two internal children are pushed so that the child with the smaller
       packet-minimum entry t pops first, ties to child 0;
     - occlusion ends once every lane is occluded (or dead) and no leaf is
@@ -1152,15 +1153,20 @@ def fat_packet_walk_numpy(bvh: dict, origins, directions, t_min, t_max, tile: in
     enqueued, the last after the walk); the CUDA kernel tests a leaf at
     once (``lag=False``). The lag changes which nodes a stale best fails to
     prune, not the winner. ``common_origin`` uses origins[0] for every ray.
-    Rays past the last whole packet form a shorter packet.
+    Rays past the last whole packet form a shorter packet. The packets walk
+    side by side, one step of each a round.
 
     Returns (result, counts) with ``fat_walk_numpy``'s keys: visits are
     packet steps; slab_tests 2 x lanes per step plus lanes per leaf
     re-test; pair_tests the rows each lane of a live sub-packet tests (an
     occlusion lane up to its first blocker); ray_visits [R] the steps of
     each ray's packet; ray_leaves [R] the leaf tests each ray took part
-    in."""
+    in; warp_slots [W] per warp of WARP consecutive rays the pair slots it
+    runs (over its leaf tests, its lane with the most pair tests)."""
     check_grouping(tile, group)
+    packet = tile if packet is None else int(packet)
+    if packet < 1 or packet % WARP or tile % packet:
+        raise ValueError(f"packet={packet}: a whole number of warps that divides tile={tile}")
     nodes = np.asarray(bvh["bvhf_rows"], np.float32)
     o = np.asarray(origins, np.float32)
     d = np.asarray(directions, np.float32)
@@ -1174,9 +1180,18 @@ def fat_packet_walk_numpy(bvh: dict, origins, directions, t_min, t_max, tile: in
     inv = safe_inv(d)
     mom = np.cross(o, d).astype(np.float32)
     dead = (np.abs(d).sum(axis=1) < 1e-30) if occlusion else np.zeros(r, bool)
-    sub = tile // group
-    ray_visits = np.zeros(r, np.int64)
-    counts = {"visits": 0, "slab_tests": 0}
+    sub = min(packet, tile // group)
+    pk = np.arange(r) // packet  # each ray's packet
+    grp = pk * packet + (np.arange(r) % packet) // sub  # each ray's sub-packet (a label)
+    n_pk = -(-r // packet)
+    stack = np.zeros((n_pk, MAX_STACK), np.int64)
+    sp = np.ones(n_pk, np.int64)
+    steps = np.zeros(n_pk, np.int64)
+    pending = np.zeros(n_pk, bool)  # lag: a leaf enqueued, not yet tested
+    p_start, p_count = np.zeros(n_pk, np.int64), np.zeros(n_pk, np.int64)
+    p_box = np.zeros((n_pk, 6), np.float32)
+    warp_slots = np.zeros(-(-r // WARP), np.int64)
+    counts = {"slab_tests": 0}
     deepest = 0
     seen_nodes: list[np.ndarray] = []
 
@@ -1185,63 +1200,101 @@ def fat_packet_walk_numpy(bvh: dict, origins, directions, t_min, t_max, tile: in
             return np.where(state.occ[idx] | dead[idx], np.float32(-BIG), state.tmax[idx])
         return state.far(idx)
 
-    def process(idx, start, count, box):
-        """The leaf re-test and the pair tests of the live sub-packets."""
+    def rays_of(packets):
+        return np.nonzero(np.isin(pk, packets))[0]
+
+    def process(packets, start, count, box):
+        """The leaf re-test and the pair tests of the live sub-packets, one
+        leaf per packet (start, count [n], box [n, 6])."""
+        at = np.full(n_pk, -1, np.int64)
+        at[packets] = np.arange(len(packets))
+        idx = rays_of(packets)
+        j = at[pk[idx]]
         counts["slab_tests"] += len(idx)
-        live, _ = _packet_slab(box, 0, o[idx], inv[idx], state.tmin[idx], far(idx))
-        g = (idx - idx[0]) // sub
-        run = idx[np.isin(g, np.unique(g[live])) & ~dead[idx]]
+        live, _ = slab_test(box[j], o[idx], inv[idx], state.tmin[idx], far(idx))
+        run = idx[np.isin(grp[idx], grp[idx][live]) & ~dead[idx]]
         if len(run):
-            n = len(run)
-            state.leaf(run, np.full(n, start), np.full(n, count), o[run], d[run], mom[run])
+            before = state.ray_pairs[run]
+            j = at[pk[run]]
+            # a few packets: one call per leaf, whose coefficients broadcast
+            # over its rays (leaf_terms), instead of a gather per ray
+            for part in (np.split(np.argsort(j, kind="stable"), np.unique(np.sort(j),
+                                                                     return_index=True)[1][1:])
+                         if len(packets) <= 8 else (slice(None),)):
+                w = run[part]
+                state.leaf(w, start[j[part]], count[j[part]], o[w], d[w], mom[w])
+            top = np.zeros(len(warp_slots), np.int64)
+            np.maximum.at(top, run // WARP, state.ray_pairs[run] - before)
+            warp_slots[:] += top
 
     with np.errstate(all="ignore"):  # slab tests overflow to +-inf on purpose
-        for p0 in range(0, r, tile):
-            idx = np.arange(p0, min(p0 + tile, r))
-            stack = [0]
-            pending = None
-            steps = 0
-            while stack:
-                node = stack.pop()
-                steps += 1
-                seen_nodes.append(np.array([node]))
-                f = nodes[node]
-                tf = far(idx)
-                hits, enters, entered = [], [], []
-                for c in range(2):
-                    h, tn = _packet_slab(f, c, o[idx], inv[idx], state.tmin[idx], tf)
-                    hits.append(bool(h.any()))
-                    enters.append(np.where(h, tn, np.float32(BIG)).min())
-                counts["slab_tests"] += 2 * len(idx)
-                for c in range(2):
-                    if hits[c] and f[13 + 2 * c] > 0.5:
-                        leaf = (int(f[12 + 2 * c]), int(f[13 + 2 * c]), f[6 * c : 6 * c + 6])
-                        entered.append(leaf)
-                        if lag:
-                            if pending is not None:
-                                process(idx, *pending)
-                            pending = leaf
-                        else:
-                            process(idx, *leaf)
-                int0 = hits[0] and f[13] < -0.5
-                int1 = hits[1] and f[15] < -0.5
-                if len(stack) + int0 + int1 > MAX_STACK:
-                    raise RuntimeError(f"a packet's stack overflowed its {MAX_STACK} entries")
-                ptr0, ptr1 = int(f[12]), int(f[14])
-                if int0 and int1:
-                    near0 = enters[0] <= enters[1]
-                    stack += [ptr1, ptr0] if near0 else [ptr0, ptr1]
-                elif int0 or int1:
-                    stack.append(ptr0 if int0 else ptr1)
-                deepest = max(deepest, len(stack))
-                if occlusion and (state.occ[idx] | dead[idx]).all() and not (lag and entered):
-                    break
-            if pending is not None:
-                process(idx, *pending)
-            ray_visits[idx] = steps
-            counts["visits"] += steps
+        while True:
+            act = np.nonzero(sp > 0)[0]
+            if not len(act):
+                break
+            sp[act] -= 1
+            node = stack[act, sp[act]]
+            steps[act] += 1
+            seen_nodes.append(node)
+            f = nodes[node]  # [n, 16]
+            idx = rays_of(act)
+            at = np.full(n_pk, -1, np.int64)
+            at[act] = np.arange(len(act))
+            j = at[pk[idx]]
+            tf = far(idx)
+            hits, enters = [], []
+            for c in range(2):
+                h, tn = slab_test(f[j, 6 * c : 6 * c + 6], o[idx], inv[idx], state.tmin[idx], tf)
+                hits.append(np.bincount(j, weights=h, minlength=len(act)) > 0)
+                e = np.full(len(act), BIG, np.float32)
+                np.minimum.at(e, j, np.where(h, tn, np.float32(BIG)))
+                enters.append(e)
+            counts["slab_tests"] += 2 * len(idx)
+            entered = np.zeros(len(act), bool)
+            for c in range(2):
+                lf = hits[c] & (f[:, 13 + 2 * c] > 0.5)
+                if not lf.any():
+                    continue
+                entered |= lf
+                pl = act[lf]
+                leaf = (f[lf, 12 + 2 * c].astype(np.int64), f[lf, 13 + 2 * c].astype(np.int64),
+                        f[lf, 6 * c : 6 * c + 6])
+                if lag:
+                    was = pending[pl]
+                    if was.any():
+                        process(pl[was], p_start[pl[was]], p_count[pl[was]], p_box[pl[was]])
+                    p_start[pl], p_count[pl], p_box[pl] = leaf
+                    pending[pl] = True
+                else:
+                    process(pl, *leaf)
+            int0 = hits[0] & (f[:, 13] < -0.5)
+            int1 = hits[1] & (f[:, 15] < -0.5)
+            if (sp[act] + int0 + int1 > MAX_STACK).any():
+                raise RuntimeError(f"a packet's stack overflowed its {MAX_STACK} entries")
+            ptr0, ptr1 = f[:, 12].astype(np.int64), f[:, 14].astype(np.int64)
+            both = int0 & int1
+            near0 = enters[0] <= enters[1]
+            first = np.where(both, np.where(near0, ptr1, ptr0), np.where(int0, ptr0, ptr1))
+            one = int0 | int1
+            stack[act[one], sp[act[one]]] = first[one]
+            sp[act[one]] += 1
+            stack[act[both], sp[act[both]]] = np.where(near0, ptr0, ptr1)[both]
+            sp[act[both]] += 1
+            deepest = max(deepest, int(sp.max()))
+            if occlusion:
+                done = np.bincount(j, weights=~(state.occ[idx] | dead[idx]),
+                                   minlength=len(act)) == 0
+                if lag:
+                    done &= ~entered
+                sp[act[done]] = 0
+            ended = act[(sp[act] == 0) & pending[act]]
+            if len(ended):
+                process(ended, p_start[ended], p_count[ended], p_box[ended])
+                pending[ended] = False
 
-    counts.update({"pair_tests": state.pairs, "node_ids": distinct(seen_nodes),
-                   "slot_ids": distinct(state.slots_seen), "max_stack": deepest,
-                   "ray_visits": ray_visits, "ray_leaves": state.ray_leaves})
+    ray_visits = steps[pk]
+    counts.update({"visits": int(steps.sum()), "pair_tests": state.pairs,
+                   "node_ids": distinct(seen_nodes), "slot_ids": distinct(state.slots_seen),
+                   "max_stack": deepest, "ray_visits": ray_visits,
+                   "ray_leaves": state.ray_leaves, "warp_slots": warp_slots})
     return state.result(), counts

@@ -1,11 +1,12 @@
 """The port's kernels against another commit's sources on one NVIDIA GPU:
 the trace kernels B4a (csrc/traverse_fat.cu), B4b
 (csrc/traverse_binary.cu), B6b (csrc/traverse2_binary.cu), B3
-(csrc/intersect_brute.cu) and B6a (csrc/traverse2_fat.cu) and the
+(csrc/intersect_brute.cu), B6a (csrc/traverse2_fat.cu), B4d
+(csrc/traverse8.cu) and B4c (csrc/traverse_fat_grouped.cu) and the
 bilateral pass B2 (csrc/bilateral.cu) case by case, every other kernel by
 its instructions.
 
-    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B4a,B2]
+    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B4d,B4c]
                          [--same-entries] [--this DIR2]
 
 DIR is a checkout of the commit to compare with (its
@@ -13,23 +14,26 @@ DIR is a checkout of the commit to compare with (its
 beside this tree's; one nvcc per source, all at once). Printed:
 
 - ptxas' registers, spills and stack of every kernel of both trees;
-- for every kernel but this tree's redesigns (``REDESIGNED``: B4a, B2),
+- for every kernel but this tree's redesigns (``REDESIGNED``: B4d, B4c),
   whether its instructions (``cuobjdump -sass``) equal the base build's;
 - for the sweep and leaf loops of B1, B3, B5 and the walks (the innermost
   loops that load and do float work, each pair test counted by its FSETP
   against 1e-12) the instructions, loads and float instructions per pair
-  test; for the walks (B4a, B4b, B4d, B6a, B6b) each loop that holds a
+  test; for the walks (B4a, B4b, B4c, B4d, B6a, B6b) each loop that holds a
   pair-test loop, with its instructions outside its inner loops (a turn's
   work without its pair tests);
 - per trace case (``trace_cases``: the four launches of the first sample of
   the first 512^2 S = 4 dispatch, on config 5 flattened for B4a, config 5
   flattened without fat nodes for B4b, config 5 two-level without fat
-  nodes for B6b, ``instanced:2`` brute force for B3 and config 5 two-level
-  for B6a), on the same inputs: the rays whose output differs in any bit
-  from the base build's, per output (t, u, v, slot, inst, occlusion and
-  every fused attribute); the host figures (``trace_figures``: for B4a,
-  B4b and B6b the leaf-weighted warp figures of every walk of the launch,
-  ``walk_figures``); ms per launch,
+  nodes for B6b, ``instanced:2`` brute force for B3, config 5 two-level
+  for B6a, and B4a's inputs on config 5 flattened for B4d (its 8-wide
+  nodes) and for B4c at each of chip_smoke.GROUPINGS' packet layouts), on
+  the same inputs: the rays whose output differs in any bit from the base
+  build's, per output (t, u, v, slot, inst, occlusion and every fused
+  attribute), and for B4d and B4c from this tree's B4a; the host figures
+  (``trace_figures``: for B4a, B4b, B4d, B4c and B6b the leaf-weighted
+  warp figures of every walk of the launch, ``walk_figures``); ms per
+  launch,
   CUDA events around the launch alone, base and this tree in turns (base,
   this, this, base; ``--reps`` launches a turn, 0 for none); and the
   route's host ms per dispatch with either build (``BaseRoute``), in turns;
@@ -40,9 +44,9 @@ beside this tree's; one nvcc per source, all at once). Printed:
   frame 0 AOVs, both passes at each radius of ``B2_RADII``): the pixels
   whose channels differ in any bit, per channel, ms in turns.
 
-The base's B4a is called with the entry point it had before its leaf
-records (``base_trace_launch``, reading mt_rows), its other trace kernels
-through this tree's wrappers; ``--same-entries`` (a base that is a variant
+The base's B4d and B4c are called with the entry points they had before
+their leaf records (``base_trace_launch``, reading mt_rows), its other
+trace kernels through this tree's wrappers; ``--same-entries`` (a base that is a variant
 of this tree) launches all of them through this tree's wrappers. ``--this DIR2`` builds
 DIR2's sources in place of this tree's (a variant with this tree's entry
 points, run through this tree's wrappers), so two variants compare in one
@@ -67,11 +71,17 @@ SOURCES = {"B1": "fused_sample", "B2": "bilateral", "B3": "intersect_brute",
            "B6b": "traverse2_binary", "B7": "roofline"}
 # this tree's redesigns, compared case by case; every other kernel's
 # instructions must equal the base's
-REDESIGNED = ("B4a", "B2")
-TRACED = ("B4a", "B4b", "B6b", "B3", "B6a")  # the trace kernels with cases
+REDESIGNED = ("B4d", "B4c")
+TRACED = ("B4a", "B4b", "B6b", "B3", "B6a", "B4d", "B4c")  # the trace kernels with cases
 COMPARED = TRACED + ("B2", "B1", "B5")  # the kernels with cases
 B2_RADII = (1, 7, 12, 25)  # chip_smoke.BILATERAL_RADII; 12 is the denoiser's default
-WALK_KERNELS = ("B4a", "B4b", "B4d", "B6a", "B6b")  # whose walk loops are counted
+WALK_KERNELS = ("B4a", "B4b", "B4c", "B4d", "B6a", "B6b")  # whose walk loops are counted
+# B4a's SASS per turn outside its pair tests and per pair test, closest and
+# occlusion (walk_loops and the sass loops of its build with leaf records
+# and postponement): the constants of the packet walks' predicted ms
+# (packet_figures)
+B4A_COSTS = {False: (138.0, 39.0), True: (124.0, 53.0)}
+KINDS = {"B4a": "fat", "B4b": "binary", "B4c": "grouped", "B4d": "wide"}  # ops.traverse's walks
 BATCHES = ("primary closest", "depth-0 shadow any", "bounce closest", "depth-1 shadow any")
 
 
@@ -224,24 +234,26 @@ def walk_report(so_path: str) -> dict:
     return {name: walk_loops(code) for name, code in sass_functions(proc.stdout).items()}
 
 
-def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
-    """The base commit's entry points of the trace kernels: B4a
-    (``dxr_traverse_fat``) as it was before its leaf records, reading
-    mt_rows where it now reads ft_test; the others as this tree's
+def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion, packet=()):
+    """The base commit's entry points of the trace kernels: B4d
+    (``dxr_traverse8``) and B4c (``dxr_traverse_fat_grouped``, ``packet`` =
+    (tile, group, common_origin)) as they were before their leaf records,
+    reading mt_rows where they now read ft_test; the others as this tree's
     (``this_trace_launch``). Returns (launch, outs, err)."""
     import torch
 
     from dxrexperiments_torch.ops import traverse as tv
 
-    if kernel != "B4a":
+    if kernel not in ("B4d", "B4c"):
         return this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion)
     device = o.device
     r = o.shape[0]
     rays = tv.pack_rays(o, d, t_min, t_max)
     err = torch.zeros(1, dtype=torch.int32, device=device)
     bvh = scene["bvh"]
-    arrays = (bvh["bvhf_rows"], bvh["mt_rows"])
-    fn = tv.bind(lib, "fat")
+    kind = KINDS[kernel]
+    arrays = (bvh[tv.WALKS[kind][2]], bvh["mt_rows"])
+    fn = tv.bind(lib, kind)
     if occlusion:
         outs = (torch.empty(r, dtype=torch.bool, device=device),)
         ptrs = (None,) * 4 + (outs[0].data_ptr(),)
@@ -252,15 +264,17 @@ def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
 
     def launch() -> int:
         return fn(rays.data_ptr(), *(a.data_ptr() for a in arrays), r,
-                  *(a.shape[0] for a in arrays), int(occlusion), int(cull), *ptrs,
-                  err.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+                  *(a.shape[0] for a in arrays), int(occlusion), int(cull),
+                  *(int(x) for x in packet), *ptrs, err.data_ptr(),
+                  torch.cuda.current_stream(device).cuda_stream)
 
     return launch, outs, err
 
 
-def this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
+def this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion, packet=()):
     """This tree's wrapper (prepare_launch) of a trace kernel with ``lib``:
-    (launch, outs, err)."""
+    (launch, outs, err); B4c takes ``packet`` = (tile, group,
+    common_origin)."""
     from dxrexperiments_torch.ops import intersect_kernel as ik
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
@@ -269,9 +283,9 @@ def this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion):
         launch, outs = ik.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion,
                                          lib=ik.bind(lib))
         return launch, outs, None
-    if kernel in ("B4a", "B4b"):
-        kind = "fat" if kernel == "B4a" else "binary"
-        return tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, kind,
+    if kernel in KINDS:
+        kind = KINDS[kernel]
+        return tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, kind, packet,
                                  fn=tv.bind(lib, kind))
     kind = "fat" if kernel == "B6a" else "binary"
     return tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull, occlusion, kind,
@@ -456,17 +470,21 @@ def megakernel_cases(dev):
 
 def trace_cases(dev, kernels):
     """(name, kernel, scene, [(batch, o, d, t_min, t_max, cull, occlusion)],
-    pipe) of the trace kernels' main paths among ``kernels``: the four
-    launches of the first sample of the first 512^2 dispatch (S = 4), as
-    chip_smoke.py's phases record them: 8 (B4a, instanced:32 flattened), 16
-    (B3, instanced:2 brute force), 12 (B6a, instanced:32 two-level), 32
-    (B4b, instanced:32 flattened without fat nodes) and 34 (B6b, the
-    two-level scene without them). ``scene`` is the whole scene (the B4b and
-    B6b cases' fat nodes included, which the host models of B4a and B6a
-    read); ``pipe`` dispatches the case's route (B4a's: the wavefront route
-    of the flattened scene, which the progressive pipeline takes once the
-    BVH lacks ``mt_attr_lanes``, the fused-traversal kernel's gate). Each
-    case's scenes are built when it is reached."""
+    pipe, layout) of the trace kernels' main paths among ``kernels``: the
+    four launches of the first sample of the first 512^2 dispatch (S = 4),
+    as chip_smoke.py's phases record them: 8 (B4a, instanced:32 flattened;
+    B4d and B4c take the same inputs, as phases 32 and 35 do: B4d through
+    the 8-wide nodes, B4c at each packet layout of chip_smoke.GROUPINGS, one
+    case each, ``layout`` = (tile, group)), 16 (B3, instanced:2 brute
+    force), 12 (B6a, instanced:32 two-level), 32 (B4b, instanced:32
+    flattened without fat nodes) and 34 (B6b, the two-level scene without
+    them). ``scene`` is the whole scene (the B4b and B6b cases' fat nodes
+    included, which the host models of B4a and B6a read); ``pipe``
+    dispatches the case's route (B4a's: the wavefront route of the
+    flattened scene, which the progressive pipeline takes once the BVH
+    lacks ``mt_attr_lanes``, the fused-traversal kernel's gate; None for B4d
+    and B4c, which no route takes). Each case's scenes are built when it is
+    reached."""
     import chip_smoke as cs
 
     from dxrexperiments_torch.app.headless import build_scene
@@ -496,32 +514,39 @@ def trace_cases(dev, kernels):
         cam.set_aspect(512, 512)
         return (sc.build_two_level(dev) if form == "two-level" else sc.build(dev)), cam
 
-    if "B4a" in kernels:
+    if {"B4a", "B4d", "B4c"} & set(kernels):
         scene, cam = built("instanced:32", "flat")
         wave = dict(scene, bvh={k: v for k, v in scene["bvh"].items() if k != "mt_attr_lanes"})
-        yield ("config 5 flattened: instanced:32 512^2, 1 sample", "B4a", scene,
-               *first_sample(wave, cam, tv, cs.TraceHook.B4A))
-        del scene, wave
+        traces, pipe = first_sample(wave, cam, tv, cs.TraceHook.B4A)
+        name = "config 5 flattened: instanced:32 512^2, 1 sample"
+        if "B4a" in kernels:
+            yield name, "B4a", scene, traces, pipe, None
+        if "B4d" in kernels:
+            yield f"{name}, B4a's inputs", "B4d", scene, traces, None, None
+        for tile, group in cs.GROUPINGS if "B4c" in kernels else ():
+            yield (f"{name}, B4a's inputs, tile {tile} group {group}", "B4c", scene, traces, None,
+                   (tile, group))
+        del scene, wave, traces, pipe
     if "B3" in kernels:
         scene, cam = built(cs.BRUTE_MAIN_SCENE, "flat")
         yield ("instanced:2 brute force 512^2, 1 sample", "B3", scene,
-               *first_sample(scene, cam, ik, cs.TraceHook.BRUTE))
+               *first_sample(scene, cam, ik, cs.TraceHook.BRUTE), None)
     if "B4b" in kernels:
         scene, cam = built("instanced:32", "flat")
         fatless = dict(scene, bvh={k: v for k, v in scene["bvh"].items() if k not in cs.FAT_BVH})
         yield ("config 5 flattened without fat nodes: instanced:32 512^2, 1 sample", "B4b",
-               scene, *first_sample(fatless, cam, tv, cs.TraceHook.BINARY))
+               scene, *first_sample(fatless, cam, tv, cs.TraceHook.BINARY), None)
         del scene, fatless
     if "B6a" in kernels or "B6b" in kernels:
         scene, cam = built("instanced:32", "two-level")
         if "B6a" in kernels:
             yield ("config 5 two-level: instanced:32 512^2, 1 sample", "B6a", scene,
-                   *first_sample(scene, cam, tv2, cs.TraceHook.TWO_LEVEL))
+                   *first_sample(scene, cam, tv2, cs.TraceHook.TWO_LEVEL), None)
         if "B6b" in kernels:
             fatless = dict(scene, tlas={k: v for k, v in scene["tlas"].items()
                                         if k not in cs.FAT_TLAS})
             yield ("config 5 two-level without fat nodes: instanced:32 512^2, 1 sample", "B6b",
-                   scene, *first_sample(fatless, cam, tv2, cs.TraceHook.TWO_LEVEL_BINARY))
+                   scene, *first_sample(fatless, cam, tv2, cs.TraceHook.TWO_LEVEL_BINARY), None)
 
 
 class BaseRoute:
@@ -583,23 +608,25 @@ class BaseRoute:
         self.mod._launch = self.saved
 
 
-# the walks on the same launch inputs beside B4a, B4b and B6b (this package's builds)
+# the walks on the same launch inputs beside B4a, B4b, B4d, B4c and B6b (this
+# package's builds)
 YARDSTICKS = {"B4a": (("B4b", "binary"), ("B4d", "wide")), "B4b": (("B4a", "fat"), ("B4d", "wide")),
+              "B4d": (("B4a", "fat"), ("B4b", "binary")), "B4c": (("B4a", "fat"),),
               "B6b": (("B6a", "fat"),)}
 
 
 def yardstick_ms(kernel, scene, o, d, t_min, t_max, cull, occlusion, reps: int) -> dict:
     """ms per launch, CUDA events around the launch alone, of the other
-    walks of a B4a, B4b or B6b case's launch inputs (``YARDSTICKS``): B4a,
-    B4b and B4d on the flattened scene's fat, binary and 8-wide nodes, B6a
-    on the two-level scene's fat nodes."""
+    walks of a B4a, B4b, B4d, B4c or B6b case's launch inputs
+    (``YARDSTICKS``): B4a, B4b and B4d on the flattened scene's fat, binary
+    and 8-wide nodes, B6a on the two-level scene's fat nodes."""
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
     from dxrexperiments_torch.ops.traverse import raise_on_error
 
     out = {}
     for name, kind in YARDSTICKS[kernel]:
-        if kernel in ("B4a", "B4b"):
+        if kernel in KINDS:
             launch, _, err = tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, kind)
         else:
             launch, _, err = tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull,
@@ -628,13 +655,14 @@ def dispatch_ms(pipe, n: int) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dict:
+def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng, packet=()) -> dict:
     """The host figures of one trace launch: B3's live share and lane slots
     from the plain sweep's verdicts on every ray
     (``intersect_kernel.sweep_figures``); B6a's warp costs on
     chip_smoke.COUNT_PIXELS rays of sampled whole warps
-    (``chip_smoke.walk2_figures``); B4a's, B4b's and B6b's leaf-weighted
-    figures (``walk_figures``)."""
+    (``chip_smoke.walk2_figures``); B4a's, B4b's, B4d's and B6b's
+    leaf-weighted figures (``walk_figures``); B4c's packet figures at
+    layout ``packet`` (``packet_figures``)."""
     import chip_smoke as cs
 
     from dxrexperiments_torch.ops import intersect_kernel as ik
@@ -644,7 +672,9 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> di
         t_count = min(int(scene["num_tris"]), int(scene["mt_pack"].shape[1]))
         work = ik.sweep_work(scene, o, d, t_min, t_max, occlusion, cull, cs.PLAIN_SLICE)
         return ik.sweep_figures(work, t_count)
-    if kernel in ("B4a", "B4b", "B6b"):
+    if kernel == "B4c":
+        return packet_figures(scene, o, d, t_min, t_max, cull, occlusion, rng, packet)
+    if kernel in ("B4a", "B4b", "B4d", "B6b"):
         return walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng)
     tl = scene["tlas"]
     tl_np = {k: tl[k].cpu().numpy() for k in ("tlasf_rows", "inst_rows_t", "blasf_rows",
@@ -657,22 +687,24 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> di
 
 
 def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dict:
-    """Step-1 figures of a B4a, B4b or B6b launch, on chip_smoke.COUNT_PIXELS
-    rays of sampled spans of whole warps (``chip_smoke.sampled_warps``), for
-    each walk's host model: B4a's launch inputs through its fat walk with
-    and without leaf postponement (``fat_walk_numpy``) and B4b's walk; B4b's
-    through B4a's fat walk, B4d's 8-wide walk, the JAX kernel's binary walk
-    (B4b before its redesign) and this tree's (``parent_walk_numpy`` with
-    leaf postponement); B6b's through B6a's walk and the JAX kernel's
-    binary walk (B6b's). Per walk,
+    """Step-1 figures of a B4a, B4b, B4d or B6b launch, on
+    chip_smoke.COUNT_PIXELS rays of sampled spans of whole warps
+    (``chip_smoke.sampled_warps``), for each walk's host model: B4a's launch
+    inputs through its fat walk with and without leaf postponement
+    (``fat_walk_numpy``) and B4b's walk; B4b's through B4a's fat walk, B4d's
+    8-wide walk, the JAX kernel's binary walk (B4b before its redesign) and
+    this tree's (``parent_walk_numpy`` with leaf postponement); B4d's
+    through its 8-wide walk with and without leaf postponement
+    (``wide_walk_numpy``) and B4a's; B6b's through B6a's walk and the JAX
+    kernel's binary walk (B6b's). Per walk,
     summed over the warps (``ops/traverse2.turn_costs``): "turns" (a warp's
     loop turns), "slots" (Σ over turns of its largest pair tests), "pairs"
     (its lanes' pair tests), with leaf postponement (this tree's B4b)
     "p_turns", "p_slots", "visits" and "pairs" per ray, "deepest" (the
     deepest stack of any ray; two-level: TLAS + BLAS) and "mean_deepest"
-    (each ray's deepest, mean); and for B4a and B4b "same_hits": whether
-    the postponed model returns the unpostponed (B4a) or the JAX kernel's
-    (B4b) model's hits, bit for bit."""
+    (each ray's deepest, mean); and for B4a, B4b and B4d "same_hits":
+    whether the postponed model returns the unpostponed (B4a, B4d) or the
+    JAX kernel's (B4b) model's hits, bit for bit."""
     import functools
 
     import chip_smoke as cs
@@ -684,13 +716,16 @@ def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dic
     sub = cs.sampled_warps(len(o), rng, o.device)
     args = (cs.host_array(o[sub]), cs.host_array(d[sub]), cs.host_array(t_min),
             cs.host_array(cs.rows_of(t_max, sub)))
-    if kernel in ("B4a", "B4b"):
+    if kernel in ("B4a", "B4b", "B4d"):
         tree = {k: scene["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "bvh_rows", "bvh8_rows",
                                                           "mt_rows", "slot_tri")}
+        b4a = functools.partial(tv.fat_walk_numpy, postpone=True)
         b4b = functools.partial(tv.parent_walk_numpy, postpone=True)
         if kernel == "B4a":
-            models = {"B4a unpostponed": tv.fat_walk_numpy,
-                      "B4a": functools.partial(tv.fat_walk_numpy, postpone=True), "B4b": b4b}
+            models = {"B4a unpostponed": tv.fat_walk_numpy, "B4a": b4a, "B4b": b4b}
+        elif kernel == "B4d":
+            models = {"B4d unpostponed": tv.wide_walk_numpy,
+                      "B4d": functools.partial(tv.wide_walk_numpy, postpone=True), "B4a": b4a}
         else:
             models = {"B4a": tv.fat_walk_numpy, "B4d": tv.wide_walk_numpy,
                       "B4b JAX order": tv.binary_walk_numpy, "B4b": b4b}
@@ -719,9 +754,62 @@ def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dic
         row.update(visits=visits / len(sub), pairs_per_ray=c["pair_tests"] / len(sub),
                    deepest=deepest, mean_deepest=mean)
         fig[name] = row
-    if kernel in ("B4a", "B4b"):
-        base = results["B4a unpostponed" if kernel == "B4a" else "B4b JAX order"]
+    if kernel in ("B4a", "B4b", "B4d"):
+        base = results[{"B4a": "B4a unpostponed", "B4b": "B4b JAX order",
+                        "B4d": "B4d unpostponed"}[kernel]]
         fig["same_hits"] = all(np.array_equal(results[kernel][k], base[k]) for k in base)
+    return fig
+
+
+def packet_figures(scene, o, d, t_min, t_max, cull, occlusion, rng, packet) -> dict:
+    """Step-1 figures of a B4c launch at layout ``packet`` = (tile, group,
+    common_origin), on the rays of max(1, chip_smoke.COUNT_PIXELS / tile)
+    sampled whole tiles, for the packet walk with the JAX kernel's packet
+    of ``tile`` rays ("B4c tile", this tree's parent) and with the warp's
+    32 (``fat_packet_walk_numpy(packet=32)``, "B4c"), and B4a's postponed
+    walk of the same rays: per walk "lane_steps" (Σ over rays of their
+    packet's steps), "warp_steps" (Σ over warps of 32 rays of the steps it
+    walks), "slots" (Σ over warps of the pair slots it runs) and "pairs"
+    (pair tests); B4a's "warp_steps" and "slots" are its traversal rounds
+    and leaf-phase slots (``traverse2.turn_costs``). "cost" weighs each
+    walk's warp steps and slots with B4a's SASS constants (``B4A_COSTS``)
+    and "to_b4a" is its ratio to B4a's: the predicted ms of a walk is B4a's
+    ms times it. "same_t": whether the warp packet's t (or occlusion)
+    equals B4a's model's on every sampled ray."""
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+
+    from dxrexperiments_torch.ops import traverse as tv
+    from dxrexperiments_torch.ops import traverse2 as tv2
+
+    tile, group, common_origin = packet
+    n_tiles = max(1, cs.COUNT_PIXELS // tile)
+    tiles = rng.choice(len(o) // tile, n_tiles, replace=False)
+    sub = torch.as_tensor((tiles[:, None] * tile + np.arange(tile)).reshape(-1), device=o.device)
+    tree = {k: scene["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "mt_rows", "slot_tri")}
+    o_s = cs.host_array(o[:1].expand_as(o)[sub] if common_origin else o[sub])
+    args = (o_s, cs.host_array(d[sub]), cs.host_array(t_min),
+            cs.host_array(cs.rows_of(t_max, sub)))
+    c_turn, c_pair = B4A_COSTS[bool(occlusion)]
+    fig, results = {}, {}
+    for name, size in (("B4c tile", tile), ("B4c", tv.WARP)):
+        res, c = tv.fat_packet_walk_numpy(tree, *args, tile, group, cull=cull,
+                                          occlusion=occlusion, packet=size)
+        results[name] = res
+        fig[name] = {"lane_steps": int(c["ray_visits"].sum()),
+                     "warp_steps": int(c["ray_visits"][::tv.WARP].sum()),
+                     "slots": int(c["warp_slots"].sum()), "pairs": int(c["pair_tests"])}
+    res, c = tv.fat_walk_numpy(tree, *args, cull=cull, occlusion=occlusion, postpone=True)
+    w = tv2.turn_costs(c["turns"], len(sub))
+    fig["B4a"] = {"lane_steps": int(c["visits"]), "warp_steps": int(w["postponed_turns"].sum()),
+                  "slots": int(w["postponed_slots"].sum()), "pairs": int(c["pair_tests"])}
+    for row in fig.values():
+        row["cost"] = c_turn * row["warp_steps"] + c_pair * row["slots"]
+    for row in fig.values():
+        row["to_b4a"] = row["cost"] / max(fig["B4a"]["cost"], 1.0)
+    key = "occluded" if occlusion else "t"
+    fig["same_t"] = bool(np.array_equal(results["B4c"][key], res[key]))
     return fig
 
 
@@ -799,8 +887,8 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
 
     launcher = this_trace_launch if same_entries else base_trace_launch
     if any(k in TRACED for k in kernels):
-        for name, kernel, scene, traces, pipe in trace_cases(dev, kernels):
-            if reps:  # the route's dispatch with either kernel, in turns
+        for name, kernel, scene, traces, pipe, layout in trace_cases(dev, kernels):
+            if reps and pipe is not None:  # the route's dispatch with either kernel, in turns
                 routes = {True: BaseRoute(kernel, libs["base", kernel], launcher),
                           False: BaseRoute(kernel, libs["this", kernel], this_trace_launch)}
                 turns = []
@@ -817,24 +905,38 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
                       f"{', '.join(f'{t:.3f}' for t in turns)}) [{card}]", flush=True)
             for batch, o, d, t_min, t_max, cull, occlusion in traces:
                 label = f"{name}, {batch} ({len(o)} rays)"
+                # B4c: the primary launch's rays share one origin, as phase 35 calls it
+                packet = (*layout, batch == BATCHES[0]) if layout else ()
                 base = launcher(kernel, libs["base", kernel], scene, o, d, t_min, t_max, cull,
-                                occlusion)
+                                occlusion, packet)
                 mine = this_trace_launch(kernel, libs["this", kernel], scene, o, d, t_min, t_max,
-                                         cull, occlusion)
+                                         cull, occlusion, packet)
                 for launch, *_ in (base, mine):
                     if launch() != 0:
                         raise RuntimeError(f"{label}: launch failed")
                 torch.cuda.synchronize()
-                diff = differing_rays(output_fields(kernel, occlusion, base[1]),
-                                      output_fields(kernel, occlusion, mine[1]))
+                fields = output_fields(kernel, occlusion, mine[1])
+                diff = differing_rays(output_fields(kernel, occlusion, base[1]), fields)
+                if kernel in ("B4d", "B4c"):  # against this tree's B4a on the same rays
+                    fat = this_trace_launch("B4a", libs["this", "B4a"], scene, o, d, t_min,
+                                            t_max, cull, occlusion)
+                    if fat[0]() != 0:
+                        raise RuntimeError(f"{label}: B4a launch failed")
+                    torch.cuda.synchronize()
+                    raise_on_error(fat[2], f"{label}: B4a")
+                    vs_b4a = differing_rays(output_fields("B4a", occlusion, fat[1]), fields)
+                    print(f"case {kernel} {label}: rays differing in any bit from this tree's "
+                          f"B4a per output {vs_b4a} [{card}]", flush=True)
                 fig = trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion,
-                                    np.random.default_rng(len(report["cases"])))
+                                    np.random.default_rng(len(report["cases"])), packet)
                 for k, v in fig.items():
                     line = (", ".join(f"{a} {b:.4f}" if isinstance(b, float) else f"{a} {b}"
                                       for a, b in v.items()) if isinstance(v, dict) else v)
                     print(f"figures {kernel} {label}: {k}: {line}", flush=True)
                 row = {"case": label, "kernel": kernel, "batch": batch, "rays": len(o),
                        "differing_rays": diff, "figures": fig}
+                if kernel in ("B4d", "B4c"):
+                    row["differing_from_b4a"] = vs_b4a
                 if reps:
                     turns = [time_ms(f, reps) for f in (base[0], mine[0], mine[0], base[0])]
                     row.update(base_ms=(turns[0] + turns[3]) / 2,
@@ -845,6 +947,10 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
                     print(f"yardsticks {kernel} {label}: ms per launch "
                           + ", ".join(f"{k} {v:.4f}" for k, v in row["yardstick_ms"].items())
                           + f" [{card}]", flush=True)
+                    if kernel == "B4c":  # the packet model's ms: B4a's times its cost ratio
+                        print(f"figures {kernel} {label}: modelled ms with B4a's "
+                              + ", ".join(f"{k} {row['yardstick_ms']['B4a'] * fig[k]['to_b4a']:.4f}"
+                                          for k in ("B4c tile", "B4c")), flush=True)
                 report["cases"].append(row)
                 times = (f"; ms base {row['base_ms']:.4f}, this {row['this_ms']:.4f} (turns "
                          f"{', '.join(f'{t:.4f}' for t in row['turns_ms'])})" if reps else "")

@@ -30,8 +30,11 @@ The bilateral kernel: max
 |difference| <= 2e-5 (tests/test_bilateral_pallas.py's tolerance), the sums
 differing only by rounding; an inf or NaN input sample at a tap of table
 weight 0, which the kernel skips, does not reach its output. The grouped packet walk (B4c): the hit gates
-against B4a, and against its host model (``fat_packet_walk_numpy``) the hit
-or slot off on <= 1% of rays, t within rtol 1e-4. B1's opt-in
+against B4a (t and occlusion equal to B4a's on a launch of 509 rays, a
+ragged last warp), and against the host model of its walk
+(``fat_packet_walk_numpy(packet=32)``) the hit or slot off on <= 1% of
+rays, t within rtol 1e-4. The 8-wide walk (B4d): a stack overflow while a
+lane holds a leaf raises after the leaf is tested (``wide_ladder``). B1's opt-in
 instantiations: bit-equal to the base kernel. The roofline probes (B7):
 relative 1e-4 against their plain versions, the split-TF32 product within
 2 K float32 ulps of the sum of |terms|.
@@ -500,6 +503,27 @@ def chain_scene(levels: int = 120, right_deep: bool = False):
              "child": np.asarray(child, np.int32), "order": np.zeros(1, np.int32)}
     packed = traverse.pack_for_traversal(nodes, base, 32)
     return base, packed
+
+
+def wide_ladder(levels: int = 20):
+    """chain_scene's triangle under a hand-built 8-wide tree (bvh8_rows)
+    whose walk overflows its stack while it holds a leaf: wide node k's
+    child 0 is a leaf (slot block k, which holds the triangle), children 1-6
+    a wide node with only empty children and child 7 wide node k + 1, every
+    box the same. A visit holds its leaf, pushes seven nodes and pops one,
+    so the walk of a ray through the box overflows at child 7 of node 15,
+    after the leaf of child 0."""
+    base, packed = chain_scene(levels)
+    empty = levels + 1
+    rows = np.zeros(((levels + 2) * 8, 8), np.float32)
+    rows[:, 0:3], rows[:, 3:6] = -10.0, 10.0
+    rows[8 * levels + 1 :, 0:6] = traverse.BIG  # the last node's children 1-7 and the empty node
+    for k in range(levels + 1):
+        rows[8 * k, 6:8] = (-32 * k - 1, 1)
+        if k < levels:
+            rows[8 * k + 1 : 8 * k + 7, 6:8] = (empty, -1)
+            rows[8 * k + 7, 6:8] = (k + 1, -1)
+    return base, dict(packed, bvh8_rows=rows, bvh8_nodes=rows)
 
 
 def chain_fat_bvh(packed: dict, device) -> dict:
@@ -1550,13 +1574,14 @@ def test_grouped_walk_matches_fat_and_model(cuda_device, tile, group):
     assert not bool(occ[::3].any())
     assert 0.0 < float(fat_occ.float().mean()) < 1.0
     assert float((occ != fat_occ).float().mean()) <= 0.01
+    # the host model of the card's walk: each warp a packet
     bvh_np = {k: scene["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "mt_rows")}
     host = [x.cpu().numpy() for x in (o, d, pos, sd, dist)]
     model, counts = traverse.fat_packet_walk_numpy(bvh_np, host[0], host[1], 0.0, 1e38, tile,
-                                                   group, cull=True)
+                                                   group, cull=True, packet=32)
     _model_agree(got, model)
     model_occ, _ = traverse.fat_packet_walk_numpy(bvh_np, host[2], host[3], 1e-4, host[4], tile,
-                                                  group, occlusion=True)
+                                                  group, occlusion=True, packet=32)
     assert float((occ.cpu().numpy() != model_occ["occluded"]).mean()) <= 0.01
     assert 1 <= counts["max_stack"] <= traverse.MAX_STACK
 
@@ -1586,12 +1611,97 @@ def test_grouped_walk_stack_overflow_and_layouts(cuda_device):
     err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     out = torch.empty(64, device=cuda_device)
     slot = torch.empty(64, dtype=torch.int32, device=cuda_device)
-    nodes, rows = deep["bvh"]["bvhf_rows"], deep["bvh"]["mt_rows"]
+    nodes, rec = deep["bvh"]["bvhf_rows"], deep["bvh"]["ft_test"]
     for tile, group in ((64, 4), (96, 2), (4096, 2), (1056, 33)):
-        assert fn(rays.data_ptr(), nodes.data_ptr(), rows.data_ptr(), 64, nodes.shape[0],
-                  rows.shape[0], 0, 0, tile, group, 0, out.data_ptr(), slot.data_ptr(),
+        assert fn(rays.data_ptr(), nodes.data_ptr(), rec.data_ptr(), 64, nodes.shape[0],
+                  rec.shape[0], 0, 0, tile, group, 0, out.data_ptr(), slot.data_ptr(),
                   out.data_ptr(), out.data_ptr(), None, err.data_ptr(),
                   torch.cuda.current_stream().cuda_stream) == 1  # InvalidValue
+
+
+@pytest.mark.cuda
+def test_grouped_walk_ragged_launch_and_common_origin(cuda_device):
+    """B4c on 509 rays (every eighth pixel of the 64^2 image, the last warp
+    short by three lanes) at each layout: t and occlusion equal B4a's on
+    every ray, and with common_origin every ray starts at origins[0] (the
+    others moved away), as B4a's does."""
+    scene, cams = _bvh_setup(cuda_device)
+    pick = torch.arange(509, device=cuda_device) * 8
+    o, d, pos, sd, dist = (x[pick] for x in _primary_and_shadow_rays(scene, cams))
+    sd = sd.clone()
+    sd[::3] = 0.0
+    moved = o.clone()
+    moved[1:] += 5.0
+    fat = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True)
+    fat_occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist)
+    for tile, group in GROUPINGS:
+        got = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True,
+                                            tile=tile, group=group)
+        shared = traverse.traverse_fat_closest(scene, moved, d, 0.0, 1e38, cull_backface=True,
+                                               tile=tile, group=group, common_origin=True)
+        occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist, tile=tile, group=group)
+        torch.cuda.synchronize()
+        traverse.check_errors()
+        assert float(fat["hit"].float().mean()) > 0.2
+        for res in (got, shared):
+            assert torch.equal(res["hit"], fat["hit"]) and torch.equal(res["t"], fat["t"])
+            assert float((res["slot"] != fat["slot"]).float().mean()) <= 0.01
+        assert torch.equal(occ, fat_occ)
+
+
+def wide_ladder_scene(levels: int, device) -> dict:
+    """wide_ladder's tree as a scene for B4d: bvh8_rows, the records ft_test
+    of mt_rows, mt_rows and slot_tri."""
+    _, packed = wide_ladder(levels)
+    bvh = {k: torch.as_tensor(packed[k]).to(device) for k in ("bvh8_rows", "mt_rows", "slot_tri")}
+    bvh["ft_test"] = traverse.coef_records(bvh["mt_rows"])
+    return {"bvh": bvh}
+
+
+@pytest.mark.cuda
+def test_wide_walk_overflow_after_held_leaves(cuda_device):
+    """B4d on wide_ladder's tree: the stack overflows at a visit whose leaf
+    the lane holds. The closest walk through the triangle tests that leaf
+    and raises; the occlusion walk through it ends at the first leaf and
+    raises nothing; beside the triangle both walks raise. One level short,
+    nothing overflows and every ray hits at t = 5."""
+    o = torch.zeros((40, 3), device=cuda_device)
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 40, device=cuda_device)
+    beside = o + torch.tensor([5.0, 0.0, 0.0], device=cuda_device)
+    deep = wide_ladder_scene(20, cuda_device)
+    for trace, origin in ((traverse.traverse8_closest, o), (traverse.traverse8_closest, beside),
+                          (traverse.traverse8_any, beside)):
+        with pytest.raises(RuntimeError, match="stack overflowed"):
+            trace(deep, origin, d, 0.0, 1e38)
+            traverse.check_errors()
+    occ = traverse.traverse8_any(deep, o, d, 0.0, 1e38)
+    traverse.check_errors()
+    assert bool(occ.all())
+    hits = traverse.traverse8_closest(wide_ladder_scene(15, cuda_device), o, d, 0.0, 1e38)
+    traverse.check_errors()
+    assert bool(hits["hit"].all()) and torch.equal(hits["t"], torch.full_like(hits["t"], 5.0))
+
+
+@pytest.mark.cuda
+def test_wide_and_grouped_walks_check_records(cuda_device):
+    """B4d and B4c read the BVH's ft_test: a BVH without it, or with one
+    record fewer than mt_rows' rows, raises ValueError before any launch."""
+    scene, cams = _bvh_setup(cuda_device)
+    o, d = _primary_and_shadow_rays(scene, cams)[:2]
+    bvh = scene["bvh"]
+    before = (traverse.WIDE_CLOSEST_LAUNCHES, traverse.WIDE_ANY_LAUNCHES,
+              traverse.GROUPED_CLOSEST_LAUNCHES, traverse.GROUPED_ANY_LAUNCHES)
+    for bad, match in (({k: v for k, v in bvh.items() if k != "ft_test"}, "ft_test missing"),
+                       (dict(bvh, ft_test=bvh["ft_test"][:-1].contiguous()), "one record per")):
+        sc = dict(scene, bvh=bad)
+        for call in (lambda: traverse.traverse8_closest(sc, o, d),
+                     lambda: traverse.traverse8_any(sc, o, d),
+                     lambda: traverse.traverse_fat_closest(sc, o, d, tile=1024, group=4),
+                     lambda: traverse.traverse_fat_any(sc, o, d, tile=1024, group=4)):
+            with pytest.raises(ValueError, match=match):
+                call()
+    assert (traverse.WIDE_CLOSEST_LAUNCHES, traverse.WIDE_ANY_LAUNCHES,
+            traverse.GROUPED_CLOSEST_LAUNCHES, traverse.GROUPED_ANY_LAUNCHES) == before
 
 
 OPT_INS = [(8, 0), (16, 0), (24, 0), (0, 8), (0, 16), (0, 32), (16, 16)]  # (rows, block_w)

@@ -10,8 +10,15 @@
   the hit flag equal, t within rtol 2e-4, the leaf slot equal on at least
   99% of hits, occlusion equal.
 - the model with the TPU kernel's one-leaf lag (its double-buffered leaf
-  DMA) and without it (the CUDA kernel) finds the same hits: the lag changes
-  which nodes a stale best fails to prune, not the winner.
+  DMA) and without it finds the same hits: the lag changes which nodes a
+  stale best fails to prune, not the winner.
+- the model of the CUDA kernel's walk (``packet=32``: each warp of 32 rays
+  one packet on its own stack) against the same JAX results: the hit flags
+  and occlusion equal, t within rtol 2e-4 and the slot equal on at least
+  99% of hits; and against ``fat_walk_numpy`` (B4a's walk) on the same
+  rays: hits, t and occlusion equal bit for bit. ``packet=tile`` is the
+  default, step for step; a packet that is no whole number of warps
+  dividing the tile raises.
 - the port's ``traverse_fat_closest``/``traverse_fat_any(group=...)`` on CPU
   rays (their plain version, the brute-force sweep; with ``common_origin``
   every ray starts at origins[0]) against JAX's B4c on the hit gate of
@@ -81,16 +88,30 @@ def model_gate(got: dict, want: dict) -> None:
     assert (got["slot"][hit] == np.asarray(want["slot"])[hit]).mean() >= 0.99
 
 
-@pytest.mark.parametrize("group,common_origin", [(2, False), (4, False), (4, True)])
+CASES = [(2, False), (4, False), (4, True)]  # (group, common_origin)
+_PALLAS: dict = {}
+
+
+def pallas_grouped(packed, group: int, common_origin: bool):
+    """JAX's B4c in interpret mode on case_rays(common_origin): (closest
+    result, occlusion flags), computed once per case."""
+    if (group, common_origin) not in _PALLAS:
+        o, d = case_rays(common_origin)
+        want = jtv.traverse_fat_closest(packed, jnp.asarray(o), jnp.asarray(d), t_min=1e-4,
+                                        leaf_size=16, interpret=True, tile=TILE, group=group,
+                                        common_origin=common_origin)
+        want_any = np.asarray(jtv.traverse_fat_any(packed, jnp.asarray(o), jnp.asarray(d),
+                                                   t_min=1e-4, leaf_size=16, interpret=True,
+                                                   tile=TILE, group=group))
+        _PALLAS[group, common_origin] = (want, want_any)
+    return _PALLAS[group, common_origin]
+
+
+@pytest.mark.parametrize("group,common_origin", CASES)
 def test_packet_model_matches_pallas_grouped(soup, group, common_origin):
     packed, bvh, tscene = soup
     o, d = case_rays(common_origin)
-    want = jtv.traverse_fat_closest(packed, jnp.asarray(o), jnp.asarray(d), t_min=1e-4,
-                                    leaf_size=16, interpret=True, tile=TILE, group=group,
-                                    common_origin=common_origin)
-    want_any = np.asarray(jtv.traverse_fat_any(packed, jnp.asarray(o), jnp.asarray(d),
-                                               t_min=1e-4, leaf_size=16, interpret=True,
-                                               tile=TILE, group=group))
+    want, want_any = pallas_grouped(packed, group, common_origin)
     runs = {}
     for lag in (False, True):
         got, counts = ttv.fat_packet_walk_numpy(bvh, o, d, 1e-4, 3.0e37, TILE, group,
@@ -125,6 +146,49 @@ def test_packet_model_matches_pallas_grouped(soup, group, common_origin):
             ttv.CLOSEST_LAUNCHES) == before
     plain_gate(plain, want)
     assert float((plain_any != want_any).mean()) <= 0.01
+
+
+@pytest.mark.parametrize("group,common_origin", CASES)
+def test_warp_packet_model_matches_pallas_and_fat_walk(soup, group, common_origin):
+    packed, bvh, _ = soup
+    o, d = case_rays(common_origin)
+    want, want_any = pallas_grouped(packed, group, common_origin)
+    got, counts = ttv.fat_packet_walk_numpy(bvh, o, d, 1e-4, 3.0e37, TILE, group,
+                                            common_origin=common_origin, packet=32)
+    model_gate(got, want)
+    occ, _ = ttv.fat_packet_walk_numpy(bvh, o, d, 1e-4, 3.0e37, TILE, group, occlusion=True,
+                                       packet=32)
+    np.testing.assert_array_equal(occ["occluded"], want_any)
+    # B4a's walk of the same rays: the same hits, bit for bit
+    o_all = np.broadcast_to(o[:1], o.shape) if common_origin else o
+    fat, _ = ttv.fat_walk_numpy(bvh, o_all, d, 1e-4, 3.0e37)
+    fat_occ, _ = ttv.fat_walk_numpy(bvh, o, d, 1e-4, 3.0e37, occlusion=True)
+    for k in ("hit", "t"):
+        np.testing.assert_array_equal(got[k], fat[k], err_msg=k)
+    assert (got["slot"] == fat["slot"]).mean() >= 0.99
+    np.testing.assert_array_equal(occ["occluded"], fat_occ["occluded"])
+    # one stack per warp: 16 packets, each ray's steps its warp's
+    steps = counts["ray_visits"].reshape(-1, 32)
+    assert (steps == steps[:, :1]).all() and counts["visits"] == int(steps[:, 0].sum())
+    assert counts["warp_slots"].shape == (N // 32,)
+    assert 0 < counts["warp_slots"].sum() <= counts["pair_tests"]
+    tile_counts = ttv.fat_packet_walk_numpy(bvh, o, d, 1e-4, 3.0e37, TILE, group,
+                                            common_origin=common_origin)[1]
+    # warps walk the union of 32 rays' paths, the tile the union of 512
+    assert counts["ray_visits"].sum() < tile_counts["ray_visits"].sum()
+
+
+def test_packet_argument(soup):
+    _, bvh, _ = soup
+    o, d = case_rays(False)
+    base = ttv.fat_packet_walk_numpy(bvh, o, d, 1e-4, 3.0e37, TILE, 4)
+    same = ttv.fat_packet_walk_numpy(bvh, o, d, 1e-4, 3.0e37, TILE, 4, packet=TILE)
+    for a, b in zip(base, same):
+        for k, v in a.items():
+            np.testing.assert_array_equal(b[k], v, err_msg=k)
+    for packet in (0, 48, 2 * TILE, 96):
+        with pytest.raises(ValueError, match="packet"):
+            ttv.fat_packet_walk_numpy(bvh, o, d, 1e-4, 3.0e37, TILE, 4, packet=packet)
 
 
 @pytest.mark.parametrize("tile,group,rule", [

@@ -131,16 +131,20 @@ def test_walk_loops_count_a_turn_outside_its_pair_tests():
 
 
 def test_redesigned_kernels_and_b2_radii():
-    """This tree's redesigns are B4a and B2: B4a has trace cases, B2 its
-    bilateral cases at chip_smoke.py's radii; B4b and B6b are held to the
-    base's instructions."""
+    """This tree's redesigns are B4d and B4c: both have trace cases beside
+    B4a's (B4c one per packet layout of chip_smoke.GROUPINGS) and B4a as a
+    yardstick; B2 keeps its bilateral cases at chip_smoke.py's radii; B4a,
+    B4b, B6b and B2 are held to the base's instructions."""
     import chip_smoke
 
-    assert ab.REDESIGNED == ("B4a", "B2")
-    assert "B4a" in ab.TRACED and "B2" in ab.COMPARED and "B2" not in ab.TRACED
-    assert not {"B4b", "B6b"} & set(ab.REDESIGNED)
+    assert ab.REDESIGNED == ("B4d", "B4c")
+    assert {"B4a", "B4d", "B4c"} <= set(ab.TRACED) and "B2" in ab.COMPARED
+    assert "B2" not in ab.TRACED
+    assert not {"B4a", "B4b", "B6b", "B2"} & set(ab.REDESIGNED)
     assert ab.B2_RADII == chip_smoke.BILATERAL_RADII and 12 in ab.B2_RADII
     assert set(ab.YARDSTICKS["B4a"]) == {("B4b", "binary"), ("B4d", "wide")}
+    assert ("B4a", "fat") in ab.YARDSTICKS["B4d"] and ab.YARDSTICKS["B4c"] == (("B4a", "fat"),)
+    assert {"B4c", "B4d"} <= set(ab.WALK_KERNELS)
 
 
 def test_differing_channels_counts_bits():
@@ -200,3 +204,61 @@ def test_walk_figures_of_the_fat_walk():
         assert post["pairs"] == own["pairs"] and post["turns"] == own["turns"] > 0
         assert post["p_slots"] <= own["slots"] and post["p_turns"] >= own["turns"]
         assert "p_slots" not in own
+
+
+def _soup_rays(n: int, seed: int):
+    """A 2,000-triangle soup's BVH on the CPU and n rays aimed at it."""
+    import numpy as np
+
+    from dxrexperiments_torch.app.headless import build_scene
+
+    scene = build_scene("soup:2000")[0].build("cpu", accel="bvh")
+    rng = np.random.default_rng(seed)
+    lo, hi = scene["bvh"]["bvh_rows"][0, 0:3].numpy(), scene["bvh"]["bvh_rows"][0, 3:6].numpy()
+    centre, size = (lo + hi) / 2, float((hi - lo).max())
+    o = (centre + rng.normal(size=(n, 3)) * size).astype(np.float32)
+    d = (centre + rng.uniform(-0.4, 0.4, (n, 3)) * size - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return scene, torch.as_tensor(o), torch.as_tensor(d)
+
+
+def test_walk_figures_of_the_wide_walk():
+    """kernel_ab's step-1 figures of a B4d launch on the CPU (a soup, 8,192
+    rays, chip_smoke.COUNT_PIXELS of them in sampled warps): the postponed
+    8-wide model returns the unpostponed walk's hits and makes its pair
+    tests in no fewer traversal rounds; B4a's postponed walk beside it."""
+    import numpy as np
+
+    scene, o, d = _soup_rays(8192, 5)
+    for occlusion in (False, True):
+        fig = ab.walk_figures("B4d", scene, o, d, 1e-4,
+                              torch.full((len(o),), 3.0e37 if not occlusion else 2.0), False,
+                              occlusion, np.random.default_rng(1))
+        assert fig["same_hits"] is True
+        assert set(fig) == {"B4d unpostponed", "B4d", "B4a", "same_hits"}
+        post, own = fig["B4d"], fig["B4d unpostponed"]
+        assert post["pairs"] == own["pairs"] and post["turns"] == own["turns"] > 0
+        assert post["p_turns"] >= own["turns"] and "p_slots" not in own
+
+
+def test_packet_figures_of_the_grouped_walk():
+    """kernel_ab's step-1 figures of a B4c launch on the CPU (a soup, 8,192
+    rays, four sampled tiles of 1,024): warp packets walk fewer lane steps
+    than tile packets, every figure's cost is its warp steps and slots
+    weighed by B4a's constants, and the warp packet's t and occlusion equal
+    B4a's model's."""
+    import numpy as np
+
+    scene, o, d = _soup_rays(8192, 6)
+    for occlusion in (False, True):
+        fig = ab.packet_figures(scene, o, d, 1e-4,
+                                torch.full((len(o),), 3.0e37 if not occlusion else 2.0), False,
+                                occlusion, np.random.default_rng(2), (1024, 4, False))
+        assert set(fig) == {"B4c tile", "B4c", "B4a", "same_t"} and fig["same_t"] is True
+        warp, tile = fig["B4c"], fig["B4c tile"]
+        assert 0 < warp["lane_steps"] < tile["lane_steps"]
+        assert warp["warp_steps"] * 32 == warp["lane_steps"]
+        c_turn, c_pair = ab.B4A_COSTS[occlusion]
+        for row in (warp, tile, fig["B4a"]):
+            assert row["cost"] == c_turn * row["warp_steps"] + c_pair * row["slots"]
+        assert fig["B4a"]["to_b4a"] == 1.0

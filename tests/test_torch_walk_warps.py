@@ -1,8 +1,8 @@
 """The leaf-weighted warp model of the BVH walks, and the host model of the
 binary walks B4b and B6b as they are redesigned for the card, on the CPU.
 
-- Every host model of a walk (``ops/traverse``: fat, with and without leaf
-  postponement, binary, 8-wide, and ``parent_walk_numpy``;
+- Every host model of a walk (``ops/traverse``: fat and 8-wide, with and
+  without leaf postponement, binary, and ``parent_walk_numpy``;
   ``ops/traverse2``: fat and binary) logs the work of each loop turn of each ray
   (``counts["turns"]``, ``ops/traverse.TurnLog``): one record per visit
   (two-level: per TLAS and per BLAS visit), whose pair tests sum to
@@ -48,7 +48,8 @@ TWO_LEVEL = ("five", "instanced:2", "chain right-deep")
 WALKS1 = {"fat": ttv.fat_walk_numpy, "binary": ttv.binary_walk_numpy,
           "wide": ttv.wide_walk_numpy, "parent": ttv.parent_walk_numpy,
           "parent postponed": functools.partial(ttv.parent_walk_numpy, postpone=True),
-          "fat postponed": functools.partial(ttv.fat_walk_numpy, postpone=True)}
+          "fat postponed": functools.partial(ttv.fat_walk_numpy, postpone=True),
+          "wide postponed": functools.partial(ttv.wide_walk_numpy, postpone=True)}
 WALKS2 = {"fat": tt2.fat_walk2_numpy, "binary": tt2.binary_walk2_numpy}
 
 
