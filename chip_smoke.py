@@ -307,10 +307,23 @@ Phases, each of which raises on failure:
      and every probe and setting again at full size on seeded inputs (the
      mix's a near its neutral growth, ops/roofline.mix_inputs), where a trip
      count, a grid block or the product's schedule off shows, with the same
-     tolerances; each of the main path's launches alone timed: the FFMA TFLOP/s (an FMA counted as
-     two), the mix's ops/s, the product's TFLOP/s alone and the overlap
-     verdict; a rate above 105% of the data sheet (67 TFLOP/s float32, 33.5
-     T instructions/s, 494.7 TFLOP/s dense TF32) fails the phase.
+     tolerances; the four settings with a product at full size on inputs
+     where it shows in t (b = 0, mt and rays ~ 1e15): t of all 65,536
+     columns within M_ITERS x 2 K ulps of sum |terms| x 1e-30 of the exact
+     sum, plus half an ulp of each float32 multiply and add into t; each of
+     the main path's launches alone timed: the FFMA TFLOP/s (an FMA counted
+     as two), the mix's ops/s; the seven overlap settings in B7_ROUNDS rounds
+     in turns, and the timing point s* = round(matrix / vector at scale 1,
+     medians of those rounds) (vector alone and both, in B7_ROUNDS rounds
+     of their own with the matrix alone; o there equal to vector alone's and
+     t to matrix alone's, bit for bit), each time's median and spread, the
+     overlap fraction's per round; the product's TFLOP/s alone, its share of
+     the bound (the data sheet's 494.7 TFLOP/s dense TF32, stated at 1,830
+     MHz) and of the TF32 peak at 1,980 MHz (535.3 TFLOP/s), ptxas' counts
+     and any wgmma serialisation of the overlap kernel, and the library
+     yardstick (torch.bmm, M_ITERS calls, float32 and one TF32 pass); a rate
+     above 105% of the card's peak at 1,980 MHz (67 TFLOP/s float32, 33.5 T
+     instructions/s, 535.3 TFLOP/s dense TF32) fails the phase.
  38. the redesigned kernels (run after phase 37): ptxas' registers,
      spills and stack frames of every kernel of B1, B5, B3, B6a, B4b, B6b,
      B4a, B2, B4d and B4c; B1's triangle records (the scene's tri_records,
@@ -352,8 +365,11 @@ launch, the nodes touched counted at 32 bytes (binary) or 256 bytes (one
 kernel's order (ops/traverse.binary_walk_numpy, B6b's walk): the work the
 function needs, not the redesigned kernel's own walk, which tests both
 children of a node it expands.
-No single PyTorch call computes any of these functions, so library_ms is
-null.
+No single PyTorch call computes any of these functions but B7's product,
+so library_ms is null but for the overlap probe: torch.bmm of mt, broadcast
+over the grid blocks, with the scaled rays, M_ITERS calls (float32; one
+TF32 pass beside it), which writes every product to memory where the probe
+keeps it in registers.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. The hit gate of the BVH walk is that of
@@ -377,6 +393,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -385,6 +402,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MAIN_SIZE = 512
+B7_ROUNDS = 9  # rounds of the overlap settings timed in turns (phase 37)
 MAIN_S = 16
 MAIN_FRAMES = 8
 PARITY_SIZE = 128
@@ -400,8 +418,12 @@ SHADOW_LIGHT = (2.0, 6.0, 1.5)  # the B4a occlusion checks' point light
 COUNT_PIXELS = 4096  # sampled pixels whose walks the host model counts
 WARP = 32  # the host figures' warps: WARP consecutive rays of a launch
 WARP_SPAN = 512  # consecutive rays of each sampled span of warps
-FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s without tensor cores (FMA = 2)
-TF32_PEAK = 494.7e12  # H100 SXM dense TF32 FLOP/s on the tensor cores
+FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s without tensor cores (FMA = 2), at 1,980 MHz
+# H100 SXM dense TF32 FLOP/s on the tensor cores: the data sheet's figure,
+# which is 132 SMs x 2,048 flop a clock at 1,830 MHz, and the same at the
+# 1,980 MHz of FP32_PEAK (the clock the card holds unthrottled)
+TF32_PEAK = 494.7e12
+TF32_PEAK_1980 = 132 * 2048 * 1.98e9
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 OPS_PAIR = 50  # float32 operations of one Möller–Trumbore pair test (csrc/common.cuh)
 OPS_SLAB = 25  # of one child-box slab test
@@ -4559,10 +4581,85 @@ def main() -> int:
             if not (o_err <= 1e-4 and t_err <= 1e-6 and p_err <= prod_tol):
                 raise RuntimeError("the overlap probe differs from its plain version at full size")
         print(f"B7 full-size parity on {label}: {time.perf_counter() - t1:.1f}s", flush=True)
+    # the product of every column at full size, where it shows in t: b = 0,
+    # mt and rays ~ 1e15, so that t sums rows 0..7 of the products times
+    # 1e-30 and the column scale stays 1. t of all 65,536 columns (every
+    # column tile and persistent pass) against the exact sum, within M_ITERS
+    # x 2 K ulps of sum |terms| x 1e-30 for the products plus half an ulp of
+    # each float32 multiply and add into t; the plain version's t is held to
+    # the same gate, and the kept product to 2 K ulps of the plain one
+    t1 = time.perf_counter()
+    b_v, mt_v, rays_v = torch.zeros_like(b_s), mt_s * 1e15, rays_s * 1e15
+    exact = (mt_v[:rf.SUB].double() @ rays_v.double()).repeat(1, rf.GRID) * 1e-30 * rf.M_ITERS
+    sum_abs = (mt_v[:rf.SUB].abs().double() @ rays_v.abs().double()).repeat(1, rf.GRID) * 1e-30
+    t_gate = (rf.M_ITERS * prod_tol + 2.0**-24 * rf.M_ITERS * (rf.M_ITERS + 3) / 2) * sum_abs
+    scale_v = mt_v.abs() @ rays_v.abs()
+    want = rf.overlap_reference(a_s, b_v, mt_v, rays_v, False, True, 1)
+    t_errs = {"plain": float(((want["t"].double() - exact).abs() / t_gate).max())}
+    p_err = 0.0
+    for case in [c for c in ov_cases if c[1]]:
+        got = rf.overlap(a_s, b_v, mt_v, rays_v, *case, keep_product=True)
+        torch.cuda.synchronize()
+        t_errs[case] = float(((got["t"].double() - exact).abs() / t_gate).max())
+        p_err = max(p_err, float(((got["product"] - want["product"]).abs() / scale_v).max()))
+    b7_err["overlap"] = max(b7_err["overlap"], p_err / prod_tol * 1e-4)
+    print(f"parity B7 overlap at full size on inputs where the product shows in t (max |t| "
+          f"{float(exact.abs().max()):.1f}): t of all {rf.LANES * rf.GRID} columns, |d| / gate "
+          + ", ".join(f"{k if k == 'plain' else 'vector %s matrix %s scale %s' % k} {v:.3f}"
+                      for k, v in t_errs.items())
+          + f" (<= 1); product max |d| / sum |terms| {p_err:.3e} (<= {prod_tol:.3e}); "
+          f"{time.perf_counter() - t1:.1f}s", flush=True)
+    if not (max(t_errs.values()) <= 1.0 and p_err <= prod_tol and float(exact.abs().max()) > 1.0):
+        raise RuntimeError("the overlap probe's product differs from the exact one at full size")
+    del want, exact, sum_abs, t_gate
     b7_ms = {"fma": kernel_ms(rf.prepare_vector("fma", a_f, b_f), 5, torch),
              "mix": kernel_ms(rf.prepare_vector("mix", a_f, b_f), 5, torch)}
-    for case in ov_cases:
-        b7_ms[case] = kernel_ms(rf.prepare_overlap(a_f, b_f, mt_f, rays_f, *case), 5, torch)
+    # the overlap settings in turns (CUDA events around each launch alone),
+    # B7_ROUNDS rounds; their medians set s* = round(matrix / vector at scale
+    # 1), the scale where the two times are equal and the overlap fraction is
+    # best conditioned. Its vector and both settings are then timed in
+    # B7_ROUNDS rounds of their own, in turns with the matrix alone, as a
+    # timing point (no new probe: o of both equals o of vector alone bit for
+    # bit there, and t equals t of the matrix alone)
+    ov_launch = {case: rf.prepare_overlap(a_f, b_f, mt_f, rays_f, *case) for case in ov_cases}
+
+    def event_ms(launch) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = launch()
+        end.record()
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"overlap kernel launch failed: cudaError {rc}")
+        return start.elapsed_time(end)
+
+    def in_turns(cases, rounds: int) -> dict:
+        times = {case: [] for case in cases}
+        for _ in range(rounds):
+            for case in cases:
+                times[case].append(event_ms(ov_launch[case][0]))
+        return times
+
+    in_turns(ov_cases, 1)  # warm-up
+    b7_times = in_turns(ov_cases, B7_ROUNDS)
+    s_star = max(1, round(statistics.median(b7_times[False, True, 1])
+                          / statistics.median(b7_times[True, False, 1])))
+    star_cases = [(True, False, s_star), (True, True, s_star), (False, True, 1)]
+    for case in star_cases[:2]:
+        ov_launch.setdefault(case, rf.prepare_overlap(a_f, b_f, mt_f, rays_f, *case))
+    in_turns(star_cases, 1)  # warm-up, and the outputs compared below
+    outs_of = {case: ov_launch[case][1] for case in star_cases}
+    star_same = (torch.equal(outs_of[True, True, s_star]["o"], outs_of[True, False, s_star]["o"])
+                 and torch.equal(outs_of[True, True, s_star]["t"], outs_of[False, True, 1]["t"]))
+    print(f"B7 timing point s* = {s_star} (medians of matrix / vector at scale 1 over "
+          f"{B7_ROUNDS} rounds): o of both equals o of vector alone and t equals t of matrix "
+          f"alone, bit for bit: {star_same}", flush=True)
+    if not star_same:
+        raise RuntimeError("the overlap probe's outputs at s* depend on the other unit's work")
+    star_times = in_turns(star_cases, B7_ROUNDS)
+    if s_star not in (1, 2, 4):
+        b7_times.update({case: star_times[case] for case in star_cases[:2]})
+    b7_ms.update({case: statistics.median(v) for case, v in b7_times.items()})
     els = rf.SUB * rf.LANES * rf.GRID
     fma_flops = 2 * els * rf.ITERS * rf.UNROLL * rf.CHAINS  # an FMA counted as two
     mix_ops = els * rf.ITERS * rf.MIX_UNROLL * rf.MIX_OPS
@@ -4573,33 +4670,49 @@ def main() -> int:
              "mix TFLOP/s": mix_flops / b7_ms["mix"] / 1e9,
              "product TFLOP/s": mm_flops / b7_ms[False, True, 1] / 1e9,
              "TF32 TFLOP/s executed": 3 * mm_flops / b7_ms[False, True, 1] / 1e9}
+    # the rates' ceilings, all at 1,980 MHz (a rate above one is a miscount)
     limits = {"fma TFLOP/s": FP32_PEAK / 1e12, "mix Tops/s": FP32_PEAK / 2e12,
-              "mix TFLOP/s": FP32_PEAK / 1e12, "product TFLOP/s": TF32_PEAK / 1e12,
-              "TF32 TFLOP/s executed": TF32_PEAK / 1e12}
+              "mix TFLOP/s": FP32_PEAK / 1e12, "product TFLOP/s": TF32_PEAK_1980 / 1e12,
+              "TF32 TFLOP/s executed": TF32_PEAK_1980 / 1e12}
     print(f"time B7 fma peak: {b7_ms['fma']:.4f} ms, {rates['fma TFLOP/s']:.2f} TFLOP/s float32 "
           f"(FMA = 2; data sheet {FP32_PEAK / 1e12:.0f}) [{card}]", flush=True)
     print(f"time B7 pair mix: {b7_ms['mix']:.4f} ms, {rates['mix Tops/s']:.2f} T ops/s "
           f"({rf.MIX_OPS} per step, {rf.MIX_FMAS} of them FMAs; issue limit "
           f"{FP32_PEAK / 2e12:.1f} T instructions/s), {rates['mix TFLOP/s']:.2f} TFLOP/s [{card}]",
           flush=True)
+    b7_spread = {case: (min(v), max(v)) for case, v in b7_times.items()}
+    for case in b7_times:
+        print(f"time B7 overlap vector {case[0]} matrix {case[1]} scale {case[2]}: median "
+              f"{b7_ms[case]:.4f} ms, spread {b7_spread[case][0]:.4f}-{b7_spread[case][1]:.4f} "
+              f"over {B7_ROUNDS} rounds in turns [{card}]", flush=True)
     print(f"time B7 matrix alone: {b7_ms[False, True, 1]:.4f} ms, {rates['product TFLOP/s']:.2f}"
           f" TFLOP/s of the float32 product, {rates['TF32 TFLOP/s executed']:.2f} TFLOP/s of TF32"
           f" executed (3 products: hi*hi + hi*lo + lo*hi; data sheet {TF32_PEAK / 1e12:.1f} "
-          f"dense) [{card}]", flush=True)
+          f"dense at 1,830 MHz, {TF32_PEAK_1980 / 1e12:.1f} at 1,980 MHz) [{card}]", flush=True)
     b7_overlap = []
-    for vs in (1, 2, 4):
-        t_v, t_b, t_m = b7_ms[True, False, vs], b7_ms[True, True, vs], b7_ms[False, True, 1]
-        lo, hi = max(t_v, t_m), t_v + t_m
-        frac = (hi - t_b) / max(hi - lo, 1e-12)
-        b7_overlap.append({"vector_scale": vs, "vector_ms": t_v, "matrix_ms": t_m,
-                           "both_ms": t_b, "overlap": frac})
-        print(f"time B7 overlap vector x{vs}: vector {t_v:.4f} ms, matrix {t_m:.4f} ms, both "
-              f"{t_b:.4f} ms (max {lo:.4f} / sum {hi:.4f}): overlap {frac * 100:.1f}% "
-              f"[{card}]", flush=True)
+    for vs in (1, 2, 4, s_star):
+        fracs, rounds = [], star_times if vs == s_star and vs not in (1, 2, 4) else b7_times
+        for t_v, t_b, t_m in zip(rounds[True, False, vs], rounds[True, True, vs],
+                                 rounds[False, True, 1]):  # each round's own fraction
+            fracs.append((t_v + t_m - t_b) / max(min(t_v, t_m), 1e-12))
+        t_v, t_b = b7_ms[True, False, vs], b7_ms[True, True, vs]
+        t_m = statistics.median(rounds[False, True, 1])
+        frac = statistics.median(fracs)
+        b7_overlap.append({"vector_scale": vs, "timing_point": vs == s_star and vs not in (1, 2, 4),
+                           "vector_ms": t_v, "matrix_ms": t_m, "both_ms": t_b,
+                           "vector_ms_spread": b7_spread[True, False, vs],
+                           "both_ms_spread": b7_spread[True, True, vs],
+                           "overlap": frac, "overlap_spread": (min(fracs), max(fracs)),
+                           "both_over_max": t_b / max(t_v, t_m)})
+        print(f"time B7 overlap vector x{vs}{' (s*, a timing point)' if vs == s_star else ''}: "
+              f"vector {t_v:.4f} ms, matrix {t_m:.4f} ms, both {t_b:.4f} ms (max "
+              f"{max(t_v, t_m):.4f} / sum {t_v + t_m:.4f}; both / max {t_b / max(t_v, t_m):.3f}):"
+              f" overlap median {frac * 100:.1f}%, spread {min(fracs) * 100:.1f}-"
+              f"{max(fracs) * 100:.1f}% [{card}]", flush=True)
     for key, rate in rates.items():
         if rate > 1.05 * limits[key]:
-            raise RuntimeError(f"B7 {key} {rate:.2f} exceeds 105% of the data sheet's "
-                               f"{limits[key]:.1f}: a miscount")
+            raise RuntimeError(f"B7 {key} {rate:.2f} exceeds 105% of the card's peak "
+                               f"{limits[key]:.1f} at 1,980 MHz: a miscount")
     b7_bounds = {"fma": bound(fma_flops, 2 * 4 * rf.SUB * rf.LANES + 4 * els),
                  "mix": bound(mix_flops, 2 * 4 * rf.SUB * rf.LANES + 4 * els)}
     vec_flops = 2 * els * rf.M_ITERS * rf.V_UNROLL * rf.CHAINS
@@ -4607,13 +4720,47 @@ def main() -> int:
     t_ov = max(vec_flops / FP32_PEAK, 3 * mm_flops / TF32_PEAK) * 1e3
     b7_bounds["overlap"] = ((t_ov, "operations") if t_ov >= ov_bytes / HBM_RATE * 1e3
                             else (ov_bytes / HBM_RATE * 1e3, "bytes"))
-    print(f"B7 verdict: of the vector time, "
+    # library_ms: torch.bmm of mt, broadcast over the grid blocks, with the
+    # scaled rays, M_ITERS calls; each call writes [GRID, 4 C_TRIS, LANES] of
+    # products (256 MB), which the probe keeps in registers. float32 through
+    # cuBLAS, then one TF32 pass (allow_tf32: less accurate). A yardstick
+    # only: the port never calls it
+    mt_b = mt_f.expand(rf.GRID, 4 * rf.C_TRIS, rf.K)
+    rays_b = (rays_f * (1.0 + b_f[0:1] * 1e-30)).expand(rf.GRID, rf.K, rf.LANES)
+    bmm_out = torch.empty((rf.GRID, 4 * rf.C_TRIS, rf.LANES), device=dev)
+
+    def bmm_calls():
+        for _ in range(rf.M_ITERS):
+            torch.bmm(mt_b, rays_b, out=bmm_out)
+
+    b7_library = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        b7_library[tf32] = time_ms(bmm_calls, 3, torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del bmm_out, mt_b, rays_b
+    share = b7_bounds["overlap"][0] / b7_ms[False, True, 1]
+    share_1980 = 3 * mm_flops / TF32_PEAK_1980 * 1e3 / b7_ms[False, True, 1]
+    print(f"B7 library yardstick: torch.bmm [{rf.GRID}, {4 * rf.C_TRIS}, {rf.K}] x [{rf.GRID}, "
+          f"{rf.K}, {rf.LANES}] x {rf.M_ITERS} calls: float32 {b7_library[False]:.4f} ms, one "
+          f"TF32 pass {b7_library[True]:.4f} ms; the probe's matrix alone "
+          f"{b7_ms[False, True, 1]:.4f} ms against its bound {b7_bounds['overlap'][0]:.4f} ms "
+          f"(the data sheet's TF32 peak): {share * 100:.1f}% of the bound, "
+          f"{share_1980 * 100:.1f}% of the tensor cores' TF32 peak at 1,980 MHz [{card}]",
+          flush=True)
+    ptxas_ov = [c for c in cuda_build.ptxas_counts(cuda_build.BUILD_INFO["roofline"]["log"])
+                if "overlap" in c["kernel"]]
+    serialised = [line.strip() for line in cuda_build.BUILD_INFO["roofline"]["log"].splitlines()
+                  if "wgmma" in line and "serialized" in line]
+    print(f"B7 overlap kernel ptxas: {ptxas_ov}; wgmma serialised: {serialised or 'no'}",
+          flush=True)
+    print(f"B7 verdict: of the shorter unit's time, "
           + " / ".join(f"{r['overlap'] * 100:.1f}%" for r in b7_overlap)
-          + " hides under the matrix work at vector scales 1 / 2 / 4 (100%: the units overlap; "
-          f"0%: they serialise); bounds fma {b7_bounds['fma'][0]:.4f}, mix "
+          + f" hides under the other at vector scales 1 / 2 / 4 / s* = {s_star} (100%: the units "
+          f"overlap; 0%: they serialise); bounds fma {b7_bounds['fma'][0]:.4f}, mix "
           f"{b7_bounds['mix'][0]:.4f}, overlap {b7_bounds['overlap'][0]:.4f} ms [{card}]",
           flush=True)
-    del full, a_f, b_f, mt_f, rays_f
+    del full, a_f, b_f, mt_f, rays_f, ov_launch, outs_of
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
     # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b, B4a, B2, B4d, B4c: ptxas, records, times
@@ -5017,7 +5164,7 @@ def main() -> int:
             "plain_ms": b7_small[probe][1],
             "bound_ms": b7_bounds[probe][0],
             "bound_by": b7_bounds[probe][1],
-            "library_ms": None,
+            "library_ms": b7_library[False] if probe == "overlap" else None,
             "shape": f"roofline.py's size: [{rf.SUB}, {rf.LANES}] x grid {rf.GRID}, "
                      + (f"m_iters {rf.M_ITERS}, vector and matrix, scale 1" if probe == "overlap"
                         else f"iters {rf.ITERS}"),
@@ -5027,7 +5174,12 @@ def main() -> int:
                                "product's max |d| / sum |terms| scaled to 1e-4 at its tolerance"
                                if probe == "overlap" else "max relative |d|"),
             **({"rates": rates} if probe != "overlap" else
-               {"overlap": b7_overlap, "matrix_alone_ms": b7_ms[False, True, 1]}),
+               {"overlap": b7_overlap, "matrix_alone_ms": b7_ms[False, True, 1],
+                "matrix_alone_ms_spread": b7_spread[False, True, 1],
+                "matrix_share_of_bound": share,
+                "matrix_share_of_peak_1980": share_1980, "s_star": s_star, "rounds": B7_ROUNDS,
+                "library_ms_is": "torch.bmm, float32 (cuBLAS), M_ITERS calls",
+                "library_ms_tf32": b7_library[True], "ptxas": ptxas_ov}),
         })
     tv.check_errors()
     print(json.dumps({"kernels": kernels}))

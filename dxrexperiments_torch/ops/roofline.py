@@ -12,7 +12,10 @@ each block writing its own [SUB, LANES] of an [SUB, LANES * grid] output.
 - ``overlap``: an FMA loop (V_UNROLL steps of CHAINS chains per iteration)
   beside a [4 C_TRIS, 16] x [16, LANES] float32 product every
   ``vector_scale``-th iteration, on the tensor cores in split TF32 (the
-  TPU's HIGHEST precision), to see whether the two units overlap.
+  TPU's HIGHEST precision), to see whether the two units overlap. The
+  kernel runs the product on asynchronous warpgroup MMA from a copy of mt
+  split once per block into shared memory (tests/test_torch_roofline_wgmma.py
+  models its layout and schedules on the host).
 
 On CUDA tensors the wrappers launch the hand-written kernels in
 ``csrc/roofline.cu`` or raise; on CPU tensors they take the plain versions

@@ -2,11 +2,11 @@
 the trace kernels B4a (csrc/traverse_fat.cu), B4b
 (csrc/traverse_binary.cu), B6b (csrc/traverse2_binary.cu), B3
 (csrc/intersect_brute.cu), B6a (csrc/traverse2_fat.cu), B4d
-(csrc/traverse8.cu) and B4c (csrc/traverse_fat_grouped.cu) and the
-bilateral pass B2 (csrc/bilateral.cu) case by case, every other kernel by
-its instructions.
+(csrc/traverse8.cu) and B4c (csrc/traverse_fat_grouped.cu), the
+bilateral pass B2 (csrc/bilateral.cu) and the roofline probes B7
+(csrc/roofline.cu) case by case, every other kernel by its instructions.
 
-    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B4d,B4c]
+    python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B7]
                          [--same-entries] [--this DIR2]
 
 DIR is a checkout of the commit to compare with (its
@@ -14,8 +14,10 @@ DIR is a checkout of the commit to compare with (its
 beside this tree's; one nvcc per source, all at once). Printed:
 
 - ptxas' registers, spills and stack of every kernel of both trees;
-- for every kernel but this tree's redesigns (``REDESIGNED``: B4d, B4c),
+- for every kernel but this tree's redesigns (``REDESIGNED``: B7),
   whether its instructions (``cuobjdump -sass``) equal the base build's;
+  for each redesign, its kernels' tensor-core instructions in both builds
+  (``HGMMA``: warpgroup MMA, ``HMMA``: mma.sync);
 - for the sweep and leaf loops of B1, B3, B5 and the walks (the innermost
   loops that load and do float work, each pair test counted by its FSETP
   against 1e-12) the instructions, loads and float instructions per pair
@@ -42,7 +44,11 @@ beside this tree's; one nvcc per source, all at once). Printed:
   stand-in): the pixels that differ in any bit, ms in turns;
 - with B2, the bilateral cases (``bilateral_cases``: config 4's 1080p
   frame 0 AOVs, both passes at each radius of ``B2_RADII``): the pixels
-  whose channels differ in any bit, per channel, ms in turns.
+  whose channels differ in any bit, per channel, ms in turns;
+- with B7, the roofline probes at roofline.py's size on seeded inputs
+  (``roofline_cases``: the FMA peak, the pair mix, the seven overlap
+  settings with the product kept): the elements that differ in any bit per
+  output (out; o, t and grid block 0's last product), ms in turns.
 
 The base's B4d and B4c are called with the entry points they had before
 their leaf records (``base_trace_launch``, reading mt_rows), its other
@@ -71,9 +77,9 @@ SOURCES = {"B1": "fused_sample", "B2": "bilateral", "B3": "intersect_brute",
            "B6b": "traverse2_binary", "B7": "roofline"}
 # this tree's redesigns, compared case by case; every other kernel's
 # instructions must equal the base's
-REDESIGNED = ("B4d", "B4c")
+REDESIGNED = ("B7",)
 TRACED = ("B4a", "B4b", "B6b", "B3", "B6a", "B4d", "B4c")  # the trace kernels with cases
-COMPARED = TRACED + ("B2", "B1", "B5")  # the kernels with cases
+COMPARED = TRACED + ("B2", "B1", "B5", "B7")  # the kernels with cases
 B2_RADII = (1, 7, 12, 25)  # chip_smoke.BILATERAL_RADII; 12 is the denoiser's default
 WALK_KERNELS = ("B4a", "B4b", "B4c", "B4d", "B6a", "B6b")  # whose walk loops are counted
 # B4a's SASS per turn outside its pair tests and per pair test, closest and
@@ -413,6 +419,65 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def mma_opcodes(so_path: str) -> dict:
+    """{function: {"HGMMA": n, "HMMA": n}} of a build's kernels that use
+    the tensor cores (``cuobjdump -sass``)."""
+    tool = find_cuobjdump()
+    if tool is None:
+        return {"error": "cuobjdump not found"}
+    proc = subprocess.run([tool, "-sass", so_path], capture_output=True, text=True, check=False)
+    out = {}
+    for name, code in sass_functions(proc.stdout).items():
+        ops = [opcode(i).split(".")[0] for _, i in code]
+        counts = {k: ops.count(k) for k in ("HGMMA", "HMMA")}
+        if any(counts.values()):
+            out[name] = counts
+    return out
+
+
+def roofline_launch(lib, case, inputs):
+    """One launch of a roofline build ``lib`` (this tree's C entry points,
+    unchanged since the probes were ported): case "fma", "mix" or an
+    overlap setting (do_vector, do_matrix, vector_scale) at roofline.py's
+    size, the product kept. (launch, {name: output})."""
+    import ctypes
+
+    import torch
+
+    from dxrexperiments_torch.ops import roofline as rf
+
+    a, b, mt, rays = inputs
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    if case in ("fma", "mix"):
+        fn = lib.dxr_roofline_vector
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
+        out = torch.empty((rf.SUB, rf.LANES * rf.GRID), device=a.device)
+        code = 0 if case == "fma" else 1
+        return (lambda: fn(code, a.data_ptr(), b.data_ptr(), out.data_ptr(), rf.ITERS, rf.GRID,
+                           stream)), {"out": out}
+    fn = lib.dxr_roofline_overlap
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    outs = {k: torch.empty((rf.SUB, rf.LANES * rf.GRID), device=a.device) for k in ("o", "t")}
+    outs["product"] = torch.zeros((4 * rf.C_TRIS, rf.LANES), device=a.device)
+    return (lambda: fn(a.data_ptr(), b.data_ptr(), mt.data_ptr(), rays.data_ptr(),
+                       outs["o"].data_ptr(), outs["t"].data_ptr(), outs["product"].data_ptr(),
+                       rf.M_ITERS, rf.GRID, case[2], int(case[0]), int(case[1]), stream)), outs
+
+
+def roofline_cases(dev):
+    """(name, case, inputs) of B7 at roofline.py's size on seeded inputs
+    (the mix's a near its neutral growth, so that it stays finite)."""
+    from dxrexperiments_torch.ops import roofline as rf
+
+    inputs = rf.probe_inputs(dev, seed=37)
+    yield "fma peak", "fma", inputs
+    yield "pair mix", "mix", (*rf.mix_inputs(dev, seed=37), *inputs[2:])
+    for case in [(False, True, 1)] + [(v, m, vs) for vs in (1, 2, 4)
+                                      for v, m in ((True, False), (True, True))]:
+        yield (f"overlap vector {case[0]} matrix {case[1]} scale {case[2]}", case, inputs)
 
 
 def megakernel_cases(dev):
@@ -857,9 +922,13 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
             report["ptxas"][f"{key} {tree}"] = counts
             for k in counts:
                 print(f"ptxas {key} {tree}: {k}", flush=True)
-    report["sass_identical"] = {}
+    report["sass_identical"], report["mma_opcodes"] = {}, {}
     for key in SOURCES:
         if key in REDESIGNED:
+            for tree in trees:
+                ops = mma_opcodes(info(tree, key)["path"])
+                report["mma_opcodes"][f"{key} {tree}"] = ops
+                print(f"sass {key} {tree}: tensor-core instructions {ops}", flush=True)
             continue
         texts = [sass_text(info(tree, key)["path"]) for tree in trees]
         same = None if texts[0] is None else texts[0] == texts[1]
@@ -983,6 +1052,30 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
             report["cases"].append(row)
             print(f"case B2 {name}: pixels differing in any bit per channel {diff}{times} "
                   f"[{card}]", flush=True)
+        torch.cuda.empty_cache()
+
+    if "B7" in kernels:
+        for name, case, inputs in roofline_cases(dev):
+            base = roofline_launch(libs["base", "B7"], case, inputs)
+            mine = roofline_launch(libs["this", "B7"], case, inputs)
+            for launch, _ in (base, mine):
+                if launch() != 0:
+                    raise RuntimeError(f"B7 {name}: launch failed")
+            torch.cuda.synchronize()
+            diff = {k: int((base[1][k].view(torch.int32) != v.view(torch.int32)).sum())
+                    for k, v in mine[1].items()}
+            row = {"case": f"B7 {name}", "kernel": "B7", "differing_elements": diff,
+                   "elements": {k: v.numel() for k, v in mine[1].items()}}
+            times = ""
+            if reps:
+                turns = [time_ms(f, reps) for f in (base[0], mine[0], mine[0], base[0])]
+                row.update(base_ms=(turns[0] + turns[3]) / 2, this_ms=(turns[1] + turns[2]) / 2,
+                           turns_ms=turns)
+                times = (f"; ms base {row['base_ms']:.4f}, this {row['this_ms']:.4f} (turns "
+                         f"{', '.join(f'{t:.4f}' for t in turns)})")
+            report["cases"].append(row)
+            print(f"case B7 {name}: elements differing in any bit from the base build per output "
+                  f"{diff}{times} [{card}]", flush=True)
         torch.cuda.empty_cache()
 
     if not any(k in ("B1", "B5") for k in kernels):

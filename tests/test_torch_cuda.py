@@ -37,7 +37,8 @@ rays, t within rtol 1e-4. The 8-wide walk (B4d): a stack overflow while a
 lane holds a leaf raises after the leaf is tested (``wide_ladder``). B1's opt-in
 instantiations: bit-equal to the base kernel. The roofline probes (B7):
 relative 1e-4 against their plain versions, the split-TF32 product within
-2 K float32 ulps of the sum of |terms|.
+2 K float32 ulps of the sum of |terms|; across the overlap settings the
+chains, the accumulator and the product equal bit for bit.
 """
 
 import dataclasses
@@ -1925,3 +1926,60 @@ def test_roofline_probes_match_plain(cuda_device):
     assert rf.max_rel_diff(got["o"], want["o"]) <= 1e-4
     assert rf.max_rel_diff(got["t"], want["t"]) <= 1e-6
     assert float(((got["product"] - want["product"]).abs() / scale_of).max()) <= 2 * rf.K * 2.0**-23
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["interpret", "full"])
+def test_roofline_overlap_settings_agree(cuda_device, size):
+    """The overlap kernel (wgmma) at roofline.py's --interpret and full
+    sizes, all seven settings: the FMA chains do not depend on the product
+    nor the product on the chains (o of both equal to vector alone's, t and
+    the product to matrix alone's, bit for bit); the product over all 1,024
+    columns, a later column tile's among them, within 2 K float32 ulps of
+    sum |terms|; t against the plain version, the last column tile too.
+    Then the four settings with a product on inputs where it shows in t
+    (b = 0, mt and rays ~ 1e15, so that t sums rows 0..7 of the products
+    times 1e-30 and the column scale stays 1): t of every column, each
+    later column tile and persistent pass among them, within M_ITERS x 2 K
+    ulps of sum |terms| x 1e-30 of the exact sum, plus half an ulp of each
+    float32 add into t (the plain version's t is held to the same gate)."""
+    from dxrexperiments_torch.ops import roofline as rf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m_it, grid = ((rf.SMOKE_M_ITERS, rf.SMOKE_GRID) if size == "interpret"
+                  else (rf.M_ITERS, rf.GRID))
+    a, b, mt, rays = rf.probe_inputs(cuda_device, seed=5)
+    cases = [(False, True, 1)] + [(v, m, s) for s in (1, 2, 4)
+                                  for v, m in ((True, False), (True, True))]
+    got = {c: rf.overlap(a, b, mt, rays, *c, m_it, grid, keep_product=True) for c in cases}
+    torch.cuda.synchronize()
+    matrix = got[False, True, 1]
+    for s in (1, 2, 4):
+        assert torch.equal(got[True, True, s]["o"], got[True, False, s]["o"])
+        assert torch.equal(got[True, True, s]["t"], matrix["t"])
+        assert torch.equal(got[True, True, s]["product"], matrix["product"])
+        assert torch.equal(got[True, False, s]["t"], b.repeat(1, grid))  # no product: t stays b
+    want = rf.overlap_reference(a, b, mt, rays, False, True, 1, m_it, grid)
+    err = (matrix["product"] - want["product"]).abs() / (mt.abs() @ rays.abs())
+    gate = 2 * rf.K * 2.0**-23
+    assert float(err.max()) <= gate
+    tile = 64  # a warpgroup's column tile
+    later = slice(5 * tile, 6 * tile)  # column tile 5 of grid block 0
+    assert bool(matrix["product"][:, later].abs().gt(0).all()) and float(err[:, later].max()) <= gate
+    assert rf.max_rel_diff(matrix["t"], want["t"]) <= 1e-6
+    last = slice(rf.LANES * grid - tile, rf.LANES * grid)  # the last warpgroup tile
+    assert rf.max_rel_diff(matrix["t"][:, last], want["t"][:, last]) <= 1e-6
+
+    b_v, mt_v, rays_v = torch.zeros_like(b), mt * 1e15, rays * 1e15
+    exact = (mt_v[:rf.SUB].double() @ rays_v.double()).repeat(1, grid) * 1e-30 * m_it
+    sum_abs = (mt_v[:rf.SUB].abs().double() @ rays_v.abs().double()).repeat(1, grid) * 1e-30
+    t_gate = (m_it * gate + 2.0**-24 * m_it * (m_it + 3) / 2) * sum_abs
+    want = rf.overlap_reference(a, b_v, mt_v, rays_v, False, True, 1, m_it, grid)
+    assert float(exact.abs().max()) > 1.0  # the products do show
+    assert bool(((want["t"].double() - exact).abs() <= t_gate).all())
+    for case in [c for c in cases if c[1]]:
+        got = rf.overlap(a, b_v, mt_v, rays_v, *case, m_it, grid, keep_product=True)
+        torch.cuda.synchronize()
+        assert bool(((got["t"].double() - exact).abs() <= t_gate).all())
+        err = (got["product"] - want["product"]).abs() / (mt_v.abs() @ rays_v.abs())
+        assert float(err.max()) <= gate

@@ -131,20 +131,39 @@ def test_walk_loops_count_a_turn_outside_its_pair_tests():
 
 
 def test_redesigned_kernels_and_b2_radii():
-    """This tree's redesigns are B4d and B4c: both have trace cases beside
-    B4a's (B4c one per packet layout of chip_smoke.GROUPINGS) and B4a as a
-    yardstick; B2 keeps its bilateral cases at chip_smoke.py's radii; B4a,
-    B4b, B6b and B2 are held to the base's instructions."""
+    """This tree's redesign is B7 (the overlap probe on wgmma), compared case
+    by case; B4d and B4c keep their trace cases beside B4a's (B4c one per
+    packet layout of chip_smoke.GROUPINGS) and B4a as a yardstick; B2 keeps
+    its bilateral cases at chip_smoke.py's radii; B4a, B4b, B4c, B4d, B6b
+    and B2 are held to the base's instructions."""
     import chip_smoke
 
-    assert ab.REDESIGNED == ("B4d", "B4c")
+    assert ab.REDESIGNED == ("B7",)
+    assert "B7" in ab.COMPARED and "B7" not in ab.TRACED
     assert {"B4a", "B4d", "B4c"} <= set(ab.TRACED) and "B2" in ab.COMPARED
     assert "B2" not in ab.TRACED
-    assert not {"B4a", "B4b", "B6b", "B2"} & set(ab.REDESIGNED)
+    assert not {"B4a", "B4b", "B4c", "B4d", "B6b", "B2"} & set(ab.REDESIGNED)
     assert ab.B2_RADII == chip_smoke.BILATERAL_RADII and 12 in ab.B2_RADII
     assert set(ab.YARDSTICKS["B4a"]) == {("B4b", "binary"), ("B4d", "wide")}
     assert ("B4a", "fat") in ab.YARDSTICKS["B4d"] and ab.YARDSTICKS["B4c"] == (("B4a", "fat"),)
     assert {"B4c", "B4d"} <= set(ab.WALK_KERNELS)
+
+
+def test_roofline_cases_cover_the_probes():
+    """B7's cases: the FMA peak, the pair mix (on inputs where it stays
+    finite) and chip_smoke.py's seven overlap settings, at roofline.py's
+    size on seeded inputs."""
+    from dxrexperiments_torch.ops import roofline as rf
+
+    cases = list(ab.roofline_cases("cpu"))
+    assert [c[1] for c in cases[:2]] == ["fma", "mix"]
+    overlap = [c[1] for c in cases[2:]]
+    assert overlap == [(False, True, 1)] + [(v, m, s) for s in (1, 2, 4)
+                                            for v, m in ((True, False), (True, True))]
+    a, b, mt, rays = cases[2][2]
+    assert tuple(a.shape) == (rf.SUB, rf.LANES) and tuple(mt.shape) == (4 * rf.C_TRIS, rf.K)
+    assert len(torch.unique(a)) > rf.SUB * rf.LANES // 2  # seeded: the elements differ
+    assert torch.equal(cases[1][2][0], rf.mix_inputs("cpu", seed=37)[0])
 
 
 def test_differing_channels_counts_bits():
