@@ -334,6 +334,56 @@ Phases, each of which raises on failure:
      bit for bit on the card, with their bytes; the launch alone (CUDA
      events) on config 1's and config 3's first dispatch, config 4's frame 0
      (B1), beside phase 10's and 28's B5 times, each with its bound.
+ 39. row-block launches (run after phase 37): B1 progressive on config 1's
+     first dispatch (Cornell-glossy 512^2, S = 16), B1 realtime on config
+     4's frame 0 (1080p), B5 progressive on phase 8's first dispatch
+     ('instanced:32' 512^2, S = 4, 983,042 triangles) and B5 realtime on an
+     'instanced:32' 1080p frame, each launched whole and as 2 and 4 row
+     blocks (py0, full_height) put together: bit-equal expected (the same
+     float operations on the same integers), else the max |difference| and
+     the share of differing pixels are printed and the gate is
+     tests/test_parallel.py's (atol 1e-6 on the progressive mean, 1e-5 on
+     the realtime AOVs); B2 on config 4's frame 0 split into 2, 4 and 72
+     row blocks in this process, one thread a block, each thread driving
+     parallel/render.py's code on its block of a 1-spp mesh whose
+     all-reduce over "tile" sums the threads' buffers: the vertical pass on
+     the block padded by _halo_rows (2 and 4 blocks) against the full pass,
+     and _denoise_local (2 and 4 blocks: the halo path; 72 blocks of 15
+     rows: the short-block path, gather_rows and the full columns) against
+     denoise_composite on the whole frame, bit-equal expected (else 1e-5);
+     each launch alone timed, the blocks' sum beside the full launch.
+ 40. sharded steps through torch.distributed (parallel/render.py): a world
+     of one rank on NCCL in this process: make_sharded_progressive_step on
+     config 1 (512^2, 16 samples a step, 8 steps; exactly 8 B1 launches)
+     against ProgressiveRaytracingPipeline's image, and
+     make_sharded_realtime_step with the denoiser at 1080p (1 B1 realtime +
+     2 B2 launches) against the pipeline's frame and DenoiseCompositor, bit
+     for bit; then two spawned ranks sharing the card over gloo (the only
+     collectives: broadcast and all-reduce on CUDA tensors): config 1 on
+     meshes 2x1 and 1x2 (8 B1 launches a rank) and realtime + denoise 2x1
+     at 1080p, 5 frames (5 B1 realtime + 10 B2 a rank; 540-row blocks,
+     the halo path) and at 1920x48, 2 frames (24-row blocks: the
+     short-block path's all-reduce of CUDA tensors), rank 0's gathered
+     image against the single-process one, bit
+     for bit on tile-only meshes and within 1e-5 + 1e-6 |want| where
+     samples split (the spp sum reassociated); each step's host ms; and the
+     headless CLI with --shard 1x1, as a subprocess.
+ 41. frames in flight (models/realtime.py): render_frames with K = 4 at
+     1080p on Cornell-glossy (exactly 1 B1 realtime launch) and on
+     'instanced:32' (1 B5 realtime launch), each bit-equal to 4 sequential
+     render() calls; make_realtime_denoise_frames_step with K = 4 (1 B1
+     realtime + 8 B2 launches) against the sequential denoiser;
+     DenoiseCompositor.dispatch_frames with temporal alpha 0.2 against 4
+     sequential dispatch() calls; the host ms per frame (host clock,
+     synchronised, and the host's enqueue alone) at K = 1, 2, 4 and 8
+     beside the kernels' ms per frame (CUDA events: the K-frame B1 launch
+     over K, plus two B2 passes) and the card's busy ms per frame
+     (torch.profiler over 8 frames: every kernel and copy, the composite's
+     elementwise torch ops included) with the idle share of the frame; the
+     host enqueue split into frame_cameras and the step, and the step, in a
+     second pass, into realtime_frames and denoise_composite_frames; and the
+     pipeline's one-frame path (update + render + DenoiseCompositor.dispatch,
+     48 frames) before and after the K sweep, its enqueue split the same way.
 
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
@@ -1399,6 +1449,23 @@ def kernel_ms(prepared, reps: int, torch) -> float:
     return ms
 
 
+def device_busy(fn, torch) -> tuple[float, list]:
+    """The card's busy ms while fn runs (torch.profiler: the sum of the
+    device time of every kernel and copy, idle gaps excluded), and the five
+    largest items as (name, ms, calls). (0.0, []) where the profiler
+    records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+            for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    return sum(r[1] for r in rows), rows[:5]
+
+
 def time_ms(fn, reps: int, torch) -> float:
     fn()  # warm-up
     torch.cuda.synchronize()
@@ -1429,9 +1496,17 @@ def main() -> int:
     from dxrexperiments_torch.core.camera import camera_params, primary_ray_grid, stack_cameras
     from dxrexperiments_torch.core.device import setup_device
     from dxrexperiments_torch.models.base import select_route
-    from dxrexperiments_torch.models.denoise import DenoiseCompositor, denoise_composite
+    from dxrexperiments_torch.models.denoise import (
+        DenoiseCompositor,
+        denoise_composite,
+        denoise_composite_frames,
+    )
     from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
-    from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
+    from dxrexperiments_torch.models.realtime import (
+        RealtimeRaytracingPipeline,
+        make_realtime_denoise_frames_step,
+        realtime_frames,
+    )
     from dxrexperiments_torch.ops import bilateral as bl
     from dxrexperiments_torch.ops import fused_sample as fs
     from dxrexperiments_torch.ops import fused_traverse as ft
@@ -1440,6 +1515,8 @@ def main() -> int:
     from dxrexperiments_torch.ops import roofline as rf
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
+    from dxrexperiments_torch.parallel import launch as par_launch
+    from dxrexperiments_torch.parallel import render as par
     from dxrexperiments_torch.scene import Scene, cornell_box, envmap
     from dxrexperiments_torch.scene.dynamic import refit_scene_instances
     from dxrexperiments_torch.scene.lights import area_light, default_lights, directional_light
@@ -1455,32 +1532,12 @@ def main() -> int:
     from dxrexperiments_torch.utils.dds import write_dds
     from dxrexperiments_torch.utils.image import write_hdr
 
-    def reset_counts():
-        fs.LAUNCHES = fs.REALTIME_LAUNCHES = bl.LAUNCHES = 0
-        tv.CLOSEST_LAUNCHES = tv.ANY_LAUNCHES = ft.LAUNCHES = ft.REALTIME_LAUNCHES = 0
-        tv2.CLOSEST_LAUNCHES = tv2.ANY_LAUNCHES = ik.CLOSEST_LAUNCHES = ik.ANY_LAUNCHES = 0
-        tv.BINARY_CLOSEST_LAUNCHES = tv.BINARY_ANY_LAUNCHES = 0
-        tv.WIDE_CLOSEST_LAUNCHES = tv.WIDE_ANY_LAUNCHES = 0
-        tv2.BINARY_CLOSEST_LAUNCHES = tv2.BINARY_ANY_LAUNCHES = 0
-        tv.GROUPED_CLOSEST_LAUNCHES = tv.GROUPED_ANY_LAUNCHES = 0
-        fs.CLUSTERED_LAUNCHES = fs.BLOCKED_LAUNCHES = 0
-        rf.FMA_LAUNCHES = rf.MIX_LAUNCHES = rf.OVERLAP_LAUNCHES = 0
+    reset_counts = par_launch.reset_launch_counts
 
     def expect_counts(label, want):
         """Every kernel's launches since the last reset_counts: `want` (name
         -> count) for the kernels it names, 0 for every other. Raises."""
-        got = {"B1": fs.LAUNCHES, "B1 realtime": fs.REALTIME_LAUNCHES, "B2": bl.LAUNCHES,
-               "B3 closest": ik.CLOSEST_LAUNCHES, "B3 any": ik.ANY_LAUNCHES,
-               "B4a closest": tv.CLOSEST_LAUNCHES, "B4a any": tv.ANY_LAUNCHES,
-               "B4b closest": tv.BINARY_CLOSEST_LAUNCHES, "B4b any": tv.BINARY_ANY_LAUNCHES,
-               "B4d closest": tv.WIDE_CLOSEST_LAUNCHES, "B4d any": tv.WIDE_ANY_LAUNCHES,
-               "B5": ft.LAUNCHES, "B5 realtime": ft.REALTIME_LAUNCHES,
-               "B6a closest": tv2.CLOSEST_LAUNCHES, "B6a any": tv2.ANY_LAUNCHES,
-               "B6b closest": tv2.BINARY_CLOSEST_LAUNCHES, "B6b any": tv2.BINARY_ANY_LAUNCHES,
-               "B4c closest": tv.GROUPED_CLOSEST_LAUNCHES, "B4c any": tv.GROUPED_ANY_LAUNCHES,
-               "B1 clustered": fs.CLUSTERED_LAUNCHES, "B1 blocked": fs.BLOCKED_LAUNCHES,
-               "B7 fma": rf.FMA_LAUNCHES, "B7 mix": rf.MIX_LAUNCHES,
-               "B7 overlap": rf.OVERLAP_LAUNCHES}
+        got = par_launch.launch_counts()
         off = {k: v for k, v in got.items() if v != want.get(k, 0)}
         print(f"launches {label}: {', '.join(f'{k} {v}' for k, v in got.items() if v)}; "
               f"expected {want}, every other 0 -> {'FAIL' if off else 'ok'}", flush=True)
@@ -4762,6 +4819,442 @@ def main() -> int:
           flush=True)
     del full, a_f, b_f, mt_f, rays_f, ov_launch, outs_of
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 39", flush=True)
+    # ---- 39. row-block launches of B1 and B5, and B2's halo'd vertical pass ----------
+    # each kernel launched whole and as 2 and 4 row blocks (py0, full_height),
+    # the blocks put together against the whole launch; every launch alone
+    # timed (kernel_ms: the outputs are the last timed launch's)
+    sc39, cam39 = build_scene(BVH_MAIN_SCENE)
+    scene39 = sc39.build(dev)  # phase 29 freed phase 8's scene; first32 are its cameras
+    cam39.set_aspect(RT_W, RT_H)
+    cams39 = cameras(cam39, RT_W, RT_H, 1, 3)
+    row_report = {}
+    for label, mod, sc_, op_, cm_, w_, h_, realtime, atol, s_, reps in (
+            ("B1 progressive config 1", fs, scene1, options1, first_cams, MAIN_SIZE, MAIN_SIZE,
+             False, 1e-6, MAIN_S, 10),
+            ("B1 realtime config 4", fs, rt_scene, rt_options, cams0, RT_W, RT_H, True, 1e-5, 1,
+             20),
+            (f"B5 progressive {BVH_MAIN_SCENE}", ft, scene39, opts32, first32, M, M, False, 1e-6,
+             BVH_S, 3),
+            (f"B5 realtime {BVH_MAIN_SCENE}", ft, scene39, opts32, cams39, RT_W, RT_H, True, 1e-5,
+             1, 3)):
+        ek_ = int(sc_["env"]["kind"])
+
+        def prep(py0, rows):
+            """(launch, outs[, err]) of a launch of rows [py0, py0 + rows)."""
+            if mod is fs:  # B1 has no error flag; its third item is its opt-ins
+                return fs.prepare_launch(sc_, op_, cm_, w_, rows, ek_, realtime, 0, 0, py0=py0,
+                                         full_height=h_ if py0 is not None else 0)[:2]
+            return ft.prepare_launch(sc_, op_, cm_, w_, rows, ek_, realtime, py0=py0,
+                                     full_height=h_ if py0 is not None else 0)
+
+        full_p = prep(None, h_)
+        full_ms = kernel_ms(full_p, reps, torch)
+        row_axis = 1 if realtime else 0  # realtime outputs are [S, rows, ...]
+        entry = {"full_ms": full_ms}
+        for n in (2, 4):
+            rows = h_ // n
+            blocks = [prep(i * rows, rows) for i in range(n)]
+            block_ms = [kernel_ms(b, reps, torch) for b in blocks]
+            worst = {"bit_equal": True, "max_abs_diff": 0.0, "differing_pixels": 0.0}
+            for o, want_o in enumerate(full_p[1]):
+                got_o = torch.cat([b[1][o] for b in blocks], dim=row_axis)
+                if torch.equal(got_o, want_o):
+                    continue
+                diff = (got_o - want_o).abs() / s_
+                px = diff.reshape(*diff.shape[:row_axis + 2], -1).amax(-1) > 0
+                worst = {"bit_equal": False,
+                         "max_abs_diff": max(worst["max_abs_diff"], float(diff.max())),
+                         "differing_pixels": max(worst["differing_pixels"],
+                                                 float(px.float().mean()))}
+            ok = worst["bit_equal"] or worst["max_abs_diff"] <= atol
+            print(f"row blocks {label}: {n} blocks of {rows} rows against the whole launch: "
+                  + ("bit-equal" if worst["bit_equal"] else
+                     f"max |d| {worst['max_abs_diff']:.3e} (gate {atol:g}) on "
+                     f"{worst['differing_pixels']:.4%} of pixels")
+                  + f"; ms whole {full_ms:.4f}, blocks {' + '.join(f'{t:.4f}' for t in block_ms)}"
+                  f" = {sum(block_ms):.4f} [{card}] -> {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"{label}: {n} row blocks differ from the whole launch")
+            entry[f"{n}_blocks"] = dict(worst, block_ms=block_ms, sum_ms=sum(block_ms))
+        row_report[label] = entry
+    tv.check_errors()
+
+    # B2 on config 4's frame 0 as row blocks, one thread a block, each
+    # thread driving parallel/render.py on its block (launch.run_tiles): the
+    # vertical pass on the block padded by _halo_rows against the full pass,
+    # and _denoise_local (the halo path, or gather_rows and the full columns
+    # where a block is shorter than MAX_EXTENT) against the whole frame's
+    # denoise_composite
+    aovs39 = fs.realtime_aovs(rt_scene, rt_options, cams0, RT_W, RT_H, 0)
+    d39, s39 = aovs39["direct"][0], aovs39["indirect_specular"][0]
+    params39 = DenoiseCompositor(device=dev).params
+    radius39 = float(params39["max_kernel_size"])
+    pass0 = bl.bilateral_pass(s39, d39, radius39, 1)
+    whole_v = bl.bilateral_pass(pass0, d39, radius39, 0)
+    whole_c = denoise_composite(d39, s39, params39)
+    r39 = bl.MAX_EXTENT
+    whole_ms = time_ms(lambda: bl.bilateral_pass(pass0, d39, radius39, 0), 20, torch)
+    halo_report = {"whole_ms": whole_ms}
+
+    def differ(got, want):
+        """(bit-equal, max |d|, share of differing pixels)."""
+        if torch.equal(got, want):
+            return True, 0.0, 0.0
+        d = (got - want).abs()
+        return False, float(d.max()), float((d.amax(-1) > 0).float().mean())
+
+    for n in (2, 4, 72):
+        h39 = RT_H // n
+        halo = h39 >= r39
+
+        def tile_job(mesh):
+            """(this block's vertical pass on its halo'd rows or None, the
+            padded inputs or None, its _denoise_local composite)."""
+            a, b = mesh.tile * h39, (mesh.tile + 1) * h39
+            vert = padded = None
+            if halo:
+                padded = par._halo_rows([pass0[a:b], d39[a:b]], r39, mesh)
+                vert = bl.bilateral_pass(*padded, radius39, 0)[r39:-r39]
+            return vert, padded, par._denoise_local(d39[a:b], s39[a:b], params39, mesh, h39)
+
+        tiles = par_launch.run_tiles(n, tile_job, dev)
+        checks = {"composite": differ(torch.cat([t[2] for t in tiles]), whole_c)}
+        part_ms = []
+        if halo:
+            checks["vertical pass"] = differ(torch.cat([t[0] for t in tiles]), whole_v)
+            part_ms = [time_ms(lambda p=t[1]: bl.bilateral_pass(*p, radius39, 0), 20, torch)
+                       for t in tiles]
+        path = "halo" if halo else "short-block (gather_rows, full columns)"
+        ok = all(eq or err <= 1e-5 for eq, err, _ in checks.values())
+        print(f"row blocks B2 {RT_W}x{RT_H}: {n} blocks of {h39} rows, {path} path, one thread "
+              f"a block: " + "; ".join(
+                  f"{name} " + ("bit-equal" if eq else f"max |d| {err:.3e} on {share:.4%} of "
+                                                       f"pixels")
+                  for name, (eq, err, share) in checks.items())
+              + " against the whole frame"
+              + (f"; ms whole vertical pass {whole_ms:.4f}, padded blocks "
+                 f"{' + '.join(f'{t:.4f}' for t in part_ms)} = {sum(part_ms):.4f}" if part_ms
+                 else "") + f" [{card}] -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"B2's {n} row blocks differ from the whole frame")
+        halo_report[f"{n}_blocks"] = {
+            "path": path, "block_ms": part_ms,
+            **{name: {"bit_equal": eq, "max_abs_diff": err, "differing_pixels": share}
+               for name, (eq, err, share) in checks.items()}}
+        del tiles
+    del aovs39, pass0, whole_v, whole_c
+
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 40", flush=True)
+    # ---- 40. sharded steps through torch.distributed ---------------------------------
+    import torch.distributed as dist
+
+    steps40 = par_launch.camera_steps(np.random.default_rng(40), MAIN_SIZE, MAIN_SIZE,
+                                      MAIN_FRAMES, MAIN_S)
+    sc40, cam40 = build_scene("cornell-glossy")
+    cam40.set_aspect(MAIN_SIZE, MAIN_SIZE)
+    pipe40 = ProgressiveRaytracingPipeline(MAIN_SIZE, MAIN_SIZE, seed=40,
+                                           samples_per_frame=MAIN_S, device=dev)
+    pipe40.max_iterations = MAIN_S * MAIN_FRAMES
+    pipe40.set_camera(cam40)
+    pipe40.set_scene(sc40)
+    pipe_ms = []
+    for f in range(MAIN_FRAMES):
+        t0 = time.perf_counter()
+        pipe40.update(elapsed_time=f / 60.0, elapsed_frames=f)
+        pipe40.render()
+        torch.cuda.synchronize()
+        pipe_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"time single-process progressive (the pipeline): host ms per {MAIN_S}-sample "
+          f"dispatch (synchronised) {', '.join(f'{t:.3f}' for t in pipe_ms)} [{card}]",
+          flush=True)
+    want40 = pipe40.get_output().clone()
+    den40 = DenoiseCompositor(device=dev)
+    ref_rt = {k: v[0] for k, v in fs.realtime_aovs(rt_scene, rt_options, cams0, RT_W, RT_H,
+                                                    0).items()}
+    ref_rt["color"] = ref_rt["direct"] + ref_rt["indirect_specular"]
+    ref_rt["display"] = den40.dispatch(ref_rt["direct"], ref_rt["indirect_specular"])
+    torch.cuda.synchronize()
+
+    def same_images(label, got, want, atol):
+        """Bit-equal (values), or within atol + 1e-6 |want| (the spp sum
+        reassociated); prints and raises."""
+        want = want.cpu().numpy() if hasattr(want, "cpu") else want
+        got = got.cpu().numpy() if hasattr(got, "cpu") else got
+        equal = bool(np.array_equal(got, want))
+        err = 0.0 if equal else float(np.abs(got - want).max())
+        ok = equal or (atol > 0 and bool(np.all(np.abs(got - want) <= atol + 1e-6 * np.abs(want))))
+        print(f"sharded {label}: " + ("bit-equal to the single process" if equal else
+                                      f"max |d| {err:.3e} against the single process (gate "
+                                      f"{atol:g} + 1e-6 |want|)") + f" -> {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            raise RuntimeError(f"sharded {label} differs from the single-process image")
+        return {"bit_equal": equal, "max_abs_diff": err}
+
+    sharded = {}
+    par_launch.init_ranks(0, 1, f"tcp://localhost:{par_launch.free_port()}", "cuda")
+    try:
+        mesh1 = par.make_render_mesh(1, 1)
+        scene40 = par.replicate_scene(pipe40.scene_data, mesh1)
+        step40 = par.make_sharded_progressive_step(scene40, MAIN_SIZE, MAIN_SIZE, mesh1,
+                                                   samples_per_step=MAIN_S)
+        accum40 = torch.zeros((MAIN_SIZE, MAIN_SIZE, 3), dtype=torch.float32, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        step_ms = []
+        for cams in steps40:
+            cameras40 = stack_cameras([camera_params(cam40, jitter=(jx, jy), frame_count=fc,
+                                                     accum_count=ac) for jx, jy, fc, ac in cams])
+            t0 = time.perf_counter()
+            accum40 = step40(accum40, pipe40.options, cameras40, scene40["lights"],
+                             scene40["env"], MAIN_S * MAIN_FRAMES)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        expect_counts("sharded progressive 1x1 on NCCL", {"B1": MAIN_FRAMES})
+        print(f"time sharded progressive 1x1 (NCCL world of 1): host ms per {MAIN_S}-sample step "
+              f"(synchronised) {', '.join(f'{t:.3f}' for t in step_ms)} [{card}]", flush=True)
+        sharded["1x1 nccl progressive"] = dict(same_images("progressive 1x1 (NCCL)", accum40,
+                                                           want40, 0.0), step_ms=step_ms)
+        rt_step40 = par.make_sharded_realtime_step(rt_scene, RT_W, RT_H, mesh1, denoise=True)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out40 = rt_step40(rt_options, cam0, rt_scene["lights"], rt_scene["env"], den40.params)
+        torch.cuda.synchronize()
+        rt_ms = (time.perf_counter() - t0) * 1e3
+        expect_counts("sharded realtime + denoise 1x1 on NCCL", {"B1 realtime": 1, "B2": 2})
+        print(f"time sharded realtime+denoise 1x1 (NCCL world of 1): host ms per {RT_W}x{RT_H} "
+              f"frame (synchronised) {rt_ms:.3f} [{card}]", flush=True)
+        sharded["1x1 nccl realtime"] = {k: same_images(f"realtime 1x1 (NCCL) {k}", out40[k],
+                                                       ref_rt[k], 0.0) for k in ref_rt}
+    finally:
+        dist.destroy_process_group()
+
+    # two ranks sharing the card over gloo: broadcast and all-reduce of CUDA tensors
+    jit0 = cam0["jitter"]
+    spec40 = {"scene": "cornell-glossy", "width": MAIN_SIZE, "height": MAIN_SIZE,
+              "steps": steps40, "max_iterations": MAIN_S * MAIN_FRAMES, "device": "cuda"}
+    spec_rt = {"scene": "cornell-glossy", "width": RT_W, "height": RT_H, "mesh": (2, 1),
+               "camera": (float(jit0[0]), float(jit0[1]), int(cam0["frame_count"])),
+               "denoise": True, "device": "cuda", "repeat": 5}
+    # 1920x48: 24-row blocks, shorter than MAX_EXTENT, take the short-block path
+    short_h = 48
+    spec_short = dict(spec_rt, height=short_h, repeat=2)
+    sc48, cam48 = build_scene("cornell-glossy")
+    cam48.set_aspect(RT_W, short_h)
+    cams48 = {k: v[None] for k, v in camera_params(cam48, jitter=(float(jit0[0]), float(jit0[1])),
+                                                   frame_count=int(cam0["frame_count"])).items()}
+    ref_short = {k: v[0] for k, v in fs.realtime_aovs(rt_scene, rt_options, cams48, RT_W,
+                                                       short_h, 0).items()}
+    ref_short["color"] = ref_short["direct"] + ref_short["indirect_specular"]
+    ref_short["display"] = den40.dispatch(ref_short["direct"], ref_short["indirect_specular"])
+    refs40 = {"realtime+denoise 2x1": ref_rt,
+              f"realtime+denoise 2x1 {RT_W}x{short_h} short blocks": ref_short}
+    jobs40 = [("progressive 2x1", par_launch.progressive_job, dict(spec40, mesh=(2, 1))),
+              ("progressive 1x2", par_launch.progressive_job, dict(spec40, mesh=(1, 2))),
+              ("realtime+denoise 2x1", par_launch.realtime_job, spec_rt),
+              (f"realtime+denoise 2x1 {RT_W}x{short_h} short blocks", par_launch.realtime_job,
+               spec_short)]
+    t0 = time.perf_counter()
+    ranks40 = par_launch.spawn(par_launch.run_jobs, 2, ([(fn, sp) for _, fn, sp in jobs40],),
+                               device="cuda", backend="gloo", timeout=600)
+    spawn_s = time.perf_counter() - t0
+    print(f"sharded: 2 spawned ranks on one card over gloo ran {len(jobs40)} renders in "
+          f"{spawn_s:.1f}s host clock, start-up included", flush=True)
+    for j, (label, fn, spec_j) in enumerate(jobs40):
+        want_l = ({"B1 realtime": spec_j["repeat"], "B2": 2 * spec_j["repeat"]}
+                  if fn is par_launch.realtime_job else {"B1": MAIN_FRAMES})
+        for r in range(2):
+            got_l = {k: v for k, v in ranks40[r][j]["launches"].items() if v}
+            print(f"launches sharded {label} rank {r}: {got_l}; expected {want_l} -> "
+                  f"{'ok' if got_l == want_l else 'FAIL'}", flush=True)
+            if got_l != want_l:
+                raise RuntimeError(f"sharded {label} rank {r}: launches {got_l}, want {want_l}")
+        res = ranks40[0][j]
+        if fn is par_launch.progressive_job:
+            print(f"time sharded {label} (2 ranks, one card, gloo): host ms per step, rank 0 "
+                  f"{', '.join(f'{t:.3f}' for t in res['step_ms'])}; rank 1 "
+                  f"{', '.join(f'{t:.3f}' for t in ranks40[1][j]['step_ms'])} [{card}]",
+                  flush=True)
+            sharded[label] = dict(same_images(label, res["image"], want40,
+                                              0.0 if label.endswith("2x1") else 1e-5),
+                                  step_ms=res["step_ms"])
+        else:
+            print(f"time sharded {label} (2 ranks, one card, gloo): host ms per frame "
+                  f"(synchronised, {spec_j['repeat']} frames), rank 0 "
+                  f"{', '.join(f'{t:.3f}' for t in res['frame_ms'])}; rank 1 "
+                  f"{', '.join(f'{t:.3f}' for t in ranks40[1][j]['frame_ms'])} [{card}]",
+                  flush=True)
+            sharded[label] = {k: same_images(f"{label} {k}", res["outputs"][k], want_k, 0.0)
+                              for k, want_k in refs40[label].items()}
+            sharded[label]["frame_ms"] = res["frame_ms"]
+    headless(["--shard", "1x1", "--scene", "cornell-glossy", "--size",
+              f"{MAIN_SIZE}x{MAIN_SIZE}", "--spp", "16"], "--shard 1x1 cornell-glossy")
+
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 41", flush=True)
+    # ---- 41. frames in flight: K frames a dispatch --------------------------------------
+    K41 = 4
+    sc41, cam41 = build_scene("cornell-glossy")
+    cam41.set_aspect(RT_W, RT_H)
+
+    def rt_pipe(seed, scene_data=None, camera=cam41):
+        p = RealtimeRaytracingPipeline(RT_W, RT_H, seed=seed, device=dev)
+        p.set_camera(camera)
+        if scene_data is None:
+            p.set_scene(sc41)
+        else:
+            p.set_scene_data(scene_data)
+        return p
+
+    fif = {}
+    for label, key, make in (("cornell-glossy (B1)", "B1 realtime", lambda: rt_pipe(41)),
+                             (f"{BVH_MAIN_SCENE} (B5)", "B5 realtime",
+                              lambda: rt_pipe(41, scene39, cam39))):
+        batch, seq = make(), make()
+        torch.cuda.synchronize()
+        reset_counts()
+        d_k, s_k = batch.render_frames(0, K41)
+        torch.cuda.synchronize()
+        expect_counts(f"render_frames K={K41} {label}", {key: 1})
+        equal = True
+        for f in range(K41):
+            seq.update(elapsed_time=0.0, elapsed_frames=f)
+            d, s_ = seq.render()
+            equal &= torch.equal(d, d_k[f]) and torch.equal(s_, s_k[f])
+        tv.check_errors()
+        print(f"frames in flight {label}: render_frames K={K41} at {RT_W}x{RT_H} against "
+              f"{K41} sequential render() calls: {'bit-equal' if equal else 'DIFFER'}",
+              flush=True)
+        if not equal:
+            raise RuntimeError(f"render_frames on {label} differs from sequential renders")
+        fif[f"render_frames {label}"] = {"launches": 1, "bit_equal": equal}
+
+    pipe41 = rt_pipe(42)
+    scene41, params41 = pipe41.scene_data, den40.params
+    lights41, env41 = scene41["lights"], scene41["env"]
+    step41 = make_realtime_denoise_frames_step(scene41, RT_W, RT_H, K41)
+    cams41 = pipe41.frame_cameras(0, K41)
+    torch.cuda.synchronize()
+    reset_counts()
+    aovs41, imgs41 = step41(pipe41.options, cams41, lights41, env41, params41)
+    torch.cuda.synchronize()
+    expect_counts(f"make_realtime_denoise_frames_step K={K41}", {"B1 realtime": 1, "B2": 2 * K41})
+    equal = all(torch.equal(imgs41[f], denoise_composite(aovs41["direct"][f],
+                                                         aovs41["indirect_specular"][f],
+                                                         params41)) for f in range(K41))
+    temporal_a = DenoiseCompositor(temporal_alpha=0.2, device=dev)
+    temporal_b = DenoiseCompositor(temporal_alpha=0.2, device=dev)
+    outs41 = temporal_a.dispatch_frames(aovs41["direct"], aovs41["indirect_specular"])
+    t_equal = all(torch.equal(outs41[f], temporal_b.dispatch(aovs41["direct"][f],
+                                                             aovs41["indirect_specular"][f]))
+                  for f in range(K41))
+    t_equal &= torch.equal(temporal_a._history, temporal_b._history)
+    print(f"frames in flight: the K={K41} denoise step against the sequential denoiser: "
+          f"{'bit-equal' if equal else 'DIFFER'}; dispatch_frames temporal alpha 0.2 against "
+          f"{K41} dispatch() calls: {'bit-equal' if t_equal else 'DIFFER'}", flush=True)
+    if not (equal and t_equal):
+        raise RuntimeError("the frames-in-flight denoiser differs from sequential dispatches")
+    fif["denoise step bit_equal"], fif["temporal bit_equal"] = equal, t_equal
+
+    # host ms per frame at K = 1, 2, 4, 8 beside the kernels' ms per frame,
+    # and the pipeline's one-frame path (update + render + dispatch) before
+    # and after them, on the same host clock
+    b2_pass_ms = time_ms(lambda: bl.bilateral_pass(aovs41["indirect_specular"][0],
+                                                   aovs41["direct"][0], radius39, 1), 20, torch)
+    n41 = 48  # frames per setting
+
+    def pipeline_frames(when):
+        """update + render + dispatch, n41 frames: the synchronised ms a
+        frame and each part's host enqueue ms a frame."""
+        pp, den = rt_pipe(44), DenoiseCompositor(device=dev)
+        pp.update(elapsed_time=0.0, elapsed_frames=0)
+        den.dispatch(*pp.render())  # warm-up
+        torch.cuda.synchronize()
+        parts = [0.0, 0.0, 0.0]
+        t0 = time.perf_counter()
+        for f in range(1, n41 + 1):
+            ta = time.perf_counter()
+            pp.update(elapsed_time=0.0, elapsed_frames=f)
+            tb = time.perf_counter()
+            d, s_ = pp.render()
+            tc = time.perf_counter()
+            den.dispatch(d, s_)
+            td = time.perf_counter()
+            parts = [parts[0] + tb - ta, parts[1] + tc - tb, parts[2] + td - tc]
+        torch.cuda.synchronize()
+        frame = (time.perf_counter() - t0) / n41 * 1e3
+        parts = [p_ / n41 * 1e3 for p_ in parts]
+        print(f"time frames in flight, the pipeline's one-frame path ({when} the K sweep): "
+              f"{frame:.3f} ms per {RT_W}x{RT_H} frame (update + render + dispatch, host clock, "
+              f"synchronised, {n41} frames), host enqueue update {parts[0]:.3f} + render "
+              f"{parts[1]:.3f} + dispatch {parts[2]:.3f} = {sum(parts):.3f} ms per frame "
+              f"[{card}]", flush=True)
+        return {"host_ms_per_frame": frame, "enqueue_update_render_dispatch_ms": parts}
+
+    fif["pipeline one frame before"] = pipeline_frames("before")
+    fif["per_k"] = {}
+    for k in (1, 2, 4, 8):
+        stepk = make_realtime_denoise_frames_step(scene41, RT_W, RT_H, k)
+        pk = rt_pipe(43)
+        stepk(pk.options, pk.frame_cameras(0, k), lights41, env41, params41)  # warm-up
+        torch.cuda.synchronize()
+        enq_cams = enq_step = 0.0
+        t0 = time.perf_counter()
+        for i in range(n41 // k):
+            ta = time.perf_counter()
+            cams_k = pk.frame_cameras(k * (i + 1), k)
+            tb = time.perf_counter()
+            stepk(pk.options, cams_k, lights41, env41, params41)
+            tc = time.perf_counter()
+            enq_cams, enq_step = enq_cams + tb - ta, enq_step + tc - tb
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) / n41 * 1e3
+        enqueue = enq_cams + enq_step
+        # the step's two calls apart: realtime_frames, denoise_composite_frames
+        scene_k = dict(scene41, lights=lights41, env=env41)
+        enq_render = enq_denoise = 0.0
+        for i in range(n41 // k):
+            cams_k = pk.frame_cameras(k * (i + 1), k)
+            ta = time.perf_counter()
+            out_k = realtime_frames(scene_k, pk.options, cams_k, RT_W, RT_H)
+            tb = time.perf_counter()
+            denoise_composite_frames(out_k["direct"], out_k["indirect_specular"], params41)
+            tc = time.perf_counter()
+            enq_render, enq_denoise = enq_render + tb - ta, enq_denoise + tc - tb
+        torch.cuda.synchronize()
+        del out_k
+        b1k_ms = kernel_ms(fs.prepare_launch(scene41, pk.options, pk.frame_cameras(0, k), RT_W,
+                                             RT_H, 0, True, 0, 0)[:2], 10, torch)
+        kern_frame = b1k_ms / k + 2 * b2_pass_ms
+        n_prof = 8  # frames under the profiler
+        busy, top = device_busy(lambda: [
+            stepk(pk.options, pk.frame_cameras(k * (i + 1), k), lights41, env41, params41)
+            for i in range(n_prof // k)], torch)
+        busy_frame = busy / n_prof
+        split = [x / n41 * 1e3 for x in (enq_cams, enq_render, enq_denoise)]
+        fif["per_k"][k] = {"host_ms_per_frame": host_ms, "enqueue_ms_per_frame":
+                           enqueue / n41 * 1e3,
+                           "enqueue_cameras_render_denoise_ms": split,
+                           "b1_launch_ms": b1k_ms, "kernel_ms_per_frame": kern_frame,
+                           "device_busy_ms_per_frame": busy_frame,
+                           "device_idle_share": max(0.0, 1.0 - busy_frame / host_ms)}
+        print(f"profile frames in flight K={k}: the card busy {busy_frame:.3f} ms per frame "
+              f"(torch.profiler, {n_prof} frames; idle share of the synchronised frame "
+              f"{max(0.0, 1.0 - busy_frame / host_ms):.1%}); largest: "
+              + "; ".join(f"{name[:48]} {ms / n_prof:.3f} ms x {calls}" for name, ms, calls in top)
+              + f" [{card}]", flush=True)
+        print(f"time frames in flight K={k}: {host_ms:.3f} ms per {RT_W}x{RT_H} frame "
+              f"(render + denoise, host clock, synchronised, {n41} frames), host enqueue "
+              f"{enqueue / n41 * 1e3:.3f} ms per frame (frame_cameras {split[0]:.3f}; the step "
+              f"{enq_step / n41 * 1e3:.3f}, in a second pass of its two calls realtime_frames "
+              f"{split[1]:.3f} + denoise_composite_frames {split[2]:.3f}); kernels "
+              f"{kern_frame:.3f} ms per frame (the {k}-frame B1 launch {b1k_ms:.3f} ms / {k} + "
+              f"2 x B2 {b2_pass_ms:.4f} ms) [{card}]", flush=True)
+    fif["pipeline one frame after"] = pipeline_frames("after")
+    tv.check_errors()
+    del aovs41, imgs41, outs41, scene39
+
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
     # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b, B4a, B2, B4d, B4c: ptxas, records, times
     # B1 reads each triangle as a record of five float4s (the scene's
@@ -4839,6 +5332,8 @@ def main() -> int:
             "launch_ms": {k: v[0] for k, v in redesign.items() if k.startswith("B1")},
             "ptxas": ptx["B1"],
             "records_bytes": rec_bytes,
+            "row_blocks": row_report["B1 progressive config 1"],
+            "sharded": sharded,
         },
         {
             "name": "fused_realtime_outputs",
@@ -4852,6 +5347,8 @@ def main() -> int:
             "bound_ms": b1_rt_bound[0],
             "bound_by": b1_rt_bound[1],
             "library_ms": None,
+            "row_blocks": row_report["B1 realtime config 4"],
+            "frames_in_flight": fif,
         },
         {
             "name": "bilateral_pass",
@@ -4867,6 +5364,7 @@ def main() -> int:
             "library_ms": None,
             "ms_per_axis": {"horizontal": bl_ms[1], "vertical": bl_ms[0]},
             "ptxas": ptx["B2"],
+            "halo_row_blocks": halo_report,
         },
     ]
     plain_shape = f"{BVH_PARITY_SCENE} {P}^2"
@@ -4886,13 +5384,15 @@ def main() -> int:
          {"max_abs_diff_vs_wavefront": b5_gate["max_abs_diff"], "ptxas": ptx["B5"],
           "leaf_array_bytes": leaf_bytes,
           "launch_ms": {k: v[0] for k, v in redesign.items() if k.startswith("B5")},
-          "unchanged_kernels_ptxas": {k: ptx[k] for k in ("B4c",)}}),
+          "unchanged_kernels_ptxas": {k: ptx[k] for k in ("B4c",)},
+          "row_blocks": row_report[f"B5 progressive {BVH_MAIN_SCENE}"]}),
         ("fused_traverse_realtime", "fused_traverse.cu", "ops/fused_traverse_pallas.py:131",
          b5_rt_launches, max(b5_rt_err, b5_rt_plain_err), b5_rt_cams_ms, b5_rt_wrap_ms, "b5_rt",
          b5_rt_bound, f"{BVH_MAIN_SCENE} {RT_W}x{RT_H}, per frame, ten frames' cameras in turn",
          {"max_abs_diff_vs_wavefront": b5_rt_wave_err, "ms_one_camera_repeated": b5_rt_ms,
           "frame_ms": bvh_frame_ms, "frame_ms_flag_read_per_launch": bvh_frame_read_ms,
-          "frame_ms_without_denoiser": render_only_ms}),
+          "frame_ms_without_denoiser": render_only_ms,
+          "row_blocks": row_report[f"B5 realtime {BVH_MAIN_SCENE}"]}),
     ):
         kernels.append({
             "name": name,

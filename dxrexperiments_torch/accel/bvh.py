@@ -13,6 +13,8 @@ Two builders emit one explicit node-array format that
 ``build_nodes`` picks the SAH build and falls back to the Morton build when
 no C++ compiler is there, as the JAX package's ``Scene.build`` does.
 ``collapse_wide`` turns the binary tree into the 8-wide tree of kernel B4d.
+``traverse_numpy`` and ``traverse_nodes_numpy`` (with ``ray_aabb``) walk
+either format one ray at a time on the host: the tests' oracles.
 The numpy code is copied line for line, so every build equals the JAX
 package's. The device-side Morton build (``build_bvh_device``) is not
 ported (ROADMAP Queue A item 11).
@@ -288,3 +290,76 @@ def collapse_wide(
         "w_child": w_child,
         "w_count": w_count,
     }
+
+
+# --------------------------------------------------------------------------- #
+# Host traversal (numpy): the correctness oracles of the JAX package's tests
+# --------------------------------------------------------------------------- #
+def ray_aabb(o, inv_d, lo, hi, t_min, t_max) -> bool:
+    """Slab test of one ray against one box: whether [t_min, t_max] meets it."""
+    t0 = (lo - o) * inv_d
+    t1 = (hi - o) * inv_d
+    tn = np.minimum(t0, t1).max()
+    tf = np.maximum(t0, t1).min()
+    return max(tn, t_min) <= min(tf, t_max)
+
+
+def traverse_numpy(bvh: dict, tri_test, o, d, t_min, t_max) -> tuple:
+    """Scalar host walk of the implicit heap BVH of ``build_bvh``: returns
+    (t, tri_index) or (inf, -1). tri_test(global_tri_idx, o, d) -> t or None."""
+    inv_d = 1.0 / np.where(np.abs(d) > 1e-12, d, 1e-12)
+    levels = bvh["levels"]
+    leaf_size = bvh["leaf_size"]
+    first_leaf = (1 << levels) - 1
+    best = (np.inf, -1)
+    stack = [0]
+    while stack:
+        node = stack.pop()
+        if not ray_aabb(
+            o, inv_d, bvh["nodes_lo"][node], bvh["nodes_hi"][node], t_min, min(t_max, best[0])
+        ):
+            continue
+        if node >= first_leaf:
+            leaf = node - first_leaf
+            for s in range(leaf * leaf_size, (leaf + 1) * leaf_size):
+                tri = bvh["order"][s]
+                if tri < 0:
+                    continue
+                t = tri_test(int(tri), o, d)
+                if t is not None and t_min < t < min(t_max, best[0]):
+                    best = (t, int(tri))
+        else:
+            stack.append(2 * node + 1)
+            stack.append(2 * node + 2)
+    return best
+
+
+def traverse_nodes_numpy(nodes: dict, tri_test, o, d, t_min, t_max) -> tuple:
+    """Scalar host walk of explicit node arrays (``to_node_arrays``,
+    ``build_bvh_sah``): returns (t, tri_index) or (inf, -1)."""
+    inv_d = 1.0 / np.where(np.abs(d) > 1e-12, d, 1e-12)
+    best = (np.inf, -1)
+    if len(nodes["child"]) == 0:
+        return best
+    stack = [0]
+    while stack:
+        node = stack.pop()
+        if not ray_aabb(
+            o, inv_d, nodes["nodes_lo"][node], nodes["nodes_hi"][node], t_min,
+            min(t_max, best[0]),
+        ):
+            continue
+        left, right = nodes["child"][node]
+        if left < 0:  # leaf
+            start, count = -left - 1, right
+            for s in range(start, start + count):
+                tri = nodes["order"][s]
+                if tri < 0:
+                    continue
+                t = tri_test(int(tri), o, d)
+                if t is not None and t_min < t < min(t_max, best[0]):
+                    best = (t, int(tri))
+        else:
+            stack.append(int(left))
+            stack.append(int(right))
+    return best

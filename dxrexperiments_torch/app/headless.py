@@ -35,6 +35,17 @@ tex_autoroute), and the megakernels look the texture up at every miss.
 TLAS over its instances; --animate-instances turns the instances each frame
 by a TLAS refit (progressive pipeline). --device defaults to cuda and fails
 without a card; pass --device cpu for the plain PyTorch path.
+
+--frames-in-flight K (realtime) renders K frames in one dispatch: one B1 or
+B5 launch for the K frames, then their K denoiser chains; the image written
+is the last frame's. --shard TILExSPP renders over a (tile, spp) grid of
+ranks (``parallel/render.py``): image rows over TILE ranks and each step's
+samples over SPP, one process per card, under torchrun with WORLD_SIZE =
+TILE x SPP; 1x1 runs the sharded code in one process:
+    torchrun --nproc-per-node 4 -m dxrexperiments_torch.app.headless \
+        --shard 4x1 --pipeline realtime --denoise --size 1920x1080 -o out.png
+    python -m dxrexperiments_torch.app.headless --shard 1x1 --device cpu \
+        --size 32x32 --spp 2 -o out.png
 """
 
 from __future__ import annotations
@@ -201,9 +212,18 @@ def main(argv=None) -> int:
     ap.add_argument("--pipeline", choices=["progressive", "realtime"], default="progressive")
     ap.add_argument("--denoise", action="store_true", help="realtime: run DenoiseCompositor")
     ap.add_argument("--temporal", type=float, default=None, metavar="ALPHA",
-                    help="realtime: temporal accumulation blend factor (e.g. 0.2); the "
-                         "single frame this CLI renders has no history, so the image is "
-                         "the spatial-only one until --frames-in-flight exists")
+                    help="realtime: temporal accumulation blend factor (e.g. 0.2); a "
+                         "single frame has no history, so it blends the frames of "
+                         "--frames-in-flight")
+    ap.add_argument("--frames-in-flight", type=int, default=1, metavar="K",
+                    help="realtime: render K frames (ray tracing + denoise) in one "
+                         "dispatch, at K frames of input latency; writes the last frame")
+    ap.add_argument("--shard", default=None, metavar="TILExSPP",
+                    help="multi-GPU: image rows over TILE ranks x each step's samples "
+                         "over SPP, one process per card under torchrun (WORLD_SIZE = "
+                         "TILE x SPP), or 1x1 in one process; 'auto' puts every rank on "
+                         "the tile axis. Progressive steps take SPP samples; realtime "
+                         "shards the rows through the denoiser (SPP 1)")
     ap.add_argument("--ao-only", action="store_true",
                     help="progressive: the ambient-occlusion view (4 AO rays per sample)")
     ap.add_argument("--refraction", action="store_true",
@@ -228,6 +248,18 @@ def main(argv=None) -> int:
     if (args.save_state or args.resume) and args.pipeline != "progressive":
         ap.error("--save-state/--resume checkpoint the progressive accumulation state; "
                  "use --pipeline progressive")
+    if (args.save_state or args.resume) and args.shard:
+        ap.error("--save-state/--resume is the single-process path; it does not combine "
+                 "with --shard")
+    if args.frames_in_flight < 1:
+        ap.error(f"--frames-in-flight must be >= 1 (got {args.frames_in_flight})")
+    if args.frames_in_flight > 1 and args.pipeline != "realtime":
+        ap.error("--frames-in-flight is the realtime frames-in-flight batch; it has no "
+                 "effect on --pipeline progressive")
+    if args.shard and (args.frames_in_flight > 1 or args.refraction or args.aov
+                       or args.animate_instances or args.temporal is not None):
+        ap.error("--shard renders without --frames-in-flight, --refraction, --aov, "
+                 "--animate-instances and --temporal")
     if (args.ao_only or args.refraction) and args.pipeline != "progressive":
         ap.error("--ao-only and --refraction drive the progressive pipeline")
     if args.animate_instances:
@@ -242,6 +274,8 @@ def main(argv=None) -> int:
     if args.env:
         scene.environment = parse_env(args.env)
     camera.set_aspect(width, height)
+    if args.shard:
+        return _main_sharded(args, width, height)
     if args.pipeline == "realtime":
         img = _render_realtime(args, scene, camera, width, height)
     else:
@@ -253,23 +287,93 @@ def main(argv=None) -> int:
 
 
 def _render_realtime(args, scene, camera, width, height) -> np.ndarray:
-    """One realtime frame, denoised with --denoise; returns the image."""
+    """One realtime frame, or with --frames-in-flight K the last of K frames
+    rendered in one dispatch, denoised with --denoise; returns the image."""
     pipe = RealtimeRaytracingPipeline(width, height, seed=args.seed, device=args.device)
     pipe.set_camera(camera)
     pipe.set_scene(scene)
     denoiser = (DenoiseCompositor(temporal_alpha=args.temporal, device=args.device)
                 if args.denoise else None)
+    k = args.frames_in_flight
     t0 = time.perf_counter()
-    pipe.update(elapsed_time=0.0, elapsed_frames=0)
-    direct, indirect = pipe.render()
-    final = denoiser.dispatch(direct, indirect) if denoiser else direct + indirect
+    if k > 1:
+        direct, indirect = pipe.render_frames(0, k)
+        final = denoiser.dispatch_frames(direct, indirect)[-1] if denoiser else (
+            direct[-1] + indirect[-1])
+    else:
+        pipe.update(elapsed_time=0.0, elapsed_frames=0)
+        direct, indirect = pipe.render()
+        final = denoiser.dispatch(direct, indirect) if denoiser else direct + indirect
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
         check_errors()
     dt = time.perf_counter() - t0
     suffix = "+denoise" if args.denoise else ""
+    if k > 1:
+        suffix += f" ({k} frames a dispatch, {dt / k * 1e3:.1f} ms a frame)"
     print(f"realtime{suffix} ({pipe.device.type}): {width}x{height} in {dt:.2f}s")
     return final.detach().cpu().numpy()
+
+
+def _main_sharded(args, width, height) -> int:
+    """--shard: the sharded renders of ``parallel/launch.py`` on this rank
+    (torchrun's RANK and WORLD_SIZE; one rank without them). Rank 0 writes
+    the image."""
+    import os
+
+    import torch.distributed as dist
+
+    from ..parallel import launch
+
+    rank, world = int(os.environ.get("RANK", "0")), int(os.environ.get("WORLD_SIZE", "1"))
+    if args.shard == "auto":
+        n_tile, n_spp = world, 1
+    else:
+        try:
+            n_tile, n_spp = (int(x) for x in args.shard.lower().split("x"))
+        except ValueError:
+            print(f"invalid --shard {args.shard!r} (want TILExSPP or auto)")
+            return 2
+    if n_tile * n_spp != world:
+        print(f"--shard {n_tile}x{n_spp} needs {n_tile * n_spp} ranks (torchrun "
+              f"--nproc-per-node {n_tile * n_spp}), have {world}")
+        return 2
+    if world > 1:
+        launch.init_ranks(rank, world, "env://", args.device)
+    spec = {"scene": args.scene, "width": width, "height": height, "mesh": (n_tile, n_spp),
+            "device": args.device, "env": args.env, "accel": args.accel,
+            "ao_only": args.ao_only}
+    rng = np.random.default_rng(args.seed)
+    try:
+        t0 = time.perf_counter()
+        if args.pipeline == "progressive":
+            steps = -(-args.spp // n_spp)
+            res = launch.progressive_job(dict(
+                spec, steps=launch.camera_steps(rng, width, height, steps, n_spp),
+                max_iterations=args.spp))
+            img = res["image"]
+            if rank == 0 and args.tonemap:
+                img = linear_to_srgb(reinhard_tonemap(torch.from_numpy(img)), 2.2).numpy()
+            what = f"progressive sharded {n_tile}x{n_spp}: {steps * n_spp} spp"
+        else:
+            jitter = ((rng.random() - 0.5) / width, (rng.random() - 0.5) / height)
+            res = launch.realtime_job(dict(spec, camera=(*jitter, 0), denoise=args.denoise))
+            out = res["outputs"]
+            img = None if rank != 0 else (out["display"] if args.denoise else
+                                          out["direct"] + out["indirect_specular"])
+            what = f"realtime sharded {n_tile}x{n_spp}{'+denoise' if args.denoise else ''}"
+        dt = time.perf_counter() - t0
+        if args.device != "cpu":
+            check_errors()
+    finally:
+        if world > 1:
+            dist.destroy_process_group()
+    if rank == 0:
+        print(f"{what} at {width}x{height} in {dt:.2f}s")
+        img = np.clip(img, 0.0, 1.0)
+        write_png(args.output, img)
+        print(f"wrote {args.output} (mean {img.mean():.4f}, max {img.max():.4f})")
+    return 0
 
 
 def _render_progressive(args, scene, camera, width, height) -> np.ndarray:

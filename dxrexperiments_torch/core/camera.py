@@ -137,13 +137,20 @@ def stack_cameras(cams: list[dict]) -> dict:
     return {k: torch.stack([c[k] for c in cams]) for k in cams[0]}
 
 
-def primary_ray_grid(params: dict, width: int, height: int, jitter_scale: float = 30.0):
+def primary_ray_grid(params: dict, width: int, height: int, jitter_scale: float = 30.0,
+                     row0=None, full_height: int = 0):
     """[H, W] grid of primary rays: NDC from pixel centers, direction
     ``normalize(d.x*U - d.y*V + W)``, origin = eye + jitter*scale in XY.
-    Returns (origins [H,W,3], directions [H,W,3]) on the camera's device."""
+    Returns (origins [H,W,3], directions [H,W,3]) on the camera's device.
+
+    row0/full_height: the rays of rows [row0, row0 + height) of a
+    full_height-tall image (a row block of a sharded render)."""
     dev = params["u"].device
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0
-    ys = (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0 - 1.0
+    ys_pix = torch.arange(height, dtype=torch.float32, device=dev)
+    if row0 is not None:
+        ys_pix = ys_pix + float(row0)
+    ys = (ys_pix + 0.5) / (full_height or height) * 2.0 - 1.0
     dy, dx = torch.meshgrid(ys, xs, indexing="ij")  # [H, W] each (rows = y)
     u, v, w = params["u"], params["v"], params["w"]
     d = dx[..., None] * u + (-dy)[..., None] * v + w

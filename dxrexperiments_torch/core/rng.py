@@ -59,13 +59,18 @@ def next_rand2(seed: torch.Tensor):
     return seed, r0, r1
 
 
-def pixel_seeds(width: int, height: int, frame_count, device=None) -> torch.Tensor:
-    """Per-pixel seeds [H, W]: ``initRand(px + py * width, frameCount)``."""
+def pixel_seeds(width: int, height: int, frame_count, device=None, row0=None) -> torch.Tensor:
+    """Per-pixel seeds [H, W]: ``initRand(px + py * width, frameCount)``.
+
+    row0: seeds for rows [row0, row0 + height) of a taller image; pixel ids
+    stay global, so a row block's seeds are those rows of the full image's."""
     py, px = torch.meshgrid(
         torch.arange(height, dtype=torch.int64, device=device),
         torch.arange(width, dtype=torch.int64, device=device),
         indexing="ij",
     )
+    if row0 is not None:
+        py = py + int(row0)
     linear = (px + py * width) & MASK
     fc = torch.as_tensor(frame_count, dtype=torch.int64).to(linear.device)
     return init_rand(linear, fc)

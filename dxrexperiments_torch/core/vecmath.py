@@ -77,3 +77,18 @@ def orthonormal_basis(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     bitangent = get_perpendicular(n)
     tangent = cross(bitangent, n)
     return tangent, bitangent
+
+
+def transform_points(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """Apply a [3, 4] or [4, 4] affine matrix to points [..., 3]."""
+    return p @ m[:3, :3].T + m[:3, 3]
+
+
+def transform_vectors(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply the linear part of a [3, 4] / [4, 4] matrix to direction vectors."""
+    return v @ m[:3, :3].T
+
+
+def transform_normals(m: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Transform normals by the inverse-transpose of the linear part."""
+    return n @ torch.linalg.inv(m[:3, :3])  # (inv.T).T = inv

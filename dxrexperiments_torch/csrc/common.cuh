@@ -649,12 +649,15 @@ __device__ V3 hemisphere_dir(V3 n, float r0, float r1, bool cosine) {
 __device__ __forceinline__ float sanitize(float x) { return isnan(x) ? 0.0f : fmaxf(x, 0.0f); }
 
 // Raygen (primary_ray_grid): origin (jitter folded in) and unit direction
-// of pixel (px, py) from camera pack row cm.
+// of pixel (px, py) from camera pack row cm. A row-block launch renders
+// rows [py0, py0 + height) of a taller image: lane 12 holds py0, lane 13
+// the full height (0: the launch's own height), so NDC is the full image's.
 __device__ __forceinline__ void primary_ray(const float* cm, int px, int py, int width,
                                             int height, V3* o, V3* d) {
   float ndcx = ((float)px + 0.5f) / (float)width * 2.0f - 1.0f;
   float pyf = (float)py + cm[12];
-  float ndcy = (pyf + 0.5f) / (float)height * 2.0f - 1.0f;
+  float full_h = cm[13] > 0.0f ? cm[13] : (float)height;
+  float ndcy = (pyf + 0.5f) / full_h * 2.0f - 1.0f;
   V3 dun = v3(ndcx * cm[3] + (-ndcy) * cm[6] + cm[9], ndcx * cm[4] + (-ndcy) * cm[7] + cm[10],
               ndcx * cm[5] + (-ndcy) * cm[8] + cm[11]);
   float norm = sqrtf(dot3(dun, dun));
@@ -662,9 +665,12 @@ __device__ __forceinline__ void primary_ray(const float* cm, int px, int py, int
   *o = load3(cm);
 }
 
-// The TEA seed of the raster pixel index (rng.pixel_seeds).
-__device__ __forceinline__ uint32_t pixel_seed(int px, int py, int width, uint32_t frame) {
-  return tea_init((uint32_t)(py * width + px), frame);
+// The TEA seed of the raster pixel index (rng.pixel_seeds) of pixel (px, py)
+// of the launch: the global row py + py0 (camera lane 12), so a row-block
+// launch draws the full image's seeds.
+__device__ __forceinline__ uint32_t pixel_seed(const float* cm, int px, int py, int width,
+                                               uint32_t frame) {
+  return tea_init((uint32_t)((py + (int)cm[12]) * width + px), frame);
 }
 
 // 5 LCG draws u1..u5 from a pixel's TEA seed.
@@ -729,7 +735,7 @@ __device__ void sample_pixel(const Tr& T, const float* cm, uint32_t frame, const
   }
 
   float u[5];
-  const uint32_t seed = pixel_seed(px, py, width, frame);
+  const uint32_t seed = pixel_seed(cm, px, py, width, frame);
   draws(seed, u);
   const bool is_mc = cst[F_IS_MC] > 0.5f;
   const bool no_ind = cst[F_NO_IND] > 0.5f;
@@ -804,7 +810,7 @@ __device__ void realtime_pixel(const Tr& T, const float* cm, uint32_t frame, con
   }
 
   float u[5];
-  const uint32_t seed = pixel_seed(px, py, width, frame);
+  const uint32_t seed = pixel_seed(cm, px, py, width, frame);
   draws(seed, u);
   const bool is_mc = cst[F_IS_MC] > 0.5f;
   const int r = h.row;

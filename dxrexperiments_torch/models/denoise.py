@@ -84,16 +84,66 @@ def denoise_composite(
     tensors and the plain version on CPU tensors; 'torch' is the plain
     version on any device. debug_visualize == 2 shows the raw input, so
     both passes are skipped (the JAX package computes and discards them)."""
+    return composite_tail(direct_lighting,
+                          _filtered(direct_lighting, indirect_specular, params, impl), params)
+
+
+def _filtered(direct_lighting, indirect_specular, params: dict, impl: str) -> torch.Tensor:
+    """The two bilateral passes of one frame (B2 launches on CUDA tensors
+    with impl 'auto'), or the raw input under debug_visualize 2."""
     if impl not in ("auto", "torch"):
         raise ValueError(f"unknown impl {impl!r} (auto or torch)")
+    if int(params["debug_visualize"]) == 2:
+        return indirect_specular
     run_pass = bilateral.bilateral_pass if impl == "auto" else _bilateral_pass
     radius = float(params["max_kernel_size"])
-    if int(params["debug_visualize"]) == 2:
-        pass1 = indirect_specular
-    else:
-        pass0 = run_pass(indirect_specular, direct_lighting, radius, 1)
-        pass1 = run_pass(pass0, direct_lighting, radius, 0)
+    pass0 = run_pass(indirect_specular, direct_lighting, radius, 1)
+    return run_pass(pass0, direct_lighting, radius, 0)
+
+
+def denoise_composite_frames(
+    direct_lighting: torch.Tensor,
+    indirect_specular: torch.Tensor,
+    params: dict,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """K frames' denoise + composite (the frames-in-flight batch,
+    models/realtime.py): inputs [K, H, W, 3]; the K filter chains (2K
+    launches of B2 on CUDA tensors) are queued back to back with no host
+    sync between them, then the composite tail runs once on the K frames
+    (elementwise: each frame equals ``denoise_composite``'s bit for bit).
+    Returns [K, H, W, 3]."""
+    pass1 = stack_frames([_filtered(d, s, params, impl)
+                          for d, s in zip(direct_lighting, indirect_specular)])
     return composite_tail(direct_lighting, pass1, params)
+
+
+def stack_frames(frames: list) -> torch.Tensor:
+    """Frames stacked on a new leading [K] axis; one frame is a view of
+    itself, not a copy, so a batch of one costs what the frame costs."""
+    return frames[0][None] if len(frames) == 1 else torch.stack(frames)
+
+
+def denoise_composite_frames_temporal(
+    direct_lighting: torch.Tensor,
+    indirect_specular: torch.Tensor,
+    params: dict,
+    history: torch.Tensor | None,
+    history_valid: bool,
+    alpha: float,
+    impl: str = "auto",
+):
+    """The temporal frames batch: the K composites (``denoise_composite_
+    frames``), then the history carried through them in order, each frame
+    blended into it as ``DenoiseCompositor.dispatch`` blends one;
+    history_valid False seeds it with the first frame's composite. Returns
+    (final history, the blended frames [K, H, W, 3])."""
+    outs = []
+    for out in denoise_composite_frames(direct_lighting, indirect_specular, params, impl):
+        history = temporal_blend(history, out, alpha) if history_valid else out
+        history_valid = True
+        outs.append(history)
+    return history, stack_frames(outs)
 
 
 def composite_tail(
@@ -164,3 +214,17 @@ class DenoiseCompositor:
                 self._history = temporal_blend(self._history, out, self.temporal_alpha)
             return self._history
         return out
+
+    def dispatch_frames(self, direct_lighting, indirect_specular) -> torch.Tensor:
+        """Dispatch over a leading [K] frame axis (the frames-in-flight batch,
+        models/realtime.py): the K filter chains queued back to back, the
+        temporal history carried through them when temporal_alpha is set.
+        Returns [K, H, W, 3]; the history advances exactly as K sequential
+        dispatch() calls would."""
+        if self.temporal_alpha is None:
+            return denoise_composite_frames(direct_lighting, indirect_specular, self.params)
+        valid = self._history is not None and self._history.shape == direct_lighting.shape[1:]
+        self._history, outs = denoise_composite_frames_temporal(
+            direct_lighting, indirect_specular, self.params, self._history if valid else None,
+            valid, self.temporal_alpha)
+        return outs

@@ -30,6 +30,11 @@ the keyword arguments ``cluster_rows`` and ``block_w``, which override it:
   (``block_order``). JAX's block is a TPU tile of tile_r / W rows; the
   port's is the CUDA block. The image is the same.
 
+Row-block launches (``py0``, ``full_height``, as JAX's): a launch of
+height h renders rows [py0, py0 + h) of a full_height-tall image, with the
+full image's NDC and TEA pixel seeds, so the row blocks of a sharded render
+(``parallel/render.py``) put together are the full launch's image.
+
 ``FUSED_TILE``, the JAX kernel's TPU tile of pixels, is not carried: a CUDA
 block is 256 threads, one pixel each. The plain versions take no knob:
 neither changes the image.
@@ -42,8 +47,9 @@ that the kernel reads a triangle as five 16-byte loads. Its sweeps stop
 after the scene's ``num_tris`` rows: the rest are padding, which never hits.
 
 Packs: ``pack_cameras`` gives [S, 16] (origin with the jitter folded in at
-the mode's scale, 30 progressive or 10 realtime, then U, V, W, and lane 12
-the row offset, 0 here); ``pack_consts`` gives [2, 16] (lights, env colours
+the mode's scale, 30 progressive or 10 realtime, then U, V, W, lane 12 the
+row offset py0 and lane 13 the full image's height, 0 for the launch's
+own); ``pack_consts`` gives [2, 16] (lights, env colours
 and strength in row 0; the runtime option flags and env colour 1 in row 1),
 the same layout as the TPU kernel's.
 """
@@ -159,17 +165,33 @@ def block_order(width: int, height: int, block_w: int) -> int:
     return block_w if height % (THREADS // block_w) == 0 else 0
 
 
-def pack_cameras(cameras: dict, realtime: bool = False) -> torch.Tensor:
+def pack_cameras(cameras: dict, realtime: bool = False, py0=None,
+                 full_height: int = 0) -> torch.Tensor:
     """Camera pack [S, 16]: origin (0:3) with the jitter folded in at the
-    mode's scale, U (3:6), V (6:9), W (9:12), row offset (12, always 0
-    here), zeros."""
+    mode's scale, U (3:6), V (6:9), W (9:12), the row offset py0 (12; 0
+    when None), the full image's height (13; 0 = the launch's own), zeros.
+    Both are exact in float32 for any image height."""
     eye = cameras["eye"]
     s_count = int(eye.shape[0])
     scale = REALTIME_JITTER_SCALE if realtime else JITTER_SCALE
     zeros = torch.zeros((s_count, 1), dtype=torch.float32, device=eye.device)
     origin = eye + torch.cat([cameras["jitter"] * scale, zeros], dim=1)
     tail = torch.zeros((s_count, 4), dtype=torch.float32, device=eye.device)
+    if py0 or full_height:  # a row block; a whole launch packs no more work
+        tail[:, 0] = float(py0 or 0)
+        tail[:, 1] = float(full_height)
     return torch.cat([origin, cameras["u"], cameras["v"], cameras["w"], tail], dim=1)
+
+
+def check_rows(height: int, py0, full_height: int) -> None:
+    """A row block [py0, py0 + height) must lie inside a full_height-tall
+    image (full_height 0: the launch's own height, py0 0)."""
+    if py0 is None and not full_height:
+        return
+    py0 = int(py0 or 0)
+    if py0 < 0 or (full_height and py0 + height > full_height) or (not full_height and py0):
+        raise ValueError(f"row block [{py0}, {py0 + height}) outside an image of "
+                         f"{full_height or height} rows")
 
 
 def pack_consts(scene: dict, options: dict, env_kind: int) -> torch.Tensor:
@@ -214,19 +236,22 @@ def pack_consts(scene: dict, options: dict, env_kind: int) -> torch.Tensor:
 
 
 def fused_progressive_sum_reference(
-    scene: dict, options: dict, cameras: dict, width: int, height: int, env_kind: int
+    scene: dict, options: dict, cameras: dict, width: int, height: int, env_kind: int,
+    py0=None, full_height: int = 0,
 ) -> torch.Tensor:
     """Plain version: sum of S samples of the wavefront integrator, summed in
     sample order as the kernel does. Returns [H, W, 3] float32."""
     return progressive_sample_sum(scene, options, cameras, width, height, env_kind,
-                                  JITTER_SCALE, impl="torch")
+                                  JITTER_SCALE, impl="torch", row0=py0,
+                                  full_height=full_height)
 
 
 AOV_KEYS = ("direct", "indirect_specular", "albedo", "roughness")
 
 
 def fused_realtime_outputs_reference(
-    scene: dict, options: dict, cameras: dict, width: int, height: int, env_kind: int
+    scene: dict, options: dict, cameras: dict, width: int, height: int, env_kind: int,
+    py0=None, full_height: int = 0,
 ) -> dict:
     """Plain version: S realtime frames of the wavefront integrator, one per
     camera. Returns the AOV dict with a leading [S] axis: ``direct``,
@@ -238,6 +263,7 @@ def fused_realtime_outputs_reference(
         frames.append(render_sample(
             scene, options, cam, width, height, mode="realtime",
             jitter_scale=REALTIME_JITTER_SCALE, impl="torch", env_kind=env_kind,
+            row0=py0, full_height=full_height,
         ))
     return {k: torch.stack([f[k] for f in frames]) for k in (*AOV_KEYS, "color")}
 
@@ -342,13 +368,16 @@ def opt_in_args(scene: dict, width: int, height: int, cluster_rows: int | None,
 
 
 def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: bool,
-                   cluster_rows: int | None = None, block_w: int | None = None, lib=None):
+                   cluster_rows: int | None = None, block_w: int | None = None, lib=None,
+                   py0=None, full_height: int = 0):
     """Pack and upload the parameters and allocate the outputs of one
     dispatch of S samples (progressive) or S frames (realtime). Returns
     (launch, outs, opt_ins): ``launch()`` enqueues the kernel and returns
     the CUDA error code. Timing ``launch`` alone measures the kernel
     without the wrapper's packing and checks. ``lib``: a build of the
-    kernel's source with the same entry points (default the package's)."""
+    kernel's source with the same entry points (default the package's).
+    py0/full_height: a row-block launch (``pack_cameras``)."""
+    check_rows(height, py0, full_height)
     mt = scene["mt_pack"]
     device = mt.device
     c = int(mt.shape[1])
@@ -364,8 +393,8 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
     n_live = max(1, min(int(scene["num_tris"]), c))
     attr = _checked("attr_pack", scene["attr_pack"], (32, c), device)
     cpu = torch.device("cpu")
-    cam = _checked("cameras", pack_cameras(cameras, realtime).cpu().contiguous(),
-                   (s_count, 16), cpu)
+    cam = _checked("cameras", pack_cameras(cameras, realtime, py0, full_height).cpu()
+                   .contiguous(), (s_count, 16), cpu)
     cst = _checked("consts", pack_consts(scene, options, env_kind).cpu().contiguous(), (2, 16), cpu)
     frames = _frames_u32(cameras["frame_count"])
     if frames.shape[0] != s_count:
@@ -404,12 +433,14 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
 
 
 def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
-            cluster_rows: int | None = None, block_w: int | None = None):
+            cluster_rows: int | None = None, block_w: int | None = None, py0=None,
+            full_height: int = 0):
     """Pack, upload and launch one dispatch of S samples (progressive) or S
     frames (realtime); returns the output tensors."""
     global LAUNCHES, REALTIME_LAUNCHES, CLUSTERED_LAUNCHES, BLOCKED_LAUNCHES
     launch, outs, opt_ins = prepare_launch(scene, options, cameras, width, height, env_kind,
-                                           realtime, cluster_rows, block_w)
+                                           realtime, cluster_rows, block_w, py0=py0,
+                                           full_height=full_height)
     rc = launch()
     if rc != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: cudaError {rc}")
@@ -439,9 +470,12 @@ def fused_progressive_sum(
     light_mc: bool = False,
     cluster_rows: int | None = None,
     block_w: int | None = None,
+    py0=None,
+    full_height: int = 0,
 ) -> torch.Tensor:
     """Sum of S progressive samples, [H, W, 3] float32 (divide by S for the
     mean). ``cameras`` is CameraParams stacked on a leading [S] axis.
+    py0/full_height: rows [py0, py0 + H) of a full_height-tall image.
 
     ``light_mc`` exists for the JAX signature and changes nothing: JAX
     compiles a static debug==2 variant, while this kernel already skips the
@@ -458,9 +492,11 @@ def fused_progressive_sum(
             f"{int(options['debug'])}"
         )
     if _device_of(scene).type == "cpu":
-        return fused_progressive_sum_reference(scene, options, cameras, width, height, env_kind)
+        check_rows(height, py0, full_height)
+        return fused_progressive_sum_reference(scene, options, cameras, width, height, env_kind,
+                                               py0, full_height)
     return _launch(scene, options, cameras, width, height, env_kind, False, cluster_rows,
-                   block_w)[0]
+                   block_w, py0, full_height)[0]
 
 
 def realtime_aovs(
@@ -472,6 +508,8 @@ def realtime_aovs(
     env_kind: int,
     cluster_rows: int | None = None,
     block_w: int | None = None,
+    py0=None,
+    full_height: int = 0,
 ) -> dict:
     """The AOVs of S realtime frames, one per camera of ``cameras``
     (CameraParams stacked on a leading [S] axis): ``direct``,
@@ -479,13 +517,15 @@ def realtime_aovs(
     [S, H, W]. CUDA scene tensors -> one kernel launch and no ``color``, so
     a caller that needs only the AOVs queues no sum; CPU scene tensors ->
     the plain version, whose dict holds ``color`` too. ``cluster_rows`` and
-    ``block_w`` as in ``fused_progressive_sum``. Scenes outside the kernel's
-    scope raise."""
+    ``block_w``, ``py0`` and ``full_height`` as in ``fused_progressive_sum``.
+    Scenes outside the kernel's scope raise."""
     _check_supported(scene, env_kind, "realtime")
     if _device_of(scene).type == "cpu":
-        return fused_realtime_outputs_reference(scene, options, cameras, width, height, env_kind)
+        check_rows(height, py0, full_height)
+        return fused_realtime_outputs_reference(scene, options, cameras, width, height, env_kind,
+                                                py0, full_height)
     return dict(zip(AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind, True,
-                                      cluster_rows, block_w)))
+                                      cluster_rows, block_w, py0, full_height)))
 
 
 def fused_realtime_outputs_batch(
@@ -497,12 +537,15 @@ def fused_realtime_outputs_batch(
     env_kind: int,
     cluster_rows: int | None = None,
     block_w: int | None = None,
+    py0=None,
+    full_height: int = 0,
 ) -> dict:
     """S realtime frames (primary + 2 shadow sweeps + the Phong bounce with
     its 3 sweeps; no indirect diffuse): ``realtime_aovs`` plus ``color``
     [S, H, W, 3], ``direct + indirect_specular`` summed outside the kernel
     as the JAX package does."""
-    out = realtime_aovs(scene, options, cameras, width, height, env_kind, cluster_rows, block_w)
+    out = realtime_aovs(scene, options, cameras, width, height, env_kind, cluster_rows, block_w,
+                        py0, full_height)
     if _device_of(scene).type == "cuda":
         out["color"] = out["direct"] + out["indirect_specular"]
     return out
@@ -517,10 +560,12 @@ def fused_realtime_outputs(
     env_kind: int,
     cluster_rows: int | None = None,
     block_w: int | None = None,
+    py0=None,
+    full_height: int = 0,
 ) -> dict:
     """One realtime frame: ``fused_realtime_outputs_batch`` for a single
     CameraParams, without the leading [S] axis."""
     cameras = {k: v[None] for k, v in camera.items()}
     out = fused_realtime_outputs_batch(scene, options, cameras, width, height, env_kind,
-                                       cluster_rows, block_w)
+                                       cluster_rows, block_w, py0, full_height)
     return {k: v[0] for k, v in out.items()}

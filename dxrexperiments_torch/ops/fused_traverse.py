@@ -27,7 +27,9 @@ are the BVH's ``ft_test`` and ``ft_attr`` (``ops/traverse.leaf_records``:
 each leaf slot's 19 coefficients as one 80-byte record, and its attribute
 lanes), all built once by ``Scene.build``; the kernel does not read
 ``mt_rows``. Seeds come from the raster pixel index and the output is
-raster order, so nothing is permuted back.
+raster order, so nothing is permuted back. A row-block launch (``py0``,
+``full_height``, as in ``fused_sample``) renders rows [py0, py0 + H) of a
+full_height-tall image with the full image's NDC and seeds.
 """
 
 from __future__ import annotations
@@ -148,13 +150,16 @@ def _library():
     return _LIB
 
 
-def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: bool, lib=None):
+def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: bool, lib=None,
+                   py0=None, full_height: int = 0):
     """Pack and upload the parameters and allocate the outputs of one
     dispatch of S samples (progressive) or S frames (realtime). Returns
     (launch, outs, err): ``launch()`` enqueues the kernel and returns the
     CUDA error code. Timing ``launch`` alone measures the kernel without the
     wrapper's packing and checks. ``lib``: a build of the kernel's source
-    with the same entry points (default the package's)."""
+    with the same entry points (default the package's). py0/full_height: a
+    row-block launch (``fused_sample.pack_cameras``)."""
+    fs.check_rows(height, py0, full_height)
     bvh = scene["bvh"]
     device = bvh["mt_rows"].device
     nodes, test, attr = check_rows(bvh, {"bvhf_rows": 16, "ft_test": REC_WORDS, "ft_attr": 16},
@@ -167,8 +172,8 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
                          f"on {device}")
     s_count = int(cameras["eye"].shape[0])
     cpu = torch.device("cpu")
-    cam = fs._checked("cameras", fs.pack_cameras(cameras, realtime).cpu().contiguous(),
-                      (s_count, 16), cpu)
+    cam = fs._checked("cameras", fs.pack_cameras(cameras, realtime, py0, full_height).cpu()
+                      .contiguous(), (s_count, 16), cpu)
     cst, rig = _rig_consts(scene, options, env_kind)
     cst = fs._checked("consts", cst.cpu().contiguous(), (3, 16), cpu)
     frames = fs._frames_u32(cameras["frame_count"])
@@ -227,10 +232,12 @@ def texture_args(scene: dict, device) -> tuple:
     return texels.data_ptr(), meta.data_ptr(), int(texels.shape[0]), int(meta.shape[0])
 
 
-def _launch(scene, options, cameras, width, height, env_kind, realtime: bool):
+def _launch(scene, options, cameras, width, height, env_kind, realtime: bool, py0=None,
+            full_height: int = 0):
     """Launch one dispatch; returns the output tensors."""
     global LAUNCHES, REALTIME_LAUNCHES
-    launch, outs, err = prepare_launch(scene, options, cameras, width, height, env_kind, realtime)
+    launch, outs, err = prepare_launch(scene, options, cameras, width, height, env_kind, realtime,
+                                       py0=py0, full_height=full_height)
     rc = launch()
     if rc != 0:
         raise RuntimeError(f"fused_traverse kernel launch failed: cudaError {rc}")
@@ -251,41 +258,48 @@ def _on_cuda(scene: dict) -> bool:
 
 
 def fused_traverse_progressive_sum(
-    scene: dict, options: dict, cameras: dict, width: int, height: int, env_kind: int
+    scene: dict, options: dict, cameras: dict, width: int, height: int, env_kind: int,
+    py0=None, full_height: int = 0,
 ) -> torch.Tensor:
     """Sum of S progressive samples, [H, W, 3] float32 (divide by S for the
     mean); ``cameras`` is CameraParams stacked on a leading [S] axis. CUDA
     scene tensors -> one kernel launch; CPU scene tensors -> the plain
-    version. Scenes outside the kernel's scope raise."""
+    version. Scenes outside the kernel's scope raise. py0/full_height: rows
+    [py0, py0 + H) of a full_height-tall image."""
     _check_supported(scene, env_kind, "progressive")
     if not _on_cuda(scene):
+        fs.check_rows(height, py0, full_height)
         return fused_traverse_progressive_sum_reference(scene, options, cameras, width,
-                                                        height, env_kind)
-    return _launch(scene, options, cameras, width, height, env_kind, realtime=False)[0]
+                                                        height, env_kind, py0, full_height)
+    return _launch(scene, options, cameras, width, height, env_kind, False, py0,
+                   full_height)[0]
 
 
 def realtime_aovs(scene: dict, options: dict, cameras: dict, width: int, height: int,
-                  env_kind: int) -> dict:
+                  env_kind: int, py0=None, full_height: int = 0) -> dict:
     """The AOVs of S realtime frames, one per camera of ``cameras``:
     ``direct``, ``indirect_specular``, ``albedo`` [S, H, W, 3] and
     ``roughness`` [S, H, W]. CUDA scene tensors -> one kernel launch and no
     ``color``; CPU scene tensors -> the plain version, whose dict holds
-    ``color`` too. Scenes outside the kernel's scope raise."""
+    ``color`` too. Scenes outside the kernel's scope raise. py0/full_height
+    as in ``fused_traverse_progressive_sum``."""
     _check_supported(scene, env_kind, "realtime")
     if not _on_cuda(scene):
+        fs.check_rows(height, py0, full_height)
         return fused_traverse_realtime_outputs_reference(scene, options, cameras, width,
-                                                         height, env_kind)
-    return dict(zip(fs.AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind,
-                                         realtime=True)))
+                                                         height, env_kind, py0, full_height)
+    return dict(zip(fs.AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind, True,
+                                         py0, full_height)))
 
 
 def fused_traverse_realtime_outputs(scene: dict, options: dict, camera: dict, width: int,
-                                    height: int, env_kind: int) -> dict:
+                                    height: int, env_kind: int, py0=None,
+                                    full_height: int = 0) -> dict:
     """One realtime frame (the JAX function's contract): the AOVs of
     ``realtime_aovs`` for a single CameraParams, without the leading [S]
     axis, plus ``color`` = direct + indirect_specular."""
     out = realtime_aovs(scene, options, {k: v[None] for k, v in camera.items()}, width, height,
-                        env_kind)
+                        env_kind, py0, full_height)
     out = {k: v[0] for k, v in out.items()}
     if "color" not in out:
         out["color"] = out["direct"] + out["indirect_specular"]

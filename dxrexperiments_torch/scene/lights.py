@@ -61,6 +61,16 @@ def area_light(corner, edge_u, edge_v, color=(1.0, 1.0, 1.0, 10.0)) -> dict:
     }
 
 
+def dir_lights(entries: list) -> dict:
+    """Stacked directional rig: a list of directional_light() dicts -> tensors."""
+    return _stack_group(entries, _GROUPS[0][1])
+
+
+def point_lights(entries: list) -> dict:
+    """Stacked point rig: a list of point_light() dicts -> tensors."""
+    return _stack_group(entries, _GROUPS[1][1])
+
+
 def area_lights(entries: list) -> dict:
     """Stacked area rig: a list of area_light() dicts -> [A, ...] tensors."""
     return _stack_group(entries, _GROUPS[2][1])

@@ -507,16 +507,19 @@ def progressive_sample_sum(
     impl: str = "torch",
     ao_only: bool = False,
     refraction: bool = False,
+    row0=None,
+    full_height: int = 0,
 ) -> torch.Tensor:
     """Sum of S progressive samples, one per camera of CameraParams stacked
     on a leading [S] axis, summed in sample order as the megakernels do.
-    Returns [H, W, 3] float32."""
+    Returns [H, W, 3] float32; row0/full_height as in ``render_sample``."""
     total = None
     for s in range(int(cameras["eye"].shape[0])):
         cam = {k: v[s] for k, v in cameras.items()}
         color = render_sample(
             scene, options, cam, width, height, mode="progressive", ao_only=ao_only,
             jitter_scale=jitter_scale, impl=impl, env_kind=env_kind, refraction=refraction,
+            row0=row0, full_height=full_height,
         )["color"]
         total = color if total is None else total + color
     return total
@@ -534,15 +537,24 @@ def render_sample(
     impl: str = "torch",
     env_kind: int | None = None,
     refraction: bool = False,
+    row0=None,
+    full_height: int = 0,
 ) -> dict:
     """Render one sample for the full [H, W] grid on the scene's device.
     Returns {"color": [H, W, 3]} (progressive) or the realtime AOVs, each
-    [H, W, 3] except "roughness" [H, W]."""
+    [H, W, 3] except "roughness" [H, W].
+
+    row0/full_height: render rows [row0, row0 + height) of a
+    full_height-tall image (a row block of a sharded render): raygen's NDC
+    and the TEA pixel seeds, and so every draw seeded from them (the area
+    lights' chains included), use the global row."""
     camera = to_device(camera, scene_device(scene))
-    origins, directions = primary_ray_grid(camera, width, height, jitter_scale)
+    origins, directions = primary_ray_grid(camera, width, height, jitter_scale, row0=row0,
+                                           full_height=full_height)
     o = origins.reshape(-1, 3)
     d = directions.reshape(-1, 3)
-    seeds = rng.pixel_seeds(width, height, camera["frame_count"], device=o.device).reshape(-1)
+    seeds = rng.pixel_seeds(width, height, camera["frame_count"], device=o.device,
+                            row0=row0).reshape(-1)
     out = trace_rays(
         scene, options, o, d, seeds, mode=mode, ao_only=ao_only, impl=impl, env_kind=env_kind,
         refraction=refraction,

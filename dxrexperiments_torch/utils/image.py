@@ -148,3 +148,14 @@ def write_hdr(path: str, image: np.ndarray, rle: bool = True) -> None:
             parts.append(rgbe[y].tobytes())
     with open(path, "wb") as f:
         f.write(b"".join(parts))
+
+
+def mse(a: np.ndarray, b: np.ndarray) -> float:
+    """Mean squared difference, in float64."""
+    return float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+
+
+def psnr(a: np.ndarray, b: np.ndarray, peak: float = 1.0) -> float:
+    """Peak signal-to-noise ratio in dB; inf for equal images."""
+    m = mse(a, b)
+    return float("inf") if m == 0 else 10.0 * np.log10(peak * peak / m)

@@ -41,7 +41,9 @@ beside this tree's; one nvcc per source, all at once). Printed:
   route's host ms per dispatch with either build (``BaseRoute``), in turns;
 - with ``--kernels B1,B5``, the megakernels' cases (``megakernel_cases``:
   configs 1, 3, 4, config 5 flattened and its 1080p frame, the config-2
-  stand-in): the pixels that differ in any bit, ms in turns;
+  stand-in): the pixels that differ in any bit, this build launched as
+  usual and as the whole image's one row block (py0 0, full_height the
+  height), ms in turns;
 - with B2, the bilateral cases (``bilateral_cases``: config 4's 1080p
   frame 0 AOVs, both passes at each radius of ``B2_RADII``): the pixels
   whose channels differ in any bit, per channel, ms in turns;
@@ -326,17 +328,21 @@ def differing_rays(a: dict, b: dict) -> dict:
     return out
 
 
-def this_launch(kernel, lib, scene, options, cameras, width, height, env_kind, realtime):
-    """This tree's wrapper (prepare_launch) with ``lib``: (launch, outs, err)."""
+def this_launch(kernel, lib, scene, options, cameras, width, height, env_kind, realtime,
+                py0=None, full_height=0):
+    """This tree's wrapper (prepare_launch) with ``lib``: (launch, outs, err).
+    py0/full_height: the row-block form of the launch (camera lanes 12 and
+    13; a build before row blocks reads lane 12 and ignores lane 13)."""
     from dxrexperiments_torch.ops import fused_sample as fs
     from dxrexperiments_torch.ops import fused_traverse as ft
 
     if kernel == "B1":
         launch, outs, _ = fs.prepare_launch(scene, options, cameras, width, height, env_kind,
-                                            realtime, 0, 0, lib=fs.bind(lib))
+                                            realtime, 0, 0, lib=fs.bind(lib), py0=py0,
+                                            full_height=full_height)
         return launch, outs, None
     return ft.prepare_launch(scene, options, cameras, width, height, env_kind, realtime,
-                             lib=ft.bind(lib))
+                             lib=ft.bind(lib), py0=py0, full_height=full_height)
 
 
 def differing_pixels(a, b, height: int, width: int) -> int:
@@ -1089,20 +1095,26 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
                            ek, realtime)
         base = this_launch(kernel, libs["base", kernel], scene, options, cams, width, height,
                            ek, realtime)
-        for launch, *_ in (base, mine):
+        # this build launched as the whole image's one row block: py0 0, full_height height
+        rows = this_launch(kernel, libs["this", kernel], scene, options, cams, width, height,
+                           ek, realtime, py0=0, full_height=height)
+        for launch, *_ in (base, mine, rows):
             if launch() != 0:
                 raise RuntimeError(f"{name}: launch failed")
         torch.cuda.synchronize()
         diff = differing_pixels(base[1], mine[1], height, width)
+        diff_rows = differing_pixels(base[1], rows[1], height, width)
         turns = [time_ms(f, n) for f in (base[0], mine[0], mine[0], base[0])]
         row = {"case": name, "kernel": kernel, "differing_pixels": diff,
+               "differing_pixels_py0_0": diff_rows,
                "pixels": width * height, "base_ms": (turns[0] + turns[3]) / 2,
                "this_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns}
         report["cases"].append(row)
-        print(f"case {name}: {diff} of {width * height} pixels differ from the base build; "
+        print(f"case {name}: {diff} of {width * height} pixels differ from the base build "
+              f"({diff_rows} launched as one row block, py0 0, full_height {height}); "
               f"ms base {row['base_ms']:.4f}, this {row['this_ms']:.4f} (turns "
               f"{', '.join(f'{t:.4f}' for t in turns)}) [{card}]", flush=True)
-        for err in (base[2], mine[2]):
+        for err in (base[2], mine[2], rows[2]):
             if err is not None:
                 raise_on_error(err, name)
     return report

@@ -38,7 +38,10 @@ lane holds a leaf raises after the leaf is tested (``wide_ladder``). B1's opt-in
 instantiations: bit-equal to the base kernel. The roofline probes (B7):
 relative 1e-4 against their plain versions, the split-TF32 product within
 2 K float32 ulps of the sum of |terms|; across the overlap settings the
-chains, the accumulator and the product equal bit for bit.
+chains, the accumulator and the product equal bit for bit. Row-block
+launches of B1 and B5 (py0, full_height) put together, B2's vertical pass
+on halo-padded row blocks, and the frames-in-flight batch: bit-equal to the
+whole launch, the whole pass and sequential renders.
 """
 
 import dataclasses
@@ -1983,3 +1986,101 @@ def test_roofline_overlap_settings_agree(cuda_device, size):
         assert bool(((got["t"].double() - exact).abs() <= t_gate).all())
         err = (got["product"] - want["product"]).abs() / (mt_v.abs() @ rays_v.abs())
         assert float(err.max()) <= gate
+
+
+def _row_blocks(prepare, height: int, n: int, row_axis: int):
+    """The outputs of n row-block launches (py0, full_height) put together."""
+    rows = height // n
+    blocks = [prepare(i * rows, rows) for i in range(n)]
+    return [torch.cat([b[o] for b in blocks], dim=row_axis) for o in range(len(blocks[0]))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["B1", "B5"])
+@pytest.mark.parametrize("realtime", [False, True])
+def test_row_block_launches_equal_the_whole_launch(cuda_device, kernel, realtime):
+    """B1 and B5 launched as 2 and 4 row blocks (the full image's NDC and
+    TEA seeds) reproduce one whole launch bit for bit, and the whole image
+    launched as one block (py0 0, full_height its height) too."""
+    if kernel == "B1":
+        scene, cams = _setup(cuda_device, "gradient")
+        mod = fs
+    else:
+        scene, cams = _bvh_setup(cuda_device)
+        mod = ft
+    if realtime:
+        cams = {k: v[:1] for k, v in cams.items()}
+    ek = int(scene["env"]["kind"])
+
+    def prepare(py0, rows):
+        args = (scene, default_options(), cams, SIZE, rows, ek, realtime)
+        launch, outs, *_ = (mod.prepare_launch(*args, 0, 0, py0=py0, full_height=SIZE)
+                            if kernel == "B1" else
+                            mod.prepare_launch(*args, py0=py0, full_height=SIZE))
+        assert launch() == 0
+        return outs
+
+    whole = prepare(None, SIZE)
+    torch.cuda.synchronize()
+    for n in (1, 2, 4):
+        got = _row_blocks(prepare, SIZE, n, 1 if realtime else 0)
+        torch.cuda.synchronize()
+        for g, w in zip(got, whole):
+            assert torch.equal(g, w), (kernel, realtime, n)
+    traverse.check_errors()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4, 16])
+def test_bilateral_halo_row_blocks_equal_the_whole_pass(cuda_device, n):
+    """The sharded denoiser's row blocks, one thread a block
+    (``launch.run_tiles``): B2's vertical pass on each block padded by
+    ``render._halo_rows`` equals the whole pass, and ``render._denoise_local``
+    (the halo path, or at n = 16, 13-row blocks, the short-block path:
+    ``gather_rows`` and the full columns) equals the whole frame's
+    denoise_composite, bit for bit."""
+    from dxrexperiments_torch.models.denoise import default_denoise_params, denoise_composite
+    from dxrexperiments_torch.parallel import launch, render
+
+    inp, guide = _bilateral_data(cuda_device, h=208, w=53, seed=8)
+    params = default_denoise_params()
+    radius = float(params["max_kernel_size"])
+    r = bilateral.MAX_EXTENT
+    pass0 = bilateral.bilateral_pass(inp, guide, radius, 1)
+    whole = bilateral.bilateral_pass(pass0, guide, radius, 0)
+    h = 208 // n
+
+    def job(mesh):
+        a, b = mesh.tile * h, (mesh.tile + 1) * h
+        vert = None
+        if h >= r:
+            padded = render._halo_rows([pass0[a:b], guide[a:b]], r, mesh)
+            vert = bilateral.bilateral_pass(*padded, radius, 0)[r:-r]
+        return vert, render._denoise_local(guide[a:b], inp[a:b], params, mesh, h)
+
+    tiles = launch.run_tiles(n, job, cuda_device)
+    torch.cuda.synchronize()
+    if h >= r:
+        assert torch.equal(torch.cat([t[0] for t in tiles]), whole)
+    assert torch.equal(torch.cat([t[1] for t in tiles]), denoise_composite(guide, inp, params))
+
+
+@pytest.mark.cuda
+def test_render_frames_one_launch_equals_sequential(cuda_device):
+    """The frames-in-flight batch: K = 3 frames in one B1 launch equal three
+    sequential renders bit for bit."""
+    sc, cam = build_scene("cornell-glossy")
+    cam.set_aspect(SIZE, SIZE)
+    pipes = []
+    for _ in range(2):
+        p = RealtimeRaytracingPipeline(SIZE, SIZE, seed=3, device=cuda_device)
+        p.set_camera(cam)
+        p.set_scene(sc)
+        pipes.append(p)
+    before = fs.REALTIME_LAUNCHES
+    d_k, s_k = pipes[0].render_frames(0, 3)
+    assert fs.REALTIME_LAUNCHES == before + 1
+    for f in range(3):
+        pipes[1].update(0.0, f)
+        d, s = pipes[1].render()
+        assert torch.equal(d, d_k[f]) and torch.equal(s, s_k[f])

@@ -28,3 +28,14 @@ def test_port_imports_no_jax():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_parallel_modules_are_walked():
+    """The multi-GPU modules are among the modules the check above imports."""
+    import pkgutil
+
+    import dxrexperiments_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+    assert {"dxrexperiments_torch.parallel", "dxrexperiments_torch.parallel.render",
+            "dxrexperiments_torch.parallel.launch"} <= names
