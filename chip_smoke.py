@@ -384,6 +384,51 @@ Phases, each of which raises on failure:
      second pass, into realtime_frames and denoise_composite_frames; and the
      pipeline's one-frame path (update + render + DenoiseCompositor.dispatch,
      48 frames) before and after the K sweep, its enqueue split the same way.
+ 42. mesh files (run after phase 41): the script writes into a temporary
+     directory the Cornell box as OBJ + MTL, a 960-triangle sphere (the
+     instanced grids' sphere, wound outward, smooth normals) as binary PLY,
+     GLB, glTF with a data URI, binary FBX and COLLADA, and 'instanced:32'
+     flattened (983,042 triangles; normals renormalised to a fixed point of
+     the loaders' float64 renormalisation) as GLB and as OBJ without vt;
+     loads each with scene.mesh.load_mesh(path, on_error="raise") against
+     the mesh written (corner positions exact, indices exact but for the
+     OBJ's vertex welding, material ids exact for the OBJ, normals within
+     1e-6), with the write and load seconds and the loader (the large OBJ
+     must take the native parser, csrc/mesh_io.cpp, built in phase 2);
+     then the headless CLI in process (app.headless.main, -o .npy) on the
+     Cornell OBJ progressive at 512^2, 16 spp (exactly 16 B1 launches),
+     the same file realtime + denoise at 1920x1080 (1 B1 realtime + 2 B2),
+     the sphere PLY progressive at 512^2, 4 spp (8 + 8 B3) and the large
+     GLB progressive at 512^2, 4 spp (4 B5): each image bit-equal to the
+     written mesh built in memory, framed by mesh_scene and rendered by the
+     pipeline as the CLI does, and, at 64^2 on the same scene, one kernel
+     sample (or realtime frame: every AOV and the display) against the plain
+     path on the image gate; the host seconds and the route of each; and
+     --checkpoint-every 4 on 8 spp, the render stopped in frame 6 and
+     resumed from its frame-4 checkpoint, bit-equal to the uninterrupted
+     render;
+ 43. live edits, the graft entry and the viewer: rebake_material on
+     Cornell-glossy (B1) and 'instanced:4' flattened (B5): every tensor
+     equal to a fresh build's with the edited material, one S = 4 dispatch
+     of each at 128^2 bit-equal; entry()'s fn(*example_args) on the card
+     (128^2 Cornell progressive_step: 2 + 2 B3 launches) against
+     entry("cpu") on tests/test_torch_progressive.py's gate (>= 99% of
+     pixels within 1e-3, mean |d| <= 1e-4; the share within 2e-5 printed);
+     app.viewer.main at 640x480 with --display kitty, stdout captured,
+     --auto-checkpoint every frame, on cornell-glossy with a key script
+     (movement and a mouse drag, material and light edits, an AOV, the
+     realtime pipeline with denoiser edits, a resize to the terminal's size
+     and back, the progressive pipeline again; exactly one B1 launch a
+     progressive frame, one B1 realtime and two B2 a realtime frame) and on
+     'instanced:8' --animate-instances (two-level, a TLAS refit a
+     progressive frame: B6a closest and any launches, two B2 a realtime
+     frame, no other kernel): exit 0, zero recoveries, every presented
+     frame finite with max > 0, the ms per frame (host clock, synchronised);
+     and one realtime + denoise viewer frame under utils.profiling.
+     device_trace in a fresh process, whose kernels must include B1's
+     realtime kernel and both B2 passes (the same trace in this process is
+     printed, not gated: late in a full run it has lost the ctypes-launched
+     kernels).
 
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
@@ -439,15 +484,19 @@ the script exits non-zero and prints no result. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -464,6 +513,14 @@ BILATERAL_TOL = 2e-5
 HIT_MEDIAN, HIT_P999, HIT_MAX, TIE_FRAC = 1e-6, 1e-4, 0.05, 0.01
 BVH_PARITY_SCENE, BVH_PARITY_SIZE = "instanced:4", 128
 BVH_MAIN_SCENE, BVH_S, BVH_DISPATCHES, BVH_RT_FRAMES = "instanced:32", 4, 4, 4
+F42_BIG = BVH_MAIN_SCENE  # phase 42's large file: its flattened geometry, 983,042 triangles
+F42_CORNELL_SPP, F42_SPP, F42_PARITY = 16, 4, 64  # phase 42's spp; its parity renders' size
+VIEWER_W, VIEWER_H = 640, 480  # phase 43's viewer runs
+# phase 43's key scripts (one event a frame; a mouse drag and Alt-Enter are
+# escape sequences): no look keys, which turn the camera off the box
+VIEWER_SCRIPT = ("21wrRbBuUh" + "\x1b[<0;10;5M\x1b[<32;12;5M\x1b[<0;12;5m" + "]nNoO"
+                 + "\x1b\rs\x1b\rda[")
+VIEWER_SCRIPT_TWO = "wd]sa[w"
 SHADOW_LIGHT = (2.0, 6.0, 1.5)  # the B4a occlusion checks' point light
 COUNT_PIXELS = 4096  # sampled pixels whose walks the host model counts
 WARP = 32  # the host figures' warps: WARP consecutive rays of a launch
@@ -1146,6 +1203,283 @@ class TexHits:
         self.mod._interpolate_hit = self.fn
 
 
+# ---- mesh files: phase 42 writes every file it loads (none is in the repo) ----
+# Writers of the formats scene.mesh.load_mesh reads, each from a scene.mesh.Mesh;
+# tests/test_torch_mesh_io.py holds them to the port's and the JAX package's
+# loaders on the CPU.
+
+
+def first_use_order(mesh):
+    """The mesh with its materials renumbered in order of first use over its
+    faces, as an OBJ's usemtl lines number them on load."""
+    import numpy as np
+
+    from dxrexperiments_torch.scene.mesh import Mesh
+
+    ids = np.asarray(mesh.material_ids)
+    first = list(dict.fromkeys(ids.tolist()))
+    remap = np.zeros(max(first) + 1, np.int32)
+    remap[first] = np.arange(len(first), dtype=np.int32)
+    return Mesh(mesh.positions, mesh.normals, mesh.indices, material_ids=remap[ids],
+                materials=[mesh.materials[k] for k in first], name=mesh.name)
+
+
+def tensor_items(tree, path=""):
+    """(path, tensor) of every tensor of a nested dict."""
+    import torch
+
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tensor_items(v, f"{path}/{k}")
+    elif isinstance(tree, torch.Tensor):
+        yield path, tree
+
+
+def traced_frame_kernels(app, log_dir):
+    """The device items (kernels and copies with device time) of one frame
+    of a viewer app under utils.profiling.device_trace, after one frame
+    untraced."""
+    from dxrexperiments_torch.core.camera_controller import InputState
+    from dxrexperiments_torch.utils.profiling import device_trace
+
+    app.step(InputState())
+    with device_trace(log_dir) as prof:
+        app.step(InputState())
+    return sorted({e.key for e in prof.key_averages()
+                   if getattr(e, "self_device_time_total", 0.0) > 0})
+
+
+def b1_b2_traced(names):
+    """(B1's realtime kernel traced, both B2 passes traced)."""
+    return (any("fused_realtime_kernel" in k for k in names),
+            sum("bilateral_tile_kernel" in k for k in names) == 2)
+
+
+def unit_normals(normals):
+    """Normals that the loaders' float64 renormalisation (glTF, FBX) maps to
+    themselves: each row renormalised until it stops changing."""
+    import numpy as np
+
+    n = np.asarray(normals, np.float32)
+    for _ in range(8):
+        v = n.astype(np.float64)
+        ln = np.linalg.norm(v, axis=-1, keepdims=True)
+        nxt = (v / np.where(ln > 1e-12, ln, 1.0)).astype(np.float32)
+        if np.array_equal(nxt, n):
+            return n
+        n = nxt
+    raise RuntimeError("normals did not reach a fixed point of renormalisation")
+
+
+def _runs(ids):
+    """(start, end, id) of each run of equal material ids, in face order."""
+    import numpy as np
+
+    if len(ids) == 0:
+        return []
+    cut = np.flatnonzero(np.diff(ids)) + 1
+    starts = np.concatenate([[0], cut])
+    ends = np.concatenate([cut, [len(ids)]])
+    return [(int(s), int(e), int(ids[s])) for s, e in zip(starts, ends)]
+
+
+def write_obj(path: str, mesh, normals: bool = True) -> None:
+    """OBJ (+ an MTL of each material's Kd when the mesh has materials): v, vn and
+    'f a//a b//b c//c' lines, usemtl at each change of material id in face
+    order (ids must appear in order of first use), 9 significant digits (a
+    float32 round trip)."""
+    import numpy as np
+
+    stem = os.path.splitext(path)[0]
+    with open(path, "w") as f:
+        if mesh.materials:
+            mtl = stem + ".mtl"
+            with open(mtl, "w") as m:
+                for k, mat in enumerate(mesh.materials):
+                    m.write(f"newmtl m{k}\nKd {mat.albedo[0]:.9g} {mat.albedo[1]:.9g} "
+                            f"{mat.albedo[2]:.9g}\n")
+            f.write(f"mtllib {os.path.basename(mtl)}\n")
+        np.savetxt(f, mesh.positions, fmt="v %.9g %.9g %.9g")
+        if normals:
+            np.savetxt(f, mesh.normals, fmt="vn %.9g %.9g %.9g")
+        one = mesh.indices.astype(np.int64) + 1
+        fmt = "f %d//%d %d//%d %d//%d" if normals else "f %d %d %d"
+        rows = np.repeat(one, 2, axis=1) if normals else one
+        runs = _runs(mesh.material_ids) if mesh.materials else [(0, len(one), -1)]
+        for s, e, mid in runs:
+            if mid >= 0:
+                f.write(f"usemtl m{mid}\n")
+            np.savetxt(f, rows[s:e], fmt=fmt)
+
+
+def write_ply(path: str, mesh) -> None:
+    """Binary little-endian PLY: float x y z nx ny nz, uchar/int faces."""
+    import numpy as np
+
+    v = np.zeros(len(mesh.positions), [(c, "<f4") for c in ("x", "y", "z", "nx", "ny", "nz")])
+    for k, c in enumerate("xyz"):
+        v[c] = mesh.positions[:, k]
+        v["n" + c] = mesh.normals[:, k]
+    faces = np.zeros(len(mesh.indices), [("n", "u1"), ("i", "<i4", (3,))])
+    faces["n"] = 3
+    faces["i"] = mesh.indices
+    header = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(v)}\n"
+              + "".join(f"property float {c}\n" for c in ("x", "y", "z", "nx", "ny", "nz"))
+              + f"element face {len(faces)}\nproperty list uchar int vertex_indices\n"
+              "end_header\n")
+    with open(path, "wb") as f:
+        f.write(header.encode("ascii") + v.tobytes() + faces.tobytes())
+
+
+def _gltf_doc(mesh):
+    import numpy as np
+
+    pos = np.ascontiguousarray(mesh.positions, "<f4")
+    nrm = np.ascontiguousarray(mesh.normals, "<f4")
+    idx = np.ascontiguousarray(mesh.indices.reshape(-1), "<u4")
+    blob = pos.tobytes() + nrm.tobytes() + idx.tobytes()
+    lo, hi = pos.min(axis=0), pos.max(axis=0)
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "NORMAL": 1},
+                                    "indices": 2, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorFactor": [0.73, 0.73, 0.73, 1.0],
+                                                "metallicFactor": 0.0,
+                                                "roughnessFactor": 1.0}}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": len(pos), "type": "VEC3",
+             "min": lo.tolist(), "max": hi.tolist()},
+            {"bufferView": 1, "componentType": 5126, "count": len(nrm), "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5125, "count": len(idx), "type": "SCALAR"},
+        ],
+        "bufferViews": [
+            {"buffer": 0, "byteOffset": 0, "byteLength": pos.nbytes},
+            {"buffer": 0, "byteOffset": pos.nbytes, "byteLength": nrm.nbytes},
+            {"buffer": 0, "byteOffset": pos.nbytes + nrm.nbytes, "byteLength": idx.nbytes},
+        ],
+        "buffers": [{"byteLength": len(blob)}],
+    }
+    return doc, blob
+
+
+def write_glb(path: str, mesh) -> None:
+    """Binary glTF: one node, one triangle primitive (POSITION, NORMAL,
+    u32 indices), one diffuse material."""
+    doc, blob = _gltf_doc(mesh)
+    js = json.dumps(doc).encode()
+    js += b" " * (-len(js) % 4)
+    blob += b"\x00" * (-len(blob) % 4)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<4sII", b"glTF", 2, 28 + len(js) + len(blob)))
+        f.write(struct.pack("<I4s", len(js), b"JSON") + js)
+        f.write(struct.pack("<I4s", len(blob), b"BIN\x00") + blob)
+
+
+def write_gltf(path: str, mesh) -> None:
+    """JSON glTF with its buffer as a base64 data URI."""
+    doc, blob = _gltf_doc(mesh)
+    doc["buffers"][0]["uri"] = ("data:application/octet-stream;base64,"
+                                + base64.b64encode(blob).decode())
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
+def _fbx_prop(v):
+    import numpy as np
+
+    if isinstance(v, int):
+        return b"L" + struct.pack("<q", v)
+    if isinstance(v, float):
+        return b"D" + struct.pack("<d", v)
+    if isinstance(v, str):
+        b = v.encode()
+        return b"S" + struct.pack("<I", len(b)) + b
+    code = {np.dtype("f8"): b"d", np.dtype("i4"): b"i"}[v.dtype]
+    raw = zlib.compress(v.tobytes())
+    return code + struct.pack("<III", len(v), 1, len(raw)) + raw
+
+
+def _fbx_node(name, props=(), children=(), base=0):
+    """A node record of FBX 7500 (64-bit offsets) at file offset ``base``;
+    children are (name, props, children) triples."""
+    name_b = name.encode()
+    body = b"".join(_fbx_prop(p) for p in props)
+    pos = base + 25 + len(name_b) + len(body)
+    kids = b""
+    for kname, kprops, kchildren in children:
+        kb = _fbx_node(kname, kprops, kchildren, pos)
+        kids += kb
+        pos += len(kb)
+    if children:
+        kids += b"\x00" * 25
+        pos += 25
+    return struct.pack("<QQQB", pos, len(props), len(body), len(name_b)) + name_b + body + kids
+
+
+def write_fbx(path: str, mesh) -> None:
+    """Binary FBX 7500: one Geometry (Vertices, PolygonVertexIndex, normals
+    ByVertice) under one Model with a diffuse Material."""
+    import numpy as np
+
+    poly = mesh.indices.astype(np.int32).copy()
+    poly[:, 2] = ~poly[:, 2]
+    geo = [
+        ("Vertices", [mesh.positions.astype(np.float64).reshape(-1)], []),
+        ("PolygonVertexIndex", [poly.reshape(-1)], []),
+        ("LayerElementNormal", [0], [
+            ("MappingInformationType", ["ByVertice"], []),
+            ("Normals", [mesh.normals.astype(np.float64).reshape(-1)], []),
+        ]),
+    ]
+    objects = ("Objects", [], [
+        ("Geometry", [1001, "Geometry::geo", "Mesh"], geo),
+        ("Model", [2001, "Model::mesh", "Mesh"], []),
+        ("Material", [3001, "Material::white", ""], [("Properties70", [], [
+            ("P", ["DiffuseColor", "Color", "", "A", 0.73, 0.73, 0.73], [])])]),
+    ])
+    conns = ("Connections", [], [("C", ["OO", 1001, 2001], []), ("C", ["OO", 2001, 0], []),
+                                 ("C", ["OO", 3001, 2001], [])])
+    out = b"Kaydara FBX Binary  \x00\x1a\x00" + struct.pack("<I", 7500)
+    for name, props, children in (objects, conns):
+        out += _fbx_node(name, props, children, len(out))
+    with open(path, "wb") as f:
+        f.write(out + b"\x00" * 25)
+
+
+def write_dae(path: str, mesh) -> None:
+    """COLLADA 1.4: one geometry (positions, <triangles>), one node
+    instancing it with a Phong material."""
+    pos = " ".join(f"{x:.9g}" for x in mesh.positions.reshape(-1))
+    idx = " ".join(str(int(i)) for i in mesh.indices.reshape(-1))
+    n_v, n_t = len(mesh.positions), len(mesh.indices)
+    text = f"""<?xml version="1.0"?>
+<COLLADA xmlns="http://www.collada.org/2005/11/COLLADASchema" version="1.4.1">
+ <library_effects><effect id="e1"><profile_COMMON><technique sid="t"><phong>
+  <diffuse><color>0.73 0.73 0.73 1</color></diffuse>
+ </phong></technique></profile_COMMON></effect></library_effects>
+ <library_materials><material id="m1"><instance_effect url="#e1"/></material></library_materials>
+ <library_geometries><geometry id="g1"><mesh>
+  <source id="s1"><float_array id="a1" count="{3 * n_v}">{pos}</float_array>
+   <technique_common><accessor source="#a1" count="{n_v}" stride="3"/></technique_common>
+  </source>
+  <vertices id="v1"><input semantic="POSITION" source="#s1"/></vertices>
+  <triangles material="sym" count="{n_t}">
+   <input semantic="VERTEX" source="#v1" offset="0"/>
+   <p>{idx}</p>
+  </triangles>
+ </mesh></geometry></library_geometries>
+ <library_visual_scenes><visual_scene id="scene"><node>
+  <instance_geometry url="#g1"><bind_material><technique_common>
+   <instance_material symbol="sym" target="#m1"/>
+  </technique_common></bind_material></instance_geometry>
+ </node></visual_scene></library_visual_scenes>
+</COLLADA>
+"""
+    with open(path, "w") as f:
+        f.write(text)
+
+
 def config2_stand_in(env):
     """BASELINE config 2's shape without its files (susanne.obj, ground.fbx
     and CathedralRadiance.dds are not in the repository): a 960-triangle UV
@@ -1490,8 +1824,11 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import numpy as np
 
-    from dxrexperiments_torch.app.headless import build_scene, parse_env, yaw_matrix
+    from dxrexperiments_torch import entry as entry_mod
+    from dxrexperiments_torch.app import viewer as viewer_mod
+    from dxrexperiments_torch.app.headless import build_scene, mesh_scene, parse_env, yaw_matrix
     from dxrexperiments_torch.app.headless import main as headless_main
+    from dxrexperiments_torch.core.camera_controller import InputState
     from dxrexperiments_torch.core import rng as trng
     from dxrexperiments_torch.core.camera import camera_params, primary_ray_grid, stack_cameras
     from dxrexperiments_torch.core.device import setup_device
@@ -1520,6 +1857,9 @@ def main() -> int:
     from dxrexperiments_torch.scene import Scene, cornell_box, envmap
     from dxrexperiments_torch.scene.dynamic import refit_scene_instances
     from dxrexperiments_torch.scene.lights import area_light, default_lights, directional_light
+    from dxrexperiments_torch.scene.mesh import Mesh, load_mesh
+    from dxrexperiments_torch.scene.procedural import sphere_mesh
+    from dxrexperiments_torch.scene.scene import rebake_material
     from dxrexperiments_torch.trace import integrator as tint
     from dxrexperiments_torch.trace.integrator import (
         RAY_EPSILON,
@@ -1531,6 +1871,7 @@ def main() -> int:
     from dxrexperiments_torch.utils import cuda_build, native
     from dxrexperiments_torch.utils.dds import write_dds
     from dxrexperiments_torch.utils.image import write_hdr
+    from dxrexperiments_torch.utils.profiling import device_trace
 
     reset_counts = par_launch.reset_launch_counts
 
@@ -1568,13 +1909,15 @@ def main() -> int:
     builds = (fs._library, bl._library, tv._library, lambda: tv._library("binary"),
               lambda: tv._library("wide"), ft._library, tv2._library,
               lambda: tv2._library("binary"), ik._library, lambda: tv._library("grouped"),
-              rf._library, native.get_lib)
+              rf._library, native.get_lib, native.get_mesh_lib)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futs = [pool.submit(f) for f in builds]
-        sah_lib = [f.result() for f in futs][-1]
+        sah_lib, mesh_lib = [f.result() for f in futs][-2:]
     load_s = time.perf_counter() - t0
     print(f"build csrc/sah_bvh.cpp with g++: "
           f"{'built' if sah_lib is not None else 'no g++: the Morton build serves'}", flush=True)
+    print(f"build csrc/mesh_io.cpp (the native OBJ parser) with g++: "
+          f"{'built' if mesh_lib is not None else 'FAILED (phase 42 fails)'}", flush=True)
     for name in ("fused_sample", "bilateral", "traverse_fat", "traverse_binary", "traverse8",
                  "fused_traverse", "traverse2_fat", "traverse2_binary", "intersect_brute",
                  "traverse_fat_grouped", "roofline"):
@@ -5255,6 +5598,348 @@ def main() -> int:
     tv.check_errors()
     del aovs41, imgs41, outs41, scene39
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 42", flush=True)
+    # ---- 42. mesh files: written here, loaded, rendered through the CLI ------------------
+    if native.get_mesh_lib() is None:
+        raise RuntimeError("g++ could not build csrc/mesh_io.cpp (the native OBJ parser)")
+    tmp42 = tempfile.TemporaryDirectory(prefix="dxr_meshes_")
+    d42 = tmp42.name
+    front = {}  # counter name -> [{"path", "launches", gates...}] of phases 42-43
+
+    def note_front(label, counts, **gates):
+        for k, v in counts.items():
+            if v:
+                front.setdefault(k, []).append({"path": label, "launches": v, **gates})
+
+    cb_mesh, cb_mats = cornell_box(glossy_tall_box=True)
+    src42 = {"cornell": first_use_order(Mesh(cb_mesh.positions, cb_mesh.normals, cb_mesh.indices,
+                                             material_ids=cb_mesh.material_ids,
+                                             materials=cb_mats))}
+    sph = sphere_mesh((0.0, 0.0, 0.0), 1.0, lat=16, lon=32)
+    src42["sphere"] = Mesh(sph.positions, None, sph.indices[:, [0, 2, 1]])  # wound outward
+    sc_big, _ = build_scene(F42_BIG)
+    pos_l, nrm_l, idx_l, mid_l, base_v = [], [], [], [], 0
+    for inst in sc_big.instances:  # the flattening of Scene.build, one mesh
+        tf = inst.transform
+        pos_l.append(inst.mesh.positions @ tf[:3, :3].T + tf[:3, 3])
+        nrm_l.append(inst.mesh.normals)
+        idx_l.append(inst.mesh.indices + base_v)
+        mid_l.append(np.full(inst.mesh.num_triangles, inst.material_override, np.int32))
+        base_v += len(inst.mesh.positions)
+    src42["big"] = first_use_order(Mesh(
+        np.concatenate(pos_l), unit_normals(np.concatenate(nrm_l)), np.concatenate(idx_l),
+        material_ids=np.concatenate(mid_l), materials=sc_big.materials))
+    del sc_big, pos_l, nrm_l, idx_l, mid_l
+    files42 = [("cornell", "obj", write_obj), ("sphere", "ply", write_ply),
+               ("sphere", "glb", write_glb), ("sphere", "gltf", write_gltf),
+               ("sphere", "fbx", write_fbx), ("sphere", "dae", write_dae),
+               ("big", "glb", write_glb), ("big", "obj", write_obj)]
+    paths42, loads42 = {}, {}
+    for name, ext, writer in files42:
+        path = os.path.join(d42, f"{name}.{ext}")
+        t0 = time.perf_counter()
+        writer(path, src42[name])
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = load_mesh(path, on_error="raise")
+        load_s = time.perf_counter() - t0
+        src = src42[name]
+        pos_eq = np.array_equal(got.positions[got.indices], src.positions[src.indices])
+        idx_eq = ext == "obj" or np.array_equal(got.indices, src.indices)  # OBJ welds vertices
+        nrm_d = float(np.abs(got.normals[got.indices] - src.normals[src.indices]).max())
+        ids_eq = ext != "obj" or np.array_equal(got.material_ids, src.material_ids)
+        ok = pos_eq and idx_eq and ids_eq and nrm_d <= 1e-6
+        loads42[f"{name}.{ext}"] = {"loader": got.loader, "triangles": got.num_triangles,
+                                    "write_s": write_s, "load_s": load_s,
+                                    "bytes": os.path.getsize(path), "normals_max_abs": nrm_d}
+        print(f"mesh file {name}.{ext}: {got.num_triangles} triangles, "
+              f"{os.path.getsize(path):,} bytes, written in {write_s:.2f}s, loaded in "
+              f"{load_s:.2f}s host clock by {got.loader}; corner positions exact {pos_eq}, "
+              f"indices exact {idx_eq}, material ids exact {ids_eq}, normals max |d| "
+              f"{nrm_d:.2e} (<= 1e-6) -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{name}.{ext} does not load to the mesh written")
+        paths42[name, ext] = path
+    if loads42["big.obj"]["loader"] != "obj-native":
+        raise RuntimeError("the large OBJ did not take the native parser")
+
+    def pipeline_image(sc, cam, size, spp, realtime=False, scene_data=None):
+        """The CLI's render loop on a scene built in memory: seed 0, one
+        sample a frame (progressive), or one realtime frame + the denoiser."""
+        w, h = size
+        cam.set_aspect(w, h)
+        if realtime:
+            p = RealtimeRaytracingPipeline(w, h, seed=0, device=dev)
+        else:
+            p = ProgressiveRaytracingPipeline(w, h, seed=0, device=dev)
+            p.max_iterations = spp
+        p.set_camera(cam)
+        if scene_data is None:
+            p.set_scene(sc)
+        else:
+            p.set_scene_data(scene_data)
+        if realtime:
+            p.update(elapsed_time=0.0, elapsed_frames=0)
+            direct, spec = p.render()
+            return p, DenoiseCompositor(device=dev).dispatch(direct, spec)
+        for f in range(spp):
+            p.update(elapsed_time=f / 60.0, elapsed_frames=f)
+            p.render()
+        return p, p.get_output()
+
+    renders42 = []
+    for label, key, size, spp, realtime, want in (
+            ("cornell.obj progressive", ("cornell", "obj"), (M, M), F42_CORNELL_SPP, False,
+             {"B1": F42_CORNELL_SPP}),
+            ("cornell.obj realtime + denoise", ("cornell", "obj"), (RT_W, RT_H), 1, True,
+             {"B1 realtime": 1, "B2": 2}),
+            ("sphere.ply progressive", ("sphere", "ply"), (M, M), F42_SPP, False,
+             {"B3 closest": 2 * F42_SPP, "B3 any": 2 * F42_SPP}),
+            (f"big.glb ({F42_BIG} flattened) progressive", ("big", "glb"), (M, M), F42_SPP,
+             False, {"B5": F42_SPP})):
+        out = os.path.join(d42, "cli.npy")
+        args = ["--scene", paths42[key], "--size", f"{size[0]}x{size[1]}", "--device", "cuda",
+                "-o", out]
+        args += ["--pipeline", "realtime", "--denoise"] if realtime else ["--spp", str(spp)]
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        if headless_main(args) != 0:
+            raise RuntimeError(f"headless {label} failed")
+        cli_s = time.perf_counter() - t0
+        counts = expect_counts(f"headless {label}", want)
+        cli_img = np.load(out)
+        sc, cam = mesh_scene(src42[key[0]])
+        pipe42, mem = pipeline_image(sc, cam, size, spp, realtime)
+        scene42 = pipe42.scene_data
+        route = select_route(scene42, "realtime" if realtime else "progressive")
+        mem = mem.cpu().numpy()
+        bit_eq = np.array_equal(cli_img, mem)
+        finite = bool(np.isfinite(cli_img).all()) and float(cli_img.max()) > 0.0
+        print(f"headless {label} at {size[0]}x{size[1]}: {cli_s:.2f}s host clock (load, build, "
+              f"render, write), route {route}; the image against the written mesh built in "
+              f"memory and framed by mesh_scene: {'bit-equal' if bit_eq else 'DIFFERS'}; "
+              f"finite with max > 0 {finite} [{card}]", flush=True)
+        if not (bit_eq and finite):
+            raise RuntimeError(f"headless {label}: the image differs from the in-memory build")
+        # the kernel against the plain path at F42_PARITY^2 on the same scene
+        n = F42_PARITY
+        pp, kern = pipeline_image(sc, cam, (n, n), 1, realtime, scene_data=scene42)
+        cam_p = pp._camera_params if realtime else {k: v[0] for k, v in
+                                                    pp._camera_params.items()}
+        if realtime:
+            got_aov = realtime_frames(pp.scene_data, pp.options, {k: v[None] for k, v in
+                                                                  cam_p.items()}, n, n)
+            plain = render_sample(pp.scene_data, pp.options, cam_p, n, n, mode="realtime",
+                                  jitter_scale=fs.REALTIME_JITTER_SCALE, impl="torch")
+            torch.cuda.synchronize()
+            got_aov = {k: v[0] for k, v in got_aov.items()}
+            got_aov.setdefault("color", got_aov["direct"] + got_aov["indirect_specular"])
+            gate = aov_gate(f"{label} {n}^2 kernel vs plain", got_aov, plain)
+            disp_plain = denoise_composite(plain["direct"], plain["indirect_specular"],
+                                           DenoiseCompositor(device=dev).params, impl="torch")
+            disp_gate = image_gate(f"{label} {n}^2 display vs the plain denoiser", kern,
+                                   disp_plain, 1)
+            gate = {"aov_max_abs_diff": gate, "display": disp_gate}
+        else:
+            plain = render_sample(pp.scene_data, pp.options, cam_p, n, n, impl="torch")["color"]
+            torch.cuda.synchronize()
+            gate = image_gate(f"{label} {n}^2 1 sample kernel vs plain", kern, plain, 1)
+        tv.check_errors()
+        renders42.append({"path": label, "size": list(size), "route": route,
+                          "host_s": cli_s, "bit_equal_in_memory": bit_eq,
+                          f"parity_{n}": gate})
+        note_front(f"phase 42: {label}", counts, route=route, host_s=cli_s,
+                   bit_equal_in_memory=bit_eq, **{f"parity_{n}": gate})
+        del pipe42, scene42, pp, mem, cli_img
+
+    # --checkpoint-every: a render that dies after its frame-4 checkpoint, resumed
+    full_npy, res_npy = os.path.join(d42, "full.npy"), os.path.join(d42, "resumed.npy")
+    ck42 = os.path.join(d42, "ck")
+    base_args = ["--scene", paths42["cornell", "obj"], "--size", f"{M}x{M}", "--spp", "8",
+                 "--device", "cuda"]
+    headless_main(base_args + ["-o", full_npy])
+    real_render = ProgressiveRaytracingPipeline.render
+
+    class ProcessDeath(Exception):
+        pass
+
+    def dies_in_frame_6(self):
+        if self.accum_count == 6:
+            raise ProcessDeath
+        return real_render(self)
+
+    ProgressiveRaytracingPipeline.render = dies_in_frame_6
+    try:
+        headless_main(base_args + ["--save-state", ck42, "--checkpoint-every", "4", "-o",
+                                   res_npy])
+        raise RuntimeError("the interrupted render did not stop")
+    except ProcessDeath:
+        pass
+    finally:
+        ProgressiveRaytracingPipeline.render = real_render
+    frames_done = int(np.load(ck42 + ".npz")["frames_done"])
+    headless_main(base_args + ["--resume", ck42, "-o", res_npy])
+    ck_eq = frames_done == 4 and np.array_equal(np.load(res_npy), np.load(full_npy))
+    print(f"headless --checkpoint-every 4 on 8 spp: the render stopped in frame 6, its "
+          f"checkpoint at frame {frames_done}, resumed: "
+          f"{'bit-equal' if ck_eq else 'DIFFERS'} to the uninterrupted render", flush=True)
+    if not ck_eq:
+        raise RuntimeError("--checkpoint-every + --resume differs from the uninterrupted render")
+    del src42
+
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 43", flush=True)
+    # ---- 43. live material edits, the graft entry and the viewer ------------------------
+    rebake43 = {}
+    for scene_name, want_key in (("cornell-glossy", "B1"), (BVH_PARITY_SCENE, "B5")):
+        sc, cam = build_scene(scene_name)
+        cam.set_aspect(P, P)
+        base = sc.build(dev)
+        edited = dataclasses.replace(sc.materials[0], albedo=(0.2, 0.8, 0.4, 1.0),
+                                     roughness=0.3, reflectivity=0.6)
+        sc.materials[0] = edited
+        fresh = sc.build(dev)
+        got = rebake_material(base, 0, edited)
+        have, want_t = dict(tensor_items(got)), dict(tensor_items(fresh))
+        same = sorted(have) == sorted(want_t) and all(
+            torch.equal(have[k], v) for k, v in want_t.items())
+        imgs = []
+        reset_counts()
+        for scene in (got, fresh):
+            p = ProgressiveRaytracingPipeline(P, P, seed=5, samples_per_frame=PARITY_S, device=dev)
+            p.set_camera(cam)
+            p.set_scene_data(scene)
+            p.update(0.0, 0)
+            imgs.append(p.render().clone())
+        torch.cuda.synchronize()
+        counts = expect_counts(f"rebake {scene_name}", {want_key: 2})
+        img_eq = torch.equal(imgs[0], imgs[1])
+        print(f"rebake_material {scene_name} (material 0; {want_key}): every tensor equal to a "
+              f"fresh build's {same} ({len(want_t)} tensors), the {P}^2 S={PARITY_S} images "
+              f"{'bit-equal' if img_eq else 'DIFFER'}", flush=True)
+        if not (same and img_eq):
+            raise RuntimeError(f"rebake_material on {scene_name} differs from a fresh build")
+        rebake43[scene_name] = {"tensors_equal": same, "image_bit_equal": img_eq}
+        note_front(f"phase 43: rebake_material {scene_name}", counts, bit_equal=img_eq)
+        del base, fresh, got, imgs
+
+    fn43, args43 = entry_mod.entry()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out43 = fn43(*args43)
+    torch.cuda.synchronize()
+    entry_s = time.perf_counter() - t0
+    counts = expect_counts("entry() progressive_step", {"B3 closest": 2, "B3 any": 2})
+    fn_cpu, args_cpu = entry_mod.entry("cpu")
+    want43 = fn_cpu(*args_cpu)
+    d43 = (out43.cpu() - want43).abs()
+    entry_gate = {"within_1e-3": float((d43 <= 1e-3).all(dim=-1).float().mean()),
+                  "mean_abs_diff": float(d43.mean()), "max_abs_diff": float(d43.max()),
+                  "within_2e-5": float((d43 <= 2e-5).all(dim=-1).float().mean())}
+    ok = entry_gate["within_1e-3"] >= 0.99 and entry_gate["mean_abs_diff"] <= 1e-4 and bool(
+        out43.isfinite().all())
+    print(f"entry(): fn(*example_args) at 128^2 on the card in {entry_s * 1e3:.1f} ms host "
+          f"clock, against entry('cpu'): pixels within 1e-3 {entry_gate['within_1e-3']:.4f} "
+          f"(>= 0.99), mean |d| {entry_gate['mean_abs_diff']:.2e} (<= 1e-4), within 2e-5 "
+          f"{entry_gate['within_2e-5']:.4f}, max |d| {entry_gate['max_abs_diff']:.2e} -> "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("entry() on the card differs from entry('cpu')")
+    note_front("phase 43: entry() progressive_step", counts, vs_cpu=entry_gate)
+    del out43, want43, args43, args_cpu
+
+    viewer43 = {}
+    n_events = lambda script: len(viewer_mod.RawKeyboard(mouse=False).parse(script))  # noqa: E731
+    for label, argv, script in (
+            ("cornell-glossy", ["--scene", "cornell-glossy"], VIEWER_SCRIPT),
+            ("instanced:8 --animate-instances", ["--scene", "instanced:8",
+                                                 "--animate-instances"], VIEWER_SCRIPT_TWO)):
+        report = {}
+        buf = io.StringIO()
+        argv = argv + ["--size", f"{VIEWER_W}x{VIEWER_H}", "--display", "kitty",
+                       "--no-ui-state", "--max-frames", str(n_events(script) + 1), "--script",
+                       script, "--auto-checkpoint", os.path.join(d42, "viewer_ck"),
+                       "--checkpoint-every-sec", "0"]
+        torch.cuda.synchronize()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            rc = viewer_mod.main(argv, report=report)
+        torch.cuda.synchronize()
+        got_l = {k: v for k, v in par_launch.launch_counts().items() if v}
+        prog = report["pipeline"].count(ProgressiveRaytracingPipeline.name)
+        rt_n = report["pipeline"].count(RealtimeRaytracingPipeline.name)
+        if label == "cornell-glossy":
+            want_l = {"B1": prog, "B1 realtime": rt_n, "B2": 2 * rt_n}
+            ok_l = got_l == {k: v for k, v in want_l.items() if v}
+        else:  # the wavefront route's traces, B6a; the realtime frames' B2
+            want_l = {"B6a closest": ">0", "B6a any": ">0", "B2": 2 * rt_n}
+            ok_l = (set(got_l) == {"B6a closest", "B6a any", "B2"} and got_l["B2"] == 2 * rt_n)
+        ms = report["frame_ms"]
+        ok = (rc == 0 and report["recoveries"] == 0 and all(report["finite"])
+              and min(report["max"]) > 0.0 and ok_l and report["frames"] == n_events(script)
+              and prog > 0 and rt_n > 0)
+        print(f"viewer {label} {VIEWER_W}x{VIEWER_H} (kitty, stdout captured, "
+              f"{len(buf.getvalue()):,} characters): exit {rc}, {report['frames']} frames "
+              f"presented ({prog} progressive, {rt_n} realtime + denoise; sizes "
+              f"{sorted(set(report['size']))}), recoveries {report['recoveries']}, every frame "
+              f"finite {all(report['finite'])}, min of the frames' max "
+              f"{min(report['max']):.4f}; launches {got_l}, expected {want_l} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        print(f"time viewer {label}: ms per frame (step, host clock, synchronised: the image "
+              f"on the host) median {statistics.median(ms):.3f}, first {ms[0]:.1f}, the "
+              f"frames {', '.join(f'{t:.2f}' for t in ms)} [{card}]", flush=True)
+        if not ok:
+            raise RuntimeError(f"viewer {label} failed its checks")
+        viewer43[label] = {"frames": report["frames"], "recoveries": report["recoveries"],
+                           "frame_ms": ms, "median_ms": statistics.median(ms),
+                           "launches": got_l}
+        note_front(f"phase 43: viewer {label}", got_l, frames=report["frames"],
+                   median_frame_ms=statistics.median(ms))
+
+    # one realtime + denoise viewer frame under device_trace: in a fresh
+    # process (a user's profiling run), which must show B1's and B2's
+    # kernels, and in this one, printed only: late in a full run of this
+    # script, this process's traces have lost the kernels launched through
+    # ctypes, where a fresh process's and a short run's hold them
+    trace_src = (f"import json, sys\nsys.path.insert(0, {ROOT!r})\nimport chip_smoke\n"
+                 "from dxrexperiments_torch.app import viewer\n"
+                 f"app = viewer.ViewerApp('cornell-glossy', {VIEWER_W}, {VIEWER_H})\n"
+                 "app.handle_keys([']'])\n"
+                 "print(json.dumps(chip_smoke.traced_frame_kernels(app, "
+                 f"{os.path.join(d42, 'trace')!r})))\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", trace_src], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600, check=False)
+    trace_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the traced viewer frame's process failed:\n{proc.stderr[-2000:]}")
+    kernels43 = json.loads(proc.stdout.strip().splitlines()[-1])
+    has_b1, has_b2 = b1_b2_traced(kernels43)
+    app43 = viewer_mod.ViewerApp("cornell-glossy", VIEWER_W, VIEWER_H, device=dev)
+    app43.handle_keys(["]"])
+    here43 = traced_frame_kernels(app43, os.path.join(d42, "trace_here"))
+    here_b1, here_b2 = b1_b2_traced(here43)
+    traces43 = {"fresh_process": {"b1": has_b1, "b2_both": has_b2,
+                                  "device_items": len(kernels43)},
+                "this_process": {"b1": here_b1, "b2_both": here_b2, "device_items": len(here43)}}
+    print(f"device_trace of one viewer frame (realtime + denoise, {VIEWER_W}x{VIEWER_H}) in a "
+          f"fresh process ({trace_s:.1f}s): {len(kernels43)} device items, B1 realtime "
+          f"(fused_realtime_kernel) {has_b1}, both B2 passes (bilateral_tile_kernel<0>, <1>) "
+          f"{has_b2}; trace.json {os.path.getsize(os.path.join(d42, 'trace', 'trace.json')):,} "
+          f"bytes -> {'ok' if has_b1 and has_b2 else 'FAIL'}; the same in this process (not "
+          f"gated): {len(here43)} device items, B1 {here_b1}, both B2 {here_b2}", flush=True)
+    if not (has_b1 and has_b2):
+        raise RuntimeError(f"the traced viewer frame shows no B1 or B2 kernel: {kernels43}")
+    tv.check_errors()
+    del app43
+    tmp42.cleanup()
+    print("front end (phases 42-43): " + json.dumps({
+        "mesh_files": loads42, "renders": renders42, "checkpoint_every_resume_bit_equal": ck_eq,
+        "rebake": rebake43, "entry_vs_cpu": entry_gate, "viewer": viewer43,
+        "device_trace_kernels": kernels43, "device_traces": traces43,
+        "card": card}), flush=True)
+
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
     # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b, B4a, B2, B4d, B4c: ptxas, records, times
     # B1 reads each triangle as a record of five float4s (the scene's
@@ -5681,6 +6366,14 @@ def main() -> int:
                 "library_ms_is": "torch.bmm, float32 (cuBLAS), M_ITERS calls",
                 "library_ms_tf32": b7_library[True], "ptxas": ptxas_ov}),
         })
+    # the launches and gates of phases 42-43's new paths, by kernel
+    front_keys = {"fused_progressive_sum": "B1", "fused_realtime_outputs": "B1 realtime",
+                  "bilateral_pass": "B2", "trace_closest": "B3 closest", "trace_any": "B3 any",
+                  "fused_traverse_progressive_sum": "B5", "traverse2_fat_closest": "B6a closest",
+                  "traverse2_fat_any": "B6a any"}
+    for kern in kernels:
+        if kern["name"] in front_keys:
+            kern["front_end_paths"] = front.get(front_keys[kern["name"]], [])
     tv.check_errors()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

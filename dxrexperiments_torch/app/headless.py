@@ -3,8 +3,11 @@ progressive and realtime pipelines).
 
 Builds a scene (the Cornell box, with a glass pane as ``cornell-glass`` or
 with a checker-textured floor and an area light as ``cornell-tex``, a
-random triangle soup ``soup:N`` or a K x K grid of sphere instances
-``instanced:K``; above 4,096 triangles through a BVH) and writes a PNG.
+random triangle soup ``soup:N``, a K x K grid of sphere instances
+``instanced:K``, BASELINE config 2 as written (``config2``: its model and
+probe files under ``assets/``), or a mesh file: .obj, .ply, .gltf, .glb,
+.fbx or .dae; above 4,096 triangles through a BVH) and writes a PNG, or
+with ``-o PATH.npy`` the float32 image before clipping.
 Progressive: accumulates --spp samples (one per frame) and prints spp/s and
 primary rays/s; --ao-only renders the AO view, --refraction adds the
 transmission bounce through glass. Realtime: renders one 1-spp frame,
@@ -25,6 +28,16 @@ Usage:
         --size 512x512 --spp 16 -o out.png
     python -m dxrexperiments_torch.app.headless --scene cornell-glossy \
         --env latlong:sky.hdr --size 1920x1080 --spp 1024 -o out.png
+    python -m dxrexperiments_torch.app.headless --scene model.glb \
+        --size 512x512 --spp 16 -o out.png
+    python -m dxrexperiments_torch.app.headless --scene model.obj --spp 64 \
+        --save-state ck --checkpoint-every 16 -o out.png
+
+A mesh file is loaded with ``scene.mesh.load_mesh(path, on_error="raise")``
+(a file that does not load fails the run; the JAX CLI renders a fallback
+triangle instead) and rendered with the reference framing: the red glossy
+reference material, the default rig, the gradient env, the camera at
+center + (0.3, 0.35, 1.0) x the AABB's diagonal looking at its center.
 
 --env sets the environment: gradient, constant:R,G,B, latlong:PATH (a
 Radiance .hdr, or an LDR image through PIL) or cubemap:PATH (an
@@ -33,8 +46,13 @@ texture env on a small scene routes it through a BVH (``Scene.build``'s
 tex_autoroute), and the megakernels look the texture up at every miss.
 --accel two-level renders the scene as one BLAS per unique mesh under a
 TLAS over its instances; --animate-instances turns the instances each frame
-by a TLAS refit (progressive pipeline). --device defaults to cuda and fails
-without a card; pass --device cpu for the plain PyTorch path.
+by a TLAS refit (progressive pipeline). With --pipeline realtime, --accel
+two-level, --animate-instances, --ao-only and --refraction are ignored and
+the flattened scene renders, as in the JAX CLI; a line names the ignored
+flags. --checkpoint-every N (with --save-state) also writes the checkpoint
+every N frames, so a long render survives the process; --resume continues
+it bit for bit. --device defaults to cuda and fails without a card; pass
+--device cpu for the plain PyTorch path.
 
 --frames-in-flight K (realtime) renders K frames in one dispatch: one B1 or
 B5 launch for the K frames, then their K denoiser chains; the image written
@@ -51,6 +69,7 @@ TILE x SPP; 1x1 runs the sharded code in one process:
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -65,13 +84,25 @@ from ..ops.traverse import check_errors
 from ..scene import Material, Scene, cornell_box, envmap
 from ..scene.lights import area_light, default_lights, directional_light, point_light
 from ..scene.materials import MATERIAL_GLASS
-from ..scene.mesh import Mesh
+from ..scene.mesh import Mesh, load_mesh
 from ..scene.procedural import random_triangle_soup, sphere_mesh
+from ..scene.textures import checker_texture, planar_uvs
 from ..utils.dds import load_cubemap
 from ..utils.image import read_image, write_png
 from ..utils.stats import FrameStats
 
-SCENES = ("cornell", "cornell-glossy", "cornell-glass", "cornell-tex", "soup:N", "instanced:K")
+SCENES = ("cornell", "cornell-glossy", "cornell-glass", "cornell-tex", "soup:N", "instanced:K",
+          "config2")
+MESH_EXTENSIONS = (".obj", ".ply", ".gltf", ".glb", ".fbx", ".dae")
+SCENE_HELP = " | ".join(SCENES) + f" | a mesh file ({', '.join(MESH_EXTENSIONS)})"
+# config 2's files, as the reference app names them, under the repository's assets/
+ASSETS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "assets")
+CONFIG2_FILES = ("models/susanne.obj", "models/ground.fbx", "textures/CathedralRadiance.dds")
+# realtime renders the flattened scene; these progressive-only flags are ignored there
+REALTIME_IGNORED = (("accel", "two-level", "--accel two-level"),
+                    ("animate_instances", True, "--animate-instances"),
+                    ("ao_only", True, "--ao-only"), ("refraction", True, "--refraction"))
 AOV_OPTIONS = {
     "albedo": "show_gbuffer_albedo_only",
     "direct": "show_direct_lighting_only",
@@ -93,7 +124,8 @@ def build_scene(name: str) -> tuple[Scene, Camera]:
     a K x K grid of 960-triangle spheres on a floor with alternating glossy
     and white materials (BASELINE config 5 at K = 32, 983,042 triangles,
     flattened). Soups and instances take the default rig and the gradient
-    env. Mesh files wait for ROADMAP Queue A item 15."""
+    env. 'config2': BASELINE config 2 as written (``config2_scene``). Any
+    other name is a mesh file path (``mesh_scene``)."""
     if name.startswith("soup:"):
         sc, cam = Scene(), Camera()
         sc.add_model(random_triangle_soup(int(name.split(":", 1)[1]), seed=0, extent=10.0))
@@ -103,11 +135,12 @@ def build_scene(name: str) -> tuple[Scene, Camera]:
         return sc, cam
     if name.startswith("instanced:"):
         return _instanced_scene(int(name.split(":", 1)[1]))
+    if name == "config2":
+        return config2_scene()
     if name not in SCENES:
-        raise NotImplementedError(
-            f"scene {name!r} is not ported yet (supported: {', '.join(SCENES)}; "
-            "mesh files: ROADMAP Queue A item 15)"
-        )
+        if os.path.splitext(name)[1].lower() not in MESH_EXTENSIONS:
+            raise ValueError(f"unknown scene {name!r} (supported: {SCENE_HELP})")
+        return mesh_scene(load_mesh(name, on_error="raise"))
     sc = Scene()
     mesh, materials = cornell_box(glossy_tall_box=(name in ("cornell-glossy", "cornell-glass")),
                                   textured_floor=(name == "cornell-tex"))
@@ -139,6 +172,62 @@ def build_scene(name: str) -> tuple[Scene, Camera]:
     sc.environment = envmap.constant_env((0.0, 0.0, 0.0))
     cam = Camera()
     cam.set_eye_at_up((0.0, 1.0, 3.4), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0))
+    return sc, cam
+
+
+def mesh_scene(mesh: Mesh) -> tuple[Scene, Camera]:
+    """A mesh file's scene as the CLI frames it (the JAX CLI's, after the
+    reference app's default framing): the mesh under the red glossy
+    reference material, the default rig, the gradient env, the camera at
+    center + (0.3, 0.35, 1.0) x |AABB diagonal| looking at the AABB's
+    center."""
+    sc, cam = Scene(), Camera()
+    sc.add_model(mesh, material=Material.reference_default())
+    sc.lights = default_lights()
+    sc.environment = envmap.gradient_env()
+    lo, hi = mesh.aabb()
+    center = (lo + hi) / 2
+    extent = float(np.linalg.norm(hi - lo))
+    eye = center + np.array([0.3, 0.35, 1.0]) * extent
+    cam.set_eye_at_up(eye, center, (0.0, 1.0, 0.0))
+    return sc, cam
+
+
+def config2_scene(assets: str | None = None) -> tuple[Scene, Camera]:
+    """BASELINE config 2 as written (the JAX CLI's 'config2'): the susanne
+    OBJ (x4, at y = 4.2, the glossy reference material) on the ground FBX
+    (planar UVs x40, a 16 x 16 checker albedo texture), 1 directional + 1
+    area light, the cathedral radiance cubemap. Its three files
+    (CONFIG2_FILES under ``assets``, default ASSETS_DIR) are not in the
+    repository; a missing one raises FileNotFoundError naming it (the JAX
+    CLI's load_mesh would render a fallback triangle for a missing model)."""
+    assets = ASSETS_DIR if assets is None else assets
+    paths = [os.path.join(assets, f) for f in CONFIG2_FILES]
+    for path in paths:
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"config2 needs {path}, which is missing (config 2's "
+                                    "model and probe files are not in the repository)")
+    sus = load_mesh(paths[0], on_error="raise")
+    gnd = load_mesh(paths[1], on_error="raise")
+    planar_uvs(gnd, scale=40.0)
+    sc, cam = Scene(), Camera()
+    glossy = sc.add_material(Material.reference_default())
+    floor = sc.add_material(Material(
+        albedo=(0.85, 0.85, 0.85, 1.0), roughness=0.9,
+        albedo_texture=checker_texture(16, (1.0, 1.0, 1.0), (0.45, 0.42, 0.38), size=128),
+    ))
+    t = np.eye(4, dtype=np.float32)
+    t[:3, :3] *= 4.0
+    t[1, 3] = 4.2
+    sc.add_model(sus, transform=t, material=glossy)
+    sc.add_model(gnd, material=floor)
+    sc.lights = {
+        "dir": [directional_light((0.3, -0.75, -0.6), (1.0, 0.96, 0.9, 1.2))],
+        "point": [],
+        "area": [area_light((-6.0, 14.0, 6.0), (4.0, 0, 0), (0, 0, -4.0), (1.0, 0.95, 0.85, 3.0))],
+    }
+    sc.environment = envmap.cubemap_env(load_cubemap(paths[2]))
+    cam.set_eye_at_up((8.0, 7.0, 16.0), (0.0, 4.0, 0.0), (0.0, 1.0, 0.0))
     return sc, cam
 
 
@@ -198,7 +287,7 @@ def parse_env(spec: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--scene", default="cornell", help=" | ".join(SCENES))
+    ap.add_argument("--scene", default="cornell", help=SCENE_HELP)
     ap.add_argument("--accel", default="auto", choices=["auto", "two-level"],
                     help="auto: flattened world-space build, with a BVH above 4096 "
                          "triangles; two-level: one BLAS per unique mesh and a refittable "
@@ -238,11 +327,15 @@ def main(argv=None) -> int:
     ap.add_argument("--tonemap", action="store_true", help="Reinhard + gamma the output")
     ap.add_argument("--save-state", default=None, metavar="PATH",
                     help="write the accumulation checkpoint to PATH.npz at the end")
+    ap.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                    help="progressive: also write --save-state every N frames, so a long "
+                         "render survives a process death mid-run")
     ap.add_argument("--resume", default=None, metavar="PATH",
                     help="resume from a --save-state checkpoint (bit-identical continuation)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; fails without a card) or cpu (plain PyTorch path)")
-    ap.add_argument("-o", "--output", default="out.png")
+    ap.add_argument("-o", "--output", default="out.png",
+                    help="the image: a .png, or a .npy (the float32 image before clipping)")
     args = ap.parse_args(argv)
 
     if (args.save_state or args.resume) and args.pipeline != "progressive":
@@ -251,6 +344,8 @@ def main(argv=None) -> int:
     if (args.save_state or args.resume) and args.shard:
         ap.error("--save-state/--resume is the single-process path; it does not combine "
                  "with --shard")
+    if args.checkpoint_every and not args.save_state:
+        ap.error("--checkpoint-every needs --save-state PATH")
     if args.frames_in_flight < 1:
         ap.error(f"--frames-in-flight must be >= 1 (got {args.frames_in_flight})")
     if args.frames_in_flight > 1 and args.pipeline != "realtime":
@@ -260,12 +355,15 @@ def main(argv=None) -> int:
                        or args.animate_instances or args.temporal is not None):
         ap.error("--shard renders without --frames-in-flight, --refraction, --aov, "
                  "--animate-instances and --temporal")
-    if (args.ao_only or args.refraction) and args.pipeline != "progressive":
-        ap.error("--ao-only and --refraction drive the progressive pipeline")
+    if args.pipeline == "realtime" and not args.shard:
+        ignored = [flag for key, on, flag in REALTIME_IGNORED if getattr(args, key) == on]
+        if ignored:
+            print(f"realtime: ignoring {', '.join(ignored)} (progressive flags; the realtime "
+                  f"pipeline renders the flattened scene)")
+        args.accel, args.animate_instances, args.ao_only, args.refraction = (
+            "auto", False, False, False)
     if args.animate_instances:
         args.accel = "two-level"
-    if args.accel == "two-level" and args.pipeline != "progressive":
-        ap.error("--accel two-level and --animate-instances drive the progressive pipeline")
     args.spp = max(args.spp, 1)
     width, height = (int(x) for x in args.size.lower().split("x"))
     if width < 1 or height < 1:
@@ -280,10 +378,19 @@ def main(argv=None) -> int:
         img = _render_realtime(args, scene, camera, width, height)
     else:
         img = _render_progressive(args, scene, camera, width, height)
-    img = np.clip(img, 0.0, 1.0)
-    write_png(args.output, img)
-    print(f"wrote {args.output} (mean {img.mean():.4f}, max {img.max():.4f})")
+    write_image(args.output, img)
     return 0
+
+
+def write_image(path: str, img: np.ndarray) -> None:
+    """A .npy path gets the float32 image as rendered; any other path a PNG
+    of the image clipped to [0, 1]."""
+    if path.lower().endswith(".npy"):
+        np.save(path, np.asarray(img, np.float32))
+    else:
+        img = np.clip(img, 0.0, 1.0)
+        write_png(path, img)
+    print(f"wrote {path} (mean {img.mean():.4f}, max {img.max():.4f})")
 
 
 def _render_realtime(args, scene, camera, width, height) -> np.ndarray:
@@ -370,9 +477,7 @@ def _main_sharded(args, width, height) -> int:
             dist.destroy_process_group()
     if rank == 0:
         print(f"{what} at {width}x{height} in {dt:.2f}s")
-        img = np.clip(img, 0.0, 1.0)
-        write_png(args.output, img)
-        print(f"wrote {args.output} (mean {img.mean():.4f}, max {img.max():.4f})")
+        write_image(args.output, img)
     return 0
 
 
@@ -407,6 +512,9 @@ def _render_progressive(args, scene, camera, width, height) -> np.ndarray:
         pipe.update(elapsed_time=frame / 60.0, elapsed_frames=frame)
         out = pipe.render()
         stats.frame()
+        if (args.save_state and args.checkpoint_every
+                and (frame + 1) % args.checkpoint_every == 0 and frame + 1 < args.spp):
+            pipe.save_checkpoint(args.save_state, frames_done=frame + 1)
     if pipe.device.type == "cuda":
         torch.cuda.synchronize(pipe.device)
         check_errors()

@@ -22,8 +22,43 @@ from ..ops import fused_sample, fused_traverse, traverse
 from ..scene.dynamic import refit_scene_instances
 from ..scene.lights import default_lights
 from ..scene.scene import scene_device
-from ..trace.integrator import default_options, progressive_sample_sum, resolve_impl
+from ..trace.integrator import (
+    default_options,
+    progressive_sample_sum,
+    render_sample,
+    resolve_impl,
+)
 from .base import RaytracingPipeline, has_camera_moved, select_route, wall_seed
+
+
+def progressive_step(
+    scene: dict,
+    options: dict,
+    camera: dict,
+    accum: torch.Tensor,
+    max_iterations,
+    width: int,
+    height: int,
+    ao_only: bool = False,
+) -> torch.Tensor:
+    """One accumulation step with the scene as an argument
+    (``dxrexperiments_tpu.models.progressive.progressive_step``): one sample
+    of ``camera`` through the integrator's ``render_sample``, folded into
+    ``accum`` as ``(count * accum + color) / (count + 1)`` with count the
+    camera's ``accum_count``; ``accum`` unchanged once count reaches
+    ``max_iterations``. On a CUDA scene the integrator's traces launch the
+    scene's trace kernels (B3 for a brute-force scene such as the Cornell
+    box, B4a or B4b with a BVH, B6a or B6b two-level); on the CPU they are
+    the plain versions. ``make_progressive_step`` is the pipelines' step
+    (the megakernel routes, S samples a dispatch)."""
+    count = float(camera["accum_count"])
+    if count >= float(max_iterations):
+        return accum
+    cur = render_sample(scene, options, camera, width, height, mode="progressive",
+                        ao_only=ao_only, jitter_scale=30.0,
+                        impl=resolve_impl("auto", scene_device(scene)),
+                        env_kind=int(scene["env"]["kind"]))["color"]
+    return (count * accum + cur) / (count + 1.0)
 
 
 def make_progressive_step(

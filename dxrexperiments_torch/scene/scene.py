@@ -12,8 +12,10 @@ scene where it can); 'bvh' always, 'none' never. A scene with a textured
 material carries ``textures`` (``scene/textures.py``: the texel table and
 the per-material meta) and the corner UVs ``uv0``, ``uv1``, ``uv2`` [T, 2]
 (two-level: ``uv0_obj`` ...). Both builds place the scene on the card by
-default and raise without one. Not ported, and raising: the PRIME t_max
-table (``DXR_PRIME=1``, ROADMAP Queue A item 11, for both builds).
+default and raise without one. ``rebake_material`` replaces one material
+of a built flat scene (the viewer's live edit), rebuilding the arrays that
+hold material values. Not ported, and raising: the PRIME t_max table
+(``DXR_PRIME=1``, ROADMAP Queue A item 11, for both builds).
 """
 
 from __future__ import annotations
@@ -440,3 +442,40 @@ class Scene:
 def scene_device(scene: dict) -> torch.device:
     """The device a scene dict's geometry lives on (flattened or two-level)."""
     return scene["materials"]["albedo"].device
+
+
+def rebake_material(scene: dict, index: int, material: Material) -> dict:
+    """A scene dict with material ``index`` replaced by ``material``
+    (``dxrexperiments_tpu.scene.scene.rebake_material``): the live
+    material edit of the viewer. Rebuilds every derived array that holds
+    material values, on the scene's device: the stacked ``materials``,
+    ``attr_pack`` rows 10-23 (the material row of each triangle, read by B1,
+    B3 and the plain paths) from the unchanged per-triangle ``mat_id``, and
+    ``material_pack`` (B5's material table) where the scene has one. The
+    arrays that hold geometry and material ids only (``mt_pack``,
+    ``tri_records``, the ``bvh`` with ``ft_test`` / ``ft_attr``) are shared
+    with ``scene``, unchanged; so is the albedo texture table (JAX's
+    function rebuilds no texture either). The input dict is not modified.
+
+    A two-level scene (``Scene.build_two_level``) has no ``mat_id`` or
+    ``attr_pack``: it raises KeyError, as JAX's function does on the same
+    dict."""
+    m = stack_materials_np([material])
+    mats = {}
+    for k, v in scene["materials"].items():
+        mats[k] = v.clone()
+        mats[k][index] = torch.as_tensor(m[k][0]).to(v.device, v.dtype)
+    mid = scene["mat_id"]
+    attr = scene["attr_pack"].clone()
+    attr[10:13] = mats["albedo"][mid].T
+    attr[13:16] = mats["specular"][mid].T
+    attr[16:19] = mats["emissive"][mid].T
+    attr[19] = mats["emissive_strength"][mid]
+    attr[20] = mats["reflectivity"][mid]
+    attr[21] = mats["roughness"][mid]
+    attr[22] = mats["ior"][mid]
+    attr[23] = mats["type"][mid].to(torch.float32)
+    out = dict(scene, materials=mats, attr_pack=attr)
+    if "material_pack" in scene:
+        out["material_pack"] = material_pack(mats)
+    return out

@@ -410,8 +410,14 @@ def test_cli_brute_wavefront(tmp_path, capsys, args):
     assert out.exists() and "progressive (cpu): 2 spp" in capsys.readouterr().out
     assert (tik.CLOSEST_LAUNCHES, tik.ANY_LAUNCHES) == before
     if "--ao-only" in args:
-        with pytest.raises(SystemExit):
-            thead.main([*args, "--pipeline", "realtime", "--device", "cpu", "-o", str(out)])
+        # realtime has no AO view: it renders the beauty frame and says it
+        # ignored the flag, as the JAX CLI renders it
+        rt = ["--pipeline", "realtime", "--size", "16x16", "--device", "cpu"]
+        flagged, plain = tmp_path / "flagged.npy", tmp_path / "plain.npy"
+        assert thead.main([*args, *rt, "-o", str(flagged)]) == 0
+        assert "realtime: ignoring --ao-only" in capsys.readouterr().out
+        assert thead.main([*rt, "-o", str(plain)]) == 0
+        assert np.array_equal(np.load(flagged), np.load(plain))
 
 
 def test_wrapper_windows():

@@ -39,3 +39,17 @@ def test_parallel_modules_are_walked():
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
     assert {"dxrexperiments_torch.parallel", "dxrexperiments_torch.parallel.render",
             "dxrexperiments_torch.parallel.launch"} <= names
+
+
+def test_front_end_modules_are_walked():
+    """The front ends, the loaders, the entry and the input helpers are among
+    the modules the check above imports."""
+    import pkgutil
+
+    import dxrexperiments_torch as pkg
+
+    names = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+    assert {f"dxrexperiments_torch.{m}" for m in (
+        "entry", "app.viewer", "app.headless", "scene.mesh", "scene.gltf", "scene.fbx",
+        "scene.collada", "core.timer", "core.camera_controller", "core.gamepad",
+        "utils.profiling", "utils.native")} <= names

@@ -155,9 +155,14 @@ def test_cli_two_level_animated(tmp_path, capsys):
                        "--size", "16x16", "--spp", "2", "--device", "cpu", "-o", str(out)]) == 0
     assert out.exists() and "progressive (cpu): 2 spp" in capsys.readouterr().out
     assert (tt2.CLOSEST_LAUNCHES, tt2.ANY_LAUNCHES) == before
-    with pytest.raises(SystemExit):
-        thead.main(["--pipeline", "realtime", "--accel", "two-level", "--device", "cpu",
-                    "-o", str(out)])
+    # realtime renders the flattened scene and says it ignored the flag, as the
+    # JAX CLI renders it
+    rt = ["--pipeline", "realtime", "--scene", "instanced:2", "--size", "16x16", "--device", "cpu"]
+    flagged, flat = tmp_path / "flagged.npy", tmp_path / "flat.npy"
+    assert thead.main(rt + ["--accel", "two-level", "-o", str(flagged)]) == 0
+    assert "realtime: ignoring --accel two-level" in capsys.readouterr().out
+    assert thead.main(rt + ["-o", str(flat)]) == 0
+    assert np.array_equal(np.load(flagged), np.load(flat))
 
 
 def test_two_level_prime_raises(monkeypatch):
