@@ -428,7 +428,33 @@ Phases, each of which raises on failure:
      device_trace in a fresh process, whose kernels must include B1's
      realtime kernel and both B2 passes (the same trace in this process is
      printed, not gated: late in a full run it has lost the ctypes-launched
-     kernels).
+     kernels);
+ 44. re-baked instances, PRIME seeding, ray sorting and the device BVH build
+     (run after phase 43): (a) 16 boxes (12 triangles in 16 rows each: 256
+     rows, B1's limit) re-baked on the card by scene.dynamic.bake_instances
+     for each of 8 dispatches (the CLI's yaw, 0.05 rad a dispatch), passed
+     as geometry= to one make_progressive_step at 512^2, S = 16: exactly 8
+     B1 launches, each bake (host clock, synchronised) and dispatch (CUDA
+     events) timed, dispatch 0's bake equal to the CPU's within 1e-6 and
+     its image against the B1 image of a host Scene.build of the same 16
+     boxes on the image gate, dispatch 7's image differing from dispatch
+     0's; (b) 4 spheres of 960 triangles (1,024 rows each: 4,096 rows, the
+     largest brute-force size with records) the same way, 4 dispatches of
+     S = 4 through the wavefront route: exactly 32 + 32 B3 launches,
+     dispatch 0 against the host build's image and its first sample
+     against the plain path on 4,096 sampled pixels; (c) PRIME on config 5:
+     one two-level dispatch of S = 4 (B6a) and one flattened wavefront
+     frame (B4a) with DXR_PRIME=1 and without, bit-equal, the bounce
+     launch's hits bit-equal with the seeded t_max, the share of active
+     bounce lanes seeded, the bounce launch alone seeded and unseeded in 5
+     turns, and _prime_seed_tmax's ms; (d) the flattened frame's bounce
+     closest and depth-0 shadow any launches sorted by _ray_sort_order
+     (trace.integrator._sorted_trace, and through sort_rays=True) against
+     the launch order, bit-equal, the walk alone and the walk with the
+     argsort, gather and scatter in 5 turns; (e) accel.bvh.build_bvh_device
+     on the card over the 983,042 flattened triangles and over each (b)
+     bake: order equal to the host Morton build_bvh's, nodes within 1e-6,
+     the seconds of both.
 
 Every kernel's bound (bound_ms) is the larger of its operations over the
 H100's float32 peak (67 TFLOP/s without tensor cores, an FMA counted as two
@@ -1830,7 +1856,13 @@ def main() -> int:
     from dxrexperiments_torch.app.headless import main as headless_main
     from dxrexperiments_torch.core.camera_controller import InputState
     from dxrexperiments_torch.core import rng as trng
-    from dxrexperiments_torch.core.camera import camera_params, primary_ray_grid, stack_cameras
+    from dxrexperiments_torch.accel import bvh as tbvh
+    from dxrexperiments_torch.core.camera import (
+        Camera,
+        camera_params,
+        primary_ray_grid,
+        stack_cameras,
+    )
     from dxrexperiments_torch.core.device import setup_device
     from dxrexperiments_torch.models.base import select_route
     from dxrexperiments_torch.models.denoise import (
@@ -1838,7 +1870,10 @@ def main() -> int:
         denoise_composite,
         denoise_composite_frames,
     )
-    from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
+    from dxrexperiments_torch.models.progressive import (
+        ProgressiveRaytracingPipeline,
+        make_progressive_step,
+    )
     from dxrexperiments_torch.models.realtime import (
         RealtimeRaytracingPipeline,
         make_realtime_denoise_frames_step,
@@ -1855,10 +1890,15 @@ def main() -> int:
     from dxrexperiments_torch.parallel import launch as par_launch
     from dxrexperiments_torch.parallel import render as par
     from dxrexperiments_torch.scene import Scene, cornell_box, envmap
-    from dxrexperiments_torch.scene.dynamic import refit_scene_instances
+    from dxrexperiments_torch.scene.dynamic import (
+        bake_instances,
+        prepare_base,
+        refit_scene_instances,
+    )
     from dxrexperiments_torch.scene.lights import area_light, default_lights, directional_light
+    from dxrexperiments_torch.scene.materials import Material
     from dxrexperiments_torch.scene.mesh import Mesh, load_mesh
-    from dxrexperiments_torch.scene.procedural import sphere_mesh
+    from dxrexperiments_torch.scene.procedural import box_mesh, sphere_mesh
     from dxrexperiments_torch.scene.scene import rebake_material
     from dxrexperiments_torch.trace import integrator as tint
     from dxrexperiments_torch.trace.integrator import (
@@ -5940,6 +5980,393 @@ def main() -> int:
         "device_trace_kernels": kernels43, "device_traces": traces43,
         "card": card}), flush=True)
 
+    print(f"[{time.perf_counter() - t_start:.1f}s] phase 44", flush=True)
+    # ---- 44. re-baked instances, PRIME seeding, ray sorting, the device BVH build ----
+    t44 = time.perf_counter()
+    paths44 = {}  # counter name -> [{"path", "launches"}] of this phase's main paths
+    report44 = {"card": card}
+
+    def note44(label, counts):
+        for k, v in counts.items():
+            if v:
+                paths44.setdefault(k, []).append({"path": label, "launches": v})
+
+    def synced_s(fn):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t1
+
+    def host_instances(mesh, mats, tfs, over):
+        sc = Scene()
+        for m in mats:
+            sc.add_material(m)
+        for t, o in zip(tfs, over):
+            sc.add_model(mesh, transform=t, material=None if o < 0 else int(o))
+        return sc
+
+    def bake_equal_cpu(label, baked, base_cpu, tfs, over):
+        """The card's bake against the same bake on the CPU, 1e-6 relative."""
+        cpu = bake_instances(base_cpu, tfs, over)
+        worst = 0.0
+        for k, v in cpu.items():
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                g = baked[k].cpu()
+                worst = max(worst, float(((g - v).abs() / v.abs().clamp(min=1.0)).max()))
+            elif isinstance(v, torch.Tensor) and not torch.equal(baked[k].cpu(), v):
+                raise RuntimeError(f"{label}: the card's bake differs from the CPU's in {k}")
+        print(f"{label}: the card's bake against the CPU's, max |d| / max(1, |x|) {worst:.2e} "
+              f"(<= 1e-6) -> {'ok' if worst <= 1e-6 else 'FAIL'}", flush=True)
+        if worst > 1e-6:
+            raise RuntimeError(f"{label}: the card's bake differs from the CPU's by {worst}")
+        return worst
+
+    def dispatch_loop(label, step, base, tf_of, over, cams_of, n, env44):
+        """n dispatches, each on a fresh bake passed as geometry: the bakes
+        (host clock, synchronised) and the dispatches (CUDA events around
+        step) timed one by one. Returns (images, bakes, bake ms, dispatch ms)."""
+        imgs, bakes, bake_ms, disp_ms = [], [], [], []
+        zero = torch.zeros((M, M, 3), dtype=torch.float32, device=dev)
+        for k in range(n):
+            baked, s = synced_s(lambda: bake_instances(base, tf_of(k), over))
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            img = step(zero, opts44, cams_of(k), default_lights(), env44, 1024, geometry=baked)
+            end.record()
+            torch.cuda.synchronize()
+            imgs.append(img)
+            bakes.append(baked)
+            bake_ms.append(s * 1e3)
+            disp_ms.append(start.elapsed_time(end))
+        print(f"{label}: {n} dispatches on fresh bakes, bake ms (host clock, synchronised) "
+              f"{[round(x, 3) for x in bake_ms]}, dispatch ms (CUDA events) "
+              f"{[round(x, 3) for x in disp_ms]} [{card}]", flush=True)
+        return imgs, bakes, bake_ms, disp_ms
+
+    def differing_census(name, got, want, scene, o, d):
+        """Where two walks of the same rays part: the hit gate and, on a
+        flattened scene, the tail census of the rays that hit the same
+        triangle (printed; the caller raises)."""
+        for fn in (lambda: hit_gate(name, got, want, torch),
+                   lambda: scene is not None and tail_census(name, got, want, scene, o, d)):
+            try:
+                fn()
+            except RuntimeError as exc:
+                print(f"{name}: {exc}", flush=True)
+
+    def yawed(base_tf, k):  # the CLI's --animate-instances turn, 0.05 rad a frame
+        return np.einsum("ij,njk->nik", yaw_matrix(0.05 * k), base_tf).astype(np.float32)
+
+    mats44 = [Material(albedo=(0.8, 0.75, 0.7, 1.0)),
+              Material(albedo=(0.85, 0.2, 0.15, 1.0), type=1, reflectivity=0.4, roughness=0.3)]
+    env44 = envmap.gradient_env()
+    opts44 = default_options()
+
+    # (a) 16 boxes (12 triangles, 16 rows each: 256 rows, B1's MAX_TRIS), B1
+    box44 = box_mesh((0.0, 0.5, 0.0), (1.0, 1.0, 1.0), 0)
+    tf_a = np.stack([transform(((i % 4 - 1.5) * 2.5, 0.0, (i // 4 - 1.5) * 2.5), yaw=0.3 * i)
+                     for i in range(16)])
+    over_a = np.array([-1, 1] * 8, np.int64)
+    base_sc = Scene()
+    for m in mats44:
+        base_sc.add_material(m)
+    base_sc.add_model(box44)
+    base_a = prepare_base(base_sc.build(dev, accel="none"), 16)
+    base_a_cpu = prepare_base(base_sc.build("cpu", accel="none"), 16)
+    cam_a = Camera()
+    cam_a.set_eye_at_up((0.0, 8.0, 11.0), (0.0, 0.5, 0.0), (0.0, 1.0, 0.0))
+    cam_a.set_aspect(M, M)
+    cams_a = [cameras(cam_a, M, M, MAIN_S, 4400 + 100 * k) for k in range(MAIN_FRAMES)]
+    bake_a0 = bake_instances(base_a, tf_a, over_a, lights=default_lights(), env=env44)
+    if bake_a0["num_tris"] != 256 or select_route(bake_a0, "progressive") != "fused":
+        raise RuntimeError(f"the 16 baked boxes do not take B1: {bake_a0['num_tris']} rows")
+    step_a = make_progressive_step(bake_a0, M, M, samples_per_step=MAIN_S)
+    torch.cuda.synchronize()
+    reset_counts()
+    imgs_a, bakes_a, bake_ms_a, disp_ms_a = dispatch_loop(
+        f"phase 44a B1 16 re-baked boxes {M}^2 S={MAIN_S}", step_a, base_a,
+        lambda k: yawed(tf_a, k), over_a, lambda k: cams_a[k], MAIN_FRAMES, env44)
+    note44("44a: 16 re-baked boxes, 8 dispatches of S = 16 (B1)",
+           expect_counts("phase 44a (8 dispatches, each on a fresh bake)", {"B1": MAIN_FRAMES}))
+    err_a = bake_equal_cpu("phase 44a dispatch 0", bakes_a[0], base_a_cpu, yawed(tf_a, 0), over_a)
+    host_a = host_instances(box44, mats44, yawed(tf_a, 0), over_a)
+    host_a.lights, host_a.environment = default_lights(), env44
+    host_a_scene = host_a.build(dev)
+    want_a = step_a(torch.zeros_like(imgs_a[0]), opts44, cams_a[0], default_lights(), env44,
+                    1024, geometry=host_a_scene)
+    gate_a = image_gate(f"phase 44a dispatch 0 (bake, {bake_a0['num_tris']} rows) vs the host "
+                        f"build of the same 16 boxes ({host_a_scene['num_tris']} triangles), B1, "
+                        f"{M}^2 S={MAIN_S}", imgs_a[0] * MAIN_S, want_a * MAIN_S, MAIN_S)
+    moved_a = float((imgs_a[-1] - imgs_a[0]).abs().mean())
+    if not moved_a > 1e-4 or not all(bool(i.isfinite().all()) for i in imgs_a):
+        raise RuntimeError(f"phase 44a: dispatch 7's image does not differ from dispatch 0's "
+                           f"(mean |d| {moved_a})")
+    b1_alone = [kernel_ms(fs.prepare_launch(dict(bakes_a[k], lights=default_lights(), env=env44),
+                                            opts44, cams_a[k], M, M, env44["kind"], False, 0,
+                                            0)[:2], 5, torch) for k in (0, MAIN_FRAMES - 1)]
+    print(f"phase 44a: dispatch 7 vs 0 mean |d| {moved_a:.4f} (the transforms reached B1); "
+          f"B1 launch alone {b1_alone[0]:.4f} / {b1_alone[1]:.4f} ms (dispatch 0 / 7) [{card}]",
+          flush=True)
+    report44["a_b1"] = {"bake_ms": bake_ms_a, "dispatch_ms": disp_ms_a, "b1_alone_ms": b1_alone,
+                        "cpu_bake_max_rel": err_a, "host_build_gate": gate_a,
+                        "moved_mean_abs": moved_a}
+    del bakes_a, imgs_a, host_a_scene, want_a, base_a_cpu
+
+    # (b) 4 spheres (960 triangles, 1,024 rows each: 4,096 rows), the wavefront route, B3
+    sph44 = sphere_mesh((0.0, 1.0, 0.0), 1.0, lat=16, lon=32)
+    tf_b = np.stack([transform(((i % 2 - 0.5) * 2.5, 0.0, (i // 2 - 0.5) * 2.5), yaw=0.4 * i)
+                     for i in range(4)])
+    over_b = np.array([0, 1, 1, 0], np.int64)
+    base_sc = Scene()
+    for m in mats44:
+        base_sc.add_material(m)
+    base_sc.add_model(sph44)
+    base_b = prepare_base(base_sc.build(dev, accel="none"), 4)
+    base_b_cpu = prepare_base(base_sc.build("cpu", accel="none"), 4)
+    cam_b = Camera()
+    cam_b.set_eye_at_up((0.0, 4.5, 6.5), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0))
+    cam_b.set_aspect(M, M)
+    cams_b = [cameras(cam_b, M, M, BVH_S, 4500 + 100 * k) for k in range(BVH_DISPATCHES)]
+    bake_b0 = bake_instances(base_b, tf_b, over_b, lights=default_lights(), env=env44)
+    if (bake_b0["num_tris"] != 4096 or "tri_records" not in bake_b0
+            or select_route(bake_b0, "progressive") != "wavefront"):
+        raise RuntimeError("the 4 baked spheres do not take the brute-force wavefront route")
+    step_b = make_progressive_step(bake_b0, M, M, samples_per_step=BVH_S)
+    torch.cuda.synchronize()
+    reset_counts()
+    imgs_b, bakes_b, bake_ms_b, disp_ms_b = dispatch_loop(
+        f"phase 44b B3 4 re-baked spheres {M}^2 S={BVH_S}", step_b, base_b,
+        lambda k: yawed(tf_b, k), over_b, lambda k: cams_b[k], BVH_DISPATCHES, env44)
+    want_n = BVH_DISPATCHES * BVH_S * 2
+    note44("44b: 4 re-baked spheres, 4 dispatches of S = 4 (B3)",
+           expect_counts("phase 44b (4 dispatches, each on a fresh bake)",
+                         {"B3 closest": want_n, "B3 any": want_n}))
+    err_b = bake_equal_cpu("phase 44b dispatch 0", bakes_b[0], base_b_cpu, yawed(tf_b, 0), over_b)
+    host_b = host_instances(sph44, mats44, yawed(tf_b, 0), over_b)
+    host_b.lights, host_b.environment = default_lights(), env44
+    host_b_scene = host_b.build(dev)
+    if "bvh" in host_b_scene:
+        raise RuntimeError("the host build of the 4 spheres got a BVH")
+    want_b = step_b(torch.zeros_like(imgs_b[0]), opts44, cams_b[0], default_lights(), env44,
+                    1024, geometry=host_b_scene)
+    gate_b = image_gate(f"phase 44b dispatch 0 (bake, 4,096 rows) vs the host build of the same 4 "
+                        f"spheres ({host_b_scene['num_tris']} triangles), B3, {M}^2 S={BVH_S}",
+                        imgs_b[0] * BVH_S, want_b * BVH_S, BVH_S)
+    full_b = dict(bakes_b[0], lights=default_lights(), env=env44)
+    cam1_b = {k: v[0] for k, v in cams_b[0].items()}
+    wave_b44 = render_sample(full_b, opts44, cam1_b, M, M, impl="cuda")["color"]
+    o44, d44 = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(cam1_b, M, M, fs.JITTER_SCALE))
+    pick44 = torch.as_tensor(rng.choice(M * M, COUNT_PIXELS, replace=False), device=dev)
+    seeds44 = trng.pixel_seeds(M, M, cam1_b["frame_count"], device=dev).reshape(-1)
+    plain_b = trace_rays(full_b, opts44, o44[pick44], d44[pick44], seeds44[pick44],
+                         impl="torch")["color"][None]
+    gate_b_plain = image_gate(f"phase 44b the B3 wavefront route on the bake vs plain, "
+                              f"{COUNT_PIXELS} sampled pixels of {M}^2, 1 sample",
+                              wave_b44.reshape(-1, 3)[pick44][None], plain_b, 1)
+    report44["b_b3"] = {"bake_ms": bake_ms_b, "dispatch_ms": disp_ms_b, "cpu_bake_max_rel": err_b,
+                        "host_build_gate": gate_b, "plain_gate": gate_b_plain}
+    del imgs_b, host_b_scene, want_b, wave_b44, plain_b, o44, d44, base_b_cpu
+
+    # (c) PRIME on config 5: the two-level dispatch (B6a) and the flattened frame (B4a)
+    prime_env = os.environ.get("DXR_PRIME")
+
+    def with_prime(on, fn):
+        os.environ["DXR_PRIME"] = "1" if on else "0"
+        try:
+            return fn()
+        finally:
+            if prime_env is None:
+                os.environ.pop("DXR_PRIME", None)
+            else:
+                os.environ["DXR_PRIME"] = prime_env
+
+    if "prime_v0" not in scene2:
+        raise RuntimeError(f"{BVH_MAIN_SCENE} two-level carries no PRIME table")
+    two44 = {}
+    for on in (False, True):
+        pipe44 = ProgressiveRaytracingPipeline(M, M, seed=44, samples_per_frame=BVH_S, device=dev)
+        pipe44.set_camera(cam32)
+        pipe44.set_scene_data(scene2)
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        with_prime(on, lambda: (pipe44.update(0.0, 0), pipe44.render()))
+        torch.cuda.synchronize()
+        two44[on] = (pipe44.get_output().clone(), time.perf_counter() - t1)
+        note44(f"44c: {BVH_MAIN_SCENE} two-level, one dispatch of S = {BVH_S}, DXR_PRIME="
+               f"{int(on)} (B6a)",
+               expect_counts(f"phase 44c two-level dispatch DXR_PRIME={int(on)}",
+                             {"B6a closest": 2 * BVH_S, "B6a any": 2 * BVH_S}))
+    if not torch.equal(two44[False][0], two44[True][0]):
+        diff = (two44[False][0] - two44[True][0]).abs()
+        raise RuntimeError(f"phase 44c: the two-level dispatch with DXR_PRIME=1 differs from "
+                           f"the one without on {int((diff > 0).any(-1).sum())} pixels")
+    print(f"phase 44c: {BVH_MAIN_SCENE} two-level dispatch with and without DXR_PRIME=1 "
+          f"bit-equal; host s {two44[False][1]:.3f} / {two44[True][1]:.3f} (off / on, "
+          f"synchronised)", flush=True)
+    del pipe44
+
+    scene_f, build_f_s = synced_s(lambda: sc32.build(dev))
+    if "prime_v0" not in scene_f or "bvhf_nodes" not in scene_f["bvh"]:
+        raise RuntimeError(f"{BVH_MAIN_SCENE} flattened has no PRIME table or no fat nodes")
+    cam44 = {k: v[0] for k, v in cameras(cam32, M, M, 1, 4600).items()}
+
+    def traced_frame(scene, mod, names, on):
+        rec = []
+        with TraceHook(mod, lambda o, d, t_min, t_max, cull, occlusion: rec.append(
+                (o, d, t_min, t_max, cull, occlusion)), names):
+            img = with_prime(on, lambda: render_sample(scene, opts44, cam44, M, M,
+                                                       impl="cuda")["color"])
+        torch.cuda.synchronize()
+        if [t[5] for t in rec] != [False, True, False, True]:
+            raise RuntimeError(f"phase 44c: expected closest, any, closest, any traces, got "
+                               f"{[t[5] for t in rec]}")
+        return img, rec
+
+    frames44 = {}
+    for on in (False, True):
+        reset_counts()
+        frames44["flat", on] = traced_frame(scene_f, tv, TraceHook.B4A, on)
+        note44(f"44c: {BVH_MAIN_SCENE} flattened, one wavefront frame, DXR_PRIME={int(on)} (B4a)",
+               expect_counts(f"phase 44c flattened frame DXR_PRIME={int(on)}",
+                             {"B4a closest": 2, "B4a any": 2}))
+    for on in (False, True):
+        frames44["two", on] = traced_frame(scene2, tv2, TraceHook.TWO_LEVEL, on)
+    prime44 = {}
+    for key, scene, walk, label in (("flat", scene_f, "B4a", "flattened"),
+                                    ("two", scene2, "B6a", "two-level")):
+        (img0, rec0), (img1, rec1) = frames44[key, False], frames44[key, True]
+        if not torch.equal(img0, img1):
+            raise RuntimeError(f"phase 44c: the {label} frame with DXR_PRIME=1 differs from the "
+                               f"one without")
+        o, d, t_min, t_plain = rec0[2][:4]
+        t_seed = rec1[2][3]
+        if not (torch.equal(o, rec1[2][0]) and torch.equal(d, rec1[2][1])):
+            raise RuntimeError(f"phase 44c: the {label} bounce rays differ with DXR_PRIME=1")
+        active = t_plain > 0
+        seeded = int((t_seed[active] < t_plain[active]).sum())
+        share = seeded / max(int(active.sum()), 1)
+        if not bool((t_seed <= t_plain).all()):
+            raise RuntimeError(f"phase 44c: the {label} seed loosened a t_max")
+        if key == "flat":
+            fn = tv.traverse_fat_closest
+            prep = [tv.prepare_launch(scene, o, d, t_min, t, False, False) for t in (t_plain, t_seed)]
+        else:
+            fn = tv2.traverse2_fat_closest
+            prep = [tv2.prepare_launch(scene["tlas"], o, d, t_min, t, False, False)
+                    for t in (t_plain, t_seed)]
+        h0, h1 = fn(scene, o, d, t_min, t_plain), fn(scene, o, d, t_min, t_seed)
+        differ = torch.zeros_like(h0["hit"])
+        for k in h0:
+            differ |= h0[k] != h1[k]
+        if bool(differ.any()):
+            differing_census(f"phase 44c {walk} seeded vs unseeded bounce", h1, h0,
+                             scene if key == "flat" else None, o, d)
+            raise RuntimeError(f"phase 44c: {int(differ.sum())} {label} bounce rays differ with "
+                               f"the seeded t_max")
+        turns = {False: [], True: []}
+        for _ in range(5):
+            for on in (False, True):
+                turns[on].append(kernel_ms(prep[on], 5, torch))
+        seed_ms = time_ms(lambda: tint._prime_seed_tmax(scene, o, d, t_plain), 10, torch)
+        prime44[label] = {"walk": walk, "active": int(active.sum()), "seeded": seeded,
+                          "seeded_share": share, "ms_unseeded": turns[False],
+                          "ms_seeded": turns[True], "prime_seed_tmax_ms": seed_ms,
+                          "prime_triangles": int(scene["prime_v0"].shape[0])}
+        print(f"phase 44c {label}: frame bit-equal with and without DXR_PRIME=1; bounce launch "
+              f"({len(o)} rays, {int(active.sum())} active) every hit field equal with the seed; "
+              f"seeded {seeded} active lanes ({share:.4f}); {walk} bounce launch alone, 5 turns "
+              f"of 5: unseeded {statistics.median(turns[False]):.4f} ms "
+              f"{[round(x, 4) for x in turns[False]]}, seeded "
+              f"{statistics.median(turns[True]):.4f} ms {[round(x, 4) for x in turns[True]]}; "
+              f"_prime_seed_tmax {seed_ms:.4f} ms [{card}]", flush=True)
+    report44["c_prime"] = prime44
+
+    # (d) ray sorting on the flattened frame's bounce closest and depth-0 shadow launches
+    sort44 = {}
+    rec_f = frames44["flat", False][1]
+    for label, (o, d, t_min, t_max, cull, occlusion) in (("bounce closest", rec_f[2]),
+                                                          ("depth-0 shadow any", rec_f[1])):
+        fn = tv.traverse_fat_any if occlusion else tv.traverse_fat_closest
+        kw = {} if occlusion else {"cull_backface": cull}
+        plain = fn(scene_f, o, d, t_min, t_max, **kw)
+        srt = tint._sorted_trace(scene_f, fn, o, d, t_min, t_max, **kw)
+        if occlusion:
+            via = tint._trace_any(scene_f, o, d, t_min, t_max, "cuda", sort_rays=True)
+            same = torch.equal(plain, srt) and torch.equal(plain, via)
+            n_diff = int((plain != srt).sum())
+        else:
+            via = tint._trace_closest(scene_f, o, d, t_min, t_max, cull, "cuda", sort_rays=True)
+            ref = tint._trace_closest(scene_f, o, d, t_min, t_max, cull, "cuda")
+            differ = torch.zeros_like(plain["hit"])
+            for k in plain:
+                differ |= plain[k] != srt[k]
+            n_diff = int(differ.sum())
+            same = n_diff == 0 and all(torch.equal(a, b) for a, b in zip(via[:3], ref[:3])) and all(
+                torch.equal(via[3][k], ref[3][k]) for k in ref[3])
+        if not same:
+            if not occlusion:
+                differing_census(f"phase 44d sorted vs unsorted {label}", srt, plain, scene_f, o, d)
+            raise RuntimeError(f"phase 44d: sorted {label} differs from unsorted on {n_diff} rays")
+        order = tint._ray_sort_order(scene_f, o, d)
+        tsort = t_max[order] if t_max.dim() else t_max
+        prep = [tv.prepare_launch(scene_f, o, d, t_min, t_max, cull, occlusion),
+                tv.prepare_launch(scene_f, o[order], d[order], t_min, tsort, cull, occlusion)]
+        turns = {"alone_unsorted": [], "alone_sorted": [], "wrapper_unsorted": [],
+                 "sorted_with_argsort_gather_scatter": []}
+        for _ in range(5):
+            turns["alone_unsorted"].append(kernel_ms(prep[0], 5, torch))
+            turns["alone_sorted"].append(kernel_ms(prep[1], 5, torch))
+            turns["wrapper_unsorted"].append(time_ms(lambda: fn(scene_f, o, d, t_min, t_max, **kw),
+                                                     5, torch))
+            turns["sorted_with_argsort_gather_scatter"].append(time_ms(
+                lambda: tint._sorted_trace(scene_f, fn, o, d, t_min, t_max, **kw), 5, torch))
+        sort44[label] = {"rays": len(o), "medians": {k: statistics.median(v)
+                                                      for k, v in turns.items()}, "turns": turns}
+        print(f"phase 44d {label} ({len(o)} rays): sorted bit-equal to unsorted (every "
+              f"{'occlusion bit' if occlusion else 'hit field'}); ms, medians of 5 turns of 5: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sort44[label]["medians"].items())
+              + f" [{card}]", flush=True)
+    tv.check_errors()
+    report44["d_sorting"] = sort44
+    del frames44, rec_f
+
+    # (e) the device BVH build over the flattened triangles and each (b) bake
+    def device_vs_host(label, v0, e1, e2, n):
+        host_in = [x.cpu().numpy() for x in (v0, e1, e2)]
+        dev_bvh, dev_s = synced_s(lambda: tbvh.build_bvh_device(v0, e1, e2, n, 32))
+        _, dev_s2 = synced_s(lambda: tbvh.build_bvh_device(v0, e1, e2, n, 32))
+        t1 = time.perf_counter()
+        host_bvh = tbvh.build_bvh(*host_in, n, 32)
+        host_s = time.perf_counter() - t1
+        if not np.array_equal(dev_bvh["order"].cpu().numpy(), host_bvh["order"]):
+            raise RuntimeError(f"phase 44e {label}: the device build's order differs from the host's")
+        worst = max(float(np.abs(np.nan_to_num(dev_bvh[k].cpu().numpy())
+                                 - np.nan_to_num(host_bvh[k])).max())
+                    for k in ("nodes_lo", "nodes_hi"))
+        if worst > 1e-6:
+            raise RuntimeError(f"phase 44e {label}: node boxes differ by {worst}")
+        print(f"phase 44e {label}: build_bvh_device {n:,} triangles, {dev_bvh['levels']} levels: "
+              f"order equal to the host Morton build's, nodes max |d| {worst:.1e}; device "
+              f"{dev_s:.4f} s (first) / {dev_s2:.4f} s, host {host_s:.4f} s [{card}]", flush=True)
+        return {"triangles": n, "device_s": dev_s, "device_s_again": dev_s2, "host_s": host_s,
+                "nodes_max_abs": worst}
+
+    bvh44 = {BVH_MAIN_SCENE: device_vs_host(f"{BVH_MAIN_SCENE} flattened", scene_f["v0"],
+                                             scene_f["e1"], scene_f["e2"],
+                                             int(scene_f["num_tris"]))}
+    for k, baked in enumerate(bakes_b):
+        bvh44[f"44b bake {k}"] = device_vs_host(f"44b bake {k}", baked["v0"], baked["e1"],
+                                                baked["e2"], baked["num_tris"])
+    report44["e_bvh_device"] = bvh44
+    del scene_f, bakes_b
+    phase44_s = time.perf_counter() - t44
+    report44["seconds"] = phase44_s
+    print(f"phase 44: {phase44_s:.1f} s (scene build of {BVH_MAIN_SCENE} flattened "
+          f"{build_f_s:.2f} s of it)", flush=True)
+    print("re-bake, PRIME, sorting, device BVH (phase 44): " + json.dumps(report44), flush=True)
+
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 38", flush=True)
     # ---- 38. the redesigned kernels B1, B5, B3, B6a, B4b, B6b, B4a, B2, B4d, B4c: ptxas, records, times
     # B1 reads each triangle as a record of five float4s (the scene's
@@ -6374,6 +6801,14 @@ def main() -> int:
     for kern in kernels:
         if kern["name"] in front_keys:
             kern["front_end_paths"] = front.get(front_keys[kern["name"]], [])
+    # phase 44's paths (re-baked instances, PRIME seeding), by kernel
+    p44_keys = {"fused_progressive_sum": "B1", "trace_closest": "B3 closest",
+                "trace_any": "B3 any", "traverse_fat_closest": "B4a closest",
+                "traverse_fat_any": "B4a any", "traverse2_fat_closest": "B6a closest",
+                "traverse2_fat_any": "B6a any"}
+    for kern in kernels:
+        if kern["name"] in p44_keys:
+            kern["phase44_paths"] = paths44.get(p44_keys[kern["name"]], [])
     tv.check_errors()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,8 +16,9 @@ no C++ compiler is there, as the JAX package's ``Scene.build`` does.
 ``traverse_numpy`` and ``traverse_nodes_numpy`` (with ``ray_aabb``) walk
 either format one ray at a time on the host: the tests' oracles.
 The numpy code is copied line for line, so every build equals the JAX
-package's. The device-side Morton build (``build_bvh_device``) is not
-ported (ROADMAP Queue A item 11).
+package's. ``build_bvh_device`` is the same Morton build in torch on the
+tensors' device, for per-frame rebuilds of re-baked geometry
+(``scene/dynamic.bake_instances``); its ``order`` equals ``build_bvh``'s.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def _expand_bits(v: np.ndarray) -> np.ndarray:
@@ -136,6 +138,69 @@ def build_bvh(
         "order": order_p,
         "nodes_lo": nodes_lo,
         "nodes_hi": nodes_hi,
+        "levels": layout.levels,
+        "leaf_size": leaf_size,
+    }
+
+
+def _expand_bits_int64(v: torch.Tensor) -> torch.Tensor:
+    """``_expand_bits`` on int64 tensors. The uint32 version wraps in its
+    multiplies; here the products stay exact and each mask keeps only bits
+    below 2^32, so (x mod 2^32) & m == x & m and the codes are the same."""
+    v = (v * 0x00010001) & 0xFF0000FF
+    v = (v * 0x00000101) & 0x0F00F00F
+    v = (v * 0x00000011) & 0xC30C30C3
+    v = (v * 0x00000005) & 0x49249249
+    return v
+
+
+def build_bvh_device(v0: torch.Tensor, e1: torch.Tensor, e2: torch.Tensor, num_tris: int,
+                     leaf_size: int = 8) -> dict:
+    """``build_bvh`` in torch on the tensors' device: the Morton sort (stable,
+    so ``order`` equals the host build's) and log2(N) pairwise min/max
+    reductions, for per-frame rebuilds of deforming or re-baked geometry
+    (the analogue of a D3D12 BLAS rebuild). Returns the same keys as
+    ``build_bvh``: "order" [P] int32 (-1 in empty slots), "nodes_lo" /
+    "nodes_hi" [M, 3] float32 in heap order (tensors), "levels" and
+    "leaf_size" (ints)."""
+    v0, e1, e2 = (x[:num_tris].to(torch.float32) for x in (v0, e1, e2))
+    device = v0.device
+    p1, p2 = v0 + e1, v0 + e2
+    tri_lo = torch.minimum(torch.minimum(v0, p1), p2)
+    tri_hi = torch.maximum(torch.maximum(v0, p1), p2)
+    centroid = (tri_lo + tri_hi) * 0.5
+
+    layout = choose_layout(max(num_tris, 1), leaf_size)
+    P = layout.padded_tris
+
+    if num_tris > 0:
+        lo = tri_lo.amin(0)
+        extent = torch.clamp(tri_hi.amax(0) - lo, min=1e-12)
+        q = torch.clamp((centroid - lo) / extent, 0.0, 1.0)
+        q = torch.clamp((q * 1024.0).to(torch.int64), max=1023)
+        codes = ((_expand_bits_int64(q[:, 0]) << 2) | (_expand_bits_int64(q[:, 1]) << 1)
+                 | _expand_bits_int64(q[:, 2]))
+        order = torch.argsort(codes, stable=True)
+    else:
+        order = torch.zeros((0,), dtype=torch.int64, device=device)
+
+    slot_lo = torch.full((P, 3), float("inf"), dtype=torch.float32, device=device)
+    slot_hi = torch.full((P, 3), float("-inf"), dtype=torch.float32, device=device)
+    slot_lo[:num_tris] = tri_lo[order]
+    slot_hi[:num_tris] = tri_hi[order]
+    order_p = torch.full((P,), -1, dtype=torch.int32, device=device)
+    order_p[:num_tris] = order.to(torch.int32)
+
+    los = [slot_lo.reshape(layout.num_leaves, leaf_size, 3).amin(1)]
+    his = [slot_hi.reshape(layout.num_leaves, leaf_size, 3).amax(1)]
+    for _ in range(layout.levels):
+        los.append(torch.minimum(los[-1][0::2], los[-1][1::2]))
+        his.append(torch.maximum(his[-1][0::2], his[-1][1::2]))
+    # heap order: the root's level last in the lists
+    return {
+        "order": order_p,
+        "nodes_lo": torch.cat(list(reversed(los))),
+        "nodes_hi": torch.cat(list(reversed(his))),
         "levels": layout.levels,
         "leaf_size": leaf_size,
     }

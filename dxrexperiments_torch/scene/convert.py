@@ -55,8 +55,8 @@ def _two_level_from_numpy(d: dict, device) -> dict:
     pytree without ``tlasf_nodes`` takes the binary walk, B6b) and B6a's
     leaf records ``blas_test`` (``ops/traverse.coef_records`` of mt_rows),
     ``tlas_meta`` (the JAX HostStatic's value, its refit context copied into
-    the port's) and the object-space arrays. The PRIME table (``prime_*``)
-    is dropped."""
+    the port's, and the PRIME table's sources ``prime_src`` on ``device``
+    where the pytree has them) and the object-space arrays."""
     tl = d["tlas"]
     host = ("blas_nodes", "blasf_nodes")
     out_tl = {k: _t(tl[k], "cpu" if k in host else device) for k in tl}
@@ -79,6 +79,12 @@ def _two_level_from_numpy(d: dict, device) -> dict:
             "refit_ctx": TlasRefitContext(**{f: getattr(ctx, f) for f in fields}),
         },
     }
+    if "prime_src" in meta:
+        src = meta["prime_src"]
+        out["tlas_meta"]["prime_src"] = {
+            **{k: _t(src[k], device, torch.float32) for k in ("v0", "e1", "e2")},
+            "inst": _t(src["inst"], device, torch.int64),
+        }
     for k in _OBJ_ARRAYS:
         out[f"{k}_obj"] = _t(d[f"{k}_obj"], device, torch.float32)
     out["mat_id_obj"] = _t(d["mat_id_obj"], device, torch.int64)
@@ -109,14 +115,22 @@ def scene_from_numpy(d: dict, device="cuda") -> dict:
     The JAX quad-packed copies of env and albedo textures and its dummy env
     textures of other kinds are dropped (scene/envmap.py,
     scene/textures.py). A flat scene gets the ``tri_records`` of B1 and B3,
-    as from ``Scene.build``."""
+    as from ``Scene.build``. The PRIME table (``prime_v0``, ``prime_e1``,
+    ``prime_e2``) goes to ``device``. A re-baked scene
+    (``scene/dynamic.bake_instances``: no BVH, ``inst_id``, lights and env
+    only where the bake was given them) keeps that layout."""
     device = setup_device(device)
     if "tlas" in d:
         out = _two_level_from_numpy(d, device)
     else:
         out = {k: _t(d[k], device, torch.float32) for k in _SCENE_ARRAYS}
         out["mat_id"] = _t(d["mat_id"], device, torch.int64)
+        if "inst_id" in d:  # each triangle's instance (JAX's builds and bakes)
+            out["inst_id"] = _t(d["inst_id"], device, torch.int32)
         add_tri_records(out)
+    for k in ("prime_v0", "prime_e1", "prime_e2"):
+        if k in d:
+            out[k] = _t(d[k], device, torch.float32)
     if "textures" in d:
         out.update(_textures_from_numpy(d, device))
     out["num_tris"] = int(np.asarray(d["num_tris"]))
@@ -139,14 +153,16 @@ def scene_from_numpy(d: dict, device="cuda") -> dict:
             bvh["tex_autoroute"] = 1
         out.update(bvh_to_device(bvh, out["materials"], device))
     # lights and env are per-frame parameters and stay on the host (Scene.build)
-    out["lights"] = _lights_from_numpy(d["lights"])
-    env = d["env"]
-    out["env"] = {"kind": int(np.asarray(env["kind"]))}
-    for k in ("strength", "const_color", "grad_horizon", "grad_zenith"):
-        out["env"][k] = _t(env[k], "cpu", torch.float32)
-    tex = TEXTURE_KEY.get(out["env"]["kind"])
-    if tex is not None:
-        out["env"][tex] = _t(env[tex], device, torch.float32)
+    if "lights" in d:
+        out["lights"] = _lights_from_numpy(d["lights"])
+    if "env" in d:
+        env = d["env"]
+        out["env"] = {"kind": int(np.asarray(env["kind"]))}
+        for k in ("strength", "const_color", "grad_horizon", "grad_zenith"):
+            out["env"][k] = _t(env[k], "cpu", torch.float32)
+        tex = TEXTURE_KEY.get(out["env"]["kind"])
+        if tex is not None:
+            out["env"][tex] = _t(env[tex], device, torch.float32)
     return out
 
 

@@ -14,14 +14,17 @@ the per-material meta) and the corner UVs ``uv0``, ``uv1``, ``uv2`` [T, 2]
 (two-level: ``uv0_obj`` ...). Both builds place the scene on the card by
 default and raise without one. ``rebake_material`` replaces one material
 of a built flat scene (the viewer's live edit), rebuilding the arrays that
-hold material values. Not ported, and raising: the PRIME t_max table
-(``DXR_PRIME=1``, ROADMAP Queue A item 11, for both builds).
+hold material values. A scene with a BVH (or a two-level one) whose few
+largest triangles dominate it carries the PRIME table ``prime_v0``,
+``prime_e1``, ``prime_e2`` (``select_prime_triangles``): the world-space
+triangles that ``trace/integrator._prime_seed_tmax`` tests bounce rays
+against under ``DXR_PRIME=1``; a two-level scene also keeps their
+object-space sources in ``tlas_meta["prime_src"]`` for the refit.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any
 
 import numpy as np
@@ -47,6 +50,32 @@ TRI_ALIGN = 8  # pad the triangle count to a multiple of 8 (the JAX packing)
 BVH_THRESHOLD = 4096  # above this triangle count, 'auto' attaches a BVH
 BVH_LEAF_SIZE = 32  # fixed leaf size (slots per leaf) of the traversal kernels
 ACCELS = ("auto", "bvh", "none")
+
+# PRIME triangles: the few scene-dominating triangles (floors, walls) kept
+# as a world-space side table so that bounce traces can pre-seed their t_max
+# against them (trace/integrator._prime_seed_tmax). The selection is a
+# heuristic: correctness never depends on which triangles are chosen, only
+# on their world-space coordinates being current (see the refit).
+PRIME_MAX = 8
+PRIME_AREA_FRAC = 0.02  # keep triangles with area >= frac * max_extent^2
+
+
+def select_prime_triangles(v0, e1, e2) -> np.ndarray:
+    """Indices of up to PRIME_MAX triangles whose world area is at least
+    PRIME_AREA_FRAC x (scene max extent)^2, typically floors and walls. An
+    empty index array when nothing qualifies (a triangle soup), which the
+    builds treat as "no prime table"."""
+    if len(v0) == 0:
+        return np.zeros((0,), np.int64)
+    area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+    p1, p2 = v0 + e1, v0 + e2
+    lo = np.minimum(np.minimum(v0.min(0), p1.min(0)), p2.min(0))
+    hi = np.maximum(np.maximum(v0.max(0), p1.max(0)), p2.max(0))
+    ext = float(np.max(hi - lo))
+    if not np.isfinite(ext) or ext <= 0.0:
+        return np.zeros((0,), np.int64)
+    idx = np.argsort(-area, kind="stable")[:PRIME_MAX]
+    return idx[area[idx] >= PRIME_AREA_FRAC * ext * ext]
 
 
 def to_device(tree, device):
@@ -283,11 +312,12 @@ class Scene:
         want_bvh = accel == "bvh" or (accel == "auto" and num_tris > BVH_THRESHOLD)
         tex_autoroute = (accel == "auto" and not want_bvh and num_tris > 0
                          and self._texture_route(len(materials), textures is not None))
+        # the world-space PRIME table, wherever a BVH is attached (the
+        # brute-force routes ignore it), whether DXR_PRIME is set or not
+        pidx = select_prime_triangles(v0, e1, e2)
+        if len(pidx) and (want_bvh or tex_autoroute):
+            out["prime_v0"], out["prime_e1"], out["prime_e2"] = v0[pidx], e1[pidx], e2[pidx]
         if (want_bvh or tex_autoroute) and num_tris > 0:
-            if os.environ.get("DXR_PRIME", "0") == "1":
-                raise NotImplementedError(
-                    "PRIME t_max seeding (DXR_PRIME=1) is not ported yet (ROADMAP Queue A item 11)"
-                )
             nodes, builder = bvh_mod.build_nodes(v0, e1, e2, num_tris, BVH_LEAF_SIZE)
             packed = pack_for_traversal(nodes, out, BVH_LEAF_SIZE)
             packed.pop("leaf_size")  # always BVH_LEAF_SIZE
@@ -343,11 +373,12 @@ class Scene:
         ``lights`` and the env's scalars on the host (its texture leaves on
         ``device``), ``num_tris`` (the instanced total) and, when some
         material is textured, ``textures`` and the object-space corner UVs
-        ``uv0_obj``, ``uv1_obj``, ``uv2_obj`` on ``device``."""
-        if os.environ.get("DXR_PRIME", "0") == "1":
-            raise NotImplementedError(
-                "PRIME t_max seeding (DXR_PRIME=1) is not ported yet (ROADMAP Queue A item 11)"
-            )
+        ``uv0_obj``, ``uv1_obj``, ``uv2_obj`` on ``device``; where some
+        instanced triangles dominate the scene, the world-space PRIME table
+        ``prime_v0``, ``prime_e1``, ``prime_e2`` and its sources
+        ``tlas_meta["prime_src"]`` (object-space ``v0``, ``e1``, ``e2`` and
+        the owning instance ``inst``, original instance order) on
+        ``device``."""
         device = setup_device(device)
         materials = list(self.materials)
         mat_offset_for_mesh: dict[int, int] = {}
@@ -430,6 +461,7 @@ class Scene:
             "env": envmap_mod.place(self._env(), device),
             "num_tris": int(sum(len(meshes_geo[int(m)][0]) for m in inst_mesh)),
         }
+        self._prime_two_level(out, meshes_geo, inst_mesh, transforms, device)
         textures = pack_texture_table(materials)
         if textures is not None:
             uvc = np.concatenate([a[4] for a in mesh_attr]).astype(np.float32)
@@ -437,6 +469,44 @@ class Scene:
             for k in range(3):
                 out[f"uv{k}_obj"] = torch.as_tensor(np.ascontiguousarray(uvc[:, k])).to(device)
         return out
+
+    @staticmethod
+    def _prime_two_level(out: dict, meshes_geo, inst_mesh, transforms, device) -> None:
+        """The two-level PRIME table (JAX ``scene.py:500-538``): candidates are
+        each mesh's top-PRIME_MAX object-space triangles by area, taken
+        through every instance's transform (no full world flatten); the
+        selection then runs on the world candidates."""
+        cand_obj, cand_inst = [], []
+        for mi, (gv0, ge1, ge2) in enumerate(meshes_geo):
+            top = select_prime_triangles(gv0, ge1, ge2)
+            top = (
+                np.argsort(-0.5 * np.linalg.norm(np.cross(ge1, ge2), axis=-1),
+                           kind="stable")[:PRIME_MAX]
+                if len(top) == 0 else top
+            )
+            for ii in np.nonzero(inst_mesh == mi)[0]:
+                cand_obj.append((gv0[top], ge1[top], ge2[top]))
+                cand_inst.append(np.full((len(top),), ii, np.int64))
+        cv0 = np.concatenate([c[0] for c in cand_obj])
+        ce1 = np.concatenate([c[1] for c in cand_obj])
+        ce2 = np.concatenate([c[2] for c in cand_obj])
+        cinst = np.concatenate(cand_inst)
+        rot = transforms[cinst, :3, :3]
+        trn = transforms[cinst, :3, 3]
+        wv0 = np.einsum("nij,nj->ni", rot, cv0) + trn
+        we1 = np.einsum("nij,nj->ni", rot, ce1)
+        we2 = np.einsum("nij,nj->ni", rot, ce2)
+        pidx = select_prime_triangles(wv0, we1, we2)
+        if len(pidx):
+            def dev(a, dtype=np.float32):
+                return torch.as_tensor(np.ascontiguousarray(a.astype(dtype))).to(device)
+
+            out["prime_v0"], out["prime_e1"], out["prime_e2"] = (
+                dev(w[pidx]) for w in (wv0, we1, we2))
+            out["tlas_meta"]["prime_src"] = {
+                "v0": dev(cv0[pidx]), "e1": dev(ce1[pidx]), "e2": dev(ce2[pidx]),
+                "inst": dev(cinst[pidx], np.int64),
+            }
 
 
 def scene_device(scene: dict) -> torch.device:

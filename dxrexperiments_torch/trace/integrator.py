@@ -38,12 +38,26 @@ Albedo textures (a scene with ``textures``): each closest hit's albedo is
 multiplied by ``scene.textures.sample_albedo`` at the hit's UV, the
 barycentric mix of its triangle's corner UVs, on all three routes. As in
 the JAX package, this is glue after the trace kernels, not a kernel.
+
+Two opt-ins, both off by default as in the JAX package, change only the
+work of a walk, never its result:
+
+  * PRIME seeding (``DXR_PRIME=1`` in the environment, read at each call):
+    the bounce closest trace of a scene with a PRIME table gets a per-ray
+    t_max clamped to a conservative hit on the scene's few dominating
+    triangles (``_prime_seed_tmax``);
+  * ray sorting (``sort_rays`` of ``_trace_closest`` / ``_trace_any``,
+    ``sort_shadows`` of ``_direct_lighting``): a BVH scene's kernel walk
+    (B4a, B4b) takes its rays in (direction octant, origin Morton cell)
+    order and scatters the results back (``_sorted_trace``).
 """
 
 from __future__ import annotations
 
 import math
+import os
 
+import numpy as np
 import torch
 
 from ..accel import tlas as tlas_mod
@@ -110,8 +124,61 @@ def walk_functions(scene: dict, impl: str) -> tuple:
     return traverse.traverse_closest, traverse.traverse_any
 
 
-def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
-    """Closest hit + hit attributes. Returns (hit, position, normal, mat)."""
+def _ray_sort_order(scene: dict, origins: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+    """The ray order of a sorted BVH walk: a stable argsort of the key
+    ``octant << 12 | morton``, the direction's sign octant (3 bits) major and
+    the 12-bit Morton code of the origin's cell in a 16^3 grid over the root
+    box (``bvh_nodes`` rows 0:3 and 3:6 of column 0) minor. The stable sort
+    keeps the launch order within a cell, so the permutation equals the JAX
+    package's. The root box is read on the host, so no device value waits."""
+    bvhn = scene["bvh"]["bvh_nodes"]
+    lo = np.asarray(bvhn[0:3, 0].tolist(), np.float32)
+    ext = np.maximum(np.asarray(bvhn[3:6, 0].tolist(), np.float32) - lo, np.float32(1e-6))
+    cell = torch.stack([
+        torch.clamp((torch.clamp((origins[:, k] - float(lo[k])) / float(ext[k]), 0.0, 1.0)
+                     * 16.0).to(torch.int64), max=15)
+        for k in range(3)], dim=1)
+
+    def part(x):
+        x = (x | (x << 4)) & 0x0F0F
+        x = (x | (x << 2)) & 0x3333
+        x = (x | (x << 1)) & 0x5555
+        return x
+
+    morton = (part(cell[:, 0]) << 2) | (part(cell[:, 1]) << 1) | part(cell[:, 2])
+    neg = (directions < 0).to(torch.int64)
+    octant = neg[:, 0] * 4 + neg[:, 1] * 2 + neg[:, 2]
+    return torch.argsort((octant << 12) | morton, stable=True)
+
+
+def _sorted_trace(scene: dict, walk, origins, directions, t_min, t_max, **kw):
+    """``walk(scene, o, d, t_min, t_max, **kw)`` over the rays in
+    ``_ray_sort_order``: origins, directions and per-ray windows gathered,
+    the walk's outputs (a hit dict's every field, or the occlusion flags)
+    scattered back to the launch order. The scatter of the gathered origins
+    and directions is the caller's tensors themselves."""
+    order = _ray_sort_order(scene, origins, directions)
+
+    def gather(x):
+        return x[order] if isinstance(x, torch.Tensor) and x.dim() else x
+
+    out = walk(scene, origins[order], directions[order], gather(t_min), gather(t_max), **kw)
+
+    def scatter(v):
+        back = torch.empty_like(v)
+        back[order] = v
+        return back
+
+    return {k: scatter(v) for k, v in out.items()} if isinstance(out, dict) else scatter(out)
+
+
+def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str,
+                   sort_rays: bool = False):
+    """Closest hit + hit attributes. Returns (hit, position, normal, mat).
+
+    sort_rays: a BVH scene's kernel walk (impl='cuda') takes the rays in
+    ``_ray_sort_order`` and its hits are scattered back; the other routes
+    ignore it, as the JAX package's jnp path does."""
     if "tlas" in scene:
         fn = walk_functions(scene, impl)[0]
         hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
@@ -127,14 +194,20 @@ def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str):
             _modulate_albedo(scene, mat, scene["mat_id"][tri], tri, h["u"], h["v"], "")
         return h["hit"], h["position"], h["normal"], mat
     fn = walk_functions(scene, impl)[0]
-    hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
+    if sort_rays and impl == "cuda":
+        hits = _sorted_trace(scene, fn, origins, directions, t_min, t_max, cull_backface=cull)
+    else:
+        hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
     position, normal, mat = _interpolate_hit(scene, hits, origins, directions)
     return hits["hit"], position, normal, mat
 
 
-def _trace_any(scene, origins, directions, t_min, t_max, impl: str):
+def _trace_any(scene, origins, directions, t_min, t_max, impl: str, sort_rays: bool = False):
+    """Occlusion [N] bool. sort_rays: as in ``_trace_closest``."""
     if "tlas" in scene or "bvh" in scene:
         fn = walk_functions(scene, impl)[1]
+        if sort_rays and impl == "cuda" and "tlas" not in scene:
+            return _sorted_trace(scene, fn, origins, directions, t_min, t_max)
     else:
         fn = intersect_kernel.trace_any if impl == "cuda" else intersect_kernel.trace_any_reference
     return fn(scene, origins, directions, t_min, t_max)
@@ -194,12 +267,14 @@ def _interpolate_hit_two_level(scene: dict, hits: dict, origins, directions):
     return position, normal, mat
 
 
-def _direct_lighting(scene, options, position, normal, seed, active, impl):
+def _direct_lighting(scene, options, position, normal, seed, active, impl,
+                     sort_shadows: bool = False):
     """Direct term over D directional + P point + A area lights (stacked
     rig), with the debug==2 one-of-L MC estimator. Each area light draws
     AREA_LIGHT_SAMPLES points from a seed chain of its own and estimates
     L * area * mean_j(NoL * |cos at the light| / dist_j^2 * vis_j). All
-    shadow rays go through one any-hit call. Returns (seed, direct [N,3])."""
+    shadow rays go through one any-hit call (sorted with sort_shadows, see
+    ``_trace_any``). Returns (seed, direct [N,3])."""
     lights = normalize_lights(scene["lights"])
     dl, pl_, al = lights["dir"], lights["point"], lights["area"]
     d_count = int(dl["forward"].shape[0])
@@ -248,6 +323,7 @@ def _direct_lighting(scene, options, position, normal, seed, active, impl):
         RAY_EPSILON,
         all_tmax,
         impl,
+        sort_rays=sort_shadows,
     ).reshape(r_count, n)
     vis = (active[None] & ~occ).to(torch.float32)
 
@@ -307,24 +383,68 @@ def _ambient_occlusion(scene, options, position, normal, seed, active, impl):
     return visibility / 4.0
 
 
+def _prime_seed_tmax(scene: dict, origins: torch.Tensor, directions: torch.Tensor, t_max):
+    """Per-ray t_max clamped by a conservative pre-test against the scene's
+    PRIME triangles (``scene.select_prime_triangles``: the few dominating
+    floors and walls): a bounce ray's nearest large occluder is most often
+    the floor, and a far clamp at its distance lets the walk prune what lies
+    beyond from its first visit on.
+
+    The clamp only tightens t_max to the distance of a hit that the walk
+    will also find, with margins against float32 evaluation-order
+    differences: a hit counts only with barycentrics at least 1e-3 inside
+    the triangle and t at least twice the bounce trace's t_min, and the
+    clamp is inflated by 0.1% + 1e-4. Borderline rays get no seed. Plain
+    torch, as the JAX function is plain jnp."""
+    pv0 = scene["prime_v0"][None, :, :]  # [1, m, 3]
+    pe1 = scene["prime_e1"][None, :, :]
+    pe2 = scene["prime_e2"][None, :, :]
+    o = origins[:, None, :]  # [n, 1, 3]
+    d = directions[:, None, :]
+    pvec = vm.cross(d, pe2)
+    det = vm.dot(pe1, pvec)  # [n, m]
+    safe = det.abs() > 1e-12
+    inv_det = 1.0 / torch.where(safe, det, torch.ones_like(det))
+    tvec = o - pv0
+    u = vm.dot(tvec, pvec) * inv_det
+    qvec = vm.cross(tvec, pe1)
+    v = vm.dot(d, qvec) * inv_det
+    t = vm.dot(pe2, qvec) * inv_det
+    delta = 1e-3  # interior margin: accept only hits robustly inside
+    valid = (safe & (u >= delta) & (v >= delta) & (u + v <= 1.0 - delta)
+             & (t >= 2.0 * RAY_EPSILON) & torch.isfinite(t))
+    t_seed = torch.where(valid, t, torch.full_like(t, math.inf)).amin(dim=-1)  # [n]
+    clamp = t_seed * 1.001 + 1e-4  # conservative inflation
+    if not isinstance(t_max, torch.Tensor):
+        t_max = torch.full_like(t_seed, float(t_max))
+    return torch.where(torch.isfinite(t_seed), torch.minimum(t_max, clamp), t_max)
+
+
 def _secondary_radiance(scene, options, origins, directions, seeds, active, impl, env_kind,
                         realtime: bool = False):
     """Depth-1 radiance: closest hit, direct lighting and, in progressive
     mode, emissive (the specular and indirect terms are cut by the recursion
     depth; the realtime shader adds no emissive term). Inactive lanes get an
-    empty ray interval and contribute 0."""
+    empty ray interval and contribute 0. With ``DXR_PRIME=1`` (read at each
+    call) a scene with a PRIME table seeds the active lanes' t_max
+    (``_prime_seed_tmax``); the hits are the same."""
     t_max_eff = torch.where(
         active,
         torch.full_like(active, RAY_MAX_T, dtype=torch.float32),
         torch.zeros_like(active, dtype=torch.float32),
     )
+    if "prime_v0" in scene and os.environ.get("DXR_PRIME", "0") == "1":
+        t_max_eff = _prime_seed_tmax(scene, origins, directions, t_max_eff)
+    # sort_rays and sort_shadows stay off here: the JAX package measured both
+    # negative on bounce rays
     is_hit, position, normal, mat = _trace_closest(
         scene, origins, directions, RAY_EPSILON, t_max_eff, cull=False, impl=impl
     )
     hit = is_hit & active
     env_col = sample_environment(scene["env"], directions, env_kind)
     env_term = torch.where(active[..., None], env_col, torch.zeros_like(env_col))
-    _, direct = _direct_lighting(scene, options, position, normal, seeds, hit, impl)
+    _, direct = _direct_lighting(scene, options, position, normal, seeds, hit, impl,
+                                 sort_shadows=False)
     shade_col = mat["albedo"] * direct / M_PI
     if not realtime:
         shade_col = mat["emissive"] * mat["emissive_strength"][..., None] + shade_col

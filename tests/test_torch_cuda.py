@@ -44,7 +44,11 @@ on halo-padded row blocks, and the frames-in-flight batch: bit-equal to the
 whole launch, the whole pass and sequential renders. A live material edit
 (``rebake_material``): every tensor equal to a fresh build's, the images
 through B1 and B5 bit-equal; a mesh file through the CLI (B3): bit-equal
-to the same mesh built in memory.
+to the same mesh built in memory. A re-bake of instances on the card
+(``bake_instances``): every array within 1e-6 of the CPU bake; the device
+BVH build: ``order`` equal to the host build's; the sorted walks (B4a, B4b)
+and the PRIME-seeded walks (B4a, B6a): every hit field and occlusion flag
+equal to the plain order's and the unseeded window's, bit for bit.
 """
 
 import dataclasses
@@ -2165,3 +2169,175 @@ def test_mesh_file_cli_render_equals_in_memory(cuda_device, tmp_path):
     got = np.load(out)
     assert np.isfinite(got).all() and got.max() > 0.0
     np.testing.assert_array_equal(got, pipe.get_output().cpu().numpy())
+
+
+# ---- re-baked instances, the device BVH build, ray sorting, PRIME seeding ----
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread a test, for the CPU tests that import it: the
+    suite runs several workers on few cores, where torch's default of one
+    thread per core oversubscribes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def floor_mesh(mesh_cls, ext=20.0):
+    """A 2-triangle floor of side 2 * ext at y = 0 (tests/test_prime_seed.py's)."""
+    return mesh_cls(np.array([[-ext, 0, -ext], [-ext, 0, ext], [ext, 0, ext], [ext, 0, -ext]],
+                             np.float32), None, np.array([[0, 1, 2], [0, 2, 3]], np.int32))
+
+
+def grid_scene(scene_cls, material_cls, mesh_cls, sphere_mesh, k=3):
+    """k x k unit spheres at y = 1 over a large floor, a small instanced:K
+    (tests/test_prime_seed.py's _grid_scene); takes either package's
+    classes."""
+    sc = scene_cls()
+    white = sc.add_material(material_cls(albedo=(0.73, 0.73, 0.73, 1.0)))
+    sph = sphere_mesh((0.0, 0.0, 0.0), 1.0, lat=6, lon=8)
+    for i in range(k):
+        for j in range(k):
+            t = np.eye(4, dtype=np.float32)
+            t[0, 3], t[1, 3], t[2, 3] = (i - k / 2) * 2.5, 1.0, (j - k / 2) * 2.5
+            sc.add_model(sph, transform=t, material=white)
+    sc.add_model(floor_mesh(mesh_cls), material=white)
+    return sc
+
+
+def port_grid(k=3):
+    from dxrexperiments_torch.scene import Material
+    from dxrexperiments_torch.scene.procedural import sphere_mesh
+
+    return grid_scene(Scene, Material, Mesh, sphere_mesh, k)
+
+
+def bounce_rays(n=512, seed=3):
+    """Incoherent bounce-like rays (numpy): origins among the spheres,
+    random directions (down-facing ones meet the floor)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-4.0, 4.0, size=(n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.2, 2.5, size=n).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return o, d
+
+
+def yaw_grid(n, spacing=3.0, yaw0=0.0):
+    """[n, 4, 4] float32: instance i turned by yaw0 + i about y and moved
+    i * spacing along x, 0.3 i up (tests/test_dynamic.py's grid)."""
+    ts = np.zeros((n, 4, 4), np.float32)
+    for i in range(n):
+        c, s = np.cos(yaw0 + i), np.sin(yaw0 + i)
+        ts[i] = np.eye(4, dtype=np.float32)
+        ts[i, :3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        ts[i, 0, 3], ts[i, 1, 3] = i * spacing, 0.3 * i
+    return ts
+
+
+def bake_base_scene(scene_cls, material_cls, box_mesh, device=None):
+    """The base mesh of a bake: one box (12 triangles, 16 rows), two
+    materials. ``device`` None builds the JAX package's scene."""
+    sc = scene_cls()
+    sc.add_material(material_cls(albedo=(0.9, 0.3, 0.2, 1.0)))
+    sc.add_material(material_cls(albedo=(0.2, 0.4, 0.9, 1.0), reflectivity=0.5, type=1))
+    sc.add_model(box_mesh((0.0, 0.5, 0.0), (1.0, 1.0, 1.0), 0), material=0)
+    return sc.build(accel="none") if device is None else sc.build(device, accel="none")
+
+
+@pytest.mark.cuda
+def test_bake_instances_cuda_matches_cpu(cuda_device):
+    """16 boxes re-baked on the card equal the CPU bake within 1e-6
+    (full float32: no TF32 in the bake), with their B1 records."""
+    from dxrexperiments_torch.scene import Material
+    from dxrexperiments_torch.scene.dynamic import bake_instances, prepare_base
+    from dxrexperiments_torch.scene.procedural import box_mesh
+
+    tfs = yaw_grid(16)
+    over = np.array([-1, 1] * 8, np.int64)
+    bakes = [bake_instances(prepare_base(bake_base_scene(Scene, Material, box_mesh, dev), 16), tfs,
+                            over) for dev in ("cpu", cuda_device)]
+    cpu, gpu = bakes
+    assert gpu["num_tris"] == cpu["num_tris"] == 256 and gpu["mt_pack"].is_cuda
+    for k, v in cpu.items():
+        if isinstance(v, torch.Tensor):
+            np.testing.assert_allclose(gpu[k].cpu().numpy(), v.numpy(), rtol=1e-6, atol=1e-6,
+                                       err_msg=k)
+    assert torch.equal(gpu["tri_records"], traverse.tri_records(gpu["mt_pack"]))
+
+
+@pytest.mark.cuda
+def test_build_bvh_device_cuda_order(cuda_device):
+    """The Morton build on the card: ``order`` equal to the host build's,
+    the node boxes bit-equal."""
+    from dxrexperiments_torch.accel import bvh as tbvh
+
+    scene = port_grid(4).build("cpu", accel="none")
+    n = scene["num_tris"]
+    v0, e1, e2 = (scene[k].numpy() for k in ("v0", "e1", "e2"))
+    host = tbvh.build_bvh(v0, e1, e2, n, 8)
+    dev = tbvh.build_bvh_device(*(torch.as_tensor(x, device=cuda_device) for x in (v0, e1, e2)),
+                                n, 8)
+    assert dev["levels"] == host["levels"] and dev["order"].is_cuda
+    np.testing.assert_array_equal(dev["order"].cpu().numpy(), host["order"])
+    np.testing.assert_array_equal(dev["nodes_lo"].cpu().numpy(), host["nodes_lo"])
+    np.testing.assert_array_equal(dev["nodes_hi"].cpu().numpy(), host["nodes_hi"])
+
+
+def _assert_same_outputs(got, want):
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("walk", ["fat", "binary"])
+def test_sorted_walks_equal_unsorted(cuda_device, walk):
+    """B4a and B4b over rays in _ray_sort_order, scattered back: every hit
+    field and occlusion flag equal to the launch in the rays' own order."""
+    from dxrexperiments_torch.trace import integrator as tint
+
+    scene = port_grid().build(cuda_device, accel="bvh")
+    if walk == "binary":
+        scene = dict(scene, bvh=_drop(scene["bvh"], ("bvhf_nodes", "bvhf_rows")))
+    closest, any_ = tint.walk_functions(scene, "cuda")
+    o, d = (torch.as_tensor(x, device=cuda_device) for x in bounce_rays(2048))
+    t_max = torch.as_tensor(np.random.default_rng(3).uniform(0.5, 20.0, 2048).astype(np.float32),
+                            device=cuda_device)
+    order = tint._ray_sort_order(scene, o, d)
+    assert not torch.equal(order, torch.arange(2048, device=cuda_device))
+    _assert_same_outputs(tint._sorted_trace(scene, closest, o, d, 1e-4, 3.0e37,
+                                            cull_backface=False),
+                         closest(scene, o, d, 1e-4, 3.0e37, cull_backface=False))
+    _assert_same_outputs(tint._sorted_trace(scene, any_, o, d, 1e-4, t_max),
+                         any_(scene, o, d, 1e-4, t_max))
+    traverse.check_errors()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("build", ["flat", "two_level"])
+def test_prime_seeded_walks_equal_unseeded(cuda_device, build):
+    """B4a (flat) and B6a (two-level) on bounce rays with the PRIME-seeded
+    t_max: every hit field equal to the unseeded walk's, and the seed
+    engaged on the down-facing rays."""
+    from dxrexperiments_torch.trace import integrator as tint
+
+    sc = port_grid()
+    scene = sc.build(cuda_device, accel="bvh") if build == "flat" else sc.build_two_level(
+        cuda_device)
+    closest = tint.walk_functions(scene, "cuda")[0]
+    o, d = (torch.as_tensor(x, device=cuda_device) for x in bounce_rays(2048))
+    active = torch.ones(2048, dtype=torch.bool, device=cuda_device)
+    active[::7] = False
+    t_full = torch.where(active, tint.RAY_MAX_T, 0.0)
+    t_seeded = tint._prime_seed_tmax(scene, o, d, t_full)
+    assert int((t_seeded[active] < tint.RAY_MAX_T * 0.5).sum()) > 200
+    assert bool((t_seeded <= t_full).all())
+    _assert_same_outputs(closest(scene, o, d, tint.RAY_EPSILON, t_seeded, cull_backface=False),
+                         closest(scene, o, d, tint.RAY_EPSILON, t_full, cull_backface=False))
+    traverse.check_errors()

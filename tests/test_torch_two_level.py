@@ -166,9 +166,15 @@ def test_cli_two_level_animated(tmp_path, capsys):
 
 
 def test_two_level_prime_raises(monkeypatch):
+    """DXR_PRIME=1 no longer raises: the two-level build carries the PRIME
+    table wherever the JAX build does (the five-instance scene has no
+    dominating triangle, instanced:2 its floor)."""
     monkeypatch.setenv("DXR_PRIME", "1")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        port_five().build_two_level("cpu")
+    assert "prime_v0" not in port_five().build_two_level("cpu")
+    jd = scenes("instanced:2")[0].build_two_level()
+    td = scenes("instanced:2")[1].build_two_level("cpu")
+    for k in ("prime_v0", "prime_e1", "prime_e2"):
+        np.testing.assert_array_equal(td[k].numpy(), np.asarray(jd[k]), err_msg=k)
     monkeypatch.delenv("DXR_PRIME")
     assert "DXR_PRIME" not in os.environ
 
