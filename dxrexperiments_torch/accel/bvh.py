@@ -28,6 +28,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 
 def _expand_bits(v: np.ndarray) -> np.ndarray:
     """Spread 10 bits to every 3rd bit (for 30-bit 3D Morton codes)."""
@@ -267,10 +269,11 @@ def build_nodes(v0, e1, e2, num_tris: int, leaf_size: int) -> tuple[dict, str]:
     """Explicit node arrays from the SAH build, or from the Morton build when
     there is no C++ compiler. Returns (nodes, builder name: "sah" or
     "morton")."""
-    nodes = build_bvh_sah(v0, e1, e2, num_tris, leaf_size)
-    if nodes is not None:
-        return nodes, "sah"
-    return to_node_arrays(build_bvh(v0, e1, e2, num_tris, leaf_size)), "morton"
+    with annotate("scene.bvh", int(num_tris)):
+        nodes = build_bvh_sah(v0, e1, e2, num_tris, leaf_size)
+        if nodes is not None:
+            return nodes, "sah"
+        return to_node_arrays(build_bvh(v0, e1, e2, num_tris, leaf_size)), "morton"
 
 
 def collapse_wide(

@@ -27,6 +27,7 @@ from ..ops.bilateral import (  # noqa: F401  (the plain helpers, under their JAX
     _shift2d,
     _tap_weight,
 )
+from ..utils.profiling import annotate
 
 _LUMA = (0.299, 0.587, 0.114)  # Rec.601
 
@@ -113,8 +114,10 @@ def denoise_composite_frames(
     sync between them, then the composite tail runs once on the K frames
     (elementwise: each frame equals ``denoise_composite``'s bit for bit).
     Returns [K, H, W, 3]."""
-    pass1 = stack_frames([_filtered(d, s, params, impl)
-                          for d, s in zip(direct_lighting, indirect_specular)])
+    filtered = [_filtered(d, s, params, impl) for d, s in zip(direct_lighting, indirect_specular)]
+    with annotate("denoise.stack", len(filtered)):
+        pass1 = stack_frames(filtered)
+        del filtered  # the frames' memory back before the composite, as a temporary's
     return composite_tail(direct_lighting, pass1, params)
 
 
@@ -153,17 +156,18 @@ def composite_tail(
 
     debug modes: 0 filtered + direct; 1 filtered only; 2 raw input;
     3 direct only."""
-    dbg = int(params["debug_visualize"])
-    if dbg == 0:
-        color = pass1 + direct_lighting
-    else:
-        color = direct_lighting if dbg == 3 else pass1
-    color = color * float(np.float32(params["exposure"]))
-    if params["tonemap"]:
-        color = torch.clamp(reinhard_tonemap(color), min=0.0)
-    if params["gamma_correct"]:
-        color = torch.clamp(linear_to_srgb(color, params["gamma"]), 0.0, 1.0)
-    return color
+    with annotate("denoise.composite"):
+        dbg = int(params["debug_visualize"])
+        if dbg == 0:
+            color = pass1 + direct_lighting
+        else:
+            color = direct_lighting if dbg == 3 else pass1
+        color = color * float(np.float32(params["exposure"]))
+        if params["tonemap"]:
+            color = torch.clamp(reinhard_tonemap(color), min=0.0)
+        if params["gamma_correct"]:
+            color = torch.clamp(linear_to_srgb(color, params["gamma"]), 0.0, 1.0)
+        return color
 
 
 def temporal_blend(history: torch.Tensor, current: torch.Tensor, alpha: float) -> torch.Tensor:
@@ -206,14 +210,15 @@ class DenoiseCompositor:
             if self.mock_inputs is None:
                 raise ValueError("no inputs and no mock resources loaded")
             direct_lighting, indirect_specular = self.mock_inputs
-        out = denoise_composite(direct_lighting, indirect_specular, self.params)
-        if self.temporal_alpha is not None:
-            if self._history is None or self._history.shape != out.shape:
-                self._history = out
-            else:
-                self._history = temporal_blend(self._history, out, self.temporal_alpha)
-            return self._history
-        return out
+        with annotate("denoise.dispatch", 1):
+            out = denoise_composite(direct_lighting, indirect_specular, self.params)
+            if self.temporal_alpha is not None:
+                if self._history is None or self._history.shape != out.shape:
+                    self._history = out
+                else:
+                    self._history = temporal_blend(self._history, out, self.temporal_alpha)
+                return self._history
+            return out
 
     def dispatch_frames(self, direct_lighting, indirect_specular) -> torch.Tensor:
         """Dispatch over a leading [K] frame axis (the frames-in-flight batch,
@@ -221,10 +226,12 @@ class DenoiseCompositor:
         temporal history carried through them when temporal_alpha is set.
         Returns [K, H, W, 3]; the history advances exactly as K sequential
         dispatch() calls would."""
-        if self.temporal_alpha is None:
-            return denoise_composite_frames(direct_lighting, indirect_specular, self.params)
-        valid = self._history is not None and self._history.shape == direct_lighting.shape[1:]
-        self._history, outs = denoise_composite_frames_temporal(
-            direct_lighting, indirect_specular, self.params, self._history if valid else None,
-            valid, self.temporal_alpha)
-        return outs
+        with annotate("denoise.dispatch_frames", int(direct_lighting.shape[0])):
+            if self.temporal_alpha is None:
+                return denoise_composite_frames(direct_lighting, indirect_specular, self.params)
+            valid = (self._history is not None
+                     and self._history.shape == direct_lighting.shape[1:])
+            self._history, outs = denoise_composite_frames_temporal(
+                direct_lighting, indirect_specular, self.params,
+                self._history if valid else None, valid, self.temporal_alpha)
+            return outs

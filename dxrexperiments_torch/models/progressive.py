@@ -28,6 +28,7 @@ from ..trace.integrator import (
     render_sample,
     resolve_impl,
 )
+from ..utils.profiling import annotate
 from .base import RaytracingPipeline, has_camera_moved, select_route, wall_seed
 
 
@@ -110,8 +111,10 @@ def make_progressive_step(
         if base_count >= float(max_iterations):
             return accum
         full = dict(scene if geometry is None else geometry, lights=lights, env=env)
-        mean = sample_sum(full, options, cameras, width, height, env_kind) / s_count
-        return (base_count * accum + s_count * mean) / (base_count + s_count)
+        mean = sample_sum(full, options, cameras, width, height, env_kind)
+        with annotate("progressive.fold"):
+            mean = mean / s_count  # the sum freed here, as a temporary would be
+            return (base_count * accum + s_count * mean) / (base_count + s_count)
 
     return step
 
@@ -157,29 +160,31 @@ class ProgressiveRaytracingPipeline(RaytracingPipeline):
     def update(self, elapsed_time: float, elapsed_frames: int) -> None:
         if self.animation_paused:
             elapsed_time = 142.0  # the reference's freeze point
-        if (
-            has_camera_moved(self.camera, self.last_vp)
-            or not self.frame_accumulation_enabled
-            or self._frame_dirty
-        ):
-            self.accum_count = 0
-            self.last_vp = self.camera.view_proj_matrix()
-            self._frame_dirty = False
+        with annotate("progressive.update"):
+            if (
+                has_camera_moved(self.camera, self.last_vp)
+                or not self.frame_accumulation_enabled
+                or self._frame_dirty
+            ):
+                self.accum_count = 0
+                self.last_vp = self.camera.view_proj_matrix()
+                self._frame_dirty = False
 
-        s_count = self.samples_per_frame
-        self._camera_params = stack_cameras([
-            self._frame_camera_params(
-                elapsed_frames * s_count + k,
-                self.accum_count,
-                self.rng,
-            )
-            for k in range(s_count)
-        ])
-        self.accum_count += s_count
+            s_count = self.samples_per_frame
+            with annotate("progressive.cameras", s_count):
+                self._camera_params = stack_cameras([
+                    self._frame_camera_params(
+                        elapsed_frames * s_count + k,
+                        self.accum_count,
+                        self.rng,
+                    )
+                    for k in range(s_count)
+                ])
+            self.accum_count += s_count
 
-        # Animated sun + default point light, only when the pipeline owns the rig.
-        if self.scene_data is not None and self.owns_lights:
-            self.scene_data = dict(self.scene_data, lights=default_lights(elapsed_time))
+            # Animated sun + default point light, only when the pipeline owns the rig.
+            if self.scene_data is not None and self.owns_lights:
+                self.scene_data = dict(self.scene_data, lights=default_lights(elapsed_time))
 
     def set_instance_transforms(self, transforms) -> None:
         """Animate the instances of a two-level scene by a TLAS refit
@@ -209,15 +214,16 @@ class ProgressiveRaytracingPipeline(RaytracingPipeline):
         return self._step
 
     def render(self) -> torch.Tensor:
-        self.accum = self._step_fn()(
-            self.accum,
-            self.options,
-            self._camera_params,
-            self.scene_data["lights"],
-            self.scene_data["env"],
-            self.max_iterations,
-            self.scene_data,
-        )
+        with annotate("progressive.render"):
+            self.accum = self._step_fn()(
+                self.accum,
+                self.options,
+                self._camera_params,
+                self.scene_data["lights"],
+                self.scene_data["env"],
+                self.max_iterations,
+                self.scene_data,
+            )
         return self.accum
 
     def get_output(self, index: int = 0) -> torch.Tensor:

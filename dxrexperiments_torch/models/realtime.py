@@ -30,6 +30,7 @@ from ..ops import fused_sample, fused_traverse, traverse
 from ..scene.lights import default_lights
 from ..scene.scene import scene_device
 from ..trace.integrator import default_options, render_sample, resolve_impl
+from ..utils.profiling import annotate
 from .base import RaytracingPipeline, select_route, wall_seed
 from .denoise import denoise_composite_frames, stack_frames
 
@@ -120,23 +121,27 @@ class RealtimeRaytracingPipeline(RaytracingPipeline):
     def update(self, elapsed_time: float, elapsed_frames: int) -> None:
         if self.animation_paused:
             elapsed_time = 142.0  # the reference's freeze point
-        # accumCount pinned to 0: every frame is a fresh sample
-        self._camera_params = self._frame_camera_params(elapsed_frames, 0, self.rng)
-        if self.scene_data is not None and self.owns_lights:
-            self.scene_data = dict(self.scene_data, lights=default_lights(elapsed_time))
+        with annotate("realtime.update"):
+            # accumCount pinned to 0: every frame is a fresh sample
+            with annotate("realtime.cameras", 1):
+                self._camera_params = self._frame_camera_params(elapsed_frames, 0, self.rng)
+            if self.scene_data is not None and self.owns_lights:
+                self.scene_data = dict(self.scene_data, lights=default_lights(elapsed_time))
 
     def render(self):
-        self.direct, self.indirect_specular = realtime_step(
-            self.scene_data, self.options, self._camera_params, self.width, self.height
-        )
+        with annotate("realtime.render", 1):
+            self.direct, self.indirect_specular = realtime_step(
+                self.scene_data, self.options, self._camera_params, self.width, self.height
+            )
         return self.direct, self.indirect_specular
 
     def frame_cameras(self, elapsed_frames: int, k: int) -> dict:
         """CameraParams of frames [elapsed_frames, elapsed_frames + k),
         stacked on a leading [k] axis, the jitter drawn in order from
         ``self.rng`` as k sequential update() calls draw it."""
-        return stack_cameras([self._frame_camera_params(elapsed_frames + f, 0, self.rng)
-                              for f in range(k)])
+        with annotate("realtime.cameras", k):
+            return stack_cameras([self._frame_camera_params(elapsed_frames + f, 0, self.rng)
+                                  for f in range(k)])
 
     def render_frames(self, elapsed_frames: int, k: int):
         """Render frames [elapsed_frames, elapsed_frames + k) in one dispatch
@@ -149,8 +154,9 @@ class RealtimeRaytracingPipeline(RaytracingPipeline):
         default_lights(elapsed_time) each frame, which this batch does not.
         With animation paused (the default) or a scene's own rig, the batch
         equals k sequential render() calls bit for bit."""
-        out = realtime_frames(self.scene_data, self.options, self.frame_cameras(elapsed_frames, k),
-                              self.width, self.height)
+        with annotate("realtime.render_frames", k):
+            out = realtime_frames(self.scene_data, self.options,
+                                  self.frame_cameras(elapsed_frames, k), self.width, self.height)
         self.direct, self.indirect_specular = out["direct"][-1], out["indirect_specular"][-1]
         return out["direct"], out["indirect_specular"]
 

@@ -16,6 +16,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 MAX_EXTENT = 25  # UI slider max (the reference's DenoiseCompositor)
 KERNEL_TAPS = 6
 _TAP_TABLE = (1.0, 1.0, 0.9, 0.75, 0.6, 0.5, 0.0)
@@ -101,24 +103,25 @@ def bilateral_pass(inp: torch.Tensor, joint: torch.Tensor, radius: float, axis: 
 
     CUDA tensors -> one kernel launch; CPU tensors -> the plain version."""
     global LAUNCHES
-    if axis not in (0, 1):
-        raise ValueError(f"axis must be 0 or 1, got {axis}")
-    _check("inp", inp, inp)
-    _check("joint", joint, inp)
-    if inp.device.type == "cpu":
-        return _bilateral_pass(inp, joint, radius, axis)
-    if inp.device.type != "cuda":
-        raise ValueError(f"unsupported device {inp.device}")
-    if not (inp.is_contiguous() and joint.is_contiguous()):
-        raise ValueError("inp and joint must be contiguous")
-    h, w, _ = inp.shape
-    out = torch.empty_like(inp)
-    fn = _library().dxr_bilateral_pass
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream(inp.device).cuda_stream
-        rc = fn(inp.data_ptr(), joint.data_ptr(), out.data_ptr(), h, w, axis, float(radius),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"bilateral kernel launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return out
+    with annotate("B2.wrapper", 1):
+        if axis not in (0, 1):
+            raise ValueError(f"axis must be 0 or 1, got {axis}")
+        _check("inp", inp, inp)
+        _check("joint", joint, inp)
+        if inp.device.type == "cpu":
+            return _bilateral_pass(inp, joint, radius, axis)
+        if inp.device.type != "cuda":
+            raise ValueError(f"unsupported device {inp.device}")
+        if not (inp.is_contiguous() and joint.is_contiguous()):
+            raise ValueError("inp and joint must be contiguous")
+        h, w, _ = inp.shape
+        out = torch.empty_like(inp)
+        fn = _library().dxr_bilateral_pass
+        with torch.cuda.device(inp.device):
+            stream = torch.cuda.current_stream(inp.device).cuda_stream
+            rc = fn(inp.data_ptr(), joint.data_ptr(), out.data_ptr(), h, w, axis, float(radius),
+                    stream)
+        if rc != 0:
+            raise RuntimeError(f"bilateral kernel launch failed: cudaError {rc}")
+        LAUNCHES += 1
+        return out

@@ -64,6 +64,7 @@ import torch
 from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..trace.integrator import progressive_sample_sum, render_sample
+from ..utils.profiling import annotate
 from .traverse import FUSED_MAX_TRIS, REC_WORDS
 
 BIG = 3.0e38
@@ -377,44 +378,48 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
     without the wrapper's packing and checks. ``lib``: a build of the
     kernel's source with the same entry points (default the package's).
     py0/full_height: a row-block launch (``pack_cameras``)."""
-    check_rows(height, py0, full_height)
-    mt = scene["mt_pack"]
-    device = mt.device
-    c = int(mt.shape[1])
-    s_count = int(cameras["eye"].shape[0])
-    if "tri_records" not in scene:
-        raise ValueError("scene has no tri_records: build it with Scene.build or "
-                         "scene_from_numpy")
-    rec = _checked("tri_records", scene["tri_records"], (c, REC_WORDS), device)
-    if rec.data_ptr() % 16:
-        raise ValueError("tri_records: expected a 16-byte aligned tensor")
-    # the rows the sweeps test: num_tris, and at least one (a scene without
-    # triangles sweeps one padding row, which never hits)
-    n_live = max(1, min(int(scene["num_tris"]), c))
-    attr = _checked("attr_pack", scene["attr_pack"], (32, c), device)
-    cpu = torch.device("cpu")
-    cam = _checked("cameras", pack_cameras(cameras, realtime, py0, full_height).cpu()
-                   .contiguous(), (s_count, 16), cpu)
-    cst = _checked("consts", pack_consts(scene, options, env_kind).cpu().contiguous(), (2, 16), cpu)
-    frames = _frames_u32(cameras["frame_count"])
-    if frames.shape[0] != s_count:
-        raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
-    params = _upload(cam, cst, frames, device)
-    tail = (s_count, c, n_live, width, height, int(env_kind),
-            *env_args(scene, int(env_kind), device))
-    opt_ins, boxes = opt_in_args(scene, width, height, cluster_rows, block_w)
-    lib = lib or _library()
+    with annotate("B1.pack"):
+        check_rows(height, py0, full_height)
+        mt = scene["mt_pack"]
+        device = mt.device
+        c = int(mt.shape[1])
+        s_count = int(cameras["eye"].shape[0])
+        if "tri_records" not in scene:
+            raise ValueError("scene has no tri_records: build it with Scene.build or "
+                             "scene_from_numpy")
+        rec = _checked("tri_records", scene["tri_records"], (c, REC_WORDS), device)
+        if rec.data_ptr() % 16:
+            raise ValueError("tri_records: expected a 16-byte aligned tensor")
+        # the rows the sweeps test: num_tris, and at least one (a scene without
+        # triangles sweeps one padding row, which never hits)
+        n_live = max(1, min(int(scene["num_tris"]), c))
+        attr = _checked("attr_pack", scene["attr_pack"], (32, c), device)
+        cpu = torch.device("cpu")
+        cam = _checked("cameras", pack_cameras(cameras, realtime, py0, full_height).cpu()
+                       .contiguous(), (s_count, 16), cpu)
+        cst = _checked("consts", pack_consts(scene, options, env_kind).cpu().contiguous(),
+                       (2, 16), cpu)
+        frames = _frames_u32(cameras["frame_count"])
+        if frames.shape[0] != s_count:
+            raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
+        tail = (s_count, c, n_live, width, height, int(env_kind),
+                *env_args(scene, int(env_kind), device))
+        opt_ins, boxes = opt_in_args(scene, width, height, cluster_rows, block_w)
+        lib = lib or _library()
+    with annotate("B1.upload"):
+        params = _upload(cam, cst, frames, device)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    if realtime:  # direct, indirect specular, albedo, roughness
-        outs = (empty(s_count, height, width, 3), empty(s_count, height, width, 3),
-                empty(s_count, height, width, 3), empty(s_count, height, width))
-        fn = lib.dxr_fused_realtime_outputs
-    else:
-        outs = (empty(height, width, 3),)
-        fn = lib.dxr_fused_progressive_sum
+    with annotate("B1.alloc"):
+        if realtime:  # direct, indirect specular, albedo, roughness
+            outs = (empty(s_count, height, width, 3), empty(s_count, height, width, 3),
+                    empty(s_count, height, width, 3), empty(s_count, height, width))
+            fn = lib.dxr_fused_realtime_outputs
+        else:
+            outs = (empty(height, width, 3),)
+            fn = lib.dxr_fused_progressive_sum
 
     def launch() -> int:
         # the closure holds params, rec and boxes: a queued launch's inputs
@@ -441,7 +446,8 @@ def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
     launch, outs, opt_ins = prepare_launch(scene, options, cameras, width, height, env_kind,
                                            realtime, cluster_rows, block_w, py0=py0,
                                            full_height=full_height)
-    rc = launch()
+    with annotate("B1.launch"):
+        rc = launch()
     if rc != 0:
         raise RuntimeError(f"fused_sample kernel launch failed: cudaError {rc}")
     if realtime:
@@ -485,18 +491,19 @@ def fused_progressive_sum(
 
     CUDA scene tensors -> one kernel launch; CPU scene tensors -> the plain
     version. Scenes outside the kernel's scope raise."""
-    _check_supported(scene, env_kind, "progressive")
-    if light_mc and int(options["debug"]) != 2:
-        raise ValueError(
-            f"light_mc=True is the debug==2 light pick; options['debug'] is "
-            f"{int(options['debug'])}"
-        )
-    if _device_of(scene).type == "cpu":
-        check_rows(height, py0, full_height)
-        return fused_progressive_sum_reference(scene, options, cameras, width, height, env_kind,
-                                               py0, full_height)
-    return _launch(scene, options, cameras, width, height, env_kind, False, cluster_rows,
-                   block_w, py0, full_height)[0]
+    with annotate("B1.wrapper", int(cameras["eye"].shape[0])):
+        _check_supported(scene, env_kind, "progressive")
+        if light_mc and int(options["debug"]) != 2:
+            raise ValueError(
+                f"light_mc=True is the debug==2 light pick; options['debug'] is "
+                f"{int(options['debug'])}"
+            )
+        if _device_of(scene).type == "cpu":
+            check_rows(height, py0, full_height)
+            return fused_progressive_sum_reference(scene, options, cameras, width, height,
+                                                   env_kind, py0, full_height)
+        return _launch(scene, options, cameras, width, height, env_kind, False, cluster_rows,
+                       block_w, py0, full_height)[0]
 
 
 def realtime_aovs(
@@ -519,13 +526,14 @@ def realtime_aovs(
     the plain version, whose dict holds ``color`` too. ``cluster_rows`` and
     ``block_w``, ``py0`` and ``full_height`` as in ``fused_progressive_sum``.
     Scenes outside the kernel's scope raise."""
-    _check_supported(scene, env_kind, "realtime")
-    if _device_of(scene).type == "cpu":
-        check_rows(height, py0, full_height)
-        return fused_realtime_outputs_reference(scene, options, cameras, width, height, env_kind,
-                                                py0, full_height)
-    return dict(zip(AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind, True,
-                                      cluster_rows, block_w, py0, full_height)))
+    with annotate("B1.wrapper", int(cameras["eye"].shape[0])):
+        _check_supported(scene, env_kind, "realtime")
+        if _device_of(scene).type == "cpu":
+            check_rows(height, py0, full_height)
+            return fused_realtime_outputs_reference(scene, options, cameras, width, height,
+                                                    env_kind, py0, full_height)
+        return dict(zip(AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind,
+                                          True, cluster_rows, block_w, py0, full_height)))
 
 
 def fused_realtime_outputs_batch(

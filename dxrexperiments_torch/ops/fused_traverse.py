@@ -42,6 +42,7 @@ from ..core import vecmath as vm
 from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..scene.materials import MP_MAX_MATERIALS
+from ..utils.profiling import annotate
 from . import fused_sample as fs
 from .traverse import REC_WORDS, check_rows, queue_error_check
 
@@ -159,44 +160,49 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
     wrapper's packing and checks. ``lib``: a build of the kernel's source
     with the same entry points (default the package's). py0/full_height: a
     row-block launch (``fused_sample.pack_cameras``)."""
-    fs.check_rows(height, py0, full_height)
-    bvh = scene["bvh"]
-    device = bvh["mt_rows"].device
-    nodes, test, attr = check_rows(bvh, {"bvhf_rows": 16, "ft_test": REC_WORDS, "ft_attr": 16},
-                                   device)
-    if test.shape[0] != attr.shape[0]:
-        raise ValueError(f"ft_test and ft_attr: {test.shape[0]} against {attr.shape[0]} slots")
-    mats = scene["material_pack"]
-    if mats.device != device or mats.shape != (16, MP_MAX_MATERIALS) or not mats.is_contiguous():
-        raise ValueError(f"material_pack: expected a contiguous [16, {MP_MAX_MATERIALS}] tensor "
-                         f"on {device}")
-    s_count = int(cameras["eye"].shape[0])
-    cpu = torch.device("cpu")
-    cam = fs._checked("cameras", fs.pack_cameras(cameras, realtime, py0, full_height).cpu()
-                      .contiguous(), (s_count, 16), cpu)
-    cst, rig = _rig_consts(scene, options, env_kind)
-    cst = fs._checked("consts", cst.cpu().contiguous(), (3, 16), cpu)
-    frames = fs._frames_u32(cameras["frame_count"])
-    if frames.shape[0] != s_count:
-        raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
-    params = fs._upload(cam, cst, frames, device)
-    err = torch.zeros(1, dtype=torch.int32, device=device)
-    tail = (s_count, nodes.shape[0], test.shape[0], width, height, int(env_kind), rig,
-            *fs.env_args(scene, int(env_kind), device))
-    if not realtime:
-        tail += texture_args(scene, device)
-    lib = lib or _library()
+    with annotate("B5.pack"):
+        fs.check_rows(height, py0, full_height)
+        bvh = scene["bvh"]
+        device = bvh["mt_rows"].device
+        nodes, test, attr = check_rows(bvh, {"bvhf_rows": 16, "ft_test": REC_WORDS,
+                                             "ft_attr": 16}, device)
+        if test.shape[0] != attr.shape[0]:
+            raise ValueError(f"ft_test and ft_attr: {test.shape[0]} against {attr.shape[0]} "
+                             "slots")
+        mats = scene["material_pack"]
+        if (mats.device != device or mats.shape != (16, MP_MAX_MATERIALS)
+                or not mats.is_contiguous()):
+            raise ValueError(f"material_pack: expected a contiguous [16, {MP_MAX_MATERIALS}] "
+                             f"tensor on {device}")
+        s_count = int(cameras["eye"].shape[0])
+        cpu = torch.device("cpu")
+        cam = fs._checked("cameras", fs.pack_cameras(cameras, realtime, py0, full_height).cpu()
+                          .contiguous(), (s_count, 16), cpu)
+        cst, rig = _rig_consts(scene, options, env_kind)
+        cst = fs._checked("consts", cst.cpu().contiguous(), (3, 16), cpu)
+        frames = fs._frames_u32(cameras["frame_count"])
+        if frames.shape[0] != s_count:
+            raise ValueError(f"frame_count: expected {s_count} entries, got {frames.shape[0]}")
+        tail = (s_count, nodes.shape[0], test.shape[0], width, height, int(env_kind), rig,
+                *fs.env_args(scene, int(env_kind), device))
+        if not realtime:
+            tail += texture_args(scene, device)
+        lib = lib or _library()
+    with annotate("B5.upload"):
+        params = fs._upload(cam, cst, frames, device)
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=device)
 
-    if realtime:  # direct, indirect specular, albedo, roughness
-        outs = (empty(s_count, height, width, 3), empty(s_count, height, width, 3),
-                empty(s_count, height, width, 3), empty(s_count, height, width))
-        fn = lib.dxr_fused_traverse_realtime_outputs
-    else:
-        outs = (empty(height, width, 3),)
-        fn = lib.dxr_fused_traverse_progressive_sum
+    with annotate("B5.alloc"):
+        err = torch.zeros(1, dtype=torch.int32, device=device)
+        if realtime:  # direct, indirect specular, albedo, roughness
+            outs = (empty(s_count, height, width, 3), empty(s_count, height, width, 3),
+                    empty(s_count, height, width, 3), empty(s_count, height, width))
+            fn = lib.dxr_fused_traverse_realtime_outputs
+        else:
+            outs = (empty(height, width, 3),)
+            fn = lib.dxr_fused_traverse_progressive_sum
 
     def launch() -> int:
         cam_ptr = params.data_ptr()
@@ -238,7 +244,8 @@ def _launch(scene, options, cameras, width, height, env_kind, realtime: bool, py
     global LAUNCHES, REALTIME_LAUNCHES
     launch, outs, err = prepare_launch(scene, options, cameras, width, height, env_kind, realtime,
                                        py0=py0, full_height=full_height)
-    rc = launch()
+    with annotate("B5.launch"):
+        rc = launch()
     if rc != 0:
         raise RuntimeError(f"fused_traverse kernel launch failed: cudaError {rc}")
     if realtime:
@@ -266,13 +273,14 @@ def fused_traverse_progressive_sum(
     scene tensors -> one kernel launch; CPU scene tensors -> the plain
     version. Scenes outside the kernel's scope raise. py0/full_height: rows
     [py0, py0 + H) of a full_height-tall image."""
-    _check_supported(scene, env_kind, "progressive")
-    if not _on_cuda(scene):
-        fs.check_rows(height, py0, full_height)
-        return fused_traverse_progressive_sum_reference(scene, options, cameras, width,
-                                                        height, env_kind, py0, full_height)
-    return _launch(scene, options, cameras, width, height, env_kind, False, py0,
-                   full_height)[0]
+    with annotate("B5.wrapper", int(cameras["eye"].shape[0])):
+        _check_supported(scene, env_kind, "progressive")
+        if not _on_cuda(scene):
+            fs.check_rows(height, py0, full_height)
+            return fused_traverse_progressive_sum_reference(scene, options, cameras, width,
+                                                            height, env_kind, py0, full_height)
+        return _launch(scene, options, cameras, width, height, env_kind, False, py0,
+                       full_height)[0]
 
 
 def realtime_aovs(scene: dict, options: dict, cameras: dict, width: int, height: int,
@@ -283,13 +291,14 @@ def realtime_aovs(scene: dict, options: dict, cameras: dict, width: int, height:
     ``color``; CPU scene tensors -> the plain version, whose dict holds
     ``color`` too. Scenes outside the kernel's scope raise. py0/full_height
     as in ``fused_traverse_progressive_sum``."""
-    _check_supported(scene, env_kind, "realtime")
-    if not _on_cuda(scene):
-        fs.check_rows(height, py0, full_height)
-        return fused_traverse_realtime_outputs_reference(scene, options, cameras, width,
-                                                         height, env_kind, py0, full_height)
-    return dict(zip(fs.AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind, True,
-                                         py0, full_height)))
+    with annotate("B5.wrapper", int(cameras["eye"].shape[0])):
+        _check_supported(scene, env_kind, "realtime")
+        if not _on_cuda(scene):
+            fs.check_rows(height, py0, full_height)
+            return fused_traverse_realtime_outputs_reference(scene, options, cameras, width,
+                                                             height, env_kind, py0, full_height)
+        return dict(zip(fs.AOV_KEYS, _launch(scene, options, cameras, width, height, env_kind,
+                                             True, py0, full_height)))
 
 
 def fused_traverse_realtime_outputs(scene: dict, options: dict, camera: dict, width: int,

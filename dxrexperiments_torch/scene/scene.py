@@ -34,6 +34,7 @@ from ..accel import bvh as bvh_mod
 from ..accel import tlas as tlas_mod
 from ..core.device import setup_device
 from ..ops.traverse import leaf_records, pack_for_traversal, tri_records
+from ..utils.profiling import annotate
 from . import envmap as envmap_mod
 from .lights import default_lights, light_counts
 from .materials import (
@@ -337,25 +338,32 @@ class Scene:
         (the kernel wrapper packs them into its one upload per dispatch, the
         plain path moves them to its device); a texture env's texture leaves
         go to ``device`` here, once (``envmap.place``)."""
-        device = setup_device(device)
-        d = self.build_numpy(accel)
-        lights = self.lights if self.lights is not None else default_lights()
-        out = {
-            k: torch.as_tensor(v).to(device)
-            for k, v in d.items()
-            if k not in ("materials", "num_tris", "bvh", "textures")
-        }
-        if "textures" in d:
-            out["textures"] = {k: torch.as_tensor(v).to(device) for k, v in d["textures"].items()}
-        out["mat_id"] = out["mat_id"].to(torch.int64)
-        out["num_tris"] = d["num_tris"]
-        add_tri_records(out)
-        out["materials"] = stack_materials(d["materials"], device)
-        if "bvh" in d:
-            out.update(bvh_to_device(d["bvh"], out["materials"], device))
-        out["lights"] = to_device(lights, "cpu")
-        out["env"] = envmap_mod.place(self._env(), device)
-        return out
+        with annotate("scene.build"):
+            device = setup_device(device)
+            d = self.build_numpy(accel)
+            lights = self.lights if self.lights is not None else default_lights()
+            with annotate("scene.upload"):
+                out = {
+                    k: torch.as_tensor(v).to(device)
+                    for k, v in d.items()
+                    if k not in ("materials", "num_tris", "bvh", "textures")
+                }
+                if "textures" in d:
+                    out["textures"] = {k: torch.as_tensor(v).to(device)
+                                       for k, v in d["textures"].items()}
+                out["mat_id"] = out["mat_id"].to(torch.int64)
+                materials = stack_materials(d["materials"], device)
+                env = envmap_mod.place(self._env(), device)
+            out["num_tris"] = d["num_tris"]
+            with annotate("scene.records"):
+                add_tri_records(out)
+            out["materials"] = materials
+            if "bvh" in d:
+                with annotate("scene.bvh_to_device"):
+                    out.update(bvh_to_device(d["bvh"], materials, device))
+            out["lights"] = to_device(lights, "cpu")
+            out["env"] = env
+            return out
 
     def build_two_level(self, device: str | torch.device = "cuda") -> dict[str, Any]:
         """Lower to the two-level TLAS/BLAS scene (``accel/tlas.py``): one
@@ -379,96 +387,98 @@ class Scene:
         ``tlas_meta["prime_src"]`` (object-space ``v0``, ``e1``, ``e2`` and
         the owning instance ``inst``, original instance order) on
         ``device``."""
-        device = setup_device(device)
-        materials = list(self.materials)
-        mat_offset_for_mesh: dict[int, int] = {}
-        mesh_index: dict[int, int] = {}
-        meshes_geo = []  # (v0, e1, e2) per unique mesh
-        mesh_attr = []  # (n0, n1, n2, mat_id, uv_corners) per unique mesh
-        inst_mesh = np.zeros((len(self.instances),), np.int64)
-        transforms = np.zeros((len(self.instances), 4, 4), np.float32)
-        overrides = np.full((len(self.instances),), -1, np.int64)
+        with annotate("scene.build"):
+            device = setup_device(device)
+            materials = list(self.materials)
+            mat_offset_for_mesh: dict[int, int] = {}
+            mesh_index: dict[int, int] = {}
+            meshes_geo = []  # (v0, e1, e2) per unique mesh
+            mesh_attr = []  # (n0, n1, n2, mat_id, uv_corners) per unique mesh
+            inst_mesh = np.zeros((len(self.instances),), np.int64)
+            transforms = np.zeros((len(self.instances), 4, 4), np.float32)
+            overrides = np.full((len(self.instances),), -1, np.int64)
 
-        for inst_idx, inst in enumerate(self.instances):
-            mesh = inst.mesh
-            key = id(mesh)
-            if key not in mesh_index:
-                mesh_index[key] = len(meshes_geo)
-                tri = mesh.indices
-                p0 = mesh.positions[tri[:, 0]]
-                p1 = mesh.positions[tri[:, 1]]
-                p2 = mesh.positions[tri[:, 2]]
-                if mesh.materials:
-                    if key not in mat_offset_for_mesh:
-                        mat_offset_for_mesh[key] = len(materials)
-                        materials.extend(mesh.materials)
-                    mid = mesh.material_ids + mat_offset_for_mesh[key]
-                else:
-                    mid = np.clip(mesh.material_ids, 0, max(len(materials) - 1, 0))
-                meshes_geo.append((p0.astype(np.float32), (p1 - p0).astype(np.float32),
-                                   (p2 - p0).astype(np.float32)))
-                mesh_attr.append((mesh.normals[tri[:, 0]].astype(np.float32),
-                                  mesh.normals[tri[:, 1]].astype(np.float32),
-                                  mesh.normals[tri[:, 2]].astype(np.float32),
-                                  mid.astype(np.int32),
-                                  mesh.uv_corners if mesh.uv_corners is not None
-                                  else np.zeros((len(tri), 3, 2), np.float32)))
-            inst_mesh[inst_idx] = mesh_index[key]
-            transforms[inst_idx] = inst.transform
-            if inst.material_override is not None:
-                overrides[inst_idx] = inst.material_override
+            for inst_idx, inst in enumerate(self.instances):
+                mesh = inst.mesh
+                key = id(mesh)
+                if key not in mesh_index:
+                    mesh_index[key] = len(meshes_geo)
+                    tri = mesh.indices
+                    p0 = mesh.positions[tri[:, 0]]
+                    p1 = mesh.positions[tri[:, 1]]
+                    p2 = mesh.positions[tri[:, 2]]
+                    if mesh.materials:
+                        if key not in mat_offset_for_mesh:
+                            mat_offset_for_mesh[key] = len(materials)
+                            materials.extend(mesh.materials)
+                        mid = mesh.material_ids + mat_offset_for_mesh[key]
+                    else:
+                        mid = np.clip(mesh.material_ids, 0, max(len(materials) - 1, 0))
+                    meshes_geo.append((p0.astype(np.float32), (p1 - p0).astype(np.float32),
+                                       (p2 - p0).astype(np.float32)))
+                    mesh_attr.append((mesh.normals[tri[:, 0]].astype(np.float32),
+                                      mesh.normals[tri[:, 1]].astype(np.float32),
+                                      mesh.normals[tri[:, 2]].astype(np.float32),
+                                      mid.astype(np.int32),
+                                      mesh.uv_corners if mesh.uv_corners is not None
+                                      else np.zeros((len(tri), 3, 2), np.float32)))
+                inst_mesh[inst_idx] = mesh_index[key]
+                transforms[inst_idx] = inst.transform
+                if inst.material_override is not None:
+                    overrides[inst_idx] = inst.material_override
 
-        if not materials:
-            materials = [Material()]
-        if not meshes_geo:
-            raise ValueError("two-level build requires at least one instance")
+            if not materials:
+                materials = [Material()]
+            if not meshes_geo:
+                raise ValueError("two-level build requires at least one instance")
 
-        tl, ctx = tlas_mod.build_two_level(meshes_geo, inst_mesh, transforms, overrides,
-                                           leaf_size=BVH_LEAF_SIZE, device=device)
+            tl, ctx = tlas_mod.build_two_level(meshes_geo, inst_mesh, transforms, overrides,
+                                               leaf_size=BVH_LEAF_SIZE, device=device)
 
-        # concatenated object-space attribute and plain-version arrays
-        v0 = np.concatenate([g[0] for g in meshes_geo])
-        e1 = np.concatenate([g[1] for g in meshes_geo])
-        e2 = np.concatenate([g[2] for g in meshes_geo])
-        pn = np.cross(e1, e2)
-        c1 = np.cross(v0, e2)
-        c2 = np.cross(v0, e1)
-        d0 = np.sum(v0 * pn, axis=-1)
-        obj = {"v0": v0, "e1": e1, "e2": e2, "pn": pn, "c1": c1, "c2": c2, "d0": d0}
-        for k in range(3):
-            obj[f"n{k}"] = np.concatenate([a[k] for a in mesh_attr])
-        ranges = []
-        base = 0
-        for g in meshes_geo:
-            ranges.append((base, base + len(g[0])))
-            base += len(g[0])
-
-        lights = self.lights if self.lights is not None else default_lights()
-        out = {
-            "tlas": tl,
-            "tlas_meta": {
-                "num_instances": ctx.num_instances,
-                "slot_mesh": inst_mesh[ctx.inst_order].astype(np.int32),
-                "mesh_tri_ranges": ranges,
-                "refit_ctx": ctx,
-            },
-            **{f"{k}_obj": torch.as_tensor(v.astype(np.float32)).to(device)
-               for k, v in obj.items()},
-            "mat_id_obj": torch.as_tensor(
-                np.concatenate([a[3] for a in mesh_attr]).astype(np.int64)).to(device),
-            "materials": stack_materials(materials, device),
-            "lights": to_device(lights, "cpu"),
-            "env": envmap_mod.place(self._env(), device),
-            "num_tris": int(sum(len(meshes_geo[int(m)][0]) for m in inst_mesh)),
-        }
-        self._prime_two_level(out, meshes_geo, inst_mesh, transforms, device)
-        textures = pack_texture_table(materials)
-        if textures is not None:
-            uvc = np.concatenate([a[4] for a in mesh_attr]).astype(np.float32)
-            out["textures"] = {k: torch.as_tensor(v).to(device) for k, v in textures.items()}
+            # concatenated object-space attribute and plain-version arrays
+            v0 = np.concatenate([g[0] for g in meshes_geo])
+            e1 = np.concatenate([g[1] for g in meshes_geo])
+            e2 = np.concatenate([g[2] for g in meshes_geo])
+            pn = np.cross(e1, e2)
+            c1 = np.cross(v0, e2)
+            c2 = np.cross(v0, e1)
+            d0 = np.sum(v0 * pn, axis=-1)
+            obj = {"v0": v0, "e1": e1, "e2": e2, "pn": pn, "c1": c1, "c2": c2, "d0": d0}
             for k in range(3):
-                out[f"uv{k}_obj"] = torch.as_tensor(np.ascontiguousarray(uvc[:, k])).to(device)
-        return out
+                obj[f"n{k}"] = np.concatenate([a[k] for a in mesh_attr])
+            ranges = []
+            base = 0
+            for g in meshes_geo:
+                ranges.append((base, base + len(g[0])))
+                base += len(g[0])
+
+            lights = self.lights if self.lights is not None else default_lights()
+            with annotate("scene.upload"):
+                out = {
+                    "tlas": tl,
+                    "tlas_meta": {
+                        "num_instances": ctx.num_instances,
+                        "slot_mesh": inst_mesh[ctx.inst_order].astype(np.int32),
+                        "mesh_tri_ranges": ranges,
+                        "refit_ctx": ctx,
+                    },
+                    **{f"{k}_obj": torch.as_tensor(v.astype(np.float32)).to(device)
+                       for k, v in obj.items()},
+                    "mat_id_obj": torch.as_tensor(
+                        np.concatenate([a[3] for a in mesh_attr]).astype(np.int64)).to(device),
+                    "materials": stack_materials(materials, device),
+                    "lights": to_device(lights, "cpu"),
+                    "env": envmap_mod.place(self._env(), device),
+                    "num_tris": int(sum(len(meshes_geo[int(m)][0]) for m in inst_mesh)),
+                }
+            self._prime_two_level(out, meshes_geo, inst_mesh, transforms, device)
+            textures = pack_texture_table(materials)
+            if textures is not None:
+                uvc = np.concatenate([a[4] for a in mesh_attr]).astype(np.float32)
+                out["textures"] = {k: torch.as_tensor(v).to(device) for k, v in textures.items()}
+                for k in range(3):
+                    out[f"uv{k}_obj"] = torch.as_tensor(np.ascontiguousarray(uvc[:, k])).to(device)
+            return out
 
     @staticmethod
     def _prime_two_level(out: dict, meshes_geo, inst_mesh, transforms, device) -> None:

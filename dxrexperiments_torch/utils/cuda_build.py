@@ -24,6 +24,8 @@ import subprocess
 import threading
 import time
 
+from .profiling import annotate
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
@@ -67,24 +69,27 @@ def load_library(name: str, sources: list[str], csrc_dir: str = CSRC_DIR) -> cty
     so_path = os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
     log_path = so_path + ".log"  # nvcc's output (ptxas' counts), kept beside the library
     info = {"seconds": 0.0, "log": "", "path": so_path}
-    if os.path.exists(so_path) and os.path.exists(log_path):
-        with open(log_path) as f:
-            info["log"] = f.read()
-    else:
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"  # one per building thread
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        info["seconds"] = time.perf_counter() - t0
-        info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{info['log']}")
-        with open(f"{tmp}.log", "w") as f:
-            f.write(info["log"])
-        os.replace(f"{tmp}.log", log_path)
-        os.replace(tmp, so_path)  # atomic: a concurrent loader never sees half a file
-    lib = ctypes.CDLL(so_path)
+    cached = os.path.exists(so_path) and os.path.exists(log_path)
+    with annotate("kernel_load", int(not cached)):
+        if cached:
+            with open(log_path) as f:
+                info["log"] = f.read()
+        else:
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"  # one per building thread
+            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+            info["seconds"] = time.perf_counter() - t0
+            info["log"] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{info['log']}")
+            with open(f"{tmp}.log", "w") as f:
+                f.write(info["log"])
+            os.replace(f"{tmp}.log", log_path)
+            os.replace(tmp, so_path)  # atomic: a concurrent loader never sees half a file
+        lib = ctypes.CDLL(so_path)
     _LOADED[key] = lib
     BUILD_INFO[key] = info
     return lib

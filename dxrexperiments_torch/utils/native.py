@@ -24,6 +24,7 @@ import threading
 import numpy as np
 
 from .cuda_build import BUILD_DIR, CSRC_DIR
+from .profiling import annotate
 
 SOURCE = os.path.join(CSRC_DIR, "sah_bvh.cpp")
 MESH_SOURCE = os.path.join(CSRC_DIR, "mesh_io.cpp")
@@ -33,19 +34,24 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL | None] = {}  # source path -> library, None after a failed build
 
 
-def _build(source: str) -> str | None:
-    """Path of the library built from ``source``, or None without g++ or on a
-    failed build."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+def _library_path(source: str) -> str | None:
+    """Where the library of ``source`` is or will be built, or None without
+    g++."""
+    if shutil.which("g++") is None:
         return None
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
     with open(source, "rb") as f:
         h.update(f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
-    path = os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
+
+
+def _build(source: str, path: str) -> str | None:
+    """``path``, the library built from ``source`` there if it is not yet,
+    or None on a failed build."""
     if os.path.exists(path):
         return path
+    gxx = shutil.which("g++")
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
@@ -62,8 +68,11 @@ def _load(source: str, bind):
     process; None where it cannot be built."""
     with _lock:
         if source not in _libs:
-            path = _build(source)
-            _libs[source] = None if path is None else bind(ctypes.CDLL(path))
+            path = _library_path(source)
+            with annotate("kernel_load", int(path is not None and not os.path.exists(path))):
+                if path is not None:
+                    path = _build(source, path)
+                _libs[source] = None if path is None else bind(ctypes.CDLL(path))
         return _libs[source]
 
 
