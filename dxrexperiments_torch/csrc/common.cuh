@@ -15,7 +15,7 @@
 //      static constexpr bool kArea;  // one area light (B5's area mode)
 //      const float* area;  // with kArea: the area pack (AC_* lanes)
 //    B1's backend sweeps every triangle staged in shared memory; B5's walks
-//    the fat-node BVH below. Both read a triangle's coefficients as one
+//    the fat-node BVH with rec_leaf.cuh's postponed walk. Both read a triangle's coefficients as one
 //    80-byte record of five float4s (RecCoef). B5's albedo-texture mode
 //    multiplies each closest hit's albedo by the texture at its UV
 //    (sample_albedo) before any use of it.
@@ -25,8 +25,9 @@
 //    triangles at once, and pushes the hit internal children far first so
 //    the near one pops next. The stack holds kMaxStack entries; an overflow
 //    sets the error flag (the wrapper raises), it never drops a subtree.
-//    B6a runs the same walk on the TLAS, whose leaf visit walks a BLAS with
-//    the leaf test's ray moved into object space (set_ray).
+//    B6a runs this walk on the TLAS, whose leaf visit walks a BLAS with
+//    the leaf test's ray moved into object space (set_ray); B4a and B5 run
+//    it with leaf postponement (rec_leaf.cuh postponed_fat_walk).
 //
 // 3. The area light (area_light_term, B5's area mode): kAreaSamples
 //    stratified points on the quad, drawn from the pixel's TEA seed by a
@@ -215,7 +216,7 @@ __device__ __forceinline__ V3 interp_normal(const float* p, int step, float u, f
 }
 
 // ---------------------------------------------------------------------------
-// The fat-node BVH walk (B4a, and B5's traces)
+// The fat-node BVH walk (B4a, B5 and B6a)
 // ---------------------------------------------------------------------------
 
 // mt_rows lane of coefficient slot j (pack_for_traversal: group g, column

@@ -28,8 +28,9 @@
 //   frame writing its own AOVs (direct, indirect specular, albedo,
 //   roughness).
 // The tree is common.cuh's, shared with the brute-force megakernel (B1);
-// every trace here is the fat-node walk of kernel B4a (common.cuh
-// fat_walk), with leaf tests of its own over the dense records below. The area
+// every trace here is kernel B4a's fat-node walk with per-warp leaf
+// postponement and its record leaf tests (rec_leaf.cuh postponed_fat_walk,
+// ClosestRecLeaf, AnyRecLeaf), over the dense records below. The area
 // light's shadow rays take one walk each (the TPU kernel shared one
 // multi-direction walk among a packet's shadow rays, a packet design not
 // carried over); their draws come from the pixel's TEA seed inside the
@@ -54,14 +55,18 @@
 // pixels) share most of their primary walk and their shadow rays leave
 // nearby points; one 96-entry stack per thread, reused by every walk; a
 // closest hit fetches the winner's vertex normals and material id (ft_attr)
-// once, after its walk; material fields come from the [16, 128] material
+// once, after its walk; leaf tests postponed per warp, so a warp's lanes
+// test their leaves in one phase, not each in a turn of its own while the
+// others wait (the lanes that vote together are those that make the walk:
+// __activemask() at its entry, inside the ray tree's per-lane branches);
+// material fields come from the [16, 128] material
 // table staged in shared memory; a textured hit reads 4 texels (48 bytes)
 // of a table the L2 usually holds. Work the reference masks out is skipped
 // per thread (misses, inactive bounces, the unpicked light of the debug==2
 // estimator, area samples of zero weight), which changes no result. Seeds
 // come from the raster pixel index and the output is raster order.
 
-#include "common.cuh"
+#include "rec_leaf.cuh"
 
 namespace {
 
@@ -71,76 +76,33 @@ constexpr int kTileW = 16, kTileH = 16;  // a block's pixel tile
 constexpr int kMatFields = A_TYPE - A_ALBEDO + 1;  // A_ALBEDO..A_TYPE
 constexpr int kMaxMaterials = 128;
 
-// B5's leaf tests: common.cuh's ClosestLeaf and AnyLeaf (the same pair
-// tests, rows ascending with a strict '<', the same early exit), each slot
-// read from ft_test as one record instead of 19 scalar mt_rows lanes.
-struct DenseClosestLeaf {
-  const FatBvh& B;
-  const float4* test;  // ft_test [S][kRecQuads]
-  V3 o, d, mo;
-  float tmin, tmax;
-  bool cull;
-  float best_t, b_us, b_vs, b_det;
-  int best_slot;
+#ifdef DXR_LEAF_PHASE_COUNTS
+// The opt-in counting build (nvcc -DDXR_LEAF_PHASE_COUNTS; kernel_ab.py's
+// leaf_phase_counts, never the pipelines' build): per walk kind (0 closest
+// hit, 1 occlusion), [0][k] the walks made by the k lanes of their mask
+// and [1][k] the leaf phases in which k lanes test leaves, one count a warp.
+__device__ unsigned long long g_leaf_counts[2][2][33];
 
-  __device__ __forceinline__ DenseClosestLeaf(const FatBvh& b, const float4* test_, V3 o_, V3 d_,
-                                              float tmin_, float tmax_, bool cull_)
-      : B(b), test(test_), o(o_), d(d_), mo(cross3(o_, d_)), tmin(tmin_), tmax(tmax_),
-        cull(cull_), best_t(kBig), b_us(0.0f), b_vs(0.0f), b_det(0.0f), best_slot(-1) {}
-  __device__ __forceinline__ float far() const { return fminf(tmax, best_t); }
-  __device__ __forceinline__ bool visit(int start, int count) {
-    if (start < 0 || start + count > B.n_slots) {
-      *B.err = E_INDEX;
-      return true;
-    }
-    for (int r = 0; r < count; ++r) {
-      Pair p = pair_test(rec_coef_ldg(test + (size_t)(start + r) * kRecQuads), o, d, mo, tmin,
-                         true, tmax, cull);
-      if (p.valid) {
-        float t = p.ts / fmaxf(p.det_abs, kDetEps);
-        if (t < best_t) {
-          best_t = t;
-          best_slot = start + r;
-          b_us = p.us;
-          b_vs = p.vs;
-          b_det = p.det_abs;
-        }
-      }
-    }
-    return false;
+template <int kKind>
+struct LeafCounts {
+  __device__ __forceinline__ static bool leader(unsigned mask) {
+    const unsigned lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31u;
+    return lane == (unsigned)(__ffs(mask) - 1);
   }
-  __device__ __forceinline__ bool hit() const { return best_t < kBig; }
-  __device__ __forceinline__ float u() const { return b_us * (1.0f / fmaxf(b_det, kDetEps)); }
-  __device__ __forceinline__ float v() const { return b_vs * (1.0f / fmaxf(b_det, kDetEps)); }
-};
-
-struct DenseAnyLeaf {
-  const FatBvh& B;
-  const float4* test;
-  V3 o, d, mo;
-  float tmin, tmax;
-  bool occluded;
-
-  __device__ __forceinline__ DenseAnyLeaf(const FatBvh& b, const float4* test_, V3 o_, V3 d_,
-                                          float tmin_, float tmax_)
-      : B(b), test(test_), o(o_), d(d_), mo(cross3(o_, d_)), tmin(tmin_), tmax(tmax_),
-        occluded(false) {}
-  __device__ __forceinline__ float far() const { return tmax; }
-  __device__ __forceinline__ bool visit(int start, int count) {
-    if (start < 0 || start + count > B.n_slots) {
-      *B.err = E_INDEX;
-      return true;
-    }
-    for (int r = 0; r < count; ++r) {
-      if (pair_test(rec_coef_ldg(test + (size_t)(start + r) * kRecQuads), o, d, mo, tmin, true,
-                    tmax, false).valid) {
-        occluded = true;
-        return true;
-      }
-    }
-    return false;
+  __device__ __forceinline__ void walk(unsigned mask) const {
+    if (leader(mask)) atomicAdd(&g_leaf_counts[kKind][0][__popc(mask)], 1ull);
+  }
+  __device__ __forceinline__ void phase(unsigned mask, bool holds) const {
+    const unsigned testing = __ballot_sync(mask, holds);
+    if (leader(mask)) atomicAdd(&g_leaf_counts[kKind][1][__popc(testing)], 1ull);
   }
 };
+using ClosestTally = LeafCounts<0>;
+using AnyTally = LeafCounts<1>;
+#else
+using ClosestTally = NoTally;
+using AnyTally = NoTally;
+#endif
 
 // The dense leaf arrays (ops/traverse.leaf_records): ft_test [S][kRecQuads]
 // float4 and ft_attr [S][kAttrLanes], column k of ft_attr being mt_rows
@@ -151,8 +113,10 @@ struct Leaves {
   const float* attr;
 };
 
-// The BVH trace backend of the ray tree: walks with a shared per-thread
-// stack (B.rows unused: the leaves are read from L), material fields from
+// The BVH trace backend of the ray tree: postponed walks with a shared
+// per-thread stack, each over the lanes that make it (__activemask() at
+// its entry: a lane that makes no walk never votes in it), B.rows unused
+// (the leaves are read from L), material fields from
 // the staged table [kMatFields][128]. A: one area light (`area` is its
 // pack); X: albedo textures (`tex`).
 template <bool A, bool X>
@@ -177,14 +141,15 @@ struct BvhScene {
 
   __device__ __forceinline__ bool occluded(V3 o, V3 d, float tmin, bool has_tmax,
                                            float tmax) const {
-    DenseAnyLeaf leaf(B, L.test, o, d, tmin, has_tmax ? tmax : kRayFar);
-    fat_walk(B, o, safe_inv(d), tmin, leaf, stack);
+    AnyRecLeaf leaf(B, L.test, o, d, tmin, has_tmax ? tmax : kRayFar);
+    postponed_fat_walk(__activemask(), B, o, safe_inv(d), tmin, leaf, stack, true, AnyTally());
     return leaf.occluded;
   }
 
   __device__ __forceinline__ Hit closest(V3 o, V3 d, float tmin, bool cull) const {
-    DenseClosestLeaf leaf(B, L.test, o, d, tmin, kRayFar, cull);
-    fat_walk(B, o, safe_inv(d), tmin, leaf, stack);
+    ClosestRecLeaf leaf(B, L.test, o, d, tmin, kRayFar, cull);
+    postponed_fat_walk(__activemask(), B, o, safe_inv(d), tmin, leaf, stack, true,
+                       ClosestTally());
     Hit h;
     h.hit = leaf.hit();
     h.t = h.hit ? leaf.best_t : -1.0f;
@@ -375,3 +340,16 @@ extern "C" int dxr_fused_traverse_realtime_outputs(
   }
   return (int)cudaGetLastError();
 }
+
+#ifdef DXR_LEAF_PHASE_COUNTS
+// The counting build's tallies (g_leaf_counts) into out [2 * 2 * 33] u64
+// (host memory), then zeroed when reset != 0. Waits for the device.
+// Returns the CUDA error code (0 on success).
+extern "C" int dxr_fused_traverse_leaf_counts(unsigned long long* out, int reset) {
+  static const unsigned long long zeros[2 * 2 * 33] = {};
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, g_leaf_counts, sizeof(zeros));
+  if (e == cudaSuccess && reset) e = cudaMemcpyToSymbol(g_leaf_counts, zeros, sizeof(zeros));
+  return (int)e;
+}
+#endif

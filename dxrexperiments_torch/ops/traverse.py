@@ -928,13 +928,15 @@ class TurnLog:
         top = np.zeros(len(warps), np.int64)
         if pairs is not None:
             np.maximum.at(top, inv.reshape(-1), pairs)
-        self.rounds.append((warps, np.full(len(warps), pairs is None), top))
+        lanes = np.bincount(inv.reshape(-1), minlength=len(warps))
+        self.rounds.append((warps, np.full(len(warps), pairs is None), top, lanes))
 
     def arrays(self) -> dict:
         """{"ray", "loop", "turn", "pairs"} [N] int64, one entry per turn,
-        and for a postponed walk "rounds": {"warp", "traversal", "slots"},
-        one entry per round of each warp (a traversal turn, or a leaf phase
-        with its largest pair tests)."""
+        and for a postponed walk "rounds": {"warp", "traversal", "slots",
+        "lanes"}, one entry per round of each warp (a traversal turn, or a
+        leaf phase with its largest pair tests; the warp's rays that walk
+        or test leaves in it)."""
         names = ("ray", "loop", "turn", "pairs")
         if not self.parts:
             out = {k: np.zeros(0, np.int64) for k in names}
@@ -942,7 +944,7 @@ class TurnLog:
             out = {k: np.concatenate(c).astype(np.int64) for k, c in zip(names, zip(*self.parts))}
         if self.rounds:
             out["rounds"] = {k: np.concatenate(c) for k, c in
-                             zip(("warp", "traversal", "slots"), zip(*self.rounds))}
+                             zip(("warp", "traversal", "slots", "lanes"), zip(*self.rounds))}
         return out
 
 
@@ -950,8 +952,8 @@ def held_walk(nodes, visit, o, inv, state: WalkState, st: RayStacks, leaf_test, 
               turn, hold: int = 2) -> list[np.ndarray]:
     """Walk every ray with a non-empty stack in ``st`` to its end with leaf
     postponement, as the warps of B4b (``postponed_walk`` in
-    csrc/walk_binary.cuh), B4a (``postponed_fat_walk`` in
-    csrc/traverse_fat.cu) and B4d (``postponed_wide_walk`` in
+    csrc/walk_binary.cuh), B4a and B5 (``postponed_fat_walk`` in
+    csrc/rec_leaf.cuh) and B4d (``postponed_wide_walk`` in
     csrc/traverse8.cu) walk: each round every ray that neither holds a
     leaf nor has ended makes one turn of ``visit``, the leaves it hits held,
     not tested (up to ``hold``: one a binary visit, two a fat one, eight a
@@ -1008,11 +1010,14 @@ def held_walk(nodes, visit, o, inv, state: WalkState, st: RayStacks, leaf_test, 
 
 def _walk_numpy(nodes, visit, mt_rows, origins, directions, t_min, t_max,
                 cull: bool, occlusion: bool, parent: bool = False,
-                postpone: bool = False, hold: int = 2) -> tuple[dict, dict]:
+                postpone: bool = False, hold: int = 2, live=None) -> tuple[dict, dict]:
     """Run ``visit`` (fat_visit, binary_visit, wide_visit or, with
     ``parent``, parent_visit after the root test) over ``nodes`` from node
     0 until every ray's stack is empty (or it is occluded); ``postpone``:
-    with leaf postponement (``held_walk``, up to ``hold`` leaves a ray)."""
+    with leaf postponement (``held_walk``, up to ``hold`` leaves a ray).
+    ``live`` [R] bool: the rays that walk; the others make no visit (a miss,
+    not occluded) and, in a postponed walk, no vote: lanes outside the mask
+    of B5's walks."""
     nodes = np.asarray(nodes, np.float32)
     o = np.asarray(origins, np.float32)
     d = np.asarray(directions, np.float32)
@@ -1024,9 +1029,9 @@ def _walk_numpy(nodes, visit, mt_rows, origins, directions, t_min, t_max,
     inv = safe_inv(d)
     mom = np.cross(o, d).astype(np.float32)
     st = RayStacks(r, MAX_STACK)
-    live = np.ones(r, bool)
+    live = np.ones(r, bool) if live is None else np.asarray(live, bool).copy()
     if occlusion:
-        live = np.abs(d).sum(axis=1) >= 1e-30
+        live &= np.abs(d).sum(axis=1) >= 1e-30
     ray_visits = np.zeros(r, np.int64)
     seen_nodes: list[np.ndarray] = []
     log = TurnLog()
@@ -1064,16 +1069,19 @@ def _walk_numpy(nodes, visit, mt_rows, origins, directions, t_min, t_max,
 
 
 def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,
-                   occlusion: bool = False, postpone: bool = False) -> tuple[dict, dict]:
+                   occlusion: bool = False, postpone: bool = False,
+                   live=None) -> tuple[dict, dict]:
     """Host model of the per-ray fat-node walk over ``bvhf_rows``/``mt_rows``
     (numpy arrays) of B4a and of B5's traces: near child first (the far one
     pushed first), both children's slab tests pruned by the running best t,
     a leaf tested at visit time (lowest row wins within a leaf, strict '<'
     across leaves), occlusion ending at the first hit, zero-direction
-    occlusion rays dead. ``postpone``: B4a's warps, with leaf postponement
-    (``held_walk``: a ray holds the up to two leaves a visit hits; its
-    rounds go into counts["turns"]["rounds"]), which changes neither the
-    hits nor the leaves each ray tests and their order.
+    occlusion rays dead. ``postpone``: B4a's and B5's warps, with leaf
+    postponement (``held_walk``: a ray holds the up to two leaves a visit
+    hits; its rounds go into counts["turns"]["rounds"]), which changes
+    neither the hits nor the leaves each ray tests and their order.
+    ``live`` [R] bool: the rays that walk (default all; B5's lanes that make
+    the walk), the others neither visit nor vote.
 
     Returns (result, counts): result {"hit", "t", "slot", "u", "v"} or
     {"occluded"}; counts {"visits", "slab_tests", "pair_tests", "node_ids",
@@ -1085,7 +1093,7 @@ def fat_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = Fa
     (``TurnLog``), which ``traverse2.turn_costs`` weighs per warp;
     leaf_order: the leaves each ray tested, in order)."""
     return _walk_numpy(bvh["bvhf_rows"], fat_visit, bvh["mt_rows"], origins, directions,
-                       t_min, t_max, cull, occlusion, postpone=postpone)
+                       t_min, t_max, cull, occlusion, postpone=postpone, live=live)
 
 
 def binary_walk_numpy(bvh: dict, origins, directions, t_min, t_max, cull: bool = False,

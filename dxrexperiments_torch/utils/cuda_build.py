@@ -51,18 +51,23 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def load_library(name: str, sources: list[str], csrc_dir: str = CSRC_DIR) -> ctypes.CDLL:
+def load_library(name: str, sources: list[str], csrc_dir: str = CSRC_DIR,
+                 flags: tuple = ()) -> ctypes.CDLL:
     """Compile ``csrc/<sources>`` into ``build/lib<name>-<hash>.so`` if it is
     not built yet, then load it. Raises with nvcc's output on failure.
     ``csrc_dir`` names another source tree (another commit's ``csrc``),
     built beside the package's under its own hash and loaded under the key
-    ``name@csrc_dir`` of ``BUILD_INFO``."""
+    ``name@csrc_dir`` of ``BUILD_INFO``. ``flags``: nvcc options after
+    NVCC_FLAGS (a ``-D`` for an opt-in instantiation such as B5's counting
+    build, ``-fmad=false`` for kernel_ab.py's builds without contraction),
+    hashed with them; give such a build a name of its own."""
     key = name if csrc_dir == CSRC_DIR else f"{name}@{csrc_dir}"
     if key in _LOADED:
         return _LOADED[key]
     paths = [os.path.join(csrc_dir, s) for s in sources]
     headers = sorted(os.path.join(csrc_dir, f) for f in os.listdir(csrc_dir) if f.endswith(".cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = (*NVCC_FLAGS, *flags)
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())
@@ -77,7 +82,7 @@ def load_library(name: str, sources: list[str], csrc_dir: str = CSRC_DIR) -> cty
         else:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{so_path}.{os.getpid()}.{threading.get_ident()}.tmp"  # one per building thread
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+            cmd = [find_nvcc(), *flags, "-o", tmp, *paths]
             t0 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
             info["seconds"] = time.perf_counter() - t0

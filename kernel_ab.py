@@ -7,14 +7,14 @@ bilateral pass B2 (csrc/bilateral.cu) and the roofline probes B7
 (csrc/roofline.cu) case by case, every other kernel by its instructions.
 
     python3 kernel_ab.py --base DIR [--json PATH] [--reps N] [--kernels B7]
-                         [--same-entries] [--this DIR2]
+                         [--same-entries] [--this DIR2] [--no-fmad]
 
 DIR is a checkout of the commit to compare with (its
 ``dxrexperiments_torch/csrc`` is built with this package's nvcc flags,
 beside this tree's; one nvcc per source, all at once). Printed:
 
 - ptxas' registers, spills and stack of every kernel of both trees;
-- for every kernel but this tree's redesigns (``REDESIGNED``: B7),
+- for every kernel but this tree's redesigns (``REDESIGNED``: B7, B5),
   whether its instructions (``cuobjdump -sass``) equal the base build's;
   for each redesign, its kernels' tensor-core instructions in both builds
   (``HGMMA``: warpgroup MMA, ``HMMA``: mma.sync);
@@ -43,7 +43,12 @@ beside this tree's; one nvcc per source, all at once). Printed:
   configs 1, 3, 4, config 5 flattened and its 1080p frame, the config-2
   stand-in): the pixels that differ in any bit, this build launched as
   usual and as the whole image's one row block (py0 0, full_height the
-  height), ms in turns;
+  height), ms in turns; for B5's cases the engagement counter of its leaf
+  postponement (``leaf_phase_counts``: the opt-in counting build's walks
+  and leaf phases by lanes a warp, and the pixels where its outputs differ
+  from this build's), and for the 1080p frame the host figures of each of
+  its walks (``b5_figures``: B5's warps with and without leaf
+  postponement);
 - with B2, the bilateral cases (``bilateral_cases``: config 4's 1080p
   frame 0 AOVs, both passes at each radius of ``B2_RADII``): the pixels
   whose channels differ in any bit, per channel, ms in turns;
@@ -58,9 +63,13 @@ trace kernels through this tree's wrappers; ``--same-entries`` (a base that is a
 of this tree) launches all of them through this tree's wrappers. ``--this DIR2`` builds
 DIR2's sources in place of this tree's (a variant with this tree's entry
 points, run through this tree's wrappers), so two variants compare in one
-call. The megakernels' entry
-points are the base's own. The last line is one JSON object with all of it
-but the loops' counts, which --json writes too.
+call. ``--no-fmad`` builds both trees with ``nvcc -fmad=false``: where a
+change moves which products nvcc fuses into a multiply-add, the outputs
+differ by rounding alone, and without contraction they agree bit for bit
+where the arithmetic is the same (the times are then not the shipped
+builds'). The megakernels' entry points are the base's own. The last line
+is one JSON object with all of it but the loops' counts, which --json
+writes too.
 """
 
 from __future__ import annotations
@@ -79,7 +88,7 @@ SOURCES = {"B1": "fused_sample", "B2": "bilateral", "B3": "intersect_brute",
            "B6b": "traverse2_binary", "B7": "roofline"}
 # this tree's redesigns, compared case by case; every other kernel's
 # instructions must equal the base's
-REDESIGNED = ("B7",)
+REDESIGNED = ("B7", "B5")
 TRACED = ("B4a", "B4b", "B6b", "B3", "B6a", "B4d", "B4c")  # the trace kernels with cases
 COMPARED = TRACED + ("B2", "B1", "B5", "B7")  # the kernels with cases
 B2_RADII = (1, 7, 12, 25)  # chip_smoke.BILATERAL_RADII; 12 is the denoiser's default
@@ -757,25 +766,35 @@ def trace_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng, packe
     return cs.walk2_figures(tv2, counts, d[sub], t_min, cs.rows_of(t_max, sub), occlusion)
 
 
-def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dict:
-    """Step-1 figures of a B4a, B4b, B4d or B6b launch, on
+def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng, live=None) -> dict:
+    """Step-1 figures of a B4a, B4b, B4d, B5 or B6b launch, on
     chip_smoke.COUNT_PIXELS rays of sampled spans of whole warps
-    (``chip_smoke.sampled_warps``), for each walk's host model: B4a's launch
-    inputs through its fat walk with and without leaf postponement
-    (``fat_walk_numpy``) and B4b's walk; B4b's through B4a's fat walk, B4d's
+    (``chip_smoke.sampled_warps``; with rng None, every ray: whole warps
+    already, as ``b5_figures`` passes them), for each walk's host model:
+    B4a's launch inputs through its fat walk with and without leaf
+    postponement (``fat_walk_numpy``) and B4b's walk; B4b's through B4a's fat walk, B4d's
     8-wide walk, the JAX kernel's binary walk (B4b before its redesign) and
     this tree's (``parent_walk_numpy`` with leaf postponement); B4d's
     through its 8-wide walk with and without leaf postponement
-    (``wide_walk_numpy``) and B4a's; B6b's through B6a's walk and the JAX
-    kernel's binary walk (B6b's). Per walk,
+    (``wide_walk_numpy``) and B4a's; B5's (one of its walks, ``live`` [R]
+    the lanes that make it) through its fat walk without leaf postponement
+    (B5 before its redesign) and with it, in B5's warps
+    (``fat_walk_numpy(..., live=)``: a lane without the walk neither visits
+    nor votes); B6b's through B6a's walk and the JAX kernel's binary walk
+    (B6b's). Per walk,
     summed over the warps (``ops/traverse2.turn_costs``): "turns" (a warp's
     loop turns), "slots" (Σ over turns of its largest pair tests), "pairs"
     (its lanes' pair tests), with leaf postponement (this tree's B4b)
     "p_turns", "p_slots", "visits" and "pairs" per ray, "deepest" (the
     deepest stack of any ray; two-level: TLAS + BLAS) and "mean_deepest"
-    (each ray's deepest, mean); and for B4a, B4b and B4d "same_hits":
-    whether the postponed model returns the unpostponed (B4a, B4d) or the
-    JAX kernel's (B4b) model's hits, bit for bit."""
+    (each ray's deepest, mean); for B5 "warps" (the warps with a lane
+    that walks), "lanes" (their walking lanes, mean), "cost" (turns and
+    slots weighed by B4a's SASS constants, ``B4A_COSTS``) and, postponed,
+    "p_cost" (the same of p_turns and p_slots), "phases" (the warps' leaf
+    phases) and "phase_lanes" (the lanes testing leaves in one, mean: the
+    engagement counter's figure); and for B4a, B4b, B4d and
+    B5 "same_hits": whether the postponed model returns the unpostponed
+    (B4a, B4d, B5) or the JAX kernel's (B4b) model's hits, bit for bit."""
     import functools
 
     import chip_smoke as cs
@@ -784,10 +803,19 @@ def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dic
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
 
-    sub = cs.sampled_warps(len(o), rng, o.device)
+    import torch
+
+    sub = (torch.arange(len(o), device=o.device) if rng is None
+           else cs.sampled_warps(len(o), rng, o.device))
     args = (cs.host_array(o[sub]), cs.host_array(d[sub]), cs.host_array(t_min),
             cs.host_array(cs.rows_of(t_max, sub)))
-    if kernel in ("B4a", "B4b", "B4d"):
+    lv = (np.ones(len(sub), bool) if live is None
+          else np.asarray(live, bool)[cs.host_array(sub)])
+    if kernel == "B5":
+        tree = {k: scene["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "mt_rows", "slot_tri")}
+        models = {"B5 unpostponed": functools.partial(tv.fat_walk_numpy, live=lv),
+                  "B5": functools.partial(tv.fat_walk_numpy, postpone=True, live=lv)}
+    elif kernel in ("B4a", "B4b", "B4d"):
         tree = {k: scene["bvh"][k].cpu().numpy() for k in ("bvhf_rows", "bvh_rows", "bvh8_rows",
                                                           "mt_rows", "slot_tri")}
         b4a = functools.partial(tv.fat_walk_numpy, postpone=True)
@@ -824,12 +852,199 @@ def walk_figures(kernel, scene, o, d, t_min, t_max, cull, occlusion, rng) -> dic
                        p_slots=int(w["postponed_slots"].sum()))
         row.update(visits=visits / len(sub), pairs_per_ray=c["pair_tests"] / len(sub),
                    deepest=deepest, mean_deepest=mean)
+        if kernel == "B5":
+            walking = np.bincount(np.arange(len(sub))[lv] // tv.WARP,
+                                  minlength=-(-len(sub) // tv.WARP))
+            c_turn, c_pair = B4A_COSTS[bool(occlusion)]
+            row.update(warps=int((walking > 0).sum()),
+                       lanes=float(walking[walking > 0].mean()) if walking.any() else 0.0,
+                       cost=c_turn * row["turns"] + c_pair * row["slots"])
+            if name == "B5":  # no rounds logged: no lane made the walk
+                row.setdefault("p_turns", 0)
+                row.setdefault("p_slots", 0)
+                row["p_cost"] = c_turn * row["p_turns"] + c_pair * row["p_slots"]
+                rd = c["turns"].get("rounds")
+                phases = [] if rd is None else rd["lanes"][~rd["traversal"]]
+                row["phases"] = len(phases)
+                row["phase_lanes"] = float(np.mean(phases)) if len(phases) else 0.0
         fig[name] = row
-    if kernel in ("B4a", "B4b", "B4d"):
+    if kernel in ("B4a", "B4b", "B4d", "B5"):
         base = results[{"B4a": "B4a unpostponed", "B4b": "B4b JAX order",
-                        "B4d": "B4d unpostponed"}[kernel]]
+                        "B4d": "B4d unpostponed", "B5": "B5 unpostponed"}[kernel]]
         fig["same_hits"] = all(np.array_equal(results[kernel][k], base[k]) for k in base)
     return fig
+
+
+B5_TILE = 16  # csrc/fused_traverse.cu kTileW = kTileH: a block's pixel tile
+
+
+def b5_lanes(width: int, height: int):
+    """B5's threads in launch order (blocks in blockIdx order, each block's
+    B5_TILE x B5_TILE threads row-major), each as the raster index of its
+    pixel, -1 for a thread outside the image (it returns before any walk):
+    a warp, 32 consecutive threads, is 16 x 2 pixels of a tile."""
+    import numpy as np
+
+    gx, gy = -(-width // B5_TILE), -(-height // B5_TILE)
+    by, bx, ty, tx = np.meshgrid(np.arange(gy), np.arange(gx), np.arange(B5_TILE),
+                                 np.arange(B5_TILE), indexing="ij")
+    px, py = bx * B5_TILE + tx, by * B5_TILE + ty
+    return np.where((px < width) & (py < height), py * width + px, -1).reshape(-1)
+
+
+def b5_walks(scene, options, camera, width, height, pixels, impl) -> list:
+    """The walks of B5's realtime kernel for the pixels ``pixels`` [P]
+    (raster indices) of a frame of ``camera`` (one CameraParams), as the
+    wavefront route traces the same ray tree (``trace_rays`` in realtime
+    mode on those pixels' primary rays and seeds, with ``impl``'s traces):
+    [(walk, o, d, t_min, t_max [P], cull, occlusion, live [P] bool)] in the
+    ray tree's order: the primary closest hit, a depth-0 shadow ray per
+    light, the specular bounce and its shadow rays. ``live``: the pixels
+    whose lane makes the walk (every primary; a hit's shadow rays; a
+    specular hit's bounce). The wavefront route also traces dead rays, with
+    a zero direction or an empty window; B5 does not walk them. A rig with
+    an area light, or the debug==2 estimator (B5 then walks the picked
+    light's ray alone), raises NotImplementedError."""
+    import torch
+
+    from dxrexperiments_torch.core import rng
+    from dxrexperiments_torch.core.camera import primary_ray_grid
+    from dxrexperiments_torch.ops.fused_sample import REALTIME_JITTER_SCALE
+    from dxrexperiments_torch.scene.lights import light_counts
+    from dxrexperiments_torch.scene.scene import to_device
+    from dxrexperiments_torch.trace import integrator as ig
+
+    d_n, p_n, a_n = light_counts(scene["lights"])
+    if a_n or int(options["debug"]) == 2:
+        raise NotImplementedError("b5_walks: an area light's samples or the debug==2 pick, "
+                                  "which the wavefront route traces otherwise than B5")
+    dev = scene["bvh"]["bvhf_rows"].device
+    cam = to_device(camera, dev)
+    o, d = primary_ray_grid(cam, width, height, REALTIME_JITTER_SCALE)
+    seeds = rng.pixel_seeds(width, height, cam["frame_count"], device=dev).reshape(-1)
+    idx = torch.as_tensor(pixels, dtype=torch.int64, device=dev)
+    traces, saved = [], (ig._trace_closest, ig._trace_any)
+
+    def closest(sc, o, d, t_min, t_max, cull, impl, sort_rays=False):
+        traces.append((o, d, t_min, t_max, cull, False))
+        return saved[0](sc, o, d, t_min, t_max, cull, impl, sort_rays)
+
+    def occluded(sc, o, d, t_min, t_max, impl, sort_rays=False):
+        traces.append((o, d, t_min, t_max, False, True))
+        return saved[1](sc, o, d, t_min, t_max, impl, sort_rays)
+
+    ig._trace_closest, ig._trace_any = closest, occluded
+    try:
+        ig.trace_rays(scene, options, o.reshape(-1, 3)[idx], d.reshape(-1, 3)[idx], seeds[idx],
+                      mode="realtime", impl=impl, env_kind=int(scene["env"]["kind"]))
+    finally:
+        ig._trace_closest, ig._trace_any = saved
+
+    def window(t, n):
+        return t if torch.is_tensor(t) and t.dim() else torch.full((n,), float(t), device=dev)
+
+    p, out = len(idx), []
+    for depth, name in enumerate(("primary closest", "specular bounce closest")):
+        o_, d_, t_min, t_max, cull, _ = traces[2 * depth]
+        t_max = window(t_max, p)
+        out.append((name, o_, d_, t_min, t_max, cull, False, t_max > 0))
+        o_, d_, t_min, t_max, _, _ = traces[2 * depth + 1]
+        t_max = window(t_max, len(o_))
+        for k, light in enumerate(["directional"] * d_n + ["point"] * p_n):
+            dk = d_[k * p:(k + 1) * p]
+            out.append((f"depth-{depth} {light} shadow", o_[k * p:(k + 1) * p], dk, t_min,
+                        t_max[k * p:(k + 1) * p], False, True, dk.abs().sum(1) >= 1e-30))
+    return out
+
+
+def b5_figures(scene, options, camera, width, height, impl, rng) -> dict:
+    """Step-1 figures of B5's realtime frame: on the pixels of
+    chip_smoke.COUNT_PIXELS threads in sampled spans of whole warps of
+    ``b5_lanes``, each walk of ``b5_walks`` through ``walk_figures``' B5
+    models in B5's warps (a lane outside the image or without the walk
+    neither visits nor votes); "total": the unpostponed "cost" and the
+    postponed "p_cost" summed over the walks, and their "ratio", the
+    modelled ratio of B5's walk time with and without leaf postponement."""
+    import chip_smoke as cs
+    import numpy as np
+    import torch
+
+    lanes = b5_lanes(width, height)
+    sub = cs.sampled_warps(len(lanes), rng, "cpu").numpy()
+    pix = lanes[sub]
+    inside = torch.as_tensor(pix >= 0)
+    fig = {}
+    for name, o, d, t_min, t_max, cull, occlusion, live in b5_walks(
+            scene, options, camera, width, height, pix[pix >= 0], impl):
+        def lane_order(x):
+            out = torch.zeros((len(sub), *x.shape[1:]), dtype=x.dtype, device=x.device)
+            out[inside.to(x.device)] = x
+            return out
+
+        fig[name] = walk_figures("B5", scene, lane_order(o), lane_order(d), t_min,
+                                 lane_order(t_max), cull, occlusion, None,
+                                 live=cs.host_array(lane_order(live)))
+    cost = sum(f["B5 unpostponed"]["cost"] for f in fig.values())
+    p_cost = sum(f["B5"]["p_cost"] for f in fig.values())
+    fig["total"] = {"cost": cost, "p_cost": p_cost, "ratio": p_cost / max(cost, 1.0),
+                    "lanes": int(np.count_nonzero(pix >= 0))}
+    return fig
+
+
+# the bins of lanes a warp (1..32) in which leaf_phase_counts reports shares
+LANE_BINS = ((1, 1), (2, 4), (5, 8), (9, 16), (17, 31), (32, 32))
+
+
+def lane_summary(hist) -> dict:
+    """Of a histogram [33] of warps by lanes (index k: k lanes), the count
+    of warps with a lane, the mean lanes of those, and the share of them in
+    each bin of LANE_BINS ("lo-hi")."""
+    import numpy as np
+
+    h = np.asarray(hist, np.int64)
+    k = np.arange(len(h))
+    n = int(h[1:].sum())
+    out = {"count": n, "mean": float((k * h)[1:].sum() / n) if n else 0.0}
+    for lo, hi in LANE_BINS:
+        out[f"{lo}-{hi}"] = float(h[lo:hi + 1].sum() / n) if n else 0.0
+    return out
+
+
+def leaf_phase_counts(scene, options, cams, width, height, env_kind, realtime,
+                      flags: tuple = ()) -> tuple:
+    """B5's engagement counter on one case: a launch of the opt-in counting
+    build (csrc/fused_traverse.cu with DXR_LEAF_PHASE_COUNTS, its own
+    library; ``flags`` as in ``compare``). Returns (counts, outs): counts
+    per walk kind ("closest", "occlusion") of "walks" (lane_summary of the
+    walks by the lanes of their mask) and "phases" (of the leaf phases by
+    the lanes that test leaves in them), each histogram [33] beside it
+    ("walks_hist", "phases_hist"); outs, the launch's outputs."""
+    import ctypes
+
+    import numpy as np
+
+    from dxrexperiments_torch.ops import fused_traverse as ft
+    from dxrexperiments_torch.ops.traverse import raise_on_error
+    from dxrexperiments_torch.utils import cuda_build
+
+    lib = ft.bind(cuda_build.load_library(library_name("B5", flags) + "_counts",
+                                          ["fused_traverse.cu"],
+                                          flags=(*flags, "-DDXR_LEAF_PHASE_COUNTS")))
+    read = lib.dxr_fused_traverse_leaf_counts
+    read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    buf = (ctypes.c_ulonglong * (2 * 2 * 33))()
+    if read(buf, 1) != 0:
+        raise RuntimeError("leaf_phase_counts: reading the tallies failed")
+    launch, outs, err = this_launch("B5", lib, scene, options, cams, width, height, env_kind,
+                                    realtime)
+    if launch() != 0 or read(buf, 1) != 0:
+        raise RuntimeError("leaf_phase_counts: the counting build's launch failed")
+    raise_on_error(err, "leaf_phase_counts")
+    h = np.array(buf, np.int64).reshape(2, 2, 33)
+    counts = {kind: {"walks": lane_summary(h[k, 0]), "phases": lane_summary(h[k, 1]),
+                     "walks_hist": h[k, 0].tolist(), "phases_hist": h[k, 1].tolist()}
+              for k, kind in enumerate(("closest", "occlusion"))}
+    return counts, outs
 
 
 def packet_figures(scene, o, d, t_min, t_max, cull, occlusion, rng, packet) -> dict:
@@ -884,10 +1099,20 @@ def packet_figures(scene, o, d, t_min, t_max, cull, occlusion, rng, packet) -> d
     return fig
 
 
-def build_trees(base_csrc: str, keys, this_csrc: str | None = None) -> tuple[dict, dict]:
+NO_FMAD = "-fmad=false"  # --no-fmad: nvcc contracts no multiply-add, in either tree
+
+
+def library_name(key: str, flags: tuple = ()) -> str:
+    """The build name of kernel ``key``'s source: its SOURCES name, with a
+    suffix for a build without multiply-add contraction."""
+    return SOURCES[key] + ("_no_fmad" if NO_FMAD in flags else "")
+
+
+def build_trees(base_csrc: str, keys, this_csrc: str | None = None,
+                flags: tuple = ()) -> tuple[dict, dict]:
     """Every source of ``keys`` in both trees (this one: this package's
-    sources, or ``this_csrc``), one nvcc each, all at once: (trees {"base",
-    "this"}: csrc dir, libs {(tree, key): CDLL})."""
+    sources, or ``this_csrc``), one nvcc each with ``flags`` added, all at
+    once: (trees {"base", "this"}: csrc dir, libs {(tree, key): CDLL})."""
     from concurrent.futures import ThreadPoolExecutor
 
     from dxrexperiments_torch.utils import cuda_build
@@ -896,30 +1121,31 @@ def build_trees(base_csrc: str, keys, this_csrc: str | None = None) -> tuple[dic
     jobs = [(tree, key) for tree in trees for key in keys]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         libs = dict(zip(jobs, pool.map(lambda j: cuda_build.load_library(
-            SOURCES[j[1]], [SOURCES[j[1]] + ".cu"], trees[j[0]]), jobs)))
+            library_name(j[1], flags), [SOURCES[j[1]] + ".cu"], trees[j[0]], flags), jobs)))
     return trees, libs
 
 
 def compare(base_csrc: str, card: str, dev, kernels, reps: int,
-            same_entries: bool = False, this_csrc: str | None = None) -> dict:
+            same_entries: bool = False, this_csrc: str | None = None,
+            flags: tuple = ()) -> dict:
     """Build, check and time (``reps`` launches a turn; 0: no times) both
     trees (main's work) for the cases of ``kernels`` (of COMPARED).
     ``same_entries``: the base's trace kernels have this tree's entry points
     (a variant of this tree), so they launch through this tree's wrappers.
     ``this_csrc``: build "this" from these sources (a variant with this
-    tree's entry points) instead of this package's."""
+    tree's entry points) instead of this package's. ``flags``: nvcc options
+    for every build of both trees (``NO_FMAD``)."""
     import numpy as np
     import torch
 
     from dxrexperiments_torch.ops.traverse import check_errors, raise_on_error
     from dxrexperiments_torch.utils import cuda_build
 
-    trees, libs = build_trees(base_csrc, SOURCES, this_csrc)
+    trees, libs = build_trees(base_csrc, SOURCES, this_csrc, flags)
 
     def info(tree, key):
-        d = trees[tree]
-        return cuda_build.BUILD_INFO[SOURCES[key] if d == cuda_build.CSRC_DIR
-                                     else f"{SOURCES[key]}@{d}"]
+        d, name = trees[tree], library_name(key, flags)
+        return cuda_build.BUILD_INFO[name if d == cuda_build.CSRC_DIR else f"{name}@{d}"]
 
     report = {"card": card, "ptxas": {}, "sass_loops": {}, "cases": []}
     for tree in trees:
@@ -1117,6 +1343,29 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
         for err in (base[2], mine[2], rows[2]):
             if err is not None:
                 raise_on_error(err, name)
+        if kernel != "B5":
+            continue
+        counts, outs = leaf_phase_counts(scene, options, cams, width, height, ek, realtime, flags)
+        row["leaf_phases"] = counts
+        row["differing_pixels_counting"] = differing_pixels(mine[1], outs, height, width)
+        for kind, c in counts.items():
+            for what in ("walks", "phases"):
+                v = c[what]
+                print(f"counts B5 {name}: {kind} {what} {v['count']}, lanes a warp mean "
+                      f"{v['mean']:.2f}, shares " + ", ".join(
+                          f"{k} {x:.3f}" for k, x in v.items() if k not in ("count", "mean"))
+                      + f" (the counting build's outputs: {row['differing_pixels_counting']} "
+                      f"pixels differ)", flush=True)
+        if not realtime:
+            continue
+        cams1 = {k: v[0] for k, v in cams.items()}
+        fig = b5_figures(scene, options, cams1, width, height, "cuda", np.random.default_rng(0))
+        row["figures"] = fig
+        for walk, f in fig.items():
+            for model, v in (f.items() if walk != "total" else [("all walks", f)]):
+                line = (", ".join(f"{a} {b:.4f}" if isinstance(b, float) else f"{a} {b}"
+                                  for a, b in v.items()) if isinstance(v, dict) else v)
+                print(f"figures B5 {name}: {walk}: {model}: {line}", flush=True)
     return report
 
 
@@ -1132,6 +1381,9 @@ def main(argv=None) -> int:
     ap.add_argument("--this", default=None,
                     help="a checkout whose sources stand for this tree's (a variant with its C "
                          "entry points)")
+    ap.add_argument("--no-fmad", action="store_true",
+                    help="build both trees with nvcc -fmad=false: no multiply-add contraction, "
+                         "so the same arithmetic in changed code agrees bit for bit")
     ap.add_argument("--same-entries", action="store_true",
                     help="the base is a variant of this tree with its C entry points: launch its "
                          "trace kernels through this tree's wrappers")
@@ -1152,7 +1404,8 @@ def main(argv=None) -> int:
     base_csrc = os.path.join(os.path.abspath(args.base), "dxrexperiments_torch", "csrc")
     this_csrc = (os.path.join(os.path.abspath(args.this), "dxrexperiments_torch", "csrc")
                  if args.this else None)
-    report = compare(base_csrc, card, dev, kernels, args.reps, args.same_entries, this_csrc)
+    report = compare(base_csrc, card, dev, kernels, args.reps, args.same_entries, this_csrc,
+                     (NO_FMAD,) if args.no_fmad else ())
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
         with open(args.json, "w") as f:

@@ -465,6 +465,47 @@ def test_fused_traverse_one_light_rig(cuda_device, group):
     _gate(got, want)
 
 
+def _warps(mask: torch.Tensor) -> torch.Tensor:
+    """[H, W] per-pixel flags as B5's warps [H/2 * W/16, 32]: 16 x 2 pixels
+    of a 16 x 16 tile each (H even, W a multiple of 16)."""
+    h, w = mask.shape
+    return mask.reshape(h // 2, 2, w // 16, 16).permute(0, 2, 1, 3).reshape(-1, 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("realtime", [False, True], ids=["progressive", "realtime"])
+def test_fused_traverse_divergent_warps_match_plain(cuda_device, realtime):
+    """B5's walks vote per warp over the lanes that make them: on a frame of
+    'instanced:4' whose warps diverge (some hold sky and geometry, some
+    glossy and matte hits, so the shadow rays and the specular bounce walk
+    in part of a warp), both pipelines equal the plain version on the image
+    gate, with and without the debug==2 pick."""
+    scene, cams = _instanced4_mode(cuda_device, "base")
+    ek = scene["env"]["kind"]
+    for opts in ({}, {"debug": 2}):
+        options = default_options(**opts)
+        ref = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
+        albedo = ref["albedo"][0]
+        hit = albedo.abs().sum(-1) > 0
+        glossy = hit & (albedo[..., 1] < 0.5)  # the red glossy spheres; the rest white
+        wh, wg = _warps(hit), _warps(glossy)
+        assert bool((wh.any(1) & ~wh.all(1)).any())
+        assert bool((wg.any(1) & (wh & ~wg).any(1)).any())
+        if realtime:
+            got = ft.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
+            torch.cuda.synchronize()
+            for k in fs.AOV_KEYS:
+                for f in range(S):
+                    _gate(got[k][f], ref[k][f], s_count=1)
+        else:
+            got = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
+            want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, SIZE, SIZE,
+                                                               ek)
+            torch.cuda.synchronize()
+            _gate(got, want)
+    traverse.check_errors()
+
+
 @pytest.mark.cuda
 def test_bvh_routes_launch_counts(cuda_device):
     sc, cam = build_scene(BVH_SCENE)
@@ -595,6 +636,56 @@ def test_traverse_stack_overflow_raises(cuda_device):
     hits = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38)
     traverse.check_errors()
     assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
+
+
+def chain_b5_scene(levels: int, device) -> tuple[dict, dict]:
+    """chain_scene's triangle and tree as a whole scene for B5 (the default
+    rig, gradient env; the BVH's fat nodes from chain_fat_bvh, ft_attr from
+    its mt_rows) and one SIZE x SIZE camera at z = 9 looking down -z at the
+    triangle's front face, off its axis so that no pixel centre lies on
+    the triangle's diagonal edge. Every ray's walk meets the chain."""
+    from dxrexperiments_torch.core.camera import Camera
+    from dxrexperiments_torch.scene.lights import default_lights
+
+    sc = Scene()
+    pos, idx = quad([-1, -1, 5], [1, -1, 5], [1, 1, 5], [-1, 1, 5])
+    sc.add_model(Mesh(pos, None, idx[:1]))
+    sc.lights = default_lights()
+    sc.environment = envmap.gradient_env()
+    scene = sc.build(device, accel="bvh")
+    bvh = chain_fat_bvh(chain_scene(levels)[1], device)
+    scene["bvh"] = dict(scene["bvh"], **bvh, bvhf_nodes=bvh["bvhf_rows"].T,
+                        ft_attr=bvh["mt_rows"][:, 64:80].contiguous())
+    cam = Camera()
+    cam.set_eye_at_up((0.0137, -0.0291, 9.0), (0.0137, -0.0291, 5.0), (0.0, 1.0, 0.0))
+    cam.set_aspect(SIZE, SIZE)
+    return scene, stack_cameras([camera_params(cam, frame_count=7)])
+
+
+@pytest.mark.cuda
+def test_fused_traverse_stack_overflow_raises(cuda_device):
+    """B5's postponed walks on chain_scene's tree: 120 levels overflow the
+    96-entry stack in both pipelines, which raises after the launch (a fat
+    visit that holds a leaf pops one node and pushes at most one, so the
+    overflow comes at a visit that holds none, in a warp whose every lane
+    meets it); 40 levels overflow nothing, and the images equal the plain
+    version's on the image gate."""
+    scene, cams = chain_b5_scene(120, cuda_device)
+    options = default_options()
+    for run in (ft.realtime_aovs, ft.fused_traverse_progressive_sum):
+        with pytest.raises(RuntimeError, match="stack overflowed"):
+            run(scene, options, cams, SIZE, SIZE, 1)
+            traverse.check_errors()
+    scene, cams = chain_b5_scene(40, cuda_device)
+    got = ft.realtime_aovs(scene, options, cams, SIZE, SIZE, 1)
+    img = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, 1)
+    traverse.check_errors()
+    want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, 1)
+    assert 0.05 < float((want["albedo"][0].abs().sum(-1) > 0).float().mean()) < 0.95
+    for k in fs.AOV_KEYS:
+        _gate(got[k][0], want[k][0], s_count=1)
+    _gate(img, ft.fused_traverse_progressive_sum_reference(scene, options, cams, SIZE, SIZE,
+                                                           1), s_count=1)
 
 
 # ---- two-level scenes: kernel B6a (fat two-level walk) -----------------------

@@ -20,6 +20,11 @@ leaf postponement per warp with a hold of two leaves, on the CPU.
   triangle, one ray through both. Its occlusion walk holds both leaves and
   stops at the first; its closest walk tests both, in order. The warp's
   rounds: one traversal turn and one leaf phase of the ray's pair tests.
+- Partial masks, as B5's walks vote (``live``: the lanes that make the
+  walk): a lane outside never visits, never tests a leaf and never holds
+  up a leaf phase, and a warp without a live lane makes no round; the
+  live lanes get the hits, the leaves in order and the turns of the same
+  rays walked alone without postponement, at no more pair slots a warp.
 - B4a's wrapper reads the records ``ft_test`` (``check_bvh(..., "fat")``):
   a BVH without them, or with a record count other than mt_rows' rows,
   raises before any launch.
@@ -56,6 +61,40 @@ def test_postponed_fat_walk_equals_fat_walk(kind, mode):
     assert (w["postponed_turns"] >= w["turns"]).all()
     if kind in ("cornell", "soup"):  # rays whose visits hit both leaf children
         assert (np.bincount(gc["leaf_order"]["ray"], minlength=len(o)) > 1).any()
+
+
+@pytest.mark.parametrize("mode", ["closest", "culled", "any"])
+@pytest.mark.parametrize("kind", ONE_LEVEL)
+def test_postponed_fat_walk_partial_masks(kind, mode):
+    bvh, o, d = one_level(kind)
+    occlusion = mode == "any"
+    dd, tmax = (shadow_window(d) if occlusion
+                else (d, np.full(len(d), 3.0e37, np.float32)))
+    live = np.random.default_rng(8).random(len(o)) < 0.6
+    live[32:64] = False  # a warp that makes no walk
+    kw = {"cull": mode == "culled", "occlusion": occlusion}
+    want, wc = ttv.fat_walk_numpy(bvh, o[live], dd[live], 1e-4, tmax[live], **kw)
+    got, gc = ttv.fat_walk_numpy(bvh, o, dd, 1e-4, tmax, postpone=True, live=live, **kw)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k][live], v, err_msg=k)
+    if occlusion:
+        assert not got["occluded"][~live].any()
+    else:
+        assert not got["hit"][~live].any() and (got["slot"][~live] == -1).all()
+    for k in ("ray_visits", "ray_leaves"):
+        assert not gc[k][~live].any(), k
+        np.testing.assert_array_equal(gc[k][live], wc[k], err_msg=k)
+    rays = np.nonzero(live)[0]
+    np.testing.assert_array_equal(gc["leaf_order"]["ray"], rays[wc["leaf_order"]["ray"]])
+    np.testing.assert_array_equal(gc["leaf_order"]["start"], wc["leaf_order"]["start"])
+    mapped = dict(wc["turns"], ray=rays[wc["turns"]["ray"]])
+    np.testing.assert_array_equal(sorted_turns(gc), sorted_turns({"turns": mapped}))
+    assert 1 not in gc["turns"]["rounds"]["warp"] and gc["pair_tests"] == wc["pair_tests"] > 0
+    _, uc = ttv.fat_walk_numpy(bvh, o, dd, 1e-4, tmax, live=live, **kw)
+    w = tt2.turn_costs(gc["turns"], len(o))
+    assert (w["postponed_slots"] <= tt2.turn_costs(uc["turns"], len(o))["pair_slots"]).all()
+    assert w["postponed_turns"][1] == w["postponed_slots"][1] == 0
 
 
 @pytest.fixture(scope="module")

@@ -131,18 +131,20 @@ def test_walk_loops_count_a_turn_outside_its_pair_tests():
 
 
 def test_redesigned_kernels_and_b2_radii():
-    """This tree's redesign is B7 (the overlap probe on wgmma), compared case
-    by case; B4d and B4c keep their trace cases beside B4a's (B4c one per
-    packet layout of chip_smoke.GROUPINGS) and B4a as a yardstick; B2 keeps
-    its bilateral cases at chip_smoke.py's radii; B4a, B4b, B4c, B4d, B6b
-    and B2 are held to the base's instructions."""
+    """This tree's redesigns are B7 (the overlap probe on wgmma) and B5 (its
+    walks postpone leaf tests per warp), compared case by case; B4d and B4c
+    keep their trace cases beside B4a's (B4c one per packet layout of
+    chip_smoke.GROUPINGS) and B4a as a yardstick; B2 keeps its bilateral
+    cases at chip_smoke.py's radii; B1, B4a, B4b, B4c, B4d, B6b and B2 are
+    held to the base's instructions."""
     import chip_smoke
 
-    assert ab.REDESIGNED == ("B7",)
+    assert ab.REDESIGNED == ("B7", "B5")
+    assert "B5" in ab.COMPARED and "B5" not in ab.TRACED
     assert "B7" in ab.COMPARED and "B7" not in ab.TRACED
     assert {"B4a", "B4d", "B4c"} <= set(ab.TRACED) and "B2" in ab.COMPARED
     assert "B2" not in ab.TRACED
-    assert not {"B4a", "B4b", "B4c", "B4d", "B6b", "B2"} & set(ab.REDESIGNED)
+    assert not {"B1", "B4a", "B4b", "B4c", "B4d", "B6b", "B2"} & set(ab.REDESIGNED)
     assert ab.B2_RADII == chip_smoke.BILATERAL_RADII and 12 in ab.B2_RADII
     assert set(ab.YARDSTICKS["B4a"]) == {("B4b", "binary"), ("B4d", "wide")}
     assert ("B4a", "fat") in ab.YARDSTICKS["B4d"] and ab.YARDSTICKS["B4c"] == (("B4a", "fat"),)
@@ -281,3 +283,116 @@ def test_packet_figures_of_the_grouped_walk():
         for row in (warp, tile, fig["B4a"]):
             assert row["cost"] == c_turn * row["warp_steps"] + c_pair * row["slots"]
         assert fig["B4a"]["to_b4a"] == 1.0
+
+
+def test_b5_lanes_are_warps_of_tiles():
+    """B5's threads in launch order: 16 x 16 tiles in blockIdx order, a
+    tile's threads row-major, so each warp of 32 is 16 x 2 pixels; threads
+    past the image's right or bottom edge are -1, and every pixel is one
+    thread."""
+    import numpy as np
+
+    w, h = 40, 20
+    lanes = ab.b5_lanes(w, h)
+    assert lanes.shape == (3 * 2 * 256,)
+    np.testing.assert_array_equal(lanes[:16], np.arange(16))
+    np.testing.assert_array_equal(lanes[16:32], w + np.arange(16))
+    np.testing.assert_array_equal(lanes[256:272], 16 + np.arange(16))
+    np.testing.assert_array_equal(lanes[512:520], 32 + np.arange(8))
+    assert (lanes[520:528] == -1).all()  # x 40..47
+    assert (lanes[768 + 4 * 16:1024] == -1).all()  # rows 20..31 of the second tile row
+    np.testing.assert_array_equal(np.sort(lanes[lanes >= 0]), np.arange(w * h))
+
+
+def _instanced2_frame(size=64):
+    """'instanced:2' through a BVH on the CPU, and the realtime pipeline's
+    frame-0 options and camera at size x size."""
+    from dxrexperiments_torch.app.headless import build_scene
+    from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
+
+    sc, cam = build_scene("instanced:2")
+    cam.set_aspect(size, size)
+    rt = RealtimeRaytracingPipeline(size, size, seed=0, device="cpu")
+    rt.set_camera(cam)
+    rt.set_scene_data(sc.build("cpu", accel="bvh"))
+    rt.update(elapsed_time=0.0, elapsed_frames=0)
+    return rt.scene_data, rt.options, rt._camera_params
+
+
+def test_walk_figures_of_b5_walks():
+    """kernel_ab's figures of B5's realtime frame on the CPU ('instanced:2',
+    64 x 64: every thread in sampled warps of B5's tiles): for each walk of
+    the ray tree, the postponed model returns the unpostponed one's hits,
+    makes the same pair tests and costs no more, and the sum over the walks
+    costs less; every primary lane walks, the bounce and its shadow rays in
+    fewer lanes a warp."""
+    import numpy as np
+
+    scene, options, camera = _instanced2_frame()
+    fig = ab.b5_figures(scene, options, camera, 64, 64, "torch", np.random.default_rng(1))
+    walks = ["primary closest", "depth-0 directional shadow", "depth-0 point shadow",
+             "specular bounce closest", "depth-1 directional shadow", "depth-1 point shadow"]
+    assert list(fig) == walks + ["total"]
+    for walk in walks:
+        f = fig[walk]
+        assert f["same_hits"] is True, walk
+        own, post = f["B5 unpostponed"], f["B5"]
+        assert post["pairs"] == own["pairs"] and post["turns"] == own["turns"] > 0, walk
+        assert post["p_cost"] <= own["cost"] and post["p_slots"] <= own["slots"], walk
+        assert own["warps"] == post["warps"] > 0
+    assert fig["primary closest"]["B5"]["lanes"] == 32.0
+    assert fig["specular bounce closest"]["B5"]["lanes"] < 32.0
+    total = fig["total"]
+    assert total["lanes"] == 4096 and 0.0 < total["ratio"] < 1.0
+    assert total["p_cost"] == sum(fig[w]["B5"]["p_cost"] for w in walks)
+
+
+def test_b5_walks_live_lanes_and_rejected_rigs():
+    """b5_walks on a few pixels: a shadow ray walks where its pixel's
+    primary hits, a bounce where the hit is specular (a subset of the
+    hits); an area light or the debug==2 estimator raises."""
+    import pytest
+
+    from dxrexperiments_torch.scene.lights import area_light
+
+    scene, options, camera = _instanced2_frame(32)
+    pixels = list(range(0, 1024, 7))
+    walks = {w[0]: w for w in ab.b5_walks(scene, options, camera, 32, 32, pixels, "torch")}
+    assert len(walks) == 6
+    hit = walks["depth-0 directional shadow"][7]
+    assert torch.equal(hit, walks["depth-0 point shadow"][7]) and 0 < int(hit.sum()) < len(pixels)
+    assert bool(walks["primary closest"][7].all()) and walks["primary closest"][5] is True
+    spec = walks["specular bounce closest"][7]
+    assert bool((hit | ~spec).all()) and 0 < int(spec.sum()) < int(hit.sum())
+    assert not bool((walks["depth-1 point shadow"][7] & ~spec).any())
+    with pytest.raises(NotImplementedError):
+        ab.b5_walks(scene, dict(options, debug=2), camera, 32, 32, pixels, "torch")
+    rig = dict(scene, lights={"dir": scene["lights"]["dir"], "point": [],
+                              "area": [area_light((0, 4, 0), (1, 0, 0), (0, 0, 1),
+                                                  (1, 1, 1, 1))]})
+    with pytest.raises(NotImplementedError):
+        ab.b5_walks(rig, options, camera, 32, 32, pixels, "torch")
+
+
+def test_lane_summary_of_a_histogram():
+    """The engagement counter's figures: warps with a lane, their mean
+    lanes and the share in each bin of LANE_BINS; a bin 0 count (no lane)
+    is left out."""
+    h = [0] * 33
+    h[0], h[1], h[3], h[32] = 5, 2, 1, 1
+    got = ab.lane_summary(h)
+    assert got["count"] == 4 and got["mean"] == (2 + 3 + 32) / 4
+    assert got["1-1"] == 0.5 and got["2-4"] == 0.25 and got["32-32"] == 0.25
+    assert got["9-16"] == 0.0 and abs(sum(got[f"{a}-{b}"] for a, b in ab.LANE_BINS) - 1) < 1e-12
+    assert ab.lane_summary([0] * 33) == {"count": 0, "mean": 0.0,
+                                         **{f"{a}-{b}": 0.0 for a, b in ab.LANE_BINS}}
+
+
+def test_builds_without_contraction_have_names_of_their_own():
+    """--no-fmad builds every source of both trees with nvcc -fmad=false
+    under a name of its own, so a build with contraction is never loaded
+    in its place (cuda_build keys its loaded libraries by name)."""
+    assert ab.library_name("B5") == "fused_traverse"
+    assert ab.library_name("B5", (ab.NO_FMAD,)) == "fused_traverse_no_fmad"
+    assert ab.library_name("B4a", ()) == ab.SOURCES["B4a"]
+    assert ab.NO_FMAD == "-fmad=false" and ab.NO_FMAD not in cuda_build.NVCC_FLAGS
