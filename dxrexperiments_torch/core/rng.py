@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
+
 MASK = 0xFFFFFFFF
 
 
@@ -63,7 +65,9 @@ def pixel_seeds(width: int, height: int, frame_count, device=None, row0=None) ->
     """Per-pixel seeds [H, W]: ``initRand(px + py * width, frameCount)``.
 
     row0: seeds for rows [row0, row0 + height) of a taller image; pixel ids
-    stay global, so a row block's seeds are those rows of the full image's."""
+    stay global, so a row block's seeds are those rows of the full image's.
+    A frame count off the seeds' device is copied there under the
+    integrator's ``wavefront.upload`` span (n: bytes copied)."""
     py, px = torch.meshgrid(
         torch.arange(height, dtype=torch.int64, device=device),
         torch.arange(width, dtype=torch.int64, device=device),
@@ -72,5 +76,7 @@ def pixel_seeds(width: int, height: int, frame_count, device=None, row0=None) ->
     if row0 is not None:
         py = py + int(row0)
     linear = (px + py * width) & MASK
-    fc = torch.as_tensor(frame_count, dtype=torch.int64).to(linear.device)
+    fc = torch.as_tensor(frame_count, dtype=torch.int64)
+    with annotate("wavefront.upload", 0 if fc.device == linear.device else fc.nbytes):
+        fc = fc.to(linear.device)
     return init_rand(linear, fc)

@@ -13,7 +13,9 @@ and ``two_level_any_reference``, which test every instance's triangles.
 There is no fallback from a kernel to its plain version.
 
 A stack overflow or an index outside the arrays sets the launch's error
-flag, which ``ops.traverse.check_errors`` reads later, as for B4a.
+flag, which ``ops.traverse.check_errors`` reads later, as for B4a. Each
+launch is a ``B6a.launch`` or ``B6b.launch`` span (``utils/profiling``; n:
+the rays), inside the integrator's ``wavefront.trace``.
 
 ``fat_walk2_numpy`` and ``binary_walk2_numpy`` are host models of the
 kernels' walks (B6b's is the JAX kernel's binary walk): they return the
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 
 from ..accel.tlas import two_level_any_reference, two_level_closest_reference
+from ..utils.profiling import annotate
 from .traverse import (
     COEF_LANES,
     MAX_STACK,
@@ -63,14 +66,14 @@ BINARY_ANY_LAUNCHES = 0
 
 # kind -> (library and source name, C entry point, the rows the walk reads
 # and their widths, the instance row column of the BLAS root, (closest, any)
-# launch counters)
+# launch counters, the launch's span)
 WALKS = {
     "fat": ("traverse2_fat", "dxr_traverse2_fat",
             {"tlasf_rows": 16, "inst_rows_t": 16, "blasf_rows": 16, "blas_test": REC_WORDS}, 15,
-            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES")),
+            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES"), "B6a.launch"),
     "binary": ("traverse2_binary", "dxr_traverse2_binary",
                {"tlas_rows": 8, "inst_rows_t": 16, "blas_rows": 8, "blas_test": REC_WORDS}, 12,
-               ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")),
+               ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES"), "B6b.launch"),
 }
 
 _LIBS: dict = {}
@@ -149,7 +152,8 @@ def _launch(tl, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
     name = WALKS[kind][0]
     launch, outs, err = prepare_launch(tl, origins, directions, t_min, t_max, cull, occlusion,
                                        kind)
-    rc = launch()
+    with annotate(WALKS[kind][5], int(origins.shape[0])):
+        rc = launch()
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     counter = WALKS[kind][4][int(occlusion)]

@@ -25,6 +25,7 @@ import torch
 
 from ..accel import tlas as tlas_mod
 from ..core import vecmath as vm
+from ..utils.profiling import annotate
 from . import envmap as envmap_mod
 from .scene import add_tri_records
 
@@ -52,20 +53,25 @@ def refit_scene_instances(scene: dict, transforms) -> dict:
     owning instances' new transforms; the selection stays the build's (a
     heuristic), only the coordinates follow the transforms. They are full
     float32: a TF32 product would put about 1.5e-3 relative error on them,
-    more than ``_prime_seed_tmax``'s margins."""
+    more than ``_prime_seed_tmax``'s margins.
+
+    Spans (``utils/profiling``): ``refit`` (n: the instances) holds
+    ``refit.tlas`` around ``accel/tlas.refit_instances_arrays``."""
     device = scene["tlas"]["mt_rows"].device
     ctx = scene["tlas_meta"]["refit_ctx"]
-    dyn = tlas_mod.refit_instances_arrays(ctx, transforms, device)
-    new = dict(scene, tlas=dict(scene["tlas"],
-                                **{k: v for k, v in dyn.items() if k in scene["tlas"]}))
-    src = scene["tlas_meta"].get("prime_src")
-    if src is not None and "prime_v0" in scene:
-        t = tlas_mod._upload(transforms, device)[src["inst"]]
-        rot, trn = t[:, :3, :3], t[:, :3, 3]
-        new["prime_v0"] = _rotate(rot, src["v0"][:, None, :])[:, 0] + trn
-        new["prime_e1"] = _rotate(rot, src["e1"][:, None, :])[:, 0]
-        new["prime_e2"] = _rotate(rot, src["e2"][:, None, :])[:, 0]
-    return new
+    with annotate("refit", ctx.num_instances):
+        with annotate("refit.tlas", ctx.num_instances):
+            dyn = tlas_mod.refit_instances_arrays(ctx, transforms, device)
+        new = dict(scene, tlas=dict(scene["tlas"],
+                                    **{k: v for k, v in dyn.items() if k in scene["tlas"]}))
+        src = scene["tlas_meta"].get("prime_src")
+        if src is not None and "prime_v0" in scene:
+            t = tlas_mod._upload(transforms, device)[src["inst"]]
+            rot, trn = t[:, :3, :3], t[:, :3, 3]
+            new["prime_v0"] = _rotate(rot, src["v0"][:, None, :])[:, 0] + trn
+            new["prime_e1"] = _rotate(rot, src["e1"][:, None, :])[:, 0]
+            new["prime_e2"] = _rotate(rot, src["e2"][:, None, :])[:, 0]
+        return new
 
 
 def prepare_base(base_scene: dict, num_instances: int) -> dict:

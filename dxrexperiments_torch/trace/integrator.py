@@ -50,6 +50,18 @@ work of a walk, never its result:
     ``sort_shadows`` of ``_direct_lighting``): a BVH scene's kernel walk
     (B4a, B4b) takes its rays in (direction octant, origin Morton cell)
     order and scatters the results back (``_sorted_trace``).
+
+Spans (``utils/profiling.annotate``; ``n`` the work covered, none of them
+synchronises or reads a device tensor): ``wavefront.sample`` around
+``render_sample`` (n: the sample's primary rays) holds
+``wavefront.upload`` around each copy of per-call host parameters to the
+rays' device (the camera, the frame count in ``core/rng.pixel_seeds``, the
+lights and the env; n: the bytes copied), ``wavefront.trace`` around each
+``_trace_closest`` / ``_trace_any`` call (n: the rays passed; it holds the
+trace kernel's launch span, ``B6a.launch`` on a two-level scene) and
+``wavefront.shade`` around each bounce's shading after its closest trace
+(n: the rays of the bounce's batch, live or not: which of them hit lies on
+the device), which holds that bounce's shadow traces and the next bounce.
 """
 
 from __future__ import annotations
@@ -69,6 +81,7 @@ from ..scene.envmap import on_device, sample_environment
 from ..scene.lights import AREA_LIGHT_SAMPLES, area_light_draws, normalize_lights
 from ..scene.textures import sample_albedo
 from ..scene.scene import scene_device, to_device
+from ..utils.profiling import annotate
 from . import sampling
 
 RAY_EPSILON = intersect.RAY_EPSILON
@@ -151,6 +164,18 @@ def _ray_sort_order(scene: dict, origins: torch.Tensor, directions: torch.Tensor
     return torch.argsort((octant << 12) | morton, stable=True)
 
 
+def _bytes_off(tree, device) -> int:
+    """Bytes of the tensors of a nested dict/list that lie off ``device``:
+    what ``to_device`` copies there (shapes only, no device read)."""
+    if isinstance(tree, torch.Tensor):
+        return 0 if tree.device == device else tree.nbytes
+    if isinstance(tree, dict):
+        return sum(_bytes_off(v, device) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_bytes_off(v, device) for v in tree)
+    return 0
+
+
 def _sorted_trace(scene: dict, walk, origins, directions, t_min, t_max, **kw):
     """``walk(scene, o, d, t_min, t_max, **kw)`` over the rays in
     ``_ray_sort_order``: origins, directions and per-ray windows gathered,
@@ -179,38 +204,42 @@ def _trace_closest(scene, origins, directions, t_min, t_max, cull, impl: str,
     sort_rays: a BVH scene's kernel walk (impl='cuda') takes the rays in
     ``_ray_sort_order`` and its hits are scattered back; the other routes
     ignore it, as the JAX package's jnp path does."""
-    if "tlas" in scene:
+    with annotate("wavefront.trace", int(origins.shape[0])):
+        if "tlas" in scene:
+            fn = walk_functions(scene, impl)[0]
+            hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
+            position, normal, mat = _interpolate_hit_two_level(scene, hits, origins, directions)
+            return hits["hit"], position, normal, mat
+        if "bvh" not in scene:  # brute force: the attributes come with the hit
+            fn = (intersect_kernel.trace_closest if impl == "cuda"
+                  else intersect_kernel.trace_closest_reference)
+            h = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
+            mat = {k: h[k] for k in intersect_kernel.MATERIAL_KEYS}
+            if "textures" in scene:
+                tri = torch.clamp(h["tri"], min=0)
+                _modulate_albedo(scene, mat, scene["mat_id"][tri], tri, h["u"], h["v"], "")
+            return h["hit"], h["position"], h["normal"], mat
         fn = walk_functions(scene, impl)[0]
-        hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
-        position, normal, mat = _interpolate_hit_two_level(scene, hits, origins, directions)
+        if sort_rays and impl == "cuda":
+            hits = _sorted_trace(scene, fn, origins, directions, t_min, t_max,
+                                 cull_backface=cull)
+        else:
+            hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
+        position, normal, mat = _interpolate_hit(scene, hits, origins, directions)
         return hits["hit"], position, normal, mat
-    if "bvh" not in scene:  # brute force: the attributes come with the hit
-        fn = (intersect_kernel.trace_closest if impl == "cuda"
-              else intersect_kernel.trace_closest_reference)
-        h = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
-        mat = {k: h[k] for k in intersect_kernel.MATERIAL_KEYS}
-        if "textures" in scene:
-            tri = torch.clamp(h["tri"], min=0)
-            _modulate_albedo(scene, mat, scene["mat_id"][tri], tri, h["u"], h["v"], "")
-        return h["hit"], h["position"], h["normal"], mat
-    fn = walk_functions(scene, impl)[0]
-    if sort_rays and impl == "cuda":
-        hits = _sorted_trace(scene, fn, origins, directions, t_min, t_max, cull_backface=cull)
-    else:
-        hits = fn(scene, origins, directions, t_min, t_max, cull_backface=cull)
-    position, normal, mat = _interpolate_hit(scene, hits, origins, directions)
-    return hits["hit"], position, normal, mat
 
 
 def _trace_any(scene, origins, directions, t_min, t_max, impl: str, sort_rays: bool = False):
     """Occlusion [N] bool. sort_rays: as in ``_trace_closest``."""
-    if "tlas" in scene or "bvh" in scene:
-        fn = walk_functions(scene, impl)[1]
-        if sort_rays and impl == "cuda" and "tlas" not in scene:
-            return _sorted_trace(scene, fn, origins, directions, t_min, t_max)
-    else:
-        fn = intersect_kernel.trace_any if impl == "cuda" else intersect_kernel.trace_any_reference
-    return fn(scene, origins, directions, t_min, t_max)
+    with annotate("wavefront.trace", int(origins.shape[0])):
+        if "tlas" in scene or "bvh" in scene:
+            fn = walk_functions(scene, impl)[1]
+            if sort_rays and impl == "cuda" and "tlas" not in scene:
+                return _sorted_trace(scene, fn, origins, directions, t_min, t_max)
+        else:
+            fn = (intersect_kernel.trace_any if impl == "cuda"
+                  else intersect_kernel.trace_any_reference)
+        return fn(scene, origins, directions, t_min, t_max)
 
 
 def _modulate_albedo(scene: dict, mat: dict, mid, tri, u, v, suffix: str) -> None:
@@ -440,15 +469,16 @@ def _secondary_radiance(scene, options, origins, directions, seeds, active, impl
     is_hit, position, normal, mat = _trace_closest(
         scene, origins, directions, RAY_EPSILON, t_max_eff, cull=False, impl=impl
     )
-    hit = is_hit & active
-    env_col = sample_environment(scene["env"], directions, env_kind)
-    env_term = torch.where(active[..., None], env_col, torch.zeros_like(env_col))
-    _, direct = _direct_lighting(scene, options, position, normal, seeds, hit, impl,
-                                 sort_shadows=False)
-    shade_col = mat["albedo"] * direct / M_PI
-    if not realtime:
-        shade_col = mat["emissive"] * mat["emissive_strength"][..., None] + shade_col
-    return torch.where(hit[..., None], shade_col, env_term)
+    with annotate("wavefront.shade", int(origins.shape[0])):
+        hit = is_hit & active
+        env_col = sample_environment(scene["env"], directions, env_kind)
+        env_term = torch.where(active[..., None], env_col, torch.zeros_like(env_col))
+        _, direct = _direct_lighting(scene, options, position, normal, seeds, hit, impl,
+                                     sort_shadows=False)
+        shade_col = mat["albedo"] * direct / M_PI
+        if not realtime:
+            shade_col = mat["emissive"] * mat["emissive_strength"][..., None] + shade_col
+        return torch.where(hit[..., None], shade_col, env_term)
 
 
 def trace_rays(
@@ -481,11 +511,25 @@ def trace_rays(
     # lights and the env's scalars arrive as host tensors (per-frame
     # parameters); a texture env's textures already lie on the scene's device
     dev = origins.device
-    scene = dict(scene, lights=to_device(scene["lights"], dev), env=on_device(scene["env"], dev))
+    with annotate("wavefront.upload", _bytes_off(scene["lights"], dev)
+                  + _bytes_off(scene["env"], dev)):
+        scene = dict(scene, lights=to_device(scene["lights"], dev),
+                     env=on_device(scene["env"], dev))
 
     hit, position, normal, mat = _trace_closest(
         scene, origins, directions, 0.0, RAY_MAX_T, cull=True, impl=impl
     )
+    with annotate("wavefront.shade", int(origins.shape[0])):
+        return _shade_primary(scene, options, directions, seeds, hit, position, normal, mat,
+                              realtime, ao_only, impl, env_kind, refraction)
+
+
+def _shade_primary(scene, options, directions, seeds, hit, position, normal, mat,
+                   realtime: bool, ao_only: bool, impl: str, env_kind: int,
+                   refraction: bool) -> dict:
+    """``trace_rays``' depth-0 shading of its primary hits: direct light,
+    the bounce directions and their depth-1 radiance (or AO), the debug
+    views; its output dict."""
     env_col = sample_environment(scene["env"], directions, env_kind)
 
     if ao_only:
@@ -668,15 +712,18 @@ def render_sample(
     full_height-tall image (a row block of a sharded render): raygen's NDC
     and the TEA pixel seeds, and so every draw seeded from them (the area
     lights' chains included), use the global row."""
-    camera = to_device(camera, scene_device(scene))
-    origins, directions = primary_ray_grid(camera, width, height, jitter_scale, row0=row0,
-                                           full_height=full_height)
-    o = origins.reshape(-1, 3)
-    d = directions.reshape(-1, 3)
-    seeds = rng.pixel_seeds(width, height, camera["frame_count"], device=o.device,
-                            row0=row0).reshape(-1)
-    out = trace_rays(
-        scene, options, o, d, seeds, mode=mode, ao_only=ao_only, impl=impl, env_kind=env_kind,
-        refraction=refraction,
-    )
-    return {k: v.reshape(height, width, *v.shape[1:]) for k, v in out.items()}
+    with annotate("wavefront.sample", width * height):
+        dev = scene_device(scene)
+        with annotate("wavefront.upload", _bytes_off(camera, dev)):
+            camera = to_device(camera, dev)
+        origins, directions = primary_ray_grid(camera, width, height, jitter_scale, row0=row0,
+                                               full_height=full_height)
+        o = origins.reshape(-1, 3)
+        d = directions.reshape(-1, 3)
+        seeds = rng.pixel_seeds(width, height, camera["frame_count"], device=o.device,
+                                row0=row0).reshape(-1)
+        out = trace_rays(
+            scene, options, o, d, seeds, mode=mode, ao_only=ao_only, impl=impl,
+            env_kind=env_kind, refraction=refraction,
+        )
+        return {k: v.reshape(height, width, *v.shape[1:]) for k, v in out.items()}

@@ -187,8 +187,13 @@ def test_realtime_wrapper_span_on_the_plain_path(recorder):
     cams = pipe.frame_cameras(0, 2)
     prof.enable()  # from an empty list
     fs.realtime_aovs(pipe.scene_data, pipe.options, cams, W, H, int(pipe.scene_data["env"]["kind"]))
-    (wrapper,) = prof.spans()
+    spans = prof.spans()
+    (wrapper,) = [s for s in spans if s.parent == -1]
     assert wrapper.name == "B1.wrapper" and wrapper.n == 2
+    # the plain version is the wavefront integrator, whose spans nest inside
+    samples = by_name(spans, "wavefront.sample")
+    assert len(samples) == 2 and all(s.parent == wrapper.id for s in samples)
+    assert {s.name.split(".")[0] for s in spans if s is not wrapper} == {"wavefront"}
 
 
 def test_outputs_bit_equal_with_the_recorder_on_and_off():
