@@ -1700,7 +1700,7 @@ def walk1_work(tv, kind, bvh_np, o, d, t_min, t_max, cull, occlusion, scale, io_
                  "wide": tv.wide_walk_numpy}[kind]
     _, c = model(bvh_np, host_array(o), host_array(d), host_array(t_min), host_array(t_max),
                  cull=cull, occlusion=occlusion)
-    rows = bvh_np[tv.WALKS[kind][2]]
+    rows = bvh_np[tv.WALKS[kind][1]]
     n_nodes = min(len(c["node_ids"]) * scale, len(rows) // 8 if kind == "wide" else len(rows))
     n_slots = min(len(c["slot_ids"]) * scale, int((bvh_np["slot_tri"] >= 0).sum()))
     ops = (c["slab_tests"] * OPS_SLAB + c["pair_tests"] * OPS_PAIR) * scale
@@ -1718,7 +1718,7 @@ def walk2_work(tv2, tl_np, o, d, t_min, t_max, cull, occlusion, scale, io_bytes_
     instance rows (64 bytes) and slots (19 coefficients) touched, scaled but
     at most the whole arrays, plus each ray's own input and output."""
     model = tv2.fat_walk2_numpy if kind == "fat" else tv2.binary_walk2_numpy
-    tname, _, bname = list(tv2.WALKS[kind][2])[:3]
+    tname, _, bname = list(tv2.WALKS[kind][1])[:3]
     _, c = model(tl_np, host_array(o), host_array(d), host_array(t_min), host_array(t_max),
                  cull=cull, occlusion=occlusion)
     ops = (c["slab_tests"] * OPS_SLAB + c["pair_tests"] * OPS_PAIR
@@ -1797,15 +1797,15 @@ def kernel_ms(prepared, reps: int, torch) -> float:
     """CUDA-event ms of a kernel alone: the launch of a wrapper's
     prepare_launch, without its packing, allocation and error-flag read
     (the flag, where the kernel has one, is read once after the runs)."""
-    from dxrexperiments_torch.ops.traverse import raise_on_error
+    from dxrexperiments_torch.ops.kernel import raise_on_error
 
-    launch, _, *err = prepared
+    launch, _, err = prepared
     rc = launch()
     if rc != 0:
         raise RuntimeError(f"kernel launch failed: cudaError {rc}")
     ms = time_ms(launch, reps, torch)
-    if err:
-        raise_on_error(err[0], "timed kernel")
+    if err is not None:
+        raise_on_error(err, "timed kernel")
     return ms
 
 
@@ -1887,6 +1887,8 @@ def main() -> int:
     from dxrexperiments_torch.ops import roofline as rf
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
+    from dxrexperiments_torch.ops import kernel as seam
+    from dxrexperiments_torch.ops.kernel import check_errors, raise_on_error
     from dxrexperiments_torch.parallel import launch as par_launch
     from dxrexperiments_torch.parallel import render as par
     from dxrexperiments_torch.scene import Scene, cornell_box, envmap
@@ -1914,6 +1916,11 @@ def main() -> int:
     from dxrexperiments_torch.utils.profiling import device_trace
 
     reset_counts = par_launch.reset_launch_counts
+
+    def launches(*names):
+        """The launch counts of the kernels ``names`` (one name: its count)."""
+        got = par_launch.launch_counts()
+        return got[names[0]] if len(names) == 1 else tuple(got[k] for k in names)
 
     def expect_counts(label, want):
         """Every kernel's launches since the last reset_counts: `want` (name
@@ -1946,10 +1953,7 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 2", flush=True)
     # ---- 2. build: one nvcc per source and g++ for the SAH builder, together -----
     t0 = time.perf_counter()
-    builds = (fs._library, bl._library, tv._library, lambda: tv._library("binary"),
-              lambda: tv._library("wide"), ft._library, tv2._library,
-              lambda: tv2._library("binary"), ik._library, lambda: tv._library("grouped"),
-              rf._library, native.get_lib, native.get_mesh_lib)
+    builds = (*(k.library for k in seam.kernels().values()), native.get_lib, native.get_mesh_lib)
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futs = [pool.submit(f) for f in builds]
         sah_lib, mesh_lib = [f.result() for f in futs][-2:]
@@ -2065,15 +2069,16 @@ def main() -> int:
         pipe.render()
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = fs.LAUNCHES
+    b1_launches = launches("B1")
     img = pipe.get_output()
     finite = bool(img.isfinite().all())
     mean = float(img.mean())
     print(f"main path: {MAIN_FRAMES} frames x {MAIN_S} samples at {MAIN_SIZE}^2 "
-          f"({pipe.accum_count} spp) in {main_s:.3f}s host clock, kernel launches {launches}, "
+          f"({pipe.accum_count} spp) in {main_s:.3f}s host clock, kernel launches {b1_launches}, "
           f"image finite {finite}, mean {mean:.5f}", flush=True)
-    if launches != MAIN_FRAMES:
-        raise RuntimeError(f"expected {MAIN_FRAMES} kernel launches on the main path, got {launches}")
+    if b1_launches != MAIN_FRAMES:
+        raise RuntimeError(f"expected {MAIN_FRAMES} kernel launches on the main path, got "
+                           f"{b1_launches}")
     if not finite or not mean > 0.0:
         raise RuntimeError("main path image is not finite with a positive mean")
     if pipe.accum_count != MAIN_S * MAIN_FRAMES:
@@ -2130,7 +2135,7 @@ def main() -> int:
             frame0 = (rt._camera_params, direct, spec, display)
     torch.cuda.synchronize()
     rt_s = time.perf_counter() - t0
-    rt_launches, bl_launches = fs.REALTIME_LAUNCHES, bl.LAUNCHES
+    rt_launches, bl_launches = launches("B1 realtime", "B2")
     finite = bool(display.isfinite().all())
     mean = float(display.mean())
     print(f"realtime main path: {RT_FRAMES} frames at {RT_W}x{RT_H} (render + denoise) in "
@@ -2462,7 +2467,7 @@ def main() -> int:
         pipe.render()
     torch.cuda.synchronize()
     bvh_prog_s = time.perf_counter() - t0
-    b5_launches, b1_in_bvh = ft.LAUNCHES, fs.LAUNCHES
+    b5_launches, b1_in_bvh = launches("B5", "B1")
     img = pipe.get_output()
     finite, mean = bool(img.isfinite().all()), float(img.mean())
     print(f"BVH main path: {BVH_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
@@ -2486,8 +2491,8 @@ def main() -> int:
     with TraceHook(tv, record):
         wave = render_sample(scene32, opts32, cam1, M, M, impl="cuda")["color"]
     torch.cuda.synchronize()
-    wf_closest, wf_any = tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES
-    tv.check_errors()
+    wf_closest, wf_any = launches("B4a closest", "B4a any")
+    check_errors()
     print(f"wavefront route on {BVH_MAIN_SCENE} at {M}^2, 1 sample: B4a closest launches "
           f"{wf_closest}, any launches {wf_any}", flush=True)
     if (wf_closest, wf_any) != (2, 2) or [t[5] for t in traces] != [False, True, False, True]:
@@ -2533,7 +2538,7 @@ def main() -> int:
     torch.cuda.synchronize()
     b4a_any_err = occlusion_gate(f"B4a any {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled shadow rays",
                                  occ_got, occ_want)
-    tv.check_errors()
+    check_errors()
 
     headless(["--scene", BVH_MAIN_SCENE, "--size", f"{M}x{M}", "--spp", "8"],
              f"{BVH_MAIN_SCENE} {M}^2 8 spp")
@@ -2587,7 +2592,7 @@ def main() -> int:
                       torch) / BVH_S
     b5_wrap_ms = time_ms(lambda: ft.fused_traverse_progressive_sum(
         scene32, opts32, first32, M, M, ek32), 5, torch) / BVH_S
-    tv.check_errors()
+    check_errors()
     host_prog_ms = bvh_prog_s / BVH_DISPATCHES * 1e3
     print(f"time B5 progressive: kernel {b5_ms:.3f} ms per sample at {M}^2 on {BVH_MAIN_SCENE} "
           f"({M * M / b5_ms / 1e3:.2f} primary Mrays/s), wrapper {b5_wrap_ms:.3f} ms; pipeline "
@@ -2636,7 +2641,7 @@ def main() -> int:
     # seeds) and against the plain version on phase 8's sampled pixels
     wave_b = render_sample(bin32, pipe_b.options, cam1, M, M, impl="cuda")["color"]
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     b4b_wave_gate = image_gate(f"the B4b route vs phase 8's B4a route {BVH_MAIN_SCENE} {M}^2 1 "
                                f"sample", wave_b, wave, 1)
     b4b_plain_gate = image_gate(f"the B4b route vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled "
@@ -2673,7 +2678,7 @@ def main() -> int:
                 err = hit_gate(f"{name} vs plain, {COUNT_PIXELS} sampled rays",
                                {k: v[sub] for k, v in got.items()}, plain, torch)["max_abs_t"]
             walk_err[walk, occlusion] = max(walk_err[walk, occlusion], err)
-    tv.check_errors()
+    check_errors()
     b4d_counts = expect_counts(f"B4b and B4d on phase 8's {len(traces)} launch inputs (B4a beside "
                                f"them)", {"B4a closest": 2, "B4a any": 2, "B4b closest": 2,
                                           "B4b any": 2, "B4d closest": 2, "B4d any": 2})
@@ -2865,7 +2870,7 @@ def main() -> int:
                                         tile=tile, group=group,
                                         common_origin=batch == batches[0]))
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     b4c_counts = expect_counts(
         f"B4c on phase 8's {len(traces)} launch inputs at {len(GROUPINGS)} packet layouts",
         {"B4c closest": 2 * len(GROUPINGS), "B4c any": 2 * len(GROUPINGS)})
@@ -2990,7 +2995,7 @@ def main() -> int:
                                         (tile, group, True)), 10, torch),
             kernel_ms(tv.prepare_launch(scene4, pos4, sd4, RAY_EPSILON, tmax4, False, True,
                                         "grouped", (tile, group, False)), 10, torch))
-    tv.check_errors()
+    check_errors()
     del fat_ref, plain_ref, grp_out, grp_np
 
     del pipe, traces, pos32, sd32, tmax32, o32, d32, wave, bvh_np, bin32, wave_b  # phase 23 reuses scene32
@@ -3015,13 +3020,13 @@ def main() -> int:
             frame0 = (rt._camera_params, direct, spec)
     torch.cuda.synchronize()
     bvh_rt_s = time.perf_counter() - t0
-    b5_rt_launches, bvh_bl_launches = ft.REALTIME_LAUNCHES, bl.LAUNCHES
+    b5_rt_launches, bvh_bl_launches = launches("B5 realtime", "B2")
     finite, mean = bool(display.isfinite().all()), float(display.mean())
     print(f"BVH realtime main path: {BVH_RT_FRAMES} frames at {RT_W}x{RT_H} on {BVH_MAIN_SCENE} "
           f"(render + denoise) in {bvh_rt_s:.3f}s host clock, B5 realtime launches "
-          f"{b5_rt_launches}, B1 realtime launches {fs.REALTIME_LAUNCHES}, bilateral launches "
+          f"{b5_rt_launches}, B1 realtime launches {launches('B1 realtime')}, bilateral launches "
           f"{bvh_bl_launches}, display finite {finite}, mean {mean:.5f}", flush=True)
-    if (b5_rt_launches, fs.REALTIME_LAUNCHES, bvh_bl_launches) != (BVH_RT_FRAMES, 0,
+    if (b5_rt_launches, launches("B1 realtime"), bvh_bl_launches) != (BVH_RT_FRAMES, 0,
                                                                      2 * BVH_RT_FRAMES):
         raise RuntimeError(f"expected {BVH_RT_FRAMES} B5 realtime, 0 B1 and {2 * BVH_RT_FRAMES} "
                            f"bilateral launches")
@@ -3037,7 +3042,7 @@ def main() -> int:
                    g, want[k], 1)["max_abs_diff"]
         for k, g in (("direct", direct0), ("indirect_specular", spec0)))
 
-    tv.check_errors()
+    check_errors()
 
     # B5 realtime against the plain version on the same sampled pixels, every AOV
     o_rt, d_rt = (x.reshape(-1, 3).to(dev) for x in
@@ -3051,7 +3056,7 @@ def main() -> int:
     plain_rt = trace_rays(rt32, rt_opts32, o_rt[pick_rt], d_rt[pick_rt], seeds_rt[pick_rt],
                           mode="realtime", impl="torch")
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     b5_rt_plain_err = aov_gate(
         f"B5 realtime vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels of {RT_W}x{RT_H}",
         got, {k: v.reshape(COUNT_PIXELS, -1)[None] for k, v in plain_rt.items()})
@@ -3087,7 +3092,7 @@ def main() -> int:
         bvh_frame.count += 1
         aovs = rt.render()
         if read_flag:
-            tv.check_errors()
+            check_errors()
         return denoiser.dispatch(*aovs) if denoise else aovs
 
     def frames_ms(read_flag: bool, denoise: bool = True, n: int = 10) -> float:
@@ -3096,7 +3101,7 @@ def main() -> int:
         for _ in range(n):
             bvh_frame(read_flag, denoise)
         torch.cuda.synchronize()
-        tv.check_errors()
+        check_errors()
         return (time.perf_counter() - t0) / n * 1e3
 
     bvh_frame.count = BVH_RT_FRAMES
@@ -3113,7 +3118,7 @@ def main() -> int:
                 for c in frame_cams[-10:]]
     b5_rt_cams_ms = time_ms(lambda: [p[0]() for p in prepared], 3, torch) / len(prepared)
     for _, _, err in prepared:
-        tv.raise_on_error(err, "timed kernel")
+        raise_on_error(err, "timed kernel")
     del prepared
     print(f"time B5 realtime: kernel {b5_rt_ms:.3f} ms per {RT_W}x{RT_H} frame on "
           f"{BVH_MAIN_SCENE}, wrapper {b5_rt_wrap_ms:.3f} ms; realtime+denoise end to end "
@@ -3200,7 +3205,7 @@ def main() -> int:
             f"B6a any {case} two-level {P * P} shadow rays", occ_got, occ_want))
         if case == "five" and bool(occ_got[::3].any()):
             raise RuntimeError("B6a occluded a zero-direction shadow ray")
-    tv.check_errors()
+    check_errors()
     del scene_t
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 33", flush=True)
@@ -3250,7 +3255,7 @@ def main() -> int:
             f"B6b any {case} two-level {P * P} shadow rays", occ, occ_want))
         if bool(occ[::3].any()):
             raise RuntimeError("B6b occluded a zero-direction shadow ray")
-    tv.check_errors()
+    check_errors()
 
     # the kernels at the plain version's shape (phase 10b's instanced:4 rays);
     # the plain versions are B4a's there (phase 10b), the same function
@@ -3307,8 +3312,8 @@ def main() -> int:
         pipe.render()
     torch.cuda.synchronize()
     two_prog_s = time.perf_counter() - t0
-    two_counts = {False: tv2.CLOSEST_LAUNCHES, True: tv2.ANY_LAUNCHES}
-    others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, ft.LAUNCHES)
+    two_counts = {False: launches("B6a closest"), True: launches("B6a any")}
+    others = launches("B1", "B4a closest", "B4a any", "B5")
     img = pipe.get_output()
     finite, mean = bool(img.isfinite().all()), float(img.mean())
     want_n = BVH_DISPATCHES * BVH_S * 2
@@ -3358,7 +3363,7 @@ def main() -> int:
             torch.cuda.synchronize()
             b6a_err[False] = max(b6a_err[False], hit_gate(label, got, want, torch)["max_abs_t"])
             inst_gate(label, got, want)
-    tv.check_errors()
+    check_errors()
 
     # animated frames (the CLI's yaw), then B6a against a brute-force sweep of
     # the flattened scene built at the last frame's transforms
@@ -3373,7 +3378,7 @@ def main() -> int:
         pipe.render()
     torch.cuda.synchronize()
     anim_s = time.perf_counter() - t0
-    anim_counts = (tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES)
+    anim_counts = launches("B6a closest", "B6a any")
     img = pipe.get_output()
     print(f"two-level animated: {TWO_LEVEL_FRAMES} frames (refit + {BVH_S} samples each) in "
           f"{anim_s:.3f}s host clock, B6a launches {anim_counts}, accumulated {pipe.accum_count}, "
@@ -3397,7 +3402,7 @@ def main() -> int:
     want = intersect.intersect_closest(flat, o_a[pick_a], d_a[pick_a], 0.0, RAY_MAX_T,
                                        cull_backface=True)
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     anim_gate = flat_gate(f"B6a after {TWO_LEVEL_FRAMES} animated frames vs the brute-force "
                           f"sweep of the flattened scene at the same transforms, {COUNT_PIXELS} "
                           f"sampled primary rays", got, want, torch)
@@ -3422,8 +3427,7 @@ def main() -> int:
         display = denoiser.dispatch(direct, spec)
     torch.cuda.synchronize()
     two_rt_s = time.perf_counter() - t0
-    rt_counts = (tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES, bl.LAUNCHES, fs.REALTIME_LAUNCHES,
-                 ft.REALTIME_LAUNCHES)
+    rt_counts = launches("B6a closest", "B6a any", "B2", "B1 realtime", "B5 realtime")
     finite = all(bool(x.isfinite().all()) for x in (direct, spec, display))
     mean = float(display.mean())
     print(f"two-level realtime + denoise: {TWO_LEVEL_RT_FRAMES} frames at {RT_W}x{RT_H} in "
@@ -3558,7 +3562,7 @@ def main() -> int:
     # its first sample against phase 12's B6a frame (same camera and seeds)
     wave_c = render_sample(bin2, pipe_c.options, cam1, M, M, impl="cuda")["color"]
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     b6b_wave_gate = image_gate(f"the B6b route vs phase 12's B6a route {BVH_MAIN_SCENE} "
                                f"two-level {M}^2 1 sample", wave_c, wave2, 1)
 
@@ -3588,7 +3592,7 @@ def main() -> int:
                 f"{name} vs plain, {COUNT_PIXELS} sampled rays", got_sub, plain,
                 torch)["max_abs_t"])
             inst_gate(f"{name} vs plain", got_sub, plain)
-    tv.check_errors()
+    check_errors()
 
     # animated frames (the CLI's yaw): the refit keeps the TLAS without fat
     # nodes; then B6b against B6a on sampled primary rays at the last refit
@@ -3618,7 +3622,7 @@ def main() -> int:
     want = tv2.traverse2_fat_closest(fat_moved, o_c[pick_c], d_c[pick_c], 0.0, RAY_MAX_T,
                                      cull_backface=True)
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     b6b_anim_gate = hit_gate(f"B6b after {TWO_LEVEL_FRAMES} animated frames vs B6a at the same "
                              f"refit, {COUNT_PIXELS} sampled primary rays", got, want, torch)
     inst_gate("B6b after the animated frames vs B6a", got, want)
@@ -3790,9 +3794,8 @@ def main() -> int:
         pipe_b.render()
     torch.cuda.synchronize()
     brute_prog_s = time.perf_counter() - t0
-    b3_counts = {False: ik.CLOSEST_LAUNCHES, True: ik.ANY_LAUNCHES}
-    others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, ft.LAUNCHES,
-              tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES)
+    b3_counts = {False: launches("B3 closest"), True: launches("B3 any")}
+    others = launches("B1", "B4a closest", "B4a any", "B5", "B6a closest", "B6a any")
     img = pipe_b.get_output()
     finite, mean = bool(img.isfinite().all()), float(img.mean())
     want_n = BVH_DISPATCHES * BVH_S * 2
@@ -3878,8 +3881,7 @@ def main() -> int:
         display = denoiser.dispatch(direct, spec)
     torch.cuda.synchronize()
     brute_rt_s = time.perf_counter() - t0
-    rt_counts = (ik.CLOSEST_LAUNCHES, ik.ANY_LAUNCHES, bl.LAUNCHES, fs.REALTIME_LAUNCHES,
-                 ft.REALTIME_LAUNCHES)
+    rt_counts = launches("B3 closest", "B3 any", "B2", "B1 realtime", "B5 realtime")
     finite = all(bool(x.isfinite().all()) for x in (direct, spec, display))
     mean = float(display.mean())
     print(f"brute-force realtime + denoise: {BRUTE_RT_FRAMES} frames at {RT_W}x{RT_H} on "
@@ -3926,8 +3928,8 @@ def main() -> int:
             pipe_c.update(elapsed_time=0.0, elapsed_frames=0)
             pipe_c.render()
         torch.cuda.synchronize()
-        counts = (ik.CLOSEST_LAUNCHES, ik.ANY_LAUNCHES)
-        others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, ft.LAUNCHES)
+        counts = launches("B3 closest", "B3 any")
+        others = launches("B1", "B4a closest", "B4a any", "B5")
         img = pipe_c.get_output()
         finite, mean = bool(img.isfinite().all()), float(img.mean())
         cam_c1 = {k: v[0] for k, v in pipe_c._camera_params.items()}
@@ -4139,7 +4141,7 @@ def main() -> int:
                            ft.fused_traverse_progressive_sum_reference, ft.realtime_aovs,
                            ft.fused_traverse_realtime_outputs_reference,
                            f"B5 texture env {BVH_PARITY_SCENE}")
-    tv.check_errors()
+    check_errors()
     # the plain version's time at this shape, for the kernel line
     scene_c4, cam_c4 = tex_instanced4("cubemap", False)
     cams_c4 = cameras(cam_c4, P, P, BVH_S, 60)
@@ -4172,9 +4174,9 @@ def main() -> int:
         pipe3.render()
     torch.cuda.synchronize()
     c3_s = time.perf_counter() - t0
-    c3_launches = fs.LAUNCHES
-    others = (ik.CLOSEST_LAUNCHES, ik.ANY_LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES,
-              ft.LAUNCHES, tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES)
+    c3_launches = launches("B1")
+    others = launches("B3 closest", "B3 any", "B4a closest", "B4a any", "B5", "B6a closest",
+                      "B6a any")
     img = pipe3.get_output()
     finite, mean = bool(img.isfinite().all()), float(img.mean())
     print(f"config 3 main path: {C3_DISPATCHES} dispatches x {C3_S} samples at {C3_W}x{C3_H} "
@@ -4221,7 +4223,7 @@ def main() -> int:
         if frame0 is None:
             frame0 = (rt._camera_params, direct, spec)
     torch.cuda.synchronize()
-    c3_rt_counts = (fs.REALTIME_LAUNCHES, bl.LAUNCHES, ft.REALTIME_LAUNCHES, ik.CLOSEST_LAUNCHES)
+    c3_rt_counts = launches("B1 realtime", "B2", "B5 realtime", "B3 closest")
     finite, mean = bool(display.isfinite().all()), float(display.mean())
     print(f"config 3 realtime + denoise: {C3_RT_FRAMES} frames at {RT_W}x{RT_H} with the lat-long "
           f"env, B1 realtime / bilateral / B5 realtime / B3 closest launches {c3_rt_counts}, "
@@ -4269,9 +4271,8 @@ def main() -> int:
             first_t = pipe_t._camera_params
         pipe_t.render()
     torch.cuda.synchronize()
-    b5_tex_launches = ft.LAUNCHES
-    others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, tv2.CLOSEST_LAUNCHES,
-              ik.CLOSEST_LAUNCHES)
+    b5_tex_launches = launches("B5")
+    others = launches("B1", "B4a closest", "B4a any", "B6a closest", "B3 closest")
     img = pipe_t.get_output()
     finite, mean = bool(img.isfinite().all()), float(img.mean())
     print(f"B5 cubemap main path: {C3_B5_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
@@ -4290,7 +4291,7 @@ def main() -> int:
         plain_t = trace_rays(tex32, pipe_t.options, o_t[pick_t], d_t[pick_t], seeds_t[pick_t],
                              impl="torch")["color"][None]
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     b5_tex_gate = image_gate(f"B5 cubemap vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels "
                              f"of {M}^2, 1 sample", b5_tex_one.reshape(-1, 3)[pick_t][None],
                              plain_t, 1)
@@ -4313,7 +4314,7 @@ def main() -> int:
     plain_g = trace_rays(scene32, pipe_t.options, o_t[pick_t], d_t[pick_t], seeds_t[pick_t],
                          impl="torch")["color"]
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     b5_grad_one = b5_grad_one.reshape(-1, 3)[pick_t]
     b5_grad_gate = image_gate(f"B5 gradient env vs plain, the same {COUNT_PIXELS} pixels and "
                               f"camera", b5_grad_one[None], plain_g[None], 1)
@@ -4329,7 +4330,7 @@ def main() -> int:
     grad_prep = ft.prepare_launch(scene32, pipe_t.options, first_t, M, M, 1, False)
     turns = [kernel_ms(p, 5, torch) / BVH_S for p in (tex_prep, grad_prep, grad_prep, tex_prep)]
     b5_tex_ms, b5_grad_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
-    tv.check_errors()
+    check_errors()
     print(f"time B5 texture env: kernel {b5_tex_ms:.3f} ms per {M}^2 sample with the cubemap, "
           f"{b5_grad_ms:.3f} ms with the gradient env on the same cameras (turns "
           f"{', '.join(f'{t:.3f}' for t in turns)}); bound {b5_tex_bound[0]:.4f} ms "
@@ -4352,10 +4353,10 @@ def main() -> int:
             sc_w.lights = rig
             c_w.set_eye_at_up(*TEX_PARITY_EYE, (0.0, 1.0, 0.0))
             built = sc_w.build(dev)
-            mod = ik
+            ident = "B3"
         else:
             built = sc_w.build_two_level(dev)
-            mod = tv2
+            ident = "B6a"
         c_w.set_aspect(P, P)
         if select_route(built, "progressive") != "wavefront" or "bvh" in built:
             raise RuntimeError(f"{label} with the lat-long env did not take the wavefront route")
@@ -4364,14 +4365,14 @@ def main() -> int:
         reset_counts()
         got = render_sample(built, opts_w, cam_1, P, P, impl="cuda")["color"]
         torch.cuda.synchronize()
-        counts = (mod.CLOSEST_LAUNCHES, mod.ANY_LAUNCHES)
+        counts = launches(f"{ident} closest", f"{ident} any")
         want = render_sample(built, opts_w, cam_1, P, P, impl="torch")["color"]
         torch.cuda.synchronize()
         if counts != want_counts:
             raise RuntimeError(f"{label}: expected {want_counts} launches, got {counts}")
         wave_tex[label] = image_gate(f"{label} with the lat-long env {P}^2, 1 sample, vs plain",
                                      got, want, 1)
-    tv.check_errors()
+    check_errors()
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 25", flush=True)
     # ---- 25. config 3 times ---------------------------------------------------------
@@ -4402,7 +4403,7 @@ def main() -> int:
           f"[{card}]", flush=True)
     # phase 38's config-3 launch alone, before the scene goes
     c3_launch_ms = kernel_ms(fs.prepare_launch(scene3, opts3, first3, C3_W, C3_H, 2, False, 0,
-                                               0)[:2], 10, torch)
+                                               0), 10, torch)
     c3_packs = {k: scene3[k] for k in ("mt_pack", "tri_records", "num_tris")}
     del pipe3, scene3, black3
     tex_dir.cleanup()
@@ -4491,7 +4492,7 @@ def main() -> int:
                   f"{batch_err:.3e} (<= 1e-6)", flush=True)
             if not batch_err <= 1e-6:
                 raise RuntimeError(f"{label} realtime S=2 batch differs from single launches")
-        tv.check_errors()
+        check_errors()
         return errs
 
     area_err = b5_cases(area_cornell, "B5 area cornell", OPTION_CASES, REALTIME_CASES)
@@ -4509,7 +4510,7 @@ def main() -> int:
                                     ft.fused_traverse_progressive_sum_reference)(
                        scene_a4, default_options(), cams_a4, P, P, 1), 2, torch) / BVH_S)
         for realtime in (False, True)}
-    tv.check_errors()
+    check_errors()
     print(f"time B5 area mode at {BVH_PARITY_SCENE} {P}^2: progressive kernel "
           f"{area_small[False][0]:.4f} ms, plain {area_small[False][1]:.3f} ms per sample; realtime "
           f"kernel {area_small[True][0]:.4f} ms, plain {area_small[True][1]:.3f} ms per frame "
@@ -4540,7 +4541,7 @@ def main() -> int:
                            10, torch) / BVH_S,
                  time_ms(lambda: ft.fused_traverse_progressive_sum_reference(
                      scene_tc, default_options(), cams_tc, P, P, 3), 2, torch) / BVH_S)
-    tv.check_errors()
+    check_errors()
     print(f"time B5 texture + area mode at cornell {P}^2 with the cubemap: kernel "
           f"{tex_small[0]:.4f} ms, plain {tex_small[1]:.3f} ms per sample [{card}]", flush=True)
     del area_scenes, scene_a4, scene_tc
@@ -4576,9 +4577,9 @@ def main() -> int:
         pipe2.render()
     torch.cuda.synchronize()
     c2_s = time.perf_counter() - t0
-    c2_launches = ft.LAUNCHES
-    others = (fs.LAUNCHES, ik.CLOSEST_LAUNCHES, ik.ANY_LAUNCHES, tv.CLOSEST_LAUNCHES,
-              tv.ANY_LAUNCHES, tv2.CLOSEST_LAUNCHES, tv2.ANY_LAUNCHES, ft.REALTIME_LAUNCHES)
+    c2_launches = launches("B5")
+    others = launches("B1", "B3 closest", "B3 any", "B4a closest", "B4a any", "B6a closest",
+                      "B6a any", "B5 realtime")
     img = pipe2.get_output()
     finite, mean = bool(img.isfinite().all()), float(img.mean())
     print(f"config-2 stand-in main path: {C2_DISPATCHES} dispatches x {C2_S} samples at {M}^2 "
@@ -4622,7 +4623,7 @@ def main() -> int:
         want2 = plain_s if want2 is None else want2 + plain_s
         b5_sum2 = b5_s if b5_sum2 is None else b5_sum2 + b5_s
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     got2_pick = got2.reshape(-1, 3)[pick2]
     c2_split_err = float((b5_sum2 - got2_pick).abs().max())
     print(f"config-2 stand-in: B5's {C2_S} single-sample launches against its {C2_S}-sample "
@@ -4706,9 +4707,8 @@ def main() -> int:
         display = denoiser.dispatch(direct, spec)
     torch.cuda.synchronize()
     c2_rt_s = time.perf_counter() - t0
-    tv.check_errors()
-    c2_rt_counts = (tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, bl.LAUNCHES, ft.REALTIME_LAUNCHES,
-                    fs.REALTIME_LAUNCHES)
+    check_errors()
+    c2_rt_counts = launches("B4a closest", "B4a any", "B2", "B5 realtime", "B1 realtime")
     finite = bool((direct + spec).isfinite().all()) and bool(display.isfinite().all())
     mean = float(display.mean())
     print(f"config-2 stand-in realtime + denoise: {C2_RT_FRAMES} frames at {RT_W}x{RT_H} in "
@@ -4728,12 +4728,12 @@ def main() -> int:
     pick_r = torch.as_tensor(rng.choice(RT_W * RT_H, COUNT_PIXELS, replace=False), device=dev)
     seeds_r = trng.pixel_seeds(RT_W, RT_H, cam_r["frame_count"], device=dev).reshape(-1)
     rays_r = (o_r[pick_r], d_r[pick_r], seeds_r[pick_r])
-    before = (tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES)
+    before = launches("B4a closest", "B4a any")
     wave_r = trace_rays(scene2r, rt2.options, *rays_r, mode="realtime", impl="cuda")
     plain_r = trace_rays(scene2r, rt2.options, *rays_r, mode="realtime", impl="torch")
     torch.cuda.synchronize()
-    tv.check_errors()
-    if (tv.CLOSEST_LAUNCHES - before[0], tv.ANY_LAUNCHES - before[1]) != (2, 2):
+    check_errors()
+    if (launches("B4a closest") - before[0], launches("B4a any") - before[1]) != (2, 2):
         raise RuntimeError("the config-2 stand-in's realtime check did not run through B4a")
 
     def picked(x):
@@ -4765,8 +4765,8 @@ def main() -> int:
             first_a = pipe_a._camera_params
         pipe_a.render()
     torch.cuda.synchronize()
-    c5a_launches = ft.LAUNCHES
-    others = (fs.LAUNCHES, tv.CLOSEST_LAUNCHES, tv.ANY_LAUNCHES, ik.CLOSEST_LAUNCHES)
+    c5a_launches = launches("B5")
+    others = launches("B1", "B4a closest", "B4a any", "B3 closest")
     img = pipe_a.get_output()
     finite, mean = bool(img.isfinite().all()), float(img.mean())
     print(f"B5 area main path: {C5_AREA_DISPATCHES} dispatches x {BVH_S} samples at {M}^2 on "
@@ -4786,7 +4786,7 @@ def main() -> int:
     with TraceLog(tv, TraceLog.PLAIN) as plain_log:
         plain_a = trace_rays(area32, pipe_a.options, *rays_a, impl="torch")["color"][None]
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     b5_area_pick = b5_area_one.reshape(-1, 3)[pick_a]
     c5a_gate = image_gate(f"B5 area vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled pixels of "
                           f"{M}^2, 1 sample", b5_area_pick[None], plain_a, 1)
@@ -4811,7 +4811,7 @@ def main() -> int:
     order = (0, 1, 2, 2, 1, 0)
     turns_a = [kernel_ms(preps[i], 5, torch) / BVH_S for i in order]
     c5a_ms, c5_base_ms, c5_full_ms = ((turns_a[i] + turns_a[5 - i]) / 2 for i in range(3))
-    tv.check_errors()
+    check_errors()
     print(f"time B5 area mode on {BVH_MAIN_SCENE}: kernel {c5a_ms:.3f} ms per {M}^2 sample with "
           f"1 directional + 1 area light, {c5_base_ms:.3f} ms with phase 8's 1 directional + 1 "
           f"point rig (the base mode), {c5_full_ms:.3f} ms with 1 "
@@ -4838,9 +4838,9 @@ def main() -> int:
         if frame0 is None:
             frame0 = rt_a._camera_params
     torch.cuda.synchronize()
-    tv.check_errors()
-    c5a_rt_launches = ft.REALTIME_LAUNCHES
-    if c5a_rt_launches != C5_AREA_RT_FRAMES or tv.CLOSEST_LAUNCHES or tv.ANY_LAUNCHES:
+    check_errors()
+    c5a_rt_launches = launches("B5 realtime")
+    if c5a_rt_launches != C5_AREA_RT_FRAMES or launches("B4a closest") or launches("B4a any"):
         raise RuntimeError("the area rig's realtime frames did not run through B5")
     cams0_a = {k: v[None] for k, v in frame0.items()}
     o_r, d_r = (x.reshape(-1, 3).to(dev) for x in primary_ray_grid(frame0, RT_W, RT_H,
@@ -4853,7 +4853,7 @@ def main() -> int:
     plain_r = trace_rays(area32, rt_a.options, o_r[pick_r], d_r[pick_r], seeds_r[pick_r],
                          mode="realtime", impl="torch")
     torch.cuda.synchronize()
-    tv.check_errors()
+    check_errors()
     c5a_rt_err = aov_gate(f"B5 area realtime vs plain {BVH_MAIN_SCENE} {COUNT_PIXELS} sampled "
                           f"pixels of {RT_W}x{RT_H}", got,
                           {k: v.reshape(COUNT_PIXELS, -1)[None] for k, v in plain_r.items()})
@@ -4865,7 +4865,7 @@ def main() -> int:
                                     40 / max(wc_ra.c["rays"] / COUNT_PIXELS, 1), 10))
     c5a_rt_ms = kernel_ms(ft.prepare_launch(area32, rt_a.options, cams0_a, RT_W, RT_H, 1, True),
                           5, torch)
-    tv.check_errors()
+    check_errors()
     print(f"time B5 area mode realtime: kernel {c5a_rt_ms:.3f} ms per {RT_W}x{RT_H} frame on "
           f"{BVH_MAIN_SCENE}, bound {c5a_rt_bound[0]:.4f} ms ({c5a_rt_bound[1]}) [{card}]",
           flush=True)
@@ -4875,12 +4875,12 @@ def main() -> int:
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 30", flush=True)
     # ---- 30. the wavefront routes with albedo textures at 128^2 ----------------------
     wave_tex2 = {}
-    for label, mode, build, mod, want_counts in (
-            ("B3 cornell-tex accel none", "progressive", lambda s: s.build(dev, accel="none"), ik,
+    for label, mode, build, ident, want_counts in (
+            ("B3 cornell-tex accel none", "progressive", lambda s: s.build(dev, accel="none"),
+             "B3", (2, 2)),
+            ("B6a cornell-tex two-level", "progressive", lambda s: s.build_two_level(dev), "B6a",
              (2, 2)),
-            ("B6a cornell-tex two-level", "progressive", lambda s: s.build_two_level(dev), tv2,
-             (2, 2)),
-            ("B4a cornell-tex realtime", "realtime", lambda s: s.build(dev), tv, (2, 2))):
+            ("B4a cornell-tex realtime", "realtime", lambda s: s.build(dev), "B4a", (2, 2))):
         sc_w, c_w = build_scene("cornell-tex")
         built = build(sc_w)
         c_w.set_aspect(P, P)
@@ -4893,11 +4893,11 @@ def main() -> int:
         got = render_sample(built, opts_w, cam_1, P, P, mode=mode, jitter_scale=scale,
                             impl="cuda")
         torch.cuda.synchronize()
-        counts = (mod.CLOSEST_LAUNCHES, mod.ANY_LAUNCHES)
+        counts = launches(f"{ident} closest", f"{ident} any")
         want = render_sample(built, opts_w, cam_1, P, P, mode=mode, jitter_scale=scale,
                              impl="torch")
         torch.cuda.synchronize()
-        tv.check_errors()
+        check_errors()
         if counts != want_counts:
             raise RuntimeError(f"{label}: expected {want_counts} launches, got {counts}")
         if mode == "realtime":
@@ -4908,12 +4908,12 @@ def main() -> int:
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 31", flush=True)
     # ---- 31. the CLI on cornell-tex ----------------------------------------------------
-    before = ft.LAUNCHES
+    before = launches("B5")
     with tempfile.TemporaryDirectory() as tmp:
         png = os.path.join(tmp, "cornell-tex.png")
         rc = headless_main(["--scene", "cornell-tex", "--size", f"{M}x{M}", "--spp", "16",
                             "--device", "cuda", "-o", png])
-        cli_launches = ft.LAUNCHES - before
+        cli_launches = launches("B5") - before
         if rc != 0 or not os.path.exists(png) or cli_launches < 1:
             raise RuntimeError(f"the CLI on cornell-tex failed (exit {rc}, B5 launches "
                                f"{cli_launches})")
@@ -5225,9 +5225,9 @@ def main() -> int:
 
         def prep(py0, rows):
             """(launch, outs[, err]) of a launch of rows [py0, py0 + rows)."""
-            if mod is fs:  # B1 has no error flag; its third item is its opt-ins
+            if mod is fs:  # B1 takes its opt-ins (off) before py0
                 return fs.prepare_launch(sc_, op_, cm_, w_, rows, ek_, realtime, 0, 0, py0=py0,
-                                         full_height=h_ if py0 is not None else 0)[:2]
+                                         full_height=h_ if py0 is not None else 0)
             return ft.prepare_launch(sc_, op_, cm_, w_, rows, ek_, realtime, py0=py0,
                                      full_height=h_ if py0 is not None else 0)
 
@@ -5261,7 +5261,7 @@ def main() -> int:
                 raise RuntimeError(f"{label}: {n} row blocks differ from the whole launch")
             entry[f"{n}_blocks"] = dict(worst, block_ms=block_ms, sum_ms=sum(block_ms))
         row_report[label] = entry
-    tv.check_errors()
+    check_errors()
 
     # B2 on config 4's frame 0 as row blocks, one thread a block, each
     # thread driving parallel/render.py on its block (launch.run_tiles): the
@@ -5505,7 +5505,7 @@ def main() -> int:
             seq.update(elapsed_time=0.0, elapsed_frames=f)
             d, s_ = seq.render()
             equal &= torch.equal(d, d_k[f]) and torch.equal(s_, s_k[f])
-        tv.check_errors()
+        check_errors()
         print(f"frames in flight {label}: render_frames K={K41} at {RT_W}x{RT_H} against "
               f"{K41} sequential render() calls: {'bit-equal' if equal else 'DIFFER'}",
               flush=True)
@@ -5608,7 +5608,7 @@ def main() -> int:
         torch.cuda.synchronize()
         del out_k
         b1k_ms = kernel_ms(fs.prepare_launch(scene41, pk.options, pk.frame_cameras(0, k), RT_W,
-                                             RT_H, 0, True, 0, 0)[:2], 10, torch)
+                                             RT_H, 0, True, 0, 0), 10, torch)
         kern_frame = b1k_ms / k + 2 * b2_pass_ms
         n_prof = 8  # frames under the profiler
         busy, top = device_busy(lambda: [
@@ -5635,7 +5635,7 @@ def main() -> int:
               f"{kern_frame:.3f} ms per frame (the {k}-frame B1 launch {b1k_ms:.3f} ms / {k} + "
               f"2 x B2 {b2_pass_ms:.4f} ms) [{card}]", flush=True)
     fif["pipeline one frame after"] = pipeline_frames("after")
-    tv.check_errors()
+    check_errors()
     del aovs41, imgs41, outs41, scene39
 
     print(f"[{time.perf_counter() - t_start:.1f}s] phase 42", flush=True)
@@ -5785,7 +5785,7 @@ def main() -> int:
             plain = render_sample(pp.scene_data, pp.options, cam_p, n, n, impl="torch")["color"]
             torch.cuda.synchronize()
             gate = image_gate(f"{label} {n}^2 1 sample kernel vs plain", kern, plain, 1)
-        tv.check_errors()
+        check_errors()
         renders42.append({"path": label, "size": list(size), "route": route,
                           "host_s": cli_s, "bit_equal_in_memory": bit_eq,
                           f"parity_{n}": gate})
@@ -5971,7 +5971,7 @@ def main() -> int:
           f"gated): {len(here43)} device items, B1 {here_b1}, both B2 {here_b2}", flush=True)
     if not (has_b1 and has_b2):
         raise RuntimeError(f"the traced viewer frame shows no B1 or B2 kernel: {kernels43}")
-    tv.check_errors()
+    check_errors()
     del app43
     tmp42.cleanup()
     print("front end (phases 42-43): " + json.dumps({
@@ -6104,7 +6104,7 @@ def main() -> int:
                            f"(mean |d| {moved_a})")
     b1_alone = [kernel_ms(fs.prepare_launch(dict(bakes_a[k], lights=default_lights(), env=env44),
                                             opts44, cams_a[k], M, M, env44["kind"], False, 0,
-                                            0)[:2], 5, torch) for k in (0, MAIN_FRAMES - 1)]
+                                            0), 5, torch) for k in (0, MAIN_FRAMES - 1)]
     print(f"phase 44a: dispatch 7 vs 0 mean |d| {moved_a:.4f} (the transforms reached B1); "
           f"B1 launch alone {b1_alone[0]:.4f} / {b1_alone[1]:.4f} ms (dispatch 0 / 7) [{card}]",
           flush=True)
@@ -6328,7 +6328,7 @@ def main() -> int:
               f"{'occlusion bit' if occlusion else 'hit field'}); ms, medians of 5 turns of 5: "
               + ", ".join(f"{k} {v:.4f}" for k, v in sort44[label]["medians"].items())
               + f" [{card}]", flush=True)
-    tv.check_errors()
+    check_errors()
     report44["d_sorting"] = sort44
     del frames44, rec_f
 
@@ -6411,12 +6411,12 @@ def main() -> int:
               f"{leaf_bytes[label]['mt_rows']:,} bytes; equal to mt_rows' lanes: ok", flush=True)
     redesign = {
         "B1 config 1": (kernel_ms(fs.prepare_launch(scene1, options1, first_cams, MAIN_SIZE,
-                                                    MAIN_SIZE, 0, False, 0, 0)[:2], 20, torch),
+                                                    MAIN_SIZE, 0, False, 0, 0), 20, torch),
                         b1_bound, f"per {MAIN_S}-sample {MAIN_SIZE}^2 dispatch"),
         "B1 config 3": (c3_launch_ms, c3_bound,
                         f"per {C3_S}-sample {C3_W}x{C3_H} dispatch (phase 25)"),
         "B1 config 4": (kernel_ms(fs.prepare_launch(rt_scene, rt_options, cams0, RT_W, RT_H, 0,
-                                                    True, 0, 0)[:2], 20, torch),
+                                                    True, 0, 0), 20, torch),
                         b1_rt_bound, f"per {RT_W}x{RT_H} realtime frame"),
         "B5 config 5": (b5_ms, b5_bound, f"per {M}^2 {BVH_MAIN_SCENE} sample (phase 10a)"),
         "B5 config 5 realtime": (b5_rt_cams_ms, b5_rt_bound,
@@ -6434,7 +6434,7 @@ def main() -> int:
             "route": "cuda",
             "source": "dxrexperiments_torch/csrc/fused_sample.cu",
             "replaces": "dxrexperiments_tpu/ops/fused_sample_pallas.py:640",
-            "launches": launches,
+            "launches": b1_launches,
             "max_abs_err": main_gate["max_abs_diff"],
             "ms": kern_ms,
             "plain_ms": plain_ms,
@@ -6809,7 +6809,7 @@ def main() -> int:
     for kern in kernels:
         if kern["name"] in p44_keys:
             kern["phase44_paths"] = paths44.get(p44_keys[kern["name"]], [])
-    tv.check_errors()
+    check_errors()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -80,7 +80,7 @@ from ..core.camera import Camera
 from ..models.denoise import DenoiseCompositor, linear_to_srgb, reinhard_tonemap
 from ..models.progressive import ProgressiveRaytracingPipeline
 from ..models.realtime import RealtimeRaytracingPipeline
-from ..ops.traverse import check_errors
+from ..ops.kernel import check_errors
 from ..scene import Material, Scene, cornell_box, envmap
 from ..scene.lights import area_light, default_lights, directional_light, point_light
 from ..scene.materials import MATERIAL_GLASS

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..core.camera import stack_cameras
-from ..ops import fused_sample, fused_traverse, traverse
+from ..ops import fused_sample, fused_traverse
+from ..ops.kernel import check_errors
 from ..scene.dynamic import refit_scene_instances
 from ..scene.lights import default_lights
 from ..scene.scene import scene_device
@@ -227,7 +228,7 @@ class ProgressiveRaytracingPipeline(RaytracingPipeline):
         return self.accum
 
     def get_output(self, index: int = 0) -> torch.Tensor:
-        traverse.check_errors()  # raises for a BVH walk that overflowed its stack
+        check_errors()  # raises for a BVH walk that overflowed its stack
         return self.accum
 
     # -- checkpoint/resume ---------------------------------------------------

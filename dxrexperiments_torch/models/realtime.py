@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..core.camera import stack_cameras
-from ..ops import fused_sample, fused_traverse, traverse
+from ..ops import fused_sample, fused_traverse
+from ..ops.kernel import check_errors
 from ..scene.lights import default_lights
 from ..scene.scene import scene_device
 from ..trace.integrator import default_options, render_sample, resolve_impl
@@ -161,5 +162,5 @@ class RealtimeRaytracingPipeline(RaytracingPipeline):
         return out["direct"], out["indirect_specular"]
 
     def get_output(self, index: int = 0) -> torch.Tensor:
-        traverse.check_errors()  # raises for a BVH walk that overflowed its stack
+        check_errors()  # raises for a BVH walk that overflowed its stack
         return self.direct if index == 0 else self.indirect_specular

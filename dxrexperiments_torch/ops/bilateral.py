@@ -1,4 +1,4 @@
-"""The joint-bilateral pass (B2): wrapper, plain version and launch count.
+"""The joint-bilateral pass (B2): wrapper and plain version.
 
 Port of ``dxrexperiments_tpu.ops.bilateral_pallas.bilateral_pass`` and its
 XLA reference ``models.denoise._bilateral_pass``. On CUDA tensors,
@@ -17,14 +17,14 @@ import numpy as np
 import torch
 
 from ..utils.profiling import annotate
+from . import kernel
 
 MAX_EXTENT = 25  # UI slider max (the reference's DenoiseCompositor)
 KERNEL_TAPS = 6
 _TAP_TABLE = (1.0, 1.0, 0.9, 0.75, 0.6, 0.5, 0.0)
 
-# Kernel launches so far (one per pass). Callers reset it to 0 and read it
-# back to show that a run went through the kernel.
-LAUNCHES = 0
+B2 = kernel.Kernel("B2", "bilateral", {"dxr_bilateral_pass": [ctypes.c_void_p] * 3 + [
+    ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]}, ("B2",))
 
 
 def _tap_weight(i: int, radius: float) -> float:
@@ -71,23 +71,6 @@ def _bilateral_pass(inp: torch.Tensor, joint: torch.Tensor, radius: float, axis:
     return color / torch.clamp(weight, min=1e-8)[..., None]
 
 
-_LIB = None
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        from ..utils.cuda_build import load_library
-
-        lib = load_library("bilateral", ["bilateral.cu"])
-        fn = lib.dxr_bilateral_pass
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                                     ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
 def _check(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
     if t.dtype != torch.float32:
         raise TypeError(f"{name}: expected float32, got {t.dtype}")
@@ -102,26 +85,18 @@ def bilateral_pass(inp: torch.Tensor, joint: torch.Tensor, radius: float, axis: 
     ``inp`` [H, W, 3] guided by ``joint`` [H, W, 3], float32.
 
     CUDA tensors -> one kernel launch; CPU tensors -> the plain version."""
-    global LAUNCHES
     with annotate("B2.wrapper", 1):
         if axis not in (0, 1):
             raise ValueError(f"axis must be 0 or 1, got {axis}")
         _check("inp", inp, inp)
         _check("joint", joint, inp)
-        if inp.device.type == "cpu":
+        if not kernel.on_card(inp.device):
             return _bilateral_pass(inp, joint, radius, axis)
-        if inp.device.type != "cuda":
-            raise ValueError(f"unsupported device {inp.device}")
         if not (inp.is_contiguous() and joint.is_contiguous()):
             raise ValueError("inp and joint must be contiguous")
         h, w, _ = inp.shape
         out = torch.empty_like(inp)
-        fn = _library().dxr_bilateral_pass
-        with torch.cuda.device(inp.device):
-            stream = torch.cuda.current_stream(inp.device).cuda_stream
-            rc = fn(inp.data_ptr(), joint.data_ptr(), out.data_ptr(), h, w, axis, float(radius),
-                    stream)
-        if rc != 0:
-            raise RuntimeError(f"bilateral kernel launch failed: cudaError {rc}")
-        LAUNCHES += 1
+        fn = B2.library().dxr_bilateral_pass
+        B2.run(lambda: kernel.on_stream(fn, inp.device, inp.data_ptr(), joint.data_ptr(),
+                                        out.data_ptr(), h, w, axis, float(radius)), "B2", n=1)
         return out

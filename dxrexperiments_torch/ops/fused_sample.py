@@ -1,4 +1,4 @@
-"""The brute-force megakernel (B1): wrappers, plain versions, launch counts.
+"""The brute-force megakernel (B1): wrappers and plain versions.
 
 Port of ``dxrexperiments_tpu.ops.fused_sample_pallas``, progressive and
 realtime modes. On CUDA scene tensors, ``fused_progressive_sum``,
@@ -65,6 +65,7 @@ from ..scene import envmap
 from ..scene.lights import light_counts, normalize_lights
 from ..trace.integrator import progressive_sample_sum, render_sample
 from ..utils.profiling import annotate
+from . import kernel
 from .traverse import FUSED_MAX_TRIS, REC_WORDS
 
 BIG = 3.0e38
@@ -73,15 +74,18 @@ THREADS = 256  # pixels per CUDA block (csrc/fused_sample.cu kThreads)
 JITTER_SCALE = 30.0  # progressive pipeline jitter scale
 REALTIME_JITTER_SCALE = 10.0  # realtime pipeline jitter scale
 
-# Kernel launches so far: LAUNCHES counts progressive dispatches (S samples
-# each), REALTIME_LAUNCHES realtime dispatches (S frames each). Callers reset
-# them to 0 and read them back to show that a run went through the kernels.
-LAUNCHES = 0
-REALTIME_LAUNCHES = 0
-# Of those, the launches of the CLUSTERED and of the BLOCKED instantiations
-# (both opt-ins: counted in each).
-CLUSTERED_LAUNCHES = 0
-BLOCKED_LAUNCHES = 0
+_ENV = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
+# cluster boxes, their count, rows per cluster, block width
+_OPT_INS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+# "B1" counts progressive dispatches (S samples each), "B1 realtime" realtime
+# dispatches (S frames each); of those, "B1 clustered" and "B1 blocked" the
+# launches of the CLUSTERED and of the BLOCKED instantiations (both opt-ins)
+B1 = kernel.Kernel("B1", "fused_sample", {
+    "dxr_fused_progressive_sum": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + _ENV + _OPT_INS
+    + [ctypes.c_void_p],
+    "dxr_fused_realtime_outputs": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + _ENV + _OPT_INS
+    + [ctypes.c_void_p],
+}, ("B1", "B1 realtime", "B1 clustered", "B1 blocked"))
 
 _FLAG_OPTIONS = (
     "cosine_hemisphere_sampling",
@@ -269,33 +273,6 @@ def fused_realtime_outputs_reference(
     return {k: torch.stack([f[k] for f in frames]) for k in (*AOV_KEYS, "color")}
 
 
-_LIB = None
-
-
-def bind(lib):
-    """Set the argument types of the entry points of ``lib``, a build of
-    ``csrc/fused_sample.cu``; returns it."""
-    env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
-    # cluster boxes, their count, rows per cluster, block width
-    opt_ins = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    fn = lib.dxr_fused_progressive_sum
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + env + opt_ins + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.dxr_fused_realtime_outputs
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + env + opt_ins + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        from ..utils.cuda_build import load_library
-
-        _LIB = bind(load_library("fused_sample", ["fused_sample.cu"]))
-    return _LIB
-
-
 def _frames_u32(frame_count: torch.Tensor) -> torch.Tensor:
     """uint32 frame counters as the bits of an int32 host tensor."""
     fc = torch.as_tensor(frame_count, dtype=torch.int64).reshape(-1).cpu() & 0xFFFFFFFF
@@ -373,11 +350,19 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
                    py0=None, full_height: int = 0):
     """Pack and upload the parameters and allocate the outputs of one
     dispatch of S samples (progressive) or S frames (realtime). Returns
-    (launch, outs, opt_ins): ``launch()`` enqueues the kernel and returns
-    the CUDA error code. Timing ``launch`` alone measures the kernel
-    without the wrapper's packing and checks. ``lib``: a build of the
-    kernel's source with the same entry points (default the package's).
-    py0/full_height: a row-block launch (``pack_cameras``)."""
+    (launch, outs, None): ``launch()`` enqueues the kernel and returns the
+    CUDA error code; B1 has no error flag. Timing ``launch`` alone measures
+    the kernel without the wrapper's packing and checks. ``lib``: a build
+    of the kernel's source with the same entry points (default the
+    package's). py0/full_height: a row-block launch (``pack_cameras``)."""
+    launch, outs, _ = _prepare(scene, options, cameras, width, height, env_kind, realtime,
+                               cluster_rows, block_w, lib, py0, full_height)
+    return launch, outs, None
+
+
+def _prepare(scene, options, cameras, width, height, env_kind, realtime: bool,
+             cluster_rows: int | None, block_w: int | None, lib, py0, full_height: int):
+    """``prepare_launch``'s (launch, outs) and the launch's counter names."""
     with annotate("B1.pack"):
         check_rows(height, py0, full_height)
         mt = scene["mt_pack"]
@@ -405,7 +390,10 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
         tail = (s_count, c, n_live, width, height, int(env_kind),
                 *env_args(scene, int(env_kind), device))
         opt_ins, boxes = opt_in_args(scene, width, height, cluster_rows, block_w)
-        lib = lib or _library()
+        counts = ("B1 realtime" if realtime else "B1",
+                  *(("B1 clustered",) if boxes is not None else ()),
+                  *(("B1 blocked",) if opt_ins[3] > 0 else ()))
+        lib = lib or B1.library()
     with annotate("B1.upload"):
         params = _upload(cam, cst, frames, device)
 
@@ -429,12 +417,10 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
         frames_ptr = cst_ptr + 4 * cst.numel()
         head = (cam_ptr, frames_ptr, cst_ptr, rec.data_ptr(), attr.data_ptr())
         box_ptr = None if boxes is None else boxes.data_ptr()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            return fn(*head, *(o.data_ptr() for o in outs), *tail, box_ptr, *opt_ins[1:],
-                      stream)
+        return kernel.on_stream(fn, device, *head, *(o.data_ptr() for o in outs), *tail,
+                                box_ptr, *opt_ins[1:])
 
-    return launch, outs, opt_ins
+    return launch, outs, counts
 
 
 def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
@@ -442,28 +428,10 @@ def _launch(scene, options, cameras, width, height, env_kind, realtime: bool,
             full_height: int = 0):
     """Pack, upload and launch one dispatch of S samples (progressive) or S
     frames (realtime); returns the output tensors."""
-    global LAUNCHES, REALTIME_LAUNCHES, CLUSTERED_LAUNCHES, BLOCKED_LAUNCHES
-    launch, outs, opt_ins = prepare_launch(scene, options, cameras, width, height, env_kind,
-                                           realtime, cluster_rows, block_w, py0=py0,
-                                           full_height=full_height)
-    with annotate("B1.launch"):
-        rc = launch()
-    if rc != 0:
-        raise RuntimeError(f"fused_sample kernel launch failed: cudaError {rc}")
-    if realtime:
-        REALTIME_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    CLUSTERED_LAUNCHES += opt_ins[0] is not None
-    BLOCKED_LAUNCHES += opt_ins[3] > 0
+    launch, outs, counts = _prepare(scene, options, cameras, width, height, env_kind, realtime,
+                                    cluster_rows, block_w, None, py0, full_height)
+    B1.run(launch, *counts, n=int(cameras["eye"].shape[0]))
     return outs
-
-
-def _device_of(scene: dict) -> torch.device:
-    device = scene["mt_pack"].device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def fused_progressive_sum(
@@ -498,7 +466,7 @@ def fused_progressive_sum(
                 f"light_mc=True is the debug==2 light pick; options['debug'] is "
                 f"{int(options['debug'])}"
             )
-        if _device_of(scene).type == "cpu":
+        if not kernel.on_card(scene["mt_pack"].device):
             check_rows(height, py0, full_height)
             return fused_progressive_sum_reference(scene, options, cameras, width, height,
                                                    env_kind, py0, full_height)
@@ -528,7 +496,7 @@ def realtime_aovs(
     Scenes outside the kernel's scope raise."""
     with annotate("B1.wrapper", int(cameras["eye"].shape[0])):
         _check_supported(scene, env_kind, "realtime")
-        if _device_of(scene).type == "cpu":
+        if not kernel.on_card(scene["mt_pack"].device):
             check_rows(height, py0, full_height)
             return fused_realtime_outputs_reference(scene, options, cameras, width, height,
                                                     env_kind, py0, full_height)
@@ -554,7 +522,7 @@ def fused_realtime_outputs_batch(
     as the JAX package does."""
     out = realtime_aovs(scene, options, cameras, width, height, env_kind, cluster_rows, block_w,
                         py0, full_height)
-    if _device_of(scene).type == "cuda":
+    if kernel.on_card(scene["mt_pack"].device):
         out["color"] = out["direct"] + out["indirect_specular"]
     return out
 

@@ -1,4 +1,4 @@
-"""The fused-traversal megakernel (B5): wrappers, plain versions, launch counts.
+"""The fused-traversal megakernel (B5): wrappers and plain versions.
 
 Port of ``dxrexperiments_tpu.ops.fused_traverse_pallas`` (``_make_ft_kernel``
 in all its modes): the whole progressive sample, or a realtime frame, with
@@ -44,12 +44,19 @@ from ..scene.lights import light_counts, normalize_lights
 from ..scene.materials import MP_MAX_MATERIALS
 from ..utils.profiling import annotate
 from . import fused_sample as fs
-from .traverse import REC_WORDS, check_rows, queue_error_check
+from . import kernel
+from .traverse import REC_WORDS, check_rows
 
-# Kernel launches so far: LAUNCHES counts progressive dispatches (S samples
-# each), REALTIME_LAUNCHES realtime dispatches (S frames each).
-LAUNCHES = 0
-REALTIME_LAUNCHES = 0
+_ENV = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
+_TEX = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2  # texels, meta, their rows
+# "B5" counts progressive dispatches (S samples each), "B5 realtime" realtime
+# dispatches (S frames each)
+B5 = kernel.Kernel("B5", "fused_traverse", {
+    "dxr_fused_traverse_progressive_sum": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + _ENV
+    + _TEX + [ctypes.c_void_p] * 2,
+    "dxr_fused_traverse_realtime_outputs": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + _ENV
+    + [ctypes.c_void_p] * 2,
+}, ("B5", "B5 realtime"))
 
 
 def supports_fused_traverse(scene: dict, mode: str, ao_only: bool) -> bool:
@@ -125,32 +132,6 @@ def _rig_consts(scene: dict, options: dict, env_kind: int) -> tuple[torch.Tensor
 fused_traverse_progressive_sum_reference = fs.fused_progressive_sum_reference
 fused_traverse_realtime_outputs_reference = fs.fused_realtime_outputs_reference
 
-_LIB = None
-
-
-def bind(lib):
-    """Set the argument types of the entry points of ``lib``, a build of
-    ``csrc/fused_traverse.cu``; returns it."""
-    env = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]  # texture, width, height
-    tex = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2  # texels, meta, their rows
-    fn = lib.dxr_fused_traverse_progressive_sum
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + env + tex + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    fn = lib.dxr_fused_traverse_realtime_outputs
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7 + env + [ctypes.c_void_p] * 2
-    fn.restype = ctypes.c_int
-    return lib
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        from ..utils.cuda_build import load_library
-
-        _LIB = bind(load_library("fused_traverse", ["fused_traverse.cu"]))
-    return _LIB
-
-
 def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: bool, lib=None,
                    py0=None, full_height: int = 0):
     """Pack and upload the parameters and allocate the outputs of one
@@ -187,7 +168,7 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
                 *fs.env_args(scene, int(env_kind), device))
         if not realtime:
             tail += texture_args(scene, device)
-        lib = lib or _library()
+        lib = lib or B5.library()
     with annotate("B5.upload"):
         params = fs._upload(cam, cst, frames, device)
 
@@ -211,9 +192,8 @@ def prepare_launch(scene, options, cameras, width, height, env_kind, realtime: b
         frames_ptr = cst_ptr + 4 * cst.numel()
         head = (cam_ptr, frames_ptr, cst_ptr, area_ptr, nodes.data_ptr(), test.data_ptr(),
                 attr.data_ptr(), mats.data_ptr())
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            return fn(*head, *(o.data_ptr() for o in outs), *tail, err.data_ptr(), stream)
+        return kernel.on_stream(fn, device, *head, *(o.data_ptr() for o in outs), *tail,
+                                err.data_ptr())
 
     return launch, outs, err
 
@@ -241,27 +221,10 @@ def texture_args(scene: dict, device) -> tuple:
 def _launch(scene, options, cameras, width, height, env_kind, realtime: bool, py0=None,
             full_height: int = 0):
     """Launch one dispatch; returns the output tensors."""
-    global LAUNCHES, REALTIME_LAUNCHES
     launch, outs, err = prepare_launch(scene, options, cameras, width, height, env_kind, realtime,
                                        py0=py0, full_height=full_height)
-    with annotate("B5.launch"):
-        rc = launch()
-    if rc != 0:
-        raise RuntimeError(f"fused_traverse kernel launch failed: cudaError {rc}")
-    if realtime:
-        REALTIME_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
-    with torch.cuda.device(err.device):
-        queue_error_check(err, "fused_traverse kernel")
+    B5.run(launch, "B5 realtime" if realtime else "B5", n=int(cameras["eye"].shape[0]), err=err)
     return outs
-
-
-def _on_cuda(scene: dict) -> bool:
-    device = scene["bvh"]["mt_rows"].device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {device}")
-    return device.type == "cuda"
 
 
 def fused_traverse_progressive_sum(
@@ -275,7 +238,7 @@ def fused_traverse_progressive_sum(
     [py0, py0 + H) of a full_height-tall image."""
     with annotate("B5.wrapper", int(cameras["eye"].shape[0])):
         _check_supported(scene, env_kind, "progressive")
-        if not _on_cuda(scene):
+        if not kernel.on_card(scene["bvh"]["mt_rows"].device):
             fs.check_rows(height, py0, full_height)
             return fused_traverse_progressive_sum_reference(scene, options, cameras, width,
                                                             height, env_kind, py0, full_height)
@@ -293,7 +256,7 @@ def realtime_aovs(scene: dict, options: dict, cameras: dict, width: int, height:
     as in ``fused_traverse_progressive_sum``."""
     with annotate("B5.wrapper", int(cameras["eye"].shape[0])):
         _check_supported(scene, env_kind, "realtime")
-        if not _on_cuda(scene):
+        if not kernel.on_card(scene["bvh"]["mt_rows"].device):
             fs.check_rows(height, py0, full_height)
             return fused_traverse_realtime_outputs_reference(scene, options, cameras, width,
                                                              height, env_kind, py0, full_height)

@@ -1,4 +1,4 @@
-"""Brute-force trace kernels (B3): the wrappers, the plain versions, the counts.
+"""Brute-force trace kernels (B3): the wrappers and the plain versions.
 
 Port of ``dxrexperiments_tpu.ops.intersect_pallas`` (``_closest_kernel``,
 ``_any_kernel``; ``trace_closest``, ``trace_any``). ``trace_closest``
@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..core import vecmath as vm
-from . import intersect
+from . import intersect, kernel
 from .traverse import REC_WORDS, tri_records
 
 MATERIAL_KEYS = ("albedo", "specular", "emissive", "emissive_strength", "reflectivity",
@@ -54,10 +54,12 @@ IDS = ("tri", "mat_id", "type")
 # kQueueHead: the live count and the persistent grid's cursor)
 QUEUE_HEAD = 2
 
-# Kernel launches so far, one per traced batch. Callers reset them to 0 and
-# read them back to show that a run went through the kernel.
-CLOSEST_LAUNCHES = 0
-ANY_LAUNCHES = 0
+_WINDOW = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2
+B3 = kernel.Kernel("B3", "intersect_brute", {
+    "dxr_intersect_closest": _WINDOW + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p] * 5,
+    "dxr_intersect_any": _WINDOW + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3,
+}, ("B3 closest", "B3 any"))
 
 
 def trace_closest_reference(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
@@ -86,31 +88,6 @@ def trace_any_reference(scene: dict, origins: torch.Tensor, directions: torch.Te
                         t_min=intersect.RAY_EPSILON, t_max=intersect.RAY_MAX_T) -> torch.Tensor:
     """Plain version of ``trace_any``: ``intersect.intersect_any``."""
     return intersect.intersect_any(scene, origins, directions, t_min, t_max)
-
-
-_LIB = None
-
-
-def bind(lib):
-    """Set the argument types of the entry points of ``lib``, a build of
-    ``csrc/intersect_brute.cu``; returns it."""
-    window = [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2
-    lib.dxr_intersect_closest.argtypes = (
-        window + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5)
-    lib.dxr_intersect_closest.restype = ctypes.c_int
-    lib.dxr_intersect_any.argtypes = (
-        window + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3)
-    lib.dxr_intersect_any.restype = ctypes.c_int
-    return lib
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        from ..utils.cuda_build import load_library
-
-        _LIB = bind(load_library("intersect_brute", ["intersect_brute.cu"]))
-    return _LIB
 
 
 def _window(x, r: int, device) -> tuple[torch.Tensor | None, float]:
@@ -159,11 +136,12 @@ def _packs(scene: dict, device, attr: bool) -> tuple[torch.Tensor, ...]:
 def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
                    lib=None):
     """Check the inputs and allocate the outputs of one B3 launch. Returns
-    (launch, outs): ``launch()`` enqueues the kernels (the live-ray queue,
-    then the sweep) and returns the CUDA error code; outs is (occ,) or
-    (scalars [7, R], vectors [5, R, 3], ids [3, R]). Timing ``launch`` alone
-    measures the kernels without the wrapper's checks and allocations.
-    ``lib``: another build of the source, bound (``bind``)."""
+    (launch, outs, None): ``launch()`` enqueues the kernels (the live-ray
+    queue, then the sweep) and returns the CUDA error code; outs is (occ,)
+    or (scalars [7, R], vectors [5, R, 3], ids [3, R]); B3 has no error
+    flag. Timing ``launch`` alone measures the kernels without the
+    wrapper's checks and allocations. ``lib``: another build of the source,
+    bound (``B3.bind``)."""
     device = origins.device
     o, d = _rays(origins, "origins"), _rays(directions, "directions")
     r = o.shape[0]
@@ -173,7 +151,7 @@ def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusi
     mt, *packs = _packs(scene, device, not occlusion)  # the kernels read (rec[, attr])
     t_pad = int(mt.shape[1])
     t_count = min(int(scene.get("num_tris", t_pad)), t_pad)  # padding never hits
-    lib = lib or _library()
+    lib = lib or B3.library()
     rays = (o, d, tmin_t, tmax_t)  # held by launch(): a timed relaunch reads them again
     queue = torch.empty(QUEUE_HEAD + r, dtype=torch.int32, device=device)
     if occlusion:
@@ -186,38 +164,25 @@ def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusi
         fn, tail = lib.dxr_intersect_closest, (r, t_pad, t_count, int(cull))
 
     def launch() -> int:
-        with torch.cuda.device(device):
-            return fn(*(x.data_ptr() if x is not None else None for x in rays), tmin_s, tmax_s,
-                      *(p.data_ptr() for p in packs), *tail, queue.data_ptr(),
-                      *(x.data_ptr() for x in outs),
-                      torch.cuda.current_stream(device).cuda_stream)
+        return kernel.on_stream(fn, device, *(x.data_ptr() if x is not None else None
+                                              for x in rays), tmin_s, tmax_s,
+                                *(p.data_ptr() for p in packs), *tail, queue.data_ptr(),
+                                *(x.data_ptr() for x in outs))
 
-    return launch, outs
+    return launch, outs, None
 
 
 def _launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool):
-    global CLOSEST_LAUNCHES, ANY_LAUNCHES
-    launch, outs = prepare_launch(scene, origins, directions, t_min, t_max, cull, occlusion)
-    if origins.shape[0]:  # no rays, no launch
-        rc = launch()
-        if rc != 0:
-            raise RuntimeError(f"intersect_brute kernel launch failed: cudaError {rc}")
-        if occlusion:
-            ANY_LAUNCHES += 1
-        else:
-            CLOSEST_LAUNCHES += 1
+    launch, outs, _ = prepare_launch(scene, origins, directions, t_min, t_max, cull, occlusion)
+    r = int(origins.shape[0])
+    if r:  # no rays, no launch
+        B3.run(launch, "B3 any" if occlusion else "B3 closest", n=r)
     if occlusion:
         return outs[0]
     res = {k: x for names, block in zip((SCALARS, VECTORS, IDS), outs)
            for k, x in zip(names, block)}
     res["hit"] = res["tri"] >= 0
     return res
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type == "cuda"
 
 
 def trace_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
@@ -230,7 +195,7 @@ def trace_closest(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
     emissive_strength, reflectivity, roughness, ior [R]; type int64)}.
     t_min/t_max: Python scalars or [R] tensors. CUDA rays -> one launch of
     B3a; CPU rays -> the plain version."""
-    if _on_cuda(origins):
+    if kernel.on_card(origins.device):
         return _launch(scene, origins, directions, t_min, t_max, cull_backface, False)
     return trace_closest_reference(scene, origins, directions, t_min, t_max, cull_backface)
 
@@ -240,7 +205,7 @@ def trace_any(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
     """Occlusion of rays [R, 3]: [R] bool, True where a triangle blocks
     (t_min, t_max); no culling. A zero direction is never occluded. CUDA
     rays -> one launch of B3b; CPU rays -> the plain version."""
-    if _on_cuda(origins):
+    if kernel.on_card(origins.device):
         return _launch(scene, origins, directions, t_min, t_max, False, True)
     return trace_any_reference(scene, origins, directions, t_min, t_max)
 

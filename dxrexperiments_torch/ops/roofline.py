@@ -1,4 +1,4 @@
-"""The roofline probes (B7): wrappers, plain versions and launch counts.
+"""The roofline probes (B7): wrappers and plain versions.
 
 Port of the three probes of ``benchmarks/roofline.py`` (``fma_kernel``,
 ``mix_kernel``, ``make_ov_kernel``), with its shapes and iteration counts:
@@ -34,6 +34,8 @@ import ctypes
 
 import torch
 
+from . import kernel
+
 LANES = 1024
 SUB = 8
 CHAINS = 8  # independent FMA accumulator chains
@@ -50,11 +52,11 @@ MIX_FMAS, MIX_OPS = 19, 29  # per step: the FMAs, and all ops as roofline.py cou
 # steps only near it (roofline.py's a = 1.000001 overflows them to inf)
 MIX_NEUTRAL_A = 0.6384133529
 
-# Kernel launches so far. Callers reset them to 0 and read them back to show
-# that a run went through the kernels.
-FMA_LAUNCHES = 0
-MIX_LAUNCHES = 0
-OVERLAP_LAUNCHES = 0
+B7 = kernel.Kernel("B7", "roofline", {
+    "dxr_roofline_vector": [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p],
+    "dxr_roofline_overlap": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+}, ("B7 fma", "B7 mix", "B7 overlap"))
 
 
 def probe_inputs(device, seed: int | None = None) -> tuple[torch.Tensor, ...]:
@@ -185,26 +187,6 @@ def overlap_reference(a, b, mt, rays, do_vector: bool, do_matrix: bool, vector_s
     return {"o": o, "t": tacc.transpose(0, 1).reshape(SUB, grid * LANES), "product": product}
 
 
-_LIB = None
-
-
-def _library():
-    global _LIB
-    if _LIB is None:
-        from ..utils.cuda_build import load_library
-
-        lib = load_library("roofline", ["roofline.cu"])
-        fn = lib.dxr_roofline_vector
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fn = lib.dxr_roofline_overlap
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
 def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
     if t.dtype != torch.float32 or tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected float32 {shape}, got {t.dtype} {tuple(t.shape)}")
@@ -212,39 +194,26 @@ def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor on {device}")
 
 
-def _on_cuda(a: torch.Tensor) -> bool:
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {a.device}")
-    return a.device.type == "cuda"
-
-
 def prepare_vector(probe: str, a, b, iters: int = ITERS, grid: int = GRID):
-    """(launch, out) of one launch of probe "fma" or "mix" on CUDA tensors:
-    ``launch()`` enqueues the kernel and returns the CUDA error code."""
+    """(launch, out, None) of one launch of probe "fma" or "mix" on CUDA
+    tensors: ``launch()`` enqueues the kernel and returns the CUDA error
+    code; the probes have no error flag."""
     for name, x in (("a", a), ("b", b)):
         _check(name, x, (SUB, LANES), a.device)
     out = torch.empty((SUB, LANES * grid), dtype=torch.float32, device=a.device)
-    fn = _library().dxr_roofline_vector
+    fn = B7.library().dxr_roofline_vector
     code = {"fma": 0, "mix": 1}[probe]
 
     def launch() -> int:
-        with torch.cuda.device(a.device):
-            stream = torch.cuda.current_stream(a.device).cuda_stream
-            return fn(code, a.data_ptr(), b.data_ptr(), out.data_ptr(), iters, grid, stream)
+        return kernel.on_stream(fn, a.device, code, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                iters, grid)
 
-    return launch, out
+    return launch, out, None
 
 
 def _vector(probe: str, a, b, iters: int, grid: int) -> torch.Tensor:
-    global FMA_LAUNCHES, MIX_LAUNCHES
-    launch, out = prepare_vector(probe, a, b, iters, grid)
-    rc = launch()
-    if rc != 0:
-        raise RuntimeError(f"roofline {probe} kernel launch failed: cudaError {rc}")
-    if probe == "fma":
-        FMA_LAUNCHES += 1
-    else:
-        MIX_LAUNCHES += 1
+    launch, out, _ = prepare_vector(probe, a, b, iters, grid)
+    B7.run(launch, f"B7 {probe}")
     return out
 
 
@@ -252,7 +221,7 @@ def fma_peak(a, b, iters: int = ITERS, grid: int = GRID) -> torch.Tensor:
     """The FMA-peak probe: [SUB, LANES * grid] float32, the sum of CHAINS
     chains of iters * UNROLL steps acc = acc * a + b from acc = a + k. CUDA
     tensors -> one kernel launch; CPU tensors -> the plain version."""
-    if _on_cuda(a):
+    if kernel.on_card(a.device):
         return _vector("fma", a, b, iters, grid)
     return fma_peak_reference(a, b, iters, grid)
 
@@ -261,16 +230,16 @@ def pair_mix(a, b, iters: int = ITERS, grid: int = GRID) -> torch.Tensor:
     """The pair-mix probe: [SUB, LANES * grid] float32, det + u + v + t +
     best after iters * MIX_UNROLL steps of roofline.py's mix. CUDA tensors
     -> one kernel launch; CPU tensors -> the plain version."""
-    if _on_cuda(a):
+    if kernel.on_card(a.device):
         return _vector("mix", a, b, iters, grid)
     return pair_mix_reference(a, b, iters, grid)
 
 
 def prepare_overlap(a, b, mt, rays, do_vector: bool, do_matrix: bool, vector_scale: int,
                     m_iters: int = M_ITERS, grid: int = GRID, keep_product: bool = False):
-    """(launch, outs) of one overlap launch on CUDA tensors; outs {"o", "t",
-    "product"} ("product": grid block 0's last product [4 C_TRIS, LANES]
-    when keep_product, else None)."""
+    """(launch, outs, None) of one overlap launch on CUDA tensors; outs
+    {"o", "t", "product"} ("product": grid block 0's last product [4
+    C_TRIS, LANES] when keep_product, else None)."""
     device = a.device
     for name, x, shape in (("a", a, (SUB, LANES)), ("b", b, (SUB, LANES)),
                            ("mt", mt, (4 * C_TRIS, K)), ("rays", rays, (K, LANES))):
@@ -280,16 +249,15 @@ def prepare_overlap(a, b, mt, rays, do_vector: bool, do_matrix: bool, vector_sca
     outs["product"] = (torch.zeros((4 * C_TRIS, LANES), dtype=torch.float32, device=device)
                        if keep_product else None)
     prod_ptr = None if outs["product"] is None else outs["product"].data_ptr()
-    fn = _library().dxr_roofline_overlap
+    fn = B7.library().dxr_roofline_overlap
 
     def launch() -> int:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            return fn(a.data_ptr(), b.data_ptr(), mt.data_ptr(), rays.data_ptr(),
-                      outs["o"].data_ptr(), outs["t"].data_ptr(), prod_ptr, m_iters, grid,
-                      vector_scale, int(do_vector), int(do_matrix), stream)
+        return kernel.on_stream(fn, device, a.data_ptr(), b.data_ptr(), mt.data_ptr(),
+                                rays.data_ptr(), outs["o"].data_ptr(), outs["t"].data_ptr(),
+                                prod_ptr, m_iters, grid, vector_scale, int(do_vector),
+                                int(do_matrix))
 
-    return launch, outs
+    return launch, outs, None
 
 
 def overlap(a, b, mt, rays, do_vector: bool, do_matrix: bool, vector_scale: int,
@@ -302,14 +270,10 @@ def overlap(a, b, mt, rays, do_vector: bool, do_matrix: bool, vector_scale: int,
     block 0's last product with keep_product (the plain version always
     returns it)}. CUDA tensors -> one kernel launch; CPU tensors -> the
     plain version."""
-    global OVERLAP_LAUNCHES
-    if not _on_cuda(a):
+    if not kernel.on_card(a.device):
         return overlap_reference(a, b, mt, rays, do_vector, do_matrix, vector_scale, m_iters,
                                  grid)
-    launch, outs = prepare_overlap(a, b, mt, rays, do_vector, do_matrix, vector_scale, m_iters,
-                                   grid, keep_product)
-    rc = launch()
-    if rc != 0:
-        raise RuntimeError(f"roofline overlap kernel launch failed: cudaError {rc}")
-    OVERLAP_LAUNCHES += 1
+    launch, outs, _ = prepare_overlap(a, b, mt, rays, do_vector, do_matrix, vector_scale,
+                                      m_iters, grid, keep_product)
+    B7.run(launch, "B7 overlap")
     return outs

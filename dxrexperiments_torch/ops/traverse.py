@@ -23,8 +23,9 @@ JAX package's jnp route computes for BVH scenes. There is no fallback from a
 kernel to its plain version.
 
 A stack overflow sets the launch's error flag. The wrapper does not wait to
-read it: ``check_errors`` raises for it at a later launch, once the kernel
-has finished, or when the pipeline's ``get_output`` waits for the card.
+read it: ``ops/kernel.check_errors`` raises for it at a later launch, once
+the kernel has finished, or when the pipeline's ``get_output`` waits for
+the card.
 
 ``fat_walk_numpy``, ``fat_packet_walk_numpy``, ``parent_walk_numpy`` and
 ``wide_walk_numpy`` are host models of the kernels' walks (with
@@ -45,43 +46,37 @@ import numpy as np
 import torch
 
 from ..accel.bvh import collapse_wide
-from . import intersect
+from . import intersect, kernel
+from .kernel import MAX_STACK  # per-ray stack entries; an overflow raises, it never truncates
 
 BIG = 3.0e38
-MAX_STACK = 96  # per-ray stack entries; an overflow raises, it never truncates
 # mt_rows lanes of the 19 coefficients a pair test reads: det = D . [0:3];
 # u*det = D . [16:19] + M . [19:22]; v*det = D . [32:35] + M . [35:38];
 # t*det = O . [54:57] + [57]
 COEF_LANES = (0, 1, 2, 16, 17, 18, 19, 20, 21, 32, 33, 34, 35, 36, 37, 54, 55, 56, 57)
 
-# Kernel launches so far, one per traced batch: B4a (fat), B4c (grouped),
-# B4b (binary) and B4d (8-wide). Callers reset them to 0 and read them back
-# to show that a run went through the kernel.
-CLOSEST_LAUNCHES = 0
-ANY_LAUNCHES = 0
-BINARY_CLOSEST_LAUNCHES = 0
-BINARY_ANY_LAUNCHES = 0
-WIDE_CLOSEST_LAUNCHES = 0
-WIDE_ANY_LAUNCHES = 0
-GROUPED_CLOSEST_LAUNCHES = 0
-GROUPED_ANY_LAUNCHES = 0
 
-# kind -> (library and source name, C entry point, the node rows it reads and
-# their width, (closest, any) launch counters, the leaf array it reads)
+def walk_kernel(ident: str, source: str, n_in: int = 3, n_int: int = 5,
+                n_out: int = 7) -> kernel.Kernel:
+    """A walk's kernel (B4a-B4d, B6a, B6b): its one entry point
+    dxr_<source> takes ``n_in`` input pointers (the rays and the rows),
+    ``n_int`` ints and ``n_out`` output pointers (the outputs, the
+    occlusion flags and the error flag)."""
+    argtypes = [ctypes.c_void_p] * n_in + [ctypes.c_int] * n_int + [ctypes.c_void_p] * n_out
+    return kernel.Kernel(ident, source, {f"dxr_{source}": argtypes},
+                         (f"{ident} closest", f"{ident} any"))
+
+
+# kind -> (its kernel, the node rows it reads and their width, the leaf
+# array it reads)
 WALKS = {
-    "fat": ("traverse_fat", "dxr_traverse_fat", "bvhf_rows", 16,
-            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES"), "ft_test"),
-    "binary": ("traverse_binary", "dxr_traverse_binary", "bvh_rows", 8,
-               ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES"), "ft_test"),
-    "wide": ("traverse8", "dxr_traverse8", "bvh8_rows", 8,
-             ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES"), "ft_test"),
-    "grouped": ("traverse_fat_grouped", "dxr_traverse_fat_grouped", "bvhf_rows", 16,
-                ("GROUPED_CLOSEST_LAUNCHES", "GROUPED_ANY_LAUNCHES"), "ft_test"),
+    "fat": (walk_kernel("B4a", "traverse_fat"), "bvhf_rows", 16, "ft_test"),
+    "binary": (walk_kernel("B4b", "traverse_binary"), "bvh_rows", 8, "ft_test"),
+    "wide": (walk_kernel("B4d", "traverse8"), "bvh8_rows", 8, "ft_test"),
+    # B4c takes tile, group and common_origin too
+    "grouped": (walk_kernel("B4c", "traverse_fat_grouped", n_int=8), "bvhf_rows", 16, "ft_test"),
 }
 MAX_TILE = 2048  # the JAX kernel's largest packet (its TILE_R), which B4c's layouts keep
-
-_ERRORS = {1: f"a ray's stack overflowed its {MAX_STACK} entries (64 in a TLAS walk)",
-           2: "a node, instance or slot index lies outside the packed arrays"}
 
 
 def pack_for_traversal(nodes: dict, scene: dict, leaf_size: int = 16) -> dict:
@@ -325,29 +320,6 @@ def traverse_fat_any_reference(scene, origins, directions, t_min=1e-4, t_max=3.0
     return intersect.intersect_any(scene, origins, directions, t_min, t_max)
 
 
-_LIBS: dict = {}
-
-
-def bind(lib, kind: str = "fat"):
-    """The C entry point of walk ``kind`` (WALKS) in ``lib``, a build of its
-    source, with its argument types set."""
-    fn = getattr(lib, WALKS[kind][1])
-    n_int = 8 if kind == "grouped" else 5  # B4c: tile, group, common_origin too
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * n_int + [ctypes.c_void_p] * 7
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _library(kind: str = "fat"):
-    """The C entry point of walk ``kind`` (WALKS), built at first use."""
-    if kind not in _LIBS:
-        from ..utils.cuda_build import load_library
-
-        name = WALKS[kind][0]
-        _LIBS[kind] = bind(load_library(name, [f"{name}.cu"]), kind)
-    return _LIBS[kind]
-
-
 def check_rows(tree: dict, widths: dict, device) -> tuple[torch.Tensor, ...]:
     """tree[name] for each name of ``widths``, checked: float32 [N, width],
     contiguous, 16-byte aligned (the kernels read float4s), on ``device``."""
@@ -384,62 +356,20 @@ def check_bvh(bvh: dict, device, kind: str = "fat") -> tuple[torch.Tensor, torch
     bvh8_rows [W*8, 8] (wide), and for every walk the records ft_test [S,
     REC_WORDS] (``check_records``; built by ``scene.bvh_to_device`` for
     every BVH): a BVH without them raises."""
-    rows, width = WALKS[kind][2:4]
-    return check_rows(bvh, {rows: width}, device)[0], check_records(bvh, WALKS[kind][5], device)
-
-
-def raise_on_error(err: torch.Tensor, what: str) -> None:
-    """Read a kernel's error flag (an int32 [1]); raise if it is set. On a
-    device tensor the read waits for the kernel."""
-    code = int(err.item())
-    if code:
-        raise RuntimeError(f"{what}: {_ERRORS.get(code, f'error {code}')}")
-
-
-# Error flags of B4a, B5 and B6a launches not read yet, oldest first: (event
-# after the launch, pinned host copy of its flag, what launched).
-_PENDING: list[tuple[torch.cuda.Event, torch.Tensor, str]] = []
-
-
-def queue_error_check(err: torch.Tensor, what: str) -> None:
-    """Queue the read of a launch's error flag (a device int32 [1]) on the
-    current stream without waiting for the kernel: a non-blocking copy into
-    pinned memory and an event. Then read the flags of the launches that
-    have finished (``check_errors(wait=False)``)."""
-    host = torch.empty(1, dtype=torch.int32, pin_memory=True)
-    host.copy_(err, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
-    _PENDING.append((done, host, what))
-    check_errors(wait=False)
-
-
-def check_errors(wait: bool = True) -> None:
-    """Raise if a queued B4a, B5 or B6a launch set its error flag (a stack
-    overflow). wait=True waits for every queued launch, wait=False reads
-    only those that have finished. The pipelines call it in get_output; a
-    launch whose error is raised has already returned its outputs."""
-    while _PENDING:
-        done, host, what = _PENDING[0]
-        if not wait and not done.query():
-            return
-        done.synchronize()
-        _PENDING.pop(0)
-        if int(host[0]):
-            _PENDING.clear()
-            raise_on_error(host, what)
+    _, rows, width, records = WALKS[kind]
+    return check_rows(bvh, {rows: width}, device)[0], check_records(bvh, records, device)
 
 
 def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
-                   kind: str = "fat", packet: tuple = (), fn=None):
+                   kind: str = "fat", packet: tuple = (), lib=None):
     """Pack the rays and allocate the outputs of one launch of walk ``kind``
     (WALKS: "fat" B4a, "grouped" B4c, "binary" B4b, "wide" B4d); B4c takes
     ``packet`` = (tile, group, common_origin), checked by
     ``check_grouping``. Returns (launch, outs, err): ``launch()`` enqueues
     the kernel and returns the CUDA error code; outs is (occ,) or (t, slot,
     u, v). Timing ``launch`` alone measures the kernel without the wrapper's
-    packing and checks. ``fn``: the entry point of another build of the
-    source (``bind``)."""
+    packing and checks. ``lib``: another build of the walk's source, bound
+    (``WALKS[kind][0].bind``)."""
     if (kind == "grouped") != bool(packet):
         raise ValueError("packet = (tile, group, common_origin) goes with the grouped walk only")
     if packet:
@@ -458,30 +388,23 @@ def prepare_launch(scene, origins, directions, t_min, t_max, cull: bool, occlusi
                 torch.empty(r, dtype=torch.float32, device=device),
                 torch.empty(r, dtype=torch.float32, device=device))
         ptrs = (*(o.data_ptr() for o in outs), None)
-    fn = fn or _library(kind)
+    walk = WALKS[kind][0]
+    fn = getattr(lib or walk.library(), f"dxr_{walk.source}")
 
     def launch() -> int:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            return fn(rays.data_ptr(), nodes.data_ptr(), rows.data_ptr(), r, nodes.shape[0],
-                      rows.shape[0], int(occlusion), int(cull), *(int(x) for x in packet),
-                      *ptrs, err.data_ptr(), stream)
+        return kernel.on_stream(fn, device, rays.data_ptr(), nodes.data_ptr(), rows.data_ptr(),
+                                r, nodes.shape[0], rows.shape[0], int(occlusion), int(cull),
+                                *(int(x) for x in packet), *ptrs, err.data_ptr())
 
     return launch, outs, err
 
 
 def _launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
             kind: str = "fat", packet: tuple = ()):
-    name = WALKS[kind][0]
     launch, outs, err = prepare_launch(scene, origins, directions, t_min, t_max, cull, occlusion,
                                        kind, packet)
-    rc = launch()
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    counter = WALKS[kind][4][int(occlusion)]
-    globals()[counter] += 1
-    with torch.cuda.device(origins.device):
-        queue_error_check(err, f"{name} kernel")
+    walk = WALKS[kind][0]
+    walk.run(launch, walk.counters[int(occlusion)], n=int(origins.shape[0]), err=err)
     if occlusion:
         return outs[0]
     t, slot, u, v = outs
@@ -490,21 +413,15 @@ def _launch(scene, origins, directions, t_min, t_max, cull: bool, occlusion: boo
     return {"hit": hit, "t": t, "tri": tri, "slot": slot.long(), "u": u, "v": v}
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {t.device}")
-    return t.device.type == "cuda"
-
-
 def _closest(kind: str, scene, origins, directions, t_min, t_max, cull_backface: bool) -> dict:
-    if _on_cuda(origins):
+    if kernel.on_card(origins.device):
         return _launch(scene, origins, directions, t_min, t_max, cull_backface, False, kind)
     return traverse_fat_closest_reference(scene, origins, directions, t_min, t_max,
                                           cull_backface)
 
 
 def _any(kind: str, scene, origins, directions, t_min, t_max) -> torch.Tensor:
-    if _on_cuda(origins):
+    if kernel.on_card(origins.device):
         return _launch(scene, origins, directions, t_min, t_max, False, True, kind)
     return traverse_fat_any_reference(scene, origins, directions, t_min, t_max)
 
@@ -558,7 +475,7 @@ def traverse_fat_closest(scene: dict, origins: torch.Tensor, directions: torch.T
         origins_all = origins
     if group > 1:
         check_grouping(tile, group)
-        if _on_cuda(origins):
+        if kernel.on_card(origins.device):
             return _launch(scene, origins, directions, t_min, t_max, cull_backface, False,
                            "grouped", (tile, group, common_origin))
         return traverse_fat_closest_reference(scene, origins_all, directions, t_min, t_max,
@@ -577,7 +494,7 @@ def traverse_fat_any(scene: dict, origins: torch.Tensor, directions: torch.Tenso
     rays -> the plain version."""
     if group > 1:
         check_grouping(tile, group)
-        if _on_cuda(origins):
+        if kernel.on_card(origins.device):
             return _launch(scene, origins, directions, t_min, t_max, False, True, "grouped",
                            (tile, group, False))
         return traverse_fat_any_reference(scene, origins, directions, t_min, t_max)

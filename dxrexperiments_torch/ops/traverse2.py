@@ -1,5 +1,5 @@
 """Two-level TLAS/BLAS traversal: the wrappers of the fat walk (B6a) and the
-binary walk (B6b), the launch counts and host models of the walks.
+binary walk (B6b) and host models of the walks.
 
 Port of ``dxrexperiments_tpu.ops.traverse2_pallas``'s kernels
 ``_make_traverse2_fat_kernel`` (``traverse2_fat_closest``,
@@ -13,9 +13,9 @@ and ``two_level_any_reference``, which test every instance's triangles.
 There is no fallback from a kernel to its plain version.
 
 A stack overflow or an index outside the arrays sets the launch's error
-flag, which ``ops.traverse.check_errors`` reads later, as for B4a. Each
-launch is a ``B6a.launch`` or ``B6b.launch`` span (``utils/profiling``; n:
-the rays), inside the integrator's ``wavefront.trace``.
+flag, which ``ops/kernel.check_errors`` reads later, as for B4a. Each
+launch is a ``B6a.launch`` or ``B6b.launch`` span (``ops/kernel``; n: the
+rays), inside the integrator's ``wavefront.trace``.
 
 ``fat_walk2_numpy`` and ``binary_walk2_numpy`` are host models of the
 kernels' walks (B6b's is the JAX kernel's binary walk): they return the
@@ -28,13 +28,11 @@ leaf tests; with leaf postponement, the rounds that
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
 from ..accel.tlas import two_level_any_reference, two_level_closest_reference
-from ..utils.profiling import annotate
+from . import kernel
 from .traverse import (
     COEF_LANES,
     MAX_STACK,
@@ -43,59 +41,26 @@ from .traverse import (
     RayStacks,
     TurnLog,
     WalkState,
-    _on_cuda,
     binary_visit,
     check_records,
     check_rows,
     distinct,
     fat_visit,
     pack_rays,
-    queue_error_check,
     safe_inv,
+    walk_kernel,
 )
 
 TLAS_STACK = 64  # per-ray TLAS stack entries (traverse2_pallas.TLAS_STACK)
 
-# Kernel launches so far, one per traced batch: B6a (fat) and B6b (binary).
-# Callers reset them to 0 and read them back to show that a run went through
-# the kernel.
-CLOSEST_LAUNCHES = 0
-ANY_LAUNCHES = 0
-BINARY_CLOSEST_LAUNCHES = 0
-BINARY_ANY_LAUNCHES = 0
-
-# kind -> (library and source name, C entry point, the rows the walk reads
-# and their widths, the instance row column of the BLAS root, (closest, any)
-# launch counters, the launch's span)
+# kind -> (its kernel, the rows the walk reads and their widths, the
+# instance row column of the BLAS root)
 WALKS = {
-    "fat": ("traverse2_fat", "dxr_traverse2_fat",
-            {"tlasf_rows": 16, "inst_rows_t": 16, "blasf_rows": 16, "blas_test": REC_WORDS}, 15,
-            ("CLOSEST_LAUNCHES", "ANY_LAUNCHES"), "B6a.launch"),
-    "binary": ("traverse2_binary", "dxr_traverse2_binary",
-               {"tlas_rows": 8, "inst_rows_t": 16, "blas_rows": 8, "blas_test": REC_WORDS}, 12,
-               ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES"), "B6b.launch"),
+    "fat": (walk_kernel("B6a", "traverse2_fat", 5, 7, 8),
+            {"tlasf_rows": 16, "inst_rows_t": 16, "blasf_rows": 16, "blas_test": REC_WORDS}, 15),
+    "binary": (walk_kernel("B6b", "traverse2_binary", 5, 7, 8),
+               {"tlas_rows": 8, "inst_rows_t": 16, "blas_rows": 8, "blas_test": REC_WORDS}, 12),
 }
-
-_LIBS: dict = {}
-
-
-def bind(lib, kind: str = "fat"):
-    """The C entry point of walk ``kind`` (WALKS) in ``lib``, a build of its
-    source, with its argument types set."""
-    fn = getattr(lib, WALKS[kind][1])
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _library(kind: str = "fat"):
-    """The C entry point of walk ``kind`` (WALKS), built at first use."""
-    if kind not in _LIBS:
-        from ..utils.cuda_build import load_library
-
-        name = WALKS[kind][0]
-        _LIBS[kind] = bind(load_library(name, [f"{name}.cu"]), kind)
-    return _LIBS[kind]
 
 
 def check_tlas(tl: dict, device, kind: str = "fat") -> tuple[torch.Tensor, ...]:
@@ -107,19 +72,19 @@ def check_tlas(tl: dict, device, kind: str = "fat") -> tuple[torch.Tensor, ...]:
     built with the rest by ``accel/tlas.build_two_level`` and
     ``scene_from_numpy``; a hand-built tlas dict needs it, one row per
     mt_rows row (``ops/traverse.check_records``)."""
-    names = dict(WALKS[kind][2])
+    names = dict(WALKS[kind][1])
     del names["blas_test"]
     return (*check_rows(tl, names, device), check_records(tl, "blas_test", device))
 
 
 def prepare_launch(tl, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
-                   kind: str = "fat", fn=None):
+                   kind: str = "fat", lib=None):
     """Pack the rays and allocate the outputs of one launch of walk ``kind``
     (WALKS: "fat" B6a, "binary" B6b). Returns (launch, outs, err):
     ``launch()`` enqueues the kernel and returns the CUDA error code; outs
     is (occ,) or (t, slot, u, v, inst). Timing ``launch`` alone measures the kernel without
-    the wrapper's packing. ``fn``: the entry point of another build of the
-    source (``bind``)."""
+    the wrapper's packing. ``lib``: another build of the walk's source,
+    bound (``WALKS[kind][0].bind``)."""
     device = origins.device
     tlas, inst, blas, rows = check_tlas(tl, device, kind)
     rays = pack_rays(origins, directions, t_min, t_max)
@@ -135,31 +100,24 @@ def prepare_launch(tl, origins, directions, t_min, t_max, cull: bool, occlusion:
                 torch.empty(r, dtype=torch.float32, device=device),
                 torch.empty(r, dtype=torch.int32, device=device))
         ptrs = (*(o.data_ptr() for o in outs), None)
-    fn = fn or _library(kind)
+    walk = WALKS[kind][0]
+    fn = getattr(lib or walk.library(), f"dxr_{walk.source}")
 
     def launch() -> int:
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            return fn(rays.data_ptr(), tlas.data_ptr(), inst.data_ptr(), blas.data_ptr(),
-                      rows.data_ptr(), r, tlas.shape[0], inst.shape[0], blas.shape[0],
-                      rows.shape[0], int(occlusion), int(cull), *ptrs, err.data_ptr(), stream)
+        return kernel.on_stream(fn, device, rays.data_ptr(), tlas.data_ptr(), inst.data_ptr(),
+                                blas.data_ptr(), rows.data_ptr(), r, tlas.shape[0],
+                                inst.shape[0], blas.shape[0], rows.shape[0], int(occlusion),
+                                int(cull), *ptrs, err.data_ptr())
 
     return launch, outs, err
 
 
 def _launch(tl, origins, directions, t_min, t_max, cull: bool, occlusion: bool,
             kind: str = "fat"):
-    name = WALKS[kind][0]
     launch, outs, err = prepare_launch(tl, origins, directions, t_min, t_max, cull, occlusion,
                                        kind)
-    with annotate(WALKS[kind][5], int(origins.shape[0])):
-        rc = launch()
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    counter = WALKS[kind][4][int(occlusion)]
-    globals()[counter] += 1
-    with torch.cuda.device(origins.device):
-        queue_error_check(err, f"{name} kernel")
+    walk = WALKS[kind][0]
+    walk.run(launch, walk.counters[int(occlusion)], n=int(origins.shape[0]), err=err)
     if occlusion:
         return outs[0]
     t, slot, u, v, inst = outs
@@ -178,7 +136,7 @@ def traverse2_fat_closest(scene: dict, origins: torch.Tensor, directions: torch.
     it through tlas["inst_orig"] for the user's instance index)}.
     t_min/t_max: scalars or [R]. CUDA rays -> one kernel launch; CPU rays ->
     the plain version."""
-    if _on_cuda(origins):
+    if kernel.on_card(origins.device):
         return _launch(scene["tlas"], origins, directions, t_min, t_max, cull_backface, False)
     return two_level_closest_reference(scene, origins, directions, t_min, t_max, cull_backface)
 
@@ -189,7 +147,7 @@ def traverse2_fat_any(scene: dict, origins: torch.Tensor, directions: torch.Tens
     [R] bool, True where a triangle of any instance blocks (t_min, t_max).
     Zero-direction rays are not occluded. CUDA rays -> one kernel launch;
     CPU rays -> the plain version."""
-    if _on_cuda(origins):
+    if kernel.on_card(origins.device):
         return _launch(scene["tlas"], origins, directions, t_min, t_max, False, True)
     return two_level_any_reference(scene, origins, directions, t_min, t_max)
 
@@ -200,7 +158,7 @@ def traverse2_closest(scene: dict, origins: torch.Tensor, directions: torch.Tens
     ``blas_rows``; kernel B6b), the route of a TLAS without fat nodes. Same
     keys as ``traverse2_fat_closest``; CPU rays take the same plain
     version."""
-    if _on_cuda(origins):
+    if kernel.on_card(origins.device):
         return _launch(scene["tlas"], origins, directions, t_min, t_max, cull_backface, False,
                        "binary")
     return two_level_closest_reference(scene, origins, directions, t_min, t_max, cull_backface)
@@ -210,7 +168,7 @@ def traverse2_any(scene: dict, origins: torch.Tensor, directions: torch.Tensor,
                   t_min=1e-4, t_max=3.0e37) -> torch.Tensor:
     """Occlusion through the binary TLAS and BLAS (kernel B6b), as
     ``traverse2_fat_any``."""
-    if _on_cuda(origins):
+    if kernel.on_card(origins.device):
         return _launch(scene["tlas"], origins, directions, t_min, t_max, False, True, "binary")
     return two_level_any_reference(scene, origins, directions, t_min, t_max)
 
@@ -220,8 +178,8 @@ def _walk2_numpy(kind: str, tl: dict, origins, directions, t_min, t_max, cull: b
     """The two-level walk of ``kind`` ("fat": fat_visit on tlasf_rows and
     blasf_rows, the BLAS root in instance column 15; "binary": binary_visit
     on tlas_rows and blas_rows, the root in column 12)."""
-    tname, _, bname = list(WALKS[kind][2])[:3]
-    root_col = WALKS[kind][3]
+    tname, _, bname = list(WALKS[kind][1])[:3]
+    root_col = WALKS[kind][2]
     visit = fat_visit if kind == "fat" else binary_visit
     tnodes = np.asarray(tl[tname], np.float32)
     inst_rows = np.asarray(tl["inst_rows_t"], np.float32)

@@ -18,7 +18,6 @@ in process (a row-block check on one device). Nothing here imports JAX.
 from __future__ import annotations
 
 import datetime
-import importlib
 import queue as queue_mod
 import socket
 import time
@@ -28,6 +27,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+
+from ..ops.kernel import launch_counts, reset_launch_counts  # noqa: F401 - the tools read them here
 
 TIMEOUT_S = 300.0  # a collective or a rank that takes longer raises
 
@@ -157,46 +158,6 @@ def run_tiles(n_tile: int, job, device) -> list:
         raise next((e for e in errors if not isinstance(e, threading.BrokenBarrierError)),
                    errors[0])
     return results
-
-
-# every kernel's launch counter: (name, module of dxrexperiments_torch.ops, attribute)
-COUNTERS = (
-    ("B1", "fused_sample", "LAUNCHES"), ("B1 realtime", "fused_sample", "REALTIME_LAUNCHES"),
-    ("B2", "bilateral", "LAUNCHES"),
-    ("B3 closest", "intersect_kernel", "CLOSEST_LAUNCHES"),
-    ("B3 any", "intersect_kernel", "ANY_LAUNCHES"),
-    ("B4a closest", "traverse", "CLOSEST_LAUNCHES"), ("B4a any", "traverse", "ANY_LAUNCHES"),
-    ("B4b closest", "traverse", "BINARY_CLOSEST_LAUNCHES"),
-    ("B4b any", "traverse", "BINARY_ANY_LAUNCHES"),
-    ("B4d closest", "traverse", "WIDE_CLOSEST_LAUNCHES"),
-    ("B4d any", "traverse", "WIDE_ANY_LAUNCHES"),
-    ("B5", "fused_traverse", "LAUNCHES"), ("B5 realtime", "fused_traverse", "REALTIME_LAUNCHES"),
-    ("B6a closest", "traverse2", "CLOSEST_LAUNCHES"), ("B6a any", "traverse2", "ANY_LAUNCHES"),
-    ("B6b closest", "traverse2", "BINARY_CLOSEST_LAUNCHES"),
-    ("B6b any", "traverse2", "BINARY_ANY_LAUNCHES"),
-    ("B4c closest", "traverse", "GROUPED_CLOSEST_LAUNCHES"),
-    ("B4c any", "traverse", "GROUPED_ANY_LAUNCHES"),
-    ("B1 clustered", "fused_sample", "CLUSTERED_LAUNCHES"),
-    ("B1 blocked", "fused_sample", "BLOCKED_LAUNCHES"),
-    ("B7 fma", "roofline", "FMA_LAUNCHES"), ("B7 mix", "roofline", "MIX_LAUNCHES"),
-    ("B7 overlap", "roofline", "OVERLAP_LAUNCHES"),
-)
-
-
-def _ops_module(name: str):
-    return importlib.import_module(f"..ops.{name}", __package__)
-
-
-def launch_counts() -> dict:
-    """Every kernel's launch counter in this process, by kernel name (each
-    wrapper adds one where it launches its kernel)."""
-    return {name: getattr(_ops_module(mod), attr) for name, mod, attr in COUNTERS}
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel's launch counter in this process to 0."""
-    for _, mod, attr in COUNTERS:
-        setattr(_ops_module(mod), attr, 0)
 
 
 def _setup(spec: dict):

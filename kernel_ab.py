@@ -259,6 +259,7 @@ def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion, p
     (``this_trace_launch``). Returns (launch, outs, err)."""
     import torch
 
+    from dxrexperiments_torch.ops import kernel as seam
     from dxrexperiments_torch.ops import traverse as tv
 
     if kernel not in ("B4d", "B4c"):
@@ -268,9 +269,8 @@ def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion, p
     rays = tv.pack_rays(o, d, t_min, t_max)
     err = torch.zeros(1, dtype=torch.int32, device=device)
     bvh = scene["bvh"]
-    kind = KINDS[kernel]
-    arrays = (bvh[tv.WALKS[kind][2]], bvh["mt_rows"])
-    fn = tv.bind(lib, kind)
+    arrays = (bvh[tv.WALKS[KINDS[kernel]][1]], bvh["mt_rows"])
+    fn = getattr(lib, f"dxr_{SOURCES[kernel]}")
     if occlusion:
         outs = (torch.empty(r, dtype=torch.bool, device=device),)
         ptrs = (None,) * 4 + (outs[0].data_ptr(),)
@@ -280,33 +280,28 @@ def base_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion, p
         ptrs = (*(x.data_ptr() for x in outs), None)
 
     def launch() -> int:
-        return fn(rays.data_ptr(), *(a.data_ptr() for a in arrays), r,
-                  *(a.shape[0] for a in arrays), int(occlusion), int(cull),
-                  *(int(x) for x in packet), *ptrs, err.data_ptr(),
-                  torch.cuda.current_stream(device).cuda_stream)
+        return seam.on_stream(fn, device, rays.data_ptr(), *(a.data_ptr() for a in arrays), r,
+                              *(a.shape[0] for a in arrays), int(occlusion), int(cull),
+                              *(int(x) for x in packet), *ptrs, err.data_ptr())
 
     return launch, outs, err
 
 
 def this_trace_launch(kernel, lib, scene, o, d, t_min, t_max, cull, occlusion, packet=()):
-    """This tree's wrapper (prepare_launch) of a trace kernel with ``lib``:
-    (launch, outs, err); B4c takes ``packet`` = (tile, group,
-    common_origin)."""
+    """This tree's wrapper (prepare_launch) of a trace kernel with ``lib``,
+    a build bound by the seam (``build_trees``): (launch, outs, err); B4c
+    takes ``packet`` = (tile, group, common_origin)."""
     from dxrexperiments_torch.ops import intersect_kernel as ik
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
 
     if kernel == "B3":
-        launch, outs = ik.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion,
-                                         lib=ik.bind(lib))
-        return launch, outs, None
+        return ik.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, lib=lib)
     if kernel in KINDS:
-        kind = KINDS[kernel]
-        return tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, kind, packet,
-                                 fn=tv.bind(lib, kind))
+        return tv.prepare_launch(scene, o, d, t_min, t_max, cull, occlusion, KINDS[kernel], packet,
+                                 lib=lib)
     kind = "fat" if kernel == "B6a" else "binary"
-    return tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull, occlusion, kind,
-                              fn=tv2.bind(lib, kind))
+    return tv2.prepare_launch(scene["tlas"], o, d, t_min, t_max, cull, occlusion, kind, lib=lib)
 
 
 def output_fields(kernel, occlusion, outs) -> dict:
@@ -339,19 +334,18 @@ def differing_rays(a: dict, b: dict) -> dict:
 
 def this_launch(kernel, lib, scene, options, cameras, width, height, env_kind, realtime,
                 py0=None, full_height=0):
-    """This tree's wrapper (prepare_launch) with ``lib``: (launch, outs, err).
-    py0/full_height: the row-block form of the launch (camera lanes 12 and
-    13; a build before row blocks reads lane 12 and ignores lane 13)."""
+    """This tree's wrapper (prepare_launch) with ``lib``, a build bound by
+    the seam: (launch, outs, err). py0/full_height: the row-block form of
+    the launch (camera lanes 12 and 13; a build before row blocks reads
+    lane 12 and ignores lane 13)."""
     from dxrexperiments_torch.ops import fused_sample as fs
     from dxrexperiments_torch.ops import fused_traverse as ft
 
     if kernel == "B1":
-        launch, outs, _ = fs.prepare_launch(scene, options, cameras, width, height, env_kind,
-                                            realtime, 0, 0, lib=fs.bind(lib), py0=py0,
-                                            full_height=full_height)
-        return launch, outs, None
+        return fs.prepare_launch(scene, options, cameras, width, height, env_kind, realtime, 0,
+                                 0, lib=lib, py0=py0, full_height=full_height)
     return ft.prepare_launch(scene, options, cameras, width, height, env_kind, realtime,
-                             lib=ft.bind(lib), py0=py0, full_height=full_height)
+                             lib=lib, py0=py0, full_height=full_height)
 
 
 def differing_pixels(a, b, height: int, width: int) -> int:
@@ -378,21 +372,19 @@ def differing_channels(a, b) -> list[int]:
 
 
 def bilateral_launch(lib, inp, guide, radius: float, axis: int):
-    """One bilateral pass of a build ``lib`` (this tree's entry point, and the
-    base's: it is unchanged): (launch, out)."""
-    import ctypes
-
+    """One bilateral pass of a build ``lib``, bound by the seam (this tree's
+    entry point, and the base's: it is unchanged): (launch, out)."""
     import torch
 
+    from dxrexperiments_torch.ops import kernel as seam
+
     fn = lib.dxr_bilateral_pass
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     out = torch.empty_like(inp)
     h, w, _ = inp.shape
 
     def launch() -> int:
-        return fn(inp.data_ptr(), guide.data_ptr(), out.data_ptr(), h, w, axis, float(radius),
-                  torch.cuda.current_stream(inp.device).cuda_stream)
+        return seam.on_stream(fn, inp.device, inp.data_ptr(), guide.data_ptr(), out.data_ptr(),
+                              h, w, axis, float(radius))
 
     return launch, out
 
@@ -453,33 +445,29 @@ def mma_opcodes(so_path: str) -> dict:
 
 
 def roofline_launch(lib, case, inputs):
-    """One launch of a roofline build ``lib`` (this tree's C entry points,
-    unchanged since the probes were ported): case "fma", "mix" or an
-    overlap setting (do_vector, do_matrix, vector_scale) at roofline.py's
-    size, the product kept. (launch, {name: output})."""
-    import ctypes
-
+    """One launch of a roofline build ``lib``, bound by the seam (this
+    tree's C entry points, unchanged since the probes were ported): case
+    "fma", "mix" or an overlap setting (do_vector, do_matrix, vector_scale)
+    at roofline.py's size, the product kept. (launch, {name: output})."""
     import torch
 
+    from dxrexperiments_torch.ops import kernel as seam
     from dxrexperiments_torch.ops import roofline as rf
 
     a, b, mt, rays = inputs
-    stream = torch.cuda.current_stream(a.device).cuda_stream
     if case in ("fma", "mix"):
-        fn = lib.dxr_roofline_vector
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
-            ctypes.c_void_p]
         out = torch.empty((rf.SUB, rf.LANES * rf.GRID), device=a.device)
         code = 0 if case == "fma" else 1
-        return (lambda: fn(code, a.data_ptr(), b.data_ptr(), out.data_ptr(), rf.ITERS, rf.GRID,
-                           stream)), {"out": out}
-    fn = lib.dxr_roofline_overlap
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        return (lambda: seam.on_stream(lib.dxr_roofline_vector, a.device, code, a.data_ptr(),
+                                       b.data_ptr(), out.data_ptr(), rf.ITERS, rf.GRID)), {
+            "out": out}
     outs = {k: torch.empty((rf.SUB, rf.LANES * rf.GRID), device=a.device) for k in ("o", "t")}
     outs["product"] = torch.zeros((4 * rf.C_TRIS, rf.LANES), device=a.device)
-    return (lambda: fn(a.data_ptr(), b.data_ptr(), mt.data_ptr(), rays.data_ptr(),
-                       outs["o"].data_ptr(), outs["t"].data_ptr(), outs["product"].data_ptr(),
-                       rf.M_ITERS, rf.GRID, case[2], int(case[0]), int(case[1]), stream)), outs
+    return (lambda: seam.on_stream(lib.dxr_roofline_overlap, a.device, a.data_ptr(),
+                                   b.data_ptr(), mt.data_ptr(), rays.data_ptr(),
+                                   outs["o"].data_ptr(), outs["t"].data_ptr(),
+                                   outs["product"].data_ptr(), rf.M_ITERS, rf.GRID, case[2],
+                                   int(case[0]), int(case[1]))), outs
 
 
 def roofline_cases(dev):
@@ -651,7 +639,7 @@ class BaseRoute:
 
     def launch(self, scene_or_tl, o, d, t_min, t_max, cull, occlusion, kind="fat", *rest):
         from dxrexperiments_torch.ops import intersect_kernel as ik
-        from dxrexperiments_torch.ops.traverse import queue_error_check
+        from dxrexperiments_torch.ops.kernel import queue_error_check
 
         if self.kind is not None and kind != self.kind:  # another walk of the module
             return self.saved(scene_or_tl, o, d, t_min, t_max, cull, occlusion, kind, *rest)
@@ -702,7 +690,7 @@ def yardstick_ms(kernel, scene, o, d, t_min, t_max, cull, occlusion, reps: int) 
     and 8-wide nodes, B6a on the two-level scene's fat nodes."""
     from dxrexperiments_torch.ops import traverse as tv
     from dxrexperiments_torch.ops import traverse2 as tv2
-    from dxrexperiments_torch.ops.traverse import raise_on_error
+    from dxrexperiments_torch.ops.kernel import raise_on_error
 
     out = {}
     for name, kind in YARDSTICKS[kernel]:
@@ -1024,12 +1012,10 @@ def leaf_phase_counts(scene, options, cams, width, height, env_kind, realtime,
     import numpy as np
 
     from dxrexperiments_torch.ops import fused_traverse as ft
-    from dxrexperiments_torch.ops.traverse import raise_on_error
-    from dxrexperiments_torch.utils import cuda_build
+    from dxrexperiments_torch.ops.kernel import raise_on_error
 
-    lib = ft.bind(cuda_build.load_library(library_name("B5", flags) + "_counts",
-                                          ["fused_traverse.cu"],
-                                          flags=(*flags, "-DDXR_LEAF_PHASE_COUNTS")))
+    lib = ft.B5.build(library_name("B5", flags) + "_counts",
+                      flags=(*flags, "-DDXR_LEAF_PHASE_COUNTS"))
     read = lib.dxr_fused_traverse_leaf_counts
     read.argtypes, read.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
     buf = (ctypes.c_ulonglong * (2 * 2 * 33))()
@@ -1112,16 +1098,18 @@ def build_trees(base_csrc: str, keys, this_csrc: str | None = None,
                 flags: tuple = ()) -> tuple[dict, dict]:
     """Every source of ``keys`` in both trees (this one: this package's
     sources, or ``this_csrc``), one nvcc each with ``flags`` added, all at
-    once: (trees {"base", "this"}: csrc dir, libs {(tree, key): CDLL})."""
+    once: (trees {"base", "this"}: csrc dir, libs {(tree, key): CDLL, bound
+    by the seam to this tree's entry points})."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from dxrexperiments_torch.ops import kernel as seam
     from dxrexperiments_torch.utils import cuda_build
 
     trees = {"base": base_csrc, "this": this_csrc or cuda_build.CSRC_DIR}
     jobs = [(tree, key) for tree in trees for key in keys]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
-        libs = dict(zip(jobs, pool.map(lambda j: cuda_build.load_library(
-            library_name(j[1], flags), [SOURCES[j[1]] + ".cu"], trees[j[0]], flags), jobs)))
+        libs = dict(zip(jobs, pool.map(lambda j: seam.kernels()[j[1]].build(
+            library_name(j[1], flags), trees[j[0]], flags), jobs)))
     return trees, libs
 
 
@@ -1138,7 +1126,7 @@ def compare(base_csrc: str, card: str, dev, kernels, reps: int,
     import numpy as np
     import torch
 
-    from dxrexperiments_torch.ops.traverse import check_errors, raise_on_error
+    from dxrexperiments_torch.ops.kernel import check_errors, raise_on_error
     from dxrexperiments_torch.utils import cuda_build
 
     trees, libs = build_trees(base_csrc, SOURCES, this_csrc, flags)

@@ -25,6 +25,7 @@ import torch
 from dxrexperiments_torch.app import headless as thead
 from dxrexperiments_torch.models.base import select_route
 from dxrexperiments_torch.ops import fused_traverse as tft
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene.convert import (
     camera_from_numpy,
     options_from_numpy,
@@ -102,10 +103,10 @@ def progressive_vs_jnp(jscene, opts):
     ek = int(jscene["env"]["kind"])
     want = render_sample(jscene, jopts, jcam, W, H, mode="progressive", impl="jnp",
                          env_kind=ek)["color"]
-    before = tft.LAUNCHES
+    before = launch_counts()["B5"]
     got = tft.fused_traverse_progressive_sum(tscene, topts, {k: v[None] for k, v in tcam.items()},
                                              W, H, ek)
-    assert tft.LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B5"] == before  # the CPU path launches no kernel
     assert_images_match(got.numpy(), want)
     return got
 

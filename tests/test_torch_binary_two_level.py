@@ -30,6 +30,7 @@ from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipelin
 from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
 from dxrexperiments_torch.ops import traverse as ttv
 from dxrexperiments_torch.ops import traverse2 as tt2
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene.convert import camera_from_numpy, options_from_numpy, scene_from_numpy
 from dxrexperiments_torch.trace import integrator as tint
 from dxrexperiments_tpu.app.headless import build_scene as j_build_scene
@@ -69,9 +70,9 @@ def test_binary_walk2_matches_pallas(kind):
     fat = tt2.fat_walk2_numpy(tl_np, o, d, 1e-4, 3.0e37)[1]
     assert counts["blas_visits"] > fat["blas_visits"]  # no near-first order, no child boxes
     # the wrapper on CPU rays: the plain version, no launch
-    before = (tt2.BINARY_CLOSEST_LAUNCHES, tt2.BINARY_ANY_LAUNCHES)
+    before = launch_counts()
     plain = tt2.traverse2_closest(td, torch.as_tensor(o), torch.as_tensor(d), 1e-4, 3.0e37)
-    assert (tt2.BINARY_CLOSEST_LAUNCHES, tt2.BINARY_ANY_LAUNCHES) == before
+    assert launch_counts() == before
     np.testing.assert_array_equal(plain["hit"].numpy(), hit)
 
 

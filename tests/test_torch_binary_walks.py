@@ -26,6 +26,7 @@ import torch
 
 from dxrexperiments_torch.accel import bvh as tbvh
 from dxrexperiments_torch.ops import traverse as ttv
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_tpu.accel import bvh as jbvh
 from dxrexperiments_tpu.ops import traverse_pallas as jtv
 from test_torch_bvh import _triangles
@@ -81,10 +82,10 @@ def test_binary_walk_matches_pallas(kind, cull):
     assert 0 < counts["pair_tests"] < R * n_slots  # the walk prunes
     assert len(counts["node_ids"]) <= tscene["bvh"]["bvh_rows"].shape[0]
     # the wrapper on CPU rays: the brute-force plain version, no launch
-    before = (ttv.BINARY_CLOSEST_LAUNCHES, ttv.BINARY_ANY_LAUNCHES)
+    before = launch_counts()
     plain = ttv.traverse_closest(tscene, torch.as_tensor(o), torch.as_tensor(d), 1e-4,
                                  cull_backface=cull)
-    assert (ttv.BINARY_CLOSEST_LAUNCHES, ttv.BINARY_ANY_LAUNCHES) == before
+    assert launch_counts() == before
     hit_gate(plain["hit"], plain["t"], plain["tri"], want["hit"], want["t"], want["tri"])
 
 
@@ -101,9 +102,9 @@ def test_wide_walk_matches_pallas(kind):
     binary = ttv.binary_walk_numpy(tscene["bvh"], o, d, 1e-4, 3.0e37)[1]
     assert counts["visits"] < binary["visits"]  # fewer, wider steps
     assert 1 <= counts["max_stack"] <= ttv.MAX_STACK
-    before = (ttv.WIDE_CLOSEST_LAUNCHES, ttv.WIDE_ANY_LAUNCHES)
+    before = launch_counts()
     plain = ttv.traverse8_closest(tscene, torch.as_tensor(o), torch.as_tensor(d), 1e-4)
-    assert (ttv.WIDE_CLOSEST_LAUNCHES, ttv.WIDE_ANY_LAUNCHES) == before
+    assert launch_counts() == before
     hit_gate(plain["hit"], plain["t"], plain["tri"], want["hit"], want["t"], want["tri"])
 
 

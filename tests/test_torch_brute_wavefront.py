@@ -32,6 +32,7 @@ from dxrexperiments_torch.models.base import select_route
 from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
 from dxrexperiments_torch.ops import fused_traverse as tft
 from dxrexperiments_torch.ops import intersect_kernel as tik
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene import lights as tlights
 from dxrexperiments_torch.scene.convert import camera_from_numpy, options_from_numpy, scene_from_numpy
 from dxrexperiments_torch.trace import integrator as tint
@@ -126,11 +127,11 @@ def test_trace_closest_plain_matches_pallas(kind, cull):
     o, d, tmax = rays(kind, seed=3)
     want = npy(jip.trace_closest(jscene, jnp.asarray(o), jnp.asarray(d), 1e-4,
                                  jnp.asarray(tmax), cull_backface=cull, interpret=True))
-    before = tik.CLOSEST_LAUNCHES
+    before = launch_counts()["B3 closest"]
     got = {k: v.numpy() for k, v in tik.trace_closest(
         tscene, torch.as_tensor(o), torch.as_tensor(d), 1e-4, torch.as_tensor(tmax),
         cull_backface=cull).items()}
-    assert tik.CLOSEST_LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B3 closest"] == before  # the CPU path launches no kernel
     same = (got["hit"] == want["hit"]) & (got["tri"] == want["tri"])
     assert same.mean() >= 0.99 and 0.2 < want["hit"].mean() < 0.95
     assert not want["hit"][::9].any() and not got["hit"][::9].any()
@@ -152,10 +153,10 @@ def test_trace_any_plain_matches_pallas(kind):
     o, d, tmax = rays(kind, seed=4)
     want = np.asarray(jip.trace_any(jscene, jnp.asarray(o), jnp.asarray(d), 1e-4,
                                     jnp.asarray(tmax), interpret=True))
-    before = tik.ANY_LAUNCHES
+    before = launch_counts()["B3 any"]
     got = tik.trace_any(tscene, torch.as_tensor(o), torch.as_tensor(d), 1e-4,
                         torch.as_tensor(tmax)).numpy()
-    assert tik.ANY_LAUNCHES == before
+    assert launch_counts()["B3 any"] == before
     assert 0.05 < want.mean() < 0.95
     assert not got[::9].any() and not want[::9].any()
     assert float((got != want).mean()) <= 0.01
@@ -403,12 +404,12 @@ def test_pipeline_ao_and_refraction_steps():
                                   ["--scene", "cornell-glass", "--refraction"]],
                          ids=["instanced1", "ao_only", "refraction"])
 def test_cli_brute_wavefront(tmp_path, capsys, args):
-    before = (tik.CLOSEST_LAUNCHES, tik.ANY_LAUNCHES)
+    before = launch_counts()
     out = tmp_path / "b.png"
     assert thead.main([*args, "--size", "16x16", "--spp", "2", "--device", "cpu",
                        "-o", str(out)]) == 0
     assert out.exists() and "progressive (cpu): 2 spp" in capsys.readouterr().out
-    assert (tik.CLOSEST_LAUNCHES, tik.ANY_LAUNCHES) == before
+    assert launch_counts() == before
     if "--ao-only" in args:
         # realtime has no AO view: it renders the beauty frame and says it
         # ignored the flag, as the JAX CLI renders it

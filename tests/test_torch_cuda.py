@@ -67,6 +67,7 @@ from dxrexperiments_torch.core.camera import primary_ray_grid
 from dxrexperiments_torch.ops import bilateral, intersect, intersect_kernel, traverse, traverse2
 from dxrexperiments_torch.ops import fused_sample as fs
 from dxrexperiments_torch.ops import fused_traverse as ft
+from dxrexperiments_torch.ops.kernel import check_errors, launch_counts
 from dxrexperiments_torch.scene import Scene, envmap
 from dxrexperiments_torch.scene.procedural import quad
 from dxrexperiments_torch.scene.mesh import Mesh
@@ -87,6 +88,12 @@ OPTION_CASES = [
     ("indirect_diffuse_only", {"show_indirect_diffuse_only": True}, "const"),
     ("gradient_env", {}, "gradient"),
 ]
+
+
+def launches(*names):
+    """The launch counts of the kernels ``names`` (one name: its count)."""
+    got = launch_counts()
+    return got[names[0]] if len(names) == 1 else tuple(got[k] for k in names)
 
 
 @pytest.fixture
@@ -146,9 +153,9 @@ def test_kernel_matches_plain(cuda_device, name, opts, env):
     scene, cams = _setup(cuda_device, env)
     options = default_options(**opts)
     ek = scene["env"]["kind"]
-    before = fs.LAUNCHES
+    before = launches("B1")
     got = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
-    assert fs.LAUNCHES == before + 1
+    assert launches("B1") == before + 1
     want = fs.fused_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
     torch.cuda.synchronize()
     _gate(got, want)
@@ -174,12 +181,12 @@ def test_pipeline_launches_once_per_frame(cuda_device):
                                          device=cuda_device)
     pipe.set_camera(cam)
     pipe.set_scene(sc)
-    before = fs.LAUNCHES
+    before = launches("B1")
     for f in range(3):
         pipe.update(elapsed_time=0.0, elapsed_frames=f)
         pipe.render()
     torch.cuda.synchronize()
-    assert fs.LAUNCHES == before + 3
+    assert launches("B1") == before + 3
     img = pipe.get_output()
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
 
@@ -191,9 +198,9 @@ def test_realtime_kernel_matches_plain(cuda_device, name, opts, env):
     options = default_options(**opts)
     cam = {k: v[0] for k, v in cams.items()}
     ek = scene["env"]["kind"]
-    before = fs.REALTIME_LAUNCHES
+    before = launches("B1 realtime")
     got = fs.fused_realtime_outputs(scene, options, cam, SIZE, SIZE, ek)
-    assert fs.REALTIME_LAUNCHES == before + 1
+    assert launches("B1 realtime") == before + 1
     want = fs.fused_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
     torch.cuda.synchronize()
     for k in AOVS:
@@ -218,9 +225,9 @@ def test_realtime_batch_equals_single_launches(cuda_device):
 @pytest.mark.parametrize("axis", [0, 1])
 def test_bilateral_kernel_matches_plain(cuda_device, axis, radius):
     inp, guide = _bilateral_data(cuda_device, seed=axis * 31 + radius)
-    before = bilateral.LAUNCHES
+    before = launches("B2")
     got = bilateral.bilateral_pass(inp, guide, float(radius), axis)
-    assert bilateral.LAUNCHES == before + 1
+    assert launches("B2") == before + 1
     want = bilateral._bilateral_pass(inp, guide, float(radius), axis)
     torch.cuda.synchronize()
     assert float((got - want).abs().max()) <= 2e-5
@@ -287,13 +294,13 @@ def test_realtime_denoise_pipeline(cuda_device):
     pipe.set_camera(cam)
     pipe.set_scene(sc)
     denoiser = DenoiseCompositor(device=cuda_device)
-    rt0, bl0 = fs.REALTIME_LAUNCHES, bilateral.LAUNCHES
+    rt0, bl0 = launches("B1 realtime", "B2")
     for f in range(2):
         pipe.update(elapsed_time=0.0, elapsed_frames=f)
         direct, spec = pipe.render()
         img = denoiser.dispatch(direct, spec)
     torch.cuda.synchronize()
-    assert fs.REALTIME_LAUNCHES == rt0 + 2 and bilateral.LAUNCHES == bl0 + 4
+    assert launches("B1 realtime") == rt0 + 2 and launches("B2") == bl0 + 4
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
     want = denoise_composite(direct, spec, denoiser.params, impl="torch")
     assert float((img - want).abs().max()) <= 2e-5
@@ -349,10 +356,10 @@ def _primary_and_shadow_rays(scene, cams):
 def test_traverse_fat_matches_plain(cuda_device):
     scene, cams = _bvh_setup(cuda_device)
     o, d, pos, sd, dist = _primary_and_shadow_rays(scene, cams)
-    c0, a0 = traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES
+    c0, a0 = launches("B4a closest", "B4a any")
     got = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True)
     occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist)
-    assert (traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES) == (c0 + 1, a0 + 1)
+    assert launches("B4a closest", "B4a any") == (c0 + 1, a0 + 1)
     want = traverse.traverse_fat_closest_reference(scene, o, d, 0.0, 1e38, cull_backface=True)
     occ_want = traverse.traverse_fat_any_reference(scene, pos, sd, 1e-4, dist)
     torch.cuda.synchronize()
@@ -368,9 +375,9 @@ def test_fused_traverse_matches_plain(cuda_device, name, opts, env):
     scene, cams = _bvh_setup(cuda_device, env)
     options = default_options(**opts)
     ek = scene["env"]["kind"]
-    before = ft.LAUNCHES
+    before = launches("B5")
     got = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
-    assert ft.LAUNCHES == before + 1
+    assert launches("B5") == before + 1
     want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
     torch.cuda.synchronize()
     _gate(got, want)
@@ -383,9 +390,9 @@ def test_fused_traverse_realtime_matches_plain(cuda_device, name, opts, env):
     scene, cams = _bvh_setup(cuda_device, env, s_count=2)
     options = default_options(**opts)
     ek = scene["env"]["kind"]
-    before = ft.REALTIME_LAUNCHES
+    before = launches("B5 realtime")
     got = ft.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
-    assert ft.REALTIME_LAUNCHES == before + 1
+    assert launches("B5 realtime") == before + 1
     want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
     torch.cuda.synchronize()
     for k in fs.AOV_KEYS:
@@ -450,7 +457,7 @@ def test_fused_traverse_dense_records_every_mode(cuda_device, mode):
         for k in fs.AOV_KEYS:
             for f in range(S):
                 _gate(got[k][f], want[k][f], s_count=1)
-    traverse.check_errors()
+    check_errors()
 
 
 @pytest.mark.cuda
@@ -503,7 +510,7 @@ def test_fused_traverse_divergent_warps_match_plain(cuda_device, realtime):
                                                                ek)
             torch.cuda.synchronize()
             _gate(got, want)
-    traverse.check_errors()
+    check_errors()
 
 
 @pytest.mark.cuda
@@ -516,17 +523,17 @@ def test_bvh_routes_launch_counts(cuda_device):
     pipe.set_scene(sc)  # 3,842 triangles: 'auto' keeps them brute force
     assert "bvh" not in pipe.scene_data
     pipe.scene_data = sc.build(cuda_device, accel="bvh")
-    b1, b5 = fs.LAUNCHES, ft.LAUNCHES
+    b1, b5 = launches("B1", "B5")
     for f in range(2):
         pipe.update(elapsed_time=0.0, elapsed_frames=f)
         pipe.render()
     torch.cuda.synchronize()
-    assert (fs.LAUNCHES, ft.LAUNCHES) == (b1, b5 + 2)
+    assert launches("B1", "B5") == (b1, b5 + 2)
     assert bool(pipe.get_output().isfinite().all()) and float(pipe.get_output().mean()) > 0.0
-    c0, a0 = traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES
+    c0, a0 = launches("B4a closest", "B4a any")
     cam0 = {k: v[0] for k, v in pipe._camera_params.items()}
     out = render_sample(pipe.scene_data, pipe.options, cam0, SIZE, SIZE, impl="cuda")
-    assert (traverse.CLOSEST_LAUNCHES - c0, traverse.ANY_LAUNCHES - a0) == (2, 2)
+    assert (launches("B4a closest") - c0, launches("B4a any") - a0) == (2, 2)
     assert bool(out["color"].isfinite().all())
 
 
@@ -601,12 +608,12 @@ def test_traverse_fat_reads_records(cuda_device):
     want = traverse.traverse_fat_closest_reference(scene, o, d, 0.0, 1e38, cull_backface=True)
     occ_want = traverse.traverse_fat_any_reference(scene, pos, sd, 1e-4, dist)
     torch.cuda.synchronize()
-    traverse.check_errors()
+    check_errors()
     assert float(got["hit"].float().mean()) > 0.2
     hit_gate(got, want)
     assert 0.0 < float(occ.float().mean()) < 1.0
     assert float((occ != occ_want).float().mean()) <= 0.01
-    before = (traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES)
+    before = launches("B4a closest", "B4a any")
     for bad, match in (({k: v for k, v in bvh.items() if k != "ft_test"}, "ft_test missing"),
                        (dict(bvh, ft_test=bvh["ft_test"][:-1].contiguous()), "one record per")):
         with pytest.raises(ValueError, match=match):
@@ -615,7 +622,7 @@ def test_traverse_fat_reads_records(cuda_device):
             traverse.traverse_fat_closest(dict(scene, bvh=bad), o, d, 0.0, 1e38)
         with pytest.raises(ValueError, match=match):
             traverse.traverse_fat_any(dict(scene, bvh=bad), pos, sd, 1e-4, dist)
-    assert (traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES) == before
+    assert launches("B4a closest", "B4a any") == before
 
 
 @pytest.mark.cuda
@@ -630,11 +637,11 @@ def test_traverse_stack_overflow_raises(cuda_device):
         # poll if it already has, else by check_errors, which waits
         with pytest.raises(RuntimeError, match="stack overflowed"):
             trace(scene, o, d, 0.0, 1e38)
-            traverse.check_errors()
+            check_errors()
     shallow_base, shallow = chain_scene(levels=40)
     scene["bvh"] = chain_fat_bvh(shallow, cuda_device)
     hits = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38)
-    traverse.check_errors()
+    check_errors()
     assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
 
 
@@ -675,11 +682,11 @@ def test_fused_traverse_stack_overflow_raises(cuda_device):
     for run in (ft.realtime_aovs, ft.fused_traverse_progressive_sum):
         with pytest.raises(RuntimeError, match="stack overflowed"):
             run(scene, options, cams, SIZE, SIZE, 1)
-            traverse.check_errors()
+            check_errors()
     scene, cams = chain_b5_scene(40, cuda_device)
     got = ft.realtime_aovs(scene, options, cams, SIZE, SIZE, 1)
     img = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, 1)
-    traverse.check_errors()
+    check_errors()
     want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, 1)
     assert 0.05 < float((want["albedo"][0].abs().sum(-1) > 0).float().mean()) < 0.95
     for k in fs.AOV_KEYS:
@@ -775,15 +782,15 @@ def _shadow_rays(o, d, hits, light):
 @pytest.mark.parametrize("kind", ["five", "instanced:4"])
 def test_traverse2_fat_matches_plain(cuda_device, kind):
     scene, o, d = _two_level_setup(cuda_device, kind)
-    c0, a0 = traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES
+    c0, a0 = launches("B6a closest", "B6a any")
     got = traverse2.traverse2_fat_closest(scene, o, d, 1e-4, 3.0e37)
     want = traverse2.two_level_closest_reference(scene, o, d, 1e-4, 3.0e37)
     pos, sd, dist = _shadow_rays(o, d, want, (2.0, 6.0, 1.5))
     occ = traverse2.traverse2_fat_any(scene, pos, sd, 1e-4, dist)
     occ_want = traverse2.two_level_any_reference(scene, pos, sd, 1e-4, dist)
     torch.cuda.synchronize()
-    traverse.check_errors()
-    assert (traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES) == (c0 + 1, a0 + 1)
+    check_errors()
+    assert launches("B6a closest", "B6a any") == (c0 + 1, a0 + 1)
     assert float(got["hit"].float().mean()) > 0.1
     hit_gate(got, want)
     same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
@@ -806,7 +813,7 @@ def test_traverse2_single_instance(cuda_device):
     occ = traverse2.traverse2_fat_any(scene, o, d, 1e-4, 7.5)
     occ_want = traverse2.two_level_any_reference(scene, o, d, 1e-4, 7.5)
     torch.cuda.synchronize()
-    traverse.check_errors()
+    check_errors()
     hit_gate(got, want)
     assert bool((got["inst"][got["hit"]] == 0).all())
     assert float((occ != occ_want).float().mean()) <= 0.01
@@ -820,9 +827,9 @@ def test_traverse2_stack_overflow_raises(cuda_device):
     for trace in (traverse2.traverse2_fat_closest, traverse2.traverse2_fat_any):
         with pytest.raises(RuntimeError, match="stack overflowed"):
             trace(scene, o, d, 0.0, 1e38)
-            traverse.check_errors()
+            check_errors()
     hits = traverse2.traverse2_fat_closest(chain_two_level(40, cuda_device), o, d, 0.0, 1e38)
-    traverse.check_errors()
+    check_errors()
     assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
 
 
@@ -851,11 +858,11 @@ def test_traverse2_queue_edges_and_index_error(cuda_device):
         occ = traverse2.traverse2_fat_any(scene, o[:n], d[:n], 1e-4, 7.5)
         occ_want = traverse2.two_level_any_reference(scene, o[:n], d[:n], 1e-4, 7.5)
         torch.cuda.synchronize()
-        traverse.check_errors()
+        check_errors()
         assert torch.equal(got["hit"], want["hit"]) and torch.equal(got["tri"], want["tri"])
         assert torch.equal(got["inst"], want["inst"]) and torch.equal(occ, occ_want)
     occ = traverse2.traverse2_fat_any(scene, o, torch.zeros_like(d), 1e-4, 3.0e37)
-    traverse.check_errors()
+    check_errors()
     assert not bool(occ.any())
     rows = scene["tlas"]["inst_rows_t"].clone()
     rows[:, 15] = 1.0e6
@@ -863,7 +870,7 @@ def test_traverse2_queue_edges_and_index_error(cuda_device):
     for trace in (traverse2.traverse2_fat_closest, traverse2.traverse2_fat_any):
         with pytest.raises(RuntimeError, match="outside the packed arrays"):
             trace(bad, o, d, 1e-4, 3.0e37)
-            traverse.check_errors()
+            check_errors()
 
 
 @pytest.mark.cuda
@@ -874,16 +881,14 @@ def test_two_level_pipeline_launch_counts(cuda_device):
                                          device=cuda_device)
     pipe.set_camera(cam)
     pipe.set_scene_data(sc.build_two_level(cuda_device))
-    counts0 = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES,
-               traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES)
+    counts0 = launches("B1", "B5", "B4a closest", "B4a any", "B6a closest", "B6a any")
     base_tf = np.stack([inst.transform for inst in sc.instances])
     for f in range(2):
         pipe.set_instance_transforms(np.einsum("ij,njk->nik", tf(yaw=0.05 * f), base_tf))
         pipe.update(elapsed_time=0.0, elapsed_frames=f)
         pipe.render()
     torch.cuda.synchronize()
-    counts = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES,
-              traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES)
+    counts = launches("B1", "B5", "B4a closest", "B4a any", "B6a closest", "B6a any")
     assert tuple(b - a for a, b in zip(counts0, counts)) == (0, 0, 0, 0, 8, 8)
     img = pipe.get_output()
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
@@ -905,11 +910,10 @@ def test_traverse_binary_and_wide_match_plain(cuda_device, walk):
     scene, cams = _bvh_setup(cuda_device)
     o, d, pos, sd, dist = _primary_and_shadow_rays(scene, cams)
     closest, any_, counters = (
-        (traverse.traverse_closest, traverse.traverse_any,
-         ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")) if walk == "binary" else
-        (traverse.traverse8_closest, traverse.traverse8_any,
-         ("WIDE_CLOSEST_LAUNCHES", "WIDE_ANY_LAUNCHES")))
-    before = [getattr(traverse, c) for c in counters]
+        (traverse.traverse_closest, traverse.traverse_any, ("B4b closest", "B4b any"))
+        if walk == "binary" else
+        (traverse.traverse8_closest, traverse.traverse8_any, ("B4d closest", "B4d any")))
+    before = launches(*counters)
     got = closest(scene, o, d, 0.0, 1e38, cull_backface=True)
     sd = sd.clone()
     sd[::3] = 0.0  # zero directions: never occluded
@@ -917,8 +921,8 @@ def test_traverse_binary_and_wide_match_plain(cuda_device, walk):
     want = traverse.traverse_fat_closest_reference(scene, o, d, 0.0, 1e38, cull_backface=True)
     occ_want = traverse.traverse_fat_any_reference(scene, pos, sd, 1e-4, dist)
     torch.cuda.synchronize()
-    traverse.check_errors()
-    assert [getattr(traverse, c) for c in counters] == [b + 1 for b in before]
+    check_errors()
+    assert launches(*counters) == tuple(b + 1 for b in before)
     assert float(got["hit"].float().mean()) > 0.2
     hit_gate(got, want)
     assert not bool(occ[::3].any())
@@ -950,12 +954,12 @@ def test_binary_walks_stack_overflow_raises(cuda_device):
                       (traverse2.traverse2_closest, deep2), (traverse2.traverse2_any, deep2)):
         with pytest.raises(RuntimeError, match="stack overflowed"):
             trace(sc, o, d, 0.0, 1e38)
-            traverse.check_errors()
+            check_errors()
     scene = chain_bvh_scene(40, True, cuda_device)
     for hits in (traverse.traverse_closest(scene, o, d, 0.0, 1e38),
                  traverse2.traverse2_closest(chain_two_level(40, cuda_device, True), o, d, 0.0,
                                              1e38)):
-        traverse.check_errors()
+        check_errors()
         assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"],
                                                                                      5.0))
 
@@ -987,7 +991,7 @@ def test_binary_walks_match_plain_on_chains(cuda_device, levels, right_deep):
         occ = any_(sc, o, d_any, 1e-4, tmax)
         occ_want = ref_a(sc, o, d_any, 1e-4, tmax)
         torch.cuda.synchronize()
-        traverse.check_errors()
+        check_errors()
         assert 0.1 < float(want["hit"].float().mean()) < 0.9
         hit_gate(got, want)
         assert not bool(occ[::3].any())
@@ -1004,7 +1008,7 @@ def test_binary_walks_check_records(cuda_device):
     d = torch.tensor([[0.0, 0.0, 1.0]] * 4, device=cuda_device)
     flat = chain_bvh_scene(8, False, cuda_device)
     two = chain_two_level(8, cuda_device)
-    before = (traverse.BINARY_CLOSEST_LAUNCHES, traverse2.BINARY_CLOSEST_LAUNCHES)
+    before = launches("B4b closest", "B6b closest")
     for trace, sc, key, name in ((traverse.traverse_closest, flat, "bvh", "ft_test"),
                                  (traverse2.traverse2_closest, two, "tlas", "blas_test")):
         rec = sc[key][name]
@@ -1013,7 +1017,7 @@ def test_binary_walks_check_records(cuda_device):
                            (dict(sc[key], **{name: rec[:, :16].contiguous()}), "expected float32")):
             with pytest.raises(ValueError, match=match):
                 trace(dict(sc, **{key: bad}), o, d, 0.0, 1e38)
-    assert (traverse.BINARY_CLOSEST_LAUNCHES, traverse2.BINARY_CLOSEST_LAUNCHES) == before
+    assert launches("B4b closest", "B6b closest") == before
 
 
 @pytest.mark.cuda
@@ -1031,8 +1035,8 @@ def test_traverse2_binary_matches_plain(cuda_device, kind):
     else:
         scene, o, d = _two_level_setup(cuda_device, kind)
     scene = dict(scene, tlas=_drop(scene["tlas"], FAT_TLAS))
-    c0, a0 = traverse2.BINARY_CLOSEST_LAUNCHES, traverse2.BINARY_ANY_LAUNCHES
-    f0 = (traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES)
+    c0, a0 = launches("B6b closest", "B6b any")
+    f0 = launches("B6a closest", "B6a any")
     got = traverse2.traverse2_closest(scene, o, d, 1e-4, 3.0e37)
     want = traverse2.two_level_closest_reference(scene, o, d, 1e-4, 3.0e37)
     pos, sd, dist = _shadow_rays(o, d, want, (2.0, 6.0, 1.5))
@@ -1040,9 +1044,9 @@ def test_traverse2_binary_matches_plain(cuda_device, kind):
     occ = traverse2.traverse2_any(scene, pos, sd, 1e-4, dist)
     occ_want = traverse2.two_level_any_reference(scene, pos, sd, 1e-4, dist)
     torch.cuda.synchronize()
-    traverse.check_errors()
-    assert (traverse2.BINARY_CLOSEST_LAUNCHES, traverse2.BINARY_ANY_LAUNCHES) == (c0 + 1, a0 + 1)
-    assert (traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES) == f0
+    check_errors()
+    assert launches("B6b closest", "B6b any") == (c0 + 1, a0 + 1)
+    assert launches("B6a closest", "B6a any") == f0
     assert float(got["hit"].float().mean()) > 0.1
     hit_gate(got, want)
     same = got["hit"] & want["hit"] & (got["tri"] == want["tri"])
@@ -1059,38 +1063,36 @@ def test_fatless_routes_launch_counts(cuda_device):
     cam.set_aspect(SIZE, SIZE)
     flat = sc.build(cuda_device, accel="bvh")
     two = sc.build_two_level(cuda_device)
-    cases = ((dict(flat, bvh=_drop(flat["bvh"], FAT_BVH)), traverse,
-              ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")),
-             (dict(two, tlas=_drop(two["tlas"], FAT_TLAS)), traverse2,
-              ("BINARY_CLOSEST_LAUNCHES", "BINARY_ANY_LAUNCHES")))
-    others = lambda: (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES,  # noqa: E731
-                      traverse.ANY_LAUNCHES, traverse2.CLOSEST_LAUNCHES, traverse2.ANY_LAUNCHES)
+    cases = ((dict(flat, bvh=_drop(flat["bvh"], FAT_BVH)), ("B4b closest", "B4b any")),
+             (dict(two, tlas=_drop(two["tlas"], FAT_TLAS)), ("B6b closest", "B6b any")))
+    others = lambda: launches("B1", "B5", "B4a closest", "B4a any", "B6a closest",  # noqa: E731
+                              "B6a any")
     base_tf = np.stack([inst.transform for inst in sc.instances])
-    for scene, mod, counters in cases:
+    for scene, counters in cases:
         pipe = ProgressiveRaytracingPipeline(SIZE, SIZE, seed=1, samples_per_frame=2,
                                              device=cuda_device)
         pipe.set_camera(cam)
         pipe.set_scene_data(scene)
-        before, other0 = [getattr(mod, c) for c in counters], others()
+        before, other0 = launches(*counters), others()
         for f in range(2):
             if "tlas" in scene:
                 pipe.set_instance_transforms(np.einsum("ij,njk->nik", tf(yaw=0.05 * f), base_tf))
             pipe.update(elapsed_time=0.0, elapsed_frames=f)
             pipe.render()
         torch.cuda.synchronize()
-        assert [getattr(mod, c) - b for c, b in zip(counters, before)] == [8, 8]
+        assert [c - b for c, b in zip(launches(*counters), before)] == [8, 8]
         assert others() == other0
         img = pipe.get_output()
         assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
         rt = RealtimeRaytracingPipeline(SIZE, SIZE, seed=0, device=cuda_device)
         rt.set_camera(cam)
         rt.set_scene_data(scene)
-        before = [getattr(mod, c) for c in counters]
+        before = launches(*counters)
         rt.update(0.0, 0)
         direct, spec = rt.render()
         torch.cuda.synchronize()
-        traverse.check_errors()
-        assert [getattr(mod, c) - b for c, b in zip(counters, before)] == [2, 2]
+        check_errors()
+        assert [c - b for c, b in zip(launches(*counters), before)] == [2, 2]
         assert bool((direct + spec).isfinite().all())
 
 
@@ -1158,10 +1160,10 @@ def attr_gate(got, want):
 def test_intersect_brute_matches_plain(cuda_device, kind, cull):
     scene = _brute_scene(kind, cuda_device)
     o, d, tmax = _brute_rays(kind, cuda_device, scene=scene)
-    c0, a0 = intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES
+    c0, a0 = launches("B3 closest", "B3 any")
     got = intersect_kernel.trace_closest(scene, o, d, 1e-4, tmax, cull_backface=cull)
     occ = intersect_kernel.trace_any(scene, o, d, 1e-4, tmax)
-    assert (intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES) == (c0 + 1, a0 + 1)
+    assert launches("B3 closest", "B3 any") == (c0 + 1, a0 + 1)
     want = intersect_kernel.trace_closest_reference(scene, o, d, 1e-4, tmax, cull_backface=cull)
     occ_want = intersect_kernel.trace_any_reference(scene, o, d, 1e-4, tmax)
     torch.cuda.synchronize()
@@ -1188,11 +1190,11 @@ def test_intersect_brute_windows_and_empty_batches(cuda_device):
     # an empty window (the integrator's inactive lanes) never hits
     dead = intersect_kernel.trace_closest(scene, o, d, 1e-4, 0.0)
     assert not bool(dead["hit"].any())
-    c0, a0 = intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES
+    c0, a0 = launches("B3 closest", "B3 any")
     empty = torch.zeros((0, 3), device=o.device)
     assert intersect_kernel.trace_closest(scene, empty, empty)["t"].shape == (0,)
     assert intersect_kernel.trace_any(scene, empty, empty).shape == (0,)
-    assert (intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES) == (c0, a0)
+    assert launches("B3 closest", "B3 any") == (c0, a0)
     bad = dict(scene, mt_pack=scene["mt_pack"].double())
     with pytest.raises(TypeError):
         intersect_kernel.trace_any(bad, o, d)
@@ -1258,11 +1260,11 @@ def test_brute_wavefront_matches_plain(cuda_device, name, mode, kw):
     assert "bvh" not in scene
     cp = camera_params(cam, jitter=(0.2 / SIZE, -0.1 / SIZE), frame_count=2**31 + 9)
     js = 10.0 if mode == "realtime" else 30.0
-    c0, a0 = intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES
+    c0, a0 = launches("B3 closest", "B3 any")
     got = render_sample(scene, default_options(), cp, SIZE, SIZE, mode=mode, jitter_scale=js,
                         impl="cuda", **kw)
-    launches = (intersect_kernel.CLOSEST_LAUNCHES - c0, intersect_kernel.ANY_LAUNCHES - a0)
-    assert launches == ((1, 4) if kw.get("ao_only") else (2, 2))
+    counted = (launches("B3 closest") - c0, launches("B3 any") - a0)
+    assert counted == ((1, 4) if kw.get("ao_only") else (2, 2))
     want = render_sample(scene, default_options(), cp, SIZE, SIZE, mode=mode, jitter_scale=js,
                          impl="torch", **kw)
     torch.cuda.synchronize()
@@ -1288,7 +1290,7 @@ def test_other_routes_take_the_new_options(cuda_device, kind, option):
     got = render_sample(scene, default_options(), cp, SIZE, SIZE, impl="cuda", **kw)["color"]
     want = render_sample(scene, default_options(), cp, SIZE, SIZE, impl="torch", **kw)["color"]
     torch.cuda.synchronize()
-    traverse.check_errors()
+    check_errors()
     _gate(got, want, s_count=1)
     assert float(got.mean()) > 0.0
 
@@ -1301,8 +1303,7 @@ def test_brute_pipelines_launch_counts(cuda_device):
                                          device=cuda_device)
     pipe.set_camera(cam)
     pipe.set_scene(sc)
-    counts0 = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES,
-               intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES)
+    counts0 = launches("B1", "B5", "B4a closest", "B4a any", "B3 closest", "B3 any")
     for f in range(2):
         pipe.update(elapsed_time=0.0, elapsed_frames=f)
         pipe.render()
@@ -1313,8 +1314,7 @@ def test_brute_pipelines_launch_counts(cuda_device):
     direct, spec = rt.render()
     display = DenoiseCompositor(device=cuda_device).dispatch(direct, spec)
     torch.cuda.synchronize()
-    counts = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES,
-              intersect_kernel.CLOSEST_LAUNCHES, intersect_kernel.ANY_LAUNCHES)
+    counts = launches("B1", "B5", "B4a closest", "B4a any", "B3 closest", "B3 any")
     assert tuple(b - a for a, b in zip(counts0, counts)) == (0, 0, 0, 0, 10, 10)
     img = pipe.get_output()
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
@@ -1402,18 +1402,19 @@ def test_texture_env_kernels_match_plain(cuda_device, kind, case, mode):
     options = default_options()
     ek = scene["env"]["kind"]
     mod = fs if TEX_SCENES[case] == "fused" else ft
+    ident = "B1" if mod is fs else "B5"
     if mode == "progressive":
-        before = mod.LAUNCHES
+        before = launches(ident)
         got = (fs.fused_progressive_sum if mod is fs else ft.fused_traverse_progressive_sum)(
             scene, options, cams, SIZE, SIZE, ek)
-        assert mod.LAUNCHES == before + 1
+        assert launches(ident) == before + 1
         want = fs.fused_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
         torch.cuda.synchronize()
         _gate(got, want)
         return
-    before = mod.REALTIME_LAUNCHES
+    before = launches(f"{ident} realtime")
     got = mod.realtime_aovs(scene, options, cams, SIZE, SIZE, ek)
-    assert mod.REALTIME_LAUNCHES == before + 1
+    assert launches(f"{ident} realtime") == before + 1
     want = fs.fused_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, ek)
     torch.cuda.synchronize()
     for k in fs.AOV_KEYS:
@@ -1432,7 +1433,7 @@ def test_texture_env_launch_arguments(cuda_device):
     scene, cams = _tex_setup(cuda_device, "latlong", "cornell")
     out = torch.empty((SIZE, SIZE, 3), device=cuda_device)
     params = torch.zeros(64, device=cuda_device)
-    lib = fs._library()
+    lib = fs.B1.library()
     stream = torch.cuda.current_stream().cuda_stream
     tex = scene["env"]["latlong"]
     rec, n_live = scene["tri_records"], int(scene["num_tris"])
@@ -1444,7 +1445,7 @@ def test_texture_env_launch_arguments(cuda_device):
         # no cluster boxes, no block order
         assert lib.dxr_fused_progressive_sum(*head, kind, ptr, w, h, None, 0, 0, 0,
                                              stream) == 1  # InvalidValue
-    ft_lib = ft._library()
+    ft_lib = ft.B5.library()
     err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     bvh = build_scene("instanced:2")[0].build(cuda_device, accel="bvh")
     nodes, test, attr = (bvh["bvh"][k] for k in ("bvhf_rows", "ft_test", "ft_attr"))
@@ -1478,23 +1479,23 @@ def test_texture_env_pipelines_launch_counts(cuda_device, monkeypatch):
                                          device=cuda_device)
     pipe.set_camera(cam)
     pipe.set_scene(sc)
-    counts = (fs.LAUNCHES, ft.LAUNCHES, intersect_kernel.CLOSEST_LAUNCHES)
+    counts = launches("B1", "B5", "B3 closest")
     for f in range(3):
         pipe.update(elapsed_time=0.0, elapsed_frames=f)
         pipe.render()
     torch.cuda.synchronize()
-    assert (fs.LAUNCHES, ft.LAUNCHES, intersect_kernel.CLOSEST_LAUNCHES) == (
+    assert launches("B1", "B5", "B3 closest") == (
         counts[0] + 3, counts[1], counts[2])
     img = pipe.get_output()
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
     rt = RealtimeRaytracingPipeline(SIZE, SIZE, seed=2, device=cuda_device)
     rt.set_camera(cam)
     rt.set_scene(sc)
-    before = fs.REALTIME_LAUNCHES
+    before = launches("B1 realtime")
     rt.update(elapsed_time=0.0, elapsed_frames=0)
     direct, spec = rt.render()
     torch.cuda.synchronize()
-    assert fs.REALTIME_LAUNCHES == before + 1 and bool((direct + spec).isfinite().all())
+    assert launches("B1 realtime") == before + 1 and bool((direct + spec).isfinite().all())
 
 
 # ---- B5's area-light and albedo-texture modes -------------------------------
@@ -1544,12 +1545,12 @@ def test_fused_traverse_area_and_texture_modes_match_plain(cuda_device, case, na
     scene, cams = _area_setup(cuda_device, case)
     options = default_options(**opts)
     ek = scene["env"]["kind"]
-    before = ft.LAUNCHES
+    before = launches("B5")
     got = ft.fused_traverse_progressive_sum(scene, options, cams, SIZE, SIZE, ek)
-    assert ft.LAUNCHES == before + 1
+    assert launches("B5") == before + 1
     want = ft.fused_traverse_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
     torch.cuda.synchronize()
-    traverse.check_errors()
+    check_errors()
     _gate(got, want)
 
 
@@ -1558,9 +1559,9 @@ def test_fused_traverse_area_and_texture_modes_match_plain(cuda_device, case, na
 def test_fused_traverse_area_realtime_matches_plain(cuda_device, name, opts):
     scene, cams = _area_setup(cuda_device, "area")
     options = default_options(**opts)
-    before = ft.REALTIME_LAUNCHES
+    before = launches("B5 realtime")
     got = ft.realtime_aovs(scene, options, cams, SIZE, SIZE, 1)
-    assert ft.REALTIME_LAUNCHES == before + 1
+    assert launches("B5 realtime") == before + 1
     want = ft.fused_traverse_realtime_outputs_reference(scene, options, cams, SIZE, SIZE, 1)
     torch.cuda.synchronize()
     for k in fs.AOV_KEYS:
@@ -1575,7 +1576,7 @@ def test_fused_traverse_new_mode_arguments(cuda_device):
     scene's device and for a textured realtime frame (outside the gate)."""
     scene, cams = _area_setup(cuda_device, "cornell-tex")
     options = default_options()
-    lib = ft._library()
+    lib = ft.B5.library()
     params = torch.zeros(64, device=cuda_device)
     out = torch.empty((SIZE, SIZE, 3), device=cuda_device)
     err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
@@ -1610,23 +1611,23 @@ def test_cornell_tex_pipelines_launch_counts(cuda_device, monkeypatch):
                                          device=cuda_device)
     pipe.set_camera(cam)
     pipe.set_scene(sc)
-    counts = (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES)
+    counts = launches("B1", "B5", "B4a closest")
     for f in range(3):
         pipe.update(elapsed_time=0.0, elapsed_frames=f)
         pipe.render()
     torch.cuda.synchronize()
-    assert (fs.LAUNCHES, ft.LAUNCHES, traverse.CLOSEST_LAUNCHES) == (
+    assert launches("B1", "B5", "B4a closest") == (
         counts[0], counts[1] + 3, counts[2])
     img = pipe.get_output()
     assert bool(img.isfinite().all()) and float(img.mean()) > 0.0
     rt = RealtimeRaytracingPipeline(SIZE, SIZE, seed=2, device=cuda_device)
     rt.set_camera(cam)
     rt.set_scene(sc)
-    before = (ft.REALTIME_LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES)
+    before = launches("B5 realtime", "B4a closest", "B4a any")
     rt.update(elapsed_time=0.0, elapsed_frames=0)
     direct, spec = rt.render()
     torch.cuda.synchronize()
-    assert (ft.REALTIME_LAUNCHES, traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES) == (
+    assert launches("B5 realtime", "B4a closest", "B4a any") == (
         before[0], before[1] + 2, before[2] + 2)
     assert bool((direct + spec).isfinite().all())
 
@@ -1656,20 +1657,18 @@ def test_grouped_walk_matches_fat_and_model(cuda_device, tile, group):
     assert bool((o == o[0]).all())  # pinhole primaries: a common origin
     sd = sd.clone()
     sd[::3] = 0.0  # zero directions: never occluded
-    before = (traverse.GROUPED_CLOSEST_LAUNCHES, traverse.GROUPED_ANY_LAUNCHES,
-              traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES)
+    before = launches("B4c closest", "B4c any", "B4a closest", "B4a any")
     got = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True, tile=tile,
                                         group=group)
     shared = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True,
                                            tile=tile, group=group, common_origin=True)
     occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist, tile=tile, group=group)
-    after = (traverse.GROUPED_CLOSEST_LAUNCHES, traverse.GROUPED_ANY_LAUNCHES,
-             traverse.CLOSEST_LAUNCHES, traverse.ANY_LAUNCHES)
+    after = launches("B4c closest", "B4c any", "B4a closest", "B4a any")
     assert after == (before[0] + 2, before[1] + 1, before[2], before[3])
     fat = traverse.traverse_fat_closest(scene, o, d, 0.0, 1e38, cull_backface=True)
     fat_occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist)
     torch.cuda.synchronize()
-    traverse.check_errors()
+    check_errors()
     assert float(got["hit"].float().mean()) > 0.2
     hit_gate(got, fat)
     hit_gate(shared, fat)
@@ -1703,12 +1702,12 @@ def test_grouped_walk_stack_overflow_and_layouts(cuda_device):
     for trace in (traverse.traverse_fat_closest, traverse.traverse_fat_any):
         with pytest.raises(RuntimeError, match="stack overflowed"):
             trace(deep, o, d, 0.0, 1e38, tile=64, group=2)
-            traverse.check_errors()
+            check_errors()
     hits = traverse.traverse_fat_closest(chain(40), o, d, 0.0, 1e38, tile=64, group=2)
-    traverse.check_errors()
+    check_errors()
     assert bool(hits["hit"].all()) and torch.allclose(hits["t"], torch.full_like(hits["t"], 5.0))
     # the C entry point refuses a layout the wrapper would refuse
-    fn = traverse._library("grouped")
+    fn = traverse.WALKS["grouped"][0].library().dxr_traverse_fat_grouped
     rays = traverse.pack_rays(o, d, 0.0, 1e38)
     err = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     out = torch.empty(64, device=cuda_device)
@@ -1743,7 +1742,7 @@ def test_grouped_walk_ragged_launch_and_common_origin(cuda_device):
                                                tile=tile, group=group, common_origin=True)
         occ = traverse.traverse_fat_any(scene, pos, sd, 1e-4, dist, tile=tile, group=group)
         torch.cuda.synchronize()
-        traverse.check_errors()
+        check_errors()
         assert float(fat["hit"].float().mean()) > 0.2
         for res in (got, shared):
             assert torch.equal(res["hit"], fat["hit"]) and torch.equal(res["t"], fat["t"])
@@ -1775,12 +1774,12 @@ def test_wide_walk_overflow_after_held_leaves(cuda_device):
                           (traverse.traverse8_any, beside)):
         with pytest.raises(RuntimeError, match="stack overflowed"):
             trace(deep, origin, d, 0.0, 1e38)
-            traverse.check_errors()
+            check_errors()
     occ = traverse.traverse8_any(deep, o, d, 0.0, 1e38)
-    traverse.check_errors()
+    check_errors()
     assert bool(occ.all())
     hits = traverse.traverse8_closest(wide_ladder_scene(15, cuda_device), o, d, 0.0, 1e38)
-    traverse.check_errors()
+    check_errors()
     assert bool(hits["hit"].all()) and torch.equal(hits["t"], torch.full_like(hits["t"], 5.0))
 
 
@@ -1791,8 +1790,7 @@ def test_wide_and_grouped_walks_check_records(cuda_device):
     scene, cams = _bvh_setup(cuda_device)
     o, d = _primary_and_shadow_rays(scene, cams)[:2]
     bvh = scene["bvh"]
-    before = (traverse.WIDE_CLOSEST_LAUNCHES, traverse.WIDE_ANY_LAUNCHES,
-              traverse.GROUPED_CLOSEST_LAUNCHES, traverse.GROUPED_ANY_LAUNCHES)
+    before = launches("B4d closest", "B4d any", "B4c closest", "B4c any")
     for bad, match in (({k: v for k, v in bvh.items() if k != "ft_test"}, "ft_test missing"),
                        (dict(bvh, ft_test=bvh["ft_test"][:-1].contiguous()), "one record per")):
         sc = dict(scene, bvh=bad)
@@ -1802,8 +1800,7 @@ def test_wide_and_grouped_walks_check_records(cuda_device):
                      lambda: traverse.traverse_fat_any(sc, o, d, tile=1024, group=4)):
             with pytest.raises(ValueError, match=match):
                 call()
-    assert (traverse.WIDE_CLOSEST_LAUNCHES, traverse.WIDE_ANY_LAUNCHES,
-            traverse.GROUPED_CLOSEST_LAUNCHES, traverse.GROUPED_ANY_LAUNCHES) == before
+    assert launches("B4d closest", "B4d any", "B4c closest", "B4c any") == before
 
 
 OPT_INS = [(8, 0), (16, 0), (24, 0), (0, 8), (0, 16), (0, 32), (16, 16)]  # (rows, block_w)
@@ -1820,7 +1817,7 @@ def test_fused_opt_ins_equal_base(cuda_device, name, opts, env):
     scene, cams = _setup(cuda_device, env)
     options = default_options(**opts)
     ek = scene["env"]["kind"]
-    before = (fs.LAUNCHES, fs.REALTIME_LAUNCHES, fs.CLUSTERED_LAUNCHES, fs.BLOCKED_LAUNCHES)
+    before = launches("B1", "B1 realtime", "B1 clustered", "B1 blocked")
     base = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0,
                                     block_w=0)
     base_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0, block_w=0)
@@ -1836,7 +1833,7 @@ def test_fused_opt_ins_equal_base(cuda_device, name, opts, env):
     n = 1 + len(OPT_INS)
     clustered = 2 * sum(rows > 0 for rows, _ in OPT_INS)  # progressive and realtime
     blocked = 2 * sum(block_w > 0 for _, block_w in OPT_INS)
-    assert (fs.LAUNCHES, fs.REALTIME_LAUNCHES, fs.CLUSTERED_LAUNCHES, fs.BLOCKED_LAUNCHES) == (
+    assert launches("B1", "B1 realtime", "B1 clustered", "B1 blocked") == (
         before[0] + n, before[1] + n, before[2] + clustered, before[3] + blocked)
     want = fs.fused_progressive_sum_reference(scene, options, cams, SIZE, SIZE, ek)
     _gate(base, want)
@@ -1861,12 +1858,12 @@ def test_fused_clusters_above_48k_shared_memory(cuda_device):
     base = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0,
                                     block_w=0)
     base_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek, cluster_rows=0, block_w=0)
-    before = fs.CLUSTERED_LAUNCHES
+    before = launches("B1 clustered")
     got = fs.fused_progressive_sum(scene, options, cams, SIZE, SIZE, ek, cluster_rows=1,
                                    block_w=0)
     got_rt = fs.realtime_aovs(scene, options, cams, SIZE, SIZE, ek, cluster_rows=1, block_w=0)
     torch.cuda.synchronize()
-    assert fs.CLUSTERED_LAUNCHES == before + 2
+    assert launches("B1 clustered") == before + 2
     assert torch.equal(got, base)
     for k in fs.AOV_KEYS:
         assert torch.equal(got_rt[k], base_rt[k]), k
@@ -1970,7 +1967,7 @@ def test_fused_opt_in_arguments(cuda_device):
     scene, cams = _setup(cuda_device, "const")
     out = torch.empty((SIZE, SIZE, 3), device=cuda_device)
     params = torch.zeros(64, device=cuda_device)
-    lib = fs._library()
+    lib = fs.B1.library()
     stream = torch.cuda.current_stream().cuda_stream
     c = int(scene["mt_pack"].shape[1])
     boxes = fs.cluster_aabbs(scene, 16)
@@ -1991,7 +1988,7 @@ def test_roofline_probes_match_plain(cuda_device):
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain product in full float32
     a, b, mt, rays = rf.probe_inputs(cuda_device, seed=3)
     it, grid, m_it = rf.SMOKE_ITERS, rf.SMOKE_GRID, rf.SMOKE_M_ITERS
-    before = (rf.FMA_LAUNCHES, rf.MIX_LAUNCHES, rf.OVERLAP_LAUNCHES)
+    before = launches("B7 fma", "B7 mix", "B7 overlap")
     for fn, ref in ((rf.fma_peak, rf.fma_peak_reference), (rf.pair_mix, rf.pair_mix_reference)):
         got, want = fn(a, b, it, grid), ref(a, b, it, grid)
         torch.cuda.synchronize()
@@ -2010,7 +2007,7 @@ def test_roofline_probes_match_plain(cuda_device):
             assert float(err.max()) <= 2 * rf.K * 2.0**-23
         else:
             assert not bool(got["product"].any())
-    assert (rf.FMA_LAUNCHES, rf.MIX_LAUNCHES, rf.OVERLAP_LAUNCHES) == (
+    assert launches("B7 fma", "B7 mix", "B7 overlap") == (
         before[0] + 1, before[1] + 1, before[2] + 4)
     # roofline.py's full size, on inputs whose elements differ and on which
     # the chains stay finite (a trip count or a grid block off shows)
@@ -2125,7 +2122,7 @@ def test_row_block_launches_equal_the_whole_launch(cuda_device, kernel, realtime
         torch.cuda.synchronize()
         for g, w in zip(got, whole):
             assert torch.equal(g, w), (kernel, realtime, n)
-    traverse.check_errors()
+    check_errors()
 
 
 @pytest.mark.cuda
@@ -2175,9 +2172,9 @@ def test_render_frames_one_launch_equals_sequential(cuda_device):
         p.set_camera(cam)
         p.set_scene(sc)
         pipes.append(p)
-    before = fs.REALTIME_LAUNCHES
+    before = launches("B1 realtime")
     d_k, s_k = pipes[0].render_frames(0, 3)
-    assert fs.REALTIME_LAUNCHES == before + 1
+    assert launches("B1 realtime") == before + 1
     for f in range(3):
         pipes[1].update(0.0, f)
         d, s = pipes[1].render()
@@ -2221,13 +2218,13 @@ def test_rebake_material_equals_fresh_build(cuda_device, scene_name, accel, kern
                                              device=cuda_device)
         pipe.set_camera(cam)
         pipe.set_scene_data(scene)
-        before = (fs.LAUNCHES, ft.LAUNCHES)
+        before = launches("B1", "B5")
         pipe.update(0.0, 0)
         images.append(pipe.render().clone())
-        after = (fs.LAUNCHES, ft.LAUNCHES)
+        after = launches("B1", "B5")
         assert after[0] - before[0] == (kernel == "B1") and after[1] - before[1] == (
             kernel == "B5")
-    traverse.check_errors()
+    check_errors()
     assert torch.equal(images[0], images[1])
 
 
@@ -2244,10 +2241,10 @@ def test_mesh_file_cli_render_equals_in_memory(cuda_device, tmp_path):
     mesh = Mesh(base.positions, None, base.indices[:, [0, 2, 1]])
     path, out = str(tmp_path / "sphere.ply"), str(tmp_path / "cli.npy")
     write_ply(path, mesh)
-    before = intersect_kernel.CLOSEST_LAUNCHES
+    before = launches("B3 closest")
     assert headless.main(["--scene", path, "--size", f"{SIZE}x{SIZE}", "--spp", "2",
                           "--device", "cuda", "-o", out]) == 0
-    assert intersect_kernel.CLOSEST_LAUNCHES - before == 2 * 2
+    assert launches("B3 closest") - before == 2 * 2
     sc, cam = headless.mesh_scene(mesh)
     cam.set_aspect(SIZE, SIZE)
     pipe = ProgressiveRaytracingPipeline(SIZE, SIZE, seed=0, device=cuda_device)
@@ -2407,7 +2404,7 @@ def test_sorted_walks_equal_unsorted(cuda_device, walk):
                          closest(scene, o, d, 1e-4, 3.0e37, cull_backface=False))
     _assert_same_outputs(tint._sorted_trace(scene, any_, o, d, 1e-4, t_max),
                          any_(scene, o, d, 1e-4, t_max))
-    traverse.check_errors()
+    check_errors()
 
 
 @pytest.mark.cuda
@@ -2431,4 +2428,4 @@ def test_prime_seeded_walks_equal_unseeded(cuda_device, build):
     assert bool((t_seeded <= t_full).all())
     _assert_same_outputs(closest(scene, o, d, tint.RAY_EPSILON, t_seeded, cull_backface=False),
                          closest(scene, o, d, tint.RAY_EPSILON, t_full, cull_backface=False))
-    traverse.check_errors()
+    check_errors()

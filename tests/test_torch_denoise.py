@@ -17,6 +17,7 @@ from dxrexperiments_torch.core.camera import Camera as TCamera
 from dxrexperiments_torch.models import denoise as tden
 from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline as TPipeline
 from dxrexperiments_torch.ops import bilateral as tbil
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene import Scene as TScene
 from dxrexperiments_torch.scene import cornell_box as t_cornell_box
 from dxrexperiments_torch.scene.convert import denoise_params_from_numpy
@@ -72,11 +73,11 @@ def test_tap_weights_match_jax():
 def test_cpu_wrapper_is_the_plain_version():
     inp, guide = _data(37, 53, seed=9)
     a, b = torch.from_numpy(inp), torch.from_numpy(guide)
-    before = tbil.LAUNCHES
+    before = launch_counts()["B2"]
     for axis in (0, 1):
         got = tbil.bilateral_pass(a, b, 12.0, axis)
         torch.testing.assert_close(got, tden._bilateral_pass(a, b, 12.0, axis), rtol=0, atol=0)
-    assert tbil.LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B2"] == before  # the CPU path launches no kernel
     with pytest.raises(ValueError):
         tbil.bilateral_pass(a, b, 12.0, 2)
     with pytest.raises(TypeError):

@@ -180,7 +180,7 @@ def test_postponed_fat_walk_by_hand(occlusion):
 def test_fat_walk_reads_leaf_records():
     """B4a's inputs: bvhf_rows and the records ft_test (one per mt_rows
     row), whatever mt_rows holds; a missing or stale ft_test raises."""
-    assert all(w[5] == "ft_test" for w in ttv.WALKS.values())
+    assert all(w[3] == "ft_test" for w in ttv.WALKS.values())
     tscene = port(soup_scene())
     bvh = tscene["bvh"]
     nodes, rec = ttv.check_bvh(bvh, torch.device("cpu"), "fat")

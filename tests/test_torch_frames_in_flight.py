@@ -27,6 +27,7 @@ from dxrexperiments_torch.models.realtime import (
     realtime_frames,
 )
 from dxrexperiments_torch.ops import bilateral, fused_sample
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_tpu.app.headless import build_scene as j_build_scene
 from dxrexperiments_tpu.models import denoise as jden
 from dxrexperiments_tpu.models.realtime import RealtimeRaytracingPipeline as JPipeline
@@ -173,11 +174,11 @@ def test_realtime_denoise_frames_step():
 
 def test_frames_step_counts_no_kernel_on_the_cpu():
     tp, _ = pipelines()
-    before = (fused_sample.REALTIME_LAUNCHES, bilateral.LAUNCHES)
+    before = launch_counts()
     make_realtime_denoise_frames_step(tp.scene_data, W, H, 2)(
         tp.options, stack_cameras([tp._frame_camera_params(f, 0, tp.rng) for f in range(2)]),
         tp.scene_data["lights"], tp.scene_data["env"], tden.default_denoise_params())
-    assert (fused_sample.REALTIME_LAUNCHES, bilateral.LAUNCHES) == before
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("args", [

@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from dxrexperiments_torch.ops import fused_sample as tfs
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene.convert import scene_from_numpy
 from dxrexperiments_tpu.ops import fused_sample_pallas as jfs
 from dxrexperiments_tpu.scene import Scene
@@ -132,9 +133,9 @@ def test_plain_matches_pallas_clustered(monkeypatch):
     monkeypatch.setenv("FUSED_CLUSTERS", "16")
     ek = int(jscene["env"]["kind"])
     want = jfs.fused_progressive_sum(jscene, jopts, jcams, W, H, ek, interpret=True)
-    before = tfs.LAUNCHES
+    before = launch_counts()["B1"]
     got = tfs.fused_progressive_sum(tscene, topts, tcams, W, H, ek)
-    assert tfs.LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B1"] == before  # the CPU path launches no kernel
     assert_images_match(got.numpy(), want, frac=0.005)
     # the keyword argument reaches the same plain version
     again = tfs.fused_progressive_sum(tscene, topts, tcams, W, H, ek, cluster_rows=8, block_w=8)

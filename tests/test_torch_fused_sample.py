@@ -23,6 +23,7 @@ import torch
 
 from dxrexperiments_torch.models.progressive import make_progressive_step
 from dxrexperiments_torch.ops import fused_sample as tfs
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene import envmap as tenvmap
 from dxrexperiments_torch.scene.convert import (
     camera_from_numpy,
@@ -105,9 +106,9 @@ def test_plain_matches_pallas_interpret(name, opts, env):
     (jscene, jopts, jcams), (tscene, topts, tcams) = both_sides(opts, env)
     ek = int(jscene["env"]["kind"])
     want = jfs.fused_progressive_sum(jscene, jopts, jcams, W, H, ek, interpret=True)
-    before = tfs.LAUNCHES
+    before = launch_counts()["B1"]
     got = tfs.fused_progressive_sum(tscene, topts, tcams, W, H, ek)
-    assert tfs.LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B1"] == before  # the CPU path launches no kernel
     assert tuple(got.shape) == (H, W, 3) and got.dtype == torch.float32
     assert_images_match(got.numpy(), want, frac=0.005)
 

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 from dxrexperiments_torch.ops import traverse as ttv
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene.convert import scene_from_numpy
 from dxrexperiments_tpu.ops import traverse_pallas as jtv
 from dxrexperiments_tpu.scene.procedural import random_triangle_soup
@@ -134,7 +135,7 @@ def test_packet_model_matches_pallas_grouped(soup, group, common_origin):
         np.testing.assert_array_equal(runs[True][k], runs[False][k], err_msg=k)
 
     # the port's wrappers on CPU rays: the plain version, no launch
-    before = (ttv.GROUPED_CLOSEST_LAUNCHES, ttv.GROUPED_ANY_LAUNCHES, ttv.CLOSEST_LAUNCHES)
+    before = launch_counts()
     o_t = torch.as_tensor(o)
     if common_origin:  # only origins[0] counts
         o_t = o_t + torch.arange(N, dtype=torch.float32)[:, None] * (torch.arange(N) > 0)[:, None]
@@ -142,8 +143,7 @@ def test_packet_model_matches_pallas_grouped(soup, group, common_origin):
                                      group=group, common_origin=common_origin)
     plain_any = ttv.traverse_fat_any(tscene, torch.as_tensor(o), torch.as_tensor(d), 1e-4,
                                      tile=TILE, group=group).numpy()
-    assert (ttv.GROUPED_CLOSEST_LAUNCHES, ttv.GROUPED_ANY_LAUNCHES,
-            ttv.CLOSEST_LAUNCHES) == before
+    assert launch_counts() == before
     plain_gate(plain, want)
     assert float((plain_any != want_any).mean()) <= 0.01
 

@@ -225,32 +225,30 @@ def test_render_samples_sharded_one_rank():
     torch.testing.assert_close(got, (2.0 * accum + S * mean) / (2.0 + S), rtol=0, atol=0)
 
 
-def test_launch_counts_cover_every_kernel_counter():
-    """launch_counts names every *LAUNCHES counter of the ops modules once,
-    and reset_launch_counts zeroes each."""
+def test_launch_counts_cover_every_kernel_counter(monkeypatch):
+    """launch_counts names every counter of every kernel that the ops
+    modules declare once, and reset_launch_counts zeroes each."""
     import importlib
     import pkgutil
 
     import dxrexperiments_torch.ops as ops
+    from dxrexperiments_torch.ops import kernel
 
-    found = set()
+    declared_here = set(kernel.kernels())
     for info in pkgutil.iter_modules(ops.__path__):
-        mod = importlib.import_module(f"dxrexperiments_torch.ops.{info.name}")
-        found |= {(info.name, a) for a in vars(mod) if a.endswith("LAUNCHES")}
-    table = {(mod, attr) for _, mod, attr in launch.COUNTERS}
-    assert table == found and len(launch.COUNTERS) == len(found)
-    assert len({name for name, _, _ in launch.COUNTERS}) == len(found)
-    mod, attr = launch.COUNTERS[0][1:]
-    counter = importlib.import_module(f"dxrexperiments_torch.ops.{mod}")
-    saved = launch.launch_counts()
-    try:
-        setattr(counter, attr, 7)
-        assert launch.launch_counts()[launch.COUNTERS[0][0]] == 7
-        launch.reset_launch_counts()
-        assert set(launch.launch_counts().values()) == {0}
-    finally:
-        for name, m, a in launch.COUNTERS:
-            setattr(importlib.import_module(f"dxrexperiments_torch.ops.{m}"), a, saved[name])
+        importlib.import_module(f"dxrexperiments_torch.ops.{info.name}")
+    assert set(kernel.KERNELS) == declared_here  # kernels() imports every wrapper
+    assert sorted(kernel.KERNELS) == ["B1", "B2", "B3", "B4a", "B4b", "B4c", "B4d", "B5", "B6a",
+                                      "B6b", "B7"]
+    declared = [name for k in kernel.KERNELS.values() for name in k.counters]
+    assert len(declared) == len(set(declared)) == 24
+    assert set(launch.launch_counts()) == set(declared)
+    monkeypatch.setattr(kernel, "_COUNTS", dict.fromkeys(declared, 0))  # this test's own
+    kernel.KERNELS["B1"].run(lambda: 0, "B1", "B1 blocked")
+    kernel.KERNELS["B1"].run(lambda: 0, "B1")
+    assert {k: v for k, v in launch.launch_counts().items() if v} == {"B1": 2, "B1 blocked": 1}
+    launch.reset_launch_counts()
+    assert set(launch.launch_counts().values()) == {0}
 
 
 @pytest.mark.parametrize("n", [2, 4, 8])

@@ -25,6 +25,7 @@ from dxrexperiments_torch.app import headless
 from dxrexperiments_torch.core.camera import Camera as TCamera
 from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline as TPipeline
 from dxrexperiments_torch.ops import fused_sample as tfs
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene import Scene as TScene
 from dxrexperiments_torch.scene import cornell_box as t_cornell_box
 from dxrexperiments_torch.scene import envmap as t_envmap
@@ -136,9 +137,9 @@ def test_fused_realtime_matches_pallas_interpret(name, opts, env):
     jcam = jax.tree.map(lambda x: x[0], jcams)
     tcam = {k: v[0] for k, v in tcams.items()}
     want = jfs.fused_realtime_outputs(jscene, jopts, jcam, W, H, ek, interpret=True)
-    before = tfs.REALTIME_LAUNCHES
+    before = launch_counts()["B1 realtime"]
     got = tfs.fused_realtime_outputs(tscene, topts, tcam, W, H, ek)
-    assert tfs.REALTIME_LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B1 realtime"] == before  # the CPU path launches no kernel
     assert tuple(got["direct"].shape) == (H, W, 3) and got["direct"].dtype == torch.float32
     assert_aovs_match({k: v.numpy() for k, v in got.items()}, want)
 

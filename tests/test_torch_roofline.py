@@ -30,6 +30,7 @@ import pytest
 import torch
 
 from dxrexperiments_torch.ops import roofline as rf
+from dxrexperiments_torch.ops.kernel import launch_counts
 
 ITERS, GRID, M_ITERS = rf.SMOKE_ITERS, rf.SMOKE_GRID, rf.SMOKE_M_ITERS
 f32 = np.float32
@@ -229,10 +230,10 @@ def test_plain_probes_match_roofline_kernels(roofline_kernels, case, which):
 @pytest.mark.parametrize("seed", [None, 5])
 def test_vector_probes_match_roofline(seed):
     a, b = inputs(seed)[:2]
-    before = (rf.FMA_LAUNCHES, rf.MIX_LAUNCHES)
+    before = launch_counts()
     got_fma = rf.fma_peak(torch.as_tensor(a), torch.as_tensor(b), ITERS, GRID)
     got_mix = rf.pair_mix(torch.as_tensor(a), torch.as_tensor(b), ITERS, GRID)
-    assert (rf.FMA_LAUNCHES, rf.MIX_LAUNCHES) == before  # the CPU path launches no kernel
+    assert launch_counts() == before  # the CPU path launches no kernel
     for got, want in ((got_fma, np_fma(a, b)), (got_mix, np_mix(a, b))):
         assert got.dtype == torch.float32 and tuple(got.shape) == (rf.SUB, rf.LANES * GRID)
         assert np.isfinite(want).all()
@@ -245,10 +246,10 @@ def test_vector_probes_match_roofline(seed):
     (True, True, 1), (True, True, 2), (True, False, 4), (False, True, 1)])
 def test_overlap_matches_roofline(do_vector, do_matrix, scale):
     a, b, mt, rays = inputs(7)
-    before = rf.OVERLAP_LAUNCHES
+    before = launch_counts()["B7 overlap"]
     got = rf.overlap(*(torch.as_tensor(x) for x in (a, b, mt, rays)), do_vector, do_matrix,
                      scale, M_ITERS, GRID)
-    assert rf.OVERLAP_LAUNCHES == before
+    assert launch_counts()["B7 overlap"] == before
     o, t, last = np_overlap(a, b, mt, rays, do_vector, do_matrix, scale)
     np.testing.assert_allclose(got["o"].numpy(), o, rtol=1e-6)
     np.testing.assert_allclose(got["t"].numpy(), t, rtol=1e-6)

@@ -24,6 +24,7 @@ from dxrexperiments_torch.core import rng as trng
 from dxrexperiments_torch.core.camera import primary_ray_grid as t_primary_ray_grid
 from dxrexperiments_torch.ops import fused_sample as tfs
 from dxrexperiments_torch.ops import fused_traverse as tft
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene.convert import (
     camera_from_numpy,
     options_from_numpy,
@@ -129,9 +130,9 @@ def test_plain_b1_row_block_matches_pallas_interpret():
     ek, py0, h = int(jscene["env"]["kind"]), 16, 16
     want = jfs.fused_progressive_sum(jscene, jopts, jcams, W, h, ek, interpret=True, py0=py0,
                                      full_height=FULL_H)
-    before = tfs.LAUNCHES
+    before = launch_counts()["B1"]
     got = tfs.fused_progressive_sum(tscene, topts, tcams, W, h, ek, py0=py0, full_height=FULL_H)
-    assert tfs.LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B1"] == before  # the CPU path launches no kernel
     assert_images_match(got.numpy(), want)
     full = tfs.fused_progressive_sum(tscene, topts, tcams, W, FULL_H, ek)
     assert torch.equal(got, full[py0:])

@@ -21,6 +21,8 @@ from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipelin
 from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
 from dxrexperiments_torch.ops import fused_sample as fs
 from dxrexperiments_torch.ops import fused_traverse as ft
+from dxrexperiments_torch.ops import kernel
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.trace.integrator import default_options
 from dxrexperiments_torch.utils import native
 from dxrexperiments_torch.utils import profiling as prof
@@ -259,18 +261,15 @@ def stand_in_launch(monkeypatch):
         name: (lambda *args: 0) for name in (
             "dxr_fused_progressive_sum", "dxr_fused_realtime_outputs",
             "dxr_fused_traverse_progressive_sum", "dxr_fused_traverse_realtime_outputs")})
-    monkeypatch.setattr(fs, "_device_of", lambda scene: types.SimpleNamespace(type="cuda"))
-    monkeypatch.setattr(ft, "_on_cuda", lambda scene: True)
+    monkeypatch.setattr(kernel, "on_card", lambda device: True)
     monkeypatch.setattr(fs, "_upload", upload)
-    monkeypatch.setattr(fs, "_library", lambda: lib)
-    monkeypatch.setattr(ft, "_library", lambda: lib)
-    monkeypatch.setattr(ft, "queue_error_check", lambda err, what: None)
+    monkeypatch.setattr(fs.B1, "lib", lib)
+    monkeypatch.setattr(ft.B5, "lib", lib)
+    monkeypatch.setattr(kernel, "queue_error_check", lambda err, what: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
-    for mod in (fs, ft):
-        monkeypatch.setattr(mod, "LAUNCHES", 0)
-        monkeypatch.setattr(mod, "REALTIME_LAUNCHES", 0)
+    kernel.reset_launch_counts()
 
 
 def cameras(cam, s):
@@ -292,7 +291,8 @@ def test_b1_wrapper_steps(recorder, stand_in_launch, realtime_mode):
     spans = prof.spans()
     (wrapper,) = by_name(spans, "B1.wrapper")
     assert wrapper.n == 3 and children(spans, wrapper) == [f"B1.{s}" for s in STEPS]
-    assert (fs.REALTIME_LAUNCHES, fs.LAUNCHES) == ((1, 0) if realtime_mode else (0, 1))
+    n = launch_counts()
+    assert (n["B1 realtime"], n["B1"]) == ((1, 0) if realtime_mode else (0, 1))
 
 
 @pytest.mark.parametrize("realtime_mode", [False, True])
@@ -305,7 +305,8 @@ def test_b5_wrapper_steps(recorder, stand_in_launch, realtime_mode):
     spans = prof.spans()
     (wrapper,) = by_name(spans, "B5.wrapper")
     assert wrapper.n == 2 and children(spans, wrapper) == [f"B5.{s}" for s in STEPS]
-    assert (ft.REALTIME_LAUNCHES, ft.LAUNCHES) == ((1, 0) if realtime_mode else (0, 1))
+    n = launch_counts()
+    assert (n["B5 realtime"], n["B5"]) == ((1, 0) if realtime_mode else (0, 1))
 
 
 # --------------------------------------------------------------------------- #

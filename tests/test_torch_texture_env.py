@@ -30,6 +30,7 @@ from dxrexperiments_torch.models.base import select_route
 from dxrexperiments_torch.models.progressive import make_progressive_step
 from dxrexperiments_torch.ops import fused_sample as tfs
 from dxrexperiments_torch.ops import fused_traverse as tft
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene import envmap as tenvmap
 from dxrexperiments_torch.scene.convert import (
     camera_from_numpy,
@@ -116,9 +117,9 @@ def test_b1_progressive_matches_pallas_interpret(kind, opts):
     assert "tex_autoroute" in tscene["bvh"] and select_route(tscene, "progressive") == "fused"
     ek = int(jscene["env"]["kind"])
     want = jfs.fused_progressive_sum(jscene, jopts, jcams, W, H, ek, interpret=True)
-    before = tfs.LAUNCHES
+    before = launch_counts()["B1"]
     got = tfs.fused_progressive_sum(tscene, topts, tcams, W, H, ek)
-    assert tfs.LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B1"] == before  # the CPU path launches no kernel
     assert_images_match(got.numpy() / S, np.asarray(want) / S)
 
 
@@ -146,9 +147,9 @@ def test_b5_progressive_matches_pallas_interpret(kind):
     assert select_route(tscene, "progressive") == "fused_traverse"
     ek = int(jscene["env"]["kind"])
     want = jft.fused_traverse_progressive_sum(jscene, jopts, jcams, W, H, ek, interpret=True)
-    before = tft.LAUNCHES
+    before = launch_counts()["B5"]
     got = tft.fused_traverse_progressive_sum(tscene, topts, tcams, W, H, ek)
-    assert tft.LAUNCHES == before
+    assert launch_counts()["B5"] == before
     assert_images_match(got.numpy() / S, np.asarray(want) / S)
 
 

@@ -29,6 +29,7 @@ import torch
 from dxrexperiments_torch.accel import tlas as ttlas
 from dxrexperiments_torch.app import headless as thead
 from dxrexperiments_torch.ops import traverse2 as tt2
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene import Scene as TScene
 from dxrexperiments_torch.scene.convert import scene_from_numpy
 from dxrexperiments_torch.scene.dynamic import refit_scene_instances
@@ -179,10 +180,10 @@ def test_plain_matches_jnp_closest(kind, cull):
     jd, td = both(kind)
     o, d = rays_for(kind, 3)
     want = jtlas.two_level_closest_jnp(jd, jnp.asarray(o), jnp.asarray(d), 1e-4, 3.0e37, cull)
-    before = tt2.CLOSEST_LAUNCHES
+    before = launch_counts()["B6a closest"]
     got = tt2.traverse2_fat_closest(td, torch.as_tensor(o), torch.as_tensor(d), 1e-4, 3.0e37,
                                     cull_backface=cull)
-    assert tt2.CLOSEST_LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B6a closest"] == before  # the CPU path launches no kernel
     assert_hits_equal({k: v.numpy() for k, v in got.items()}, want)
     np.testing.assert_array_equal(
         td["tlas"]["slot_tri"].numpy()[got["slot"].numpy()[got["hit"].numpy()]],

@@ -24,6 +24,7 @@ import torch
 
 from dxrexperiments_torch.models.base import select_route
 from dxrexperiments_torch.ops import traverse as ttv
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene.convert import scene_from_numpy
 from dxrexperiments_torch.trace import integrator as tint
 from dxrexperiments_tpu.app.headless import build_scene as j_build_scene
@@ -101,10 +102,10 @@ def test_plain_matches_pallas_fat_closest(kind, cull):
     o, d = rays(tscene)
     want = jtv.traverse_fat_closest(jscene["bvh"], jnp.asarray(o), jnp.asarray(d), t_min=1e-4,
                                     leaf_size=32, cull_backface=cull, interpret=True)
-    before = ttv.CLOSEST_LAUNCHES
+    before = launch_counts()["B4a closest"]
     got = ttv.traverse_fat_closest(tscene, torch.as_tensor(o), torch.as_tensor(d), 1e-4,
                                    cull_backface=cull)
-    assert ttv.CLOSEST_LAUNCHES == before  # the CPU path launches no kernel
+    assert launch_counts()["B4a closest"] == before  # the CPU path launches no kernel
     hit_gate(got["hit"], got["t"], got["tri"], want["hit"], want["t"], want["tri"])
     same = np.asarray(got["hit"]) & (got["tri"].numpy() == np.asarray(want["tri"]))
     np.testing.assert_array_equal(got["slot"].numpy()[same], np.asarray(want["slot"])[same])
@@ -184,12 +185,12 @@ def test_bvh_route_needs_fat_nodes():
     assert tint.walk_functions(fatless, "cuda") == (ttv.traverse_closest, ttv.traverse_any)
     assert tint.walk_functions(fatless, "torch") == tint.walk_functions(tscene, "torch")
     o, d = (torch.as_tensor(x) for x in rays(tscene, seed=6))
-    before = (ttv.BINARY_CLOSEST_LAUNCHES, ttv.BINARY_ANY_LAUNCHES)
+    before = launch_counts()
     got = tint._trace_any(fatless, o, d, 1e-4, 7.5, impl="torch")
     assert torch.equal(got, tint._trace_any(tscene, o, d, 1e-4, 7.5, impl="torch"))
     # the binary wrappers on CPU rays take the plain version and launch nothing
     assert torch.equal(ttv.traverse_any(fatless, o, d, 1e-4, 7.5), got)
-    assert (ttv.BINARY_CLOSEST_LAUNCHES, ttv.BINARY_ANY_LAUNCHES) == before
+    assert launch_counts() == before
 
 
 @pytest.mark.parametrize("case", ["cornell", "soup_rig", "soup_two_points", "ao_only"])

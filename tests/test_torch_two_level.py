@@ -25,6 +25,7 @@ from dxrexperiments_torch.models.base import select_route
 from dxrexperiments_torch.models.progressive import ProgressiveRaytracingPipeline
 from dxrexperiments_torch.models.realtime import RealtimeRaytracingPipeline
 from dxrexperiments_torch.ops import traverse2 as tt2
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.scene.convert import camera_from_numpy, options_from_numpy, scene_from_numpy
 from dxrexperiments_torch.trace import integrator as tint
 from dxrexperiments_tpu.core.camera import Camera, camera_params
@@ -149,12 +150,12 @@ def test_realtime_pipeline_on_two_level_scene():
 
 
 def test_cli_two_level_animated(tmp_path, capsys):
-    before = (tt2.CLOSEST_LAUNCHES, tt2.ANY_LAUNCHES)
+    before = launch_counts()
     out = tmp_path / "two.png"
     assert thead.main(["--scene", "instanced:2", "--accel", "two-level", "--animate-instances",
                        "--size", "16x16", "--spp", "2", "--device", "cpu", "-o", str(out)]) == 0
     assert out.exists() and "progressive (cpu): 2 spp" in capsys.readouterr().out
-    assert (tt2.CLOSEST_LAUNCHES, tt2.ANY_LAUNCHES) == before
+    assert launch_counts() == before
     # realtime renders the flattened scene and says it ignored the flag, as the
     # JAX CLI renders it
     rt = ["--pipeline", "realtime", "--scene", "instanced:2", "--size", "16x16", "--device", "cpu"]

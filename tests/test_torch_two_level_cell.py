@@ -32,6 +32,8 @@ from dxrexperiments_torch.models import progressive as prog_mod
 from dxrexperiments_torch.ops import fused_sample as fs
 from dxrexperiments_torch.ops import fused_traverse as ft
 from dxrexperiments_torch.ops import traverse2
+from dxrexperiments_torch.ops import kernel
+from dxrexperiments_torch.ops.kernel import launch_counts
 from dxrexperiments_torch.trace import integrator
 from dxrexperiments_torch.trace.integrator import default_options, render_sample
 from dxrexperiments_torch.utils import profiling as prof
@@ -170,14 +172,14 @@ def stand_in_b6a(monkeypatch):
                 ctypes.memset(ptr, 0xFF, 4 * rays)
         return 0
 
-    monkeypatch.setattr(traverse2, "_on_cuda", lambda t: True)
-    monkeypatch.setattr(traverse2, "_library", lambda kind="fat": walk)
-    monkeypatch.setattr(traverse2, "queue_error_check", lambda err, what: None)
+    monkeypatch.setattr(kernel, "on_card", lambda device: True)
+    monkeypatch.setattr(traverse2.WALKS["fat"][0], "lib",
+                        types.SimpleNamespace(dxr_traverse2_fat=walk))
+    monkeypatch.setattr(kernel, "queue_error_check", lambda err, what: None)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
-    monkeypatch.setattr(traverse2, "CLOSEST_LAUNCHES", 0)
-    monkeypatch.setattr(traverse2, "ANY_LAUNCHES", 0)
+    kernel.reset_launch_counts()
 
 
 def test_each_b6a_launch_span_nests_in_its_trace_span(stand_in_b6a):
@@ -194,7 +196,8 @@ def test_each_b6a_launch_span_nests_in_its_trace_span(stand_in_b6a):
     spans = prof.spans()
     kids = tree(spans)
     traces = [s for s in spans if s.name == "wavefront.trace"]
-    assert len(traces) == 4 == traverse2.CLOSEST_LAUNCHES + traverse2.ANY_LAUNCHES
+    n = launch_counts()
+    assert len(traces) == 4 == n["B6a closest"] + n["B6a any"]
     for t in traces:
         assert names(kids, t) == [("B6a.launch", t.n)]
     assert sorted(t.n for t in traces) == [256, 512, 512, 1024]

@@ -199,7 +199,7 @@ def test_wide_and_grouped_walks_read_leaf_records(kind):
     per mt_rows row); a missing or stale ft_test raises."""
     bvh = port(soup_scene())["bvh"]
     nodes, rec = ttv.check_bvh(bvh, torch.device("cpu"), kind)
-    assert nodes is bvh[ttv.WALKS[kind][2]] and rec is bvh["ft_test"]
+    assert nodes is bvh[ttv.WALKS[kind][1]] and rec is bvh["ft_test"]
     for bad, match in (({k: v for k, v in bvh.items() if k != "ft_test"}, "ft_test missing"),
                        (dict(bvh, ft_test=bvh["ft_test"][:-1].contiguous()), "one record per"),
                        (dict(bvh, ft_test=bvh["mt_rows"]), "expected float32")):
